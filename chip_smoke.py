@@ -10,22 +10,34 @@ launch) and then, failing on the first mismatch:
 2. holds every kernel against its plain PyTorch version on the card, at
    the shapes of the main path: 1,048,576 stats rows, 131,072 entries
    with one rule slot, window updates of 4 x 131,072; plus a Zipf-skewed
-   case with exits. Equality is exact (int32 state, float32 compares in
-   the same order). Times each kernel, its plain version and, where one
+   case with exits. Then the rest of the slot chain at the same width:
+   flow admission with the occupy branch (1/8 of the entries
+   prioritized, a partly filled future slab), the borrow commit, the
+   system check (thresholds under which every dimension blocks), and the
+   breakers (1,048,576 breakers of three grades, CLOSED, OPEN and due,
+   HALF_OPEN; 32,768 exits, 30% errors) with the verdict tail, uniform
+   and Zipf. Equality is exact (int32 state, float32 compares in the
+   same order). Times each kernel, its plain version and, where one
    PyTorch call computes the same function, that call;
-3. runs flush_step at that shape with exits off, then on, through the
-   kernels and through the plain versions: identical results and state;
-   prints ms per flush and entries/s, and a torch.profiler breakdown of
-   one step's device time;
+3. runs flush_step at that shape with exits off, then on, then with
+   every stage on (occupy, system, breakers), through the kernels and
+   through the plain versions: identical results and state; prints ms
+   per flush and entries/s, and a torch.profiler breakdown of one step's
+   device time;
 4. drives the engine through the public API (6,000 DEFAULT QPS rules,
    10 simulated seconds of Zipf-skewed submit_bulk traffic in
    32,768-entry flushes, st.entry calls and exits) on the card, with
    every kernel launch counter set to 0 just before and read just after,
    and the same stream on the port's CPU engine: identical verdicts and
-   final state;
+   final state; then the slot chain's stream the same way: breakers on a
+   third of the resources, system rules, authority rules on some
+   origins, prioritized entries, and exits that complete the breakers:
+   identical verdicts, wait_ms, attribution, stats and breaker state;
 5. runs the flow_qps_demo scenario on the card: 8 threads, 3 s of real
    clock, st.entry against a QPS = 20 rule; prints pass/s and the
-   st.entry latency percentiles.
+   st.entry latency percentiles;
+6. runs examples/degrade_demo.py's sequence on the card and checks its
+   lines.
 
 Its output ends with a ``{"kernels": [...]}`` line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}`` as the last line. It
@@ -33,6 +45,9 @@ exits non-zero, with no result, without CUDA or without the rest of the
 checkout beside it.
 """
 
+from __future__ import annotations
+
+import contextlib
 import json
 import os
 import subprocess
@@ -56,13 +71,16 @@ if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
     sys.exit(2)
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 try:
     import sentinel_tpu_torch as st
     from sentinel_tpu_torch.core import api
     from sentinel_tpu_torch.metrics import metric_array as ma
     from sentinel_tpu_torch.metrics import nodes
     from sentinel_tpu_torch.metrics.events import NUM_EVENTS
+    from sentinel_tpu_torch.models import constants as C
+    from sentinel_tpu_torch.rules import degrade_table as tdt
     from sentinel_tpu_torch.rules.flow_table import FlowTableDevice, flow_table_from_numpy
     from sentinel_tpu_torch.runtime import flush
     from sentinel_tpu_torch.utils import clock as tclock
@@ -236,21 +254,117 @@ def exit_updates(batch: flush.FlushBatch):
     return rows, batch.x_ts.repeat_interleave(4), d, sample, thr4, mask
 
 
-def plain_flush_step(stats, table, batch, with_exits: bool, topk: int):
-    """flush_step with every kernel replaced by its plain version."""
-    nodes.materialize_matured_plain(stats, batch.now)
+ND = R  # breakers: one per resource
+M = N // 4  # exits per flush
 
-    def updates(rows, ts, deltas, rt, thr, mask):
-        ma.update_plain(nodes.SECOND_CFG, stats.second, rows, ts, deltas, rt, mask)
-        ma.update_plain(nodes.MINUTE_CFG, stats.minute, rows, ts, deltas, rt, mask)
-        nodes.thread_gauge_add_plain(stats.threads, rows, thr, mask)
 
-    if with_exits:
-        updates(*exit_updates(batch))
-    adm = flush.flow_admission_plain(stats, table, batch, topk)
-    rows, ts, d, thr, mask = entry_updates(batch, adm.admitted)
-    updates(rows, ts, d, None, thr, mask)
-    return stats, adm
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper the flush step calls swapped for its plain
+    version: the comparison side of the slot chain's step."""
+    swaps = [
+        (flush, "materialize_matured", nodes.materialize_matured_plain),
+        (ma, "update", ma.update_plain),
+        (nodes, "thread_gauge_add", nodes.thread_gauge_add_plain),
+        (flush, "flow_admission", flush.flow_admission_plain),
+        (flush, "system_check", flush.system_check_plain),
+        (flush, "commit_borrow_slab", flush.commit_borrow_slab_plain),
+        (flush, "slot_chain_verdict", flush.slot_chain_verdict_plain),
+        (tdt, "breaker_on_exits", tdt.breaker_on_exits_plain),
+        (tdt, "breaker_try_pass", tdt.breaker_try_pass_plain),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def make_chain_stats(now: int, gen) -> nodes.StatsState:
+    """make_stats where borrows can fit: on half the rows the window that
+    expires next holds most of the pass and the current one little; 30%
+    of the slab's cells hold a few tokens for the next two windows; the
+    global inbound row 0 holds a known window (pass 20, success 10, RT sum
+    600, min RT 20/30) and no threads."""
+    s = make_stats(now, gen)
+    wlen = nodes.SECOND_CFG.window_len_ms
+    cur = now - now % wlen
+    idx = (cur // wlen) % 2
+    pick = torch.rand(R, generator=gen, device=DEV) < 0.5
+    ws, counts = s.second.window_start, s.second.counts
+    ws[:, idx] = torch.where(pick, cur, ws[:, idx])
+    ws[:, 1 - idx] = torch.where(pick, cur - wlen, ws[:, 1 - idx])
+    counts[:, idx, 0] = torch.where(pick, torch.randint(0, 2, (R,), generator=gen, device=DEV, dtype=I32),
+                                    counts[:, idx, 0])
+    counts[:, 1 - idx, 0] = torch.where(pick, torch.randint(15, 30, (R,), generator=gen, device=DEV, dtype=I32),
+                                        counts[:, 1 - idx, 0])
+    fut = torch.rand((R, 2), generator=gen, device=DEV) < 0.3
+    target = torch.tensor([0, 0], dtype=I32, device=DEV)
+    target[1 - idx], target[idx] = cur + wlen, cur + 2 * wlen
+    s.future_ws.copy_(torch.where(fut, target[None, :], s.future_ws))
+    s.future_pass.copy_(torch.where(fut, torch.randint(1, 4, (R, 2), generator=gen, device=DEV, dtype=I32), 0))
+    counts[0] = 0
+    counts[0, :, 0], counts[0, :, 3], counts[0, :, 4] = 10, 5, 300
+    s.second.min_rt[0] = torch.tensor([20, 30], dtype=I32, device=DEV)
+    ws[0, idx], ws[0, 1 - idx] = cur, cur - wlen
+    s.threads[0] = 0
+    return s
+
+
+def make_chain_batch(rng, now: int, skewed: bool) -> flush.FlushBatch:
+    """make_batch with exits, plus: half the entries inbound, 1/8
+    prioritized, 3% refused by authority, each entry's and exit's breaker
+    (one per resource), errors on 30% of the exits."""
+    b = make_batch(rng, now, skewed=skewed, with_exits=True)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    rows = b.e_rows.clone()
+    rows[:, 3] = torch.where(t(rng.random(N) < 0.5), 0, -1)  # half the entries inbound
+    return b._replace(
+        e_rows=rows,
+        e_prio=t(rng.random(N) < 1 / 8), e_auth_ok=t(rng.random(N) < 0.97),
+        e_dgid=b.e_rule_gid.clone(), x_dgid=b.x_rows[:, 1:2].contiguous(),
+        x_err=t((rng.random(M) < 0.3).astype(np.int32)),
+    )
+
+
+def make_breakers(now: int, gen):
+    """ND breakers of the three grades, CLOSED (60%), OPEN (25%, about
+    half of them due) and HALF_OPEN (15%), 5% with min_request at its
+    padding value, windows current or superseded."""
+    def ri(lo, hi):
+        return torch.randint(lo, hi, (ND,), generator=gen, device=DEV, dtype=I32)
+
+    u = torch.rand(ND, generator=gen, device=DEV)
+    grade = ri(0, 3)
+    thr = torch.where(grade == 0, ri(50, 150).float(),
+                      torch.where(grade == 1, 0.3 + 0.4 * u, ri(2, 7).float())).float()
+    min_req = torch.where(u < 0.05, 2**31 - 1, ri(2, 6)).to(I32)
+    table = tdt.DegradeTableDevice(
+        grade=grade, threshold=thr.contiguous(), slow_ratio=torch.full((ND,), 0.5, device=DEV),
+        min_request=min_req, interval_ms=torch.full((ND,), 1000, dtype=I32, device=DEV),
+        retry_ms=torch.full((ND,), 5000, dtype=I32, device=DEV), max_rt=(thr + 0.5).to(I32),
+    )
+    v = torch.rand(ND, generator=gen, device=DEV)
+    state = torch.where(v < 0.6, 0, torch.where(v < 0.85, 1, 2)).to(I32)
+    bad = ri(0, 4)
+    dyn = tdt.DegradeDynState(
+        state=state, next_retry=(now + ri(-2000, 2000)).to(I32), bad=bad, total=(bad + ri(0, 4)).to(I32),
+        ws=(now - now % 1000 - 1000 * ri(0, 2)).to(I32),
+    )
+    return table, dyn
+
+
+def sys_device(case: str) -> flush.SystemDevice:
+    """Thresholds under which every dimension blocks some of a batch's
+    N/2 inbound entries: QPS past inbound rank ~0.4 N, threads past 0.25 N;
+    with "rt" the average RT (60 ms) blocks the rest, without it BBR load
+    blocks from rank 2 and the CPU below that."""
+    inf = float("inf")
+    rt = 10.0 if case == "rt" else inf
+    return flush.SystemDevice(float(0.4 * N), float(0.25 * N), rt, 1.0, 0.5, 5.0, 0.9)
 
 
 # ---------------------------------------------------------------------------
@@ -395,9 +509,162 @@ def phase2(results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def slab_only(stats: nodes.StatsState) -> nodes.StatsState:
+    """The stats with a private copy of the future slab (all K5 writes)."""
+    return stats._replace(future_pass=stats.future_pass.clone(), future_ws=stats.future_ws.clone())
+
+
+def phase2_chain(results: dict) -> None:
+    log("phase 2b: the rest of the slot chain against the plain versions (occupy, borrow commit, "
+        "system, breakers, verdict tail)")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(21)
+    rng = np.random.default_rng(21)
+    now = 1_000_137  # 137 ms into the window: a borrow's wait is under 500 ms
+    table = make_table()
+    for skewed in (False, True):
+        tag = "zipf" if skewed else "uniform"
+        stats = make_chain_stats(now, gen)
+        batch = make_chain_batch(rng, now, skewed)
+        ddev, dyn = make_breakers(now, gen)
+        sysdev = sys_device("rt" if not skewed else "bbr")
+        errs = {}
+        # K6 system_check
+        live0 = batch.e_valid & batch.e_auth_ok
+        w = flush.system_check_plain(stats, sysdev, batch, live0)
+        g = flush.system_check(stats, sysdev, batch, live0)
+        errs["system_check"] = require_equal(w, g, f"system_check ({tag})")
+        sys_ok, sys_type = g
+        live = live0 & sys_ok
+        # K4 with the occupy branch
+        w = flush.flow_admission_plain(stats, table, batch, 0, live, 500, True, False)
+        adm = flush.flow_admission(stats, table, batch, 0, live, 500, True, False)
+        errs["flow_admission_occupy"] = require_equal(w, adm, f"flow_admission with occupy ({tag})")
+        # K7 breaker_on_exits
+        w = tdt.breaker_on_exits_plain(ddev, clone(dyn), batch.x_dgid, batch.x_ts, batch.x_rt, batch.x_err,
+                                       batch.x_valid)
+        dyn_x = tdt.breaker_on_exits(ddev, clone(dyn), batch.x_dgid, batch.x_ts, batch.x_rt, batch.x_err,
+                                     batch.x_valid)
+        errs["breaker_on_exits"] = require_equal(w, dyn_x, f"breaker_on_exits ({tag})")
+        # K8 breaker_try_pass, against the post-exit state
+        e_live = live & adm.flow_pass & batch.e_cluster_ok & ~adm.occupied
+        w = tdt.breaker_try_pass_plain(ddev, dyn_x, batch.e_dgid, batch.e_ts, e_live)
+        dslot_ok, probe = tdt.breaker_try_pass(ddev, dyn_x, batch.e_dgid, batch.e_ts, e_live)
+        errs["breaker_try_pass"] = require_equal(w, (dslot_ok, probe), f"breaker_try_pass ({tag})")
+        # The verdict tail with the probe transitions
+        dyn_w, dyn_g = clone(dyn_x), clone(dyn_x)
+        wv = flush.slot_chain_verdict_plain(batch, adm, sys_ok, dslot_ok, probe, dyn_w, R, 8)
+        v = flush.slot_chain_verdict(batch, adm, sys_ok, dslot_ok, probe, dyn_g, R, 8)
+        errs["slot_chain_verdict"] = max(require_equal(wv, v, f"slot_chain_verdict ({tag})"),
+                                         require_equal(dyn_w, dyn_g, f"probe transitions ({tag})"))
+        # K5 commit_borrow_slab of the admitted borrows
+        w = flush.commit_borrow_slab_plain(slab_only(stats), v.occ_slot, adm.occ_target, batch.e_acquire,
+                                           batch.e_check_row)
+        g = flush.commit_borrow_slab(slab_only(stats), v.occ_slot, adm.occ_target, batch.e_acquire,
+                                     batch.e_check_row)
+        errs["commit_borrow_slab"] = require_equal(w, g, f"commit_borrow_slab ({tag})")
+        for name, err in errs.items():
+            results[name]["max_abs_err"] = max(results[name].get("max_abs_err", 0), err)
+        st_before, st_after = dyn.state, dyn_g.state
+        moved = {
+            "closed_to_open": int(((st_before == 0) & (dyn_x.state == 1)).sum()),
+            "half_open_resolved": int(((st_before == 2) & (dyn_x.state != 2)).sum()),
+            "probes_to_half_open": int(((dyn_x.state == 1) & (st_after == 2)).sum()),
+        }
+        sys_counts = torch.bincount(sys_type, minlength=6).tolist()
+        reasons = torch.bincount(v.reason, minlength=5).tolist()
+        log(f"  {tag}: K4 occupy, K5, K6, K7, K8 and the tail equal their plain versions (max abs err 0); "
+            f"{int(adm.occupied.sum())} entries borrowed, {int(v.occupied.sum())} admitted so; "
+            f"sys_type counts {sys_counts}; reasons {reasons}; breaker moves {moved}")
+        # QPS, thread and RT show with the RT rule; QPS, thread, load and CPU without.
+        shown = (1, 2, 3) if not skewed else (1, 2, 4, 5)
+        if min(sys_counts[c] for c in shown) == 0:
+            fail(f"phase 2b ({tag}): a system dimension blocked nothing: {sys_counts}")
+        if int(v.occupied.sum()) == 0 or min(moved.values()) == 0:
+            fail(f"phase 2b ({tag}): the inputs did not exercise occupy or every breaker transition")
+
+        # Timing, on both cases; the uniform case is the one recorded.
+        prefix = "" if not skewed else "zipf_"
+        adm0 = flush.flow_admission_plain(stats, table, batch, 0, live, 500, False, False)
+        eligible = int((~adm0.slot_ok[:, 0] & batch.e_prio & live & batch.e_cluster_ok).sum())
+        t = {
+            "system_check": (lambda: flush.system_check(stats, sysdev, batch, live0),
+                             lambda: flush.system_check_plain(stats, sysdev, batch, live0)),
+            "flow_admission_occupy": (
+                lambda: flush.flow_admission(stats, table, batch, 0, live, 500, True, False),
+                lambda: flush.flow_admission_plain(stats, table, batch, 0, live, 500, True, False)),
+            "breaker_on_exits": (
+                lambda: tdt.breaker_on_exits(ddev, dyn_s, batch.x_dgid, batch.x_ts, batch.x_rt, batch.x_err,
+                                             batch.x_valid),
+                lambda: tdt.breaker_on_exits_plain(ddev, dyn_s, batch.x_dgid, batch.x_ts, batch.x_rt,
+                                                   batch.x_err, batch.x_valid)),
+            "breaker_try_pass": (lambda: tdt.breaker_try_pass(ddev, dyn_x, batch.e_dgid, batch.e_ts, e_live),
+                                 lambda: tdt.breaker_try_pass_plain(ddev, dyn_x, batch.e_dgid, batch.e_ts, e_live)),
+            "slot_chain_verdict": (
+                lambda: flush.slot_chain_verdict(batch, adm, sys_ok, dslot_ok, probe, dyn_s, R, 8),
+                lambda: flush.slot_chain_verdict_plain(batch, adm, sys_ok, dslot_ok, probe, dyn_s, R, 8)),
+            "commit_borrow_slab": (
+                lambda: flush.commit_borrow_slab(slab_s, v.occ_slot, adm.occ_target, batch.e_acquire,
+                                                 batch.e_check_row),
+                lambda: flush.commit_borrow_slab_plain(slab_s, v.occ_slot, adm.occ_target, batch.e_acquire,
+                                                       batch.e_check_row)),
+        }
+        dyn_s = clone(dyn)  # scratch state for the kernels that write it
+        slab_s = slab_only(stats)
+        times = {name: (time_ms(k), time_ms(p)) for name, (k, p) in t.items()}
+        nk = N  # K = 1
+        touched_x = torch.unique(batch.x_dgid[batch.x_valid]).numel()
+        touched_e = torch.unique(batch.e_dgid[e_live[:, None].expand_as(batch.e_dgid)]).numel()
+        occ_keys = torch.unique(batch.e_check_row[v.occ_slot]).numel()
+        dense = torch.zeros(R, dtype=I32, device=DEV)
+        blocked = batch.e_valid & ~v.admitted
+        dense.index_add_(0, batch.e_rows[:, 1][blocked].long(), batch.e_acquire[blocked])
+        info = {
+            "system_check": dict(
+                bound=bound(N * (1 + 4 + 4 + 4 + 1 + 4)), library_ms=None,
+                shape=f"N={N} inbound entries against row 0 of [{R},2,6]"),
+            "flow_admission_occupy": dict(
+                # flow_admission's bytes (see phase 2) with the occupy inputs:
+                # prio and live flags per entry, each eligible slot's two slab
+                # cells and two bucket heads; outputs the borrow verdicts.
+                bound=bound(nk * 32 + N * (3 + 2 + 4 + 16) + eligible * 32 + nk * (1 + 1 + 4) + N * (1 + 1 + 4),
+                            ops=nk * 4 + eligible * 16),
+                library_ms=None, shape=f"N={N} entries x K=1, 1/8 prioritized, {eligible} eligible slots"),
+            "breaker_on_exits": dict(
+                bound=bound(M * (4 + 4 + 4 + 4 + 1) + touched_x * (28 + 20 + 20)), library_ms=None,
+                shape=f"M={M} exits x KD=1 into ND={ND} breakers ({touched_x} touched)"),
+            "breaker_try_pass": dict(
+                bound=bound(N * (4 + 4 + 1 + 2) + touched_e * 8), library_ms=None,
+                shape=f"N={N} entries x KD=1 against ND={ND} breakers"),
+            "slot_chain_verdict": dict(
+                bound=bound(N * (1 + 1 + 1 + 1 + 1 + 1 + 4 + 1 + 1 + 4 + 1 + 4 + 4) + N * (1 + 4 + 4 + 1 + 1 + 1)),
+                library_ms=time_ms(lambda: torch.topk(dense, 8)),
+                library_call="torch.topk(k=8) over the [R] blocked weights (the top-K step only)",
+                shape=f"N={N} entries, KD=1, R={R} rows, top-8"),
+            "commit_borrow_slab": dict(
+                bound=bound(nk * (1 + 4 + 4) + N * 4 + occ_keys * 16), library_ms=None,
+                shape=f"N={N} borrow slots into the slab [{R},2] ({occ_keys} cells touched)"),
+        }
+        for name, (k_ms, p_ms) in times.items():
+            log(f"    {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({tag})")
+            if not skewed:
+                results[name].update(ms=k_ms, plain_ms=p_ms, **info[name])
+            else:
+                results[name].update(zipf_ms=k_ms, zipf_plain_ms=p_ms)
+        del stats, batch, ddev, dyn, dyn_x, dyn_s, slab_s, adm, adm0, v, wv
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: flush_step at the north-star shape
 # ---------------------------------------------------------------------------
+
+
+def step_times(run, repeats: int = 5) -> tuple:
+    """The median of ``repeats`` timings of 10 steps each, and their range
+    as text: the run's own noise on this card."""
+    ts = sorted(time_ms(run, iters=10) for _ in range(repeats))
+    return ts[len(ts) // 2], f"(median of {repeats}; range {ts[0]:.4f}-{ts[-1]:.4f})"
 
 
 def phase3() -> None:
@@ -413,23 +680,54 @@ def phase3() -> None:
         kern = clone(base)
         plain = clone(base)
         _, res = flush.flush_step(kern, table, batch, with_exits=with_exits, blk_topk=8)
-        _, adm = plain_flush_step(plain, table, batch, with_exits, 8)
-        for name in ("admitted", "reason", "slot_ok", "blk_rows", "blk_weight"):
-            require_equal(getattr(adm, name), getattr(res, name), f"flush_step {name} (exits={with_exits})")
+        with plain_kernels():
+            _, want = flush.flush_step(plain, table, batch, with_exits=with_exits, blk_topk=8)
+        require_equal(want, res, f"flush_step results (exits={with_exits})")
         require_equal(plain, kern, f"flush_step state (exits={with_exits})")
         del base, plain
         torch.cuda.empty_cache()
-        k_ms = time_ms(lambda: flush.flush_step(kern, table, batch, with_exits=with_exits, blk_topk=8), iters=10)
-        p_ms = time_ms(lambda: plain_flush_step(kern, table, batch, with_exits, 8), iters=5)
-        log(f"  exits={'on' if with_exits else 'off'}: kernels {k_ms:.4f} ms/flush "
+        k_ms, k_spread = step_times(lambda: flush.flush_step(kern, table, batch, with_exits=with_exits, blk_topk=8))
+        with plain_kernels():
+            p_ms = time_ms(lambda: flush.flush_step(kern, table, batch, with_exits=with_exits, blk_topk=8), iters=5)
+        log(f"  exits={'on' if with_exits else 'off'}: kernels {k_ms:.4f} ms/flush {k_spread} "
             f"({N / k_ms * 1e3:,.0f} entries/s), plain {p_ms:.4f} ms/flush "
             f"({N / p_ms * 1e3:,.0f} entries/s); results and state identical")
-        profile_step(kern, table, batch, with_exits)
+        profile_step(lambda: flush.flush_step(kern, table, batch, with_exits=with_exits, blk_topk=8),
+                     f"exits={'on' if with_exits else 'off'}")
         del kern
         torch.cuda.empty_cache()
 
+    # Every stage on: prioritized entries, a system rule, ND breakers; 137 ms
+    # into the window, so that a borrow's wait can be under 500 ms.
+    now += 137
+    base = make_chain_stats(now, gen)
+    batch = make_chain_batch(rng, now, skewed=False)
+    ddev, dyn = make_breakers(now, gen)
+    kern, plain, dk, dp = clone(base), clone(base), clone(dyn), clone(dyn)
+    del base
+    args = dict(with_exits=True, blk_topk=8, ddev=ddev, sysdev=sys_device("rt"), occupy_timeout_ms=500,
+                with_occupy=True, with_system=True, with_degrade=True)
+    _, res = flush.flush_step(kern, table, batch, ddyn=dk, **args)
+    with plain_kernels():
+        _, want = flush.flush_step(plain, table, batch, ddyn=dp, **args)
+    require_equal(want, res, "flush_step results (every stage on)")
+    require_equal(plain, kern, "flush_step state (every stage on)")
+    require_equal(dp, dk, "flush_step breaker state (every stage on)")
+    del plain
+    torch.cuda.empty_cache()
+    k_ms, k_spread = step_times(lambda: flush.flush_step(kern, table, batch, ddyn=dk, **args))
+    with plain_kernels():
+        p_ms = time_ms(lambda: flush.flush_step(kern, table, batch, ddyn=dk, **args), iters=5)
+    log(f"  every stage on (occupy, system, {ND:,} breakers, {M:,} exits): kernels {k_ms:.4f} ms/flush {k_spread} "
+        f"({N / k_ms * 1e3:,.0f} entries/s), plain {p_ms:.4f} ms/flush ({N / p_ms * 1e3:,.0f} entries/s); "
+        f"results and state identical; {int(res.occupied.sum())} borrowed, reasons "
+        f"{torch.bincount(res.reason, minlength=5).tolist()}")
+    profile_step(lambda: flush.flush_step(kern, table, batch, ddyn=dk, **args), "every stage on")
+    del kern
+    torch.cuda.empty_cache()
 
-def profile_step(stats, table, batch, with_exits: bool, steps: int = 5) -> None:
+
+def profile_step(run, label: str, steps: int = 5) -> None:
     """Where one flush_step's device time goes: torch.profiler (CUPTI)
     over ``steps`` steps, self device time per op per step, largest
     first, and the device's busy share of the wall time."""
@@ -439,7 +737,7 @@ def profile_step(stats, table, batch, with_exits: bool, steps: int = 5) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            flush.flush_step(stats, table, batch, with_exits=with_exits, blk_topk=8)
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / steps
     rows = []
@@ -452,7 +750,7 @@ def profile_step(stats, table, batch, with_exits: bool, steps: int = 5) -> None:
     if busy == 0:
         log("  profiler: no device time recorded (CUPTI unavailable); breakdown not measured")
         return
-    log(f"  profile (exits={'on' if with_exits else 'off'}): device busy {busy:.1f} us of "
+    log(f"  profile ({label}): device busy {busy:.1f} us of "
         f"{wall_us:.1f} us wall per step under the profiler ({busy / wall_us:.1%})")
     for us, name in rows[:12]:
         log(f"    {us:9.1f} us  {us / busy:6.1%}  {name[:90]}")
@@ -562,6 +860,145 @@ def phase4(results: dict) -> None:
         fail("phase 4 admitted nothing or everything: the stream did not exercise the rules")
 
 
+CHAIN_STEPS = 40  # 100 ms each: 4 simulated seconds
+
+
+def _verdict_record(v) -> tuple:
+    rule = None if v.blocked_rule is None else json.dumps(v.blocked_rule.to_dict(), sort_keys=True, default=str)
+    return (v.admitted, v.reason, v.wait_ms, v.limit_type, rule)
+
+
+def drive_chain_engine(device: torch.device, seed: int):
+    """The slot chain's stream on one engine: 6,000 QPS rules, breakers on
+    every third resource (RT, exception ratio and exception count in
+    turn), system rules (QPS and average RT; the load sampler pinned),
+    white lists on every seventh resource, inbound and outbound Zipf bulk
+    traffic from three origins, 64 prioritized entries per flush on eight
+    cold resources, st.entry calls (one prioritized) and exits that
+    complete the breakers with 30% errors. Returns (records, final stats, breaker
+    state, bulk verdicts compared)."""
+    from sentinel_tpu_torch.utils.system_status import sampler
+
+    clock = tclock.ManualClock(0)
+    api.reset(clock=clock, device=device)
+    sampler.force(load=3.0, cpu=0.1)
+    st.flow_rule_manager.load_rules([st.FlowRule(f"r{i}", count=20) for i in range(N_RULES)])
+    st.degrade_rule_manager.load_rules([
+        st.DegradeRule(f"r{i}", grade=(i // 3) % 3, count=(100, 0.3, 20)[(i // 3) % 3], time_window=1,
+                       slow_ratio_threshold=0.5, min_request_amount=5)
+        for i in range(0, N_RULES, 3)
+    ])
+    st.system_rule_manager.load_rules([st.SystemRule(qps=150_000), st.SystemRule(avg_rt=140)])
+    st.authority_rule_manager.load_rules([st.AuthorityRule(f"r{i}", limit_app="appA")
+                                          for i in range(0, N_RULES, 7)])
+    eng = api.get_engine()
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, N_RULES + 1, dtype=np.float64) ** -1.1
+    p = ranks / ranks.sum()
+    origins = ["", "appA", "appB"]
+    records = []
+    reasons = np.zeros(6, np.int64)
+    waits = 0
+    prev_groups = []
+    flush_s = 0.0
+    for step in range(CHAIN_STEPS):
+        now = 1000 + step * 100
+        clock.set_ms(now)
+        res = rng.choice(N_RULES, size=FLUSH_N - 64, p=p)
+        ts = (now - rng.integers(0, 100, res.size)).astype(np.int32)
+        order = np.argsort(res, kind="stable")
+        res, ts = res[order], ts[order]
+        uniq, start = np.unique(res, return_index=True)
+        bounds = list(start) + [res.size]
+        groups = [
+            eng.submit_bulk(f"r{r}", int(bounds[i + 1] - bounds[i]), ts=np.sort(ts[bounds[i]:bounds[i + 1]]),
+                            origin=origins[(r + step) % 3],
+                            entry_type=C.EntryType.IN if r % 2 == 0 else C.EntryType.OUT)
+            for i, r in enumerate(uniq)
+        ]
+        # On eight cold resources: behind thousands of same-flush bulk
+        # entries (the hot ones) the conservative intra-batch charge leaves
+        # no room to borrow.
+        singles = [eng.submit_entry(f"r{N_RULES - 8 + j % 8}", origin="appA", prio=True,
+                                    ts=now - int(rng.integers(0, 50))) for j in range(64)]
+        for g in prev_groups[:100]:
+            if g.admitted_count:
+                n_x = g.admitted_count
+                # The mean RT alternates around the system rule's 140 ms.
+                eng.submit_exit_bulk(g.rows, n_x, rt=rng.integers(1, 300 if step % 4 < 2 else 200, n_x).astype(np.int32),
+                                     err=(rng.random(n_x) < 0.3).astype(np.int32), ts=now, resource=g.resource)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.flush()
+        flush_s += time.perf_counter() - t0
+        for g in groups:
+            records += [g.admitted, g.reason, g.wait_ms]
+            reasons += np.bincount(g.reason, minlength=6)[:6]
+        single = [_verdict_record(o.verdict) for o in singles]
+        records.append(np.array(single, dtype=object))
+        reasons += np.bincount([v[1] for v in single], minlength=6)[:6]
+        waits += sum(1 for v in single if v[2] > 0)
+        prev_groups = groups
+        for r in ("r0", "r1", "r3"):
+            clock.set_ms(now + 50)
+            try:
+                e = st.entry(r, prio=r == "r1")
+                records.append(np.array(["pass", clock.now_ms()], dtype=object))
+                clock.set_ms(clock.now_ms() + 10)
+                e.exit()
+            except st.BlockError as exc:
+                records.append(np.array([type(exc).__name__, getattr(exc, "limit_type", "")], dtype=object))
+    eng.flush()
+    sampler.force(load=-1.0, cpu=-1.0)
+    stats = nodes.stats_to_numpy(eng.stats)
+    return records, stats, tdt.degrade_state_to_numpy(eng.degrade_dyn), flush_s / CHAIN_STEPS, reasons, waits
+
+
+def phase4_chain(results: dict) -> None:
+    log(f"phase 4b: the slot chain through the public API (breakers on 2,000 of 6,000 resources, system and "
+        f"authority rules, prioritized entries; {CHAIN_STEPS} flushes of 32,768)")
+    # name -> (wrapper, counter): K4's occupy branch has a counter of its own,
+    # bumped only by the launches that run it.
+    counters = {
+        "materialize_matured": (nodes.materialize_matured, "launches"), "window_update": (ma.update, "launches"),
+        "thread_gauge": (nodes.thread_gauge_add, "launches"), "window_sums": (ma.window_reduce, "launches"),
+        "flow_admission_occupy": (flush.flow_admission, "occupy_launches"),
+        "commit_borrow_slab": (flush.commit_borrow_slab, "launches"),
+        "system_check": (flush.system_check, "launches"), "breaker_on_exits": (tdt.breaker_on_exits, "launches"),
+        "breaker_try_pass": (tdt.breaker_try_pass, "launches"),
+        "slot_chain_verdict": (flush.slot_chain_verdict, "launches"),
+    }
+    for w, attr in counters.values():
+        setattr(w, attr, 0)
+    gpu = drive_chain_engine(DEV, seed=5)
+    counts = {name: getattr(w, attr) for name, (w, attr) in counters.items()}
+    log(f"  card: {gpu[3] * 1e3:.3f} ms per 32,768-entry flush call (host encode and verdict copy included)")
+    log(f"  launches on the slot chain's path: {counts}")
+    for name, c in counts.items():
+        if c <= 0:
+            fail(f"kernel {name} was not launched on the slot chain's path")
+    for name in ("flow_admission_occupy", "commit_borrow_slab", "system_check", "breaker_on_exits",
+                 "breaker_try_pass", "slot_chain_verdict"):
+        results[name]["launches"] = counts[name]
+    cpu = drive_chain_engine(torch.device("cpu"), seed=5)
+    log(f"  CPU engine (plain versions): {cpu[3] * 1e3:.3f} ms per flush call")
+    if len(gpu[0]) != len(cpu[0]) or any(not np.array_equal(a, b) for a, b in zip(gpu[0], cpu[0])):
+        fail("slot chain engine verdicts, wait_ms or attribution differ between the card and the CPU")
+    for what, a_state, b_state in (("stats", gpu[1], cpu[1]), ("breaker state", gpu[2], cpu[2])):
+        for name in a_state._fields:
+            a, b = getattr(a_state, name), getattr(b_state, name)
+            for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+                if not np.array_equal(x, y):
+                    fail(f"slot chain engine {what} {name} differs between the card and the CPU")
+    reasons, waits = gpu[4], gpu[5]
+    log(f"  verdicts, wait_ms, attribution, stats and breaker state identical on card and CPU; reasons "
+        f"(pass, flow, degrade, system, authority) {reasons[:5].tolist()}; {waits} prioritized entries waited; "
+        f"final breaker states (closed, open, half-open) {np.bincount(gpu[2].state, minlength=3).tolist()}")
+    if min(reasons[:5]) == 0 or waits == 0:
+        fail("phase 4b: some stage of the slot chain blocked nothing, or no prioritized entry borrowed")
+
+
 # ---------------------------------------------------------------------------
 # phase 5: flow_qps_demo on the port
 # ---------------------------------------------------------------------------
@@ -628,12 +1065,49 @@ def phase5() -> None:
         f"p{round(q * 100)} {lat[int(q * n)] * 1e3:.3f} ms, max {lat[-1] * 1e3:.3f} ms")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: examples/degrade_demo.py on the port
+# ---------------------------------------------------------------------------
+
+DEMO_LINES = ["error"] * 5 + ["BLOCKED (breaker open)"] * 3 + ["ok", "ok"]
+
+
+def phase6() -> None:
+    log("phase 6: examples/degrade_demo.py's sequence on the card (exception-ratio breaker)")
+    clock = tclock.ManualClock(0)
+    prev = tclock.set_default_clock(clock)
+    api.reset(clock=clock, device=DEV)
+    st.flow_rule_manager.load_rules([st.FlowRule("backend", count=1000)])
+    st.degrade_rule_manager.load_rules([
+        st.DegradeRule(resource="backend", grade=1, count=0.5, time_window=5, min_request_amount=5)
+    ])
+
+    def call(ts, fail_call):
+        clock.set_ms(ts)
+        try:
+            e = st.entry("backend")
+        except st.DegradeBlockError:
+            return "BLOCKED (breaker open)"
+        if fail_call:
+            e.set_error(RuntimeError("downstream 500"))
+        e.exit()
+        return "error" if fail_call else "ok"
+
+    lines = [call(i * 10, True) for i in range(6)]
+    lines += [call(1000, False), call(3000, False), call(5200, False), call(5300, False)]
+    tclock.set_default_clock(prev)
+    log(f"  {lines}")
+    if lines != DEMO_LINES:
+        fail(f"degrade demo lines {lines} != {DEMO_LINES}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     line = card_line()
     log(f"phase 1: {line}")
     t0 = time.perf_counter()
-    cuda_build.build_all(["window_update", "flow_admission"])
+    cuda_build.build_all(["window_update", "flow_admission", "system_check", "breaker_on_exits",
+                          "breaker_try_pass", "commit_borrow_slab"])
     log(f"  CUDA kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
 
     meta = {
@@ -647,12 +1121,26 @@ def main() -> None:
                         "sentinel_tpu/metrics/metric_array.py:205"),
         "flow_admission": ("cuda", "sentinel_tpu_torch/csrc/flow_admission.cu",
                            "sentinel_tpu/runtime/flush.py:227"),
+        "flow_admission_occupy": ("cuda", "sentinel_tpu_torch/csrc/flow_admission.cu",
+                                  "sentinel_tpu/runtime/flush.py:338"),
+        "commit_borrow_slab": ("cuda", "sentinel_tpu_torch/csrc/commit_borrow_slab.cu",
+                               "sentinel_tpu/runtime/flush.py:434"),
+        "system_check": ("cuda", "sentinel_tpu_torch/csrc/system_check.cu", "sentinel_tpu/runtime/flush.py:501"),
+        "breaker_on_exits": ("cuda", "sentinel_tpu_torch/csrc/breaker_on_exits.cu",
+                             "sentinel_tpu/rules/degrade_table.py:185"),
+        "breaker_try_pass": ("cuda", "sentinel_tpu_torch/csrc/breaker_try_pass.cu",
+                             "sentinel_tpu/rules/degrade_table.py:291"),
+        "slot_chain_verdict": ("cuda", "sentinel_tpu_torch/csrc/flow_admission.cu",
+                               "sentinel_tpu/rules/degrade_table.py:342"),
     }
     results = {name: {} for name in meta}
     phase2(results)
+    phase2_chain(results)
     phase3()
     phase4(results)
+    phase4_chain(results)
     phase5()
+    phase6()
 
     kernels = []
     for name, (route, source, replaces) in meta.items():
@@ -664,8 +1152,9 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"], "shape": r["shape"],
         }
-        if "library_call" in r:
-            entry["library_call"] = r["library_call"]
+        for extra in ("library_call", "zipf_ms", "zipf_plain_ms"):
+            if extra in r:
+                entry[extra] = r[extra]
         kernels.append(entry)
     for k in kernels:
         log(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, bound {k['bound_ms']:.5f} "

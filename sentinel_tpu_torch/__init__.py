@@ -3,11 +3,14 @@ NVIDIA H100.
 
 The JAX package ``sentinel_tpu`` beside it is the reference; this package
 imports neither JAX nor anything of ``sentinel_tpu``. It covers the
-DEFAULT-flow admission path so far: the public entry API, flow rules with
-the DEFAULT controller, the batched engine at pipeline depth 0, and the
-flush step whose kernels (window update, window sums, matured-borrow
-sweep, flow admission) are hand-written for Hopper in CUDA C++ and
-Triton. Features not ported yet raise ``NotImplementedError``.
+slot chain so far: the public entry API, flow rules with the DEFAULT
+controller (prioritized entries borrow future windows), circuit
+breakers, system protection and authority rules, the batched engine at
+pipeline depth 0, and the flush step whose kernels (window update,
+window sums, matured-borrow sweep, flow admission with occupy, borrow
+commit, system check, breakers, verdict tail) are hand-written for
+Hopper in CUDA C++ and Triton. Features not ported yet raise
+``NotImplementedError``.
 
     import sentinel_tpu_torch as st
 
@@ -24,18 +27,39 @@ package touches no device.
 
 from sentinel_tpu_torch.core.api import entry, get_engine, trace, try_entry
 from sentinel_tpu_torch.core.context import ContextUtil
-from sentinel_tpu_torch.core.errors import BlockError, FlowBlockError
-from sentinel_tpu_torch.models.rules import FlowRule
+from sentinel_tpu_torch.core.context import context_enter, context_exit
+from sentinel_tpu_torch.core.errors import (
+    AuthorityBlockError,
+    BlockError,
+    DegradeBlockError,
+    FlowBlockError,
+    SystemBlockError,
+)
+from sentinel_tpu_torch.models.rules import AuthorityRule, DegradeRule, FlowRule, SystemRule
+from sentinel_tpu_torch.rules.authority_manager import authority_rule_manager
+from sentinel_tpu_torch.rules.degrade_manager import degrade_rule_manager
 from sentinel_tpu_torch.rules.flow_manager import flow_rule_manager
+from sentinel_tpu_torch.rules.system_manager import system_rule_manager
 
 __all__ = [
     "entry",
     "try_entry",
     "trace",
     "FlowRule",
+    "DegradeRule",
+    "SystemRule",
+    "AuthorityRule",
     "flow_rule_manager",
-    "FlowBlockError",
+    "degrade_rule_manager",
+    "system_rule_manager",
+    "authority_rule_manager",
     "BlockError",
+    "FlowBlockError",
+    "DegradeBlockError",
+    "SystemBlockError",
+    "AuthorityBlockError",
     "get_engine",
     "ContextUtil",
+    "context_enter",
+    "context_exit",
 ]

@@ -205,6 +205,11 @@ def _do_entry(
         if ctx.auto and not ctx.entry_stack:
             ContextUtil.exit()
         return None, verdict
+    if verdict.wait_ms > 0:
+        # An occupied (borrowed) pass waits for its window: the reference
+        # sleeps inside canPass (DefaultController.java:66); here the wait
+        # surfaces after the batched decision.
+        engine.clock.sleep_ms(verdict.wait_ms)
     e = Entry(resource, op.rows, ctx, op.ts, acquire, verdict=verdict)
     ctx.entry_stack.append(e)
     return e, verdict
@@ -226,7 +231,7 @@ def entry(
 
 
 def _block_error(verdict: Verdict, resource: str) -> E.BlockError:
-    return E.error_for_verdict(verdict.reason, resource, rule=verdict.blocked_rule)
+    return E.error_for_verdict(verdict.reason, resource, limit_type=verdict.limit_type, rule=verdict.blocked_rule)
 
 
 def try_entry(

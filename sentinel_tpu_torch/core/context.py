@@ -97,3 +97,12 @@ class ContextUtil:
         finally:
             ContextUtil.replace_context(old)
 
+
+
+def context_enter(name: str, origin: str = "") -> Context:
+    """ContextUtil.enter(name, origin)."""
+    return ContextUtil.enter(name, origin)
+
+
+def context_exit() -> None:
+    ContextUtil.exit()

@@ -287,6 +287,13 @@ def _thread_gauge_cuda(threads, rows, thread_delta, mask) -> torch.Tensor:
     return threads
 
 
+def waiting_tokens(state: StatsState, now: int) -> torch.Tensor:
+    """Tokens borrowed for still-future windows (int32 [R]),
+    ``StatisticNode.waiting()`` (node/StatisticNode.java:337)."""
+    future = state.future_ws > int(now)
+    return torch.where(future, state.future_pass, 0).sum(dim=1, dtype=torch.int64).to(torch.int32)
+
+
 def slab_fold_host(future_ws: np.ndarray, future_pass: np.ndarray, now: int) -> Tuple[int, int]:
     """(occupied-in-window, waiting) tokens of one row's slab, on the host:
     the read-side folds ``occupied_in_window`` and ``waiting_tokens`` of

@@ -1,8 +1,12 @@
-"""rules (port of ``sentinel_tpu/rules``): the flow rule table and manager."""
+"""rules (port of ``sentinel_tpu/rules``): the flow rule table, the
+breaker table, and the flow, degrade, system and authority managers."""
 
 
 def all_managers():
-    """Every rule manager of the port (the flow manager, in this slice)."""
+    """Every rule manager of the port."""
+    from sentinel_tpu_torch.rules.authority_manager import authority_rule_manager
+    from sentinel_tpu_torch.rules.degrade_manager import degrade_rule_manager
     from sentinel_tpu_torch.rules.flow_manager import flow_rule_manager
+    from sentinel_tpu_torch.rules.system_manager import system_rule_manager
 
-    return [flow_rule_manager]
+    return [flow_rule_manager, degrade_rule_manager, system_rule_manager, authority_rule_manager]

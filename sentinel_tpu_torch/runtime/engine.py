@@ -8,10 +8,11 @@ buffers. ``submit_*`` calls enqueue ops; ``flush()`` encodes them into
 padded arrays and runs one flush step (runtime/flush.py) for the whole
 batch. ``entry_sync`` is submit + flush: the synchronous ``SphU.entry``.
 
-This slice ports the DEFAULT flow path at pipeline depth 0: flow rules
-with the DEFAULT controller, entries, bulk entries, exits and traces.
-Everything else the JAX engine does is refused loudly with
-``NotImplementedError`` naming its ROADMAP item (see
+The port runs the slot chain at pipeline depth 0: flow rules with the
+DEFAULT controller (with prioritized entries borrowing future windows),
+authority rules, system rules and circuit breakers; entries, bulk
+entries, exits and traces. Everything else the JAX engine does is
+refused loudly with ``NotImplementedError`` naming its ROADMAP item (see
 ``_refuse_unported_config`` and the ``set_*`` methods), never ignored.
 
 Locking as in the JAX engine: ``_lock`` guards the pending buffers and
@@ -22,7 +23,7 @@ device state during a flush (lock order: ``_flush_lock`` → ``_lock``).
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,18 +42,24 @@ from sentinel_tpu_torch.metrics.nodes import (
     slab_fold_host,
 )
 from sentinel_tpu_torch.models import constants as C
-from sentinel_tpu_torch.models.rules import FlowRule
+from sentinel_tpu_torch.models.rules import AuthorityRule, DegradeRule, FlowRule
+from sentinel_tpu_torch.rules.degrade_table import WS_FLOOR, DegradeDynState, DegradeIndex
 from sentinel_tpu_torch.rules.flow_table import FlowIndex, FlowRuleDynState
-from sentinel_tpu_torch.runtime.flush import TOPK_MAX, FlushBatch, flush_step
+from sentinel_tpu_torch.runtime.flush import (
+    SYS_TYPE_NAMES,
+    TOPK_MAX,
+    FlushBatch,
+    flush_step,
+    make_system_device,
+)
 from sentinel_tpu_torch.utils.clock import Clock, SystemClock, default_clock
 from sentinel_tpu_torch.utils.config import config
+from sentinel_tpu_torch.utils.system_status import sampler as system_sampler
 from sentinel_tpu_torch.utils.device import DeviceLike, resolve_device
 from sentinel_tpu_torch.utils.numeric import pad_pow2 as _pad_pow2
 
 # ROADMAP items (Queue 1) that own what this slice refuses.
 _ROADMAP_PIPELINE = "ROADMAP Queue 1 item 1 (depth-K flush pipeline and flush_async)"
-_ROADMAP_OCCUPY = "ROADMAP Queue 1 item 2 (occupy, system, authority)"
-_ROADMAP_BREAKERS = "ROADMAP Queue 1 item 3 (circuit breakers)"
 _ROADMAP_SHAPING = "ROADMAP Queue 1 item 4 (traffic shaping)"
 _ROADMAP_PARAM = "ROADMAP Queue 1 item 5 (hot parameters)"
 _ROADMAP_SKETCH = "ROADMAP Queue 1 item 6 (sketch tier)"
@@ -90,6 +97,7 @@ class Verdict(NamedTuple):
     reason: int  # errors.PASS / BLOCK_*
     wait_ms: int
     blocked_rule: Optional[object]  # the rule bean that blocked, if attributable
+    limit_type: str = ""  # system block dimension (qps/thread/rt/load/cpu)
 
 
 @dataclass(slots=True)
@@ -99,9 +107,12 @@ class _EntryOp:
     acquire: int
     rows: Tuple[int, int, int, int]  # default, cluster, origin|-1, entry|-1
     slots: List[Tuple[int, int]]  # (rule_gid, check_row)
+    d_gids: List[int] = field(default_factory=list)  # degrade rule ids
+    auth_ok: bool = True  # AuthoritySlot verdict, decided at submit
+    prio: bool = False
     context_name: str = C.CONTEXT_DEFAULT_NAME
     origin: str = ""
-    src: Optional[FlowIndex] = None  # the index the slots were resolved against
+    src: Optional[tuple] = None  # the (flow, degrade) indexes the ids were resolved against
     verdict: Optional[Verdict] = None
 
 
@@ -117,9 +128,11 @@ class BulkOp:
     acquire: np.ndarray  # int32 [n]
     rows: Tuple[int, int, int, int]
     slots: List[Tuple[int, int]]
+    d_gids: List[int]
+    auth_ok: bool
     context_name: str
     origin: str
-    src: Optional[FlowIndex] = None
+    src: Optional[tuple] = None
     admitted: Optional[np.ndarray] = None
     reason: Optional[np.ndarray] = None
     wait_ms: Optional[np.ndarray] = None
@@ -138,6 +151,9 @@ class _BulkExitOp:
     rt: np.ndarray
     err: np.ndarray
     thr: int  # -1 exits, 0 traces
+    d_gids: List[int] = field(default_factory=list)  # breakers to complete
+    resource: Optional[str] = None
+    src_dindex: Optional[DegradeIndex] = None
 
 
 @dataclass(slots=True)
@@ -148,6 +164,9 @@ class _ExitOp:
     rt: int = 0
     err: int = 0  # exception delta
     thr: int = 0  # thread delta (-1 exits, 0 traces)
+    d_gids: List[int] = field(default_factory=list)  # breakers to complete
+    resource: Optional[str] = None
+    src_dindex: Optional[DegradeIndex] = None
 
 
 class Engine:
@@ -167,6 +186,10 @@ class Engine:
         self.stats: StatsState = make_stats(rows, self.device)
         self.flow_index = FlowIndex([], cold_factor=config.cold_factor, device=self.device)
         self.flow_dyn: FlowRuleDynState = self.flow_index.make_dyn_state()
+        self.degrade_index = DegradeIndex([], device=self.device)
+        self.degrade_dyn: DegradeDynState = self.degrade_index.make_dyn_state()
+        self.system_config = None  # rules/system_manager.SystemConfig, or None
+        self.authority_rules: Dict[str, AuthorityRule] = {}
         self._entries: List[_EntryOp] = []
         self._exits: List[_ExitOp] = []
         self._bulk_entries: List[BulkOp] = []
@@ -203,21 +226,9 @@ class Engine:
     def flush_async(self):
         raise _unported("flush_async", _ROADMAP_PIPELINE)
 
-    def set_degrade_rules(self, rules) -> None:
-        if rules:
-            raise _unported("degrade rules", _ROADMAP_BREAKERS)
-
     def set_param_rules(self, by_resource) -> None:
         if by_resource:
             raise _unported("hot-parameter rules", _ROADMAP_PARAM)
-
-    def set_system_config(self, cfg) -> None:
-        if cfg is not None:
-            raise _unported("system rules", _ROADMAP_OCCUPY)
-
-    def set_authority_rules(self, by_resource) -> None:
-        if by_resource:
-            raise _unported("authority rules", _ROADMAP_OCCUPY)
 
     # ------------------------------------------------------------------
     # rule plumbing (called by the rule manager)
@@ -236,6 +247,42 @@ class Engine:
             with self._lock:
                 self.flow_index = findex
                 self.flow_dyn = findex.make_dyn_state()
+
+    def set_degrade_rules(self, rules: Sequence[DegradeRule]) -> None:
+        """Breaker state is not carried across reloads: the reference
+        builds fresh CircuitBreaker objects per load (DegradeRuleManager)."""
+        dindex = DegradeIndex(rules, device=self.device)
+        with self._flush_lock:
+            self._flush_locked()
+            with self._lock:
+                self.degrade_index = dindex
+                self.degrade_dyn = dindex.make_dyn_state()
+
+    def set_system_config(self, cfg) -> None:
+        with self._flush_lock:
+            self._flush_locked()
+            with self._lock:
+                self.system_config = cfg if cfg is not None and cfg.any_enabled else None
+                if self.system_config is not None and (
+                    self.system_config.highest_system_load >= 0 or self.system_config.highest_cpu_usage >= 0
+                ):
+                    system_sampler.start()
+
+    def set_authority_rules(self, by_resource: Dict[str, AuthorityRule]) -> None:
+        with self._flush_lock:
+            self._flush_locked()
+            with self._lock:
+                self.authority_rules = dict(by_resource)
+
+    def _auth_ok(self, resource: str, origin: str) -> bool:
+        rule = self.authority_rules.get(resource)
+        if rule is None:
+            return True
+        # Imported here: the manager module instantiates its manager, which
+        # reaches back to the API for the engine.
+        from sentinel_tpu_torch.rules.authority_manager import AuthorityRuleManager
+
+        return AuthorityRuleManager.passes(rule, origin)
 
     # ------------------------------------------------------------------
     # op submission
@@ -277,24 +324,26 @@ class Engine:
         args: Sequence[object] = (),
     ) -> Optional[_EntryOp]:
         """Enqueue an entry; None for pass-through (over the resource cap).
-        ``args`` feed hot-parameter rules, which this slice refuses to
-        load, so they are not kept."""
-        if prio:
-            raise _unported("prioritized (prio=True) entries", _ROADMAP_OCCUPY)
+        ``prio`` entries may borrow a future window when over a QPS rule.
+        ``args`` feed hot-parameter rules, which the port refuses to load,
+        so they are not kept."""
         with self._lock:
             rows = self.resolve_entry_rows(resource, context_name, origin, entry_type)
             if rows is None:
                 return None
-            findex = self.flow_index
+            findex, dindex = self.flow_index, self.degrade_index
             op = _EntryOp(
                 resource=resource,
                 ts=self.clock.now_ms() if ts is None else int(ts),
                 acquire=int(acquire),
                 rows=rows,
                 slots=findex.resolve_slots(resource, context_name, origin, self.nodes),
+                d_gids=dindex.gids_for(resource),
+                auth_ok=self._auth_ok(resource, origin),
+                prio=bool(prio),
                 context_name=context_name,
                 origin=origin,
-                src=findex,
+                src=(findex, dindex),
             )
             self._entries.append(op)
             over = len(self._entries) >= self.max_batch
@@ -312,17 +361,22 @@ class Engine:
         resource: Optional[str] = None,
     ) -> None:
         """StatisticSlot.exit: success + RT + thread release (+exception).
-        ``resource`` routes completions to circuit breakers, which this
-        slice does not have; it is accepted for the API's sake."""
-        op = _ExitOp(
-            ts=self.clock.now_ms() if ts is None else int(ts),
-            rows=rows,
-            count=int(count),
-            rt=min(int(rt), config.statistic_max_rt),
-            err=int(err),
-            thr=-1,
-        )
+        ``resource`` routes the completion to the resource's circuit
+        breakers (DegradeSlot.exit), resolved against the degrade rules
+        active at exit time, like the reference."""
         with self._lock:
+            dindex = self.degrade_index
+            op = _ExitOp(
+                ts=self.clock.now_ms() if ts is None else int(ts),
+                rows=rows,
+                count=int(count),
+                rt=min(int(rt), config.statistic_max_rt),
+                err=int(err),
+                thr=-1,
+                d_gids=dindex.gids_for(resource) if resource is not None else [],
+                resource=resource,
+                src_dindex=dindex if resource is not None else None,
+            )
             self._exits.append(op)
             over = len(self._exits) >= self.max_batch
         if over:
@@ -387,7 +441,7 @@ class Engine:
             rows = self.resolve_entry_rows(resource, context_name, origin, entry_type)
             if rows is None:
                 return None
-            findex = self.flow_index
+            findex, dindex = self.flow_index, self.degrade_index
             g = BulkOp(
                 resource=resource,
                 n=n,
@@ -395,9 +449,11 @@ class Engine:
                 acquire=self._bulk_col(acquire, n, 1),
                 rows=rows,
                 slots=findex.resolve_slots(resource, context_name, origin, self.nodes),
+                d_gids=dindex.gids_for(resource),
+                auth_ok=self._auth_ok(resource, origin),
                 context_name=context_name,
                 origin=origin,
-                src=findex,
+                src=(findex, dindex),
             )
             self._bulk_entries.append(g)
             self._bulk_pending_n += n
@@ -416,12 +472,14 @@ class Engine:
         ts=None,
         resource: Optional[str] = None,
     ) -> None:
-        """Columnar exits: ``n`` completions on one node-row set."""
+        """Columnar exits: ``n`` completions on one node-row set (and on
+        the resource's breakers when ``resource`` is given)."""
         if n < 1:
             raise ValueError("submit_exit_bulk: n must be >= 1")
         if n > self.max_batch:
             raise ValueError(f"submit_exit_bulk: n={n} exceeds max_batch={self.max_batch}; split the group")
         with self._lock:
+            dindex = self.degrade_index
             rt_col = self._bulk_col(rt, n, 0)
             np.minimum(rt_col, config.statistic_max_rt, out=rt_col)
             gx = _BulkExitOp(
@@ -432,6 +490,9 @@ class Engine:
                 rt=rt_col,
                 err=self._bulk_col(err, n, 0),
                 thr=-1,
+                d_gids=dindex.gids_for(resource) if resource is not None else [],
+                resource=resource,
+                src_dindex=dindex if resource is not None else None,
             )
             self._bulk_exits.append(gx)
             self._bulk_exit_pending_n += n
@@ -492,6 +553,16 @@ class Engine:
         shift(s.future_ws, SECOND_CFG.empty_ws)
         shift(self.flow_dyn.latest_passed_time, -(10**9))
         shift(self.flow_dyn.last_filled_time, -(10**9))
+        # Breakers: an OPEN breaker's retry deadline and the window anchor
+        # are absolute ms. A rule's statIntervalMs need not divide the
+        # rebase granularity, so the shifted window start is floor-aligned
+        # to the rule's own grid (exits align ts - ts % interval); torch's
+        # remainder is a floor modulo, as JAX's, for a negative start too.
+        d = self.degrade_dyn
+        shift(d.next_retry, WS_FLOOR)
+        shift(d.ws, WS_FLOOR)
+        iv = self.degrade_index.device.interval_ms.clamp(min=1)
+        d.ws.copy_(torch.where(d.ws > WS_FLOOR, d.ws - torch.remainder(d.ws, iv), d.ws))
         for op in self._entries:
             op.ts = max(op.ts - offset, 0)
         for x in self._exits:
@@ -524,39 +595,47 @@ class Engine:
             if not entries and not exits and not bulk_e and not bulk_x:
                 return []
             self._ensure_capacity()
-            findex = self.flow_index
+            findex, dindex = self.flow_index, self.degrade_index
+            auth_rules = self.authority_rules
             # Ops resolved against a superseded rule table are re-resolved
             # against the one they will be checked with.
+            cur = (findex, dindex)
             for op in entries:
-                if op.src is not findex:
+                if op.src != cur:
                     op.slots = findex.resolve_slots(op.resource, op.context_name, op.origin, self.nodes)
-                    op.src = findex
+                    op.d_gids = dindex.gids_for(op.resource)
+                    op.src = cur
             for g in bulk_e:
-                if g.src is not findex:
+                if g.src != cur:
                     g.slots = findex.resolve_slots(g.resource, g.context_name, g.origin, self.nodes)
-                    g.src = findex
+                    g.d_gids = dindex.gids_for(g.resource)
+                    g.src = cur
+            for x in (*exits, *bulk_x):
+                if x.src_dindex is not None and x.src_dindex is not dindex:
+                    x.d_gids = dindex.gids_for(x.resource)
+                    x.src_dindex = dindex
         mb = max(self.max_batch, 1)
         n_bulk = sum(g.n for g in bulk_e)
         m_bulk = sum(g.n for g in bulk_x)
         if len(entries) + n_bulk <= mb and len(exits) + m_bulk <= mb:
             # One step: every exit applies before every admission.
-            self._run_chunk(entries, exits, bulk_e, bulk_x, findex)
+            self._run_chunk(entries, exits, bulk_e, bulk_x, findex, dindex, auth_rules)
             return entries
         # Oversized backlog: singles chunks, then packed bulk chunks (exits
         # in a later chunk are not visible to earlier chunks' admissions).
         for off in range(0, max(len(entries), len(exits)), mb):
-            self._run_chunk(entries[off : off + mb], exits[off : off + mb], [], [], findex)
+            self._run_chunk(entries[off : off + mb], exits[off : off + mb], [], [], findex, dindex, auth_rules)
         be_chunks, bx_chunks = _pack(bulk_e, mb), _pack(bulk_x, mb)
         for i in range(max(len(be_chunks), len(bx_chunks))):
             self._run_chunk(
                 [], [],
                 be_chunks[i] if i < len(be_chunks) else [],
                 bx_chunks[i] if i < len(bx_chunks) else [],
-                findex,
+                findex, dindex, auth_rules,
             )
         return entries
 
-    def _encode(self, entries, exits, bulk, bulk_exits, now: int) -> Tuple[FlushBatch, int]:
+    def _encode(self, entries, exits, bulk, bulk_exits, now: int) -> Tuple[FlushBatch, int, int]:
         """Host encode of one chunk into pow2-padded numpy columns, moved
         to the device in one copy per column."""
         n = _pad_pow2(len(entries) + sum(g.n for g in bulk), 8)
@@ -566,22 +645,33 @@ class Engine:
                 max((len(g.slots) for g in bulk), default=1)),
             1,
         )
+        kd = _pad_pow2(
+            max(1, *(len(x.d_gids) for grp in (entries, exits, bulk, bulk_exits) for x in grp)),
+            1,
+        )
         e_valid = np.zeros(n, dtype=bool)
         e_ts = np.zeros(n, dtype=np.int32)
         e_acquire = np.ones(n, dtype=np.int32)
         e_rows = np.full((n, 4), -1, dtype=np.int32)
         e_gid = np.full((n, k), -1, dtype=np.int32)
         e_crow = np.full((n, k), -1, dtype=np.int32)
+        e_prio = np.zeros(n, dtype=bool)
+        e_auth = np.ones(n, dtype=bool)
+        e_dgid = np.full((n, kd), -1, dtype=np.int32)
         ne = len(entries)
         if ne:
             e_valid[:ne] = True
             e_ts[:ne] = [op.ts for op in entries]
             e_acquire[:ne] = [op.acquire for op in entries]
             e_rows[:ne] = [op.rows for op in entries]
+            e_prio[:ne] = [op.prio for op in entries]
+            e_auth[:ne] = [op.auth_ok for op in entries]
             for i, op in enumerate(entries):
                 for j, (gid, crow) in enumerate(op.slots[:k]):
                     e_gid[i, j] = gid
                     e_crow[i, j] = crow
+                for j, dg in enumerate(op.d_gids[:kd]):
+                    e_dgid[i, j] = dg
         off = ne
         for g in bulk:
             sl = slice(off, off + g.n)
@@ -589,9 +679,12 @@ class Engine:
             e_ts[sl] = g.ts
             e_acquire[sl] = g.acquire
             e_rows[sl] = g.rows
+            e_auth[sl] = g.auth_ok
             for j, (gid, crow) in enumerate(g.slots[:k]):
                 e_gid[sl, j] = gid
                 e_crow[sl, j] = crow
+            for j, dg in enumerate(g.d_gids[:kd]):
+                e_dgid[sl, j] = dg
             off += g.n
 
         x_valid = np.zeros(m, dtype=bool)
@@ -601,6 +694,7 @@ class Engine:
         x_rt = np.zeros(m, dtype=np.int32)
         x_err = np.zeros(m, dtype=np.int32)
         x_thr = np.zeros(m, dtype=np.int32)
+        x_dgid = np.full((m, kd), -1, dtype=np.int32)
         nx = len(exits)
         if nx:
             x_valid[:nx] = True
@@ -610,6 +704,9 @@ class Engine:
             x_rt[:nx] = [x.rt for x in exits]
             x_err[:nx] = [x.err for x in exits]
             x_thr[:nx] = [x.thr for x in exits]
+            for i, x in enumerate(exits):
+                for j, dg in enumerate(x.d_gids[:kd]):
+                    x_dgid[i, j] = dg
         off = nx
         for gx in bulk_exits:
             sl = slice(off, off + gx.n)
@@ -620,6 +717,8 @@ class Engine:
             x_rt[sl] = gx.rt
             x_err[sl] = gx.err
             x_thr[sl] = gx.thr
+            for j, dg in enumerate(gx.d_gids[:kd]):
+                x_dgid[sl, j] = dg
             off += gx.n
         # Window buckets are (ts // wlen) % B: timestamps must be >= 0.
         if (e_valid & (e_ts < 0)).any() or (x_valid & (x_ts < 0)).any():
@@ -634,46 +733,62 @@ class Engine:
             now=int(now),
             e_valid=t(e_valid), e_ts=t(e_ts), e_acquire=t(e_acquire), e_rows=t(e_rows),
             e_rule_gid=t(e_gid), e_check_row=t(e_crow),
-            e_prio=t(np.zeros(n, dtype=bool)), e_auth_ok=t(np.ones(n, dtype=bool)),
-            e_cluster_ok=t(np.ones(n, dtype=bool)), e_dgid=t(np.full((n, 1), -1, dtype=np.int32)),
+            e_prio=t(e_prio), e_auth_ok=t(e_auth), e_cluster_ok=t(np.ones(n, dtype=bool)), e_dgid=t(e_dgid),
             x_valid=t(x_valid), x_ts=t(x_ts), x_count=t(x_count), x_rows=t(x_rows), x_rt=t(x_rt),
-            x_err=t(x_err), x_thr=t(x_thr), x_dgid=t(np.full((m, 1), -1, dtype=np.int32)),
+            x_err=t(x_err), x_thr=t(x_thr), x_dgid=t(x_dgid),
         )
-        return batch, k
+        return batch, k, kd
 
-    def _run_chunk(self, entries, exits, bulk, bulk_exits, findex: FlowIndex) -> None:
+    def _run_chunk(self, entries, exits, bulk, bulk_exits, findex: FlowIndex, dindex: DegradeIndex,
+                   auth_rules: Dict[str, AuthorityRule]) -> None:
         """Encode one chunk, run the flush step, fill verdicts. Runs under
         the flush lock only."""
         now = self.clock.now_ms()
-        batch, k = self._encode(entries, exits, bulk, bulk_exits, now)
+        batch, k, kd = self._encode(entries, exits, bulk, bulk_exits, now)
+        load, cpu = system_sampler.read() if self.system_config is not None else (-1.0, -1.0)
         self.stats, result = flush_step(
             self.stats, findex.device, batch,
             with_exits=bool(exits) or bool(bulk_exits),
             blk_topk=min(self._blk_topk_k, self.stats.n_rows),
+            ddev=dindex.device, ddyn=self.degrade_dyn,
+            sysdev=make_system_device(self.system_config, load, cpu),
+            occupy_timeout_ms=config.occupy_timeout_ms,
+            # Host-known stage specializations, as the JAX engine sets them.
+            with_occupy=any(op.prio for op in entries),
+            with_system=self.system_config is not None,
+            with_degrade=bool(dindex.rules),
         )
         # One device→host copy of the verdicts.
-        got = [result.admitted, result.reason, result.slot_ok, result.wait_ms]
+        got = [result.admitted, result.reason, result.slot_ok, result.wait_ms, result.sys_type, result.dslot_ok]
         if result.blk_rows is not None:
             got += [result.blk_rows, result.blk_weight]
         got = [x.cpu().numpy() for x in got]
-        self._fill_results(got, entries, bulk, findex, k)
+        self._fill_results(got, entries, bulk, findex, dindex, auth_rules, k, kd)
 
-    def _fill_results(self, got, entries, bulk, findex: FlowIndex, k: int) -> None:
-        admitted, reason, slot_ok, wait_ms = got[:4]
-        if len(got) > 4:
-            self.last_blocked_topk = (got[4], got[5])
+    def _fill_results(self, got, entries, bulk, findex: FlowIndex, dindex: DegradeIndex,
+                      auth_rules: Dict[str, AuthorityRule], k: int, kd: int) -> None:
+        admitted, reason, slot_ok, wait_ms, sys_type, dslot_ok = got[:6]
+        if len(got) > 6:
+            self.last_blocked_topk = (got[6], got[7])
         for i, op in enumerate(entries):
             blocked_rule = None
-            if not admitted[i] and int(reason[i]) == E.BLOCK_FLOW:
-                for j, (gid, _) in enumerate(op.slots[:k]):
-                    if not slot_ok[i, j]:
-                        blocked_rule = findex.rule_of_gid(gid)
-                        break
+            limit_type = ""
+            r = int(reason[i])
+            if not admitted[i]:
+                if r == E.BLOCK_AUTHORITY:
+                    blocked_rule = auth_rules.get(op.resource)
+                elif r == E.BLOCK_SYSTEM:
+                    limit_type = SYS_TYPE_NAMES.get(int(sys_type[i]), "")
+                elif r == E.BLOCK_FLOW:
+                    blocked_rule = _first_failing(op.slots[:k], slot_ok[i], findex)
+                elif r == E.BLOCK_DEGRADE:
+                    blocked_rule = _first_failing(op.d_gids[:kd], dslot_ok[i], dindex)
             op.verdict = Verdict(
                 admitted=bool(admitted[i]),
-                reason=int(reason[i]),
+                reason=r,
                 wait_ms=int(wait_ms[i]),
                 blocked_rule=blocked_rule,
+                limit_type=limit_type,
             )
         off = len(entries)
         for g in bulk:
@@ -733,6 +848,15 @@ class Engine:
     def close(self) -> None:
         """Decide anything still queued."""
         self.flush()
+
+
+def _first_failing(ids, ok_row, index):
+    """The rule of the first failing slot (flow slots are (gid, row)
+    pairs, breaker slots plain ids), or None."""
+    for j, slot in enumerate(ids):
+        if not ok_row[j]:
+            return index.rule_of_gid(slot[0] if isinstance(slot, tuple) else slot)
+    return None
 
 
 def _pack(groups, mb: int):

@@ -1,30 +1,44 @@
-"""The flush step on the DEFAULT flow path (port of
-``sentinel_tpu/runtime/flush.py``).
+"""The flush step (port of ``sentinel_tpu/runtime/flush.py``).
 
 One flush applies a batch of ops in three phases, replacing the
-per-request slot-chain walk (StatisticSlot + FlowSlot of the reference):
+per-request slot-chain walk (StatisticSlot, AuthoritySlot, SystemSlot,
+FlowSlot, DegradeSlot of the reference):
 
 1. **exits/traces**: success, RT, exception and thread release go into
-   the window tensors (:func:`apply_exit_phase`);
-2. **admission**: every flow rule slot of every entry is checked against
-   the post-exit statistics, with the intra-batch sequencing of the JAX
-   package: slots are ordered by (check row, ts, arrival) and each one is
-   charged the acquire of earlier entries on that row, counted only on
-   rows the entry itself accounts on (see the JAX module's docstring);
-3. **entry accounting**: pass/block and thread acquire go into the
-   windows.
+   the window tensors, and completions into the circuit breakers
+   (:func:`apply_exit_phase`);
+2. **admission**, in the slot chain's order: authority (decided on the
+   host, ``e_auth_ok``), system protection on the global inbound row
+   (:func:`system_check`), every flow rule slot of every entry against
+   the post-exit statistics (:func:`flow_admission`, with the occupy
+   branch for prioritized entries), then the breakers
+   (``rules/degrade_table.breaker_try_pass``). An entry blocked by an
+   earlier stage consumes nothing of a later one. Intra-batch sequencing
+   is the JAX package's: slots are ordered by (check row, ts, arrival)
+   and each is charged the acquire of earlier entries on that row,
+   counted only on rows the entry itself accounts on (see the JAX
+   module's docstring);
+3. **entry accounting**: pass/block/occupied pass and thread acquire go
+   into the windows, granted borrows into the future slab.
 
-The slice covers what the engine runs with only DEFAULT-behavior flow
-rules loaded (the JAX ``with_occupy=False, with_system=False,
-with_degrade=False`` specialization): no occupy branch, no system or
-authority rules, no breakers, no shaping, no hot parameters. Slots whose
-rule behavior is not DEFAULT pass here, as in the JAX ``flow_admission``;
-the engine refuses such rules rather than let them pass.
+The ``with_occupy`` / ``with_system`` / ``with_degrade`` flags are the
+JAX package's host-known specializations ("the batch has prioritized
+entries", "a system rule is loaded", "degrade rules are loaded"): each
+skipped stage would pass everything, so the flags change no verdict.
+With all three off the step is the DEFAULT path, whose verdict tail is
+fused into the flow admission kernel; with any of them on the verdict
+runs after the breakers (:func:`slot_chain_verdict`). Shaping behaviours
+and hot parameters are not ported yet: their slots pass here, as in the
+JAX ``flow_admission``, and the engine refuses such rules.
 
-Kernels: :func:`flow_admission` (K4, CUDA C++ ``csrc/flow_admission.cu``)
-decides the slots and the verdict tail; it reads the windows through
-``metric_array.window_sums`` (K3) and the accounting goes through
-``nodes.apply_updates`` (K2). :func:`flush_step` runs
+Kernels (CUDA C++ in ``csrc/``, each beside its plain PyTorch version):
+:func:`flow_admission` (K4, ``flow_admission.cu``), :func:`system_check`
+(K6, ``system_check.cu``), :func:`commit_borrow_slab` (K5,
+``commit_borrow_slab.cu``) and :func:`slot_chain_verdict` (the verdict
+tail with the probe transitions, ``flow_admission.cu``); the breakers'
+K7 and K8 live in ``rules/degrade_table.py``. The windows are read
+through ``metric_array.window_sums`` (K3) and written through
+``nodes.apply_updates`` (K2); :func:`flush_step` runs
 ``nodes.materialize_matured`` (K1) first. The rest is torch glue.
 """
 
@@ -40,8 +54,10 @@ from sentinel_tpu_torch.core import errors as E
 from sentinel_tpu_torch.metrics import metric_array as ma
 from sentinel_tpu_torch.metrics import nodes as _nodes
 from sentinel_tpu_torch.metrics.events import NUM_EVENTS, MetricEvent
-from sentinel_tpu_torch.metrics.nodes import StatsState, apply_updates, materialize_matured
+from sentinel_tpu_torch.metrics.nodes import StatsState, apply_updates, materialize_matured, waiting_tokens
 from sentinel_tpu_torch.models import constants as C
+from sentinel_tpu_torch.rules import degrade_table as _dt
+from sentinel_tpu_torch.rules.degrade_table import DegradeDynState, DegradeTableDevice
 from sentinel_tpu_torch.rules.flow_table import FlowTableDevice
 from sentinel_tpu_torch.utils import cuda_build
 
@@ -62,10 +78,10 @@ class FlushBatch(NamedTuple):
     e_rows: torch.Tensor  # int32 [N, 4]: default, cluster, origin|-1, entry|-1
     e_rule_gid: torch.Tensor  # int32 [N, K], -1 = empty slot
     e_check_row: torch.Tensor  # int32 [N, K], -1 = rule passes trivially
-    e_prio: torch.Tensor  # bool [N] (must be all False on this path)
-    e_auth_ok: torch.Tensor  # bool [N]
-    e_cluster_ok: torch.Tensor  # bool [N]
-    e_dgid: torch.Tensor  # int32 [N, KD] (unused on this path)
+    e_prio: torch.Tensor  # bool [N] prioritized: may borrow a future window
+    e_auth_ok: torch.Tensor  # bool [N] AuthoritySlot verdict (host-resolved)
+    e_cluster_ok: torch.Tensor  # bool [N] token-server verdict
+    e_dgid: torch.Tensor  # int32 [N, KD] degrade rule ids of the resource
     # --- exits and traces ---
     x_valid: torch.Tensor  # bool [M]
     x_ts: torch.Tensor  # int32 [M]
@@ -74,27 +90,102 @@ class FlushBatch(NamedTuple):
     x_rt: torch.Tensor  # int32 [M] RT delta (0 for trace ops)
     x_err: torch.Tensor  # int32 [M] exception delta
     x_thr: torch.Tensor  # int32 [M] thread delta (-1 exit, 0 trace)
-    x_dgid: torch.Tensor  # int32 [M, KD] (unused on this path)
+    x_dgid: torch.Tensor  # int32 [M, KD] degrade rule ids (breaker completion)
+
+
+class SystemDevice(NamedTuple):
+    """Effective system-protection config and the current host samples,
+    as float32 values. Thresholds are +inf when disabled; load and CPU
+    follow the reference's ">= 0 means set" (SystemRuleManager.java:
+    298-353)."""
+
+    qps: float
+    max_thread: float
+    max_rt: float
+    load_threshold: float
+    cpu_threshold: float
+    cur_load: float
+    cur_cpu: float
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+def system_device_from_numpy(sd) -> SystemDevice:
+    """A :class:`SystemDevice` from the JAX package's (seven float32
+    scalars, ``jax.device_get``)."""
+    return SystemDevice(*(_f32(np.asarray(v)) for v in sd))
+
+
+def make_system_device(cfg, load: float, cpu: float) -> SystemDevice:
+    """The engine's view of a ``SystemConfig`` (None = no system rule)."""
+    inf = float("inf")
+    if cfg is None:
+        return SystemDevice(inf, inf, inf, -1.0, -1.0, -1.0, -1.0)
+
+    def thr(v):
+        return _f32(v) if v is not None and v >= 0 else inf
+
+    return SystemDevice(
+        qps=thr(cfg.qps), max_thread=thr(cfg.max_thread), max_rt=thr(cfg.max_rt),
+        load_threshold=_f32(cfg.highest_system_load), cpu_threshold=_f32(cfg.highest_cpu_usage),
+        cur_load=_f32(load), cur_cpu=_f32(cpu),
+    )
+
+
+# System block dimension codes (limit types in SystemBlockException).
+SYS_NONE = 0
+SYS_QPS = 1
+SYS_THREAD = 2
+SYS_RT = 3
+SYS_LOAD = 4
+SYS_CPU = 5
+SYS_TYPE_NAMES = {SYS_QPS: "qps", SYS_THREAD: "thread", SYS_RT: "rt", SYS_LOAD: "load", SYS_CPU: "cpu"}
 
 
 class FlushResult(NamedTuple):
     admitted: torch.Tensor  # bool [N]
     reason: torch.Tensor  # int32 [N], errors.PASS / BLOCK_*
     slot_ok: torch.Tensor  # bool [N, K] per-rule verdicts (block attribution)
-    wait_ms: torch.Tensor  # int32 [N] (0 on the DEFAULT path)
+    wait_ms: torch.Tensor  # int32 [N] occupy wait of a borrowed pass
+    sys_type: torch.Tensor  # int32 [N] system block dimension (SYS_*)
+    dslot_ok: torch.Tensor  # bool [N, KD] per-breaker verdicts
+    flow_live: torch.Tensor  # bool [N] passed every stage before the breakers
+    occupied: torch.Tensor  # bool [N] admitted by borrowing a future window
+    occ_slot: torch.Tensor  # bool [N, K] the slots that borrowed (admission-gated)
     blk_rows: Optional[torch.Tensor] = None  # int32 [k] rows with most blocked acquire
     blk_weight: Optional[torch.Tensor] = None  # int32 [k] their blocked acquire
 
 
 class Admission(NamedTuple):
-    """Output of :func:`flow_admission`."""
+    """Output of :func:`flow_admission`. ``admitted``/``reason`` and the
+    top-K come only from the fused DEFAULT-path tail; the occupy fields
+    only with ``with_occupy``."""
 
     slot_ok: torch.Tensor  # bool [N, K]
     flow_pass: torch.Tensor  # bool [N] AND over the entry's slots
-    admitted: torch.Tensor  # bool [N]
-    reason: torch.Tensor  # int32 [N]
+    admitted: Optional[torch.Tensor]  # bool [N]
+    reason: Optional[torch.Tensor]  # int32 [N]
     blk_rows: Optional[torch.Tensor]  # int32 [k] or None
     blk_weight: Optional[torch.Tensor]  # int32 [k] or None
+    occupied: Optional[torch.Tensor] = None  # bool [N] some slot borrowed
+    occupy_wait: Optional[torch.Tensor] = None  # int32 [N] max wait over borrowing slots
+    occ_slot: Optional[torch.Tensor] = None  # bool [N, K]
+    occ_target: Optional[torch.Tensor] = None  # int32 [N, K] target window start
+
+
+class ChainVerdict(NamedTuple):
+    """Output of :func:`slot_chain_verdict`."""
+
+    admitted: torch.Tensor  # bool [N]
+    reason: torch.Tensor  # int32 [N]
+    wait_ms: torch.Tensor  # int32 [N]
+    flow_live: torch.Tensor  # bool [N]
+    occupied: torch.Tensor  # bool [N] occupied and admitted
+    occ_slot: torch.Tensor  # bool [N, K] gated on occupied and admitted
+    blk_rows: Optional[torch.Tensor]
+    blk_weight: Optional[torch.Tensor]
 
 
 _BOOL_FIELDS = ("e_valid", "e_prio", "e_auth_ok", "e_cluster_ok", "x_valid")
@@ -113,7 +204,34 @@ def batch_from_numpy(b, device) -> FlushBatch:
 def _interval_sec() -> float:
     # The JAX code divides by the Python float interval/1000, which JAX
     # weak-types to float32: the compare runs in float32 against that value.
-    return float(np.float32(_nodes.SECOND_CFG.interval_ms / 1000.0))
+    return _f32(_nodes.SECOND_CFG.interval_ms / 1000.0)
+
+
+def _wrap32(x: int) -> int:
+    """A Python int wrapped to int32, as JAX int32 arithmetic wraps."""
+    return ((x + 2**31) % 2**32) - 2**31
+
+
+def occupy_steps(now: int):
+    """The scalars of tryOccupyNext's loop over future windows
+    (StatisticNode.java:302-333), per step i: (wait_ms, expiring window
+    start, its bucket index, whether it started before now, the borrowed
+    window's start), in the int32 arithmetic of the JAX code."""
+    cfg = _nodes.SECOND_CFG
+    wlen, nb, interval = cfg.window_len_ms, cfg.sample_count, cfg.interval_ms
+    now_mod = now % wlen
+    out = []
+    for i in range(nb):
+        exp_ws = _wrap32(now - now_mod + wlen - interval + i * wlen)
+        out.append((i * wlen + wlen - now_mod, exp_ws, (exp_ws // wlen) % nb, exp_ws < now,
+                    _wrap32(now - now_mod + (i + 1) * wlen)))
+    return out
+
+
+def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Wrapping int32 exclusive cumsum."""
+    x = x.to(torch.int32)
+    return torch.cumsum(x.to(torch.int64), 0).to(torch.int32) - x
 
 
 def segment_excl_cumsum(new_grp: torch.Tensor, contrib: torch.Tensor) -> torch.Tensor:
@@ -121,8 +239,7 @@ def segment_excl_cumsum(new_grp: torch.Tensor, contrib: torch.Tensor) -> torch.T
     (``new_grp`` marks boundaries in an already sorted array), computed as
     the JAX code does: a wrapping int32 exclusive cumsum, minus the running
     max of its group-start values."""
-    contrib = contrib.to(torch.int32)
-    excl = torch.cumsum(contrib.to(torch.int64), 0).to(torch.int32) - contrib
+    excl = _excl_cumsum(contrib)
     base = torch.cummax(torch.where(new_grp, excl, torch.zeros_like(excl)), 0).values
     return excl - base
 
@@ -133,39 +250,82 @@ def _segment_consumed(new_grp, last_of_ent, contrib) -> torch.Tensor:
     return segment_excl_cumsum(new_grp, torch.where(last_of_ent, contrib, torch.zeros_like(contrib)))
 
 
+def _blocked_topk_plain(batch: FlushBatch, admitted: torch.Tensor, r_rows: int, blk_topk: int):
+    """The ``blk_topk`` cluster rows with the most blocked acquire (weight
+    descending, row ascending, zero-weight rows filling up)."""
+    if blk_topk <= 0:
+        return None, None
+    i32 = torch.int32
+    blocked_w = torch.where(batch.e_valid & ~admitted, batch.e_acquire, 0).to(i32)
+    crow = batch.e_rows[:, 1].clamp(0, r_rows - 1)
+    scat = torch.where(blocked_w > 0, crow, torch.full_like(crow, r_rows)).long()
+    dense = torch.zeros(r_rows + 1, dtype=i32, device=admitted.device).index_add_(0, scat, blocked_w)
+    top = torch.sort(dense[:r_rows], descending=True, stable=True)
+    kk = min(blk_topk, r_rows)
+    return top.indices[:kk].to(i32), top.values[:kk].to(i32)
+
+
 # ---------------------------------------------------------------------------
-# K4: flow admission + verdict tail
+# K4: flow admission (with the occupy branch) + the DEFAULT-path tail
 # ---------------------------------------------------------------------------
 
 
 def flow_admission(
-    stats: StatsState, flow_dev: FlowTableDevice, batch: FlushBatch, blk_topk: int = 0
+    stats: StatsState,
+    flow_dev: FlowTableDevice,
+    batch: FlushBatch,
+    blk_topk: int = 0,
+    live: Optional[torch.Tensor] = None,
+    occupy_timeout_ms: int = 500,
+    with_occupy: bool = False,
+    tail: bool = True,
 ) -> Admission:
     """Vectorized FlowRuleChecker + DefaultController.canPass (block iff
     ``curCount + acquire > count``, curCount = ``(int) passQps()`` for the
     QPS grade, ``curThreadNum`` for the thread grade;
-    DefaultController.java:49-78), then the verdict tail of
-    ``flush_entries``: the per-entry AND, admission (valid, authority and
-    token-server verdicts), the reason code, and with ``blk_topk > 0`` the
-    ``blk_topk`` cluster rows with the most blocked acquire (weight
-    descending, row ascending, zero-weight rows filling up)."""
+    DefaultController.java:49-78).
+
+    ``with_occupy``: a prioritized QPS entry that fails the plain check
+    may borrow from a future 500 ms window (StatisticNode.tryOccupyNext,
+    StatisticNode.java:302-340): the borrowed total, charged with earlier
+    prioritized candidates of the row, must stay under ``count x
+    interval`` after the pass of each expiring window is released, and
+    the wait under ``occupy_timeout_ms``. ``live`` (bool [N]) masks
+    entries an earlier stage blocked out of borrowing. Borrows are NOT
+    committed here (:func:`commit_borrow_slab`).
+
+    ``tail`` (the DEFAULT path only: no occupy, system or breakers) fuses
+    the verdict tail of ``flush_entries``: the admission (valid,
+    authority and token-server verdicts), the reason code, and with
+    ``blk_topk > 0`` the top-K blocked cluster rows."""
+    if tail and with_occupy:
+        raise ValueError("flow_admission: the fused tail is the DEFAULT path's; occupy needs slot_chain_verdict")
     if stats.threads.is_cuda:
-        return _flow_admission_cuda(stats, flow_dev, batch, blk_topk)
-    return flow_admission_plain(stats, flow_dev, batch, blk_topk)
+        return _flow_admission_cuda(stats, flow_dev, batch, blk_topk, live, occupy_timeout_ms, with_occupy, tail)
+    return flow_admission_plain(stats, flow_dev, batch, blk_topk, live, occupy_timeout_ms, with_occupy, tail)
 
 
 flow_admission.launches = 0
+# Launches of K4 with its occupy branch on (a subset of ``launches``).
+flow_admission.occupy_launches = 0
 
 
 def flow_admission_plain(
-    stats: StatsState, flow_dev: FlowTableDevice, batch: FlushBatch, blk_topk: int = 0
+    stats: StatsState,
+    flow_dev: FlowTableDevice,
+    batch: FlushBatch,
+    blk_topk: int = 0,
+    live: Optional[torch.Tensor] = None,
+    occupy_timeout_ms: int = 500,
+    with_occupy: bool = False,
+    tail: bool = True,
 ) -> Admission:
     """Plain PyTorch version of :func:`flow_admission`."""
     n, k = batch.e_rule_gid.shape
     r_rows = stats.n_rows
     nr = flow_dev.n_rules
     dev = batch.e_valid.device
-    i32 = torch.int32
+    i32, f32 = torch.int32, torch.float32
 
     gid_f = batch.e_rule_gid.reshape(-1)
     row_f = batch.e_check_row.reshape(-1)
@@ -205,40 +365,81 @@ def flow_admission_plain(
     base_pass = sums[:, MetricEvent.PASS]
     base_thread = stats.threads[rk_c]
 
-    interval_sec = torch.tensor(_interval_sec(), dtype=torch.float32, device=dev)
-    qps_cur = torch.floor((base_pass + consumed_acq).to(torch.float32) / interval_sec)
-    thread_cur = (base_thread + consumed_cnt).to(torch.float32)
+    interval_sec = torch.tensor(_interval_sec(), dtype=f32, device=dev)
+    qps_cur = torch.floor((base_pass + consumed_acq).to(f32) / interval_sec)
+    thread_cur = (base_thread + consumed_cnt).to(f32)
     cur = torch.where(grade_s == C.FLOW_GRADE_QPS, qps_cur, thread_cur)
-    ok = (cur + acq_s.to(torch.float32)) <= count_s
-    ok = ok | ~active_s | (behavior_s != C.CONTROL_BEHAVIOR_DEFAULT)
+    ok = (cur + acq_s.to(f32)) <= count_s
+    is_default = behavior_s == C.CONTROL_BEHAVIOR_DEFAULT
+
+    occ_s = torch.zeros(n * k, dtype=torch.bool, device=dev)
+    occ_wait = torch.zeros(n * k, dtype=i32, device=dev)
+    occ_target = torch.zeros(n * k, dtype=i32, device=dev)
+    if with_occupy:
+        # An entry the token server already BLOCKED never reaches the local
+        # controller, so it does not borrow either (FlowRuleChecker.java:207).
+        live_s = torch.ones_like(active_s) if live is None else live[ei_s]
+        eligible = (
+            active_s & ~ok & is_default & live_s & batch.e_prio[ei_s] & batch.e_cluster_ok[ei_s]
+            & (grade_s == C.FLOW_GRADE_QPS)
+        )
+        max_count = count_s * interval_sec
+        waiting = waiting_tokens(stats, batch.now)[rk_c]
+        # Conservative intra-batch borrow charge: every earlier prioritized
+        # candidate of the row charges, granted or not.
+        borrow_charge = _segment_consumed(new_grp, last_of_ent, torch.where(eligible, acq_s, zero))
+        cur_borrow = (waiting + borrow_charge).to(f32)
+        cur_pass = (base_pass + consumed_acq).to(f32)
+        acq_fs = acq_s.to(f32)
+        ws2, pass2 = stats.second.window_start, stats.second.counts[:, :, MetricEvent.PASS]
+        for wait_i, exp_ws, bidx, started, target in occupy_steps(batch.now):
+            # Step i sees the pass that remains once windows 0..i expired:
+            # the loop's cumulative ``currentPass -= windowPass``.
+            win_pass = torch.where(ws2[rk_c, bidx] == exp_ws, pass2[rk_c, bidx], 0).to(f32)
+            cond = eligible & (cur_pass + cur_borrow + acq_fs - win_pass <= max_count)
+            if not (started and wait_i < occupy_timeout_ms):
+                cond = torch.zeros_like(cond)
+            fresh = cond & ~occ_s
+            occ_wait = torch.where(fresh, wait_i, occ_wait).to(i32)
+            occ_target = torch.where(fresh, target, occ_target).to(i32)
+            occ_s = occ_s | cond
+            cur_pass = cur_pass - win_pass
+    # Non-DEFAULT behaviors are decided by the shaping stage, not here.
+    ok = ok | occ_s | ~active_s | ~is_default
 
     slot_ok = torch.ones(n * k, dtype=torch.bool, device=dev)
     slot_ok[pos_s] = ok
     slot_ok = slot_ok.reshape(n, k)
     flow_pass = slot_ok.all(dim=1)
 
-    fpc = flow_pass & batch.e_cluster_ok
-    admitted = batch.e_valid & batch.e_auth_ok & fpc
-    reason = torch.full((n,), E.PASS, dtype=i32, device=dev)
-    reason[batch.e_valid & ~fpc] = E.BLOCK_FLOW
-    reason[batch.e_valid & ~batch.e_auth_ok] = E.BLOCK_AUTHORITY
-    reason[admitted] = E.PASS
+    occ = {}
+    if with_occupy:
+        e_occ = ei_s[occ_s]
+        occupied = torch.zeros(n, dtype=torch.bool, device=dev)
+        occupied[e_occ] = True
+        occupy_wait = torch.zeros(n, dtype=i32, device=dev).scatter_reduce_(0, e_occ, occ_wait[occ_s], reduce="amax")
+        occ_nk = torch.zeros(n * k, dtype=torch.bool, device=dev)
+        occ_nk[pos_s] = occ_s
+        tgt_nk = torch.zeros(n * k, dtype=i32, device=dev)
+        tgt_nk[pos_s] = occ_target
+        occ = dict(occupied=occupied, occupy_wait=occupy_wait, occ_slot=occ_nk.reshape(n, k),
+                   occ_target=tgt_nk.reshape(n, k))
 
-    blk_rows = blk_weight = None
-    if blk_topk > 0:
-        blocked_w = torch.where(batch.e_valid & ~admitted, batch.e_acquire, 0).to(i32)
-        crow = batch.e_rows[:, 1].clamp(0, r_rows - 1)
-        scat = torch.where(blocked_w > 0, crow, torch.full_like(crow, r_rows)).long()
-        dense = torch.zeros(r_rows + 1, dtype=i32, device=dev).index_add_(0, scat, blocked_w)
-        top = torch.sort(dense[:r_rows], descending=True, stable=True)
-        kk = min(blk_topk, r_rows)
-        blk_weight = top.values[:kk].to(i32)
-        blk_rows = top.indices[:kk].to(i32)
-    return Admission(slot_ok, flow_pass, admitted, reason, blk_rows, blk_weight)
+    admitted = reason = blk_rows = blk_weight = None
+    if tail:
+        fpc = flow_pass & batch.e_cluster_ok
+        admitted = batch.e_valid & batch.e_auth_ok & fpc
+        reason = torch.full((n,), E.PASS, dtype=i32, device=dev)
+        reason[batch.e_valid & ~fpc] = E.BLOCK_FLOW
+        reason[batch.e_valid & ~batch.e_auth_ok] = E.BLOCK_AUTHORITY
+        reason[admitted] = E.PASS
+        blk_rows, blk_weight = _blocked_topk_plain(batch, admitted, r_rows, blk_topk)
+    return Admission(slot_ok, flow_pass, admitted, reason, blk_rows, blk_weight, **occ)
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def _fa_lib() -> ctypes.CDLL:
@@ -249,12 +450,21 @@ def _fa_lib() -> ctypes.CDLL:
         lib.flow_admission_tiles.argtypes = [_I]
         lib.flow_admission_topk_blocks.argtypes = [_I]
         lib.flow_admission_decide.argtypes = (
-            [_P] * 10 + [_I, _I, _I, _I] + [_P, _P, _P, _P, _I, _P, ctypes.c_float, _I]
+            [_P] * 10 + [_I, _I, _I, _I] + [_P, _P, _P, _P, _I, _P, _F, _I]
             + [_P] * 16
+        )
+        lib.flow_admission_slots.argtypes = (
+            [_P] * 7 + [_I, _I, _I, _I] + [_P, _P, _P, _P, _I, _P, _F]
+            + [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
+            + [_P] * 11 + [_P] * 6 + [_P]
+        )
+        lib.flow_admission_chain_verdict.argtypes = (
+            [_I, _I, _I, _I] + [_P] * 12 + [_P, _P, _I, _P, _P, _P] + [_P] * 7 + [_P]
         )
         for f in (
             lib.flow_admission_prep, lib.flow_admission_gather, lib.flow_admission_tiles,
-            lib.flow_admission_topk_blocks, lib.flow_admission_decide,
+            lib.flow_admission_topk_blocks, lib.flow_admission_decide, lib.flow_admission_slots,
+            lib.flow_admission_chain_verdict,
         ):
             f.restype = _I
         lib._typed = True
@@ -269,10 +479,14 @@ def _check_batch_cuda(batch: FlushBatch) -> None:
             raise ValueError(f"batch.{name}: need a contiguous CUDA {want} tensor")
 
 
-def _flow_admission_cuda(stats, flow_dev, batch, blk_topk) -> Admission:
-    _check_batch_cuda(batch)
+def _check_topk(blk_topk: int) -> None:
     if not 0 <= blk_topk <= TOPK_MAX:
         raise ValueError(f"blk_topk must lie in [0, {TOPK_MAX}]")
+
+
+def _flow_admission_cuda(stats, flow_dev, batch, blk_topk, live, occupy_timeout_ms, with_occupy, tail) -> Admission:
+    _check_batch_cuda(batch)
+    _check_topk(blk_topk)
     for name in ("grade", "count", "behavior"):
         t = getattr(flow_dev, name)
         if not t.is_contiguous() or not t.is_cuda:
@@ -306,6 +520,12 @@ def _flow_admission_cuda(stats, flow_dev, batch, blk_topk) -> Admission:
     pass_sums = ma.window_sums(_nodes.SECOND_CFG, stats.second, batch.now, rows=rk_s)
 
     tiles = lib.flow_admission_tiles(nk)
+    slot_ok = torch.empty((n, k), dtype=torch.bool, device=dev)
+    flow_pass = torch.empty(n, dtype=torch.bool, device=dev)
+    if not tail:
+        return _flow_slots_cuda(lib, stats, flow_dev, batch, live, occupy_timeout_ms, with_occupy, rk_s,
+                                perm1, perm2, pass_sums, tiles, slot_ok, flow_pass, st)
+
     topk_blocks = lib.flow_admission_topk_blocks(r_rows)
     scratch = torch.empty(nk * 5 + tiles * 4, dtype=i32, device=dev)
     pos_s = scratch[:nk]
@@ -314,22 +534,9 @@ def _flow_admission_cuda(stats, flow_dev, batch, blk_topk) -> Admission:
     partial = scratch[5 * nk : 5 * nk + 2 * tiles]
     partial_max = scratch[5 * nk + 2 * tiles :]
     new_grp = torch.empty(nk, dtype=torch.uint8, device=dev)
-    slot_ok = torch.empty((n, k), dtype=torch.bool, device=dev)
-    flow_pass = torch.empty(n, dtype=torch.bool, device=dev)
     admitted = torch.empty(n, dtype=torch.bool, device=dev)
     reason = torch.empty(n, dtype=i32, device=dev)
-    if blk_topk > 0:
-        dense = torch.empty(r_rows + 1, dtype=i32, device=dev)
-        cand = torch.empty(2 * topk_blocks * TOPK_MAX, dtype=i32, device=dev)
-        cand_w, cand_r = cand[: topk_blocks * TOPK_MAX], cand[topk_blocks * TOPK_MAX :]
-        blk = torch.empty(2 * blk_topk, dtype=i32, device=dev)
-        blk_weight, blk_rows = blk[:blk_topk], blk[blk_topk:]
-        ptrs = (dense.data_ptr(), cand_w.data_ptr(), cand_r.data_ptr())
-        out_ptrs = (blk_weight.data_ptr(), blk_rows.data_ptr())
-    else:
-        blk_weight = blk_rows = None
-        ptrs = (None, None, None)
-        out_ptrs = (None, None)
+    topk = _TopK(blk_topk, r_rows, topk_blocks, dev)
     cuda_build.check(
         lib.flow_admission_decide(
             rk_s.data_ptr(), perm1.data_ptr(), perm2.data_ptr(), batch.e_rule_gid.data_ptr(),
@@ -340,14 +547,416 @@ def _flow_admission_cuda(stats, flow_dev, batch, blk_topk) -> Admission:
             pass_sums.data_ptr(), NUM_EVENTS, stats.threads.data_ptr(), _interval_sec(),
             blk_topk,
             pos_s.data_ptr(), new_grp.data_ptr(), contrib.data_ptr(), excl.data_ptr(),
-            partial.data_ptr(), partial_max.data_ptr(), *ptrs,
+            partial.data_ptr(), partial_max.data_ptr(), *topk.scratch_ptrs,
             slot_ok.data_ptr(), flow_pass.data_ptr(), admitted.data_ptr(), reason.data_ptr(),
-            *out_ptrs, st,
+            *topk.out_ptrs, st,
         ),
         "flow_admission_decide",
     )
     flow_admission.launches += 1
-    return Admission(slot_ok, flow_pass, admitted, reason, blk_rows, blk_weight)
+    return Admission(slot_ok, flow_pass, admitted, reason, topk.rows, topk.weight)
+
+
+class _TopK:
+    """Scratch and outputs of the blocked top-K step (none at k = 0)."""
+
+    def __init__(self, k: int, r_rows: int, blocks: int, dev) -> None:
+        if k > 0:
+            self.dense = torch.empty(r_rows + 1, dtype=torch.int32, device=dev)
+            cand = torch.empty(2 * blocks * TOPK_MAX, dtype=torch.int32, device=dev)
+            blk = torch.empty(2 * k, dtype=torch.int32, device=dev)
+            self.weight, self.rows = blk[:k], blk[k:]
+            self.scratch_ptrs = (self.dense.data_ptr(), cand[: blocks * TOPK_MAX].data_ptr(),
+                                 cand[blocks * TOPK_MAX :].data_ptr())
+            self.out_ptrs = (self.weight.data_ptr(), self.rows.data_ptr())
+        else:
+            self.weight = self.rows = None
+            self.scratch_ptrs = (None, None, None)
+            self.out_ptrs = (None, None)
+
+
+def _flow_slots_cuda(lib, stats, flow_dev, batch, live, occupy_timeout_ms, with_occupy, rk_s, perm1, perm2,
+                     pass_sums, tiles, slot_ok, flow_pass, st) -> Admission:
+    """K4 without the fused tail: the slot verdicts, and with occupy the
+    borrow decisions and their per-entry fold."""
+    n, k = batch.e_rule_gid.shape
+    nk = n * k
+    dev = batch.e_valid.device
+    i32 = torch.int32
+    n_scr = 5 if not with_occupy else 11
+    scratch = torch.empty(nk * n_scr + tiles * 4, dtype=i32, device=dev)
+    pos_s, contrib, excl = scratch[:nk], scratch[nk : 3 * nk], scratch[3 * nk : 5 * nk]
+    partial = scratch[n_scr * nk : n_scr * nk + 2 * tiles]
+    partial_max = scratch[n_scr * nk + 2 * tiles :]
+    flags = torch.empty(2 * nk, dtype=torch.uint8, device=dev)  # new_grp, last of entry
+    occ = {}
+    if with_occupy:
+        contrib3, excl3 = scratch[5 * nk : 7 * nk], scratch[7 * nk : 9 * nk]
+        occ_wait_slot, cur_pass_s = scratch[9 * nk : 10 * nk], scratch[10 * nk : 11 * nk]
+        occ_slot = torch.empty((n, k), dtype=torch.bool, device=dev)
+        occ_target = torch.empty((n, k), dtype=i32, device=dev)
+        occupied = torch.empty(n, dtype=torch.bool, device=dev)
+        occupy_wait = torch.empty(n, dtype=i32, device=dev)
+        live = batch.e_valid if live is None else live
+        if live.dtype != torch.bool or not live.is_contiguous() or tuple(live.shape) != (n,):
+            raise ValueError("live: need a contiguous bool tensor of shape (N,)")
+        sec = stats.second
+        cfg = _nodes.SECOND_CFG
+        occ_args = (
+            1, live.data_ptr(), batch.e_prio.data_ptr(), batch.e_cluster_ok.data_ptr(),
+            stats.future_ws.data_ptr(), stats.future_pass.data_ptr(), sec.window_start.data_ptr(),
+            sec.counts.data_ptr(), cfg.sample_count, NUM_EVENTS, batch.now, cfg.window_len_ms,
+            cfg.interval_ms, int(occupy_timeout_ms),
+        )
+        occ_ptrs = (contrib3.data_ptr(), excl3.data_ptr(), occ_wait_slot.data_ptr(), cur_pass_s.data_ptr())
+        out_ptrs = (occ_slot.data_ptr(), occ_target.data_ptr(), occupied.data_ptr(), occupy_wait.data_ptr())
+        occ = dict(occupied=occupied, occupy_wait=occupy_wait, occ_slot=occ_slot, occ_target=occ_target)
+    else:
+        occ_args = (0, None, None, None, None, None, None, None, 0, 0, batch.now, 1, 1, 0)
+        occ_ptrs = (None, None, None, None)
+        out_ptrs = (None, None, None, None)
+    cuda_build.check(
+        lib.flow_admission_slots(
+            rk_s.data_ptr(), perm1.data_ptr(), perm2.data_ptr(), batch.e_rule_gid.data_ptr(),
+            batch.e_check_row.data_ptr(), batch.e_acquire.data_ptr(), batch.e_rows.data_ptr(),
+            n, k, stats.n_rows, flow_dev.n_rules,
+            flow_dev.grade.data_ptr(), flow_dev.count.data_ptr(), flow_dev.behavior.data_ptr(),
+            pass_sums.data_ptr(), NUM_EVENTS, stats.threads.data_ptr(), _interval_sec(),
+            *occ_args,
+            batch.e_valid.data_ptr(), pos_s.data_ptr(), flags.data_ptr(), contrib.data_ptr(), excl.data_ptr(),
+            partial.data_ptr(), partial_max.data_ptr(), *occ_ptrs,
+            slot_ok.data_ptr(), flow_pass.data_ptr(), *out_ptrs, st,
+        ),
+        "flow_admission_slots",
+    )
+    flow_admission.launches += 1
+    if with_occupy:
+        flow_admission.occupy_launches += 1
+    return Admission(slot_ok, flow_pass, None, None, None, None, **occ)
+
+
+# ---------------------------------------------------------------------------
+# K6: system_check
+# ---------------------------------------------------------------------------
+
+
+def system_check(
+    stats: StatsState, sysdev: SystemDevice, batch: FlushBatch, live: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Vectorized SystemRuleManager.checkSystem (SystemRuleManager.java:
+    298-353) against the global inbound row (Constants.ENTRY_NODE, row 0).
+    Only live inbound (EntryType.IN) entries are checked. QPS and thread
+    count see the charge of earlier inbound entries in (ts, arrival)
+    order; RT, BBR load and CPU use the flush-time snapshot. The first
+    tripped dimension in the reference's order wins. Returns (ok [N],
+    sys_type [N])."""
+    if stats.threads.is_cuda:
+        return _system_check_cuda(stats, sysdev, batch, live)
+    return system_check_plain(stats, sysdev, batch, live)
+
+
+system_check.launches = 0
+
+
+def system_check_plain(stats, sysdev, batch, live) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`system_check`."""
+    cfg = _nodes.SECOND_CFG
+    n = batch.e_valid.shape[0]
+    dev = batch.e_valid.device
+    i32, f32 = torch.int32, torch.float32
+
+    def f(v):
+        return torch.tensor(v, dtype=f32, device=dev)
+
+    checked = live & (batch.e_rows[:, 3] >= 0)
+    sums = ma.window_reduce_plain(cfg, stats.second, batch.now, rows=torch.zeros(1, dtype=i32, device=dev))[0][0]
+    pass_sum, success, rt_sum = (sums[e].to(f32) for e in (MetricEvent.PASS, MetricEvent.SUCCESS, MetricEvent.RT))
+    threads0 = stats.threads[0].to(f32)
+
+    # Intra-batch charge among inbound entries, in (ts, arrival) order.
+    key = torch.where(checked, 0, 1).to(i32)
+    o1 = torch.sort(batch.e_ts, stable=True).indices
+    p_s = o1[torch.sort(key[o1], stable=True).indices]
+    in_grp = key[p_s] == 0
+    acq_s = batch.e_acquire[p_s]
+    zero = torch.zeros_like(acq_s)
+    consumed_acq = torch.zeros(n, dtype=i32, device=dev)
+    consumed_acq[p_s] = torch.where(in_grp, _excl_cumsum(torch.where(in_grp, acq_s, zero)), zero)
+    consumed_cnt = torch.zeros(n, dtype=i32, device=dev)
+    consumed_cnt[p_s] = torch.where(in_grp, _excl_cumsum(in_grp.to(i32)), zero)
+
+    acq = batch.e_acquire.to(f32)
+    cur_qps = (pass_sum + consumed_acq.to(f32)) / f(_interval_sec())
+    qps_block = cur_qps + acq > f(sysdev.qps)
+    cur_thread = threads0 + consumed_cnt.to(f32)
+    thread_block = cur_thread > f(sysdev.max_thread)
+    avg_rt = torch.where(success > 0, rt_sum / torch.maximum(success, f(1.0)), f(0.0))
+    rt_block = avg_rt > f(sysdev.max_rt)
+
+    # BBR (checkBbr): under high load, block unless
+    # curThread <= maxSuccessQps * minRt / 1000 (or curThread <= 1).
+    now_t = torch.tensor(batch.now, dtype=i32, device=dev)
+    valid_b = (now_t - stats.second.window_start[0]) <= cfg.interval_ms
+    succ = torch.where(valid_b, stats.second.counts[0, :, MetricEvent.SUCCESS], 0)
+    max_success_qps = succ.max().to(f32) * f(cfg.sample_count)
+    min_rt = torch.where(valid_b, stats.second.min_rt[0], cfg.max_rt).min().to(f32)
+    load_on = sysdev.load_threshold >= 0 and sysdev.cur_load > sysdev.load_threshold
+    load_block = (cur_thread > f(1.0)) & (cur_thread > max_success_qps * min_rt / f(1000.0)) & load_on
+    cpu_block = sysdev.cpu_threshold >= 0 and sysdev.cur_cpu > sysdev.cpu_threshold
+
+    # The first matching dimension in the reference's order wins.
+    sys_type = torch.full((n,), SYS_NONE, dtype=i32, device=dev)
+    for blocked, code in ((torch.full_like(checked, cpu_block), SYS_CPU), (load_block, SYS_LOAD),
+                          (rt_block, SYS_RT), (thread_block, SYS_THREAD), (qps_block, SYS_QPS)):
+        sys_type = torch.where(checked & blocked, code, sys_type).to(i32)
+    return sys_type == SYS_NONE, sys_type
+
+
+def _sc_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("system_check")
+    if not getattr(lib, "_typed", False):
+        lib.system_check_keys.argtypes = [_P, _P, _P, _I, _P, _P]
+        lib.system_check_apply.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_F] * 8 + [_P, _P, _P]
+        lib.system_check_keys.restype = lib.system_check_apply.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _system_check_cuda(stats, sysdev, batch, live) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_batch_cuda(batch)
+    n = batch.e_valid.shape[0]
+    ma._bool(live, "live", n)
+    sec = stats.second
+    for name, t in zip(ma.MetricArrayState._fields, sec):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"stats.second.{name}: need a contiguous int32 tensor")
+    dev = batch.e_valid.device
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    sys_type = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return ok, sys_type
+    lib = _sc_lib()
+    cfg = _nodes.SECOND_CFG
+    st = ma.stream_of(live)
+    key = torch.empty(n, dtype=torch.int32, device=dev)
+    cuda_build.check(
+        lib.system_check_keys(live.data_ptr(), batch.e_rows.data_ptr(), batch.e_ts.data_ptr(), n, key.data_ptr(), st),
+        "system_check_keys",
+    )
+    perm = torch.sort(key, stable=True).indices
+    cuda_build.check(
+        lib.system_check_apply(
+            perm.data_ptr(), live.data_ptr(), batch.e_rows.data_ptr(), batch.e_acquire.data_ptr(), n,
+            sec.counts.data_ptr(), sec.min_rt.data_ptr(), sec.window_start.data_ptr(), stats.threads.data_ptr(),
+            cfg.sample_count, NUM_EVENTS, cfg.interval_ms, cfg.max_rt, batch.now,
+            _interval_sec(), *(float(v) for v in sysdev),
+            ok.data_ptr(), sys_type.data_ptr(), st,
+        ),
+        "system_check_apply",
+    )
+    system_check.launches += 1
+    return ok, sys_type
+
+
+# ---------------------------------------------------------------------------
+# K5: commit_borrow_slab
+# ---------------------------------------------------------------------------
+
+
+def commit_borrow_slab(
+    stats: StatsState,
+    occ_slot: torch.Tensor,  # bool [N, K], gated on the entry's final admission
+    occ_target: torch.Tensor,  # int32 [N, K] target window starts
+    acquire: torch.Tensor,  # int32 [N]
+    check_row: torch.Tensor,  # int32 [N, K]
+) -> StatsState:
+    """Write granted borrows into the future slab, in place:
+    addWaitingRequest (StatisticNode.java:342-345), set-if-newer per
+    (row, bucket) like the borrow array's reset-then-add roll. A borrow by
+    an entry that another stage vetoed must not reach here."""
+    if stats.threads.is_cuda:
+        return _commit_borrow_cuda(stats, occ_slot, occ_target, acquire, check_row)
+    return commit_borrow_slab_plain(stats, occ_slot, occ_target, acquire, check_row)
+
+
+commit_borrow_slab.launches = 0
+
+
+def commit_borrow_slab_plain(stats, occ_slot, occ_target, acquire, check_row) -> StatsState:
+    """Plain PyTorch version of :func:`commit_borrow_slab`."""
+    cfg = _nodes.SECOND_CFG
+    n, k = occ_slot.shape
+    r_rows, nb, wlen = stats.n_rows, cfg.sample_count, cfg.window_len_ms
+    dev = occ_slot.device
+    occ_f = occ_slot.reshape(-1)
+    tgt = occ_target.reshape(-1)[occ_f]
+    acq = acquire[(torch.arange(n * k, device=dev) // k)[occ_f]]
+    key = check_row.reshape(-1)[occ_f].clamp(0, r_rows - 1).long() * nb + torch.remainder(
+        torch.div(tgt, wlen, rounding_mode="floor"), nb).long()
+    # Per (row, bucket): the newest target window, and the acquire of the
+    # borrows that target it.
+    seg_ws = torch.full((r_rows * nb,), cfg.empty_ws, dtype=torch.int32, device=dev)
+    seg_ws.scatter_reduce_(0, key, tgt, reduce="amax", include_self=False)
+    hit = tgt == seg_ws[key]
+    seg_sum = torch.zeros(r_rows * nb, dtype=torch.int32, device=dev).index_add_(0, key[hit], acq[hit])
+    touched = torch.zeros(r_rows * nb, dtype=torch.bool, device=dev)
+    touched[key] = True
+    fws, fpass = stats.future_ws.view(-1), stats.future_pass.view(-1)
+    same = touched & (seg_ws == fws)
+    newer = touched & (seg_ws > fws)
+    fpass.copy_(torch.where(same, fpass + seg_sum, torch.where(newer, seg_sum, fpass)))
+    fws.copy_(torch.where(newer, seg_ws, fws))
+    return stats
+
+
+def _cb_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("commit_borrow_slab")
+    if not getattr(lib, "_typed", False):
+        lib.commit_borrow_keys.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P]
+        lib.commit_borrow_apply.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+        lib.commit_borrow_keys.restype = lib.commit_borrow_apply.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _commit_borrow_cuda(stats, occ_slot, occ_target, acquire, check_row) -> StatsState:
+    n, k = occ_slot.shape
+    nk = n * k
+    if occ_slot.dtype != torch.bool or not occ_slot.is_contiguous() or not occ_slot.is_cuda:
+        raise ValueError("occ_slot: need a contiguous CUDA bool tensor")
+    ma._i32(occ_target, "occ_target", (n, k))
+    ma._i32(check_row, "check_row", (n, k))
+    ma._i32(acquire, "acquire", (n,))
+    for name in ("future_pass", "future_ws"):
+        t = getattr(stats, name)
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"stats.{name}: need a contiguous int32 tensor")
+    if nk == 0:
+        return stats
+    lib = _cb_lib()
+    cfg = _nodes.SECOND_CFG
+    dev = occ_slot.device
+    st = ma.stream_of(occ_slot)
+    rb = stats.n_rows * cfg.sample_count
+    key = torch.empty(nk, dtype=torch.int32, device=dev)
+    cuda_build.check(
+        lib.commit_borrow_keys(occ_slot.data_ptr(), occ_target.data_ptr(), check_row.data_ptr(), nk, stats.n_rows,
+                               cfg.sample_count, cfg.window_len_ms, key.data_ptr(), st),
+        "commit_borrow_keys",
+    )
+    key_s, perm = torch.sort(key, stable=True)
+    seg = torch.empty(3 * nk, dtype=torch.int32, device=dev)  # head, newest window, its acquire
+    cuda_build.check(
+        lib.commit_borrow_apply(
+            key_s.data_ptr(), perm.data_ptr(), occ_target.data_ptr(), acquire.data_ptr(), nk, k, rb,
+            seg[:nk].data_ptr(), seg[nk : 2 * nk].data_ptr(), seg[2 * nk :].data_ptr(),
+            stats.future_pass.data_ptr(), stats.future_ws.data_ptr(), st,
+        ),
+        "commit_borrow_apply",
+    )
+    commit_borrow_slab.launches += 1
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# the verdict tail after the breakers (with apply_probe_transitions)
+# ---------------------------------------------------------------------------
+
+
+def slot_chain_verdict(
+    batch: FlushBatch,
+    adm: Admission,
+    sys_ok: Optional[torch.Tensor],
+    dslot_ok: Optional[torch.Tensor],
+    probe_slot: Optional[torch.Tensor],
+    ddyn: Optional[DegradeDynState],
+    n_rows: int,
+    blk_topk: int = 0,
+) -> ChainVerdict:
+    """The verdict tail of ``flush_entries`` when occupy, system or the
+    breakers are on: admission = live and flow pass and breaker pass (an
+    occupied entry skips the breaker: PriorityWaitException aborts the
+    chain before DegradeSlot), the occupy ``wait_ms``, the reason with
+    precedence authority > system > flow > degrade, the blocked top-K,
+    and OPEN -> HALF_OPEN for probes of entries admitted end to end and
+    not occupied (applied to ``ddyn.state`` in place). ``sys_ok`` None =
+    no system stage; ``dslot_ok``/``probe_slot`` None = no breakers;
+    ``n_rows`` is the stats row count (the top-K's range)."""
+    if batch.e_valid.is_cuda:
+        return _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk)
+    return slot_chain_verdict_plain(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk)
+
+
+slot_chain_verdict.launches = 0
+
+
+def slot_chain_verdict_plain(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk=0) -> ChainVerdict:
+    """Plain PyTorch version of :func:`slot_chain_verdict`."""
+    n, k = batch.e_rule_gid.shape
+    dev = batch.e_valid.device
+    live = batch.e_valid & batch.e_auth_ok
+    if sys_ok is not None:
+        live = live & sys_ok
+    flow_pass = adm.flow_pass & batch.e_cluster_ok
+    live2 = live & flow_pass
+    no = torch.zeros(n, dtype=torch.bool, device=dev)
+    occupied = no if adm.occupied is None else adm.occupied & live
+    wait_ms = torch.where(occupied & live2, adm.occupy_wait if adm.occupy_wait is not None else 0, 0)
+    wait_ms = wait_ms.clamp(min=0).to(torch.int32)
+    deg_pass = ~no if dslot_ok is None else dslot_ok.all(dim=1) | (occupied & live2)
+    admitted = live2 & deg_pass
+    if probe_slot is not None:
+        _dt.apply_probe_transitions_plain(ddyn, batch.e_dgid, probe_slot, admitted & ~occupied)
+    reason = torch.full((n,), E.PASS, dtype=torch.int32, device=dev)
+    reason[batch.e_valid & ~deg_pass] = E.BLOCK_DEGRADE
+    reason[batch.e_valid & ~flow_pass] = E.BLOCK_FLOW
+    if sys_ok is not None:
+        reason[batch.e_valid & ~sys_ok] = E.BLOCK_SYSTEM
+    reason[batch.e_valid & ~batch.e_auth_ok] = E.BLOCK_AUTHORITY
+    reason[admitted] = E.PASS
+    occ_final = occupied & admitted
+    occ_slot = (torch.zeros((n, k), dtype=torch.bool, device=dev) if adm.occ_slot is None
+                else adm.occ_slot & occ_final[:, None])
+    blk_rows, blk_weight = _blocked_topk_plain(batch, admitted, n_rows, blk_topk)
+    return ChainVerdict(admitted, reason, wait_ms, live2, occ_final, occ_slot, blk_rows, blk_weight)
+
+
+def _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk) -> ChainVerdict:
+    _check_batch_cuda(batch)
+    _check_topk(blk_topk)
+    n, k = batch.e_rule_gid.shape
+    kd = batch.e_dgid.shape[1]
+    dev = batch.e_valid.device
+    if dslot_ok is not None and (dslot_ok.shape != (n, kd) or probe_slot is None or ddyn is None):
+        raise ValueError("slot_chain_verdict: dslot_ok [N, KD] needs probe_slot and the breaker state")
+    lib = _fa_lib()
+    r_rows = n_rows
+    admitted = torch.empty(n, dtype=torch.bool, device=dev)
+    reason = torch.empty(n, dtype=torch.int32, device=dev)
+    wait_ms = torch.empty(n, dtype=torch.int32, device=dev)
+    flow_live = torch.empty(n, dtype=torch.bool, device=dev)
+    occupied = torch.empty(n, dtype=torch.bool, device=dev)
+    occ_slot = adm.occ_slot.clone() if adm.occ_slot is not None else torch.zeros((n, k), dtype=torch.bool, device=dev)
+    topk = _TopK(blk_topk, r_rows, lib.flow_admission_topk_blocks(r_rows), dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    cuda_build.check(
+        lib.flow_admission_chain_verdict(
+            n, k, kd, r_rows,
+            batch.e_valid.data_ptr(), batch.e_auth_ok.data_ptr(), ptr(sys_ok), adm.flow_pass.data_ptr(),
+            batch.e_cluster_ok.data_ptr(), ptr(adm.occupied), ptr(adm.occupy_wait), ptr(dslot_ok),
+            ptr(probe_slot), batch.e_dgid.data_ptr(), None if dslot_ok is None else ddyn.state.data_ptr(),
+            occ_slot.data_ptr(),
+            batch.e_acquire.data_ptr(), batch.e_rows.data_ptr(), blk_topk, *topk.scratch_ptrs,
+            admitted.data_ptr(), reason.data_ptr(), wait_ms.data_ptr(), flow_live.data_ptr(), occupied.data_ptr(),
+            *topk.out_ptrs, ma.stream_of(batch.e_valid),
+        ),
+        "flow_admission_chain_verdict",
+    )
+    slot_chain_verdict.launches += 1
+    return ChainVerdict(admitted, reason, wait_ms, flow_live, occupied, occ_slot, topk.rows, topk.weight)
 
 
 # ---------------------------------------------------------------------------
@@ -367,10 +976,18 @@ def _event_cols(m: int, device, **cols: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def apply_exit_phase(stats: StatsState, batch: FlushBatch, with_exits: bool = True) -> StatsState:
-    """Phase 1: exits and traces (StatisticSlot.exit), in place.
-    ``with_exits=False`` (the host knows the exit buffer is empty) skips
-    the updates; every mask would be False anyway."""
+def apply_exit_phase(
+    stats: StatsState,
+    batch: FlushBatch,
+    with_exits: bool = True,
+    ddev: Optional[DegradeTableDevice] = None,
+    ddyn: Optional[DegradeDynState] = None,
+    with_degrade: bool = False,
+) -> StatsState:
+    """Phases 1 and 1b: exits and traces (StatisticSlot.exit), then the
+    breaker completions (DegradeSlot.exit), in place. ``with_exits=False``
+    (the host knows the exit buffer is empty) skips both; every mask would
+    be False anyway."""
     if not with_exits:
         return stats
     m = batch.x_valid.shape[0]
@@ -384,36 +1001,88 @@ def apply_exit_phase(stats: StatsState, batch: FlushBatch, with_exits: bool = Tr
     )
     # A min-RT sample comes only from true exits that carry completions.
     rt_sample = torch.where((x_thr4 < 0) & (count4 > 0), rt4, _I32_MAX).to(torch.int32)
-    return apply_updates(stats, x_rows_f, _rep4(batch.x_ts), deltas, rt_sample, x_thr4, x_mask)
+    apply_updates(stats, x_rows_f, _rep4(batch.x_ts), deltas, rt_sample, x_thr4, x_mask)
+    if with_degrade:
+        _dt.breaker_on_exits(ddev, ddyn, batch.x_dgid, batch.x_ts, batch.x_rt, batch.x_err, batch.x_valid)
+    return stats
 
 
 def flush_entries(
-    stats: StatsState, flow_dev: FlowTableDevice, batch: FlushBatch, blk_topk: int = 0
+    stats: StatsState,
+    flow_dev: FlowTableDevice,
+    batch: FlushBatch,
+    blk_topk: int = 0,
+    ddev: Optional[DegradeTableDevice] = None,
+    ddyn: Optional[DegradeDynState] = None,
+    sysdev: Optional[SystemDevice] = None,
+    occupy_timeout_ms: int = 500,
+    with_occupy: bool = False,
+    with_system: bool = False,
+    with_degrade: bool = False,
 ) -> Tuple[StatsState, FlushResult]:
-    """Phases 2-3: admission, then entry accounting (StatisticSlot.entry)."""
-    n = batch.e_valid.shape[0]
-    adm = flow_admission(stats, flow_dev, batch, blk_topk)
+    """Phases 2-3: the slot chain (authority, system, flow with occupy,
+    breakers), then entry accounting (StatisticSlot.entry) and the borrow
+    commit. The breaker state ``ddyn`` is updated in place."""
+    n, k = batch.e_rule_gid.shape
+    kd = batch.e_dgid.shape[1]
+    dev = batch.e_valid.device
+    if not (with_occupy or with_system or with_degrade):
+        # The DEFAULT path: the verdict tail is fused into K4.
+        adm = flow_admission(stats, flow_dev, batch, blk_topk)
+        v = ChainVerdict(adm.admitted, adm.reason, torch.zeros(n, dtype=torch.int32, device=dev), adm.admitted,
+                         torch.zeros(n, dtype=torch.bool, device=dev),
+                         torch.zeros((n, k), dtype=torch.bool, device=dev), adm.blk_rows, adm.blk_weight)
+        sys_type = torch.zeros(n, dtype=torch.int32, device=dev)
+        dslot_ok = torch.ones((n, kd), dtype=torch.bool, device=dev)
+    else:
+        # ---- 2a authority (host-resolved) and 2b system protection ----
+        live = batch.e_valid & batch.e_auth_ok
+        sys_ok = None
+        sys_type = torch.zeros(n, dtype=torch.int32, device=dev)
+        if with_system:
+            sys_ok, sys_type = system_check(stats, sysdev, batch, live)
+            live = live & sys_ok
+        # ---- 2c flow rules, with the occupy branch ----
+        adm = flow_admission(stats, flow_dev, batch, 0, live, occupy_timeout_ms, with_occupy, tail=False)
+        # ---- 2d circuit breakers: occupied entries skip them ----
+        dslot_ok = probe_slot = None
+        if with_degrade:
+            e_live = live & adm.flow_pass & batch.e_cluster_ok
+            if adm.occupied is not None:
+                e_live = e_live & ~adm.occupied
+            dslot_ok, probe_slot = _dt.breaker_try_pass(ddev, ddyn, batch.e_dgid, batch.e_ts, e_live)
+        v = slot_chain_verdict(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, stats.n_rows, blk_topk)
+        if dslot_ok is None:
+            dslot_ok = torch.ones((n, kd), dtype=torch.bool, device=dev)
+        if with_occupy:
+            # Borrows persist only for entries finally admitted.
+            commit_borrow_slab(stats, v.occ_slot, adm.occ_target, batch.e_acquire, batch.e_check_row)
 
+    # ---- phase 3: entry accounting (StatisticSlot.entry) ----
     e_rows_f = batch.e_rows.reshape(-1)
     e_mask = (e_rows_f >= 0) & _rep4(batch.e_valid)
-    adm4 = _rep4(adm.admitted)
+    adm4 = _rep4(v.admitted)
     acq4 = _rep4(batch.e_acquire)
     zero = torch.zeros_like(acq4)
-    # Without occupied entries the minute window takes the same deltas.
-    e_deltas = _event_cols(
-        4 * n, e_rows_f.device,
-        PASS=torch.where(adm4, acq4, zero),
-        BLOCK=torch.where(adm4, zero, acq4),
-    )
-    apply_updates(stats, e_rows_f, _rep4(batch.e_ts), e_deltas, None, adm4.to(torch.int32), e_mask)
+    blocked = torch.where(adm4, zero, acq4)
+    minute = None
+    if with_occupy:
+        # Occupied entries take the thread and OCCUPIED_PASS now; their
+        # second-window PASS arrives through the future slab, while the
+        # minute window counts PASS at once (StatisticNode.addOccupiedPass).
+        occ4 = _rep4(v.occupied)
+        e_deltas = _event_cols(4 * n, dev, PASS=torch.where(adm4 & ~occ4, acq4, zero), BLOCK=blocked)
+        minute = _event_cols(4 * n, dev, PASS=torch.where(adm4, acq4, zero), BLOCK=blocked,
+                             OCCUPIED_PASS=torch.where(occ4, acq4, zero))
+    else:
+        e_deltas = _event_cols(4 * n, dev, PASS=torch.where(adm4, acq4, zero), BLOCK=blocked)
+    apply_updates(stats, e_rows_f, _rep4(batch.e_ts), e_deltas, None, adm4.to(torch.int32), e_mask,
+                  minute_deltas=minute)
 
     result = FlushResult(
-        admitted=adm.admitted,
-        reason=adm.reason,
-        slot_ok=adm.slot_ok,
-        wait_ms=torch.zeros(n, dtype=torch.int32, device=batch.e_valid.device),
-        blk_rows=adm.blk_rows,
-        blk_weight=adm.blk_weight,
+        admitted=v.admitted, reason=v.reason, slot_ok=adm.slot_ok, wait_ms=v.wait_ms, sys_type=sys_type,
+        dslot_ok=dslot_ok, flow_live=v.flow_live, occupied=v.occupied, occ_slot=v.occ_slot,
+        blk_rows=v.blk_rows, blk_weight=v.blk_weight,
     )
     return stats, result
 
@@ -424,11 +1093,25 @@ def flush_step(
     batch: FlushBatch,
     with_exits: bool = True,
     blk_topk: int = 0,
+    ddev: Optional[DegradeTableDevice] = None,
+    ddyn: Optional[DegradeDynState] = None,
+    sysdev: Optional[SystemDevice] = None,
+    occupy_timeout_ms: int = 500,
+    with_occupy: bool = False,
+    with_system: bool = False,
+    with_degrade: bool = False,
 ) -> Tuple[StatsState, FlushResult]:
-    """Apply one batch, in place: the matured-borrow sweep, exits, then
-    admission and accounting. ``with_exits`` and ``blk_topk`` are the JAX
-    package's host-known flags; the occupy, system and degrade stages are
-    off on this path."""
+    """Apply one batch, in place: the matured-borrow sweep, exits and
+    breaker completions, then the slot chain and accounting. The flags
+    are the JAX package's host-known specializations (see the module
+    docstring); the breaker state ``ddyn`` is updated in place."""
+    if with_degrade and (ddev is None or ddyn is None):
+        raise ValueError("flush_step: with_degrade needs the breaker table and state")
+    if with_system and sysdev is None:
+        raise ValueError("flush_step: with_system needs a SystemDevice")
     materialize_matured(stats, batch.now)
-    apply_exit_phase(stats, batch, with_exits=with_exits)
-    return flush_entries(stats, flow_dev, batch, blk_topk=blk_topk)
+    apply_exit_phase(stats, batch, with_exits, ddev, ddyn, with_degrade)
+    return flush_entries(
+        stats, flow_dev, batch, blk_topk, ddev, ddyn, sysdev, occupy_timeout_ms,
+        with_occupy, with_system, with_degrade,
+    )

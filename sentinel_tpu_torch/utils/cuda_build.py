@@ -49,7 +49,8 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # Shared headers (csrc/*.cuh) are part of every source's hash.
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -21,6 +21,7 @@ from sentinel_tpu_torch.core import api
 from sentinel_tpu_torch.metrics.nodes import stats_to_numpy
 from sentinel_tpu_torch.models import constants as C
 from sentinel_tpu_torch.models.rules import FlowRule
+from sentinel_tpu_torch.rules.degrade_table import degrade_state_to_numpy
 from sentinel_tpu_torch.runtime.engine import Engine
 from sentinel_tpu_torch.utils import clock as tclock
 from sentinel_tpu_torch.utils.config import config
@@ -38,16 +39,31 @@ RULES = [
     dict(resource="E", grade=C.FLOW_GRADE_THREAD, count=2),
 ]
 RESOURCES = ["A", "B", "C", "D", "E", "F"]
+# The rest of the slot chain, for the chain stream: breakers of all three
+# grades, a system config, authority rules on some origins.
+DEGRADE_RULES = [
+    dict(resource="A", grade=C.DEGRADE_GRADE_EXCEPTION_RATIO, count=0.3, time_window=1, min_request_amount=3),
+    dict(resource="B", grade=C.DEGRADE_GRADE_RT, count=40, slow_ratio_threshold=0.5, time_window=1,
+         min_request_amount=2, stat_interval_ms=500),
+    dict(resource="E", grade=C.DEGRADE_GRADE_EXCEPTION_COUNT, count=1, time_window=2, min_request_amount=1),
+    dict(resource="F", grade=C.DEGRADE_GRADE_EXCEPTION_RATIO, count=0.5, time_window=1, min_request_amount=2),
+]
+SYSTEM_CONFIG = dict(qps=60, max_thread=12, highest_system_load=3.0)
+AUTHORITY_RULES = [
+    dict(resource="B", limit_app="appX", strategy=C.AUTHORITY_WHITE),
+    dict(resource="F", limit_app="appY", strategy=C.AUTHORITY_BLACK),
+]
 
 
-def _rules(cls):
-    return [cls(**r) for r in RULES]
+def _rules(cls, specs=RULES):
+    return [cls(**r) for r in specs]
 
 
 class _Pair:
-    """The two engines driven in lockstep."""
+    """The two engines driven in lockstep. ``chain`` also loads degrade,
+    system and authority rules on both, with both system samplers pinned."""
 
-    def __init__(self, start_ms):
+    def __init__(self, start_ms, chain=False):
         self.jclock = JClock(start_ms)
         self.tclock = tclock.ManualClock(start_ms)
         self.j = JEngine(clock=self.jclock)
@@ -56,6 +72,17 @@ class _Pair:
         self.j._fold_blocked_sketch = lambda rows, w: self.j_topk.append((np.asarray(rows), np.asarray(w)))
         self.j.set_flow_rules(_rules(jst.FlowRule))
         self.t.set_flow_rules(_rules(FlowRule))
+        self.chain = chain
+        if chain:
+            from sentinel_tpu.rules.system_manager import SystemConfig as JSystemConfig
+            from sentinel_tpu_torch.rules.system_manager import SystemConfig
+
+            self.j.set_degrade_rules(_rules(jst.DegradeRule, DEGRADE_RULES))
+            self.t.set_degrade_rules(_rules(st.DegradeRule, DEGRADE_RULES))
+            self.j.set_system_config(JSystemConfig(**SYSTEM_CONFIG))
+            self.t.set_system_config(SystemConfig(**SYSTEM_CONFIG))
+            self.j.set_authority_rules({r["resource"]: jst.AuthorityRule(**r) for r in AUTHORITY_RULES})
+            self.t.set_authority_rules({r["resource"]: st.AuthorityRule(**r) for r in AUTHORITY_RULES})
 
     def set_ms(self, ms):
         self.jclock.set_ms(ms)
@@ -72,7 +99,8 @@ class _Pair:
             if jo is None:
                 continue
             jv, tv = jo.verdict, to.verdict
-            assert (jv.admitted, jv.reason, jv.wait_ms) == (tv.admitted, tv.reason, tv.wait_ms), step
+            assert (jv.admitted, jv.reason, jv.wait_ms, jv.limit_type) == (
+                tv.admitted, tv.reason, tv.wait_ms, tv.limit_type), step
             jr = None if jv.blocked_rule is None else jv.blocked_rule.to_dict()
             tr = None if tv.blocked_rule is None else tv.blocked_rule.to_dict()
             assert jr == tr, f"{step}: attribution"
@@ -80,6 +108,9 @@ class _Pair:
             for name in ("admitted", "reason", "wait_ms"):
                 assert_same(getattr(jg, name), getattr(tg, name), f"{step}: bulk {name}")
         assert_same(jax.device_get(self.j.stats), stats_to_numpy(self.t.stats), f"{step}: stats")
+        if self.chain:
+            assert_same(jax.device_get(self.j.degrade_dyn), degrade_state_to_numpy(self.t.degrade_dyn),
+                        f"{step}: breakers")
         if self.j_topk:
             assert_same(self.j_topk[-1][0], self.t.last_blocked_topk[0], f"{step}: blk_rows")
             assert_same(self.j_topk[-1][1], self.t.last_blocked_topk[1], f"{step}: blk_weight")
@@ -139,6 +170,79 @@ def test_engine_stream_parity(seed):
     # The ~22-day epoch rebase shifts every stored window start alike.
     pair.both("_apply_rebase", 60_000)
     assert_same(jax.device_get(pair.j.stats), stats_to_numpy(pair.t.stats), "rebased stats")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_engine_chain_stream_parity(seed):
+    """The stream of test_engine_stream_parity with the whole slot chain
+    loaded: breakers on four resources, a system config (QPS, threads
+    and BBR load), authority rules on two, prioritized singles, and exits
+    that complete the breakers. Verdicts, wait_ms, limit types,
+    attribution, stats and breaker state must agree after every flush."""
+    from sentinel_tpu.utils.system_status import sampler as jsampler
+    from sentinel_tpu_torch.utils.system_status import sampler as tsampler
+
+    config.set(config.OCCUPY_TIMEOUT_MS, "1000")
+    from sentinel_tpu.utils.config import config as jconfig
+
+    jconfig.set(jconfig.OCCUPY_TIMEOUT_MS, "1000")
+    for smp in (jsampler, tsampler):
+        smp.force(load=4.0, cpu=0.2)
+    try:
+        rng = np.random.default_rng(100 + seed)
+        now = 20_000
+        pair = _Pair(now, chain=True)
+        live = []  # admitted singles awaiting exit: (rows, ts, resource)
+        last_group = None
+        blocked = set()
+        for step in range(24):
+            now += int(rng.choice([0, 40, 180, 420, 700, 1300]))
+            pair.set_ms(now)
+            singles, groups = [], []
+            for _ in range(int(rng.integers(2, 14))):
+                res = str(rng.choice(RESOURCES))
+                singles.append((res, pair.both(
+                    "submit_entry", res, context_name="ctx1" if rng.random() < 0.3 else C.CONTEXT_DEFAULT_NAME,
+                    origin=str(rng.choice(["", "appX", "appY"])), acquire=int(rng.integers(1, 3)),
+                    entry_type=C.EntryType.IN if rng.random() < 0.6 else C.EntryType.OUT,
+                    prio=bool(rng.random() < 0.3), ts=max(now - int(rng.integers(0, 60)), 0),
+                )))
+            n = 40 - len(singles)
+            ts = np.sort(now - rng.integers(0, 300, n)).astype(np.int32)
+            groups.append(pair.both("submit_bulk", str(rng.choice(RESOURCES)), n, ts=ts,
+                                    acquire=rng.integers(1, 3, n).astype(np.int32),
+                                    origin=str(rng.choice(["", "appX", "appY"])),
+                                    entry_type=C.EntryType.IN))
+            n_exit = 0
+            for rows, t0, res in list(live[: int(rng.integers(0, min(len(live), 10) + 1))]):
+                pair.both("submit_exit", rows, rt=int(rng.choice([5, 90])), count=1,
+                          err=int(rng.random() < 0.35), ts=now, resource=res)
+                n_exit += 1
+                live.remove((rows, t0, res))
+            rows = last_group.rows if last_group is not None else (-1, -1, -1, -1)
+            pair.both("submit_exit_bulk", rows, 20 - n_exit, rt=int(rng.integers(0, 90)),
+                      err=(rng.random(20 - n_exit) < 0.3).astype(np.int32), ts=now,
+                      resource=last_group.resource if last_group is not None else None)
+            pair.flush_and_compare([p for _, p in singles], groups, step)
+            last_group = groups[0][1]
+            for res, (jo, to) in singles:
+                if to is not None:
+                    if to.verdict.admitted:
+                        live.append((to.rows, to.ts, res))
+                    blocked.add(to.verdict.reason)
+            blocked.update(groups[0][1].reason.tolist())
+        assert {0, 1, 2, 3, 4} <= blocked, f"every stage blocked something: {blocked}"
+        for res in RESOURCES:
+            assert pair.j.cluster_node_stats(res) == pair.t.cluster_node_stats(res), res
+        assert pair.j.entry_node_stats() == pair.t.entry_node_stats()
+        # The ~22-day epoch rebase shifts breaker windows and deadlines too.
+        pair.both("_apply_rebase", 60_000)
+        assert_same(jax.device_get(pair.j.degrade_dyn), degrade_state_to_numpy(pair.t.degrade_dyn), "rebased")
+    finally:
+        for smp in (jsampler, tsampler):
+            smp.force(load=-1.0, cpu=-1.0)
+        config.reset()
+        jconfig.reset()
 
 
 # --- the cases of tests/test_flow_default.py, against the port -----------
@@ -270,26 +374,49 @@ def _cpu_engine():
     return Engine(clock=tclock.ManualClock(0), device="cpu")
 
 
+def _add_breaker_observer(e):
+    from sentinel_tpu_torch.rules import breaker_events
+
+    breaker_events.add_state_change_observer("t", lambda *a: None)
+
+
 @pytest.mark.parametrize(
     "call",
     [
-        lambda e: e.set_degrade_rules([object()]),
+        _add_breaker_observer,
         lambda e: e.set_param_rules({"r": [object()]}),
-        lambda e: e.set_system_config(object()),
-        lambda e: e.set_authority_rules({"r": object()}),
         lambda e: e.set_flow_rules([FlowRule("r", count=5, control_behavior=C.CONTROL_BEHAVIOR_RATE_LIMITER)]),
         lambda e: e.set_flow_rules([FlowRule("r", count=5, control_behavior=C.CONTROL_BEHAVIOR_WARM_UP)]),
-        lambda e: e.submit_entry("r", prio=True),
         lambda e: e.enable_mesh(8),
         lambda e: e.flush_async(),
         lambda e: e.submit_bulk("r", 4, args_column=[("a",)] * 4),
     ],
-    ids=["degrade", "param", "system", "authority", "rate_limiter", "warm_up", "prio", "mesh",
-         "flush_async", "args_column"],
+    ids=["degrade", "param", "rate_limiter", "warm_up", "mesh", "flush_async", "args_column"],
 )
 def test_out_of_slice_raises(call):
+    """Features outside the port so far; for degrade rules, which the port
+    now runs, that is the breaker state-change observers."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(_cpu_engine())
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda e: e.set_degrade_rules([st.DegradeRule("r", grade=C.DEGRADE_GRADE_EXCEPTION_COUNT, count=1,
+                                                      time_window=1)]),
+        lambda e: e.set_system_config(st.system_rule_manager.effective._replace(qps=5.0)),
+        lambda e: e.set_authority_rules({"r": st.AuthorityRule("r", limit_app="a")}),
+        lambda e: e.submit_entry("r", prio=True),
+    ],
+    ids=["degrade", "system", "authority", "prio"],
+)
+def test_slice_two_features_accepted(call):
+    """Degrade, system and authority rules and prioritized entries load
+    and flush on the port."""
+    eng = _cpu_engine()
+    call(eng)
+    eng.flush()
 
 
 def test_cluster_mode_rule_raises():
@@ -316,3 +443,128 @@ def test_unported_config_raises(key, value):
             _cpu_engine()
     finally:
         config.reset()
+
+
+# --- the scenarios of tests/test_relate.py, on both engines in lockstep ---
+# (``submit_many`` is not ported: a loop of submit_entry is the same batch)
+
+
+def _relate(lib, count):
+    return lib.st.FlowRule("A", count=count, strategy=lib.C.STRATEGY_RELATE, ref_resource="B")
+
+
+def _batch(lib, reqs):
+    now = lib.engine.clock.now_ms()
+    ops = [lib.engine.submit_entry(r, ts=now) for r in reqs]
+    lib.engine.flush()
+    return [op.verdict.admitted for op in ops]
+
+
+def _relate_checks_ref_stats(lib):
+    lib.st.flow_rule_manager.load_rules([_relate(lib, 5)])
+    lib.clock.set_ms(100)
+    out = [lib.st.try_entry("B") is not None for _ in range(3)]
+    out += [lib.st.try_entry("A") is not None for _ in range(10)]
+    b, a = lib.engine.cluster_node_stats("B"), lib.engine.cluster_node_stats("A")
+    assert out == [True] * 13 and b["pass_qps"] == 3.0 and a["total_pass_minute"] == 10
+    return out + [b, a]
+
+
+def _relate_blocks_over_count(lib):
+    lib.st.flow_rule_manager.load_rules([_relate(lib, 2)])
+    lib.clock.set_ms(100)
+    for _ in range(2):
+        lib.st.try_entry("B")
+    out = [lib.st.try_entry("A") is None]
+    lib.clock.set_ms(1500)
+    out.append(lib.st.try_entry("A") is not None)
+    assert out == [True, True]
+    return out
+
+
+def _relate_same_batch(lib):
+    lib.st.flow_rule_manager.load_rules([_relate(lib, 5)])
+    lib.clock.set_ms(100)
+    for _ in range(3):
+        lib.st.try_entry("B")
+    out = _batch(lib, ["A"] * 10)
+    assert out == [True] * 10
+    return out
+
+
+def _relate_ruled_b_charges(lib):
+    lib.st.flow_rule_manager.load_rules([_relate(lib, 5), lib.st.FlowRule("B", count=100)])
+    lib.clock.set_ms(100)
+    for _ in range(3):
+        lib.st.try_entry("B")
+    out = _batch(lib, ["B"] * 2 + ["A"] * 10)
+    assert out[:2] == [True, True] and sum(out[2:]) == 0
+    return out
+
+
+def _relate_unruled_b_next_flush(lib):
+    lib.st.flow_rule_manager.load_rules([_relate(lib, 5)])
+    lib.clock.set_ms(100)
+    for _ in range(3):
+        lib.st.try_entry("B")
+    out = _batch(lib, ["B"] * 2 + ["A"] * 10) + _batch(lib, ["A"] * 3)
+    assert out == [True] * 12 + [False] * 3
+    return out
+
+
+def _relate_direct_exact(lib):
+    lib.st.flow_rule_manager.load_rules([_relate(lib, 5), lib.st.FlowRule("D", count=4)])
+    lib.clock.set_ms(100)
+    out = _batch(lib, ["D"] * 10)
+    assert sum(out) == 4
+    return out
+
+
+def _relate_after_ref_appears(lib):
+    lib.st.flow_rule_manager.load_rules([_relate(lib, 0)])
+    lib.clock.set_ms(100)
+    out = [lib.st.try_entry(r) is not None for r in ("A", "B", "A")]
+    assert out == [True, True, False]
+    return out
+
+
+RELATE_SCENARIOS = {
+    "checks_ref_resource_stats": _relate_checks_ref_stats,
+    "blocks_when_ref_over_count": _relate_blocks_over_count,
+    "same_batch_matches_sequential": _relate_same_batch,
+    "same_batch_ruled_b_charges": _relate_ruled_b_charges,
+    "same_batch_unruled_b_next_flush": _relate_unruled_b_next_flush,
+    "direct_rules_stay_exact": _relate_direct_exact,
+    "enforced_after_ref_appears": _relate_after_ref_appears,
+}
+
+
+@pytest.mark.parametrize("name", sorted(RELATE_SCENARIOS))
+def test_relate_scenario_lockstep(name):
+    from torch_parity import run_on_both
+
+    run_on_both(RELATE_SCENARIOS[name])
+
+
+def test_rebase_large_offset_keeps_breaker_floor():
+    """The real ~22-day rebase shifts by about 1.9e9 ms. A breaker that
+    never saw an exit keeps its window-start floor (-1e9), an OPEN
+    breaker's deadline and a live window move by the offset, and a window
+    whose interval does not divide the offset lands on its own grid. (The
+    JAX engine's int32 shift wraps the floor to about +1.4e9 here: see
+    ROADMAP Queue 3.)"""
+    eng = _cpu_engine()
+    eng.set_degrade_rules([
+        st.DegradeRule("a", grade=C.DEGRADE_GRADE_EXCEPTION_COUNT, count=1, time_window=1),
+        st.DegradeRule("b", grade=C.DEGRADE_GRADE_EXCEPTION_COUNT, count=1, time_window=1),
+        st.DegradeRule("c", grade=C.DEGRADE_GRADE_EXCEPTION_COUNT, count=1, time_window=1, stat_interval_ms=333),
+    ])
+    d = eng.degrade_dyn
+    d.state[1], d.next_retry[1], d.ws[1] = 1, 1_950_000_500, 1_950_000_000
+    d.ws[2] = 1_950_000_000 - 1_950_000_000 % 333
+    offset = 1_900_020_000
+    eng._apply_rebase(offset)
+    assert int(d.ws[0]) == -(10**9) and int(d.ws[3]) == -(10**9)
+    assert (int(d.next_retry[1]), int(d.ws[1])) == (49_980_500, 49_980_000)
+    unaligned = 1_950_000_000 - 1_950_000_000 % 333 - offset
+    assert int(d.ws[2]) % 333 == 0 and unaligned - 333 < int(d.ws[2]) <= unaligned

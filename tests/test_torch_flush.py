@@ -1,11 +1,12 @@
-"""Parity of the port's DEFAULT-path flush (sentinel_tpu_torch/runtime/
-flush.py, plain PyTorch versions on the CPU) with the JAX package's
-flush, bit for bit: ``flow_admission`` and ``flush_step`` with and
-without exits, QPS and THREAD grades, two rule slots per entry whose
-check rows differ from the accounting rows (RELATE/CHAIN), timestamps
-near 2**31 - 1, equal timestamps on one row, ties in the blocked top-K
-and fewer than 8 blocked rows. Every FlushResult output and every state
-tensor is compared."""
+"""Parity of the port's flush (sentinel_tpu_torch/runtime/flush.py, plain
+PyTorch versions on the CPU) with the JAX package's flush, bit for bit:
+``flow_admission`` and ``flush_step`` with and without exits, QPS and
+THREAD grades, two rule slots per entry whose check rows differ from the
+accounting rows (RELATE/CHAIN), timestamps near 2**31 - 1, equal
+timestamps on one row, ties in the blocked top-K and fewer than 8
+blocked rows; and ``flush_step`` over the whole slot chain (occupy,
+system, breakers) with every stage on and with each one off. Every
+FlushResult output and every state tensor is compared."""
 
 import jax
 import jax.numpy as jnp
@@ -13,17 +14,28 @@ import numpy as np
 import pytest
 import torch
 
+from sentinel_tpu.rules import degrade_table as jdt
 from sentinel_tpu.rules.degrade_table import DegradeIndex
 from sentinel_tpu.rules.flow_table import FlowRuleDynState as JDyn
 from sentinel_tpu.rules.flow_table import FlowTableDevice as JTable
 from sentinel_tpu.rules.param_table import make_param_state
 from sentinel_tpu.runtime import flush as jflush
 from sentinel_tpu_torch.metrics import nodes as tnodes
+from sentinel_tpu_torch.rules import degrade_table as tdt
 from sentinel_tpu_torch.rules.flow_table import flow_table_from_numpy
 from sentinel_tpu_torch.runtime import flush as tflush
 
 from test_torch_nodes import _jax_stats, _random_stats
-from torch_parity import INF, assert_same, random_flow_table, random_flush_batch
+from torch_parity import (
+    INF,
+    assert_same,
+    borrowable_stats,
+    random_chain_batch,
+    random_degrade,
+    random_flow_table,
+    random_flush_batch,
+    system_thresholds,
+)
 
 CPU = torch.device("cpu")
 
@@ -152,3 +164,55 @@ def test_flow_index_matches_jax():
         for ctx in ("sentinel_default_context", "ctx"):
             for origin in ("", "app1", "app2"):
                 assert j.resolve_slots(res, ctx, origin, jreg) == t.resolve_slots(res, ctx, origin, treg)
+
+
+# --- the whole slot chain: occupy, system and breakers --------------------
+
+CHAIN_FLAGS = {
+    # name: (with_occupy, with_system, with_degrade)
+    "all_on": (True, True, True),
+    "occupy_off": (False, True, True),
+    "system_off": (True, False, True),
+    "degrade_off": (True, True, False),
+}
+RESULT_FIELDS = ("admitted", "reason", "slot_ok", "wait_ms", "sys_type", "dslot_ok", "flow_live", "occupied",
+                 "occ_slot", "blk_rows", "blk_weight")
+
+
+@pytest.mark.parametrize("flags", sorted(CHAIN_FLAGS))
+def test_flush_step_chain_parity(flags):
+    with_occupy, with_system, with_degrade = CHAIN_FLAGS[flags]
+    rng = np.random.default_rng(sorted(CHAIN_FLAGS).index(flags))
+    n_rows, nr, nd, n, k, kd, m = 32, 16, 16, 64, 2, 2, 32
+    now = 3_456_000 + int(rng.integers(0, 500))
+    arrs = borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    table, dyn = random_flow_table(rng, nr, thread_frac=0.2, lo=2, hi=10)
+    dtable, ddyn = random_degrade(rng, nd, now)
+    sys_vals = system_thresholds("all")
+    jstats, jt, jd = _jax_stats(arrs), *_jax_tables(table, dyn)
+    jddev = jdt.DegradeTableDevice(*map(jnp.asarray, dtable))
+    jddyn = jdt.DegradeDynState(*map(jnp.asarray, ddyn))
+    jsys = jflush.SystemDevice(*(jnp.float32(v) for v in sys_vals))
+    tstats = tnodes.stats_from_numpy(arrs, CPU)
+    tt, _ = flow_table_from_numpy(table, dyn, CPU)
+    tddev, tddyn = tdt.degrade_table_from_numpy(dtable, CPU), tdt.degrade_state_from_numpy(ddyn, CPU)
+    tsys = tflush.SystemDevice(*sys_vals)
+    for step in range(3):
+        b = random_chain_batch(rng, n, k, kd, n_rows, nr, nd, now + 300 * step, m)
+        out = jflush.flush_step_jit(
+            jstats, jt, jd, jddev, jddyn, make_param_state(8), jsys, _jax_batch(b), occupy_timeout_ms=1000,
+            with_occupy=with_occupy, with_system=with_system, with_degrade=with_degrade, with_exits=True,
+            blk_topk=8,
+        )
+        jstats, jddyn, jres = out[0], out[2], out[5]
+        tstats, tres = tflush.flush_step(
+            tstats, tt, tflush.batch_from_numpy(b, CPU), with_exits=True, blk_topk=8, ddev=tddev, ddyn=tddyn,
+            sysdev=tsys, occupy_timeout_ms=1000, with_occupy=with_occupy, with_system=with_system,
+            with_degrade=with_degrade,
+        )
+        for name in RESULT_FIELDS:
+            assert_same(getattr(jres, name), getattr(tres, name), f"step {step} {name}")
+        assert_same(jax.device_get(jstats), tnodes.stats_to_numpy(tstats), f"step {step} stats")
+        assert_same(jax.device_get(jddyn), tdt.degrade_state_to_numpy(tddyn), f"step {step} breakers")
+    reasons = set(np.asarray(jres.reason).tolist())
+    assert len(reasons) >= 3, f"the batch exercises several stages: {reasons}"

@@ -16,10 +16,21 @@ import torch
 from sentinel_tpu_torch.metrics import metric_array as ma
 from sentinel_tpu_torch.metrics import nodes as tnodes
 from sentinel_tpu_torch.metrics.events import NUM_EVENTS
+from sentinel_tpu_torch.rules import degrade_table as tdt
 from sentinel_tpu_torch.rules.flow_table import flow_table_from_numpy
 from sentinel_tpu_torch.runtime import flush as tflush
 
-from torch_parity import random_flow_table, random_flush_batch, random_stats, random_window_state
+from torch_parity import (
+    borrowable_stats,
+    random_chain_batch,
+    random_degrade,
+    random_exits,
+    random_flow_table,
+    random_flush_batch,
+    random_stats,
+    random_window_state,
+    system_thresholds,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -32,6 +43,9 @@ def cuda():
 
 
 def _eq(a, b, what):
+    if a is None or b is None:
+        assert a is None and b is None, what
+        return
     assert torch.equal(a.cpu(), b.cpu()), what
 
 
@@ -147,3 +161,117 @@ def test_flush_step_kernels(cuda, case):
         for name, x, y in zip(want._fields, want, res):
             _eq(x, y, f"result {name}")
         _states_eq(plain, kern, f"stats step {step}")
+
+
+# --- the rest of the slot chain: K4 with occupy, K5, K6, K7, K8, the tail --
+
+
+def _t(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+@pytest.mark.parametrize("case", ["all", "qps_thread_load_cpu", "load_cpu", "off"])
+def test_system_check_kernel(cuda, case):
+    rng = np.random.default_rng(11)
+    now, n_rows, n = 1_000_250, 64, 20_000
+    arrs = borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    b = random_flush_batch(rng, n, 1, n_rows, 16, now, n - 100)
+    live = b[1] & (rng.random(n) < 0.9)
+    sysdev = tflush.SystemDevice(*system_thresholds(case))
+    want = tflush.system_check_plain(tnodes.stats_from_numpy(arrs, cuda), sysdev,
+                                     tflush.batch_from_numpy(b, cuda), _t(live, cuda))
+    before = tflush.system_check.launches
+    got = tflush.system_check(tnodes.stats_from_numpy(arrs, cuda), sysdev, tflush.batch_from_numpy(b, cuda),
+                              _t(live, cuda))
+    assert tflush.system_check.launches == before + 1
+    _eq(want[0], got[0], "ok")
+    _eq(want[1], got[1], "sys_type")
+
+
+@pytest.mark.parametrize("near_max", [False, True])
+@pytest.mark.parametrize("m", [64, 20_000])
+def test_breaker_kernels(cuda, near_max, m):
+    rng = np.random.default_rng(12 + m)
+    nd = 1024
+    now = 2**31 - 1 - 3000 if near_max else 500_000
+    table, dyn = random_degrade(rng, nd, now, near_max)
+    x = random_exits(rng, m, 2, nd, now)
+    ddev = tdt.degrade_table_from_numpy(table, cuda)
+    want = tdt.breaker_on_exits_plain(ddev, tdt.degrade_state_from_numpy(dyn, cuda), *(_t(a, cuda) for a in x))
+    got = tdt.breaker_on_exits(ddev, tdt.degrade_state_from_numpy(dyn, cuda), *(_t(a, cuda) for a in x))
+    _states_eq(want, got, "breaker_on_exits")
+    # Entries against the post-exit state.
+    n = m
+    e_dgid = np.where(rng.random((n, 2)) < 0.8, rng.integers(0, nd, (n, 2)), -1).astype(np.int32)
+    e_dgid[: n // 3, 0] = 1
+    e_ts = (now - rng.integers(0, 300, n)).astype(np.int32)
+    e_ts[: n // 4] = e_ts[0]
+    live = rng.random(n) < 0.85
+    args = (_t(e_dgid, cuda), _t(e_ts, cuda), _t(live, cuda))
+    w_ok, w_probe = tdt.breaker_try_pass_plain(ddev, got, *args)
+    g_ok, g_probe = tdt.breaker_try_pass(ddev, got, *args)
+    _eq(w_ok, g_ok, "dslot_ok")
+    _eq(w_probe, g_probe, "probe_slot")
+
+
+@pytest.mark.parametrize("timeout", [500, 1000])
+def test_occupy_and_commit_kernels(cuda, timeout):
+    rng = np.random.default_rng(13)
+    n_rows, nr, n, k = 256, 64, 8192, 2
+    now = 4_321_000 + 123
+    arrs = borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    table, _ = random_flow_table(rng, nr, thread_frac=0.2, lo=2, hi=12)
+    tt, _ = flow_table_from_numpy(table, None, cuda)
+    b = list(random_flush_batch(rng, n, k, n_rows, nr, now, n - 50))
+    b[7] = rng.random(n) < 0.4
+    batch = tflush.batch_from_numpy(b, cuda)
+    live = _t(b[1] & (rng.random(n) < 0.9), cuda)
+    stats = tnodes.stats_from_numpy(arrs, cuda)
+    want = tflush.flow_admission_plain(stats, tt, batch, 0, live, timeout, with_occupy=True, tail=False)
+    before = tflush.flow_admission.occupy_launches
+    got = tflush.flow_admission(stats, tt, batch, 0, live, timeout, with_occupy=True, tail=False)
+    assert tflush.flow_admission.occupy_launches == before + 1
+    tflush.flow_admission(stats, tt, batch, 0, live, timeout, with_occupy=False, tail=False)
+    assert tflush.flow_admission.occupy_launches == before + 1
+    for name, x, y in zip(want._fields, want, got):
+        _eq(x, y, f"admission {name}")
+    assert bool(want.occupied.any())
+    gate = want.occ_slot & (want.flow_pass & want.occupied)[:, None]
+    w = tflush.commit_borrow_slab_plain(tnodes.stats_from_numpy(arrs, cuda), gate, want.occ_target,
+                                        batch.e_acquire, batch.e_check_row)
+    g = tflush.commit_borrow_slab(tnodes.stats_from_numpy(arrs, cuda), gate, want.occ_target,
+                                  batch.e_acquire, batch.e_check_row)
+    _states_eq(w, g, "commit_borrow_slab")
+
+
+@pytest.mark.parametrize("flags", [(True, True, True), (False, True, True), (True, False, True),
+                                   (True, True, False), (True, False, False)])
+def test_chain_flush_step_kernels(cuda, flags):
+    """The whole slot chain: the kernels' step on the card against the plain
+    versions' step on the CPU, over three flushes."""
+    with_occupy, with_system, with_degrade = flags
+    rng = np.random.default_rng(sum(f << i for i, f in enumerate(flags)))
+    cpu = torch.device("cpu")
+    n_rows, nr, nd, n, k, kd, m = 128, 32, 64, 4096, 2, 2, 1024
+    now = 3_456_000 + 77
+    arrs = borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    table, dyn = random_flow_table(rng, nr, thread_frac=0.2, lo=2, hi=40)
+    dtable, ddyn = random_degrade(rng, nd, now)
+    sysdev = tflush.SystemDevice(*system_thresholds("all"))
+    states = {}
+    for dev in (cpu, cuda):
+        states[dev.type] = (tnodes.stats_from_numpy(arrs, dev), flow_table_from_numpy(table, dyn, dev)[0],
+                            tdt.degrade_table_from_numpy(dtable, dev), tdt.degrade_state_from_numpy(ddyn, dev))
+    for step in range(3):
+        b = random_chain_batch(rng, n, k, kd, n_rows, nr, nd, now + 300 * step, m)
+        res = {}
+        for dev in (cpu, cuda):
+            stats, tt, ddev, dd = states[dev.type]
+            _, res[dev.type] = tflush.flush_step(
+                stats, tt, tflush.batch_from_numpy(b, dev), True, 8, ddev, dd, sysdev, 1000,
+                with_occupy, with_system, with_degrade,
+            )
+        for name, x, y in zip(res["cpu"]._fields, res["cpu"], res["cuda"]):
+            _eq(x, y, f"step {step} {name}")
+        _states_eq(states["cpu"][0], states["cuda"][0], f"stats step {step}")
+        _states_eq(states["cpu"][3], states["cuda"][3], f"breakers step {step}")

@@ -2,6 +2,8 @@
 inputs made with numpy from a seed go through the JAX function and its
 PyTorch counterpart, and every output must agree bit for bit."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
@@ -119,3 +121,172 @@ def random_flush_batch(rng, n, k, n_rows, nr, now, n_valid, m=8, m_valid=0, near
         e_cluster, np.full((n, 1), -1, np.int32),
         x_valid, x_ts, x_count, x_rows, x_rt, x_err, x_thr, np.full((m, 1), -1, np.int32),
     )
+
+
+I32_MAX = 2**31 - 1
+WS_FLOOR = -(10**9)
+
+
+def random_degrade(rng, nd, now, near_max=False):
+    """A breaker table and state as numpy arrays (the layouts of
+    DegradeTableDevice and DegradeDynState): all three grades, the last
+    three rules padding, rule 0 with min_request at the padding value,
+    breakers CLOSED, OPEN (due and not) and HALF_OPEN, windows current,
+    superseded and never started. ``near_max`` puts retry deadlines where
+    ``ts + retry_ms`` wraps int32."""
+    grade = rng.integers(0, 3, nd)
+    thr = np.where(grade == 0, rng.integers(20, 120, nd),
+                   np.where(grade == 1, rng.choice([0.0, 0.2, 0.5, 0.9, 1.0], nd), rng.integers(0, 6, nd)))
+    slow = rng.choice([0.0, 0.3, 0.5, 1.0], nd)
+    min_req = rng.integers(1, 6, nd)
+    min_req[0] = I32_MAX
+    interval = rng.choice([333, 500, 1000, 2000], nd)
+    retry = rng.choice([1000, 5000], nd)
+    max_rt = np.where(grade == 0, np.floor(thr + 0.5), I32_MAX)
+    pad = slice(nd - 3, nd)
+    grade[pad], thr[pad], slow[pad], min_req[pad] = 0, INF, 1.0, I32_MAX
+    interval[pad], retry[pad], max_rt[pad] = 1000, 0, I32_MAX
+    table = (grade.astype(np.int32), thr.astype(np.float32), slow.astype(np.float32), min_req.astype(np.int32),
+             interval.astype(np.int32), retry.astype(np.int32), max_rt.astype(np.int32))
+    state = rng.integers(0, 3, nd)
+    state[pad] = 0
+    if near_max:
+        next_retry = np.where(rng.random(nd) < 0.5, I32_MAX - rng.integers(0, 50, nd), now - rng.integers(0, 500, nd))
+    else:
+        next_retry = now + rng.integers(-3000, 3000, nd)
+    bad = rng.integers(0, 6, nd)
+    total = bad + rng.integers(0, 6, nd)
+    ws = now - now % interval - rng.integers(0, 3, nd) * interval
+    ws = np.where(rng.random(nd) < 0.2, WS_FLOOR, ws)
+    dyn = tuple(np.asarray(a, dtype=np.int32) for a in (state, next_retry, bad, total, ws))
+    return table, dyn
+
+
+def random_exits(rng, m, kd, nd, now, span=2500):
+    """Exit columns (x_dgid, x_ts, x_rt, x_err, x_valid): one hot breaker
+    takes half the exits, (gid, ts) ties, exits from superseded windows,
+    errors on about 30%."""
+    dgid = np.full((m, kd), -1, np.int32)
+    dgid[:, 0] = np.where(rng.random(m) < 0.5, 1, rng.integers(0, nd - 3, m))
+    if kd > 1:
+        dgid[:, 1] = np.where(rng.random(m) < 0.5, rng.integers(0, nd, m), -1)
+    ts = (now - rng.integers(0, span, m)).astype(np.int32)
+    ts[: m // 4] = ts[0]
+    rt = rng.integers(0, 200, m).astype(np.int32)
+    err = (rng.random(m) < 0.3).astype(np.int32)
+    valid = rng.random(m) < 0.9
+    return dgid, ts, rt, err, valid
+
+
+def system_thresholds(case):
+    """(qps, max_thread, max_rt, load threshold, cpu threshold, cur load,
+    cur cpu) of a SystemDevice; "all" makes every dimension block some
+    entries at once."""
+    inf = float("inf")
+    return {
+        "all": (40.0, 9.0, 10.0, 1.0, 0.5, 5.0, 0.9),
+        "qps_thread_load_cpu": (40.0, 9.0, inf, 1.0, 0.5, 5.0, 0.9),
+        "load_cpu": (inf, inf, inf, 1.0, 0.5, 5.0, 0.9),
+        "cpu": (inf, inf, inf, -1.0, 0.5, -1.0, 0.9),
+        "off": (inf, inf, inf, -1.0, -1.0, -1.0, -1.0),
+    }[case]
+
+
+def borrowable_stats(rng, n_rows, now, second_cfg, minute_cfg):
+    """Random stats where borrows can fit: the window expiring next holds
+    most of the pass, the current one little, and the slab a few future
+    tokens, matured cells and empty ones."""
+    second, minute, threads, fpass, fws = random_stats(rng, n_rows, now, second_cfg, minute_cfg)
+    counts, min_rt, ws = (a.copy() for a in second)
+    wlen = second_cfg.window_len_ms
+    cur = now - now % wlen
+    idx = (cur // wlen) % 2
+    ws[:, idx], ws[:, 1 - idx] = cur, cur - wlen
+    ws[: n_rows // 4, 1 - idx] = cur - 3 * wlen  # a superseded expiring bucket
+    counts[:, idx, 0] = rng.integers(0, 2, n_rows)
+    counts[:, 1 - idx, 0] = rng.integers(0, 12, n_rows)
+    fpass = np.where(rng.random(fpass.shape) < 0.3, fpass % 3, 0).astype(np.int32)
+    return ((counts, min_rt, ws), minute, threads, fpass, fws)
+
+
+def random_chain_batch(rng, n, k, kd, n_rows, nr, nd, now, m):
+    """A batch for the whole slot chain: prioritized entries, breaker ids
+    on entries (one hot breaker) and on exits, inbound entries."""
+    b = list(random_flush_batch(rng, n, k, n_rows, nr, now, n - 4, m=m, m_valid=m - 2))
+    b[7] = rng.random(n) < 0.4  # e_prio
+    e_dgid = np.full((n, kd), -1, np.int32)
+    e_dgid[:, 0] = np.where(rng.random(n) < 0.7, rng.integers(0, nd - 3, n), -1)
+    e_dgid[: n // 4, 0] = 1  # a hot breaker
+    b[10] = e_dgid
+    x_dgid, x_ts, x_rt, x_err, _ = random_exits(rng, m, kd, nd, now, span=600)
+    b[12], b[15], b[16], b[18] = x_ts, x_rt, x_err, x_dgid
+    return b
+
+
+def _run_jax(scenario):
+    import sentinel_tpu as jst
+    from sentinel_tpu.core import api
+    from sentinel_tpu.models import constants
+    from sentinel_tpu.utils import clock as jclock
+    from sentinel_tpu.utils.config import config
+    from sentinel_tpu.utils.system_status import sampler
+
+    clock = jclock.ManualClock(start_ms=0)
+    prev = jclock.set_default_clock(clock)
+    api.reset(clock=clock)
+    try:
+        return scenario(SimpleNamespace(st=jst, api=api, clock=clock, engine=api.get_engine(), config=config,
+                             sampler=sampler, C=constants))
+    finally:
+        config.reset()
+        jclock.set_default_clock(prev)
+        api.reset()
+
+
+def _run_port(scenario):
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.core import api
+    from sentinel_tpu_torch.models import constants
+    from sentinel_tpu_torch.utils import clock as tclock
+    from sentinel_tpu_torch.utils.config import config
+    from sentinel_tpu_torch.utils.system_status import sampler
+
+    clock = tclock.ManualClock(start_ms=0)
+    prev = tclock.set_default_clock(clock)
+    api.reset(clock=clock, device="cpu")
+    try:
+        return scenario(SimpleNamespace(st=st, api=api, clock=clock, engine=api.get_engine(), config=config,
+                             sampler=sampler, C=constants))
+    finally:
+        config.reset()
+        tclock.set_default_clock(prev)
+        api.reset(device="cpu")
+
+
+def run_on_both(scenario):
+    """Run ``scenario(lib)`` on the JAX package and on the port's CPU
+    engine, each under its own ManualClock, and require the same
+    observations (the list each run returns). ``lib`` holds one package's
+    public surface: ``st`` (the package), ``api``, ``clock`` (a
+    ManualClock from 0, installed as the default), ``engine``, ``config``,
+    ``sampler`` (the system load/CPU sampler) and ``C`` (constants). The
+    scenario may assert the reference's expected values itself."""
+    want = _run_jax(scenario)
+    got = _run_port(scenario)
+    assert got == want, f"port {got} != JAX {want}"
+    return got
+
+
+def block_of(fn):
+    """Call ``fn`` (an entry); return "pass" (exiting the entry) or the
+    BlockError's class name, limit type and rule as a dict."""
+    try:
+        e = fn()
+    except Exception as exc:  # a BlockError of either package
+        if not hasattr(exc, "resource"):
+            raise
+        rule = getattr(exc, "rule", None)
+        return (type(exc).__name__, getattr(exc, "limit_type", ""), None if rule is None else rule.to_dict())
+    if e is not None:
+        e.exit()
+    return "pass"
