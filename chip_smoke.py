@@ -37,7 +37,26 @@ launch) and then, failing on the first mismatch:
    clock, st.entry against a QPS = 20 rule; prints pass/s and the
    st.entry latency percentiles;
 6. runs examples/degrade_demo.py's sequence on the card and checks its
+   lines;
+7. runs examples/param_flow_demo.py's sequence on the card and checks its
    lines.
+
+Traffic shaping and hot parameters (the shaping recurrence K9 with its
+input gather, the hot-parameter recurrence K10): phase 2c holds them
+against their plain versions at bench.py's mixed shape (1,048,576 rules,
+131,072 entries, K = 2, 16,384 rate-limiter items, 32,768 param items)
+and on four more cases at the same sizes (every shaping behavior over
+several seconds; every param grade and behavior with LRU resets and exit
+releases; the closed forms; one rule or value holding every item);
+phase 3 also runs flush_step at the mixed shape (1,024 breakers, 32,768
+exits) on both routes; phase 4c drives an engine stream with shaping and
+param rules through the public API on the card and on the CPU engine.
+
+The CPU sides of phases 2c (d), 4, 4b and 4c (the plain versions on one
+heavy segment, the CPU engines) run in four worker processes, started
+before the build, beside the card's phases (phase 3 runs before 2c so
+that case (d)'s references are ready); the workers stop with the script.
+The run prints its seconds per phase before the kernels line.
 
 Its output ends with a ``{"kernels": [...]}`` line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}`` as the last line. It
@@ -64,7 +83,12 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    if WORKERS is not None:
+        WORKERS.terminate()
     sys.exit(1)
+
+
+WORKERS = None  # the worker processes that run the CPU references (main)
 
 
 if not torch.cuda.is_available():
@@ -81,6 +105,8 @@ try:
     from sentinel_tpu_torch.metrics.events import NUM_EVENTS
     from sentinel_tpu_torch.models import constants as C
     from sentinel_tpu_torch.rules import degrade_table as tdt
+    from sentinel_tpu_torch.rules import param_table as tpt
+    from sentinel_tpu_torch.rules import shaping as tsh
     from sentinel_tpu_torch.rules.flow_table import FlowTableDevice, flow_table_from_numpy
     from sentinel_tpu_torch.runtime import flush
     from sentinel_tpu_torch.utils import clock as tclock
@@ -133,6 +159,8 @@ def max_abs_err(a, b) -> int:
         fail(f"shape {tuple(a.shape)} vs {tuple(b.shape)}")
     if a.numel() == 0:
         return 0
+    if a.dtype.is_floating_point:  # bit for bit: compare the float32 words
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
@@ -272,6 +300,9 @@ def plain_kernels():
         (flush, "slot_chain_verdict", flush.slot_chain_verdict_plain),
         (tdt, "breaker_on_exits", tdt.breaker_on_exits_plain),
         (tdt, "breaker_try_pass", tdt.breaker_try_pass_plain),
+        (flush, "shaping_inputs", tsh.shaping_inputs_plain),
+        (flush, "run_shaping", tsh.run_shaping_plain),
+        (flush, "run_param", tpt.run_param_plain),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
@@ -656,6 +687,358 @@ def phase2_chain(results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the mixed shape of bench.py (_run_mixed_stage) and phase 2c: K9 and K10
+# ---------------------------------------------------------------------------
+
+P_ROWS = 1 << 14  # param rows of the mixed shape
+ND_MIXED = 1024  # breakers of the mixed shape
+S_SH = N // 8  # shaping items of the mixed shape
+S_P = N // 4  # param items of the mixed shape
+
+
+def tmap(fn, x):
+    """``fn`` over the tensors (or arrays) of a nested, possibly named, tuple."""
+    if isinstance(x, tuple):
+        vals = (tmap(fn, v) for v in x)
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return None if x is None else fn(x)
+
+
+def i32(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.int32))).to(DEV)
+
+
+def make_mixed(rng, now: int) -> dict:
+    """bench.py's mixed flush at full width: R = 1,048,576 rules, every 8th
+    a RATE_LIMITER (count 20, maxq 500 ms, cost1 50 ms); N = 131,072
+    entries over 400 ms, K = 2: slot 1 of every 8th entry on its nearest
+    rate limiter (16,384 shaping items); every 4th entry checks one of
+    16,384 param rows (QPS, token count 100, 1 s: 32,768 items); a breaker
+    per entry (1,024 exception-ratio breakers) and 32,768 exits completing
+    them. The rounds bounds are the engine's (``_rounds_bucket``)."""
+    from sentinel_tpu_torch.runtime.engine import _rounds_bucket
+
+    beh = np.where(np.arange(R) % 8 == 7, C.CONTROL_BEHAVIOR_RATE_LIMITER, 0).astype(np.int32)
+    z = np.zeros(R, np.int32)
+    table, dyn = flow_table_from_numpy(
+        (np.ones(R, np.int32), np.full(R, 20.0, np.float32), beh, np.full(R, 500, np.int32),
+         np.full(R, 50, np.int32), z, z, np.zeros(R, np.float32), z),
+        (np.full(R, -(10**9), np.int32), np.zeros(R, np.float32), np.full(R, -(10**9), np.int32)), DEV,
+    )
+    res = rng.integers(0, R, N)
+    idx = np.arange(N)
+    ts = (now - 400 + np.sort(rng.integers(0, 400, N))).astype(np.int32)
+    gid = np.full((N, 2), -1, np.int32)
+    gid[:, 0] = res
+    sh = idx % 8 == 7
+    sh_gid = ((res // 8) * 8 + 7) % R
+    gid[sh, 1] = sh_gid[sh]
+    m = N // 4
+    x_rows = np.full((m, 4), -1, np.int32)
+    x_rows[:, 0] = res[:m]
+    b = (
+        np.int32(now), np.ones(N, bool), ts, np.ones(N, np.int32),
+        np.stack([res, res, np.full(N, -1), np.zeros(N)], axis=1).astype(np.int32), gid, gid.copy(),
+        np.zeros(N, bool), np.ones(N, bool), np.ones(N, bool), (res % ND_MIXED).astype(np.int32)[:, None],
+        np.ones(m, bool), (now - 400 + np.sort(rng.integers(0, 400, m))).astype(np.int32), np.ones(m, np.int32),
+        x_rows, np.full(m, 10, np.int32), (rng.random(m) < 0.5).astype(np.int32), np.full(m, -1, np.int32),
+        (res[:m] % ND_MIXED).astype(np.int32)[:, None],
+    )
+    batch = flush.batch_from_numpy(b, DEV)
+    sb = tsh.ShapingBatch(
+        valid=torch.ones(S_SH, dtype=torch.bool, device=DEV), gid=i32(sh_gid[sh]), row=i32(sh_gid[sh]),
+        eidx=i32(idx[sh]), flat_pos=i32(idx[sh] * 2 + 1), ts=i32(ts[sh]), acquire=i32(np.ones(S_SH)),
+    )
+    pm = idx % 4 == 0
+    prow = rng.integers(0, P_ROWS, S_P).astype(np.int32)
+    pb = tpt.ParamBatch(
+        valid=torch.ones(S_P, dtype=torch.bool, device=DEV), prow=i32(prow), eidx=i32(idx[pm]), ts=i32(ts[pm]),
+        acquire=i32(np.ones(S_P)), grade=i32(np.full(S_P, C.FLOW_GRADE_QPS)), behavior=i32(np.zeros(S_P)),
+        token_count=i32(np.full(S_P, 100)), burst=i32(np.zeros(S_P)), duration_ms=i32(np.full(S_P, 1000)),
+        maxq=i32(np.zeros(S_P)), cost_ms=i32(np.zeros(S_P)), reset_rows=i32(np.full(8, -1)),
+        exit_rows=i32(np.full(8, -1)),
+    )
+    dindex = tdt.DegradeIndex([st.DegradeRule(f"r{i}", grade=1, count=0.5, time_window=10)
+                               for i in range(ND_MIXED)], device=DEV)
+    return dict(table=table, dyn=dyn, batch=batch, sb=sb, pb=pb, ddev=dindex.device, ddyn=dindex.make_dyn_state(),
+                pdyn=tpt.make_param_state(P_ROWS, DEV), sh_rounds=_rounds_bucket(sh_gid[sh]),
+                p_rounds=_rounds_bucket(prow))
+
+
+def shaping_table(rng, n_shaping: int, behaviors=(1, 2, 3)):
+    """R rules whose first ``n_shaping`` shape (the given behaviors; counts
+    5-40, queues up to 900 ms, the host's warm-up constants), half of the
+    warm-up rules cold; the rest DEFAULT. Returns (table, dyn)."""
+    k = n_shaping
+    beh = np.zeros(R, np.int32)
+    beh[:k] = rng.choice(np.asarray(behaviors, np.int32), k)
+    count = np.full(R, 20.0, np.float32)
+    count[:k] = rng.integers(5, 40, k)
+    maxq = np.zeros(R, np.int32)
+    maxq[:k] = rng.integers(0, 900, k)
+    cost1 = np.floor(1000.0 / count + 0.5).astype(np.int32)
+    warn, maxtok, refill = (np.zeros(R, np.int32) for _ in range(3))
+    slope = np.zeros(R, np.float32)
+    warn[:k] = rng.integers(2, 60, k)
+    maxtok[:k] = warn[:k] + rng.integers(1, 100, k)
+    slope[:k] = rng.random(k) * 1e-2
+    refill[:k] = rng.integers(1, 20, k)
+    stored = np.where((np.arange(R) < k) & (rng.random(R) < 0.5), maxtok, 0).astype(np.float32)
+    return flow_table_from_numpy(
+        (np.ones(R, np.int32), count, beh, maxq, cost1, warn, maxtok, slope, refill),
+        (np.full(R, -(10**9), np.int32), stored, np.full(R, -(10**9), np.int32)), DEV,
+    )
+
+
+def shaping_items(rng, gids, ts, acquire) -> tuple:
+    """A ShapingBatch (all valid, flat positions = item index) and random
+    pass-plus-charge and previous-second pass columns."""
+    s = len(gids)
+    ar = np.arange(s)
+    sb = tsh.ShapingBatch(torch.ones(s, dtype=torch.bool, device=DEV), i32(gids), i32(gids), i32(ar), i32(ar),
+                          i32(ts), i32(acquire))
+    return sb, i32(rng.integers(0, 60, s)), i32(rng.integers(0, 60, s))
+
+
+def param_items(rng, prow, ts, grade, behavior, acquire, token_count, resets=(), exits=()):
+    """A ParamBatch: one entry per item; burst, duration, queue and throttle
+    cost follow the row (a row is one (rule, value))."""
+    s = len(prow)
+    prow = np.asarray(prow, np.int32)
+    dur = np.where(prow % 3 == 0, 1000, 2000)
+    cost = np.where(np.asarray(behavior) == C.CONTROL_BEHAVIOR_RATE_LIMITER,
+                    np.floor(dur / np.maximum(token_count, 1) + 0.5), 0)
+    rs = np.full(max(8, len(resets)), -1)
+    rs[: len(resets)] = resets
+    xr = np.full(max(8, len(exits)), -1)
+    xr[: len(exits)] = exits
+    return tpt.ParamBatch(
+        valid=torch.ones(s, dtype=torch.bool, device=DEV), prow=i32(prow), eidx=i32(np.arange(s)), ts=i32(ts),
+        acquire=i32(acquire), grade=i32(grade), behavior=i32(behavior), token_count=i32(token_count),
+        burst=i32(prow % 3), duration_ms=i32(dur), maxq=i32((prow % 5) * 100), cost_ms=i32(cost),
+        reset_rows=i32(rs), exit_rows=i32(xr),
+    )
+
+
+def param_state(rng, now: int) -> tpt.ParamDynState:
+    """P_ROWS rows: never seen, warm and throttled, a few threads held."""
+    never = tpt.PARAM_NEVER
+    return tpt.ParamDynState(
+        tokens=i32(rng.integers(0, 8, P_ROWS)),
+        last_add=i32(np.where(rng.random(P_ROWS) < 0.4, never, now - rng.integers(0, 3000, P_ROWS))),
+        latest=i32(np.where(rng.random(P_ROWS) < 0.4, never, now + rng.integers(-1500, 800, P_ROWS))),
+        threads=i32(rng.integers(0, 4, P_ROWS)),
+    )
+
+
+def check_shaping(tag, table, dyn0, sb, ppc, prev, rounds):
+    """K9 on the card against its plain version on the same inputs; returns
+    ((dyn, ok, wait), max abs err)."""
+    got = tsh.run_shaping(table, clone(dyn0), sb, ppc, prev, 1.0, rounds)
+    want = tsh.run_shaping_plain(table, clone(dyn0), sb, ppc, prev, 1.0, rounds)
+    return got, require_equal(want, got, f"run_shaping ({tag})")
+
+
+def check_param(tag, dyn0, pb, rounds):
+    """K10 on the card against its plain version; ((dyn, ok, wait), err)."""
+    got = tpt.run_param(clone(dyn0), pb, rounds)
+    want = tpt.run_param_plain(clone(dyn0), pb, rounds)
+    return got, require_equal(want, got, f"run_param ({tag})")
+
+
+def heavy_inputs() -> tuple:
+    """Case (d) of phase 2c on DEV, from a seed of its own: every shaping
+    item on one rate limiter whose queue holds two of its costs (so items
+    queue, pass and block), every param item on one value row. Returns
+    (table, dyn, shaping batch, pass-plus-charge, previous pass, param
+    state, param batch)."""
+    rng = np.random.default_rng(29)
+    now = 2_000_400
+    table, dyn = shaping_table(rng, S_SH // 4)
+    queue_ok = (table.behavior == C.CONTROL_BEHAVIOR_RATE_LIMITER) & (
+        table.max_queueing_time_ms >= 2 * table.cost1_ms)
+    gid = int(torch.nonzero(queue_ok)[0])
+    sb, ppc, prev = shaping_items(rng, np.full(S_SH, gid), now - 3000 + np.sort(rng.integers(0, 3000, S_SH)),
+                                  rng.integers(0, 3, S_SH))
+    pst = param_state(rng, now)
+    pb = param_items(rng, np.full(S_P, 11), now - 3000 + np.sort(rng.integers(0, 3000, S_P)), np.ones(S_P),
+                     np.zeros(S_P), rng.integers(0, 3, S_P), np.full(S_P, 50))
+    return table, dyn, sb, ppc, prev, pst, pb
+
+
+def heavy_plain(kind: str) -> tuple:
+    """The plain version of K9 (``kind`` "shaping") or K10 ("param") on
+    case (d)'s inputs, run in a CPU worker: one item per round, so the
+    segment of S items takes S rounds. Returns numpy (dyn, ok, wait)."""
+    table, dyn, sb, ppc, prev, pst, pb = heavy_inputs()
+    if kind == "shaping":
+        out = tsh.run_shaping_plain(table, dyn, sb, ppc, prev, 1.0, 0)
+    else:
+        out = tpt.run_param_plain(pst, pb, 0)
+    return tmap(lambda t: t.numpy(), out)
+
+
+def exercised(tag: str, ok: torch.Tensor, wait=None, need_wait: bool = True) -> str:
+    n_ok, n = int(ok.sum()), ok.numel()
+    n_wait = 0 if wait is None else int((wait > 0).sum())
+    if n_ok == 0 or n_ok == n or (need_wait and n_wait == 0):
+        fail(f"phase 2c ({tag}): the case did not exercise admits, blocks and queued waits "
+             f"({n_ok} of {n} admitted, {n_wait} waited)")
+    return f"{n_ok} of {n} admitted, {n_wait} waited"
+
+
+def phase2_shaping_param(results: dict, cpu_jobs: dict) -> None:
+    log(f"phase 2c: K9 (shaping) and K10 (hot parameters) against their plain versions at bench.py's mixed shape "
+        f"(R={R:,}, N={N:,}, K=2, {S_SH:,} shaping and {S_P:,} param items) and four more cases")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(23)
+    rng = np.random.default_rng(23)
+    now = 2_000_400
+    mx = make_mixed(rng, now)
+    stats = make_stats(now, gen)
+    table, batch, sb, pb = mx["table"], mx["batch"], mx["sb"], mx["pb"]
+    live = batch.e_valid & batch.e_auth_ok
+    errs = {}
+    # K4's per-slot pass plus charge, then the gather of the shaping inputs.
+    w = flush.flow_admission_plain(stats, table, batch, 0, live, 500, False, False, True)
+    adm = flush.flow_admission(stats, table, batch, 0, live, 500, False, False, True)
+    require_equal(w, adm, "flow_admission with the pass-plus-charge output (mixed)")
+    w = tsh.shaping_inputs_plain(sb, live, adm.pass_plus_consumed, stats.minute)
+    inputs = tsh.shaping_inputs(sb, live, adm.pass_plus_consumed, stats.minute)
+    errs["shaping_inputs"] = require_equal(w, inputs, "shaping_inputs (mixed)")
+    valid, ppc_s, prev_s = inputs
+    sb_live = sb._replace(valid=valid)
+    (dyn_m, ok_m, wait_m), errs["run_shaping"] = check_shaping("mixed", table, mx["dyn"], sb_live, ppc_s, prev_s,
+                                                              mx["sh_rounds"])
+    (pd_m, pok_m, _), errs["run_param"] = check_param("mixed", mx["pdyn"], pb, mx["p_rounds"])
+    log(f"  mixed (rounds {mx['sh_rounds']} / {mx['p_rounds']}): K9 {int(ok_m.sum())} of {S_SH} admitted, "
+        f"{int((wait_m > 0).sum())} waited; K10 {int(pok_m.sum())} of {S_P} admitted; the input gather and K4's "
+        f"pass-plus-charge equal too")
+    # Timing at the mixed shape (the kernels line).
+    dyn_s, pd_s = clone(mx["dyn"]), clone(mx["pdyn"])
+    touched_sh = torch.unique(sb.gid).numel()
+    touched_p = torch.unique(pb.prow).numel()
+    results["run_shaping"].update(
+        ms=time_ms(lambda: tsh.run_shaping(table, dyn_s, sb_live, ppc_s, prev_s, 1.0, mx["sh_rounds"])),
+        plain_ms=time_ms(lambda: tsh.run_shaping_plain(table, dyn_s, sb_live, ppc_s, prev_s, 1.0, mx["sh_rounds"]),
+                         iters=3, warmup=1),
+        library_ms=None, shape=f"S={S_SH} rate-limiter items over {touched_sh} of R={R} rules",
+        # Per item: valid, gid, ts, acquire, pass-plus-charge, previous pass
+        # in, ok and wait out; per touched rule: its 8 table columns and its
+        # 3 state columns read, the state written.
+        bound=bound(S_SH * (1 + 4 * 5 + 1 + 4) + touched_sh * (32 + 12 + 12), ops=S_SH * 40),
+    )
+    results["shaping_inputs"].update(
+        ms=time_ms(lambda: tsh.shaping_inputs(sb, live, adm.pass_plus_consumed, stats.minute)),
+        plain_ms=time_ms(lambda: tsh.shaping_inputs_plain(sb, live, adm.pass_plus_consumed, stats.minute)),
+        library_ms=None, shape=f"S={S_SH} items, N={N} entries, minute window [{R},60,6]",
+        # Per item: valid, eidx, flat_pos, row, ts; live of its entry, its
+        # slot's pass-plus-charge, one minute-window start and pass; out:
+        # valid, pass-plus-charge, previous pass.
+        bound=bound(S_SH * (1 + 4 * 4 + 1 + 4 + 4 + 4 + 1 + 4 + 4)),
+    )
+    results["run_param"].update(
+        ms=time_ms(lambda: tpt.run_param(pd_s, pb, mx["p_rounds"])),
+        plain_ms=time_ms(lambda: tpt.run_param_plain(pd_s, pb, mx["p_rounds"]), iters=3, warmup=1),
+        library_ms=None, shape=f"S={S_P} items over {touched_p} of {P_ROWS} param rows",
+        # Per item: valid, row, ts and 8 per-item columns in, ok and wait
+        # out; per touched row: 4 state columns read, 3 written.
+        bound=bound(S_P * (1 + 4 * 10 + 1 + 4) + touched_p * (16 + 12), ops=S_P * 30),
+    )
+    for name in ("run_shaping", "shaping_inputs", "run_param"):
+        log(f"    {name}: {results[name]['ms']:.4f} ms, plain {results[name]['plain_ms']:.4f} ms, "
+            f"bound {results[name]['bound'][0]:.5f} ms ({results[name]['shape']})")
+    del stats, adm, inputs, dyn_s, pd_s
+    torch.cuda.empty_cache()
+
+    def timed(fn):
+        ms = time_ms(fn, iters=3, warmup=1)
+        return f"{ms:.4f} ms"
+
+    # (a) every shaping behavior, items over four seconds: syncToken refills.
+    n_a = S_SH // 4  # 4,096 rules, about 4 items each: the rounds bound 16
+    table_a, dyn_a = shaping_table(rng, n_a)
+    gids = rng.integers(0, n_a, S_SH)
+    ts = now - 4000 + np.sort(rng.integers(0, 4000, S_SH))
+    sb_a, ppc_a, prev_a = shaping_items(rng, gids, ts, rng.integers(0, 3, S_SH))
+    from sentinel_tpu_torch.runtime.engine import _rounds_bucket
+
+    for rounds in (_rounds_bucket(gids), 0):
+        (d, ok, wait), err = check_shaping(f"a, rounds {rounds}", table_a, dyn_a, sb_a, ppc_a, prev_a, rounds)
+        errs["run_shaping"] = max(errs["run_shaping"], err)
+        refilled = int((d.last_filled_time != dyn_a.last_filled_time).sum())
+        if refilled == 0:
+            fail("phase 2c (a): no warm-up rule refilled")
+        log(f"  (a) behaviors 1-3 over 4 s, rounds {rounds}: {exercised('a', ok, wait)}, {refilled} rules refilled; "
+            f"K9 {timed(lambda: tsh.run_shaping(table_a, clone(dyn_a), sb_a, ppc_a, prev_a, 1.0, rounds))}")
+    # (b) every param grade and behavior, LRU resets and exit releases, through
+    # the flush's param stage (exit release, K10, the per-entry fold).
+    pst = param_state(rng, now)
+    prow = rng.integers(0, P_ROWS, S_P)
+    grade = np.where(prow % 4 == 0, C.FLOW_GRADE_THREAD, C.FLOW_GRADE_QPS)
+    behavior = np.where((prow % 3 == 1) & (grade == C.FLOW_GRADE_QPS), C.CONTROL_BEHAVIOR_RATE_LIMITER, 0)
+    tc = np.where(prow % 7 == 0, 40, np.array([1, 2, 3, 5])[prow % 4])  # hot items: a larger threshold
+    pb_b = param_items(rng, prow, now - 2000 + np.sort(rng.integers(0, 2000, S_P)), grade, behavior,
+                       rng.integers(0, 3, S_P), tc, resets=rng.integers(0, P_ROWS, 64),
+                       exits=rng.integers(0, P_ROWS, 2048))
+    live_b = torch.rand(S_P, generator=gen, device=DEV) < 0.95
+    for rounds in (_rounds_bucket(prow), 0):
+        pk, pp = clone(pst), clone(pst)
+        ok_k, w_k = flush._param_stage(pk, pb_b, live_b, rounds)
+        with plain_kernels():
+            ok_p, w_p = flush._param_stage(pp, pb_b, live_b, rounds)
+        err = require_equal((pp, ok_p, w_p), (pk, ok_k, w_k), f"param stage (b, rounds {rounds})")
+        errs["run_param"] = max(errs["run_param"], err)
+        thr_blocked = int((~ok_k & live_b & i32(grade == C.FLOW_GRADE_THREAD).bool()).sum())
+        if thr_blocked == 0:
+            fail("phase 2c (b): no THREAD-grade value blocked")
+        log(f"  (b) every grade and behavior, 64 LRU resets, 2,048 exit releases, rounds {rounds}: "
+            f"{exercised('b', ok_k, w_k)}, {thr_blocked} THREAD-grade blocks; "
+            f"K10 {timed(lambda: tpt.run_param(clone(pst), pb_b, rounds))}")
+    # (c) the closed forms: shaping -1 (one ts, segments of about 256);
+    # param -1 (one ts) and -8 (up to 8 timestamps per row).
+    table_c, dyn_c = shaping_table(rng, 64, behaviors=(2,))
+    sb_c, ppc_c, prev_c = shaping_items(rng, rng.integers(0, 64, S_SH), np.full(S_SH, now), np.ones(S_SH))
+    (d, ok, wait), err = check_shaping("c, closed form", table_c, dyn_c, sb_c, ppc_c, prev_c, -1)
+    errs["run_shaping"] = max(errs["run_shaping"], err)
+    log(f"  (c) shaping closed form (64 rules, one ts): {exercised('c shaping', ok, wait)}; "
+        f"K9 {timed(lambda: tsh.run_shaping(table_c, clone(dyn_c), sb_c, ppc_c, prev_c, 1.0, -1))}")
+    for nts, rounds in ((1, -1), (7, -8)):
+        prow = rng.integers(0, 1024, S_P)
+        tc = (prow % 40 + 1) * 2
+        ts = now - 700 * rng.integers(0, nts, S_P)
+        pb_c = param_items(rng, prow, ts, np.ones(S_P), np.zeros(S_P), np.ones(S_P), tc)
+        (d, ok, _), err = check_param(f"c, closed form {rounds}", pst, pb_c, rounds)
+        errs["run_param"] = max(errs["run_param"], err)
+        log(f"  (c) param closed form {rounds} ({nts} timestamp(s), 1,024 rows): "
+            f"{exercised('c param', ok, need_wait=False)}; K10 {timed(lambda: tpt.run_param(clone(pst), pb_c, rounds))}")
+    # (d) one heavy segment: every item on one rule / one row, the scan path.
+    # The plain versions ran on the same inputs in CPU workers (heavy_plain).
+    table_d, dyn_d, sb_d, ppc_d, prev_d, pst_d, pb_d = heavy_inputs()
+    d, ok, wait = tsh.run_shaping(table_d, clone(dyn_d), sb_d, ppc_d, prev_d, 1.0, 0)
+    err = require_equal(tmap(torch.from_numpy, cpu_result(cpu_jobs, "heavy shaping")),
+                        tmap(lambda t: t.cpu(), (d, ok, wait)), "run_shaping (d, one rule)")
+    errs["run_shaping"] = max(errs["run_shaping"], err)
+    k_ms = time_ms(lambda: tsh.run_shaping(table_d, clone(dyn_d), sb_d, ppc_d, prev_d, 1.0, 0), iters=3, warmup=1)
+    log(f"  (d) one rate limiter holds all {S_SH:,} shaping items, scan path: {exercised('d shaping', ok, wait)}; "
+        f"K9 {k_ms:.4f} ms (one thread walks the segment)")
+    results["run_shaping"]["heavy_ms"] = k_ms
+    d, ok, wait = tpt.run_param(clone(pst_d), pb_d, 0)
+    err = require_equal(tmap(torch.from_numpy, cpu_result(cpu_jobs, "heavy param")),
+                        tmap(lambda t: t.cpu(), (d, ok, wait)), "run_param (d, one row)")
+    errs["run_param"] = max(errs["run_param"], err)
+    k_ms = time_ms(lambda: tpt.run_param(clone(pst_d), pb_d, 0), iters=3, warmup=1)
+    log(f"  (d) one value row holds all {S_P:,} param items, scan path: {exercised('d param', ok, need_wait=False)}; "
+        f"K10 {k_ms:.4f} ms (one thread walks the segment)")
+    results["run_param"]["heavy_ms"] = k_ms
+    for name in ("run_shaping", "shaping_inputs", "run_param"):
+        results[name]["max_abs_err"] = errs[name]
+    log(f"  K9, K10 and the input gather equal their plain versions in every case (max abs err {max(errs.values())})")
+    del mx, table_a, dyn_a, table_c, dyn_c, table_d, dyn_d
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 3: flush_step at the north-star shape
 # ---------------------------------------------------------------------------
 
@@ -724,6 +1107,42 @@ def phase3() -> None:
         f"{torch.bincount(res.reason, minlength=5).tolist()}")
     profile_step(lambda: flush.flush_step(kern, table, batch, ddyn=dk, **args), "every stage on")
     del kern
+    torch.cuda.empty_cache()
+
+    # bench.py's mixed shape: shaping and hot parameters on, 1,024
+    # breakers, 32,768 exits (no system rule, no prioritized entries).
+    now += 400
+    mx = make_mixed(rng, now)
+    base = make_stats(now, gen)
+    kern, plain = clone(base), clone(base)
+    del base
+    st_k = {name: clone(mx[name]) for name in ("dyn", "pdyn", "ddyn")}
+    st_p = {name: clone(mx[name]) for name in ("dyn", "pdyn", "ddyn")}
+    margs = dict(with_exits=True, blk_topk=8, ddev=mx["ddev"], with_degrade=True, shaping=mx["sb"], param=mx["pb"],
+                 shaping_rounds=mx["sh_rounds"], param_rounds=mx["p_rounds"])
+
+    def mixed_step(stats, s):
+        return flush.flush_step(stats, mx["table"], mx["batch"], ddyn=s["ddyn"], flow_dyn=s["dyn"], pdyn=s["pdyn"],
+                                **margs)
+
+    _, res = mixed_step(kern, st_k)
+    with plain_kernels():
+        _, want = mixed_step(plain, st_p)
+    require_equal(want, res, "flush_step results (mixed)")
+    require_equal(plain, kern, "flush_step stats (mixed)")
+    for name in ("dyn", "pdyn", "ddyn"):
+        require_equal(st_p[name], st_k[name], f"flush_step {name} (mixed)")
+    del plain
+    torch.cuda.empty_cache()
+    k_ms, k_spread = step_times(lambda: mixed_step(kern, st_k))
+    with plain_kernels():
+        p_ms = time_ms(lambda: mixed_step(kern, st_k), iters=2, warmup=1)
+    log(f"  mixed (bench.py _run_mixed_stage: K=2, {S_SH:,} shaping and {S_P:,} param items, {ND_MIXED:,} breakers, "
+        f"{M:,} exits): kernels {k_ms:.4f} ms/flush {k_spread} ({N / k_ms * 1e3:,.0f} entries/s), plain "
+        f"{p_ms:.4f} ms/flush; results, stats, shaping, param and breaker state identical; reasons "
+        f"{torch.bincount(res.reason, minlength=6).tolist()}, {int((res.wait_ms > 0).sum())} waits")
+    profile_step(lambda: mixed_step(kern, st_k), "mixed")
+    del kern, mx, st_k, st_p
     torch.cuda.empty_cache()
 
 
@@ -819,7 +1238,7 @@ def drive_engine(device: torch.device, seed: int):
     return records, final, blk, flush_s / STEPS, admitted
 
 
-def phase4(results: dict) -> None:
+def phase4(results: dict, cpu_jobs: dict) -> None:
     log("phase 4: the engine through the public API (6,000 rules, 10 simulated s, 32,768-entry flushes)")
     wrappers = {
         "materialize_matured": nodes.materialize_matured,
@@ -839,8 +1258,8 @@ def phase4(results: dict) -> None:
         if c <= 0:
             fail(f"kernel {name} was not launched on the main path")
         results[name]["launches"] = c
-    cpu_records, cpu_state, cpu_blk, cpu_flush_s, _ = drive_engine(torch.device("cpu"), seed=4)
-    log(f"  CPU engine (plain versions): {cpu_flush_s * 1e3:.3f} ms per flush call")
+    cpu_records, cpu_state, cpu_blk, cpu_flush_s, _ = cpu_result(cpu_jobs, "4")
+    log(f"  CPU engine (plain versions, in a worker process): {cpu_flush_s * 1e3:.3f} ms per flush call")
     if len(gpu_records) != len(cpu_records) or any(
         not np.array_equal(a, b) for a, b in zip(gpu_records, cpu_records)
     ):
@@ -955,7 +1374,7 @@ def drive_chain_engine(device: torch.device, seed: int):
     return records, stats, tdt.degrade_state_to_numpy(eng.degrade_dyn), flush_s / CHAIN_STEPS, reasons, waits
 
 
-def phase4_chain(results: dict) -> None:
+def phase4_chain(results: dict, cpu_jobs: dict) -> None:
     log(f"phase 4b: the slot chain through the public API (breakers on 2,000 of 6,000 resources, system and "
         f"authority rules, prioritized entries; {CHAIN_STEPS} flushes of 32,768)")
     # name -> (wrapper, counter): K4's occupy branch has a counter of its own,
@@ -981,8 +1400,8 @@ def phase4_chain(results: dict) -> None:
     for name in ("flow_admission_occupy", "commit_borrow_slab", "system_check", "breaker_on_exits",
                  "breaker_try_pass", "slot_chain_verdict"):
         results[name]["launches"] = counts[name]
-    cpu = drive_chain_engine(torch.device("cpu"), seed=5)
-    log(f"  CPU engine (plain versions): {cpu[3] * 1e3:.3f} ms per flush call")
+    cpu = cpu_result(cpu_jobs, "4b")
+    log(f"  CPU engine (plain versions, in a worker process): {cpu[3] * 1e3:.3f} ms per flush call")
     if len(gpu[0]) != len(cpu[0]) or any(not np.array_equal(a, b) for a, b in zip(gpu[0], cpu[0])):
         fail("slot chain engine verdicts, wait_ms or attribution differ between the card and the CPU")
     for what, a_state, b_state in (("stats", gpu[1], cpu[1]), ("breaker state", gpu[2], cpu[2])):
@@ -997,6 +1416,224 @@ def phase4_chain(results: dict) -> None:
         f"final breaker states (closed, open, half-open) {np.bincount(gpu[2].state, minlength=3).tolist()}")
     if min(reasons[:5]) == 0 or waits == 0:
         fail("phase 4b: some stage of the slot chain blocked nothing, or no prioritized entry borrowed")
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: shaping and hot parameters through the public API
+# ---------------------------------------------------------------------------
+
+SHAPE_STEPS = 30  # 200 ms each: 6 simulated seconds
+
+
+# The param rules sit on resources of the flow rules: 6,000 resources is the
+# engine's cap (MAX_SLOT_CHAIN_SIZE); a resource past it passes through.
+def API(j: int) -> str:
+    return f"r{N_RULES - 1000 + j}"
+
+
+POOL = "r5990"
+
+
+def GW(j: int) -> str:
+    return f"r{N_RULES - 4 + j}"
+SHAPE_N = 16384
+GW_N = 1024
+
+
+def drive_shaping_engine(device: torch.device, seed: int):
+    """An engine stream with shaping and hot-parameter rules: 6,000 flow
+    rules, one in seven of them a RATE_LIMITER, WARM_UP or
+    WARM_UP_RATE_LIMITER (warm-up 2 s, so it refills within the run); param
+    rules on 300 of those resources (QPS with hot items, throttles), one
+    THREAD-grade rule whose held entries exit a step later and release
+    their rows, and four gateway resources whose bulk args columns (one ts,
+    one acquire: the closed form) draw client IPs: the first uniformly from
+    20,000, past its 4,000-value LRU cap, the others Zipf-skewed from 6,000. Zipf bulk traffic, singles with args,
+    st.entry calls with args, exits. Returns (records, final state,
+    shaping modes, param modes)."""
+    clock = tclock.ManualClock(0)
+    api.reset(clock=clock, device=device)
+    beh = [0, C.CONTROL_BEHAVIOR_RATE_LIMITER, C.CONTROL_BEHAVIOR_WARM_UP, C.CONTROL_BEHAVIOR_WARM_UP_RATE_LIMITER]
+    st.flow_rule_manager.load_rules([
+        st.FlowRule(f"r{i}", count=20 + i % 13, control_behavior=beh[i % 7] if i % 7 < 4 else 0,
+                    warm_up_period_sec=2, max_queueing_time_ms=300 + (i % 5) * 100)
+        for i in range(N_RULES)
+    ])
+    hot = [st.ParamFlowItem(object="vip", count=50)]
+    param_rules = [st.ParamFlowRule(API(j), param_idx=0, count=3 + j % 4, burst_count=j % 2,
+                                    param_flow_item_list=hot) for j in range(0, 300, 2)]
+    param_rules += [st.ParamFlowRule(API(j), param_idx=0, count=5 + j % 3, max_queueing_time_ms=400,
+                                     control_behavior=C.CONTROL_BEHAVIOR_RATE_LIMITER) for j in range(1, 300, 2)]
+    param_rules += [st.ParamFlowRule(POOL, param_idx=0, count=2, grade=C.FLOW_GRADE_THREAD)]
+    param_rules += [st.ParamFlowRule(GW(j), param_idx=0, count=5, burst_count=2) for j in range(4)]
+    st.param_flow_rule_manager.load_rules(param_rules)
+    eng = api.get_engine()
+    modes = {"shaping": [], "param": []}
+    orig_sh, orig_p = flush.run_shaping, flush.run_param
+
+    def rec_sh(*a, **k):
+        modes["shaping"].append(a[6] if len(a) > 6 else k.get("rounds", 0))
+        return orig_sh(*a, **k)
+
+    def rec_p(*a, **k):
+        modes["param"].append(a[2] if len(a) > 2 else k.get("rounds", 0))
+        return orig_p(*a, **k)
+
+    flush.run_shaping, flush.run_param = rec_sh, rec_p
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, N_RULES + 1, dtype=np.float64) ** -1.1
+    p = ranks / ranks.sum()
+    ip_p = np.arange(1, 6001, dtype=np.float64) ** -0.8
+    ip_p /= ip_p.sum()
+    records, held, prev_groups = [], [], []
+    flush_s = 0.0
+    try:
+        for step in range(SHAPE_STEPS):
+            now = 1000 + step * 200
+            clock.set_ms(now)
+            res = np.sort(rng.choice(N_RULES, size=SHAPE_N, p=p))
+            ts = (now - rng.integers(0, 150, SHAPE_N)).astype(np.int32)
+            uniq, start = np.unique(res, return_index=True)
+            bounds = list(start) + [SHAPE_N]
+            groups = [eng.submit_bulk(f"r{r}", int(bounds[i + 1] - bounds[i]),
+                                      ts=np.sort(ts[bounds[i]:bounds[i + 1]]))
+                      for i, r in enumerate(uniq)]
+            for g in prev_groups[:60]:
+                if g.admitted_count:
+                    eng.submit_exit_bulk(g.rows, g.admitted_count, rt=int(rng.integers(1, 200)), ts=now)
+            singles = []
+            if step % 2 == 0:
+                # The gateway shape: one ts, one acquire (the closed form).
+                for j in range(4):
+                    ips = rng.integers(0, 20000, GW_N) if j == 0 else rng.choice(6000, GW_N, p=ip_p)
+                    col = [(f"10.0.{int(x) // 256}.{int(x) % 256}",) for x in ips]
+                    groups.append(eng.submit_bulk(GW(j), GW_N, ts=now, args_column=col))
+            else:
+                users = ["vip"] + [f"u{i}" for i in range(40)]
+                singles = [eng.submit_entry(API(int(a)), ts=now - int(rng.integers(0, 60)),
+                                            args=(users[int(u)],))
+                           for a, u in zip(rng.integers(0, 300, 96), rng.integers(0, 41, 96))]
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.flush()
+            flush_s += time.perf_counter() - t0
+            for g in groups:
+                records += [g.admitted, g.reason, g.wait_ms]
+            records.append(np.array([_verdict_record(o.verdict) for o in singles], dtype=object))
+            prev_groups = groups[:-4] if step % 2 == 0 else groups
+            if step % 5 == 0:
+                # One rate limiter alone at one ts: the shaping closed form.
+                g = eng.submit_bulk("r1", 400, ts=now + 10)
+                eng.flush()
+                records += [g.admitted, g.wait_ms]
+            # Through the public API: args on st.entry, a THREAD-grade pool
+            # whose entries are held for a step.
+            for e in held:
+                clock.set_ms(now + 20)
+                e.exit()
+            held = []
+            for j, (resource, arg) in enumerate(((API(3), "vip"), (API(4), "u1"), (POOL, "k1"), (POOL, "k1"),
+                                                  (POOL, "k1"), ("r1", None))):
+                clock.set_ms(now + 50 + j)
+                try:
+                    e = st.entry(resource, args=(arg,) if arg is not None else ())
+                    records.append(np.array(["pass", clock.now_ms()], dtype=object))
+                    if resource == POOL:
+                        held.append(e)
+                    else:
+                        e.exit()
+                except st.BlockError as exc:
+                    rule = getattr(exc, "rule", None)
+                    records.append(np.array([type(exc).__name__, None if rule is None else rule.resource],
+                                            dtype=object))
+        for e in held:
+            e.exit()
+        eng.flush()
+    finally:
+        flush.run_shaping, flush.run_param = orig_sh, orig_p
+    state = (nodes.stats_to_numpy(eng.stats), tuple(t.cpu().numpy() for t in eng.flow_dyn),
+             tpt.param_state_to_numpy(eng.param_dyn), json.dumps(eng.param_index.values_snapshot()))
+    return records, state, modes, flush_s / SHAPE_STEPS, eng.param_index.cache_stats()
+
+
+def phase4_shaping(results: dict, cpu_jobs: dict) -> None:
+    log(f"phase 4c: shaping and hot parameters through the public API ({SHAPE_STEPS} flushes of {SHAPE_N:,} Zipf "
+        f"entries over 6,000 rules, one in seven shaping; param rules on 300 resources, a THREAD-grade pool, "
+        f"gateway args columns)")
+    counters = {
+        "materialize_matured": nodes.materialize_matured, "window_update": ma.update,
+        "thread_gauge": nodes.thread_gauge_add, "window_sums": ma.window_reduce,
+        "flow_admission": flush.flow_admission, "slot_chain_verdict": flush.slot_chain_verdict,
+        "shaping_inputs": tsh.shaping_inputs, "run_shaping": tsh.run_shaping, "run_param": tpt.run_param,
+    }
+    for w in counters.values():
+        w.launches = 0
+    gpu = drive_shaping_engine(DEV, seed=6)
+    counts = {name: w.launches for name, w in counters.items()}
+    log(f"  card: {gpu[3] * 1e3:.3f} ms per flush call (host encode and verdict copy included)")
+    log(f"  launches on the path: {counts}")
+    for name, c in counts.items():
+        if c <= 0:
+            fail(f"kernel {name} was not launched on the shaping and param path")
+    for name in ("shaping_inputs", "run_shaping", "run_param"):
+        results[name]["launches"] = counts[name]
+    cpu = cpu_result(cpu_jobs, "4c")
+    log(f"  CPU engine (plain versions, in a worker process): {cpu[3] * 1e3:.3f} ms per flush call")
+    if len(gpu[0]) != len(cpu[0]) or any(not np.array_equal(a, b) for a, b in zip(gpu[0], cpu[0])):
+        fail("shaping/param engine verdicts, wait_ms or attribution differ between the card and the CPU")
+    gs, cs = gpu[1], cpu[1]
+    for what, a_state, b_state in (("stats", gs[0], cs[0]), ("param state", gs[2], cs[2])):
+        for name in a_state._fields:
+            a, b = getattr(a_state, name), getattr(b_state, name)
+            for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+                if not np.array_equal(x, y):
+                    fail(f"shaping/param engine {what} {name} differs between the card and the CPU")
+    if any(not np.array_equal(x.view(np.int32), y.view(np.int32)) for x, y in zip(gs[1], cs[1])):
+        fail("shaping/param engine flow shaping state differs between the card and the CPU")
+    if gs[3] != cs[3]:
+        fail("shaping/param engine value interning differs between the card and the CPU")
+    if gpu[2] != cpu[2]:
+        fail("the card and the CPU engine took different shaping/param modes")
+    modes = {k: sorted(set(v)) for k, v in gpu[2].items()}
+    log(f"  verdicts, wait_ms, attribution, stats, shaping state, param state and value interning identical on "
+        f"card and CPU; shaping modes {modes['shaping']}, param modes {modes['param']}; value cache {gpu[4]}")
+    if -1 not in modes["shaping"] or -1 not in modes["param"] or not any(m >= 0 for m in modes["param"]):
+        fail("phase 4c: the stream did not take the closed forms and the rounds path")
+    if gpu[4]["evictions"] == 0:
+        fail("phase 4c: no value row was recycled by the LRU cap")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: examples/param_flow_demo.py on the port
+# ---------------------------------------------------------------------------
+
+
+def phase7() -> None:
+    log("phase 7: examples/param_flow_demo.py's sequence on the card (per-value budgets, a hot item)")
+    clock = tclock.ManualClock(0)
+    prev = tclock.set_default_clock(clock)
+    api.reset(clock=clock, device=DEV)
+    st.param_flow_rule_manager.load_rules([st.ParamFlowRule(
+        resource="buy", param_idx=0, count=2, param_flow_item_list=[st.ParamFlowItem(object="flash-sale", count=5)])])
+
+    def attempt(ts, product):
+        clock.set_ms(ts)
+        e = st.try_entry("buy", args=(product,))
+        if e:
+            e.exit()
+            return "pass"
+        return "BLOCK"
+
+    passes = {}
+    for product in ("normal-item", "flash-sale"):
+        results = [attempt(100 + i, product) for i in range(7)]
+        passes[product] = results.count("pass")
+        log(f"  {product:12s}: {' '.join(results)}")
+    tclock.set_default_clock(prev)
+    log(f"  normal-item passes {passes['normal-item']}, flash-sale passes {passes['flash-sale']}")
+    if passes != {"normal-item": 2, "flash-sale": 5}:
+        fail(f"param demo passes {passes} != normal-item 2, flash-sale 5")
 
 
 # ---------------------------------------------------------------------------
@@ -1101,13 +1738,49 @@ def phase6() -> None:
         fail(f"degrade demo lines {lines} != {DEMO_LINES}")
 
 
+def _cpu_worker() -> None:
+    """A worker of WORKERS: its helpers build their inputs on the CPU."""
+    global DEV
+    DEV = torch.device("cpu")
+    torch.set_num_threads(2)
+
+
+def start_cpu_jobs() -> dict:
+    """Starts the CPU references of phases 2c (d), 4, 4b and 4c (the port's
+    plain versions, one round of a segmented recurrence at a time, and the
+    CPU engines) in worker processes, longest first, so that they run while
+    the build and the card's phases do; each is the same seeded computation the phase
+    would run itself."""
+    global WORKERS
+    import multiprocessing
+
+    WORKERS = multiprocessing.get_context("spawn").Pool(4, initializer=_cpu_worker)
+    cpu = torch.device("cpu")
+    return {
+        "4c": WORKERS.apply_async(drive_shaping_engine, (cpu, 6)),
+        "heavy param": WORKERS.apply_async(heavy_plain, ("param",)),
+        "heavy shaping": WORKERS.apply_async(heavy_plain, ("shaping",)),
+        "4": WORKERS.apply_async(drive_engine, (cpu, 4)),
+        "4b": WORKERS.apply_async(drive_chain_engine, (cpu, 5)),
+    }
+
+
+def cpu_result(cpu_jobs: dict, name: str):
+    """The result of a CPU job, logging how long the card's phase waited."""
+    t0 = time.perf_counter()
+    out = cpu_jobs[name].get()
+    log(f"  (the CPU reference '{name}' came {time.perf_counter() - t0:.1f} s after it was asked for)")
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     line = card_line()
     log(f"phase 1: {line}")
+    cpu_jobs = start_cpu_jobs()
     t0 = time.perf_counter()
     cuda_build.build_all(["window_update", "flow_admission", "system_check", "breaker_on_exits",
-                          "breaker_try_pass", "commit_borrow_slab"])
+                          "breaker_try_pass", "commit_borrow_slab", "shaping_scan", "param_scan"])
     log(f"  CUDA kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
 
     meta = {
@@ -1132,15 +1805,23 @@ def main() -> None:
                              "sentinel_tpu/rules/degrade_table.py:291"),
         "slot_chain_verdict": ("cuda", "sentinel_tpu_torch/csrc/flow_admission.cu",
                                "sentinel_tpu/rules/degrade_table.py:342"),
+        "run_shaping": ("cuda", "sentinel_tpu_torch/csrc/shaping_scan.cu", "sentinel_tpu/rules/shaping.py:152"),
+        "shaping_inputs": ("cuda", "sentinel_tpu_torch/csrc/shaping_scan.cu", "sentinel_tpu/runtime/flush.py:583"),
+        "run_param": ("cuda", "sentinel_tpu_torch/csrc/param_scan.cu", "sentinel_tpu/rules/param_table.py:242"),
     }
     results = {name: {} for name in meta}
-    phase2(results)
-    phase2_chain(results)
-    phase3()
-    phase4(results)
-    phase4_chain(results)
-    phase5()
-    phase6()
+    took = {"1": round(time.perf_counter() - t_start, 1)}
+    for name, run in (
+        ("2", lambda: phase2(results)), ("2b", lambda: phase2_chain(results)), ("3", phase3),
+        ("2c", lambda: phase2_shaping_param(results, cpu_jobs)),
+        ("4", lambda: phase4(results, cpu_jobs)), ("4b", lambda: phase4_chain(results, cpu_jobs)),
+        ("4c", lambda: phase4_shaping(results, cpu_jobs)), ("5", phase5), ("6", phase6), ("7", phase7),
+    ):
+        t0 = time.perf_counter()
+        run()
+        took[name] = round(time.perf_counter() - t0, 1)
+    WORKERS.close()
+    WORKERS.join()
 
     kernels = []
     for name, (route, source, replaces) in meta.items():
@@ -1152,14 +1833,14 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"], "shape": r["shape"],
         }
-        for extra in ("library_call", "zipf_ms", "zipf_plain_ms"):
+        for extra in ("library_call", "zipf_ms", "zipf_plain_ms", "heavy_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)
     for k in kernels:
         log(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, bound {k['bound_ms']:.5f} "
             f"by {k['bound_by']}, library {k['library_ms']}), {k['launches']} launches on the main path")
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"seconds per phase {took}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

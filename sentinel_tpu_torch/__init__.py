@@ -3,13 +3,15 @@ NVIDIA H100.
 
 The JAX package ``sentinel_tpu`` beside it is the reference; this package
 imports neither JAX nor anything of ``sentinel_tpu``. It covers the
-slot chain so far: the public entry API, flow rules with the DEFAULT
-controller (prioritized entries borrow future windows), circuit
-breakers, system protection and authority rules, the batched engine at
-pipeline depth 0, and the flush step whose kernels (window update,
-window sums, matured-borrow sweep, flow admission with occupy, borrow
-commit, system check, breakers, verdict tail) are hand-written for
-Hopper in CUDA C++ and Triton. Features not ported yet raise
+slot chain so far: the public entry API, flow rules with every
+controller (DEFAULT, with prioritized entries borrowing future windows;
+the rate limiter, warm-up and warm-up rate limiter), hot-parameter
+rules, circuit breakers, system protection and authority rules, the
+batched engine at pipeline depth 0, and the flush step whose kernels
+(window update, window sums, matured-borrow sweep, flow admission with
+occupy, borrow commit, system check, breakers, shaping and hot-parameter
+recurrences, verdict tail) are hand-written for Hopper in CUDA C++ and
+Triton. Features not ported yet raise
 ``NotImplementedError``.
 
     import sentinel_tpu_torch as st
@@ -33,12 +35,21 @@ from sentinel_tpu_torch.core.errors import (
     BlockError,
     DegradeBlockError,
     FlowBlockError,
+    ParamFlowBlockError,
     SystemBlockError,
 )
-from sentinel_tpu_torch.models.rules import AuthorityRule, DegradeRule, FlowRule, SystemRule
+from sentinel_tpu_torch.models.rules import (
+    AuthorityRule,
+    DegradeRule,
+    FlowRule,
+    ParamFlowItem,
+    ParamFlowRule,
+    SystemRule,
+)
 from sentinel_tpu_torch.rules.authority_manager import authority_rule_manager
 from sentinel_tpu_torch.rules.degrade_manager import degrade_rule_manager
 from sentinel_tpu_torch.rules.flow_manager import flow_rule_manager
+from sentinel_tpu_torch.rules.param_manager import param_flow_rule_manager
 from sentinel_tpu_torch.rules.system_manager import system_rule_manager
 
 __all__ = [
@@ -49,7 +60,10 @@ __all__ = [
     "DegradeRule",
     "SystemRule",
     "AuthorityRule",
+    "ParamFlowRule",
+    "ParamFlowItem",
     "flow_rule_manager",
+    "param_flow_rule_manager",
     "degrade_rule_manager",
     "system_rule_manager",
     "authority_rule_manager",
@@ -58,6 +72,7 @@ __all__ = [
     "DegradeBlockError",
     "SystemBlockError",
     "AuthorityBlockError",
+    "ParamFlowBlockError",
     "get_engine",
     "ContextUtil",
     "context_enter",

@@ -119,6 +119,7 @@ class Entry:
         acquire: int,
         pass_through: bool = False,
         verdict: Optional[Verdict] = None,
+        param_rows: Sequence[int] = (),
     ) -> None:
         self.resource = resource
         self.rows = rows
@@ -130,6 +131,7 @@ class Entry:
         self.acquire = acquire
         self.error: Optional[BaseException] = None
         self.pass_through = pass_through
+        self.param_rows = tuple(param_rows)  # per-value thread gauges to release
         self._exited = False
 
     def set_error(self, e: BaseException) -> None:
@@ -158,7 +160,7 @@ class Entry:
                 err = count if count is not None else self.acquire
             engine.submit_exit(
                 self.rows, rt=rt, count=count if count is not None else self.acquire,
-                err=err, resource=self.resource,
+                err=err, resource=self.resource, param_rows=self.param_rows,
             )
         ctx = self.context
         if ctx is not None and ctx.entry_stack and ctx.entry_stack[-1] is self:
@@ -206,11 +208,12 @@ def _do_entry(
             ContextUtil.exit()
         return None, verdict
     if verdict.wait_ms > 0:
-        # An occupied (borrowed) pass waits for its window: the reference
-        # sleeps inside canPass (DefaultController.java:66); here the wait
-        # surfaces after the batched decision.
+        # A queued pass (rate limiter, throttled value, borrowed window)
+        # waits: the reference sleeps inside canPass
+        # (RateLimiterController.java:80, DefaultController.java:66); here
+        # the wait surfaces after the batched decision.
         engine.clock.sleep_ms(verdict.wait_ms)
-    e = Entry(resource, op.rows, ctx, op.ts, acquire, verdict=verdict)
+    e = Entry(resource, op.rows, ctx, op.ts, acquire, verdict=verdict, param_rows=op.param_thread_rows)
     ctx.entry_stack.append(e)
     return e, verdict
 

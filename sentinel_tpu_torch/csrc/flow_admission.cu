@@ -22,6 +22,9 @@
 //   8. topk_pass1/2   top-K (K <= 8) by weight descending, row ascending
 //
 // Slot chain, flow_admission_slots (steps 1-6 without the verdict):
+//   6a. with shaping, fa_decide also writes each slot's windowed pass plus
+//       intra-batch charge at its flat position (the shaping stage's
+//       passQps input, flush.py:pass_plus_consumed)
 //   6b. with occupy, fa_decide also writes each slot's borrow charge and
 //       running pass; a third segmented prefix (scan_*) gives the
 //       conservative intra-batch borrow charge, and fa_occupy runs
@@ -29,8 +32,10 @@
 //   7b. fa_entry      per entry: AND over slots; OR of borrows, max wait
 // then, after the breakers (rules/degrade_table.py),
 // flow_admission_chain_verdict:
-//   8b. fa_chain      per entry: admission (live, flow, breakers; occupied
-//                     entries skip the breakers), reason precedence, wait,
+//   8b. fa_chain      per entry: admission (live incl. the hot-parameter
+//                     verdict, flow incl. the shaping verdicts, breakers;
+//                     occupied entries skip the breakers), reason
+//                     precedence, wait (occupy, shaping and throttle),
 //                     OPEN -> HALF_OPEN for admitted probes, the gate on
 //                     the borrowed slots, the blocked-weight scatter
 //   9b. topk_pass1/2
@@ -63,6 +68,7 @@ constexpr int REASON_BLOCK_FLOW = 1;
 constexpr int REASON_BLOCK_DEGRADE = 2;
 constexpr int REASON_BLOCK_SYSTEM = 3;
 constexpr int REASON_BLOCK_AUTHORITY = 4;
+constexpr int REASON_BLOCK_PARAM = 5;
 constexpr int BREAKER_HALF_OPEN = 2;   // rules/degrade_table.py
 
 // Everything the occupy branch reads beyond the plain check (null = off).
@@ -133,7 +139,7 @@ __global__ void fa_decide(LoadSnapshot ld, int nk, int k, int n_rows, int nr,
                           const int* __restrict__ f_behavior, const int* __restrict__ pass_sums,
                           int pass_stride, const int* __restrict__ threads, float interval_sec,
                           uint8_t* __restrict__ slot_ok, Occupy occ, const uint8_t* __restrict__ last,
-                          int2* __restrict__ contrib3, int* __restrict__ cur_pass_s) {
+                          int2* __restrict__ contrib3, int* __restrict__ cur_pass_s, int* __restrict__ ppc) {
   __shared__ int2 warp_tot[NWARPS];
   int base = blockIdx.x * TILE + threadIdx.x * IPT;
   int2 loc[IPT];
@@ -158,6 +164,7 @@ __global__ void fa_decide(LoadSnapshot ld, int nk, int k, int n_rows, int nr,
     bool ok_raw = __fadd_rn(cur, __int2float_rn(e_acq[e])) <= f_count[g];
     bool is_default = f_behavior[g] == CONTROL_BEHAVIOR_DEFAULT;
     slot_ok[p] = (ok_raw || !active || !is_default) ? 1 : 0;
+    if (ppc != nullptr) ppc[p] = pass;
     if (contrib3 != nullptr) {
       bool eligible = active && !ok_raw && is_default && occ.live[e] && occ.prio[e] && occ.cluster[e] &&
                       f_grade[g] == FLOW_GRADE_QPS;
@@ -300,8 +307,10 @@ __global__ void fa_verdict(const uint8_t* __restrict__ slot_ok, int n, int k,
   if (dense != nullptr) scatter_blocked(w, row, dense);
 }
 
-// The slot chain's verdict (flush_entries :740-845 of the JAX module).
-// Null inputs: sys_ok (no system stage), occupied/occupy_wait (no occupy),
+// The slot chain's verdict (flush_entries :700-845 of the JAX module).
+// Null inputs: sys_ok (no system stage), param_ok/wait_param (no hot
+// parameters), shape_wait (no shaping; flow_pass then has no shaping
+// verdicts either), occupied/occupy_wait (no occupy),
 // dslot_ok/probe_slot/state (no breakers), occ_slot (no borrows).
 __global__ void fa_chain(int n, int k, int kd, int n_rows, const uint8_t* __restrict__ e_valid,
                          const uint8_t* __restrict__ e_auth, const uint8_t* __restrict__ sys_ok,
@@ -309,7 +318,9 @@ __global__ void fa_chain(int n, int k, int kd, int n_rows, const uint8_t* __rest
                          const uint8_t* __restrict__ occupied_raw, const int* __restrict__ occupy_wait,
                          const uint8_t* __restrict__ dslot_ok, const uint8_t* __restrict__ probe_slot,
                          const int* __restrict__ e_dgid, int* __restrict__ state,
-                         uint8_t* __restrict__ occ_slot, const int* __restrict__ e_acq,
+                         uint8_t* __restrict__ occ_slot, const uint8_t* __restrict__ param_ok,
+                         const int* __restrict__ wait_param, const int* __restrict__ shape_wait,
+                         const int* __restrict__ e_acq,
                          const int* __restrict__ e_rows, uint8_t* __restrict__ admitted,
                          int* __restrict__ reason, int* __restrict__ wait_ms,
                          uint8_t* __restrict__ flow_live, uint8_t* __restrict__ occupied,
@@ -319,11 +330,14 @@ __global__ void fa_chain(int n, int k, int kd, int n_rows, const uint8_t* __rest
   if (e < n) {
     bool valid = e_valid[e], auth = e_auth[e];
     bool sys = sys_ok == nullptr || sys_ok[e];
-    bool live = valid && auth && sys;
+    bool par = param_ok == nullptr || param_ok[e];
+    bool live = valid && auth && sys && par;
     bool fp = flow_pass[e] && e_cluster[e];
     bool live2 = live && fp;
     bool occ = occupied_raw != nullptr && occupied_raw[e] && live;
-    int wait = (occ && live2) ? max(0, occupy_wait[e]) : 0;
+    int wait = occ ? max(0, occupy_wait[e]) : 0;
+    if (shape_wait != nullptr) wait = max(wait, shape_wait[e]);
+    if (!live2) wait = 0;
     // Occupied entries skip the breakers: PriorityWaitException aborts
     // the chain before DegradeSlot.
     bool deg = true;
@@ -331,6 +345,7 @@ __global__ void fa_chain(int n, int k, int kd, int n_rows, const uint8_t* __rest
       for (int j = 0; j < kd; ++j) deg = deg && dslot_ok[(int64_t)e * kd + j];
     deg = deg || (occ && live2);
     bool adm = live2 && deg;
+    if (wait_param != nullptr && adm) wait = max(wait, wait_param[e]);
     if (state != nullptr && adm && !occ) {
       for (int j = 0; j < kd; ++j)  // apply_probe_transitions: one probe per breaker
         if (probe_slot[(int64_t)e * kd + j]) state[e_dgid[(int64_t)e * kd + j]] = BREAKER_HALF_OPEN;
@@ -338,6 +353,7 @@ __global__ void fa_chain(int n, int k, int kd, int n_rows, const uint8_t* __rest
     int r = REASON_PASS;
     if (valid && !deg) r = REASON_BLOCK_DEGRADE;
     if (valid && !fp) r = REASON_BLOCK_FLOW;
+    if (valid && !par) r = REASON_BLOCK_PARAM;
     if (valid && !sys) r = REASON_BLOCK_SYSTEM;
     if (valid && !auth) r = REASON_BLOCK_AUTHORITY;
     if (adm) r = REASON_PASS;
@@ -454,7 +470,7 @@ void launch_decide(const int* rk_s, const int64_t* perm1, const int64_t* perm2, 
                    const int* f_behavior, const int* pass_sums, int pass_stride, const int* threads,
                    float interval_sec, int* pos_s, uint8_t* new_grp, uint8_t* last, int* contrib,
                    int* excl, int* partial, int* partial_max, uint8_t* slot_ok, Occupy occ,
-                   int* contrib3, int* cur_pass_s, cudaStream_t st) {
+                   int* contrib3, int* cur_pass_s, int* ppc, cudaStream_t st) {
   int nk = n * k;
   int tiles = tiles_for(nk);
   int2* c2 = reinterpret_cast<int2*>(contrib);
@@ -473,7 +489,7 @@ void launch_decide(const int* rk_s, const int64_t* perm1, const int64_t* perm2, 
   fa_decide<<<tiles, THREADS, 0, st>>>(ls, nk, k, n_rows, nr, m2, x2, pos_s, rk_s, gid, crow, e_valid,
                                        e_acq, f_grade, f_count, f_behavior, pass_sums, pass_stride,
                                        threads, interval_sec, slot_ok, occ, last,
-                                       reinterpret_cast<int2*>(contrib3), cur_pass_s);
+                                       reinterpret_cast<int2*>(contrib3), cur_pass_s, ppc);
 }
 
 }  // namespace
@@ -523,7 +539,7 @@ int flow_admission_decide(
   Occupy off{};
   launch_decide(rk_s, perm1, perm2, gid, crow, e_valid, e_acq, e_rows, n, k, n_rows, nr, f_grade,
                 f_count, f_behavior, pass_sums, pass_stride, threads, interval_sec, pos_s, new_grp,
-                nullptr, contrib, excl, partial, partial_max, slot_ok, off, nullptr, nullptr, st);
+                nullptr, contrib, excl, partial, partial_max, slot_ok, off, nullptr, nullptr, nullptr, st);
   int* d = nullptr;
   if (topk > 0) {
     cudaError_t err = cudaMemsetAsync(dense, 0, sizeof(int) * ((size_t)n_rows + 1), st);
@@ -541,7 +557,8 @@ int flow_admission_decide(
 // the last-of-entry flags, [nk] each. With occupy, scratch also holds
 // contrib3/excl3 int2 [nk], occ_wait_slot and cur_pass_s [nk]; outputs
 // occ_slot/occ_target [nk], occupied/occupy_wait [n]. Without occupy they
-// may all be null.
+// may all be null. ppc [nk] (may be null) receives each slot's pass plus
+// intra-batch charge.
 int flow_admission_slots(
     const int* rk_s, const int64_t* perm1, const int64_t* perm2, const int* gid, const int* crow,
     const int* e_acq, const int* e_rows, int n, int k, int n_rows, int nr, const int* f_grade,
@@ -550,7 +567,7 @@ int flow_admission_slots(
     const uint8_t* e_cluster, const int* fut_ws, const int* fut_pass, const int* sec_ws,
     const int* sec_counts, int nb, int ne, int now, int wlen, int interval_ms, int occupy_timeout_ms,
     const uint8_t* e_valid, int* pos_s, uint8_t* flags, int* contrib, int* excl, int* partial,
-    int* partial_max, int* contrib3, int* excl3, int* occ_wait_slot, int* cur_pass_s,
+    int* partial_max, int* contrib3, int* excl3, int* occ_wait_slot, int* cur_pass_s, int* ppc,
     uint8_t* slot_ok, uint8_t* flow_pass, uint8_t* occ_slot, int* occ_target, uint8_t* occupied,
     int* occupy_wait, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -564,7 +581,7 @@ int flow_admission_slots(
   launch_decide(rk_s, perm1, perm2, gid, crow, e_valid, e_acq, e_rows, n, k, n_rows, nr, f_grade,
                 f_count, f_behavior, pass_sums, pass_stride, threads, interval_sec, pos_s, new_grp,
                 last, contrib, excl, partial, partial_max, slot_ok, occ,
-                occupy ? contrib3 : nullptr, cur_pass_s, st);
+                occupy ? contrib3 : nullptr, cur_pass_s, ppc, st);
   if (occupy) {
     int tiles = tiles_for(nk);
     int2* c3 = reinterpret_cast<int2*>(contrib3);
@@ -594,7 +611,8 @@ int flow_admission_chain_verdict(
     int n, int k, int kd, int n_rows, const uint8_t* e_valid, const uint8_t* e_auth,
     const uint8_t* sys_ok, const uint8_t* flow_pass, const uint8_t* e_cluster,
     const uint8_t* occupied_raw, const int* occupy_wait, const uint8_t* dslot_ok,
-    const uint8_t* probe_slot, const int* e_dgid, int* state, uint8_t* occ_slot, const int* e_acq,
+    const uint8_t* probe_slot, const int* e_dgid, int* state, uint8_t* occ_slot, const uint8_t* param_ok,
+    const int* wait_param, const int* shape_wait, const int* e_acq,
     const int* e_rows, int topk, int* dense, int* cand_w, int* cand_r, uint8_t* admitted,
     int* reason, int* wait_ms, uint8_t* flow_live, uint8_t* occupied, int* blk_w, int* blk_r,
     void* stream) {
@@ -609,7 +627,8 @@ int flow_admission_chain_verdict(
   }
   fa_chain<<<blocks_for(n), THREADS, 0, st>>>(n, k, kd, n_rows, e_valid, e_auth, sys_ok, flow_pass,
                                               e_cluster, occupied_raw, occupy_wait, dslot_ok,
-                                              probe_slot, e_dgid, state, occ_slot, e_acq, e_rows,
+                                              probe_slot, e_dgid, state, occ_slot, param_ok, wait_param,
+                                              shape_wait, e_acq, e_rows,
                                               admitted, reason, wait_ms, flow_live, occupied, d);
   if (topk > 0) launch_topk(dense, n_rows, topk, cand_w, cand_r, blk_w, blk_r, st);
   return (int)cudaGetLastError();

@@ -153,6 +153,13 @@ class FlowIndex:
 
         self.cold_factor = cold_factor
         self.device = self._build_device()
+        # Rules the shaping stage decides (RATE_LIMITER, WARM_UP,
+        # WARM_UP_RATE_LIMITER): their slots ride the shaping batch.
+        self.shaping_gids = {
+            cr.gid for cr in self.rules if cr.rule.control_behavior != C.CONTROL_BEHAVIOR_DEFAULT
+        }
+        self.has_shaping = bool(self.shaping_gids)
+        self._shaping_mirror_cache: Dict[int, tuple] = {}
 
     def _build_device(self) -> FlowTableDevice:
         n = _pad_pow2(len(self.rules))
@@ -296,3 +303,27 @@ class FlowIndex:
         if 0 <= gid < len(self.rules):
             return self.rules[gid].rule
         return None
+
+    def mirror_shaping_info(self, gid: int):
+        """``(rule, behavior, count, max_queueing_time_ms, cost1_ms,
+        warning_token, max_token, slope, refill_threshold)`` of a shaping
+        rule, for the host mirrors (``rules/shaping.mirror_shaping_decide``),
+        or None for other gids. ``cost1_ms`` is the exact int the device
+        table carries. Cached per index."""
+        hit = self._shaping_mirror_cache.get(gid)
+        if hit is None:
+            if gid not in self.shaping_gids:
+                return None
+            rule = self.rule_of_gid(gid)
+            if rule is None:
+                return None
+            cost1 = _cost1_ms(rule.count) if rule.count > 0 else 0
+            warning = max_tok = refill = 0
+            slope = 0.0
+            if rule.control_behavior in (C.CONTROL_BEHAVIOR_WARM_UP, C.CONTROL_BEHAVIOR_WARM_UP_RATE_LIMITER):
+                warning, max_tok, slope, refill = _warmup_constants(rule, self.cold_factor)
+            hit = self._shaping_mirror_cache[gid] = (
+                rule, rule.control_behavior, float(rule.count), int(rule.max_queueing_time_ms), cost1,
+                float(warning), float(max_tok), float(slope), float(refill),
+            )
+        return hit

@@ -8,10 +8,11 @@ buffers. ``submit_*`` calls enqueue ops; ``flush()`` encodes them into
 padded arrays and runs one flush step (runtime/flush.py) for the whole
 batch. ``entry_sync`` is submit + flush: the synchronous ``SphU.entry``.
 
-The port runs the slot chain at pipeline depth 0: flow rules with the
-DEFAULT controller (with prioritized entries borrowing future windows),
-authority rules, system rules and circuit breakers; entries, bulk
-entries, exits and traces. Everything else the JAX engine does is
+The port runs the slot chain at pipeline depth 0: flow rules with every
+controller (DEFAULT, with prioritized entries borrowing future windows;
+RATE_LIMITER, WARM_UP, WARM_UP_RATE_LIMITER), hot-parameter rules,
+authority rules, system rules and circuit breakers; entries (with their
+args), bulk entries (with args columns), exits and traces. Everything else the JAX engine does is
 refused loudly with ``NotImplementedError`` naming its ROADMAP item (see
 ``_refuse_unported_config`` and the ``set_*`` methods), never ignored.
 
@@ -42,9 +43,20 @@ from sentinel_tpu_torch.metrics.nodes import (
     slab_fold_host,
 )
 from sentinel_tpu_torch.models import constants as C
-from sentinel_tpu_torch.models.rules import AuthorityRule, DegradeRule, FlowRule
+from sentinel_tpu_torch.models.rules import AuthorityRule, DegradeRule, FlowRule, ParamFlowRule
 from sentinel_tpu_torch.rules.degrade_table import WS_FLOOR, DegradeDynState, DegradeIndex
 from sentinel_tpu_torch.rules.flow_table import FlowIndex, FlowRuleDynState
+from sentinel_tpu_torch.rules.param_table import (
+    PARAM_CLOSED_MAX_SEGMENTS,
+    PARAM_NEVER,
+    ParamBatch,
+    ParamDynState,
+    ParamIndex,
+    ParamSlotInfo,
+    grow_param_state,
+    make_param_state,
+)
+from sentinel_tpu_torch.rules.shaping import ShapingBatch
 from sentinel_tpu_torch.runtime.flush import (
     SYS_TYPE_NAMES,
     TOPK_MAX,
@@ -60,8 +72,6 @@ from sentinel_tpu_torch.utils.numeric import pad_pow2 as _pad_pow2
 
 # ROADMAP items (Queue 1) that own what this slice refuses.
 _ROADMAP_PIPELINE = "ROADMAP Queue 1 item 1 (depth-K flush pipeline and flush_async)"
-_ROADMAP_SHAPING = "ROADMAP Queue 1 item 4 (traffic shaping)"
-_ROADMAP_PARAM = "ROADMAP Queue 1 item 5 (hot parameters)"
 _ROADMAP_SKETCH = "ROADMAP Queue 1 item 6 (sketch tier)"
 _ROADMAP_TIERS = "ROADMAP Queue 1 item 7 (engine tiers)"
 _ROADMAP_METRICS = "ROADMAP Queue 1 item 8 (metrics and observability)"
@@ -108,12 +118,32 @@ class _EntryOp:
     rows: Tuple[int, int, int, int]  # default, cluster, origin|-1, entry|-1
     slots: List[Tuple[int, int]]  # (rule_gid, check_row)
     d_gids: List[int] = field(default_factory=list)  # degrade rule ids
+    p_slots: List[ParamSlotInfo] = field(default_factory=list)  # hot-param slots
     auth_ok: bool = True  # AuthoritySlot verdict, decided at submit
     prio: bool = False
     context_name: str = C.CONTEXT_DEFAULT_NAME
     origin: str = ""
-    src: Optional[tuple] = None  # the (flow, degrade) indexes the ids were resolved against
+    args: Tuple[object, ...] = ()
+    src: Optional[tuple] = None  # the (flow, degrade, param) indexes the ids were resolved against
     verdict: Optional[Verdict] = None
+
+    @property
+    def param_thread_rows(self) -> List[int]:
+        """The per-value thread rows this entry holds once admitted; its
+        exit releases them (``submit_exit(param_rows=...)``)."""
+        return [s.prow for s in self.p_slots if s.grade == C.FLOW_GRADE_THREAD]
+
+
+@dataclass
+class _BulkParamCols:
+    """One param rule's resolved columns over a bulk group (hot items make
+    the threshold per value); ``valid`` masks entries without a value."""
+
+    rule: ParamFlowRule
+    valid: np.ndarray  # bool [n]
+    prow: np.ndarray  # int32 [n]
+    token_count: np.ndarray  # int32 [n]
+    cost_ms: np.ndarray  # int32 [n]
 
 
 @dataclass
@@ -133,6 +163,10 @@ class BulkOp:
     context_name: str
     origin: str
     src: Optional[tuple] = None
+    # QPS-grade hot-param rules on this path: per-entry args resolved to
+    # per-rule columns (one _BulkParamCols per param rule).
+    args_column: Optional[Sequence] = None
+    p_cols: List[_BulkParamCols] = field(default_factory=list)
     admitted: Optional[np.ndarray] = None
     reason: Optional[np.ndarray] = None
     wait_ms: Optional[np.ndarray] = None
@@ -165,8 +199,20 @@ class _ExitOp:
     err: int = 0  # exception delta
     thr: int = 0  # thread delta (-1 exits, 0 traces)
     d_gids: List[int] = field(default_factory=list)  # breakers to complete
+    p_rows: List[int] = field(default_factory=list)  # param thread rows to release
     resource: Optional[str] = None
     src_dindex: Optional[DegradeIndex] = None
+
+
+def _rounds_bucket(keys: np.ndarray) -> int:
+    """Host-known max items per key of a recurrence batch, bucketed to a
+    power of two and capped: above 16, 0 (every item; one key dominates)."""
+    if keys.size == 0:
+        return 1
+    m = int(np.unique(keys, return_counts=True)[1].max())
+    if m > 16:
+        return 0
+    return 1 if m <= 1 else 1 << (m - 1).bit_length()
 
 
 class Engine:
@@ -188,6 +234,13 @@ class Engine:
         self.flow_dyn: FlowRuleDynState = self.flow_index.make_dyn_state()
         self.degrade_index = DegradeIndex([], device=self.device)
         self.degrade_dyn: DegradeDynState = self.degrade_index.make_dyn_state()
+        self.param_index = ParamIndex({})
+        self.param_dyn: ParamDynState = make_param_state(8, self.device)
+        # Test seam, as the JAX engine's: "scan" runs a closed-form-eligible
+        # param batch on the rounds/scan path instead (the autotuner that
+        # arbitrates this in the JAX engine is not ported, so by default
+        # the closed form is taken whenever it is eligible).
+        self.param_force_path: Optional[str] = None
         self.system_config = None  # rules/system_manager.SystemConfig, or None
         self.authority_rules: Dict[str, AuthorityRule] = {}
         self._entries: List[_EntryOp] = []
@@ -226,20 +279,12 @@ class Engine:
     def flush_async(self):
         raise _unported("flush_async", _ROADMAP_PIPELINE)
 
-    def set_param_rules(self, by_resource) -> None:
-        if by_resource:
-            raise _unported("hot-parameter rules", _ROADMAP_PARAM)
-
     # ------------------------------------------------------------------
     # rule plumbing (called by the rule manager)
     # ------------------------------------------------------------------
     def set_flow_rules(self, rules: Sequence[FlowRule]) -> None:
         findex = FlowIndex(rules, cold_factor=config.cold_factor, device=self.device)
         for cr in findex.rules:
-            if cr.rule.control_behavior != C.CONTROL_BEHAVIOR_DEFAULT:
-                raise _unported(
-                    f"flow rule controlBehavior={cr.rule.control_behavior}", _ROADMAP_SHAPING
-                )
             if cr.rule.cluster_mode:
                 raise _unported("cluster-mode flow rules", _ROADMAP_CLUSTER)
         with self._flush_lock:
@@ -257,6 +302,20 @@ class Engine:
             with self._lock:
                 self.degrade_index = dindex
                 self.degrade_dyn = dindex.make_dyn_state()
+
+    def set_param_rules(self, by_resource: Dict[str, List[ParamFlowRule]]) -> None:
+        """A fresh value index and fresh param state on every reload, like
+        ParamFlowRuleManager clearing ParameterMetric."""
+        for rs in by_resource.values():
+            for r in rs:
+                if r.cluster_mode:
+                    raise _unported("cluster-mode hot-parameter rules", _ROADMAP_CLUSTER)
+        pindex = ParamIndex(by_resource)
+        with self._flush_lock:
+            self._flush_locked()
+            with self._lock:
+                self.param_index = pindex
+                self.param_dyn = make_param_state(8, self.device)
 
     def set_system_config(self, cfg) -> None:
         with self._flush_lock:
@@ -325,13 +384,13 @@ class Engine:
     ) -> Optional[_EntryOp]:
         """Enqueue an entry; None for pass-through (over the resource cap).
         ``prio`` entries may borrow a future window when over a QPS rule.
-        ``args`` feed hot-parameter rules, which the port refuses to load,
-        so they are not kept."""
+        ``args`` are the invocation arguments hot-parameter rules check."""
+        args = tuple(args)
         with self._lock:
             rows = self.resolve_entry_rows(resource, context_name, origin, entry_type)
             if rows is None:
                 return None
-            findex, dindex = self.flow_index, self.degrade_index
+            findex, dindex, pindex = self.flow_index, self.degrade_index, self.param_index
             op = _EntryOp(
                 resource=resource,
                 ts=self.clock.now_ms() if ts is None else int(ts),
@@ -339,11 +398,13 @@ class Engine:
                 rows=rows,
                 slots=findex.resolve_slots(resource, context_name, origin, self.nodes),
                 d_gids=dindex.gids_for(resource),
+                p_slots=pindex.slots_for(resource, args) if args and pindex.has_rules() else [],
                 auth_ok=self._auth_ok(resource, origin),
                 prio=bool(prio),
                 context_name=context_name,
                 origin=origin,
-                src=(findex, dindex),
+                args=args,
+                src=(findex, dindex, pindex),
             )
             self._entries.append(op)
             over = len(self._entries) >= self.max_batch
@@ -359,11 +420,14 @@ class Engine:
         err: int = 0,
         ts: Optional[int] = None,
         resource: Optional[str] = None,
+        param_rows: Sequence[int] = (),
     ) -> None:
         """StatisticSlot.exit: success + RT + thread release (+exception).
         ``resource`` routes the completion to the resource's circuit
         breakers (DegradeSlot.exit), resolved against the degrade rules
-        active at exit time, like the reference."""
+        active at exit time, like the reference. ``param_rows`` are the
+        per-value thread gauges to release (the entry's
+        ``param_thread_rows``)."""
         with self._lock:
             dindex = self.degrade_index
             op = _ExitOp(
@@ -374,6 +438,7 @@ class Engine:
                 err=int(err),
                 thr=-1,
                 d_gids=dindex.gids_for(resource) if resource is not None else [],
+                p_rows=list(param_rows),
                 resource=resource,
                 src_dindex=dindex if resource is not None else None,
             )
@@ -430,9 +495,12 @@ class Engine:
     ) -> Optional[BulkOp]:
         """Enqueue ``n`` entries on one resource as one columnar group
         (``ts``/``acquire`` scalars or [n] arrays). Returns None for
-        pass-through, like :meth:`submit_entry`."""
-        if args_column is not None:
-            raise _unported("hot-parameter args columns", _ROADMAP_PARAM)
+        pass-through, like :meth:`submit_entry`.
+
+        ``args_column`` (length ``n``: one args tuple per entry, or a
+        ``param_table.ArgsColumns``) checks QPS-grade hot-param rules per
+        entry; THREAD-grade param rules and collection values need
+        per-entry bookkeeping and raise ``ValueError``."""
         if n < 1:
             raise ValueError("submit_bulk: n must be >= 1")
         if n > self.max_batch:
@@ -441,7 +509,13 @@ class Engine:
             rows = self.resolve_entry_rows(resource, context_name, origin, entry_type)
             if rows is None:
                 return None
-            findex, dindex = self.flow_index, self.degrade_index
+            findex, dindex, pindex = self.flow_index, self.degrade_index, self.param_index
+            p_cols: List[_BulkParamCols] = []
+            if args_column is not None:
+                if len(args_column) != n:
+                    raise ValueError(f"submit_bulk: args_column length {len(args_column)} != n={n}")
+                if pindex.has_rules():
+                    p_cols = self._bulk_param_cols(pindex, resource, args_column)
             g = BulkOp(
                 resource=resource,
                 n=n,
@@ -453,7 +527,9 @@ class Engine:
                 auth_ok=self._auth_ok(resource, origin),
                 context_name=context_name,
                 origin=origin,
-                src=(findex, dindex),
+                src=(findex, dindex, pindex),
+                args_column=args_column,
+                p_cols=p_cols,
             )
             self._bulk_entries.append(g)
             self._bulk_pending_n += n
@@ -461,6 +537,20 @@ class Engine:
         if over:
             self.flush()
         return g
+
+    @staticmethod
+    def _bulk_param_cols(pindex: ParamIndex, resource: str, args_column: Sequence) -> List[_BulkParamCols]:
+        """A per-entry args column resolved to per-rule columns
+        (``ParamIndex.bulk_cols``). QPS grade only: THREAD-grade rules need
+        per-entry exits, collection values per-entry expansion."""
+        for _, r in pindex.by_resource.get(resource, ()):
+            if r.grade == C.FLOW_GRADE_THREAD:
+                raise ValueError("submit_bulk: THREAD-grade param rules need per-entry exits — use submit_entry")
+        cols = pindex.bulk_cols(resource, args_column)
+        if cols is None:
+            raise ValueError("submit_bulk: collection param values expand per entry — use submit_entry")
+        return [_BulkParamCols(rule=r, valid=valid, prow=prow, token_count=tc, cost_ms=cost)
+                for r, valid, prow, tc, cost in cols]
 
     def submit_exit_bulk(
         self,
@@ -563,6 +653,9 @@ class Engine:
         shift(d.ws, WS_FLOOR)
         iv = self.degrade_index.device.interval_ms.clamp(min=1)
         d.ws.copy_(torch.where(d.ws > WS_FLOOR, d.ws - torch.remainder(d.ws, iv), d.ws))
+        # Hot-param buckets and pacers; PARAM_NEVER ("no state yet") stays.
+        shift(self.param_dyn.last_add, PARAM_NEVER)
+        shift(self.param_dyn.latest, PARAM_NEVER)
         for op in self._entries:
             op.ts = max(op.ts - offset, 0)
         for x in self._exits:
@@ -576,6 +669,9 @@ class Engine:
         need = len(self.nodes)
         if need > self.stats.n_rows:
             self.stats = grow_stats(self.stats, _pad_pow2(need))
+        pneed = self.param_index.n_rows
+        if pneed > self.param_dyn.tokens.shape[0]:
+            self.param_dyn = grow_param_state(self.param_dyn, _pad_pow2(pneed))
 
     def flush(self) -> List[_EntryOp]:
         """Encode + run the flush step for all pending ops; fills verdicts
@@ -594,22 +690,33 @@ class Engine:
             self._bulk_exit_pending_n = 0
             if not entries and not exits and not bulk_e and not bulk_x:
                 return []
-            self._ensure_capacity()
-            findex, dindex = self.flow_index, self.degrade_index
+            findex, dindex, pindex = self.flow_index, self.degrade_index, self.param_index
             auth_rules = self.authority_rules
             # Ops resolved against a superseded rule table are re-resolved
             # against the one they will be checked with.
-            cur = (findex, dindex)
+            cur = (findex, dindex, pindex)
             for op in entries:
                 if op.src != cur:
                     op.slots = findex.resolve_slots(op.resource, op.context_name, op.origin, self.nodes)
                     op.d_gids = dindex.gids_for(op.resource)
+                    op.p_slots = pindex.slots_for(op.resource, op.args) if op.args and pindex.has_rules() else []
                     op.src = cur
             for g in bulk_e:
                 if g.src != cur:
                     g.slots = findex.resolve_slots(g.resource, g.context_name, g.origin, self.nodes)
                     g.d_gids = dindex.gids_for(g.resource)
+                    g.p_cols = []
+                    if g.args_column is not None and pindex.has_rules():
+                        # Param rows are index-scoped: re-intern the column.
+                        # A rule that became THREAD-grade drops the group's
+                        # param slots rather than raising mid-flush.
+                        try:
+                            g.p_cols = self._bulk_param_cols(pindex, g.resource, g.args_column)
+                        except ValueError:
+                            g.p_cols = []
                     g.src = cur
+            # After the re-resolution: its interning may add param rows.
+            self._ensure_capacity()
             for x in (*exits, *bulk_x):
                 if x.src_dindex is not None and x.src_dindex is not dindex:
                     x.d_gids = dindex.gids_for(x.resource)
@@ -619,19 +726,20 @@ class Engine:
         m_bulk = sum(g.n for g in bulk_x)
         if len(entries) + n_bulk <= mb and len(exits) + m_bulk <= mb:
             # One step: every exit applies before every admission.
-            self._run_chunk(entries, exits, bulk_e, bulk_x, findex, dindex, auth_rules)
+            self._run_chunk(entries, exits, bulk_e, bulk_x, findex, dindex, pindex, auth_rules)
             return entries
         # Oversized backlog: singles chunks, then packed bulk chunks (exits
         # in a later chunk are not visible to earlier chunks' admissions).
         for off in range(0, max(len(entries), len(exits)), mb):
-            self._run_chunk(entries[off : off + mb], exits[off : off + mb], [], [], findex, dindex, auth_rules)
+            self._run_chunk(entries[off : off + mb], exits[off : off + mb], [], [], findex, dindex, pindex,
+                            auth_rules)
         be_chunks, bx_chunks = _pack(bulk_e, mb), _pack(bulk_x, mb)
         for i in range(max(len(be_chunks), len(bx_chunks))):
             self._run_chunk(
                 [], [],
                 be_chunks[i] if i < len(be_chunks) else [],
                 bx_chunks[i] if i < len(bx_chunks) else [],
-                findex, dindex, auth_rules,
+                findex, dindex, pindex, auth_rules,
             )
         return entries
 
@@ -739,12 +847,170 @@ class Engine:
         )
         return batch, k, kd
 
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, non_blocking=False)
+
+    def _encode_shaping(self, entries, bulk, k: int, findex: FlowIndex) -> Tuple[Optional[ShapingBatch], int]:
+        """The (entry, slot) pairs governed by shaping controllers, as the
+        compact batch the K9 recurrence takes, and the host-known mode
+        (:meth:`_shaping_rounds_for`). (None, 1) without shaping slots."""
+        sg = findex.shaping_gids
+        if not sg:
+            return None, 1
+        items = [
+            (i * k + j, gid, crow, i, op.ts, op.acquire)
+            for i, op in enumerate(entries)
+            for j, (gid, crow) in enumerate(op.slots[:k])
+            if gid in sg
+        ]
+        cols: List[Tuple[np.ndarray, ...]] = []
+        if items:
+            arr = np.asarray(items, dtype=np.int32)
+            cols.append(tuple(arr[:, c] for c in range(6)))
+        off = len(entries)
+        for g in bulk:
+            for j, (gid, crow) in enumerate(g.slots[:k]):
+                if gid in sg:
+                    ei = np.arange(off, off + g.n, dtype=np.int32)
+                    cols.append((ei * k + j, np.full(g.n, gid, np.int32), np.full(g.n, crow, np.int32), ei,
+                                 g.ts, g.acquire))
+            off += g.n
+        if not cols:
+            return None, 1
+        flat_pos, gid, row, eidx, ts, acquire = (np.concatenate([c[a] for c in cols]) for a in range(6))
+        total = flat_pos.shape[0]
+        pad = _pad_pow2(total, 8) - total
+
+        def padded(a, fill=0):
+            return np.pad(a, (0, pad), constant_values=fill) if pad else a
+
+        t = self._tensor
+        batch = ShapingBatch(
+            valid=t(padded(np.ones(total, dtype=bool))), gid=t(padded(gid)), row=t(padded(row)),
+            eidx=t(padded(eidx)), flat_pos=t(padded(flat_pos)), ts=t(padded(ts)), acquire=t(padded(acquire, 1)),
+        )
+        return batch, self._shaping_rounds_for(gid, ts, acquire, findex)
+
+    @staticmethod
+    def _shaping_rounds_for(gid, ts, acquire, findex: FlowIndex) -> int:
+        """-1 (the closed-form pacer path) when every item is a plain
+        RATE_LIMITER at one ts with one acquire >= 1; otherwise the pow2
+        rounds bound (0 = every item)."""
+        if (
+            gid.shape[0] > 0
+            and ts.min() == ts.max()
+            and acquire.min() == acquire.max()
+            and acquire.min() >= 1
+            and all(
+                (r := findex.rule_of_gid(int(g))) is not None
+                and r.control_behavior == C.CONTROL_BEHAVIOR_RATE_LIMITER
+                for g in np.unique(gid)
+            )
+        ):
+            return -1
+        return _rounds_bucket(gid)
+
+    def _encode_param(self, entries, exits, pindex: ParamIndex, bulk=()) -> Tuple[Optional[ParamBatch], int]:
+        """The hot-param slots of the chunk (singles' p_slots, then bulk
+        groups' p_cols as column blocks), the exits' thread rows, the rows
+        recycled by LRU eviction, and the host-known mode
+        (:meth:`_param_rounds_for`). (None, 1) when there is none of it."""
+        items = [(i, op.ts, op.acquire, ps) for i, op in enumerate(entries) for ps in op.p_slots]
+        bulk_cols = []
+        n_bulk_items = 0
+        off_b = len(entries)
+        for g in bulk:
+            for pc in g.p_cols:
+                cnt = int(pc.valid.sum())
+                if cnt:
+                    bulk_cols.append((off_b, g, pc, cnt))
+                    n_bulk_items += cnt
+            off_b += g.n
+        exit_rows = [r for op in exits for r in op.p_rows]
+        resets = pindex.take_resets()
+        if not items and not n_bulk_items and not exit_rows and not resets:
+            return None, 1
+        n_items = len(items) + n_bulk_items
+        s = _pad_pow2(max(1, n_items), 8)
+        sx = _pad_pow2(max(1, len(exit_rows)), 8)
+        q = _pad_pow2(max(1, len(resets)), 8)
+        valid = np.zeros(s, dtype=bool)
+        prow, eidx, ts = (np.zeros(s, dtype=np.int32) for _ in range(3))
+        acquire = np.ones(s, dtype=np.int32)
+        grade, behavior, token_count, burst = (np.zeros(s, dtype=np.int32) for _ in range(4))
+        duration_ms = np.ones(s, dtype=np.int32)
+        maxq, cost_ms = (np.zeros(s, dtype=np.int32) for _ in range(2))
+        for a, (i, t0, acq, ps) in enumerate(items):
+            valid[a] = True
+            prow[a], eidx[a], ts[a], acquire[a] = ps.prow, i, t0, acq
+            grade[a], behavior[a], token_count[a], burst[a] = ps.grade, ps.behavior, ps.token_count, ps.burst
+            duration_ms[a], maxq[a], cost_ms[a] = ps.duration_ms, ps.maxq, ps.cost_ms
+        a = len(items)
+        for off, g, pc, cnt in bulk_cols:
+            sl = slice(a, a + cnt)
+            m = pc.valid
+            r = pc.rule
+            valid[sl] = True
+            prow[sl] = pc.prow[m]
+            eidx[sl] = off + np.nonzero(m)[0].astype(np.int32)
+            ts[sl] = g.ts[m]
+            acquire[sl] = g.acquire[m]
+            grade[sl] = r.grade
+            behavior[sl] = r.control_behavior
+            token_count[sl] = pc.token_count[m]
+            burst[sl] = int(r.burst_count)
+            duration_ms[sl] = int(r.duration_in_sec) * 1000  # the kernel clamps to >= 1
+            maxq[sl] = int(r.max_queueing_time_ms)
+            cost_ms[sl] = pc.cost_ms[m]
+            a += cnt
+        xr = np.full(sx, -1, dtype=np.int32)
+        xr[: len(exit_rows)] = exit_rows
+        rs = np.full(q, -1, dtype=np.int32)
+        rs[: len(resets)] = resets
+        t = self._tensor
+        pb = ParamBatch(
+            valid=t(valid), prow=t(prow), eidx=t(eidx), ts=t(ts), acquire=t(acquire), grade=t(grade),
+            behavior=t(behavior), token_count=t(token_count), burst=t(burst), duration_ms=t(duration_ms),
+            maxq=t(maxq), cost_ms=t(cost_ms), reset_rows=t(rs), exit_rows=t(xr),
+        )
+        rounds = self._param_rounds_for(prow[:n_items], grade[:n_items], behavior[:n_items], ts[:n_items],
+                                        acquire[:n_items])
+        if n_items and self.param_force_path == "scan" and rounds <= -1:
+            rounds = _rounds_bucket(prow[:n_items])
+        return pb, rounds
+
+    @staticmethod
+    def _param_rounds_for(prow, grade, behavior, ts, acquire) -> int:
+        """A negative mode selects the closed-form rank path (every item
+        QPS-grade DEFAULT with one acquire >= 1): -1 for one timestamp, -S
+        for at most S (pow2, <= PARAM_CLOSED_MAX_SEGMENTS) distinct
+        timestamps per value row. Otherwise the pow2 rounds bound (0 =
+        every item)."""
+        n = prow.shape[0]
+        if (
+            n > 0
+            and (grade == C.FLOW_GRADE_QPS).all()
+            and (behavior == C.CONTROL_BEHAVIOR_DEFAULT).all()
+            and acquire.min() == acquire.max()
+            and acquire.min() >= 1  # acquire 0 admits unconditionally in the recurrence
+        ):
+            if ts.min() == ts.max():
+                return -1
+            key = (prow.astype(np.int64) << 32) | (ts.astype(np.int64) & 0xFFFFFFFF)
+            pairs = np.unique(key)
+            segs = int(np.unique(pairs >> 32, return_counts=True)[1].max())
+            if segs <= PARAM_CLOSED_MAX_SEGMENTS:
+                return -(1 << (segs - 1).bit_length()) if segs > 1 else -1
+        return _rounds_bucket(prow)
+
     def _run_chunk(self, entries, exits, bulk, bulk_exits, findex: FlowIndex, dindex: DegradeIndex,
-                   auth_rules: Dict[str, AuthorityRule]) -> None:
+                   pindex: ParamIndex, auth_rules: Dict[str, AuthorityRule]) -> None:
         """Encode one chunk, run the flush step, fill verdicts. Runs under
         the flush lock only."""
         now = self.clock.now_ms()
         batch, k, kd = self._encode(entries, exits, bulk, bulk_exits, now)
+        shaping, sh_rounds = self._encode_shaping(entries, bulk, k, findex)
+        param, p_rounds = self._encode_param(entries, exits, pindex, bulk)
         load, cpu = system_sampler.read() if self.system_config is not None else (-1.0, -1.0)
         self.stats, result = flush_step(
             self.stats, findex.device, batch,
@@ -757,6 +1023,8 @@ class Engine:
             with_occupy=any(op.prio for op in entries),
             with_system=self.system_config is not None,
             with_degrade=bool(dindex.rules),
+            flow_dyn=self.flow_dyn, pdyn=self.param_dyn, shaping=shaping, param=param,
+            shaping_rounds=sh_rounds, param_rounds=p_rounds,
         )
         # One device→host copy of the verdicts.
         got = [result.admitted, result.reason, result.slot_ok, result.wait_ms, result.sys_type, result.dslot_ok]
@@ -781,6 +1049,9 @@ class Engine:
                     limit_type = SYS_TYPE_NAMES.get(int(sys_type[i]), "")
                 elif r == E.BLOCK_FLOW:
                     blocked_rule = _first_failing(op.slots[:k], slot_ok[i], findex)
+                elif r == E.BLOCK_PARAM:
+                    # The entry's first param rule, as the JAX engine names it.
+                    blocked_rule = op.p_slots[0].rule if op.p_slots else None
                 elif r == E.BLOCK_DEGRADE:
                     blocked_rule = _first_failing(op.d_gids[:kd], dslot_ok[i], dindex)
             op.verdict = Verdict(

@@ -25,18 +25,23 @@ The ``with_occupy`` / ``with_system`` / ``with_degrade`` flags are the
 JAX package's host-known specializations ("the batch has prioritized
 entries", "a system rule is loaded", "degrade rules are loaded"): each
 skipped stage would pass everything, so the flags change no verdict.
-With all three off the step is the DEFAULT path, whose verdict tail is
-fused into the flow admission kernel; with any of them on the verdict
-runs after the breakers (:func:`slot_chain_verdict`). Shaping behaviours
-and hot parameters are not ported yet: their slots pass here, as in the
-JAX ``flow_admission``, and the engine refuses such rules.
+Hot parameters (a :class:`~sentinel_tpu_torch.rules.param_table.ParamBatch`)
+are checked after system protection and before the flow rules
+(ParamFlowSlot, order -3000); the shaping controllers (a
+:class:`~sentinel_tpu_torch.rules.shaping.ShapingBatch`) decide their slots
+right after the flow admission, from its per-slot pass plus intra-batch
+charge. With all stages off the step is the DEFAULT path, whose verdict
+tail is fused into the flow admission kernel; with any of them on the
+verdict runs after the breakers (:func:`slot_chain_verdict`).
 
 Kernels (CUDA C++ in ``csrc/``, each beside its plain PyTorch version):
 :func:`flow_admission` (K4, ``flow_admission.cu``), :func:`system_check`
 (K6, ``system_check.cu``), :func:`commit_borrow_slab` (K5,
 ``commit_borrow_slab.cu``) and :func:`slot_chain_verdict` (the verdict
 tail with the probe transitions, ``flow_admission.cu``); the breakers'
-K7 and K8 live in ``rules/degrade_table.py``. The windows are read
+K7 and K8 live in ``rules/degrade_table.py``, the shaping recurrence K9
+(with its input gather) in ``rules/shaping.py`` and the hot-parameter
+recurrence K10 in ``rules/param_table.py``. The windows are read
 through ``metric_array.window_sums`` (K3) and written through
 ``nodes.apply_updates`` (K2); :func:`flush_step` runs
 ``nodes.materialize_matured`` (K1) first. The rest is torch glue.
@@ -58,8 +63,11 @@ from sentinel_tpu_torch.metrics.nodes import StatsState, apply_updates, material
 from sentinel_tpu_torch.models import constants as C
 from sentinel_tpu_torch.rules import degrade_table as _dt
 from sentinel_tpu_torch.rules.degrade_table import DegradeDynState, DegradeTableDevice
-from sentinel_tpu_torch.rules.flow_table import FlowTableDevice
+from sentinel_tpu_torch.rules.flow_table import FlowRuleDynState, FlowTableDevice
+from sentinel_tpu_torch.rules.param_table import ParamBatch, ParamDynState, run_param
+from sentinel_tpu_torch.rules.shaping import ShapingBatch, run_shaping, shaping_inputs
 from sentinel_tpu_torch.utils import cuda_build
+from sentinel_tpu_torch.utils.numeric import add_i32
 
 _I32_MAX = 2**31 - 1
 TOPK_MAX = 8  # the blocked top-K kernel keeps at most this many rows
@@ -173,6 +181,9 @@ class Admission(NamedTuple):
     occupy_wait: Optional[torch.Tensor] = None  # int32 [N] max wait over borrowing slots
     occ_slot: Optional[torch.Tensor] = None  # bool [N, K]
     occ_target: Optional[torch.Tensor] = None  # int32 [N, K] target window start
+    # int32 [N*K] windowed pass + intra-batch charge per slot (``with_ppc``):
+    # the shaping stage's passQps input.
+    pass_plus_consumed: Optional[torch.Tensor] = None
 
 
 class ChainVerdict(NamedTuple):
@@ -279,6 +290,7 @@ def flow_admission(
     occupy_timeout_ms: int = 500,
     with_occupy: bool = False,
     tail: bool = True,
+    with_ppc: bool = False,
 ) -> Admission:
     """Vectorized FlowRuleChecker + DefaultController.canPass (block iff
     ``curCount + acquire > count``, curCount = ``(int) passQps()`` for the
@@ -297,12 +309,18 @@ def flow_admission(
     ``tail`` (the DEFAULT path only: no occupy, system or breakers) fuses
     the verdict tail of ``flush_entries``: the admission (valid,
     authority and token-server verdicts), the reason code, and with
-    ``blk_topk > 0`` the top-K blocked cluster rows."""
-    if tail and with_occupy:
-        raise ValueError("flow_admission: the fused tail is the DEFAULT path's; occupy needs slot_chain_verdict")
+    ``blk_topk > 0`` the top-K blocked cluster rows.
+
+    ``with_ppc`` (slot chain only) also returns each slot's windowed pass
+    plus intra-batch charge, [N*K] in slot order, for the shaping stage."""
+    if tail and (with_occupy or with_ppc):
+        raise ValueError("flow_admission: the fused tail is the DEFAULT path's; occupy and shaping need "
+                         "slot_chain_verdict")
     if stats.threads.is_cuda:
-        return _flow_admission_cuda(stats, flow_dev, batch, blk_topk, live, occupy_timeout_ms, with_occupy, tail)
-    return flow_admission_plain(stats, flow_dev, batch, blk_topk, live, occupy_timeout_ms, with_occupy, tail)
+        return _flow_admission_cuda(stats, flow_dev, batch, blk_topk, live, occupy_timeout_ms, with_occupy, tail,
+                                    with_ppc)
+    return flow_admission_plain(stats, flow_dev, batch, blk_topk, live, occupy_timeout_ms, with_occupy, tail,
+                                with_ppc)
 
 
 flow_admission.launches = 0
@@ -319,6 +337,7 @@ def flow_admission_plain(
     occupy_timeout_ms: int = 500,
     with_occupy: bool = False,
     tail: bool = True,
+    with_ppc: bool = False,
 ) -> Admission:
     """Plain PyTorch version of :func:`flow_admission`."""
     n, k = batch.e_rule_gid.shape
@@ -413,6 +432,10 @@ def flow_admission_plain(
     flow_pass = slot_ok.all(dim=1)
 
     occ = {}
+    if with_ppc:
+        ppc = torch.zeros(n * k, dtype=i32, device=dev)
+        ppc[pos_s] = add_i32(base_pass, consumed_acq)
+        occ["pass_plus_consumed"] = ppc
     if with_occupy:
         e_occ = ei_s[occ_s]
         occupied = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -422,7 +445,7 @@ def flow_admission_plain(
         occ_nk[pos_s] = occ_s
         tgt_nk = torch.zeros(n * k, dtype=i32, device=dev)
         tgt_nk[pos_s] = occ_target
-        occ = dict(occupied=occupied, occupy_wait=occupy_wait, occ_slot=occ_nk.reshape(n, k),
+        occ.update(occupied=occupied, occupy_wait=occupy_wait, occ_slot=occ_nk.reshape(n, k),
                    occ_target=tgt_nk.reshape(n, k))
 
     admitted = reason = blk_rows = blk_weight = None
@@ -456,10 +479,10 @@ def _fa_lib() -> ctypes.CDLL:
         lib.flow_admission_slots.argtypes = (
             [_P] * 7 + [_I, _I, _I, _I] + [_P, _P, _P, _P, _I, _P, _F]
             + [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
-            + [_P] * 11 + [_P] * 6 + [_P]
+            + [_P] * 11 + [_P] * 7 + [_P]
         )
         lib.flow_admission_chain_verdict.argtypes = (
-            [_I, _I, _I, _I] + [_P] * 12 + [_P, _P, _I, _P, _P, _P] + [_P] * 7 + [_P]
+            [_I, _I, _I, _I] + [_P] * 15 + [_P, _P, _I, _P, _P, _P] + [_P] * 7 + [_P]
         )
         for f in (
             lib.flow_admission_prep, lib.flow_admission_gather, lib.flow_admission_tiles,
@@ -484,7 +507,8 @@ def _check_topk(blk_topk: int) -> None:
         raise ValueError(f"blk_topk must lie in [0, {TOPK_MAX}]")
 
 
-def _flow_admission_cuda(stats, flow_dev, batch, blk_topk, live, occupy_timeout_ms, with_occupy, tail) -> Admission:
+def _flow_admission_cuda(stats, flow_dev, batch, blk_topk, live, occupy_timeout_ms, with_occupy, tail,
+                         with_ppc=False) -> Admission:
     _check_batch_cuda(batch)
     _check_topk(blk_topk)
     for name in ("grade", "count", "behavior"):
@@ -524,7 +548,7 @@ def _flow_admission_cuda(stats, flow_dev, batch, blk_topk, live, occupy_timeout_
     flow_pass = torch.empty(n, dtype=torch.bool, device=dev)
     if not tail:
         return _flow_slots_cuda(lib, stats, flow_dev, batch, live, occupy_timeout_ms, with_occupy, rk_s,
-                                perm1, perm2, pass_sums, tiles, slot_ok, flow_pass, st)
+                                perm1, perm2, pass_sums, tiles, slot_ok, flow_pass, st, with_ppc)
 
     topk_blocks = lib.flow_admission_topk_blocks(r_rows)
     scratch = torch.empty(nk * 5 + tiles * 4, dtype=i32, device=dev)
@@ -576,9 +600,10 @@ class _TopK:
 
 
 def _flow_slots_cuda(lib, stats, flow_dev, batch, live, occupy_timeout_ms, with_occupy, rk_s, perm1, perm2,
-                     pass_sums, tiles, slot_ok, flow_pass, st) -> Admission:
-    """K4 without the fused tail: the slot verdicts, and with occupy the
-    borrow decisions and their per-entry fold."""
+                     pass_sums, tiles, slot_ok, flow_pass, st, with_ppc=False) -> Admission:
+    """K4 without the fused tail: the slot verdicts, with occupy the
+    borrow decisions and their per-entry fold, with ``with_ppc`` each
+    slot's pass plus intra-batch charge."""
     n, k = batch.e_rule_gid.shape
     nk = n * k
     dev = batch.e_valid.device
@@ -590,6 +615,10 @@ def _flow_slots_cuda(lib, stats, flow_dev, batch, live, occupy_timeout_ms, with_
     partial_max = scratch[n_scr * nk + 2 * tiles :]
     flags = torch.empty(2 * nk, dtype=torch.uint8, device=dev)  # new_grp, last of entry
     occ = {}
+    ppc = None
+    if with_ppc:
+        ppc = torch.empty(nk, dtype=i32, device=dev)
+        occ["pass_plus_consumed"] = ppc
     if with_occupy:
         contrib3, excl3 = scratch[5 * nk : 7 * nk], scratch[7 * nk : 9 * nk]
         occ_wait_slot, cur_pass_s = scratch[9 * nk : 10 * nk], scratch[10 * nk : 11 * nk]
@@ -610,7 +639,7 @@ def _flow_slots_cuda(lib, stats, flow_dev, batch, live, occupy_timeout_ms, with_
         )
         occ_ptrs = (contrib3.data_ptr(), excl3.data_ptr(), occ_wait_slot.data_ptr(), cur_pass_s.data_ptr())
         out_ptrs = (occ_slot.data_ptr(), occ_target.data_ptr(), occupied.data_ptr(), occupy_wait.data_ptr())
-        occ = dict(occupied=occupied, occupy_wait=occupy_wait, occ_slot=occ_slot, occ_target=occ_target)
+        occ.update(occupied=occupied, occupy_wait=occupy_wait, occ_slot=occ_slot, occ_target=occ_target)
     else:
         occ_args = (0, None, None, None, None, None, None, None, 0, 0, batch.now, 1, 1, 0)
         occ_ptrs = (None, None, None, None)
@@ -624,7 +653,7 @@ def _flow_slots_cuda(lib, stats, flow_dev, batch, live, occupy_timeout_ms, with_
             pass_sums.data_ptr(), NUM_EVENTS, stats.threads.data_ptr(), _interval_sec(),
             *occ_args,
             batch.e_valid.data_ptr(), pos_s.data_ptr(), flags.data_ptr(), contrib.data_ptr(), excl.data_ptr(),
-            partial.data_ptr(), partial_max.data_ptr(), *occ_ptrs,
+            partial.data_ptr(), partial_max.data_ptr(), *occ_ptrs, None if ppc is None else ppc.data_ptr(),
             slot_ok.data_ptr(), flow_pass.data_ptr(), *out_ptrs, st,
         ),
         "flow_admission_slots",
@@ -872,44 +901,63 @@ def slot_chain_verdict(
     ddyn: Optional[DegradeDynState],
     n_rows: int,
     blk_topk: int = 0,
+    param_ok: Optional[torch.Tensor] = None,
+    wait_param: Optional[torch.Tensor] = None,
+    shape_wait: Optional[torch.Tensor] = None,
 ) -> ChainVerdict:
-    """The verdict tail of ``flush_entries`` when occupy, system or the
-    breakers are on: admission = live and flow pass and breaker pass (an
-    occupied entry skips the breaker: PriorityWaitException aborts the
-    chain before DegradeSlot), the occupy ``wait_ms``, the reason with
-    precedence authority > system > flow > degrade, the blocked top-K,
-    and OPEN -> HALF_OPEN for probes of entries admitted end to end and
-    not occupied (applied to ``ddyn.state`` in place). ``sys_ok`` None =
-    no system stage; ``dslot_ok``/``probe_slot`` None = no breakers;
-    ``n_rows`` is the stats row count (the top-K's range)."""
+    """The verdict tail of ``flush_entries`` when any stage beyond the
+    DEFAULT flow check is on: admission = live and flow pass and breaker
+    pass (an occupied entry skips the breaker: PriorityWaitException
+    aborts the chain before DegradeSlot), ``wait_ms`` (the occupy wait and
+    the shaping wait of live entries, then the throttle wait of admitted
+    ones), the reason with precedence authority > system > param > flow >
+    degrade, the blocked top-K, and OPEN -> HALF_OPEN for probes of
+    entries admitted end to end and not occupied (applied to
+    ``ddyn.state`` in place). ``sys_ok`` None = no system stage;
+    ``param_ok``/``wait_param`` None = no param stage; ``shape_wait``
+    (per-entry max of the shaping waits; ``adm.flow_pass`` then already
+    holds the shaping verdicts) None = no shaping stage;
+    ``dslot_ok``/``probe_slot`` None = no breakers; ``n_rows`` is the
+    stats row count (the top-K's range)."""
     if batch.e_valid.is_cuda:
-        return _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk)
-    return slot_chain_verdict_plain(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk)
+        return _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk, param_ok,
+                                   wait_param, shape_wait)
+    return slot_chain_verdict_plain(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk, param_ok,
+                                    wait_param, shape_wait)
 
 
 slot_chain_verdict.launches = 0
 
 
-def slot_chain_verdict_plain(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk=0) -> ChainVerdict:
+def slot_chain_verdict_plain(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk=0, param_ok=None,
+                             wait_param=None, shape_wait=None) -> ChainVerdict:
     """Plain PyTorch version of :func:`slot_chain_verdict`."""
     n, k = batch.e_rule_gid.shape
     dev = batch.e_valid.device
     live = batch.e_valid & batch.e_auth_ok
     if sys_ok is not None:
         live = live & sys_ok
+    if param_ok is not None:
+        live = live & param_ok
     flow_pass = adm.flow_pass & batch.e_cluster_ok
     live2 = live & flow_pass
     no = torch.zeros(n, dtype=torch.bool, device=dev)
     occupied = no if adm.occupied is None else adm.occupied & live
-    wait_ms = torch.where(occupied & live2, adm.occupy_wait if adm.occupy_wait is not None else 0, 0)
-    wait_ms = wait_ms.clamp(min=0).to(torch.int32)
+    wait_ms = torch.where(occupied, adm.occupy_wait if adm.occupy_wait is not None else 0, 0).clamp(min=0)
+    if shape_wait is not None:
+        wait_ms = torch.maximum(wait_ms, shape_wait)
+    wait_ms = torch.where(live2, wait_ms, 0).to(torch.int32)
     deg_pass = ~no if dslot_ok is None else dslot_ok.all(dim=1) | (occupied & live2)
     admitted = live2 & deg_pass
+    if wait_param is not None:
+        wait_ms = torch.maximum(wait_ms, torch.where(admitted, wait_param, 0)).to(torch.int32)
     if probe_slot is not None:
         _dt.apply_probe_transitions_plain(ddyn, batch.e_dgid, probe_slot, admitted & ~occupied)
     reason = torch.full((n,), E.PASS, dtype=torch.int32, device=dev)
     reason[batch.e_valid & ~deg_pass] = E.BLOCK_DEGRADE
     reason[batch.e_valid & ~flow_pass] = E.BLOCK_FLOW
+    if param_ok is not None:
+        reason[batch.e_valid & ~param_ok] = E.BLOCK_PARAM
     if sys_ok is not None:
         reason[batch.e_valid & ~sys_ok] = E.BLOCK_SYSTEM
     reason[batch.e_valid & ~batch.e_auth_ok] = E.BLOCK_AUTHORITY
@@ -921,7 +969,8 @@ def slot_chain_verdict_plain(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_r
     return ChainVerdict(admitted, reason, wait_ms, live2, occ_final, occ_slot, blk_rows, blk_weight)
 
 
-def _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk) -> ChainVerdict:
+def _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk, param_ok=None,
+                        wait_param=None, shape_wait=None) -> ChainVerdict:
     _check_batch_cuda(batch)
     _check_topk(blk_topk)
     n, k = batch.e_rule_gid.shape
@@ -948,7 +997,7 @@ def _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, 
             batch.e_valid.data_ptr(), batch.e_auth_ok.data_ptr(), ptr(sys_ok), adm.flow_pass.data_ptr(),
             batch.e_cluster_ok.data_ptr(), ptr(adm.occupied), ptr(adm.occupy_wait), ptr(dslot_ok),
             ptr(probe_slot), batch.e_dgid.data_ptr(), None if dslot_ok is None else ddyn.state.data_ptr(),
-            occ_slot.data_ptr(),
+            occ_slot.data_ptr(), ptr(param_ok), ptr(wait_param), ptr(shape_wait),
             batch.e_acquire.data_ptr(), batch.e_rows.data_ptr(), blk_topk, *topk.scratch_ptrs,
             admitted.data_ptr(), reason.data_ptr(), wait_ms.data_ptr(), flow_live.data_ptr(), occupied.data_ptr(),
             *topk.out_ptrs, ma.stream_of(batch.e_valid),
@@ -1007,6 +1056,45 @@ def apply_exit_phase(
     return stats
 
 
+def _param_stage(pdyn: ParamDynState, param: ParamBatch, live: torch.Tensor, rounds: int):
+    """Phase 2b' (ParamFlowSlot): exits release their per-value thread
+    slots first (ParamFlowStatisticExitCallback), then K10 checks the
+    slots of live entries. Returns (param_ok [N], wait_param [N]): the AND
+    and the max over each entry's slots."""
+    n = live.shape[0]
+    pr = pdyn.threads.shape[0]
+    xr = param.exit_rows
+    x_in = (xr >= 0) & (xr < pr)
+    pdyn.threads.index_add_(0, torch.where(x_in, xr, 0).long(), -x_in.to(torch.int32))
+    valid = param.valid & live[param.eidx.clamp(0, max(n - 1, 0)).long()]
+    _, ok_s, wait_s = run_param(pdyn, param._replace(valid=valid), rounds)
+    dump = torch.where(valid, param.eidx, n).long()
+    ok = torch.ones(n + 1, dtype=torch.int32, device=live.device)
+    ok.scatter_reduce_(0, dump, ok_s.to(torch.int32), reduce="amin")
+    wait = torch.zeros(n + 1, dtype=torch.int32, device=live.device)
+    wait.scatter_reduce_(0, dump, wait_s, reduce="amax")
+    return ok[:n].bool(), wait[:n]
+
+
+def _shaping_stage(stats, flow_dev, flow_dyn, shaping: ShapingBatch, adm: "Admission", live, rounds: int):
+    """The shaping controllers after the flow admission: K9 decides the
+    shaping slots of live entries; their verdicts AND into ``slot_ok`` at
+    their flat positions (unique), and each entry takes the largest wait
+    of its slots. Returns (the admission with the new slot_ok/flow_pass,
+    shape_wait [N])."""
+    n, k = adm.slot_ok.shape
+    valid, ppc_s, prev_s = shaping_inputs(shaping, live, adm.pass_plus_consumed, stats.minute)
+    _, ok_s, wait_s = run_shaping(flow_dev, flow_dyn, shaping._replace(valid=valid), ppc_s, prev_s,
+                                  _interval_sec(), rounds)
+    flat = torch.ones(n * k + 1, dtype=torch.int32, device=live.device)
+    flat[: n * k] = adm.slot_ok.reshape(-1).to(torch.int32)
+    flat.scatter_reduce_(0, torch.where(valid, shaping.flat_pos, n * k).long(), ok_s.to(torch.int32), reduce="amin")
+    slot_ok = flat[: n * k].bool().reshape(n, k)
+    wait = torch.zeros(n + 1, dtype=torch.int32, device=live.device)
+    wait.scatter_reduce_(0, torch.where(valid, shaping.eidx, n).long(), wait_s, reduce="amax")
+    return adm._replace(slot_ok=slot_ok, flow_pass=slot_ok.all(dim=1)), wait[:n]
+
+
 def flush_entries(
     stats: StatsState,
     flow_dev: FlowTableDevice,
@@ -1019,14 +1107,22 @@ def flush_entries(
     with_occupy: bool = False,
     with_system: bool = False,
     with_degrade: bool = False,
+    flow_dyn: Optional[FlowRuleDynState] = None,
+    pdyn: Optional[ParamDynState] = None,
+    shaping: Optional[ShapingBatch] = None,
+    param: Optional[ParamBatch] = None,
+    shaping_rounds: int = 0,
+    param_rounds: int = 0,
 ) -> Tuple[StatsState, FlushResult]:
-    """Phases 2-3: the slot chain (authority, system, flow with occupy,
-    breakers), then entry accounting (StatisticSlot.entry) and the borrow
-    commit. The breaker state ``ddyn`` is updated in place."""
+    """Phases 2-3: the slot chain (authority, system, hot parameters, flow
+    with occupy and shaping, breakers), then entry accounting
+    (StatisticSlot.entry), the borrow commit and the per-value thread
+    acquire. The breaker state ``ddyn``, the shaping state ``flow_dyn``
+    and the param state ``pdyn`` are updated in place."""
     n, k = batch.e_rule_gid.shape
     kd = batch.e_dgid.shape[1]
     dev = batch.e_valid.device
-    if not (with_occupy or with_system or with_degrade):
+    if not (with_occupy or with_system or with_degrade or shaping is not None or param is not None):
         # The DEFAULT path: the verdict tail is fused into K4.
         adm = flow_admission(stats, flow_dev, batch, blk_topk)
         v = ChainVerdict(adm.admitted, adm.reason, torch.zeros(n, dtype=torch.int32, device=dev), adm.admitted,
@@ -1042,8 +1138,17 @@ def flush_entries(
         if with_system:
             sys_ok, sys_type = system_check(stats, sysdev, batch, live)
             live = live & sys_ok
-        # ---- 2c flow rules, with the occupy branch ----
-        adm = flow_admission(stats, flow_dev, batch, 0, live, occupy_timeout_ms, with_occupy, tail=False)
+        # ---- 2b' hot parameters ----
+        param_ok = wait_param = None
+        if param is not None:
+            param_ok, wait_param = _param_stage(pdyn, param, live, param_rounds)
+            live = live & param_ok
+        # ---- 2c flow rules, with the occupy branch, then shaping ----
+        adm = flow_admission(stats, flow_dev, batch, 0, live, occupy_timeout_ms, with_occupy, tail=False,
+                             with_ppc=shaping is not None)
+        shape_wait = None
+        if shaping is not None:
+            adm, shape_wait = _shaping_stage(stats, flow_dev, flow_dyn, shaping, adm, live, shaping_rounds)
         # ---- 2d circuit breakers: occupied entries skip them ----
         dslot_ok = probe_slot = None
         if with_degrade:
@@ -1051,12 +1156,19 @@ def flush_entries(
             if adm.occupied is not None:
                 e_live = e_live & ~adm.occupied
             dslot_ok, probe_slot = _dt.breaker_try_pass(ddev, ddyn, batch.e_dgid, batch.e_ts, e_live)
-        v = slot_chain_verdict(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, stats.n_rows, blk_topk)
+        v = slot_chain_verdict(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, stats.n_rows, blk_topk,
+                               param_ok, wait_param, shape_wait)
         if dslot_ok is None:
             dslot_ok = torch.ones((n, kd), dtype=torch.bool, device=dev)
         if with_occupy:
             # Borrows persist only for entries finally admitted.
             commit_borrow_slab(stats, v.occ_slot, adm.occ_target, batch.e_acquire, batch.e_check_row)
+        if param is not None:
+            # Per-value thread acquire (ParamFlowStatisticEntryCallback.onPass):
+            # +1 per thread-grade slot of an admitted entry (rows may repeat).
+            inc = (param.valid & (param.grade == C.FLOW_GRADE_THREAD)
+                   & v.admitted[param.eidx.clamp(0, max(n - 1, 0)).long()])
+            pdyn.threads.index_add_(0, torch.where(inc, param.prow, 0).long(), inc.to(torch.int32))
 
     # ---- phase 3: entry accounting (StatisticSlot.entry) ----
     e_rows_f = batch.e_rows.reshape(-1)
@@ -1100,18 +1212,32 @@ def flush_step(
     with_occupy: bool = False,
     with_system: bool = False,
     with_degrade: bool = False,
+    flow_dyn: Optional[FlowRuleDynState] = None,
+    pdyn: Optional[ParamDynState] = None,
+    shaping: Optional[ShapingBatch] = None,
+    param: Optional[ParamBatch] = None,
+    shaping_rounds: int = 0,
+    param_rounds: int = 0,
 ) -> Tuple[StatsState, FlushResult]:
     """Apply one batch, in place: the matured-borrow sweep, exits and
     breaker completions, then the slot chain and accounting. The flags
     are the JAX package's host-known specializations (see the module
-    docstring); the breaker state ``ddyn`` is updated in place."""
+    docstring); ``shaping``/``param`` (None = no such slots) come with
+    their state (``flow_dyn``, ``pdyn``) and the host's execution modes
+    (``shaping_rounds``, ``param_rounds``, as ``run_shaping``/``run_param``
+    take them). The breaker, shaping and param states are updated in
+    place."""
     if with_degrade and (ddev is None or ddyn is None):
         raise ValueError("flush_step: with_degrade needs the breaker table and state")
     if with_system and sysdev is None:
         raise ValueError("flush_step: with_system needs a SystemDevice")
+    if shaping is not None and flow_dyn is None:
+        raise ValueError("flush_step: shaping needs the flow rules' dynamic state")
+    if param is not None and pdyn is None:
+        raise ValueError("flush_step: param needs the param state")
     materialize_matured(stats, batch.now)
     apply_exit_phase(stats, batch, with_exits, ddev, ddyn, with_degrade)
     return flush_entries(
         stats, flow_dev, batch, blk_topk, ddev, ddyn, sysdev, occupy_timeout_ms,
-        with_occupy, with_system, with_degrade,
+        with_occupy, with_system, with_degrade, flow_dyn, pdyn, shaping, param, shaping_rounds, param_rounds,
     )

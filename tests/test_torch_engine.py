@@ -6,7 +6,8 @@ submit_exit / submit_exit_bulk calls, and flushes that span several
 second-window boundaries. After every flush the verdicts, reasons,
 slot_ok attribution, the blocked top-K and every state tensor must be
 identical. Also: the cases of tests/test_flow_default.py against the
-port, and the features outside the slice raising NotImplementedError."""
+port, the features of the slices accepted, and the features outside them
+raising NotImplementedError."""
 
 import jax
 import numpy as np
@@ -380,24 +381,53 @@ def _add_breaker_observer(e):
     breaker_events.add_state_change_observer("t", lambda *a: None)
 
 
+def _cluster_param_rule(e):
+    from sentinel_tpu_torch.models.rules import ClusterFlowConfig
+
+    e.set_param_rules({"r": [st.ParamFlowRule("r", param_idx=0, count=5, cluster_mode=True,
+                                              cluster_config=ClusterFlowConfig(flow_id=1))]})
+
+
 @pytest.mark.parametrize(
     "call",
     [
         _add_breaker_observer,
-        lambda e: e.set_param_rules({"r": [object()]}),
-        lambda e: e.set_flow_rules([FlowRule("r", count=5, control_behavior=C.CONTROL_BEHAVIOR_RATE_LIMITER)]),
-        lambda e: e.set_flow_rules([FlowRule("r", count=5, control_behavior=C.CONTROL_BEHAVIOR_WARM_UP)]),
+        _cluster_param_rule,
         lambda e: e.enable_mesh(8),
         lambda e: e.flush_async(),
-        lambda e: e.submit_bulk("r", 4, args_column=[("a",)] * 4),
     ],
-    ids=["degrade", "param", "rate_limiter", "warm_up", "mesh", "flush_async", "args_column"],
+    ids=["degrade", "param", "mesh", "flush_async"],
 )
 def test_out_of_slice_raises(call):
     """Features outside the port so far; for degrade rules, which the port
-    now runs, that is the breaker state-change observers."""
+    now runs, that is the breaker state-change observers, and for param
+    rules their cluster mode."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(_cpu_engine())
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda e: e.set_flow_rules([FlowRule("r", count=5, control_behavior=C.CONTROL_BEHAVIOR_RATE_LIMITER)]),
+        lambda e: e.set_flow_rules([FlowRule("r", count=5, control_behavior=C.CONTROL_BEHAVIOR_WARM_UP)]),
+        lambda e: e.set_flow_rules([FlowRule("r", count=5,
+                                             control_behavior=C.CONTROL_BEHAVIOR_WARM_UP_RATE_LIMITER)]),
+        lambda e: e.set_param_rules({"r": [st.ParamFlowRule("r", param_idx=0, count=5)]}),
+        lambda e: (e.set_param_rules({"r": [st.ParamFlowRule("r", param_idx=0, count=5)]}),
+                   e.submit_bulk("r", 4, args_column=[("a",)] * 4)),
+        lambda e: (e.set_param_rules({"r": [st.ParamFlowRule("r", param_idx=0, count=5)]}),
+                   e.submit_entry("r", args=("a",))),
+        lambda e: e.submit_exit((1, 2, -1, -1), rt=3, param_rows=[0]),
+    ],
+    ids=["rate_limiter", "warm_up", "warm_up_rate_limiter", "param", "args_column", "args", "param_rows"],
+)
+def test_slice_three_features_accepted(call):
+    """Shaping behaviors, param rules, args on entries and bulk groups and
+    param rows on exits load and flush on the port."""
+    eng = _cpu_engine()
+    call(eng)
+    eng.flush()
 
 
 @pytest.mark.parametrize(

@@ -17,11 +17,20 @@ from sentinel_tpu_torch.metrics import metric_array as ma
 from sentinel_tpu_torch.metrics import nodes as tnodes
 from sentinel_tpu_torch.metrics.events import NUM_EVENTS
 from sentinel_tpu_torch.rules import degrade_table as tdt
+from sentinel_tpu_torch.rules import param_table as tpt
+from sentinel_tpu_torch.rules import shaping as tsh
 from sentinel_tpu_torch.rules.flow_table import flow_table_from_numpy
 from sentinel_tpu_torch.runtime import flush as tflush
 
 from torch_parity import (
     borrowable_stats,
+    fma_warning_case,
+    random_param_batch_for,
+    random_param_case,
+    random_param_state,
+    random_shaped_flow_table,
+    random_shaping_case,
+    shaping_batch_for,
     random_chain_batch,
     random_degrade,
     random_exits,
@@ -275,3 +284,114 @@ def test_chain_flush_step_kernels(cuda, flags):
             _eq(x, y, f"step {step} {name}")
         _states_eq(states["cpu"][0], states["cuda"][0], f"stats step {step}")
         _states_eq(states["cpu"][3], states["cuda"][3], f"breakers step {step}")
+
+
+# --- K9 (shaping) and K10 (hot parameters), K4's pass-plus-charge output -----
+
+SHAPING_GPU_CASES = {
+    # name: (the case's inputs from a seeded rng, rounds)
+    "a_behaviors": (lambda rng: random_shaping_case(rng, 4096, 64), (0, 4, 16, 32)),
+    "c_closed_form": (lambda rng: random_shaping_case(rng, 4096, 16, behaviors=(2,), one_ts=True, acquire=1), (-1,)),
+    "d_heavy_rule": (lambda rng: random_shaping_case(rng, 2048, 4, n_hot=2048), (0,)),
+    "fma_warning_line": (lambda rng: fma_warning_case(), (0,)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SHAPING_GPU_CASES))
+def test_shaping_kernel(cuda, case):
+    build, rounds_list = SHAPING_GPU_CASES[case]
+    table, dyn, sb, ppc, prev = build(np.random.default_rng(21))
+    for rounds in rounds_list:
+        out = []
+        for fn in (tsh.run_shaping_plain, tsh.run_shaping):
+            tt, td = flow_table_from_numpy(table, dyn, cuda)
+            before = tsh.run_shaping.launches
+            out.append(fn(tt, td, tsh.shaping_batch_from_numpy(sb, cuda), _t(ppc, cuda), _t(prev, cuda), 1.0,
+                          rounds))
+        assert tsh.run_shaping.launches == before + 1
+        (wd, wok, ww), (gd, gok, gw) = out
+        _eq(wok, gok, f"{case} rounds={rounds} ok")
+        _eq(ww, gw, f"{case} rounds={rounds} wait")
+        _states_eq(wd, gd, f"{case} rounds={rounds} state")
+        assert bool(wok.any()) and not bool(wok.all())
+
+
+PARAM_GPU_CASES = {
+    "b_every_grade": (dict(s=4096, pr=256), (0, 1, 4, 16)),
+    "c_closed_one_ts": (dict(s=4096, pr=256, closed=True, nts=1), (-1,)),
+    "c_closed_mixed_ts": (dict(s=4096, pr=256, closed=True, nts=7), (-8, -4)),
+    "d_heavy_value": (dict(s=4096, pr=16, heavy=True), (0,)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PARAM_GPU_CASES))
+def test_param_kernel(cuda, case):
+    kwargs, rounds_list = PARAM_GPU_CASES[case]
+    pb, dyn = random_param_case(np.random.default_rng(22), **kwargs)
+    for rounds in rounds_list:
+        out = []
+        for fn in (tpt.run_param_plain, tpt.run_param):
+            before = tpt.run_param.launches
+            out.append(fn(tpt.param_state_from_numpy(dyn, cuda), tpt.param_batch_from_numpy(pb, cuda), rounds))
+        assert tpt.run_param.launches == before + 1
+        (wd, wok, ww), (gd, gok, gw) = out
+        _eq(wok, gok, f"{case} rounds={rounds} ok")
+        _eq(ww, gw, f"{case} rounds={rounds} wait")
+        _states_eq(wd, gd, f"{case} rounds={rounds} state")
+        assert bool(wok.any()) and not bool(wok.all())
+
+
+def test_flow_admission_pass_plus_charge(cuda):
+    rng = np.random.default_rng(23)
+    n_rows, nr, n, k = 256, 64, 8192, 2
+    now = 4_321_000 + 123
+    arrs = borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    table, _ = random_shaped_flow_table(rng, nr)
+    tt, _ = flow_table_from_numpy(table, None, cuda)
+    batch = tflush.batch_from_numpy(random_flush_batch(rng, n, k, n_rows, nr, now, n - 50), cuda)
+    live = _t(rng.random(n) < 0.9, cuda)
+    stats = tnodes.stats_from_numpy(arrs, cuda)
+    for occupy in (False, True):
+        want = tflush.flow_admission_plain(stats, tt, batch, 0, live, 500, occupy, tail=False, with_ppc=True)
+        got = tflush.flow_admission(stats, tt, batch, 0, live, 500, occupy, tail=False, with_ppc=True)
+        for name, x, y in zip(want._fields, want, got):
+            _eq(x, y, f"occupy={occupy} admission {name}")
+        assert bool((want.pass_plus_consumed > 0).any())
+
+
+@pytest.mark.parametrize("chain", [False, True])
+def test_shaping_param_flush_step_kernels(cuda, chain):
+    """flush_step with shaping and hot parameters on: the kernels' step on
+    the card against the plain versions' step on the CPU, three flushes."""
+    rng = np.random.default_rng(24 + chain)
+    cpu = torch.device("cpu")
+    n_rows, nr, nd, n, k, kd, m, pr = 128, 32, 64, 4096, 2, 2, 1024, 512
+    now = 3_456_000 + 77
+    arrs = borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    table, dyn = random_shaped_flow_table(rng, nr)
+    dtable, ddyn = random_degrade(rng, nd, now)
+    pdyn = random_param_state(rng, pr, now)
+    sysdev = tflush.SystemDevice(*system_thresholds("all"))
+    states = {}
+    for dev in (cpu, cuda):
+        states[dev.type] = (tnodes.stats_from_numpy(arrs, dev), *flow_table_from_numpy(table, dyn, dev),
+                            tdt.degrade_table_from_numpy(dtable, dev), tdt.degrade_state_from_numpy(ddyn, dev),
+                            tpt.param_state_from_numpy(pdyn, dev))
+    for step in range(3):
+        b = random_chain_batch(rng, n, k, kd, n_rows, nr, nd, now + 450 * step, m)
+        if not chain:
+            b[7] = np.zeros(n, bool)
+        sb, pb = shaping_batch_for(b, table), random_param_batch_for(rng, b, pr, m_exit=64)
+        res = {}
+        for dev in (cpu, cuda):
+            stats, tt, td, ddev, dd, pd = states[dev.type]
+            _, res[dev.type] = tflush.flush_step(
+                stats, tt, tflush.batch_from_numpy(b, dev), True, 8, ddev, dd, sysdev, 1000, chain, chain, chain,
+                flow_dyn=td, pdyn=pd, shaping=tsh.shaping_batch_from_numpy(sb, dev),
+                param=tpt.param_batch_from_numpy(pb, dev), shaping_rounds=[0, 4, 16][step],
+                param_rounds=[16, 0, 4][step],
+            )
+        for name, x, y in zip(res["cpu"]._fields, res["cpu"], res["cuda"]):
+            _eq(x, y, f"step {step} {name}")
+        for j, what in enumerate(("stats", "table", "shaping state", "breaker table", "breakers", "params")):
+            _states_eq(states["cpu"][j], states["cuda"][j], f"{what} step {step}")

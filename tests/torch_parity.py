@@ -290,3 +290,202 @@ def block_of(fn):
     if e is not None:
         e.exit()
     return "pass"
+
+
+# --- shaping (K9) and hot-parameter (K10) inputs ---------------------------
+
+PARAM_NEVER = -(2**30)
+
+
+def random_shaping_case(rng, s, nr, behaviors=(1, 2, 3), t0=1000, span=5000, n_hot=0, one_ts=False, acquire=None):
+    """(table, dyn, batch, pass_consumed, prev_pass) as numpy arrays in the
+    layouts of FlowTableDevice, FlowRuleDynState and ShapingBatch: rules of
+    the given behaviors (rule 0 at a count near 0, so a warm-up rate
+    limiter's cost saturates int32), warm-up rules cold and warm, pacers
+    idle and backlogged, items over several seconds (so syncToken refills)
+    or at one ts, about 10% invalid, ``n_hot`` items on rule 1."""
+    beh = rng.choice(np.asarray(behaviors, np.int32), nr).astype(np.int32)
+    count = (rng.random(nr) * 40 + 0.5).astype(np.float32)
+    count[0] = 1e-7
+    count[-1] = 0.0
+    warn = rng.integers(1, 80, nr).astype(np.int32)
+    cost1 = np.where(count > 0, np.floor(1.0 / np.maximum(count.astype(np.float64), 1e-30) * 1000 + 0.5), 0)
+    table = (np.ones(nr, np.int32), count, beh, rng.integers(0, 900, nr).astype(np.int32),
+             np.minimum(cost1, 2**31 - 1).astype(np.int32), warn, warn + rng.integers(1, 160, nr).astype(np.int32),
+             (rng.random(nr) * 1e-2).astype(np.float32), rng.integers(1, 30, nr).astype(np.int32))
+    stored = np.where(rng.random(nr) < 0.5, warn + rng.integers(0, 150, nr), rng.integers(0, 40, nr))
+    dyn = ((t0 + rng.integers(-1500, 1500, nr)).astype(np.int32), stored.astype(np.float32),
+           np.where(rng.random(nr) < 0.3, -(10**9), t0 - rng.integers(0, 3000, nr)).astype(np.int32))
+    gid = rng.integers(0, nr, s).astype(np.int32)
+    gid[:n_hot] = 1
+    valid = rng.random(s) < 0.9
+    if one_ts:
+        ts = np.full(s, t0 + 7, np.int32)
+    else:
+        ts = np.sort(t0 + rng.integers(0, span, s)).astype(np.int32)
+    acq = rng.integers(0, 4, s).astype(np.int32) if acquire is None else np.full(s, acquire, np.int32)
+    eidx = np.arange(s, dtype=np.int32)
+    batch = (valid, gid, gid, eidx, eidx, ts, acq)
+    return table, dyn, batch, rng.integers(0, 60, s).astype(np.int32), rng.integers(0, 60, s).astype(np.int32)
+
+
+def random_param_case(rng, s, pr, closed=False, nts=1, heavy=False, t0=5000):
+    """(batch, dyn) as numpy arrays in the layouts of ParamBatch and
+    ParamDynState. Open: every grade and behavior (token bucket, throttle
+    with queueing, THREAD), hot-item thresholds, acquire 0-2, rows never
+    seen and warm, LRU resets and exit releases. ``closed``: the engine's
+    closed-form shape (QPS-grade DEFAULT, one acquire >= 1, at most
+    ``nts`` timestamps 700 ms apart). ``heavy``: every item on one row."""
+    prow = rng.integers(0, pr, s).astype(np.int32)
+    prow[: s // 4] = 3
+    if heavy:
+        prow[:] = 5
+    valid = rng.random(s) < 0.9
+    if closed:
+        grade = np.ones(s, np.int32)
+        beh = np.zeros(s, np.int32)
+        acq = np.full(s, 2, np.int32)
+        ts = (t0 + rng.integers(0, nts, s) * 700).astype(np.int32)
+    else:
+        grade = np.where(prow % 4 == 0, 0, 1).astype(np.int32)
+        beh = np.where(prow % 3 == 1, 2, 0).astype(np.int32)
+        acq = rng.integers(0, 3, s).astype(np.int32)
+        ts = np.sort(t0 + rng.integers(0, 4000, s)).astype(np.int32)
+    tc = np.array([3, 5, 0, 7, 2, 9, 4, 6], np.int32)[prow % 8]
+    burst = (prow % 3).astype(np.int32)
+    dur = ((prow % 3) * 1000).astype(np.int32)
+    maxq = ((prow % 5) * 100).astype(np.int32)
+    cost = np.array([0, 100, 250, 333, 1000], np.int32)[prow % 5]
+    resets = np.array([5, -1, 7, pr + 3], np.int32)
+    exits = np.array([3, -1, 4, 4], np.int32)
+    batch = (valid, prow, np.arange(s, dtype=np.int32), ts, acq, grade, beh, tc, burst, dur, maxq, cost,
+             resets, exits)
+    dyn = (rng.integers(-5, 10, pr).astype(np.int32),
+           np.where(rng.random(pr) < 0.3, PARAM_NEVER, t0 - rng.integers(0, 3000, pr)).astype(np.int32),
+           np.where(rng.random(pr) < 0.3, PARAM_NEVER, t0 + rng.integers(-2000, 2000, pr)).astype(np.int32),
+           rng.integers(0, 4, pr).astype(np.int32))
+    return batch, dyn
+
+
+def fma_warning_case():
+    """WARM_UP items whose admission turns on the last bit of the warning
+    line ``1 / (above * slope + 1 / count)``: found by search so that the
+    fused multiply-add and the separately rounded product and sum put the
+    line on opposite sides of ``passQps + acquire``. Returns (table, dyn,
+    batch, pass_consumed, prev_pass) for run_shaping."""
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    found = []
+    while len(found) < 24:
+        k = int(rng.integers(3, 40))
+        above = f32(rng.integers(1, 200))
+        cnt = f32(k * (1 + rng.random() * 3))
+        inv_c = f32(1) / cnt
+        base = (1.0 / k - float(inv_c)) / float(above)
+        if base <= 0:
+            continue
+        for d in range(-3, 4):
+            sl = f32(base * (1 + d * 1e-7))
+            sep = f32(f32(above * sl) + inv_c)
+            fused = f32(float(above) * float(sl) + float(inv_c))
+            w_sep = np.nextafter(f32(1) / sep, f32(np.inf))
+            w_fused = np.nextafter(f32(1) / fused, f32(np.inf))
+            if (k <= w_sep) != (k <= w_fused):
+                found.append((k, float(above), float(sl), float(cnt)))
+    nr = s = len(found)
+    ones, zeros = np.ones(nr, np.int32), np.zeros(nr, np.int32)
+    table = (ones, np.array([c[3] for c in found], np.float32), ones, zeros, zeros, np.full(nr, 10, np.int32),
+             np.full(nr, 10_000, np.int32), np.array([c[2] for c in found], np.float32), zeros)
+    dyn = (zeros, np.array([10 + c[1] for c in found], np.float32), np.full(nr, 5000, np.int32))
+    idx = np.arange(s, dtype=np.int32)
+    batch = (np.ones(s, bool), idx, idx, idx, idx, np.full(s, 5100, np.int32), np.ones(s, np.int32))
+    return table, dyn, batch, np.array([c[0] - 1 for c in found], np.int32), np.zeros(s, np.int32)
+
+
+def random_shaped_flow_table(rng, nr, lo=2, hi=40):
+    """A flow table (numpy, FlowTableDevice layout) where about half the
+    rules shape (RATE_LIMITER, WARM_UP, WARM_UP_RATE_LIMITER, with the
+    warm-up constants the host computes) and the rest are DEFAULT; the last
+    two rules are padding. Returns (table, dyn)."""
+    table, dyn = random_flow_table(rng, nr, thread_frac=0.15, lo=lo, hi=hi)
+    grade, count, beh, maxq, cost1, warn, maxtok, slope, refill = (np.array(a) for a in table)
+    shaped = rng.random(nr) < 0.5
+    shaped[-2:] = False
+    beh = np.where(shaped, rng.integers(1, 4, nr), 0).astype(np.int32)
+    grade = np.where(shaped, 1, grade).astype(np.int32)
+    count = np.where(shaped, np.maximum(count, 1), count).astype(np.float32)
+    maxq = np.where(shaped, rng.integers(0, 800, nr), 0).astype(np.int32)
+    cost1 = np.where(shaped, np.floor(1000.0 / np.maximum(count, 1) + 0.5), 0).astype(np.int32)
+    warn = np.where(shaped, rng.integers(2, 60, nr), 0).astype(np.int32)
+    maxtok = np.where(shaped, warn + rng.integers(1, 100, nr), 0).astype(np.int32)
+    slope = np.where(shaped, rng.random(nr) * 1e-2, 0).astype(np.float32)
+    refill = np.where(shaped, rng.integers(1, 20, nr), 0).astype(np.int32)
+    stored = np.where(shaped & (rng.random(nr) < 0.5), maxtok, 0).astype(np.float32)
+    dyn = (np.full(nr, -(10**9), np.int32), stored, np.full(nr, -(10**9), np.int32))
+    return (grade, count, beh, maxq, cost1, warn, maxtok, slope, refill), dyn
+
+
+def shaping_batch_for(batch, table):
+    """The engine's shaping batch for a flush batch (numpy): one item per
+    (entry, slot) whose rule shapes, padded to a power of two."""
+    e_valid, e_ts, e_acq, gid, crow = batch[1], batch[2], batch[3], batch[5], batch[6]
+    n, k = gid.shape
+    beh = table[2]
+    sel = (gid >= 0) & (crow >= 0) & e_valid[:, None] & (beh[np.clip(gid, 0, len(beh) - 1)] != 0)
+    e, j = np.nonzero(sel)
+    total = len(e)
+    s = 8
+    while s < total:
+        s *= 2
+
+    def pad(a, fill=0):
+        out = np.full(s, fill, np.int32)
+        out[:total] = a
+        return out
+
+    valid = np.zeros(s, bool)
+    valid[:total] = True
+    return (valid, pad(gid[e, j]), pad(crow[e, j]), pad(e), pad(e * k + j), pad(e_ts[e]), pad(e_acq[e], 1))
+
+
+def random_param_batch_for(rng, batch, pr, m_exit=16):
+    """A hot-param batch (numpy, ParamBatch layout) for a flush batch:
+    about a third of the valid entries carry one or two param slots on
+    rows of every grade and behavior, plus LRU resets and exit releases."""
+    e_valid, e_ts, e_acq = batch[1], batch[2], batch[3]
+    ents = [e for e in np.nonzero(e_valid)[0] if rng.random() < 0.35]
+    items = []
+    for e in ents:
+        for _ in range(1 + int(rng.random() < 0.3)):
+            items.append((e, int(rng.integers(0, pr - 4)) if rng.random() < 0.6 else 2))
+    s = 8
+    while s < len(items):
+        s *= 2
+    prow = np.zeros(s, np.int32)
+    eidx = np.zeros(s, np.int32)
+    valid = np.zeros(s, bool)
+    for a, (e, r) in enumerate(items):
+        valid[a], eidx[a], prow[a] = True, e, r
+    ts = np.where(valid, e_ts[eidx], 0).astype(np.int32)
+    acq = np.where(valid, e_acq[eidx], 1).astype(np.int32)
+    grade = np.where(prow % 4 == 0, 0, 1).astype(np.int32)
+    beh = np.where((prow % 3 == 1) & (grade == 1), 2, 0).astype(np.int32)
+    tc = np.array([3, 5, 1, 7, 2, 9, 4, 6], np.int32)[prow % 8]
+    burst = (prow % 3).astype(np.int32)
+    dur = np.where(prow % 5 == 0, 1000, 2000).astype(np.int32)
+    maxq = ((prow % 5) * 100).astype(np.int32)
+    cost = np.where(beh == 2, np.floor(1000.0 * dur / 1000 / np.maximum(tc, 1) + 0.5), 0).astype(np.int32)
+    resets = np.full(8, -1, np.int32)
+    resets[:2] = rng.integers(0, pr, 2)
+    exits = np.full(max(8, m_exit), -1, np.int32)
+    exits[:m_exit // 2] = rng.integers(0, pr, m_exit // 2)
+    return (valid, prow, eidx, ts, acq, grade, beh, tc, burst, dur, maxq, cost, resets, exits)
+
+
+def random_param_state(rng, pr, t0):
+    """ParamDynState arrays: rows never seen, warm and throttled, thread
+    gauges of a few."""
+    return (rng.integers(0, 8, pr).astype(np.int32),
+            np.where(rng.random(pr) < 0.4, PARAM_NEVER, t0 - rng.integers(0, 3000, pr)).astype(np.int32),
+            np.where(rng.random(pr) < 0.4, PARAM_NEVER, t0 + rng.integers(-1500, 800, pr)).astype(np.int32),
+            rng.integers(0, 4, pr).astype(np.int32))
