@@ -99,16 +99,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 try:
     import sentinel_tpu_torch as st
+    import sentinel_tpu_torch.cluster as tcl
+    from sentinel_tpu_torch.cluster import token_service as tts
     from sentinel_tpu_torch.core import api
     from sentinel_tpu_torch.metrics import metric_array as ma
     from sentinel_tpu_torch.metrics import nodes
     from sentinel_tpu_torch.metrics.events import NUM_EVENTS
     from sentinel_tpu_torch.models import constants as C
+    from sentinel_tpu_torch.models.rules import ClusterFlowConfig
     from sentinel_tpu_torch.rules import degrade_table as tdt
     from sentinel_tpu_torch.rules import param_table as tpt
     from sentinel_tpu_torch.rules import shaping as tsh
     from sentinel_tpu_torch.rules.flow_table import FlowTableDevice, flow_table_from_numpy
     from sentinel_tpu_torch.runtime import flush
+    from sentinel_tpu_torch.runtime import sketch as tsk
     from sentinel_tpu_torch.utils import clock as tclock
     from sentinel_tpu_torch.utils import cuda_build
 except ImportError as exc:
@@ -303,6 +307,7 @@ def plain_kernels():
         (flush, "shaping_inputs", tsh.shaping_inputs_plain),
         (flush, "run_shaping", tsh.run_shaping_plain),
         (flush, "run_param", tpt.run_param_plain),
+        (flush, "sketch_fold", tsk.sketch_fold_plain),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
@@ -1145,6 +1150,33 @@ def phase3() -> None:
     del kern, mx, st_k, st_p
     torch.cuda.empty_cache()
 
+    # The sketch tier on: the DEFAULT step, then the fold (K11) of the
+    # chunk's 131,072 keys into the default tier, with the halving.
+    gen.manual_seed(33)
+    rng_sk = np.random.default_rng(33)
+    now += 1000
+    base = make_stats(now, gen)
+    batch = make_batch(rng_sk, now, skewed=False, with_exits=False)
+    sk_base, sk = sketch_inputs(rng_sk, "default")
+    kern, plain, sk_k, sk_p = clone(base), clone(base), clone(sk_base), clone(sk_base)
+    del base
+    _, res = flush.flush_step(kern, table, batch, with_exits=False, blk_topk=8, skstate=sk_k, sk=sk,
+                              sketch_decay=True)
+    with plain_kernels():
+        _, want = flush.flush_step(plain, table, batch, with_exits=False, blk_topk=8, skstate=sk_p, sk=sk,
+                                   sketch_decay=True)
+    require_equal(want, res, "flush_step results (sketch on)")
+    require_equal(plain, kern, "flush_step state (sketch on)")
+    require_equal(sk_p, sk_k, "flush_step sketch state (sketch on)")
+    del plain
+    torch.cuda.empty_cache()
+    k_ms, k_spread = step_times(lambda: flush.flush_step(kern, table, batch, with_exits=False, blk_topk=8,
+                                                         skstate=sk_k, sk=sk))
+    log(f"  sketch on (the default tier, {SK_S:,} keys, decay in the compared step): kernels {k_ms:.4f} ms/flush "
+        f"{k_spread}; results, stats and sketch state identical to the plain route")
+    del kern, sk_k, sk_p
+    torch.cuda.empty_cache()
+
 
 def profile_step(run, label: str, steps: int = 5) -> None:
     """Where one flush_step's device time goes: torch.profiler (CUPTI)
@@ -1738,6 +1770,415 @@ def phase6() -> None:
         fail(f"degrade demo lines {lines} != {DEMO_LINES}")
 
 
+# ---------------------------------------------------------------------------
+# phase 2d: K11, the sketch fold, against its plain version
+# ---------------------------------------------------------------------------
+
+SK_S = N  # keys per fold: the north-star batch, every entry a distinct key
+
+
+def sketch_inputs(rng, case: str):
+    """(state, batch) on DEV for phase 2d: (a) "default", the default tier
+    (depth 4, width 2,048, 64 candidates) after eight earlier folds of
+    131,072 distinct keys (the table is full), then 131,072 distinct keys
+    with weights 1-4, a third of the candidates among them; (b) "widened",
+    depth 8, width 2^20, 1,024 candidates, 131,072 host-aggregated ids of a
+    Zipf(1.1) stream over 10^6 keys (weights = their counts), 1,024
+    duplicate rows and 1,024 padding; (c) "ties", (a) with every weight 2."""
+    depth, width, c = (8, 1 << 20, 1024) if case == "widened" else (4, 2048, 64)
+    state = tsk.make_sketch_state(depth, width, c, DEV)
+    keys = rng.permutation(np.unique(rng.integers(0, 2**31 - 1, 14 * SK_S))[: 9 * SK_S]).astype(np.int32)
+
+    def batch(ids, w):
+        return tsk.SketchBatch(torch.from_numpy(ids.astype(np.int32)).to(DEV),
+                               torch.from_numpy(np.asarray(w, dtype=np.int32)).to(DEV))
+
+    for k in range(8):
+        ids = keys[k * SK_S:(k + 1) * SK_S]
+        tsk.sketch_fold_plain(state, batch(ids, rng.integers(1, 5, SK_S)), decay=k == 4)
+    if case == "widened":
+        draws = rng.zipf(1.1, 6 * 10**6)
+        uniq, cnt = np.unique(draws[draws <= 10**6], return_counts=True)
+        n_agg = SK_S - 2048
+        ids = np.concatenate([keys[uniq[:n_agg] - 1], keys[uniq[:1024] - 1], np.full(1024, -1, np.int32)])
+        w = np.concatenate([cnt[:n_agg], cnt[:1024], np.zeros(1024, np.int64)])
+    else:
+        ids = keys[8 * SK_S:9 * SK_S].copy()
+        ids[: c // 3] = state.cand_ids[: c // 3].cpu().numpy()
+        w = np.full(SK_S, 2) if case == "ties" else rng.integers(1, 5, SK_S)
+    return state, batch(ids, w)
+
+
+def sketch_bytes(state, sk, decay: bool) -> float:
+    """Least bytes of one fold: the key batch read once; each count-min cell
+    the batch touches read and written once (the whole array with decay);
+    the candidate table read and written."""
+    d, w = state.cm.shape
+    valid = sk.ids >= 0
+    uids = sk.ids[valid].to(torch.int64) & 0xFFFFFFFF
+    cells = torch.cat([tsk._hash_torch(uids, di, w) + di * w for di in range(d)])
+    touched = d * w if decay else torch.unique(cells).numel()
+    return sk.ids.numel() * 8 + touched * 8 + state.cand_ids.numel() * 16
+
+
+def phase2_sketch(results: dict) -> None:
+    log("phase 2d: K11 (the sketch fold) against its plain version: the default tier, a widened tier and ties, "
+        f"{SK_S:,} keys per fold, decay off and on")
+    rng = np.random.default_rng(24)
+    err = 0
+    for case in ("default", "widened", "ties"):
+        base, sk = sketch_inputs(rng, case)
+        for decay in (False, True):
+            want = tsk.sketch_fold_plain(clone(base), sk, decay)
+            got = tsk.sketch_fold(clone(base), sk, decay)
+            err = max(err, require_equal(want, got, f"sketch_fold ({case}, decay={decay})"))
+            full = int((got.cand_ids >= 0).sum())
+            recur = int(torch.isin(base.cand_ids, sk.ids).sum())
+            log(f"  {case}, decay={decay}: equal (max abs err 0); {full}/{got.cand_ids.numel()} candidates, "
+                f"{recur} of the prior ones in the batch, top count {int(got.cand_cnt.max())}")
+        c = base.cand_ids.numel()
+        scratch = clone(base)
+        k_ms = time_ms(lambda: tsk.sketch_fold(scratch, sk, False))
+        p_ms = time_ms(lambda: tsk.sketch_fold_plain(scratch, sk, False), iters=3, warmup=1)
+        m_cnt = torch.randint(-1, 5000, (c + SK_S,), device=DEV, dtype=I32)
+        topk_ms = time_ms(lambda: torch.topk(m_cnt, c))
+        d, w = base.cm.shape
+        valid = sk.ids >= 0
+        uids = sk.ids[valid].to(torch.int64) & 0xFFFFFFFF
+        flat = torch.cat([tsk._hash_torch(uids, di, w) + di * w for di in range(d)])
+        wt = sk.w[valid].repeat(d)
+        cm_flat = scratch.cm.reshape(-1)
+        add_ms = time_ms(lambda: cm_flat.index_add_(0, flat, wt))
+        b = bound(sketch_bytes(base, sk, False))
+        log(f"    {case}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.topk (the top-C step) {topk_ms:.4f} ms, "
+            f"index_add_ (the count-min adds) {add_ms:.4f} ms, bound {b[0]:.5f} ms")
+        if case == "default":
+            results["sketch_fold"].update(
+                ms=k_ms, plain_ms=p_ms, library_ms=topk_ms, index_add_ms=add_ms, bound=b,
+                library_call=f"torch.topk(k={c}) over the {c + SK_S} merged counts (the top-C step only); "
+                             "index_add_ms: Tensor.index_add_ of the count-min adds",
+                shape=f"depth {d}, width {w}, {c} candidates, S={SK_S} distinct keys",
+            )
+        else:
+            results["sketch_fold"][f"{case}_ms"] = k_ms
+        del base, sk, scratch, m_cnt, flat, wt
+        torch.cuda.empty_cache()
+    results["sketch_fold"]["max_abs_err"] = err
+
+
+# ---------------------------------------------------------------------------
+# phase 2e: K12, the token server's decision, against its plain version
+# ---------------------------------------------------------------------------
+
+TD_FLOWS, TD_NS, TD_B = 1 << 16, 16, 1 << 14  # flows, namespaces, requests per batch
+
+
+def token_batch(rng, counts: np.ndarray):
+    """One batch of a token server's stream: Zipf(1.1) flow ids, acquire
+    1-3, the flow's count as its threshold, the reference's default
+    namespace guard (30,000 QPS). Namespace 0 holds the even flows (half
+    the traffic, so its guard trips), the other 15 share the odd ones."""
+    flow = np.minimum(rng.zipf(1.1, TD_B), TD_FLOWS) - 1
+    ns = np.where(flow % 2 == 0, 0, 1 + (flow // 2) % (TD_NS - 1))
+    arrays = (flow.astype(np.int32), (TD_FLOWS + ns).astype(np.int32),
+              rng.integers(1, 4, TD_B).astype(np.int32), counts[flow], np.full(TD_B, 30000.0, np.float32),
+              np.ones(TD_B, bool))
+    return [torch.from_numpy(a).to(DEV) for a in arrays]
+
+
+def token_bytes(state, arrays, admitted) -> float:
+    """Least bytes of one decision: each request's six inputs read and three
+    outputs written; each distinct flow and namespace row's ten bucket
+    starts and PASS counts read; each charged row's bucket written."""
+    rows, ns_rows = arrays[0], arrays[1]
+    touched = torch.unique(torch.cat([rows, ns_rows])).numel()
+    charged = torch.unique(torch.cat([rows[admitted], ns_rows[admitted & (ns_rows >= 0)]])).numel()
+    b = rows.numel()
+    return b * (4 + 4 + 4 + 4 + 4 + 1) + b * (1 + 1 + 4) + touched * 10 * 8 + charged * (4 * NUM_EVENTS + 8)
+
+
+def phase2_token(results: dict) -> None:
+    log(f"phase 2e: K12 (the token decision) against its plain version: {TD_FLOWS:,} flows in {TD_NS} namespaces, "
+        f"batches of {TD_B:,}, 2 s of clock in 50 ms steps; the atomic variant; K2 and K3 on the 10 x 100 ms "
+        "geometry")
+    rng = np.random.default_rng(25)
+    counts = rng.integers(50, 501, TD_FLOWS).astype(np.float32)
+    nrows = TD_FLOWS + TD_NS
+    kern = ma.make_state(nrows, tts.CLUSTER_CFG, DEV)
+    plain = ma.make_state(nrows, tts.CLUSTER_CFG, DEV)
+    status = np.zeros(3, dtype=np.int64)  # OK, BLOCKED, TOO_MANY_REQUEST
+    err = 0
+    for step in range(40):
+        arrays = token_batch(rng, counts)
+        now = 1000 + 50 * step
+        if step == 20:
+            # K3 and K2 on the cluster geometry, on this stream's state.
+            both = torch.cat([arrays[0], arrays[1]])
+            err3 = require_equal(ma.window_reduce_plain(tts.CLUSTER_CFG, kern, now, both),
+                                 ma.window_reduce(tts.CLUSTER_CFG, kern, now, both), "window_sums (cluster)")
+            d = torch.zeros((2 * TD_B, NUM_EVENTS), dtype=I32, device=DEV)
+            d[:, 0] = torch.cat([arrays[2], arrays[2]])
+            ts_ = torch.full((2 * TD_B,), now, dtype=I32, device=DEV)
+            mask = torch.rand(2 * TD_B, device=DEV) < 0.7
+            err2 = require_equal(ma.update_plain(tts.CLUSTER_CFG, clone(kern), both, ts_, d, None, mask),
+                                 ma.update(tts.CLUSTER_CFG, clone(kern), both, ts_, d, None, mask),
+                                 "window_update (cluster)")
+            results["window_sums"]["max_abs_err"] = max(results["window_sums"].get("max_abs_err", 0), err3)
+            results["window_update"]["max_abs_err"] = max(results["window_update"].get("max_abs_err", 0), err2)
+            log("  K3 (2 x 16,384 gathered rows) and K2 (32,768 PASS updates) on the 10 x 100 ms geometry equal "
+                "their plain versions")
+            t_state, t_arrays, t_now = clone(kern), arrays, now
+        want = tts.batch_decide_plain(plain, *arrays, now)
+        got = tts.batch_decide(kern, *arrays, now)
+        err = max(err, require_equal(want, got, f"token_decide (step {step})"),
+                  require_equal(plain, kern, f"token_decide state (step {step})"))
+        adm, ns_ok = got[0], got[1]
+        status += [int(adm.sum()), int((ns_ok & ~adm).sum()), int((~ns_ok).sum())]
+    log(f"  40 batches equal (max abs err 0): OK {status[0]:,}, BLOCKED {status[1]:,}, "
+        f"TOO_MANY_REQUEST {status[2]:,}")
+    if (status == 0).any():
+        fail(f"phase 2e: the stream did not show OK, BLOCKED and TOO_MANY_REQUEST: {status.tolist()}")
+    # (b) the atomic variant: 8,192 values of one flow.
+    b = 8192
+    for over in (True, False):
+        rows = np.arange(b, dtype=np.int32)
+        if over:
+            rows[-1] = 0  # a value over its budget of 1
+        arrays = [torch.from_numpy(a).to(DEV) for a in (rows, np.full(b, -1, np.int32), np.ones(b, np.int32),
+                                                         np.ones(b, np.float32), np.zeros(b, np.float32),
+                                                         np.ones(b, bool))]
+        st_k = ma.make_state(b, tts.CLUSTER_CFG, DEV)
+        st_p = clone(st_k)
+        want = tts.batch_decide_plain(st_p, *arrays, 700, atomic=True)
+        got = tts.batch_decide(st_k, *arrays, 700, atomic=True)
+        err = max(err, require_equal(want, got, f"token_decide atomic (over={over})"),
+                  require_equal(st_p, st_k, f"token_decide atomic state (over={over})"))
+        charged = int(st_k.counts.sum())
+        log(f"  atomic, {'one value over budget' if over else 'all within budget'}: equal; "
+            f"{int(got[0].sum()):,} admitted, {charged:,} charged")
+        if charged != (0 if over else b):
+            fail(f"phase 2e: the atomic batch (over={over}) charged {charged}")
+    scratch = clone(t_state)
+    k_ms = time_ms(lambda: tts.batch_decide(scratch, *t_arrays, t_now))
+    p_ms = time_ms(lambda: tts.batch_decide_plain(scratch, *t_arrays, t_now), iters=5)
+    adm = tts.batch_decide_plain(clone(t_state), *t_arrays, t_now)[0]
+    results["token_decide"].update(
+        ms=k_ms, plain_ms=p_ms, library_ms=None, max_abs_err=err, bound=bound(token_bytes(t_state, t_arrays, adm)),
+        shape=f"B={TD_B} requests over {TD_FLOWS} flows in {TD_NS} namespaces (K3 gather, the decision, K2 commit)",
+    )
+    log(f"  timing (batch 21): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    del kern, plain, scratch, t_state
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the engine with the sketch tier armed
+# ---------------------------------------------------------------------------
+
+SK_STEPS = 40  # 100 ms each: 4 simulated seconds
+SK_VALUES = 8192  # distinct cold values of the sketch-mode rule per flush
+SK_NAMES = 100_000  # unconfigured resource names
+SK_RES_N = 1024  # unconfigured-resource entries per flush
+SKETCH_SETTINGS = {
+    "sentinel.tpu.sketch.enabled": "true",
+    "sentinel.tpu.sketch.width": "65536",  # ~12,000 keys a flush: the default 2,048 counters would saturate
+    "sentinel.tpu.sketch.promote.qps": "20",
+    "sentinel.tpu.sketch.resource.qps": "100",
+    "sentinel.tpu.sketch.cold.qps": "60",
+    "sentinel.tpu.sketch.promote.max": "24",
+    "sentinel.tpu.sketch.demote.windows": "1",
+}
+
+
+def drive_sketch_engine(device: torch.device, seed: int):
+    """An engine stream with the sketch tier armed: a sketch-mode param rule
+    on "api" over 8,192 new values per flush plus 16 hot values (hot for the
+    first second, then gone: they promote, then decay and demote), and from
+    the sixth flush on unconfigured resources drawn from a Zipf(1.1) law over
+    100,000 names (past the 6,000-resource cap) under resource promotion
+    (the promotion budget of 24 fills) and the cold ceiling; 40 flushes over
+    4 simulated seconds. Returns (records, sketch state, host twin,
+    promotions, stats, seconds per flush call)."""
+    from sentinel_tpu_torch.utils.config import config
+
+    clock = tclock.ManualClock(0)
+    for key, value in SKETCH_SETTINGS.items():
+        config.set(key, value)
+    try:
+        api.reset(clock=clock, device=device)
+    finally:
+        config.reset()
+    eng = api.get_engine()
+    st.param_flow_rule_manager.load_rules([st.ParamFlowRule("api", param_idx=0, count=5, sketch_mode=True)])
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, SK_NAMES + 1, dtype=np.float64) ** -1.1
+    p = ranks / ranks.sum()
+    hot = [f"hot{i}" for i in range(16)]
+    records, promos = [], []
+    flush_s = 0.0
+    for step in range(SK_STEPS):
+        now = 1000 + step * 100
+        clock.set_ms(now)
+        col = [(f"v{step}-{j}",) for j in range(SK_VALUES)]
+        if step < 10:
+            col += [(h,) for h in hot for _ in range(8)]
+        groups = [eng.submit_bulk("api", len(col), ts=now, args_column=col)]
+        singles = [eng.submit_entry("api", ts=now, args=(hot[step % 16],))]
+        if step >= 5:
+            names, n = np.unique(rng.choice(SK_NAMES, size=SK_RES_N, p=p), return_counts=True)
+            groups += [eng.submit_bulk(f"u{int(r)}", int(c), ts=now) for r, c in zip(names, n)]
+            singles.append(eng.submit_entry(f"u{int(names[0])}", ts=now))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.flush()
+        flush_s += time.perf_counter() - t0
+        for g in groups:
+            records += ([None] if g is None else [g.admitted, g.reason])
+        records.append(np.array([None if o is None else _verdict_record(o.verdict) for o in singles], dtype=object))
+        tier = eng.sketch
+        promos.append((sorted(tier.promoted_values.get("api", ())), sorted(tier._promoted_res), tier.cold_blocks,
+                       tier.candidates_snapshot(64)))
+    state = tsk.sketch_state_to_numpy(eng.sketch.dev_state)
+    twin = eng.sketch._host_cm.copy()
+    stats = nodes.stats_to_numpy(eng.stats)
+    return records, state, twin, promos, stats, flush_s / SK_STEPS
+
+
+def phase4_sketch(results: dict, cpu_jobs: dict) -> None:
+    log(f"phase 4d: the sketch tier through the engine ({SK_STEPS} flushes over 4 simulated s: a sketch-mode param "
+        f"rule over {SK_VALUES:,} new values per flush plus 16 hot ones, Zipf(1.1) resources over "
+        f"{SK_NAMES:,} names under resource promotion and the cold ceiling)")
+    wrappers = {"sketch_fold": tsk.sketch_fold, "flow_admission": flush.flow_admission, "run_param": tpt.run_param}
+    for w in wrappers.values():
+        w.launches = 0
+    gpu = drive_sketch_engine(DEV, seed=7)
+    counts = {name: w.launches for name, w in wrappers.items()}
+    log(f"  card: {gpu[5] * 1e3:.3f} ms per flush call (host encode, key stream and verdict copy included)")
+    log(f"  launches on the path: {counts}")
+    if counts["sketch_fold"] <= 0:
+        fail("kernel sketch_fold was not launched on the sketch path")
+    results["sketch_fold"]["launches"] = counts["sketch_fold"]
+    cpu = cpu_result(cpu_jobs, "4d")
+    log(f"  CPU engine (plain versions, in a worker process): {cpu[5] * 1e3:.3f} ms per flush call")
+    if len(gpu[0]) != len(cpu[0]) or any(
+        (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)) for a, b in zip(gpu[0], cpu[0])
+    ):
+        fail("sketch engine verdicts differ between the card and the CPU")
+    for name, a, b in zip(("count-min", "candidate ids", "candidate counts"), gpu[1], cpu[1]):
+        if not np.array_equal(a, b):
+            fail(f"sketch engine {name} differ between the card and the CPU")
+    if not np.array_equal(gpu[2], cpu[2]):
+        fail("sketch engine host twin differs between the card and the CPU")
+    if gpu[3] != cpu[3]:
+        fail("sketch engine promotions, cold blocks or candidate tables differ between the card and the CPU")
+    for name in gpu[4]._fields:
+        a, b = getattr(gpu[4], name), getattr(cpu[4], name)
+        for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+            if not np.array_equal(x, y):
+                fail(f"sketch engine stats {name} differ between the card and the CPU")
+    peak_vals = max(len(v) for v, _, _, _ in gpu[3])
+    final_vals, final_res, cold, _ = gpu[3][-1]
+    log(f"  verdicts, count-min, candidate tables, host twin, promotions and stats identical on card and CPU; "
+        f"up to {peak_vals} values promoted (at the end {len(final_vals)}), {len(final_res)} resources promoted, "
+        f"{cold:,} entries refused by the cold ceiling")
+    if peak_vals < 16 or len(final_vals) >= peak_vals or not final_res or cold <= 0:
+        fail("phase 4d: the stream did not promote the 16 hot values, demote them, promote a resource and refuse "
+             "cold entries")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: examples/cluster_demo.py through the embedded token service
+# ---------------------------------------------------------------------------
+
+CLUSTER_DEMO = ["OK"] * 3 + ["BLOCKED"] * 2 + ["OK", "OK", "BLOCKED", "RELEASE_OK", "OK"]
+
+
+def drive_cluster_engine(device: torch.device, seed: int):
+    """st.entry calls on cluster-mode QPS, THREAD and param rules (and a
+    local rule beside the QPS one) through the embedded token service,
+    over 3 simulated seconds. Returns (records, held tokens at the end)."""
+    clock = tclock.ManualClock(0)
+    prev = tclock.set_default_clock(clock)
+    api.reset(clock=clock, device=device)
+    svc = tcl.DefaultTokenService(clock=clock, device=device)
+    tcl.cluster_flow_rule_manager.clear()
+    def cfg(fid, **kw):
+        return ClusterFlowConfig(flow_id=fid, threshold_type=C.FLOW_THRESHOLD_GLOBAL, **kw)
+
+    qps = st.FlowRule("cq", count=40, cluster_mode=True, cluster_config=cfg(501))
+    thr = st.FlowRule("ct", count=6, grade=C.FLOW_GRADE_THREAD, cluster_mode=True,
+                      cluster_config=cfg(502, fallback_to_local_when_fail=False))
+    par = st.ParamFlowRule("cp", param_idx=0, count=5, cluster_mode=True, cluster_config=cfg(503))
+    tcl.cluster_flow_rule_manager.load_rules("default", [qps, thr, par])
+    tcl.EmbeddedClusterTokenServerProvider.register(svc)
+    tcl.ClusterStateManager.set_to_server()
+    try:
+        st.flow_rule_manager.load_rules([qps, thr, st.FlowRule("cq", count=30)])
+        st.param_flow_rule_manager.load_rules([par])
+        rng = np.random.default_rng(seed)
+        records, held = [], []
+        for step in range(600):
+            clock.set_ms(100 + step * 5)
+            kind = int(rng.integers(0, 3))
+            resource = ("cq", "ct", "cp")[kind]
+            try:
+                e = st.entry(resource, args=(f"v{int(rng.integers(0, 8))}",) if kind == 2 else ())
+                records.append((resource, "pass"))
+                if kind == 1:
+                    held.append(e)
+                else:
+                    e.exit()
+            except st.BlockError as exc:
+                records.append((resource, type(exc).__name__))
+            if len(held) > 4 or (held and rng.random() < 0.3):
+                held.pop(0).exit()
+        records.append(json.dumps(svc.flow_stats(), sort_keys=True))
+        return records, svc.concurrent.now_calls(502)
+    finally:
+        tcl.ClusterStateManager.stop()
+        tcl.EmbeddedClusterTokenServerProvider.clear()
+        tcl.cluster_flow_rule_manager.clear()
+        tclock.set_default_clock(prev)
+
+
+def phase8(results: dict, cpu_jobs: dict) -> None:
+    log("phase 8: examples/cluster_demo.py's sequence through the embedded DefaultTokenService on the card, then "
+        "an st.entry stream on cluster-mode QPS, THREAD and param rules")
+    clock = tclock.ManualClock(0)
+    svc = tcl.DefaultTokenService(clock=clock, device=DEV)
+    cfg = ClusterFlowConfig
+    tcl.cluster_flow_rule_manager.load_rules("default", [
+        st.FlowRule("api", count=3, cluster_mode=True,
+                    cluster_config=cfg(flow_id=100, threshold_type=C.FLOW_THRESHOLD_GLOBAL)),
+        st.FlowRule("job", count=2, grade=C.FLOW_GRADE_THREAD, cluster_mode=True, cluster_config=cfg(flow_id=200)),
+    ])
+    lines = [svc.request_token(100).status.name for _ in range(5)]
+    t1, t2, t3 = (svc.request_concurrent_token(200) for _ in range(3))
+    lines += [t1.status.name, t2.status.name, t3.status.name]
+    lines.append(svc.release_concurrent_token(t1.token_id).status.name)
+    lines.append(svc.request_concurrent_token(200).status.name)
+    tcl.cluster_flow_rule_manager.clear()
+    log(f"  global QPS tokens (count=3): {lines[:5]}; held tokens (count=2): acquire x3 {lines[5:8]}, "
+        f"release {lines[8]}, acquire again {lines[9]}")
+    if lines != CLUSTER_DEMO:
+        fail(f"cluster demo lines {lines} != {CLUSTER_DEMO}")
+    tts.batch_decide.launches = 0
+    gpu, held_gpu = drive_cluster_engine(DEV, seed=8)
+    launches = tts.batch_decide.launches
+    log(f"  launches of token_decide on the stream: {launches}")
+    if launches <= 0:
+        fail("kernel token_decide was not launched on the embedded token service's path")
+    results["token_decide"]["launches"] = launches
+    cpu, held_cpu = cpu_result(cpu_jobs, "8")
+    if gpu != cpu or held_gpu != held_cpu:
+        fail("cluster engine verdicts or the server's view differ between the card and the CPU")
+    seen = sorted({r[1] for r in gpu[:-1]})
+    log(f"  {len(gpu) - 1} st.entry verdicts and the server's flow_stats identical on card and CPU; outcomes {seen}")
+    if not {"pass", "FlowBlockError", "ParamFlowBlockError"} <= set(seen):
+        fail(f"phase 8: the stream did not pass and block on flow and param rules: {seen}")
+
+
 def _cpu_worker() -> None:
     """A worker of WORKERS: its helpers build their inputs on the CPU."""
     global DEV
@@ -1762,6 +2203,8 @@ def start_cpu_jobs() -> dict:
         "heavy shaping": WORKERS.apply_async(heavy_plain, ("shaping",)),
         "4": WORKERS.apply_async(drive_engine, (cpu, 4)),
         "4b": WORKERS.apply_async(drive_chain_engine, (cpu, 5)),
+        "4d": WORKERS.apply_async(drive_sketch_engine, (cpu, 7)),
+        "8": WORKERS.apply_async(drive_cluster_engine, (cpu, 8)),
     }
 
 
@@ -1780,7 +2223,8 @@ def main() -> None:
     cpu_jobs = start_cpu_jobs()
     t0 = time.perf_counter()
     cuda_build.build_all(["window_update", "flow_admission", "system_check", "breaker_on_exits",
-                          "breaker_try_pass", "commit_borrow_slab", "shaping_scan", "param_scan"])
+                          "breaker_try_pass", "commit_borrow_slab", "shaping_scan", "param_scan", "sketch_fold",
+                          "token_decide"])
     log(f"  CUDA kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
 
     meta = {
@@ -1808,6 +2252,9 @@ def main() -> None:
         "run_shaping": ("cuda", "sentinel_tpu_torch/csrc/shaping_scan.cu", "sentinel_tpu/rules/shaping.py:152"),
         "shaping_inputs": ("cuda", "sentinel_tpu_torch/csrc/shaping_scan.cu", "sentinel_tpu/runtime/flush.py:583"),
         "run_param": ("cuda", "sentinel_tpu_torch/csrc/param_scan.cu", "sentinel_tpu/rules/param_table.py:242"),
+        "sketch_fold": ("cuda", "sentinel_tpu_torch/csrc/sketch_fold.cu", "sentinel_tpu/runtime/sketch.py:191"),
+        "token_decide": ("cuda", "sentinel_tpu_torch/csrc/token_decide.cu",
+                         "sentinel_tpu/cluster/token_service.py:95"),
     }
     results = {name: {} for name in meta}
     took = {"1": round(time.perf_counter() - t_start, 1)}
@@ -1815,7 +2262,9 @@ def main() -> None:
         ("2", lambda: phase2(results)), ("2b", lambda: phase2_chain(results)), ("3", phase3),
         ("2c", lambda: phase2_shaping_param(results, cpu_jobs)),
         ("4", lambda: phase4(results, cpu_jobs)), ("4b", lambda: phase4_chain(results, cpu_jobs)),
-        ("4c", lambda: phase4_shaping(results, cpu_jobs)), ("5", phase5), ("6", phase6), ("7", phase7),
+        ("2d", lambda: phase2_sketch(results)), ("2e", lambda: phase2_token(results)),
+        ("4c", lambda: phase4_shaping(results, cpu_jobs)), ("4d", lambda: phase4_sketch(results, cpu_jobs)),
+        ("5", phase5), ("6", phase6), ("7", phase7), ("8", lambda: phase8(results, cpu_jobs)),
     ):
         t0 = time.perf_counter()
         run()
@@ -1833,7 +2282,8 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"], "shape": r["shape"],
         }
-        for extra in ("library_call", "zipf_ms", "zipf_plain_ms", "heavy_ms"):
+        for extra in ("library_call", "zipf_ms", "zipf_plain_ms", "heavy_ms", "index_add_ms", "widened_ms",
+                      "ties_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

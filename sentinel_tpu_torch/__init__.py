@@ -7,12 +7,14 @@ slot chain so far: the public entry API, flow rules with every
 controller (DEFAULT, with prioritized entries borrowing future windows;
 the rate limiter, warm-up and warm-up rate limiter), hot-parameter
 rules, circuit breakers, system protection and authority rules, the
-batched engine at pipeline depth 0, and the flush step whose kernels
-(window update, window sums, matured-borrow sweep, flow admission with
-occupy, borrow commit, system check, breakers, shaping and hot-parameter
-recurrences, verdict tail) are hand-written for Hopper in CUDA C++ and
-Triton. Features not ported yet raise
-``NotImplementedError``.
+batched engine at pipeline depth 0, the statistics sketch tier
+(``sentinel.tpu.sketch.enabled``), the embedded cluster token service
+(``sentinel_tpu_torch.cluster``, server mode), and the flush step whose
+kernels (window update, window sums, matured-borrow sweep, flow admission
+with occupy, borrow commit, system check, breakers, shaping and
+hot-parameter recurrences, verdict tail, sketch fold; the token service's
+decision pass beside them) are hand-written for Hopper in CUDA C++ and
+Triton. Features not ported yet raise ``NotImplementedError``.
 
     import sentinel_tpu_torch as st
 

@@ -21,7 +21,7 @@ from typing import Callable, Optional, Sequence, Tuple
 from sentinel_tpu_torch.core import errors as E
 from sentinel_tpu_torch.core.context import Context, ContextUtil
 from sentinel_tpu_torch.models import constants as C
-from sentinel_tpu_torch.runtime.engine import Engine, Verdict
+from sentinel_tpu_torch.runtime.engine import Engine, Verdict, release_cluster_tokens
 from sentinel_tpu_torch.utils.clock import Clock
 from sentinel_tpu_torch.utils.device import DeviceLike
 
@@ -120,6 +120,7 @@ class Entry:
         pass_through: bool = False,
         verdict: Optional[Verdict] = None,
         param_rows: Sequence[int] = (),
+        cluster_tokens: Sequence = (),
     ) -> None:
         self.resource = resource
         self.rows = rows
@@ -132,6 +133,9 @@ class Entry:
         self.error: Optional[BaseException] = None
         self.pass_through = pass_through
         self.param_rows = tuple(param_rows)  # per-value thread gauges to release
+        # Held cluster concurrency tokens [(service, token_id)], released at
+        # exit (the reference's releaseConcurrentToken on completion).
+        self.cluster_tokens = list(cluster_tokens)
         self._exited = False
 
     def set_error(self, e: BaseException) -> None:
@@ -162,6 +166,9 @@ class Entry:
                 self.rows, rt=rt, count=count if count is not None else self.acquire,
                 err=err, resource=self.resource, param_rows=self.param_rows,
             )
+        if self.cluster_tokens:
+            release_cluster_tokens(self.cluster_tokens)
+            self.cluster_tokens = []
         ctx = self.context
         if ctx is not None and ctx.entry_stack and ctx.entry_stack[-1] is self:
             ctx.entry_stack.pop()
@@ -213,7 +220,8 @@ def _do_entry(
         # (RateLimiterController.java:80, DefaultController.java:66); here
         # the wait surfaces after the batched decision.
         engine.clock.sleep_ms(verdict.wait_ms)
-    e = Entry(resource, op.rows, ctx, op.ts, acquire, verdict=verdict, param_rows=op.param_thread_rows)
+    e = Entry(resource, op.rows, ctx, op.ts, acquire, verdict=verdict, param_rows=op.param_thread_rows,
+              cluster_tokens=op.cluster_tokens)
     ctx.entry_stack.append(e)
     return e, verdict
 

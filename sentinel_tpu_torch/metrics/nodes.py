@@ -405,6 +405,19 @@ class NodeRegistry:
             self._n_contexts += 1
             return self._alloc(key)
 
+    def promote_cluster_row(self, resource: str) -> int:
+        """Cluster-row allocation that ignores the resource cap: the sketch
+        tier's promotion grant for an over-cap heavy hitter. Rows are never
+        released, so the tier budgets its grants (8x ``promote.max``,
+        ``SketchTier._cap_grants``)."""
+        key = NodeKind.CLUSTER + ":" + resource
+        with self._lock:
+            row = self._rows.get(key)
+            if row is not None:
+                return row
+            self._n_resources += 1
+            return self._alloc(key)
+
     def lookup_cluster_row(self, resource: str) -> Optional[int]:
         with self._lock:
             return self._rows.get(NodeKind.CLUSTER + ":" + resource)

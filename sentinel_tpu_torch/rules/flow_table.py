@@ -20,6 +20,7 @@ import torch
 from sentinel_tpu_torch.metrics.nodes import NodeRegistry
 from sentinel_tpu_torch.models import constants as C
 from sentinel_tpu_torch.models.rules import FlowRule
+from sentinel_tpu_torch.utils.device import DeviceLike, resolve_device
 from sentinel_tpu_torch.utils.numeric import pad_pow2 as _pad_pow2
 from sentinel_tpu_torch.utils.record_log import record_log
 
@@ -110,9 +111,10 @@ class FlowIndex:
     """Host-side compiled view of the active flow rules."""
 
     def __init__(
-        self, rules: Sequence[FlowRule], cold_factor: int = 3, device="cpu"
+        self, rules: Sequence[FlowRule], cold_factor: int = 3, device: DeviceLike = None
     ) -> None:
-        self.torch_device = torch.device(device)
+        # None means the card, as for the engine (no silent CPU).
+        self.torch_device = resolve_device(device)
         # (resource, context, origin) -> resolved slots; see resolve_slots.
         self._slot_cache: Dict[Tuple[str, str, str], List[Tuple[int, int]]] = {}
         valid: List[FlowRule] = []
@@ -160,6 +162,9 @@ class FlowIndex:
         }
         self.has_shaping = bool(self.shaping_gids)
         self._shaping_mirror_cache: Dict[int, tuple] = {}
+        # Cluster-mode rules route through the token service
+        # (FlowRuleChecker.passClusterCheck) instead of the local check.
+        self.cluster_gids = {cr.gid: cr.rule for cr in self.rules if cr.rule.cluster_mode}
 
     def _build_device(self) -> FlowTableDevice:
         n = _pad_pow2(len(self.rules))
@@ -303,6 +308,15 @@ class FlowIndex:
         if 0 <= gid < len(self.rules):
             return self.rules[gid].rule
         return None
+
+    def get_rules(self) -> List[FlowRule]:
+        return [cr.rule for cr in self.rules]
+
+    def user_rules(self) -> List[FlowRule]:
+        """The rules without the sketch tier's synthetics (``from_sketch``):
+        the base a promotion or demotion rebuild puts its synthetic guards
+        on (runtime/sketch.py)."""
+        return [cr.rule for cr in self.rules if not getattr(cr.rule, "from_sketch", False)]
 
     def mirror_shaping_info(self, gid: int):
         """``(rule, behavior, count, max_queueing_time_ms, cost1_ms,

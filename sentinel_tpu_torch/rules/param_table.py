@@ -45,6 +45,7 @@ from sentinel_tpu_torch.models.rules import ParamFlowRule
 from sentinel_tpu_torch.rules.recurrence import run_segmented, sort_order
 from sentinel_tpu_torch.utils import cuda_build
 from sentinel_tpu_torch.utils.config import config
+from sentinel_tpu_torch.utils.device import DeviceLike, resolve_device
 from sentinel_tpu_torch.utils.numeric import add_i32, mul_i32, sub_i32
 from sentinel_tpu_torch.utils.record_log import record_log
 
@@ -57,8 +58,6 @@ PARAM_CLOSED_MAX_SEGMENTS = 8
 # Cache-miss marker of the resolved-value fast path (identity compare).
 _MISS = object()
 _NO_TRIP = (0, 0, 0)
-
-_ROADMAP_SKETCH = "ROADMAP Queue 1 item 6 (sketch tier)"
 
 
 class ArgsColumns:
@@ -94,8 +93,10 @@ class ParamDynState(NamedTuple):
     threads: torch.Tensor  # int32 [PR]
 
 
-def make_param_state(n_rows: int, device="cpu") -> ParamDynState:
-    dev = torch.device(device)
+def make_param_state(n_rows: int, device: DeviceLike = None) -> ParamDynState:
+    """Fresh param state on ``device``; None means the card, as for the
+    engine (``utils/device.resolve_device``: no silent CPU)."""
+    dev = resolve_device(device)
     return ParamDynState(
         tokens=torch.zeros((n_rows,), dtype=torch.int32, device=dev),
         last_add=torch.full((n_rows,), PARAM_NEVER, dtype=torch.int32, device=dev),
@@ -403,10 +404,12 @@ def _run_param_cuda(dyn: ParamDynState, pb: ParamBatch, rounds: int):
 class ParamIndex:
     """Host-side compiled hot-param rules and per-rule value interning.
 
-    ``sketch_tier`` (optional) would resolve sketch-mode rules through the
-    sketch tier; the tier is not ported, so an armed tier meeting a
-    sketch-mode rule raises. Without a tier (or disarmed) sketch-mode
-    rules dense-track every value, as in the JAX package."""
+    ``sketch_tier`` (runtime/sketch.SketchTier, optional) activates
+    sketch-native resolution for rules with ``sketch_mode=True``: cold
+    values get no dense row (they pass, and the device sketch tracks
+    them); only values in the tier's promoted set intern into exact rows.
+    Without a tier (or with it disarmed) sketch-mode rules dense-track
+    every value, as in the JAX package."""
 
     def __init__(self, by_resource: Dict[str, List[ParamFlowRule]], sketch_tier=None) -> None:
         self.by_resource: Dict[str, List[Tuple[int, ParamFlowRule]]] = {}
@@ -418,14 +421,21 @@ class ParamIndex:
                 self.rules.append(r)
                 lst.append((gid, r))
             self.by_resource[res] = lst
+        self._sketch_tier = sketch_tier
         self.sketch_gids = {
             gid for lst in self.by_resource.values() for gid, r in lst if getattr(r, "sketch_mode", False)
         }
-        if self.sketch_gids and sketch_tier is not None and getattr(sketch_tier, "armed", False):
-            raise NotImplementedError(
-                f"sentinel_tpu_torch: sketch-mode param rules with an armed sketch tier are not ported yet "
-                f"({_ROADMAP_SKETCH})"
-            )
+        # resource -> sorted distinct param_idx of its sketch-mode rules:
+        # the key-extraction map the tier's encode walks.
+        self.sketch_idx_by_resource: Dict[str, Tuple[int, ...]] = {}
+        if sketch_tier is not None and getattr(sketch_tier, "armed", False):
+            for res, lst in self.by_resource.items():
+                idxs = sorted(
+                    {r.param_idx for _g, r in lst if getattr(r, "sketch_mode", False) and r.param_idx is not None}
+                )
+                if idxs:
+                    self.sketch_idx_by_resource[res] = tuple(idxs)
+        self._sketch_filtering = bool(self.sketch_idx_by_resource)
         # gid -> {value_key -> prow}; LRU by insertion-move.
         self._values: List[Dict[str, int]] = [dict() for _ in self.rules]
         # Per-rule resolved-value cache: value_key -> (prow, token_count, cost_ms).
@@ -537,11 +547,18 @@ class ParamIndex:
         for gid, r in self.by_resource.get(resource, ()):
             if r.param_idx is None or r.param_idx >= len(args):
                 continue
+            promoted = None
+            if self._sketch_filtering and gid in self.sketch_gids:
+                # Sketch-native rule: only promoted heavy hitters get a
+                # dense slot; cold values pass (the sketch tracks them).
+                promoted = self._sketch_tier.promoted_values.get(resource)
+                if not promoted:
+                    continue
             value = args[r.param_idx]
             values = list(value) if isinstance(value, (list, tuple, set, frozenset)) else [value]
             for v in values:
                 key = self._value_key(v)
-                if key is None:
+                if key is None or (promoted is not None and key not in promoted):
                     continue
                 tc, cost = self._threshold_and_cost(gid, r, key)
                 out.append(
@@ -593,6 +610,8 @@ class ParamIndex:
         if values is None:
             z = np.zeros(n, dtype=np.int32)
             return np.zeros(n, dtype=bool), z, z.copy(), z.copy()
+        if self._sketch_filtering and gid in self.sketch_gids:
+            return self._resolve_value_col_sketch(gid, r, values, n)
         if not self._use_value_cache:
             return self._resolve_value_col_exact(gid, r, values, n)
         rget = self._resolved[gid].get
@@ -644,6 +663,35 @@ class ParamIndex:
         else:
             arr = np.array([t if t is not None else _NO_TRIP for t in trips], dtype=np.int32).reshape(n, 3)
         return valid, arr[:, 0], arr[:, 1], arr[:, 2]
+
+    def _resolve_value_col_sketch(self, gid, r, values, n):
+        """Sketch-native column resolve: only values in the tier's
+        promoted set intern into dense rows; every other value is invalid
+        (the rule passes it). With nothing promoted no per-value work
+        happens at all."""
+        promoted = self._sketch_tier.promoted_values.get(r.resource)
+        valid = np.zeros(n, dtype=bool)
+        z = np.zeros(n, dtype=np.int32)
+        if values is None or not promoted:
+            return valid, z, z.copy(), z.copy()
+        prow = np.zeros(n, dtype=np.int32)
+        tc = np.zeros(n, dtype=np.int32)
+        cost = np.zeros(n, dtype=np.int32)
+        rget = self._resolved[gid].get
+        for j, v in enumerate(values):
+            if v is None:
+                continue
+            if isinstance(v, (list, tuple, set, frozenset)):
+                return None  # collection expansion: per-entry path
+            key = v if type(v) is str else self._value_key(v)
+            if key is None or key not in promoted:
+                continue
+            trip = rget(key)
+            if trip is None:
+                trip = self._resolve_value(gid, r, key)
+            valid[j] = True
+            prow[j], tc[j], cost[j] = trip
+        return valid, prow, tc, cost
 
     def release_value(self, resource: str, key: str) -> None:
         """Drop a sketch-mode rule's dense row for ``key`` and queue its

@@ -12,8 +12,13 @@ The port runs the slot chain at pipeline depth 0: flow rules with every
 controller (DEFAULT, with prioritized entries borrowing future windows;
 RATE_LIMITER, WARM_UP, WARM_UP_RATE_LIMITER), hot-parameter rules,
 authority rules, system rules and circuit breakers; entries (with their
-args), bulk entries (with args columns), exits and traces. Everything else the JAX engine does is
-refused loudly with ``NotImplementedError`` naming its ROADMAP item (see
+args), bulk entries (with args columns), exits and traces; the sketch tier
+(``sentinel.tpu.sketch.enabled``: the fold K11 rides the flush, the
+promotion controller runs at every drain, and the cold ceilings refuse at
+submit); and cluster-mode flow and param rules decided by the embedded
+token service when this node is the token server (``cluster/``).
+Everything else the JAX engine does is refused loudly with
+``NotImplementedError`` naming its ROADMAP item (see
 ``_refuse_unported_config`` and the ``set_*`` methods), never ignored.
 
 Locking as in the JAX engine: ``_lock`` guards the pending buffers and
@@ -57,6 +62,7 @@ from sentinel_tpu_torch.rules.param_table import (
     make_param_state,
 )
 from sentinel_tpu_torch.rules.shaping import ShapingBatch
+from sentinel_tpu_torch.runtime.sketch import SketchBatch, SketchTier
 from sentinel_tpu_torch.runtime.flush import (
     SYS_TYPE_NAMES,
     TOPK_MAX,
@@ -72,7 +78,6 @@ from sentinel_tpu_torch.utils.numeric import pad_pow2 as _pad_pow2
 
 # ROADMAP items (Queue 1) that own what this slice refuses.
 _ROADMAP_PIPELINE = "ROADMAP Queue 1 item 1 (depth-K flush pipeline and flush_async)"
-_ROADMAP_SKETCH = "ROADMAP Queue 1 item 6 (sketch tier)"
 _ROADMAP_TIERS = "ROADMAP Queue 1 item 7 (engine tiers)"
 _ROADMAP_METRICS = "ROADMAP Queue 1 item 8 (metrics and observability)"
 _ROADMAP_CLUSTER = "ROADMAP Queue 1 item 9 (cluster token plane)"
@@ -81,7 +86,6 @@ _ROADMAP_MESH = "ROADMAP Queue 1 item 12 (multi-GPU)"
 
 # Switches the JAX engine honours that this slice does not have yet.
 _UNPORTED_SWITCHES = (
-    (config.SKETCH_ENABLED, _ROADMAP_SKETCH),
     (config.SPECULATIVE_ENABLED, _ROADMAP_TIERS),
     (config.FAILOVER_ENABLED, _ROADMAP_TIERS),
     (config.CAPTURE_ENABLED, _ROADMAP_TIERS),
@@ -100,6 +104,10 @@ def _refuse_unported_config() -> None:
             raise _unported(f"{key}=true", item)
     if config.get_int(config.PIPELINE_DEPTH, 0) > 0:
         raise _unported(f"{config.PIPELINE_DEPTH} > 0", _ROADMAP_PIPELINE)
+    if config.get_bool(config.SKETCH_ENABLED, False) and config.get_bool(config.GOSSIP_ENABLED, False):
+        # The tier merges peer frames (SketchTier.merge_remote); the agent
+        # that would carry them between engines is not ported.
+        raise _unported(f"{config.GOSSIP_ENABLED}=true (the gossip transport)", _ROADMAP_CLUSTER)
 
 
 class Verdict(NamedTuple):
@@ -126,6 +134,13 @@ class _EntryOp:
     args: Tuple[object, ...] = ()
     src: Optional[tuple] = None  # the (flow, degrade, param) indexes the ids were resolved against
     verdict: Optional[Verdict] = None
+    cluster_blocked_rule: Optional[object] = None  # the token server said BLOCKED for this rule
+    # Held cluster concurrency tokens [(service, token_id)] of THREAD-grade
+    # cluster rules: released at exit, or at once if the entry is blocked.
+    cluster_tokens: List[Tuple[object, int]] = field(default_factory=list)
+    # Cluster flow ids the token server already decided (OK or BLOCKED): a
+    # re-resolution after a rule reload must not re-add them as local slots.
+    token_decided_flow_ids: frozenset = frozenset()
 
     @property
     def param_thread_rows(self) -> List[int]:
@@ -204,6 +219,38 @@ class _ExitOp:
     src_dindex: Optional[DegradeIndex] = None
 
 
+def release_cluster_tokens(tokens: Sequence[Tuple[object, int]]) -> None:
+    """Best-effort release of held cluster concurrency tokens (host
+    bookkeeping, no kernel); a failed release is covered by the server's
+    resourceTimeout sweep."""
+    from sentinel_tpu_torch.utils.record_log import record_log
+
+    for service, token_id in tokens:
+        try:
+            service.release_concurrent_token(token_id)
+        except Exception:
+            record_log.warn("[Engine] release of cluster token %d failed", token_id)
+
+
+# A token request that fails in transport counts as FAIL (the rule falls
+# back to its local check when it allows it), as in the reference. Any
+# other error, such as a fault of the embedded service's kernel, propagates.
+_TOKEN_TRANSPORT_ERRORS = (OSError, TimeoutError)
+
+
+def _is_cluster_param_slot(s) -> bool:
+    """A param slot whose admission the token server owns: a QPS-grade
+    cluster-mode ParamFlowRule with a flow_id."""
+    r = s.rule
+    return (
+        isinstance(r, ParamFlowRule)
+        and r.cluster_mode
+        and r.grade == C.FLOW_GRADE_QPS
+        and r.cluster_config is not None
+        and r.cluster_config.flow_id is not None
+    )
+
+
 def _rounds_bucket(keys: np.ndarray) -> int:
     """Host-known max items per key of a recurrence batch, bucketed to a
     power of two and capped: above 16, 0 (every item; one key dominates)."""
@@ -258,6 +305,10 @@ class Engine:
         # engine keeps the last chunk's pair.
         self._blk_topk_k = self._blocked_topk_k()
         self.last_blocked_topk: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        # The statistics sketch tier (runtime/sketch.py): disarmed by
+        # default, one attribute read per call site; armed, its fold rides
+        # the flush and its candidate table the verdict copy.
+        self.sketch = SketchTier(self)
 
     @staticmethod
     def _blocked_topk_k() -> int:
@@ -284,54 +335,53 @@ class Engine:
     # ------------------------------------------------------------------
     def set_flow_rules(self, rules: Sequence[FlowRule]) -> None:
         findex = FlowIndex(rules, cold_factor=config.cold_factor, device=self.device)
-        for cr in findex.rules:
-            if cr.rule.cluster_mode:
-                raise _unported("cluster-mode flow rules", _ROADMAP_CLUSTER)
         with self._flush_lock:
-            self._flush_locked()  # pending ops are decided under the old rules
+            drained = self._flush_locked()  # pending ops are decided under the old rules
             with self._lock:
                 self.flow_index = findex
                 self.flow_dyn = findex.make_dyn_state()
+        _release_blocked_tokens(drained)
 
     def set_degrade_rules(self, rules: Sequence[DegradeRule]) -> None:
         """Breaker state is not carried across reloads: the reference
         builds fresh CircuitBreaker objects per load (DegradeRuleManager)."""
         dindex = DegradeIndex(rules, device=self.device)
         with self._flush_lock:
-            self._flush_locked()
+            drained = self._flush_locked()
             with self._lock:
                 self.degrade_index = dindex
                 self.degrade_dyn = dindex.make_dyn_state()
+        _release_blocked_tokens(drained)
 
     def set_param_rules(self, by_resource: Dict[str, List[ParamFlowRule]]) -> None:
         """A fresh value index and fresh param state on every reload, like
-        ParamFlowRuleManager clearing ParameterMetric."""
-        for rs in by_resource.values():
-            for r in rs:
-                if r.cluster_mode:
-                    raise _unported("cluster-mode hot-parameter rules", _ROADMAP_CLUSTER)
-        pindex = ParamIndex(by_resource)
+        ParamFlowRuleManager clearing ParameterMetric. Sketch-mode rules
+        resolve through the sketch tier when it is armed."""
+        pindex = ParamIndex(by_resource, sketch_tier=self.sketch)
         with self._flush_lock:
-            self._flush_locked()
+            drained = self._flush_locked()
             with self._lock:
                 self.param_index = pindex
                 self.param_dyn = make_param_state(8, self.device)
+        _release_blocked_tokens(drained)
 
     def set_system_config(self, cfg) -> None:
         with self._flush_lock:
-            self._flush_locked()
+            drained = self._flush_locked()
             with self._lock:
                 self.system_config = cfg if cfg is not None and cfg.any_enabled else None
                 if self.system_config is not None and (
                     self.system_config.highest_system_load >= 0 or self.system_config.highest_cpu_usage >= 0
                 ):
                     system_sampler.start()
+        _release_blocked_tokens(drained)
 
     def set_authority_rules(self, by_resource: Dict[str, AuthorityRule]) -> None:
         with self._flush_lock:
-            self._flush_locked()
+            drained = self._flush_locked()
             with self._lock:
                 self.authority_rules = dict(by_resource)
+        _release_blocked_tokens(drained)
 
     def _auth_ok(self, resource: str, origin: str) -> bool:
         rule = self.authority_rules.get(resource)
@@ -384,14 +434,20 @@ class Engine:
     ) -> Optional[_EntryOp]:
         """Enqueue an entry; None for pass-through (over the resource cap).
         ``prio`` entries may borrow a future window when over a QPS rule.
-        ``args`` are the invocation arguments hot-parameter rules check."""
+        ``args`` are the invocation arguments hot-parameter rules check.
+
+        With the sketch tier armed, an over-cap resource is noted in the
+        key stream, and the cold ceilings may refuse the entry at once
+        (BLOCK_SKETCH, never enqueued). Cluster-mode rules consult the
+        token service outside the engine lock (it may be remote in the
+        reference, FlowRuleChecker.passClusterCheck); the op is enqueued
+        after that, so no flush sees it half decided."""
         args = tuple(args)
         with self._lock:
-            rows = self.resolve_entry_rows(resource, context_name, origin, entry_type)
-            if rows is None:
-                return None
             findex, dindex, pindex = self.flow_index, self.degrade_index, self.param_index
-            op = _EntryOp(
+            cluster_gids = findex.cluster_gids
+            rows = self.resolve_entry_rows(resource, context_name, origin, entry_type)
+            op = None if rows is None else _EntryOp(
                 resource=resource,
                 ts=self.clock.now_ms() if ts is None else int(ts),
                 acquire=int(acquire),
@@ -406,11 +462,198 @@ class Engine:
                 args=args,
                 src=(findex, dindex, pindex),
             )
+        sk = self.sketch
+        if op is None:
+            # Over the cap: the one key class the encode never sees.
+            if sk.armed:
+                if sk.cold_armed and sk.cold_blocked(resource, findex, self.param_index):
+                    return self._blocked_cold(resource, context_name, origin, acquire)
+                sk.note_unrouted(resource, acquire)
+            return None
+        if sk.cold_armed and sk.cold_blocked(resource, findex, self.param_index):
+            return self._blocked_cold(resource, context_name, origin, acquire)
+        if (
+            sk.cold_armed
+            and op.args
+            and self.param_index.sketch_idx_by_resource
+            and sk.cold_value_blocked(resource, self.param_index, op.args)
+        ):
+            return self._blocked_cold(resource, context_name, origin, acquire, limit_type="cold_value")
+        if cluster_gids and any(gid in cluster_gids for gid, _ in op.slots):
+            self._apply_cluster_checks(op, cluster_gids)
+        if op.p_slots and any(s.rule is not None and s.rule.cluster_mode for s in op.p_slots):
+            self._apply_cluster_param_checks(op)
+        with self._lock:
             self._entries.append(op)
             over = len(self._entries) >= self.max_batch
         if over:
             self.flush()  # flush-on-size: the pending buffer is bounded
         return op
+
+    def _blocked_cold(
+        self, resource: str, context_name: str, origin: str, acquire: int, limit_type: str = "cold"
+    ) -> _EntryOp:
+        """A never-enqueued sketch cold-ceiling verdict (``limit_type``
+        "cold" for the resource ceiling, "cold_value" for the value
+        ceiling; the tier counted it). Nothing reaches the device, so no
+        gauge charges. The block-log row the JAX engine writes waits for
+        ROADMAP Queue 1 item 8."""
+        op = _EntryOp(
+            resource=resource, ts=self.clock.now_ms(), acquire=int(acquire), rows=(-1, -1, -1, -1), slots=[],
+            context_name=context_name, origin=origin,
+        )
+        op.verdict = Verdict(False, E.BLOCK_SKETCH, 0, None, limit_type)
+        return op
+
+    def _blocked_cold_bulk(self, resource: str, n: int, context_name: str, origin: str, acquire) -> BulkOp:
+        """Bulk form of :meth:`_blocked_cold`: dense all-refused arrays."""
+        g = BulkOp(
+            resource=resource, n=n, ts=np.full(n, self.clock.now_ms(), dtype=np.int32),
+            acquire=self._bulk_col(acquire, n, 1), rows=(-1, -1, -1, -1), slots=[], d_gids=[], auth_ok=True,
+            context_name=context_name, origin=origin,
+        )
+        g.admitted = np.zeros(n, dtype=bool)
+        g.reason = np.full(n, E.BLOCK_SKETCH, dtype=np.int32)
+        g.wait_ms = np.zeros(n, dtype=np.int32)
+        return g
+
+    # ------------------------------------------------------------------
+    # cluster-mode rules (the token service)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _cluster_token_service():
+        """The token service of this node's cluster role
+        (FlowRuleChecker.pickClusterService): the embedded server's
+        service in server mode, None otherwise (client mode is not
+        ported: ``ClusterStateManager.set_to_client`` raises)."""
+        from sentinel_tpu_torch.cluster.state import ClusterStateManager, EmbeddedClusterTokenServerProvider
+
+        if ClusterStateManager.is_server():
+            server = EmbeddedClusterTokenServerProvider.get_server()
+            return getattr(server, "service", server)
+        return None
+
+    def _apply_cluster_checks(self, op: _EntryOp, cluster_gids) -> None:
+        """applyTokenResult (FlowRuleChecker.java:207-230): OK passes the
+        rule (its local slot is dropped), SHOULD_WAIT paces then passes,
+        BLOCKED blocks, anything else falls back to the local check when
+        the rule allows it, else passes. THREAD-grade rules hold a
+        concurrency token instead (released at exit)."""
+        service = self._cluster_token_service()
+        wait = 0
+        kept = []
+        decided = set()
+        for gid, crow in op.slots:
+            rule = cluster_gids.get(gid)
+            if rule is None:
+                kept.append((gid, crow))
+                continue
+            cc = rule.cluster_config
+            if service is None:
+                if cc.fallback_to_local_when_fail:
+                    kept.append((gid, crow))
+                continue
+            if rule.grade == C.FLOW_GRADE_THREAD:
+                try:
+                    result = service.request_concurrent_token(cc.flow_id, op.acquire)
+                except _TOKEN_TRANSPORT_ERRORS:
+                    result = None
+                status = result.status if result is not None else C.TokenResultStatus.FAIL
+                if status == C.TokenResultStatus.OK:
+                    op.cluster_tokens.append((service, result.token_id))
+                    decided.add(cc.flow_id)
+                elif status == C.TokenResultStatus.BLOCKED:
+                    op.cluster_blocked_rule = rule
+                    decided.add(cc.flow_id)
+                elif cc.fallback_to_local_when_fail:
+                    kept.append((gid, crow))
+                continue
+            try:
+                result = service.request_token(cc.flow_id, op.acquire, op.prio)
+            except _TOKEN_TRANSPORT_ERRORS:
+                result = None
+            status = result.status if result is not None else C.TokenResultStatus.FAIL
+            if status == C.TokenResultStatus.OK:
+                decided.add(cc.flow_id)
+            elif status == C.TokenResultStatus.SHOULD_WAIT:
+                wait += int(result.wait_in_ms)
+                decided.add(cc.flow_id)
+            elif status == C.TokenResultStatus.BLOCKED:
+                op.cluster_blocked_rule = rule
+                decided.add(cc.flow_id)
+            elif cc.fallback_to_local_when_fail:
+                kept.append((gid, crow))
+        op.slots = kept
+        op.token_decided_flow_ids = op.token_decided_flow_ids | frozenset(decided)
+        self._settle_cluster_wait(wait)
+
+    def _settle_cluster_wait(self, total: int) -> None:
+        """Pay the accumulated SHOULD_WAIT pacing once, bounded by
+        sentinel.tpu.cluster.wait.cap.ms (the overflow is forfeited). The
+        cluster-wait telemetry counter waits for ROADMAP Queue 1 item 8."""
+        if total <= 0:
+            return
+        cap = config.get_int(config.CLUSTER_WAIT_CAP_MS, 1000)
+        slept = min(total, cap) if cap > 0 else total
+        if slept > 0:
+            self.clock.sleep_ms(slept)
+
+    @staticmethod
+    def _cluster_param_groups(op: _EntryOp) -> Dict[int, Tuple[object, List[str]]]:
+        """flow_id -> (rule, values) of the op's cluster-mode QPS param
+        slots (the unit of one request_param_token call)."""
+        groups: Dict[int, Tuple[object, List[str]]] = {}
+        for s in op.p_slots:
+            if _is_cluster_param_slot(s):
+                fid = int(s.rule.cluster_config.flow_id)
+                if fid not in groups:
+                    groups[fid] = (s.rule, [])
+                groups[fid][1].append(s.value_key)
+        return groups
+
+    def _apply_cluster_checks_bulk(self, pending) -> None:
+        """The batched token seam of ``submit_many`` (one token request per
+        frame kind for a whole op batch) comes with submit_many."""
+        raise _unported("the batched cluster-token seam of submit_many", _ROADMAP_PIPELINE)
+
+    def _apply_cluster_param_checks(self, op: _EntryOp) -> None:
+        """Cluster-mode hot-param admission (ParamFlowChecker.passCheck's
+        cluster branch): QPS-grade cluster rules ask the token server with
+        the entry's values; THREAD grade stays local. OK drops the local
+        slots, BLOCKED blocks the op, FAIL or no service falls back to the
+        local check when the rule allows it, else passes."""
+        groups = self._cluster_param_groups(op)
+        if not groups:
+            return
+        service = self._cluster_token_service()
+        decided = set()
+        fallback_fids = set()
+        for fid, (rule, values) in groups.items():
+            cc = rule.cluster_config
+            if service is None:
+                (fallback_fids if cc.fallback_to_local_when_fail else decided).add(fid)
+                continue
+            try:
+                result = service.request_param_token(fid, op.acquire, values)
+            except _TOKEN_TRANSPORT_ERRORS:
+                result = None
+            status = result.status if result is not None else C.TokenResultStatus.FAIL
+            if status == C.TokenResultStatus.OK:
+                decided.add(fid)
+            elif status == C.TokenResultStatus.BLOCKED:
+                op.cluster_blocked_rule = rule
+                decided.add(fid)
+            elif cc.fallback_to_local_when_fail:
+                fallback_fids.add(fid)
+            else:
+                decided.add(fid)
+        # Token-decided rules are not also checked locally; fallback rules
+        # keep their local slots.
+        op.p_slots = [
+            s for s in op.p_slots
+            if not _is_cluster_param_slot(s) or int(s.rule.cluster_config.flow_id) in fallback_fids
+        ]
+        op.token_decided_flow_ids = op.token_decided_flow_ids | frozenset(decided)
 
     def submit_exit(
         self,
@@ -421,13 +664,15 @@ class Engine:
         ts: Optional[int] = None,
         resource: Optional[str] = None,
         param_rows: Sequence[int] = (),
+        cluster_tokens: Sequence[Tuple[object, int]] = (),
     ) -> None:
         """StatisticSlot.exit: success + RT + thread release (+exception).
         ``resource`` routes the completion to the resource's circuit
         breakers (DegradeSlot.exit), resolved against the degrade rules
         active at exit time, like the reference. ``param_rows`` are the
         per-value thread gauges to release (the entry's
-        ``param_thread_rows``)."""
+        ``param_thread_rows``); ``cluster_tokens`` the held cluster
+        concurrency tokens to hand back (the entry's ``cluster_tokens``)."""
         with self._lock:
             dindex = self.degrade_index
             op = _ExitOp(
@@ -444,6 +689,8 @@ class Engine:
             )
             self._exits.append(op)
             over = len(self._exits) >= self.max_batch
+        if cluster_tokens:
+            release_cluster_tokens(cluster_tokens)
         if over:
             self.flush()
 
@@ -500,16 +747,41 @@ class Engine:
         ``args_column`` (length ``n``: one args tuple per entry, or a
         ``param_table.ArgsColumns``) checks QPS-grade hot-param rules per
         entry; THREAD-grade param rules and collection values need
-        per-entry bookkeeping and raise ``ValueError``."""
+        per-entry bookkeeping, and cluster-mode rules a token per entry:
+        these raise ``ValueError`` (use :meth:`submit_entry`). With the
+        sketch tier's cold ceilings armed, a group over its ceiling is
+        refused whole (BLOCK_SKETCH); a group only some of whose values
+        are over the value ceiling raises ``ValueError`` too."""
         if n < 1:
             raise ValueError("submit_bulk: n must be >= 1")
         if n > self.max_batch:
             raise ValueError(f"submit_bulk: n={n} exceeds max_batch={self.max_batch}; split the group")
+        sk = self.sketch
+        if sk.cold_armed and sk.cold_blocked(resource, self.flow_index, self.param_index, n=n):
+            return self._blocked_cold_bulk(resource, n, context_name, origin, acquire)
+        if sk.cold_armed and args_column is not None and self.param_index.sketch_idx_by_resource:
+            vmask = sk.cold_value_mask(resource, self.param_index, args_column, n)
+            if vmask is not None:
+                if bool(vmask.all()):
+                    sk.note_cold_value_rows(n)
+                    return self._blocked_cold_bulk(resource, n, context_name, origin, acquire)
+                raise ValueError(
+                    "submit_bulk: the sketch cold-value ceiling needs per-entry verdicts on this group — "
+                    "use submit_entry"
+                )
         with self._lock:
             rows = self.resolve_entry_rows(resource, context_name, origin, entry_type)
             if rows is None:
+                if sk.armed:
+                    sk.note_unrouted(resource, int(self._bulk_col(acquire, n, 1).sum()))
                 return None
             findex, dindex, pindex = self.flow_index, self.degrade_index, self.param_index
+            slots = findex.resolve_slots(resource, context_name, origin, self.nodes)
+            if findex.cluster_gids and any(gid in findex.cluster_gids for gid, _ in slots):
+                raise ValueError(
+                    "submit_bulk: resource has cluster-mode flow rules (token verdicts are per entry) — "
+                    "use submit_entry"
+                )
             p_cols: List[_BulkParamCols] = []
             if args_column is not None:
                 if len(args_column) != n:
@@ -522,7 +794,7 @@ class Engine:
                 ts=self._bulk_col(ts, n, self.clock.now_ms()),
                 acquire=self._bulk_col(acquire, n, 1),
                 rows=rows,
-                slots=findex.resolve_slots(resource, context_name, origin, self.nodes),
+                slots=slots,
                 d_gids=dindex.gids_for(resource),
                 auth_ok=self._auth_ok(resource, origin),
                 context_name=context_name,
@@ -546,6 +818,11 @@ class Engine:
         for _, r in pindex.by_resource.get(resource, ()):
             if r.grade == C.FLOW_GRADE_THREAD:
                 raise ValueError("submit_bulk: THREAD-grade param rules need per-entry exits — use submit_entry")
+            if r.cluster_mode:
+                raise ValueError(
+                    "submit_bulk: resource has cluster-mode param rules (the token request is per entry) — "
+                    "use submit_entry"
+                )
         cols = pindex.bulk_cols(resource, args_column)
         if cols is None:
             raise ValueError("submit_bulk: collection param values expand per entry — use submit_entry")
@@ -656,6 +933,8 @@ class Engine:
         # Hot-param buckets and pacers; PARAM_NEVER ("no state yet") stays.
         shift(self.param_dyn.last_add, PARAM_NEVER)
         shift(self.param_dyn.latest, PARAM_NEVER)
+        if self.sketch.armed:
+            self.sketch.on_rebase(offset)
         for op in self._entries:
             op.ts = max(op.ts - offset, 0)
         for x in self._exits:
@@ -675,9 +954,15 @@ class Engine:
 
     def flush(self) -> List[_EntryOp]:
         """Encode + run the flush step for all pending ops; fills verdicts
-        before it returns (pipeline depth 0)."""
+        before it returns (pipeline depth 0). Queued sketch promotions and
+        demotions land first, outside the flush lock; after the flush,
+        entries that were blocked hand their held cluster tokens back."""
+        if self.sketch.armed and self.sketch.pending_actions:
+            self.sketch.apply_actions()
         with self._flush_lock:
-            return self._flush_locked()
+            entries = self._flush_locked()
+        _release_blocked_tokens(entries)
+        return entries
 
     def _flush_locked(self) -> List[_EntryOp]:
         with self._lock:
@@ -697,9 +982,16 @@ class Engine:
             cur = (findex, dindex, pindex)
             for op in entries:
                 if op.src != cur:
-                    op.slots = findex.resolve_slots(op.resource, op.context_name, op.origin, self.nodes)
+                    # Rules the token server already decided stay decided: a
+                    # local re-check would double-check a granted token.
+                    decided = op.token_decided_flow_ids
+                    op.slots = [
+                        sl for sl in findex.resolve_slots(op.resource, op.context_name, op.origin, self.nodes)
+                        if not _token_decided(findex.cluster_gids.get(sl[0]), decided)
+                    ]
                     op.d_gids = dindex.gids_for(op.resource)
-                    op.p_slots = pindex.slots_for(op.resource, op.args) if op.args and pindex.has_rules() else []
+                    p_slots = pindex.slots_for(op.resource, op.args) if op.args and pindex.has_rules() else []
+                    op.p_slots = [ps for ps in p_slots if not _token_decided(ps.rule, decided)]
                     op.src = cur
             for g in bulk_e:
                 if g.src != cur:
@@ -766,9 +1058,11 @@ class Engine:
         e_prio = np.zeros(n, dtype=bool)
         e_auth = np.ones(n, dtype=bool)
         e_dgid = np.full((n, kd), -1, dtype=np.int32)
+        e_cluster = np.ones(n, dtype=bool)  # False where the token server said BLOCKED
         ne = len(entries)
         if ne:
             e_valid[:ne] = True
+            e_cluster[:ne] = [op.cluster_blocked_rule is None for op in entries]
             e_ts[:ne] = [op.ts for op in entries]
             e_acquire[:ne] = [op.acquire for op in entries]
             e_rows[:ne] = [op.rows for op in entries]
@@ -841,7 +1135,7 @@ class Engine:
             now=int(now),
             e_valid=t(e_valid), e_ts=t(e_ts), e_acquire=t(e_acquire), e_rows=t(e_rows),
             e_rule_gid=t(e_gid), e_check_row=t(e_crow),
-            e_prio=t(e_prio), e_auth_ok=t(e_auth), e_cluster_ok=t(np.ones(n, dtype=bool)), e_dgid=t(e_dgid),
+            e_prio=t(e_prio), e_auth_ok=t(e_auth), e_cluster_ok=t(e_cluster), e_dgid=t(e_dgid),
             x_valid=t(x_valid), x_ts=t(x_ts), x_count=t(x_count), x_rows=t(x_rows), x_rt=t(x_rt),
             x_err=t(x_err), x_thr=t(x_thr), x_dgid=t(x_dgid),
         )
@@ -1011,6 +1305,15 @@ class Engine:
         batch, k, kd = self._encode(entries, exits, bulk, bulk_exits, now)
         shaping, sh_rounds = self._encode_shaping(entries, bulk, k, findex)
         param, p_rounds = self._encode_param(entries, exits, pindex, bulk)
+        # The sketch tier: this chunk's aggregated key ids and the
+        # once-per-window halving; the fold (K11) runs inside the step.
+        tier = self.sketch
+        sk_batch = None
+        sk_decay = False
+        if tier.armed:
+            sk_ids, sk_w = tier.encode_chunk(entries, bulk, findex, pindex)
+            sk_decay = tier.decay_due(now)
+            sk_batch = SketchBatch(ids=self._tensor(sk_ids), w=self._tensor(sk_w))
         load, cpu = system_sampler.read() if self.system_config is not None else (-1.0, -1.0)
         self.stats, result = flush_step(
             self.stats, findex.device, batch,
@@ -1025,12 +1328,20 @@ class Engine:
             with_degrade=bool(dindex.rules),
             flow_dyn=self.flow_dyn, pdyn=self.param_dyn, shaping=shaping, param=param,
             shaping_rounds=sh_rounds, param_rounds=p_rounds,
+            skstate=tier.dev_state if sk_batch is not None else None, sk=sk_batch, sketch_decay=sk_decay,
         )
-        # One device→host copy of the verdicts.
+        # One device→host copy of the verdicts; the sketch's candidate
+        # table rides along.
         got = [result.admitted, result.reason, result.slot_ok, result.wait_ms, result.sys_type, result.dslot_ok]
         if result.blk_rows is not None:
             got += [result.blk_rows, result.blk_weight]
+        if sk_batch is not None:
+            got += [tier.dev_state.cand_ids, tier.dev_state.cand_cnt]
         got = [x.cpu().numpy() for x in got]
+        if sk_batch is not None:
+            # The promotion/demotion controller evaluates at every drain.
+            tier.on_drain(got[-2], got[-1], self.clock.now_ms())
+            got = got[:-2]
         self._fill_results(got, entries, bulk, findex, dindex, auth_rules, k, kd)
 
     def _fill_results(self, got, entries, bulk, findex: FlowIndex, dindex: DegradeIndex,
@@ -1048,7 +1359,14 @@ class Engine:
                 elif r == E.BLOCK_SYSTEM:
                     limit_type = SYS_TYPE_NAMES.get(int(sys_type[i]), "")
                 elif r == E.BLOCK_FLOW:
-                    blocked_rule = _first_failing(op.slots[:k], slot_ok[i], findex)
+                    if op.cluster_blocked_rule is not None:
+                        blocked_rule = op.cluster_blocked_rule
+                        if isinstance(blocked_rule, ParamFlowRule):
+                            # A token-server param verdict surfaces as a
+                            # param block (ParamFlowChecker's cluster branch).
+                            r = E.BLOCK_PARAM
+                    else:
+                        blocked_rule = _first_failing(op.slots[:k], slot_ok[i], findex)
                 elif r == E.BLOCK_PARAM:
                     # The entry's first param rule, as the JAX engine names it.
                     blocked_rule = op.p_slots[0].rule if op.p_slots else None
@@ -1119,6 +1437,27 @@ class Engine:
     def close(self) -> None:
         """Decide anything still queued."""
         self.flush()
+
+
+def _release_blocked_tokens(entries: Sequence[_EntryOp]) -> None:
+    """Entries that held a cluster concurrency token but were blocked (by
+    another rule) hand it back at once, outside the flush lock (the
+    reference's releaseConcurrentToken on abort)."""
+    for op in entries:
+        if op.cluster_tokens and op.verdict is not None and not op.verdict.admitted:
+            release_cluster_tokens(op.cluster_tokens)
+            op.cluster_tokens = []
+
+
+def _token_decided(rule, decided: frozenset) -> bool:
+    """Is ``rule`` a cluster-mode rule whose flow id the token server
+    already decided for this op?"""
+    return (
+        rule is not None
+        and rule.cluster_mode
+        and rule.cluster_config is not None
+        and rule.cluster_config.flow_id in decided
+    )
 
 
 def _first_failing(ids, ok_row, index):

@@ -41,7 +41,8 @@ Kernels (CUDA C++ in ``csrc/``, each beside its plain PyTorch version):
 tail with the probe transitions, ``flow_admission.cu``); the breakers'
 K7 and K8 live in ``rules/degrade_table.py``, the shaping recurrence K9
 (with its input gather) in ``rules/shaping.py`` and the hot-parameter
-recurrence K10 in ``rules/param_table.py``. The windows are read
+recurrence K10 in ``rules/param_table.py``, the sketch fold K11 in
+``runtime/sketch.py``. The windows are read
 through ``metric_array.window_sums`` (K3) and written through
 ``nodes.apply_updates`` (K2); :func:`flush_step` runs
 ``nodes.materialize_matured`` (K1) first. The rest is torch glue.
@@ -66,6 +67,7 @@ from sentinel_tpu_torch.rules.degrade_table import DegradeDynState, DegradeTable
 from sentinel_tpu_torch.rules.flow_table import FlowRuleDynState, FlowTableDevice
 from sentinel_tpu_torch.rules.param_table import ParamBatch, ParamDynState, run_param
 from sentinel_tpu_torch.rules.shaping import ShapingBatch, run_shaping, shaping_inputs
+from sentinel_tpu_torch.runtime.sketch import SketchBatch, SketchState, sketch_fold
 from sentinel_tpu_torch.utils import cuda_build
 from sentinel_tpu_torch.utils.numeric import add_i32
 
@@ -1218,6 +1220,9 @@ def flush_step(
     param: Optional[ParamBatch] = None,
     shaping_rounds: int = 0,
     param_rounds: int = 0,
+    skstate: Optional[SketchState] = None,
+    sk: Optional[SketchBatch] = None,
+    sketch_decay: bool = False,
 ) -> Tuple[StatsState, FlushResult]:
     """Apply one batch, in place: the matured-borrow sweep, exits and
     breaker completions, then the slot chain and accounting. The flags
@@ -1226,7 +1231,9 @@ def flush_step(
     their state (``flow_dyn``, ``pdyn``) and the host's execution modes
     (``shaping_rounds``, ``param_rounds``, as ``run_shaping``/``run_param``
     take them). The breaker, shaping and param states are updated in
-    place."""
+    place. ``skstate``/``sk`` thread the sketch tier: after the entries,
+    the chunk's key batch folds into the sketch state in place (K11,
+    with the once-per-window halving when ``sketch_decay``)."""
     if with_degrade and (ddev is None or ddyn is None):
         raise ValueError("flush_step: with_degrade needs the breaker table and state")
     if with_system and sysdev is None:
@@ -1237,7 +1244,10 @@ def flush_step(
         raise ValueError("flush_step: param needs the param state")
     materialize_matured(stats, batch.now)
     apply_exit_phase(stats, batch, with_exits, ddev, ddyn, with_degrade)
-    return flush_entries(
+    out = flush_entries(
         stats, flow_dev, batch, blk_topk, ddev, ddyn, sysdev, occupy_timeout_ms,
         with_occupy, with_system, with_degrade, flow_dyn, pdyn, shaping, param, shaping_rounds, param_rounds,
     )
+    if skstate is not None and sk is not None:
+        sketch_fold(skstate, sk, decay=sketch_decay)
+    return out

@@ -382,10 +382,14 @@ def _add_breaker_observer(e):
 
 
 def _cluster_param_rule(e):
+    """A cluster-mode param rule loads; asking for it through a token
+    client (client mode) is what is not ported."""
+    from sentinel_tpu_torch.cluster import ClusterStateManager
     from sentinel_tpu_torch.models.rules import ClusterFlowConfig
 
     e.set_param_rules({"r": [st.ParamFlowRule("r", param_idx=0, count=5, cluster_mode=True,
                                               cluster_config=ClusterFlowConfig(flow_id=1))]})
+    ClusterStateManager.set_to_client()
 
 
 @pytest.mark.parametrize(
@@ -400,8 +404,8 @@ def _cluster_param_rule(e):
 )
 def test_out_of_slice_raises(call):
     """Features outside the port so far; for degrade rules, which the port
-    now runs, that is the breaker state-change observers, and for param
-    rules their cluster mode."""
+    now runs, that is the breaker state-change observers, and for
+    cluster-mode param rules the token client."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(_cpu_engine())
 
@@ -450,17 +454,24 @@ def test_slice_two_features_accepted(call):
 
 
 def test_cluster_mode_rule_raises():
+    """Cluster-mode flow rules load and are decided by the embedded token
+    service (tests/test_torch_cluster.py); client mode, the other way to
+    decide them, raises."""
+    from sentinel_tpu_torch.cluster import ClusterStateManager
     from sentinel_tpu_torch.models.rules import ClusterFlowConfig
 
     rule = FlowRule("r", count=5, cluster_mode=True, cluster_config=ClusterFlowConfig(flow_id=1))
+    eng = _cpu_engine()
+    eng.set_flow_rules([rule])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _cpu_engine().set_flow_rules([rule])
+        ClusterStateManager.set_to_client()
+    assert not ClusterStateManager.is_client()
 
 
 @pytest.mark.parametrize(
     "key,value",
     [
-        (config.SKETCH_ENABLED, "true"), (config.SPECULATIVE_ENABLED, "true"),
+        (config.GOSSIP_ENABLED, "true"), (config.SPECULATIVE_ENABLED, "true"),
         (config.FAILOVER_ENABLED, "true"), (config.CAPTURE_ENABLED, "true"),
         (config.AUTOTUNE_ENABLED, "true"), (config.IPC_ENABLED, "true"),
         (config.PIPELINE_DEPTH, "2"),
@@ -468,6 +479,8 @@ def test_cluster_mode_rule_raises():
 )
 def test_unported_config_raises(key, value):
     config.set(key, value)
+    if key == config.GOSSIP_ENABLED:
+        config.set(config.SKETCH_ENABLED, "true")  # the tier runs; its gossip transport does not
     try:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _cpu_engine()

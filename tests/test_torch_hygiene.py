@@ -18,7 +18,8 @@ PORT = ROOT / "sentinel_tpu_torch"
 
 def test_import_loads_no_jax():
     code = (
-        "import sys, sentinel_tpu_torch, sentinel_tpu_torch.core.api, sentinel_tpu_torch.runtime.engine;"
+        "import sys, sentinel_tpu_torch, sentinel_tpu_torch.core.api, sentinel_tpu_torch.runtime.engine,"
+        " sentinel_tpu_torch.runtime.sketch, sentinel_tpu_torch.cluster;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'sentinel_tpu' or m.startswith('sentinel_tpu.')];"
         "print(repr(bad))"
@@ -88,6 +89,27 @@ def test_engine_and_api_refuse_silent_cpu(monkeypatch):
     assert Engine(device="cpu").stats.threads.device.type == "cpu"
 
 
+@pytest.mark.parametrize("ctor", ["flow_index", "param_state", "token_service", "sketch_state"])
+def test_state_constructors_take_the_card_by_default(monkeypatch, ctor):
+    """Every constructor of device state resolves a missing device as the
+    engine does (the card, or an error without one), never a silent CPU."""
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.rules.flow_table import FlowIndex
+    from sentinel_tpu_torch.rules.param_table import make_param_state
+    from sentinel_tpu_torch.runtime.sketch import make_sketch_state
+
+    make = {
+        "flow_index": lambda **kw: FlowIndex([], **kw).make_dyn_state().latest_passed_time,
+        "param_state": lambda **kw: make_param_state(8, **kw).tokens,
+        "token_service": lambda **kw: DefaultTokenService(**kw).state.counts,
+        "sketch_state": lambda **kw: make_sketch_state(2, 8, 4, **kw).cm,
+    }[ctor]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    assert make(device="cpu").device.type == "cpu"
+
+
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     """On CPU tensors each wrapper runs its plain version and counts no
     launch; the kernel path is never entered."""
@@ -102,8 +124,11 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
         raise AssertionError(f"kernel {name} built for a CPU tensor")
 
     monkeypatch.setattr(cuda_build, "load", no_build)
+    from sentinel_tpu_torch.cluster import token_service as tts
+    from sentinel_tpu_torch.runtime import sketch as tsk
+
     wrappers = (ma.update, ma.window_reduce, nodes.materialize_matured, nodes.thread_gauge_add,
-                flush.flow_admission)
+                flush.flow_admission, tsk.sketch_fold, tts.batch_decide)
     before = [w.launches for w in wrappers]
     cpu = torch.device("cpu")
     stats = nodes.make_stats(16, cpu)
@@ -124,4 +149,12 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     _, res = flush.flush_step(stats, fi.device, batch, with_exits=True, blk_topk=8)
     ma.window_min_rt(nodes.SECOND_CFG, stats.second, 100)
     assert res.admitted.tolist() == [True] + [False] * (n - 1)
+    sk = tsk.make_sketch_state(2, 8, 4, cpu)
+    tsk.sketch_fold(sk, tsk.SketchBatch(torch.arange(8, dtype=i32), torch.ones(8, dtype=i32)), decay=True)
+    assert int((sk.cand_ids >= 0).sum()) == 4
+    svc = ma.make_state(8, tts.CLUSTER_CFG, cpu)
+    ones = torch.ones(n, dtype=i32)
+    adm, _, _ = tts.batch_decide(svc, ones, -ones, ones, torch.full((n,), 2.0), torch.zeros(n),
+                                 torch.ones(n, dtype=torch.bool), 100)
+    assert adm.tolist() == [True] * 2 + [False] * (n - 2)
     assert [w.launches for w in wrappers] == before

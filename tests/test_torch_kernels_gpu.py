@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from sentinel_tpu_torch.cluster import token_service as tts
 from sentinel_tpu_torch.metrics import metric_array as ma
 from sentinel_tpu_torch.metrics import nodes as tnodes
 from sentinel_tpu_torch.metrics.events import NUM_EVENTS
@@ -21,6 +22,7 @@ from sentinel_tpu_torch.rules import param_table as tpt
 from sentinel_tpu_torch.rules import shaping as tsh
 from sentinel_tpu_torch.rules.flow_table import flow_table_from_numpy
 from sentinel_tpu_torch.runtime import flush as tflush
+from sentinel_tpu_torch.runtime import sketch as tsk
 
 from torch_parity import (
     borrowable_stats,
@@ -70,11 +72,14 @@ def _clone(state):
     return type(state)(*(_clone(t) if isinstance(t, tuple) else t.clone() for t in state))
 
 
-@pytest.mark.parametrize("geometry", ["second", "minute"])
+GEOMETRY = {"second": tnodes.SECOND_CFG, "minute": tnodes.MINUTE_CFG, "cluster": tts.CLUSTER_CFG}
+
+
+@pytest.mark.parametrize("geometry", ["second", "minute", "cluster"])
 @pytest.mark.parametrize("with_rt", [False, True])
 @pytest.mark.parametrize("hot", [False, True])
 def test_update_kernel(cuda, geometry, with_rt, hot):
-    cfg = tnodes.SECOND_CFG if geometry == "second" else tnodes.MINUTE_CFG
+    cfg = GEOMETRY[geometry]
     rng = np.random.default_rng(7)
     n_rows, n, now = 64, 5000, 2**31 - 1 - 3 * cfg.interval_ms
     state = ma.state_from_numpy(random_window_state(rng, n_rows, cfg, now), cuda)
@@ -95,9 +100,9 @@ def test_update_kernel(cuda, geometry, with_rt, hot):
     _states_eq(want, got, "update")
 
 
-@pytest.mark.parametrize("geometry", ["second", "minute"])
+@pytest.mark.parametrize("geometry", ["second", "minute", "cluster"])
 def test_window_reduce_kernel(cuda, geometry):
-    cfg = tnodes.SECOND_CFG if geometry == "second" else tnodes.MINUTE_CFG
+    cfg = GEOMETRY[geometry]
     rng = np.random.default_rng(3)
     for now in (123_456, 2**31 - 1):
         state = ma.state_from_numpy(random_window_state(rng, 100, cfg, now), cuda)
@@ -395,3 +400,112 @@ def test_shaping_param_flush_step_kernels(cuda, chain):
             _eq(x, y, f"step {step} {name}")
         for j, what in enumerate(("stats", "table", "shaping state", "breaker table", "breakers", "params")):
             _states_eq(states["cpu"][j], states["cuda"][j], f"{what} step {step}")
+
+
+# --- K11: the sketch fold, at the shapes of chip_smoke.py phase 2d ----------
+
+
+def _sketch_case(cuda, case, rng):
+    """(state, batch) on the card: (a) the default tier (depth 4, width
+    2,048, 64 candidates) after eight earlier folds, 131,072 distinct ids;
+    (b) a widened tier (depth 8, width 2^20, 1,024 candidates), ids from a
+    Zipf law over 10^6 keys with duplicate rows and padding; (c) equal
+    weights; (d) 4,096 candidates (tiles of 8,192 keys in the top-C)."""
+    s = 1 << 17
+    depth, width, c = {"widened": (8, 1 << 20, 1024), "many": (2, 1 << 16, 4096)}.get(case, (4, 2048, 64))
+    state = tsk.make_sketch_state(depth, width, c, cuda)
+    keys = np.unique(rng.integers(0, 2**31 - 1, 3 * 10**6))[: 10**6]
+    keys = rng.permutation(keys).astype(np.int32)
+
+    def batch(ids, w):
+        return tsk.SketchBatch(torch.from_numpy(ids).to(cuda), torch.from_numpy(w.astype(np.int32)).to(cuda))
+
+    for k in range(8):  # the prior folds: the table is full, and a third of it recurs below
+        ids = keys[k * (s // 8) : (k + 1) * (s // 8)]
+        tsk.sketch_fold_plain(state, batch(ids, rng.integers(1, 5, ids.shape[0])), decay=k == 4)
+    if case == "widened":
+        ids = keys[np.minimum(rng.zipf(1.1, s), 10**6) - 1]
+        ids[s // 2 : s // 2 + 512] = ids[:512]
+        ids[-1000:] = -1
+    else:
+        ids = keys[s : 2 * s].copy()  # distinct, and new to the table
+        cand = state.cand_ids.cpu().numpy()
+        ids[: c // 3] = cand[: c // 3]
+    w = np.full(s, 2) if case == "ties" else rng.integers(1, 5, s)
+    return state, batch(ids, w)
+
+
+@pytest.mark.parametrize("decay", [False, True])
+@pytest.mark.parametrize("case", ["default", "widened", "ties", "many"])
+def test_sketch_fold_kernel(cuda, case, decay):
+    rng = np.random.default_rng(41)
+    state, sk = _sketch_case(cuda, case, rng)
+    want = tsk.sketch_fold_plain(_clone(state), sk, decay)
+    before = tsk.sketch_fold.launches
+    got = tsk.sketch_fold(state, sk, decay)
+    assert tsk.sketch_fold.launches == before + 1
+    _states_eq(want, got, f"sketch ({case})")
+    assert int((got.cand_ids >= 0).sum()) == got.cand_ids.shape[0]
+
+
+# --- K12: the token decision, at the shapes of chip_smoke.py phase 2e -------
+
+
+def _token_batch(rng, cuda, b, n_flows, n_ns, nrows):
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    flow = np.minimum(rng.zipf(1.1, b) - 1, n_flows - 1)
+    rows = flow.astype(np.int32)
+    # Namespace 0 holds the even flows (half the traffic: its guard trips).
+    ns = (n_flows + np.where(flow % 2 == 0, 0, 1 + (flow // 2) % (n_ns - 1))).astype(np.int32)
+    acq = rng.integers(1, 4, b).astype(np.int32)
+    thr = rng.integers(50, 501, n_flows).astype(np.float32)[flow]
+    nthr = np.full(b, 30000.0, np.float32)
+    valid = rng.random(b) < 0.98
+    return [t(a) for a in (rows, ns, acq, thr, nthr, valid)]
+
+
+def test_token_decide_kernel(cuda):
+    """Batches of 16,384 requests over 65,536 flows in 16 namespaces, 2 s
+    of clock in 50 ms steps (the buckets roll): kernel and plain version in
+    lockstep on states of their own; OK, BLOCKED and TOO_MANY_REQUEST all
+    occur."""
+    rng = np.random.default_rng(43)
+    n_flows, n_ns = 1 << 16, 16
+    nrows = n_flows + n_ns
+    kern = ma.make_state(nrows, tts.CLUSTER_CFG, cuda)
+    plain = ma.make_state(nrows, tts.CLUSTER_CFG, cuda)
+    seen = torch.zeros(3, dtype=torch.int64)
+    for step in range(40):
+        arrays = _token_batch(rng, cuda, 1 << 14, n_flows, n_ns, nrows)
+        now = 1000 + 50 * step
+        want = tts.batch_decide_plain(plain, *arrays, now)
+        before = tts.batch_decide.launches
+        got = tts.batch_decide(kern, *arrays, now)
+        assert tts.batch_decide.launches == before + 1
+        for name, x, y in zip(("admitted", "ns_ok", "next_remaining"), want, got):
+            _eq(x, y, f"step {step} {name}")
+        _states_eq(plain, kern, f"step {step} state")
+        adm, ns_ok = want[0].cpu(), want[1].cpu()
+        seen += torch.tensor([int(adm.sum()), int((~ns_ok).sum()), int((ns_ok & ~adm).sum())])
+    assert (seen > 0).all(), seen
+
+
+def test_token_decide_atomic_kernel(cuda):
+    """8,192 values of one param flow: a batch with one value over budget
+    charges nothing; a batch within budget is all admitted."""
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    b = 8192
+    for over in (True, False):
+        state = ma.make_state(b, tts.CLUSTER_CFG, cuda)
+        rows = np.arange(b, dtype=np.int32)
+        if over:
+            rows[-1] = 0
+        arrays = [t(rows), t(np.full(b, -1, np.int32)), t(np.ones(b, np.int32)), t(np.full(b, 1.0, np.float32)),
+                  t(np.zeros(b, np.float32)), t(np.ones(b, bool))]
+        plain = _clone(state)
+        want = tts.batch_decide_plain(plain, *arrays, 700, atomic=True)
+        got = tts.batch_decide(state, *arrays, 700, atomic=True)
+        for x, y in zip(want, got):
+            _eq(x, y, f"atomic over={over}")
+        _states_eq(plain, state, f"atomic state over={over}")
+        assert int(state.counts.sum()) == (0 if over else b)

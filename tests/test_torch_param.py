@@ -61,7 +61,7 @@ def test_closed_form_refill_across_flushes():
     out = []
     for pkg, mk, run in ((jpt, lambda a: jnp.asarray(a), _jax_run_param),
                          (tpt, lambda a: torch.tensor(a), None)):
-        dyn = pkg.make_param_state(2)
+        dyn = jpt.make_param_state(2) if run else tpt.make_param_state(2, "cpu")
         got = []
         for ts in (1000, 1100, 2101):
             pb = pkg.ParamBatch(*(mk(a) for a in (
@@ -137,15 +137,31 @@ def test_param_index_matches_jax(fastpath):
 
 
 def test_sketch_mode_with_an_armed_tier_raises():
+    """An armed sketch tier no longer raises (the tier is ported): a
+    sketch-mode rule gives dense slots only to the tier's promoted values,
+    on the entry path and the bulk path, as the JAX index does; without a
+    tier or with it disarmed it dense-tracks every value."""
     from types import SimpleNamespace
 
-    import sentinel_tpu_torch as st
+    import sentinel_tpu.models.rules as jrules
+    import sentinel_tpu_torch.models.rules as trules
 
-    rules = {"r": [st.ParamFlowRule("r", param_idx=0, count=2, sketch_mode=True)]}
-    tpt.ParamIndex(rules)  # no tier: dense-tracked, as in JAX
-    tpt.ParamIndex(rules, sketch_tier=SimpleNamespace(armed=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        tpt.ParamIndex(rules, sketch_tier=SimpleNamespace(armed=True))
+    def trace(rules_mod, index_cls):
+        rules = {"r": [rules_mod.ParamFlowRule("r", param_idx=0, count=2, sketch_mode=True),
+                       rules_mod.ParamFlowRule("r", param_idx=1, count=3)]}
+        out = []
+        for tier in (None, SimpleNamespace(armed=False), SimpleNamespace(armed=True, promoted_values={}),
+                     SimpleNamespace(armed=True, promoted_values={"r": frozenset({"hot", "7"})})):
+            idx = index_cls(rules, sketch_tier=tier)
+            out.append(sorted(idx.sketch_idx_by_resource.items()))
+            for args in (("hot", "x"), ("cold", "x"), (7, "y"), (["hot", "cold"], "z")):
+                out.append([(s.prow, s.token_count, s.value_key) for s in idx.slots_for("r", args)])
+            cols = idx.bulk_cols("r", [("hot", "a"), ("cold", "b"), (None, "a"), ("hot", "c")])
+            out.append([(c[1].tolist(), c[2].tolist(), c[3].tolist()) for c in cols])
+            out.append(idx.n_rows)
+        return out
+
+    assert trace(trules, tpt.ParamIndex) == trace(jrules, jpt.ParamIndex)
 
 
 # --- the engine cases of test_param_flow.py / test_param_closed_form.py and

@@ -249,7 +249,7 @@ def test_host_mirrors_match_jax(seed):
     specs = [dict(resource=f"r{b}", count=float(rng.integers(1, 30)), control_behavior=b, warm_up_period_sec=3,
                   max_queueing_time_ms=int(rng.integers(0, 900))) for b in (1, 2, 3)]
     jinfo = [JIndex([jst.FlowRule(**sp)]).mirror_shaping_info(0) for sp in specs]
-    tinfo = [TIndex([st.FlowRule(**sp)]).mirror_shaping_info(0) for sp in specs]
+    tinfo = [TIndex([st.FlowRule(**sp)], device="cpu").mirror_shaping_info(0) for sp in specs]
     for ji, ti in zip(jinfo, tinfo):
         assert ji[1:] == ti[1:] and ji[0].to_dict() == ti[0].to_dict()
 
@@ -455,7 +455,8 @@ def test_engine_picks_the_closed_form():
     from sentinel_tpu_torch.runtime.engine import Engine
     import sentinel_tpu_torch as st
 
-    idx = FlowIndex([st.FlowRule("a", count=5, control_behavior=2), st.FlowRule("b", count=5, control_behavior=1)])
+    idx = FlowIndex([st.FlowRule("a", count=5, control_behavior=2), st.FlowRule("b", count=5, control_behavior=1)],
+                    device="cpu")
     pick = Engine._shaping_rounds_for
     one = np.ones(20, np.int32)
     assert pick(0 * one, 7 * one, one, idx) == -1
