@@ -25,7 +25,7 @@ launch) and then, failing on the first mismatch:
    per flush and entries/s, and a torch.profiler breakdown of one step's
    device time;
 4. drives the engine through the public API (6,000 DEFAULT QPS rules,
-   10 simulated seconds of Zipf-skewed submit_bulk traffic in
+   4 simulated seconds of Zipf-skewed submit_bulk traffic in
    32,768-entry flushes, st.entry calls and exits) on the card, with
    every kernel launch counter set to 0 just before and read just after,
    and the same stream on the port's CPU engine: identical verdicts and
@@ -52,7 +52,20 @@ phase 3 also runs flush_step at the mixed shape (1,024 breakers, 32,768
 exits) on both routes; phase 4c drives an engine stream with shaping and
 param rules through the public API on the card and on the CPU engine.
 
-The CPU sides of phases 2c (d), 4, 4b and 4c (the plain versions on one
+The sharded flush (parallel/ici.py, 8 shards on the card): phase 2f
+holds its kernels against their plain versions at full width (K13 the
+stats merge over 1,048,576 rows, K14 the breaker merge over 1,048,576
+breakers, K15 the budget split of 131,072 Zipf entries with K = 1, an
+origin split and the mixed shape's K = 2, K16 the global shaping charge,
+K8 with the probe election's mask); phase 3b runs the sharded step at
+the slot chain's and the mixed shape through the kernels and through the
+plain versions (identical results and state; ms per step, a profile,
+peak device memory); phase 4e drives the engine with enable_mesh(8)
+through submit_many, submit_bulk and exits against the CPU engine with
+the same mesh, and checks that 128 same-window entries against count 20
+admit exactly 20; phase 9 runs examples/mesh_demo.py's sequence.
+
+The CPU sides of phases 2c (d), 4-4e and 8 (the plain versions on one
 heavy segment, the CPU engines) run in four worker processes, started
 before the build, beside the card's phases (phase 3 runs before 2c so
 that case (d)'s references are ready); the workers stop with the script.
@@ -107,6 +120,7 @@ try:
     from sentinel_tpu_torch.metrics.events import NUM_EVENTS
     from sentinel_tpu_torch.models import constants as C
     from sentinel_tpu_torch.models.rules import ClusterFlowConfig
+    from sentinel_tpu_torch.parallel import ici, make_mesh
     from sentinel_tpu_torch.rules import degrade_table as tdt
     from sentinel_tpu_torch.rules import param_table as tpt
     from sentinel_tpu_torch.rules import shaping as tsh
@@ -1213,7 +1227,7 @@ def profile_step(run, label: str, steps: int = 5) -> None:
 
 N_RULES = 6000  # the reference's MAX_SLOT_CHAIN_SIZE
 FLUSH_N = 32768
-STEPS = 100  # 100 ms each: 10 simulated seconds
+STEPS = 40  # 100 ms each: 4 simulated seconds
 
 
 def drive_engine(device: torch.device, seed: int):
@@ -1271,7 +1285,8 @@ def drive_engine(device: torch.device, seed: int):
 
 
 def phase4(results: dict, cpu_jobs: dict) -> None:
-    log("phase 4: the engine through the public API (6,000 rules, 10 simulated s, 32,768-entry flushes)")
+    log(f"phase 4: the engine through the public API (6,000 rules, {STEPS} flushes of 32,768 over {STEPS / 10:g} "
+        f"simulated s)")
     wrappers = {
         "materialize_matured": nodes.materialize_matured,
         "window_update": ma.update,
@@ -1311,7 +1326,7 @@ def phase4(results: dict, cpu_jobs: dict) -> None:
         fail("phase 4 admitted nothing or everything: the stream did not exercise the rules")
 
 
-CHAIN_STEPS = 40  # 100 ms each: 4 simulated seconds
+CHAIN_STEPS = 24  # 100 ms each: 2.4 simulated seconds
 
 
 def _verdict_record(v) -> tuple:
@@ -1454,7 +1469,7 @@ def phase4_chain(results: dict, cpu_jobs: dict) -> None:
 # phase 4c: shaping and hot parameters through the public API
 # ---------------------------------------------------------------------------
 
-SHAPE_STEPS = 30  # 200 ms each: 6 simulated seconds
+SHAPE_STEPS = 20  # 200 ms each: 4 simulated seconds
 
 
 # The param rules sit on resources of the flow rules: 6,000 resources is the
@@ -2179,6 +2194,448 @@ def phase8(results: dict, cpu_jobs: dict) -> None:
         fail(f"phase 8: the stream did not pass and block on flow and param rules: {seen}")
 
 
+# ---------------------------------------------------------------------------
+# the sharded step (parallel/ici.py): phases 2f, 3b, 4e and 9
+# ---------------------------------------------------------------------------
+
+D_MESH = 8  # shards of the mesh on the card
+
+
+@contextlib.contextmanager
+def plain_mesh_kernels():
+    """plain_kernels, plus the sharded step's own kernels (K13-K16) and the
+    kernels it calls by name swapped for their plain versions."""
+    swaps = [
+        (ici, "materialize_matured", nodes.materialize_matured_plain), (ici, "run_param", tpt.run_param_plain),
+        (ici, "run_shaping", tsh.run_shaping_plain), (ici, "shaping_inputs", tsh.shaping_inputs_plain),
+        (ici, "merge_stats_across", ici.merge_stats_across_plain), (ici, "merge_breaker", ici.merge_breaker_plain),
+        (ici, "mesh_split_spend", ici.mesh_split_spend_plain),
+        (ici, "mesh_shaping_charge", ici.mesh_shaping_charge_plain),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    with plain_kernels():
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+
+def shard_copies(base: nodes.StatsState, gen, now: int) -> nodes.StatsState:
+    """D_MESH copies of ``base`` as shards leave them: on each shard 20% of
+    the window cells added to in place, 5% rolled to the next window or
+    the one after (shards differ), the thread gauges moved, 10% of the
+    slab cells rolled to a later window."""
+    copies = ici.replicate(base, D_MESH)
+    for d in range(D_MESH):
+        s = ici.shard_of(copies, d)
+        for cfg, w in ((nodes.SECOND_CFG, s.second), (nodes.MINUTE_CFG, s.minute)):
+            u = torch.rand(w.window_start.shape, generator=gen, device=DEV)
+            add, roll = u < 0.2, (u >= 0.2) & (u < 0.25)
+            w.counts.add_(torch.where(add[..., None], torch.randint(0, 3, w.counts.shape, generator=gen,
+                                                                     device=DEV, dtype=I32), 0))
+            w.window_start.copy_(torch.where(roll, now - now % cfg.window_len_ms + cfg.window_len_ms * (d % 2),
+                                             w.window_start))
+            w.counts.copy_(torch.where(roll[..., None], torch.randint(0, 9, w.counts.shape, generator=gen, device=DEV,
+                                                                      dtype=I32), w.counts))
+            w.min_rt.copy_(torch.where(add | roll, torch.randint(1, 4000, w.min_rt.shape, generator=gen, device=DEV,
+                                                                 dtype=I32), w.min_rt))
+            del u, add, roll
+        s.threads.add_(torch.randint(-2, 3, s.threads.shape, generator=gen, device=DEV, dtype=I32))
+        fr = torch.rand(s.future_ws.shape, generator=gen, device=DEV) < 0.1
+        s.future_ws.copy_(torch.where(fr, now - now % 500 + 500 * (1 + d % 2), s.future_ws))
+        s.future_pass.copy_(torch.where(fr, torch.randint(1, 5, fr.shape, generator=gen, device=DEV, dtype=I32),
+                                        s.future_pass))
+    return copies
+
+
+def merge_bytes(base: nodes.StatsState, copies: nodes.StatsState) -> float:
+    """K13's bytes on these inputs: every shard's and the base's window
+    starts, the counts and min RT of the base and of the shards where they
+    are on the merged window, the merged state written."""
+    total = 0.0
+    for o, w, e, has_min in ((base.second, copies.second, NUM_EVENTS, True),
+                             (base.minute, copies.minute, NUM_EVENTS, True),
+                             (ma.MetricArrayState(base.future_pass[..., None], None, base.future_ws),
+                              ma.MetricArrayState(copies.future_pass[..., None], None, copies.future_ws), 1, False)):
+        g = w.window_start.amax(0)
+        cells = g.numel()
+        used = int((o.window_start == g).sum()) + int((w.window_start == g).sum())
+        total += (D_MESH + 1) * cells * 4 + used * (e + has_min) * 4 + cells * (e + 1 + has_min) * 4
+    return total + (D_MESH + 2) * R * 4
+
+
+def breaker_copies(dyn: tdt.DegradeDynState, gen, now: int) -> tdt.DegradeDynState:
+    """D_MESH copies of a breaker state as shards leave them: 1% of the
+    breakers in another state on each shard, 5% rolled to the next window
+    with counts of their own, the rest with an exit or none added."""
+    copies = ici.replicate(dyn, D_MESH)
+    for d in range(D_MESH):
+        s = ici.shard_of(copies, d)
+        u = torch.rand(ND, generator=gen, device=DEV)
+        s.state.copy_(torch.where(u < 0.01, torch.randint(0, 3, (ND,), generator=gen, device=DEV, dtype=I32),
+                                  s.state))
+        roll = (u >= 0.01) & (u < 0.06)
+        s.ws.copy_(torch.where(roll, s.ws + 1000, s.ws))
+        s.bad.copy_(torch.where(roll, torch.randint(0, 3, (ND,), generator=gen, device=DEV, dtype=I32),
+                                s.bad + (u > 0.9).to(I32)))
+        s.total.copy_(torch.where(roll, s.bad + 2, s.total + (u > 0.7).to(I32)))
+        s.next_retry.copy_(torch.where(u < 0.01, now + 5000, s.next_retry))
+    return copies
+
+
+def origin_split(batch: flush.FlushBatch) -> flush.FlushBatch:
+    """K = 2: each entry's second slot checks another rule on the same row
+    (two rules sharing a check row, as an origin-split topology does)."""
+    gid = torch.stack([batch.e_rule_gid[:, 0], (batch.e_rule_gid[:, 0] + 1) % R], 1).contiguous()
+    return batch._replace(e_rule_gid=gid, e_check_row=torch.cat([batch.e_check_row] * 2, 1).contiguous())
+
+
+def split_bytes(stats, batch, mask_src, grant: bool) -> float:
+    """K15's bytes: per slot its gid, check row and mask, per entry its ts,
+    acquire and flags, per touched row its window (or slab) and gauge, per
+    touched rule its table row; the keep mask written."""
+    n, k = batch.e_rule_gid.shape
+    rows = torch.unique(batch.e_check_row.clamp(0, R - 1)).numel()
+    rules = torch.unique(batch.e_rule_gid.clamp(0, R - 1)).numel()
+    return n * k * 9 + n * (4 + 4 + 1 + 1) + rows * (20 if grant else 16) + rules * 12 + n
+
+
+def phase2_mesh(results: dict) -> None:
+    log(f"phase 2f: the sharded step's kernels against their plain versions: K13 (merge of {D_MESH} shards' stats "
+        f"over {R:,} rows), K14 ({ND:,} breakers), K15 ({N:,} entries, {N // D_MESH:,} a shard; K=1, the mixed "
+        f"K=2, an origin split), K16 ({S_SH:,} shaping items), K8 with probe_allowed")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(61)
+    rng = np.random.default_rng(61)
+    now = 4_000_137
+    # K13: the rollover-aware merge
+    base = make_stats(now, gen, matured_frac=0.2)
+    copies = shard_copies(base, gen, now)
+    want = ici.merge_stats_across_plain(clone(base), copies)
+    got = ici.merge_stats_across(clone(base), copies)
+    err = require_equal(want, got, "mesh_merge_stats")
+    rolled = int((copies.second.window_start != base.second.window_start[None]).sum())
+    del want, got
+    torch.cuda.empty_cache()
+    scratch = clone(base)
+    results["mesh_merge_stats"].update(
+        max_abs_err=err, ms=time_ms(lambda: ici.merge_stats_across(scratch, copies), iters=5),
+        plain_ms=time_ms(lambda: ici.merge_stats_across_plain(scratch, copies), iters=1, warmup=1),
+        bound=bound(merge_bytes(base, copies)), library_ms=None,
+        shape=f"{D_MESH} shards x stats [{R},2|60,6] + slab + gauge ({rolled:,} second-window cells rolled)")
+    del base, copies, scratch
+    torch.cuda.empty_cache()
+    # K14: the breaker merge
+    ddev, dyn = make_breakers(now, gen)
+    dcopies = breaker_copies(dyn, gen, now)
+    want = ici.merge_breaker_plain(ddev, clone(dyn), dcopies, now)
+    got = ici.merge_breaker(ddev, clone(dyn), dcopies, now)
+    err = require_equal(want, got, "mesh_merge_breaker")
+    moved = int((got.state != dyn.state).sum())
+    scratch = clone(dyn)
+    results["mesh_merge_breaker"].update(
+        max_abs_err=err, ms=time_ms(lambda: ici.merge_breaker(ddev, scratch, dcopies, now)),
+        plain_ms=time_ms(lambda: ici.merge_breaker_plain(ddev, scratch, dcopies, now), iters=3),
+        bound=bound(ND * (20 * (D_MESH + 1) + 20 + 20)), library_ms=None,
+        shape=f"{D_MESH} shards x {ND:,} breakers ({moved:,} changed state)")
+    del dcopies, scratch, want, got
+    # K8 with the probe election's mask
+    stats = make_chain_stats(now, gen)
+    batch = make_chain_batch(rng, now, skewed=False)
+    e_live = batch.e_valid & batch.e_auth_ok
+    allowed = torch.rand(ND, generator=gen, device=DEV) < 0.5
+    want = tdt.breaker_try_pass_plain(ddev, dyn, batch.e_dgid, batch.e_ts, e_live, allowed)
+    got = tdt.breaker_try_pass(ddev, dyn, batch.e_dgid, batch.e_ts, e_live, allowed)
+    err = require_equal(want, got, "breaker_try_pass with probe_allowed")
+    free = tdt.breaker_try_pass(ddev, dyn, batch.e_dgid, batch.e_ts, e_live)
+    if not 0 < int(got[1].sum()) < int(free[1].sum()):
+        fail("phase 2f: the probe_allowed mask did not hold back some probes")
+    touched = torch.unique(batch.e_dgid[e_live[:, None].expand_as(batch.e_dgid)]).numel()
+    results["breaker_try_pass_mask"].update(
+        max_abs_err=err, ms=time_ms(lambda: tdt.breaker_try_pass(ddev, dyn, batch.e_dgid, batch.e_ts, e_live, allowed)),
+        plain_ms=time_ms(lambda: tdt.breaker_try_pass_plain(ddev, dyn, batch.e_dgid, batch.e_ts, e_live, allowed)),
+        bound=bound(N * (4 + 4 + 1 + 2) + touched * 9), library_ms=None,
+        shape=f"N={N} entries x KD=1 against ND={ND} breakers, half of them allowed a probe")
+    del ddev, dyn, want, got, free
+    # K15: the budget split, on Zipf traffic that overruns the grants
+    table = make_table()
+    zb = make_chain_batch(rng, now, skewed=True)
+    live = zb.e_valid & zb.e_auth_ok & (torch.rand(N, generator=gen, device=DEV) < 0.95)
+    occ = (zb.e_prio & (torch.rand(N, generator=gen, device=DEV) < 0.5))[:, None].contiguous()
+    mx = make_mixed(rng, now)
+    cases = {
+        "zipf_grant": (stats, table, zb, True, dict(live=live)),
+        "zipf_borrow": (stats, table, zb, False, dict(occ_slot=occ)),
+        "origin_split_grant": (stats, table, origin_split(zb), True, dict(live=live)),
+        "mixed_k2_grant": (stats, mx["table"], mx["batch"], True, dict(live=mx["batch"].e_valid)),
+    }
+    errs, demoted = 0, {}
+    for tag, (s_, t_, b_, grant, kw) in cases.items():
+        w = ici.mesh_split_spend_plain(D_MESH, s_, t_, b_, grant, **kw)
+        g = ici.mesh_split_spend(D_MESH, s_, t_, b_, grant, **kw)
+        errs = max(errs, require_equal(w, g, f"mesh_split_spend ({tag})"))
+        demoted[tag] = int((~g).sum())
+    if min(demoted[t] for t in ("zipf_grant", "zipf_borrow", "origin_split_grant")) == 0:
+        fail(f"phase 2f: a budget case demoted nothing: {demoted}")
+    k_args = (D_MESH, stats, table, zb, True)
+    results["mesh_split_spend"].update(
+        max_abs_err=errs, ms=time_ms(lambda: ici.mesh_split_spend(*k_args, live=live)),
+        plain_ms=time_ms(lambda: ici.mesh_split_spend_plain(*k_args, live=live), iters=3),
+        bound=bound(split_bytes(stats, zb, live, True)), library_ms=None,
+        borrow_ms=time_ms(lambda: ici.mesh_split_spend(D_MESH, stats, table, zb, False, occ_slot=occ)),
+        mixed_k2_ms=time_ms(lambda: ici.mesh_split_spend(D_MESH, stats, mx["table"], mx["batch"], True,
+                                                           live=mx["batch"].e_valid)),
+        shape=f"{D_MESH} shards x {N // D_MESH:,} Zipf entries x K=1, grant; demoted {demoted}")
+    # K16: the global shaping charge, the mixed shape's items
+    sb = mx["sb"]
+    w = ici.mesh_shaping_charge_plain(stats.second, sb, now)
+    g = ici.mesh_shaping_charge(stats.second, sb, now)
+    err = require_equal(w, g, "mesh_shaping_charge")
+    rows = torch.unique(sb.row).numel()
+    results["mesh_shaping_charge"].update(
+        max_abs_err=err, ms=time_ms(lambda: ici.mesh_shaping_charge(stats.second, sb, now)),
+        plain_ms=time_ms(lambda: ici.mesh_shaping_charge_plain(stats.second, sb, now)),
+        bound=bound(S_SH * (17 + 4) + rows * 16), library_ms=None,
+        shape=f"S={S_SH} global shaping items over {rows:,} rate-limiter rows")
+    for name in ("mesh_merge_stats", "mesh_merge_breaker", "breaker_try_pass_mask", "mesh_split_spend",
+                 "mesh_shaping_charge"):
+        r = results[name]
+        log(f"    {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, equal ({r['shape']})")
+    del stats, batch, zb, mx, table
+    torch.cuda.empty_cache()
+
+
+def phase3b() -> None:
+    log(f"phase 3b: the sharded step ({D_MESH} shards) at R={R:,} rows, N={N:,} entries, through the kernels and "
+        f"through the plain versions")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(63)
+    rng = np.random.default_rng(63)
+    now = 5_000_137
+    mesh = make_mesh(D_MESH, DEV)
+    table = make_table()
+    base = make_chain_stats(now, gen)
+    batch = make_chain_batch(rng, now, skewed=True)
+    ddev, dyn = make_breakers(now, gen)
+    step = ici.make_sharded_flush(mesh, 500)
+    sysdev = sys_device("rt")
+    pdyn = tpt.make_param_state(8, DEV)
+    shapes = {"slot chain": dict(table=table, fdyn=None, ddev=ddev, dyn=dyn, pdyn=pdyn, sysdev=sysdev, batch=batch,
+                                 step=step, extra=())}
+    for label in ("slot chain", "mixed"):
+        if label == "mixed":
+            now += 400
+            mx = make_mixed(rng, now)
+            base = make_stats(now, gen)
+            shapes["mixed"] = dict(
+                table=mx["table"], fdyn=mx["dyn"], ddev=mx["ddev"], dyn=mx["ddyn"], pdyn=mx["pdyn"],
+                sysdev=flush.make_system_device(None, -1.0, -1.0), batch=mx["batch"],
+                step=ici.make_sharded_flush(mesh, 500, True, True, mx["sh_rounds"], mx["p_rounds"]),
+                extra=(mx["sb"], mx["pb"]))
+        c = shapes[label]
+
+        def run(stats, fdyn, pdyn_):
+            return c["step"](stats, c["table"], fdyn, c["ddev"], c["dyn"], pdyn_, c["sysdev"], c["batch"], *c["extra"])
+
+        def fresh():
+            return clone(base), None if c["fdyn"] is None else clone(c["fdyn"]), clone(c["pdyn"])
+
+        kern = fresh()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out_k = run(*kern)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        plain = fresh()
+        with plain_mesh_kernels():
+            t0 = time.perf_counter()
+            out_p = run(*plain)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        require_equal(out_p[4], out_k[4], f"sharded step results ({label})")
+        for i, what in ((0, "stats"), (1, "pacer state"), (2, "breaker state"), (3, "param state")):
+            if out_k[i] is not None:
+                require_equal(out_p[i], out_k[i], f"sharded step {what} ({label})")
+        res = out_k[4]
+        del plain, out_p
+        torch.cuda.empty_cache()
+        k_ms, k_spread = step_times(lambda: run(*kern), repeats=3)
+        log(f"  {label}: kernels {k_ms:.4f} ms/step {k_spread} (first step {first_ms:.1f} ms), plain route "
+            f"{plain_ms:.1f} ms; results and every state tensor identical; peak device memory "
+            f"{peak / 2**30:.2f} GiB; reasons {torch.bincount(res.reason, minlength=6).tolist()}, "
+            f"{int(res.occupied.sum())} borrowed, {int((res.wait_ms > 0).sum())} waits")
+        profile_step(lambda: run(*kern), f"sharded {label}", steps=2)
+        del kern, out_k, res
+        torch.cuda.empty_cache()
+
+
+MESH_STEPS = 20  # 150 ms each: 3 simulated seconds
+MESH_BULK = 31744
+MESH_SINGLES = 1024
+
+
+def drive_mesh_engine(device: torch.device, seed: int):
+    """The engine in mesh mode (8 shards): 6,000 flow rules (QPS, one in
+    eleven THREAD grade, one in thirteen a RATE_LIMITER), breakers on
+    every third resource, hot-param rules on 200 resources (QPS with a hot
+    item, throttles); per flush a Zipf submit_bulk stream of 31,744
+    entries and 1,024 submit_many singles (prioritized ones on cold
+    resources, four values a resource on 20 of the param resources), exits completing the
+    breakers and releasing held entries. Returns (records, final state,
+    seconds per flush call)."""
+    clock = tclock.ManualClock(0)
+    api.reset(clock=clock, device=device)
+    eng = api.get_engine()
+    eng.enable_mesh(D_MESH)
+    st.flow_rule_manager.load_rules([
+        st.FlowRule(f"r{i}", count=20 + i % 7 if i % 11 else 30, grade=C.FLOW_GRADE_THREAD if i % 11 == 5 else 1,
+                    control_behavior=C.CONTROL_BEHAVIOR_RATE_LIMITER if i % 13 == 7 else 0,
+                    max_queueing_time_ms=400)
+        for i in range(N_RULES)
+    ])
+    st.degrade_rule_manager.load_rules([
+        st.DegradeRule(f"r{i}", grade=(i // 3) % 3, count=(100, 0.3, 20)[(i // 3) % 3], time_window=1,
+                       slow_ratio_threshold=0.5, min_request_amount=5)
+        for i in range(0, N_RULES, 3)
+    ])
+    hot = [st.ParamFlowItem(object="vip", count=50)]
+    st.param_flow_rule_manager.load_rules(
+        [st.ParamFlowRule(API(j), param_idx=0, count=3 + j % 4, param_flow_item_list=hot) for j in range(0, 200, 2)]
+        + [st.ParamFlowRule(API(j), param_idx=0, count=5, max_queueing_time_ms=400,
+                            control_behavior=C.CONTROL_BEHAVIOR_RATE_LIMITER) for j in range(1, 200, 2)])
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, N_RULES + 1, dtype=np.float64) ** -1.1
+    p = ranks / ranks.sum()
+    users = ["vip", "u0", "u1", "u2"]
+    records, prev_groups, held = [], [], []
+    reasons = np.zeros(6, np.int64)
+    flush_s = 0.0
+    for step in range(MESH_STEPS):
+        now = 1000 + step * 150
+        clock.set_ms(now)
+        res = np.sort(rng.choice(N_RULES - 1000, size=MESH_BULK, p=p[: N_RULES - 1000] / p[: N_RULES - 1000].sum()))
+        ts = (now - rng.integers(0, 150, MESH_BULK)).astype(np.int32)
+        uniq, start = np.unique(res, return_index=True)
+        bounds = list(start) + [MESH_BULK]
+        groups = [eng.submit_bulk(f"r{r}", int(bounds[i + 1] - bounds[i]), ts=np.sort(ts[bounds[i]:bounds[i + 1]]))
+                  for i, r in enumerate(uniq)]
+        reqs = []
+        for j in range(MESH_SINGLES):
+            kind = j % 4
+            if kind == 0:
+                reqs.append({"resource": API(int(rng.integers(0, 20))), "ts": now - int(rng.integers(0, 60)),
+                             "args": (users[int(rng.integers(0, len(users)))],)})
+            elif kind == 1:
+                reqs.append({"resource": f"r{N_RULES - 8 + j % 8}", "ts": now - int(rng.integers(0, 50)),
+                             "prio": True})
+            else:
+                reqs.append({"resource": f"r{int(rng.integers(0, N_RULES - 1000))}", "ts": now})
+        singles = eng.submit_many(reqs)
+        for g in prev_groups[:80]:
+            if g.admitted_count:
+                n_x = g.admitted_count
+                eng.submit_exit_bulk(g.rows, n_x, rt=rng.integers(1, 250, n_x).astype(np.int32),
+                                     err=(rng.random(n_x) < 0.3).astype(np.int32), ts=now, resource=g.resource)
+        for op in held:
+            eng.submit_exit(op.rows, rt=int(rng.integers(1, 100)), ts=now, resource=op.resource,
+                            param_rows=op.param_thread_rows)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.flush()
+        flush_s += time.perf_counter() - t0
+        for g in groups:
+            records += [g.admitted, g.reason, g.wait_ms]
+            reasons += np.bincount(g.reason, minlength=6)[:6]
+        records.append(np.array([_verdict_record(o.verdict) for o in singles], dtype=object))
+        reasons += np.bincount([o.verdict.reason for o in singles], minlength=6)[:6]
+        prev_groups = groups
+        held = [o for o in singles if o.verdict.admitted and not o.verdict.wait_ms][:200]
+    eng.flush()
+    # Copies: on the CPU the numpy views would follow the check below.
+    state = tmap(np.array, (nodes.stats_to_numpy(eng.stats), tdt.degrade_state_to_numpy(eng.degrade_dyn),
+                            tpt.param_state_to_numpy(eng.param_dyn), tuple(t.cpu().numpy() for t in eng.flow_dyn)))
+    # The conservation invariant: one rule of count 20, 128 entries of one
+    # window over the shards admit exactly 20 (r1 has no breaker).
+    eng.set_flow_rules([st.FlowRule("r1", count=20)])
+    clock.set_ms(60_000)
+    ops = eng.submit_many([{"resource": "r1", "ts": 60_000} for _ in range(128)])
+    eng.flush()
+    conserved = sum(o.verdict.admitted for o in ops)
+    return records, state, flush_s / MESH_STEPS, conserved, reasons
+
+
+def phase4_mesh(results: dict, cpu_jobs: dict) -> None:
+    log(f"phase 4e: the engine in mesh mode ({D_MESH} shards) through the public API ({MESH_STEPS} flushes of "
+        f"{MESH_BULK + MESH_SINGLES:,}: Zipf submit_bulk and submit_many over 6,000 rules with THREAD grade, "
+        f"rate limiters, breakers, prioritized entries and hot-param rules)")
+    counters = {
+        "mesh_merge_stats": (ici.merge_stats_across, "launches"), "mesh_merge_breaker": (ici.merge_breaker, "launches"),
+        "mesh_split_spend": (ici.mesh_split_spend, "launches"),
+        "mesh_shaping_charge": (ici.mesh_shaping_charge, "launches"),
+        "breaker_try_pass_mask": (tdt.breaker_try_pass, "mask_launches"),
+        "breaker_on_exits": (tdt.breaker_on_exits, "launches"), "run_shaping": (tsh.run_shaping, "launches"),
+        "run_param": (tpt.run_param, "launches"), "flow_admission_occupy": (flush.flow_admission, "occupy_launches"),
+    }
+    for w, attr in counters.values():
+        setattr(w, attr, 0)
+    gpu = drive_mesh_engine(DEV, seed=9)
+    counts = {name: getattr(w, attr) for name, (w, attr) in counters.items()}
+    log(f"  card: {gpu[2] * 1e3:.3f} ms per flush call (host encode and verdict copy included)")
+    log(f"  launches on the mesh path: {counts}")
+    for name, c in counts.items():
+        if c <= 0:
+            fail(f"kernel {name} was not launched on the mesh path")
+    for name in ("mesh_merge_stats", "mesh_merge_breaker", "mesh_split_spend", "mesh_shaping_charge",
+                 "breaker_try_pass_mask"):
+        results[name]["launches"] = counts[name]
+    if gpu[3] != 20:
+        fail(f"phase 4e: 128 same-window entries against count 20 admitted {gpu[3]} on the mesh")
+    cpu = cpu_result(cpu_jobs, "4e")
+    log(f"  CPU engine with the same mesh (plain versions, in a worker process): {cpu[2] * 1e3:.3f} ms per flush call")
+    if len(gpu[0]) != len(cpu[0]) or any(not np.array_equal(a, b) for a, b in zip(gpu[0], cpu[0])):
+        fail("mesh engine verdicts, wait_ms or attribution differ between the card and the CPU")
+    for what, a_state, b_state in (("stats", gpu[1][0], cpu[1][0]), ("breaker state", gpu[1][1], cpu[1][1]),
+                                   ("param state", gpu[1][2], cpu[1][2])):
+        for name in a_state._fields:
+            a, b = getattr(a_state, name), getattr(b_state, name)
+            for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+                if not np.array_equal(x, y):
+                    fail(f"mesh engine {what} {name} differs between the card and the CPU")
+    if any(not np.array_equal(x.view(np.int32), y.view(np.int32)) for x, y in zip(gpu[1][3], cpu[1][3])):
+        fail("mesh engine shaping state differs between the card and the CPU")
+    reasons = gpu[4]
+    log(f"  verdicts, wait_ms, attribution, stats, breaker, param and shaping state identical on card and CPU; "
+        f"reasons (pass, flow, degrade, system, authority, param) {reasons.tolist()}; 128 same-window entries "
+        f"against count 20 admitted {gpu[3]}")
+    if min(reasons[c] for c in (0, 1, 2, 5)) == 0:
+        fail("phase 4e: the stream did not pass and block on flow, param and breaker rules")
+
+
+def phase9() -> None:
+    log("phase 9: examples/mesh_demo.py's sequence on the card (8 shards, 128 entries against count = 20)")
+    api.reset(device=DEV)
+    eng = api.get_engine()
+    eng.enable_mesh(D_MESH)
+    st.flow_rule_manager.load_rules([st.FlowRule("global-api", count=20)])
+    now = eng.clock.now_ms()
+    ops = eng.submit_many([{"resource": "global-api", "ts": now} for _ in range(128)])
+    eng.flush()
+    admitted = sum(op.verdict.admitted for op in ops)
+    stats = eng.cluster_node_stats("global-api")
+    log(f"  128 entries sharded over {D_MESH} shards against count=20:")
+    log(f"    admitted {admitted} (exactly the global budget, not 8 x 20)")
+    log(f"    minute totals: pass={stats['total_pass_minute']}  block={stats['total_block_minute']}")
+    if (admitted, stats["total_pass_minute"], stats["total_block_minute"]) != (20, 20, 108):
+        fail(f"phase 9: the mesh demo admitted {admitted} with minute totals {stats}")
+    api.reset(device=DEV)
+
+
 def _cpu_worker() -> None:
     """A worker of WORKERS: its helpers build their inputs on the CPU."""
     global DEV
@@ -2187,7 +2644,7 @@ def _cpu_worker() -> None:
 
 
 def start_cpu_jobs() -> dict:
-    """Starts the CPU references of phases 2c (d), 4, 4b and 4c (the port's
+    """Starts the CPU references of phases 2c (d), 4-4e and 8 (the port's
     plain versions, one round of a segmented recurrence at a time, and the
     CPU engines) in worker processes, longest first, so that they run while
     the build and the card's phases do; each is the same seeded computation the phase
@@ -2199,6 +2656,7 @@ def start_cpu_jobs() -> dict:
     cpu = torch.device("cpu")
     return {
         "4c": WORKERS.apply_async(drive_shaping_engine, (cpu, 6)),
+        "4e": WORKERS.apply_async(drive_mesh_engine, (cpu, 9)),
         "heavy param": WORKERS.apply_async(heavy_plain, ("param",)),
         "heavy shaping": WORKERS.apply_async(heavy_plain, ("shaping",)),
         "4": WORKERS.apply_async(drive_engine, (cpu, 4)),
@@ -2224,7 +2682,7 @@ def main() -> None:
     t0 = time.perf_counter()
     cuda_build.build_all(["window_update", "flow_admission", "system_check", "breaker_on_exits",
                           "breaker_try_pass", "commit_borrow_slab", "shaping_scan", "param_scan", "sketch_fold",
-                          "token_decide"])
+                          "token_decide", "mesh_merge_breaker", "mesh_budget"])
     log(f"  CUDA kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
 
     meta = {
@@ -2255,6 +2713,13 @@ def main() -> None:
         "sketch_fold": ("cuda", "sentinel_tpu_torch/csrc/sketch_fold.cu", "sentinel_tpu/runtime/sketch.py:191"),
         "token_decide": ("cuda", "sentinel_tpu_torch/csrc/token_decide.cu",
                          "sentinel_tpu/cluster/token_service.py:95"),
+        "mesh_merge_stats": ("triton", "sentinel_tpu_torch/parallel/ici.py", "sentinel_tpu/parallel/ici.py:48"),
+        "mesh_merge_breaker": ("cuda", "sentinel_tpu_torch/csrc/mesh_merge_breaker.cu",
+                               "sentinel_tpu/parallel/ici.py:471"),
+        "mesh_split_spend": ("cuda", "sentinel_tpu_torch/csrc/mesh_budget.cu", "sentinel_tpu/parallel/ici.py:127"),
+        "mesh_shaping_charge": ("cuda", "sentinel_tpu_torch/csrc/mesh_budget.cu", "sentinel_tpu/parallel/ici.py:346"),
+        "breaker_try_pass_mask": ("cuda", "sentinel_tpu_torch/csrc/breaker_try_pass.cu",
+                                  "sentinel_tpu/rules/degrade_table.py:297"),
     }
     results = {name: {} for name in meta}
     took = {"1": round(time.perf_counter() - t_start, 1)}
@@ -2264,7 +2729,8 @@ def main() -> None:
         ("4", lambda: phase4(results, cpu_jobs)), ("4b", lambda: phase4_chain(results, cpu_jobs)),
         ("2d", lambda: phase2_sketch(results)), ("2e", lambda: phase2_token(results)),
         ("4c", lambda: phase4_shaping(results, cpu_jobs)), ("4d", lambda: phase4_sketch(results, cpu_jobs)),
-        ("5", phase5), ("6", phase6), ("7", phase7), ("8", lambda: phase8(results, cpu_jobs)),
+        ("2f", lambda: phase2_mesh(results)), ("3b", phase3b), ("4e", lambda: phase4_mesh(results, cpu_jobs)),
+        ("5", phase5), ("6", phase6), ("7", phase7), ("8", lambda: phase8(results, cpu_jobs)), ("9", phase9),
     ):
         t0 = time.perf_counter()
         run()
@@ -2283,7 +2749,7 @@ def main() -> None:
             "library_ms": r["library_ms"], "shape": r["shape"],
         }
         for extra in ("library_call", "zipf_ms", "zipf_plain_ms", "heavy_ms", "index_add_ms", "widened_ms",
-                      "ties_ms"):
+                      "ties_ms", "borrow_ms", "mixed_k2_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

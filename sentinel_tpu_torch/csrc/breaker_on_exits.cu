@@ -36,12 +36,13 @@
 // (min_request 2^31 - 1 rounds to 2^31). ts + retry_ms wraps in uint32,
 // as JAX's int32 addition wraps; signed overflow is not used.
 
+#include "breaker_trip.cuh"
 #include "segscan.cuh"
 
 namespace {
 
 constexpr int CLOSED = 0, OPEN = 1, HALF_OPEN = 2;  // rules/degrade_table.py
-constexpr int GRADE_RT = 0, GRADE_EXCEPTION_RATIO = 1;  // models/constants.py
+constexpr int GRADE_RT = 0;  // models/constants.py
 
 struct Table {
   const int* grade;
@@ -77,14 +78,9 @@ __device__ __forceinline__ bool exit_bad(const Table& t, int g, int rt, int err)
   return t.grade[g] == GRADE_RT ? rt > t.max_rt[g] : err > 0;
 }
 
-// trip_condition (degrade_table.py:151) in float32.
+// trip_condition (degrade_table.py:151) in float32 (breaker_trip.cuh).
 __device__ __forceinline__ bool trip(const Table& t, int g, float bad, float total) {
-  float ratio = __fdiv_rn(bad, fmaxf(total, 1.0f));
-  float slow = t.slow_ratio[g];
-  int grade = t.grade[g];
-  if (grade == GRADE_RT) return ratio > slow || (slow >= 1.0f && ratio >= 1.0f);
-  if (grade == GRADE_EXCEPTION_RATIO) return ratio > t.threshold[g];
-  return bad > t.threshold[g];
+  return trip_condition(t.grade[g], t.threshold[g], t.slow_ratio[g], bad, total);
 }
 
 __global__ void bo_keys(const int* __restrict__ dgid, const int* __restrict__ x_ts,

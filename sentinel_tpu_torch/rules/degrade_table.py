@@ -301,22 +301,26 @@ def breaker_on_exits_plain(ddev, dyn, x_dgid, x_ts, x_rt, x_err, x_valid) -> Deg
 # ---------------------------------------------------------------------------
 
 
-def breaker_try_pass(ddev, dyn, e_dgid, e_ts, e_live) -> Tuple[torch.Tensor, torch.Tensor]:
+def breaker_try_pass(ddev, dyn, e_dgid, e_ts, e_live, probe_allowed=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tryPass for a batch of entries. Returns (slot_ok [N, KD], probe_slot
     [N, KD]): a slot passes when its breaker is CLOSED, when it is the one
     probe of an OPEN breaker whose retry time has come (the earliest
     candidate by (ts, slot)), or when the slot is empty or its entry is not
     live. The caller applies the HALF_OPEN transition only for probes
-    admitted end to end."""
+    admitted end to end. ``probe_allowed`` (bool [ND], None = every
+    breaker) restricts probe candidacy to the breakers this shard won in
+    the sharded step's probe election (``parallel/ici.py``)."""
     if dyn.state.is_cuda:
-        return _breaker_try_pass_cuda(ddev, dyn, e_dgid, e_ts, e_live)
-    return breaker_try_pass_plain(ddev, dyn, e_dgid, e_ts, e_live)
+        return _breaker_try_pass_cuda(ddev, dyn, e_dgid, e_ts, e_live, probe_allowed)
+    return breaker_try_pass_plain(ddev, dyn, e_dgid, e_ts, e_live, probe_allowed)
 
 
 breaker_try_pass.launches = 0
+# Launches of K8 with a probe_allowed mask (a subset of ``launches``).
+breaker_try_pass.mask_launches = 0
 
 
-def breaker_try_pass_plain(ddev, dyn, e_dgid, e_ts, e_live) -> Tuple[torch.Tensor, torch.Tensor]:
+def breaker_try_pass_plain(ddev, dyn, e_dgid, e_ts, e_live, probe_allowed=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`breaker_try_pass`."""
     n, kd = e_dgid.shape
     nd = ddev.n_rules
@@ -328,6 +332,8 @@ def breaker_try_pass_plain(ddev, dyn, e_dgid, e_ts, e_live) -> Tuple[torch.Tenso
     gid_c = gid_f.clamp(0, nd - 1).long()
     st = dyn.state[gid_c]
     candidate = valid & (st == OPEN) & (ts_f >= dyn.next_retry[gid_c])
+    if probe_allowed is not None:
+        candidate = candidate & probe_allowed[gid_c]
 
     # The rank-0 candidate of each breaker, in (ts, slot) order, probes.
     gid_key = torch.where(candidate, gid_f, torch.full_like(gid_f, nd))
@@ -374,7 +380,7 @@ def _setup_exits(lib) -> None:
 
 
 def _setup_try(lib) -> None:
-    lib.breaker_try_pass.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+    lib.breaker_try_pass.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]
     lib.breaker_try_pass.restype = _I
 
 
@@ -435,12 +441,14 @@ def _breaker_on_exits_cuda(ddev, dyn, x_dgid, x_ts, x_rt, x_err, x_valid) -> Deg
     return dyn
 
 
-def _breaker_try_pass_cuda(ddev, dyn, e_dgid, e_ts, e_live) -> Tuple[torch.Tensor, torch.Tensor]:
+def _breaker_try_pass_cuda(ddev, dyn, e_dgid, e_ts, e_live, probe_allowed=None) -> Tuple[torch.Tensor, torch.Tensor]:
     n, kd = e_dgid.shape
     _check(e_dgid, "e_dgid", torch.int32, (n, kd))
     _check(e_ts, "e_ts", torch.int32, (n,))
     _check(e_live, "e_live", torch.bool, (n,))
     _check_tables(ddev, dyn)
+    if probe_allowed is not None:
+        _check(probe_allowed, "probe_allowed", torch.bool, (ddev.n_rules,))
     dev = e_dgid.device
     ok = torch.empty((n, kd), dtype=torch.bool, device=dev)
     probe = torch.empty((n, kd), dtype=torch.bool, device=dev)
@@ -451,10 +459,13 @@ def _breaker_try_pass_cuda(ddev, dyn, e_dgid, e_ts, e_live) -> Tuple[torch.Tenso
     cuda_build.check(
         lib.breaker_try_pass(
             e_dgid.data_ptr(), e_ts.data_ptr(), e_live.data_ptr(), n, kd, ddev.n_rules,
-            dyn.state.data_ptr(), dyn.next_retry.data_ptr(), win.data_ptr(), ok.data_ptr(),
+            dyn.state.data_ptr(), dyn.next_retry.data_ptr(),
+            None if probe_allowed is None else probe_allowed.data_ptr(), win.data_ptr(), ok.data_ptr(),
             probe.data_ptr(), _stream(e_dgid),
         ),
         "breaker_try_pass",
     )
     breaker_try_pass.launches += 1
+    if probe_allowed is not None:
+        breaker_try_pass.mask_launches += 1
     return ok, probe

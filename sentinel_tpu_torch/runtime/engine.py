@@ -8,7 +8,9 @@ buffers. ``submit_*`` calls enqueue ops; ``flush()`` encodes them into
 padded arrays and runs one flush step (runtime/flush.py) for the whole
 batch. ``entry_sync`` is submit + flush: the synchronous ``SphU.entry``.
 
-The port runs the slot chain at pipeline depth 0: flow rules with every
+The port runs the slot chain at pipeline depth 0, on one device or
+sharded over ``n`` shards of it (``enable_mesh``, parallel/ici.py): flow
+rules with every
 controller (DEFAULT, with prioritized entries borrowing future windows;
 RATE_LIMITER, WARM_UP, WARM_UP_RATE_LIMITER), hot-parameter rules,
 authority rules, system rules and circuit breakers; entries (with their
@@ -82,7 +84,10 @@ _ROADMAP_TIERS = "ROADMAP Queue 1 item 7 (engine tiers)"
 _ROADMAP_METRICS = "ROADMAP Queue 1 item 8 (metrics and observability)"
 _ROADMAP_CLUSTER = "ROADMAP Queue 1 item 9 (cluster token plane)"
 _ROADMAP_IPC = "ROADMAP Queue 1 item 10 (IPC plane)"
-_ROADMAP_MESH = "ROADMAP Queue 1 item 12 (multi-GPU)"
+
+# submit_many takes exactly submit_entry's request keys; anything else is
+# handed to submit_entry(**req) so that a typo raises TypeError there.
+_SUBMIT_ENTRY_KEYS = frozenset(("resource", "context_name", "origin", "acquire", "entry_type", "prio", "ts", "args"))
 
 # Switches the JAX engine honours that this slice does not have yet.
 _UNPORTED_SWITCHES = (
@@ -232,6 +237,8 @@ def release_cluster_tokens(tokens: Sequence[Tuple[object, int]]) -> None:
             record_log.warn("[Engine] release of cluster token %d failed", token_id)
 
 
+_SENTINEL = object()  # "not given" for the token service argument (None means no service)
+
 # A token request that fails in transport counts as FAIL (the rule falls
 # back to its local check when it allows it), as in the reference. Any
 # other error, such as a fault of the embedded service's kernel, propagates.
@@ -309,6 +316,11 @@ class Engine:
         # default, one attribute read per call site; armed, its fold rides
         # the flush and its candidate table the verdict copy.
         self.sketch = SketchTier(self)
+        # Mesh mode (enable_mesh): the shards and the sharded steps built
+        # for it, one per (shaping, param, rounds) variant.
+        self.mesh = None
+        self._sharded_fns: Optional[Dict[tuple, object]] = None
+        self._n_shards = 1
 
     @staticmethod
     def _blocked_topk_k() -> int:
@@ -322,11 +334,54 @@ class Engine:
         return max(0, k)
 
     # ------------------------------------------------------------------
-    # what this slice refuses
+    # mesh mode
     # ------------------------------------------------------------------
     def enable_mesh(self, n_devices: Optional[int] = None) -> None:
-        raise _unported("enable_mesh", _ROADMAP_MESH)
+        """Switch to sharded flushing: every flush's entries and exits are
+        split into ``n_devices`` (a power of two) contiguous shards of the
+        engine's device, each shard's step runs against replicated
+        counters, and the windows and breakers are merged after it; flow
+        budgets and occupy borrows are conserved across the shards by the
+        two-pass grant split, shaping pacers and hot parameters run once on
+        the global item batch (parallel/ici.py). ``None`` is one shard per
+        device: one. Pending ops are flushed first. Shards on several
+        cards are not ported (``parallel.make_mesh``)."""
+        from sentinel_tpu_torch.parallel import make_mesh
 
+        with self._flush_lock:
+            drained = self._flush_locked()
+            with self._lock:
+                self.mesh = make_mesh(1 if n_devices is None else n_devices, self.device)  # pow2 or ValueError
+                self._n_shards = self.mesh.n_shards
+                self._sharded_fns = {}
+        _release_blocked_tokens(drained)
+
+    def disable_mesh(self) -> None:
+        with self._flush_lock:
+            drained = self._flush_locked()
+            with self._lock:
+                self.mesh = None
+                self._sharded_fns = None
+                self._n_shards = 1
+        _release_blocked_tokens(drained)
+
+    def _sharded_fn_for(self, with_shaping: bool, with_param: bool, shaping_rounds: int, param_rounds: int):
+        """The sharded step of one variant, built on first use (the occupy
+        timeout is read then, as the JAX engine bakes it into the compiled
+        step)."""
+        from sentinel_tpu_torch.parallel import make_sharded_flush
+
+        key = (with_shaping, with_param, shaping_rounds, param_rounds)
+        fn = self._sharded_fns.get(key)
+        if fn is None:
+            fn = make_sharded_flush(self.mesh, occupy_timeout_ms=config.occupy_timeout_ms, with_shaping=with_shaping,
+                                    with_param=with_param, shaping_rounds=shaping_rounds, param_rounds=param_rounds)
+            self._sharded_fns[key] = fn
+        return fn
+
+    # ------------------------------------------------------------------
+    # what this slice refuses
+    # ------------------------------------------------------------------
     def flush_async(self):
         raise _unported("flush_async", _ROADMAP_PIPELINE)
 
@@ -444,24 +499,10 @@ class Engine:
         after that, so no flush sees it half decided."""
         args = tuple(args)
         with self._lock:
-            findex, dindex, pindex = self.flow_index, self.degrade_index, self.param_index
+            findex = self.flow_index
             cluster_gids = findex.cluster_gids
-            rows = self.resolve_entry_rows(resource, context_name, origin, entry_type)
-            op = None if rows is None else _EntryOp(
-                resource=resource,
-                ts=self.clock.now_ms() if ts is None else int(ts),
-                acquire=int(acquire),
-                rows=rows,
-                slots=findex.resolve_slots(resource, context_name, origin, self.nodes),
-                d_gids=dindex.gids_for(resource),
-                p_slots=pindex.slots_for(resource, args) if args and pindex.has_rules() else [],
-                auth_ok=self._auth_ok(resource, origin),
-                prio=bool(prio),
-                context_name=context_name,
-                origin=origin,
-                args=args,
-                src=(findex, dindex, pindex),
-            )
+            op = self._resolve_entry_locked(findex, self.degrade_index, self.param_index, resource, context_name,
+                                            origin, acquire, entry_type, prio, ts, args)
         sk = self.sketch
         if op is None:
             # Over the cap: the one key class the encode never sees.
@@ -489,6 +530,105 @@ class Engine:
         if over:
             self.flush()  # flush-on-size: the pending buffer is bounded
         return op
+
+    def _resolve_entry_locked(self, findex, dindex, pindex, resource, context_name, origin, acquire, entry_type,
+                              prio, ts, args) -> Optional[_EntryOp]:
+        """One resolved, not yet enqueued op against the given index
+        snapshot; None above the resource cap. The caller holds ``_lock``.
+        submit_entry and submit_many both resolve here, so the path a
+        request takes never changes its semantics."""
+        rows = self.resolve_entry_rows(resource, context_name, origin, entry_type)
+        if rows is None:
+            return None
+        return _EntryOp(
+            resource=resource,
+            ts=self.clock.now_ms() if ts is None else int(ts),
+            acquire=int(acquire),
+            rows=rows,
+            slots=findex.resolve_slots(resource, context_name, origin, self.nodes),
+            d_gids=dindex.gids_for(resource),
+            p_slots=pindex.slots_for(resource, args) if args and pindex.has_rules() else [],
+            auth_ok=self._auth_ok(resource, origin),
+            prio=bool(prio),
+            context_name=context_name,
+            origin=origin,
+            args=args,
+            src=(findex, dindex, pindex),
+        )
+
+    def submit_many(self, requests: Sequence[Dict]) -> List[Optional[_EntryOp]]:
+        """Deferred batch submission: enqueue many entries without
+        flushing; verdicts appear on the returned ops after ``flush()``
+        (None entries are over-cap pass-throughs). Each request is a
+        kwargs dict for :meth:`submit_entry` (``{"resource": ...}`` at
+        least). Order guarantees, as the JAX engine's:
+
+        * the whole batch resolves under ONE lock acquisition;
+        * a request with keys submit_entry does not take goes, with the
+          rest, through ``submit_entry(**req)`` (which raises for it);
+        * from the first request that needs the token service
+          (cluster-mode flow or param rules) on, the resolved ops are held
+          back: ONE batched token call per frame kind runs outside the
+          lock (:meth:`_apply_cluster_checks_bulk`), then they append in
+          request order;
+        * reaching ``max_batch`` flushes the ops queued so far (their
+          verdicts are then filled) and the remaining requests go through
+          ``submit_entry``, in request order.
+
+        With the sketch tier's cold ceilings armed every request goes
+        through ``submit_entry`` (the ceiling must see each one)."""
+        if self.sketch.cold_armed:
+            return [self.submit_entry(**req) for req in requests]
+        out: List[Optional[_EntryOp]] = []
+        resume_at = 0
+        over = False
+        tail: List[Tuple[_EntryOp, bool]] = []  # (op, needs the token service)
+        with self._lock:
+            findex, dindex, pindex = self.flow_index, self.degrade_index, self.param_index
+            cluster_gids = findex.cluster_gids
+            for i, req in enumerate(requests):
+                if not req.keys() <= _SUBMIT_ENTRY_KEYS:
+                    resume_at = i
+                    break
+                op = self._resolve_entry_locked(
+                    findex, dindex, pindex, req["resource"], req.get("context_name", C.CONTEXT_DEFAULT_NAME),
+                    req.get("origin", ""), req.get("acquire", 1), req.get("entry_type", C.EntryType.OUT),
+                    req.get("prio", False), req.get("ts"), tuple(req.get("args", ())),
+                )
+                resume_at = i + 1
+                if op is None:
+                    if self.sketch.armed:
+                        self.sketch.note_unrouted(req["resource"], req.get("acquire", 1))
+                    out.append(None)
+                    continue
+                needs_cluster = bool(
+                    (cluster_gids and any(gid in cluster_gids for gid, _ in op.slots))
+                    or any(s.rule is not None and s.rule.cluster_mode for s in op.p_slots)
+                )
+                out.append(op)
+                if needs_cluster or tail:
+                    tail.append((op, needs_cluster))
+                    if len(self._entries) + len(tail) >= self.max_batch:
+                        over = True
+                        break
+                    continue
+                self._entries.append(op)
+                if len(self._entries) >= self.max_batch:
+                    over = True
+                    break
+        if tail:
+            pending = [(op, cluster_gids) for op, needs in tail if needs]
+            if pending:
+                self._apply_cluster_checks_bulk(pending)
+            with self._lock:
+                self._entries.extend(op for op, _ in tail)
+                if len(self._entries) >= self.max_batch:
+                    over = True
+        if over:
+            self.flush()  # flush-on-size, as submit_entry
+        for req in requests[resume_at:]:
+            out.append(self.submit_entry(**req))
+        return out
 
     def _blocked_cold(
         self, resource: str, context_name: str, origin: str, acquire: int, limit_type: str = "cold"
@@ -533,14 +673,22 @@ class Engine:
             return getattr(server, "service", server)
         return None
 
-    def _apply_cluster_checks(self, op: _EntryOp, cluster_gids) -> None:
+    def _apply_cluster_checks(self, op: _EntryOp, cluster_gids, service=_SENTINEL, prefetched=None,
+                              wait: Optional[List[int]] = None) -> None:
         """applyTokenResult (FlowRuleChecker.java:207-230): OK passes the
         rule (its local slot is dropped), SHOULD_WAIT paces then passes,
         BLOCKED blocks, anything else falls back to the local check when
         the rule allows it, else passes. THREAD-grade rules hold a
-        concurrency token instead (released at exit)."""
-        service = self._cluster_token_service()
-        wait = 0
+        concurrency token instead (released at exit), always asked per op.
+        ``prefetched`` (the batched seam) maps gid -> the token result a
+        batched call already got; ``wait`` is the batch's one-cell
+        SHOULD_WAIT accumulator, settled by the caller (None: this op
+        settles its own)."""
+        if service is _SENTINEL:
+            service = self._cluster_token_service()
+        own_wait = wait is None
+        if own_wait:
+            wait = [0]
         kept = []
         decided = set()
         for gid, crow in op.slots:
@@ -568,15 +716,18 @@ class Engine:
                 elif cc.fallback_to_local_when_fail:
                     kept.append((gid, crow))
                 continue
-            try:
-                result = service.request_token(cc.flow_id, op.acquire, op.prio)
-            except _TOKEN_TRANSPORT_ERRORS:
-                result = None
+            if prefetched is not None and gid in prefetched:
+                result = prefetched[gid]
+            else:
+                try:
+                    result = service.request_token(cc.flow_id, op.acquire, op.prio)
+                except _TOKEN_TRANSPORT_ERRORS:
+                    result = None
             status = result.status if result is not None else C.TokenResultStatus.FAIL
             if status == C.TokenResultStatus.OK:
                 decided.add(cc.flow_id)
             elif status == C.TokenResultStatus.SHOULD_WAIT:
-                wait += int(result.wait_in_ms)
+                wait[0] += int(result.wait_in_ms)
                 decided.add(cc.flow_id)
             elif status == C.TokenResultStatus.BLOCKED:
                 op.cluster_blocked_rule = rule
@@ -585,7 +736,8 @@ class Engine:
                 kept.append((gid, crow))
         op.slots = kept
         op.token_decided_flow_ids = op.token_decided_flow_ids | frozenset(decided)
-        self._settle_cluster_wait(wait)
+        if own_wait:
+            self._settle_cluster_wait(wait[0])
 
     def _settle_cluster_wait(self, total: int) -> None:
         """Pay the accumulated SHOULD_WAIT pacing once, bounded by
@@ -611,21 +763,62 @@ class Engine:
                 groups[fid][1].append(s.value_key)
         return groups
 
-    def _apply_cluster_checks_bulk(self, pending) -> None:
-        """The batched token seam of ``submit_many`` (one token request per
-        frame kind for a whole op batch) comes with submit_many."""
-        raise _unported("the batched cluster-token seam of submit_many", _ROADMAP_PIPELINE)
+    def _apply_cluster_checks_bulk(self, pending: List[Tuple[_EntryOp, Dict]]) -> None:
+        """The batched seam of ``submit_many``: every cluster verdict of an
+        op batch from ONE batched token call per frame kind (flow, param),
+        outside the engine lock, then applied per op through the same
+        mapping as the per-op path. SHOULD_WAIT pacing accumulates over
+        the batch and settles once, bounded. THREAD-grade held tokens stay
+        per op (a held token has its own id). A batched call that fails in
+        transport counts as FAIL for each of its requests."""
+        service = self._cluster_token_service()
+        wait = [0]
+        flow_rows: List[Tuple[int, int, bool]] = []
+        flow_refs: List[Tuple[int, int]] = []  # (pending index, gid)
+        param_rows: List[Tuple[int, int, List[str]]] = []
+        param_refs: List[Tuple[int, int]] = []  # (pending index, flow id)
+        if service is not None:
+            for oi, (op, gids) in enumerate(pending):
+                for gid, _ in op.slots:
+                    rule = gids.get(gid)
+                    if rule is None or rule.grade == C.FLOW_GRADE_THREAD:
+                        continue
+                    flow_rows.append((int(rule.cluster_config.flow_id), op.acquire, op.prio))
+                    flow_refs.append((oi, gid))
+                for fid, (_, values) in self._cluster_param_groups(op).items():
+                    param_rows.append((fid, op.acquire, values))
+                    param_refs.append((oi, fid))
+        flow_pre: List[Dict[int, object]] = [{} for _ in pending]
+        param_pre: List[Dict[int, object]] = [{} for _ in pending]
+        for rows, refs, call, pre in ((flow_rows, flow_refs, "request_tokens_batch", flow_pre),
+                                      (param_rows, param_refs, "request_param_tokens_batch", param_pre)):
+            if not rows:
+                continue
+            try:
+                results = getattr(service, call)(rows)
+            except _TOKEN_TRANSPORT_ERRORS:
+                results = [None] * len(rows)
+            for (oi, key), r in zip(refs, results):
+                pre[oi][key] = r
+        for oi, (op, gids) in enumerate(pending):
+            if gids and any(gid in gids for gid, _ in op.slots):
+                self._apply_cluster_checks(op, gids, service=service, prefetched=flow_pre[oi], wait=wait)
+            if op.p_slots and any(s.rule is not None and s.rule.cluster_mode for s in op.p_slots):
+                self._apply_cluster_param_checks(op, service=service, prefetched=param_pre[oi])
+        self._settle_cluster_wait(wait[0])
 
-    def _apply_cluster_param_checks(self, op: _EntryOp) -> None:
+    def _apply_cluster_param_checks(self, op: _EntryOp, service=_SENTINEL, prefetched=None) -> None:
         """Cluster-mode hot-param admission (ParamFlowChecker.passCheck's
         cluster branch): QPS-grade cluster rules ask the token server with
         the entry's values; THREAD grade stays local. OK drops the local
         slots, BLOCKED blocks the op, FAIL or no service falls back to the
-        local check when the rule allows it, else passes."""
+        local check when the rule allows it, else passes. ``prefetched``
+        (the batched seam) maps flow id -> a result already obtained."""
         groups = self._cluster_param_groups(op)
         if not groups:
             return
-        service = self._cluster_token_service()
+        if service is _SENTINEL:
+            service = self._cluster_token_service()
         decided = set()
         fallback_fids = set()
         for fid, (rule, values) in groups.items():
@@ -633,10 +826,13 @@ class Engine:
             if service is None:
                 (fallback_fids if cc.fallback_to_local_when_fail else decided).add(fid)
                 continue
-            try:
-                result = service.request_param_token(fid, op.acquire, values)
-            except _TOKEN_TRANSPORT_ERRORS:
-                result = None
+            if prefetched is not None and fid in prefetched:
+                result = prefetched[fid]
+            else:
+                try:
+                    result = service.request_param_token(fid, op.acquire, values)
+                except _TOKEN_TRANSPORT_ERRORS:
+                    result = None
             status = result.status if result is not None else C.TokenResultStatus.FAIL
             if status == C.TokenResultStatus.OK:
                 decided.add(fid)
@@ -1038,8 +1234,9 @@ class Engine:
     def _encode(self, entries, exits, bulk, bulk_exits, now: int) -> Tuple[FlushBatch, int, int]:
         """Host encode of one chunk into pow2-padded numpy columns, moved
         to the device in one copy per column."""
-        n = _pad_pow2(len(entries) + sum(g.n for g in bulk), 8)
-        m = _pad_pow2(len(exits) + sum(g.n for g in bulk_exits), 8)
+        # Powers of two: shard-divisible on a mesh once at least n_shards.
+        n = max(_pad_pow2(len(entries) + sum(g.n for g in bulk), 8), self._n_shards)
+        m = max(_pad_pow2(len(exits) + sum(g.n for g in bulk_exits), 8), self._n_shards)
         k = _pad_pow2(
             max(1, max((len(op.slots) for op in entries), default=1),
                 max((len(g.slots) for g in bulk), default=1)),
@@ -1310,26 +1507,37 @@ class Engine:
         tier = self.sketch
         sk_batch = None
         sk_decay = False
-        if tier.armed:
+        if tier.armed and self.mesh is None:  # the fold stays off on the mesh, as in the JAX engine
             sk_ids, sk_w = tier.encode_chunk(entries, bulk, findex, pindex)
             sk_decay = tier.decay_due(now)
             sk_batch = SketchBatch(ids=self._tensor(sk_ids), w=self._tensor(sk_w))
         load, cpu = system_sampler.read() if self.system_config is not None else (-1.0, -1.0)
-        self.stats, result = flush_step(
-            self.stats, findex.device, batch,
-            with_exits=bool(exits) or bool(bulk_exits),
-            blk_topk=min(self._blk_topk_k, self.stats.n_rows),
-            ddev=dindex.device, ddyn=self.degrade_dyn,
-            sysdev=make_system_device(self.system_config, load, cpu),
-            occupy_timeout_ms=config.occupy_timeout_ms,
-            # Host-known stage specializations, as the JAX engine sets them.
-            with_occupy=any(op.prio for op in entries),
-            with_system=self.system_config is not None,
-            with_degrade=bool(dindex.rules),
-            flow_dyn=self.flow_dyn, pdyn=self.param_dyn, shaping=shaping, param=param,
-            shaping_rounds=sh_rounds, param_rounds=p_rounds,
-            skstate=tier.dev_state if sk_batch is not None else None, sk=sk_batch, sketch_decay=sk_decay,
-        )
+        sysdev = make_system_device(self.system_config, load, cpu)
+        if self._sharded_fns is not None:
+            # Mesh mode: one global batch sharded over the shards; the
+            # shaping and param items (global positions) go to the global
+            # scans. A failure propagates: no single-shard retry.
+            fn = self._sharded_fn_for(shaping is not None, param is not None, sh_rounds, p_rounds)
+            extra = tuple(b for b in (shaping, param) if b is not None)
+            self.stats, self.flow_dyn, self.degrade_dyn, self.param_dyn, result = fn(
+                self.stats, findex.device, self.flow_dyn, dindex.device, self.degrade_dyn, self.param_dyn, sysdev,
+                batch, *extra,
+            )
+        else:
+            self.stats, result = flush_step(
+                self.stats, findex.device, batch,
+                with_exits=bool(exits) or bool(bulk_exits),
+                blk_topk=min(self._blk_topk_k, self.stats.n_rows),
+                ddev=dindex.device, ddyn=self.degrade_dyn, sysdev=sysdev,
+                occupy_timeout_ms=config.occupy_timeout_ms,
+                # Host-known stage specializations, as the JAX engine sets them.
+                with_occupy=any(op.prio for op in entries),
+                with_system=self.system_config is not None,
+                with_degrade=bool(dindex.rules),
+                flow_dyn=self.flow_dyn, pdyn=self.param_dyn, shaping=shaping, param=param,
+                shaping_rounds=sh_rounds, param_rounds=p_rounds,
+                skstate=tier.dev_state if sk_batch is not None else None, sk=sk_batch, sketch_decay=sk_decay,
+            )
         # One device→host copy of the verdicts; the sketch's candidate
         # table rides along.
         got = [result.admitted, result.reason, result.slot_ok, result.wait_ms, result.sys_type, result.dslot_ok]

@@ -919,8 +919,10 @@ def slot_chain_verdict(
     ``param_ok``/``wait_param`` None = no param stage; ``shape_wait``
     (per-entry max of the shaping waits; ``adm.flow_pass`` then already
     holds the shaping verdicts) None = no shaping stage;
-    ``dslot_ok``/``probe_slot`` None = no breakers; ``n_rows`` is the
-    stats row count (the top-K's range)."""
+    ``dslot_ok``/``probe_slot`` None = no breakers; ``ddyn`` None with
+    breakers = decide without applying the probe transitions (the sharded
+    step's demand pass); ``n_rows`` is the stats row count (the top-K's
+    range)."""
     if batch.e_valid.is_cuda:
         return _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk, param_ok,
                                    wait_param, shape_wait)
@@ -953,7 +955,7 @@ def slot_chain_verdict_plain(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_r
     admitted = live2 & deg_pass
     if wait_param is not None:
         wait_ms = torch.maximum(wait_ms, torch.where(admitted, wait_param, 0)).to(torch.int32)
-    if probe_slot is not None:
+    if probe_slot is not None and ddyn is not None:
         _dt.apply_probe_transitions_plain(ddyn, batch.e_dgid, probe_slot, admitted & ~occupied)
     reason = torch.full((n,), E.PASS, dtype=torch.int32, device=dev)
     reason[batch.e_valid & ~deg_pass] = E.BLOCK_DEGRADE
@@ -978,8 +980,8 @@ def _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, 
     n, k = batch.e_rule_gid.shape
     kd = batch.e_dgid.shape[1]
     dev = batch.e_valid.device
-    if dslot_ok is not None and (dslot_ok.shape != (n, kd) or probe_slot is None or ddyn is None):
-        raise ValueError("slot_chain_verdict: dslot_ok [N, KD] needs probe_slot and the breaker state")
+    if dslot_ok is not None and (dslot_ok.shape != (n, kd) or probe_slot is None):
+        raise ValueError("slot_chain_verdict: dslot_ok [N, KD] needs probe_slot")
     lib = _fa_lib()
     r_rows = n_rows
     admitted = torch.empty(n, dtype=torch.bool, device=dev)
@@ -998,7 +1000,7 @@ def _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, 
             n, k, kd, r_rows,
             batch.e_valid.data_ptr(), batch.e_auth_ok.data_ptr(), ptr(sys_ok), adm.flow_pass.data_ptr(),
             batch.e_cluster_ok.data_ptr(), ptr(adm.occupied), ptr(adm.occupy_wait), ptr(dslot_ok),
-            ptr(probe_slot), batch.e_dgid.data_ptr(), None if dslot_ok is None else ddyn.state.data_ptr(),
+            ptr(probe_slot), batch.e_dgid.data_ptr(), None if dslot_ok is None or ddyn is None else ddyn.state.data_ptr(),
             occ_slot.data_ptr(), ptr(param_ok), ptr(wait_param), ptr(shape_wait),
             batch.e_acquire.data_ptr(), batch.e_rows.data_ptr(), blk_topk, *topk.scratch_ptrs,
             admitted.data_ptr(), reason.data_ptr(), wait_ms.data_ptr(), flow_live.data_ptr(), occupied.data_ptr(),
@@ -1097,6 +1099,29 @@ def _shaping_stage(stats, flow_dev, flow_dyn, shaping: ShapingBatch, adm: "Admis
     return adm._replace(slot_ok=slot_ok, flow_pass=slot_ok.all(dim=1)), wait[:n]
 
 
+def _shaping_pre_stage(adm: "Admission", shaping_pre, shape_wait: Optional[torch.Tensor]):
+    """Shaping verdicts decided outside the step (the sharded step's global
+    pacer scan): ``shaping_pre = (valid [S], flat_pos [S], eidx [S], ok [S],
+    wait_ms [S])`` in this batch's positions. They AND into ``slot_ok`` and
+    raise each entry's wait, as :func:`_shaping_stage` does with its own."""
+    sp_valid, sp_flat, sp_eidx, sp_ok, sp_wait = shaping_pre
+    n, k = adm.slot_ok.shape
+    dev = adm.slot_ok.device
+    flat = torch.ones(n * k + 1, dtype=torch.int32, device=dev)
+    flat[: n * k] = adm.slot_ok.reshape(-1).to(torch.int32)
+    flat.scatter_reduce_(0, torch.where(sp_valid, sp_flat, n * k).long(), sp_ok.to(torch.int32), reduce="amin")
+    slot_ok = flat[: n * k].bool().reshape(n, k)
+    wait = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    if shape_wait is not None:
+        wait[:n] = shape_wait
+    wait.scatter_reduce_(0, torch.where(sp_valid, sp_eidx, n).long(), sp_wait, reduce="amax")
+    return adm._replace(slot_ok=slot_ok, flow_pass=slot_ok.all(dim=1)), wait[:n]
+
+
+def _copy_state(state):
+    return type(state)(*(t.clone() for t in state))
+
+
 def flush_entries(
     stats: StatsState,
     flow_dev: FlowTableDevice,
@@ -1115,16 +1140,31 @@ def flush_entries(
     param: Optional[ParamBatch] = None,
     shaping_rounds: int = 0,
     param_rounds: int = 0,
+    commit: bool = True,
+    probe_allowed: Optional[torch.Tensor] = None,
+    param_pre: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    shaping_pre: Optional[Tuple[torch.Tensor, ...]] = None,
 ) -> Tuple[StatsState, FlushResult]:
     """Phases 2-3: the slot chain (authority, system, hot parameters, flow
     with occupy and shaping, breakers), then entry accounting
     (StatisticSlot.entry), the borrow commit and the per-value thread
     acquire. The breaker state ``ddyn``, the shaping state ``flow_dyn``
-    and the param state ``pdyn`` are updated in place."""
+    and the param state ``pdyn`` are updated in place.
+
+    The sharded step's hooks (``parallel/ici.py``), as the JAX module has
+    them: ``commit=False`` decides without writing any state (no window
+    or future-slab write, no probe transition, no param thread gauge; a
+    param or shaping stage runs on a copy of its state), the step's
+    demand pass. ``probe_allowed`` (bool [ND]) restricts probe candidacy
+    to the breakers this shard won. ``param_pre = (param_ok [N],
+    wait_param [N])`` and ``shaping_pre = (valid [S], flat_pos [S], eidx
+    [S], ok [S], wait_ms [S])`` carry verdicts the global scans decided
+    outside this call: the stage takes them and runs no recurrence."""
     n, k = batch.e_rule_gid.shape
     kd = batch.e_dgid.shape[1]
     dev = batch.e_valid.device
-    if not (with_occupy or with_system or with_degrade or shaping is not None or param is not None):
+    pre = param_pre is not None or shaping_pre is not None
+    if not (with_occupy or with_system or with_degrade or shaping is not None or param is not None or pre):
         # The DEFAULT path: the verdict tail is fused into K4.
         adm = flow_admission(stats, flow_dev, batch, blk_topk)
         v = ChainVerdict(adm.admitted, adm.reason, torch.zeros(n, dtype=torch.int32, device=dev), adm.admitted,
@@ -1142,35 +1182,49 @@ def flush_entries(
             live = live & sys_ok
         # ---- 2b' hot parameters ----
         param_ok = wait_param = None
-        if param is not None:
-            param_ok, wait_param = _param_stage(pdyn, param, live, param_rounds)
+        if param_pre is not None:
+            param_ok, wait_param = param_pre
+            live = live & param_ok
+        elif param is not None:
+            param_ok, wait_param = _param_stage(pdyn if commit else _copy_state(pdyn), param, live, param_rounds)
             live = live & param_ok
         # ---- 2c flow rules, with the occupy branch, then shaping ----
         adm = flow_admission(stats, flow_dev, batch, 0, live, occupy_timeout_ms, with_occupy, tail=False,
                              with_ppc=shaping is not None)
         shape_wait = None
         if shaping is not None:
-            adm, shape_wait = _shaping_stage(stats, flow_dev, flow_dyn, shaping, adm, live, shaping_rounds)
+            adm, shape_wait = _shaping_stage(stats, flow_dev, flow_dyn if commit else _copy_state(flow_dyn),
+                                             shaping, adm, live, shaping_rounds)
+        if shaping_pre is not None:
+            adm, shape_wait = _shaping_pre_stage(adm, shaping_pre, shape_wait)
         # ---- 2d circuit breakers: occupied entries skip them ----
         dslot_ok = probe_slot = None
         if with_degrade:
             e_live = live & adm.flow_pass & batch.e_cluster_ok
             if adm.occupied is not None:
                 e_live = e_live & ~adm.occupied
-            dslot_ok, probe_slot = _dt.breaker_try_pass(ddev, ddyn, batch.e_dgid, batch.e_ts, e_live)
-        v = slot_chain_verdict(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, stats.n_rows, blk_topk,
-                               param_ok, wait_param, shape_wait)
+            dslot_ok, probe_slot = _dt.breaker_try_pass(ddev, ddyn, batch.e_dgid, batch.e_ts, e_live, probe_allowed)
+        v = slot_chain_verdict(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn if commit else None, stats.n_rows,
+                               blk_topk, param_ok, wait_param, shape_wait)
         if dslot_ok is None:
             dslot_ok = torch.ones((n, kd), dtype=torch.bool, device=dev)
-        if with_occupy:
+        if with_occupy and commit:
             # Borrows persist only for entries finally admitted.
             commit_borrow_slab(stats, v.occ_slot, adm.occ_target, batch.e_acquire, batch.e_check_row)
-        if param is not None:
+        if param is not None and param_pre is None and commit:
             # Per-value thread acquire (ParamFlowStatisticEntryCallback.onPass):
             # +1 per thread-grade slot of an admitted entry (rows may repeat).
             inc = (param.valid & (param.grade == C.FLOW_GRADE_THREAD)
                    & v.admitted[param.eidx.clamp(0, max(n - 1, 0)).long()])
             pdyn.threads.index_add_(0, torch.where(inc, param.prow, 0).long(), inc.to(torch.int32))
+
+    result = FlushResult(
+        admitted=v.admitted, reason=v.reason, slot_ok=adm.slot_ok, wait_ms=v.wait_ms, sys_type=sys_type,
+        dslot_ok=dslot_ok, flow_live=v.flow_live, occupied=v.occupied, occ_slot=v.occ_slot,
+        blk_rows=v.blk_rows, blk_weight=v.blk_weight,
+    )
+    if not commit:
+        return stats, result
 
     # ---- phase 3: entry accounting (StatisticSlot.entry) ----
     e_rows_f = batch.e_rows.reshape(-1)
@@ -1192,12 +1246,6 @@ def flush_entries(
         e_deltas = _event_cols(4 * n, dev, PASS=torch.where(adm4, acq4, zero), BLOCK=blocked)
     apply_updates(stats, e_rows_f, _rep4(batch.e_ts), e_deltas, None, adm4.to(torch.int32), e_mask,
                   minute_deltas=minute)
-
-    result = FlushResult(
-        admitted=v.admitted, reason=v.reason, slot_ok=adm.slot_ok, wait_ms=v.wait_ms, sys_type=sys_type,
-        dslot_ok=dslot_ok, flow_live=v.flow_live, occupied=v.occupied, occ_slot=v.occ_slot,
-        blk_rows=v.blk_rows, blk_weight=v.blk_weight,
-    )
     return stats, result
 
 

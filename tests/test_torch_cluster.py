@@ -395,5 +395,74 @@ def test_client_mode_and_bulk_seam_raise(cluster_env):
         cl.ClusterStateManager.set_to_client()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
         cl.ClusterStateManager.apply_state(cl.ClusterStateManager.CLUSTER_CLIENT)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        Engine(clock=ManualClock(0), device="cpu")._apply_cluster_checks_bulk([])
+    # The batched token seam of submit_many is ported: an empty batch asks nothing.
+    assert Engine(clock=ManualClock(0), device="cpu")._apply_cluster_checks_bulk([]) is None
+
+
+# --- submit_many's batched token seam (tests/test_cluster_batched.py) ---------------
+
+
+def _count_batches(svc):
+    """Wrap the service's batched calls to count them."""
+    calls = {"flow": 0, "param": 0}
+    for name, key in (("request_tokens_batch", "flow"), ("request_param_tokens_batch", "param")):
+        fn = getattr(svc, name)
+
+        def wrapped(rows, fn=fn, key=key):
+            calls[key] += 1
+            return fn(rows)
+
+        setattr(svc, name, wrapped)
+    return calls
+
+
+@_scenario
+def _many_flow_batched(lib, cl, rules):
+    """Cluster flow ops through submit_many take ONE batched token call;
+    the verdicts equal per-op submit_entry against an identical fresh
+    token world, interleaved local ops included (the deferred tail keeps
+    request order)."""
+    crule = _rule(lib, rules, "cr", 6, 901)
+    reqs = [{"resource": "cr" if i % 2 == 0 else "plain", "ts": 1000} for i in range(16)]
+    out = []
+    for batched in (True, False):
+        cl.cluster_flow_rule_manager.load_rules("default", [crule])
+        _, _, svc = _embed(lib)
+        calls = _count_batches(svc)
+        eng = type(lib.engine)(clock=lib.clock, **({"device": "cpu"} if "torch" in lib.st.__name__ else {}))
+        eng.set_flow_rules([crule, lib.st.FlowRule("plain", count=4)])
+        ops = eng.submit_many([dict(r) for r in reqs]) if batched else [eng.submit_entry(**r) for r in reqs]
+        eng.flush()
+        out.append([bool(o.verdict.admitted) for o in ops])
+        out.append(calls)
+    assert out[0] == out[2] and sum(out[0][0::2]) == 6 and out[1]["flow"] == 1
+    return out
+
+
+@_scenario
+def _many_param_batched(lib, cl, rules):
+    """Cluster hot-param ops through submit_many: one PARAM batch, the
+    per-value verdicts of per-op submit_entry."""
+    prule = _rule(lib, rules, "pp", 2, 902, param=True)
+    values = ["a", "b", "a", "c", "a", "b", "b", "c", "a", "c"]
+    out = []
+    for batched in (True, False):
+        cl.cluster_flow_rule_manager.load_rules("default", [prule])
+        _, _, svc = _embed(lib)
+        calls = _count_batches(svc)
+        eng = type(lib.engine)(clock=lib.clock, **({"device": "cpu"} if "torch" in lib.st.__name__ else {}))
+        eng.set_param_rules({"pp": [prule]})
+        reqs = [{"resource": "pp", "ts": 1000, "args": (v,)} for v in values]
+        ops = eng.submit_many(reqs) if batched else [eng.submit_entry(**r) for r in reqs]
+        eng.flush()
+        out.append([bool(o.verdict.admitted) for o in ops])
+        out.append(calls)
+    assert out[0] == out[2] and out[1]["param"] == 1
+    for v in "abc":
+        assert sum(a for a, val in zip(out[0], values) if val == v) == 2
+    return out
+
+
+@pytest.mark.parametrize("scenario", [_many_flow_batched, _many_param_batched], ids=["flow", "param"])
+def test_submit_many_batched_seam_matches_jax(scenario, cluster_env):
+    run_on_both(scenario)

@@ -12,6 +12,7 @@ raising NotImplementedError."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 import sentinel_tpu as jst
 import sentinel_tpu_torch as st
@@ -22,6 +23,7 @@ from sentinel_tpu_torch.core import api
 from sentinel_tpu_torch.metrics.nodes import stats_to_numpy
 from sentinel_tpu_torch.models import constants as C
 from sentinel_tpu_torch.models.rules import FlowRule
+from sentinel_tpu_torch.parallel import make_mesh
 from sentinel_tpu_torch.rules.degrade_table import degrade_state_to_numpy
 from sentinel_tpu_torch.runtime.engine import Engine
 from sentinel_tpu_torch.utils import clock as tclock
@@ -397,15 +399,16 @@ def _cluster_param_rule(e):
     [
         _add_breaker_observer,
         _cluster_param_rule,
-        lambda e: e.enable_mesh(8),
+        lambda e: make_mesh(8, [e.device, torch.device("meta")]),
         lambda e: e.flush_async(),
     ],
     ids=["degrade", "param", "mesh", "flush_async"],
 )
 def test_out_of_slice_raises(call):
     """Features outside the port so far; for degrade rules, which the port
-    now runs, that is the breaker state-change observers, and for
-    cluster-mode param rules the token client."""
+    now runs, that is the breaker state-change observers, for cluster-mode
+    param rules the token client, and for the mesh, which runs its shards
+    on the engine's device, shards on more than one device (NCCL)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(_cpu_engine())
 
@@ -489,7 +492,6 @@ def test_unported_config_raises(key, value):
 
 
 # --- the scenarios of tests/test_relate.py, on both engines in lockstep ---
-# (``submit_many`` is not ported: a loop of submit_entry is the same batch)
 
 
 def _relate(lib, count):
@@ -498,7 +500,7 @@ def _relate(lib, count):
 
 def _batch(lib, reqs):
     now = lib.engine.clock.now_ms()
-    ops = [lib.engine.submit_entry(r, ts=now) for r in reqs]
+    ops = lib.engine.submit_many([{"resource": r, "ts": now} for r in reqs])
     lib.engine.flush()
     return [op.verdict.admitted for op in ops]
 
@@ -611,3 +613,88 @@ def test_rebase_large_offset_keeps_breaker_floor():
     assert (int(d.next_retry[1]), int(d.ws[1])) == (49_980_500, 49_980_000)
     unaligned = 1_950_000_000 - 1_950_000_000 % 333 - offset
     assert int(d.ws[2]) % 333 == 0 and unaligned - 333 < int(d.ws[2]) <= unaligned
+
+
+# --- submit_many (tests/test_engine_bulk.py's cases), on both engines ---------------
+
+
+def _verdicts(ops):
+    return [None if o is None else (bool(o.verdict.admitted), int(o.verdict.reason), int(o.verdict.wait_ms))
+            for o in ops]
+
+
+def _many_bulk_parity(lib):
+    """A bulk group decides like the same entries through submit_many
+    (test_bulk_parity_with_submit_many), singles and bulk share one flush
+    (test_bulk_mixed_with_singles), bulk exits apply before submit_many's
+    entries (test_bulk_exits_apply_before_singles_entries)."""
+    eng = lib.engine
+    eng.set_flow_rules([lib.st.FlowRule("res", count=20), lib.st.FlowRule("mx", count=10),
+                        lib.st.FlowRule("ord", grade=lib.C.FLOW_GRADE_THREAD, count=4)])
+    lib.clock.set_ms(1000)
+    ops = eng.submit_many([{"resource": "res", "ts": 1000} for _ in range(64)])
+    eng.flush()
+    out = _verdicts(ops)
+    assert sum(v[0] for v in out) == 20
+    ops = eng.submit_many([{"resource": "mx", "ts": 1000} for _ in range(6)])
+    g = eng.submit_bulk("mx", 16, ts=1000)
+    eng.flush()
+    assert sum(o.verdict.admitted for o in ops) + g.admitted_count == 10
+    out += _verdicts(ops) + [np.asarray(g.admitted).tolist()]
+    g = eng.submit_bulk("ord", 4)
+    eng.flush()
+    eng.submit_exit_bulk(g.rows, 4, rt=5, resource="ord")
+    ops = eng.submit_many([{"resource": "ord"} for _ in range(4)])
+    eng.flush()
+    assert sum(o.verdict.admitted for o in ops) == 4
+    return out + _verdicts(ops)
+
+
+def _many_param_column_parity(lib):
+    """test_param_column_parity_with_submit_many: per-value budgets of a
+    bulk args column equal submit_many's with the same args."""
+    eng = lib.engine
+    eng.set_flow_rules([lib.st.FlowRule("gw", count=1000)])
+    eng.set_param_rules({"gw": [lib.st.ParamFlowRule("gw", param_idx=0, count=3)]})
+    lib.clock.set_ms(1000)
+    values = [f"ip-{i % 5}" for i in range(40)]
+    ops = eng.submit_many([{"resource": "gw", "ts": 1000, "args": (v,)} for v in values])
+    eng.flush()
+    out = _verdicts(ops)
+    assert sum(v[0] for v in out) == 15
+    return out
+
+
+def _many_order_and_fallbacks(lib):
+    """Request order survives flush-on-size (the ops queued so far are
+    decided, the rest go through submit_entry) and a request with a key
+    submit_entry does not take raises there, after the ones before it
+    were enqueued."""
+    eng = lib.engine
+    eng.set_flow_rules([lib.st.FlowRule("o", count=7)])
+    eng.max_batch = 5
+    lib.clock.set_ms(2000)
+    ops = eng.submit_many([{"resource": "o", "ts": 2000, "acquire": 1 + i % 2} for i in range(12)])
+    decided_early = [o.verdict is not None for o in ops]
+    eng.flush()
+    out = [decided_early, _verdicts(ops)]
+    with pytest.raises(TypeError):
+        eng.submit_many([{"resource": "o"}, {"resource": "o", "bogus": 1}])
+    eng.flush()
+    out.append(eng.cluster_node_stats("o"))
+    assert decided_early[:5] == [True] * 5
+    return out
+
+
+SUBMIT_MANY_SCENARIOS = {
+    "bulk_parity": _many_bulk_parity,
+    "param_column_parity": _many_param_column_parity,
+    "order_and_fallbacks": _many_order_and_fallbacks,
+}
+
+
+@pytest.mark.parametrize("name", sorted(SUBMIT_MANY_SCENARIOS))
+def test_submit_many_matches_jax(name):
+    from torch_parity import run_on_both
+
+    run_on_both(SUBMIT_MANY_SCENARIOS[name])

@@ -216,3 +216,101 @@ def test_flush_step_chain_parity(flags):
         assert_same(jax.device_get(jddyn), tdt.degrade_state_to_numpy(tddyn), f"step {step} breakers")
     reasons = set(np.asarray(jres.reason).tolist())
     assert len(reasons) >= 3, f"the batch exercises several stages: {reasons}"
+
+
+# --- the sharded step's hooks of flush_entries --------------------------------------
+
+_jax_flush_entries = jax.jit(
+    jflush.flush_entries,
+    static_argnames=("commit", "occupy_timeout_ms", "with_occupy", "with_system", "with_degrade", "shaping_rounds",
+                     "param_rounds", "blk_topk"),
+)
+HOOK_CASES = ["demand_pass", "probe_allowed", "precomputed_verdicts", "every_stage_route"]
+
+
+@pytest.mark.parametrize("case", HOOK_CASES)
+def test_flush_entries_hooks_parity(case):
+    """flush_entries with the sharded step's hooks against the JAX one:
+    ``commit=False`` with a shaping and a param batch (the verdicts equal,
+    and stats, breakers, pacer and param state are left exactly as they
+    were), ``probe_allowed``, ``param_pre``/``shaping_pre`` verdicts, and
+    the every-stage route on a DEFAULT-only batch (equal to the JAX
+    default flags and to the port's own DEFAULT specialisation)."""
+    from sentinel_tpu.rules import param_table as jpt
+    from sentinel_tpu.rules import shaping as jsh
+    from sentinel_tpu_torch.rules import param_table as tpt
+    from sentinel_tpu_torch.rules import shaping as tsh
+    from torch_parity import random_param_batch_for, random_param_state, random_shaped_flow_table, shaping_batch_for
+
+    rng = np.random.default_rng(HOOK_CASES.index(case) + 60)
+    n_rows, nr, nd, n, k, kd, m, pr = 32, 16, 16, 64, 2, 2, 32, 32
+    now = 3_456_000 + int(rng.integers(0, 500))
+    arrs = borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    table, dyn = random_shaped_flow_table(rng, nr)
+    if case == "every_stage_route":
+        table = (table[0], table[1], np.zeros(nr, np.int32)) + table[3:]
+    dtable, ddyn = random_degrade(rng, nd, now)
+    pdyn = random_param_state(rng, pr, now)
+    sys_vals = system_thresholds("all" if case != "every_stage_route" else "off")
+    b = random_chain_batch(rng, n, k, kd, n_rows, nr, nd, now, m)
+    if case == "every_stage_route":
+        b[7] = np.zeros(n, bool)
+        b[10] = np.full((n, kd), -1, np.int32)
+    sb = shaping_batch_for(b, table) if case == "demand_pass" else None
+    pb = random_param_batch_for(rng, b, pr) if case == "demand_pass" else None
+    kw_j, kw_t = {}, {}
+    if case == "probe_allowed":
+        allowed = rng.random(nd) < 0.5
+        kw_j["probe_allowed"], kw_t["probe_allowed"] = jnp.asarray(allowed), torch.from_numpy(allowed)
+    if case == "precomputed_verdicts":
+        p_ok, p_wait = rng.random(n) < 0.8, rng.integers(0, 300, n).astype(np.int32)
+        s = 24
+        sp = (rng.random(s) < 0.8, rng.integers(0, n * k, s).astype(np.int32), rng.integers(0, n, s).astype(np.int32),
+              rng.random(s) < 0.6, rng.integers(0, 500, s).astype(np.int32))
+        kw_j["param_pre"], kw_t["param_pre"] = (jnp.asarray(p_ok), jnp.asarray(p_wait)), (
+            torch.from_numpy(p_ok), torch.from_numpy(p_wait))
+        kw_j["shaping_pre"] = tuple(jnp.asarray(a) for a in sp)
+        kw_t["shaping_pre"] = tuple(torch.from_numpy(a) for a in sp)
+    commit = case != "demand_pass"
+    jt, jd = _jax_tables(table, dyn)
+    jout = _jax_flush_entries(
+        _jax_stats(arrs), jt, jd, jdt.DegradeTableDevice(*map(jnp.asarray, dtable)),
+        jdt.DegradeDynState(*map(jnp.asarray, ddyn)), jpt.ParamDynState(*map(jnp.asarray, pdyn)),
+        jflush.SystemDevice(*(jnp.float32(v) for v in sys_vals)), _jax_batch(b),
+        None if sb is None else jsh.ShapingBatch(*map(jnp.asarray, sb)),
+        None if pb is None else jpt.ParamBatch(*map(jnp.asarray, pb)), commit=commit, occupy_timeout_ms=1000, **kw_j,
+    )
+    tstats = tnodes.stats_from_numpy(arrs, CPU)
+    tt, td = flow_table_from_numpy(table, dyn, CPU)
+    tddyn, tpd = tdt.degrade_state_from_numpy(ddyn, CPU), tpt.param_state_from_numpy(pdyn, CPU)
+    tb = tflush.batch_from_numpy(b, CPU)
+
+    def port(with_stages=True, stats=None, ddyn_t=None):
+        return tflush.flush_entries(
+            stats if stats is not None else tstats, tt, tb, 0, tdt.degrade_table_from_numpy(dtable, CPU),
+            ddyn_t if ddyn_t is not None else tddyn, tflush.SystemDevice(*sys_vals), 1000, with_stages, with_stages,
+            with_stages, td, tpd, None if sb is None else tsh.shaping_batch_from_numpy(sb, CPU),
+            None if pb is None else tpt.param_batch_from_numpy(pb, CPU), commit=commit, **kw_t,
+        )[1]
+
+    tres = port()
+    for name in RESULT_FIELDS[:-2]:
+        assert_same(getattr(jout[4], name), getattr(tres, name), f"{case} {name}")
+    assert_same(jax.device_get(jout[0]), tnodes.stats_to_numpy(tstats), f"{case} stats")
+    assert_same(jax.device_get(jout[2]), tdt.degrade_state_to_numpy(tddyn), f"{case} breakers")
+    if commit:
+        assert_same(tuple(jax.device_get(jout[1])), tuple(t.numpy() for t in td), f"{case} pacers")
+        assert_same(tuple(jax.device_get(jout[3])), tuple(t.numpy() for t in tpd), f"{case} param state")
+    else:  # the demand pass writes nothing
+        assert_same(arrs, tnodes.stats_to_numpy(tstats), "stats untouched")
+        assert_same(ddyn, tdt.degrade_state_to_numpy(tddyn), "breakers untouched")
+        assert_same(dyn, tuple(t.numpy() for t in td), "pacers untouched")
+        assert_same(pdyn, tuple(t.numpy() for t in tpd), "param state untouched")
+        reasons = set(np.asarray(jout[4].reason).tolist())
+        assert {1, 2, 5} <= reasons, reasons
+    if case == "every_stage_route":  # the DEFAULT specialisation decides the same
+        fresh = tnodes.stats_from_numpy(arrs, CPU)
+        spec = port(False, fresh, tdt.degrade_state_from_numpy(ddyn, CPU))
+        for name in ("admitted", "reason", "slot_ok", "wait_ms"):
+            assert_same(getattr(tres, name), getattr(spec, name), f"specialised {name}")
+        assert_same(tnodes.stats_to_numpy(tstats), tnodes.stats_to_numpy(fresh), "specialised stats")

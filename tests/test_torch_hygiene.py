@@ -19,7 +19,7 @@ PORT = ROOT / "sentinel_tpu_torch"
 def test_import_loads_no_jax():
     code = (
         "import sys, sentinel_tpu_torch, sentinel_tpu_torch.core.api, sentinel_tpu_torch.runtime.engine,"
-        " sentinel_tpu_torch.runtime.sketch, sentinel_tpu_torch.cluster;"
+        " sentinel_tpu_torch.runtime.sketch, sentinel_tpu_torch.cluster, sentinel_tpu_torch.parallel;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'sentinel_tpu' or m.startswith('sentinel_tpu.')];"
         "print(repr(bad))"
@@ -158,3 +158,38 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
                                  torch.ones(n, dtype=torch.bool), 100)
     assert adm.tolist() == [True] * 2 + [False] * (n - 2)
     assert [w.launches for w in wrappers] == before
+
+
+def test_cpu_tensors_take_the_plain_versions_on_the_mesh(monkeypatch):
+    """The sharded step on CPU tensors runs the plain versions of K13-K16
+    and of K8 with its probe_allowed mask, and counts no launch."""
+    from sentinel_tpu_torch.core import api
+    from sentinel_tpu_torch.parallel import ici
+    from sentinel_tpu_torch.rules import degrade_table as tdt
+    from sentinel_tpu_torch.utils import cuda_build
+    from sentinel_tpu_torch.utils.clock import ManualClock
+    import sentinel_tpu_torch as st
+
+    def no_build(name):
+        raise AssertionError(f"kernel {name} built for a CPU tensor")
+
+    monkeypatch.setattr(cuda_build, "load", no_build)
+    monkeypatch.setattr(ici, "_triton_kernels", lambda: no_build("mesh_merge_stats"))
+    counters = [(ici.merge_stats_across, "launches"), (ici.merge_breaker, "launches"),
+                (ici.mesh_split_spend, "launches"), (ici.mesh_shaping_charge, "launches"),
+                (tdt.breaker_try_pass, "mask_launches")]
+    before = [getattr(w, a) for w, a in counters]
+    clock = ManualClock(1000)
+    api.reset(clock=clock, device="cpu")
+    try:
+        eng = api.get_engine()
+        eng.enable_mesh(4)
+        st.flow_rule_manager.load_rules([st.FlowRule("m", count=5),
+                                         st.FlowRule("m", count=50, control_behavior=2, max_queueing_time_ms=500)])
+        st.degrade_rule_manager.load_rules([st.DegradeRule("m", grade=2, count=1, time_window=1)])
+        ops = eng.submit_many([{"resource": "m", "ts": 1000} for _ in range(16)])
+        eng.flush()
+        assert sum(o.verdict.admitted for o in ops) == 5
+    finally:
+        api.reset(device="cpu")
+    assert [getattr(w, a) for w, a in counters] == before

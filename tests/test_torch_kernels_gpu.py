@@ -17,6 +17,8 @@ from sentinel_tpu_torch.cluster import token_service as tts
 from sentinel_tpu_torch.metrics import metric_array as ma
 from sentinel_tpu_torch.metrics import nodes as tnodes
 from sentinel_tpu_torch.metrics.events import NUM_EVENTS
+from sentinel_tpu_torch.parallel import ici as tici
+from sentinel_tpu_torch.parallel import make_mesh, make_sharded_flush
 from sentinel_tpu_torch.rules import degrade_table as tdt
 from sentinel_tpu_torch.rules import param_table as tpt
 from sentinel_tpu_torch.rules import shaping as tsh
@@ -25,6 +27,10 @@ from sentinel_tpu_torch.runtime import flush as tflush
 from sentinel_tpu_torch.runtime import sketch as tsk
 
 from torch_parity import (
+    BREAKER_CASES,
+    breaker_merge_table,
+    random_shard_stats,
+    shard_breaker_case,
     borrowable_stats,
     fma_warning_case,
     random_param_batch_for,
@@ -509,3 +515,126 @@ def test_token_decide_atomic_kernel(cuda):
             _eq(x, y, f"atomic over={over}")
         _states_eq(plain, state, f"atomic state over={over}")
         assert int(state.counts.sum()) == (0 if over else b)
+
+
+# --- the sharded step: K13-K16 and K8's probe_allowed --------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mesh_merge_stats_kernel(cuda, seed):
+    rng = np.random.default_rng(seed + 200)
+    now = 3_456_789
+    old = random_stats(rng, 64, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    new = random_shard_stats(rng, old, now, 8, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    want = tici.merge_stats_across_plain(tnodes.stats_from_numpy(old, cuda), tnodes.stats_from_numpy(new, cuda))
+    before = tici.merge_stats_across.launches
+    got = tici.merge_stats_across(tnodes.stats_from_numpy(old, cuda), tnodes.stats_from_numpy(new, cuda))
+    assert tici.merge_stats_across.launches == before + 1
+    _states_eq(want, got, "merged")
+
+
+@pytest.mark.parametrize("case", BREAKER_CASES)
+def test_mesh_merge_breaker_kernel(cuda, case):
+    rng = np.random.default_rng(BREAKER_CASES.index(case) + 210)
+    now = 2**31 - 700  # now + retry_ms wraps
+    dtable, ddyn = breaker_merge_table(rng, 64, now)
+    base, new = shard_breaker_case(case, rng, dtable, ddyn, now, 8)
+    ddev = tdt.degrade_table_from_numpy(dtable, cuda)
+    want = tici.merge_breaker_plain(ddev, tdt.degrade_state_from_numpy(base, cuda), tdt.degrade_state_from_numpy(new, cuda), now)
+    got = tici.merge_breaker(ddev, tdt.degrade_state_from_numpy(base, cuda), tdt.degrade_state_from_numpy(new, cuda), now)
+    _states_eq(want, got, case)
+
+
+@pytest.mark.parametrize("mode", ["grant_qps", "grant_thread", "grant_origin_split", "borrow"])
+@pytest.mark.parametrize("n", [64, 16384])
+def test_mesh_split_spend_kernel(cuda, mode, n):
+    rng = np.random.default_rng(n + len(mode))
+    k, n_rows, nr, now = 2, 64, 16, 3_456_000
+    stats = tnodes.stats_from_numpy(borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG), cuda)
+    table, _ = random_flow_table(rng, nr, thread_frac=1.0 if mode == "grant_thread" else 0.0, lo=2, hi=9)
+    b = list(random_flush_batch(rng, n, k, n_rows, nr, now, n - 5))
+    if mode == "grant_origin_split":
+        b[6][:, 1] = b[6][:, 0]
+        b[5][:, 1] = (b[5][:, 0] + 1) % (nr - 2)
+    b[3] = rng.integers(1, 4, n).astype(np.int32)
+    batch = tflush.batch_from_numpy(b, cuda)
+    ft, _ = flow_table_from_numpy(table, None, cuda)
+    live = torch.from_numpy(rng.random(n) < 0.85).to(cuda)
+    occ = torch.from_numpy((rng.random((n, k)) < 0.5) & (b[5] >= 0)).to(cuda)
+    grant = mode != "borrow"
+    kw = dict(live=live) if grant else dict(occ_slot=occ)
+    want = tici.mesh_split_spend_plain(8, stats, ft, batch, grant, **kw)
+    got = tici.mesh_split_spend(8, stats, ft, batch, grant, **kw)
+    _eq(want, got, mode)
+    assert bool(want.any()) and not bool(want.all())
+
+
+@pytest.mark.parametrize("s", [64, 16384])
+def test_mesh_shaping_charge_kernel(cuda, s):
+    rng = np.random.default_rng(s)
+    n_rows, now = 256, 3_456_000
+    stats = tnodes.stats_from_numpy(borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG), cuda)
+    eidx = np.sort(rng.integers(0, s, s)).astype(np.int32)
+    sb = (rng.random(s) < 0.9, rng.integers(0, 8, s).astype(np.int32), rng.integers(0, n_rows // 4, s).astype(np.int32),
+          eidx, (eidx * 2).astype(np.int32), (now - rng.integers(0, 900, s)).astype(np.int32),
+          rng.integers(1, 4, s).astype(np.int32))
+    shaping = tsh.shaping_batch_from_numpy(sb, cuda)
+    _eq(tici.mesh_shaping_charge_plain(stats.second, shaping, now), tici.mesh_shaping_charge(stats.second, shaping, now),
+        "ppc")
+
+
+def test_breaker_try_pass_probe_allowed_kernel(cuda):
+    rng = np.random.default_rng(220)
+    nd, n, kd, now = 64, 4096, 2, 5000
+    dtable, ddyn = random_degrade(rng, nd, now)
+    ddev, dyn = tdt.degrade_table_from_numpy(dtable, cuda), tdt.degrade_state_from_numpy(ddyn, cuda)
+    dgid = torch.from_numpy(rng.integers(-1, nd, (n, kd)).astype(np.int32)).to(cuda)
+    ts = torch.from_numpy((now - rng.integers(-2000, 2000, n)).astype(np.int32)).to(cuda)
+    live = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    allowed = torch.from_numpy(rng.random(nd) < 0.5).to(cuda)
+    want = tdt.breaker_try_pass_plain(ddev, dyn, dgid, ts, live, allowed)
+    got = tdt.breaker_try_pass(ddev, dyn, dgid, ts, live, allowed)
+    _eq(want[0], got[0], "ok")
+    _eq(want[1], got[1], "probe")
+    free = tdt.breaker_try_pass(ddev, dyn, dgid, ts, live)
+    assert int(free[1].sum()) > int(got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("with_shaping,with_param", [(False, False), (True, True)])
+def test_sharded_step_kernels(cuda, with_shaping, with_param):
+    """The sharded step through the kernels on the card against the plain
+    versions on the CPU, three flushes: results and every state tensor
+    equal."""
+    rng = np.random.default_rng(230 + with_shaping)
+    n_rows, nr, nd, n, k, kd, m, pr = 64, 16, 16, 256, 2, 2, 64, 32
+    now = 3_456_000
+    arrs = borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    table, dyn = random_shaped_flow_table(rng, nr)
+    dtable, ddyn = random_degrade(rng, nd, now)
+    pdyn = random_param_state(rng, pr, now)
+    sys_vals = system_thresholds("all")
+    devs = {"plain": torch.device("cpu"), "kernel": cuda}
+    states, steps = {}, {}
+    for route, dev in devs.items():
+        ft, fd = flow_table_from_numpy(table, dyn, dev)
+        states[route] = [tnodes.stats_from_numpy(arrs, dev), ft, fd, tdt.degrade_table_from_numpy(dtable, dev),
+                         tdt.degrade_state_from_numpy(ddyn, dev), tpt.param_state_from_numpy(pdyn, dev),
+                         tflush.SystemDevice(*sys_vals)]
+        steps[route] = make_sharded_flush(make_mesh(8, dev), 1000, with_shaping, with_param)
+    for i in range(3):
+        b = random_chain_batch(rng, n, k, kd, n_rows, nr, nd, now + 450 * i, m)
+        sb = shaping_batch_for(b, table) if with_shaping else None
+        pb = random_param_batch_for(rng, b, pr) if with_param else None
+        outs = {}
+        for route, dev in devs.items():
+            extra = [x for x in (None if sb is None else tsh.shaping_batch_from_numpy(sb, dev),
+                                 None if pb is None else tpt.param_batch_from_numpy(pb, dev)) if x is not None]
+            st_ = states[route]
+            out = steps[route](*st_, tflush.batch_from_numpy(b, dev), *extra)
+            st_[0], st_[2], st_[4], st_[5] = out[0], out[1], out[2], out[3]
+            outs[route] = out
+        for name in tflush.FlushResult._fields[:9]:
+            _eq(getattr(outs["plain"][4], name), getattr(outs["kernel"][4], name), f"flush {i} {name}")
+        _states_eq(outs["plain"][0], outs["kernel"][0], f"flush {i} stats")
+        for j, what in ((1, "pacers"), (2, "breakers"), (3, "param state")):
+            _states_eq(outs["plain"][j], outs["kernel"][j], f"flush {i} {what}")

@@ -489,3 +489,107 @@ def random_param_state(rng, pr, t0):
             np.where(rng.random(pr) < 0.4, PARAM_NEVER, t0 - rng.integers(0, 3000, pr)).astype(np.int32),
             np.where(rng.random(pr) < 0.4, PARAM_NEVER, t0 + rng.integers(-1500, 800, pr)).astype(np.int32),
             rng.integers(0, 4, pr).astype(np.int32))
+
+
+# --- the sharded step (parallel/ici.py) ------------------------------------------
+
+CLOSED, OPEN, HALF_OPEN = 0, 1, 2
+BREAKER_CASES = ["half_open_to_closed", "half_open_to_open", "two_transitions_max_wins", "trip_on_merged_counts",
+                 "window_roll_on_some_shards"]
+
+
+def _shard_windows(rng, arrs, now, cfg, d_count):
+    """D per-shard copies of one window array that wrote into it: cells
+    kept, cells added to in their window, cells rolled to a newer window
+    (different shards to different windows), stale cells untouched."""
+    counts, min_rt, ws = arrs
+    out = []
+    for _ in range(d_count):
+        c, m, w = counts.copy(), min_rt.copy(), ws.copy()
+        kind = rng.integers(0, 4, w.shape)
+        add = kind == 1
+        c[add] += rng.integers(0, 5, (int(add.sum()), c.shape[2])).astype(np.int32)
+        m[add] = np.minimum(m[add], rng.integers(1, 4000, int(add.sum())))
+        roll = kind == 2
+        base = now - now % cfg.window_len_ms
+        w[roll] = base + cfg.window_len_ms * rng.integers(0, 3, int(roll.sum()))
+        c[roll] = rng.integers(0, 9, (int(roll.sum()), c.shape[2]))
+        m[roll] = rng.integers(1, 4000, int(roll.sum()))
+        out.append((c, m, w.astype(np.int32)))
+    return tuple(np.stack([o[i] for o in out]).astype(np.int32) for i in range(3))
+
+
+def random_shard_stats(rng, arrs, now, d_count, second_cfg, minute_cfg):
+    """``d_count`` shards' copies of stats arrays (``random_stats``
+    layout, stacked on a leading shard axis) that each wrote into their
+    copy: window cells rolled, added to or left stale, thread gauges
+    moved, slab cells added to or rolled to later windows."""
+    second, minute, threads, fpass, fws = arrs
+    sec = _shard_windows(rng, second, now, second_cfg, d_count)
+    mnt = _shard_windows(rng, minute, now, minute_cfg, d_count)
+    thr = np.stack([threads + rng.integers(-2, 3, threads.shape) for _ in range(d_count)]).astype(np.int32)
+    fp, fw = [], []
+    for _ in range(d_count):
+        kind = rng.integers(0, 3, fws.shape)
+        p, w = fpass.copy(), fws.copy()
+        p[kind == 1] += rng.integers(1, 4, int((kind == 1).sum()))
+        w[kind == 2] = fws[kind == 2] + 500 * rng.integers(1, 3, int((kind == 2).sum()))
+        p[kind == 2] = rng.integers(1, 6, int((kind == 2).sum()))
+        fp.append(p)
+        fw.append(w)
+    return sec, mnt, thr, np.stack(fp).astype(np.int32), np.stack(fw).astype(np.int32)
+
+
+def _wrap32(v: int) -> int:
+    return ((v + 2**31) % 2**32) - 2**31
+
+
+def breaker_merge_table(rng, nd, now):
+    """``random_degrade`` with breaker 0 an exception-count breaker (more
+    than 3 errors, at least 2 requests)."""
+    dtable, ddyn = random_degrade(rng, nd, now)
+    dtable = [a.copy() for a in dtable]
+    dtable[0][0], dtable[1][0], dtable[3][0] = 2, 3.0, 2
+    return tuple(dtable), ddyn
+
+
+def shard_breaker_case(case, rng, dtable, ddyn, now, d_count):
+    """(base, ``d_count`` shard states stacked) numpy for one breaker-merge
+    case on breaker 0, with noise on breakers 5 and up."""
+    base = [a.copy() for a in ddyn]
+    st_, nr, bad, total, ws = base
+    shards = [[a.copy() for a in base] for _ in range(d_count)]
+    if case == "half_open_to_closed":
+        st_[0] = HALF_OPEN
+        for s in shards:
+            s[0][0] = HALF_OPEN
+        shards[3][0][0], shards[3][2][0], shards[3][3][0] = CLOSED, 0, 0
+    elif case == "half_open_to_open":
+        st_[0] = HALF_OPEN
+        for s in shards:
+            s[0][0] = HALF_OPEN
+        shards[5][0][0], shards[5][1][0] = OPEN, _wrap32(now + 5000)
+    elif case == "two_transitions_max_wins":
+        st_[0] = HALF_OPEN
+        for s in shards:
+            s[0][0] = HALF_OPEN
+        shards[1][0][0] = CLOSED
+        shards[6][0][0], shards[6][1][0] = OPEN, _wrap32(now + 7000)
+    elif case == "trip_on_merged_counts":
+        st_[0], bad[0], total[0], ws[0] = CLOSED, 0, 0, now - now % dtable[4][0]
+        for s in shards:  # one error per shard: no shard alone crosses
+            s[0][0], s[4][0] = CLOSED, ws[0]
+            s[2][0], s[3][0] = 1, 1
+    elif case == "window_roll_on_some_shards":
+        st_[0] = CLOSED
+        for d, s in enumerate(shards):
+            s[0][0] = CLOSED
+            if d % 3 == 0:  # rolled to the next window
+                s[4][0], s[2][0], s[3][0] = ws[0] + dtable[4][0], 1, 2
+            else:
+                s[2][0], s[3][0] = bad[0] + 1, total[0] + 1
+    for s in shards:  # noise on the other breakers
+        s[0][5:] = np.where(rng.random(len(st_) - 5) < 0.2, rng.integers(0, 3, len(st_) - 5), s[0][5:])
+        s[2][5:] += rng.integers(0, 2, len(st_) - 5)
+        s[3][5:] = s[2][5:] + rng.integers(0, 3, len(st_) - 5)
+    return tuple(base), tuple(np.stack([s[i] for s in shards]).astype(np.int32) for i in range(5))
