@@ -65,6 +65,15 @@ through submit_many, submit_bulk and exits against the CPU engine with
 the same mesh, and checks that 128 same-window entries against count 20
 admit exactly 20; phase 9 runs examples/mesh_demo.py's sequence.
 
+The token service's decision (K12) is held against its plain version in
+phase 2e on a token server's stream at 16,384 requests a batch and at 8,
+64 and 1,024, and with each batch's int32 cumsum past 2^31; phase 8
+drives it through st.entry on cluster-mode rules. Phases 2 and 2e also
+print the device kernels, memsets and device time of one call of the
+window update (K2) and of K12 (torch.profiler, gpu_timing.py), and fail
+if the profiler reads no kernel, if K2 issues more than four kernels and
+memsets a call, or if K12 issues anything but one kernel for 8 requests.
+
 The CPU sides of phases 2c (d), 4-4e and 8 (the plain versions on one
 heavy segment, the CPU engines) run in four worker processes, started
 before the build, beside the card's phases (phase 3 runs before 2c so
@@ -129,8 +138,9 @@ try:
     from sentinel_tpu_torch.runtime import sketch as tsk
     from sentinel_tpu_torch.utils import clock as tclock
     from sentinel_tpu_torch.utils import cuda_build
+    from gpu_timing import TD_B, TD_FLOWS, TD_NS, device_profile, time_ms, token_batch
 except ImportError as exc:
-    print(f"chip_smoke: the sentinel_tpu_torch package is not beside this script ({exc})",
+    print(f"chip_smoke: the sentinel_tpu_torch package or gpu_timing.py is not beside this script ({exc})",
           file=sys.stderr)
     sys.exit(2)
 
@@ -154,19 +164,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of one call, by CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def profile(fn, what: str):
+    """:func:`gpu_timing.device_profile` of ``fn``; fails the run when the
+    profiler reads no kernel."""
+    try:
+        return device_profile(fn)
+    except RuntimeError as exc:
+        fail(f"{what}: {exc}")
 
 
 def max_abs_err(a, b) -> int:
@@ -537,12 +541,20 @@ def phase2(results: dict) -> None:
         cfg = nodes.MINUTE_CFG
         st_ = stats.minute
         results["window_update"].update(
+            bound=bound(update_bytes(cfg, st_, e_rows, e_ts, e_d, None, e_mask)),
             ms=time_ms(lambda: ma.update(cfg, st_, e_rows, e_ts, e_d, None, e_mask), iters=5),
             plain_ms=time_ms(lambda: ma.update_plain(cfg, st_, e_rows, e_ts, e_d, None, e_mask), iters=5),
             library_ms=None,
             shape=f"4N={4 * N} entry updates into the minute window [{R},60,6]",
-            bound=bound(update_bytes(cfg, st_, e_rows, e_ts, e_d, None, e_mask)),
         )
+        k2_launches, k2_memsets, k2_dev = profile(lambda: ma.update(cfg, st_, e_rows, e_ts, e_d, None, e_mask),
+                                                  "phase 2: the window update")
+        results["window_update"].update(launches_per_call=k2_launches, memsets_per_call=k2_memsets, device_ms=k2_dev)
+        log(f"  K2 at 4N updates (minute window): {results['window_update']['ms']:.4f} ms a call, "
+            f"{k2_launches} device kernels, {k2_memsets} memsets and {k2_dev:.4f} ms of device time a call "
+            "(profiler)")
+        if k2_launches + k2_memsets > 4:
+            fail(f"phase 2: the window update issued {k2_launches} kernels and {k2_memsets} memsets in one call")
         touched = torch.unique(e_rows[e_mask & (e_thr != 0)]).numel()
         sel = e_mask & (e_rows >= 0)
         rows_l, thr_l = e_rows[sel].long(), e_thr[sel]
@@ -1885,20 +1897,7 @@ def phase2_sketch(results: dict) -> None:
 # phase 2e: K12, the token server's decision, against its plain version
 # ---------------------------------------------------------------------------
 
-TD_FLOWS, TD_NS, TD_B = 1 << 16, 16, 1 << 14  # flows, namespaces, requests per batch
-
-
-def token_batch(rng, counts: np.ndarray):
-    """One batch of a token server's stream: Zipf(1.1) flow ids, acquire
-    1-3, the flow's count as its threshold, the reference's default
-    namespace guard (30,000 QPS). Namespace 0 holds the even flows (half
-    the traffic, so its guard trips), the other 15 share the odd ones."""
-    flow = np.minimum(rng.zipf(1.1, TD_B), TD_FLOWS) - 1
-    ns = np.where(flow % 2 == 0, 0, 1 + (flow // 2) % (TD_NS - 1))
-    arrays = (flow.astype(np.int32), (TD_FLOWS + ns).astype(np.int32),
-              rng.integers(1, 4, TD_B).astype(np.int32), counts[flow], np.full(TD_B, 30000.0, np.float32),
-              np.ones(TD_B, bool))
-    return [torch.from_numpy(a).to(DEV) for a in arrays]
+TD_SIZES = (8, 64, 1024)  # the main path's batches (8-64) and the one-block route's edge
 
 
 def token_bytes(state, arrays, admitted) -> float:
@@ -1924,7 +1923,7 @@ def phase2_token(results: dict) -> None:
     status = np.zeros(3, dtype=np.int64)  # OK, BLOCKED, TOO_MANY_REQUEST
     err = 0
     for step in range(40):
-        arrays = token_batch(rng, counts)
+        arrays = token_batch(rng, counts, DEV)
         now = 1000 + 50 * step
         if step == 20:
             # K3 and K2 on the cluster geometry, on this stream's state.
@@ -1947,7 +1946,7 @@ def phase2_token(results: dict) -> None:
         got = tts.batch_decide(kern, *arrays, now)
         err = max(err, require_equal(want, got, f"token_decide (step {step})"),
                   require_equal(plain, kern, f"token_decide state (step {step})"))
-        adm, ns_ok = got[0], got[1]
+        adm, ns_ok, _ = tts.unpack_decision(got)
         status += [int(adm.sum()), int((ns_ok & ~adm).sum()), int((~ns_ok).sum())]
     log(f"  40 batches equal (max abs err 0): OK {status[0]:,}, BLOCKED {status[1]:,}, "
         f"TOO_MANY_REQUEST {status[2]:,}")
@@ -1973,16 +1972,49 @@ def phase2_token(results: dict) -> None:
             f"{int(got[0].sum()):,} admitted, {charged:,} charged")
         if charged != (0 if over else b):
             fail(f"phase 2e: the atomic batch (over={over}) charged {charged}")
+    # (c) the other sizes (the one-block route up to 2,048) and the int32
+    # wrap, plain and atomic in turns, each on a stream of its own.
+    for b, wrap in [(b, False) for b in TD_SIZES] + [(64, True), (TD_B, True)]:
+        st_k = ma.make_state(nrows, tts.CLUSTER_CFG, DEV)
+        st_p = clone(st_k)
+        for step in range(12):
+            arrays = token_batch(rng, counts, DEV, b, wrap)
+            now = 1000 + 100 * step
+            want = tts.batch_decide_plain(st_p, *arrays, now, atomic=step % 2 == 1)
+            got = tts.batch_decide(st_k, *arrays, now, atomic=step % 2 == 1)
+            err = max(err, require_equal(want, got, f"token_decide (B={b}, wrap={wrap}, step {step})"),
+                      require_equal(st_p, st_k, f"token_decide state (B={b}, wrap={wrap}, step {step})"))
+        if b == TD_SIZES[0] and not wrap:
+            s_state, s_arrays, s_now = clone(st_k), arrays, now + 100
+    log(f"  B in {TD_SIZES}, and the int32 wrap at B=64 and B={TD_B:,}: 12 batches each, plain and atomic, "
+        "equal (max abs err 0)")
     scratch = clone(t_state)
-    k_ms = time_ms(lambda: tts.batch_decide(scratch, *t_arrays, t_now))
+    decide = lambda: tts.batch_decide(scratch, *t_arrays, t_now)
+    k_ms = time_ms(decide)
+    launches, memsets, dev_ms = profile(decide, f"phase 2e: the token decision at B={TD_B}")
+    small = clone(s_state)
+    decide_small = lambda: tts.batch_decide(small, *s_arrays, s_now)
+    small_ms = time_ms(decide_small)
+    small_launches, small_memsets, small_dev_ms = profile(decide_small,
+                                                          f"phase 2e: the token decision at B={TD_SIZES[0]}")
     p_ms = time_ms(lambda: tts.batch_decide_plain(scratch, *t_arrays, t_now), iters=5)
-    adm = tts.batch_decide_plain(clone(t_state), *t_arrays, t_now)[0]
+    adm = tts.batch_decide_plain(clone(t_state), *t_arrays, t_now)[0] != 0
+    s_adm = tts.batch_decide_plain(clone(s_state), *s_arrays, s_now)[0] != 0
     results["token_decide"].update(
         ms=k_ms, plain_ms=p_ms, library_ms=None, max_abs_err=err, bound=bound(token_bytes(t_state, t_arrays, adm)),
-        shape=f"B={TD_B} requests over {TD_FLOWS} flows in {TD_NS} namespaces (K3 gather, the decision, K2 commit)",
+        launches_per_call=launches, memsets_per_call=memsets, device_ms=dev_ms, small_ms=small_ms,
+        small_launches_per_call=small_launches, small_memsets_per_call=small_memsets, small_device_ms=small_dev_ms,
+        small_bound_ms=bound(token_bytes(s_state, s_arrays, s_adm))[0],
+        shape=f"B={TD_B} requests over {TD_FLOWS} flows in {TD_NS} namespaces (the gathered sums, the decision, "
+              f"the commit); small_ms at B={TD_SIZES[0]}",
     )
-    log(f"  timing (batch 21): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-    del kern, plain, scratch, t_state
+    log(f"  timing (batch 21): kernel {k_ms:.4f} ms a call ({launches} device kernels, {memsets} memsets, "
+        f"{dev_ms:.4f} ms of device time), plain {p_ms:.4f} ms; B={TD_SIZES[0]}: {small_ms:.4f} ms a call "
+        f"({small_launches} device kernels, {small_memsets} memsets, {small_dev_ms:.4f} ms of device time)")
+    if (small_launches, small_memsets) != (1, 0):
+        fail(f"phase 2e: the one-block route issued {small_launches} kernels and {small_memsets} memsets for "
+             f"B={TD_SIZES[0]}")
+    del kern, plain, scratch, t_state, small, s_state
     torch.cuda.empty_cache()
 
 
@@ -2749,7 +2781,9 @@ def main() -> None:
             "library_ms": r["library_ms"], "shape": r["shape"],
         }
         for extra in ("library_call", "zipf_ms", "zipf_plain_ms", "heavy_ms", "index_add_ms", "widened_ms",
-                      "ties_ms", "borrow_ms", "mixed_k2_ms"):
+                      "ties_ms", "borrow_ms", "mixed_k2_ms", "launches_per_call", "memsets_per_call", "device_ms",
+                      "small_ms", "small_launches_per_call", "small_memsets_per_call", "small_device_ms",
+                      "small_bound_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

@@ -14,7 +14,10 @@ kernels (window update, window sums, matured-borrow sweep, flow admission
 with occupy, borrow commit, system check, breakers, shaping and
 hot-parameter recurrences, verdict tail, sketch fold; the token service's
 decision pass beside them) are hand-written for Hopper in CUDA C++ and
-Triton. Features not ported yet raise ``NotImplementedError``.
+Triton. Features not ported yet raise ``NotImplementedError`` naming
+their ROADMAP item; so do the public names of the JAX package whose
+modules are not ported (``entry_async``, the trace-context helpers, the
+window properties).
 
     import sentinel_tpu_torch as st
 
@@ -29,8 +32,21 @@ the kernels' plain PyTorch versions on the CPU instead. Importing the
 package touches no device.
 """
 
-from sentinel_tpu_torch.core.api import entry, get_engine, trace, try_entry
-from sentinel_tpu_torch.core.context import ContextUtil
+from sentinel_tpu_torch.version import __version__
+
+from sentinel_tpu_torch.core.api import (
+    entry,
+    get_engine,
+    reset as reset_all,
+    reset_tracer_filters,
+    set_exception_predicate,
+    set_exceptions_to_ignore,
+    set_exceptions_to_trace,
+    should_trace,
+    trace,
+    try_entry,
+)
+from sentinel_tpu_torch.core.context import Context, ContextUtil
 from sentinel_tpu_torch.core.context import context_enter, context_exit
 from sentinel_tpu_torch.core.errors import (
     AuthorityBlockError,
@@ -40,6 +56,7 @@ from sentinel_tpu_torch.core.errors import (
     ParamFlowBlockError,
     SystemBlockError,
 )
+from sentinel_tpu_torch.models import constants
 from sentinel_tpu_torch.models.rules import (
     AuthorityRule,
     DegradeRule,
@@ -53,30 +70,59 @@ from sentinel_tpu_torch.rules.degrade_manager import degrade_rule_manager
 from sentinel_tpu_torch.rules.flow_manager import flow_rule_manager
 from sentinel_tpu_torch.rules.param_manager import param_flow_rule_manager
 from sentinel_tpu_torch.rules.system_manager import system_rule_manager
+from sentinel_tpu_torch.runtime.engine import BulkOp
+from sentinel_tpu_torch.utils.unported import ROADMAP_METRICS, ROADMAP_PIPELINE, UnportedName
+
+# Public names of the JAX package whose modules are not ported yet: each
+# raises NotImplementedError naming its ROADMAP item when used.
+entry_async = UnportedName("entry_async", ROADMAP_PIPELINE)
+trace_context = UnportedName("trace_context", ROADMAP_METRICS)
+TraceContext = UnportedName("TraceContext", ROADMAP_METRICS)
+inject_trace_headers = UnportedName("inject_trace_headers", ROADMAP_METRICS)
+parse_traceparent = UnportedName("parse_traceparent", ROADMAP_METRICS)
+sample_count_property = UnportedName("sample_count_property", ROADMAP_METRICS)
+interval_property = UnportedName("interval_property", ROADMAP_METRICS)
 
 __all__ = [
-    "entry",
-    "try_entry",
-    "trace",
-    "FlowRule",
-    "DegradeRule",
-    "SystemRule",
-    "AuthorityRule",
-    "ParamFlowRule",
-    "ParamFlowItem",
-    "flow_rule_manager",
-    "param_flow_rule_manager",
-    "degrade_rule_manager",
-    "system_rule_manager",
-    "authority_rule_manager",
+    "__version__",
     "BlockError",
     "FlowBlockError",
     "DegradeBlockError",
     "SystemBlockError",
     "AuthorityBlockError",
     "ParamFlowBlockError",
-    "get_engine",
+    "Context",
     "ContextUtil",
     "context_enter",
     "context_exit",
+    "entry",
+    "try_entry",
+    "entry_async",
+    "reset_tracer_filters",
+    "set_exception_predicate",
+    "set_exceptions_to_ignore",
+    "set_exceptions_to_trace",
+    "should_trace",
+    "trace",
+    "trace_context",
+    "get_engine",
+    "reset_all",
+    "FlowRule",
+    "DegradeRule",
+    "SystemRule",
+    "AuthorityRule",
+    "ParamFlowRule",
+    "ParamFlowItem",
+    "BulkOp",
+    "TraceContext",
+    "inject_trace_headers",
+    "parse_traceparent",
+    "constants",
+    "flow_rule_manager",
+    "degrade_rule_manager",
+    "system_rule_manager",
+    "authority_rule_manager",
+    "param_flow_rule_manager",
+    "sample_count_property",
+    "interval_property",
 ]

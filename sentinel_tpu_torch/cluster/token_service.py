@@ -13,8 +13,8 @@ and the NO_RULE_EXISTS / TOO_MANY_REQUEST statuses.
 
 The server's per-flowId ClusterMetric windows are rows of one window state
 on the cluster geometry (10 x 100 ms). A batch of requests is decided by
-:func:`batch_decide` (K12): on the card ``csrc/token_decide.cu`` between
-K3 (the gathered PASS sums) and K2 (the PASS commit), on the CPU
+:func:`batch_decide` (K12): on the card one call of ``csrc/token_decide.cu``
+(the gathered PASS sums, both stages and the PASS commit), on the CPU
 :func:`batch_decide_plain`. Requests of one batch are charged in batch
 order. The JAX package donates the state to its jitted pass; here it is
 updated in place under ``DefaultTokenService._lock``, which
@@ -88,7 +88,7 @@ class TokenService:
 
 def batch_decide(
     state: ma.MetricArrayState,
-    rows: torch.Tensor,  # int32 [B] metric row per request
+    rows: torch.Tensor,  # int32 [B] metric row per request, in [0, n_rows)
     ns_rows: torch.Tensor,  # int32 [B] namespace-limiter row (-1 none)
     acquire: torch.Tensor,  # int32 [B]
     thresholds: torch.Tensor,  # float32 [B] global threshold per request
@@ -96,18 +96,25 @@ def batch_decide(
     valid: torch.Tensor,  # bool [B]
     now: int,
     atomic: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> torch.Tensor:
     """One decision pass: the namespace guard, then the flow check, both
     charging earlier requests of the batch; admitted requests add PASS
     on their flow and namespace rows (in place). ``atomic`` commits all or
     nothing (a refused valid request charges none: the param path's
-    check-all-then-charge-all). Returns (admitted, ns_ok, next_remaining)."""
+    check-all-then-charge-all). Returns one int32 [3, B] tensor: admitted,
+    ns_ok and next_remaining (its float32 bits); see
+    :func:`unpack_decision`."""
     if state.counts.is_cuda:
         return _batch_decide_cuda(state, rows, ns_rows, acquire, thresholds, ns_thresholds, valid, now, atomic)
     return batch_decide_plain(state, rows, ns_rows, acquire, thresholds, ns_thresholds, valid, now, atomic)
 
 
 batch_decide.launches = 0
+
+
+def unpack_decision(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(admitted, ns_ok, next_remaining) of a packed [3, B] decision."""
+    return packed[0] != 0, packed[1] != 0, packed[2].view(torch.float32)
 
 
 def _consumed(keys: torch.Tensor, acquire: torch.Tensor) -> torch.Tensor:
@@ -126,12 +133,13 @@ def _consumed(keys: torch.Tensor, acquire: torch.Tensor) -> torch.Tensor:
 
 
 def batch_decide_plain(state, rows, ns_rows, acquire, thresholds, ns_thresholds, valid, now, atomic=False):
-    """Plain PyTorch version of :func:`batch_decide`."""
+    """Plain PyTorch version of :func:`batch_decide`, in the kernel's order:
+    the gathered PASS sums, both stages, then the roll-and-add commit of
+    :func:`metric_array.update_plain`; the same packed result."""
     interval_sec = CLUSTER_CFG.interval_ms / 1000.0
     nrows = state.n_rows
-    b = rows.shape[0]
-    sums = ma.window_reduce_plain(CLUSTER_CFG, state, now, torch.cat([rows, ns_rows]))[0][:, MetricEvent.PASS]
-    flow_sum, ns_sum = sums[:b], sums[b:]
+    flow_sum = ma.window_reduce_plain(CLUSTER_CFG, state, now, rows)[0][:, MetricEvent.PASS]
+    ns_sum = ma.window_reduce_plain(CLUSTER_CFG, state, now, ns_rows)[0][:, MetricEvent.PASS]
     dump = torch.full_like(rows, nrows)
     acq_f = acquire.to(torch.float32)
 
@@ -147,87 +155,84 @@ def batch_decide_plain(state, rows, ns_rows, acquire, thresholds, ns_thresholds,
     if atomic:
         charged = admitted & bool((admitted | ~valid).all())
     upd_rows = torch.cat([torch.where(charged, rows, dump), torch.where(charged & (ns_rows >= 0), ns_rows, dump)])
-    deltas = torch.zeros((2 * b, NUM_EVENTS), dtype=torch.int32, device=rows.device)
+    deltas = torch.zeros((upd_rows.shape[0], NUM_EVENTS), dtype=torch.int32, device=rows.device)
     deltas[:, MetricEvent.PASS] = torch.cat([acquire, acquire])
     ma.update_plain(
         CLUSTER_CFG, state, upd_rows.clamp(0, nrows - 1), torch.full_like(upd_rows, int(now)), deltas, None,
         upd_rows < nrows,
     )
-    return admitted, ns_ok, next_remaining
+    return torch.stack([admitted.to(torch.int32), ns_ok.to(torch.int32), next_remaining.view(torch.int32)])
+
+
+class Workspace:
+    """Scratch bytes for K12's many-block route on one stream, kept between
+    calls and grown by doubling. Calls on the stream run in order, and a
+    buffer dropped by a grow is reused only by later work on the same
+    stream (the caching allocator's stream order), so no call races
+    another on its scratch."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self._buf: Optional[torch.Tensor] = None
+
+    def get(self, nbytes: int) -> torch.Tensor:
+        have = 0 if self._buf is None else self._buf.numel()
+        if have < nbytes:
+            self._buf = torch.empty(max(nbytes, 2 * have), dtype=torch.uint8, device=self.device)
+        return self._buf
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_WORKSPACES: Dict[Tuple[torch.device, int], Workspace] = {}  # (device, stream handle) -> its scratch
+_WS_BYTES: Dict[int, int] = {}  # batch size -> bytes of workspace the kernel needs
 
 
 def _td_lib() -> ctypes.CDLL:
     lib = cuda_build.load("token_decide")
     if not getattr(lib, "_typed", False):
-        lib.token_decide_keys.argtypes = [_P, _P, _I, _I, _P, _P, _P]
-        lib.token_decide_stage.argtypes = [_I, _P, _I] + [_P] * 7 + [ctypes.c_float, _I] + [_P] * 11
-        lib.token_decide_commit.argtypes = [_I, _I, _I, _I] + [_P] * 10
-        for f in (lib.token_decide_keys, lib.token_decide_stage, lib.token_decide_commit):
-            f.restype = _I
+        lib.token_decide_workspace.argtypes = [_I]
+        lib.token_decide_workspace.restype = ctypes.c_longlong
+        lib.token_decide.argtypes = [_P] * 6 + [_I] * 3 + [ctypes.c_float, _I] + [_P] * 3 + [_I] * 4 + [_P] * 2 + [
+            ctypes.c_longlong, _P]
+        lib.token_decide.restype = _I
         lib._typed = True
     return lib
 
 
 def _batch_decide_cuda(state, rows, ns_rows, acquire, thresholds, ns_thresholds, valid, now, atomic):
     b = rows.shape[0]
-    nrows = state.n_rows
     for name, t, dt in (("rows", rows, torch.int32), ("ns_rows", ns_rows, torch.int32),
                         ("acquire", acquire, torch.int32), ("thresholds", thresholds, torch.float32),
                         ("ns_thresholds", ns_thresholds, torch.float32), ("valid", valid, torch.bool)):
         if t.dtype != dt or not t.is_contiguous() or not t.is_cuda or tuple(t.shape) != (b,):
             raise ValueError(f"batch_decide: {name} must be a contiguous CUDA {dt} tensor of shape ({b},)")
+    for name, t in zip(ma.MetricArrayState._fields, state):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"batch_decide: state.{name} must be a contiguous int32 tensor")
     if b == 0:
         raise ValueError("batch_decide: an empty batch (the service pads it to at least 8)")
     lib = _td_lib()
     dev = rows.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    sums = ma.window_reduce(CLUSTER_CFG, state, now, torch.cat([rows, ns_rows]))[0]  # K3: [2B, E]
-    admitted = torch.empty(b, dtype=torch.bool, device=dev)
-    ns_ok = torch.empty(b, dtype=torch.bool, device=dev)
-    remaining = torch.empty(b, dtype=torch.float32, device=dev)
-    key = torch.empty(b, dtype=torch.int64, device=dev)
-    flag = torch.empty(1, dtype=torch.int32, device=dev)
-    tiles = (b + 1023) // 1024  # segscan.cuh TILE
-    i2 = torch.empty(2 * (2 * b + 2 * tiles), dtype=torch.int32, device=dev)  # contrib, excl, two partials (int2)
-    contrib, excl = i2[: 2 * b], i2[2 * b : 4 * b]
-    part_sum, part_max = i2[4 * b : 4 * b + 2 * tiles], i2[4 * b + 2 * tiles :]
-    new_grp = torch.empty(b, dtype=torch.uint8, device=dev)
+    need = _WS_BYTES.get(b)
+    if need is None:
+        need = _WS_BYTES[b] = int(lib.token_decide_workspace(b))
+    buf = _WORKSPACES.setdefault((dev, stream), Workspace(dev)).get(need) if need > 0 else None
+    out = torch.empty((3, b), dtype=torch.int32, device=dev)
+    cfg = CLUSTER_CFG
     cuda_build.check(
-        lib.token_decide_keys(ns_rows.data_ptr(), valid.data_ptr(), b, nrows, key.data_ptr(), flag.data_ptr(), stream),
-        "token_decide_keys",
-    )
-    interval_sec = CLUSTER_CFG.interval_ms / 1000.0
-    for stage in (0, 1):
-        key_s = torch.sort(key).values  # CUB radix sort of (group << 32 | position)
-        cuda_build.check(
-            lib.token_decide_stage(
-                stage, key_s.data_ptr(), b, acquire.data_ptr(), sums.data_ptr(), rows.data_ptr(),
-                ns_rows.data_ptr(), thresholds.data_ptr(), ns_thresholds.data_ptr(), valid.data_ptr(),
-                interval_sec, nrows, ns_ok.data_ptr(), key.data_ptr(), admitted.data_ptr(), remaining.data_ptr(),
-                flag.data_ptr(), contrib.data_ptr(), new_grp.data_ptr(), excl.data_ptr(), part_sum.data_ptr(),
-                part_max.data_ptr(), stream,
-            ),
-            f"token_decide_stage {stage}",
-        )
-    upd_rows = torch.empty(2 * b, dtype=torch.int32, device=dev)
-    upd_ts = torch.empty(2 * b, dtype=torch.int32, device=dev)
-    upd_mask = torch.empty(2 * b, dtype=torch.bool, device=dev)
-    deltas = torch.empty((2 * b, NUM_EVENTS), dtype=torch.int32, device=dev)
-    cuda_build.check(
-        lib.token_decide_commit(
-            b, nrows, int(now), int(atomic), flag.data_ptr(), admitted.data_ptr(), rows.data_ptr(),
-            ns_rows.data_ptr(), acquire.data_ptr(), upd_rows.data_ptr(), upd_ts.data_ptr(), upd_mask.data_ptr(),
-            deltas.data_ptr(), stream,
+        lib.token_decide(
+            rows.data_ptr(), ns_rows.data_ptr(), acquire.data_ptr(), thresholds.data_ptr(),
+            ns_thresholds.data_ptr(), valid.data_ptr(), b, int(now), cfg.interval_ms, cfg.interval_ms / 1000.0,
+            int(atomic), state.counts.data_ptr(), state.min_rt.data_ptr(), state.window_start.data_ptr(),
+            state.n_rows, cfg.sample_count, cfg.window_len_ms, cfg.max_rt, out.data_ptr(),
+            None if buf is None else buf.data_ptr(), 0 if buf is None else buf.numel(), stream,
         ),
-        "token_decide_commit",
+        "token_decide",
     )
-    ma.update(CLUSTER_CFG, state, upd_rows, upd_ts, deltas, None, upd_mask)  # K2: the PASS commit
     batch_decide.launches += 1
-    return admitted, ns_ok, remaining
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -255,6 +260,7 @@ class DefaultTokenService(TokenService):
         # None for an embedded service).
         self.connections = None
         self.concurrent = ConcurrentFlowManager(clock=self.clock)
+        self._io_bufs: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def load_state(self, state_arrays, flow_rows: Dict[object, int], ns_rows: Dict[str, int]) -> None:
         """Adopt a window state (``(counts, min_rt, window_start)`` numpy
@@ -297,26 +303,42 @@ class DefaultTokenService(TokenService):
             return rule.count * cfg.exceed_count
         return rule.count * self._connected_count(ns) * cfg.exceed_count
 
+    def _io(self, b: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The batch's host and device buffers for ``b`` requests: rows,
+        namespace rows and acquire (int32), the two thresholds (float32),
+        valid (bool), 21 bytes a request; pinned on the host for the card."""
+        bufs = self._io_bufs.get(b)
+        if bufs is None:
+            cuda = self.device.type == "cuda"
+            host = torch.empty(21 * b, dtype=torch.uint8, pin_memory=cuda)
+            bufs = self._io_bufs[b] = (host, torch.empty_like(host, device=self.device) if cuda else host)
+        return bufs
+
     def _decide(self, rows, ns_rows, acq, thr, ns_thr, n: int, atomic: bool, pad_acq: int = 1, pad_thr: float = 0.0):
-        """Pad to a power of two (padding as the JAX service pads), run K12
-        under the lock, and bring the three outputs back in one copy."""
+        """Pad to a power of two (padding as the JAX service pads), copy the
+        batch to the device in one piece, run K12 under the lock, and bring
+        the three outputs back in one copy."""
         b = pad_pow2(n, 8)
-
-        def col(vals, fill, dtype):
-            a = np.full(b, fill, dtype=dtype)
-            a[:n] = vals
-            return torch.from_numpy(a).to(self.device)
-
-        valid = np.zeros(b, dtype=bool)
-        valid[:n] = True
+        host, dev = self._io(b)
+        h = host.numpy()
+        i32, f32, ok = h[: 12 * b].view(np.int32), h[12 * b : 20 * b].view(np.float32), h[20 * b :].view(np.bool_)
+        for col, (vals, fill) in enumerate(((rows, 0), (ns_rows, -1), (acq, pad_acq))):
+            i32[col * b : col * b + n] = vals
+            i32[col * b + n : (col + 1) * b] = fill
+        for col, (vals, fill) in enumerate(((thr, pad_thr), (ns_thr, 0.0))):
+            f32[col * b : col * b + n] = vals
+            f32[col * b + n : (col + 1) * b] = fill
+        ok[:n] = True
+        ok[n:] = False
+        if dev is not host:
+            dev.copy_(host, non_blocking=True)
+        di, df = dev[: 12 * b].view(torch.int32), dev[12 * b : 20 * b].view(torch.float32)
         self._ensure_capacity()
-        admitted, ns_ok, rem = batch_decide(
-            self.state, col(rows, 0, np.int32), col(ns_rows, -1, np.int32), col(acq, pad_acq, np.int32),
-            col(thr, pad_thr, np.float32), col(ns_thr, 0.0, np.float32), torch.from_numpy(valid).to(self.device),
+        got = batch_decide(
+            self.state, di[:b], di[b : 2 * b], di[2 * b :], df[:b], df[b:], dev[20 * b :].view(torch.bool),
             self.clock.now_ms(), atomic=atomic,
-        )
-        got = torch.stack([admitted.to(torch.int32), ns_ok.to(torch.int32), rem.view(torch.int32)]).cpu().numpy()
-        return got[0].astype(bool), got[1].astype(bool), got[2].view(np.float32)
+        ).cpu()
+        return tuple(t.numpy() for t in unpack_decision(got))
 
     def request_token(self, flow_id: int, acquire_count: int = 1, prioritized: bool = False) -> TokenResult:
         return self.request_tokens([(flow_id, acquire_count, prioritized)])[0]

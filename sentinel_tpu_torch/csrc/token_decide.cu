@@ -2,151 +2,452 @@
 // jitted `_batch_decide`, sentinel_tpu/cluster/token_service.py:95, and its
 // atomic variant `_decide_jit_atomic`, :162-165).
 //
-// For B token requests (flow row, namespace row or -1, acquire, float32
-// thresholds, valid), with the PASS sums of both rows already gathered by
-// K3 on the cluster geometry (10 x 100 ms):
+// One C call (token_decide) decides a batch of B token requests (flow row,
+// namespace row or -1, acquire, float32 thresholds, valid) and commits it:
+//   0. each request reads the PASS sum of its flow row and its namespace
+//      row from the 10 x 100 ms cluster window (the buckets with
+//      now - window_start <= interval, as K3 reads them);
 //   1. namespace guard: requests keyed by namespace row (the dump group
-//      n_rows for invalid or namespace-less ones) in (key, position) order,
-//      one packed int64 key per request sorted by CUB (torch.sort); each is
-//      charged the acquire of the earlier requests of its group, computed
-//      as JAX does: a wrapping int32 cumsum minus a running max of the
-//      group-start values (segscan.cuh's three-phase scans);
+//      n_rows for invalid or namespace-less ones) in (key, position)
+//      order; each is charged the acquire of the earlier requests of its
+//      group, computed as JAX does: the wrapping int32 exclusive sum over
+//      the whole sorted batch minus the running max of the group-start
+//      values (when the batch's acquire sum passes 2^31 the running max can
+//      pick an earlier group's head; a per-group sum would differ there);
 //      ns_ok = ns_row < 0 || (float)(sum + charge) / interval + acquire <= ns_threshold;
-//   2. flow check: keyed by flow row where valid and ns_ok (dump group
-//      otherwise), sorted and scanned again;
+//   2. flow check, keyed by flow row where valid and ns_ok:
 //      next_remaining = (threshold - (float)(sum + charge) / interval) - acquire;
-//      admitted = valid && ns_ok && next_remaining >= 0, and the atomic
-//      variant's all(admitted | !valid) folds into one flag;
-//   3. the 2B PASS updates (flow rows, then namespace rows; masked unless
-//      charged) for K2's window update, which the wrapper runs next.
-// Float32 is IEEE round-to-nearest in the JAX order of operations (no
-// multiply, so no FMA question); the wrapper never enables fast math.
+//      admitted = valid && ns_ok && next_remaining >= 0; the atomic variant
+//      charges nothing unless every valid request is admitted;
+//   3. commit: PASS += acquire on the flow and namespace rows of the charged
+//      requests, by K2's two phases (window_update.cuh) on the state.
+// Outputs: one int32 [3, B] tensor (admitted, ns_ok, the bits of
+// next_remaining), copied back in one piece.
 //
-// Bound: bytes. Each request moves a few dozen bytes; the sorts and the
-// scans are launch-bound at a token server's batch sizes.
+// Two routes, both hand-written and both held against the plain version:
+// - B <= SMALL_MAX (the main path's batches: the service pads to a power
+//   of two >= 8): one launch of one block. It sorts the packed (group,
+//   position) keys in shared memory (bitonic), scans, decides and
+//   commits, with __syncthreads() between the steps.
+// - larger B: td_prep (the sums and the first keys), a CUB radix sort of
+//   the keys (end_bit cut to the bits they use; temp storage from the
+//   caller's workspace), td_stage<0> (one single-pass kernel: the scans by
+//   decoupled look-back, and the decisions), the second sort, td_stage<1>,
+//   and the two commit phases.
+// Float32 is IEEE round-to-nearest in the JAX order of operations (no
+// multiply, so no FMA question); the build never enables fast math.
+//
+// Bound: bytes. Each request moves a few dozen bytes; at a token server's
+// batch sizes the pass is bound by launch and synchronisation latency, so
+// the design is about launches: one host call, one launch for small B.
+
+#include <cub/device/device_radix_sort.cuh>
 
 #include "segscan.cuh"
+#include "window_update.cuh"
 
 namespace {
 
 constexpr int PASS = 0;  // MetricEvent.PASS
-constexpr int NE = 6;    // NUM_EVENTS
+constexpr int SMALL_MAX = 2048;
+constexpr int SMALL_IPT = SMALL_MAX / THREADS;
+constexpr unsigned long long SENTINEL = ~0ull;
+constexpr unsigned long long AGG = 1ull << 32, INC = 2ull << 32;  // look-back status flags
 
-__device__ __forceinline__ long long pack_key(int k, int pos) { return (long long)k * 4294967296LL + pos; }
+using u64 = unsigned long long;
 
-__global__ void td_ns_keys(const int* __restrict__ ns_rows, const uint8_t* __restrict__ valid, int b, int nrows,
-                           long long* __restrict__ key, int* __restrict__ all_flag) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i == 0) *all_flag = 1;
-  if (i >= b) return;
-  int k = (valid[i] && ns_rows[i] >= 0) ? ns_rows[i] : nrows;
-  key[i] = pack_key(k, i);
+struct Batch {
+  const int* rows;
+  const int* ns_rows;
+  const int* acquire;
+  const float* thr;
+  const float* ns_thr;
+  const uint8_t* valid;
+  int b, now, interval_ms, atomic, pbits;
+  float interval_sec;
+  int* out;  // [3, b]: admitted, ns_ok, next_remaining bits
+};
+
+__device__ __forceinline__ u64 pack_key(int group, int pos, int pbits) {
+  return ((u64)(unsigned)group << pbits) | (unsigned)pos;
+}
+__device__ __forceinline__ int key_group(u64 k, int pbits) { return (int)(k >> pbits); }
+__device__ __forceinline__ int key_pos(u64 k, int pbits) { return (int)(k & ((1ull << pbits) - 1)); }
+
+// PASS sum of a row (clamped into [0, n_rows)) over its valid buckets.
+__device__ int pass_sum(const wu::Window& s, int row, int now, int interval_ms) {
+  int64_t c0 = (int64_t)clampi(row, 0, s.n_rows - 1) * s.nb;
+  int acc = 0;
+  for (int k = 0; k < s.nb; ++k) {
+    if (wrap_sub(now, s.window_start[c0 + k]) <= interval_ms) acc = wrap_add(acc, s.counts[(c0 + k) * wu::NE + PASS]);
+  }
+  return acc;
 }
 
-__global__ void td_contrib(const long long* __restrict__ key_s, int b, const int* __restrict__ acquire,
-                           int2* __restrict__ contrib, uint8_t* __restrict__ new_grp) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= b) return;
-  long long k = key_s[i];
-  contrib[i] = make_int2(acquire[(int)(k & 0xFFFFFFFFLL)], 0);
-  new_grp[i] = (i == 0 || (key_s[i - 1] >> 32) != (k >> 32)) ? 1 : 0;
+__device__ __forceinline__ bool ns_admits(const Batch& a, int pos, int sum, int charge) {
+  float qps = __fdiv_rn(__int2float_rn(wrap_add(sum, charge)), a.interval_sec);
+  return a.ns_rows[pos] < 0 || __fadd_rn(qps, __int2float_rn(a.acquire[pos])) <= a.ns_thr[pos];
 }
 
-// One sorted item per scan slot: its charge = excl - (running max of the
-// group-start values), then the stage's decision at its position.
-__global__ void td_decide(int stage, const long long* __restrict__ key_s, int b, const int2* __restrict__ excl,
-                          const uint8_t* __restrict__ new_grp, const int2* __restrict__ part_max,
-                          const int* __restrict__ sums, const int* __restrict__ rows, const int* __restrict__ ns_rows,
-                          const int* __restrict__ acquire, const float* __restrict__ thr,
-                          const float* __restrict__ ns_thr, const uint8_t* __restrict__ valid, float interval_sec,
-                          int nrows, uint8_t* __restrict__ ns_ok, long long* __restrict__ next_key,
-                          uint8_t* __restrict__ admitted, float* __restrict__ remaining, int* __restrict__ all_flag) {
+__device__ __forceinline__ float flow_remaining(const Batch& a, int pos, int sum, int charge) {
+  float latest = __fdiv_rn(__int2float_rn(wrap_add(sum, charge)), a.interval_sec);
+  return __fsub_rn(__fsub_rn(a.thr[pos], latest), __int2float_rn(a.acquire[pos]));
+}
+
+// Carry-ins of a block's scans: none for the one-block route.
+struct NoCarry {
+  __device__ int sum_in(int) { return 0; }
+  __device__ int max_in(int) { return INT_MIN; }
+};
+
+// Decoupled look-back over per-tile status words (flag in the high half,
+// the value's bits in the low half, one 64-bit store each). Tiles are
+// numbered in the order blocks start, so a tile waits only on tiles whose
+// blocks already run.
+struct LookBack {
+  u64* st_sum;
+  u64* st_max;
+  int tile;
+
+  __device__ static u64 load(const u64* p) { return *(volatile const u64*)p; }
+  __device__ static void store(u64* p, u64 flag, int v) { atomicExch(p, flag | (unsigned)v); }
+
+  template <bool SUM>
+  __device__ int walk(u64* st, int total) {
+    if (tile == 0) {
+      store(st, INC, total);
+      return SUM ? 0 : INT_MIN;
+    }
+    store(st + tile, AGG, total);
+    int acc = SUM ? 0 : INT_MIN;
+    for (int j = tile - 1;; --j) {
+      u64 w;
+      do {
+        w = load(st + j);
+      } while ((w >> 32) == 0);
+      int v = (int)(unsigned)w;
+      acc = SUM ? wrap_add(acc, v) : max(acc, v);
+      if ((w & ~0xFFFFFFFFull) == INC) break;
+    }
+    store(st + tile, INC, SUM ? wrap_add(acc, total) : max(acc, total));
+    return acc;
+  }
+  __device__ int sum_in(int total) { return walk<true>(st_sum, total); }
+  __device__ int max_in(int total) { return walk<false>(st_max, total); }
+};
+
+// The charges of this thread's `cnt` consecutive sorted items (all threads
+// of the block call it): the wrapping exclusive sum of `acq` minus the
+// running max of the group-start snapshots, JAX's excl - cummax(where(head,
+// excl, 0)). Padding items have acq 0 and no head.
+template <int MAXI, class Carry>
+__device__ void charges(int cnt, const int (&acq)[MAXI], const bool (&head)[MAXI], int (&charge)[MAXI], Carry& carry) {
   __shared__ int2 warp_tot[NWARPS];
-  int2 loc[IPT];
-  int2 run = max_scan_prefix(LoadSnapshot{excl, new_grp}, b, part_max, loc, warp_tot);
-  int base = blockIdx.x * TILE + threadIdx.x * IPT;
+  __shared__ int bcast;
+  int2 total;
+  int local = 0;
 #pragma unroll
-  for (int j = 0; j < IPT; ++j) {
-    run = MaxOp::op(run, loc[j]);
-    int i = base + j;
-    if (i >= b) continue;
-    int charge = wrap_sub(excl[i].x, run.x);
-    int pos = (int)(key_s[i] & 0xFFFFFFFFLL);
-    float acq = __int2float_rn(acquire[pos]);
-    if (stage == 0) {
-      float qps = __fdiv_rn(__int2float_rn(wrap_add(sums[(size_t)(b + pos) * NE + PASS], charge)), interval_sec);
-      bool ok = ns_rows[pos] < 0 || __fadd_rn(qps, acq) <= ns_thr[pos];
-      ns_ok[pos] = ok ? 1 : 0;
-      next_key[pos] = pack_key((valid[pos] && ok) ? rows[pos] : nrows, pos);
-    } else {
-      float latest = __fdiv_rn(__int2float_rn(wrap_add(sums[(size_t)pos * NE + PASS], charge)), interval_sec);
-      float rem = __fsub_rn(__fsub_rn(thr[pos], latest), acq);
-      bool adm = valid[pos] && ns_ok[pos] && rem >= 0.0f;
-      admitted[pos] = adm ? 1 : 0;
-      remaining[pos] = rem;
-      if (valid[pos] && !adm) atomicAnd(all_flag, 0);
+  for (int k = 0; k < MAXI; ++k)
+    if (k < cnt) local = wrap_add(local, acq[k]);
+  int2 ex = block_exclusive_scan<SumOp>(make_int2(local, 0), warp_tot, total);
+  if (threadIdx.x == 0) bcast = carry.sum_in(total.x);
+  __syncthreads();
+  int run = wrap_add(bcast, ex.x);
+  int excl[MAXI];
+  int snap_max = INT_MIN;
+#pragma unroll
+  for (int k = 0; k < MAXI; ++k) {
+    if (k < cnt) {
+      excl[k] = run;
+      run = wrap_add(run, acq[k]);
+      snap_max = max(snap_max, head[k] ? excl[k] : 0);
+    }
+  }
+  __syncthreads();  // bcast is read by every thread before it is written again
+  int2 mx = block_exclusive_scan<MaxOp>(make_int2(snap_max, 0), warp_tot, total);
+  if (threadIdx.x == 0) bcast = carry.max_in(total.x);
+  __syncthreads();
+  int m = max(bcast, mx.x);
+#pragma unroll
+  for (int k = 0; k < MAXI; ++k) {
+    if (k < cnt) {
+      m = max(m, head[k] ? excl[k] : 0);
+      charge[k] = wrap_sub(excl[k], m);
+    }
+  }
+  __syncthreads();
+}
+
+// The commit of request i's two updates (u < b: its flow row, else its
+// namespace row), as JAX masks them: rows >= n_rows (the dump) drop, the
+// rest are clamped into range.
+__device__ __forceinline__ int commit_cell(const wu::Window& s, const Batch& a, int u, bool charged) {
+  int i = u < a.b ? u : u - a.b;
+  int r = u < a.b ? (charged ? a.rows[i] : s.n_rows) : ((charged && a.ns_rows[i] >= 0) ? a.ns_rows[i] : s.n_rows);
+  return wu::cell_of(s, r < s.n_rows, clampi(r, 0, s.n_rows - 1), a.now);
+}
+
+__device__ __forceinline__ void commit_add(const wu::Window& s, const Batch& a, int u, int cell) {
+  int d[wu::NE] = {0, 0, 0, 0, 0, 0};
+  if (cell >= 0) d[PASS] = a.acquire[u < a.b ? u : u - a.b];
+  wu::add(s, cell, wu::window_of(s, a.now), d, false, 0);
+}
+
+// ---------------------------------------------------------------------------
+// one block: B <= SMALL_MAX
+// ---------------------------------------------------------------------------
+
+__device__ void bitonic_sort(u64* key, int p) {
+  for (int k = 2; k <= p; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < p; i += THREADS) {
+        int ixj = i ^ j;
+        if (ixj > i) {
+          u64 x = key[i], y = key[ixj];
+          if ((x > y) == ((i & k) == 0)) {
+            key[i] = y;
+            key[ixj] = x;
+          }
+        }
+      }
+      __syncthreads();
     }
   }
 }
 
-__global__ void td_commit(int b, int nrows, int now, int atomic, const int* __restrict__ all_flag,
-                          const uint8_t* __restrict__ admitted, const int* __restrict__ rows,
-                          const int* __restrict__ ns_rows, const int* __restrict__ acquire, int* __restrict__ upd_rows,
-                          int* __restrict__ upd_ts, uint8_t* __restrict__ upd_mask, int* __restrict__ deltas) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= b) return;
-  bool charged = admitted[i] && (!atomic || *all_flag);
-  int r0 = charged ? rows[i] : nrows;
-  int r1 = (charged && ns_rows[i] >= 0) ? ns_rows[i] : nrows;
-  int r[2] = {r0, r1};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    int u = h * b + i;
-    upd_mask[u] = r[h] < nrows ? 1 : 0;
-    upd_rows[u] = clampi(r[h], 0, nrows - 1);
-    upd_ts[u] = now;
-#pragma unroll
-    for (int e = 0; e < NE; ++e) deltas[(size_t)u * NE + e] = e == PASS ? acquire[i] : 0;
+__global__ void __launch_bounds__(THREADS) td_small(Batch a, wu::Window s) {
+  __shared__ u64 key[SMALL_MAX];
+  __shared__ int sum_f[SMALL_MAX], sum_n[SMALL_MAX];
+  __shared__ uint8_t ns_ok[SMALL_MAX], adm[SMALL_MAX];
+  __shared__ int all_ok;
+  const int b = a.b;
+  int p = 1;
+  while (p < b) p <<= 1;
+  const int ipt = (p + THREADS - 1) / THREADS;  // items per thread, <= SMALL_IPT
+  const int span = ipt * THREADS;
+  if (threadIdx.x == 0) all_ok = 1;
+  for (int i = threadIdx.x; i < span; i += THREADS) {
+    if (i < b) {
+      int ns = a.ns_rows[i];
+      key[i] = pack_key((a.valid[i] && ns >= 0) ? ns : s.n_rows, i, a.pbits);
+      sum_f[i] = pass_sum(s, a.rows[i], a.now, a.interval_ms);
+      sum_n[i] = ns >= 0 ? pass_sum(s, ns, a.now, a.interval_ms) : 0;
+    } else {
+      key[i] = SENTINEL;
+    }
   }
+  __syncthreads();
+  NoCarry none;
+  for (int stage = 0; stage < 2; ++stage) {
+    bitonic_sort(key, p);
+    int acq[SMALL_IPT], charge[SMALL_IPT], pos[SMALL_IPT];
+    bool head[SMALL_IPT];
+#pragma unroll
+    for (int k = 0; k < SMALL_IPT; ++k) {
+      int j = threadIdx.x * ipt + k;
+      acq[k] = 0;
+      head[k] = false;
+      pos[k] = -1;
+      if (k < ipt && j < b) {
+        u64 kj = key[j];
+        pos[k] = key_pos(kj, a.pbits);
+        acq[k] = a.acquire[pos[k]];
+        head[k] = j == 0 || key_group(key[j - 1], a.pbits) != key_group(kj, a.pbits);
+      }
+    }
+    charges<SMALL_IPT>(ipt, acq, head, charge, none);
+#pragma unroll
+    for (int k = 0; k < SMALL_IPT; ++k) {
+      int q = pos[k];
+      if (q < 0) continue;
+      if (stage == 0) {
+        bool ok = ns_admits(a, q, sum_n[q], charge[k]);
+        ns_ok[q] = ok;
+        a.out[b + q] = ok;
+      } else {
+        float rem = flow_remaining(a, q, sum_f[q], charge[k]);
+        bool ad = a.valid[q] && ns_ok[q] && rem >= 0.0f;
+        adm[q] = ad;
+        a.out[q] = ad;
+        a.out[2 * b + q] = __float_as_int(rem);
+        if (a.valid[q] && !ad) all_ok = 0;
+      }
+    }
+    __syncthreads();
+    if (stage == 0) {
+      for (int i = threadIdx.x; i < b; i += THREADS)
+        key[i] = pack_key((a.valid[i] && ns_ok[i]) ? a.rows[i] : s.n_rows, i, a.pbits);
+      __syncthreads();
+    }
+  }
+  // Commit: K2's phases over the 2B updates; global writes of one phase are
+  // visible to the whole block after the barrier.
+  const bool all = !a.atomic || all_ok;
+  int w = wu::window_of(s, a.now);
+  for (int base = 0; base < 2 * b; base += THREADS) {
+    int u = base + threadIdx.x;
+    int cell = u < 2 * b ? commit_cell(s, a, u, adm[u < b ? u : u - b] && all) : -1;
+    wu::newest(s, cell, w);
+  }
+  __syncthreads();
+  for (int base = 0; base < 2 * b; base += THREADS) {
+    int u = base + threadIdx.x;
+    int cell = u < 2 * b ? commit_cell(s, a, u, adm[u < b ? u : u - b] && all) : -1;
+    commit_add(s, a, u, cell);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// many blocks: any B
+// ---------------------------------------------------------------------------
+
+// The gathered sums, the namespace keys, and the look-back state reset.
+__global__ void td_prep(Batch a, wu::Window s, int* sum_f, int* sum_n, u64* key, u64* status, int n_status,
+                        int* ctl) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_status) status[i] = 0;
+  if (i < 3) ctl[i] = i == 2 ? 1 : 0;  // two tile counters, the all-admitted flag
+  if (i >= a.b) return;
+  int ns = a.ns_rows[i];
+  key[i] = pack_key((a.valid[i] && ns >= 0) ? ns : s.n_rows, i, a.pbits);
+  sum_f[i] = pass_sum(s, a.rows[i], a.now, a.interval_ms);
+  sum_n[i] = ns >= 0 ? pass_sum(s, ns, a.now, a.interval_ms) : 0;
+}
+
+// One stage over its sorted keys, single pass: each block takes the next
+// tile, scans it with the carries of the tiles before it, and decides.
+// Stage 0 writes ns_ok and the flow keys; stage 1 the verdicts.
+template <int STAGE>
+__global__ void __launch_bounds__(THREADS)
+    td_stage(Batch a, int n_rows, const u64* __restrict__ key_s, const int* __restrict__ sum, u64* next_key,
+             u64* st_sum, u64* st_max, int* ctl) {
+  __shared__ int s_tile;
+  if (threadIdx.x == 0) s_tile = atomicAdd(&ctl[STAGE], 1);
+  __syncthreads();
+  LookBack lb{st_sum, st_max, s_tile};
+  int acq[IPT], charge[IPT], pos[IPT];
+  bool head[IPT];
+  int base = s_tile * TILE + threadIdx.x * IPT;
+#pragma unroll
+  for (int k = 0; k < IPT; ++k) {
+    int j = base + k;
+    acq[k] = 0;
+    head[k] = false;
+    pos[k] = -1;
+    if (j < a.b) {
+      u64 kj = key_s[j];
+      pos[k] = key_pos(kj, a.pbits);
+      acq[k] = a.acquire[pos[k]];
+      head[k] = j == 0 || key_group(key_s[j - 1], a.pbits) != key_group(kj, a.pbits);
+    }
+  }
+  charges<IPT>(IPT, acq, head, charge, lb);
+#pragma unroll
+  for (int k = 0; k < IPT; ++k) {
+    int q = pos[k];
+    if (q < 0) continue;
+    if (STAGE == 0) {
+      bool ok = ns_admits(a, q, sum[q], charge[k]);
+      a.out[a.b + q] = ok;
+      next_key[q] = pack_key((a.valid[q] && ok) ? a.rows[q] : n_rows, q, a.pbits);
+    } else {
+      float rem = flow_remaining(a, q, sum[q], charge[k]);
+      bool ad = a.valid[q] && a.out[a.b + q] && rem >= 0.0f;
+      a.out[q] = ad;
+      a.out[2 * a.b + q] = __float_as_int(rem);
+      if (a.valid[q] && !ad) ctl[2] = 0;
+    }
+  }
+}
+
+__global__ void td_commit_newest(Batch a, wu::Window s, const int* ctl) {
+  int u = blockIdx.x * blockDim.x + threadIdx.x;
+  bool all = !a.atomic || ctl[2];
+  int cell = u < 2 * a.b ? commit_cell(s, a, u, a.out[u < a.b ? u : u - a.b] && all) : -1;
+  wu::newest(s, cell, wu::window_of(s, a.now));
+}
+
+__global__ void td_commit_add(Batch a, wu::Window s, const int* ctl) {
+  int u = blockIdx.x * blockDim.x + threadIdx.x;
+  bool all = !a.atomic || ctl[2];
+  int cell = u < 2 * a.b ? commit_cell(s, a, u, a.out[u < a.b ? u : u - a.b] && all) : -1;
+  commit_add(s, a, u, cell);
+}
+
+inline int bits_for(long long v) {  // bits to hold 0..v
+  int n = 1;
+  while ((1ll << n) <= v) ++n;
+  return n;
+}
+
+inline size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }
+
+// Workspace of the many-block route: two key arrays, two sums, four
+// look-back status arrays, three control words, CUB's temp storage.
+struct Layout {
+  size_t keys, sums, status, ctl, temp, total;
+  int n_status;
+};
+
+Layout layout(int b) {
+  Layout l;
+  int nt = tiles_for(b);
+  l.n_status = 4 * nt;
+  size_t temp = 0;
+  cub::DeviceRadixSort::SortKeys(nullptr, temp, (const u64*)nullptr, (u64*)nullptr, b, 0, 64);
+  l.keys = 0;
+  l.sums = l.keys + align256(2 * sizeof(u64) * (size_t)b);
+  l.status = l.sums + align256(2 * sizeof(int) * (size_t)b);
+  l.ctl = l.status + align256(sizeof(u64) * (size_t)l.n_status);
+  l.temp = l.ctl + 256;
+  l.total = l.temp + align256(temp);
+  return l;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Step 1's keys (and the atomic flag's reset).
-int token_decide_keys(const int* ns_rows, const uint8_t* valid, int b, int nrows, long long* key, int* all_flag,
-                      cudaStream_t stream) {
-  td_ns_keys<<<blocks_for(b), THREADS, 0, stream>>>(ns_rows, valid, b, nrows, key, all_flag);
-  return (int)cudaGetLastError();
-}
+// Bytes of workspace token_decide needs for a batch of b (0 for the
+// one-block route).
+long long token_decide_workspace(int b) { return b <= SMALL_MAX ? 0 : (long long)layout(b).total; }
 
-// One stage (0: namespace guard, writing ns_ok and the flow keys; 1: flow
-// check) over its sorted keys.
-int token_decide_stage(int stage, const long long* key_s, int b, const int* acquire, const int* sums,
-                       const int* rows, const int* ns_rows, const float* thr, const float* ns_thr,
-                       const uint8_t* valid, float interval_sec, int nrows, uint8_t* ns_ok, long long* next_key,
-                       uint8_t* admitted, float* remaining, int* all_flag, int2* contrib, uint8_t* new_grp,
-                       int2* excl, int2* part_sum, int2* part_max, cudaStream_t stream) {
+// Decide and commit one batch (see the header). Returns a CUDA error code,
+// or -1 when the workspace is smaller than token_decide_workspace(b).
+int token_decide(const int* rows, const int* ns_rows, const int* acquire, const float* thr, const float* ns_thr,
+                 const uint8_t* valid, int b, int now, int interval_ms, float interval_sec, int atomic,
+                 int* counts, int* min_rt, int* window_start, int n_rows, int nb, int wlen, int max_rt, int* out,
+                 void* workspace, long long workspace_bytes, cudaStream_t stream) {
+  if (b <= 0) return 0;
+  int pbits = bits_for(b - 1);
+  Batch a{rows, ns_rows, acquire, thr, ns_thr, valid, b, now, interval_ms, atomic, pbits, interval_sec, out};
+  wu::Window s{counts, min_rt, window_start, n_rows, nb, wlen, max_rt};
+  if (b <= SMALL_MAX) {
+    td_small<<<1, THREADS, 0, stream>>>(a, s);
+    return (int)cudaGetLastError();
+  }
+  Layout l = layout(b);
+  if (workspace_bytes < (long long)l.total) return -1;
+  char* ws = (char*)workspace;
+  u64* key_a = (u64*)(ws + l.keys);
+  u64* key_b = key_a + b;
+  int* sum_f = (int*)(ws + l.sums);
+  int* sum_n = sum_f + b;
+  u64* status = (u64*)(ws + l.status);
   int nt = tiles_for(b);
-  td_contrib<<<blocks_for(b), THREADS, 0, stream>>>(key_s, b, acquire, contrib, new_grp);
-  scan_reduce<SumOp><<<nt, THREADS, 0, stream>>>(LoadContrib{contrib}, b, part_sum);
-  scan_partials<SumOp><<<1, THREADS, 0, stream>>>(part_sum, nt);
-  scan_apply_sum<<<nt, THREADS, 0, stream>>>(LoadContrib{contrib}, b, part_sum, excl);
-  scan_reduce<MaxOp><<<nt, THREADS, 0, stream>>>(LoadSnapshot{excl, new_grp}, b, part_max);
-  scan_partials<MaxOp><<<1, THREADS, 0, stream>>>(part_max, nt);
-  td_decide<<<nt, THREADS, 0, stream>>>(stage, key_s, b, excl, new_grp, part_max, sums, rows, ns_rows, acquire, thr,
-                                        ns_thr, valid, interval_sec, nrows, ns_ok, next_key, admitted, remaining,
-                                        all_flag);
-  return (int)cudaGetLastError();
-}
-
-// Step 3: the 2B masked PASS updates for K2.
-int token_decide_commit(int b, int nrows, int now, int atomic, const int* all_flag, const uint8_t* admitted,
-                        const int* rows, const int* ns_rows, const int* acquire, int* upd_rows, int* upd_ts,
-                        uint8_t* upd_mask, int* deltas, cudaStream_t stream) {
-  td_commit<<<blocks_for(b), THREADS, 0, stream>>>(b, nrows, now, atomic, all_flag, admitted, rows, ns_rows, acquire,
-                                                   upd_rows, upd_ts, upd_mask, deltas);
+  int* ctl = (int*)(ws + l.ctl);
+  void* temp = ws + l.temp;
+  size_t temp_bytes = l.total - l.temp;
+  int end_bit = pbits + bits_for(n_rows);
+  int err;
+  td_prep<<<blocks_for(max(b, l.n_status)), THREADS, 0, stream>>>(a, s, sum_f, sum_n, key_a, status, l.n_status,
+                                                                  ctl);
+  if ((err = (int)cub::DeviceRadixSort::SortKeys(temp, temp_bytes, key_a, key_b, b, 0, end_bit, stream))) return err;
+  td_stage<0><<<nt, THREADS, 0, stream>>>(a, n_rows, key_b, sum_n, key_a, status, status + nt, ctl);
+  if ((err = (int)cub::DeviceRadixSort::SortKeys(temp, temp_bytes, key_a, key_b, b, 0, end_bit, stream))) return err;
+  td_stage<1><<<nt, THREADS, 0, stream>>>(a, n_rows, key_b, sum_f, nullptr, status + 2 * nt, status + 3 * nt, ctl);
+  td_commit_newest<<<blocks_for(2 * b), THREADS, 0, stream>>>(a, s, ctl);
+  td_commit_add<<<blocks_for(2 * b), THREADS, 0, stream>>>(a, s, ctl);
   return (int)cudaGetLastError();
 }
 

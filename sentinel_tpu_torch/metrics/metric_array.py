@@ -41,9 +41,7 @@ import torch
 
 from sentinel_tpu_torch.metrics.events import NUM_EVENTS
 from sentinel_tpu_torch.utils import cuda_build
-
-I32_MAX = 2**31 - 1
-I32_MIN = -(2**31)
+from sentinel_tpu_torch.utils.numeric import wrap_i32
 
 
 class MetricArrayConfig(NamedTuple):
@@ -138,67 +136,41 @@ update.launches = 0
 
 
 def update_plain(cfg, state, rows, ts, deltas, rt_sample=None, mask=None) -> MetricArrayState:
-    """Plain PyTorch version of :func:`update` (the JAX op sequence:
-    sort by bucket key, segment reductions, one write per bucket)."""
-    wlen = cfg.window_len_ms
+    """Plain PyTorch version of :func:`update`, in the kernel's phases on
+    the flat cells (``csrc/window_update.cuh``): the newest window per cell
+    (``scatter_reduce`` amax), the roll of the cells it raised, then the
+    sums (``index_add_``, wrapping int32) and the min RT (``scatter_reduce``
+    amin) of the updates in the cell's window."""
     b = cfg.sample_count
-    n = rows.shape[0]
-    r_rows = state.n_rows
-    dev = rows.device
     if mask is None:
-        mask = torch.ones(rows.shape, dtype=torch.bool, device=dev)
-    if n == 0:
+        mask = torch.ones(rows.shape, dtype=torch.bool, device=rows.device)
+    if rows.shape[0] == 0:
         return state
     _check_ts(ts, mask)
-    rows = rows.to(torch.int32)
-    ts = ts.to(torch.int32)
-    idx = torch.remainder(torch.div(ts, wlen, rounding_mode="floor"), b).to(torch.int32)
-    ws = (ts - torch.remainder(ts, wlen)).to(torch.int32)
+    rows = rows.to(torch.int64)
+    ts = ts.to(torch.int64)
+    sel = mask & (rows >= 0) & (rows < state.n_rows)
+    cell = (rows * b + torch.div(ts, cfg.window_len_ms, rounding_mode="floor") % b)[sel]
+    w = (ts - ts % cfg.window_len_ms)[sel].to(torch.int32)
+    ws = state.window_start.view(-1)
+    counts = state.counts.view(-1, NUM_EVENTS)
+    min_rt = state.min_rt.view(-1)
 
-    key = torch.where(mask, rows * b + idx, torch.full_like(rows, r_rows * b))
-    key_s, p_s = torch.sort(key, stable=True)
-    ws_s = ws[p_s]
-    mask_s = mask[p_s]
-    new_seg = torch.ones(n, dtype=torch.bool, device=dev)
-    new_seg[1:] = key_s[1:] != key_s[:-1]
-    seg_id = torch.cumsum(new_seg.to(torch.int64), 0) - 1
-
-    seg_ws = torch.full((n,), I32_MIN, dtype=torch.int32, device=dev).scatter_reduce(
-        0, seg_id, torch.where(mask_s, ws_s, torch.full_like(ws_s, cfg.empty_ws)), "amax"
-    )
-    contrib = mask_s & (ws_s == seg_ws[seg_id])
-    deltas_s = torch.where(contrib[:, None], deltas[p_s].to(torch.int32), 0).to(torch.int32)
-    seg_sums = torch.zeros((n, NUM_EVENTS), dtype=torch.int32, device=dev).index_add_(
-        0, seg_id, deltas_s
-    )
+    # (1) the newest window per cell; the cells it raised roll.
+    old = ws[cell]
+    ws.scatter_reduce_(0, cell, w, "amax")
+    now_ws = ws[cell]
+    rolled = cell[now_ws > old]
+    counts[rolled] = 0
+    min_rt[rolled] = cfg.max_rt
+    # (2) the updates in their cell's window add.
+    add = w == now_ws
+    cells, inv = torch.unique(cell[add], return_inverse=True)
+    sums = torch.zeros((cells.shape[0], NUM_EVENTS), dtype=torch.int64, device=cells.device)
+    sums.index_add_(0, inv, deltas[sel][add].to(torch.int64))
+    counts[cells] = wrap_i32(counts[cells].to(torch.int64) + sums)
     if rt_sample is not None:
-        rt_s = torch.where(contrib, rt_sample[p_s].to(torch.int32), I32_MAX).to(torch.int32)
-        seg_rt = torch.full((n,), I32_MAX, dtype=torch.int32, device=dev).scatter_reduce(
-            0, seg_id, rt_s, "amin"
-        )
-
-    valid_seg = new_seg & mask_s
-    u_key = torch.where(valid_seg, key_s, torch.full_like(key_s, r_rows * b))
-    u_row = torch.div(u_key, b, rounding_mode="floor").clamp(max=r_rows)
-    u_idx = torch.remainder(u_key, b)
-    in_range = u_row < r_rows
-    u_ws = seg_ws[seg_id]
-    u_sums = seg_sums[seg_id]
-    old_ws = state.window_start[u_row.clamp(0, r_rows - 1), u_idx]
-    same = valid_seg & in_range & (u_ws == old_ws)
-    newer = valid_seg & in_range & (u_ws > old_ws)
-
-    ra, ia = u_row[same].long(), u_idx[same].long()
-    rs, is_ = u_row[newer].long(), u_idx[newer].long()
-    state.counts[ra, ia] = state.counts[ra, ia] + u_sums[same]
-    state.counts[rs, is_] = u_sums[newer]
-    state.window_start[rs, is_] = u_ws[newer]
-    if rt_sample is not None:
-        u_rt = seg_rt[seg_id]
-        state.min_rt[ra, ia] = torch.minimum(state.min_rt[ra, ia], u_rt[same])
-        state.min_rt[rs, is_] = torch.clamp(u_rt[newer], max=cfg.max_rt)
-    else:
-        state.min_rt[rs, is_] = cfg.max_rt
+        min_rt.scatter_reduce_(0, cell[add], rt_sample[sel][add].to(torch.int32), "amin")
     return state
 
 
@@ -209,10 +181,9 @@ _I = ctypes.c_int
 def _wu_lib() -> ctypes.CDLL:
     lib = cuda_build.load("window_update")
     if not getattr(lib, "_typed", False):
-        lib.window_update_keys.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P]
-        lib.window_update_apply.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I] + [_P] * 8
+        lib.window_update.argtypes = [_P] * 5 + [_I] * 5 + [_P] * 4
         lib.thread_gauge_add.argtypes = [_P, _P, _P, _I, _I, _P, _P]
-        for f in (lib.window_update_keys, lib.window_update_apply, lib.thread_gauge_add):
+        for f in (lib.window_update, lib.thread_gauge_add):
             f.restype = _I
         lib._typed = True
     return lib
@@ -237,7 +208,6 @@ def stream_of(t: torch.Tensor) -> int:
 def _update_cuda(cfg, state, rows, ts, deltas, rt_sample, mask) -> MetricArrayState:
     n = rows.shape[0]
     b = cfg.sample_count
-    rb = state.n_rows * b
     _i32(rows, "rows", (n,))
     _i32(ts, "ts", (n,))
     _i32(deltas, "deltas", (n, NUM_EVENTS))
@@ -249,30 +219,14 @@ def _update_cuda(cfg, state, rows, ts, deltas, rt_sample, mask) -> MetricArraySt
             raise ValueError(f"state.{name}: need a contiguous int32 tensor")
     if n == 0:
         return state
-    lib = _wu_lib()
-    st = stream_of(rows)
-    dev = rows.device
-    key = torch.empty(n, dtype=torch.int32, device=dev)
     cuda_build.check(
-        lib.window_update_keys(
-            rows.data_ptr(), ts.data_ptr(), mask.data_ptr(), n, b, cfg.window_len_ms, rb,
-            key.data_ptr(), st,
+        _wu_lib().window_update(
+            rows.data_ptr(), ts.data_ptr(), deltas.data_ptr(),
+            rt_sample.data_ptr() if rt_sample is not None else None, mask.data_ptr(), n, state.n_rows,
+            b, cfg.window_len_ms, cfg.max_rt, state.counts.data_ptr(), state.min_rt.data_ptr(),
+            state.window_start.data_ptr(), stream_of(rows),
         ),
-        "window_update_keys",
-    )
-    key_s, perm = torch.sort(key, stable=True)
-    scratch = torch.empty((3 + NUM_EVENTS) * n, dtype=torch.int32, device=dev)
-    head, seg_ws, seg_rt = scratch[:n], scratch[n : 2 * n], scratch[2 * n : 3 * n]
-    seg_sum = scratch[3 * n :]
-    cuda_build.check(
-        lib.window_update_apply(
-            key_s.data_ptr(), perm.data_ptr(), ts.data_ptr(), deltas.data_ptr(),
-            rt_sample.data_ptr() if rt_sample is not None else None,
-            n, rb, cfg.window_len_ms, cfg.max_rt,
-            head.data_ptr(), seg_ws.data_ptr(), seg_rt.data_ptr(), seg_sum.data_ptr(),
-            state.counts.data_ptr(), state.min_rt.data_ptr(), state.window_start.data_ptr(), st,
-        ),
-        "window_update_apply",
+        "window_update",
     )
     update.launches += 1
     return state

@@ -8,11 +8,9 @@ registering an observer raises rather than silently never firing."""
 
 from __future__ import annotations
 
-_ROADMAP_METRICS = "ROADMAP Queue 1 item 8 (metrics and observability)"
+from sentinel_tpu_torch.utils.unported import ROADMAP_METRICS, unported
 
 
 def add_state_change_observer(name: str, observer) -> None:
     """EventObserverRegistry.addStateChangeObserver: not ported yet."""
-    raise NotImplementedError(
-        f"sentinel_tpu_torch: breaker state-change observers are not ported yet ({_ROADMAP_METRICS})"
-    )
+    raise unported("breaker state-change observers", ROADMAP_METRICS)

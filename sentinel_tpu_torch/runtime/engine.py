@@ -77,13 +77,14 @@ from sentinel_tpu_torch.utils.config import config
 from sentinel_tpu_torch.utils.system_status import sampler as system_sampler
 from sentinel_tpu_torch.utils.device import DeviceLike, resolve_device
 from sentinel_tpu_torch.utils.numeric import pad_pow2 as _pad_pow2
-
-# ROADMAP items (Queue 1) that own what this slice refuses.
-_ROADMAP_PIPELINE = "ROADMAP Queue 1 item 1 (depth-K flush pipeline and flush_async)"
-_ROADMAP_TIERS = "ROADMAP Queue 1 item 7 (engine tiers)"
-_ROADMAP_METRICS = "ROADMAP Queue 1 item 8 (metrics and observability)"
-_ROADMAP_CLUSTER = "ROADMAP Queue 1 item 9 (cluster token plane)"
-_ROADMAP_IPC = "ROADMAP Queue 1 item 10 (IPC plane)"
+from sentinel_tpu_torch.utils.unported import (
+    ROADMAP_CLUSTER,
+    ROADMAP_IPC,
+    ROADMAP_METRICS,
+    ROADMAP_PIPELINE,
+    ROADMAP_TIERS,
+    unported,
+)
 
 # submit_many takes exactly submit_entry's request keys; anything else is
 # handed to submit_entry(**req) so that a typo raises TypeError there.
@@ -91,28 +92,24 @@ _SUBMIT_ENTRY_KEYS = frozenset(("resource", "context_name", "origin", "acquire",
 
 # Switches the JAX engine honours that this slice does not have yet.
 _UNPORTED_SWITCHES = (
-    (config.SPECULATIVE_ENABLED, _ROADMAP_TIERS),
-    (config.FAILOVER_ENABLED, _ROADMAP_TIERS),
-    (config.CAPTURE_ENABLED, _ROADMAP_TIERS),
-    (config.AUTOTUNE_ENABLED, _ROADMAP_TIERS),
-    (config.IPC_ENABLED, _ROADMAP_IPC),
+    (config.SPECULATIVE_ENABLED, ROADMAP_TIERS),
+    (config.FAILOVER_ENABLED, ROADMAP_TIERS),
+    (config.CAPTURE_ENABLED, ROADMAP_TIERS),
+    (config.AUTOTUNE_ENABLED, ROADMAP_TIERS),
+    (config.IPC_ENABLED, ROADMAP_IPC),
 )
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"sentinel_tpu_torch: {what} is not ported yet ({item})")
 
 
 def _refuse_unported_config() -> None:
     for key, item in _UNPORTED_SWITCHES:
         if config.get_bool(key, False):
-            raise _unported(f"{key}=true", item)
+            raise unported(f"{key}=true", item)
     if config.get_int(config.PIPELINE_DEPTH, 0) > 0:
-        raise _unported(f"{config.PIPELINE_DEPTH} > 0", _ROADMAP_PIPELINE)
+        raise unported(f"{config.PIPELINE_DEPTH} > 0", ROADMAP_PIPELINE)
     if config.get_bool(config.SKETCH_ENABLED, False) and config.get_bool(config.GOSSIP_ENABLED, False):
         # The tier merges peer frames (SketchTier.merge_remote); the agent
         # that would carry them between engines is not ported.
-        raise _unported(f"{config.GOSSIP_ENABLED}=true (the gossip transport)", _ROADMAP_CLUSTER)
+        raise unported(f"{config.GOSSIP_ENABLED}=true (the gossip transport)", ROADMAP_CLUSTER)
 
 
 class Verdict(NamedTuple):
@@ -330,7 +327,7 @@ class Engine:
         if k < 0:
             k = config.get_int(config.TELEMETRY_SKETCH_K, 8)
         if k > TOPK_MAX:
-            raise _unported(f"a blocked top-K above {TOPK_MAX} (k={k})", _ROADMAP_METRICS)
+            raise unported(f"a blocked top-K above {TOPK_MAX} (k={k})", ROADMAP_METRICS)
         return max(0, k)
 
     # ------------------------------------------------------------------
@@ -383,7 +380,29 @@ class Engine:
     # what this slice refuses
     # ------------------------------------------------------------------
     def flush_async(self):
-        raise _unported("flush_async", _ROADMAP_PIPELINE)
+        raise unported("flush_async", ROADMAP_PIPELINE)
+
+    def drain(self) -> None:
+        raise unported("Engine.drain", ROADMAP_PIPELINE)
+
+    def set_depth(self, depth: int, drain: bool = True) -> None:
+        raise unported("Engine.set_depth", ROADMAP_PIPELINE)
+
+    def pipeline_stats(self, reset: bool = False) -> Dict[str, float]:
+        raise unported("Engine.pipeline_stats", ROADMAP_PIPELINE)
+
+    @property
+    def last_flush_host_ms(self) -> Dict[str, float]:
+        raise unported("Engine.last_flush_host_ms", ROADMAP_PIPELINE)
+
+    def start_auto_flush(self, interval_ms: Optional[float] = None) -> None:
+        raise unported("Engine.start_auto_flush", ROADMAP_PIPELINE)
+
+    def reset(self) -> None:
+        raise unported("Engine.reset", ROADMAP_PIPELINE)
+
+    def retune_second_window(self, sample_count: int, interval_ms: int) -> None:
+        raise unported("Engine.retune_second_window", ROADMAP_METRICS)
 
     # ------------------------------------------------------------------
     # rule plumbing (called by the rule manager)

@@ -32,41 +32,68 @@ CPU = torch.device("cpu")
 
 def _decide_both(jstate, tstate, arrays, now, atomic):
     jout = jts._batch_decide(jstate, *(jnp.asarray(a) for a in arrays), jnp.int32(now), atomic=atomic)
-    tout = tts.batch_decide(tstate, *(torch.from_numpy(a.copy()) for a in arrays), now, atomic=atomic)
+    tout = tts.unpack_decision(tts.batch_decide(tstate, *(torch.from_numpy(a.copy()) for a in arrays), now,
+                                                atomic=atomic))
     return jout[0], jax.device_get(jout[1:]), tout
 
 
+def _per_group_charges(keys, acquire):
+    """The charge of each request as a plain per-group exclusive sum
+    (int32-wrapped): what JAX's cumsum-minus-cummax equals while the
+    batch's acquire sum stays below 2^31."""
+    out = np.zeros(len(keys), dtype=np.int64)
+    for k in np.unique(keys):
+        idx = np.flatnonzero(keys == k)
+        out[idx] = np.cumsum(acquire[idx].astype(np.int64)) - acquire[idx]
+    return out.astype(np.int32)
+
+
 @pytest.mark.parametrize("atomic", [False, True])
-@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("seed", [0, 1, 2, pytest.param(3, id="wrap"), pytest.param(4, id="b1024")])
 def test_batch_decide_matches_jax(seed, atomic):
     """Twelve batches of 5-40 requests over 1.5 s (the ten 100 ms buckets
     roll), flow rows on a Zipf-ish draw, namespace guards low enough to
-    trip, 10% invalid requests; the state grows by a doubling midway."""
+    trip, 10% invalid requests; the state grows by a doubling midway.
+    "wrap": acquire near 2^31 / B, so the batch's int32 cumsum passes 2^31
+    and JAX's running max picks an earlier group's head (a per-group sum
+    would differ: asserted). "b1024": batches of 1,024 requests."""
     rng = np.random.default_rng(seed)
     nrows = 32
     jstate = jma.make_state(nrows, jts.CLUSTER_CFG)
     tstate = tma.make_state(nrows, tts.CLUSTER_CFG, CPU)
     now = 1000
     seen = np.zeros(3, dtype=int)
+    trap = 0
     for step in range(12):
         if step == 6:
             nrows *= 2
             jstate = jma.grow(jstate, nrows, jts.CLUSTER_CFG)
             tstate = tma.grow(tstate, nrows, tts.CLUSTER_CFG)
         now += int(rng.choice([0, 40, 100, 230]))
-        b = int(rng.choice([5, 8, 13, 24, 40]))
+        b = 1024 if seed == 4 else int(rng.choice([5, 8, 13, 24, 40]))
         rows = np.minimum(rng.zipf(1.5, b) - 1, nrows - 5).astype(np.int32)
         ns = np.where(rng.random(b) < 0.8, rng.integers(nrows - 4, nrows, b), -1).astype(np.int32)
         acq = rng.integers(1, 4, b).astype(np.int32)
         thr = rng.choice([3.0, 10.0, 40.0, 1e9], b).astype(np.float32)
         nthr = rng.choice([15.0, 60.0], b).astype(np.float32)
+        if seed == 4:
+            thr, nthr = thr * 40, nthr * 40
         valid = rng.random(b) < 0.9
+        if seed == 3:
+            acq = rng.integers(2**31 // b, 3 * (2**31 // b), b).astype(np.int32)
+            thr = rng.choice([3.0, 1e9, 1e10, 3e10], b).astype(np.float32)
+            nthr = rng.choice([1e9, 1e10, 3e10], b).astype(np.float32)
+            keys = np.where(valid & (ns >= 0), ns, nrows)
+            trap += int((tts._consumed(torch.from_numpy(keys), torch.from_numpy(acq)).numpy()
+                         != _per_group_charges(keys, acq)).any())
         jstate, want, got = _decide_both(jstate, tstate, (rows, ns, acq, thr, nthr, valid), now, atomic)
         assert_same(tuple(want), got, f"step {step}: (admitted, ns_ok, next_remaining)")
         assert_same(tuple(jax.device_get(jstate)), tuple(tstate), f"step {step}: state")
         adm, ns_ok = want[0], want[1]
         seen += [int((adm & valid).sum()), int((~ns_ok).sum()), int((valid & ns_ok & ~adm).sum())]
     assert (seen > 0).all(), f"admitted / namespace-refused / flow-refused counts {seen}"
+    if seed == 3:
+        assert trap > 0, "no batch's running max picked an earlier group's head"
 
 
 def test_batch_decide_atomic_charges_nothing_on_a_refusal():

@@ -414,6 +414,27 @@ def test_out_of_slice_raises(call):
 
 
 @pytest.mark.parametrize(
+    "call,item",
+    [
+        (lambda e: e.set_depth(2), 1),
+        (lambda e: e.start_auto_flush(), 1),
+        (lambda e: e.last_flush_host_ms, 1),
+        (lambda e: e.pipeline_stats(), 1),
+        (lambda e: e.drain(), 1),
+        (lambda e: e.reset(), 1),
+        (lambda e: e.retune_second_window(4, 1000), 8),
+    ],
+    ids=["set_depth", "start_auto_flush", "last_flush_host_ms", "pipeline_stats", "drain", "reset",
+         "retune_second_window"],
+)
+def test_unported_engine_methods_raise(call, item):
+    """The JAX Engine's methods that the port lacks raise NotImplementedError
+    naming their ROADMAP item, not AttributeError."""
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}\b"):
+        call(_cpu_engine())
+
+
+@pytest.mark.parametrize(
     "call",
     [
         lambda e: e.set_flow_rules([FlowRule("r", count=5, control_behavior=C.CONTROL_BEHAVIOR_RATE_LIMITER)]),

@@ -1,7 +1,8 @@
 """Hygiene of the PyTorch port: importing it loads neither JAX nor the
-JAX package; no source of the port (nor chip_smoke.py) imports them;
-with no CUDA and no explicit CPU request it refuses to run; and a CPU
-tensor takes a kernel's plain version."""
+JAX package; no source of the port (nor chip_smoke.py, gpu_timing.py or
+gpu_kernel_ab.py) imports them; with no CUDA and no explicit CPU request
+it refuses to run; a CPU tensor takes a kernel's plain version; and every
+public name of the JAX package resolves on the port."""
 
 import ast
 import os
@@ -43,7 +44,7 @@ def _imported_modules(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "gpu_timing.py", ROOT / "gpu_kernel_ab.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_sources_import_no_jax(path):
@@ -154,8 +155,8 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     assert int((sk.cand_ids >= 0).sum()) == 4
     svc = ma.make_state(8, tts.CLUSTER_CFG, cpu)
     ones = torch.ones(n, dtype=i32)
-    adm, _, _ = tts.batch_decide(svc, ones, -ones, ones, torch.full((n,), 2.0), torch.zeros(n),
-                                 torch.ones(n, dtype=torch.bool), 100)
+    adm, _, _ = tts.unpack_decision(tts.batch_decide(svc, ones, -ones, ones, torch.full((n,), 2.0), torch.zeros(n),
+                                                     torch.ones(n, dtype=torch.bool), 100))
     assert adm.tolist() == [True] * 2 + [False] * (n - 2)
     assert [w.launches for w in wrappers] == before
 
@@ -193,3 +194,58 @@ def test_cpu_tensors_take_the_plain_versions_on_the_mesh(monkeypatch):
     finally:
         api.reset(device="cpu")
     assert [getattr(w, a) for w, a in counters] == before
+
+
+def _jax_public_names():
+    """The JAX package's ``__all__``, read from its source (no JAX import)."""
+    tree = ast.parse((ROOT / "sentinel_tpu" / "__init__.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__" for t in node.targets):
+            return [ast.literal_eval(e) for e in node.value.elts]
+    raise AssertionError("sentinel_tpu/__init__.py has no __all__")
+
+
+# The JAX names whose modules are not ported yet, and their ROADMAP items.
+_UNPORTED_NAMES = {"entry_async": 1, "trace_context": 8, "TraceContext": 8, "inject_trace_headers": 8,
+                   "parse_traceparent": 8, "sample_count_property": 8, "interval_property": 8}
+
+
+@pytest.mark.parametrize("name", _jax_public_names())
+def test_every_jax_public_name_resolves(name):
+    """Each name of the JAX package's ``__all__`` is on the port and in its
+    ``__all__``: the same object where the port has it, else a stand-in
+    that raises NotImplementedError naming its ROADMAP item when called."""
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.utils.unported import UnportedName
+
+    assert name in st.__all__
+    obj = getattr(st, name)
+    item = _UNPORTED_NAMES.get(name)
+    if item is None:
+        assert not isinstance(obj, UnportedName), f"{name} is ported: export the port's own object"
+        return
+    assert isinstance(obj, UnportedName)
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}\b"):
+        obj()
+
+
+def test_ported_public_names_are_the_ports_objects():
+    """The names the re-export adds are the port's own objects."""
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.core import api, context
+    from sentinel_tpu_torch.models import constants
+    from sentinel_tpu_torch.runtime import engine
+
+    assert st.reset_all is api.reset and st.Context is context.Context and st.BulkOp is engine.BulkOp
+    jax_version = ast.parse((ROOT / "sentinel_tpu" / "version.py").read_text()).body[-1].value.value
+    assert st.constants is constants and st.__version__ == jax_version
+    try:
+        assert st.set_exceptions_to_trace(KeyError) is None
+        assert st.should_trace(KeyError()) and not st.should_trace(ValueError())
+        st.set_exceptions_to_ignore(KeyError)
+        assert not st.should_trace(KeyError())
+        st.set_exception_predicate(lambda e: True)
+        assert st.should_trace(ValueError())
+    finally:
+        st.reset_tracer_filters()
+    assert st.should_trace(ValueError())

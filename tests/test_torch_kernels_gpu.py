@@ -83,17 +83,24 @@ GEOMETRY = {"second": tnodes.SECOND_CFG, "minute": tnodes.MINUTE_CFG, "cluster":
 
 @pytest.mark.parametrize("geometry", ["second", "minute", "cluster"])
 @pytest.mark.parametrize("with_rt", [False, True])
-@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("hot", [False, True, "zipf"])
 def test_update_kernel(cuda, geometry, with_rt, hot):
+    """5,000 updates over 64 rows (old, same and newer windows), all of them
+    on one cell (hot), or 524,288 Zipf(1.1) updates over 65,536 rows (the
+    main path's width); each call is one launch of the wrapper."""
     cfg = GEOMETRY[geometry]
     rng = np.random.default_rng(7)
     n_rows, n, now = 64, 5000, 2**31 - 1 - 3 * cfg.interval_ms
+    if hot == "zipf":
+        n_rows, n = 1 << 16, 1 << 19
     state = ma.state_from_numpy(random_window_state(rng, n_rows, cfg, now), cuda)
     rows = rng.integers(0, n_rows, n).astype(np.int32)
-    if hot:
+    if hot is True:
         rows[:] = 5
+    elif hot == "zipf":
+        rows = (np.minimum(rng.zipf(1.1, n), n_rows) - 1).astype(np.int32)
     ts = (now + rng.integers(-3 * cfg.interval_ms, 3 * cfg.interval_ms, n)).astype(np.int32)
-    if hot:
+    if hot is True:
         ts[:] = now + 1
     t = lambda a: torch.from_numpy(a).to(cuda)
     deltas = t(rng.integers(-3, 9, (n, NUM_EVENTS)).astype(np.int32))
@@ -465,16 +472,22 @@ def _token_batch(rng, cuda, b, n_flows, n_ns, nrows):
     ns = (n_flows + np.where(flow % 2 == 0, 0, 1 + (flow // 2) % (n_ns - 1))).astype(np.int32)
     acq = rng.integers(1, 4, b).astype(np.int32)
     thr = rng.integers(50, 501, n_flows).astype(np.float32)[flow]
-    nthr = np.full(b, 30000.0, np.float32)
+    # The default namespace guard (30,000 QPS) at 16,384 requests a batch,
+    # scaled with the batch so that namespace 0 trips it at every size.
+    nthr = np.full(b, 30000.0 * b / 16384, np.float32)
     valid = rng.random(b) < 0.98
     return [t(a) for a in (rows, ns, acq, thr, nthr, valid)]
 
 
-def test_token_decide_kernel(cuda):
-    """Batches of 16,384 requests over 65,536 flows in 16 namespaces, 2 s
-    of clock in 50 ms steps (the buckets roll): kernel and plain version in
-    lockstep on states of their own; OK, BLOCKED and TOO_MANY_REQUEST all
-    occur."""
+@pytest.mark.parametrize("wrap", [False, True])
+@pytest.mark.parametrize("b", [8, 13, 64, 1024, 2048, 3000, 16384])
+def test_token_decide_kernel(cuda, b, wrap):
+    """Batches of b requests over 65,536 flows in 16 namespaces, 2 s of
+    clock in 50 ms steps (the buckets roll), plain and atomic in turns:
+    kernel and plain version in lockstep on states of their own; b <= 2,048
+    takes the one-block route, larger b the many-block one. With ``wrap``
+    acquire is near 2^31 / b, so each batch's int32 cumsum passes 2^31.
+    Otherwise OK, BLOCKED and TOO_MANY_REQUEST all occur."""
     rng = np.random.default_rng(43)
     n_flows, n_ns = 1 << 16, 16
     nrows = n_flows + n_ns
@@ -482,18 +495,23 @@ def test_token_decide_kernel(cuda):
     plain = ma.make_state(nrows, tts.CLUSTER_CFG, cuda)
     seen = torch.zeros(3, dtype=torch.int64)
     for step in range(40):
-        arrays = _token_batch(rng, cuda, 1 << 14, n_flows, n_ns, nrows)
+        arrays = _token_batch(rng, cuda, b, n_flows, n_ns, nrows)
+        if wrap:
+            arrays[2] = torch.from_numpy(rng.integers(2**31 // b, 3 * (2**31 // b), b).astype(np.int32)).to(cuda)
+            arrays[3] = arrays[3] * 1e8
+            arrays[4] = torch.from_numpy(rng.choice([1e9, 1e10, 3e10], b).astype(np.float32)).to(cuda)
         now = 1000 + 50 * step
-        want = tts.batch_decide_plain(plain, *arrays, now)
+        atomic = step % 2 == 1
+        want = tts.batch_decide_plain(plain, *arrays, now, atomic=atomic)
         before = tts.batch_decide.launches
-        got = tts.batch_decide(kern, *arrays, now)
+        got = tts.batch_decide(kern, *arrays, now, atomic=atomic)
         assert tts.batch_decide.launches == before + 1
-        for name, x, y in zip(("admitted", "ns_ok", "next_remaining"), want, got):
-            _eq(x, y, f"step {step} {name}")
+        _eq(want, got, f"step {step}: (admitted, ns_ok, next_remaining)")
         _states_eq(plain, kern, f"step {step} state")
-        adm, ns_ok = want[0].cpu(), want[1].cpu()
+        adm, ns_ok, _ = tts.unpack_decision(want.cpu())
         seen += torch.tensor([int(adm.sum()), int((~ns_ok).sum()), int((ns_ok & ~adm).sum())])
-    assert (seen > 0).all(), seen
+    if not wrap:
+        assert (seen > 0).all(), seen
 
 
 def test_token_decide_atomic_kernel(cuda):
@@ -511,8 +529,7 @@ def test_token_decide_atomic_kernel(cuda):
         plain = _clone(state)
         want = tts.batch_decide_plain(plain, *arrays, 700, atomic=True)
         got = tts.batch_decide(state, *arrays, 700, atomic=True)
-        for x, y in zip(want, got):
-            _eq(x, y, f"atomic over={over}")
+        _eq(want, got, f"atomic over={over}")
         _states_eq(plain, state, f"atomic state over={over}")
         assert int(state.counts.sum()) == (0 if over else b)
 

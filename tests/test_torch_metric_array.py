@@ -1,8 +1,9 @@
 """Parity of the port's window tensor (sentinel_tpu_torch/metrics/
 metric_array.py, plain PyTorch versions on the CPU) with the JAX
-package's, bit for bit: ``update`` with and without RT samples, masks,
-duplicate keys and old/same/newer windows, and the windowed reads at the
-bucket-age boundary, in both geometries. Also the cases of
+package's, bit for bit: ``update`` with and without RT samples, masks
+(an all-masked batch among them), duplicate keys, old/same/newer windows
+and one hot (row, bucket) cell that every update of a batch touches; and
+the windowed reads at the bucket-age boundary, in both geometries. Also the cases of
 tests/test_metric_array.py, run against the port."""
 
 import jax
@@ -55,8 +56,16 @@ def test_update_parity(geometry, with_rt, seed):
     rng = np.random.default_rng(seed)
     n_rows, now = 16, 123_456
     js, ts_ = _both_states(random_window_state(rng, n_rows, tcfg, now))
-    for near_max in (False, True):
-        rows, ts, deltas, rt, mask = _batch(rng, 64, n_rows, tcfg, now, near_max)
+    for kind in ("random", "near_max", "hot_cell", "all_masked"):
+        rows, ts, deltas, rt, mask = _batch(rng, 64, n_rows, tcfg, now, kind == "near_max")
+        if kind == "hot_cell":
+            # Every update on one (row, bucket): older, same and newer
+            # windows of that bucket, relative to the stored one.
+            rows[:] = 3
+            ts = (now - now % tcfg.window_len_ms + tcfg.interval_ms * rng.integers(-2, 2, 64)
+                  + rng.integers(0, tcfg.window_len_ms, 64)).astype(np.int32)
+        elif kind == "all_masked":
+            mask[:] = False
         js = _jax_update(
             jcfg, js, jnp.asarray(rows), jnp.asarray(ts), jnp.asarray(deltas),
             jnp.asarray(rt) if with_rt else None, jnp.asarray(mask),
@@ -65,7 +74,7 @@ def test_update_parity(geometry, with_rt, seed):
             tcfg, ts_, torch.from_numpy(rows), torch.from_numpy(ts), torch.from_numpy(deltas),
             torch.from_numpy(rt) if with_rt else None, torch.from_numpy(mask),
         )
-        assert_same(js, ts_, f"{geometry} near_max={near_max}")
+        assert_same(js, ts_, f"{geometry} {kind}")
 
 
 def test_update_rejects_negative_ts():
