@@ -68,11 +68,17 @@ admit exactly 20; phase 9 runs examples/mesh_demo.py's sequence.
 The token service's decision (K12) is held against its plain version in
 phase 2e on a token server's stream at 16,384 requests a batch and at 8,
 64 and 1,024, and with each batch's int32 cumsum past 2^31; phase 8
-drives it through st.entry on cluster-mode rules. Phases 2 and 2e also
-print the device kernels, memsets and device time of one call of the
-window update (K2) and of K12 (torch.profiler, gpu_timing.py), and fail
-if the profiler reads no kernel, if K2 issues more than four kernels and
-memsets a call, or if K12 issues anything but one kernel for 8 requests.
+drives it through st.entry on cluster-mode rules. Phases 2, 2b, 2c and
+2e also print the device kernels, memsets and device time of one call of
+the window update (K2), the flow admission (K4, both routes, at 131,072
+entries and at 8; its time at 32,768 too), the hot-parameter recurrence
+(K10, at the mixed shape and at 8 items) and K12 (torch.profiler,
+gpu_timing.py), and fail if the profiler reads no kernel, if K2 issues
+more than four kernels and memsets a call, or if K4, K10 or K12 issue
+anything but one kernel at 8 entries, items or requests. Phase 4 reads
+cluster_node_stats every tenth flush (K3 with a row gather), on the card
+and on the CPU engine, as a path of its own: K3 is off the flush path, and
+its launches on the kernels line are those of these reads.
 
 The CPU sides of phases 2c (d), 4-4e and 8 (the plain versions on one
 heavy segment, the CPU engines) run in four worker processes, started
@@ -279,6 +285,20 @@ def make_table() -> FlowTableDevice:
         None, DEV,
     )
     return table
+
+
+def sub_batch(batch: flush.FlushBatch, n: int) -> flush.FlushBatch:
+    """The first ``n`` entries of ``batch`` (its exits unchanged)."""
+    return batch._replace(**{f: getattr(batch, f)[:n] for f in flush.FlushBatch._fields if f.startswith("e_")})
+
+
+def fa_bytes(n: int, nk: int) -> float:
+    """Least bytes of K4's DEFAULT path with its tail and top-8: per slot
+    its gid, check row and ts, its row's two second-window buckets (start
+    and PASS) and thread gauge, the rule's grade/count/behavior; per entry
+    valid, auth, cluster flags, acquire and 4 rows; out: slot_ok,
+    flow_pass, admitted, reason, the top-8."""
+    return nk * (4 + 4 + 4 + 16 + 4 + 12) + n * (3 + 4 + 16) + nk + n * 6 + 64
 
 
 def entry_updates(batch: flush.FlushBatch, admitted: torch.Tensor):
@@ -524,19 +544,38 @@ def phase2(results: dict) -> None:
         dense = torch.zeros(R, dtype=I32, device=DEV)
         blocked = ~adm_g.admitted
         dense.index_add_(0, batch.e_rows[:, 1][blocked].long(), batch.e_acquire[blocked])
+        fa = lambda: flush.flow_admission(stats, table, batch, 8)
         results["flow_admission"].update(
-            ms=time_ms(lambda: flush.flow_admission(stats, table, batch, 8)),
+            ms=time_ms(fa),
             plain_ms=time_ms(lambda: flush.flow_admission_plain(stats, table, batch, 8)),
             library_ms=time_ms(lambda: torch.topk(dense, 8)),
             library_call="torch.topk(k=8) over the [R] blocked weights (the top-K step only)",
-            shape=f"N={N} entries x K=1 slot, R={R} rows, top-8",
-            # Per slot: gid, check row, ts, the gathered pass sum and thread
-            # gauge, the rule's grade/count/behavior; per entry: valid,
-            # auth, cluster flags, acquire, 4 rows; out: slot_ok, flow_pass,
-            # admitted, reason, the top-8.
-            bound=bound(nk * (4 + 4 + 4 + 4 + 4 + 12) + N * (3 + 4 + 16) + nk + N * 6 + 64,
-                        ops=nk * 4),
+            shape=f"N={N} entries x K=1 slot, R={R} rows, top-8; ms_32768 at the first 32,768 entries, "
+                  "small_ms at the first 8",
+            bound=bound(fa_bytes(N, nk), ops=nk * 4),
         )
+        # The same rows at the engine's 32,768-entry flushes and at the 8
+        # entries st.entry sends (the one-block route), against the plain
+        # version; device kernels and memsets a call from the profiler.
+        launches, memsets, dev_ms = profile(fa, f"phase 2: the flow admission at N={N}")
+        b32, b8 = sub_batch(batch, 32768), sub_batch(batch, 8)
+        for b_, n_ in ((b32, 32768), (b8, 8)):
+            err4 = max(err4, require_equal(flush.flow_admission_plain(stats, table, b_, 8),
+                                           flush.flow_admission(stats, table, b_, 8), f"flow_admission (N={n_})"))
+        small = lambda: flush.flow_admission(stats, table, b8, 8)
+        s_launches, s_memsets, s_dev = profile(small, "phase 2: the flow admission at N=8")
+        results["flow_admission"].update(
+            max_abs_err=err4, launches_per_call=launches, memsets_per_call=memsets, device_ms=dev_ms,
+            ms_32768=time_ms(lambda: flush.flow_admission(stats, table, b32, 8)), small_ms=time_ms(small),
+            small_launches_per_call=s_launches, small_memsets_per_call=s_memsets, small_device_ms=s_dev,
+            small_bound_ms=bound(fa_bytes(8, 8), ops=8 * 4)[0],
+        )
+        r4 = results["flow_admission"]
+        log(f"  K4 at N={N}: {r4['ms']:.4f} ms a call, {launches} device kernels, {memsets} memsets, "
+            f"{dev_ms:.4f} ms of device time; N=32,768: {r4['ms_32768']:.4f} ms; N=8: {r4['small_ms']:.4f} ms, "
+            f"{s_launches} kernels, {s_memsets} memsets, {s_dev:.4f} ms of device time (profiler)")
+        if (s_launches, s_memsets) != (1, 0):
+            fail(f"phase 2: K4 at N=8 issued {s_launches} kernels and {s_memsets} memsets in one call")
 
         cfg = nodes.MINUTE_CFG
         st_ = stats.minute
@@ -713,6 +752,25 @@ def phase2_chain(results: dict) -> None:
                 results[name].update(ms=k_ms, plain_ms=p_ms, **info[name])
             else:
                 results[name].update(zipf_ms=k_ms, zipf_plain_ms=p_ms)
+        if not skewed:
+            # K4's slot-chain route with occupy: kernels and memsets a call,
+            # at N and at the 8 entries st.entry sends (one block).
+            occ = lambda b_, l_: flush.flow_admission(stats, table, b_, 0, l_, 500, True, False)
+            launches, memsets, dev_ms = profile(lambda: occ(batch, live), f"phase 2b: K4 with occupy at N={N}")
+            b8, l8 = sub_batch(batch, 8), live[:8]
+            err = require_equal(flush.flow_admission_plain(stats, table, b8, 0, l8, 500, True, False), occ(b8, l8),
+                                "flow_admission with occupy (N=8)")
+            s_launches, s_memsets, s_dev = profile(lambda: occ(b8, l8), "phase 2b: K4 with occupy at N=8")
+            results["flow_admission_occupy"].update(
+                launches_per_call=launches, memsets_per_call=memsets, device_ms=dev_ms,
+                small_ms=time_ms(lambda: occ(b8, l8)), small_launches_per_call=s_launches,
+                small_memsets_per_call=s_memsets, small_device_ms=s_dev,
+                max_abs_err=max(results["flow_admission_occupy"].get("max_abs_err", 0), err))
+            log(f"    flow_admission_occupy: {launches} device kernels, {memsets} memsets, {dev_ms:.4f} ms of "
+                f"device time a call; N=8: {results['flow_admission_occupy']['small_ms']:.4f} ms, {s_launches} "
+                f"kernels, {s_memsets} memsets, {s_dev:.4f} ms of device time (profiler)")
+            if (s_launches, s_memsets) != (1, 0):
+                fail(f"phase 2b: K4 with occupy at N=8 issued {s_launches} kernels and {s_memsets} memsets")
         del stats, batch, ddev, dyn, dyn_x, dyn_s, slab_s, adm, adm0, v, wv
         torch.cuda.empty_cache()
 
@@ -979,6 +1037,25 @@ def phase2_shaping_param(results: dict, cpu_jobs: dict) -> None:
     for name in ("run_shaping", "shaping_inputs", "run_param"):
         log(f"    {name}: {results[name]['ms']:.4f} ms, plain {results[name]['plain_ms']:.4f} ms, "
             f"bound {results[name]['bound'][0]:.5f} ms ({results[name]['shape']})")
+    # K10's kernels and memsets a call, at the mixed shape and at the 8 items
+    # st.entry sends (the one-block route, against the plain version).
+    launches, memsets, dev_ms = profile(lambda: tpt.run_param(pd_s, pb, mx["p_rounds"]),
+                                        f"phase 2c: K10 at S={S_P}")
+    pb8 = pb._replace(**{f: getattr(pb, f)[:8] for f in tpt.ParamBatch._fields[:12]})
+    _, err = check_param("s=8", mx["pdyn"], pb8, 0)
+    errs["run_param"] = max(errs["run_param"], err)
+    small = lambda: tpt.run_param(pd_s, pb8, 0)
+    s_launches, s_memsets, s_dev = profile(small, "phase 2c: K10 at s=8")
+    results["run_param"].update(
+        launches_per_call=launches, memsets_per_call=memsets, device_ms=dev_ms, small_ms=time_ms(small),
+        small_launches_per_call=s_launches, small_memsets_per_call=s_memsets, small_device_ms=s_dev,
+        small_bound_ms=bound(8 * (1 + 4 * 10 + 1 + 4) + 8 * (16 + 12), ops=8 * 30)[0],
+    )
+    log(f"    run_param: {launches} device kernels, {memsets} memsets, {dev_ms:.4f} ms of device time a call; "
+        f"s=8: {results['run_param']['small_ms']:.4f} ms, {s_launches} kernels, {s_memsets} memsets, "
+        f"{s_dev:.4f} ms of device time (profiler)")
+    if (s_launches, s_memsets) != (1, 0):
+        fail(f"phase 2c: K10 at s=8 issued {s_launches} kernels and {s_memsets} memsets in one call")
     del stats, adm, inputs, dyn_s, pd_s
     torch.cuda.empty_cache()
 
@@ -1243,8 +1320,9 @@ STEPS = 40  # 100 ms each: 4 simulated seconds
 
 
 def drive_engine(device: torch.device, seed: int):
-    """One stream on one engine; returns (records, final state, seconds per
-    bulk flush)."""
+    """One stream on one engine; returns (records, final state, blocked
+    top-K, seconds per bulk flush, entries admitted, K3 launches of the
+    stats reads)."""
     clock = tclock.ManualClock(0)
     api.reset(clock=clock, device=device)
     st.flow_rule_manager.load_rules([st.FlowRule(f"r{i}", count=20) for i in range(N_RULES)])
@@ -1255,7 +1333,7 @@ def drive_engine(device: torch.device, seed: int):
     records = []
     prev_groups = []
     flush_s = 0.0
-    admitted = 0
+    admitted = read_launches = 0
     for step in range(STEPS):
         now = 1000 + step * 100
         clock.set_ms(now)
@@ -1281,6 +1359,11 @@ def drive_engine(device: torch.device, seed: int):
         records.append(np.concatenate([g.reason for g in groups]))
         admitted += int(records[-2].sum())
         prev_groups = groups
+        if step % 10 == 9:  # windowed reads (K3 with a row gather): a path of their own, off the flush
+            ma.window_reduce.launches = 0
+            records.append(np.array([json.dumps(eng.cluster_node_stats(r, flush=False), sort_keys=True)
+                                     for r in ("r0", "r7", "r123")]))
+            read_launches += ma.window_reduce.launches
         for r in ("r0", "r1", "r7"):
             clock.set_ms(now + 50)
             try:
@@ -1293,7 +1376,7 @@ def drive_engine(device: torch.device, seed: int):
     eng.flush()
     final = nodes.stats_to_numpy(eng.stats)
     blk = eng.last_blocked_topk
-    return records, final, blk, flush_s / STEPS, admitted
+    return records, final, blk, flush_s / STEPS, admitted, read_launches
 
 
 def phase4(results: dict, cpu_jobs: dict) -> None:
@@ -1303,12 +1386,11 @@ def phase4(results: dict, cpu_jobs: dict) -> None:
         "materialize_matured": nodes.materialize_matured,
         "window_update": ma.update,
         "thread_gauge": nodes.thread_gauge_add,
-        "window_sums": ma.window_reduce,
         "flow_admission": flush.flow_admission,
     }
     for w in wrappers.values():
         w.launches = 0
-    gpu_records, gpu_state, gpu_blk, gpu_flush_s, admitted = drive_engine(DEV, seed=4)
+    gpu_records, gpu_state, gpu_blk, gpu_flush_s, admitted, read_launches = drive_engine(DEV, seed=4)
     counts = {name: w.launches for name, w in wrappers.items()}
     log(f"  card: {gpu_flush_s * 1e3:.3f} ms per 32,768-entry flush call "
         f"({FLUSH_N / gpu_flush_s:,.0f} entries/s, host encode and verdict copy included)")
@@ -1317,7 +1399,14 @@ def phase4(results: dict, cpu_jobs: dict) -> None:
         if c <= 0:
             fail(f"kernel {name} was not launched on the main path")
         results[name]["launches"] = c
-    cpu_records, cpu_state, cpu_blk, cpu_flush_s, _ = cpu_result(cpu_jobs, "4")
+    # K3 is off the flush path (K4 reads the window itself); its launches
+    # come from the stats reads, counted from 0 around each read.
+    log(f"  launches of window_sums on the stats reads (cluster_node_stats, 3 resources every tenth flush, "
+        f"off the flush path): {read_launches}")
+    if read_launches <= 0:
+        fail("kernel window_sums was not launched by the stats reads")
+    results["window_sums"]["launches"] = read_launches
+    cpu_records, cpu_state, cpu_blk, cpu_flush_s, _, _ = cpu_result(cpu_jobs, "4")
     log(f"  CPU engine (plain versions, in a worker process): {cpu_flush_s * 1e3:.3f} ms per flush call")
     if len(gpu_records) != len(cpu_records) or any(
         not np.array_equal(a, b) for a, b in zip(gpu_records, cpu_records)
@@ -1440,7 +1529,7 @@ def phase4_chain(results: dict, cpu_jobs: dict) -> None:
     # bumped only by the launches that run it.
     counters = {
         "materialize_matured": (nodes.materialize_matured, "launches"), "window_update": (ma.update, "launches"),
-        "thread_gauge": (nodes.thread_gauge_add, "launches"), "window_sums": (ma.window_reduce, "launches"),
+        "thread_gauge": (nodes.thread_gauge_add, "launches"),
         "flow_admission_occupy": (flush.flow_admission, "occupy_launches"),
         "commit_borrow_slab": (flush.commit_borrow_slab, "launches"),
         "system_check": (flush.system_check, "launches"), "breaker_on_exits": (tdt.breaker_on_exits, "launches"),
@@ -1622,7 +1711,7 @@ def phase4_shaping(results: dict, cpu_jobs: dict) -> None:
         f"gateway args columns)")
     counters = {
         "materialize_matured": nodes.materialize_matured, "window_update": ma.update,
-        "thread_gauge": nodes.thread_gauge_add, "window_sums": ma.window_reduce,
+        "thread_gauge": nodes.thread_gauge_add,
         "flow_admission": flush.flow_admission, "slot_chain_verdict": flush.slot_chain_verdict,
         "shaping_inputs": tsh.shaping_inputs, "run_shaping": tsh.run_shaping, "run_param": tpt.run_param,
     }
@@ -2783,7 +2872,7 @@ def main() -> None:
         for extra in ("library_call", "zipf_ms", "zipf_plain_ms", "heavy_ms", "index_add_ms", "widened_ms",
                       "ties_ms", "borrow_ms", "mixed_k2_ms", "launches_per_call", "memsets_per_call", "device_ms",
                       "small_ms", "small_launches_per_call", "small_memsets_per_call", "small_device_ms",
-                      "small_bound_ms"):
+                      "small_bound_ms", "ms_32768"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

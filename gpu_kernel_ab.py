@@ -1,24 +1,33 @@
-"""Times the window update (K2) and the token decision (K12) of one
-checkout of sentinel_tpu_torch on the card, so that two commits can be
-compared on one card in alternating runs:
+"""Times the window update (K2), the flow admission (K4), the hot-parameter
+recurrence (K10) and the token decision (K12) of one checkout of
+sentinel_tpu_torch on the card, so that two commits can be compared on
+one card in alternating runs:
 
     python3 gpu_kernel_ab.py --root path/to/checkout [--tag name]
 
-It builds that checkout's window_update and token_decide kernels, then
-times, with CUDA events around back-to-back calls (gpu_timing.time_ms):
+It builds that checkout's kernels, then times, with CUDA events around
+back-to-back calls (gpu_timing.time_ms):
 
 - K2: 524,288 entry updates (uniform rows, 90% masked in, the last 100 ms
   of clock) into the minute window [1,048,576, 60, 6];
+- K4: the DEFAULT path with its tail and top-8 at 131,072 and at 8 entries
+  (K = 1, uniform rows, ts over 400 ms) against 1,048,576 QPS rules of
+  count 20 and their rows' second windows;
+- K10: chip_smoke.py's mixed shape (32,768 QPS items over 16,384 value
+  rows, token count 100, the engine's rounds bound) and its first 8 items;
 - K12: batches of 16,384 and of 8 Zipf(1.1) requests over 65,536 flows in
   16 namespaces, on a token server's state after 20 batches.
 
-Inputs are made here from fixed seeds, the same for every checkout; the
-token batches are chip_smoke.py's (gpu_timing.token_batch). Each call's
-device kernels, memsets and device time are read from torch.profiler over
-20 calls; the script fails if the profiler reads no kernel. Prints one
-JSON line that carries the card's name and power limit. Needs CUDA;
-imports no JAX. The helpers come from the gpu_timing.py beside this
-script, whichever checkout it times.
+Inputs are made here from fixed seeds, the same for every checkout, only
+through long-standing functions of the package (batch_from_numpy,
+flow_table_from_numpy, the state tuples, make_param_state); the token
+batches are chip_smoke.py's (gpu_timing.token_batch). Each call's device
+kernels, memsets and device time are read from torch.profiler over 20
+calls, and for K4 and K10 at full size the device us a call by kernel
+(k4_kernel_us, k10_kernel_us); the script fails if the profiler reads no
+kernel. Prints one JSON line that carries the card's name and power
+limit. Needs CUDA; imports no JAX. The helpers come from the
+gpu_timing.py beside this script, whichever checkout it times.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ import sys
 import numpy as np
 import torch
 
-from gpu_timing import TD_B, TD_FLOWS, TD_NS, device_profile, time_ms, token_batch
+from gpu_timing import TD_B, TD_FLOWS, TD_NS, device_profile, kernel_times, time_ms, token_batch
 
 
 def card_line() -> str:
@@ -53,9 +62,13 @@ def main() -> None:
     from sentinel_tpu_torch.metrics import metric_array as ma
     from sentinel_tpu_torch.metrics import nodes
     from sentinel_tpu_torch.metrics.events import NUM_EVENTS
+    from sentinel_tpu_torch.rules import param_table as tpt
+    from sentinel_tpu_torch.rules.flow_table import flow_table_from_numpy
+    from sentinel_tpu_torch.runtime import flush
+    from sentinel_tpu_torch.runtime.engine import _rounds_bucket
     from sentinel_tpu_torch.utils import cuda_build
 
-    cuda_build.build_all(["window_update", "token_decide"])
+    cuda_build.build_all(["window_update", "token_decide", "flow_admission", "param_scan"])
     dev = torch.device("cuda", 0)
     i32 = torch.int32
     out = {"tag": args.tag, "root": args.root, "card": card_line(), "torch": torch.__version__}
@@ -82,6 +95,68 @@ def main() -> None:
     out["k2_ms"] = time_ms(k2, iters=20)
     out["k2_launches_per_call"], out["k2_memsets_per_call"], out["k2_device_ms"] = device_profile(k2)
     del state
+    torch.cuda.empty_cache()
+
+    # K4: 131,072 entries (and their first 8) against 1,048,576 rules.
+    def profiled(name, fn):
+        out[f"{name}_ms"] = time_ms(fn)
+        out[f"{name}_launches_per_call"], out[f"{name}_memsets_per_call"], out[f"{name}_device_ms"] = (
+            device_profile(fn))
+
+    gen.manual_seed(4)
+    scfg, n, now = nodes.SECOND_CFG, 1 << 17, 1_000_000
+    b, wlen = scfg.sample_count, scfg.window_len_ms
+    age = torch.randint(-1, 2 * b + 2, (rows_n, b), generator=gen, device=dev, dtype=i32)
+    ws = (now - now % wlen) - age * wlen
+    second = ma.MetricArrayState(
+        torch.randint(0, 40, (rows_n, b, NUM_EVENTS), generator=gen, device=dev, dtype=i32),
+        torch.randint(1, scfg.max_rt + 1, (rows_n, b), generator=gen, device=dev, dtype=i32),
+        torch.where((age < 0) | (ws < 0), torch.full_like(ws, scfg.empty_ws), ws).to(i32).contiguous(),
+    )
+    # K4 reads the second window, the gauge and the slab; the minute window
+    # is not read, so the second one stands in for it.
+    stats = nodes.StatsState(second, second, torch.randint(0, 4, (rows_n,), generator=gen, device=dev, dtype=i32),
+                             torch.zeros((rows_n, b), device=dev, dtype=i32),
+                             torch.full((rows_n, b), scfg.empty_ws, device=dev, dtype=i32))
+    z = np.zeros(rows_n, np.int32)
+    table, _ = flow_table_from_numpy(
+        (np.ones(rows_n, np.int32), np.full(rows_n, 20.0, np.float32), z, z, np.full(rows_n, 50, np.int32), z, z,
+         np.zeros(rows_n, np.float32), z), None, dev)
+    rng4 = np.random.default_rng(4)
+    res = rng4.integers(0, rows_n, n).astype(np.int32)
+    m = 8
+    batch = flush.batch_from_numpy((
+        np.int32(now), np.ones(n, bool), np.sort(rng4.integers(0, 400, n)).astype(np.int32) + now - 400,
+        np.ones(n, np.int32), np.stack([res, res, np.full(n, -1), np.zeros(n)], axis=1).astype(np.int32),
+        res[:, None].copy(), res[:, None].copy(), np.zeros(n, bool), np.ones(n, bool), np.ones(n, bool),
+        np.full((n, 1), -1, np.int32), np.zeros(m, bool), np.full(m, now, np.int32), np.ones(m, np.int32),
+        np.full((m, 4), -1, np.int32), np.zeros(m, np.int32), np.zeros(m, np.int32), np.zeros(m, np.int32),
+        np.full((m, 1), -1, np.int32)), dev)
+    small = batch._replace(**{f: getattr(batch, f)[:8] for f in batch._fields if f.startswith("e_")})
+    profiled("k4", lambda: flush.flow_admission(stats, table, batch, 8))
+    out["k4_kernel_us"] = kernel_times(lambda: flush.flow_admission(stats, table, batch, 8))
+    profiled("k4_small", lambda: flush.flow_admission(stats, table, small, 8))
+    del stats, second, table, batch, small
+    torch.cuda.empty_cache()
+
+    # K10: chip_smoke.py's mixed shape, 32,768 items over 16,384 rows.
+    rng10 = np.random.default_rng(10)
+    s, p_rows = 1 << 15, 1 << 14
+    prow = rng10.integers(0, p_rows, s).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+    pb = tpt.ParamBatch(
+        valid=torch.ones(s, dtype=torch.bool, device=dev), prow=t(prow), eidx=t(np.arange(s) * 4),
+        ts=t(np.sort(now - 400 + rng10.integers(0, 400, s))), acquire=t(np.ones(s)), grade=t(np.ones(s)),
+        behavior=t(np.zeros(s)), token_count=t(np.full(s, 100)), burst=t(np.zeros(s)),
+        duration_ms=t(np.full(s, 1000)), maxq=t(np.zeros(s)), cost_ms=t(np.zeros(s)), reset_rows=t(np.full(8, -1)),
+        exit_rows=t(np.full(8, -1)))
+    pdyn = tpt.make_param_state(p_rows, dev)
+    rounds = _rounds_bucket(prow)
+    pb8 = pb._replace(**{f: getattr(pb, f)[:8] for f in tpt.ParamBatch._fields[:12]})
+    profiled("k10", lambda: tpt.run_param(pdyn, pb, rounds))
+    out["k10_kernel_us"] = kernel_times(lambda: tpt.run_param(pdyn, pb, rounds))
+    profiled("k10_small", lambda: tpt.run_param(pdyn, pb8, 0))
+    del pb, pdyn, pb8
     torch.cuda.empty_cache()
 
     # K12: a token server's state, 65,536 flows in 16 namespaces.

@@ -29,14 +29,12 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, calls: int = 20, tries: int = 3):
-    """(kernels, memsets, device ms) of one call of ``fn``, from
-    torch.profiler (CUPTI) over ``calls`` calls: for each kernel or memset
-    name, its count over ``calls`` rounded up (in a long process a session
-    was seen to miss a few of its first events), and their mean device
-    time. Copies are not counted. A session that records no kernel is
-    repeated, up to ``tries`` sessions; then RuntimeError, so that a count
-    that was never read cannot stand for one."""
+def _device_events(fn, calls: int, tries: int) -> dict:
+    """Device time (us) of every kernel or memset launch, by name, over
+    ``calls`` calls of ``fn`` in one torch.profiler (CUPTI) session; copies
+    are left out. A session that records no kernel is repeated, up to
+    ``tries`` sessions; then RuntimeError, so that a count that was never
+    read cannot stand for one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -53,12 +51,32 @@ def device_profile(fn, calls: int = 20, tries: int = 3):
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and not e.name.lower().startswith("memcpy"):
                 per_name.setdefault(e.name, []).append(e.device_time_total)
-        per_call = {name: -(-len(us) // calls) for name, us in per_name.items()}
-        memsets = sum(n for name, n in per_call.items() if name.lower().startswith("memset"))
-        kernels = sum(per_call.values()) - memsets
-        if kernels > 0:
-            return kernels, memsets, sum(per_call[n] * sum(us) / len(us) for n, us in per_name.items()) / 1e3
+        if any(not name.lower().startswith("memset") for name in per_name):
+            return per_name
     raise RuntimeError(f"torch.profiler recorded no device kernel in {tries} sessions of {calls} calls")
+
+
+def device_profile(fn, calls: int = 20, tries: int = 3):
+    """(kernels, memsets, device ms) of one call of ``fn``, from
+    torch.profiler over ``calls`` calls: for each kernel or memset name,
+    its count over ``calls`` rounded up (in a long process a session was
+    seen to miss a few of its first events), and their mean device time."""
+    per_name = _device_events(fn, calls, tries)
+    per_call = {name: -(-len(us) // calls) for name, us in per_name.items()}
+    memsets = sum(n for name, n in per_call.items() if name.lower().startswith("memset"))
+    kernels = sum(per_call.values()) - memsets
+    return kernels, memsets, sum(per_call[n] * sum(us) / len(us) for n, us in per_name.items()) / 1e3
+
+
+def kernel_times(fn, calls: int = 20, tries: int = 3) -> dict:
+    """Device us a call of ``fn`` by kernel, the name cut to its function
+    ("fa_topk", "DeviceRadixSortOnesweepKernel", "Memset"), largest first."""
+    out = {}
+    for name, us in _device_events(fn, calls, tries).items():
+        bare = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        short = bare.split("(")[0].split("<")[0].split("::")[-1].strip() or name
+        out[short] = out.get(short, 0.0) + sum(us) / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def token_batch(rng, counts: np.ndarray, device, b: int = TD_B, wrap: bool = False):

@@ -164,28 +164,8 @@ def batch_decide_plain(state, rows, ns_rows, acquire, thresholds, ns_thresholds,
     return torch.stack([admitted.to(torch.int32), ns_ok.to(torch.int32), next_remaining.view(torch.int32)])
 
 
-class Workspace:
-    """Scratch bytes for K12's many-block route on one stream, kept between
-    calls and grown by doubling. Calls on the stream run in order, and a
-    buffer dropped by a grow is reused only by later work on the same
-    stream (the caching allocator's stream order), so no call races
-    another on its scratch."""
-
-    def __init__(self, device: torch.device) -> None:
-        self.device = device
-        self._buf: Optional[torch.Tensor] = None
-
-    def get(self, nbytes: int) -> torch.Tensor:
-        have = 0 if self._buf is None else self._buf.numel()
-        if have < nbytes:
-            self._buf = torch.empty(max(nbytes, 2 * have), dtype=torch.uint8, device=self.device)
-        return self._buf
-
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_WORKSPACES: Dict[Tuple[torch.device, int], Workspace] = {}  # (device, stream handle) -> its scratch
-_WS_BYTES: Dict[int, int] = {}  # batch size -> bytes of workspace the kernel needs
 
 
 def _td_lib() -> ctypes.CDLL:
@@ -215,22 +195,18 @@ def _batch_decide_cuda(state, rows, ns_rows, acquire, thresholds, ns_thresholds,
     lib = _td_lib()
     dev = rows.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    need = _WS_BYTES.get(b)
-    if need is None:
-        need = _WS_BYTES[b] = int(lib.token_decide_workspace(b))
-    buf = _WORKSPACES.setdefault((dev, stream), Workspace(dev)).get(need) if need > 0 else None
     out = torch.empty((3, b), dtype=torch.int32, device=dev)
     cfg = CLUSTER_CFG
-    cuda_build.check(
-        lib.token_decide(
-            rows.data_ptr(), ns_rows.data_ptr(), acquire.data_ptr(), thresholds.data_ptr(),
-            ns_thresholds.data_ptr(), valid.data_ptr(), b, int(now), cfg.interval_ms, cfg.interval_ms / 1000.0,
-            int(atomic), state.counts.data_ptr(), state.min_rt.data_ptr(), state.window_start.data_ptr(),
-            state.n_rows, cfg.sample_count, cfg.window_len_ms, cfg.max_rt, out.data_ptr(),
-            None if buf is None else buf.data_ptr(), 0 if buf is None else buf.numel(), stream,
-        ),
-        "token_decide",
-    )
+    with cuda_build.scratch(dev, stream, int(lib.token_decide_workspace(b))) as (buf, size, _):
+        cuda_build.check(
+            lib.token_decide(
+                rows.data_ptr(), ns_rows.data_ptr(), acquire.data_ptr(), thresholds.data_ptr(),
+                ns_thresholds.data_ptr(), valid.data_ptr(), b, int(now), cfg.interval_ms, cfg.interval_ms / 1000.0,
+                int(atomic), state.counts.data_ptr(), state.min_rt.data_ptr(), state.window_start.data_ptr(),
+                state.n_rows, cfg.sample_count, cfg.window_len_ms, cfg.max_rt, out.data_ptr(), buf, size, stream,
+            ),
+            "token_decide",
+        )
     batch_decide.launches += 1
     return out
 

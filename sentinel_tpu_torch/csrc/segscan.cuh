@@ -1,7 +1,8 @@
 // Shared device code of the port's kernels: wrapping int32 arithmetic,
 // the three-phase block scan over int2 pairs (block totals, one block
 // scanning the totals, block scan plus carry), segment-head search and
-// floor division. Included by flow_admission.cu and breaker_on_exits.cu;
+// floor division. Included by breaker_on_exits.cu, mesh_budget.cu and
+// shaping_scan.cu, and through lookback.cuh and bitonic.cuh by K4, K10, K12;
 // each source builds into its own library, so everything here is local
 // to the including file.
 //
@@ -194,5 +195,11 @@ __device__ __forceinline__ int lower_bound(const T* __restrict__ a, int n, T key
 
 inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
 inline int tiles_for(int n) { return (n + TILE - 1) / TILE; }
+inline int bits_for(long long v) {  // bits to hold 0..v (a radix sort's end_bit)
+  int n = 1;
+  while ((1ll << n) <= v) ++n;
+  return n;
+}
+inline size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }  // workspace offsets
 
 }  // namespace

@@ -43,7 +43,8 @@
 
 #include <cub/device/device_radix_sort.cuh>
 
-#include "segscan.cuh"
+#include "bitonic.cuh"
+#include "lookback.cuh"
 #include "window_update.cuh"
 
 namespace {
@@ -51,10 +52,6 @@ namespace {
 constexpr int PASS = 0;  // MetricEvent.PASS
 constexpr int SMALL_MAX = 2048;
 constexpr int SMALL_IPT = SMALL_MAX / THREADS;
-constexpr unsigned long long SENTINEL = ~0ull;
-constexpr unsigned long long AGG = 1ull << 32, INC = 2ull << 32;  // look-back status flags
-
-using u64 = unsigned long long;
 
 struct Batch {
   const int* rows;
@@ -94,90 +91,6 @@ __device__ __forceinline__ float flow_remaining(const Batch& a, int pos, int sum
   return __fsub_rn(__fsub_rn(a.thr[pos], latest), __int2float_rn(a.acquire[pos]));
 }
 
-// Carry-ins of a block's scans: none for the one-block route.
-struct NoCarry {
-  __device__ int sum_in(int) { return 0; }
-  __device__ int max_in(int) { return INT_MIN; }
-};
-
-// Decoupled look-back over per-tile status words (flag in the high half,
-// the value's bits in the low half, one 64-bit store each). Tiles are
-// numbered in the order blocks start, so a tile waits only on tiles whose
-// blocks already run.
-struct LookBack {
-  u64* st_sum;
-  u64* st_max;
-  int tile;
-
-  __device__ static u64 load(const u64* p) { return *(volatile const u64*)p; }
-  __device__ static void store(u64* p, u64 flag, int v) { atomicExch(p, flag | (unsigned)v); }
-
-  template <bool SUM>
-  __device__ int walk(u64* st, int total) {
-    if (tile == 0) {
-      store(st, INC, total);
-      return SUM ? 0 : INT_MIN;
-    }
-    store(st + tile, AGG, total);
-    int acc = SUM ? 0 : INT_MIN;
-    for (int j = tile - 1;; --j) {
-      u64 w;
-      do {
-        w = load(st + j);
-      } while ((w >> 32) == 0);
-      int v = (int)(unsigned)w;
-      acc = SUM ? wrap_add(acc, v) : max(acc, v);
-      if ((w & ~0xFFFFFFFFull) == INC) break;
-    }
-    store(st + tile, INC, SUM ? wrap_add(acc, total) : max(acc, total));
-    return acc;
-  }
-  __device__ int sum_in(int total) { return walk<true>(st_sum, total); }
-  __device__ int max_in(int total) { return walk<false>(st_max, total); }
-};
-
-// The charges of this thread's `cnt` consecutive sorted items (all threads
-// of the block call it): the wrapping exclusive sum of `acq` minus the
-// running max of the group-start snapshots, JAX's excl - cummax(where(head,
-// excl, 0)). Padding items have acq 0 and no head.
-template <int MAXI, class Carry>
-__device__ void charges(int cnt, const int (&acq)[MAXI], const bool (&head)[MAXI], int (&charge)[MAXI], Carry& carry) {
-  __shared__ int2 warp_tot[NWARPS];
-  __shared__ int bcast;
-  int2 total;
-  int local = 0;
-#pragma unroll
-  for (int k = 0; k < MAXI; ++k)
-    if (k < cnt) local = wrap_add(local, acq[k]);
-  int2 ex = block_exclusive_scan<SumOp>(make_int2(local, 0), warp_tot, total);
-  if (threadIdx.x == 0) bcast = carry.sum_in(total.x);
-  __syncthreads();
-  int run = wrap_add(bcast, ex.x);
-  int excl[MAXI];
-  int snap_max = INT_MIN;
-#pragma unroll
-  for (int k = 0; k < MAXI; ++k) {
-    if (k < cnt) {
-      excl[k] = run;
-      run = wrap_add(run, acq[k]);
-      snap_max = max(snap_max, head[k] ? excl[k] : 0);
-    }
-  }
-  __syncthreads();  // bcast is read by every thread before it is written again
-  int2 mx = block_exclusive_scan<MaxOp>(make_int2(snap_max, 0), warp_tot, total);
-  if (threadIdx.x == 0) bcast = carry.max_in(total.x);
-  __syncthreads();
-  int m = max(bcast, mx.x);
-#pragma unroll
-  for (int k = 0; k < MAXI; ++k) {
-    if (k < cnt) {
-      m = max(m, head[k] ? excl[k] : 0);
-      charge[k] = wrap_sub(excl[k], m);
-    }
-  }
-  __syncthreads();
-}
-
 // The commit of request i's two updates (u < b: its flow row, else its
 // namespace row), as JAX masks them: rows >= n_rows (the dump) drop, the
 // rest are clamped into range.
@@ -196,24 +109,6 @@ __device__ __forceinline__ void commit_add(const wu::Window& s, const Batch& a, 
 // ---------------------------------------------------------------------------
 // one block: B <= SMALL_MAX
 // ---------------------------------------------------------------------------
-
-__device__ void bitonic_sort(u64* key, int p) {
-  for (int k = 2; k <= p; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < p; i += THREADS) {
-        int ixj = i ^ j;
-        if (ixj > i) {
-          u64 x = key[i], y = key[ixj];
-          if ((x > y) == ((i & k) == 0)) {
-            key[i] = y;
-            key[ixj] = x;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
 
 __global__ void __launch_bounds__(THREADS) td_small(Batch a, wu::Window s) {
   __shared__ u64 key[SMALL_MAX];
@@ -240,32 +135,33 @@ __global__ void __launch_bounds__(THREADS) td_small(Batch a, wu::Window s) {
   NoCarry none;
   for (int stage = 0; stage < 2; ++stage) {
     bitonic_sort(key, p);
-    int acq[SMALL_IPT], charge[SMALL_IPT], pos[SMALL_IPT];
+    int2 acq[SMALL_IPT], charge[SMALL_IPT];
+    int pos[SMALL_IPT];
     bool head[SMALL_IPT];
 #pragma unroll
     for (int k = 0; k < SMALL_IPT; ++k) {
       int j = threadIdx.x * ipt + k;
-      acq[k] = 0;
+      acq[k] = make_int2(0, 0);
       head[k] = false;
       pos[k] = -1;
       if (k < ipt && j < b) {
         u64 kj = key[j];
         pos[k] = key_pos(kj, a.pbits);
-        acq[k] = a.acquire[pos[k]];
+        acq[k].x = a.acquire[pos[k]];
         head[k] = j == 0 || key_group(key[j - 1], a.pbits) != key_group(kj, a.pbits);
       }
     }
-    charges<SMALL_IPT>(ipt, acq, head, charge, none);
+    charges<SMALL_IPT, 1>(ipt, acq, head, charge, none);
 #pragma unroll
     for (int k = 0; k < SMALL_IPT; ++k) {
       int q = pos[k];
       if (q < 0) continue;
       if (stage == 0) {
-        bool ok = ns_admits(a, q, sum_n[q], charge[k]);
+        bool ok = ns_admits(a, q, sum_n[q], charge[k].x);
         ns_ok[q] = ok;
         a.out[b + q] = ok;
       } else {
-        float rem = flow_remaining(a, q, sum_f[q], charge[k]);
+        float rem = flow_remaining(a, q, sum_f[q], charge[k].x);
         bool ad = a.valid[q] && ns_ok[q] && rem >= 0.0f;
         adm[q] = ad;
         a.out[q] = ad;
@@ -320,38 +216,39 @@ __global__ void td_prep(Batch a, wu::Window s, int* sum_f, int* sum_n, u64* key,
 template <int STAGE>
 __global__ void __launch_bounds__(THREADS)
     td_stage(Batch a, int n_rows, const u64* __restrict__ key_s, const int* __restrict__ sum, u64* next_key,
-             u64* st_sum, u64* st_max, int* ctl) {
+             u64* status, int nt, int* ctl) {
   __shared__ int s_tile;
   if (threadIdx.x == 0) s_tile = atomicAdd(&ctl[STAGE], 1);
   __syncthreads();
-  LookBack lb{st_sum, st_max, s_tile};
-  int acq[IPT], charge[IPT], pos[IPT];
+  LookBack<1> lb{status, nt, s_tile, 2 * STAGE};
+  int2 acq[IPT], charge[IPT];
+  int pos[IPT];
   bool head[IPT];
   int base = s_tile * TILE + threadIdx.x * IPT;
 #pragma unroll
   for (int k = 0; k < IPT; ++k) {
     int j = base + k;
-    acq[k] = 0;
+    acq[k] = make_int2(0, 0);
     head[k] = false;
     pos[k] = -1;
     if (j < a.b) {
       u64 kj = key_s[j];
       pos[k] = key_pos(kj, a.pbits);
-      acq[k] = a.acquire[pos[k]];
+      acq[k].x = a.acquire[pos[k]];
       head[k] = j == 0 || key_group(key_s[j - 1], a.pbits) != key_group(kj, a.pbits);
     }
   }
-  charges<IPT>(IPT, acq, head, charge, lb);
+  charges<IPT, 1>(IPT, acq, head, charge, lb);
 #pragma unroll
   for (int k = 0; k < IPT; ++k) {
     int q = pos[k];
     if (q < 0) continue;
     if (STAGE == 0) {
-      bool ok = ns_admits(a, q, sum[q], charge[k]);
+      bool ok = ns_admits(a, q, sum[q], charge[k].x);
       a.out[a.b + q] = ok;
       next_key[q] = pack_key((a.valid[q] && ok) ? a.rows[q] : n_rows, q, a.pbits);
     } else {
-      float rem = flow_remaining(a, q, sum[q], charge[k]);
+      float rem = flow_remaining(a, q, sum[q], charge[k].x);
       bool ad = a.valid[q] && a.out[a.b + q] && rem >= 0.0f;
       a.out[q] = ad;
       a.out[2 * a.b + q] = __float_as_int(rem);
@@ -373,14 +270,6 @@ __global__ void td_commit_add(Batch a, wu::Window s, const int* ctl) {
   int cell = u < 2 * a.b ? commit_cell(s, a, u, a.out[u < a.b ? u : u - a.b] && all) : -1;
   commit_add(s, a, u, cell);
 }
-
-inline int bits_for(long long v) {  // bits to hold 0..v
-  int n = 1;
-  while ((1ll << n) <= v) ++n;
-  return n;
-}
-
-inline size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }
 
 // Workspace of the many-block route: two key arrays, two sums, four
 // look-back status arrays, three control words, CUB's temp storage.
@@ -443,9 +332,9 @@ int token_decide(const int* rows, const int* ns_rows, const int* acquire, const 
   td_prep<<<blocks_for(max(b, l.n_status)), THREADS, 0, stream>>>(a, s, sum_f, sum_n, key_a, status, l.n_status,
                                                                   ctl);
   if ((err = (int)cub::DeviceRadixSort::SortKeys(temp, temp_bytes, key_a, key_b, b, 0, end_bit, stream))) return err;
-  td_stage<0><<<nt, THREADS, 0, stream>>>(a, n_rows, key_b, sum_n, key_a, status, status + nt, ctl);
+  td_stage<0><<<nt, THREADS, 0, stream>>>(a, n_rows, key_b, sum_n, key_a, status, nt, ctl);
   if ((err = (int)cub::DeviceRadixSort::SortKeys(temp, temp_bytes, key_a, key_b, b, 0, end_bit, stream))) return err;
-  td_stage<1><<<nt, THREADS, 0, stream>>>(a, n_rows, key_b, sum_f, nullptr, status + 2 * nt, status + 3 * nt, ctl);
+  td_stage<1><<<nt, THREADS, 0, stream>>>(a, n_rows, key_b, sum_f, nullptr, status, nt, ctl);
   td_commit_newest<<<blocks_for(2 * b), THREADS, 0, stream>>>(a, s, ctl);
   td_commit_add<<<blocks_for(2 * b), THREADS, 0, stream>>>(a, s, ctl);
   return (int)cudaGetLastError();

@@ -332,66 +332,55 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+class _PaArgs(ctypes.Structure):
+    """The ``PaArgs`` of ``csrc/param_scan.cu``, field for field."""
+
+    _fields_ = [(name, _P) for name in (
+        "reset_rows", "valid", "prow", "ts", "acq", "grade", "beh", "tc", "burst", "dur", "maxq", "cost",
+        "tokens", "last_add", "latest", "threads", "ok", "wait",
+    )] + [(name, _I) for name in ("s", "q", "pr", "rounds")]
+
+
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("param_scan")
     if not getattr(lib, "_typed", False):
-        lib.param_tiles.argtypes = [_I]
-        lib.param_prep.argtypes = [_P, _I, _P, _P, _P, _I, _I] + [_P] * 4 + [_P, _P]
-        lib.param_run.argtypes = [_P, _P, _I, _I, _I] + [_P] * 10 + [_P] * 4 + [_P] * 7 + [_P, _P, _P]
-        for f in (lib.param_tiles, lib.param_prep, lib.param_run):
-            f.restype = _I
+        lib.param_workspace.argtypes = [_I]
+        lib.param_workspace.restype = ctypes.c_longlong
+        lib.param_run.argtypes = [ctypes.POINTER(_PaArgs), _P, ctypes.c_longlong, _P]
+        lib.param_run.restype = _I
         lib._typed = True
     return lib
 
 
 def _check(t: torch.Tensor, what: str, dtype, shape) -> None:
-    if t.dtype != dtype or not t.is_contiguous() or not t.is_cuda or tuple(t.shape) != tuple(shape):
+    if t.dtype != dtype or t.shape != shape or not t.is_cuda or not t.is_contiguous():
         raise ValueError(f"{what}: need a contiguous CUDA {dtype} tensor of shape {tuple(shape)}")
 
 
 def _run_param_cuda(dyn: ParamDynState, pb: ParamBatch, rounds: int):
+    """K10 in one host call; scratch from the stream's workspace."""
     s = pb.valid.shape[0]
     pr = dyn.tokens.shape[0]
     for name in ParamBatch._fields[:12]:
         _check(getattr(pb, name), f"pb.{name}", torch.bool if name == "valid" else torch.int32, (s,))
-    q, sx = pb.reset_rows.shape[0], pb.exit_rows.shape[0]
+    q = pb.reset_rows.shape[0]
     _check(pb.reset_rows, "pb.reset_rows", torch.int32, (q,))
     for name, t in zip(ParamDynState._fields, dyn):
         _check(t, f"dyn.{name}", torch.int32, (pr,))
+    if s >= 2**28:
+        raise ValueError("run_param: at most 2**28 - 1 items a call")
     dev = pb.valid.device
     ok = torch.empty(s, dtype=torch.bool, device=dev)
     wait = torch.empty(s, dtype=torch.int32, device=dev)
     lib = _lib()
     st = torch.cuda.current_stream(dev).cuda_stream
-    keys = torch.empty(max(s, 1), dtype=torch.int64, device=dev)
-    cuda_build.check(
-        lib.param_prep(pb.reset_rows.data_ptr(), q, pb.valid.data_ptr(), pb.prow.data_ptr(), pb.ts.data_ptr(), s, pr,
-                       *(t.data_ptr() for t in dyn), keys.data_ptr(), st),
-        "param_prep",
+    a = _PaArgs(
+        *(t.data_ptr() for t in (pb.reset_rows, pb.valid, pb.prow, pb.ts, pb.acquire, pb.grade, pb.behavior,
+                                 pb.token_count, pb.burst, pb.duration_ms, pb.maxq, pb.cost_ms)),
+        *(t.data_ptr() for t in dyn), ok.data_ptr(), wait.data_ptr(), s, q, pr, int(rounds),
     )
-    if s > 0:
-        key_s, perm = torch.sort(keys[:s], stable=True)
-        tiles = lib.param_tiles(s)
-        # int2 scan scratch first (8-byte aligned), then the per-position
-        # sub-segment state and the head list [s + 2].
-        t2 = 2 * tiles
-        scratch = torch.empty(t2 + 8 * s + 2, dtype=torch.int32, device=dev)
-        partial = scratch[:t2]
-        contrib, excl = scratch[t2 : t2 + 2 * s], scratch[t2 + 2 * s : t2 + 4 * s]
-        sub_tok, sub_last = scratch[t2 + 4 * s : t2 + 5 * s], scratch[t2 + 5 * s : t2 + 6 * s]
-        sub_idx, heads = scratch[t2 + 6 * s : t2 + 7 * s], scratch[t2 + 7 * s :]
-        items = (pb.valid, pb.ts, pb.acquire, pb.grade, pb.behavior, pb.token_count, pb.burst, pb.duration_ms,
-                 pb.maxq, pb.cost_ms)
-        cuda_build.check(
-            lib.param_run(
-                key_s.data_ptr(), perm.data_ptr(), s, pr, int(rounds),
-                *(t.data_ptr() for t in items), *(t.data_ptr() for t in dyn),
-                partial.data_ptr(), contrib.data_ptr(), excl.data_ptr(), heads.data_ptr(),
-                sub_tok.data_ptr(), sub_last.data_ptr(), sub_idx.data_ptr(),
-                ok.data_ptr(), wait.data_ptr(), st,
-            ),
-            "param_run",
-        )
+    with cuda_build.scratch(dev, st, int(lib.param_workspace(s))) as (buf, size, _):
+        cuda_build.check(lib.param_run(ctypes.byref(a), buf, size, st), "param_run")
     run_param.launches += 1
     return dyn, ok, wait
 

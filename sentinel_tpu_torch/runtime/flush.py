@@ -42,9 +42,9 @@ tail with the probe transitions, ``flow_admission.cu``); the breakers'
 K7 and K8 live in ``rules/degrade_table.py``, the shaping recurrence K9
 (with its input gather) in ``rules/shaping.py`` and the hot-parameter
 recurrence K10 in ``rules/param_table.py``, the sketch fold K11 in
-``runtime/sketch.py``. The windows are read
-through ``metric_array.window_sums`` (K3) and written through
-``nodes.apply_updates`` (K2); :func:`flush_step` runs
+``runtime/sketch.py``. K4 and K6 read the second window themselves
+(K3, ``metric_array.window_sums``, serves the engine's stats reads); the
+windows are written through ``nodes.apply_updates`` (K2); :func:`flush_step` runs
 ``nodes.materialize_matured`` (K1) first. The rest is torch glue.
 """
 
@@ -467,37 +467,45 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
+class _FaArgs(ctypes.Structure):
+    """The ``FaArgs`` of ``csrc/flow_admission.cu``, field for field."""
+
+    _fields_ = [(name, _P) for name in (
+        "gid", "crow", "e_valid", "e_ts", "e_acq", "e_rows", "e_auth", "e_cluster", "e_prio", "live",
+        "f_grade", "f_count", "f_behavior", "sec_ws", "sec_counts", "threads", "fut_ws", "fut_pass",
+        "slot_ok", "flow_pass", "admitted", "reason", "blk_w", "blk_r", "ppc", "occ_slot", "occ_target",
+        "occupied", "occupy_wait",
+    )] + [(name, _I) for name in (
+        "n", "k", "n_rows", "nr", "nb", "ne", "now", "wlen", "interval_ms", "occupy_timeout_ms", "occupy", "tail",
+        "topk",
+    )] + [("interval_sec", _F)]
+
+
 def _fa_lib() -> ctypes.CDLL:
     lib = cuda_build.load("flow_admission")
     if not getattr(lib, "_typed", False):
-        lib.flow_admission_prep.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P]
-        lib.flow_admission_gather.argtypes = [_P, _P, _I, _P, _P]
-        lib.flow_admission_tiles.argtypes = [_I]
-        lib.flow_admission_topk_blocks.argtypes = [_I]
-        lib.flow_admission_decide.argtypes = (
-            [_P] * 10 + [_I, _I, _I, _I] + [_P, _P, _P, _P, _I, _P, _F, _I]
-            + [_P] * 16
-        )
-        lib.flow_admission_slots.argtypes = (
-            [_P] * 7 + [_I, _I, _I, _I] + [_P, _P, _P, _P, _I, _P, _F]
-            + [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
-            + [_P] * 11 + [_P] * 7 + [_P]
-        )
+        lib.flow_admission_workspace.argtypes = [_I]
+        lib.flow_admission_workspace.restype = ctypes.c_longlong
+        lib.flow_admission_topk_ints.argtypes = [_I]
+        lib.flow_admission_topk_ints.restype = ctypes.c_longlong
+        lib.flow_admission.argtypes = [ctypes.POINTER(_FaArgs), _P, ctypes.c_longlong, _P, _P]
+        lib.flow_admission.restype = _I
         lib.flow_admission_chain_verdict.argtypes = (
-            [_I, _I, _I, _I] + [_P] * 15 + [_P, _P, _I, _P, _P, _P] + [_P] * 7 + [_P]
+            [_I, _I, _I, _I] + [_P] * 15 + [_P, _P, _I, _P] + [_P] * 7 + [_P]
         )
-        for f in (
-            lib.flow_admission_prep, lib.flow_admission_gather, lib.flow_admission_tiles,
-            lib.flow_admission_topk_blocks, lib.flow_admission_decide, lib.flow_admission_slots,
-            lib.flow_admission_chain_verdict,
-        ):
-            f.restype = _I
+        lib.flow_admission_chain_verdict.restype = _I
         lib._typed = True
     return lib
 
 
-def _check_batch_cuda(batch: FlushBatch) -> None:
-    for name in FlushBatch._fields[1:]:
+# The batch fields K4 reads, and those the slot chain's verdict reads.
+_FA_FIELDS = ("e_valid", "e_ts", "e_acquire", "e_rows", "e_rule_gid", "e_check_row", "e_auth_ok", "e_cluster_ok",
+              "e_prio")
+_CHAIN_FIELDS = ("e_valid", "e_auth_ok", "e_cluster_ok", "e_acquire", "e_rows", "e_dgid")
+
+
+def _check_batch_cuda(batch: FlushBatch, fields=FlushBatch._fields[1:]) -> None:
+    for name in fields:
         t = getattr(batch, name)
         want = torch.bool if name in _BOOL_FIELDS else torch.int32
         if t.dtype != want or not t.is_contiguous() or not t.is_cuda:
@@ -509,161 +517,89 @@ def _check_topk(blk_topk: int) -> None:
         raise ValueError(f"blk_topk must lie in [0, {TOPK_MAX}]")
 
 
+def _topk_zero_bytes(lib, r_rows: int) -> int:
+    """Bytes of the zeroed buffer the blocked top-K needs over ``r_rows``."""
+    return 4 * int(lib.flow_admission_topk_ints(r_rows))
+
+
 def _flow_admission_cuda(stats, flow_dev, batch, blk_topk, live, occupy_timeout_ms, with_occupy, tail,
                          with_ppc=False) -> Admission:
-    _check_batch_cuda(batch)
+    """K4 in one host call: the DEFAULT path with its fused tail, or the
+    slot chain's stage (occupy, pass plus charge)."""
+    _check_batch_cuda(batch, _FA_FIELDS)
     _check_topk(blk_topk)
     for name in ("grade", "count", "behavior"):
         t = getattr(flow_dev, name)
         if not t.is_contiguous() or not t.is_cuda:
             raise ValueError(f"flow_dev.{name}: need a contiguous CUDA tensor")
-    if stats.threads.dtype != torch.int32 or not stats.threads.is_contiguous():
-        raise ValueError("stats.threads: need a contiguous int32 tensor")
+    sec = stats.second
+    for name, t in (("stats.threads", stats.threads), ("stats.second.window_start", sec.window_start),
+                    ("stats.second.counts", sec.counts), ("stats.future_ws", stats.future_ws),
+                    ("stats.future_pass", stats.future_pass)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous int32 tensor")
     lib = _fa_lib()
     n, k = batch.e_rule_gid.shape
     nk = n * k
     r_rows = stats.n_rows
     dev = batch.e_valid.device
     st = ma.stream_of(batch.e_valid)
-    i32 = torch.int32
-
-    row_key = torch.empty(nk, dtype=i32, device=dev)
-    ts_f = torch.empty(nk, dtype=i32, device=dev)
-    cuda_build.check(
-        lib.flow_admission_prep(
-            batch.e_rule_gid.data_ptr(), batch.e_check_row.data_ptr(), batch.e_valid.data_ptr(),
-            batch.e_ts.data_ptr(), nk, k, r_rows, row_key.data_ptr(), ts_f.data_ptr(), st,
-        ),
-        "flow_admission_prep",
+    cfg = _nodes.SECOND_CFG
+    kk = min(blk_topk, r_rows) if tail else 0
+    a = _FaArgs(
+        gid=batch.e_rule_gid.data_ptr(), crow=batch.e_check_row.data_ptr(), e_valid=batch.e_valid.data_ptr(),
+        e_ts=batch.e_ts.data_ptr(), e_acq=batch.e_acquire.data_ptr(), e_rows=batch.e_rows.data_ptr(),
+        e_auth=batch.e_auth_ok.data_ptr(), e_cluster=batch.e_cluster_ok.data_ptr(), e_prio=batch.e_prio.data_ptr(),
+        f_grade=flow_dev.grade.data_ptr(), f_count=flow_dev.count.data_ptr(), f_behavior=flow_dev.behavior.data_ptr(),
+        sec_ws=sec.window_start.data_ptr(), sec_counts=sec.counts.data_ptr(), threads=stats.threads.data_ptr(),
+        fut_ws=stats.future_ws.data_ptr(), fut_pass=stats.future_pass.data_ptr(),
+        n=n, k=k, n_rows=r_rows, nr=flow_dev.n_rules, nb=cfg.sample_count, ne=NUM_EVENTS, now=batch.now,
+        wlen=cfg.window_len_ms, interval_ms=cfg.interval_ms, occupy_timeout_ms=int(occupy_timeout_ms),
+        occupy=int(with_occupy), tail=int(tail), topk=kk, interval_sec=_interval_sec(),
     )
-    perm1 = torch.sort(ts_f, stable=True).indices
-    rk1 = torch.empty(nk, dtype=i32, device=dev)
-    cuda_build.check(
-        lib.flow_admission_gather(perm1.data_ptr(), row_key.data_ptr(), nk, rk1.data_ptr(), st),
-        "flow_admission_gather",
-    )
-    rk_s, perm2 = torch.sort(rk1, stable=True)
-    pass_sums = ma.window_sums(_nodes.SECOND_CFG, stats.second, batch.now, rows=rk_s)
-
-    tiles = lib.flow_admission_tiles(nk)
-    slot_ok = torch.empty((n, k), dtype=torch.bool, device=dev)
-    flow_pass = torch.empty(n, dtype=torch.bool, device=dev)
-    if not tail:
-        return _flow_slots_cuda(lib, stats, flow_dev, batch, live, occupy_timeout_ms, with_occupy, rk_s,
-                                perm1, perm2, pass_sums, tiles, slot_ok, flow_pass, st, with_ppc)
-
-    topk_blocks = lib.flow_admission_topk_blocks(r_rows)
-    scratch = torch.empty(nk * 5 + tiles * 4, dtype=i32, device=dev)
-    pos_s = scratch[:nk]
-    contrib = scratch[nk : 3 * nk]
-    excl = scratch[3 * nk : 5 * nk]
-    partial = scratch[5 * nk : 5 * nk + 2 * tiles]
-    partial_max = scratch[5 * nk + 2 * tiles :]
-    new_grp = torch.empty(nk, dtype=torch.uint8, device=dev)
-    admitted = torch.empty(n, dtype=torch.bool, device=dev)
-    reason = torch.empty(n, dtype=i32, device=dev)
-    topk = _TopK(blk_topk, r_rows, topk_blocks, dev)
-    cuda_build.check(
-        lib.flow_admission_decide(
-            rk_s.data_ptr(), perm1.data_ptr(), perm2.data_ptr(), batch.e_rule_gid.data_ptr(),
-            batch.e_check_row.data_ptr(), batch.e_valid.data_ptr(), batch.e_auth_ok.data_ptr(),
-            batch.e_cluster_ok.data_ptr(), batch.e_acquire.data_ptr(), batch.e_rows.data_ptr(),
-            n, k, r_rows, flow_dev.n_rules,
-            flow_dev.grade.data_ptr(), flow_dev.count.data_ptr(), flow_dev.behavior.data_ptr(),
-            pass_sums.data_ptr(), NUM_EVENTS, stats.threads.data_ptr(), _interval_sec(),
-            blk_topk,
-            pos_s.data_ptr(), new_grp.data_ptr(), contrib.data_ptr(), excl.data_ptr(),
-            partial.data_ptr(), partial_max.data_ptr(), *topk.scratch_ptrs,
-            slot_ok.data_ptr(), flow_pass.data_ptr(), admitted.data_ptr(), reason.data_ptr(),
-            *topk.out_ptrs, st,
-        ),
-        "flow_admission_decide",
-    )
-    flow_admission.launches += 1
-    return Admission(slot_ok, flow_pass, admitted, reason, topk.rows, topk.weight)
-
-
-class _TopK:
-    """Scratch and outputs of the blocked top-K step (none at k = 0)."""
-
-    def __init__(self, k: int, r_rows: int, blocks: int, dev) -> None:
-        if k > 0:
-            self.dense = torch.empty(r_rows + 1, dtype=torch.int32, device=dev)
-            cand = torch.empty(2 * blocks * TOPK_MAX, dtype=torch.int32, device=dev)
-            blk = torch.empty(2 * k, dtype=torch.int32, device=dev)
-            self.weight, self.rows = blk[:k], blk[k:]
-            self.scratch_ptrs = (self.dense.data_ptr(), cand[: blocks * TOPK_MAX].data_ptr(),
-                                 cand[blocks * TOPK_MAX :].data_ptr())
-            self.out_ptrs = (self.weight.data_ptr(), self.rows.data_ptr())
+    # The outputs: one bool and one int32 allocation, cut into the fields.
+    n_occ = nk + n if with_occupy else 0
+    extra = {}
+    admitted = reason = blk_rows = blk_weight = None
+    if tail:
+        slot_ok, flow_pass, admitted = torch.empty(nk + 2 * n, dtype=torch.bool, device=dev).split([nk, n, n])
+        reason, blk_weight, blk_rows = torch.empty(n + 2 * kk, dtype=torch.int32, device=dev).split([n, kk, kk])
+        a.admitted, a.reason = admitted.data_ptr(), reason.data_ptr()
+        if kk > 0:
+            a.blk_w, a.blk_r = blk_weight.data_ptr(), blk_rows.data_ptr()
         else:
-            self.weight = self.rows = None
-            self.scratch_ptrs = (None, None, None)
-            self.out_ptrs = (None, None)
-
-
-def _flow_slots_cuda(lib, stats, flow_dev, batch, live, occupy_timeout_ms, with_occupy, rk_s, perm1, perm2,
-                     pass_sums, tiles, slot_ok, flow_pass, st, with_ppc=False) -> Admission:
-    """K4 without the fused tail: the slot verdicts, with occupy the
-    borrow decisions and their per-entry fold, with ``with_ppc`` each
-    slot's pass plus intra-batch charge."""
-    n, k = batch.e_rule_gid.shape
-    nk = n * k
-    dev = batch.e_valid.device
-    i32 = torch.int32
-    n_scr = 5 if not with_occupy else 11
-    scratch = torch.empty(nk * n_scr + tiles * 4, dtype=i32, device=dev)
-    pos_s, contrib, excl = scratch[:nk], scratch[nk : 3 * nk], scratch[3 * nk : 5 * nk]
-    partial = scratch[n_scr * nk : n_scr * nk + 2 * tiles]
-    partial_max = scratch[n_scr * nk + 2 * tiles :]
-    flags = torch.empty(2 * nk, dtype=torch.uint8, device=dev)  # new_grp, last of entry
-    occ = {}
-    ppc = None
-    if with_ppc:
-        ppc = torch.empty(nk, dtype=i32, device=dev)
-        occ["pass_plus_consumed"] = ppc
-    if with_occupy:
-        contrib3, excl3 = scratch[5 * nk : 7 * nk], scratch[7 * nk : 9 * nk]
-        occ_wait_slot, cur_pass_s = scratch[9 * nk : 10 * nk], scratch[10 * nk : 11 * nk]
-        occ_slot = torch.empty((n, k), dtype=torch.bool, device=dev)
-        occ_target = torch.empty((n, k), dtype=i32, device=dev)
-        occupied = torch.empty(n, dtype=torch.bool, device=dev)
-        occupy_wait = torch.empty(n, dtype=i32, device=dev)
-        live = batch.e_valid if live is None else live
-        if live.dtype != torch.bool or not live.is_contiguous() or tuple(live.shape) != (n,):
-            raise ValueError("live: need a contiguous bool tensor of shape (N,)")
-        sec = stats.second
-        cfg = _nodes.SECOND_CFG
-        occ_args = (
-            1, live.data_ptr(), batch.e_prio.data_ptr(), batch.e_cluster_ok.data_ptr(),
-            stats.future_ws.data_ptr(), stats.future_pass.data_ptr(), sec.window_start.data_ptr(),
-            sec.counts.data_ptr(), cfg.sample_count, NUM_EVENTS, batch.now, cfg.window_len_ms,
-            cfg.interval_ms, int(occupy_timeout_ms),
-        )
-        occ_ptrs = (contrib3.data_ptr(), excl3.data_ptr(), occ_wait_slot.data_ptr(), cur_pass_s.data_ptr())
-        out_ptrs = (occ_slot.data_ptr(), occ_target.data_ptr(), occupied.data_ptr(), occupy_wait.data_ptr())
-        occ.update(occupied=occupied, occupy_wait=occupy_wait, occ_slot=occ_slot, occ_target=occ_target)
+            blk_weight = blk_rows = None
+        slot_ok = slot_ok.view(n, k)
+        a.slot_ok, a.flow_pass = slot_ok.data_ptr(), flow_pass.data_ptr()
     else:
-        occ_args = (0, None, None, None, None, None, None, None, 0, 0, batch.now, 1, 1, 0)
-        occ_ptrs = (None, None, None, None)
-        out_ptrs = (None, None, None, None)
-    cuda_build.check(
-        lib.flow_admission_slots(
-            rk_s.data_ptr(), perm1.data_ptr(), perm2.data_ptr(), batch.e_rule_gid.data_ptr(),
-            batch.e_check_row.data_ptr(), batch.e_acquire.data_ptr(), batch.e_rows.data_ptr(),
-            n, k, stats.n_rows, flow_dev.n_rules,
-            flow_dev.grade.data_ptr(), flow_dev.count.data_ptr(), flow_dev.behavior.data_ptr(),
-            pass_sums.data_ptr(), NUM_EVENTS, stats.threads.data_ptr(), _interval_sec(),
-            *occ_args,
-            batch.e_valid.data_ptr(), pos_s.data_ptr(), flags.data_ptr(), contrib.data_ptr(), excl.data_ptr(),
-            partial.data_ptr(), partial_max.data_ptr(), *occ_ptrs, None if ppc is None else ppc.data_ptr(),
-            slot_ok.data_ptr(), flow_pass.data_ptr(), *out_ptrs, st,
-        ),
-        "flow_admission_slots",
-    )
+        flags = torch.empty(nk + n + n_occ, dtype=torch.bool, device=dev)
+        slot_ok, flow_pass = flags[:nk].view(n, k), flags[nk : nk + n]
+        a.slot_ok, a.flow_pass = slot_ok.data_ptr(), flow_pass.data_ptr()
+        n_i32 = (nk if with_ppc else 0) + (nk + n if with_occupy else 0)
+        ints = torch.empty(n_i32, dtype=torch.int32, device=dev) if n_i32 else None
+        off = 0
+        if with_ppc:
+            extra["pass_plus_consumed"] = ints[:nk]
+            a.ppc = ints.data_ptr()
+            off = nk
+        if with_occupy:
+            live = batch.e_valid if live is None else live
+            if live.dtype != torch.bool or not live.is_contiguous() or tuple(live.shape) != (n,) or not live.is_cuda:
+                raise ValueError("live: need a contiguous CUDA bool tensor of shape (N,)")
+            a.live = live.data_ptr()
+            occ_slot, occupied = flags[nk + n : 2 * nk + n].view(n, k), flags[2 * nk + n :]
+            occ_target, occupy_wait = ints[off : off + nk].view(n, k), ints[off + nk : off + nk + n]
+            a.occ_slot, a.occupied = occ_slot.data_ptr(), occupied.data_ptr()
+            a.occ_target, a.occupy_wait = occ_target.data_ptr(), occupy_wait.data_ptr()
+            extra.update(occupied=occupied, occupy_wait=occupy_wait, occ_slot=occ_slot, occ_target=occ_target)
+    need = int(lib.flow_admission_workspace(nk))
+    zero_bytes = _topk_zero_bytes(lib, r_rows) if kk > 0 and need > 0 else 0
+    with cuda_build.scratch(dev, st, need, zero_bytes) as (buf, size, zero):
+        cuda_build.check(lib.flow_admission(ctypes.byref(a), buf, size, zero, st), "flow_admission")
     flow_admission.launches += 1
     if with_occupy:
         flow_admission.occupy_launches += 1
-    return Admission(slot_ok, flow_pass, None, None, None, None, **occ)
+    return Admission(slot_ok, flow_pass, admitted, reason, blk_rows, blk_weight, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -975,7 +911,7 @@ def slot_chain_verdict_plain(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_r
 
 def _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk, param_ok=None,
                         wait_param=None, shape_wait=None) -> ChainVerdict:
-    _check_batch_cuda(batch)
+    _check_batch_cuda(batch, _CHAIN_FIELDS)
     _check_topk(blk_topk)
     n, k = batch.e_rule_gid.shape
     kd = batch.e_dgid.shape[1]
@@ -984,32 +920,36 @@ def _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, 
         raise ValueError("slot_chain_verdict: dslot_ok [N, KD] needs probe_slot")
     lib = _fa_lib()
     r_rows = n_rows
-    admitted = torch.empty(n, dtype=torch.bool, device=dev)
-    reason = torch.empty(n, dtype=torch.int32, device=dev)
-    wait_ms = torch.empty(n, dtype=torch.int32, device=dev)
-    flow_live = torch.empty(n, dtype=torch.bool, device=dev)
-    occupied = torch.empty(n, dtype=torch.bool, device=dev)
+    kk = min(blk_topk, r_rows)
+    flags = torch.empty(3 * n, dtype=torch.bool, device=dev)
+    admitted, flow_live, occupied = flags[:n], flags[n : 2 * n], flags[2 * n :]
+    ints = torch.empty(2 * n + 2 * kk, dtype=torch.int32, device=dev)
+    reason, wait_ms = ints[:n], ints[n : 2 * n]
+    blk_weight, blk_rows = (ints[2 * n : 2 * n + kk], ints[2 * n + kk :]) if kk > 0 else (None, None)
     occ_slot = adm.occ_slot.clone() if adm.occ_slot is not None else torch.zeros((n, k), dtype=torch.bool, device=dev)
-    topk = _TopK(blk_topk, r_rows, lib.flow_admission_topk_blocks(r_rows), dev)
+    st = ma.stream_of(batch.e_valid)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    cuda_build.check(
-        lib.flow_admission_chain_verdict(
-            n, k, kd, r_rows,
-            batch.e_valid.data_ptr(), batch.e_auth_ok.data_ptr(), ptr(sys_ok), adm.flow_pass.data_ptr(),
-            batch.e_cluster_ok.data_ptr(), ptr(adm.occupied), ptr(adm.occupy_wait), ptr(dslot_ok),
-            ptr(probe_slot), batch.e_dgid.data_ptr(), None if dslot_ok is None or ddyn is None else ddyn.state.data_ptr(),
-            occ_slot.data_ptr(), ptr(param_ok), ptr(wait_param), ptr(shape_wait),
-            batch.e_acquire.data_ptr(), batch.e_rows.data_ptr(), blk_topk, *topk.scratch_ptrs,
-            admitted.data_ptr(), reason.data_ptr(), wait_ms.data_ptr(), flow_live.data_ptr(), occupied.data_ptr(),
-            *topk.out_ptrs, ma.stream_of(batch.e_valid),
-        ),
-        "flow_admission_chain_verdict",
-    )
+    zero_bytes = _topk_zero_bytes(lib, r_rows) if kk > 0 else 0
+    with cuda_build.scratch(dev, st, 0, zero_bytes) as (_, _, zero):
+        cuda_build.check(
+            lib.flow_admission_chain_verdict(
+                n, k, kd, r_rows,
+                batch.e_valid.data_ptr(), batch.e_auth_ok.data_ptr(), ptr(sys_ok), adm.flow_pass.data_ptr(),
+                batch.e_cluster_ok.data_ptr(), ptr(adm.occupied), ptr(adm.occupy_wait), ptr(dslot_ok),
+                ptr(probe_slot), batch.e_dgid.data_ptr(),
+                None if dslot_ok is None or ddyn is None else ddyn.state.data_ptr(),
+                occ_slot.data_ptr(), ptr(param_ok), ptr(wait_param), ptr(shape_wait),
+                batch.e_acquire.data_ptr(), batch.e_rows.data_ptr(), kk, zero,
+                admitted.data_ptr(), reason.data_ptr(), wait_ms.data_ptr(), flow_live.data_ptr(), occupied.data_ptr(),
+                ptr(blk_weight), ptr(blk_rows), st,
+            ),
+            "flow_admission_chain_verdict",
+        )
     slot_chain_verdict.launches += 1
-    return ChainVerdict(admitted, reason, wait_ms, flow_live, occupied, occ_slot, topk.rows, topk.weight)
+    return ChainVerdict(admitted, reason, wait_ms, flow_live, occupied, occ_slot, blk_rows, blk_weight)
 
 
 # ---------------------------------------------------------------------------

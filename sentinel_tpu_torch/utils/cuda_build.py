@@ -9,6 +9,12 @@ a stale library. Nothing is built when the package is imported: the
 first launch builds, or a caller builds every source at once with
 :func:`build_all` (one ``nvcc`` per source, all started together).
 
+Scratch: a kernel's wrapper takes its scratch from :func:`scratch`, one
+buffer per (device, stream) kept between calls and grown by doubling, and
+a buffer that must be zero at the start of a call (the blocked-weight
+top-K's), which the kernel leaves zeroed. One lock covers every call that
+uses them.
+
 Flags: ``-O3`` and IEEE float arithmetic. Never ``--use_fast_math``: the
 admission compare needs round-to-nearest conversions and exact division
 to agree bit for bit with the JAX reference.
@@ -16,6 +22,7 @@ to agree bit for bit with the JAX reference.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +30,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -111,3 +120,41 @@ def check(code: int, what: str) -> None:
     """Raise when a launch returned a CUDA error code."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+_scratch_lock = threading.Lock()
+_SCRATCH: Dict[Tuple[bool, torch.device, int], torch.Tensor] = {}  # (zeroed, device, stream) -> its bytes
+
+
+def _grow(zero: bool, device: torch.device, stream: int, nbytes: int) -> torch.Tensor:
+    key = (zero, device, stream)
+    buf = _SCRATCH.get(key)
+    have = 0 if buf is None else buf.numel()
+    if have < nbytes:
+        make = torch.zeros if zero else torch.empty
+        buf = _SCRATCH[key] = make(max(nbytes, 2 * have), dtype=torch.uint8, device=device)
+    return buf
+
+
+@contextlib.contextmanager
+def scratch(device: torch.device, stream: int, nbytes: int,
+            zero_bytes: int = 0) -> Iterator[Tuple[Optional[int], int, Optional[int]]]:
+    """Scratch for one kernel call on ``stream``: yields (pointer to at
+    least ``nbytes``, its size, pointer to at least ``zero_bytes`` that are
+    zero), a pointer None where no bytes were asked for. The buffers are
+    kept per (device, stream) between calls and grown by doubling; the
+    zeroed one is made with zeros and the kernel that writes it zeroes it
+    again before it ends.
+
+    Hold the block until the call that takes the pointers has returned.
+    One lock covers it: host threads share the default stream, and ctypes
+    lets go of the GIL during a call, so without it two calls' launches
+    interleave on one stream over the same bytes, or a grow frees a buffer
+    that a launch still to come points into. Work queued on the stream
+    runs in order, so a call that starts after the block ends sees the
+    bytes free."""
+    with _scratch_lock:
+        buf = _grow(False, device, stream, nbytes) if nbytes > 0 else None
+        zero = _grow(True, device, stream, zero_bytes) if zero_bytes > 0 else None
+        yield (None if buf is None else buf.data_ptr(), 0 if buf is None else buf.numel(),
+               None if zero is None else zero.data_ptr())

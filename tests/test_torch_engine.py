@@ -248,6 +248,113 @@ def test_engine_chain_stream_parity(seed):
         jconfig.reset()
 
 
+# --- row growth under lockstep: every rule kind, with reloads ----------------
+
+GROWTH_RESOURCES = [f"g{i}" for i in range(24)]
+
+
+def _growth_specs(rng):
+    """Random rule sets as (flow, degrade, param) specs: a flow rule of each
+    of the four behaviours in turn on every resource, breakers of three
+    grades on half of them, param rules (QPS with burst, a throttle, the
+    THREAD grade) on ten."""
+    flow, degrade, param = [], [], {}
+    for i, res in enumerate(GROWTH_RESOURCES):
+        flow.append(dict(resource=res, count=float(rng.integers(2, 25)), control_behavior=i % 4,
+                         warm_up_period_sec=int(rng.integers(1, 4)), max_queueing_time_ms=int(rng.choice([0, 300, 800]))))
+        if i % 2 == 0:
+            grade = (i // 2) % 3
+            count = (0.3, 0.5, 2)[grade] if grade else 40
+            degrade.append(dict(resource=res, grade=grade, count=count, time_window=1, min_request_amount=2,
+                                slow_ratio_threshold=0.5, stat_interval_ms=500))
+        if i < 10:
+            kind = i % 3
+            param[res] = [dict(resource=res, param_idx=0, count=int(rng.integers(1, 6)), burst_count=int(kind == 0),
+                               control_behavior=C.CONTROL_BEHAVIOR_RATE_LIMITER if kind == 1 else 0,
+                               max_queueing_time_ms=400, grade=C.FLOW_GRADE_THREAD if kind == 2 else C.FLOW_GRADE_QPS)]
+    return flow, degrade, param
+
+
+def _load_growth_rules(pair, specs):
+    flow, degrade, param = specs
+    pair.j.set_flow_rules(_rules(jst.FlowRule, flow))
+    pair.t.set_flow_rules(_rules(FlowRule, flow))
+    pair.j.set_degrade_rules(_rules(jst.DegradeRule, degrade))
+    pair.t.set_degrade_rules(_rules(st.DegradeRule, degrade))
+    pair.j.set_param_rules({r: _rules(jst.ParamFlowRule, s) for r, s in param.items()})
+    pair.t.set_param_rules({r: _rules(st.ParamFlowRule, s) for r, s in param.items()})
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_engine_row_growth_lockstep(seed):
+    """The two engines from sentinel.tpu.rows.initial = 16, grown to 256 rows
+    by the stream: flow rules of all four behaviours, breakers and param
+    rules, reloaded now and then; singles with args, prio and origins, a
+    bulk group with an args column, exits releasing the param rows.
+    Verdicts, reasons, wait_ms, limit types, attribution, stats, breakers,
+    the flow rules' shaping state and the param state after every flush.
+    What fixes a flush's shapes (which resources, contexts, origins and
+    args values it touches, how many entries and exits) comes from one
+    plan for both seeds, so the JAX side compiles its steps once; the seed
+    draws the rules' thresholds, the timestamps, acquires and completions."""
+    from sentinel_tpu.utils.config import config as jconfig
+
+    for cfg in (config, jconfig):
+        cfg.set(cfg.INITIAL_ROWS, "16")
+    try:
+        plan = np.random.default_rng(77)
+        rng = np.random.default_rng(300 + seed)
+        now = 30_000
+        pair = _Pair(now, chain=True)
+        assert pair.j.stats.second.counts.shape[0] == pair.t.stats.n_rows == 16
+        _load_growth_rules(pair, _growth_specs(rng))
+        live = []  # admitted singles awaiting exit: (rows, resource, param rows)
+        last_group = None
+        for step in range(20):
+            now += int(rng.choice([0, 40, 180, 420, 700, 1300]))
+            pair.set_ms(now)
+            if step in (7, 14):
+                _load_growth_rules(pair, _growth_specs(rng))
+            # Twelve singles: one on each of four param resources (both QPS
+            # kinds, the throttle, the THREAD grade), two on other DEFAULT
+            # resources, six on other shaping ones.
+            picks = ([0, 1, 3, 5] + list(plan.choice([12, 16, 20], 2, replace=False))
+                     + list(plan.choice([i for i in range(10, 24) if i % 4], 6, replace=False)))
+            singles = []
+            for j, i in enumerate(picks):
+                res = GROWTH_RESOURCES[i]
+                singles.append((res, pair.both(
+                    "submit_entry", res, context_name=str(plan.choice(["c1", "c2", "c3", C.CONTEXT_DEFAULT_NAME])),
+                    origin=str(plan.choice(["", "appX", "appY", "appZ", "appW"])), acquire=int(rng.integers(1, 3)),
+                    entry_type=C.EntryType.IN if rng.random() < 0.5 else C.EntryType.OUT,
+                    prio=j < 2, ts=now - int(rng.integers(0, 60)), args=(f"v{int(plan.integers(0, 4))}",),
+                )))
+            # The bulk group's args column, on the QPS param rule with burst:
+            # two items on each of 14 values.
+            groups = [pair.both("submit_bulk", "g0", 28, ts=np.sort(now - rng.integers(0, 300, 28)).astype(np.int32),
+                                acquire=rng.integers(1, 3, 28).astype(np.int32), origin="appX",
+                                args_column=[(f"v{i % 14}",) for i in range(28)])]
+            for rows, r, prows in live[:5]:
+                pair.both("submit_exit", rows, rt=int(rng.choice([5, 90])), count=1, err=int(rng.random() < 0.3),
+                          ts=now, resource=r, param_rows=prows)
+            del live[:5]
+            rows = last_group.rows if last_group is not None else (-1, -1, -1, -1)
+            pair.both("submit_exit_bulk", rows, 2, rt=int(rng.integers(0, 90)), ts=now, resource="g0")
+            pair.flush_and_compare([p for _, p in singles], groups, step)
+            assert_same(tuple(jax.device_get(pair.j.flow_dyn)), tuple(a.numpy() for a in pair.t.flow_dyn),
+                        f"{step}: flow state")
+            assert_same(tuple(jax.device_get(pair.j.param_dyn)), tuple(a.numpy() for a in pair.t.param_dyn),
+                        f"{step}: param state")
+            last_group = groups[0][1]
+            for r, (jo, to) in singles:
+                if to is not None and to.verdict.admitted:
+                    live.append((to.rows, r, tuple(to.param_thread_rows)))
+        assert pair.t.stats.n_rows == pair.j.stats.second.counts.shape[0] == 256
+    finally:
+        config.reset()
+        jconfig.reset()
+
+
 # --- the cases of tests/test_flow_default.py, against the port -----------
 
 

@@ -57,7 +57,32 @@ CASES = {
     "k1_exits": (32, 1, 32, 8, False, (0, 6)),
     "near_int32_max": (32, 2, 30, 8, True, (0, 8)),
     "few_blocked": (32, 1, 20, 4, False, (12, 20)),
+    # The kernel's routes and keys: every slot on one row (ts out of entry
+    # order), ts on both sides of 0 (the packed key's sign flip), n*k on
+    # either side of the one-block route's 2,048, top-8 with fewer than 8
+    # blocked rows over many blocks.
+    "one_row": (48, 1, 44, 4, False, (10, 30)),
+    "negative_ts": (64, 2, 60, 8, False, (0, 8)),
+    "nk_2048": (1024, 2, 1000, 8, False, (0, 40)),
+    "nk_2049": (2049, 1, 2000, 8, False, (0, 40)),
+    "few_blocked_2049": (2049, 1, 2049, 8, False, (190, 260)),
 }
+# The window update takes ts >= 0 only (ms relative to the epoch), so the
+# step runs every case but the negative timestamps.
+STEP_CASES = sorted(c for c in CASES if c != "negative_ts")
+# Inputs beyond the tuple: random_flush_batch keyword arguments, and
+# "now" (the flush time of the first step).
+CASE_EXTRA = {
+    "one_row": dict(one_row=True),
+    "negative_ts": dict(now=300),
+    "few_blocked_2049": dict(one_row=True),
+}
+
+
+def _case_batch(rng, case, n_rows, nr, now, m_valid=0):
+    n, k, n_valid, _, near_max, _ = CASES[case]
+    kw = {key: v for key, v in CASE_EXTRA.get(case, {}).items() if key != "now"}
+    return random_flush_batch(rng, n, k, n_rows, nr, now, n_valid, m_valid=m_valid, near_max=near_max, **kw)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -65,10 +90,10 @@ def test_flow_admission_parity(case):
     n, k, n_valid, _, near_max, (lo, hi) = CASES[case]
     rng = np.random.default_rng(len(case))
     n_rows, nr = 32, 16
-    now = 2**31 - 1 - 7 if near_max else 654_321
+    now = CASE_EXTRA.get(case, {}).get("now", 2**31 - 1 - 7 if near_max else 654_321)
     arrs = _random_stats(rng, n_rows, now)
     table, dyn = random_flow_table(rng, nr, lo=lo, hi=hi)
-    b = random_flush_batch(rng, n, k, n_rows, nr, now, n_valid, near_max=near_max)
+    b = _case_batch(rng, case, n_rows, nr, now)
     jt, _ = _jax_tables(table, dyn)
     slot_ok, flow_pass, *_ = _jax_flow_admission(_jax_stats(arrs), jt, _jax_batch(b))
     tt, _ = flow_table_from_numpy(table, dyn, CPU)
@@ -88,12 +113,12 @@ def _jax_flush_step(stats, table, dyn, batch, with_exits, topk):
     return out[0], out[5]
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", STEP_CASES)
 def test_flush_step_parity(case):
     n, k, n_valid, m_valid, near_max, (lo, hi) = CASES[case]
     rng = np.random.default_rng(100 + len(case))
     n_rows, nr = 32, 16
-    now = 2**31 - 1 - 700 if near_max else 1_234_567
+    now = CASE_EXTRA.get(case, {}).get("now", 2**31 - 1 - 700 if near_max else 1_234_567)
     arrs = _random_stats(rng, n_rows, now)
     table, dyn = random_flow_table(rng, nr, lo=lo, hi=hi)
     jstats = _jax_stats(arrs)
@@ -102,15 +127,15 @@ def test_flush_step_parity(case):
     jt, jd = _jax_tables(table, dyn)
     # Two flushes in a row, the second one window later: state carries.
     for step in range(2):
-        b = random_flush_batch(rng, n, k, n_rows, nr, now + 600 * step, n_valid, m_valid=m_valid, near_max=near_max)
+        b = _case_batch(rng, case, n_rows, nr, now + 600 * step, m_valid=m_valid)
         with_exits = m_valid > 0
         jstats, jres = _jax_flush_step(jstats, jt, jd, _jax_batch(b), with_exits, 8)
         tstats, tres = tflush.flush_step(tstats, tt, tflush.batch_from_numpy(b, CPU), with_exits=with_exits, blk_topk=8)
         for name in ("admitted", "reason", "slot_ok", "wait_ms", "blk_rows", "blk_weight"):
             assert_same(getattr(jres, name), getattr(tres, name), f"step {step} {name}")
         assert_same(jax.device_get(jstats), tnodes.stats_to_numpy(tstats), f"step {step} stats")
-        if case == "few_blocked":
-            assert int((np.asarray(jres.blk_weight) > 0).sum()) < 8
+        if case.startswith("few_blocked"):
+            assert 0 < int((np.asarray(jres.blk_weight) > 0).sum()) < 8
 
 
 def test_topk_ties_order_lowest_row_first():

@@ -339,6 +339,18 @@ PARAM_GPU_CASES = {
     "c_closed_one_ts": (dict(s=4096, pr=256, closed=True, nts=1), (-1,)),
     "c_closed_mixed_ts": (dict(s=4096, pr=256, closed=True, nts=7), (-8, -4)),
     "d_heavy_value": (dict(s=4096, pr=16, heavy=True), (0,)),
+    # Either side of the one-block route's 2,048 items, on the rounds, scan
+    # and closed routes; heavy rows walked by a warp (token bucket and
+    # throttle, with rounds bounding the walk).
+    "e_s8": (dict(s=8, pr=8), (0, 1, 4)),
+    "e_s2048": (dict(s=2048, pr=64), (0, 4, 16)),
+    "e_s2049": (dict(s=2049, pr=64), (0, 4, 16)),
+    "e_closed_s8": (dict(s=8, pr=4, closed=True, nts=2), (-1, -8)),
+    "e_closed_s2048": (dict(s=2048, pr=64, closed=True, nts=5), (-8, -1)),
+    "e_closed_s2049": (dict(s=2049, pr=64, closed=True, nts=5), (-8, -2)),
+    "e_heavy_s2048": (dict(s=2048, pr=16, heavy=True), (0, 100)),
+    "e_heavy_throttle_s2048": (dict(s=2048, pr=16, heavy=True, heavy_row=1, sorted_ts=False), (0,)),
+    "e_heavy_throttle_s4096": (dict(s=4096, pr=16, heavy=True, heavy_row=1), (0, 200)),
 }
 
 
@@ -357,6 +369,46 @@ def test_param_kernel(cuda, case):
         _eq(ww, gw, f"{case} rounds={rounds} wait")
         _states_eq(wd, gd, f"{case} rounds={rounds} state")
         assert bool(wok.any()) and not bool(wok.all())
+
+
+K4_CASES = [(nk, topk, False) for nk in (8, 64, 2048, 2049, 131072) for topk in (0, 8)] + [
+    (nk, 8, True) for nk in (64, 2049, 131072)]
+
+
+@pytest.mark.parametrize("nk,topk,few", K4_CASES, ids=[f"{nk}-top{t}{'-few' if f else ''}" for nk, t, f in K4_CASES])
+def test_flow_admission_routes_kernel(cuda, nk, topk, few):
+    """K4 on both of its routes (one block up to 2,048 slots, many blocks
+    above): the DEFAULT path with its fused tail and top-K, and the slot
+    chain's stage with occupy and the pass plus charge, against the plain
+    version on the card. ``few``: every entry on one resource under high
+    counts, so fewer than 8 rows carry blocked weight. One launch counted
+    per call."""
+    rng = np.random.default_rng(nk + topk + few)
+    k = 2 if nk % 2 == 0 and nk <= 2048 else 1
+    n, nr = nk // k, 64
+    n_rows = 32 if nk <= 64 else 1024
+    now = 4_321_000 + 123
+    arrs = borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    lo, hi = (5000, 6000) if few else (2, 40)
+    table, _ = random_flow_table(rng, nr, thread_frac=0.2, lo=lo, hi=hi)
+    tt, _ = flow_table_from_numpy(table, None, cuda)
+    b = list(random_flush_batch(rng, n, k, n_rows, nr, now, n - n // 16, one_row=few))
+    b[7] = rng.random(n) < 0.4
+    batch = tflush.batch_from_numpy(b, cuda)
+    live = _t(b[1] & (rng.random(n) < 0.9), cuda)
+    stats = tnodes.stats_from_numpy(arrs, cuda)
+    for tail in (True, False):
+        args = (topk,) if tail else (0, live, 500, True, False, True)
+        want = tflush.flow_admission_plain(stats, tt, batch, *args)
+        before = tflush.flow_admission.launches
+        got = tflush.flow_admission(stats, tt, batch, *args)
+        assert tflush.flow_admission.launches == before + 1
+        for name, x, y in zip(want._fields, want, got):
+            _eq(x, y, f"tail={tail} admission {name}")
+    assert bool(want.flow_pass.any()) and (few or nk < 64 or not bool(want.flow_pass.all()))
+    if few and topk:
+        adm = tflush.flow_admission_plain(stats, tt, batch, topk)
+        assert int((adm.blk_weight > 0).sum()) < 8
 
 
 def test_flow_admission_pass_plus_charge(cuda):
@@ -532,6 +584,75 @@ def test_token_decide_atomic_kernel(cuda):
         _eq(want, got, f"atomic over={over}")
         _states_eq(plain, state, f"atomic state over={over}")
         assert int(state.counts.sum()) == (0 if over else b)
+
+
+def test_shared_scratch_across_threads(cuda):
+    """K12 at 16,384 requests, K4 with its top-8 tail at 131,072 entries
+    and K10 at 4,096 items, each in a host thread of its own and all on the
+    default stream: the three share the stream's scratch and the zeroed
+    top-K buffer, which start empty so that they grow during the run. Every
+    call equals its plain version, computed beforehand."""
+    import threading
+
+    from sentinel_tpu_torch.utils import cuda_build
+
+    iters = 20
+    rng = np.random.default_rng(47)
+    # K12
+    n_flows, n_ns = 1 << 16, 16
+    td_state = ma.make_state(n_flows + n_ns, tts.CLUSTER_CFG, cuda)
+    td_args = _token_batch(rng, cuda, 16384, n_flows, n_ns, n_flows + n_ns)
+    td_plain = _clone(td_state)
+    td_want = tts.batch_decide_plain(td_plain, *td_args, 1000, atomic=False)
+    # K4
+    n, n_rows, nr, now = 131072, 1024, 64, 4_321_000 + 123
+    stats = tnodes.stats_from_numpy(borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG), cuda)
+    tt, _ = flow_table_from_numpy(random_flow_table(rng, nr, thread_frac=0.2, lo=2, hi=40)[0], None, cuda)
+    batch = tflush.batch_from_numpy(random_flush_batch(rng, n, 1, n_rows, nr, now, n - n // 16), cuda)
+    fa_want = tflush.flow_admission_plain(stats, tt, batch, 8)
+    # K10
+    pb, dyn = random_param_case(np.random.default_rng(22), s=4096, pr=256)
+    pa_batch, pa_dyn = tpt.param_batch_from_numpy(pb, cuda), tpt.param_state_from_numpy(dyn, cuda)
+    pa_want = tpt.run_param_plain(_clone(pa_dyn), pa_batch, 4)
+    torch.cuda.synchronize()
+
+    got = {"td": [], "fa": [], "pa": []}
+    start = threading.Barrier(3)
+    errors = []
+
+    def run(name, call):
+        try:
+            start.wait()
+            for _ in range(iters):
+                got[name].append(call())
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+
+    def td():
+        state = _clone(td_state)
+        return tts.batch_decide(state, *td_args, 1000, atomic=False), state
+
+    calls = {"td": td, "fa": lambda: tflush.flow_admission(stats, tt, batch, 8),
+             "pa": lambda: tpt.run_param(_clone(pa_dyn), pa_batch, 4)}
+    cuda_build._SCRATCH.clear()
+    threads = [threading.Thread(target=run, args=item) for item in calls.items()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for i, (out, state) in enumerate(got["td"]):
+        _eq(td_want, out, f"K12 call {i}")
+        _states_eq(td_plain, state, f"K12 call {i} state")
+    for i, adm in enumerate(got["fa"]):
+        for name, x, y in zip(fa_want._fields, fa_want, adm):
+            _eq(x, y, f"K4 call {i} {name}")
+    for i, (d, ok, wait) in enumerate(got["pa"]):
+        _eq(pa_want[1], ok, f"K10 call {i} ok")
+        _eq(pa_want[2], wait, f"K10 call {i} wait")
+        _states_eq(pa_want[0], d, f"K10 call {i} state")
+    assert fa_want.blk_weight is not None and bool((fa_want.blk_weight > 0).any())
 
 
 # --- the sharded step: K13-K16 and K8's probe_allowed --------------------------------

@@ -33,7 +33,18 @@ PARAM_CASES = {
     "closed_mixed_ts": (dict(s=256, pr=32, closed=True, nts=5), [-8, -2, 0]),
     "closed_heavy": (dict(s=512, pr=16, closed=True, nts=2, heavy=True), [-2, 0]),
     "heavy_value": (dict(s=512, pr=16, heavy=True), [0, 4]),
+    # The kernel's routes: one item, no valid item, one throttled row of
+    # about 1,000 items in random ts order (a walk over many 32-record
+    # chunks), and s on either side of the one-block route's 2,048.
+    "one_item": (dict(s=1, pr=8), [0, 1, -1]),
+    "all_invalid": (dict(s=64, pr=8, valid_frac=0.0), [0, 4, -2]),
+    "long_row": (dict(s=1000, pr=8, heavy=True, heavy_row=1, sorted_ts=False), [0, 100]),
+    "s_2048": (dict(s=2048, pr=64), [0, 4]),
+    "s_2049": (dict(s=2049, pr=64), [0, 16]),
+    "closed_2049": (dict(s=2049, pr=64, closed=True, nts=5), [-8]),
 }
+# Cases whose verdicts need not mix admits and blocks.
+UNMIXED = {"one_item", "all_invalid"}
 PARAM_RUNS = [(c, r) for c in sorted(PARAM_CASES) for r in PARAM_CASES[c][1]]
 
 
@@ -48,7 +59,10 @@ def test_run_param_parity(case, rounds):
     assert_same(want[2], got[2], "wait")
     assert_same(tuple(jax.device_get(want[0])), tuple(t.numpy() for t in got[0]), "state")
     ok = np.asarray(want[1])
-    if rounds <= 0 or case == "every_grade":  # a small bound leaves a heavy row's tail unresolved (ok)
+    if case == "all_invalid":
+        assert ok.all() and not np.asarray(want[2]).any()
+    elif case not in UNMIXED and (rounds <= 0 or case == "every_grade"):
+        # a small bound leaves a heavy row's tail unresolved (ok)
         assert ok.any() and not ok.all()
     if case == "every_grade" and rounds in (0, 16):
         assert (np.asarray(want[2]) > 0).any(), "some throttled value queued"

@@ -82,7 +82,9 @@ def random_flow_table(rng, nr, thread_frac=0.3, lo=0, hi=8):
     return table, dyn
 
 
-def random_flush_batch(rng, n, k, n_rows, nr, now, n_valid, m=8, m_valid=0, near_max=False):
+def random_flush_batch(rng, n, k, n_rows, nr, now, n_valid, m=8, m_valid=0, near_max=False, one_row=False):
+    """``one_row``: every entry on one resource (its ts out of entry
+    order, a quarter of them equal)."""
     e_valid = np.zeros(n, bool)
     e_valid[:n_valid] = True
     span = 40 if near_max else 900
@@ -91,6 +93,8 @@ def random_flush_batch(rng, n, k, n_rows, nr, now, n_valid, m=8, m_valid=0, near
     e_acq = rng.integers(1, 3, n).astype(np.int32)
     res = rng.integers(1, n_rows // 2, n)
     res[: n // 4] = res[0]
+    if one_row:
+        res[:] = res[0]
     e_rows = np.stack(
         [res + n_rows // 2 - 1, res, np.where(rng.random(n) < 0.3, res % 3 + n_rows - 4, -1),
          np.where(rng.random(n) < 0.5, 0, -1)], axis=1,
@@ -329,18 +333,22 @@ def random_shaping_case(rng, s, nr, behaviors=(1, 2, 3), t0=1000, span=5000, n_h
     return table, dyn, batch, rng.integers(0, 60, s).astype(np.int32), rng.integers(0, 60, s).astype(np.int32)
 
 
-def random_param_case(rng, s, pr, closed=False, nts=1, heavy=False, t0=5000):
+def random_param_case(rng, s, pr, closed=False, nts=1, heavy=False, t0=5000, heavy_row=5, valid_frac=0.9,
+                      sorted_ts=True):
     """(batch, dyn) as numpy arrays in the layouts of ParamBatch and
     ParamDynState. Open: every grade and behavior (token bucket, throttle
     with queueing, THREAD), hot-item thresholds, acquire 0-2, rows never
     seen and warm, LRU resets and exit releases. ``closed``: the engine's
     closed-form shape (QPS-grade DEFAULT, one acquire >= 1, at most
-    ``nts`` timestamps 700 ms apart). ``heavy``: every item on one row."""
+    ``nts`` timestamps 700 ms apart). ``heavy``: every item on one row
+    (``heavy_row``: 5 a token bucket, 1 a throttle). ``valid_frac``: the
+    share of valid items. ``sorted_ts=False``: open items' ts in random
+    order."""
     prow = rng.integers(0, pr, s).astype(np.int32)
     prow[: s // 4] = 3
     if heavy:
-        prow[:] = 5
-    valid = rng.random(s) < 0.9
+        prow[:] = heavy_row
+    valid = rng.random(s) < valid_frac
     if closed:
         grade = np.ones(s, np.int32)
         beh = np.zeros(s, np.int32)
@@ -350,7 +358,8 @@ def random_param_case(rng, s, pr, closed=False, nts=1, heavy=False, t0=5000):
         grade = np.where(prow % 4 == 0, 0, 1).astype(np.int32)
         beh = np.where(prow % 3 == 1, 2, 0).astype(np.int32)
         acq = rng.integers(0, 3, s).astype(np.int32)
-        ts = np.sort(t0 + rng.integers(0, 4000, s)).astype(np.int32)
+        ts = t0 + rng.integers(0, 4000, s)
+        ts = (np.sort(ts) if sorted_ts else ts).astype(np.int32)
     tc = np.array([3, 5, 0, 7, 2, 9, 4, 6], np.int32)[prow % 8]
     burst = (prow % 3).astype(np.int32)
     dur = ((prow % 3) * 1000).astype(np.int32)
