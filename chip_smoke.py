@@ -68,14 +68,18 @@ admit exactly 20; phase 9 runs examples/mesh_demo.py's sequence.
 The token service's decision (K12) is held against its plain version in
 phase 2e on a token server's stream at 16,384 requests a batch and at 8,
 64 and 1,024, and with each batch's int32 cumsum past 2^31; phase 8
-drives it through st.entry on cluster-mode rules. Phases 2, 2b, 2c and
-2e also print the device kernels, memsets and device time of one call of
-the window update (K2), the flow admission (K4, both routes, at 131,072
-entries and at 8; its time at 32,768 too), the hot-parameter recurrence
-(K10, at the mixed shape and at 8 items) and K12 (torch.profiler,
-gpu_timing.py), and fail if the profiler reads no kernel, if K2 issues
-more than four kernels and memsets a call, or if K4, K10 or K12 issue
-anything but one kernel at 8 entries, items or requests. Phase 4 reads
+drives it through st.entry on cluster-mode rules. Phases 2, 2b, 2c, 2e
+and 2f also print the device kernels, memsets and device time of one call
+of the window update (K2), the flow admission (K4, both routes, at 131,072
+entries and at 8; its time at 32,768 too), the system check (K6) and the
+breaker entry check (K8, and with the mask also at a mesh shard's 4,096
+slots) at 131,072 entries and at 8, the hot-parameter recurrence (K10, at
+the mixed shape and at 8 items) and K12 (torch.profiler, gpu_timing.py),
+and fail if the profiler reads no kernel, if K2 issues more than four
+kernels and memsets a call, or if K4, K6, K8, K10 or K12 issue anything
+but one kernel at 8 entries, items or requests. For K6 and K8 they also
+time both routes at the sizes where the route is chosen (2,048, 4,096
+and 8,192; with the mask 4,096), each equal to the plain version. Phase 4 reads
 cluster_node_stats every tenth flush (K3 with a row gather), on the card
 and on the CPU engine, as a path of its own: K3 is off the flush path, and
 its launches on the kernels line are those of these reads.
@@ -615,6 +619,48 @@ def slab_only(stats: nodes.StatsState) -> nodes.StatsState:
     return stats._replace(future_pass=stats.future_pass.clone(), future_ws=stats.future_ws.clone())
 
 
+def call_profile(results: dict, name: str, call, small_call, small_plain, what: str) -> None:
+    """Device kernels, memsets and device ms a call of ``call`` (full
+    width) and of ``small_call`` (8 entries, equal to ``small_plain``); the
+    phase fails unless the 8 entries take one kernel and no memset."""
+    launches, memsets, dev_ms = profile(call, f"{what}: {name}")
+    err = require_equal(small_plain(), small_call(), f"{name} (N=8)")
+    s_launches, s_memsets, s_dev = profile(small_call, f"{what}: {name} at N=8")
+    r = results[name]
+    r.update(launches_per_call=launches, memsets_per_call=memsets, device_ms=dev_ms, small_ms=time_ms(small_call),
+             small_launches_per_call=s_launches, small_memsets_per_call=s_memsets, small_device_ms=s_dev,
+             max_abs_err=max(r.get("max_abs_err", 0), err))
+    log(f"    {name}: {launches} device kernels, {memsets} memsets, {dev_ms:.4f} ms of device time a call; N=8: "
+        f"{r['small_ms']:.4f} ms, {s_launches} kernels, {s_memsets} memsets, {s_dev:.4f} ms of device time")
+    if (s_launches, s_memsets) != (1, 0):
+        fail(f"{what}: {name} at N=8 issued {s_launches} kernels and {s_memsets} memsets in one call")
+
+
+def route_times(results: dict, name: str, mod, const: str, call_at, plain_at, sizes, what: str) -> None:
+    """Each size through the one-block route and then the many-block one
+    (``mod.<const>`` set to 8,192, the one-block route's capacity, then to
+    0), each equal to the plain version: {size: [one-block ms, its device
+    ms, many-block ms, its device ms]} under ``routes``, beside the
+    threshold in use (``small_max``)."""
+    saved = getattr(mod, const)
+    routes = {}
+    try:
+        for n in sizes:
+            call = call_at(n)
+            want = plain_at(n)()
+            row = []
+            for small in (8192, 0):
+                setattr(mod, const, small)
+                require_equal(want, call(), f"{name} at {n} (one-block route up to {small})")
+                row += [time_ms(call), profile(call, f"{what}: {name} at {n}")[2]]
+            routes[str(n)] = row
+    finally:
+        setattr(mod, const, saved)
+    results[name].update(routes=routes, small_max=saved)
+    log(f"    {name} routes, [one block ms, device ms, many blocks ms, device ms] by size (threshold {saved}): "
+        + ", ".join(f"{n}: [{', '.join(f'{v:.4f}' for v in row)}]" for n, row in routes.items()))
+
+
 def phase2_chain(results: dict) -> None:
     log("phase 2b: the rest of the slot chain against the plain versions (occupy, borrow commit, "
         "system, breakers, verdict tail)")
@@ -753,24 +799,27 @@ def phase2_chain(results: dict) -> None:
             else:
                 results[name].update(zipf_ms=k_ms, zipf_plain_ms=p_ms)
         if not skewed:
-            # K4's slot-chain route with occupy: kernels and memsets a call,
-            # at N and at the 8 entries st.entry sends (one block).
-            occ = lambda b_, l_: flush.flow_admission(stats, table, b_, 0, l_, 500, True, False)
-            launches, memsets, dev_ms = profile(lambda: occ(batch, live), f"phase 2b: K4 with occupy at N={N}")
+            # K4's slot-chain route with occupy, K6 and K8: kernels and
+            # memsets a call, at N and at the 8 entries st.entry sends (one
+            # block); for K6 and K8 each route's time where it is chosen.
+            occ = lambda b_, l_: lambda: flush.flow_admission(stats, table, b_, 0, l_, 500, True, False)
+            occ_plain = lambda b_, l_: lambda: flush.flow_admission_plain(stats, table, b_, 0, l_, 500, True, False)
             b8, l8 = sub_batch(batch, 8), live[:8]
-            err = require_equal(flush.flow_admission_plain(stats, table, b8, 0, l8, 500, True, False), occ(b8, l8),
-                                "flow_admission with occupy (N=8)")
-            s_launches, s_memsets, s_dev = profile(lambda: occ(b8, l8), "phase 2b: K4 with occupy at N=8")
-            results["flow_admission_occupy"].update(
-                launches_per_call=launches, memsets_per_call=memsets, device_ms=dev_ms,
-                small_ms=time_ms(lambda: occ(b8, l8)), small_launches_per_call=s_launches,
-                small_memsets_per_call=s_memsets, small_device_ms=s_dev,
-                max_abs_err=max(results["flow_admission_occupy"].get("max_abs_err", 0), err))
-            log(f"    flow_admission_occupy: {launches} device kernels, {memsets} memsets, {dev_ms:.4f} ms of "
-                f"device time a call; N=8: {results['flow_admission_occupy']['small_ms']:.4f} ms, {s_launches} "
-                f"kernels, {s_memsets} memsets, {s_dev:.4f} ms of device time (profiler)")
-            if (s_launches, s_memsets) != (1, 0):
-                fail(f"phase 2b: K4 with occupy at N=8 issued {s_launches} kernels and {s_memsets} memsets")
+            call_profile(results, "flow_admission_occupy", occ(batch, live), occ(b8, l8), occ_plain(b8, l8),
+                         "phase 2b")
+            sc = lambda b_, l_: lambda: flush.system_check(stats, sysdev, b_, l_)
+            sc_plain = lambda b_, l_: lambda: flush.system_check_plain(stats, sysdev, b_, l_)
+            call_profile(results, "system_check", sc(batch, live0), sc(b8, live0[:8]), sc_plain(b8, live0[:8]),
+                         "phase 2b")
+            route_times(results, "system_check", flush, "SYSTEM_CHECK_SMALL_MAX",
+                        lambda n: sc(sub_batch(batch, n), live0[:n]), lambda n: sc_plain(sub_batch(batch, n), live0[:n]),
+                        (2048, 4096, 8192), "phase 2b")
+            bt = lambda n: lambda: tdt.breaker_try_pass(ddev, dyn_x, batch.e_dgid[:n], batch.e_ts[:n], e_live[:n])
+            bt_plain = lambda n: lambda: tdt.breaker_try_pass_plain(ddev, dyn_x, batch.e_dgid[:n], batch.e_ts[:n],
+                                                                    e_live[:n])
+            call_profile(results, "breaker_try_pass", bt(N), bt(8), bt_plain(8), "phase 2b")
+            route_times(results, "breaker_try_pass", tdt, "TRY_PASS_SMALL_MAX", bt, bt_plain, (2048, 4096, 8192),
+                        "phase 2b")
         del stats, batch, ddev, dyn, dyn_x, dyn_s, slab_s, adm, adm0, v, wv
         torch.cuda.empty_cache()
 
@@ -2480,6 +2529,20 @@ def phase2_mesh(results: dict) -> None:
         plain_ms=time_ms(lambda: tdt.breaker_try_pass_plain(ddev, dyn, batch.e_dgid, batch.e_ts, e_live, allowed)),
         bound=bound(N * (4 + 4 + 1 + 2) + touched * 9), library_ms=None,
         shape=f"N={N} entries x KD=1 against ND={ND} breakers, half of them allowed a probe")
+    # A call at N, at the mesh engine's shard (32,768 entries over 8 shards:
+    # 4,096 slots) and at 8 entries; the routes at the shard's size.
+    btm = lambda n: lambda: tdt.breaker_try_pass(ddev, dyn, batch.e_dgid[:n], batch.e_ts[:n], e_live[:n], allowed)
+    btm_plain = lambda n: lambda: tdt.breaker_try_pass_plain(ddev, dyn, batch.e_dgid[:n], batch.e_ts[:n], e_live[:n],
+                                                             allowed)
+    call_profile(results, "breaker_try_pass_mask", btm(N), btm(8), btm_plain(8), "phase 2f")
+    shard = 32768 // D_MESH
+    err = require_equal(btm_plain(shard)(), btm(shard)(), f"breaker_try_pass with probe_allowed at {shard}")
+    s_launches, s_memsets, s_dev = profile(btm(shard), f"phase 2f: breaker_try_pass_mask at {shard}")
+    results["breaker_try_pass_mask"].update(shard_ms=time_ms(btm(shard)), shard_launches_per_call=s_launches,
+                                            shard_memsets_per_call=s_memsets, shard_device_ms=s_dev)
+    log(f"    breaker_try_pass_mask at {shard} slots: {results['breaker_try_pass_mask']['shard_ms']:.4f} ms, "
+        f"{s_launches} kernels, {s_memsets} memsets, {s_dev:.4f} ms of device time")
+    route_times(results, "breaker_try_pass_mask", tdt, "TRY_PASS_SMALL_MAX", btm, btm_plain, (shard,), "phase 2f")
     del ddev, dyn, want, got, free
     # K15: the budget split, on Zipf traffic that overruns the grants
     table = make_table()
@@ -2872,7 +2935,8 @@ def main() -> None:
         for extra in ("library_call", "zipf_ms", "zipf_plain_ms", "heavy_ms", "index_add_ms", "widened_ms",
                       "ties_ms", "borrow_ms", "mixed_k2_ms", "launches_per_call", "memsets_per_call", "device_ms",
                       "small_ms", "small_launches_per_call", "small_memsets_per_call", "small_device_ms",
-                      "small_bound_ms", "ms_32768"):
+                      "small_bound_ms", "ms_32768", "routes", "small_max", "shard_ms", "shard_launches_per_call",
+                      "shard_memsets_per_call", "shard_device_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

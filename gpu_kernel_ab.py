@@ -1,5 +1,6 @@
-"""Times the window update (K2), the flow admission (K4), the hot-parameter
-recurrence (K10) and the token decision (K12) of one checkout of
+"""Times the window update (K2), the flow admission (K4), the system check
+(K6), the breaker entry check (K8), the hot-parameter recurrence (K10)
+and the token decision (K12) of one checkout of
 sentinel_tpu_torch on the card, so that two commits can be compared on
 one card in alternating runs:
 
@@ -13,6 +14,11 @@ back-to-back calls (gpu_timing.time_ms):
 - K4: the DEFAULT path with its tail and top-8 at 131,072 and at 8 entries
   (K = 1, uniform rows, ts over 400 ms) against 1,048,576 QPS rules of
   count 20 and their rows' second windows;
+- K6: the same entries (131,072 and 8), all inbound, against row 0, under
+  QPS and thread thresholds that block part of them, BBR load and CPU;
+- K8: the same entries, one breaker each of 1,048,576 (40% OPEN, half of
+  those due), at 131,072 slots with and without the mesh's mask (half the
+  breakers), at a mesh shard's 4,096 with it, and at 8;
 - K10: chip_smoke.py's mixed shape (32,768 QPS items over 16,384 value
   rows, token count 100, the engine's rounds bound) and its first 8 items;
 - K12: batches of 16,384 and of 8 Zipf(1.1) requests over 65,536 flows in
@@ -20,11 +26,12 @@ back-to-back calls (gpu_timing.time_ms):
 
 Inputs are made here from fixed seeds, the same for every checkout, only
 through long-standing functions of the package (batch_from_numpy,
-flow_table_from_numpy, the state tuples, make_param_state); the token
-batches are chip_smoke.py's (gpu_timing.token_batch). Each call's device
-kernels, memsets and device time are read from torch.profiler over 20
-calls, and for K4 and K10 at full size the device us a call by kernel
-(k4_kernel_us, k10_kernel_us); the script fails if the profiler reads no
+flow_table_from_numpy, the degrade tables' from_numpy, the state tuples,
+make_param_state); the token batches are chip_smoke.py's
+(gpu_timing.token_batch). Each call's device kernels, memsets and device
+time are read from torch.profiler over 20 calls, and for K4, K6 and K10
+at full size the device us a call by kernel (k4_kernel_us, k6_kernel_us,
+k10_kernel_us); the script fails if the profiler reads no
 kernel. Prints one JSON line that carries the card's name and power
 limit. Needs CUDA; imports no JAX. The helpers come from the
 gpu_timing.py beside this script, whichever checkout it times.
@@ -62,13 +69,15 @@ def main() -> None:
     from sentinel_tpu_torch.metrics import metric_array as ma
     from sentinel_tpu_torch.metrics import nodes
     from sentinel_tpu_torch.metrics.events import NUM_EVENTS
+    from sentinel_tpu_torch.rules import degrade_table as tdt
     from sentinel_tpu_torch.rules import param_table as tpt
     from sentinel_tpu_torch.rules.flow_table import flow_table_from_numpy
     from sentinel_tpu_torch.runtime import flush
     from sentinel_tpu_torch.runtime.engine import _rounds_bucket
     from sentinel_tpu_torch.utils import cuda_build
 
-    cuda_build.build_all(["window_update", "token_decide", "flow_admission", "param_scan"])
+    cuda_build.build_all(["window_update", "token_decide", "flow_admission", "param_scan", "system_check",
+                          "breaker_try_pass"])
     dev = torch.device("cuda", 0)
     i32 = torch.int32
     out = {"tag": args.tag, "root": args.root, "card": card_line(), "torch": torch.__version__}
@@ -136,7 +145,32 @@ def main() -> None:
     profiled("k4", lambda: flush.flow_admission(stats, table, batch, 8))
     out["k4_kernel_us"] = kernel_times(lambda: flush.flow_admission(stats, table, batch, 8))
     profiled("k4_small", lambda: flush.flow_admission(stats, table, small, 8))
-    del stats, second, table, batch, small
+
+    # K6: the same entries, every one inbound and live, against row 0.
+    sysdev = flush.SystemDevice(0.3 * n, 0.15 * n, float("inf"), 1.0, 0.5, 5.0, 0.9)
+    profiled("k6", lambda: flush.system_check(stats, sysdev, batch, batch.e_valid))
+    out["k6_kernel_us"] = kernel_times(lambda: flush.system_check(stats, sysdev, batch, batch.e_valid))
+    profiled("k6_small", lambda: flush.system_check(stats, sysdev, small, small.e_valid))
+
+    # K8: the same entries, one breaker each of 1,048,576 (40% OPEN, half of
+    # those due), with and without the mesh's mask (half the breakers), at
+    # 131,072 slots, at a mesh shard's 4,096 and at 8.
+    ri = lambda lo, hi: rng4.integers(lo, hi, rows_n).astype(np.int32)
+    dtable = tdt.degrade_table_from_numpy(
+        (ri(0, 3), np.full(rows_n, 0.5, np.float32), np.full(rows_n, 0.5, np.float32), ri(2, 6),
+         np.full(rows_n, 1000, np.int32), np.full(rows_n, 5000, np.int32), ri(50, 150)), dev)
+    ddyn = tdt.degrade_state_from_numpy(
+        (np.where(rng4.random(rows_n) < 0.4, 1, 0), now + ri(-2000, 2000), ri(0, 4), ri(4, 8),
+         np.full(rows_n, now - now % 1000, np.int32)), dev)
+    allowed = t(rng4.random(rows_n) < 0.5)
+    dgid = t(rng4.integers(0, rows_n, (n, 1)).astype(np.int32))
+    k8 = lambda m, mask=None: lambda: tdt.breaker_try_pass(dtable, ddyn, dgid[:m], batch.e_ts[:m], batch.e_valid[:m],
+                                                           mask)
+    profiled("k8", k8(n))
+    profiled("k8_mask", k8(n, allowed))
+    profiled("k8_mask_4096", k8(4096, allowed))
+    profiled("k8_small", k8(8))
+    del stats, second, table, batch, small, dtable, ddyn, allowed, dgid
     torch.cuda.empty_cache()
 
     # K10: chip_smoke.py's mixed shape, 32,768 items over 16,384 rows.

@@ -575,8 +575,9 @@ __global__ void fa_chain(int n, int k, int kd, int n_rows, const uint8_t* __rest
 
 // The top-K (k <= KMAX) of the dense weights by weight descending, row
 // ascending, in one launch: each block keeps its k best and zeroes what it
-// read, the last block to finish merges the candidates and resets the
-// counter. `zero` is the caller's zeroed buffer (TOPK_DENSE + n_rows ints).
+// read, the last block to finish merges the candidates, zeroes them and
+// resets the counter: the buffer is all zero again when it ends. `zero` is
+// the caller's zeroed buffer (TOPK_DENSE + n_rows ints).
 __global__ void fa_topk(int* __restrict__ zero, int n_rows, int k, int* __restrict__ out_w, int* __restrict__ out_r) {
   __shared__ int sw[THREADS * KMAX];
   __shared__ int sr[THREADS * KMAX];
@@ -614,8 +615,12 @@ __global__ void fa_topk(int* __restrict__ zero, int n_rows, int k, int* __restri
   __threadfence();
   list_init(lw, lr);
   for (int b = threadIdx.x; b < (int)gridDim.x; b += THREADS)
-    for (int j = 0; j < k; ++j)
-      list_insert(lw, lr, __ldcg(cand_w + b * KMAX + j), __ldcg(cand_r + b * KMAX + j));
+    for (int j = 0; j < k; ++j) {
+      int* cw = cand_w + b * KMAX + j;
+      int* cr = cand_r + b * KMAX + j;
+      list_insert(lw, lr, __ldcg(cw), __ldcg(cr));
+      *cw = *cr = 0;  // zero again: K8 takes its election cells from the same buffer
+    }
   lists_merge(sw, sr, lw, lr);
   if (threadIdx.x < k) {
     out_w[threadIdx.x] = sw[threadIdx.x];

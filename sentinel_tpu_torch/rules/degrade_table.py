@@ -31,6 +31,7 @@ which needs the final admission. State updates happen IN PLACE.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -380,7 +381,7 @@ def _setup_exits(lib) -> None:
 
 
 def _setup_try(lib) -> None:
-    lib.breaker_try_pass.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]
+    lib.breaker_try_pass.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _I, _P]
     lib.breaker_try_pass.restype = _I
 
 
@@ -389,12 +390,24 @@ def _check(t: torch.Tensor, what: str, dtype, shape=None) -> None:
         raise ValueError(f"{what}: need a contiguous CUDA {dtype} tensor" + (f" of shape {tuple(shape)}" if shape else ""))
 
 
+# Weak references to the tensors of the (ddev, dyn) pair _check_tables
+# passed last: the engine calls the kernels on the same tables flush after
+# flush, and their tensors are updated in place, never replaced or resized.
+_tables_checked: Tuple = ()
+
+
 def _check_tables(ddev, dyn) -> None:
+    global _tables_checked
+    tensors = (*ddev, *dyn)
+    last = _tables_checked
+    if len(last) == len(tensors) and all(ref() is t for ref, t in zip(last, tensors)):
+        return
     nd = ddev.n_rules
     for name, t in zip(DegradeTableDevice._fields, ddev):
         _check(t, f"ddev.{name}", torch.float32 if name in _FLOAT_FIELDS else torch.int32, (nd,))
     for name, t in zip(DegradeDynState._fields, dyn):
         _check(t, f"dyn.{name}", torch.int32, (nd,))
+    _tables_checked = tuple(weakref.ref(t) for t in tensors)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -441,31 +454,39 @@ def _breaker_on_exits_cuda(ddev, dyn, x_dgid, x_ts, x_rt, x_err, x_valid) -> Deg
     return dyn
 
 
+# Slots of K8's one-block route (the C side takes at most 8,192): above it
+# the election and the verdicts are two launches over many blocks.
+TRY_PASS_SMALL_MAX = 4096
+
+
 def _breaker_try_pass_cuda(ddev, dyn, e_dgid, e_ts, e_live, probe_allowed=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8 in one host call: one block up to TRY_PASS_SMALL_MAX slots, else
+    two launches; the election's cells are the zeroed scratch, which the
+    kernel leaves zeroed."""
     n, kd = e_dgid.shape
-    _check(e_dgid, "e_dgid", torch.int32, (n, kd))
+    nd = ddev.n_rules
+    _check(e_dgid, "e_dgid", torch.int32)
     _check(e_ts, "e_ts", torch.int32, (n,))
     _check(e_live, "e_live", torch.bool, (n,))
     _check_tables(ddev, dyn)
     if probe_allowed is not None:
-        _check(probe_allowed, "probe_allowed", torch.bool, (ddev.n_rules,))
+        _check(probe_allowed, "probe_allowed", torch.bool, (nd,))
     dev = e_dgid.device
-    ok = torch.empty((n, kd), dtype=torch.bool, device=dev)
-    probe = torch.empty((n, kd), dtype=torch.bool, device=dev)
+    out = torch.empty((2, n, kd), dtype=torch.bool, device=dev)  # slot_ok, probe_slot
     if n * kd == 0:
-        return ok, probe
+        return out[0], out[1]
     lib = _lib("breaker_try_pass", _setup_try)
-    win = torch.empty(ddev.n_rules, dtype=torch.int64, device=dev)  # only touched gids are written
-    cuda_build.check(
-        lib.breaker_try_pass(
-            e_dgid.data_ptr(), e_ts.data_ptr(), e_live.data_ptr(), n, kd, ddev.n_rules,
-            dyn.state.data_ptr(), dyn.next_retry.data_ptr(),
-            None if probe_allowed is None else probe_allowed.data_ptr(), win.data_ptr(), ok.data_ptr(),
-            probe.data_ptr(), _stream(e_dgid),
-        ),
-        "breaker_try_pass",
-    )
+    st = _stream(e_dgid)
+    with cuda_build.scratch(dev, st, 0, 8 * nd) as (_, _, win):
+        cuda_build.check(
+            lib.breaker_try_pass(
+                e_dgid.data_ptr(), e_ts.data_ptr(), e_live.data_ptr(), n, kd, nd, dyn.state.data_ptr(),
+                dyn.next_retry.data_ptr(), None if probe_allowed is None else probe_allowed.data_ptr(), win, 8 * nd,
+                out.data_ptr(), out[1].data_ptr(), TRY_PASS_SMALL_MAX, st,
+            ),
+            "breaker_try_pass",
+        )
     breaker_try_pass.launches += 1
     if probe_allowed is not None:
         breaker_try_pass.mask_launches += 1
-    return ok, probe
+    return out[0], out[1]

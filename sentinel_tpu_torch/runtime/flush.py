@@ -679,48 +679,64 @@ def system_check_plain(stats, sysdev, batch, live) -> Tuple[torch.Tensor, torch.
     return sys_type == SYS_NONE, sys_type
 
 
+# Entries of K6's one-block route (sorted in shared memory; the C side
+# takes at most 8,192): the many-block route's sort and scan win above it.
+SYSTEM_CHECK_SMALL_MAX = 2048
+
+
+class _ScArgs(ctypes.Structure):
+    """The ``ScArgs`` of ``csrc/system_check.cu``, field for field."""
+
+    _fields_ = [(name, _P) for name in (
+        "live", "e_rows", "e_ts", "e_acq", "counts0", "min_rt0", "ws0", "threads", "ok", "sys_type",
+    )] + [(name, _I) for name in ("n", "nb", "ne", "interval", "max_rt", "now", "small_max")] + [
+        (name, _F) for name in (
+            "interval_sec", "qps", "max_thread", "max_rt_thr", "load_thr", "cpu_thr", "cur_load", "cur_cpu")]
+
+
 def _sc_lib() -> ctypes.CDLL:
     lib = cuda_build.load("system_check")
     if not getattr(lib, "_typed", False):
-        lib.system_check_keys.argtypes = [_P, _P, _P, _I, _P, _P]
-        lib.system_check_apply.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_F] * 8 + [_P, _P, _P]
-        lib.system_check_keys.restype = lib.system_check_apply.restype = _I
+        lib.system_check_workspace.argtypes = [_I, _I]
+        lib.system_check_workspace.restype = ctypes.c_longlong
+        lib.system_check.argtypes = [ctypes.POINTER(_ScArgs), _P, ctypes.c_longlong, _P]
+        lib.system_check.restype = _I
         lib._typed = True
     return lib
 
 
+_SC_FIELDS = ("e_ts", "e_acquire", "e_rows")  # the batch fields K6 reads
+
+
 def _system_check_cuda(stats, sysdev, batch, live) -> Tuple[torch.Tensor, torch.Tensor]:
-    _check_batch_cuda(batch)
-    n = batch.e_valid.shape[0]
+    """K6 in one host call: one block up to SYSTEM_CHECK_SMALL_MAX entries,
+    else one CUB sort and one single-pass scan."""
+    _check_batch_cuda(batch, _SC_FIELDS)
+    n = batch.e_ts.shape[0]
     ma._bool(live, "live", n)
     sec = stats.second
-    for name, t in zip(ma.MetricArrayState._fields, sec):
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"stats.second.{name}: need a contiguous int32 tensor")
-    dev = batch.e_valid.device
+    for name, t in (*zip(ma.MetricArrayState._fields, sec), ("threads", stats.threads)):
+        if t.dtype != torch.int32 or not t.is_contiguous() or not t.is_cuda:
+            raise ValueError(f"stats.{name}: need a contiguous CUDA int32 tensor")
+    dev = batch.e_ts.device
     ok = torch.empty(n, dtype=torch.bool, device=dev)
     sys_type = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return ok, sys_type
     lib = _sc_lib()
     cfg = _nodes.SECOND_CFG
+    a = _ScArgs(
+        live=live.data_ptr(), e_rows=batch.e_rows.data_ptr(), e_ts=batch.e_ts.data_ptr(),
+        e_acq=batch.e_acquire.data_ptr(), counts0=sec.counts.data_ptr(), min_rt0=sec.min_rt.data_ptr(),
+        ws0=sec.window_start.data_ptr(), threads=stats.threads.data_ptr(), ok=ok.data_ptr(),
+        sys_type=sys_type.data_ptr(), n=n, nb=cfg.sample_count, ne=NUM_EVENTS, interval=cfg.interval_ms,
+        max_rt=cfg.max_rt, now=batch.now, small_max=SYSTEM_CHECK_SMALL_MAX, interval_sec=_interval_sec(),
+    )
+    a.qps, a.max_thread, a.max_rt_thr, a.load_thr, a.cpu_thr, a.cur_load, a.cur_cpu = (float(v) for v in sysdev)
     st = ma.stream_of(live)
-    key = torch.empty(n, dtype=torch.int32, device=dev)
-    cuda_build.check(
-        lib.system_check_keys(live.data_ptr(), batch.e_rows.data_ptr(), batch.e_ts.data_ptr(), n, key.data_ptr(), st),
-        "system_check_keys",
-    )
-    perm = torch.sort(key, stable=True).indices
-    cuda_build.check(
-        lib.system_check_apply(
-            perm.data_ptr(), live.data_ptr(), batch.e_rows.data_ptr(), batch.e_acquire.data_ptr(), n,
-            sec.counts.data_ptr(), sec.min_rt.data_ptr(), sec.window_start.data_ptr(), stats.threads.data_ptr(),
-            cfg.sample_count, NUM_EVENTS, cfg.interval_ms, cfg.max_rt, batch.now,
-            _interval_sec(), *(float(v) for v in sysdev),
-            ok.data_ptr(), sys_type.data_ptr(), st,
-        ),
-        "system_check_apply",
-    )
+    need = int(lib.system_check_workspace(n, SYSTEM_CHECK_SMALL_MAX))
+    with cuda_build.scratch(dev, st, need) as (buf, size, _):
+        cuda_build.check(lib.system_check(ctypes.byref(a), buf, size, st), "system_check")
     system_check.launches += 1
     return ok, sys_type
 

@@ -12,8 +12,8 @@ first launch builds, or a caller builds every source at once with
 Scratch: a kernel's wrapper takes its scratch from :func:`scratch`, one
 buffer per (device, stream) kept between calls and grown by doubling, and
 a buffer that must be zero at the start of a call (the blocked-weight
-top-K's), which the kernel leaves zeroed. One lock covers every call that
-uses them.
+top-K's of K4, the probe election's cells of K8), which every kernel that
+writes it leaves all zero. One lock covers every call that uses them.
 
 Flags: ``-O3`` and IEEE float arithmetic. Never ``--use_fast_math``: the
 admission compare needs round-to-nearest conversions and exact division

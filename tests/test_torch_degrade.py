@@ -17,7 +17,7 @@ import torch
 from sentinel_tpu.rules import degrade_table as jdt
 from sentinel_tpu_torch.rules import degrade_table as tdt
 
-from torch_parity import assert_same, block_of, random_degrade, random_exits, run_on_both
+from torch_parity import assert_same, block_of, many_candidates, random_degrade, random_exits, run_on_both
 
 CPU = torch.device("cpu")
 ND = 16
@@ -79,6 +79,28 @@ def test_breaker_try_pass_and_probe_transitions_parity(seed):
     j_after = jax.device_get(_j_probe(jd, jnp.asarray(e_dgid), j_probe, jnp.asarray(admitted)))
     tdt.apply_probe_transitions_plain(td, torch.tensor(e_dgid), t_probe, torch.tensor(admitted))
     assert_same(j_after, tdt.degrade_state_to_numpy(td), "after probe transitions")
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "probe_allowed"])
+@pytest.mark.parametrize("n", [64, 2049])
+def test_breaker_try_pass_many_candidates_parity(n, masked):
+    """Many candidates of one breaker at one ts: the lowest slot position
+    probes (the order the card's election keeps), with and without the
+    sharded step's mask."""
+    rng = np.random.default_rng(30 + n)
+    now = 900_000
+    table, dyn, e_dgid, e_ts, e_live = many_candidates(rng, n, 2, ND, now)
+    allowed = rng.random(ND) < 0.5
+    allowed[1] = True
+    (jt, jd), (tt, td) = _both_tables(table, dyn)
+    j_extra = (jnp.asarray(allowed),) if masked else ()
+    t_extra = (torch.tensor(allowed),) if masked else ()
+    j_ok, j_probe = _j_try_pass(jt, jd, *map(jnp.asarray, (e_dgid, e_ts, e_live)), *j_extra)
+    t_ok, t_probe = tdt.breaker_try_pass(tt, td, *_t(e_dgid, e_ts, e_live), *t_extra)
+    assert_same(j_ok, t_ok, "dslot_ok")
+    assert_same(j_probe, t_probe, "probe_slot")
+    first = int(np.flatnonzero(e_live)[0])
+    assert bool(np.asarray(j_probe)[first, 0]) and int(np.asarray(j_probe)[:, 0].sum()) == 1
 
 
 def test_degrade_index_matches_jax():

@@ -28,6 +28,10 @@ from sentinel_tpu_torch.runtime import sketch as tsk
 
 from torch_parity import (
     BREAKER_CASES,
+    SYSTEM_EDGE_CASES,
+    many_candidates,
+    system_edge_case,
+    system_edge_thresholds,
     breaker_merge_table,
     random_shard_stats,
     shard_breaker_case,
@@ -213,6 +217,176 @@ def test_system_check_kernel(cuda, case):
     assert tflush.system_check.launches == before + 1
     _eq(want[0], got[0], "ok")
     _eq(want[1], got[1], "sys_type")
+
+
+def _sizes(small_max):
+    return {"1": 1, "8": 8, "threshold": small_max, "threshold+1": small_max + 1, "131072": 131072}
+
+
+def _system_inputs(cuda, n, case):
+    rng = np.random.default_rng(n + len(case))
+    now = 1_000_250
+    arrs = borrowable_stats(rng, 64, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    b, live = system_edge_case(rng, n, case, now)
+    return tnodes.stats_from_numpy(arrs, cuda), tflush.batch_from_numpy(b, cuda), _t(live, cuda)
+
+
+@pytest.mark.parametrize("case", SYSTEM_EDGE_CASES)
+@pytest.mark.parametrize("size", ["1", "8", "threshold", "threshold+1", "131072"])
+def test_system_check_routes_kernel(cuda, size, case):
+    """K6 on both routes (one block up to SYSTEM_CHECK_SMALL_MAX entries,
+    CUB's sort and the look-back scan above) against the plain version:
+    no entry checked, one ts, ts at INT_MIN and INT_MAX beside unchecked
+    entries, acquire sums past 2^31. One launch counted per call."""
+    n = _sizes(tflush.SYSTEM_CHECK_SMALL_MAX)[size]
+    stats, batch, live = _system_inputs(cuda, n, case)
+    for vals in system_edge_thresholds(n):
+        sysdev = tflush.SystemDevice(*vals)
+        want = tflush.system_check_plain(stats, sysdev, batch, live)
+        before = tflush.system_check.launches
+        got = tflush.system_check(stats, sysdev, batch, live)
+        assert tflush.system_check.launches == before + 1
+        _eq(want[0], got[0], f"{case} n={n} ok")
+        _eq(want[1], got[1], f"{case} n={n} sys_type")
+
+
+@pytest.mark.parametrize("n", [2048, 4096, 8192])
+def test_system_check_forced_routes_kernel(cuda, monkeypatch, n):
+    """K6 at the sizes where the route is chosen, through each route in
+    turn: the one-block route at its capacity of 8,192 (64 KB of dynamic
+    shared memory) and the many-block route below the threshold."""
+    stats, batch, live = _system_inputs(cuda, n, "mixed")
+    sysdev = tflush.SystemDevice(*system_edge_thresholds(n)[1])
+    want = tflush.system_check_plain(stats, sysdev, batch, live)
+    for small_max in (8192, 0):
+        monkeypatch.setattr(tflush, "SYSTEM_CHECK_SMALL_MAX", small_max)
+        got = tflush.system_check(stats, sysdev, batch, live)
+        _eq(want[0], got[0], f"small_max={small_max} ok")
+        _eq(want[1], got[1], f"small_max={small_max} sys_type")
+
+
+def _zero_buffer(cuda):
+    from sentinel_tpu_torch.utils import cuda_build
+
+    return cuda_build._SCRATCH.get((True, cuda, torch.cuda.current_stream(cuda).cuda_stream))
+
+
+def _assert_zeroed(cuda, what):
+    torch.cuda.synchronize()
+    buf = _zero_buffer(cuda)
+    assert buf is not None and int(buf.count_nonzero()) == 0, f"{what}: the zeroed scratch is dirty"
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "probe_allowed"])
+@pytest.mark.parametrize("size", ["1", "8", "threshold", "threshold+1", "131072", "2049-one-breaker"])
+def test_breaker_try_pass_routes_kernel(cuda, size, masked):
+    """K8 on both routes (one block up to TRY_PASS_SMALL_MAX slots, the
+    election and the verdicts as two launches above) against the plain
+    version, with and without the mask; "2049-one-breaker": 2,049
+    candidates of one breaker at one ts, where the slot decides. The
+    election's cells in the zeroed scratch read zero after every call."""
+    kd = 1
+    if size == "2049-one-breaker":
+        rng = np.random.default_rng(2049)
+        n, nd, now = 2049, 64, 700_000
+        table, dyn, e_dgid, e_ts, e_live = many_candidates(rng, n, kd, nd, now)
+    else:
+        n = _sizes(tdt.TRY_PASS_SMALL_MAX)[size]
+        rng = np.random.default_rng(n)
+        nd, now = 1024, 700_000
+        table, dyn = random_degrade(rng, nd, now)
+        e_dgid = np.where(rng.random((n, kd)) < 0.9, rng.integers(0, nd, (n, kd)), -1).astype(np.int32)
+        e_ts = (now - rng.integers(-3000, 3000, n)).astype(np.int32)
+        e_ts[: n // 4] = e_ts[0]
+        e_live = rng.random(n) < 0.85
+    ddev, ddyn = tdt.degrade_table_from_numpy(table, cuda), tdt.degrade_state_from_numpy(dyn, cuda)
+    allowed = _t(rng.random(nd) < 0.5, cuda) if masked else None
+    if masked and size == "2049-one-breaker":
+        allowed[1] = True
+    args = (_t(e_dgid, cuda), _t(e_ts, cuda), _t(e_live, cuda), allowed)
+    want = tdt.breaker_try_pass_plain(ddev, ddyn, *args)
+    before = tdt.breaker_try_pass.launches
+    got = tdt.breaker_try_pass(ddev, ddyn, *args)
+    assert tdt.breaker_try_pass.launches == before + 1
+    _eq(want[0], got[0], "dslot_ok")
+    _eq(want[1], got[1], "probe_slot")
+    _assert_zeroed(cuda, size)
+    if size == "2049-one-breaker":
+        assert int(got[1].sum()) == 1 and bool(got[1][int(np.flatnonzero(e_live)[0]), 0])
+
+
+def test_breaker_try_pass_nd_changes_kernel(cuda):
+    """ND shrinking and then growing between calls, on both routes: the
+    cells of the largest table so far stay zero, and so do the ones a
+    smaller table leaves untouched."""
+    rng = np.random.default_rng(81)
+    now = 700_000
+    for nd in (4096, 16, 65536, 8, 100_000):
+        table, dyn = random_degrade(rng, nd, now)
+        ddev, ddyn = tdt.degrade_table_from_numpy(table, cuda), tdt.degrade_state_from_numpy(dyn, cuda)
+        for n in (64, tdt.TRY_PASS_SMALL_MAX + 1):
+            e_dgid = _t(rng.integers(-1, nd, (n, 2)).astype(np.int32), cuda)
+            e_ts = _t((now - rng.integers(-3000, 3000, n)).astype(np.int32), cuda)
+            e_live = _t(rng.random(n) < 0.9, cuda)
+            want = tdt.breaker_try_pass_plain(ddev, ddyn, e_dgid, e_ts, e_live)
+            got = tdt.breaker_try_pass(ddev, ddyn, e_dgid, e_ts, e_live)
+            _eq(want[0], got[0], f"nd={nd} n={n} ok")
+            _eq(want[1], got[1], f"nd={nd} n={n} probe")
+            _assert_zeroed(cuda, f"nd={nd} n={n}")
+
+
+def test_breaker_try_pass_refusals_kernel(cuda):
+    """After the table checks are cached, a new table with a wrong tensor
+    still raises; a call the C side refuses (cells smaller than the
+    table) launches nothing; the zeroed scratch stays zero throughout."""
+    from sentinel_tpu_torch.utils import cuda_build
+
+    rng = np.random.default_rng(82)
+    nd, n, now = 256, 512, 700_000
+    table, dyn = random_degrade(rng, nd, now)
+    ddev, ddyn = tdt.degrade_table_from_numpy(table, cuda), tdt.degrade_state_from_numpy(dyn, cuda)
+    args = (_t(rng.integers(0, nd, (n, 1)).astype(np.int32), cuda),
+            _t((now - rng.integers(-3000, 3000, n)).astype(np.int32), cuda), _t(rng.random(n) < 0.9, cuda))
+    tdt.breaker_try_pass(ddev, ddyn, *args)  # the checks of (ddev, ddyn) are now cached
+    bad = ddyn._replace(next_retry=ddyn.next_retry.to(torch.int64))
+    with pytest.raises(ValueError, match="dyn.next_retry"):
+        tdt.breaker_try_pass(ddev, bad, *args)
+    with pytest.raises(ValueError, match="ddev.grade"):
+        tdt.breaker_try_pass(ddev._replace(grade=ddev.grade.float()), ddyn, *args)
+    _assert_zeroed(cuda, "after the refused tables")
+    lib = tdt._lib("breaker_try_pass", tdt._setup_try)
+    out = torch.ones((2, n, 1), dtype=torch.bool, device=cuda)
+    st = torch.cuda.current_stream(cuda).cuda_stream
+    with cuda_build.scratch(cuda, st, 0, 8 * nd) as (_, _, win):
+        code = lib.breaker_try_pass(args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(), n, 1, nd,
+                                    ddyn.state.data_ptr(), ddyn.next_retry.data_ptr(), None, win, 8 * nd - 8,
+                                    out.data_ptr(), out[1].data_ptr(), tdt.TRY_PASS_SMALL_MAX, st)
+    assert code != 0
+    assert bool(out.all()), "a refused call wrote its outputs"
+    _assert_zeroed(cuda, "after the refused call")
+
+
+@pytest.mark.parametrize("which", ["system_check", "breaker_try_pass", "breaker_try_pass_mask"])
+def test_small_batch_is_one_kernel(cuda, which):
+    """At 8 entries K6 and K8 (with and without the mask) issue one device
+    kernel and no memset a call (torch.profiler through gpu_timing)."""
+    from gpu_timing import device_profile
+
+    if which == "system_check":
+        stats, batch, live = _system_inputs(cuda, 8, "mixed")
+        sysdev = tflush.SystemDevice(*system_edge_thresholds(8)[1])
+        fn = lambda: tflush.system_check(stats, sysdev, batch, live)
+    else:
+        rng = np.random.default_rng(83)
+        nd, now = 64, 700_000
+        table, dyn = random_degrade(rng, nd, now)
+        ddev, ddyn = tdt.degrade_table_from_numpy(table, cuda), tdt.degrade_state_from_numpy(dyn, cuda)
+        allowed = _t(rng.random(nd) < 0.5, cuda) if which.endswith("mask") else None
+        args = (_t(rng.integers(0, nd, (8, 1)).astype(np.int32), cuda),
+                _t(np.full(8, now, np.int32), cuda), _t(np.ones(8, bool), cuda), allowed)
+        fn = lambda: tdt.breaker_try_pass(ddev, ddyn, *args)
+    kernels, memsets, _ = device_profile(fn)
+    assert (kernels, memsets) == (1, 0)
 
 
 @pytest.mark.parametrize("near_max", [False, True])
@@ -406,6 +580,8 @@ def test_flow_admission_routes_kernel(cuda, nk, topk, few):
         for name, x, y in zip(want._fields, want, got):
             _eq(x, y, f"tail={tail} admission {name}")
     assert bool(want.flow_pass.any()) and (few or nk < 64 or not bool(want.flow_pass.all()))
+    if topk and nk > 2048:  # the many-block top-K leaves its zeroed buffer (K8's cells too) all zero
+        _assert_zeroed(cuda, f"K4 at {nk}")
     if few and topk:
         adm = tflush.flow_admission_plain(stats, tt, batch, topk)
         assert int((adm.blk_weight > 0).sum()) < 8
@@ -587,11 +763,13 @@ def test_token_decide_atomic_kernel(cuda):
 
 
 def test_shared_scratch_across_threads(cuda):
-    """K12 at 16,384 requests, K4 with its top-8 tail at 131,072 entries
-    and K10 at 4,096 items, each in a host thread of its own and all on the
-    default stream: the three share the stream's scratch and the zeroed
-    top-K buffer, which start empty so that they grow during the run. Every
-    call equals its plain version, computed beforehand."""
+    """K12 at 16,384 requests, K4 with its top-8 tail at 131,072 entries,
+    K10 at 4,096 items, K6 at 131,072 entries and K8 at 131,072 slots over
+    65,536 breakers, each in a host thread of its own and all on the
+    default stream: the five share the stream's scratch and its zeroed
+    buffer (K4's top-K, K8's election cells), which start empty so that
+    they grow during the run. Every call equals its plain version,
+    computed beforehand, and the zeroed buffer reads zero at the end."""
     import threading
 
     from sentinel_tpu_torch.utils import cuda_build
@@ -614,10 +792,21 @@ def test_shared_scratch_across_threads(cuda):
     pb, dyn = random_param_case(np.random.default_rng(22), s=4096, pr=256)
     pa_batch, pa_dyn = tpt.param_batch_from_numpy(pb, cuda), tpt.param_state_from_numpy(dyn, cuda)
     pa_want = tpt.run_param_plain(_clone(pa_dyn), pa_batch, 4)
+    # K6
+    sc_stats, sc_batch, sc_live = _system_inputs(cuda, n, "mixed")
+    sc_dev = tflush.SystemDevice(*system_edge_thresholds(n)[1])
+    sc_want = tflush.system_check_plain(sc_stats, sc_dev, sc_batch, sc_live)
+    # K8
+    nd = 1 << 16
+    bt_table, bt_dyn = random_degrade(rng, nd, now)
+    bt_ddev, bt_ddyn = tdt.degrade_table_from_numpy(bt_table, cuda), tdt.degrade_state_from_numpy(bt_dyn, cuda)
+    bt_args = (_t(rng.integers(-1, nd, (n, 1)).astype(np.int32), cuda),
+               _t((now - rng.integers(-3000, 3000, n)).astype(np.int32), cuda), _t(rng.random(n) < 0.9, cuda))
+    bt_want = tdt.breaker_try_pass_plain(bt_ddev, bt_ddyn, *bt_args)
     torch.cuda.synchronize()
 
-    got = {"td": [], "fa": [], "pa": []}
-    start = threading.Barrier(3)
+    got = {"td": [], "fa": [], "pa": [], "sc": [], "bt": []}
+    start = threading.Barrier(5)
     errors = []
 
     def run(name, call):
@@ -633,7 +822,9 @@ def test_shared_scratch_across_threads(cuda):
         return tts.batch_decide(state, *td_args, 1000, atomic=False), state
 
     calls = {"td": td, "fa": lambda: tflush.flow_admission(stats, tt, batch, 8),
-             "pa": lambda: tpt.run_param(_clone(pa_dyn), pa_batch, 4)}
+             "pa": lambda: tpt.run_param(_clone(pa_dyn), pa_batch, 4),
+             "sc": lambda: tflush.system_check(sc_stats, sc_dev, sc_batch, sc_live),
+             "bt": lambda: tdt.breaker_try_pass(bt_ddev, bt_ddyn, *bt_args)}
     cuda_build._SCRATCH.clear()
     threads = [threading.Thread(target=run, args=item) for item in calls.items()]
     for th in threads:
@@ -652,7 +843,15 @@ def test_shared_scratch_across_threads(cuda):
         _eq(pa_want[1], ok, f"K10 call {i} ok")
         _eq(pa_want[2], wait, f"K10 call {i} wait")
         _states_eq(pa_want[0], d, f"K10 call {i} state")
+    for i, (ok, sys_type) in enumerate(got["sc"]):
+        _eq(sc_want[0], ok, f"K6 call {i} ok")
+        _eq(sc_want[1], sys_type, f"K6 call {i} sys_type")
+    for i, (ok, probe) in enumerate(got["bt"]):
+        _eq(bt_want[0], ok, f"K8 call {i} ok")
+        _eq(bt_want[1], probe, f"K8 call {i} probe")
+    _assert_zeroed(cuda, "after the threads")
     assert fa_want.blk_weight is not None and bool((fa_want.blk_weight > 0).any())
+    assert bool(bt_want[1].any())
 
 
 # --- the sharded step: K13-K16 and K8's probe_allowed --------------------------------

@@ -17,7 +17,16 @@ from sentinel_tpu_torch.metrics import nodes as tnodes
 from sentinel_tpu_torch.runtime import flush as tflush
 
 from test_torch_nodes import _jax_stats, _random_stats
-from torch_parity import assert_same, block_of, random_flush_batch, run_on_both, system_thresholds
+from torch_parity import (
+    SYSTEM_EDGE_CASES,
+    assert_same,
+    block_of,
+    random_flush_batch,
+    run_on_both,
+    system_edge_case,
+    system_edge_thresholds,
+    system_thresholds,
+)
 
 CPU = torch.device("cpu")
 NOW = 1_000_250
@@ -74,6 +83,31 @@ def test_system_check_parity(case, seed):
     seen = set(np.asarray(j_type).tolist())
     want = {"all": {1, 2, 3}, "qps_thread_load_cpu": {1, 2, 4, 5}, "load_cpu": {4, 5}, "cpu": {5}, "off": {0}}[case]
     assert want <= seen, f"{case}: dimensions seen {seen}"
+
+
+@pytest.mark.parametrize("case", SYSTEM_EDGE_CASES)
+@pytest.mark.parametrize("n", [1, 8, 64])
+def test_system_check_parity_edges(n, case):
+    """The (ts, arrival) order and the wrapping sums the card's routes
+    keep: one entry, no entry checked, one ts, ts at INT_MIN and INT_MAX
+    beside unchecked entries (which tie a checked entry's sort key at
+    INT_MAX), and acquires whose inbound sum passes 2^31."""
+    rng = np.random.default_rng(40 + n)
+    arrs = _row0_stats(rng, 32)
+    b, live = system_edge_case(rng, n, case, NOW)
+    for vals in system_edge_thresholds(n):
+        j_ok, j_type = _jax_system_check(
+            _jax_stats(arrs), jflush.SystemDevice(*(jnp.float32(v) for v in vals)),
+            jflush.FlushBatch(*(jnp.asarray(a) for a in b)), jnp.asarray(live),
+        )
+        t_ok, t_type = tflush.system_check(
+            tnodes.stats_from_numpy(arrs, CPU), tflush.SystemDevice(*vals), tflush.batch_from_numpy(b, CPU),
+            torch.tensor(live),
+        )
+        assert_same(j_ok, t_ok, "ok")
+        assert_same(j_type, t_type, "sys_type")
+    if case == "unchecked":
+        assert bool(np.asarray(j_ok).all())
 
 
 def test_system_device_matches_jax_engine():

@@ -602,3 +602,50 @@ def shard_breaker_case(case, rng, dtable, ddyn, now, d_count):
         s[2][5:] += rng.integers(0, 2, len(st_) - 5)
         s[3][5:] = s[2][5:] + rng.integers(0, 3, len(st_) - 5)
     return tuple(base), tuple(np.stack([s[i] for s in shards]).astype(np.int32) for i in range(5))
+
+
+I32_MIN = -(2**31)
+SYSTEM_EDGE_CASES = ("mixed", "unchecked", "same_ts", "ts_extremes", "wrap")
+
+
+def system_edge_case(rng, n, case, now, n_rows=32):
+    """(batch arrays, live) for system_check at n entries: "mixed" a
+    random batch, half of it inbound; "unchecked" no entry both live and
+    inbound; "same_ts" one ts for all; "ts_extremes" ts at INT_MIN and
+    INT_MAX beside unchecked entries (a checked entry at INT_MAX ties
+    their sort key); "wrap" acquires whose inbound sum passes 2^31."""
+    b = list(random_flush_batch(rng, n, 1, n_rows, 16, now, n - n // 16))
+    live = b[1] & (rng.random(n) < 0.9)
+    if case == "unchecked":
+        live &= b[4][:, 3] < 0
+    elif case == "same_ts":
+        b[2] = np.full(n, now - 7, np.int32)
+    elif case == "ts_extremes":
+        b[2] = rng.choice(np.array([I32_MIN, I32_MAX, now], np.int32), n)
+        b[2][:: max(1, n // 5)] = I32_MAX
+    elif case == "wrap":
+        lo = min(2**31 // max(1, n // 4), 2**30)
+        b[3] = rng.integers(lo, 2 * lo - 1, n).astype(np.int32)
+    return tuple(b), live
+
+
+def system_edge_thresholds(n):
+    """SystemDevice values for n entries: QPS and threads that block part
+    of the inbound entries, once alone and once beside BBR load and CPU."""
+    inf = float("inf")
+    qps, thr = max(1.0, 0.3 * n), max(1.0, 0.15 * n)
+    return [(qps, thr, inf, -1.0, -1.0, -1.0, -1.0), (qps, thr, inf, 1.0, 0.5, 5.0, 0.9)]
+
+
+def many_candidates(rng, n, kd, nd, now):
+    """Breaker table, state and entries where every slot's first breaker is
+    breaker 1, OPEN and due, at one ts: n candidates, the slot decides."""
+    table, dyn = random_degrade(rng, nd, now)
+    dyn[0][1], dyn[1][1] = 1, now - 100
+    e_dgid = np.full((n, kd), -1, np.int32)
+    e_dgid[:, 0] = 1
+    if kd > 1:
+        e_dgid[:, 1] = np.where(rng.random(n) < 0.5, rng.integers(0, nd, n), -1)
+    e_ts = np.full(n, now - 5, np.int32)
+    e_live = rng.random(n) < 0.9
+    return table, dyn, e_dgid, e_ts, e_live
