@@ -47,7 +47,9 @@ against their plain versions at bench.py's mixed shape (1,048,576 rules,
 131,072 entries, K = 2, 16,384 rate-limiter items, 32,768 param items)
 and on four more cases at the same sizes (every shaping behavior over
 several seconds; every param grade and behavior with LRU resets and exit
-releases; the closed forms; one rule or value holding every item);
+releases; the closed forms; one rule or value holding every item); K9
+with its inputs is one host call (``shaping_stage``), profiled at the
+mixed shape and at 8 items, both routes timed at 512-8,192 items;
 phase 3 also runs flush_step at the mixed shape (1,024 breakers, 32,768
 exits) on both routes; phase 4c drives an engine stream with shaping and
 param rules through the public API on the card and on the CPU engine.
@@ -56,8 +58,12 @@ The sharded flush (parallel/ici.py, 8 shards on the card): phase 2f
 holds its kernels against their plain versions at full width (K13 the
 stats merge over 1,048,576 rows, K14 the breaker merge over 1,048,576
 breakers, K15 the budget split of 131,072 Zipf entries with K = 1, an
-origin split and the mixed shape's K = 2, K16 the global shaping charge,
-K8 with the probe election's mask); phase 3b runs the sharded step at
+origin split and the mixed shape's K = 2, and at full width with acquires
+up to 2^29 against counts near 2^31, so that the shards' units pass 2^31
+(each shard's own prefix); profiled at full width (grant, borrow, K = 2)
+and at 8 slots, both routes timed at 512-8,192 slots, the zeroed
+scratch checked after; K16 the global shaping charge, K8 with the probe
+election's mask); phase 3b runs the sharded step at
 the slot chain's and the mixed shape through the kernels and through the
 plain versions (identical results and state; ms per step, a profile,
 peak device memory); phase 4e drives the engine with enable_mesh(8)
@@ -73,13 +79,16 @@ and 2f also print the device kernels, memsets and device time of one call
 of the window update (K2), the flow admission (K4, both routes, at 131,072
 entries and at 8; its time at 32,768 too), the system check (K6) and the
 breaker entry check (K8, and with the mask also at a mesh shard's 4,096
-slots) at 131,072 entries and at 8, the hot-parameter recurrence (K10, at
-the mixed shape and at 8 items) and K12 (torch.profiler, gpu_timing.py),
-and fail if the profiler reads no kernel, if K2 issues more than four
-kernels and memsets a call, or if K4, K6, K8, K10 or K12 issue anything
-but one kernel at 8 entries, items or requests. For K6 and K8 they also
-time both routes at the sizes where the route is chosen (2,048, 4,096
-and 8,192; with the mask 4,096), each equal to the plain version. Phase 4 reads
+slots) at 131,072 entries and at 8, the shaping and hot-parameter
+recurrences (K9 with its inputs, K10; at the mixed shape and at 8 items),
+the budget split (K15, at 131,072 entries and 8 slots) and K12
+(torch.profiler, gpu_timing.py), and fail if the profiler reads no
+kernel, if K2 issues more than four kernels and memsets a call, or if K4,
+K6, K8, K9, K10, K12 or K15 issue anything but one kernel at 8 entries,
+items, slots or requests. For K6, K8, K9 and K15 they
+also time both routes at the sizes where the route is chosen (2,048, 4,096
+and 8,192, for K9 and K15 also 512 and 1,024; with the mask 4,096), each
+equal to the plain version. Phase 4 reads
 cluster_node_stats every tenth flush (K3 with a row gather), on the card
 and on the CPU engine, as a path of its own: K3 is off the flush path, and
 its launches on the kernels line are those of these reads.
@@ -346,8 +355,7 @@ def plain_kernels():
         (flush, "slot_chain_verdict", flush.slot_chain_verdict_plain),
         (tdt, "breaker_on_exits", tdt.breaker_on_exits_plain),
         (tdt, "breaker_try_pass", tdt.breaker_try_pass_plain),
-        (flush, "shaping_inputs", tsh.shaping_inputs_plain),
-        (flush, "run_shaping", tsh.run_shaping_plain),
+        (flush, "shaping_stage", tsh.shaping_stage_plain),
         (flush, "run_param", tpt.run_param_plain),
         (flush, "sketch_fold", tsk.sketch_fold_plain),
     ]
@@ -969,6 +977,31 @@ def param_state(rng, now: int) -> tpt.ParamDynState:
     )
 
 
+def small_shaping_table(nr: int = 8192):
+    """The mixed shape's rate limiters (count 20, maxq 500 ms, cost1 50 ms)
+    as a table of ``nr`` rules, every one of them shaping."""
+    z = np.zeros(nr, np.int32)
+    return flow_table_from_numpy(
+        (np.ones(nr, np.int32), np.full(nr, 20.0, np.float32), np.full(nr, C.CONTROL_BEHAVIOR_RATE_LIMITER, np.int32),
+         np.full(nr, 500, np.int32), np.full(nr, 50, np.int32), z, z, np.zeros(nr, np.float32), z),
+        (np.full(nr, -(10**9), np.int32), np.zeros(nr, np.float32), np.full(nr, -(10**9), np.int32)), DEV,
+    )
+
+
+def stage_call(fn, table, dyn0, sb, n, live, ppc, minute, rounds):
+    """A call of ``fn`` (K9 with its inputs, or its plain version) on the
+    first ``n`` items of ``sb``, their rules folded onto ``table``, from a
+    copy of ``dyn0``: it returns (valid, ok, wait, the state after)."""
+    sb_n = sb._replace(**{f: getattr(sb, f)[:n] for f in tsh.ShapingBatch._fields})
+    sb_n = sb_n._replace(gid=torch.remainder(sb_n.gid, table.n_rules))
+
+    def call():
+        dyn = clone(dyn0)
+        return (*fn(table, dyn, sb_n, live, ppc, minute, 1.0, rounds), dyn)
+
+    return call
+
+
 def check_shaping(tag, table, dyn0, sb, ppc, prev, rounds):
     """K9 on the card against its plain version on the same inputs; returns
     ((dyn, ok, wait), max abs err)."""
@@ -1037,44 +1070,54 @@ def phase2_shaping_param(results: dict, cpu_jobs: dict) -> None:
     table, batch, sb, pb = mx["table"], mx["batch"], mx["sb"], mx["pb"]
     live = batch.e_valid & batch.e_auth_ok
     errs = {}
-    # K4's per-slot pass plus charge, then the gather of the shaping inputs.
+    # K4's per-slot pass plus charge, then K9 with its inputs (one host call).
     w = flush.flow_admission_plain(stats, table, batch, 0, live, 500, False, False, True)
     adm = flush.flow_admission(stats, table, batch, 0, live, 500, False, False, True)
     require_equal(w, adm, "flow_admission with the pass-plus-charge output (mixed)")
-    w = tsh.shaping_inputs_plain(sb, live, adm.pass_plus_consumed, stats.minute)
-    inputs = tsh.shaping_inputs(sb, live, adm.pass_plus_consumed, stats.minute)
-    errs["shaping_inputs"] = require_equal(w, inputs, "shaping_inputs (mixed)")
+    ppc_slots, rounds_m = adm.pass_plus_consumed, mx["sh_rounds"]
+    w = tsh.shaping_inputs_plain(sb, live, ppc_slots, stats.minute)
+    inputs = tsh.shaping_inputs(sb, live, ppc_slots, stats.minute)
+    errs["shaping_stage"] = require_equal(w, inputs, "shaping_inputs (mixed)")
+    d_k, d_p = clone(mx["dyn"]), clone(mx["dyn"])
+    stage_k = tsh.shaping_stage(table, d_k, sb, live, ppc_slots, stats.minute, 1.0, rounds_m)
+    stage_p = tsh.shaping_stage_plain(table, d_p, sb, live, ppc_slots, stats.minute, 1.0, rounds_m)
+    errs["shaping_stage"] = max(errs["shaping_stage"], require_equal((*stage_p, d_p), (*stage_k, d_k),
+                                                                     "shaping_stage (mixed)"))
     valid, ppc_s, prev_s = inputs
     sb_live = sb._replace(valid=valid)
-    (dyn_m, ok_m, wait_m), errs["run_shaping"] = check_shaping("mixed", table, mx["dyn"], sb_live, ppc_s, prev_s,
-                                                              mx["sh_rounds"])
+    (dyn_m, ok_m, wait_m), err = check_shaping("mixed", table, mx["dyn"], sb_live, ppc_s, prev_s, rounds_m)
+    errs["shaping_stage"] = max(errs["shaping_stage"], err)
     (pd_m, pok_m, _), errs["run_param"] = check_param("mixed", mx["pdyn"], pb, mx["p_rounds"])
-    log(f"  mixed (rounds {mx['sh_rounds']} / {mx['p_rounds']}): K9 {int(ok_m.sum())} of {S_SH} admitted, "
-        f"{int((wait_m > 0).sum())} waited; K10 {int(pok_m.sum())} of {S_P} admitted; the input gather and K4's "
-        f"pass-plus-charge equal too")
+    log(f"  mixed (rounds {rounds_m} / {mx['p_rounds']}): K9 {int(ok_m.sum())} of {S_SH} admitted, "
+        f"{int((wait_m > 0).sum())} waited; K10 {int(pok_m.sum())} of {S_P} admitted; K9 with its inputs, the "
+        f"inputs alone and K4's pass-plus-charge equal too")
     # Timing at the mixed shape (the kernels line).
     dyn_s, pd_s = clone(mx["dyn"]), clone(mx["pdyn"])
     touched_sh = torch.unique(sb.gid).numel()
     touched_p = torch.unique(pb.prow).numel()
-    results["run_shaping"].update(
-        ms=time_ms(lambda: tsh.run_shaping(table, dyn_s, sb_live, ppc_s, prev_s, 1.0, mx["sh_rounds"])),
-        plain_ms=time_ms(lambda: tsh.run_shaping_plain(table, dyn_s, sb_live, ppc_s, prev_s, 1.0, mx["sh_rounds"]),
-                         iters=3, warmup=1),
-        library_ms=None, shape=f"S={S_SH} rate-limiter items over {touched_sh} of R={R} rules",
-        # Per item: valid, gid, ts, acquire, pass-plus-charge, previous pass
-        # in, ok and wait out; per touched rule: its 8 table columns and its
-        # 3 state columns read, the state written.
-        bound=bound(S_SH * (1 + 4 * 5 + 1 + 4) + touched_sh * (32 + 12 + 12), ops=S_SH * 40),
+    stage = lambda: tsh.shaping_stage(table, dyn_s, sb, live, ppc_slots, stats.minute, 1.0, rounds_m)
+    results["shaping_stage"].update(
+        ms=time_ms(stage),
+        plain_ms=time_ms(lambda: tsh.shaping_stage_plain(table, dyn_s, sb, live, ppc_slots, stats.minute, 1.0,
+                                                         rounds_m), iters=3, warmup=1),
+        run_ms=time_ms(lambda: tsh.run_shaping(table, dyn_s, sb_live, ppc_s, prev_s, 1.0, rounds_m)),
+        inputs_ms=time_ms(lambda: tsh.shaping_inputs(sb, live, ppc_slots, stats.minute)),
+        library_ms=None, shape=f"S={S_SH} rate-limiter items over {touched_sh} of R={R} rules, with the gather "
+                               f"from N={N} entries and the minute window [{R},60,6]",
+        # Per item: valid, gid, eidx, flat_pos, row, ts, acquire; its entry's
+        # live, its slot's pass-plus-charge, one minute-window start and pass
+        # in; valid, ok and wait out. Per touched rule: its 8 table columns
+        # and 3 state columns read, the state written.
+        bound=bound(S_SH * (1 + 6 * 4 + 1 + 4 + 8 + 1 + 1 + 4) + touched_sh * (32 + 12 + 12), ops=S_SH * 40),
     )
-    results["shaping_inputs"].update(
-        ms=time_ms(lambda: tsh.shaping_inputs(sb, live, adm.pass_plus_consumed, stats.minute)),
-        plain_ms=time_ms(lambda: tsh.shaping_inputs_plain(sb, live, adm.pass_plus_consumed, stats.minute)),
-        library_ms=None, shape=f"S={S_SH} items, N={N} entries, minute window [{R},60,6]",
-        # Per item: valid, eidx, flat_pos, row, ts; live of its entry, its
-        # slot's pass-plus-charge, one minute-window start and pass; out:
-        # valid, pass-plus-charge, previous pass.
-        bound=bound(S_SH * (1 + 4 * 4 + 1 + 4 + 4 + 4 + 1 + 4 + 4)),
-    )
+    # S = 8 and the routes on a table of 8,192 rate limiters (its state is
+    # cloned for every call); the items are the mixed shape's first ones.
+    tab8, dyn8 = small_shaping_table()
+    stage_at = lambda n, fn: stage_call(fn, tab8, dyn8, sb, n, live, ppc_slots, stats.minute, rounds_m)
+    call_profile(results, "shaping_stage", stage, stage_at(8, tsh.shaping_stage), stage_at(8, tsh.shaping_stage_plain),
+                 "phase 2c")
+    route_times(results, "shaping_stage", tsh, "SHAPING_SMALL_MAX", lambda n: stage_at(n, tsh.shaping_stage),
+                lambda n: stage_at(n, tsh.shaping_stage_plain), (512, 1024, 2048, 4096, 8192), "phase 2c")
     results["run_param"].update(
         ms=time_ms(lambda: tpt.run_param(pd_s, pb, mx["p_rounds"])),
         plain_ms=time_ms(lambda: tpt.run_param_plain(pd_s, pb, mx["p_rounds"]), iters=3, warmup=1),
@@ -1083,9 +1126,11 @@ def phase2_shaping_param(results: dict, cpu_jobs: dict) -> None:
         # out; per touched row: 4 state columns read, 3 written.
         bound=bound(S_P * (1 + 4 * 10 + 1 + 4) + touched_p * (16 + 12), ops=S_P * 30),
     )
-    for name in ("run_shaping", "shaping_inputs", "run_param"):
+    for name in ("shaping_stage", "run_param"):
         log(f"    {name}: {results[name]['ms']:.4f} ms, plain {results[name]['plain_ms']:.4f} ms, "
             f"bound {results[name]['bound'][0]:.5f} ms ({results[name]['shape']})")
+    log(f"    shaping_stage's parts alone: run_shaping {results['shaping_stage']['run_ms']:.4f} ms, shaping_inputs "
+        f"{results['shaping_stage']['inputs_ms']:.4f} ms")
     # K10's kernels and memsets a call, at the mixed shape and at the 8 items
     # st.entry sends (the one-block route, against the plain version).
     launches, memsets, dev_ms = profile(lambda: tpt.run_param(pd_s, pb, mx["p_rounds"]),
@@ -1105,7 +1150,7 @@ def phase2_shaping_param(results: dict, cpu_jobs: dict) -> None:
         f"{s_dev:.4f} ms of device time (profiler)")
     if (s_launches, s_memsets) != (1, 0):
         fail(f"phase 2c: K10 at s=8 issued {s_launches} kernels and {s_memsets} memsets in one call")
-    del stats, adm, inputs, dyn_s, pd_s
+    del stats, adm, inputs, dyn_s, pd_s, d_k, d_p, tab8, dyn8
     torch.cuda.empty_cache()
 
     def timed(fn):
@@ -1122,7 +1167,7 @@ def phase2_shaping_param(results: dict, cpu_jobs: dict) -> None:
 
     for rounds in (_rounds_bucket(gids), 0):
         (d, ok, wait), err = check_shaping(f"a, rounds {rounds}", table_a, dyn_a, sb_a, ppc_a, prev_a, rounds)
-        errs["run_shaping"] = max(errs["run_shaping"], err)
+        errs["shaping_stage"] = max(errs["shaping_stage"], err)
         refilled = int((d.last_filled_time != dyn_a.last_filled_time).sum())
         if refilled == 0:
             fail("phase 2c (a): no warm-up rule refilled")
@@ -1157,7 +1202,7 @@ def phase2_shaping_param(results: dict, cpu_jobs: dict) -> None:
     table_c, dyn_c = shaping_table(rng, 64, behaviors=(2,))
     sb_c, ppc_c, prev_c = shaping_items(rng, rng.integers(0, 64, S_SH), np.full(S_SH, now), np.ones(S_SH))
     (d, ok, wait), err = check_shaping("c, closed form", table_c, dyn_c, sb_c, ppc_c, prev_c, -1)
-    errs["run_shaping"] = max(errs["run_shaping"], err)
+    errs["shaping_stage"] = max(errs["shaping_stage"], err)
     log(f"  (c) shaping closed form (64 rules, one ts): {exercised('c shaping', ok, wait)}; "
         f"K9 {timed(lambda: tsh.run_shaping(table_c, clone(dyn_c), sb_c, ppc_c, prev_c, 1.0, -1))}")
     for nts, rounds in ((1, -1), (7, -8)):
@@ -1175,11 +1220,11 @@ def phase2_shaping_param(results: dict, cpu_jobs: dict) -> None:
     d, ok, wait = tsh.run_shaping(table_d, clone(dyn_d), sb_d, ppc_d, prev_d, 1.0, 0)
     err = require_equal(tmap(torch.from_numpy, cpu_result(cpu_jobs, "heavy shaping")),
                         tmap(lambda t: t.cpu(), (d, ok, wait)), "run_shaping (d, one rule)")
-    errs["run_shaping"] = max(errs["run_shaping"], err)
+    errs["shaping_stage"] = max(errs["shaping_stage"], err)
     k_ms = time_ms(lambda: tsh.run_shaping(table_d, clone(dyn_d), sb_d, ppc_d, prev_d, 1.0, 0), iters=3, warmup=1)
     log(f"  (d) one rate limiter holds all {S_SH:,} shaping items, scan path: {exercised('d shaping', ok, wait)}; "
         f"K9 {k_ms:.4f} ms (one thread walks the segment)")
-    results["run_shaping"]["heavy_ms"] = k_ms
+    results["shaping_stage"]["heavy_ms"] = k_ms
     d, ok, wait = tpt.run_param(clone(pst_d), pb_d, 0)
     err = require_equal(tmap(torch.from_numpy, cpu_result(cpu_jobs, "heavy param")),
                         tmap(lambda t: t.cpu(), (d, ok, wait)), "run_param (d, one row)")
@@ -1188,8 +1233,8 @@ def phase2_shaping_param(results: dict, cpu_jobs: dict) -> None:
     log(f"  (d) one value row holds all {S_P:,} param items, scan path: {exercised('d param', ok, need_wait=False)}; "
         f"K10 {k_ms:.4f} ms (one thread walks the segment)")
     results["run_param"]["heavy_ms"] = k_ms
-    for name in ("run_shaping", "shaping_inputs", "run_param"):
-        results[name]["max_abs_err"] = errs[name]
+    for name in ("shaping_stage", "run_param"):
+        results[name]["max_abs_err"] = max(results[name].get("max_abs_err", 0), errs[name])
     log(f"  K9, K10 and the input gather equal their plain versions in every case (max abs err {max(errs.values())})")
     del mx, table_a, dyn_a, table_c, dyn_c, table_d, dyn_d
     torch.cuda.empty_cache()
@@ -1666,17 +1711,17 @@ def drive_shaping_engine(device: torch.device, seed: int):
     st.param_flow_rule_manager.load_rules(param_rules)
     eng = api.get_engine()
     modes = {"shaping": [], "param": []}
-    orig_sh, orig_p = flush.run_shaping, flush.run_param
+    orig_sh, orig_p = flush.shaping_stage, flush.run_param
 
     def rec_sh(*a, **k):
-        modes["shaping"].append(a[6] if len(a) > 6 else k.get("rounds", 0))
+        modes["shaping"].append(a[7] if len(a) > 7 else k.get("rounds", 0))
         return orig_sh(*a, **k)
 
     def rec_p(*a, **k):
         modes["param"].append(a[2] if len(a) > 2 else k.get("rounds", 0))
         return orig_p(*a, **k)
 
-    flush.run_shaping, flush.run_param = rec_sh, rec_p
+    flush.shaping_stage, flush.run_param = rec_sh, rec_p
     rng = np.random.default_rng(seed)
     ranks = np.arange(1, N_RULES + 1, dtype=np.float64) ** -1.1
     p = ranks / ranks.sum()
@@ -1748,7 +1793,7 @@ def drive_shaping_engine(device: torch.device, seed: int):
             e.exit()
         eng.flush()
     finally:
-        flush.run_shaping, flush.run_param = orig_sh, orig_p
+        flush.shaping_stage, flush.run_param = orig_sh, orig_p
     state = (nodes.stats_to_numpy(eng.stats), tuple(t.cpu().numpy() for t in eng.flow_dyn),
              tpt.param_state_to_numpy(eng.param_dyn), json.dumps(eng.param_index.values_snapshot()))
     return records, state, modes, flush_s / SHAPE_STEPS, eng.param_index.cache_stats()
@@ -1762,7 +1807,7 @@ def phase4_shaping(results: dict, cpu_jobs: dict) -> None:
         "materialize_matured": nodes.materialize_matured, "window_update": ma.update,
         "thread_gauge": nodes.thread_gauge_add,
         "flow_admission": flush.flow_admission, "slot_chain_verdict": flush.slot_chain_verdict,
-        "shaping_inputs": tsh.shaping_inputs, "run_shaping": tsh.run_shaping, "run_param": tpt.run_param,
+        "shaping_stage": tsh.shaping_stage, "run_param": tpt.run_param,
     }
     for w in counters.values():
         w.launches = 0
@@ -1773,7 +1818,7 @@ def phase4_shaping(results: dict, cpu_jobs: dict) -> None:
     for name, c in counts.items():
         if c <= 0:
             fail(f"kernel {name} was not launched on the shaping and param path")
-    for name in ("shaping_inputs", "run_shaping", "run_param"):
+    for name in ("shaping_stage", "run_param"):
         results[name]["launches"] = counts[name]
     cpu = cpu_result(cpu_jobs, "4c")
     log(f"  CPU engine (plain versions, in a worker process): {cpu[3] * 1e3:.3f} ms per flush call")
@@ -2377,7 +2422,7 @@ def plain_mesh_kernels():
     kernels it calls by name swapped for their plain versions."""
     swaps = [
         (ici, "materialize_matured", nodes.materialize_matured_plain), (ici, "run_param", tpt.run_param_plain),
-        (ici, "run_shaping", tsh.run_shaping_plain), (ici, "shaping_inputs", tsh.shaping_inputs_plain),
+        (ici, "shaping_stage", tsh.shaping_stage_plain),
         (ici, "merge_stats_across", ici.merge_stats_across_plain), (ici, "merge_breaker", ici.merge_breaker_plain),
         (ici, "mesh_split_spend", ici.mesh_split_spend_plain),
         (ici, "mesh_shaping_charge", ici.mesh_shaping_charge_plain),
@@ -2564,15 +2609,46 @@ def phase2_mesh(results: dict) -> None:
         demoted[tag] = int((~g).sum())
     if min(demoted[t] for t in ("zipf_grant", "zipf_borrow", "origin_split_grant")) == 0:
         fail(f"phase 2f: a budget case demoted nothing: {demoted}")
+    # The wrap edge at full width: half the acquires 2^27-2^29 against counts
+    # of 2^30-2^31, so the shards' units pass 2^31 (each shard's own prefix).
+    big = torch.randint(2**27, 2**29, (N,), generator=gen, device=DEV, dtype=torch.int32)
+    wb = zb._replace(e_acquire=torch.where(torch.rand(N, generator=gen, device=DEV) < 0.5, big, zb.e_acquire))
+    wtable = table._replace(count=torch.empty_like(table.count).uniform_(2.0**30, 2.0**31 - 256, generator=gen))
+    for tag, grant, kw in (("wrap_grant", True, dict(live=live)), ("wrap_borrow", False, dict(occ_slot=occ))):
+        w = ici.mesh_split_spend_plain(D_MESH, stats, wtable, wb, grant, **kw)
+        g = ici.mesh_split_spend(D_MESH, stats, wtable, wb, grant, **kw)
+        errs = max(errs, require_equal(w, g, f"mesh_split_spend ({tag})"))
+        demoted[tag] = int((~g).sum())
+    if not 0 < demoted["wrap_grant"] < N:
+        fail(f"phase 2f: the wrap-edge budget kept all or nothing: {demoted}")
     k_args = (D_MESH, stats, table, zb, True)
+    grant_call = lambda: ici.mesh_split_spend(*k_args, live=live)
+    borrow_call = lambda: ici.mesh_split_spend(D_MESH, stats, table, zb, False, occ_slot=occ)
+    mixed_call = lambda: ici.mesh_split_spend(D_MESH, stats, mx["table"], mx["batch"], True, live=mx["batch"].e_valid)
     results["mesh_split_spend"].update(
-        max_abs_err=errs, ms=time_ms(lambda: ici.mesh_split_spend(*k_args, live=live)),
+        max_abs_err=errs, ms=time_ms(grant_call),
         plain_ms=time_ms(lambda: ici.mesh_split_spend_plain(*k_args, live=live), iters=3),
         bound=bound(split_bytes(stats, zb, live, True)), library_ms=None,
-        borrow_ms=time_ms(lambda: ici.mesh_split_spend(D_MESH, stats, table, zb, False, occ_slot=occ)),
-        mixed_k2_ms=time_ms(lambda: ici.mesh_split_spend(D_MESH, stats, mx["table"], mx["batch"], True,
-                                                           live=mx["batch"].e_valid)),
+        borrow_ms=time_ms(borrow_call), mixed_k2_ms=time_ms(mixed_call),
+        grant_then_borrow_ms=time_ms(lambda: (grant_call(), borrow_call())),
         shape=f"{D_MESH} shards x {N // D_MESH:,} Zipf entries x K=1, grant; demoted {demoted}")
+    log(f"    mesh_split_spend, the grant then the borrow as the mesh step calls them: "
+        f"{results['mesh_split_spend']['grant_then_borrow_ms']:.4f} ms a pair")
+    for tag, fn in (("borrow", borrow_call), ("mixed_k2", mixed_call)):
+        kern, mems, dev_ms = profile(fn, f"phase 2f: mesh_split_spend ({tag})")
+        results["mesh_split_spend"].update(**{f"{tag}_launches_per_call": kern, f"{tag}_memsets_per_call": mems,
+                                              f"{tag}_device_ms": dev_ms})
+        log(f"    mesh_split_spend ({tag}): {kern} device kernels, {mems} memsets, {dev_ms:.4f} ms of device time")
+    # Full width, 8 slots (one per shard) and the routes where they are chosen.
+    split_at = lambda n, fn: lambda: fn(D_MESH, stats, table, sub_batch(zb, n), True, live=live[:n])
+    call_profile(results, "mesh_split_spend", grant_call, split_at(8, ici.mesh_split_spend),
+                 split_at(8, ici.mesh_split_spend_plain), "phase 2f")
+    route_times(results, "mesh_split_spend", ici, "MESH_SPLIT_SMALL_MAX", lambda n: split_at(n, ici.mesh_split_spend),
+                lambda n: split_at(n, ici.mesh_split_spend_plain), (512, 1024, 2048, 4096, 8192), "phase 2f")
+    zero = cuda_build._SCRATCH.get((True, DEV, torch.cuda.current_stream(DEV).cuda_stream))
+    if zero is None or int(zero.count_nonzero()) != 0:
+        fail("phase 2f: K15 left the zeroed scratch dirty")
+    del wb, wtable, big
     # K16: the global shaping charge, the mixed shape's items
     sb = mx["sb"]
     w = ici.mesh_shaping_charge_plain(stats.second, sb, now)
@@ -2763,7 +2839,7 @@ def phase4_mesh(results: dict, cpu_jobs: dict) -> None:
         "mesh_split_spend": (ici.mesh_split_spend, "launches"),
         "mesh_shaping_charge": (ici.mesh_shaping_charge, "launches"),
         "breaker_try_pass_mask": (tdt.breaker_try_pass, "mask_launches"),
-        "breaker_on_exits": (tdt.breaker_on_exits, "launches"), "run_shaping": (tsh.run_shaping, "launches"),
+        "breaker_on_exits": (tdt.breaker_on_exits, "launches"), "shaping_stage": (tsh.shaping_stage, "launches"),
         "run_param": (tpt.run_param, "launches"), "flow_admission_occupy": (flush.flow_admission, "occupy_launches"),
     }
     for w, attr in counters.values():
@@ -2891,8 +2967,7 @@ def main() -> None:
                              "sentinel_tpu/rules/degrade_table.py:291"),
         "slot_chain_verdict": ("cuda", "sentinel_tpu_torch/csrc/flow_admission.cu",
                                "sentinel_tpu/rules/degrade_table.py:342"),
-        "run_shaping": ("cuda", "sentinel_tpu_torch/csrc/shaping_scan.cu", "sentinel_tpu/rules/shaping.py:152"),
-        "shaping_inputs": ("cuda", "sentinel_tpu_torch/csrc/shaping_scan.cu", "sentinel_tpu/runtime/flush.py:583"),
+        "shaping_stage": ("cuda", "sentinel_tpu_torch/csrc/shaping_scan.cu", "sentinel_tpu/rules/shaping.py:152"),
         "run_param": ("cuda", "sentinel_tpu_torch/csrc/param_scan.cu", "sentinel_tpu/rules/param_table.py:242"),
         "sketch_fold": ("cuda", "sentinel_tpu_torch/csrc/sketch_fold.cu", "sentinel_tpu/runtime/sketch.py:191"),
         "token_decide": ("cuda", "sentinel_tpu_torch/csrc/token_decide.cu",
@@ -2933,7 +3008,10 @@ def main() -> None:
             "library_ms": r["library_ms"], "shape": r["shape"],
         }
         for extra in ("library_call", "zipf_ms", "zipf_plain_ms", "heavy_ms", "index_add_ms", "widened_ms",
-                      "ties_ms", "borrow_ms", "mixed_k2_ms", "launches_per_call", "memsets_per_call", "device_ms",
+                      "ties_ms", "borrow_ms", "mixed_k2_ms", "grant_then_borrow_ms", "run_ms", "inputs_ms",
+                      "borrow_launches_per_call", "borrow_memsets_per_call", "borrow_device_ms", "mixed_k2_launches_per_call",
+                      "mixed_k2_memsets_per_call", "mixed_k2_device_ms", "launches_per_call", "memsets_per_call",
+                      "device_ms",
                       "small_ms", "small_launches_per_call", "small_memsets_per_call", "small_device_ms",
                       "small_bound_ms", "ms_32768", "routes", "small_max", "shard_ms", "shard_launches_per_call",
                       "shard_memsets_per_call", "shard_device_ms"):

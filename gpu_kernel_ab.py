@@ -1,6 +1,7 @@
 """Times the window update (K2), the flow admission (K4), the system check
-(K6), the breaker entry check (K8), the hot-parameter recurrence (K10)
-and the token decision (K12) of one checkout of
+(K6), the breaker entry check (K8), the shaping recurrence with its inputs
+(K9), the hot-parameter recurrence (K10), the token decision (K12) and the
+mesh budget split (K15) of one checkout of
 sentinel_tpu_torch on the card, so that two commits can be compared on
 one card in alternating runs:
 
@@ -19,6 +20,15 @@ back-to-back calls (gpu_timing.time_ms):
 - K8: the same entries, one breaker each of 1,048,576 (40% OPEN, half of
   those due), at 131,072 slots with and without the mesh's mask (half the
   breakers), at a mesh shard's 4,096 with it, and at 8;
+- K15: the same entries on Zipf(1.1) rows over 8 shards, the flow grant,
+  the borrow, the two in turn as the mesh step calls them (``k15_step``,
+  a pair a call), and 8 slots;
+- K9: 16,384 rate-limiter items (slot 1 of every 8th of 131,072 entries)
+  over 1,048,576 rules with their inputs (entry liveness, the slot's
+  pass-plus-charge, the minute window of 131,072 rows): the one call of
+  shaping_stage where the checkout has it, else shaping_inputs and
+  run_shaping; its first 8 items; one rule holding all 16,384 (K9 alone,
+  ``k9_heavy_ms``);
 - K10: chip_smoke.py's mixed shape (32,768 QPS items over 16,384 value
   rows, token count 100, the engine's rounds bound) and its first 8 items;
 - K12: batches of 16,384 and of 8 Zipf(1.1) requests over 65,536 flows in
@@ -29,9 +39,10 @@ through long-standing functions of the package (batch_from_numpy,
 flow_table_from_numpy, the degrade tables' from_numpy, the state tuples,
 make_param_state); the token batches are chip_smoke.py's
 (gpu_timing.token_batch). Each call's device kernels, memsets and device
-time are read from torch.profiler over 20 calls, and for K4, K6 and K10
-at full size the device us a call by kernel (k4_kernel_us, k6_kernel_us,
-k10_kernel_us); the script fails if the profiler reads no
+time are read from torch.profiler over 20 calls, and for K4, K6, K9, K10
+and K15 at full size the device us a call by kernel (k4_kernel_us,
+k6_kernel_us, k9_kernel_us, k10_kernel_us, k15_kernel_us,
+k15_borrow_kernel_us); the script fails if the profiler reads no
 kernel. Prints one JSON line that carries the card's name and power
 limit. Needs CUDA; imports no JAX. The helpers come from the
 gpu_timing.py beside this script, whichever checkout it times.
@@ -69,15 +80,17 @@ def main() -> None:
     from sentinel_tpu_torch.metrics import metric_array as ma
     from sentinel_tpu_torch.metrics import nodes
     from sentinel_tpu_torch.metrics.events import NUM_EVENTS
+    from sentinel_tpu_torch.parallel import ici
     from sentinel_tpu_torch.rules import degrade_table as tdt
     from sentinel_tpu_torch.rules import param_table as tpt
+    from sentinel_tpu_torch.rules import shaping as tsh
     from sentinel_tpu_torch.rules.flow_table import flow_table_from_numpy
     from sentinel_tpu_torch.runtime import flush
     from sentinel_tpu_torch.runtime.engine import _rounds_bucket
     from sentinel_tpu_torch.utils import cuda_build
 
     cuda_build.build_all(["window_update", "token_decide", "flow_admission", "param_scan", "system_check",
-                          "breaker_try_pass"])
+                          "breaker_try_pass", "shaping_scan", "mesh_budget"])
     dev = torch.device("cuda", 0)
     i32 = torch.int32
     out = {"tag": args.tag, "root": args.root, "card": card_line(), "torch": torch.__version__}
@@ -170,7 +183,73 @@ def main() -> None:
     profiled("k8_mask", k8(n, allowed))
     profiled("k8_mask_4096", k8(4096, allowed))
     profiled("k8_small", k8(8))
-    del stats, second, table, batch, small, dtable, ddyn, allowed, dgid
+
+    # K15: the same 131,072 entries on Zipf(1.1) rows over 8 shards, the
+    # flow grant (95% budgeted) and the borrow (30% of the slots), and 8.
+    zrow = t(np.minimum(rng4.zipf(1.1, n), rows_n).astype(np.int32)[:, None] - 1)
+    zb = batch._replace(e_rule_gid=zrow, e_check_row=zrow.clone())
+    live15, occ15 = t(rng4.random(n) < 0.95), t(rng4.random((n, 1)) < 0.3)
+    k15 = lambda m, grant: lambda: ici.mesh_split_spend(
+        8, stats, table, flush.FlushBatch(*(getattr(zb, f)[:m] if f.startswith("e_") else getattr(zb, f)
+                                            for f in flush.FlushBatch._fields)),
+        grant, **(dict(live=live15[:m]) if grant else dict(occ_slot=occ15[:m])))
+    profiled("k15", k15(n, True))
+    out["k15_kernel_us"] = kernel_times(k15(n, True))
+    profiled("k15_borrow", k15(n, False))
+    out["k15_borrow_kernel_us"] = kernel_times(k15(n, False))
+    profiled("k15_small", k15(8, True))
+    grant15, borrow15 = k15(n, True), k15(n, False)
+    profiled("k15_step", lambda: (grant15(), borrow15()))  # the grant then the borrow, as the mesh step calls them
+    del stats, second, table, batch, small, dtable, ddyn, allowed, dgid, zb
+    torch.cuda.empty_cache()
+
+    # K9 with its inputs: 16,384 rate-limiter items (slot 1 of every 8th of
+    # 131,072 entries, K = 2) over 1,048,576 rules, every 8th a rate limiter
+    # (count 20, queue 500 ms, cost 50 ms), the minute window of 131,072
+    # rows; its first 8 items; one rule holding all 16,384 (K9 alone).
+    rng9 = np.random.default_rng(9)
+    nr9, n9, s9, rows9 = 1 << 20, 1 << 17, 1 << 14, 1 << 17
+    z9 = np.zeros(nr9, np.int32)
+    t9, d9 = flow_table_from_numpy(
+        (np.ones(nr9, np.int32), np.full(nr9, 20.0, np.float32),
+         np.where(np.arange(nr9) % 8 == 7, 2, 0).astype(np.int32),
+         np.full(nr9, 500, np.int32), np.full(nr9, 50, np.int32), z9, z9, np.zeros(nr9, np.float32), z9),
+        (np.full(nr9, -(10**9), np.int32), np.zeros(nr9, np.float32), np.full(nr9, -(10**9), np.int32)), dev)
+    gen.manual_seed(9)
+    mb = cfg.sample_count
+    age = torch.randint(-1, 2 * mb + 2, (rows9, mb), generator=gen, device=dev, dtype=i32)
+    ws = (now - now % cfg.window_len_ms) - age * cfg.window_len_ms
+    minute = ma.MetricArrayState(
+        torch.randint(0, 40, (rows9, mb, NUM_EVENTS), generator=gen, device=dev, dtype=i32),
+        torch.randint(1, cfg.max_rt + 1, (rows9, mb), generator=gen, device=dev, dtype=i32),
+        torch.where((age < 0) | (ws < 0), torch.full_like(ws, cfg.empty_ws), ws).to(i32).contiguous())
+    t32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+    eidx9 = np.arange(s9) * 8 + 7
+    gid9 = (rng9.integers(0, nr9 // 8, s9) * 8 + 7).astype(np.int32)
+    ts9 = np.sort(now - 400 + rng9.integers(0, 400, s9))
+    sb = tsh.ShapingBatch(torch.ones(s9, dtype=torch.bool, device=dev), t32(gid9), t32(gid9 % rows9), t32(eidx9),
+                          t32(eidx9 * 2 + 1), t32(ts9), t32(np.ones(s9)))
+    live9, ppc9 = t(rng9.random(n9) < 0.95), t32(rng9.integers(0, 40, 2 * n9))
+    rounds9 = _rounds_bucket(gid9)
+
+    def k9_at(m):
+        sb_m = tsh.ShapingBatch(*(f[:m] for f in sb))
+        if hasattr(tsh, "shaping_stage"):
+            return lambda: tsh.shaping_stage(t9, d9, sb_m, live9, ppc9, minute, 1.0, rounds9)
+
+        def two_calls():  # the inputs, then the recurrence
+            valid, ppc_s, prev_s = tsh.shaping_inputs(sb_m, live9, ppc9, minute)
+            return tsh.run_shaping(t9, d9, sb_m._replace(valid=valid), ppc_s, prev_s, 1.0, rounds9)
+
+        return two_calls
+
+    profiled("k9", k9_at(s9))
+    out["k9_kernel_us"] = kernel_times(k9_at(s9))
+    profiled("k9_small", k9_at(8))
+    heavy = sb._replace(gid=t32(np.full(s9, 7)))
+    ppc_h, prev_h = t32(rng9.integers(0, 40, s9)), t32(rng9.integers(0, 40, s9))
+    out["k9_heavy_ms"] = time_ms(lambda: tsh.run_shaping(t9, d9, heavy, ppc_h, prev_h, 1.0, 0), iters=3, warmup=1)
+    del t9, d9, minute, sb, heavy
     torch.cuda.empty_cache()
 
     # K10: chip_smoke.py's mixed shape, 32,768 items over 16,384 rows.

@@ -1,8 +1,9 @@
 // Bitonic sorts in shared memory by the whole block, for the one-block
-// routes of K4 (flow_admission.cu), K10 (param_scan.cu) and K12
-// (token_decide.cu), and the (row, ts) sort key of K4 and K10. `p` is a
-// power of two; callers pad with SENTINEL keys. Included by one source per
-// library, so local to it.
+// routes of K4 (flow_admission.cu), K6 (system_check.cu), K9
+// (shaping_scan.cu), K10 (param_scan.cu), K12 (token_decide.cu) and K15
+// (mesh_budget.cu), and the (row, ts) sort key of K4 and K10. `p` is a
+// power of two; callers pad with SENTINEL keys; any block size. Included
+// by one source per library, so local to it.
 
 #pragma once
 
@@ -23,7 +24,7 @@ __device__ __forceinline__ int key_row(unsigned long long key) { return (int)(un
 __device__ void bitonic_sort(unsigned long long* key, int p) {
   for (int k = 2; k <= p; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < p; i += THREADS) {
+      for (int i = threadIdx.x; i < p; i += blockDim.x) {
         int ixj = i ^ j;
         if (ixj > i) {
           unsigned long long x = key[i], y = key[ixj];
@@ -44,7 +45,7 @@ template <class V>
 __device__ void bitonic_sort_pairs(unsigned long long* key, V* val, int p) {
   for (int k = 2; k <= p; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < p; i += THREADS) {
+      for (int i = threadIdx.x; i < p; i += blockDim.x) {
         int ixj = i ^ j;
         if (ixj > i) {
           unsigned long long x = key[i], y = key[ixj];

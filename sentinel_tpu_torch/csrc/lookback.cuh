@@ -1,7 +1,8 @@
 // Single-pass prefix scans across the blocks of one launch (decoupled
 // look-back), and the segmented prefix of the JAX package in that form.
-// Included by token_decide.cu (K12), flow_admission.cu (K4) and
-// param_scan.cu (K10); each source builds into its own library, so
+// Included by token_decide.cu (K12), flow_admission.cu (K4),
+// system_check.cu (K6), shaping_scan.cu (K9), param_scan.cu (K10) and
+// mesh_budget.cu (K15); each source builds into its own library, so
 // everything here is local to the including file.
 //
 // A launch that scans takes its tiles in the order its blocks start (an

@@ -1,10 +1,10 @@
 // Shared device code of the port's kernels: wrapping int32 arithmetic,
 // the three-phase block scan over int2 pairs (block totals, one block
 // scanning the totals, block scan plus carry), segment-head search and
-// floor division. Included by breaker_on_exits.cu, mesh_budget.cu and
-// shaping_scan.cu, and through lookback.cuh and bitonic.cuh by K4, K10, K12;
-// each source builds into its own library, so everything here is local
-// to the including file.
+// floor division. Included by breaker_on_exits.cu (K7) and, through
+// lookback.cuh and bitonic.cuh, by K4, K6, K9, K10, K12 and K15-K16
+// (mesh_budget.cu: K16 takes the three-phase scans); each source builds
+// into its own library, so everything here is local to the including file.
 //
 // The segmented prefixes of the JAX package are computed there as a
 // wrapping int32 cumsum minus a running max of group-start values; this

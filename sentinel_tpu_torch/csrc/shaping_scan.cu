@@ -1,43 +1,54 @@
-// K9, the shaping recurrence for Hopper (sm_90a): the port of
-// sentinel_tpu/rules/shaping.py:run_shaping over rules/recurrence.py:
+// K9, the shaping recurrence for Hopper (sm_90a), with its inputs: the port
+// of sentinel_tpu/rules/shaping.py:run_shaping over rules/recurrence.py:
 // run_segmented, with _transition and _pacer_cost, and the flush's inputs
 // to it (runtime/flush.py:_prev_second_pass and the gathers of
 // flush_entries :759-764). RateLimiter, WarmUp and WarmUpRateLimiter
 // (RateLimiterController.java:28-90, WarmUpController.java:84-175,
 // WarmUpRateLimiterController.java:25-90).
 //
-// Launch sequence (driven by rules/shaping.py):
-//   0. sh_inputs    (flush only) each item's liveness, its slot's pass plus
-//                   intra-batch charge, the previous second's pass of its
-//                   row in the minute window
-//   1. sh_keys      one int64 key per item: (rule << 32) | (ts ^ 2^31),
-//                   invalid items keyed past every rule
-//   2. torch.sort(keys, stable=True): the JAX (rule, ts, position) order
-//      in one CUB radix sort
-//   then, for rounds >= 0 (the rounds and scan schedules of JAX):
-//   3. sh_init      every item ok = 1, wait = 0 (what unresolved and
-//                   invalid items keep)
-//   4. sh_flags, scan_reduce/scan_partials/scan_apply_sum (segscan.cuh),
-//      sh_heads     segment heads as a flag, compacted by an exclusive sum
-//                   into a dense list, so one thread gets one segment and
-//                   no work is of the size of the rule table
-//   5. sh_walk      one thread per rule segment walks its items in order
-//                   (at most `rounds` of them when rounds > 0), the rule's
-//                   state (latest, stored, lastfill) in registers; writes
-//                   ok and wait at each item's original position and the
-//                   final state once
-//   or, for rounds == -1 (the closed-form pacer path the engine selects
-//   when every item is a plain RATE_LIMITER at one ts with one acquire):
-//   3'. sh_closed   one thread per item: its rank in the segment (binary
-//                   search for the segment head), the segment's grant cap
-//                   from the segment-start state, its verdict and wait;
-//                   the segment's last item computes the new latest
-//   4'. sh_commit   the segment ends write latest (after every read)
+// One C call, shaping_call, per shaping stage (driven by rules/shaping.py),
+// in one of three modes set by the pointers of ShArgs:
+// - run (live null): the items' pass-plus-charge and previous pass given;
+// - stage (live and ok set): the inputs gathered first, as the flush's
+//   shaping stage does: each item's validity masked by its entry's
+//   liveness (written out), its slot's pass-plus-charge, the previous
+//   second's pass of its row in the minute window;
+// - inputs only (ok null): the gather alone, one launch.
+// Invalid items are keyed past every rule and keep ok = 1, wait = 0. The
+// order is JAX's (rule, ts, position). Two routes:
 //
-// What bounds it: bytes and launches for typical batches (each item reads
-// about 30 B of batch and rule table and writes 5 B); a rule with thousands
-// of items in one flush is serial in its thread, as it is in JAX's
-// lax.scan. The closed form has no serial part.
+// - s <= small_max items (st.entry sends 8-64; at most SMALL_CAP): one
+//   launch of one block of 1,024 threads. Inputs and keys, a bitonic sort
+//   of (key, position) pairs in shared memory, then the heads, then each
+//   head's thread walks its segment (a long one: its warp), barriers
+//   between.
+// - more items: sh_prep (the inputs gathered by item, keys, positions,
+//   look-back state), one CUB radix sort of (key, position) pairs with
+//   end_bit 32 + bits(nr + 1), sh_heads (one single-pass kernel: the
+//   segment heads compacted by decoupled look-back, each item's fields
+//   gathered once into a 32-byte record in sorted order, the outputs
+//   initialised), then sh_walk, or for the closed form sh_closed. Scratch
+//   from the caller's workspace.
+//
+// The walk (rounds >= 0; rounds > 0 stops a segment after that many items
+// and leaves its state at the segment start, as JAX leaves it unresolved):
+// a segment of at most LONG items is one thread's. A longer one is its
+// warp's: the lanes load the next 32 records and compute their
+// state-free parts (the pacer cost, passQps, the second) while the chain
+// runs on the current 32, broadcast one by one (shuffles); every lane runs
+// the same recurrence, lane j keeps item j's verdict. The recurrence stays
+// serial within a rule, as JAX's lax.scan is; its per-item chain is only
+// the rule's behavior (a segment is one rule), and the warm-up line's
+// warning QPS is recomputed only when the stored tokens change.
+// The closed form (rounds == -1, every item a plain RATE_LIMITER at one ts
+// with one acquire): one thread per item ranks it in its segment from the
+// segment-start state, which sh_heads put into its record; the segment's
+// last item writes the new latest.
+//
+// What bounds it: launches for typical batches (each item reads about 30 B
+// of batch, inputs and rule table and writes 5 B); a rule with thousands
+// of items in one flush is serial, as it is in JAX's lax.scan. The closed
+// form has no serial part.
 //
 // Numerics: float32 statement by statement as the JAX code runs on the
 // CPU, with round-to-nearest intrinsics and no fast-math. XLA's CPU
@@ -47,22 +58,21 @@
 // saturate (__float2int_rz), as XLA's do: a WARM_UP_RATE_LIMITER cost at a
 // count near 0 is far outside int32. Times wrap in int32 (uint32
 // arithmetic); ts - ts % 1000 and the minute bucket use floor division
-// and modulo.
+// and modulo. A valid item whose rule id lies outside [0, nr) counts as
+// invalid, as in run_shaping_plain (the flush's ids lie in range).
 
 #include <math.h>
 
-#include "segscan.cuh"
+#include <cub/device/device_radix_sort.cuh>
 
-namespace {
+#include "bitonic.cuh"
+#include "lookback.cuh"
 
-constexpr int CB_WARM_UP = 1;  // models/constants.py
-constexpr int CB_RATE_LIMITER = 2;
-constexpr int CB_WARM_UP_RATE_LIMITER = 3;
-
-__device__ __forceinline__ int wrap_mul(int a, int b) { return (int)((unsigned)a * (unsigned)b); }
-
-struct Table {
-  const int* behavior;
+// Everything one call reads and writes; rules/shaping.py fills the same
+// layout (pointers first, then the ints, then the float). At file scope, so
+// that the C entry point taking it keeps external linkage.
+struct ShArgs {
+  const int* behavior;  // [nr] the rule table (rules/flow_table.py)
   const float* count;
   const int* maxq;
   const int* cost1;
@@ -70,22 +80,73 @@ struct Table {
   const int* maxtok;
   const float* slope;
   const int* refill;
-};
-
-struct Dyn {
-  int* latest;
+  int* latest;  // [nr] the rule state, updated in place
   float* stored;
   int* lastfill;
-};
-
-struct Items {
-  const uint8_t* valid;
+  const uint8_t* valid;  // [s] the items
+  const int* gid;
   const int* ts;
   const int* acq;
-  const int* ppc;
-  const int* prev;
+  const int* ppc;        // [s] by item; with `live`, [nk] by slot
+  const int* prev;       // [s] by item; unused with `live`
+  const uint8_t* live;   // [n] entry liveness, or null: no gather
+  const int* eidx;       // [s] the gather's item fields
+  const int* flat_pos;
+  const int* row;
+  const int* mws;        // the minute window: [r_rows, nb] starts
+  const int* mcounts;    // [r_rows, nb, ne]
+  uint8_t* ok;           // [s], or null: the inputs only
+  int* wait;
+  uint8_t* valid_out;    // [s] with `live`: the masked validity
+  int* ppc_out;          // [s] the inputs only: the gathered inputs
+  int* prev_out;
+  int s, nr, rounds, n, nk, r_rows, nb, ne, wlen, small_max;
   float interval_sec;
 };
+
+namespace {
+
+constexpr int CB_WARM_UP = 1;  // models/constants.py
+constexpr int CB_RATE_LIMITER = 2;
+constexpr int CB_WARM_UP_RATE_LIMITER = 3;
+constexpr int SMALL_CAP = 8192;  // items the one-block route can take
+constexpr int LONG = 64;         // a longer segment is walked by its warp
+constexpr int SMALL_THREADS = 1024;  // the one-block route's block
+
+// ---------------------------------------------------------------------------
+// the inputs
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ bool item_valid(const ShArgs& a, int i) {
+  return a.valid[i] && (a.live == nullptr || a.live[clampi(a.eidx[i], 0, a.n - 1)]);
+}
+
+// The sort key: the rule + 1 over the ts; invalid items, and valid ones
+// whose rule id lies outside [0, nr), nr + 1.
+__device__ __forceinline__ u64 item_key(const ShArgs& a, int i, bool v) {
+  return row_ts_key(v && (unsigned)a.gid[i] < (unsigned)a.nr ? a.gid[i] + 1 : a.nr + 1, a.ts[i]);
+}
+
+__device__ __forceinline__ int item_ppc(const ShArgs& a, int p) {
+  return a.live ? a.ppc[clampi(a.flat_pos[p], 0, a.nk - 1)] : a.ppc[p];
+}
+
+// node.previousPassQps(): the minute window's bucket one second back.
+__device__ __forceinline__ int gather_prev(const ShArgs& a, int p) {
+  int tprev = wrap_sub(a.ts[p], a.wlen);
+  int aligned = wrap_sub(tprev, floormod(tprev, a.wlen));
+  int b = floormod(floordiv(tprev, a.wlen), a.nb);
+  int64_t c = (int64_t)clampi(a.row[p], 0, a.r_rows - 1) * a.nb + b;
+  return a.mws[c] == aligned ? a.mcounts[c * a.ne] : 0;  // event 0 = PASS
+}
+
+__device__ __forceinline__ int item_prev(const ShArgs& a, int p) { return a.live ? gather_prev(a, p) : a.prev[p]; }
+
+// ---------------------------------------------------------------------------
+// the recurrence
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int wrap_mul(int a, int b) { return (int)((unsigned)a * (unsigned)b); }
 
 // _pacer_cost: cost1 when acquire == 1, else floor(acquire / count * 1000 + 0.5).
 __device__ __forceinline__ int pacer_cost(float acq_f, int acq_i, float cnt, int c1) {
@@ -94,258 +155,511 @@ __device__ __forceinline__ int pacer_cost(float acq_f, int acq_i, float cnt, int
   return __float2int_rz(acq_i == 1 ? __int2float_rn(c1) : generic);
 }
 
+// One item's inputs (a record in sorted order, or gathered in place).
+struct Raw {
+  int ts, acq, ppc, prev, pos, latest0;
+};
+
+// The rule of a segment, read once by its walker.
+struct Rule {
+  int b, mq, c1;
+  float cnt, wn, mx, sl, rt, inv_cnt;
+};
+
+__device__ __forceinline__ Rule load_rule(const ShArgs& a, int g) {
+  float cnt = a.count[g];
+  return Rule{a.behavior[g], a.maxq[g], a.cost1[g], cnt, __int2float_rn(a.warn[g]), __int2float_rn(a.maxtok[g]),
+              a.slope[g], __int2float_rn(a.refill[g]), __fdiv_rn(1.0f, fmaxf(cnt, 1e-9f))};
+}
+
+// What of an item does not depend on the rule's state.
+struct Item {
+  int ts, acq, sec, cost, pos;
+  float acq_f, passq, prevq;
+};
+
+__device__ __forceinline__ Item make_item(const Raw& r, const Rule& u, float interval_sec) {
+  Item x;
+  x.ts = r.ts;
+  x.acq = r.acq;
+  x.pos = r.pos;
+  x.acq_f = __int2float_rn(r.acq);
+  x.sec = wrap_sub(r.ts, floormod(r.ts, 1000));
+  // The pacer cost as _transition takes it: through float32 and back.
+  x.cost = __float2int_rz(__int2float_rn(pacer_cost(x.acq_f, r.acq, u.cnt, u.c1)));
+  x.passq = floorf(__fdiv_rn(__int2float_rn(r.ppc), interval_sec));
+  x.prevq = __int2float_rn(r.prev);
+  return x;
+}
+
 struct ShState {
   int latest;
   float stored;
   int lastfill;
+  float wq;  // the warning QPS of `stored`
 };
 
-// _transition for one item (shaping.py:84-149).
-__device__ __forceinline__ void sh_step(ShState& st, bool valid, int ts, int acq_i, float passq, float prevq,
-                                        int b, float cnt, int mq, int c1, float wn, float mx, float sl, float rt,
-                                        bool& ok, int& wait) {
-  float acq_f = __int2float_rn(acq_i);
-  bool is_wu = b == CB_WARM_UP || b == CB_WARM_UP_RATE_LIMITER;
-  // syncToken (WarmUpController.syncToken / coolDownTokens)
-  int sec = wrap_sub(ts, floormod(ts, 1000));
-  bool do_sync = is_wu && sec > st.lastfill && valid;
-  float elapsed = __int2float_rn(wrap_sub(sec, st.lastfill));
-  bool refill_ok = st.stored < wn || (st.stored > wn && prevq < rt);
-  float refilled = fminf(floorf(__fadd_rn(st.stored, __fdiv_rn(__fmul_rn(elapsed, cnt), 1000.0f))), mx);
-  float stored1 = (do_sync && refill_ok) ? refilled : st.stored;
-  float stored2 = do_sync ? fmaxf(__fsub_rn(stored1, prevq), 0.0f) : stored1;
-  int lastfill2 = do_sync ? sec : st.lastfill;
-  // the warm-up admitted QPS above the warning line
-  float above = fmaxf(__fsub_rn(stored2, wn), 0.0f);
-  float inv = __fmaf_rn(above, sl, __fdiv_rn(1.0f, fmaxf(cnt, 1e-9f)));
-  float warning_qps = nextafterf(__fdiv_rn(1.0f, inv), INFINITY);
-  bool cold = stored2 >= wn;
-  float pa = __fadd_rn(passq, acq_f);
-  bool wu_ok = cold ? pa <= warning_qps : pa <= cnt;
-  // the pacer cost (RateLimiter / WarmUpRateLimiter)
-  float cost_rl = __int2float_rn(pacer_cost(acq_f, acq_i, cnt, c1));
-  float cost_wurl_cold = floorf(__fmaf_rn(__fdiv_rn(acq_f, warning_qps), 1000.0f, 0.5f));
-  float cost_f = (b == CB_WARM_UP_RATE_LIMITER && cold) ? cost_wurl_cold : cost_rl;
-  int cost = __float2int_rz(cost_f);
-  int expected = wrap_add(st.latest, cost);
-  bool imm = expected <= ts;
-  int w = wrap_sub(expected, ts);
-  bool queued = !imm && w <= mq;
-  bool pacer_ok = ((imm || queued) && cnt > 0.0f) || acq_i <= 0;  // acquire <= 0 always passes
-  int latest2 = (valid && pacer_ok && acq_i > 0) ? (imm ? ts : expected) : st.latest;
-  bool is_pacer = b == CB_RATE_LIMITER || b == CB_WARM_UP_RATE_LIMITER;
-  bool okv = b == CB_WARM_UP ? wu_ok : (is_pacer ? pacer_ok : true);
-  ok = okv || !valid;
-  wait = (valid && is_pacer && queued && pacer_ok) ? w : 0;
-  // The pacer state advances only for pacer behaviors, the warm-up state
-  // only through the sync; invalid items touch nothing.
-  if (valid && is_pacer) st.latest = latest2;
-  if (valid) {
-    st.stored = stored2;
-    st.lastfill = lastfill2;
+// The warm-up admitted QPS above the warning line.
+__device__ __forceinline__ float warning_qps(float stored, const Rule& u) {
+  float above = fmaxf(__fsub_rn(stored, u.wn), 0.0f);
+  float inv = __fmaf_rn(above, u.sl, u.inv_cnt);
+  return nextafterf(__fdiv_rn(1.0f, inv), INFINITY);
+}
+
+__device__ __forceinline__ bool is_wu(int b) { return b == CB_WARM_UP || b == CB_WARM_UP_RATE_LIMITER; }
+
+__device__ __forceinline__ ShState load_state(const ShArgs& a, int g, const Rule& u) {
+  ShState st{a.latest[g], a.stored[g], a.lastfill[g], 0.0f};
+  if (is_wu(u.b)) st.wq = warning_qps(st.stored, u);
+  return st;
+}
+
+// _transition for one valid item of the rule (shaping.py:84-149): only the
+// rule's behavior is computed. The pacer state advances only for pacer
+// behaviors, the warm-up state only through the sync.
+__device__ __forceinline__ void sh_step(ShState& st, const Item& x, const Rule& u, bool& ok, int& wait) {
+  if (is_wu(u.b) && x.sec > st.lastfill) {  // syncToken (WarmUpController.syncToken / coolDownTokens)
+    float elapsed = __int2float_rn(wrap_sub(x.sec, st.lastfill));
+    bool refill_ok = st.stored < u.wn || (st.stored > u.wn && x.prevq < u.rt);
+    float refilled = fminf(floorf(__fadd_rn(st.stored, __fdiv_rn(__fmul_rn(elapsed, u.cnt), 1000.0f))), u.mx);
+    float stored1 = refill_ok ? refilled : st.stored;
+    st.stored = fmaxf(__fsub_rn(stored1, x.prevq), 0.0f);
+    st.lastfill = x.sec;
+    st.wq = warning_qps(st.stored, u);
+  }
+  ok = true;
+  wait = 0;
+  if (u.b == CB_WARM_UP) {
+    float pa = __fadd_rn(x.passq, x.acq_f);
+    ok = st.stored >= u.wn ? pa <= st.wq : pa <= u.cnt;
+  } else if (u.b == CB_RATE_LIMITER || u.b == CB_WARM_UP_RATE_LIMITER) {
+    int cost = x.cost;
+    if (u.b == CB_WARM_UP_RATE_LIMITER && st.stored >= u.wn)
+      cost = __float2int_rz(floorf(__fmaf_rn(__fdiv_rn(x.acq_f, st.wq), 1000.0f, 0.5f)));
+    int expected = wrap_add(st.latest, cost);
+    bool imm = expected <= x.ts;
+    int w = wrap_sub(expected, x.ts);
+    bool queued = !imm && w <= u.mq;
+    ok = ((imm || queued) && u.cnt > 0.0f) || x.acq <= 0;  // acquire <= 0 always passes
+    if (ok && x.acq > 0) st.latest = imm ? x.ts : expected;
+    wait = (queued && ok) ? w : 0;
   }
 }
 
-__device__ __forceinline__ int key_of(int64_t k) { return (int)(k >> 32); }
+__device__ __forceinline__ int walk_limit(const ShArgs& a, int n) { return a.rounds > 0 ? min(a.rounds, n) : n; }
 
-__global__ void sh_inputs(const uint8_t* __restrict__ sv, const int* __restrict__ eidx,
-                          const int* __restrict__ flat_pos, const int* __restrict__ row,
-                          const int* __restrict__ ts, int s, const uint8_t* __restrict__ live, int n,
-                          const int* __restrict__ ppc, int nk, const int* __restrict__ mws,
-                          const int* __restrict__ mcounts, int r_rows, int nb, int ne, int wlen,
-                          uint8_t* __restrict__ valid_out, int* __restrict__ ppc_out, int* __restrict__ prev_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= s) return;
-  valid_out[i] = (sv[i] && live[clampi(eidx[i], 0, n - 1)]) ? 1 : 0;
-  ppc_out[i] = ppc[clampi(flat_pos[i], 0, nk - 1)];
-  // node.previousPassQps(): the minute window's bucket one second back.
-  int tprev = wrap_sub(ts[i], wlen);
-  int aligned = wrap_sub(tprev, floormod(tprev, wlen));
-  int b = floormod(floordiv(tprev, wlen), nb);
-  int64_t c = (int64_t)clampi(row[i], 0, r_rows - 1) * nb + b;
-  prev_out[i] = mws[c] == aligned ? mcounts[c * ne] : 0;  // event 0 = PASS
+__device__ __forceinline__ void store_state(const ShArgs& a, int g, const ShState& st) {
+  a.latest[g] = st.latest;
+  a.stored[g] = st.stored;
+  a.lastfill[g] = st.lastfill;
 }
 
-__global__ void sh_keys(const uint8_t* __restrict__ valid, const int* __restrict__ gid,
-                        const int* __restrict__ ts, int s, int nr, int64_t* __restrict__ keys) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= s) return;
-  int key = valid[i] ? gid[i] : nr;
-  keys[i] = static_cast<int64_t>(key) * INT64_C(4294967296) + (int64_t)((unsigned)ts[i] ^ 0x80000000u);
-}
-
-__global__ void sh_init(int s, uint8_t* __restrict__ ok, int* __restrict__ wait) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= s) return;
-  ok[i] = 1;
-  wait[i] = 0;
-}
-
-// Segment-head flags as scan contributions (x = 1 at a head).
-__global__ void sh_flags(const int64_t* __restrict__ key_s, int s, int2* __restrict__ contrib) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= s) return;
-  bool head = i == 0 || key_of(key_s[i]) != key_of(key_s[i - 1]);
-  contrib[i] = make_int2(head ? 1 : 0, 0);
-}
-
-// Compaction: heads[j] = position of the j-th head, heads[nseg] = s, and
-// heads[s + 1] = nseg.
-__global__ void sh_heads(const int2* __restrict__ contrib, const int2* __restrict__ excl, int s,
-                         int* __restrict__ heads) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= s) return;
-  if (contrib[i].x) heads[excl[i].x] = i;
-  if (i == s - 1) {
-    int nseg = excl[i].x + contrib[i].x;
-    heads[nseg] = s;
-    heads[s + 1] = nseg;
-  }
-}
-
-__global__ void sh_walk(int s, int nr, int rounds, const int64_t* __restrict__ key_s,
-                        const int64_t* __restrict__ perm, const int* __restrict__ heads, Items it, Table tb,
-                        Dyn dyn, uint8_t* __restrict__ ok, int* __restrict__ wait) {
-  int h = blockIdx.x * blockDim.x + threadIdx.x;
-  if (h >= heads[s + 1]) return;
-  int start = heads[h], end = heads[h + 1];
-  int key = key_of(key_s[start]);
-  if (key >= nr) return;  // invalid items: ok = 1, wait = 0 already
-  int g = clampi(key, 0, nr - 1);
-  int b = tb.behavior[g], mq = tb.maxq[g], c1 = tb.cost1[g];
-  float cnt = tb.count[g], sl = tb.slope[g];
-  float wn = __int2float_rn(tb.warn[g]), mx = __int2float_rn(tb.maxtok[g]);
-  float rt = __int2float_rn(tb.refill[g]);
-  ShState st{dyn.latest[g], dyn.stored[g], dyn.lastfill[g]};
-  int n_items = end - start;
-  int limit = rounds > 0 ? min(rounds, n_items) : n_items;
+// One thread walks the segment [start, start + n) of rule g in order; the
+// state is written back when the walk finished the segment.
+template <class Load>
+__device__ void walk_thread(const ShArgs& a, const Load& ld, int start, int n, int g) {
+  const Rule u = load_rule(a, g);
+  ShState st = load_state(a, g, u);
+  const int limit = walk_limit(a, n);
   for (int i = start; i < start + limit; ++i) {
-    int p = (int)perm[i];
-    float passq = floorf(__fdiv_rn(__int2float_rn(it.ppc[p]), it.interval_sec));
+    Item x = make_item(ld(a, i), u, a.interval_sec);
     bool okv;
     int w;
-    sh_step(st, it.valid[p], it.ts[p], it.acq[p], passq, __int2float_rn(it.prev[p]), b, cnt, mq, c1, wn, mx, sl,
-            rt, okv, w);
-    ok[p] = okv ? 1 : 0;
-    wait[p] = w;
+    sh_step(st, x, u, okv, w);
+    a.ok[x.pos] = okv ? 1 : 0;
+    a.wait[x.pos] = w;
   }
-  // The segment's last item writes the final state back; past the rounds
-  // bound that is the segment-start state (JAX leaves it unresolved).
-  if (limit == n_items && it.valid[perm[end - 1]]) {
-    dyn.latest[g] = st.latest;
-    dyn.stored[g] = st.stored;
-    dyn.lastfill[g] = st.lastfill;
-  }
+  if (limit == n) store_state(a, g, st);
 }
 
-// The closed-form pacer path (shaping.py:220-282). new_latest[i] holds the
-// segment end's state until sh_commit writes it.
-__global__ void sh_closed(int s, int nr, const int64_t* __restrict__ key_s, const int64_t* __restrict__ perm,
-                          Items it, Table tb, const int* __restrict__ latest, uint8_t* __restrict__ ok,
-                          int* __restrict__ wait, int* __restrict__ new_latest) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= s) return;
-  int key = key_of(key_s[i]);
-  int start = lower_bound(key_s, s, static_cast<int64_t>(key) * INT64_C(4294967296));
-  int p = (int)perm[i];
-  bool v = it.valid[p];
-  int g = clampi(key, 0, nr - 1);
-  int ts = it.ts[p], acq_i = it.acq[p];
-  float cnt = tb.count[g];
-  int maxq = tb.maxq[g];
+__device__ __forceinline__ Item shfl_item(const Item& x, int j) {
+  Item y;
+  y.ts = __shfl_sync(FULL_MASK, x.ts, j);
+  y.acq = __shfl_sync(FULL_MASK, x.acq, j);
+  y.sec = __shfl_sync(FULL_MASK, x.sec, j);
+  y.cost = __shfl_sync(FULL_MASK, x.cost, j);
+  y.pos = __shfl_sync(FULL_MASK, x.pos, j);
+  y.acq_f = __shfl_sync(FULL_MASK, x.acq_f, j);
+  y.passq = __shfl_sync(FULL_MASK, x.passq, j);
+  y.prevq = __shfl_sync(FULL_MASK, x.prevq, j);
+  return y;
+}
+
+// The whole warp walks a long segment: lane l holds item base + l of the
+// current 32 and loads and prepares its next one while every lane runs the
+// chain on the current ones, broadcast in order; lane j keeps item j's
+// verdict.
+template <class Load>
+__device__ void walk_warp(const ShArgs& a, const Load& ld, int start, int n, int g) {
+  const int lane = threadIdx.x & 31;
+  const int limit = walk_limit(a, n);
+  const Rule u = load_rule(a, g);
+  ShState st = load_state(a, g, u);
+  Item cur{};
+  if (lane < limit) cur = make_item(ld(a, start + lane), u, a.interval_sec);
+  for (int base = 0; base < limit; base += 32) {
+    const int m = min(32, limit - base);
+    Item nxt{};
+    if (base + 32 + lane < limit) nxt = make_item(ld(a, start + base + 32 + lane), u, a.interval_sec);
+    bool my_ok = true;
+    int my_wait = 0;
+    for (int j = 0; j < m; ++j) {
+      Item x = shfl_item(cur, j);
+      bool okv;
+      int w;
+      sh_step(st, x, u, okv, w);
+      if (lane == j) {
+        my_ok = okv;
+        my_wait = w;
+      }
+    }
+    if (lane < m) {
+      a.ok[cur.pos] = my_ok ? 1 : 0;
+      a.wait[cur.pos] = my_wait;
+    }
+    cur = nxt;
+  }
+  if (lane == 0 && limit == n) store_state(a, g, st);
+}
+
+// The closed-form pacer path (shaping.py:220-282) for sorted item i of the
+// valid segment starting at `start`, from the segment-start latest0; the
+// segment's last item (seg_end) writes the new latest.
+__device__ __forceinline__ void closed_item(const ShArgs& a, const Raw& r, int g, int start, int i, bool seg_end) {
+  float cnt = a.count[g];
+  int maxq = a.maxq[g];
   int r1 = i - start + 1;  // rank in the segment, 1-indexed
-  int cost = pacer_cost(__int2float_rn(acq_i), acq_i, cnt, tb.cost1[g]);
-  int latest0 = latest[g];
-  bool imm0 = wrap_add(latest0, cost) <= ts;
+  int cost = pacer_cost(__int2float_rn(r.acq), r.acq, cnt, a.cost1[g]);
+  int latest0 = r.latest0;
+  bool imm0 = wrap_add(latest0, cost) <= r.ts;
   const int big = 1 << 30;
   int safe = max(cost, 1);
   // The grant cap by division only: rank x cost may overflow int32.
   int g_imm = cost > 0 ? wrap_add(1, floordiv(maxq, safe)) : big;
-  int g_queue = cost > 0 ? max(floordiv(wrap_sub(wrap_add(ts, maxq), latest0), safe), 0)
-                         : (wrap_sub(latest0, ts) <= maxq ? big : 0);
+  int g_queue = cost > 0 ? max(floordiv(wrap_sub(wrap_add(r.ts, maxq), latest0), safe), 0)
+                         : (wrap_sub(latest0, r.ts) <= maxq ? big : 0);
   int cap = cnt > 0.0f ? (imm0 ? g_imm : g_queue) : 0;
-  bool okv = !v || r1 <= cap;
-  int wait_r = imm0 ? wrap_mul(r1 - 1, cost) : wrap_sub(wrap_add(latest0, wrap_mul(r1, cost)), ts);
-  ok[p] = okv ? 1 : 0;
-  wait[p] = (v && okv && wait_r > 0) ? wait_r : 0;
-  bool seg_end = i == s - 1 || key_of(key_s[i + 1]) != key;
-  if (seg_end && v) {
+  bool okv = r1 <= cap;
+  int wait_r = imm0 ? wrap_mul(r1 - 1, cost) : wrap_sub(wrap_add(latest0, wrap_mul(r1, cost)), r.ts);
+  a.ok[r.pos] = okv ? 1 : 0;
+  a.wait[r.pos] = (okv && wait_r > 0) ? wait_r : 0;
+  if (seg_end) {
     int granted = min(r1, cap);
-    new_latest[i] = granted > 0 ? (imm0 ? wrap_add(ts, wrap_mul(granted - 1, cost))
-                                        : wrap_add(latest0, wrap_mul(granted, cost)))
-                                : latest0;
+    a.latest[g] = granted > 0 ? (imm0 ? wrap_add(r.ts, wrap_mul(granted - 1, cost))
+                                      : wrap_add(latest0, wrap_mul(granted, cost)))
+                              : latest0;
   }
 }
 
-__global__ void sh_commit(int s, int nr, const int64_t* __restrict__ key_s, const int64_t* __restrict__ perm,
-                          const uint8_t* __restrict__ valid, const int* __restrict__ new_latest,
-                          int* __restrict__ latest) {
+// ---------------------------------------------------------------------------
+// the inputs alone
+// ---------------------------------------------------------------------------
+
+__global__ void sh_gather(ShArgs a) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= s) return;
-  int key = key_of(key_s[i]);
-  bool seg_end = i == s - 1 || key_of(key_s[i + 1]) != key;
-  if (seg_end && valid[perm[i]]) latest[clampi(key, 0, nr - 1)] = new_latest[i];
+  if (i >= a.s) return;
+  a.valid_out[i] = item_valid(a, i) ? 1 : 0;
+  a.ppc_out[i] = item_ppc(a, i);
+  a.prev_out[i] = gather_prev(a, i);
 }
+
+// ---------------------------------------------------------------------------
+// one block: s <= small_max
+// ---------------------------------------------------------------------------
+
+// Items gathered through the sorted positions; ppc and prev were gathered
+// into shared memory by item.
+struct SmallLoad {
+  const unsigned short* val;
+  const int* ppc;
+  const int* prev;
+  __device__ Raw operator()(const ShArgs& a, int i) const {
+    int p = val[i];
+    return Raw{a.ts[p], a.acq[p], ppc[p], prev[p], p, 0};
+  }
+};
+
+// Dynamic shared memory: p2 keys, p2 positions, then by item ppc, prev and
+// (closed form) the segment-start latest of each sorted position.
+__global__ void __launch_bounds__(SMALL_THREADS) sh_small(ShArgs a, int p2) {
+  extern __shared__ u64 key[];
+  int* ppc = reinterpret_cast<int*>(key + p2);
+  int* prev = ppc + a.s;
+  int* lat0 = prev + a.s;
+  unsigned short* val = reinterpret_cast<unsigned short*>(lat0 + a.s);
+  __shared__ int2 longs[SMALL_CAP / LONG];
+  __shared__ int n_long;
+  for (int i = threadIdx.x; i < p2; i += SMALL_THREADS) {
+    val[i] = (unsigned short)i;
+    if (i < a.s) {
+      bool v = item_valid(a, i);
+      key[i] = item_key(a, i, v);
+      if (a.live) a.valid_out[i] = v ? 1 : 0;
+      ppc[i] = item_ppc(a, i);
+      prev[i] = item_prev(a, i);
+      a.ok[i] = 1;
+      a.wait[i] = 0;
+    } else {
+      key[i] = SENTINEL;
+    }
+  }
+  if (threadIdx.x == 0) n_long = 0;
+  __syncthreads();
+  bitonic_sort_pairs(key, val, p2);
+  const SmallLoad ld{val, ppc, prev};
+  const int ipt = (p2 + SMALL_THREADS - 1) / SMALL_THREADS;
+  const int j0 = threadIdx.x * ipt;
+  const int j1 = min(j0 + ipt, a.s);
+  if (a.rounds == -1) {
+    // Every segment-start latest is read before any segment end writes.
+    for (int j = j0; j < j1; ++j) {
+      int hi = key_row(key[j]);
+      if (hi <= a.nr) lat0[j] = a.latest[clampi(hi - 1, 0, a.nr - 1)];
+    }
+    __syncthreads();
+    for (int j = j0; j < j1; ++j) {
+      int hi = key_row(key[j]);
+      if (hi > a.nr) continue;  // invalid: ok = 1, wait = 0
+      int start = lower_bound(key, a.s, (u64)(unsigned)hi << 32);
+      Raw r = ld(a, j);
+      r.latest0 = lat0[j];
+      closed_item(a, r, clampi(hi - 1, 0, a.nr - 1), start, j, j + 1 == a.s || key_row(key[j + 1]) != hi);
+    }
+    return;
+  }
+  for (int j = j0; j < j1; ++j) {
+    int hi = key_row(key[j]);
+    if (hi > a.nr || (j > 0 && key_row(key[j - 1]) == hi)) continue;  // not a valid segment's head
+    int end = j + lower_bound(key + j, a.s - j, (u64)(unsigned)(hi + 1) << 32);
+    int g = clampi(hi - 1, 0, a.nr - 1);
+    if (walk_limit(a, end - j) > LONG)
+      longs[atomicAdd(&n_long, 1)] = make_int2(j, end);
+    else
+      walk_thread(a, ld, j, end - j, g);
+  }
+  __syncthreads();
+  for (int l = threadIdx.x >> 5; l < n_long; l += SMALL_THREADS / 32) {
+    int hi = key_row(key[longs[l].x]);
+    walk_warp(a, ld, longs[l].x, longs[l].y - longs[l].x, clampi(hi - 1, 0, a.nr - 1));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// many blocks: any s
+// ---------------------------------------------------------------------------
+
+// The inputs' validity, the sort keys and positions, the look-back state;
+// with `live`, each valid item's gathered pass-plus-charge and previous
+// pass by item (`in2`), so that sh_heads reads one word pair per item.
+__global__ void sh_prep(ShArgs a, u64* __restrict__ key, int* __restrict__ val, int2* __restrict__ in2,
+                        u64* __restrict__ status, int n_status, int* __restrict__ ctl) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_status) status[i] = 0;
+  if (i == 0) *ctl = 0;
+  if (i < a.s) {
+    bool v = item_valid(a, i);
+    key[i] = item_key(a, i, v);
+    val[i] = i;
+    if (a.live) {
+      a.valid_out[i] = v ? 1 : 0;
+      if (v) in2[i] = make_int2(item_ppc(a, i), gather_prev(a, i));
+    }
+  }
+}
+
+// Records in sorted order: {ts, acq, ppc, prev}, {pos, latest0, -, -}.
+struct RecLoad {
+  const int4* rec;
+  __device__ Raw operator()(const ShArgs&, int i) const {
+    int4 u = rec[2 * i], v = rec[2 * i + 1];
+    return Raw{u.x, u.y, u.z, u.w, v.x, v.y};
+  }
+};
+
+// Single pass over the sorted items: the segment heads compacted into
+// heads[0, nseg) (heads[nseg] = s, heads[s + 1] = nseg), each valid item's
+// inputs gathered into its record in sorted order (for the closed form
+// with its rule's latest before the call), every output's first value
+// (ok = 1, wait = 0).
+__global__ void __launch_bounds__(THREADS)
+    sh_heads(ShArgs a, const u64* __restrict__ ks, const int* __restrict__ vs, const int2* __restrict__ in2,
+             int4* __restrict__ rec, int* __restrict__ heads, u64* status, int nt, int* ctl) {
+  __shared__ int s_tile;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ctl, 1);
+  __syncthreads();
+  LookBack<1> lb{status, nt, s_tile, 0};
+  const int base = s_tile * TILE + threadIdx.x * IPT;
+  int p[IPT], hi[IPT];
+  bool head[IPT];
+  int local = 0;
+#pragma unroll
+  for (int q = 0; q < IPT; ++q) {
+    int i = base + q;
+    p[q] = -1;
+    head[q] = false;
+    if (i >= a.s) continue;
+    hi[q] = key_row(ks[i]);
+    head[q] = i == 0 || key_row(ks[i - 1]) != hi[q];
+    local += head[q] ? 1 : 0;
+    p[q] = vs[i];
+  }
+  // Every field is loaded before anything is stored, and the loads are in
+  // flight during the look-back.
+  int4 r[IPT];
+  int lat0[IPT];
+#pragma unroll
+  for (int q = 0; q < IPT; ++q) {
+    if (p[q] < 0 || hi[q] > a.nr) continue;  // invalid: no record is read
+    int2 pp = a.live ? in2[p[q]] : make_int2(a.ppc[p[q]], a.prev[p[q]]);
+    r[q] = make_int4(a.ts[p[q]], a.acq[p[q]], pp.x, pp.y);
+    lat0[q] = a.rounds == -1 ? a.latest[clampi(hi[q] - 1, 0, a.nr - 1)] : 0;
+  }
+  int total;
+  int idx = compact_index(local, lb, total);
+#pragma unroll
+  for (int q = 0; q < IPT; ++q) {
+    int i = base + q;
+    if (p[q] < 0) continue;
+    a.ok[p[q]] = 1;
+    a.wait[p[q]] = 0;
+    if (hi[q] <= a.nr) {
+      rec[2 * i] = r[q];
+      rec[2 * i + 1] = make_int4(p[q], lat0[q], 0, 0);
+    }
+    if (head[q]) heads[idx++] = i;
+    if (i == a.s - 1) {
+      heads[idx] = a.s;
+      heads[a.s + 1] = idx;
+    }
+  }
+}
+
+// One thread per segment; the block's long segments go to its warps.
+__global__ void __launch_bounds__(THREADS)
+    sh_walk(ShArgs a, const u64* __restrict__ ks, const int4* __restrict__ rec, const int* __restrict__ heads) {
+  __shared__ int2 longs[THREADS];
+  __shared__ int n_long;
+  if (threadIdx.x == 0) n_long = 0;
+  __syncthreads();
+  const RecLoad ld{rec};
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h < heads[a.s + 1]) {
+    int start = heads[h], end = heads[h + 1];
+    int hi = key_row(ks[start]);
+    if (hi <= a.nr) {  // invalid items keep ok = 1, wait = 0
+      if (walk_limit(a, end - start) > LONG)
+        longs[atomicAdd(&n_long, 1)] = make_int2(start, end);
+      else
+        walk_thread(a, ld, start, end - start, clampi(hi - 1, 0, a.nr - 1));
+    }
+  }
+  __syncthreads();
+  for (int l = threadIdx.x >> 5; l < n_long; l += NWARPS) {
+    int hi = key_row(ks[longs[l].x]);
+    walk_warp(a, ld, longs[l].x, longs[l].y - longs[l].x, clampi(hi - 1, 0, a.nr - 1));
+  }
+}
+
+__global__ void sh_closed(ShArgs a, const u64* __restrict__ ks, const int4* __restrict__ rec) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.s) return;
+  int hi = key_row(ks[i]);
+  if (hi > a.nr) return;  // invalid: ok = 1, wait = 0 already
+  int start = lower_bound(ks, a.s, (u64)(unsigned)hi << 32);
+  closed_item(a, RecLoad{rec}(a, i), clampi(hi - 1, 0, a.nr - 1), start, i,
+              i + 1 == a.s || key_row(ks[i + 1]) != hi);
+}
+
+// Workspace of the many-block route: keys and positions in and out, the
+// gathered inputs by item, the records, the heads, one look-back walk, the
+// tile counter, CUB's temp storage.
+struct Layout {
+  size_t key_in, key_out, val_in, val_out, in2, rec, heads, status, ctl, temp, total;
+  int nt;
+};
+
+Layout layout(int s) {
+  Layout l;
+  l.nt = tiles_for(s);
+  size_t temp = 0;
+  cub::DeviceRadixSort::SortPairs(nullptr, temp, (const u64*)nullptr, (u64*)nullptr, (const int*)nullptr,
+                                  (int*)nullptr, s, 0, 64);
+  size_t k8 = align256(sizeof(u64) * (size_t)s), k4 = align256(sizeof(int) * (size_t)s);
+  l.key_in = 0;
+  l.key_out = l.key_in + k8;
+  l.val_in = l.key_out + k8;
+  l.val_out = l.val_in + k4;
+  l.in2 = l.val_out + k4;
+  l.rec = l.in2 + k8;
+  l.heads = l.rec + align256(sizeof(int4) * 2 * (size_t)s);
+  l.status = l.heads + align256(sizeof(int) * ((size_t)s + 2));
+  l.ctl = l.status + align256(sizeof(u64) * (size_t)l.nt);
+  l.temp = l.ctl + 256;
+  l.total = l.temp + align256(temp);
+  return l;
+}
+
+bool one_block(const ShArgs& a) { return a.s <= a.small_max; }
 
 }  // namespace
 
 extern "C" {
 
-// Step 0 (flush only): the item inputs. live [n], ppc [nk] (slot order),
-// the minute window's window_start [r_rows, nb] and counts [r_rows, nb, ne].
-int shaping_inputs(const uint8_t* sv, const int* eidx, const int* flat_pos, const int* row, const int* ts, int s,
-                   const uint8_t* live, int n, const int* ppc, int nk, const int* mws, const int* mcounts,
-                   int r_rows, int nb, int ne, int wlen, uint8_t* valid_out, int* ppc_out, int* prev_out,
-                   void* stream) {
-  if (s <= 0) return 0;
-  if (n <= 0 || nk <= 0 || r_rows <= 0 || nb <= 0 || wlen <= 0) return (int)cudaErrorInvalidValue;
-  sh_inputs<<<blocks_for(s), THREADS, 0, (cudaStream_t)stream>>>(sv, eidx, flat_pos, row, ts, s, live, n, ppc, nk,
-                                                                 mws, mcounts, r_rows, nb, ne, wlen, valid_out,
-                                                                 ppc_out, prev_out);
-  return (int)cudaGetLastError();
+// Bytes of workspace shaping_call needs (0 for the one-block route and for
+// the inputs alone).
+long long shaping_workspace(const ShArgs* args) {
+  const ShArgs& a = *args;
+  return (a.ok == nullptr || one_block(a)) ? 0 : (long long)layout(a.s).total;
 }
 
-// Step 1: the sort keys.
-int shaping_keys(const uint8_t* valid, const int* gid, const int* ts, int s, int nr, int64_t* keys, void* stream) {
-  if (s <= 0) return 0;
-  sh_keys<<<blocks_for(s), THREADS, 0, (cudaStream_t)stream>>>(valid, gid, ts, s, nr, keys);
-  return (int)cudaGetLastError();
-}
-
-// Number of scan tiles for s items (the int2 partial scratch).
-int shaping_tiles(int s) { return tiles_for(s); }
-
-// Steps 3-5 (rounds >= 0) or 3'-4' (rounds == -1) after the sort. Scratch:
-// partial int2 [tiles], contrib and excl int2 [s], heads int [s + 2].
-int shaping_run(const int64_t* key_s, const int64_t* perm, int s, int nr, int rounds, const uint8_t* valid,
-                const int* ts, const int* acq, const int* ppc, const int* prev, float interval_sec,
-                const int* behavior, const float* count, const int* maxq, const int* cost1, const int* warn,
-                const int* maxtok, const float* slope, const int* refill, int* latest, float* stored,
-                int* lastfill, int* partial, int* contrib, int* excl, int* heads, uint8_t* ok, int* wait,
-                void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (s <= 0) return 0;
-  if (nr <= 0) return (int)cudaErrorInvalidValue;
-  Items it{valid, ts, acq, ppc, prev, interval_sec};
-  Table tb{behavior, count, maxq, cost1, warn, maxtok, slope, refill};
-  if (rounds == -1) {
-    sh_closed<<<blocks_for(s), THREADS, 0, st>>>(s, nr, key_s, perm, it, tb, latest, ok, wait, excl);
-    sh_commit<<<blocks_for(s), THREADS, 0, st>>>(s, nr, key_s, perm, valid, excl, latest);
+// One call (see the header); `args` is read on the host. Returns a CUDA
+// error code, or -1 when the workspace is smaller than shaping_workspace.
+int shaping_call(const ShArgs* args, void* workspace, long long workspace_bytes, cudaStream_t stream) {
+  const ShArgs a = *args;
+  if (a.s <= 0) return 0;
+  if (a.s >= (1 << 28) || a.small_max < 0 || a.small_max > SMALL_CAP) return (int)cudaErrorInvalidValue;
+  if (a.live && (a.n <= 0 || a.nk <= 0 || a.r_rows <= 0 || a.nb <= 0 || a.wlen <= 0))
+    return (int)cudaErrorInvalidValue;
+  if (a.ok == nullptr) {
+    sh_gather<<<blocks_for(a.s), THREADS, 0, stream>>>(a);
     return (int)cudaGetLastError();
   }
-  int tiles = tiles_for(s);
-  int2* c2 = reinterpret_cast<int2*>(contrib);
-  int2* x2 = reinterpret_cast<int2*>(excl);
-  int2* p2 = reinterpret_cast<int2*>(partial);
-  sh_init<<<blocks_for(s), THREADS, 0, st>>>(s, ok, wait);
-  sh_flags<<<blocks_for(s), THREADS, 0, st>>>(key_s, s, c2);
-  LoadContrib lc{c2};
-  scan_reduce<SumOp, LoadContrib><<<tiles, THREADS, 0, st>>>(lc, s, p2);
-  scan_partials<SumOp><<<1, THREADS, 0, st>>>(p2, tiles);
-  scan_apply_sum<<<tiles, THREADS, 0, st>>>(lc, s, p2, x2);
-  sh_heads<<<blocks_for(s), THREADS, 0, st>>>(c2, x2, s, heads);
-  sh_walk<<<blocks_for(s), THREADS, 0, st>>>(s, nr, rounds, key_s, perm, heads, it, tb,
-                                             Dyn{latest, stored, lastfill}, ok, wait);
+  if (a.nr <= 0) return (int)cudaErrorInvalidValue;
+  if (one_block(a)) {
+    int p2 = 1;
+    while (p2 < a.s) p2 <<= 1;
+    size_t smem = sizeof(u64) * (size_t)p2 + sizeof(int) * 3 * (size_t)a.s + sizeof(unsigned short) * (size_t)p2;
+    // A block asks for more than the default 48 KB, which the static arrays
+    // share with the dynamic bytes.
+    if (smem > 40 * 1024) {
+      int err = (int)cudaFuncSetAttribute(sh_small, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err) return err;
+    }
+    sh_small<<<1, SMALL_THREADS, smem, stream>>>(a, p2);
+    return (int)cudaGetLastError();
+  }
+  Layout l = layout(a.s);
+  if (workspace_bytes < (long long)l.total) return -1;
+  char* ws = (char*)workspace;
+  u64* key_in = (u64*)(ws + l.key_in);
+  u64* key_out = (u64*)(ws + l.key_out);
+  int* val_in = (int*)(ws + l.val_in);
+  int* val_out = (int*)(ws + l.val_out);
+  int2* in2 = (int2*)(ws + l.in2);
+  int4* rec = (int4*)(ws + l.rec);
+  int* heads = (int*)(ws + l.heads);
+  u64* status = (u64*)(ws + l.status);
+  int* ctl = (int*)(ws + l.ctl);
+  size_t temp_bytes = l.total - l.temp;
+  sh_prep<<<blocks_for(max(a.s, l.nt)), THREADS, 0, stream>>>(a, key_in, val_in, in2, status, l.nt, ctl);
+  int err = (int)cub::DeviceRadixSort::SortPairs(ws + l.temp, temp_bytes, key_in, key_out, val_in, val_out, a.s, 0,
+                                                 32 + bits_for((long long)a.nr + 1), stream);
+  if (err) return err;
+  sh_heads<<<l.nt, THREADS, 0, stream>>>(a, key_out, val_out, in2, rec, heads, status, l.nt, ctl);
+  if (a.rounds == -1)  // the closed form reads the records, not the heads
+    sh_closed<<<blocks_for(a.s), THREADS, 0, stream>>>(a, key_out, rec);
+  else
+    sh_walk<<<blocks_for(a.s), THREADS, 0, stream>>>(a, key_out, rec, heads);
   return (int)cudaGetLastError();
 }
 

@@ -49,7 +49,7 @@ from sentinel_tpu_torch.rules import degrade_table as _dt
 from sentinel_tpu_torch.rules.degrade_table import DegradeDynState, DegradeTableDevice
 from sentinel_tpu_torch.rules.flow_table import FlowTableDevice
 from sentinel_tpu_torch.rules.param_table import ParamBatch, ParamDynState, run_param
-from sentinel_tpu_torch.rules.shaping import ShapingBatch, run_shaping, shaping_inputs
+from sentinel_tpu_torch.rules.shaping import ShapingBatch, shaping_stage
 from sentinel_tpu_torch.runtime import flush as _flush
 from sentinel_tpu_torch.runtime.flush import FlushBatch, FlushResult, SystemDevice
 from sentinel_tpu_torch.utils import cuda_build
@@ -443,7 +443,7 @@ def _split_and_spend(n_shards: int, batch: FlushBatch, r_rows: int, mask: torch.
     acquire <= cap_slot`` (its own cap, so two rules sharing a row each
     hold their own count), an entry iff every participating slot is.
     Sorted as the kernel sorts: one int64 key (shard, row, ts), then
-    position."""
+    position; the prefix restarts at each shard's first position."""
     n, k = batch.e_rule_gid.shape
     nk = n * k
     dev = batch.e_valid.device
@@ -464,7 +464,11 @@ def _split_and_spend(n_shards: int, batch: FlushBatch, r_rows: int, mask: torch.
     hi_s, m_s = hi[p_s], mask[p_s]
     one = torch.ones(1, dtype=torch.bool, device=dev)
     new_grp = torch.cat([one, hi_s[1:] != hi_s[:-1]])
-    prefix = _flush.segment_excl_cumsum(new_grp, torch.where(m_s, unit[p_s], zero))
+    # JAX takes the prefix on each chip over that chip's slots alone: shard
+    # d fills sorted positions [d nk/D, (d+1) nk/D), so one row each. A
+    # prefix over all shards differs once their units pass 2**31.
+    prefix = _flush.segment_excl_cumsum(
+        new_grp.view(n_shards, -1), torch.where(m_s, unit[p_s], zero).view(n_shards, -1)).view(-1)
     charged = add_i32(add_i32(before[shard[p_s], row_key[p_s].clamp(0, r_rows - 1)], prefix),
                       batch.e_acquire[eidx[p_s]])
     keep_slot = torch.ones(nk, dtype=torch.bool, device=dev)
@@ -522,27 +526,37 @@ def mesh_split_spend_plain(n_shards, stats, flow_dev, batch, grant, live=None, o
     return _split_and_spend(n_shards, batch, r_rows, mask, unit, f32_to_i32(torch.clamp(cap, min=0.0)))
 
 
+# Slots of K15's one-block route (the C side takes at most 8,192): above it
+# prep, one CUB sort, the decisions and the demand's reset. On the H100 the
+# one block's device time ties the many-block route's at 1,024 slots and
+# is 1.8x it at 2,048 (chip_smoke.py phase 2f's routes).
+MESH_SPLIT_SMALL_MAX = 1024
+
+
+class _MsArgs(ctypes.Structure):
+    """The ``MsArgs`` of ``csrc/mesh_budget.cu``, field for field."""
+
+    _fields_ = [(name, _P) for name in (
+        "gid", "crow", "e_valid", "e_ts", "e_acq", "live", "occ_slot", "f_grade", "f_count", "f_behavior",
+        "sec_counts", "sec_ws", "threads", "fpass", "fws", "demand", "keep",
+    )] + [(name, _I) for name in (
+        "grant", "n", "k", "n_shards", "n_rows", "nr", "nb", "ne", "interval_ms", "slab_b", "now", "small_max",
+    )] + [("interval_sec", _F)]
+
+
 def _mb2_lib() -> ctypes.CDLL:
     lib = cuda_build.load("mesh_budget")
     if not getattr(lib, "_typed", False):
         lib.mesh_tiles.argtypes = [_I]
-        lib.mesh_split_prep.argtypes = (
-            [_I] + [_P] * 12 + [_I, _I, _I] + [_P] * 3 + [_I, _I, _F] + [_I] * 5 + [_P] * 5 + [_P]
-        )
-        lib.mesh_split_spend.argtypes = [_P] * 7 + [_I, _I, _I] + [_P] * 7 + [_P]
+        lib.mesh_split_workspace.argtypes = [ctypes.POINTER(_MsArgs)]
+        lib.mesh_split_workspace.restype = ctypes.c_longlong
+        lib.mesh_split.argtypes = [ctypes.POINTER(_MsArgs), _P, ctypes.c_longlong, _P]
         lib.mesh_charge_keys.argtypes = [_P, _P, _P, _I, _I, _P, _P]
         lib.mesh_charge.argtypes = [_P] * 5 + [_I, _I, _P, _P, _I, _I, _I, _I] + [_P] * 6 + [_P]
-        for f in (lib.mesh_tiles, lib.mesh_split_prep, lib.mesh_split_spend, lib.mesh_charge_keys, lib.mesh_charge):
+        for f in (lib.mesh_tiles, lib.mesh_split, lib.mesh_charge_keys, lib.mesh_charge):
             f.restype = _I
         lib._typed = True
     return lib
-
-
-def _check_flow_cuda(flow_dev: FlowTableDevice) -> None:
-    for name in ("grade", "count", "behavior"):
-        t = getattr(flow_dev, name)
-        if not t.is_contiguous() or not t.is_cuda:
-            raise ValueError(f"flow_dev.{name}: need a contiguous CUDA tensor")
 
 
 def _scan_scratch(lib, n: int, dev):
@@ -554,9 +568,23 @@ def _scan_scratch(lib, n: int, dev):
             scratch[4 * n + 2 * tiles :])
 
 
+def _check_split_tables(flow_dev: FlowTableDevice, tensors: Tuple[torch.Tensor, ...]) -> None:
+    """The rule table and the stats K15 reads, on every call: the mesh step
+    passes a new stats view each time."""
+    nr = flow_dev.n_rules
+    for name in ("grade", "count", "behavior"):
+        t = getattr(flow_dev, name)
+        want = torch.float32 if name == "count" else torch.int32
+        if t.dtype != want or not t.is_contiguous() or not t.is_cuda or tuple(t.shape) != (nr,):
+            raise ValueError(f"flow_dev.{name}: need a contiguous CUDA {want} tensor of shape ({nr},)")
+    for t in tensors:
+        _contig_i32(t, "stats", t.shape)
+
+
 def _mesh_split_spend_cuda(n_shards, stats, flow_dev, batch, grant, live, occ_slot) -> torch.Tensor:
-    _flush._check_batch_cuda(batch)
-    _check_flow_cuda(flow_dev)
+    """K15 in one host call: one block up to MESH_SPLIT_SMALL_MAX slots,
+    else four launches and CUB's sort; the demand per (shard, row) lives
+    in the zeroed scratch, which the call leaves zeroed."""
     n, k = batch.e_rule_gid.shape
     nk = n * k
     r_rows = stats.n_rows
@@ -564,55 +592,47 @@ def _mesh_split_spend_cuda(n_shards, stats, flow_dev, batch, grant, live, occ_sl
         raise ValueError(f"mesh_split_spend: {n} entries do not split into {n_shards} shards")
     if n_shards * (r_rows + 1) >= 2**31:
         raise ValueError("mesh_split_spend: shards x rows exceed the 31-bit sort key")
+    if nk >= 2**28:
+        raise ValueError("mesh_split_spend: at most 2**28 - 1 slots a call")
+    for name in ("e_rule_gid", "e_check_row"):
+        _contig_i32(getattr(batch, name), f"batch.{name}", (n, k))
+    for name in ("e_ts", "e_acquire"):
+        _contig_i32(getattr(batch, name), f"batch.{name}", (n,))
+    ma._bool(batch.e_valid, "batch.e_valid", n)
     dev = batch.e_valid.device
     if grant:
         ma._bool(live, "live", n)
         sec = stats.second
-        for name, t in zip(ma.MetricArrayState._fields, sec):
-            _contig_i32(t, f"stats.second.{name}", t.shape)
-        _contig_i32(stats.threads, "stats.threads", (r_rows,))
-        win = (sec.counts.data_ptr(), sec.window_start.data_ptr(), sec.counts.shape[1], NUM_EVENTS,
-               _nodes.SECOND_CFG.interval_ms, stats.threads.data_ptr())
-        slab = (None, None, 0)
+        _check_split_tables(flow_dev, (sec.counts, sec.window_start, stats.threads))
+        if tuple(stats.threads.shape) != (r_rows,) or tuple(sec.window_start.shape) != tuple(sec.counts.shape[:2]):
+            raise ValueError("stats: the gauge and the second window need R rows")
+        win = (sec.counts, sec.window_start, stats.threads, None, None)
+        geom = (sec.counts.shape[1], NUM_EVENTS, _nodes.SECOND_CFG.interval_ms, 0)
     else:
         if occ_slot.dtype != torch.bool or not occ_slot.is_contiguous() or tuple(occ_slot.shape) != (n, k):
             raise ValueError("occ_slot: need a contiguous bool tensor of shape (N, K)")
-        _contig_i32(stats.future_pass, "stats.future_pass", stats.future_pass.shape)
-        _contig_i32(stats.future_ws, "stats.future_ws", stats.future_pass.shape)
-        win = (None, None, 0, 0, 0, None)
-        slab = (stats.future_pass.data_ptr(), stats.future_ws.data_ptr(), stats.future_pass.shape[1])
+        _check_split_tables(flow_dev, (stats.future_pass, stats.future_ws))
+        if stats.future_ws.shape != stats.future_pass.shape:
+            raise ValueError("stats: the future slab's starts and counts differ in shape")
+        win = (None, None, None, stats.future_pass, stats.future_ws)
+        geom = (0, 0, 0, stats.future_pass.shape[1])
     keep = torch.empty(n, dtype=torch.bool, device=dev)
     if nk == 0:
         return keep
+    ptr = lambda t: None if t is None else t.data_ptr()
+    a = _MsArgs(
+        *map(ptr, (batch.e_rule_gid, batch.e_check_row, batch.e_valid, batch.e_ts, batch.e_acquire,
+                   live if grant else None, None if grant else occ_slot, flow_dev.grade, flow_dev.count,
+                   flow_dev.behavior, *win)),
+        None, keep.data_ptr(), 1 if grant else 0, n, k, n_shards, r_rows, flow_dev.n_rules, geom[0], geom[1], geom[2],
+        geom[3], int(batch.now), MESH_SPLIT_SMALL_MAX, _flush._interval_sec(),
+    )
     lib = _mb2_lib()
     st = ma.stream_of(batch.e_valid)
-    demand = torch.zeros((n_shards, r_rows), dtype=torch.int32, device=dev)
-    keys = torch.empty(nk, dtype=torch.int64, device=dev)
-    per_slot = torch.empty(2 * nk, dtype=torch.int32, device=dev)  # unit, cap
-    unit, cap = per_slot[:nk], per_slot[nk:]
-    mask = torch.empty(nk, dtype=torch.uint8, device=dev)
-    cuda_build.check(
-        lib.mesh_split_prep(
-            1 if grant else 0, batch.e_rule_gid.data_ptr(), batch.e_check_row.data_ptr(), batch.e_valid.data_ptr(),
-            batch.e_ts.data_ptr(), batch.e_acquire.data_ptr(), live.data_ptr() if grant else None,
-            None if grant else occ_slot.data_ptr(), flow_dev.grade.data_ptr(), flow_dev.count.data_ptr(),
-            flow_dev.behavior.data_ptr(), *win, *slab, int(batch.now), _flush._interval_sec(), n, k, n_shards,
-            r_rows, flow_dev.n_rules, keys.data_ptr(), unit.data_ptr(), cap.data_ptr(), mask.data_ptr(),
-            demand.data_ptr(), st,
-        ),
-        "mesh_split_prep",
-    )
-    key_s, perm = torch.sort(keys, stable=True)
-    new_grp, contrib, excl, partial, partial_max = _scan_scratch(lib, nk, dev)
-    keep_slot = torch.empty(nk, dtype=torch.uint8, device=dev)
-    cuda_build.check(
-        lib.mesh_split_spend(
-            key_s.data_ptr(), perm.data_ptr(), mask.data_ptr(), unit.data_ptr(), cap.data_ptr(),
-            batch.e_acquire.data_ptr(), demand.data_ptr(), n, k, r_rows, new_grp.data_ptr(), contrib.data_ptr(),
-            excl.data_ptr(), partial.data_ptr(), partial_max.data_ptr(), keep_slot.data_ptr(), keep.data_ptr(), st,
-        ),
-        "mesh_split_spend",
-    )
+    with cuda_build.scratch(dev, st, int(lib.mesh_split_workspace(ctypes.byref(a))), 4 * n_shards * r_rows) as (
+            buf, size, zero):
+        a.demand = zero
+        cuda_build.check(lib.mesh_split(ctypes.byref(a), buf, size, st), "mesh_split")
     mesh_split_spend.launches += 1
     return keep
 
@@ -749,10 +769,7 @@ def _global_shaping_scan(stats_x: StatsState, flow_dev, flow_dyn, shaping_g: Sha
     # Item order throughout: the charge is already per item.
     items = shaping_g._replace(valid=shaping_g.valid & _in_batch(shaping_g.eidx, n),
                                flat_pos=torch.arange(s, dtype=torch.int32, device=ppc.device))
-    valid, ppc_s, prev_s = shaping_inputs(items, live_up, ppc, stats_x.minute)
-    _, ok_s, wait_s = run_shaping(flow_dev, flow_dyn, shaping_g._replace(valid=valid), ppc_s, prev_s,
-                                  _flush._interval_sec(), rounds)
-    return valid, ok_s, wait_s
+    return shaping_stage(flow_dev, flow_dyn, items, live_up, ppc, stats_x.minute, _flush._interval_sec(), rounds)
 
 
 def _shaping_pre_of(shaping_g: ShapingBatch, live: torch.Tensor, ok_s, wait_s, d: int, n_local: int, k: int):

@@ -31,7 +31,6 @@ which needs the final admission. State updates happen IN PLACE.
 from __future__ import annotations
 
 import ctypes
-import weakref
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -390,24 +389,18 @@ def _check(t: torch.Tensor, what: str, dtype, shape=None) -> None:
         raise ValueError(f"{what}: need a contiguous CUDA {dtype} tensor" + (f" of shape {tuple(shape)}" if shape else ""))
 
 
-# Weak references to the tensors of the (ddev, dyn) pair _check_tables
-# passed last: the engine calls the kernels on the same tables flush after
-# flush, and their tensors are updated in place, never replaced or resized.
-_tables_checked: Tuple = ()
-
-
 def _check_tables(ddev, dyn) -> None:
-    global _tables_checked
-    tensors = (*ddev, *dyn)
-    last = _tables_checked
-    if len(last) == len(tensors) and all(ref() is t for ref, t in zip(last, tensors)):
-        return
+    """The (ddev, dyn) pair, checked once while the engine passes the same
+    tensors flush after flush (they are updated in place)."""
     nd = ddev.n_rules
-    for name, t in zip(DegradeTableDevice._fields, ddev):
-        _check(t, f"ddev.{name}", torch.float32 if name in _FLOAT_FIELDS else torch.int32, (nd,))
-    for name, t in zip(DegradeDynState._fields, dyn):
-        _check(t, f"dyn.{name}", torch.int32, (nd,))
-    _tables_checked = tuple(weakref.ref(t) for t in tensors)
+
+    def check():
+        for name, t in zip(DegradeTableDevice._fields, ddev):
+            _check(t, f"ddev.{name}", torch.float32 if name in _FLOAT_FIELDS else torch.int32, (nd,))
+        for name, t in zip(DegradeDynState._fields, dyn):
+            _check(t, f"dyn.{name}", torch.int32, (nd,))
+
+    cuda_build.check_once("degrade_table", (*ddev, *dyn), check)
 
 
 def _stream(t: torch.Tensor) -> int:

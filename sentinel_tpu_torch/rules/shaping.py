@@ -13,10 +13,14 @@ sorted by (rule, ts, arrival) and resolved per rule segment.
 0`` resolves at most that many items per rule, ``rounds == 0`` all of
 them, and ``rounds == -1`` is the closed-form pacer path the engine
 selects when every item is a plain RATE_LIMITER at one timestamp with
-one acquire >= 1. On CUDA tensors it launches ``csrc/shaping_scan.cu``
-(one CUB sort of a packed (rule, ts) key, then one thread per rule
-segment walking its items, or one thread per item for the closed form);
-on CPU tensors it runs :func:`run_shaping_plain`.
+one acquire >= 1. :func:`shaping_stage` is what the flush runs: the
+inputs (:func:`shaping_inputs`) and then :func:`run_shaping`. On CUDA
+tensors each is one host call of ``csrc/shaping_scan.cu`` (one block up
+to ``SHAPING_SMALL_MAX`` items; else one CUB sort of a packed (rule, ts)
+key, the segment heads and the records in sorted order, then one thread,
+or for a long segment one warp, per rule walking its items, or one thread
+per item for the closed form); on CPU tensors each runs its plain
+version.
 
 Numerics follow the JAX reference on the CPU statement by statement:
 float32 throughout, the warm-up line ``above * slope + 1/count`` and the
@@ -144,9 +148,18 @@ def run_shaping(
     ``interval_sec`` is the float32 the JAX code divides the pass by.
     ``rounds``: > 0 at most that many items per rule (the host's bound),
     0 every item, -1 the closed-form pacer path (valid only for the
-    engine-verified shape; not re-checked here)."""
+    engine-verified shape; not re-checked here). A valid item whose rule
+    id lies outside [0, nr) counts as invalid: ok, no wait, no state
+    change (the JAX function walks it on the nearest rule's state; the
+    flush sends no such id)."""
     if shaping.valid.is_cuda:
-        return _run_shaping_cuda(flow_dev, flow_dyn, shaping, pass_consumed, prev_pass, interval_sec, rounds)
+        s = shaping.valid.shape[0]
+        ok = torch.empty(s, dtype=torch.bool, device=shaping.valid.device)
+        wait = torch.empty(s, dtype=torch.int32, device=shaping.valid.device)
+        _k9_call(flow_dev, flow_dyn, shaping, pass_consumed, prev_pass, None, None, None, interval_sec, rounds,
+                 ok=ok, wait=wait)
+        run_shaping.launches += 1
+        return flow_dyn, ok, wait
     return run_shaping_plain(flow_dev, flow_dyn, shaping, pass_consumed, prev_pass, interval_sec, rounds)
 
 
@@ -159,12 +172,13 @@ def run_shaping_plain(flow_dev, flow_dyn, shaping, pass_consumed, prev_pass, int
     nr = flow_dev.n_rules
     dev = shaping.valid.device
     f32 = torch.float32
-    gid_key = torch.where(shaping.valid, shaping.gid, torch.full_like(shaping.gid, nr))
+    valid = shaping.valid & (shaping.gid >= 0) & (shaping.gid < nr)
+    gid_key = torch.where(valid, shaping.gid, torch.full_like(shaping.gid, nr))
     p_s = sort_order(gid_key, shaping.ts)
     gid_s = gid_key[p_s]
     ts_s = shaping.ts[p_s]
     gid_c = gid_s.clamp(0, nr - 1).long()
-    valid_s = shaping.valid[p_s]
+    valid_s = valid[p_s]
     acq_i = shaping.acquire[p_s]
     acq_s = acq_i.to(f32)
     passq_s = torch.floor(pass_consumed[p_s].to(f32) / _f(interval_sec, acq_s))
@@ -236,89 +250,6 @@ def run_shaping_plain(flow_dev, flow_dyn, shaping, pass_consumed, prev_pass, int
 
 
 # ---------------------------------------------------------------------------
-# K9 on the card
-# ---------------------------------------------------------------------------
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-
-
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("shaping_scan")
-    if not getattr(lib, "_typed", False):
-        lib.shaping_keys.argtypes = [_P, _P, _P, _I, _I, _P, _P]
-        lib.shaping_tiles.argtypes = [_I]
-        lib.shaping_run.argtypes = [_P, _P, _I, _I, _I] + [_P] * 5 + [_F] + [_P] * 8 + [_P] * 3 + [_P] * 6 + [_P]
-        lib.shaping_inputs.argtypes = [_P] * 5 + [_I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
-        for f in (lib.shaping_keys, lib.shaping_tiles, lib.shaping_run, lib.shaping_inputs):
-            f.restype = _I
-        lib._typed = True
-    return lib
-
-
-def _check(t: torch.Tensor, what: str, dtype, shape) -> None:
-    if t.dtype != dtype or not t.is_contiguous() or not t.is_cuda or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what}: need a contiguous CUDA {dtype} tensor of shape {tuple(shape)}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-_FLOAT_TABLE = ("count", "warmup_slope")
-
-
-def _run_shaping_cuda(flow_dev, flow_dyn, shaping, pass_consumed, prev_pass, interval_sec, rounds):
-    s = shaping.valid.shape[0]
-    nr = flow_dev.n_rules
-    for name, t in zip(ShapingBatch._fields, shaping):
-        _check(t, f"shaping.{name}", torch.bool if name == "valid" else torch.int32, (s,))
-    _check(pass_consumed, "pass_consumed", torch.int32, (s,))
-    _check(prev_pass, "prev_pass", torch.int32, (s,))
-    for name, t in zip(FlowTableDevice._fields, flow_dev):
-        _check(t, f"flow_dev.{name}", torch.float32 if name in _FLOAT_TABLE else torch.int32, (nr,))
-    for name, t in zip(FlowRuleDynState._fields, flow_dyn):
-        _check(t, f"flow_dyn.{name}", torch.float32 if name == "stored_tokens" else torch.int32, (nr,))
-    dev = shaping.valid.device
-    ok = torch.empty(s, dtype=torch.bool, device=dev)
-    wait = torch.empty(s, dtype=torch.int32, device=dev)
-    if s == 0:
-        return flow_dyn, ok, wait
-    lib = _lib()
-    st = _stream(shaping.valid)
-    keys = torch.empty(s, dtype=torch.int64, device=dev)
-    cuda_build.check(
-        lib.shaping_keys(shaping.valid.data_ptr(), shaping.gid.data_ptr(), shaping.ts.data_ptr(), s, nr,
-                         keys.data_ptr(), st),
-        "shaping_keys",
-    )
-    key_s, perm = torch.sort(keys, stable=True)
-    tiles = lib.shaping_tiles(s)
-    # int2 scan scratch first (8-byte aligned), then the head list [s + 2].
-    scratch = torch.empty(2 * tiles + 5 * s + 2, dtype=torch.int32, device=dev)
-    partial = scratch[: 2 * tiles]
-    contrib, excl = scratch[2 * tiles : 2 * tiles + 2 * s], scratch[2 * tiles + 2 * s : 2 * tiles + 4 * s]
-    heads = scratch[2 * tiles + 4 * s :]
-    table = (flow_dev.behavior, flow_dev.count, flow_dev.max_queueing_time_ms, flow_dev.cost1_ms,
-             flow_dev.warmup_warning_token, flow_dev.warmup_max_token, flow_dev.warmup_slope,
-             flow_dev.warmup_refill_threshold)
-    cuda_build.check(
-        lib.shaping_run(
-            key_s.data_ptr(), perm.data_ptr(), s, nr, int(rounds),
-            shaping.valid.data_ptr(), shaping.ts.data_ptr(), shaping.acquire.data_ptr(),
-            pass_consumed.data_ptr(), prev_pass.data_ptr(), float(np.float32(interval_sec)),
-            *(t.data_ptr() for t in table), *(t.data_ptr() for t in flow_dyn),
-            partial.data_ptr(), contrib.data_ptr(), excl.data_ptr(), heads.data_ptr(),
-            ok.data_ptr(), wait.data_ptr(), st,
-        ),
-        "shaping_run",
-    )
-    run_shaping.launches += 1
-    return flow_dyn, ok, wait
-
-
-# ---------------------------------------------------------------------------
 # the flush's inputs to K9 (flush.py:759-764 and _prev_second_pass :583)
 # ---------------------------------------------------------------------------
 
@@ -333,7 +264,14 @@ def shaping_inputs(shaping: ShapingBatch, live: torch.Tensor, ppc: torch.Tensor,
     StatisticNode.java:185). Returns (valid [S], pass_consumed [S],
     prev_pass [S])."""
     if shaping.valid.is_cuda:
-        return _shaping_inputs_cuda(shaping, live, ppc, minute)
+        s = shaping.valid.shape[0]
+        dev = shaping.valid.device
+        valid = torch.empty(s, dtype=torch.bool, device=dev)
+        out = torch.empty(2 * s, dtype=torch.int32, device=dev)
+        _k9_call(None, None, shaping, None, None, live, ppc, minute, 1.0, 0, valid=valid, ppc_out=out[:s],
+                 prev_out=out[s:])
+        shaping_inputs.launches += 1
+        return valid, out[:s], out[s:]
     return shaping_inputs_plain(shaping, live, ppc, minute)
 
 
@@ -362,34 +300,150 @@ def shaping_inputs_plain(shaping, live, ppc, minute):
     return valid, ppc_s, prev_second_pass(minute, shaping.row, shaping.ts)
 
 
-def _shaping_inputs_cuda(shaping, live, ppc, minute):
+def shaping_stage(flow_dev: FlowTableDevice, flow_dyn: FlowRuleDynState, shaping: ShapingBatch,
+                  live: torch.Tensor, ppc: torch.Tensor, minute, interval_sec: float, rounds: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K9 with its inputs, as the flush's shaping stage runs it:
+    :func:`shaping_inputs` then :func:`run_shaping` on the items of live
+    entries, in one host call on the card. ``flow_dyn`` is updated in
+    place. Returns (valid [S], ok [S], wait_ms [S]): the masked validity
+    the stage scatters with, and the verdicts in item order."""
+    if shaping.valid.is_cuda:
+        s = shaping.valid.shape[0]
+        dev = shaping.valid.device
+        valid = torch.empty(s, dtype=torch.bool, device=dev)
+        ok = torch.empty(s, dtype=torch.bool, device=dev)
+        wait = torch.empty(s, dtype=torch.int32, device=dev)
+        _k9_call(flow_dev, flow_dyn, shaping, None, None, live, ppc, minute, interval_sec, rounds, valid=valid,
+                 ok=ok, wait=wait)
+        shaping_stage.launches += 1
+        return valid, ok, wait
+    return shaping_stage_plain(flow_dev, flow_dyn, shaping, live, ppc, minute, interval_sec, rounds)
+
+
+shaping_stage.launches = 0
+
+
+def shaping_stage_plain(flow_dev, flow_dyn, shaping, live, ppc, minute, interval_sec, rounds=0):
+    """Plain PyTorch version of :func:`shaping_stage`."""
+    valid, ppc_s, prev_s = shaping_inputs_plain(shaping, live, ppc, minute)
+    _, ok, wait = run_shaping_plain(flow_dev, flow_dyn, shaping._replace(valid=valid), ppc_s, prev_s,
+                                    interval_sec, rounds)
+    return valid, ok, wait
+
+
+# ---------------------------------------------------------------------------
+# K9 on the card: one host call (csrc/shaping_scan.cu, shaping_call)
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# Items of the one-block route (the C side takes at most 8,192): above it
+# prep, one CUB sort, the heads and the walk. On the H100 the one block's
+# device time ties the many-block route's at 1,024 items and is 1.7x it at
+# 2,048 (chip_smoke.py phase 2c's routes).
+SHAPING_SMALL_MAX = 1024
+
+
+class _ShArgs(ctypes.Structure):
+    """The ``ShArgs`` of ``csrc/shaping_scan.cu``, field for field."""
+
+    _fields_ = [(name, _P) for name in (
+        "behavior", "count", "maxq", "cost1", "warn", "maxtok", "slope", "refill", "latest", "stored", "lastfill",
+        "valid", "gid", "ts", "acq", "ppc", "prev", "live", "eidx", "flat_pos", "row", "mws", "mcounts", "ok",
+        "wait", "valid_out", "ppc_out", "prev_out",
+    )] + [(name, _I) for name in ("s", "nr", "rounds", "n", "nk", "r_rows", "nb", "ne", "wlen", "small_max")] + [
+        ("interval_sec", ctypes.c_float)]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("shaping_scan")
+    if not getattr(lib, "_typed", False):
+        lib.shaping_workspace.argtypes = [ctypes.POINTER(_ShArgs)]
+        lib.shaping_workspace.restype = ctypes.c_longlong
+        lib.shaping_call.argtypes = [ctypes.POINTER(_ShArgs), _P, ctypes.c_longlong, _P]
+        lib.shaping_call.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _check(t: torch.Tensor, what: str, dtype, shape) -> None:
+    if t.dtype != dtype or not t.is_contiguous() or not t.is_cuda or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: need a contiguous CUDA {dtype} tensor of shape {tuple(shape)}")
+
+
+_FLOAT_TABLE = ("count", "warmup_slope")
+_TABLE = ("behavior", "count", "max_queueing_time_ms", "cost1_ms", "warmup_warning_token", "warmup_max_token",
+          "warmup_slope", "warmup_refill_threshold")  # what K9 reads, in ShArgs order
+
+def _check_tables(flow_dev, flow_dyn, minute) -> None:
+    """The rule table is checked once while the engine passes the same one
+    flush after flush; the state (a copy on a flush that does not commit)
+    and the minute window on every call."""
+    if flow_dev is not None:
+        nr = flow_dev.n_rules
+
+        def check():
+            for name in _TABLE:
+                _check(getattr(flow_dev, name), f"flow_dev.{name}",
+                       torch.float32 if name in _FLOAT_TABLE else torch.int32, (nr,))
+
+        cuda_build.check_once("shaping", tuple(getattr(flow_dev, f) for f in _TABLE), check)
+        for name, t in zip(FlowRuleDynState._fields, flow_dyn):
+            _check(t, f"flow_dyn.{name}", torch.float32 if name == "stored_tokens" else torch.int32, (nr,))
+    if minute is not None:
+        ws, counts = minute.window_start, minute.counts
+        _check(ws, "minute.window_start", torch.int32, (ws.shape[0], _nodes.MINUTE_CFG.sample_count))
+        _check(counts, "minute.counts", torch.int32, (ws.shape[0], _nodes.MINUTE_CFG.sample_count, counts.shape[2]))
+
+
+def _k9_call(flow_dev, flow_dyn, shaping, pass_consumed, prev_pass, live, ppc, minute, interval_sec, rounds,
+             valid=None, ok=None, wait=None, ppc_out=None, prev_out=None) -> None:
+    """One ``shaping_call``: with ``live`` the inputs are gathered (from
+    ``ppc`` [N*K] by slot and the minute window), else ``pass_consumed``
+    and ``prev_pass`` are the items'; without ``ok`` only the inputs are
+    written. Checks only what the call reads."""
     s = shaping.valid.shape[0]
-    n, nk = live.shape[0], ppc.shape[0]
-    for name, t in zip(ShapingBatch._fields, shaping):
-        _check(t, f"shaping.{name}", torch.bool if name == "valid" else torch.int32, (s,))
-    _check(live, "live", torch.bool, (n,))
-    _check(ppc, "ppc", torch.int32, (nk,))
+    gather = live is not None
+    _check(shaping.valid, "shaping.valid", torch.bool, (s,))
+    names = ("ts",) + (("eidx", "flat_pos", "row") if gather else ()) + (("gid", "acquire") if ok is not None else ())
+    for name in names:
+        _check(getattr(shaping, name), f"shaping.{name}", torch.int32, (s,))
+    n = nk = 0
+    if gather:
+        n, nk = live.shape[0], ppc.shape[0]
+        _check(live, "live", torch.bool, (n,))
+        _check(ppc, "ppc", torch.int32, (nk,))
+        if s and (n == 0 or nk == 0):
+            raise ValueError("shaping inputs: items with no entries or slots to gather from")
+    else:
+        _check(pass_consumed, "pass_consumed", torch.int32, (s,))
+        _check(prev_pass, "prev_pass", torch.int32, (s,))
+    _check_tables(flow_dev, flow_dyn, minute if gather else None)
+    if s == 0:
+        return
+    if s >= 2**28:
+        raise ValueError("shaping: at most 2**28 - 1 items a call")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    table = (None,) * 11 if flow_dev is None else (*(getattr(flow_dev, f) for f in _TABLE), *flow_dyn)
+    run = ok is not None
+    items = (shaping.valid, shaping.gid if run else None, shaping.ts, shaping.acquire if run else None,
+             ppc if gather else pass_consumed, prev_pass)
+    gathered = ((live, shaping.eidx, shaping.flat_pos, shaping.row, minute.window_start, minute.counts) if gather
+                else (None,) * 6)
+    r_rows, ne = (minute.window_start.shape[0], minute.counts.shape[2]) if gather else (0, 0)
     cfg = _nodes.MINUTE_CFG
-    r_rows = minute.window_start.shape[0]
-    _check(minute.window_start, "minute.window_start", torch.int32, (r_rows, cfg.sample_count))
-    _check(minute.counts, "minute.counts", torch.int32, tuple(minute.counts.shape))
-    dev = live.device
-    valid = torch.empty(s, dtype=torch.bool, device=dev)
-    out = torch.empty(2 * s, dtype=torch.int32, device=dev)
-    if s == 0 or n == 0 or nk == 0:
-        return valid, out[:s], out[s:]
-    cuda_build.check(
-        _lib().shaping_inputs(
-            shaping.valid.data_ptr(), shaping.eidx.data_ptr(), shaping.flat_pos.data_ptr(), shaping.row.data_ptr(),
-            shaping.ts.data_ptr(), s, live.data_ptr(), n, ppc.data_ptr(), nk,
-            minute.window_start.data_ptr(), minute.counts.data_ptr(), r_rows, cfg.sample_count,
-            minute.counts.shape[2], cfg.window_len_ms, valid.data_ptr(), out[:s].data_ptr(), out[s:].data_ptr(),
-            _stream(live),
-        ),
-        "shaping_inputs",
+    a = _ShArgs(
+        *map(ptr, table + items + gathered + (ok, wait, valid, ppc_out, prev_out)),
+        s, 0 if flow_dev is None else flow_dev.n_rules, int(rounds), n, nk, r_rows, cfg.sample_count, ne,
+        cfg.window_len_ms, SHAPING_SMALL_MAX, float(np.float32(interval_sec)),
     )
-    shaping_inputs.launches += 1
-    return valid, out[:s], out[s:]
+    lib = _lib()
+    dev = shaping.valid.device
+    st = torch.cuda.current_stream(dev).cuda_stream
+    with cuda_build.scratch(dev, st, int(lib.shaping_workspace(ctypes.byref(a)))) as (buf, size, _):
+        cuda_build.check(lib.shaping_call(ctypes.byref(a), buf, size, st), "shaping_call")
 
 
 # ---------------------------------------------------------------------------

@@ -66,7 +66,7 @@ from sentinel_tpu_torch.rules import degrade_table as _dt
 from sentinel_tpu_torch.rules.degrade_table import DegradeDynState, DegradeTableDevice
 from sentinel_tpu_torch.rules.flow_table import FlowRuleDynState, FlowTableDevice
 from sentinel_tpu_torch.rules.param_table import ParamBatch, ParamDynState, run_param
-from sentinel_tpu_torch.rules.shaping import ShapingBatch, run_shaping, shaping_inputs
+from sentinel_tpu_torch.rules.shaping import ShapingBatch, shaping_stage
 from sentinel_tpu_torch.runtime.sketch import SketchBatch, SketchState, sketch_fold
 from sentinel_tpu_torch.utils import cuda_build
 from sentinel_tpu_torch.utils.numeric import add_i32
@@ -242,18 +242,19 @@ def occupy_steps(now: int):
 
 
 def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Wrapping int32 exclusive cumsum."""
+    """Wrapping int32 exclusive cumsum along the last dimension."""
     x = x.to(torch.int32)
-    return torch.cumsum(x.to(torch.int64), 0).to(torch.int32) - x
+    return torch.cumsum(x.to(torch.int64), -1).to(torch.int32) - x
 
 
 def segment_excl_cumsum(new_grp: torch.Tensor, contrib: torch.Tensor) -> torch.Tensor:
     """Exclusive running sum of ``contrib`` restarting at every group start
     (``new_grp`` marks boundaries in an already sorted array), computed as
     the JAX code does: a wrapping int32 exclusive cumsum, minus the running
-    max of its group-start values."""
+    max of its group-start values. Along the last dimension: each row of a
+    2-D input is a sorted array of its own."""
     excl = _excl_cumsum(contrib)
-    base = torch.cummax(torch.where(new_grp, excl, torch.zeros_like(excl)), 0).values
+    base = torch.cummax(torch.where(new_grp, excl, torch.zeros_like(excl)), -1).values
     return excl - base
 
 
@@ -1043,9 +1044,8 @@ def _shaping_stage(stats, flow_dev, flow_dyn, shaping: ShapingBatch, adm: "Admis
     of its slots. Returns (the admission with the new slot_ok/flow_pass,
     shape_wait [N])."""
     n, k = adm.slot_ok.shape
-    valid, ppc_s, prev_s = shaping_inputs(shaping, live, adm.pass_plus_consumed, stats.minute)
-    _, ok_s, wait_s = run_shaping(flow_dev, flow_dyn, shaping._replace(valid=valid), ppc_s, prev_s,
-                                  _interval_sec(), rounds)
+    valid, ok_s, wait_s = shaping_stage(flow_dev, flow_dyn, shaping, live, adm.pass_plus_consumed, stats.minute,
+                                        _interval_sec(), rounds)
     flat = torch.ones(n * k + 1, dtype=torch.int32, device=live.device)
     flat[: n * k] = adm.slot_ok.reshape(-1).to(torch.int32)
     flat.scatter_reduce_(0, torch.where(valid, shaping.flat_pos, n * k).long(), ok_s.to(torch.int32), reduce="amin")

@@ -15,6 +15,9 @@ a buffer that must be zero at the start of a call (the blocked-weight
 top-K's of K4, the probe election's cells of K8), which every kernel that
 writes it leaves all zero. One lock covers every call that uses them.
 
+Checks: a wrapper checks the tables it is given on every call, or through
+:func:`check_once` for tables its callers pass call after call.
+
 Flags: ``-O3`` and IEEE float arithmetic. Never ``--use_fast_math``: the
 admission compare needs round-to-nearest conversions and exact division
 to agree bit for bit with the JAX reference.
@@ -29,8 +32,9 @@ import os
 import shutil
 import subprocess
 import threading
+import weakref
 from pathlib import Path
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -120,6 +124,22 @@ def check(code: int, what: str) -> None:
     """Raise when a launch returned a CUDA error code."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+_checked: Dict[str, Tuple[weakref.ref, ...]] = {}  # key -> the tensors that passed its check last
+
+
+def check_once(key: str, tensors: Tuple[torch.Tensor, ...], check: Callable[[], None]) -> None:
+    """Run ``check`` unless ``tensors`` are the very tensors that passed it
+    last under ``key`` (held by weak references, so a new tensor at a freed
+    one's address never matches). Only for tensors that callers pass call
+    after call and update in place, never replace or resize, such as a
+    rule table; each kernel keeps its own key."""
+    last = _checked.get(key, ())
+    if len(last) == len(tensors) and all(ref() is t for ref, t in zip(last, tensors)):
+        return
+    check()
+    _checked[key] = tuple(weakref.ref(t) for t in tensors)
 
 
 _scratch_lock = threading.Lock()

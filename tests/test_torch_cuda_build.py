@@ -66,3 +66,33 @@ def test_scratch_holds_its_lock_until_the_block_ends(nbytes):
         order.append("first")
     t.join()
     assert order == ["first", "second"]
+
+
+def test_check_once_skips_the_tensors_it_checked_last_per_key():
+    """``check_once`` runs the check again for new tensors and keeps one
+    entry per key, so two kernels' tables never overwrite each other."""
+    ran = []
+    a, b = torch.zeros(3), torch.zeros(3)
+    for key, tensors, tag in (("k1", (a,), "a"), ("k1", (a,), "a"), ("k2", (b,), "b"), ("k1", (a,), "a"),
+                              ("k2", (b,), "b"), ("k1", (a, b), "ab"), ("k1", (b,), "b1")):
+        cuda_build.check_once(key, tensors, lambda tag=tag: ran.append(tag))
+    assert ran == ["a", "b", "ab", "b1"]
+
+
+def test_check_once_reruns_after_a_failed_check_or_a_freed_tensor():
+    """A check that raises records nothing; a tensor freed and made anew
+    (perhaps at the same address) is checked again."""
+    ran = []
+
+    def bad():
+        ran.append("bad")
+        raise ValueError("no")
+
+    t = torch.zeros(4)
+    with pytest.raises(ValueError):
+        cuda_build.check_once("k3", (t,), bad)
+    cuda_build.check_once("k3", (t,), lambda: ran.append("good"))
+    cuda_build.check_once("k3", (t,), lambda: ran.append("again"))
+    del t
+    cuda_build.check_once("k3", (torch.zeros(4),), lambda: ran.append("new"))
+    assert ran == ["bad", "good", "new"]

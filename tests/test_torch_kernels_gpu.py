@@ -28,6 +28,8 @@ from sentinel_tpu_torch.runtime import sketch as tsk
 
 from torch_parity import (
     BREAKER_CASES,
+    BUDGET_WRAP_CASES,
+    budget_wrap_case,
     SYSTEM_EDGE_CASES,
     many_candidates,
     system_edge_case,
@@ -37,6 +39,7 @@ from torch_parity import (
     shard_breaker_case,
     borrowable_stats,
     fma_warning_case,
+    out_of_range_rule_ids,
     random_param_batch_for,
     random_param_case,
     random_param_state,
@@ -366,13 +369,21 @@ def test_breaker_try_pass_refusals_kernel(cuda):
     _assert_zeroed(cuda, "after the refused call")
 
 
-@pytest.mark.parametrize("which", ["system_check", "breaker_try_pass", "breaker_try_pass_mask"])
+@pytest.mark.parametrize("which", ["system_check", "breaker_try_pass", "breaker_try_pass_mask", "shaping_stage",
+                                   "mesh_split_grant", "mesh_split_borrow"])
 def test_small_batch_is_one_kernel(cuda, which):
-    """At 8 entries K6 and K8 (with and without the mask) issue one device
+    """At 8 entries K6 and K8 (with and without the mask), at 8 items K9
+    with its inputs and at 8 slots K15 (both demotions) issue one device
     kernel and no memset a call (torch.profiler through gpu_timing)."""
     from gpu_timing import device_profile
 
-    if which == "system_check":
+    if which == "shaping_stage":
+        table, dyn, sb, live, ppc, stats = _stage_inputs(cuda, 8, "scan")
+        tt, td = flow_table_from_numpy(table, dyn, cuda)
+        fn = lambda: tsh.shaping_stage(tt, td, sb, live, ppc, stats.minute, 1.0, 0)
+    elif which.startswith("mesh_split"):
+        fn = _mesh_split_call(cuda, 4, which.endswith("grant"))[1]
+    elif which == "system_check":
         stats, batch, live = _system_inputs(cuda, 8, "mixed")
         sysdev = tflush.SystemDevice(*system_edge_thresholds(8)[1])
         fn = lambda: tflush.system_check(stats, sysdev, batch, live)
@@ -506,6 +517,120 @@ def test_shaping_kernel(cuda, case):
         _eq(ww, gw, f"{case} rounds={rounds} wait")
         _states_eq(wd, gd, f"{case} rounds={rounds} state")
         assert bool(wok.any()) and not bool(wok.all())
+
+
+SHAPING_ROUNDS = {"scan": 0, "rounds_3": 3, "closed_form": -1}
+
+
+def _shaping_sizes():
+    return {"1": 1, "8": 8, "threshold": tsh.SHAPING_SMALL_MAX, "threshold+1": tsh.SHAPING_SMALL_MAX + 1,
+            "16384": 16384}
+
+
+def _shaping_case(rng, s, mode, one_rule=False):
+    kw = dict(behaviors=(2,), one_ts=True, acquire=1) if mode == "closed_form" else {}
+    return random_shaping_case(rng, s, 4 if one_rule else max(4, s // 16), n_hot=s if one_rule else 0, **kw)
+
+
+def _shaping_on_both(cuda, case, rounds):
+    table, dyn, sb, ppc, prev = case
+    out = []
+    for fn in (tsh.run_shaping_plain, tsh.run_shaping):
+        tt, td = flow_table_from_numpy(table, dyn, cuda)
+        out.append(fn(tt, td, tsh.shaping_batch_from_numpy(sb, cuda), _t(ppc, cuda), _t(prev, cuda), 1.0, rounds))
+    (wd, wok, ww), (gd, gok, gw) = out
+    return (wok, ww, wd), (gok, gw, gd)
+
+
+def _eq_shaping(want, got, what):
+    _eq(want[0], got[0], f"{what} ok")
+    _eq(want[1], got[1], f"{what} wait")
+    _states_eq(want[2], got[2], f"{what} state")
+
+
+@pytest.mark.parametrize("mode", sorted(SHAPING_ROUNDS))
+@pytest.mark.parametrize("size", ["1", "8", "threshold", "threshold+1", "16384"])
+def test_shaping_routes_kernel(cuda, size, mode):
+    """K9 on both routes (one block up to SHAPING_SMALL_MAX items, CUB's
+    sort, the heads and the walk above) in every rounds mode against the
+    plain version. One launch counted per call."""
+    s = _shaping_sizes()[size]
+    rounds = SHAPING_ROUNDS[mode]
+    case = _shaping_case(np.random.default_rng(s + rounds + 7), s, mode)
+    before = tsh.run_shaping.launches
+    want, got = _shaping_on_both(cuda, case, rounds)
+    assert tsh.run_shaping.launches == before + 1
+    _eq_shaping(want, got, f"s={s} {mode}")
+
+
+@pytest.mark.parametrize("small_max", [8192, 0], ids=["one_block", "many_blocks"])
+@pytest.mark.parametrize("rounds", [0, 3])
+def test_shaping_one_rule_warp_walk_kernel(cuda, monkeypatch, small_max, rounds):
+    """One rule holding 4,096 items: its segment is walked by a warp on
+    either route (rounds 3 stops it after three items)."""
+    monkeypatch.setattr(tsh, "SHAPING_SMALL_MAX", small_max)
+    want, got = _shaping_on_both(cuda, _shaping_case(np.random.default_rng(4096), 4096, "scan", one_rule=True), rounds)
+    _eq_shaping(want, got, f"one rule small_max={small_max} rounds={rounds}")
+    assert bool(want[0].any()) and not bool(want[0].all())
+
+
+@pytest.mark.parametrize("s", [2048, 4096, 8192])
+def test_shaping_forced_routes_kernel(cuda, monkeypatch, s):
+    """K9 at the sizes where the route is chosen, through each route in
+    turn: the one-block route at its capacity of 8,192 and the many-block
+    route below the threshold."""
+    for mode in ("scan", "closed_form"):
+        case = _shaping_case(np.random.default_rng(s + 3), s, mode)
+        for small_max in (8192, 0):
+            monkeypatch.setattr(tsh, "SHAPING_SMALL_MAX", small_max)
+            want, got = _shaping_on_both(cuda, case, SHAPING_ROUNDS[mode])
+            _eq_shaping(want, got, f"s={s} {mode} small_max={small_max}")
+
+
+@pytest.mark.parametrize("small_max", [8192, 0], ids=["one_block", "many_blocks"])
+@pytest.mark.parametrize("mode", sorted(SHAPING_ROUNDS))
+def test_shaping_out_of_range_ids_kernel(cuda, monkeypatch, small_max, mode):
+    """Valid items whose rule ids lie outside [0, nr) (two different
+    negative ids, nr, past nr, the int32 extremes) count as invalid on
+    either route, as in the plain version."""
+    monkeypatch.setattr(tsh, "SHAPING_SMALL_MAX", small_max)
+    rng = np.random.default_rng(63)
+    table, dyn, sb, ppc, prev = _shaping_case(rng, 2048, mode)
+    bad, _ = out_of_range_rule_ids(rng, sb, int(table[0].shape[0]))
+    want, got = _shaping_on_both(cuda, (table, dyn, bad, ppc, prev), SHAPING_ROUNDS[mode])
+    _eq_shaping(want, got, f"{mode} small_max={small_max}")
+
+
+def _stage_inputs(cuda, s, mode):
+    rng = np.random.default_rng(s + 11)
+    table, dyn, sb, ppc, _ = _shaping_case(rng, s, mode)
+    now = int(sb[5].max()) + 300
+    stats = tnodes.stats_from_numpy(borrowable_stats(rng, int(table[0].shape[0]), now, tnodes.SECOND_CFG,
+                                                     tnodes.MINUTE_CFG), cuda)
+    return table, dyn, tsh.shaping_batch_from_numpy(sb, cuda), _t(rng.random(s) < 0.8, cuda), _t(ppc, cuda), stats
+
+
+@pytest.mark.parametrize("mode", sorted(SHAPING_ROUNDS))
+@pytest.mark.parametrize("s", [8, 2049, 16384])
+def test_shaping_stage_kernel(cuda, s, mode):
+    """K9 with its inputs (one host call) against shaping_inputs_plain and
+    run_shaping_plain, and the inputs alone against shaping_inputs_plain."""
+    table, dyn, sb, live, ppc, stats = _stage_inputs(cuda, s, mode)
+    rounds = SHAPING_ROUNDS[mode]
+    out = []
+    before = tsh.shaping_stage.launches
+    for fn in (tsh.shaping_stage_plain, tsh.shaping_stage):
+        tt, td = flow_table_from_numpy(table, dyn, cuda)
+        out.append((fn(tt, td, sb, live, ppc, stats.minute, 1.0, rounds), td))
+    assert tsh.shaping_stage.launches == before + 1
+    (w, wd), (g, gd) = out
+    for name, x, y in zip(("valid", "ok", "wait"), w, g):
+        _eq(x, y, f"s={s} {mode} {name}")
+    _states_eq(wd, gd, f"s={s} {mode} state")
+    want_in = tsh.shaping_inputs_plain(sb, live, ppc, stats.minute)
+    got_in = tsh.shaping_inputs(sb, live, ppc, stats.minute)
+    for name, x, y in zip(("valid", "pass_consumed", "prev_pass"), want_in, got_in):
+        _eq(x, y, f"s={s} inputs {name}")
 
 
 PARAM_GPU_CASES = {
@@ -764,11 +889,12 @@ def test_token_decide_atomic_kernel(cuda):
 
 def test_shared_scratch_across_threads(cuda):
     """K12 at 16,384 requests, K4 with its top-8 tail at 131,072 entries,
-    K10 at 4,096 items, K6 at 131,072 entries and K8 at 131,072 slots over
-    65,536 breakers, each in a host thread of its own and all on the
-    default stream: the five share the stream's scratch and its zeroed
-    buffer (K4's top-K, K8's election cells), which start empty so that
-    they grow during the run. Every call equals its plain version,
+    K10 at 4,096 items, K6 at 131,072 entries, K8 at 131,072 slots over
+    65,536 breakers, K9 at 16,384 items and K15 at 131,072 slots over 8
+    shards, each in a host thread of its own and all on the default
+    stream: the seven share the stream's scratch and its zeroed buffer
+    (K4's top-K, K8's election cells, K15's demand), which start empty so
+    that they grow during the run. Every call equals its plain version,
     computed beforehand, and the zeroed buffer reads zero at the end."""
     import threading
 
@@ -803,10 +929,18 @@ def test_shared_scratch_across_threads(cuda):
     bt_args = (_t(rng.integers(-1, nd, (n, 1)).astype(np.int32), cuda),
                _t((now - rng.integers(-3000, 3000, n)).astype(np.int32), cuda), _t(rng.random(n) < 0.9, cuda))
     bt_want = tdt.breaker_try_pass_plain(bt_ddev, bt_ddyn, *bt_args)
+    # K9
+    sh_table, sh_dyn, sh_sb, sh_ppc, sh_prev = _shaping_case(np.random.default_rng(48), 16384, "scan")
+    sh_tt, sh_td = flow_table_from_numpy(sh_table, sh_dyn, cuda)
+    sh_args = (tsh.shaping_batch_from_numpy(sh_sb, cuda), _t(sh_ppc, cuda), _t(sh_prev, cuda), 1.0, 4)
+    sh_want = tsh.run_shaping_plain(sh_tt, _clone(sh_td), *sh_args)
+    # K15
+    ms_plain, ms_call = _mesh_split_call(cuda, 65536, True)
+    ms_want = ms_plain()
     torch.cuda.synchronize()
 
-    got = {"td": [], "fa": [], "pa": [], "sc": [], "bt": []}
-    start = threading.Barrier(5)
+    got = {"td": [], "fa": [], "pa": [], "sc": [], "bt": [], "sh": [], "ms": []}
+    start = threading.Barrier(7)
     errors = []
 
     def run(name, call):
@@ -824,7 +958,8 @@ def test_shared_scratch_across_threads(cuda):
     calls = {"td": td, "fa": lambda: tflush.flow_admission(stats, tt, batch, 8),
              "pa": lambda: tpt.run_param(_clone(pa_dyn), pa_batch, 4),
              "sc": lambda: tflush.system_check(sc_stats, sc_dev, sc_batch, sc_live),
-             "bt": lambda: tdt.breaker_try_pass(bt_ddev, bt_ddyn, *bt_args)}
+             "bt": lambda: tdt.breaker_try_pass(bt_ddev, bt_ddyn, *bt_args),
+             "sh": lambda: tsh.run_shaping(sh_tt, _clone(sh_td), *sh_args), "ms": ms_call}
     cuda_build._SCRATCH.clear()
     threads = [threading.Thread(target=run, args=item) for item in calls.items()]
     for th in threads:
@@ -849,6 +984,12 @@ def test_shared_scratch_across_threads(cuda):
     for i, (ok, probe) in enumerate(got["bt"]):
         _eq(bt_want[0], ok, f"K8 call {i} ok")
         _eq(bt_want[1], probe, f"K8 call {i} probe")
+    for i, (d, ok, wait) in enumerate(got["sh"]):
+        _eq(sh_want[1], ok, f"K9 call {i} ok")
+        _eq(sh_want[2], wait, f"K9 call {i} wait")
+        _states_eq(sh_want[0], d, f"K9 call {i} state")
+    for i, keep in enumerate(got["ms"]):
+        _eq(ms_want, keep, f"K15 call {i}")
     _assert_zeroed(cuda, "after the threads")
     assert fa_want.blk_weight is not None and bool((fa_want.blk_weight > 0).any())
     assert bool(bt_want[1].any())
@@ -904,6 +1045,105 @@ def test_mesh_split_spend_kernel(cuda, mode, n):
     got = tici.mesh_split_spend(8, stats, ft, batch, grant, **kw)
     _eq(want, got, mode)
     assert bool(want.any()) and not bool(want.all())
+
+
+def _mesh_split_call(cuda, n, grant, k=2, seed=0):
+    """(plain call, kernel call) of one demotion over 8 shards of n entries
+    (K = 2) on 4,096 rows, Zipf(1.1) resources."""
+    rng = np.random.default_rng(n + seed + (7 if grant else 0))
+    n_rows, nr, now = 4096, 64, 3_456_000
+    stats = tnodes.stats_from_numpy(borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG), cuda)
+    table, _ = random_flow_table(rng, nr, thread_frac=0.3, lo=2, hi=60)
+    b = list(random_flush_batch(rng, n, k, n_rows, nr, now, n - n // 8))
+    res = np.minimum(rng.zipf(1.1, n), n_rows // 2 - 1).astype(np.int32)
+    b[6][:, 0] = res
+    b[3] = rng.integers(1, 4, n).astype(np.int32)
+    batch = tflush.batch_from_numpy(b, cuda)
+    ft, _ = flow_table_from_numpy(table, None, cuda)
+    kw = (dict(live=_t(rng.random(n) < 0.85, cuda)) if grant
+          else dict(occ_slot=_t((rng.random((n, k)) < 0.5) & (b[5] >= 0), cuda)))
+    return (lambda: tici.mesh_split_spend_plain(8, stats, ft, batch, grant, **kw),
+            lambda: tici.mesh_split_spend(8, stats, ft, batch, grant, **kw))
+
+
+@pytest.mark.parametrize("grant", [True, False], ids=["grant", "borrow"])
+@pytest.mark.parametrize("size", ["8_slots", "threshold", "threshold+8", "131072_slots"])
+def test_mesh_split_routes_kernel(cuda, size, grant):
+    """K15 on both routes (one block up to MESH_SPLIT_SMALL_MAX slots; prep,
+    CUB's sort, the per-shard look-back decisions and the demand's reset
+    above) against the plain version, K = 2 over 8 shards; the zeroed
+    scratch reads zero after the call. One launch counted per call."""
+    half = tici.MESH_SPLIT_SMALL_MAX // 2
+    n = {"8_slots": 4, "threshold": half, "threshold+8": half + 4, "131072_slots": 65536}[size]
+    plain, kernel = _mesh_split_call(cuda, n, grant)
+    want = plain()
+    before = tici.mesh_split_spend.launches
+    got = kernel()
+    assert tici.mesh_split_spend.launches == before + 1
+    _eq(want, got, f"n={n}")
+    _assert_zeroed(cuda, f"K15 n={n}")
+    if n >= 512:
+        assert bool(want.any()) and not bool(want.all())
+
+
+@pytest.mark.parametrize("nk", [2048, 4096, 8192])
+def test_mesh_split_forced_routes_kernel(cuda, monkeypatch, nk):
+    """K15 at the sizes where the route is chosen, through each route in
+    turn (the one-block route at its capacity of 8,192 slots)."""
+    for grant in (True, False):
+        plain, kernel = _mesh_split_call(cuda, nk // 2, grant, seed=1)
+        want = plain()
+        for small_max in (8192, 0):
+            monkeypatch.setattr(tici, "MESH_SPLIT_SMALL_MAX", small_max)
+            _eq(want, kernel(), f"nk={nk} grant={grant} small_max={small_max}")
+            _assert_zeroed(cuda, f"K15 nk={nk}")
+
+
+@pytest.mark.parametrize("small_max", [8192, 0], ids=["one_block", "many_blocks"])
+@pytest.mark.parametrize("grant", [True, False], ids=["grant", "borrow"])
+@pytest.mark.parametrize("case", BUDGET_WRAP_CASES)
+def test_mesh_split_past_2_31_kernel(cuda, monkeypatch, case, grant, small_max):
+    """K15 where the shards' units pass 2**31 (the cases the CPU tests hold
+    the plain version to JAX's per-chip prefix with): equal to the plain
+    version on both routes."""
+    monkeypatch.setattr(tici, "MESH_SPLIT_SMALL_MAX", small_max)
+    stats, table, b, _ = budget_wrap_case(case)
+    batch = tflush.batch_from_numpy(b, cuda)
+    ft, _ = flow_table_from_numpy(table, None, cuda)
+    ts = tnodes.stats_from_numpy(stats, cuda)
+    kw = (dict(live=torch.ones(b[1].shape[0], dtype=torch.bool, device=cuda)) if grant
+          else dict(occ_slot=torch.ones(tuple(b[5].shape), dtype=torch.bool, device=cuda)))
+    want = tici.mesh_split_spend_plain(8, ts, ft, batch, grant, **kw)
+    _eq(want, tici.mesh_split_spend(8, ts, ft, batch, grant, **kw), f"{case} grant={grant}")
+    _assert_zeroed(cuda, case)
+    assert bool(want.any()) and not bool(want.all())
+
+
+@pytest.mark.parametrize("short", ["workspace", "sort"])
+def test_mesh_split_refusals_kernel(cuda, monkeypatch, short):
+    """A K15 call the C side refuses on the many-block route leaves the
+    zeroed scratch zero: "workspace", too few bytes for the keys (nothing
+    launched, -1); "sort", too few for CUB's storage, refused after
+    ms_prep has added the demand into the zeroed cells. A call after it
+    equals the plain version."""
+    plain, kernel = _mesh_split_call(cuda, 65536, True)
+    nk = 2 * 65536
+    lib = tici._mb2_lib()
+
+    class Short:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def mesh_split(self, a, buf, size, st):
+            return lib.mesh_split(a, buf, size // 4 if short == "workspace" else size - 8 * nk, st)
+
+    monkeypatch.setattr(tici, "_mb2_lib", Short)
+    with pytest.raises(RuntimeError, match="CUDA error -1$" if short == "workspace" else r"CUDA error [1-9]\d*$"):
+        kernel()
+    _assert_zeroed(cuda, f"after the refused call ({short})")
+    monkeypatch.undo()
+    _eq(plain(), kernel(), "after the refused call")
+    _assert_zeroed(cuda, "after the call that follows")
 
 
 @pytest.mark.parametrize("s", [64, 16384])

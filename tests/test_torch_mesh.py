@@ -296,11 +296,14 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 from sentinel_tpu.parallel import ici as jici  # noqa: E402
 from torch_parity import (  # noqa: E402
     BREAKER_CASES,
+    BUDGET_WRAP_CASES,
+    budget_wrap_case,
     breaker_merge_table,
     random_flow_table,
     random_flush_batch,
     random_shard_stats,
     random_stats,
+    run_on_both,
     shard_breaker_case,
 )
 
@@ -465,6 +468,81 @@ def test_demote_over_borrow_matches_jax():
     assert_same(want, got, "keep")
     assert want.any() and not want.all()
     assert (stats[3] > 0).any(), "the slab holds waiting tokens"
+
+
+# --- the budget split past 2**31 (K15's per-shard prefix) ---------------------------
+
+def _jax_wrap_form(form, stats, table, b, cap, n_rows):
+    jb = jflush.FlushBatch(*map(jnp.asarray, b))
+    bspec = jpar.batch_partition_specs("data")
+    all_slots = np.ones(b[5].shape, bool)
+    if form == "split":
+        fn = _sharded("wrap_split", lambda bt, m, u, c: jici._split_and_spend("data", bt, n_rows, m, u, c),
+                      (bspec, P("data"), P("data"), P("data")), P("data"))
+        unit = np.repeat(b[3], b[5].shape[1])
+        return fn(jb, jnp.asarray(all_slots.reshape(-1)), jnp.asarray(unit), jnp.asarray(cap))
+    if form == "grant":
+        fn = _sharded("wrap_grant", lambda s, f, bt, lv: jici._demote_over_grant("data", s, f, bt, lv),
+                      (P(), P(), bspec, P("data")), P("data"))
+        return fn(_jax_stats(stats), JTable(*map(jnp.asarray, table)), jb, jnp.asarray(np.ones(b[1].shape, bool)))
+    fn = _sharded("wrap_borrow", lambda s, f, bt, o: jici._demote_over_borrow("data", s, f, bt, o),
+                  (P(), P(), bspec, P("data")), P("data"))
+    return fn(_jax_stats(stats), JTable(*map(jnp.asarray, table)), jb, jnp.asarray(all_slots))
+
+
+def _port_wrap_form(form, stats, table, b, cap, n_rows):
+    tb = tflush.batch_from_numpy(b, CPU)
+    all_slots = torch.ones(tuple(b[5].shape), dtype=torch.bool)
+    if form == "split":
+        unit = torch.from_numpy(np.repeat(b[3], b[5].shape[1]))
+        return tici._split_and_spend(D, tb, n_rows, all_slots.reshape(-1), unit, torch.from_numpy(cap))
+    tt, _ = flow_table_from_numpy(table, None, CPU)
+    ts = tnodes.stats_from_numpy(stats, CPU)
+    if form == "grant":
+        return tici._demote_over_grant(D, ts, tt, tb, torch.ones(b[1].shape[0], dtype=torch.bool))
+    return tici._demote_over_borrow(D, ts, tt, tb, all_slots)
+
+
+@pytest.mark.mesh
+@pytest.mark.parametrize("form", ["split", "grant", "borrow"])
+@pytest.mark.parametrize("case", BUDGET_WRAP_CASES)
+def test_budget_split_past_2_31_matches_jax(case, form):
+    """The budget split's prefix restarts on every shard, as JAX's
+    per-chip ``segment_excl_cumsum`` does, also where the units of the
+    earlier shards have carried the running sum past 2**31 (a prefix over
+    all shards at once keeps an earlier shard's group base there)."""
+    stats, table, b, cap = budget_wrap_case(case, D)
+    want = np.asarray(_jax_wrap_form(form, stats, table, b, cap, 8))
+    got = _port_wrap_form(form, stats, table, b, cap, 8)
+    assert_same(want, got, f"{case} {form}")
+    assert want.any() and not want.all(), "some entries demoted, some kept"
+    if case == "smallest" and form == "split":
+        assert want.astype(int).tolist() == [1, 1, 0, 1, 1, 0, 0, 1, 1, 0, 1, 1, 1, 0, 0, 1]
+
+
+def _huge_acquires_on_mesh(lib):
+    """Entries with acquires near 2**29 on one resource through the mesh
+    engine: their units pass 2**31 across the shards."""
+    lib.engine.enable_mesh(8)
+    lib.st.flow_rule_manager.load_rules([lib.st.FlowRule("big", count=2.0e9)])
+    rng = np.random.default_rng(77)
+    out = []
+    for _ in range(3):
+        lib.clock.advance(1000)
+        now = lib.clock.now_ms()
+        acq = rng.integers(2**28, 2**29 + 2**28, 24)
+        ops = lib.engine.submit_many([{"resource": "big", "ts": now - int(d), "acquire": int(a)}
+                                      for a, d in zip(acq, rng.integers(0, 50, 24))])
+        lib.engine.flush()
+        out.append([op.verdict.admitted for op in ops])
+    lib.engine.disable_mesh()
+    return out
+
+
+@pytest.mark.mesh
+def test_huge_acquires_on_mesh_engine_match_jax():
+    got = run_on_both(_huge_acquires_on_mesh)
+    assert any(any(v) for v in got) and not all(all(v) for v in got)
 
 
 # --- the global scans ---------------------------------------------------------------

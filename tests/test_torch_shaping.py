@@ -35,6 +35,7 @@ from torch_parity import (
     assert_same,
     borrowable_stats,
     fma_warning_case,
+    out_of_range_rule_ids,
     random_chain_batch,
     random_degrade,
     random_param_batch_for,
@@ -141,6 +142,95 @@ def test_prev_second_pass_and_inputs():
     assert_same(sb[0] & live[np.clip(sb[3], 0, n - 1)], valid, "valid")
     assert_same(ppc[np.clip(sb[4], 0, n * k - 1)], ppc_s, "ppc")
     assert_same(want, prev_s, "prev")
+
+
+# --- K9's edges: one item, the one-block threshold, one rule, no valid item --
+
+EDGE_CASES = {
+    # name: (random_shaping_case arguments, rounds)
+    "one_item": (dict(s=1, nr=4), (0, -1)),
+    "one_block_threshold": (dict(s=tsh.SHAPING_SMALL_MAX, nr=64), (0, 4)),
+    "one_rule_holds_every_item": (dict(s=512, nr=4, n_hot=512), (0,)),
+    "all_invalid": (dict(s=64, nr=8), (0, -1)),
+    "rounds_1_long_segments": (dict(s=256, nr=4, n_hot=128), (1,)),
+    "rounds_3_long_segments": (dict(s=256, nr=4, n_hot=128), (3,)),
+}
+
+_jax_prev_pass = jax.jit(jflush._prev_second_pass)
+
+
+def _edge_case(name):
+    kwargs, _ = EDGE_CASES[name]
+    rng = np.random.default_rng(sorted(EDGE_CASES).index(name) + 50)
+    if name == "one_item":
+        kwargs = dict(kwargs, behaviors=(2,), one_ts=True, acquire=1)
+    table, dyn, sb, ppc, prev = random_shaping_case(rng, **kwargs)
+    if name == "all_invalid":
+        sb = (np.zeros_like(sb[0]),) + sb[1:]
+    return rng, (table, dyn, sb, ppc, prev)
+
+
+def _stage_both(rng, case, rounds):
+    """The flush's shaping stage on both packages: the inputs gathered
+    (entry liveness, the slot's pass-plus-charge, the minute window's
+    previous second) and K9 on them. JAX's stage is flush_entries' own
+    lines (:759-764) around run_shaping; the port's is shaping_stage."""
+    table, dyn, sb, ppc, _ = case
+    s = sb[0].shape[0]
+    now = int(sb[5].max()) + 300
+    arrs = borrowable_stats(rng, int(table[0].shape[0]), now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    live = rng.random(s) < 0.8
+    jstats = _jax_stats(arrs)
+    j_valid = jnp.asarray(sb[0] & live[np.clip(sb[3], 0, s - 1)])
+    j_prev = _jax_prev_pass(jstats, jnp.asarray(sb[2]), jnp.asarray(sb[5]))
+    j_sb = jsh.ShapingBatch(*map(jnp.asarray, sb))._replace(valid=j_valid)
+    want = _jax_run_shaping(JTable(*map(jnp.asarray, table)), JDyn(*map(jnp.asarray, dyn)), j_sb,
+                            jnp.asarray(ppc)[jnp.clip(j_sb.flat_pos, 0, s - 1)], j_prev, interval_sec=1.0,
+                            rounds=rounds)
+    tt, td = flow_table_from_numpy(table, dyn, CPU)
+    valid, ok, wait = tsh.shaping_stage(tt, td, tsh.shaping_batch_from_numpy(sb, CPU), torch.tensor(live),
+                                        torch.tensor(ppc), tnodes.stats_from_numpy(arrs, CPU).minute, 1.0, rounds)
+    assert_same(j_valid, valid, "valid")
+    return want, (td, ok, wait)
+
+
+@pytest.mark.parametrize("form", ["run_shaping", "shaping_stage"])
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_shaping_edges_match_jax(case, form):
+    """run_shaping and the flush's shaping stage at K9's edges: one item;
+    S at the one-block threshold of the card's route; one rule holding
+    every item (one long segment); no valid item; rounds 1 and 3 with
+    segments longer than that (their tails stay unresolved)."""
+    for rounds in EDGE_CASES[case][1]:
+        rng, inputs = _edge_case(case)
+        if form == "run_shaping":
+            want, got = _both(inputs, rounds)
+        else:
+            want, got = _stage_both(rng, inputs, rounds)
+        _assert_shaping(want, got, f"{case} {form} rounds={rounds}")
+        ok = np.asarray(want[1])
+        if case == "all_invalid":
+            assert ok.all() and not np.asarray(want[2]).any()
+        elif case.startswith("rounds_"):
+            assert not ok.all(), "the walked items block some"
+
+
+@pytest.mark.parametrize("rounds", [0, 2, -1])
+def test_out_of_range_rule_ids_count_as_invalid(rounds):
+    """run_shaping takes a valid item whose rule id lies outside [0, nr)
+    (two different negative ids, nr, past nr, the int32 extremes) as
+    invalid: the same verdicts and state as with those items marked
+    invalid, which JAX matches."""
+    rng = np.random.default_rng(62)
+    kw = dict(behaviors=(2,), one_ts=True, acquire=1) if rounds == -1 else {}
+    table, dyn, sb, ppc, prev = random_shaping_case(rng, s=256, nr=8, **kw)
+    bad, invalid = out_of_range_rule_ids(rng, sb, 8)
+    want, _ = _both((table, dyn, invalid, ppc, prev), rounds)
+    tt, td = flow_table_from_numpy(table, dyn, CPU)
+    got = tsh.run_shaping(tt, td, tsh.shaping_batch_from_numpy(bad, CPU), torch.tensor(ppc), torch.tensor(prev),
+                          1.0, rounds)
+    _assert_shaping(want, got, f"rounds={rounds}")
+    assert not np.asarray(want[1]).all(), "the walked items block some"
 
 
 # --- flush_step with shaping and hot parameters on ---------------------------

@@ -333,6 +333,19 @@ def random_shaping_case(rng, s, nr, behaviors=(1, 2, 3), t0=1000, span=5000, n_h
     return table, dyn, batch, rng.integers(0, 60, s).astype(np.int32), rng.integers(0, 60, s).astype(np.int32)
 
 
+def out_of_range_rule_ids(rng, sb, nr):
+    """(the shaping batch ``sb`` with some valid items' rule ids moved out
+    of [0, nr): two different negative ids, nr, past nr and the int32
+    extremes; the same batch with those items marked invalid instead)."""
+    valid, gid = sb[0].copy(), sb[1].copy()
+    pick = np.flatnonzero(valid)[:: 5]
+    bad = np.asarray([-1, -2, nr, nr + 5, -(2**31), 2**31 - 1], np.int64)
+    gid[pick] = bad[np.arange(pick.size) % bad.size].astype(np.int32)
+    invalid = valid.copy()
+    invalid[pick] = False
+    return (valid, gid) + tuple(sb[2:]), (invalid, gid) + tuple(sb[2:])
+
+
 def random_param_case(rng, s, pr, closed=False, nts=1, heavy=False, t0=5000, heavy_row=5, valid_frac=0.9,
                       sorted_ts=True):
     """(batch, dyn) as numpy arrays in the layouts of ParamBatch and
@@ -649,3 +662,67 @@ def many_candidates(rng, n, kd, nd, now):
     e_ts = np.full(n, now - 5, np.int32)
     e_live = rng.random(n) < 0.9
     return table, dyn, e_dgid, e_ts, e_live
+
+
+# --- the mesh budget split past 2**31 (K15) ---------------------------------------
+
+def _window_cfgs():
+    from sentinel_tpu_torch.metrics import nodes
+
+    return nodes.SECOND_CFG, nodes.MINUTE_CFG
+
+
+BUDGET_WRAP_CASES = ["smallest", "all_shards_pass", "one_shard_passes", "origin_split_k2"]
+
+
+def budget_wrap_case(case, d_count=8):
+    """Budget inputs whose masked units pass 2**31 across the shards. Each
+    slot has a rule of its own whose count is the slot's cap; the stats
+    hold no pass, threads or borrows, so the grant and the borrow cap are
+    floor(count). Returns (stats, table, batch, cap [N*K]):
+
+    * ``smallest``: ``d_count`` = 8 shards of 2 entries, K = 1, every slot masked, one
+      ts (the smallest input found where a prefix over all shards differs
+      from JAX's per-chip prefix);
+    * ``all_shards_pass``: 4 entries a shard on 4 rows, acquires up to
+      2**29: the shards' units together pass 2**31, no shard's alone;
+    * ``one_shard_passes``: as above, and shard 2's own units pass 2**31;
+    * ``origin_split_k2``: K = 2, both slots of an entry on one row under
+      two rules."""
+    rng = np.random.default_rng(BUDGET_WRAP_CASES.index(case) + 70)
+    now = 3_456_000
+    if case == "smallest":
+        n, k = 16, 1
+        rows = np.array([1, 0, 0, 1, 1, 0, 0, 1, 1, 0, 1, 1, 0, 1, 1, 0], np.int32)
+        acq = np.array([2, 603740710, 3, 2, 3, 851543336, 2, 834345985, 1, 2, 1, 2, 780960580, 691715872, 3,
+                        758542948], np.int32)
+        cap = np.array([1759114057, 872974300, 89514544, 1954121989, 2020595744, 92485438, 1274239748,
+                        1766748282, 1696194208, 892030427, 1846657787, 1781990488, 243444659, 21377256,
+                        219536274, 783930654], np.int32)
+        ts = np.full(n, now - 100, np.int32)
+    else:
+        n, k = 32, 2 if case == "origin_split_k2" else 1
+        rows = rng.integers(0, 4, n).astype(np.int32)
+        acq = np.where(rng.random(n) < 0.5, rng.integers(2**27, 2**29, n), rng.integers(1, 4, n)).astype(np.int32)
+        if case == "one_shard_passes":
+            acq[8:12] = rng.integers(2**29 + 2**28, 2**30, 4)
+        cap = rng.integers(2**30, 2**31 - 2**8, n * k).astype(np.int32)
+        ts = (now - rng.integers(0, 40, n)).astype(np.int32)
+    n_rows = 8
+    stats = random_stats(rng, n_rows, now, *_window_cfgs())
+    for a in (stats[0][0], stats[1][0], stats[2], stats[3]):
+        a[...] = 0
+    nr = n * k + 2
+    table, _ = random_flow_table(rng, nr, thread_frac=0.0)
+    table[1][: n * k] = cap.astype(np.float32)
+    b = list(random_flush_batch(rng, n, k, n_rows, nr, now, n))
+    b[2], b[3] = ts, acq
+    b[5] = np.arange(n * k, dtype=np.int32).reshape(n, k)
+    b[6] = np.repeat(rows[:, None], k, axis=1)
+    # The caps the demotions compute: float32 counts, floored.
+    cap = np.floor(table[1][: n * k]).astype(np.int64).clip(max=2**31 - 1).astype(np.int32)
+    units = acq.astype(np.int64).repeat(k).reshape(d_count, -1).sum(axis=1)
+    assert units.sum() >= 2**31
+    if case != "origin_split_k2":
+        assert (units.max() >= 2**31) == (case == "one_shard_passes")
+    return stats, table, tuple(b), cap
