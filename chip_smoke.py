@@ -81,14 +81,16 @@ entries and at 8; its time at 32,768 too), the system check (K6) and the
 breaker entry check (K8, and with the mask also at a mesh shard's 4,096
 slots) at 131,072 entries and at 8, the shaping and hot-parameter
 recurrences (K9 with its inputs, K10; at the mixed shape and at 8 items),
-the budget split (K15, at 131,072 entries and 8 slots) and K12
-(torch.profiler, gpu_timing.py), and fail if the profiler reads no
+the budget split (K15, at 131,072 entries and 8 slots), the slot chain's
+verdict tail and the borrow commit (K5; at 131,072 entries, uniform and
+Zipf, the Zipf call also by kernel, and at 8) and
+K12 (torch.profiler, gpu_timing.py), and fail if the profiler reads no
 kernel, if K2 issues more than four kernels and memsets a call, or if K4,
-K6, K8, K9, K10, K12 or K15 issue anything but one kernel at 8 entries,
-items, slots or requests. For K6, K8, K9 and K15 they
-also time both routes at the sizes where the route is chosen (2,048, 4,096
-and 8,192, for K9 and K15 also 512 and 1,024; with the mask 4,096), each
-equal to the plain version. Phase 4 reads
+K5, K6, K8, K9, K10, K12, K15 or the tail issue anything but one kernel
+at 8 entries, items, slots or requests. For K5, K6, K8, K9, K15 and the
+tail they also time both routes at the sizes where the route is chosen
+(2,048, 4,096 and 8,192, for K5, K9, K15 and the tail also 512 and 1,024;
+with the mask 4,096), each equal to the plain version. Phase 4 reads
 cluster_node_stats every tenth flush (K3 with a row gather), on the card
 and on the CPU engine, as a path of its own: K3 is off the flush path, and
 its launches on the kernels line are those of these reads.
@@ -157,7 +159,7 @@ try:
     from sentinel_tpu_torch.runtime import sketch as tsk
     from sentinel_tpu_torch.utils import clock as tclock
     from sentinel_tpu_torch.utils import cuda_build
-    from gpu_timing import TD_B, TD_FLOWS, TD_NS, device_profile, time_ms, token_batch
+    from gpu_timing import TD_B, TD_FLOWS, TD_NS, device_profile, kernel_times, time_ms, token_batch
 except ImportError as exc:
     print(f"chip_smoke: the sentinel_tpu_torch package or gpu_timing.py is not beside this script ({exc})",
           file=sys.stderr)
@@ -622,20 +624,29 @@ def phase2(results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def sub_adm(adm: flush.Admission, n: int) -> flush.Admission:
+    """The admission of the first n entries."""
+    return flush.Admission(*(None if t is None else t[:n] for t in adm))
+
+
 def slab_only(stats: nodes.StatsState) -> nodes.StatsState:
     """The stats with a private copy of the future slab (all K5 writes)."""
     return stats._replace(future_pass=stats.future_pass.clone(), future_ws=stats.future_ws.clone())
 
 
-def call_profile(results: dict, name: str, call, small_call, small_plain, what: str) -> None:
+def call_profile(results: dict, name: str, call, small_call, small_plain, what: str, small_timed=None) -> None:
     """Device kernels, memsets and device ms a call of ``call`` (full
     width) and of ``small_call`` (8 entries, equal to ``small_plain``); the
-    phase fails unless the 8 entries take one kernel and no memset."""
+    phase fails unless the 8 entries take one kernel and no memset.
+    ``small_timed`` (default ``small_call``) is what is profiled and timed
+    at 8, for a kernel whose compared calls each start from a fresh copy
+    of the state it writes."""
+    small_timed = small_timed or small_call
     launches, memsets, dev_ms = profile(call, f"{what}: {name}")
     err = require_equal(small_plain(), small_call(), f"{name} (N=8)")
-    s_launches, s_memsets, s_dev = profile(small_call, f"{what}: {name} at N=8")
+    s_launches, s_memsets, s_dev = profile(small_timed, f"{what}: {name} at N=8")
     r = results[name]
-    r.update(launches_per_call=launches, memsets_per_call=memsets, device_ms=dev_ms, small_ms=time_ms(small_call),
+    r.update(launches_per_call=launches, memsets_per_call=memsets, device_ms=dev_ms, small_ms=time_ms(small_timed),
              small_launches_per_call=s_launches, small_memsets_per_call=s_memsets, small_device_ms=s_dev,
              max_abs_err=max(r.get("max_abs_err", 0), err))
     log(f"    {name}: {launches} device kernels, {memsets} memsets, {dev_ms:.4f} ms of device time a call; N=8: "
@@ -644,23 +655,26 @@ def call_profile(results: dict, name: str, call, small_call, small_plain, what: 
         fail(f"{what}: {name} at N=8 issued {s_launches} kernels and {s_memsets} memsets in one call")
 
 
-def route_times(results: dict, name: str, mod, const: str, call_at, plain_at, sizes, what: str) -> None:
+def route_times(results: dict, name: str, mod, const: str, call_at, plain_at, sizes, what: str,
+                timed_at=None) -> None:
     """Each size through the one-block route and then the many-block one
     (``mod.<const>`` set to 8,192, the one-block route's capacity, then to
     0), each equal to the plain version: {size: [one-block ms, its device
     ms, many-block ms, its device ms]} under ``routes``, beside the
-    threshold in use (``small_max``)."""
+    threshold in use (``small_max``). ``timed_at`` (default ``call_at``)
+    gives what is timed, as ``small_timed`` in :func:`call_profile`."""
     saved = getattr(mod, const)
     routes = {}
     try:
         for n in sizes:
             call = call_at(n)
+            timed = (timed_at or call_at)(n)
             want = plain_at(n)()
             row = []
             for small in (8192, 0):
                 setattr(mod, const, small)
                 require_equal(want, call(), f"{name} at {n} (one-block route up to {small})")
-                row += [time_ms(call), profile(call, f"{what}: {name} at {n}")[2]]
+                row += [time_ms(timed), profile(timed, f"{what}: {name} at {n}")[2]]
             routes[str(n)] = row
     finally:
         setattr(mod, const, saved)
@@ -770,7 +784,17 @@ def phase2_chain(results: dict) -> None:
         nk = N  # K = 1
         touched_x = torch.unique(batch.x_dgid[batch.x_valid]).numel()
         touched_e = torch.unique(batch.e_dgid[e_live[:, None].expand_as(batch.e_dgid)]).numel()
-        occ_keys = torch.unique(batch.e_check_row[v.occ_slot]).numel()
+        # K5 reads every slot's borrow flag, and the target, row and acquire
+        # only in the 32-byte sectors that hold a borrowed slot; it reads and
+        # writes the 8 B of each slab cell the borrows touch.
+        borrowed = v.occ_slot.reshape(-1).nonzero()[:, 0]
+        slot_sectors = torch.unique(borrowed // 8).numel()  # [N, K] int32: 8 slots a sector
+        acq_sectors = torch.unique(borrowed // v.occ_slot.shape[1] // 8).numel()
+        scfg = nodes.SECOND_CFG
+        cell = (batch.e_check_row.clamp(0, R - 1) * scfg.sample_count
+                + torch.remainder(torch.div(adm.occ_target, scfg.window_len_ms, rounding_mode="floor"),
+                                  scfg.sample_count))
+        occ_cells = torch.unique(cell[v.occ_slot]).numel()
         dense = torch.zeros(R, dtype=I32, device=DEV)
         blocked = batch.e_valid & ~v.admitted
         dense.index_add_(0, batch.e_rows[:, 1][blocked].long(), batch.e_acquire[blocked])
@@ -797,8 +821,9 @@ def phase2_chain(results: dict) -> None:
                 library_call="torch.topk(k=8) over the [R] blocked weights (the top-K step only)",
                 shape=f"N={N} entries, KD=1, R={R} rows, top-8"),
             "commit_borrow_slab": dict(
-                bound=bound(nk * (1 + 4 + 4) + N * 4 + occ_keys * 16), library_ms=None,
-                shape=f"N={N} borrow slots into the slab [{R},2] ({occ_keys} cells touched)"),
+                bound=bound(nk + (2 * slot_sectors + acq_sectors) * 32 + occ_cells * 16), library_ms=None,
+                shape=f"N={N} borrow slots into the slab [{R},2] ({len(borrowed)} borrowed, {occ_cells} cells "
+                      "touched)"),
         }
         for name, (k_ms, p_ms) in times.items():
             log(f"    {name}: {k_ms:.4f} ms, plain {p_ms:.4f} ms ({tag})")
@@ -806,6 +831,18 @@ def phase2_chain(results: dict) -> None:
                 results[name].update(ms=k_ms, plain_ms=p_ms, **info[name])
             else:
                 results[name].update(zipf_ms=k_ms, zipf_plain_ms=p_ms)
+        if skewed:  # the tail and K5, redesigned around the touched rows and cells: their Zipf device time
+            for name in ("slot_chain_verdict", "commit_borrow_slab"):
+                z_l, z_m, z_dev = profile(t[name][0], f"phase 2b: {name} (zipf)")
+                z_us = kernel_times(t[name][0])
+                results[name].update(zipf_launches_per_call=z_l, zipf_memsets_per_call=z_m, zipf_device_ms=z_dev,
+                                     zipf_kernel_us=z_us)
+                log(f"    {name} (zipf): {z_l} device kernels, {z_m} memsets, {z_dev:.4f} ms of device time a call; "
+                    f"us by kernel {z_us}")
+            untouched = torch.ones(R, dtype=torch.bool, device=DEV)
+            untouched[batch.e_rows[:, 1][blocked & (batch.e_acquire > 0)].long()] = False
+            log(f"    the tail (zipf): {int(blocked.sum())} entries blocked; the lowest untouched row "
+                f"{int(untouched.nonzero()[0, 0])}")
         if not skewed:
             # K4's slot-chain route with occupy, K6 and K8: kernels and
             # memsets a call, at N and at the 8 entries st.entry sends (one
@@ -828,6 +865,33 @@ def phase2_chain(results: dict) -> None:
             call_profile(results, "breaker_try_pass", bt(N), bt(8), bt_plain(8), "phase 2b")
             route_times(results, "breaker_try_pass", tdt, "TRY_PASS_SMALL_MAX", bt, bt_plain, (2048, 4096, 8192),
                         "phase 2b")
+            # The verdict tail and K5 the same way, each route at 512-8,192;
+            # K5's compared calls each start from a fresh copy of the slab.
+            tail_sizes = (512, 1024, 2048, 4096, 8192)
+            def cv(fn):  # the inputs are cut to n entries outside the timed call
+                def at(n):
+                    args = (sub_batch(batch, n), sub_adm(adm, n), sys_ok[:n], dslot_ok[:n], probe[:n], dyn_s, R, 8)
+                    return lambda: fn(*args)
+
+                return at
+
+            call_profile(results, "slot_chain_verdict", cv(flush.slot_chain_verdict)(N),
+                         cv(flush.slot_chain_verdict)(8), cv(flush.slot_chain_verdict_plain)(8), "phase 2b")
+            route_times(results, "slot_chain_verdict", flush, "CHAIN_VERDICT_SMALL_MAX", cv(flush.slot_chain_verdict),
+                        cv(flush.slot_chain_verdict_plain), tail_sizes, "phase 2b")
+            def cb(fn, fresh):
+                def at(n):
+                    args = (v.occ_slot[:n], adm.occ_target[:n], batch.e_acquire[:n], batch.e_check_row[:n])
+                    return lambda: fn(slab_only(stats) if fresh else slab_s, *args)
+
+                return at
+
+            call_profile(results, "commit_borrow_slab", cb(flush.commit_borrow_slab, False)(N),
+                         cb(flush.commit_borrow_slab, True)(8), cb(flush.commit_borrow_slab_plain, True)(8),
+                         "phase 2b", small_timed=cb(flush.commit_borrow_slab, False)(8))
+            route_times(results, "commit_borrow_slab", flush, "COMMIT_BORROW_SMALL_MAX",
+                        cb(flush.commit_borrow_slab, True), cb(flush.commit_borrow_slab_plain, True), tail_sizes,
+                        "phase 2b", timed_at=cb(flush.commit_borrow_slab, False))
         del stats, batch, ddev, dyn, dyn_x, dyn_s, slab_s, adm, adm0, v, wv
         torch.cuda.empty_cache()
 
@@ -3007,7 +3071,8 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"], "shape": r["shape"],
         }
-        for extra in ("library_call", "zipf_ms", "zipf_plain_ms", "heavy_ms", "index_add_ms", "widened_ms",
+        for extra in ("library_call", "zipf_ms", "zipf_plain_ms", "zipf_launches_per_call", "zipf_memsets_per_call",
+                      "zipf_device_ms", "zipf_kernel_us", "heavy_ms", "index_add_ms", "widened_ms",
                       "ties_ms", "borrow_ms", "mixed_k2_ms", "grant_then_borrow_ms", "run_ms", "inputs_ms",
                       "borrow_launches_per_call", "borrow_memsets_per_call", "borrow_device_ms", "mixed_k2_launches_per_call",
                       "mixed_k2_memsets_per_call", "mixed_k2_device_ms", "launches_per_call", "memsets_per_call",

@@ -1,7 +1,8 @@
-"""Times the window update (K2), the flow admission (K4), the system check
-(K6), the breaker entry check (K8), the shaping recurrence with its inputs
-(K9), the hot-parameter recurrence (K10), the token decision (K12) and the
-mesh budget split (K15) of one checkout of
+"""Times the window update (K2), the flow admission (K4), the borrow commit
+(K5), the system check (K6), the breaker entry check (K8), the slot
+chain's verdict tail, the shaping recurrence with its inputs (K9), the
+hot-parameter recurrence (K10), the token decision (K12) and the mesh
+budget split (K15) of one checkout of
 sentinel_tpu_torch on the card, so that two commits can be compared on
 one card in alternating runs:
 
@@ -23,6 +24,16 @@ back-to-back calls (gpu_timing.time_ms):
 - K15: the same entries on Zipf(1.1) rows over 8 shards, the flow grant,
   the borrow, the two in turn as the mesh step calls them (``k15_step``,
   a pair a call), and 8 slots;
+- the verdict tail (``tail``): the same entries after every stage, each
+  stage blocking part of them (system, flow, the breakers of K8's case
+  with their probes), 10% occupied, top-8 over the 1,048,576 rows; and
+  its first 8 entries; the same on K15's Zipf rows (``tail_zipf``), and
+  there with 8% of the entries passing the flow check
+  (``tail_zipf_blocked``), each with ``*_first_untouched_row`` (the lowest
+  row no blocked entry touched) and ``*_blocked``;
+- K5: the same entries, 10% of the slots borrowing one of the next two
+  windows on the Zipf rows, into the slab [1,048,576, 2]; and 8 slots;
+  the same on the uniform rows (``k5_uniform``);
 - K9: 16,384 rate-limiter items (slot 1 of every 8th of 131,072 entries)
   over 1,048,576 rules with their inputs (entry liveness, the slot's
   pass-plus-charge, the minute window of 131,072 rows): the one call of
@@ -37,15 +48,18 @@ back-to-back calls (gpu_timing.time_ms):
 Inputs are made here from fixed seeds, the same for every checkout, only
 through long-standing functions of the package (batch_from_numpy,
 flow_table_from_numpy, the degrade tables' from_numpy, the state tuples,
-make_param_state); the token batches are chip_smoke.py's
+make_param_state, Admission and the public slot_chain_verdict and
+commit_borrow_slab); the token batches are chip_smoke.py's
 (gpu_timing.token_batch). Each call's device kernels, memsets and device
-time are read from torch.profiler over 20 calls, and for K4, K6, K9, K10
-and K15 at full size the device us a call by kernel (k4_kernel_us,
-k6_kernel_us, k9_kernel_us, k10_kernel_us, k15_kernel_us,
-k15_borrow_kernel_us); the script fails if the profiler reads no
-kernel. Prints one JSON line that carries the card's name and power
-limit. Needs CUDA; imports no JAX. The helpers come from the
-gpu_timing.py beside this script, whichever checkout it times.
+time are read from torch.profiler over 20 calls, and for K4, K5, K6, K9,
+K10, K15 and the tail at full size the device us a call by kernel
+(k4_kernel_us, k5_kernel_us, k5_uniform_kernel_us, k6_kernel_us,
+k9_kernel_us, k10_kernel_us, k15_kernel_us, k15_borrow_kernel_us,
+tail_kernel_us, tail_zipf_kernel_us, tail_zipf_blocked_kernel_us); the
+script fails if the profiler reads no kernel. Prints one JSON line that
+carries the card's name and power limit. Needs CUDA; imports no JAX. The
+helpers come from the gpu_timing.py beside this script, whichever
+checkout it times.
 """
 
 from __future__ import annotations
@@ -90,7 +104,7 @@ def main() -> None:
     from sentinel_tpu_torch.utils import cuda_build
 
     cuda_build.build_all(["window_update", "token_decide", "flow_admission", "param_scan", "system_check",
-                          "breaker_try_pass", "shaping_scan", "mesh_budget"])
+                          "breaker_try_pass", "shaping_scan", "mesh_budget", "commit_borrow_slab"])
     dev = torch.device("cuda", 0)
     i32 = torch.int32
     out = {"tag": args.tag, "root": args.root, "card": card_line(), "torch": torch.__version__}
@@ -200,7 +214,57 @@ def main() -> None:
     profiled("k15_small", k15(8, True))
     grant15, borrow15 = k15(n, True), k15(n, False)
     profiled("k15_step", lambda: (grant15(), borrow15()))  # the grant then the borrow, as the mesh step calls them
-    del stats, second, table, batch, small, dtable, ddyn, allowed, dgid, zb
+
+    # The verdict tail: the entries after every stage (system 90% pass,
+    # flow 70%, the breakers of K8's case with their probes), 10% occupied,
+    # top-8 over the rows. K5: 10% of the slots borrow one of the next two
+    # windows on the Zipf rows.
+    sub = lambda b_, m: b_._replace(**{f: getattr(b_, f)[:m] for f in b_._fields if f.startswith("e_")})
+    tb = batch._replace(e_dgid=dgid, e_auth_ok=t(rng4.random(n) < 0.97))
+    occ = t(rng4.random(n) < 0.1)
+    base = now - now % scfg.window_len_ms
+    tgt = t((base + scfg.window_len_ms * rng4.integers(1, 3, (n, 1))).astype(np.int32))
+    adm = flush.Admission(batch.e_valid[:, None].clone(), t(rng4.random(n) < 0.7), None, None, None, None, occ,
+                          t(rng4.integers(0, 500, n).astype(np.int32)), occ[:, None].clone(), tgt)
+    sys_ok = t(rng4.random(n) < 0.9)
+    dslot, probe = tdt.breaker_try_pass(dtable, ddyn, dgid, batch.e_ts, batch.e_valid)
+    ddyn_t = tdt.DegradeDynState(*(x.clone() for x in ddyn))
+
+    zrows = batch.e_rows.clone()
+    zrows[:, 1] = zrow[:, 0]
+    tz = tb._replace(e_rows=zrows)  # the cluster rows on the Zipf law
+
+    def tail(m, b_=tb, adm_=adm):  # the inputs are cut to m entries outside the timed call
+        args = (sub(b_, m), flush.Admission(*(None if x is None else x[:m] for x in adm_)), sys_ok[:m], dslot[:m],
+                probe[:m], ddyn_t, rows_n, 8)
+        return lambda: flush.slot_chain_verdict(*args)
+
+    occ5 = t(rng4.random((n, 1)) < 0.1)
+    # On the Zipf rows with 8% passing the flow check, as chip_smoke.py's
+    # Zipf case blocks most entries of its hot rows.
+    adm_b = adm._replace(flow_pass=t(np.random.default_rng(41).random(n) < 0.08))
+
+    def k5(m, crow=zrow):
+        args = (stats, occ5[:m], tgt[:m], batch.e_acquire[:m], crow[:m])
+        return lambda: flush.commit_borrow_slab(*args)
+
+    for name, fn in (("tail", tail), ("k5", k5), ("tail_zipf", lambda m: tail(m, tz)),
+                     ("tail_zipf_blocked", lambda m: tail(m, tz, adm_b)),
+                     ("k5_uniform", lambda m: k5(m, batch.e_check_row))):
+        profiled(name, fn(n))
+        out[f"{name}_kernel_us"] = kernel_times(fn(n))
+        if "_" not in name:
+            profiled(f"{name}_small", fn(8))
+    # How far cv_entry's last block scans for the k lowest untouched rows,
+    # and how many entries the tail blocks.
+    for name, a_ in (("tail_zipf", adm), ("tail_zipf_blocked", adm_b)):
+        v = tail(n, tz, a_)()
+        blocked = tz.e_valid & ~v.admitted & (tz.e_acquire > 0)
+        touched = torch.zeros(rows_n, dtype=torch.bool, device=dev)
+        touched[tz.e_rows[:, 1][blocked].long()] = True
+        out[f"{name}_first_untouched_row"] = int((~touched).nonzero()[0, 0])
+        out[f"{name}_blocked"] = int(blocked.sum())
+    del stats, second, table, batch, small, dtable, ddyn, allowed, dgid, zb, tb, tz, adm, adm_b, ddyn_t, v
     torch.cuda.empty_cache()
 
     # K9 with its inputs: 16,384 rate-limiter items (slot 1 of every 8th of

@@ -1,157 +1,247 @@
-// Borrow commit for Hopper (sm_90a): the port of
+// K5, the borrow commit for Hopper (sm_90a): the port of
 // sentinel_tpu/runtime/flush.py:commit_borrow_slab (addWaitingRequest,
 // StatisticNode.java:342-345): granted borrows of finally admitted
 // prioritized entries go into the future slab future_pass/future_ws
-// [R, B], set-if-newer per (row, bucket) like the borrow array's
-// reset-then-add roll.
+// [R, B], set-if-newer per (row, bucket) cell like the borrow array's
+// reset-then-add roll. Per cell: the newest target window among its
+// borrows, the wrapping int32 sum of the acquires of the borrows that
+// target it, then one write: the same window adds, a newer one sets pass
+// and window, an older one writes nothing. Max and wrapping sum do not
+// depend on order, so no sort is needed to be exact.
 //
-// Launch sequence (driven by runtime/flush.py:_commit_borrow_cuda), the
-// per-segment logic of the window update (window_update.cu) on a
-// one-event array:
-//   1. cb_keys    key = row * B + (target / wlen) % B for a borrowed slot,
-//                 R * B otherwise
-//   2. torch.sort(key, stable=True)   (CUB radix sort)
-//   3. cb_init    per segment head: newest window INT_MIN, sum 0
-//   4. cb_max     each borrow finds its head (binary search); the newest
-//                 target window reaches the head by atomicMax
-//   5. cb_sum     the acquire of borrows at that window, by atomicAdd
-//   6. cb_write   one writer per touched cell: same window adds, a newer
-//                 one sets pass and window, an older one writes nothing
+// One C call, commit_borrow, per commit (runtime/flush.py), its arguments
+// in one CbArgs:
+// - n * k <= small_max slots (at most SMALL_CAP): one launch of one block
+//   (cb_small). The borrowed slots' (cell, target) keys are compacted and
+//   sorted in shared memory (bitonic, with their positions); a block scan
+//   gives the wrapping prefix of their acquires and the start of each
+//   (cell, target) run; the last slot of each cell's run is its newest
+//   target and writes.
+// - more slots: three launches over the slots, no sort, no memset. Two
+//   R * B arrays in the caller's zeroed scratch: a 64-bit cell
+//   (target ^ 2^31) << 32 | 1, and an int32 sum. cb_max: each borrowed
+//   slot atomicMax'es its encoded target into its cell (warp-combined).
+//   The encoding keeps the signed order of the targets, and its low bit
+//   makes every cell a borrow reached nonzero, for any target: a zero
+//   cell means "no borrow" without reserving a target value (under the
+//   port's ts >= 0 contract a target is some window start after now, but
+//   none needs to be excluded). cb_sum: each slot whose target is its
+//   cell's newest atomicAdd's its acquire (wrapping). cb_write: per cell,
+//   the slot whose atomicExch takes the nonzero cell is its one writer: it
+//   applies set-if-newer to the slab and zeroes the sum. Both arrays are
+//   all zero when the call ends; a call that fails after the first launch
+//   memsets them.
 //
-// What bounds it: bytes. Per slot: the borrow flag, target, row and
-// acquire (13 B); the sort moves 12 B twice; one 8 B cell per touched
-// (row, bucket). Atomics are combined across the warp first
-// (__match_any_sync + __reduce_*_sync) for a hot row.
+// What bounds it: launches and host calls. Per slot it reads the borrow
+// flag (1 B), and per borrowed slot the target, row and acquire (12 B);
+// per touched cell it reads and writes 8 B of slab. The design is one
+// host call, one launch for the batches st.entry sends, three small ones
+// at full width; no sort (the parity form took a CUB sort of every slot
+// and four more kernels).
 
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <stdint.h>
+#include "bitonic.cuh"
+
+// Everything one call reads and writes; runtime/flush.py fills the same
+// layout (_CbArgs: pointers first, then the ints).
+struct CbArgs {
+  const uint8_t* occ;  // [n, k] the borrowing slots, gated on the final admission
+  const int* tgt;      // [n, k] target window starts
+  const int* crow;     // [n, k] check rows
+  const int* acq;      // [n]
+  int* fut_pass;       // [R, nb] the slab, updated in place
+  int* fut_ws;
+  int n, k, n_rows, nb, wlen, small_max;
+};
 
 namespace {
 
-constexpr unsigned FULL_MASK = 0xffffffffu;
-constexpr int THREADS = 256;
+using u64 = unsigned long long;
+constexpr int SMALL_CAP = 8192;  // slots cb_small can take (positions fit 16 bits)
+constexpr int SMALL_THREADS = 1024;  // cb_small's block
 
-__device__ __forceinline__ int wrap_add(int a, int b) { return (int)((unsigned)a + (unsigned)b); }
-
-__device__ __forceinline__ int floordiv(int a, int b) {
-  int q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
-__device__ __forceinline__ int floormod(int a, int b) {
-  int r = a % b;
-  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+// The slab cell (row * B + bucket) of a borrowed slot: its clamped check
+// row, and its target window's bucket.
+__device__ __forceinline__ unsigned slab_cell(const CbArgs& a, int p) {
+  int row = clampi(a.crow[p], 0, a.n_rows - 1);
+  return (unsigned)(row * a.nb + floormod(floordiv(a.tgt[p], a.wlen), a.nb));
 }
 
-__device__ __forceinline__ int lower_bound_i32(const int* __restrict__ a, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = lo + ((hi - lo) >> 1);
-    if (a[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
+// A target in unsigned order: the signed order of the int32 targets.
+__device__ __forceinline__ unsigned enc(int t) { return (unsigned)t ^ 0x80000000u; }
+__device__ __forceinline__ int dec(unsigned u) { return (int)(u ^ 0x80000000u); }
 
-__global__ void cb_keys(const uint8_t* __restrict__ occ, const int* __restrict__ tgt,
-                        const int* __restrict__ crow, int nk, int n_rows, int nb, int wlen,
-                        int* __restrict__ key) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= nk) return;
-  int row = min(max(crow[p], 0), n_rows - 1);
-  key[p] = occ[p] ? row * nb + floormod(floordiv(tgt[p], wlen), nb) : n_rows * nb;
-}
-
-__global__ void cb_init(const int* __restrict__ key_s, int nk, int rb, int* __restrict__ seg_ws,
-                        int* __restrict__ seg_sum) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nk) return;
-  int key = key_s[i];
-  if (key < rb && (i == 0 || key_s[i - 1] != key)) {
-    seg_ws[i] = INT_MIN;
-    seg_sum[i] = 0;
+// The cell's one write, set-if-newer: `newest` is its newest target, `sum`
+// the wrapping acquire of the borrows that target it, `old_ws`/`old_pass`
+// the slab cell as it was.
+__device__ __forceinline__ void slab_apply(const CbArgs& a, unsigned cell, int newest, int sum, int old_ws,
+                                           int old_pass) {
+  if (newest == old_ws) {
+    a.fut_pass[cell] = wrap_add(old_pass, sum);
+  } else if (newest > old_ws) {
+    a.fut_pass[cell] = sum;
+    a.fut_ws[cell] = newest;
   }
 }
 
-__global__ void cb_max(const int* __restrict__ key_s, const int64_t* __restrict__ perm,
-                       const int* __restrict__ tgt, int nk, int rb, int* __restrict__ head,
-                       int* __restrict__ seg_ws) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int key = i < nk ? key_s[i] : rb;
-  bool act = i < nk && key < rb;
-  unsigned am = __ballot_sync(FULL_MASK, act);
+// ---------------------------------------------------------------------------
+// one block: n * k <= small_max
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory: p2n keys, p2n ints, p2n positions (p2n: n * k to
+// a power of two).
+__global__ void __launch_bounds__(SMALL_THREADS) cb_small(CbArgs a, int p2n) {
+  constexpr int NT = SMALL_THREADS;
+  extern __shared__ u64 cb_key[];
+  int* pre = reinterpret_cast<int*>(cb_key + p2n);
+  unsigned short* val = reinterpret_cast<unsigned short*>(pre + p2n);
+  __shared__ int cnt;
+  __shared__ int2 warp_tot[NT / 32];
+  const int nk = a.n * a.k;
+  if (threadIdx.x == 0) cnt = 0;
+  __syncthreads();
+  for (int p = threadIdx.x; p < nk; p += NT)
+    if (a.occ[p]) {
+      int i = atomicAdd(&cnt, 1);
+      cb_key[i] = ((u64)slab_cell(a, p) << 32) | enc(a.tgt[p]);
+      val[i] = (unsigned short)p;
+    }
+  __syncthreads();
+  const int m = cnt;
+  if (m == 0) return;
+  int p2 = 1;
+  while (p2 < m) p2 <<= 1;
+  for (int i = m + threadIdx.x; i < p2; i += NT) {
+    cb_key[i] = SENTINEL;
+    val[i] = 0xffff;
+  }
+  __syncthreads();
+  bitonic_sort_pairs(cb_key, val, p2);
+  // The wrapping prefix of the acquires in sorted order, and the start of
+  // each (cell, target) run.
+  const int ipt = (m + NT - 1) / NT;
+  const int j0 = min((int)threadIdx.x * ipt, m), j1 = min(j0 + ipt, m);
+  int local = 0, head_max = -1;
+  for (int j = j0; j < j1; ++j) {
+    local = wrap_add(local, a.acq[val[j] / a.k]);
+    if (j == 0 || cb_key[j - 1] != cb_key[j]) head_max = j;
+  }
+  int2 total;
+  int run = block_exclusive_scan<SumOp, NT>(make_int2(local, 0), warp_tot, total).x;
+  int head = block_exclusive_scan<MaxOp, NT>(make_int2(head_max, 0), warp_tot, total).x;
+  for (int j = j0; j < j1; ++j) {
+    pre[j] = run;
+    run = wrap_add(run, a.acq[val[j] / a.k]);
+  }
+  __syncthreads();
+  for (int j = j0; j < j1; ++j) {
+    if (j == 0 || cb_key[j - 1] != cb_key[j]) head = j;
+    unsigned cell = (unsigned)(cb_key[j] >> 32);
+    if (j + 1 < m && (unsigned)(cb_key[j + 1] >> 32) == cell) continue;  // not the cell's newest target
+    int incl = wrap_add(pre[j], a.acq[val[j] / a.k]);
+    slab_apply(a, cell, dec((unsigned)cb_key[j]), wrap_sub(incl, pre[head]), a.fut_ws[cell], a.fut_pass[cell]);
+  }
+}
+
+int cb_small_launch(const CbArgs& a, int nk, cudaStream_t st) {
+  int p2n = 1;
+  while (p2n < nk) p2n <<= 1;
+  size_t smem = (sizeof(u64) + sizeof(int) + sizeof(unsigned short)) * (size_t)p2n;
+  // A block asks for more than the default 48 KB, which the static arrays
+  // share with the dynamic bytes.
+  if (smem > 40 * 1024) {
+    int err = (int)cudaFuncSetAttribute(cb_small, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+  }
+  cb_small<<<1, SMALL_THREADS, smem, st>>>(a, p2n);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// many blocks: any n * k, the two arrays in the zeroed scratch
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ bool lane_leads(unsigned grp) { return (threadIdx.x & 31) == __ffs(grp) - 1; }
+
+__global__ void __launch_bounds__(THREADS) cb_max(CbArgs a, u64* __restrict__ cmax) {
+  const int p = blockIdx.x * THREADS + threadIdx.x;
+  const bool act = p < a.n * a.k && a.occ[p];
+  const unsigned am = __ballot_sync(FULL_MASK, act);
   if (!act) return;
-  int h = (i == 0 || key_s[i - 1] != key) ? i : lower_bound_i32(key_s, i, key);
-  head[i] = h;
-  unsigned grp = __match_any_sync(am, h);
-  int m = __reduce_max_sync(grp, tgt[perm[i]]);
-  if ((threadIdx.x & 31) == __ffs(grp) - 1) atomicMax(&seg_ws[h], m);
+  const unsigned cell = slab_cell(a, p);
+  const unsigned grp = __match_any_sync(am, cell);
+  const unsigned m = __reduce_max_sync(grp, enc(a.tgt[p]));
+  if (lane_leads(grp)) atomicMax(&cmax[cell], ((u64)m << 32) | 1u);
 }
 
-__global__ void cb_sum(const int* __restrict__ key_s, const int64_t* __restrict__ perm,
-                       const int* __restrict__ tgt, const int* __restrict__ acq, int nk, int k, int rb,
-                       const int* __restrict__ head, const int* __restrict__ seg_ws,
-                       int* __restrict__ seg_sum) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int h = 0, a = 0;
+__global__ void __launch_bounds__(THREADS) cb_sum(CbArgs a, const u64* __restrict__ cmax, int* __restrict__ csum) {
+  const int p = blockIdx.x * THREADS + threadIdx.x;
+  unsigned cell = 0;
   bool act = false;
-  if (i < nk && key_s[i] < rb) {
-    int64_t p = perm[i];
-    h = head[i];
-    act = tgt[p] == seg_ws[h];  // only borrows of the newest window count
-    a = acq[p / k];
+  if (p < a.n * a.k && a.occ[p]) {
+    cell = slab_cell(a, p);
+    act = (unsigned)(cmax[cell] >> 32) == enc(a.tgt[p]);  // only borrows of the newest window count
   }
-  unsigned am = __ballot_sync(FULL_MASK, act);
+  const unsigned am = __ballot_sync(FULL_MASK, act);
   if (!act) return;
-  unsigned grp = __match_any_sync(am, h);
-  int s = __reduce_add_sync(grp, a);
-  if ((threadIdx.x & 31) == __ffs(grp) - 1) atomicAdd(&seg_sum[h], s);
+  const unsigned grp = __match_any_sync(am, cell);
+  const unsigned s = __reduce_add_sync(grp, (unsigned)a.acq[p / a.k]);
+  if (lane_leads(grp)) atomicAdd(&csum[cell], (int)s);
 }
 
-__global__ void cb_write(const int* __restrict__ key_s, int nk, int rb, const int* __restrict__ seg_ws,
-                         const int* __restrict__ seg_sum, int* __restrict__ fut_pass,
-                         int* __restrict__ fut_ws) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nk) return;
-  int key = key_s[i];
-  if (key >= rb || (i > 0 && key_s[i - 1] == key)) return;
-  // key = row * B + bucket is the flat index of the slab cell.
-  int old = fut_ws[key];
-  if (seg_ws[i] == old) {
-    fut_pass[key] = wrap_add(fut_pass[key], seg_sum[i]);
-  } else if (seg_ws[i] > old) {
-    fut_pass[key] = seg_sum[i];
-    fut_ws[key] = seg_ws[i];
-  }
+__global__ void __launch_bounds__(THREADS) cb_write(CbArgs a, u64* __restrict__ cmax, int* __restrict__ csum) {
+  const int p = blockIdx.x * THREADS + threadIdx.x;
+  const bool act = p < a.n * a.k && a.occ[p];
+  const unsigned am = __ballot_sync(FULL_MASK, act);
+  if (!act) return;
+  const unsigned cell = slab_cell(a, p);
+  const unsigned grp = __match_any_sync(am, cell);
+  if (!lane_leads(grp)) return;
+  // Everything the writer reads is final: loaded beside the election, one
+  // round trip.
+  const int sum = csum[cell], old_ws = a.fut_ws[cell], old_pass = a.fut_pass[cell];
+  const u64 top = atomicExch(&cmax[cell], 0ull);
+  if (top == 0) return;  // another slot of the cell took it: that one writes
+  csum[cell] = 0;
+  slab_apply(a, cell, dec((unsigned)(top >> 32)), sum, old_ws, old_pass);
 }
-
-inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
 
 }  // namespace
 
 extern "C" {
 
-// Step 1: slab keys of the [nk] borrow slots.
-int commit_borrow_keys(const uint8_t* occ, const int* tgt, const int* crow, int nk, int n_rows, int nb,
-                       int wlen, int* key, void* stream) {
-  if (nk <= 0) return 0;
-  if (wlen <= 0 || nb <= 0) return (int)cudaErrorInvalidValue;
-  cb_keys<<<blocks_for(nk), THREADS, 0, (cudaStream_t)stream>>>(occ, tgt, crow, nk, n_rows, nb, wlen, key);
-  return (int)cudaGetLastError();
-}
+// Bytes of the zeroed scratch commit_borrow needs over an [n_rows, nb] slab
+// (its many-block route): the 64-bit cells and the int32 sums.
+long long commit_borrow_zero_bytes(int n_rows, int nb) { return 12ll * n_rows * nb; }
 
-// Steps 3-6 over the sorted keys. Scratch: head, seg_ws, seg_sum [nk].
-// The slab is updated in place.
-int commit_borrow_apply(const int* key_s, const int64_t* perm, const int* tgt, const int* acq, int nk, int k,
-                        int rb, int* head, int* seg_ws, int* seg_sum, int* fut_pass, int* fut_ws,
-                        void* stream) {
+// One borrow commit (see the header); `args` is read on the host. `zero`:
+// commit_borrow_zero_bytes bytes that are zero, used by the many-block
+// route and left zero. Returns a CUDA error code, or -1 when that route
+// lacks its zeroed bytes (no launch).
+int commit_borrow(const CbArgs* args, void* zero, long long zero_bytes, cudaStream_t st) {
+  const CbArgs a = *args;
+  const long long nk = (long long)a.n * a.k;
   if (nk <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  int g = blocks_for(nk);
-  cb_init<<<g, THREADS, 0, st>>>(key_s, nk, rb, seg_ws, seg_sum);
-  cb_max<<<g, THREADS, 0, st>>>(key_s, perm, tgt, nk, rb, head, seg_ws);
-  cb_sum<<<g, THREADS, 0, st>>>(key_s, perm, tgt, acq, nk, k, rb, head, seg_ws, seg_sum);
-  cb_write<<<g, THREADS, 0, st>>>(key_s, nk, rb, seg_ws, seg_sum, fut_pass, fut_ws);
-  return (int)cudaGetLastError();
+  const long long rb = (long long)a.n_rows * a.nb;
+  if (nk >= (1 << 28) || a.k <= 0 || a.n_rows <= 0 || a.nb <= 0 || a.wlen <= 0 || rb >= (1ll << 31) || a.small_max < 0 ||
+      a.small_max > SMALL_CAP)
+    return (int)cudaErrorInvalidValue;
+  if (nk <= a.small_max) return cb_small_launch(a, (int)nk, st);
+  if (zero == nullptr || zero_bytes < 12 * rb) return -1;
+  u64* cmax = (u64*)zero;
+  int* csum = (int*)(cmax + rb);
+  const int g = blocks_for((int)nk);
+  cb_max<<<g, THREADS, 0, st>>>(a, cmax);
+  int err = (int)cudaGetLastError();
+  if (!err) {
+    cb_sum<<<g, THREADS, 0, st>>>(a, cmax, csum);
+    err = (int)cudaGetLastError();
+  }
+  if (!err) {
+    cb_write<<<g, THREADS, 0, st>>>(a, cmax, csum);
+    err = (int)cudaGetLastError();
+  }
+  if (err) cudaMemsetAsync(zero, 0, (size_t)(12 * rb), st);
+  return err;
 }
 
 }  // extern "C"

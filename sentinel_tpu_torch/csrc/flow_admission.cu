@@ -28,14 +28,32 @@
 //   weights live in a buffer the caller keeps zeroed, which fa_topk zeroes
 //   again as it reads it: no memset.
 //
-// flow_admission_chain_verdict is the slot chain's verdict after the
-// breakers (fa_chain, then fa_topk).
+// chain_verdict is the slot chain's verdict tail after the breakers (the
+// port of flush_entries :790-845 of the JAX module with
+// degrade_table.py:apply_probe_transitions and the blocked top-K of
+// :879-897), one C call per flush, its arguments in one CvArgs:
 //
-// What bounds it: launches and host calls, not bytes. Per slot it reads
+// - n <= small_max entries: one launch of one block (cv_small) decides
+//   every entry, then takes the top-K among the touched rows as the
+//   DEFAULT tail does (small_topk, the same code): no dense array, no
+//   memset;
+// - more entries: cv_entry decides one entry a thread and adds each
+//   blocked acquire into a 64-bit cell per row in the zeroed scratch
+//   (warp-combined): the cell is nonzero exactly when a blocked entry
+//   touched the row, whatever the wrapping int32 sum in its low half, so
+//   the add that finds it zero pushes the row onto a list; the last block
+//   notes the k lowest untouched rows. cv_topk reads only the listed rows,
+//   zeroes each cell and list slot it read, and its last block merges the
+//   blocks' candidates with those rows and zeroes the rest. No read of
+//   the R rows, no memset; a call that fails after the first launch
+//   memsets what it may have written.
+//
+// What bounds it: launches and host calls, not bytes. Per slot K4 reads
 // about 40 B of batch and rule table plus two buckets of the window (about
 // 64 B with occupy) and writes a byte of verdict; the sort moves 12 B a
-// slot per pass. The design is one host call, one launch for small
-// batches, and few launches beside the sort's for large ones.
+// slot per pass. The tail reads some 20 B an entry and writes 11. The
+// design is one host call, one launch for small batches, and few launches
+// beside the sort's for large ones.
 //
 // Numerics: no fast-math. The QPS compare is
 // floor((float)(pass + charge) / interval_sec) + (float)acquire <= count,
@@ -88,6 +106,39 @@ struct FaArgs {
   float interval_sec;
 };
 
+// Everything one chain_verdict call reads and writes (null = absent: no
+// system stage, no param stage, no shaping, no occupy, no borrows, no
+// breakers, no probe transitions); runtime/flush.py fills the same layout
+// (_CvArgs: pointers first, then the ints).
+struct CvArgs {
+  const uint8_t* e_valid;       // [n]
+  const uint8_t* e_auth;
+  const uint8_t* e_cluster;
+  const int* e_acq;
+  const int* e_rows;            // [n, 4]
+  const int* e_dgid;            // [n, kd]
+  const uint8_t* sys_ok;        // [n] system verdicts
+  const uint8_t* param_ok;      // [n] param verdicts, with wait_param [n]
+  const int* wait_param;
+  const int* shape_wait;        // [n] (flow_pass then holds the shaping verdicts)
+  const uint8_t* flow_pass;     // [n]
+  const uint8_t* occupied_raw;  // [n] with occupy_wait [n]
+  const int* occupy_wait;
+  const uint8_t* occ_slot_in;   // [n, k] the borrowing slots
+  const uint8_t* dslot_ok;      // [n, kd] with probe_slot [n, kd]
+  const uint8_t* probe_slot;
+  int* state;                   // [nd] breaker states (the probe transitions)
+  uint8_t* admitted;            // [n]
+  uint8_t* flow_live;
+  uint8_t* occupied;            // occupied and admitted
+  uint8_t* occ_slot;            // [n, k] gated on occupied and admitted
+  int* reason;                  // [n]
+  int* wait_ms;
+  int* blk_w;                   // [topk]
+  int* blk_r;
+  int n, k, kd, n_rows, topk, small_max;
+};
+
 namespace {
 
 constexpr int KMAX = 8;                // top-K capacity
@@ -107,8 +158,8 @@ constexpr int SMALL_IPT = SMALL_MAX / THREADS;
 // batch gives 256 tiles, two blocks an SM to hide the window reads.
 constexpr int FA_IPT = 2;
 constexpr int FA_TILE = THREADS * FA_IPT;
-// The zeroed buffer of the top-K: a counter, the per-block candidates,
-// then the dense weights of the rows.
+// The zeroed buffer of the top-K: a counter, the per-block candidates (one
+// 64-bit key each), then the dense weights of the rows.
 constexpr int TOPK_MAX_BLOCKS = 1024;
 constexpr int TOPK_CAND = 32;
 constexpr int TOPK_DENSE = TOPK_CAND + 2 * TOPK_MAX_BLOCKS * KMAX;
@@ -256,8 +307,8 @@ __device__ void decide_slots(const FaArgs& a, const u64* ks, const V* vs, int nk
 }
 
 // The DEFAULT verdict of entry e: the AND over its slots, the admission
-// (valid, authority, token server) and the reason.
-__device__ __forceinline__ void entry_verdict(const FaArgs& a, int e) {
+// (valid, authority, token server) and the reason. Returns the admission.
+__device__ __forceinline__ bool entry_verdict(const FaArgs& a, int e) {
   bool fp = true;
   for (int j = 0; j < a.k; ++j) fp = fp && a.slot_ok[(int64_t)e * a.k + j];
   a.flow_pass[e] = fp ? 1 : 0;
@@ -270,13 +321,7 @@ __device__ __forceinline__ void entry_verdict(const FaArgs& a, int e) {
   if (adm) r = REASON_PASS;
   a.admitted[e] = adm ? 1 : 0;
   a.reason[e] = r;
-}
-
-// Entry e's blocked acquire (0 unless it is valid, not admitted, and
-// acquires), after its verdict; `row` gets its clamped cluster row.
-__device__ __forceinline__ int blocked_weight(const FaArgs& a, int e, int& row) {
-  row = clampi(a.e_rows[(int64_t)e * 4 + 1], 0, a.n_rows - 1);
-  return (a.e_valid[e] && !a.admitted[e] && a.e_acq[e] > 0) ? a.e_acq[e] : 0;
+  return adm;
 }
 
 // The slot chain's per-entry fold: AND over the slots; with occupy, OR of
@@ -299,135 +344,180 @@ __device__ __forceinline__ void entry_fold(const FaArgs& a, int e, const int* oc
   }
 }
 
-// (w1, r1) ranks before (w2, r2): heavier first, lower row on a tie.
-__device__ __forceinline__ bool better(int w1, int r1, int w2, int r2) {
-  return w1 > w2 || (w1 == w2 && r1 < r2);
+// ---------------------------------------------------------------------------
+// the blocked top-K (the DEFAULT tail's and the slot chain's)
+// ---------------------------------------------------------------------------
+
+// An entry's blocked acquire (0 unless it is valid, not admitted and
+// acquires), and in `row` its cluster row (e_rows column 1) clamped.
+__device__ __forceinline__ int blocked_weight(bool valid, bool adm, int acq, const int* e_rows, int e, int n_rows,
+                                              int& row) {
+  row = clampi(e_rows[(int64_t)e * 4 + 1], 0, n_rows - 1);
+  return (valid && !adm && acq > 0) ? acq : 0;
 }
 
-__device__ __forceinline__ void list_init(int* lw, int* lr) {
+// A candidate (weight w, row r >= 0) as one 64-bit key that is larger
+// exactly when it ranks first in lax.top_k: heavier first, the lower row on
+// a tie. Every candidate's key is nonzero; 0 marks an empty place.
+__device__ __forceinline__ u64 cand_key(int w, int r) {
+  return ((u64)((unsigned)w ^ 0x80000000u) << 32) | (unsigned)~r;
+}
+__device__ __forceinline__ int cand_w(u64 key) { return (int)((unsigned)(key >> 32) ^ 0x80000000u); }
+__device__ __forceinline__ int cand_r(u64 key) { return (int)~(unsigned)key; }
+
+__device__ __forceinline__ void list_init(u64* l) {
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) { lw[j] = INT_MIN; lr[j] = INT_MAX; }
+  for (int j = 0; j < KMAX; ++j) l[j] = 0;
 }
 
 // The list holds the best KMAX in order (registers: every index is static);
 // the top k <= KMAX is its prefix.
-__device__ __forceinline__ void list_insert(int* lw, int* lr, int w, int r) {
-  if (!better(w, r, lw[KMAX - 1], lr[KMAX - 1])) return;
+__device__ __forceinline__ void list_insert(u64* l, u64 key) {
+  if (key <= l[KMAX - 1]) return;
 #pragma unroll
   for (int j = 0; j < KMAX; ++j) {
-    if (better(w, r, lw[j], lr[j])) {
-      int tw = lw[j], tr = lr[j];
-      lw[j] = w;
-      lr[j] = r;
-      w = tw;
-      r = tr;
+    if (key > l[j]) {
+      u64 t = l[j];
+      l[j] = key;
+      key = t;
     }
   }
 }
 
-// Merge the block's per-thread lists (in shared memory) into list 0.
-__device__ void block_merge(int* sw, int* sr) {
-  int t = threadIdx.x;
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      int aw[KMAX], ar[KMAX];
+// The warp's best KMAX of its lanes' lists, best first, into every lane's
+// `out`: KMAX rounds of a warp-wide max of the lists' heads, the lane that
+// holds the round's best popping it (candidates' keys are distinct).
+__device__ __forceinline__ void warp_top(u64* l, u64* out) {
 #pragma unroll
-      for (int j = 0; j < KMAX; ++j) { aw[j] = sw[t * KMAX + j]; ar[j] = sr[t * KMAX + j]; }
+  for (int j = 0; j < KMAX; ++j) {
+    const u64 head = l[0];
+    const unsigned hi = __reduce_max_sync(FULL_MASK, (unsigned)(head >> 32));
+    const unsigned lo = __reduce_max_sync(FULL_MASK, (unsigned)(head >> 32) == hi ? (unsigned)head : 0u);
+    const u64 best = ((u64)hi << 32) | lo;
+    out[j] = best;
+    if (best != 0 && head == best) {
 #pragma unroll
-      for (int j = 0; j < KMAX; ++j) list_insert(aw, ar, sw[(t + s) * KMAX + j], sr[(t + s) * KMAX + j]);
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j) { sw[t * KMAX + j] = aw[j]; sr[t * KMAX + j] = ar[j]; }
+      for (int q = 0; q + 1 < KMAX; ++q) l[q] = l[q + 1];
+      l[KMAX - 1] = 0;
     }
-    __syncthreads();
   }
 }
 
-// Every thread's list into shared memory, merged; list 0 holds the best.
-__device__ void lists_merge(int* sw, int* sr, const int* lw, const int* lr) {
+// The best KMAX of every thread's list in a block of NT threads, into
+// s[0, KMAX) (s: NT / 32 * KMAX keys of shared memory): each warp's best,
+// then warp 0's pick among them.
+template <int NT>
+__device__ void block_top(u64* l, u64* s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  u64 best[KMAX];
+  warp_top(l, best);
+  if (lane == 0) {
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) { sw[threadIdx.x * KMAX + j] = lw[j]; sr[threadIdx.x * KMAX + j] = lr[j]; }
+    for (int j = 0; j < KMAX; ++j) s[warp * KMAX + j] = best[j];
+  }
   __syncthreads();
-  block_merge(sw, sr);
+  if (warp == 0) {
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) l[j] = lane < NT / 32 ? s[lane * KMAX + j] : 0;
+    warp_top(l, best);
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) s[j] = best[j];
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void write_top(const u64* best, int k, int* out_w, int* out_r) {
+  if (threadIdx.x < k) {
+    out_w[threadIdx.x] = cand_w(best[threadIdx.x]);
+    out_r[threadIdx.x] = cand_r(best[threadIdx.x]);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// one block: n * k <= SMALL_MAX
+// one block
 // ---------------------------------------------------------------------------
+
+// The wrapping sum of the blocked acquire per cluster row (index_add_'s), in
+// a hash table in shared memory: open addressing with linear probing, a
+// capacity that is a power of two at least twice the entries. A row is
+// touched exactly when it holds a place, whatever its sum.
+struct RowTable {
+  int* key;      // [1 << bits] the row, -1 = empty
+  int* sum;      // [1 << bits]
+  int* touched;  // the rows that hold a place
+  int bits;      // >= 1
+
+  __device__ __forceinline__ unsigned home(int row) const { return ((unsigned)row * 2654435761u) >> (32 - bits); }
+  __device__ __forceinline__ unsigned mask() const { return (1u << bits) - 1; }
+
+  template <int NT>
+  __device__ void clear() const {
+    for (int i = threadIdx.x; i < (1 << bits); i += NT) {
+      key[i] = -1;
+      sum[i] = 0;
+    }
+    if (threadIdx.x == 0) *touched = 0;
+  }
+
+  __device__ void add(int row, int w) const {
+    for (unsigned h = home(row);; h = (h + 1) & mask()) {
+      int prev = atomicCAS(&key[h], -1, row);
+      if (prev == -1) atomicAdd(touched, 1);
+      if (prev == -1 || prev == row) {
+        atomicAdd(&sum[h], w);
+        return;
+      }
+    }
+  }
+
+  __device__ bool has(int row) const {
+    for (unsigned h = home(row);; h = (h + 1) & mask()) {
+      if (key[h] == row) return true;
+      if (key[h] < 0) return false;
+    }
+  }
+};
+
+// Bits of the table's capacity for n entries: twice n to a power of two.
+__host__ __device__ inline int table_bits(int n) {
+  int b = 1;
+  while ((1 << b) < 2 * n) ++b;
+  return b;
+}
 
 // The top-K of the blocked acquire per cluster row, as lax.top_k over the
-// dense [R] weights takes it, without the dense array: the blocked entries
-// sorted by (row, entry) give each touched row's wrapping sum (index_add_'s)
-// at its last entry; every row that is not touched weighs 0, and the k
-// lowest of them lie below k + (touched rows), so those rows are the only
-// other candidates. `key` holds SMALL_MAX keys and is reused as the merge
-// lists; `pre` holds SMALL_MAX ints. The entries' verdicts are in place.
-__device__ void small_topk(const FaArgs& a, u64* key, int* pre) {
-  int p2 = 1;
-  while (p2 < a.n) p2 <<= 1;
-  for (int e = threadIdx.x; e < p2; e += THREADS) {
-    int row = 0;
-    int w = e < a.n ? blocked_weight(a, e, row) : 0;
-    key[e] = w > 0 ? (((u64)(unsigned)row << 32) | (unsigned)e) : SENTINEL;
-  }
-  __syncthreads();
-  bitonic_sort(key, p2);
-  const int ipt = (p2 + THREADS - 1) / THREADS;
-  const int j0 = threadIdx.x * ipt;
-  __shared__ int2 warp_tot[NWARPS];
-  int2 total;
-  // The wrapping prefix of the sorted weights, and the running max of the
-  // run starts.
-  int local = 0, head_max = -1;
-  for (int q = 0; q < ipt; ++q) {
-    int j = j0 + q;
-    if (j < p2 && key[j] != SENTINEL) {
-      local = wrap_add(local, a.e_acq[(unsigned)key[j]]);
-      if (j == 0 || key_row(key[j - 1]) != key_row(key[j])) head_max = j;
-    }
-  }
-  int run = block_exclusive_scan<SumOp>(make_int2(local, 0), warp_tot, total).x;
-  int head = block_exclusive_scan<MaxOp>(make_int2(head_max, 0), warp_tot, total).x;
-  for (int q = 0; q < ipt; ++q) {
-    int j = j0 + q;
-    if (j < p2) pre[j] = run;
-    if (j < p2 && key[j] != SENTINEL) run = wrap_add(run, a.e_acq[(unsigned)key[j]]);
-  }
-  __syncthreads();
-  int lw[KMAX], lr[KMAX];
-  list_init(lw, lr);
-  int touched = 0;
-  for (int q = 0; q < ipt; ++q) {
-    int j = j0 + q;
-    if (j >= p2 || key[j] == SENTINEL) continue;
-    int r = key_row(key[j]);
-    if (j == 0 || key_row(key[j - 1]) != r) head = j;
-    if (j + 1 == p2 || key_row(key[j + 1]) != r) {  // the run's last entry
-      int incl = wrap_add(pre[j], a.e_acq[(unsigned)key[j]]);
-      list_insert(lw, lr, wrap_sub(incl, pre[head]), r);
-      ++touched;
-    }
-  }
-  block_exclusive_scan<SumOp>(make_int2(touched, 0), warp_tot, total);
-  int fill = min(a.n_rows, a.topk + total.x);
-  for (int r = threadIdx.x; r < fill; r += THREADS) {
-    int j = lower_bound(key, p2, (u64)(unsigned)r << 32);
-    if (j == p2 || key_row(key[j]) != r) list_insert(lw, lr, 0, r);
-  }
-  __syncthreads();  // the keys are read; their memory becomes the lists
-  int* sw = reinterpret_cast<int*>(key);
-  lists_merge(sw, sw + THREADS * KMAX, lw, lr);
-  if (threadIdx.x < a.topk) {
-    a.blk_w[threadIdx.x] = sw[threadIdx.x];
-    a.blk_r[threadIdx.x] = sw[THREADS * KMAX + threadIdx.x];
-  }
+// dense [R] weights takes it, without the dense array: every row in the
+// table (filled, after a barrier) with its sum; every row that is not
+// touched weighs 0, and the k lowest of them lie below k + (touched rows),
+// so those rows are the only other candidates.
+template <int NT>
+__device__ void small_topk(const RowTable& t, int n_rows, int topk, int* out_w, int* out_r) {
+  __shared__ u64 s[NT / 32 * KMAX];
+  u64 l[KMAX];
+  list_init(l);
+  for (int i = threadIdx.x; i < (1 << t.bits); i += NT)
+    if (t.key[i] >= 0) list_insert(l, cand_key(t.sum[i], t.key[i]));
+  const int fill = min(n_rows, topk + *t.touched);
+  for (int r = threadIdx.x; r < fill; r += NT)
+    if (!t.has(r)) list_insert(l, cand_key(0, r));
+  block_top<NT>(l, s);
+  write_top(s, topk, out_w, out_r);
 }
+
+// The slots' keys, positions and borrowing waits; on the DEFAULT tail the
+// same bytes then hold the row table (n <= SMALL_MAX entries).
+constexpr int SMALL_BYTES = 2 * 2 * SMALL_MAX * sizeof(int);
+static_assert(SMALL_MAX * (sizeof(u64) + sizeof(unsigned short) + sizeof(int)) <= SMALL_BYTES, "the slots fit");
 
 template <bool TAIL>
 __global__ void __launch_bounds__(THREADS) fa_small(FaArgs a) {
-  __shared__ u64 key[SMALL_MAX];
-  __shared__ unsigned short val[SMALL_MAX];
-  __shared__ int aux[SMALL_MAX];  // the borrowing slots' waits; on the tail the top-K's prefix
-  static_assert(2 * THREADS * KMAX * sizeof(int) <= sizeof(key), "the merge lists reuse the keys");
+  __shared__ __align__(16) unsigned char smem[SMALL_BYTES];
+  __shared__ int touched;
+  u64* key = reinterpret_cast<u64*>(smem);
+  unsigned short* val = reinterpret_cast<unsigned short*>(key + SMALL_MAX);
+  int* aux = reinterpret_cast<int*>(val + SMALL_MAX);
   const int nk = a.n * a.k;
   int p2 = 1;
   while (p2 < nk) p2 <<= 1;
@@ -445,10 +535,20 @@ __global__ void __launch_bounds__(THREADS) fa_small(FaArgs a) {
     for (int e = threadIdx.x; e < a.n; e += THREADS) entry_fold(a, e, aux);
     return;
   }
-  for (int e = threadIdx.x; e < a.n; e += THREADS) entry_verdict(a, e);
+  const int bits = table_bits(a.n);
+  const RowTable t{reinterpret_cast<int*>(smem), reinterpret_cast<int*>(smem) + (1 << bits), &touched, bits};
+  if (a.topk > 0) {
+    t.clear<THREADS>();
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < a.n; e += THREADS) {
+    bool adm = entry_verdict(a, e);
+    int row, w = blocked_weight(a.e_valid[e], adm, a.e_acq[e], a.e_rows, e, a.n_rows, row);
+    if (a.topk > 0 && w > 0) t.add(row, w);
+  }
   if (a.topk == 0) return;
   __syncthreads();
-  small_topk(a, key, aux);
+  small_topk<THREADS>(t, a.n_rows, a.topk, a.blk_w, a.blk_r);
 }
 
 // ---------------------------------------------------------------------------
@@ -496,8 +596,8 @@ __global__ void fa_verdict(FaArgs a, int* __restrict__ dense) {
   int e = blockIdx.x * blockDim.x + threadIdx.x;
   int w = 0, row = -1;
   if (e < a.n) {
-    entry_verdict(a, e);
-    w = blocked_weight(a, e, row);
+    bool adm = entry_verdict(a, e);
+    w = blocked_weight(a.e_valid[e], adm, a.e_acq[e], a.e_rows, e, a.n_rows, row);
   }
   if (dense != nullptr) scatter_blocked(w, row, dense);
 }
@@ -507,87 +607,20 @@ __global__ void fa_entry(FaArgs a, const int* __restrict__ occ_wait) {
   if (e < a.n) entry_fold(a, e, occ_wait);
 }
 
-// The slot chain's verdict (flush_entries :700-845 of the JAX module).
-// Null inputs: sys_ok (no system stage), param_ok/wait_param (no hot
-// parameters), shape_wait (no shaping; flow_pass then has no shaping
-// verdicts either), occupied/occupy_wait (no occupy),
-// dslot_ok/probe_slot/state (no breakers), occ_slot (no borrows).
-__global__ void fa_chain(int n, int k, int kd, int n_rows, const uint8_t* __restrict__ e_valid,
-                         const uint8_t* __restrict__ e_auth, const uint8_t* __restrict__ sys_ok,
-                         const uint8_t* __restrict__ flow_pass, const uint8_t* __restrict__ e_cluster,
-                         const uint8_t* __restrict__ occupied_raw, const int* __restrict__ occupy_wait,
-                         const uint8_t* __restrict__ dslot_ok, const uint8_t* __restrict__ probe_slot,
-                         const int* __restrict__ e_dgid, int* __restrict__ state,
-                         uint8_t* __restrict__ occ_slot, const uint8_t* __restrict__ param_ok,
-                         const int* __restrict__ wait_param, const int* __restrict__ shape_wait,
-                         const int* __restrict__ e_acq,
-                         const int* __restrict__ e_rows, uint8_t* __restrict__ admitted,
-                         int* __restrict__ reason, int* __restrict__ wait_ms,
-                         uint8_t* __restrict__ flow_live, uint8_t* __restrict__ occupied,
-                         int* __restrict__ dense) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
-  int w = 0, row = -1;
-  if (e < n) {
-    bool valid = e_valid[e], auth = e_auth[e];
-    bool sys = sys_ok == nullptr || sys_ok[e];
-    bool par = param_ok == nullptr || param_ok[e];
-    bool live = valid && auth && sys && par;
-    bool fp = flow_pass[e] && e_cluster[e];
-    bool live2 = live && fp;
-    bool occ = occupied_raw != nullptr && occupied_raw[e] && live;
-    int wait = occ ? max(0, occupy_wait[e]) : 0;
-    if (shape_wait != nullptr) wait = max(wait, shape_wait[e]);
-    if (!live2) wait = 0;
-    // Occupied entries skip the breakers: PriorityWaitException aborts
-    // the chain before DegradeSlot.
-    bool deg = true;
-    if (dslot_ok != nullptr)
-      for (int j = 0; j < kd; ++j) deg = deg && dslot_ok[(int64_t)e * kd + j];
-    deg = deg || (occ && live2);
-    bool adm = live2 && deg;
-    if (wait_param != nullptr && adm) wait = max(wait, wait_param[e]);
-    if (state != nullptr && adm && !occ) {
-      for (int j = 0; j < kd; ++j)  // apply_probe_transitions: one probe per breaker
-        if (probe_slot[(int64_t)e * kd + j]) state[e_dgid[(int64_t)e * kd + j]] = BREAKER_HALF_OPEN;
-    }
-    int r = REASON_PASS;
-    if (valid && !deg) r = REASON_BLOCK_DEGRADE;
-    if (valid && !fp) r = REASON_BLOCK_FLOW;
-    if (valid && !par) r = REASON_BLOCK_PARAM;
-    if (valid && !sys) r = REASON_BLOCK_SYSTEM;
-    if (valid && !auth) r = REASON_BLOCK_AUTHORITY;
-    if (adm) r = REASON_PASS;
-    bool occ_final = occ && adm;
-    if (occ_slot != nullptr && !occ_final)
-      for (int j = 0; j < k; ++j) occ_slot[(int64_t)e * k + j] = 0;
-    admitted[e] = adm ? 1 : 0;
-    reason[e] = r;
-    wait_ms[e] = wait;
-    flow_live[e] = live2 ? 1 : 0;
-    occupied[e] = occ_final ? 1 : 0;
-    if (valid && !adm && e_acq[e] > 0) {
-      w = e_acq[e];
-      row = clampi(e_rows[(int64_t)e * 4 + 1], 0, n_rows - 1);
-    }
-  }
-  if (dense != nullptr) scatter_blocked(w, row, dense);
-}
-
 // The top-K (k <= KMAX) of the dense weights by weight descending, row
 // ascending, in one launch: each block keeps its k best and zeroes what it
 // read, the last block to finish merges the candidates, zeroes them and
 // resets the counter: the buffer is all zero again when it ends. `zero` is
 // the caller's zeroed buffer (TOPK_DENSE + n_rows ints).
-__global__ void fa_topk(int* __restrict__ zero, int n_rows, int k, int* __restrict__ out_w, int* __restrict__ out_r) {
-  __shared__ int sw[THREADS * KMAX];
-  __shared__ int sr[THREADS * KMAX];
+__global__ void __launch_bounds__(THREADS) fa_topk(int* __restrict__ zero, int n_rows, int k, int* __restrict__ out_w,
+                                                   int* __restrict__ out_r) {
+  __shared__ u64 s[NWARPS * KMAX];
   __shared__ bool is_last;
   int* ctl = zero;
-  int* cand_w = zero + TOPK_CAND;
-  int* cand_r = cand_w + TOPK_MAX_BLOCKS * KMAX;
+  u64* cand = reinterpret_cast<u64*>(zero + TOPK_CAND);
   int* dense = zero + TOPK_DENSE;
-  int lw[KMAX], lr[KMAX];
-  list_init(lw, lr);
+  u64 l[KMAX];
+  list_init(l);
   const int stride = gridDim.x * THREADS;
   for (int i0 = blockIdx.x * THREADS + threadIdx.x; i0 < n_rows; i0 += 4 * stride) {
     int v[4];
@@ -597,36 +630,261 @@ __global__ void fa_topk(int* __restrict__ zero, int n_rows, int k, int* __restri
     for (int u = 0; u < 4; ++u) {
       int i = i0 + u * stride;
       if (i < n_rows) {
-        list_insert(lw, lr, v[u], i);
+        list_insert(l, cand_key(v[u], i));
         if (v[u] != 0) dense[i] = 0;  // zero again for the next call
       }
     }
   }
-  lists_merge(sw, sr, lw, lr);
-  if (threadIdx.x < k) {
-    cand_w[blockIdx.x * KMAX + threadIdx.x] = sw[threadIdx.x];
-    cand_r[blockIdx.x * KMAX + threadIdx.x] = sr[threadIdx.x];
-  }
+  block_top<THREADS>(l, s);
+  if (threadIdx.x < k) cand[blockIdx.x * KMAX + threadIdx.x] = s[threadIdx.x];
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) is_last = atomicAdd(ctl, 1) == (int)gridDim.x - 1;
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  list_init(lw, lr);
+  list_init(l);
   for (int b = threadIdx.x; b < (int)gridDim.x; b += THREADS)
     for (int j = 0; j < k; ++j) {
-      int* cw = cand_w + b * KMAX + j;
-      int* cr = cand_r + b * KMAX + j;
-      list_insert(lw, lr, __ldcg(cw), __ldcg(cr));
-      *cw = *cr = 0;  // zero again: K8 takes its election cells from the same buffer
+      u64* c = cand + b * KMAX + j;
+      list_insert(l, __ldcg(c));
+      *c = 0;  // zero again: K8 takes its election cells from the same buffer
     }
-  lists_merge(sw, sr, lw, lr);
-  if (threadIdx.x < k) {
-    out_w[threadIdx.x] = sw[threadIdx.x];
-    out_r[threadIdx.x] = sr[threadIdx.x];
-  }
+  block_top<THREADS>(l, s);
+  write_top(s, k, out_w, out_r);
   if (threadIdx.x == 0) *ctl = 0;
+}
+
+// ---------------------------------------------------------------------------
+// the slot chain's verdict tail
+// ---------------------------------------------------------------------------
+
+constexpr int CV_SMALL_CAP = 8192;      // entries cv_small can take
+constexpr int CV_SMALL_THREADS = 1024;  // cv_small's block
+// The zeroed scratch of the many-block route, in ints: a header ([0]
+// cv_entry's finished blocks, [1] the list's length, [2] cv_topk's
+// finished blocks, [3, 3 + KMAX) the lowest untouched rows + 1), cv_topk's
+// per-block candidates (fa_topk's), then the 64-bit cells of the R rows
+// and the list of touched rows (min(n, R) ints).
+constexpr int CV_LOW = 3;
+static_assert(CV_LOW + KMAX <= TOPK_CAND, "the header holds the low rows");
+static_assert(TOPK_CAND % 2 == 0 && TOPK_DENSE % 2 == 0, "the 64-bit cells are aligned");
+
+// The slot chain's verdict of entry e (flush_entries :790-845 of the JAX
+// module): admission = live and flow pass and breaker pass (an occupied
+// entry skips the breakers: PriorityWaitException aborts the chain before
+// DegradeSlot), the waits, the reason with precedence authority > system >
+// param > flow > degrade, one OPEN -> HALF_OPEN per probe of an entry
+// admitted and not occupied, the borrows gated on the final admission.
+// Returns the admission.
+__device__ __forceinline__ bool chain_entry(const CvArgs& c, int e) {
+  bool valid = c.e_valid[e], auth = c.e_auth[e];
+  bool sys = c.sys_ok == nullptr || c.sys_ok[e];
+  bool par = c.param_ok == nullptr || c.param_ok[e];
+  bool live = valid && auth && sys && par;
+  bool fp = c.flow_pass[e] && c.e_cluster[e];
+  bool live2 = live && fp;
+  bool occ = c.occupied_raw != nullptr && c.occupied_raw[e] && live;
+  int wait = occ ? max(0, c.occupy_wait[e]) : 0;
+  if (c.shape_wait != nullptr) wait = max(wait, c.shape_wait[e]);
+  if (!live2) wait = 0;
+  bool deg = true;
+  if (c.dslot_ok != nullptr)
+    for (int j = 0; j < c.kd; ++j) deg = deg && c.dslot_ok[(int64_t)e * c.kd + j];
+  deg = deg || (occ && live2);
+  bool adm = live2 && deg;
+  if (c.wait_param != nullptr && adm) wait = max(wait, c.wait_param[e]);
+  if (c.state != nullptr && adm && !occ) {
+    for (int j = 0; j < c.kd; ++j)  // apply_probe_transitions: one probe per breaker
+      if (c.probe_slot[(int64_t)e * c.kd + j]) c.state[c.e_dgid[(int64_t)e * c.kd + j]] = BREAKER_HALF_OPEN;
+  }
+  int r = REASON_PASS;
+  if (valid && !deg) r = REASON_BLOCK_DEGRADE;
+  if (valid && !fp) r = REASON_BLOCK_FLOW;
+  if (valid && !par) r = REASON_BLOCK_PARAM;
+  if (valid && !sys) r = REASON_BLOCK_SYSTEM;
+  if (valid && !auth) r = REASON_BLOCK_AUTHORITY;
+  if (adm) r = REASON_PASS;
+  bool occ_final = occ && adm;
+  for (int j = 0; j < c.k; ++j) {
+    int64_t p = (int64_t)e * c.k + j;
+    c.occ_slot[p] = (occ_final && c.occ_slot_in != nullptr && c.occ_slot_in[p]) ? 1 : 0;
+  }
+  c.admitted[e] = adm ? 1 : 0;
+  c.reason[e] = r;
+  c.wait_ms[e] = wait;
+  c.flow_live[e] = live2 ? 1 : 0;
+  c.occupied[e] = occ_final ? 1 : 0;
+  return adm;
+}
+
+// One block: every verdict, the blocked acquire into the row table, then
+// the top-K among the touched rows. Dynamic shared memory: the table, 2 <<
+// bits ints (with topk > 0).
+__global__ void __launch_bounds__(CV_SMALL_THREADS) cv_small(CvArgs c, int bits) {
+  constexpr int NT = CV_SMALL_THREADS;
+  extern __shared__ int cv_tab[];
+  __shared__ int touched;
+  const RowTable t{cv_tab, cv_tab + (1 << bits), &touched, bits};
+  if (c.topk > 0) {
+    t.clear<NT>();
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < c.n; e += NT) {
+    bool adm = chain_entry(c, e);
+    int row, w = blocked_weight(c.e_valid[e], adm, c.e_acq[e], c.e_rows, e, c.n_rows, row);
+    if (c.topk > 0 && w > 0) t.add(row, w);
+  }
+  if (c.topk == 0) return;
+  __syncthreads();  // every add is done
+  small_topk<NT>(t, c.n_rows, c.topk, c.blk_w, c.blk_r);
+}
+
+// The lowest `topk` rows whose cell is zero (no blocked entry touched
+// them), as row + 1 into the header; run by cv_entry's last block, once
+// every add is done, four rows a thread at a time (Zipf rows touch a long
+// prefix).
+__device__ void low_rows(const CvArgs& c, int* hdr, const u64* dense) {
+  constexpr int PER = 4;
+  __shared__ int2 warp_tot[NWARPS];
+  int found = 0;
+  for (int base = 0; base < c.n_rows && found < c.topk; base += THREADS * PER) {
+    const int r0 = base + threadIdx.x * PER;
+    bool z[PER];
+    int cnt = 0;
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      z[q] = r0 + q < c.n_rows && __ldcg(dense + r0 + q) == 0;
+      cnt += z[q] ? 1 : 0;
+    }
+    int2 total;
+    int rank = found + block_exclusive_scan<SumOp>(make_int2(cnt, 0), warp_tot, total).x;
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      if (z[q] && rank < c.topk) hdr[CV_LOW + rank] = r0 + q + 1;
+      rank += z[q] ? 1 : 0;
+    }
+    found += total.x;
+  }
+}
+
+// Many blocks, one entry a thread: the verdict, and with topk > 0 the
+// blocked acquire into its row's 64-bit cell. A warp adds (its lanes' sum
+// mod 2^32) + (lanes << 32): the low half stays the wrapping int32 sum
+// (index_add_'s), the high half counts the entries, so a touched cell is
+// never zero; the add that finds it zero lists the row.
+__global__ void __launch_bounds__(THREADS) cv_entry(CvArgs c, int* __restrict__ zero) {
+  const int e = blockIdx.x * THREADS + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  __shared__ int s_cnt, s_base;
+  __shared__ bool is_last;
+  int w = 0, row = 0;
+  if (e < c.n) {
+    bool adm = chain_entry(c, e);
+    w = blocked_weight(c.e_valid[e], adm, c.e_acq[e], c.e_rows, e, c.n_rows, row);
+  }
+  if (c.topk == 0) return;
+  if (threadIdx.x == 0) s_cnt = 0;
+  __syncthreads();
+  int* hdr = zero;
+  u64* dense = reinterpret_cast<u64*>(zero + TOPK_DENSE);
+  int* list = reinterpret_cast<int*>(dense + c.n_rows);
+  bool act = w > 0;
+  unsigned am = __ballot_sync(FULL_MASK, act);
+  bool push = false;
+  if (act) {
+    unsigned grp = __match_any_sync(am, row);
+    unsigned sum = __reduce_add_sync(grp, (unsigned)w);
+    if (lane == __ffs(grp) - 1) push = atomicAdd(&dense[row], ((u64)__popc(grp) << 32) + sum) == 0;
+  }
+  // The rows this block lists: a place per warp in the block's share, one
+  // global atomic per block.
+  unsigned pm = __ballot_sync(FULL_MASK, push);
+  int at = 0;
+  if (pm != 0 && lane == __ffs(pm) - 1) at = atomicAdd(&s_cnt, __popc(pm));
+  at = __shfl_sync(FULL_MASK, at, pm != 0 ? __ffs(pm) - 1 : 0) + __popc(pm & ((1u << lane) - 1));
+  __syncthreads();
+  if (threadIdx.x == 0) s_base = s_cnt > 0 ? atomicAdd(&hdr[1], s_cnt) : 0;
+  __syncthreads();
+  if (push) list[s_base + at] = row;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(&hdr[0], 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  low_rows(c, hdr, dense);
+  if (threadIdx.x == 0) hdr[0] = 0;
+}
+
+// The top-K over the listed rows: each block keeps its k best of its share
+// of the list and zeroes the cells and list slots it read; the last block
+// merges the candidates with the lowest untouched rows (weight 0) and
+// zeroes the candidates and the header: the buffer is all zero again.
+__global__ void __launch_bounds__(THREADS) cv_topk(CvArgs c, int* __restrict__ zero) {
+  __shared__ u64 s[NWARPS * KMAX];
+  __shared__ bool is_last;
+  int* hdr = zero;
+  u64* cand = reinterpret_cast<u64*>(zero + TOPK_CAND);
+  u64* dense = reinterpret_cast<u64*>(zero + TOPK_DENSE);
+  int* list = reinterpret_cast<int*>(dense + c.n_rows);
+  const int len = __ldcg(hdr + 1);
+  u64 l[KMAX];
+  list_init(l);
+  const int stride = gridDim.x * THREADS;
+  for (int i0 = blockIdx.x * THREADS + threadIdx.x; i0 < len; i0 += 4 * stride) {
+    int r[4];
+    u64 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) r[u] = i0 + u * stride < len ? list[i0 + u * stride] : -1;  // all in flight
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = r[u] >= 0 ? dense[r[u]] : 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (r[u] < 0) continue;
+      list_insert(l, cand_key((int)(unsigned)v[u], r[u]));
+      dense[r[u]] = 0;
+      list[i0 + u * stride] = 0;
+    }
+  }
+  block_top<THREADS>(l, s);
+  if (threadIdx.x < c.topk) cand[blockIdx.x * KMAX + threadIdx.x] = s[threadIdx.x];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(&hdr[2], 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  list_init(l);
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += THREADS)
+    for (int j = 0; j < c.topk; ++j) {
+      u64* cp = cand + b * KMAX + j;
+      list_insert(l, __ldcg(cp));
+      *cp = 0;
+    }
+  if (threadIdx.x < c.topk) {
+    int r1 = __ldcg(hdr + CV_LOW + threadIdx.x);
+    if (r1 != 0) list_insert(l, cand_key(0, r1 - 1));
+    hdr[CV_LOW + threadIdx.x] = 0;
+  }
+  block_top<THREADS>(l, s);
+  write_top(s, c.topk, c.blk_w, c.blk_r);
+  if (threadIdx.x == 0) hdr[1] = hdr[2] = 0;
+}
+
+long long cv_zero_bytes(int n, int n_rows) { return 4ll * TOPK_DENSE + 8ll * n_rows + 4ll * min(n, n_rows); }
+
+int cv_small_launch(const CvArgs& c, cudaStream_t st) {
+  const int bits = table_bits(c.n);
+  size_t smem = c.topk > 0 ? sizeof(int) * ((size_t)2 << bits) : 0;
+  // A block asks for more than the default 48 KB, which the static arrays
+  // share with the dynamic bytes.
+  if (smem > 40 * 1024) {
+    int err = (int)cudaFuncSetAttribute(cv_small, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+  }
+  cv_small<<<1, CV_SMALL_THREADS, smem, st>>>(c, bits);
+  return (int)cudaGetLastError();
 }
 
 int topk_blocks(int n_rows) {  // sixteen rows a thread, at most TOPK_MAX_BLOCKS blocks
@@ -716,27 +974,36 @@ int flow_admission(const FaArgs* args, void* workspace, long long workspace_byte
   return (int)cudaGetLastError();
 }
 
-// The verdict after the breakers; see fa_chain for the null inputs.
-// occ_slot [n*k] is gated in place. `zero` as for flow_admission.
-int flow_admission_chain_verdict(
-    int n, int k, int kd, int n_rows, const uint8_t* e_valid, const uint8_t* e_auth,
-    const uint8_t* sys_ok, const uint8_t* flow_pass, const uint8_t* e_cluster,
-    const uint8_t* occupied_raw, const int* occupy_wait, const uint8_t* dslot_ok,
-    const uint8_t* probe_slot, const int* e_dgid, int* state, uint8_t* occ_slot, const uint8_t* param_ok,
-    const int* wait_param, const int* shape_wait, const int* e_acq,
-    const int* e_rows, int topk, int* zero, uint8_t* admitted,
-    int* reason, int* wait_ms, uint8_t* flow_live, uint8_t* occupied, int* blk_w, int* blk_r,
-    cudaStream_t st) {
-  if (n <= 0) return 0;
-  if (topk < 0 || topk > KMAX || (topk > 0 && zero == nullptr)) return (int)cudaErrorInvalidValue;
-  fa_chain<<<blocks_for(n), THREADS, 0, st>>>(n, k, kd, n_rows, e_valid, e_auth, sys_ok, flow_pass,
-                                              e_cluster, occupied_raw, occupy_wait, dslot_ok,
-                                              probe_slot, e_dgid, state, occ_slot, param_ok, wait_param,
-                                              shape_wait, e_acq, e_rows,
-                                              admitted, reason, wait_ms, flow_live, occupied,
-                                              topk > 0 ? zero + TOPK_DENSE : nullptr);
-  if (topk > 0) fa_topk<<<topk_blocks(n_rows), THREADS, 0, st>>>(zero, n_rows, topk, blk_w, blk_r);
-  return (int)cudaGetLastError();
+// Bytes of the zeroed scratch chain_verdict needs for n entries over
+// n_rows rows (its many-block route with topk > 0).
+long long chain_verdict_zero_bytes(int n, int n_rows) { return cv_zero_bytes(n, n_rows); }
+
+// The slot chain's verdict tail (see the header and CvArgs); `args` is read
+// on the host. `zero`: chain_verdict_zero_bytes(n, n_rows) bytes that are
+// zero, used by the many-block route with topk > 0 and left zero. Returns
+// a CUDA error code, or -1 when that route lacks its zeroed bytes (no
+// launch).
+int chain_verdict(const CvArgs* args, int* zero, long long zero_bytes, cudaStream_t st) {
+  const CvArgs c = *args;
+  if (c.n == 0 && c.topk == 0) return 0;  // with topk > 0 the top-K is still written: the k lowest rows
+  if (c.n < 0 || c.topk < 0 || c.topk > KMAX || c.k < 0 || c.kd < 0 || (c.topk > 0 && c.n_rows <= 0) || c.small_max < 0 ||
+      c.small_max > CV_SMALL_CAP)
+    return (int)cudaErrorInvalidValue;
+  if (c.n <= c.small_max) return cv_small_launch(c, st);
+  const long long need = c.topk > 0 ? cv_zero_bytes(c.n, c.n_rows) : 0;
+  if (c.topk > 0 && (zero == nullptr || zero_bytes < need)) return -1;
+  cv_entry<<<blocks_for(c.n), THREADS, 0, st>>>(c, zero);
+  int err = (int)cudaGetLastError();
+  if (!err && c.topk > 0) {
+    int rows = min(c.n, c.n_rows);
+    int g = min(TOPK_MAX_BLOCKS, max(1, (rows + 4 * THREADS - 1) / (4 * THREADS)));
+    cv_topk<<<g, THREADS, 0, st>>>(c, zero);
+    err = (int)cudaGetLastError();
+  }
+  // cv_entry may have added into the zeroed cells: a call that fails after
+  // it leaves them zero all the same.
+  if (err && c.topk > 0) cudaMemsetAsync(zero, 0, (size_t)need, st);
+  return err;
 }
 
 }  // extern "C"

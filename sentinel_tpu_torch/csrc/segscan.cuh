@@ -2,7 +2,7 @@
 // the three-phase block scan over int2 pairs (block totals, one block
 // scanning the totals, block scan plus carry), segment-head search and
 // floor division. Included by breaker_on_exits.cu (K7) and, through
-// lookback.cuh and bitonic.cuh, by K4, K6, K9, K10, K12 and K15-K16
+// lookback.cuh and bitonic.cuh, by K4, K5, K6, K9, K10, K12 and K15-K16
 // (mesh_budget.cu: K16 takes the three-phase scans); each source builds
 // into its own library, so everything here is local to the including file.
 //
@@ -68,10 +68,12 @@ __device__ __forceinline__ int2 shfl_up2(int2 v, int off) {
   return make_int2(__shfl_up_sync(FULL_MASK, v.x, off), __shfl_up_sync(FULL_MASK, v.y, off));
 }
 
-// Exclusive scan of one value per thread over the block; `total` gets the
-// block's reduction. All threads of the block must call it.
-template <class Op>
+// Exclusive scan of one value per thread over a block of NT threads (at
+// most 1,024; `warp_tot` holds NT / 32); `total` gets the block's
+// reduction. All threads of the block must call it.
+template <class Op, int NT = THREADS>
 __device__ int2 block_exclusive_scan(int2 v, int2* warp_tot, int2& total) {
+  constexpr int NW = NT / 32;
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int2 x = v;
 #pragma unroll
@@ -84,17 +86,17 @@ __device__ int2 block_exclusive_scan(int2 v, int2* warp_tot, int2& total) {
   if (lane == 31) warp_tot[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int2 w = lane < NWARPS ? warp_tot[lane] : Op::id();
+    int2 w = lane < NW ? warp_tot[lane] : Op::id();
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       int2 y = shfl_up2(w, off);
       if (lane >= off) w = Op::op(y, w);
     }
-    if (lane < NWARPS) warp_tot[lane] = w;  // inclusive over warps
+    if (lane < NW) warp_tot[lane] = w;  // inclusive over warps
   }
   __syncthreads();
   int2 warp_prefix = warp == 0 ? Op::id() : warp_tot[warp - 1];
-  total = warp_tot[NWARPS - 1];
+  total = warp_tot[NW - 1];
   __syncthreads();  // warp_tot may be reused by the caller's next scan
   return Op::op(warp_prefix, ex_in_warp);
 }

@@ -491,10 +491,10 @@ def _fa_lib() -> ctypes.CDLL:
         lib.flow_admission_topk_ints.restype = ctypes.c_longlong
         lib.flow_admission.argtypes = [ctypes.POINTER(_FaArgs), _P, ctypes.c_longlong, _P, _P]
         lib.flow_admission.restype = _I
-        lib.flow_admission_chain_verdict.argtypes = (
-            [_I, _I, _I, _I] + [_P] * 15 + [_P, _P, _I, _P] + [_P] * 7 + [_P]
-        )
-        lib.flow_admission_chain_verdict.restype = _I
+        lib.chain_verdict_zero_bytes.argtypes = [_I, _I]
+        lib.chain_verdict_zero_bytes.restype = ctypes.c_longlong
+        lib.chain_verdict.argtypes = [ctypes.POINTER(_CvArgs), _P, ctypes.c_longlong, _P]
+        lib.chain_verdict.restype = _I
         lib._typed = True
     return lib
 
@@ -793,51 +793,57 @@ def commit_borrow_slab_plain(stats, occ_slot, occ_target, acquire, check_row) ->
     return stats
 
 
+# Slots of K5's one-block route (the C side takes at most 8,192).
+COMMIT_BORROW_SMALL_MAX = 2048
+
+
+class _CbArgs(ctypes.Structure):
+    """The ``CbArgs`` of ``csrc/commit_borrow_slab.cu``, field for field."""
+
+    _fields_ = [(name, _P) for name in ("occ", "tgt", "crow", "acq", "fut_pass", "fut_ws")] + [
+        (name, _I) for name in ("n", "k", "n_rows", "nb", "wlen", "small_max")]
+
+
 def _cb_lib() -> ctypes.CDLL:
     lib = cuda_build.load("commit_borrow_slab")
     if not getattr(lib, "_typed", False):
-        lib.commit_borrow_keys.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P]
-        lib.commit_borrow_apply.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]
-        lib.commit_borrow_keys.restype = lib.commit_borrow_apply.restype = _I
+        lib.commit_borrow_zero_bytes.argtypes = [_I, _I]
+        lib.commit_borrow_zero_bytes.restype = ctypes.c_longlong
+        lib.commit_borrow.argtypes = [ctypes.POINTER(_CbArgs), _P, ctypes.c_longlong, _P]
+        lib.commit_borrow.restype = _I
         lib._typed = True
     return lib
 
 
 def _commit_borrow_cuda(stats, occ_slot, occ_target, acquire, check_row) -> StatsState:
+    """K5 in one host call: one block up to COMMIT_BORROW_SMALL_MAX slots,
+    else three launches over the slots with the per-cell newest window and
+    sum in the zeroed scratch, which the call leaves zeroed. No sort, no
+    allocation."""
     n, k = occ_slot.shape
-    nk = n * k
     if occ_slot.dtype != torch.bool or not occ_slot.is_contiguous() or not occ_slot.is_cuda:
         raise ValueError("occ_slot: need a contiguous CUDA bool tensor")
     ma._i32(occ_target, "occ_target", (n, k))
     ma._i32(check_row, "check_row", (n, k))
     ma._i32(acquire, "acquire", (n,))
+    cfg = _nodes.SECOND_CFG
+    slab = (stats.n_rows, cfg.sample_count)
     for name in ("future_pass", "future_ws"):
         t = getattr(stats, name)
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"stats.{name}: need a contiguous int32 tensor")
-    if nk == 0:
+        if t.dtype != torch.int32 or not t.is_contiguous() or not t.is_cuda or tuple(t.shape) != slab:
+            raise ValueError(f"stats.{name}: need a contiguous CUDA int32 tensor of shape {slab}")
+    if n * k == 0:
         return stats
     lib = _cb_lib()
-    cfg = _nodes.SECOND_CFG
-    dev = occ_slot.device
+    a = _CbArgs(
+        occ=occ_slot.data_ptr(), tgt=occ_target.data_ptr(), crow=check_row.data_ptr(), acq=acquire.data_ptr(),
+        fut_pass=stats.future_pass.data_ptr(), fut_ws=stats.future_ws.data_ptr(), n=n, k=k, n_rows=stats.n_rows,
+        nb=cfg.sample_count, wlen=cfg.window_len_ms, small_max=COMMIT_BORROW_SMALL_MAX,
+    )
+    zero_bytes = 0 if n * k <= COMMIT_BORROW_SMALL_MAX else int(lib.commit_borrow_zero_bytes(*slab))
     st = ma.stream_of(occ_slot)
-    rb = stats.n_rows * cfg.sample_count
-    key = torch.empty(nk, dtype=torch.int32, device=dev)
-    cuda_build.check(
-        lib.commit_borrow_keys(occ_slot.data_ptr(), occ_target.data_ptr(), check_row.data_ptr(), nk, stats.n_rows,
-                               cfg.sample_count, cfg.window_len_ms, key.data_ptr(), st),
-        "commit_borrow_keys",
-    )
-    key_s, perm = torch.sort(key, stable=True)
-    seg = torch.empty(3 * nk, dtype=torch.int32, device=dev)  # head, newest window, its acquire
-    cuda_build.check(
-        lib.commit_borrow_apply(
-            key_s.data_ptr(), perm.data_ptr(), occ_target.data_ptr(), acquire.data_ptr(), nk, k, rb,
-            seg[:nk].data_ptr(), seg[nk : 2 * nk].data_ptr(), seg[2 * nk :].data_ptr(),
-            stats.future_pass.data_ptr(), stats.future_ws.data_ptr(), st,
-        ),
-        "commit_borrow_apply",
-    )
+    with cuda_build.scratch(occ_slot.device, st, 0, zero_bytes) as (_, _, zero):
+        cuda_build.check(lib.commit_borrow(ctypes.byref(a), zero, zero_bytes, st), "commit_borrow")
     commit_borrow_slab.launches += 1
     return stats
 
@@ -926,45 +932,86 @@ def slot_chain_verdict_plain(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_r
     return ChainVerdict(admitted, reason, wait_ms, live2, occ_final, occ_slot, blk_rows, blk_weight)
 
 
+# Entries of the verdict tail's one-block route (the C side takes at most
+# 8,192).
+CHAIN_VERDICT_SMALL_MAX = 2048
+
+
+class _CvArgs(ctypes.Structure):
+    """The ``CvArgs`` of ``csrc/flow_admission.cu``, field for field."""
+
+    _fields_ = [(name, _P) for name in (
+        "e_valid", "e_auth", "e_cluster", "e_acq", "e_rows", "e_dgid", "sys_ok", "param_ok", "wait_param",
+        "shape_wait", "flow_pass", "occupied_raw", "occupy_wait", "occ_slot_in", "dslot_ok", "probe_slot", "state",
+        "admitted", "flow_live", "occupied", "occ_slot", "reason", "wait_ms", "blk_w", "blk_r",
+    )] + [(name, _I) for name in ("n", "k", "kd", "n_rows", "topk", "small_max")]
+
+
+def _opt_ptr(t: Optional[torch.Tensor], dtype, shape, what: str) -> Optional[int]:
+    """The pointer of an optional input of the tail, checked."""
+    if t is None:
+        return None
+    if t.dtype is not dtype or not t.is_cuda or not t.is_contiguous() or t.shape != shape:
+        raise ValueError(f"{what}: need a contiguous CUDA {dtype} tensor of shape {shape}")
+    return t.data_ptr()
+
+
 def _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, blk_topk, param_ok=None,
                         wait_param=None, shape_wait=None) -> ChainVerdict:
+    """The tail in one host call: one block up to CHAIN_VERDICT_SMALL_MAX
+    entries (the top-K among the touched rows), else two launches over the
+    listed rows of the zeroed scratch, which the call leaves zeroed. The
+    outputs are cut from one allocation."""
     _check_batch_cuda(batch, _CHAIN_FIELDS)
     _check_topk(blk_topk)
     n, k = batch.e_rule_gid.shape
     kd = batch.e_dgid.shape[1]
-    dev = batch.e_valid.device
-    if dslot_ok is not None and (dslot_ok.shape != (n, kd) or probe_slot is None):
+    if dslot_ok is not None and probe_slot is None:
         raise ValueError("slot_chain_verdict: dslot_ok [N, KD] needs probe_slot")
-    lib = _fa_lib()
-    r_rows = n_rows
-    kk = min(blk_topk, r_rows)
-    flags = torch.empty(3 * n, dtype=torch.bool, device=dev)
-    admitted, flow_live, occupied = flags[:n], flags[n : 2 * n], flags[2 * n :]
-    ints = torch.empty(2 * n + 2 * kk, dtype=torch.int32, device=dev)
+    if (param_ok is None) != (wait_param is None):
+        raise ValueError("slot_chain_verdict: param_ok and wait_param come together")
+    if (adm.occupied is None) != (adm.occupy_wait is None):
+        raise ValueError("slot_chain_verdict: occupied and occupy_wait come together")
+    b, i32 = torch.bool, torch.int32
+    state = None
+    if dslot_ok is not None and ddyn is not None:
+        state = ddyn.state
+        if state.dtype != i32 or not state.is_contiguous() or not state.is_cuda:
+            raise ValueError("ddyn.state: need a contiguous CUDA int32 tensor")
+    dev = batch.e_valid.device
+    kk = min(blk_topk, n_rows)
+    nk = n * k
+    off = (3 * n + nk + 15) // 16 * 16  # the int32 outputs start 16-byte aligned
+    out = torch.empty(off + 4 * (2 * n + 2 * kk), dtype=torch.uint8, device=dev)
+    flags = out[: 3 * n + nk].view(b)
+    admitted, flow_live, occupied = flags[:n], flags[n : 2 * n], flags[2 * n : 3 * n]
+    occ_slot = flags[3 * n :].view(n, k)
+    ints = out[off:].view(i32)
     reason, wait_ms = ints[:n], ints[n : 2 * n]
     blk_weight, blk_rows = (ints[2 * n : 2 * n + kk], ints[2 * n + kk :]) if kk > 0 else (None, None)
-    occ_slot = adm.occ_slot.clone() if adm.occ_slot is not None else torch.zeros((n, k), dtype=torch.bool, device=dev)
+    a = _CvArgs(
+        e_valid=batch.e_valid.data_ptr(), e_auth=batch.e_auth_ok.data_ptr(), e_cluster=batch.e_cluster_ok.data_ptr(),
+        e_acq=batch.e_acquire.data_ptr(), e_rows=batch.e_rows.data_ptr(), e_dgid=batch.e_dgid.data_ptr(),
+        sys_ok=_opt_ptr(sys_ok, b, (n,), "sys_ok"), param_ok=_opt_ptr(param_ok, b, (n,), "param_ok"),
+        wait_param=_opt_ptr(wait_param, i32, (n,), "wait_param"),
+        shape_wait=_opt_ptr(shape_wait, i32, (n,), "shape_wait"),
+        flow_pass=_opt_ptr(adm.flow_pass, b, (n,), "adm.flow_pass"),
+        occupied_raw=_opt_ptr(adm.occupied, b, (n,), "adm.occupied"),
+        occupy_wait=_opt_ptr(adm.occupy_wait, i32, (n,), "adm.occupy_wait"),
+        occ_slot_in=_opt_ptr(adm.occ_slot, b, (n, k), "adm.occ_slot"),
+        dslot_ok=_opt_ptr(dslot_ok, b, (n, kd), "dslot_ok"),
+        probe_slot=None if dslot_ok is None else _opt_ptr(probe_slot, b, (n, kd), "probe_slot"),
+        state=None if state is None else state.data_ptr(),
+        admitted=admitted.data_ptr(), flow_live=flow_live.data_ptr(), occupied=occupied.data_ptr(),
+        occ_slot=occ_slot.data_ptr(), reason=reason.data_ptr(), wait_ms=wait_ms.data_ptr(),
+        blk_w=None if kk == 0 else blk_weight.data_ptr(), blk_r=None if kk == 0 else blk_rows.data_ptr(),
+        n=n, k=k, kd=kd, n_rows=n_rows, topk=kk, small_max=CHAIN_VERDICT_SMALL_MAX,
+    )
+    lib = _fa_lib()
+    zero_bytes = int(lib.chain_verdict_zero_bytes(n, n_rows)) if kk > 0 and n > CHAIN_VERDICT_SMALL_MAX else 0
     st = ma.stream_of(batch.e_valid)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    zero_bytes = _topk_zero_bytes(lib, r_rows) if kk > 0 else 0
     with cuda_build.scratch(dev, st, 0, zero_bytes) as (_, _, zero):
-        cuda_build.check(
-            lib.flow_admission_chain_verdict(
-                n, k, kd, r_rows,
-                batch.e_valid.data_ptr(), batch.e_auth_ok.data_ptr(), ptr(sys_ok), adm.flow_pass.data_ptr(),
-                batch.e_cluster_ok.data_ptr(), ptr(adm.occupied), ptr(adm.occupy_wait), ptr(dslot_ok),
-                ptr(probe_slot), batch.e_dgid.data_ptr(),
-                None if dslot_ok is None or ddyn is None else ddyn.state.data_ptr(),
-                occ_slot.data_ptr(), ptr(param_ok), ptr(wait_param), ptr(shape_wait),
-                batch.e_acquire.data_ptr(), batch.e_rows.data_ptr(), kk, zero,
-                admitted.data_ptr(), reason.data_ptr(), wait_ms.data_ptr(), flow_live.data_ptr(), occupied.data_ptr(),
-                ptr(blk_weight), ptr(blk_rows), st,
-            ),
-            "flow_admission_chain_verdict",
-        )
+        cuda_build.check(lib.chain_verdict(ctypes.byref(a), zero, zero_bytes, st), "chain_verdict")
     slot_chain_verdict.launches += 1
     return ChainVerdict(admitted, reason, wait_ms, flow_live, occupied, occ_slot, blk_rows, blk_weight)
 

@@ -27,6 +27,8 @@ from sentinel_tpu_torch.runtime import flush as tflush
 from sentinel_tpu_torch.runtime import sketch as tsk
 
 from torch_parity import (
+    BORROW_SLAB_CASES,
+    TAIL_NULLS,
     BREAKER_CASES,
     BUDGET_WRAP_CASES,
     budget_wrap_case,
@@ -46,14 +48,18 @@ from torch_parity import (
     random_shaped_flow_table,
     random_shaping_case,
     shaping_batch_for,
+    random_borrow_case,
     random_chain_batch,
     random_degrade,
     random_exits,
     random_flow_table,
     random_flush_batch,
     random_stats,
+    random_tail_case,
     random_window_state,
     system_thresholds,
+    TIE_PATTERNS,
+    tie_rows,
 )
 
 pytestmark = pytest.mark.gpu
@@ -74,7 +80,7 @@ def _eq(a, b, what):
 
 
 def _states_eq(a, b, what):
-    for name, x, y in zip(a._fields, a, b):
+    for name, x, y in zip(getattr(a, "_fields", range(len(a))), a, b):
         if isinstance(x, tuple):
             _states_eq(x, y, f"{what}.{name}")
         else:
@@ -271,7 +277,10 @@ def test_system_check_forced_routes_kernel(cuda, monkeypatch, n):
 def _zero_buffer(cuda):
     from sentinel_tpu_torch.utils import cuda_build
 
-    return cuda_build._SCRATCH.get((True, cuda, torch.cuda.current_stream(cuda).cuda_stream))
+    st = torch.cuda.current_stream(cuda).cuda_stream
+    with cuda_build.scratch(cuda, st, 0, 8):  # made zeroed if no call has asked for it yet
+        pass
+    return cuda_build._SCRATCH.get((True, cuda, st))
 
 
 def _assert_zeroed(cuda, what):
@@ -1215,3 +1224,277 @@ def test_sharded_step_kernels(cuda, with_shaping, with_param):
         _states_eq(outs["plain"][0], outs["kernel"][0], f"flush {i} stats")
         for j, what in ((1, "pacers"), (2, "breakers"), (3, "param state")):
             _states_eq(outs["plain"][j], outs["kernel"][j], f"flush {i} {what}")
+
+
+# --- the slot chain's verdict tail and K5 (the borrow commit) -----------------
+
+def _tail_call(cuda, n, rows="uniform", nulls=(True, True, True, True, "ddyn"), n_rows=1 << 16, seed=0, wrap=False,
+               blocked=None):
+    """(plain, kernel): the verdict tail at n entries (K = KD = 2, 64
+    breakers, top-8 over n_rows rows) on one random case, each call on its
+    own copy of the breaker states; ``nulls`` = (system, param, shaping,
+    occupy, breakers "off"/"ddyn"/"no_ddyn") says which inputs are given.
+    ``blocked``: (cluster rows, acquires) of the n entries, every entry
+    valid and blocked by authority."""
+    sys_, param, shape, occupy, breakers = nulls
+    c = random_tail_case(np.random.default_rng(seed + n), n, 2, 2, 64, n_rows, rows, wrap)
+    if blocked is not None:
+        b = c["batch"]
+        b[1], b[8], b[4] = np.ones(n, bool), np.zeros(n, bool), b[4].copy()
+        b[4][:, 1], b[3] = blocked
+    batch = tflush.batch_from_numpy(c["batch"], cuda)
+    g = {name: _t(c[name], cuda) for name in c if name != "batch"}
+    adm = tflush.Admission(g["flow_pass"][:, None].expand(n, 2).contiguous(), g["flow_pass"], None, None, None, None,
+                           *((g["occupied"], g["occupy_wait"], g["occ_slot"], g["occ_target"]) if occupy else ()))
+    dslot_ok, probe = (g["dslot_ok"], g["probe_slot"]) if breakers != "off" else (None, None)
+    state = g["state"]
+
+    def call(fn):
+        def run():
+            dd = tdt.DegradeDynState(*(state.clone() if i == 0 else None for i in range(5)))
+            v = fn(batch, adm, g["sys_ok"] if sys_ else None, dslot_ok, probe, dd if breakers == "ddyn" else None,
+                   n_rows, 8, g["param_ok"] if param else None, g["wait_param"] if param else None,
+                   g["shape_wait"] if shape else None)
+            return v, dd.state
+
+        return run
+
+    return call(tflush.slot_chain_verdict_plain), call(tflush.slot_chain_verdict)
+
+
+def _route(monkeypatch, const, route):
+    if route != "default":
+        monkeypatch.setattr(tflush, const, 8192 if route == "one_block" else 0)
+
+
+def _tail_sizes():
+    t = tflush.CHAIN_VERDICT_SMALL_MAX
+    return {"0": 0, "1": 1, "8": 8, "threshold-1": t - 1, "threshold": t, "threshold+1": t + 1}
+
+
+@pytest.mark.parametrize("route", ["default", "one_block", "many_blocks"])
+@pytest.mark.parametrize("rows", ["uniform", "zipf", "six_rows_wrap"])
+@pytest.mark.parametrize("size", ["0", "1", "8", "threshold-1", "threshold", "threshold+1"])
+def test_chain_verdict_routes_kernel(cuda, monkeypatch, size, rows, route):
+    """The verdict tail with every stage's input given, on the route the
+    threshold picks and on each route forced, at 0, 1, 8 and the threshold
+    -1, +0, +1 entries: uniform and Zipf(1.1) cluster rows over 65,536, and
+    six rows with acquires near 2^30 (the row sums wrap; top-8 over 6 rows).
+    Equal to the plain version, the probe transitions too; one launch
+    counted a call; the zeroed scratch reads zero after it."""
+    n = _tail_sizes()[size]
+    _route(monkeypatch, "CHAIN_VERDICT_SMALL_MAX", route)
+    wrap = rows == "six_rows_wrap"
+    plain, kernel = _tail_call(cuda, n, "zipf" if wrap else rows, n_rows=6 if wrap else 1 << 16, wrap=wrap)
+    want = plain()
+    before = tflush.slot_chain_verdict.launches
+    got = kernel()
+    assert tflush.slot_chain_verdict.launches == before + 1
+    _states_eq(want[0], got[0], f"n={n} {rows} {route}")
+    _eq(want[1], got[1], "breaker states")
+    _assert_zeroed(cuda, f"n={n} {rows} {route}")
+    if n > 8:
+        assert bool(want[0].blk_weight[0] != 0)
+
+
+@pytest.mark.parametrize("route", ["one_block", "many_blocks"])
+@pytest.mark.parametrize("nulls", TAIL_NULLS, ids=lambda v: "-".join(str(x) for x in v))
+def test_chain_verdict_null_inputs_kernel(cuda, monkeypatch, nulls, route):
+    """Every combination of the tail's absent inputs (no system stage, no
+    param stage, no shaping, no occupy, no breakers or breakers without the
+    probe transitions) on both routes, at 3,000 entries."""
+    _route(monkeypatch, "CHAIN_VERDICT_SMALL_MAX", route)
+    plain, kernel = _tail_call(cuda, 3000, "zipf", nulls)
+    want, got = plain(), kernel()
+    _states_eq(want[0], got[0], str(nulls))
+    _eq(want[1], got[1], "breaker states")
+    _assert_zeroed(cuda, str(nulls))
+
+
+@pytest.mark.parametrize("route", ["one_block", "many_blocks"])
+@pytest.mark.parametrize("size", ["12", "threshold-1", "threshold", "threshold+1", "8192"])
+@pytest.mark.parametrize("case", list(TIE_PATTERNS))
+def test_chain_verdict_tie_cases_kernel(cuda, monkeypatch, case, size, route):
+    """The top-K ties of tests/test_torch_chain_tail.py on each route, at
+    12 entries (the pattern once), the threshold -1, +0, +1 and 8,192 (the
+    pattern repeated over four groups of rows, 4,096 rows): touched rows of
+    one weight rank by row, and a row whose wrapping sum comes back to 0
+    after each copy of the pattern (an add that finds its low half zero
+    is not its first) is listed once, among the untouched rows of weight
+    0. Equal to the plain version; the zeroed scratch reads zero after."""
+    n = {"12": 12, "8192": 8192, **_tail_sizes()}[size]
+    _route(monkeypatch, "CHAIN_VERDICT_SMALL_MAX", route)
+    plain, kernel = _tail_call(cuda, n, n_rows=1 << 12, blocked=tie_rows(case, n))
+    want, got = plain(), kernel()
+    _states_eq(want[0], got[0], f"{case} n={n} {route}")
+    _eq(want[1], got[1], "breaker states")
+    _assert_zeroed(cuda, f"{case} n={n} {route}")
+    top = got[0].blk_rows.cpu().tolist()
+    if case == "wrapped_zero_beside_untouched":
+        assert top.count(3) == 1 and 0 in top, top
+    else:
+        assert len(set(top)) == 8, top
+
+
+def _halves(n):
+    """Cluster rows and acquires of n entries: lanes 0 and 1 of each of the
+    first w warps (w odd: n // 32 or one fewer) on row 3 with 2**30 each,
+    every other entry acquiring 0 (it touches no row). Each warp adds 2**31
+    to row 3, so every second add finds the row's wrapping sum at 0, and
+    the sum ends at -2**31."""
+    rows, acq = (np.arange(n) % 1024).astype(np.int32), np.zeros(n, np.int32)
+    w = n // 32 if (n // 32) % 2 else n // 32 - 1
+    hit = (np.arange(w)[:, None] * 32 + np.arange(2)).ravel()
+    rows[hit], acq[hit] = 3, 2**30
+    return rows, acq
+
+
+@pytest.mark.parametrize("route, n", [("one_block", 8192), ("many_blocks", 8192), ("default", 131072)])
+def test_chain_verdict_first_touch_kernel(cuda, monkeypatch, route, n):
+    """A row touched again and again while its wrapping sum is 0 (``_halves``)
+    is listed once and ranks last at -2**31, below the untouched rows 0-2
+    and 4-8 of weight 0. At 131,072 entries over 1,024 rows the many-block
+    top-K reads the list in two rounds a thread: a row listed again at an
+    add that found its sum at 0 would read its own zeroed cell in the
+    second round and rank among the rows of weight 0. Equal to the plain
+    version; the zeroed scratch reads zero after."""
+    _route(monkeypatch, "CHAIN_VERDICT_SMALL_MAX", route)
+    plain, kernel = _tail_call(cuda, n, n_rows=1 << 10, blocked=_halves(n))
+    want, got = plain(), kernel()
+    _states_eq(want[0], got[0], f"n={n} {route}")
+    _eq(want[1], got[1], "breaker states")
+    _assert_zeroed(cuda, f"n={n} {route}")
+    assert got[0].blk_rows.cpu().tolist() == [0, 1, 2, 4, 5, 6, 7, 8]
+
+
+def _borrow_call(cuda, nk, case="slab_kinds", n_rows=1 << 16, seed=0):
+    """(plain, kernel): K5 at nk slots (K = 2) over an [n_rows, 2] slab, each
+    call on its own copy of the slab; returns the slab."""
+    now = 700_137
+    (fpass, fws), borrows = random_borrow_case(np.random.default_rng(seed + nk), max(nk // 2, 0), 2, n_rows, now,
+                                               case)
+    occ, tgt, acq, crow = (_t(a, cuda) for a in borrows)
+    slab = (_t(fpass, cuda), _t(fws, cuda))
+    threads = torch.zeros(n_rows, dtype=torch.int32, device=cuda)
+
+    def call(fn):
+        def run():
+            st = tnodes.StatsState(None, None, threads, slab[0].clone(), slab[1].clone())
+            out = fn(st, occ, tgt, acq, crow)
+            return out.future_pass, out.future_ws
+
+        return run
+
+    return call(tflush.commit_borrow_slab_plain), call(tflush.commit_borrow_slab)
+
+
+def _borrow_sizes():
+    t = tflush.COMMIT_BORROW_SMALL_MAX
+    return {"0": 0, "2": 2, "8": 8, "threshold-2": t - 2, "threshold": t, "threshold+2": t + 2}
+
+
+@pytest.mark.parametrize("route", ["default", "one_block", "many_blocks"])
+@pytest.mark.parametrize("case", BORROW_SLAB_CASES)
+@pytest.mark.parametrize("size", ["0", "2", "8", "threshold-2", "threshold", "threshold+2"])
+def test_commit_borrow_routes_kernel(cuda, monkeypatch, size, case, route):
+    """K5 on the route the threshold picks and on each route forced, at 0,
+    2, 8 slots and the threshold -2, +0, +2 (K = 2): one cell hit by borrows
+    of three windows, acquires whose cell sums wrap past 2^31, slab cells
+    empty, older, equal and newer on uniform and on Zipf(1.1) rows. Equal
+    to the plain version; one launch counted a call; the zeroed scratch
+    reads zero after it."""
+    nk = _borrow_sizes()[size]
+    _route(monkeypatch, "COMMIT_BORROW_SMALL_MAX", route)
+    plain, kernel = _borrow_call(cuda, nk, case)
+    want = plain()
+    before = tflush.commit_borrow_slab.launches
+    got = kernel()
+    assert tflush.commit_borrow_slab.launches == before + (1 if nk else 0)
+    _eq(want[0], got[0], f"future_pass nk={nk} {case} {route}")
+    _eq(want[1], got[1], f"future_ws nk={nk} {case} {route}")
+    _assert_zeroed(cuda, f"nk={nk} {case} {route}")
+
+
+@pytest.mark.parametrize("which", ["slot_chain_verdict", "commit_borrow_slab"])
+def test_tail_and_commit_refusals_kernel(cuda, monkeypatch, which):
+    """A many-block call that the C side refuses for too few zeroed bytes
+    (-1, nothing launched) leaves the zeroed scratch zero, and the call
+    after it equals the plain version."""
+    if which == "slot_chain_verdict":
+        plain, kernel = _tail_call(cuda, 65536)
+        lib, entry, getter = tflush._fa_lib(), "chain_verdict", "_fa_lib"
+    else:
+        plain, kernel = _borrow_call(cuda, 65536, "zipf")
+        lib, entry, getter = tflush._cb_lib(), "commit_borrow", "_cb_lib"
+    kernel()  # the zeroed buffer is grown
+
+    class Short:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+    setattr(Short, entry, staticmethod(lambda a, zero, size, st: getattr(lib, entry)(a, zero, size - 8, st)))
+    monkeypatch.setattr(tflush, getter, Short)
+    with pytest.raises(RuntimeError, match="CUDA error -1$"):
+        kernel()
+    _assert_zeroed(cuda, f"after the refused call ({which})")
+    monkeypatch.undo()
+    _states_eq(plain(), kernel(), "after the refused call")
+    _assert_zeroed(cuda, "after the call that follows")
+
+
+@pytest.mark.parametrize("which", ["slot_chain_verdict", "commit_borrow_slab"])
+def test_tail_and_commit_launch_sequences_kernel(cuda, which):
+    """torch.profiler: at 8 entries (16 slots) one kernel and no memset a
+    call; at 131,072 entries the tail takes at most 2 kernels, K5 at most 3
+    (no sort), neither a memset."""
+    from gpu_timing import device_profile, kernel_times
+
+    if which == "slot_chain_verdict":
+        small, full, most = _tail_call(cuda, 8)[1], _tail_call(cuda, 131072)[1], 2
+    else:
+        small, full, most = _borrow_call(cuda, 16)[1], _borrow_call(cuda, 262144, "zipf")[1], 3
+    full()  # the zeroed buffer is grown
+    assert device_profile(small)[:2] == (1, 0)
+    kernels, memsets, _ = device_profile(full)
+    names = kernel_times(full)
+    assert kernels <= most and memsets == 0, names
+    assert not any("Sort" in name for name in names), names
+
+
+def test_tail_and_commit_threads_kernel(cuda):
+    """The tail (131,072 entries, top-8) and K5 (262,144 slots) in two host
+    threads on the default stream, 20 calls each, both on their many-block
+    routes over the shared zeroed scratch, which starts empty: every call
+    equals its plain version, and the buffer reads zero at the end."""
+    import threading
+
+    from sentinel_tpu_torch.utils import cuda_build
+
+    tail_plain, tail = _tail_call(cuda, 131072, "zipf")
+    cb_plain, cb = _borrow_call(cuda, 262144, "zipf")
+    want = {"tail": tail_plain(), "cb": cb_plain()}
+    torch.cuda.synchronize()
+    got = {"tail": [], "cb": []}
+    start = threading.Barrier(2)
+    errors = []
+
+    def run(name, call):
+        try:
+            start.wait()
+            for _ in range(20):
+                got[name].append(call())
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+
+    cuda_build._SCRATCH.clear()
+    threads = [threading.Thread(target=run, args=item) for item in (("tail", tail), ("cb", cb))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for name, outs in got.items():
+        for i, out in enumerate(outs):
+            _states_eq(want[name], out, f"{name} call {i}")
+    _assert_zeroed(cuda, "after the threads")

@@ -726,3 +726,99 @@ def budget_wrap_case(case, d_count=8):
     if case != "origin_split_k2":
         assert (units.max() >= 2**31) == (case == "one_shard_passes")
     return stats, table, tuple(b), cap
+
+
+def _tail_rows(rng, n, n_rows, rows):
+    """Cluster rows: uniform, Zipf(1.1), or all on one row ("one")."""
+    if rows == "zipf":
+        return (np.minimum(rng.zipf(1.1, n), n_rows) - 1).astype(np.int32)
+    if rows == "one":
+        return np.full(n, min(3, n_rows - 1), np.int32)
+    return rng.integers(0, n_rows, n).astype(np.int32)
+
+
+# The tail's absent inputs, every combination: (system stage, param stage,
+# shaping, occupy, breakers: "off", "ddyn" with the probe transitions,
+# "no_ddyn" without them).
+TAIL_NULLS = [(sys_, param, shape, occupy, breakers) for sys_ in (False, True) for param in (False, True)
+              for shape in (False, True) for occupy in (False, True) for breakers in ("off", "ddyn", "no_ddyn")]
+
+
+def random_tail_case(rng, n, k, kd, nd, n_rows, rows="uniform", wrap=False):
+    """The inputs of the slot chain's verdict tail (``slot_chain_verdict``)
+    as numpy arrays: a batch (``random_flush_batch``'s fields; cluster rows
+    ``e_rows[:, 1]`` uniform, Zipf(1.1) or one row, some out of range;
+    breaker ids [n, kd]), the stages' verdicts as an Admission's fields and
+    the stage inputs (sys_ok, param_ok, wait_param, shape_wait, dslot_ok,
+    probe_slot), and breaker states [nd]. ``wrap``: acquires near 2**30,
+    so that a row's blocked sum wraps past 2**31."""
+    b = list(random_flush_batch(rng, max(n, 1), k, max(n_rows, 8), 16, 1_000_000, n - n // 16))
+    b[1:11] = [a[:n] for a in b[1:11]]
+    crow = _tail_rows(rng, n, n_rows, rows)
+    crow[rng.random(n) < 0.02] = n_rows + 7  # clamped to the last row
+    b[4] = b[4].copy()
+    b[4][:, 1] = crow
+    b[3] = (rng.integers(2**30 - 8, 2**30 + 8, n) if wrap else rng.integers(0, 4, n)).astype(np.int32)
+    b[10] = rng.integers(0, nd, (n, kd)).astype(np.int32)
+    occupied = rng.random(n) < 0.3
+    return dict(
+        batch=b,
+        flow_pass=rng.random(n) < 0.7, occupied=occupied, occupy_wait=rng.integers(-5, 400, n).astype(np.int32),
+        occ_slot=(rng.random((n, k)) < 0.6) & occupied[:, None], occ_target=rng.integers(0, 10**6, (n, k)).astype(np.int32),
+        sys_ok=rng.random(n) < 0.9, param_ok=rng.random(n) < 0.9, wait_param=rng.integers(0, 300, n).astype(np.int32),
+        shape_wait=rng.integers(0, 500, n).astype(np.int32), dslot_ok=rng.random((n, kd)) < 0.8,
+        probe_slot=rng.random((n, kd)) < 0.2, state=rng.integers(0, 3, nd).astype(np.int32),
+    )
+
+
+# Ties in the blocked top-K: twelve entries' cluster rows and acquires.
+# "touched_rows_tie": rows 9, 5 and 12 block the same total, below row
+# 20's; "wrapped_zero_beside_untouched": row 3's acquires sum to 2**32 (0
+# after wrapping) beside the untouched rows 0-2, 4..., row 7's to 2**31 + 4.
+TIE_PATTERNS = {
+    "touched_rows_tie": ([9, 5, 12, 20, 9, 5, 12, 20, 9, 5, 12, 20], [2, 3, 1, 9, 2, 1, 3, 9, 2, 2, 2, 9]),
+    "wrapped_zero_beside_untouched": ([3, 3, 3, 7, 7, 7, 7, 7, 7, 7, 7, 7],
+                                      [2**31 - 1, 2**31 - 1, 2, 2**31 - 1, 5] + [0] * 7),
+}
+
+
+def tie_rows(case, n, groups=4):
+    """Cluster rows and acquires of n entries: ``TIE_PATTERNS[case]``
+    repeated, its j-th copy on rows 32 * (j % groups) higher, so that each
+    row takes the pattern's adds again and again (a row of
+    "wrapped_zero_beside_untouched" comes back to a sum of 0 after every
+    copy)."""
+    rows, acq = (np.asarray(a, np.int64) for a in TIE_PATTERNS[case])
+    i = np.arange(n)
+    return (rows[i % 12] + 32 * ((i // 12) % groups)).astype(np.int32), acq[i % 12].astype(np.int32)
+
+
+BORROW_SLAB_CASES = ["three_windows_one_cell", "wrap_past_2_31", "slab_kinds", "zipf"]
+
+
+def random_borrow_case(rng, n, k, n_rows, now, case="slab_kinds"):
+    """The inputs of the borrow commit (``commit_borrow_slab``, second
+    window: 500 ms buckets, two of them): the slab (future_pass, future_ws
+    [n_rows, 2]) whose cells are empty, older than, equal to or newer than
+    the windows the borrows target, and the borrows (occ [n, k], tgt
+    [n, k], acq [n], crow [n, k], some rows out of range). Targets lie on
+    four windows after now, three of them in one bucket. Cases:
+    "three_windows_one_cell", every borrow on one row; "wrap_past_2_31",
+    acquires near 2**30 on a few rows; "slab_kinds", uniform rows; "zipf",
+    Zipf(1.1) rows."""
+    wlen = 500
+    base = now - now % wlen
+    kind = rng.integers(0, 4, (n_rows, 2))
+    tgt_of = base + wlen * np.array([1, 2, 3, 5])  # buckets 1, 0, 1, 1 of base's parity
+    fws = np.choose(kind, [np.full(kind.shape, -wlen * 2 - 1), np.full(kind.shape, base - wlen),
+                           np.where(np.arange(2) == (base // wlen + 1) % 2, tgt_of[2], tgt_of[1]) + 0 * kind,
+                           np.full(kind.shape, base + 7 * wlen)]).astype(np.int32)
+    fpass = np.where(kind == 0, 0, rng.integers(1, 9, kind.shape)).astype(np.int32)
+    rows = {"three_windows_one_cell": "one", "wrap_past_2_31": "zipf", "slab_kinds": "uniform", "zipf": "zipf"}[case]
+    crow = _tail_rows(rng, n * k, min(n_rows, 4) if case == "wrap_past_2_31" else n_rows, rows).reshape(n, k)
+    crow[rng.random((n, k)) < 0.02] = n_rows + 5
+    crow[rng.random((n, k)) < 0.01] = -1
+    tgt = tgt_of[rng.integers(0, 4, (n, k))].astype(np.int32)
+    acq = (rng.integers(2**30 - 8, 2**30 + 8, n) if case == "wrap_past_2_31" else rng.integers(1, 5, n)).astype(np.int32)
+    occ = rng.random((n, k)) < 0.5
+    return (fpass, fws), (occ, tgt, acq, crow)
