@@ -74,23 +74,26 @@ admit exactly 20; phase 9 runs examples/mesh_demo.py's sequence.
 The token service's decision (K12) is held against its plain version in
 phase 2e on a token server's stream at 16,384 requests a batch and at 8,
 64 and 1,024, and with each batch's int32 cumsum past 2^31; phase 8
-drives it through st.entry on cluster-mode rules. Phases 2, 2b, 2c, 2e
-and 2f also print the device kernels, memsets and device time of one call
-of the window update (K2), the flow admission (K4, both routes, at 131,072
-entries and at 8; its time at 32,768 too), the system check (K6) and the
-breaker entry check (K8, and with the mask also at a mesh shard's 4,096
-slots) at 131,072 entries and at 8, the shaping and hot-parameter
+drives it through st.entry on cluster-mode rules. Phases 2, 2b, 2c, 2d,
+2e and 2f also print the device kernels, memsets and device time of one
+call of the window update (K2), the flow admission (K4, both routes, at
+131,072 entries and at 8; its time at 32,768 too), the system check (K6)
+and the breaker entry check (K8, and with the mask also at a mesh shard's
+4,096 slots) at 131,072 entries and at 8, the shaping and hot-parameter
 recurrences (K9 with its inputs, K10; at the mixed shape and at 8 items),
 the budget split (K15, at 131,072 entries and 8 slots), the slot chain's
-verdict tail and the borrow commit (K5; at 131,072 entries, uniform and
-Zipf, the Zipf call also by kernel, and at 8) and
-K12 (torch.profiler, gpu_timing.py), and fail if the profiler reads no
+verdict tail, the borrow commit (K5) and the breaker completions (K7; at
+131,072 entries or 32,768 exits, uniform and Zipf, also by kernel, and at
+8), the sketch fold (K11; at 131,072 keys, with and without decay, also
+by kernel, the widened tier's by kernel, and at 8 keys) and K12
+(torch.profiler, gpu_timing.py), and fail if the profiler reads no
 kernel, if K2 issues more than four kernels and memsets a call, or if K4,
-K5, K6, K8, K9, K10, K12, K15 or the tail issue anything but one kernel
-at 8 entries, items, slots or requests. For K5, K6, K8, K9, K15 and the
-tail they also time both routes at the sizes where the route is chosen
-(2,048, 4,096 and 8,192, for K5, K9, K15 and the tail also 512 and 1,024;
-with the mask 4,096), each equal to the plain version. Phase 4 reads
+K5, K6, K7, K8, K9, K10, K11, K12, K15 or the tail issue anything but one
+kernel at 8 entries, exits, keys, items, slots or requests. For K5-K9,
+K11, K15 and the tail they also time both routes at the sizes where the
+route is chosen (2,048, 4,096 and 8,192, for K5, K7, K9, K11, K15 and the
+tail also 512 and 1,024; with the mask 4,096), each equal to the plain
+version. Phase 4 reads
 cluster_node_stats every tenth flush (K3 with a row gather), on the card
 and on the CPU engine, as a path of its own: K3 is off the flush path, and
 its launches on the kernels line are those of these reads.
@@ -831,8 +834,8 @@ def phase2_chain(results: dict) -> None:
                 results[name].update(ms=k_ms, plain_ms=p_ms, **info[name])
             else:
                 results[name].update(zipf_ms=k_ms, zipf_plain_ms=p_ms)
-        if skewed:  # the tail and K5, redesigned around the touched rows and cells: their Zipf device time
-            for name in ("slot_chain_verdict", "commit_borrow_slab"):
+        if skewed:  # the tail, K5 and K7, redesigned: their Zipf device time
+            for name in ("slot_chain_verdict", "commit_borrow_slab", "breaker_on_exits"):
                 z_l, z_m, z_dev = profile(t[name][0], f"phase 2b: {name} (zipf)")
                 z_us = kernel_times(t[name][0])
                 results[name].update(zipf_launches_per_call=z_l, zipf_memsets_per_call=z_m, zipf_device_ms=z_dev,
@@ -892,6 +895,23 @@ def phase2_chain(results: dict) -> None:
             route_times(results, "commit_borrow_slab", flush, "COMMIT_BORROW_SMALL_MAX",
                         cb(flush.commit_borrow_slab, True), cb(flush.commit_borrow_slab_plain, True), tail_sizes,
                         "phase 2b", timed_at=cb(flush.commit_borrow_slab, False))
+            # K7 the same way (its first n exits); the compared calls each
+            # start from a fresh copy of the breaker state.
+            def bo(fn, fresh):
+                def at(n):
+                    xs = (batch.x_dgid[:n], batch.x_ts[:n], batch.x_rt[:n], batch.x_err[:n], batch.x_valid[:n])
+                    return lambda: fn(ddev, clone(dyn) if fresh else dyn_s, *xs)
+
+                return at
+
+            call_profile(results, "breaker_on_exits", bo(tdt.breaker_on_exits, False)(M),
+                         bo(tdt.breaker_on_exits, True)(8), bo(tdt.breaker_on_exits_plain, True)(8), "phase 2b",
+                         small_timed=bo(tdt.breaker_on_exits, False)(8))
+            results["breaker_on_exits"]["kernel_us"] = kernel_times(bo(tdt.breaker_on_exits, False)(M))
+            log(f"    breaker_on_exits: us by kernel {results['breaker_on_exits']['kernel_us']}")
+            route_times(results, "breaker_on_exits", tdt, "BREAKER_EXITS_SMALL_MAX", bo(tdt.breaker_on_exits, True),
+                        bo(tdt.breaker_on_exits_plain, True), tail_sizes, "phase 2b",
+                        timed_at=bo(tdt.breaker_on_exits, False))
         del stats, batch, ddev, dyn, dyn_x, dyn_s, slab_s, adm, adm0, v, wv
         torch.cuda.empty_cache()
 
@@ -2126,15 +2146,47 @@ def phase2_sketch(results: dict) -> None:
         b = bound(sketch_bytes(base, sk, False))
         log(f"    {case}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.topk (the top-C step) {topk_ms:.4f} ms, "
             f"index_add_ (the count-min adds) {add_ms:.4f} ms, bound {b[0]:.5f} ms")
+        r = results["sketch_fold"]
         if case == "default":
-            results["sketch_fold"].update(
+            r.update(
                 ms=k_ms, plain_ms=p_ms, library_ms=topk_ms, index_add_ms=add_ms, bound=b,
                 library_call=f"torch.topk(k={c}) over the {c + SK_S} merged counts (the top-C step only); "
                              "index_add_ms: Tensor.index_add_ of the count-min adds",
                 shape=f"depth {d}, width {w}, {c} candidates, S={SK_S} distinct keys",
             )
+            # Kernels, memsets and device time a call at S keys (and with
+            # decay) and at 8, and each route at 512-8,192 keys; the compared
+            # calls each start from a fresh copy of the state.
+            def fold(fn, fresh, decay=False):
+                def at(n):
+                    sk_n = tsk.SketchBatch(sk.ids[:n].clone(), sk.w[:n].clone())
+                    return lambda: fn(clone(base) if fresh else scratch, sk_n, decay)
+
+                return at
+
+            call_profile(results, "sketch_fold", fold(tsk.sketch_fold, False)(SK_S),
+                         fold(tsk.sketch_fold, True)(8), fold(tsk.sketch_fold_plain, True)(8), "phase 2d",
+                         small_timed=fold(tsk.sketch_fold, False)(8))
+            r["kernel_us"] = kernel_times(fold(tsk.sketch_fold, False)(SK_S))
+            decayed = fold(tsk.sketch_fold, False, True)(SK_S)
+            r["decay_ms"] = time_ms(decayed)
+            r["decay_launches_per_call"], r["decay_memsets_per_call"], r["decay_device_ms"] = profile(
+                decayed, "phase 2d: sketch_fold with decay")
+            r["decay_kernel_us"] = kernel_times(decayed)
+            log(f"    sketch_fold: us by kernel {r['kernel_us']}; with decay {r['decay_ms']:.4f} ms, "
+                f"{r['decay_launches_per_call']} kernels, {r['decay_memsets_per_call']} memsets, "
+                f"{r['decay_device_ms']:.4f} ms of device time, us by kernel {r['decay_kernel_us']}")
+            route_times(results, "sketch_fold", tsk, "SKETCH_FOLD_SMALL_MAX", fold(tsk.sketch_fold, True),
+                        fold(tsk.sketch_fold_plain, True), (512, 1024, 2048, 4096, 8192), "phase 2d",
+                        timed_at=fold(tsk.sketch_fold, False))
         else:
-            results["sketch_fold"][f"{case}_ms"] = k_ms
+            r[f"{case}_ms"] = k_ms
+            if case == "widened":
+                wide = lambda: tsk.sketch_fold(scratch, sk, False)
+                _, _, r["widened_device_ms"] = profile(wide, "phase 2d: sketch_fold (widened)")
+                r["widened_kernel_us"] = kernel_times(wide)
+                log(f"    widened: {r['widened_device_ms']:.4f} ms of device time, us by kernel "
+                    f"{r['widened_kernel_us']}")
         del base, sk, scratch, m_cnt, flat, wt
         torch.cuda.empty_cache()
     results["sketch_fold"]["max_abs_err"] = err
@@ -3079,7 +3131,9 @@ def main() -> None:
                       "device_ms",
                       "small_ms", "small_launches_per_call", "small_memsets_per_call", "small_device_ms",
                       "small_bound_ms", "ms_32768", "routes", "small_max", "shard_ms", "shard_launches_per_call",
-                      "shard_memsets_per_call", "shard_device_ms"):
+                      "shard_memsets_per_call", "shard_device_ms", "kernel_us", "decay_ms",
+                      "decay_launches_per_call", "decay_memsets_per_call", "decay_device_ms", "decay_kernel_us",
+                      "widened_device_ms", "widened_kernel_us"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

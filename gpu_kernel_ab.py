@@ -1,16 +1,26 @@
 """Times the window update (K2), the flow admission (K4), the borrow commit
-(K5), the system check (K6), the breaker entry check (K8), the slot
-chain's verdict tail, the shaping recurrence with its inputs (K9), the
+(K5), the system check (K6), the breaker completions (K7), the breaker
+entry check (K8), the slot chain's verdict tail, the sketch fold (K11), the shaping recurrence with its inputs (K9), the
 hot-parameter recurrence (K10), the token decision (K12) and the mesh
 budget split (K15) of one checkout of
 sentinel_tpu_torch on the card, so that two commits can be compared on
 one card in alternating runs:
 
-    python3 gpu_kernel_ab.py --root path/to/checkout [--tag name]
+    python3 gpu_kernel_ab.py --root path/to/checkout [--tag name] [--only k7,k11]
 
 It builds that checkout's kernels, then times, with CUDA events around
 back-to-back calls (gpu_timing.time_ms):
 
+- K7: 32,768 exits (KD = 1, 30% errors, 95% valid, ts over 400 ms) into
+  1,048,576 breakers of the three grades (60% CLOSED, 25% OPEN, 15%
+  HALF_OPEN), on uniform breakers and on Zipf(1.1) ones (``k7_zipf``),
+  and the first 8 exits; the state is updated in place call after call;
+- K11: chip_smoke.py phase 2d's tiers at 131,072 keys after eight earlier
+  folds: the default tier (depth 4, width 2,048, 64 candidates, distinct
+  keys) and the widened one (``k11_widened``: depth 8, width 2^20, 1,024
+  candidates, host-aggregated Zipf ids with duplicates and padding), each
+  without and with decay (``*_decay``), and the default tier's first 8
+  keys;
 - K2: 524,288 entry updates (uniform rows, 90% masked in, the last 100 ms
   of clock) into the minute window [1,048,576, 60, 6];
 - K4: the DEFAULT path with its tail and top-8 at 131,072 and at 8 entries
@@ -53,10 +63,12 @@ commit_borrow_slab); the token batches are chip_smoke.py's
 (gpu_timing.token_batch). Each call's device kernels, memsets and device
 time are read from torch.profiler over 20 calls, and for K4, K5, K6, K9,
 K10, K15 and the tail at full size the device us a call by kernel
-(k4_kernel_us, k5_kernel_us, k5_uniform_kernel_us, k6_kernel_us,
+(k4_kernel_us, k5_kernel_us, k7_kernel_us, k7_zipf_kernel_us, k11_kernel_us,
+k11_decay_kernel_us, k11_widened_kernel_us, k11_widened_decay_kernel_us, k5_uniform_kernel_us, k6_kernel_us,
 k9_kernel_us, k10_kernel_us, k15_kernel_us, k15_borrow_kernel_us,
 tail_kernel_us, tail_zipf_kernel_us, tail_zipf_blocked_kernel_us); the
-script fails if the profiler reads no kernel. Prints one JSON line that
+script fails if the profiler reads no kernel. ``--only k7,k11`` times K7
+and K11 alone. Prints one JSON line that
 carries the card's name and power limit. Needs CUDA; imports no JAX. The
 helpers come from the gpu_timing.py beside this script, whichever
 checkout it times.
@@ -86,6 +98,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="checkout whose sentinel_tpu_torch is timed")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--only", default="", choices=("", "k7,k11"), help="time K7 and K11 alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("gpu_kernel_ab: no CUDA device")
@@ -100,14 +113,85 @@ def main() -> None:
     from sentinel_tpu_torch.rules import shaping as tsh
     from sentinel_tpu_torch.rules.flow_table import flow_table_from_numpy
     from sentinel_tpu_torch.runtime import flush
+    from sentinel_tpu_torch.runtime import sketch as tsk
     from sentinel_tpu_torch.runtime.engine import _rounds_bucket
     from sentinel_tpu_torch.utils import cuda_build
 
     cuda_build.build_all(["window_update", "token_decide", "flow_admission", "param_scan", "system_check",
-                          "breaker_try_pass", "shaping_scan", "mesh_budget", "commit_borrow_slab"])
+                          "breaker_on_exits", "breaker_try_pass", "shaping_scan", "mesh_budget",
+                          "commit_borrow_slab", "sketch_fold"])
     dev = torch.device("cuda", 0)
     i32 = torch.int32
     out = {"tag": args.tag, "root": args.root, "card": card_line(), "torch": torch.__version__}
+
+    def profiled(name, fn):
+        out[f"{name}_ms"] = time_ms(fn)
+        out[f"{name}_launches_per_call"], out[f"{name}_memsets_per_call"], out[f"{name}_device_ms"] = (
+            device_profile(fn))
+
+    # K7: 32,768 exits into 1,048,576 breakers, uniform and Zipf(1.1), and 8.
+    rng7 = np.random.default_rng(7)
+    nd7, m7, now7 = 1 << 20, 1 << 15, 1_000_000
+    t7 = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    ri7 = lambda lo, hi: rng7.integers(lo, hi, nd7).astype(np.int32)
+    grade7 = ri7(0, 3)
+    thr7 = np.where(grade7 == 0, ri7(50, 150),
+                    np.where(grade7 == 1, 0.3 + 0.4 * rng7.random(nd7), ri7(2, 7))).astype(np.float32)
+    min_req7 = np.where(rng7.random(nd7) < 0.05, 2**31 - 1, ri7(2, 6)).astype(np.int32)
+    dtab7 = tdt.degrade_table_from_numpy(
+        (grade7, thr7, np.full(nd7, 0.5, np.float32), min_req7, np.full(nd7, 1000, np.int32),
+         np.full(nd7, 5000, np.int32), np.floor(thr7 + 0.5).astype(np.int32)), dev)
+    u7, bad7 = rng7.random(nd7), ri7(0, 4)
+    ddyn7 = tdt.degrade_state_from_numpy(
+        (np.where(u7 < 0.6, 0, np.where(u7 < 0.85, 1, 2)), now7 + ri7(-2000, 2000), bad7, bad7 + ri7(0, 4),
+         now7 - now7 % 1000 - 1000 * ri7(0, 2)), dev)
+    x7 = (t7(np.sort(now7 - 400 + rng7.integers(0, 400, m7)).astype(np.int32)),
+          t7(rng7.integers(0, 200, m7).astype(np.int32)), t7((rng7.random(m7) < 0.3).astype(np.int32)),
+          t7(rng7.random(m7) < 0.95))
+    for name, gids in (("k7", rng7.integers(0, nd7, m7)), ("k7_zipf", np.minimum(rng7.zipf(1.1, m7), nd7) - 1)):
+        xg = t7(gids.astype(np.int32)[:, None])
+        k7 = lambda m, xg=xg: lambda: tdt.breaker_on_exits(dtab7, ddyn7, xg[:m], *(a[:m] for a in x7))
+        profiled(name, k7(m7))
+        out[f"{name}_kernel_us"] = kernel_times(k7(m7))
+        if name == "k7":
+            profiled("k7_small", k7(8))
+    del dtab7, ddyn7, x7, xg
+
+    # K11: phase 2d's default and widened tiers, 131,072 keys, decay off and
+    # on; the default tier's first 8 keys.
+    rng11 = np.random.default_rng(11)
+    s11 = 1 << 17
+    keys11 = rng11.permutation(np.unique(rng11.integers(0, 2**31 - 1, 14 * s11))[: 9 * s11]).astype(np.int32)
+    sk_batch = lambda ids, w: tsk.SketchBatch(t7(np.asarray(ids, np.int32)), t7(np.asarray(w, np.int32)))
+    for name, (depth, width, c) in (("k11", (4, 2048, 64)), ("k11_widened", (8, 1 << 20, 1024))):
+        st11 = tsk.make_sketch_state(depth, width, c, dev)
+        for k in range(8):
+            ids = keys11[k * s11:(k + 1) * s11]
+            tsk.sketch_fold_plain(st11, sk_batch(ids, rng11.integers(1, 5, s11)), decay=k == 4)
+        if name == "k11_widened":
+            draws = rng11.zipf(1.1, 6 * 10**6)
+            uniq, cnt = np.unique(draws[draws <= 10**6], return_counts=True)
+            n_agg = s11 - 2048
+            ids = np.concatenate([keys11[uniq[:n_agg] - 1], keys11[uniq[:1024] - 1], np.full(1024, -1)])
+            w = np.concatenate([cnt[:n_agg], cnt[:1024], np.zeros(1024, np.int64)])
+        else:
+            ids = keys11[8 * s11:9 * s11].copy()
+            ids[: c // 3] = st11.cand_ids[: c // 3].cpu().numpy()
+            w = rng11.integers(1, 5, s11)
+        sk = sk_batch(ids, w)
+        for decay in (False, True):
+            tag = name + ("_decay" if decay else "")
+            fold = lambda sk=sk, decay=decay: tsk.sketch_fold(st11, sk, decay)
+            profiled(tag, fold)
+            out[f"{tag}_kernel_us"] = kernel_times(fold)
+        if name == "k11":
+            sk8 = tsk.SketchBatch(sk.ids[:8].clone(), sk.w[:8].clone())
+            profiled("k11_small", lambda: tsk.sketch_fold(st11, sk8, False))
+    del st11, sk
+    torch.cuda.empty_cache()
+    if args.only:
+        print(json.dumps(out), flush=True)
+        return
 
     # K2: 524,288 entry updates into the minute window of 1,048,576 rows.
     cfg, rows_n, n, now = nodes.MINUTE_CFG, 1 << 20, 1 << 19, 1_000_000
@@ -134,11 +218,6 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # K4: 131,072 entries (and their first 8) against 1,048,576 rules.
-    def profiled(name, fn):
-        out[f"{name}_ms"] = time_ms(fn)
-        out[f"{name}_launches_per_call"], out[f"{name}_memsets_per_call"], out[f"{name}_device_ms"] = (
-            device_profile(fn))
-
     gen.manual_seed(4)
     scfg, n, now = nodes.SECOND_CFG, 1 << 17, 1_000_000
     b, wlen = scfg.sample_count, scfg.window_len_ms

@@ -1,8 +1,8 @@
 // Single-pass prefix scans across the blocks of one launch (decoupled
 // look-back), and the segmented prefix of the JAX package in that form.
 // Included by token_decide.cu (K12), flow_admission.cu (K4),
-// system_check.cu (K6), shaping_scan.cu (K9), param_scan.cu (K10) and
-// mesh_budget.cu (K15); each source builds into its own library, so
+// system_check.cu (K6), breaker_on_exits.cu (K7), shaping_scan.cu (K9),
+// param_scan.cu (K10) and mesh_budget.cu (K15); each source builds into its own library, so
 // everything here is local to the including file.
 //
 // A launch that scans takes its tiles in the order its blocks start (an
@@ -84,18 +84,19 @@ __device__ __forceinline__ int chan(int2 v, int ch) { return ch == 0 ? v.x : v.y
 // wrapping exclusive sum of `acq` minus the running max of the group-start
 // snapshots, JAX's excl - cummax(where(head, excl, 0)). Padding items have
 // acq 0 and no head. Past 2^31 the running max can pick an earlier
-// group's head, as in JAX; a per-group sum would differ there.
-template <int MAXI, int NCH, class Carry>
+// group's head, as in JAX; a per-group sum would differ there. NT: the
+// block's threads (a one-block route of 1,024 takes NoCarry).
+template <int MAXI, int NCH, class Carry, int NT = THREADS>
 __device__ void charges(int cnt, const int2 (&acq)[MAXI], const bool (&head)[MAXI], int2 (&charge)[MAXI],
                         Carry& carry) {
-  __shared__ int2 warp_tot[NWARPS];
+  __shared__ int2 warp_tot[NT / 32];
   __shared__ int bcast[NCH];
   int2 total;
   int2 local = SumOp::id();
 #pragma unroll
   for (int k = 0; k < MAXI; ++k)
     if (k < cnt) local = SumOp::op(local, acq[k]);
-  int2 ex = block_exclusive_scan<SumOp>(local, warp_tot, total);
+  int2 ex = block_exclusive_scan<SumOp, NT>(local, warp_tot, total);
   const int warp = threadIdx.x >> 5;  // warp ch walks channel ch
   if (warp < NCH) {
     int c = carry.sum_in(warp, chan(total, warp));
@@ -115,7 +116,7 @@ __device__ void charges(int cnt, const int2 (&acq)[MAXI], const bool (&head)[MAX
     }
   }
   __syncthreads();  // bcast is read by every thread before it is written again
-  int2 mx = block_exclusive_scan<MaxOp>(snap, warp_tot, total);
+  int2 mx = block_exclusive_scan<MaxOp, NT>(snap, warp_tot, total);
   if (warp < NCH) {
     int c = carry.max_in(warp, chan(total, warp));
     if ((threadIdx.x & 31) == 0) bcast[warp] = c;

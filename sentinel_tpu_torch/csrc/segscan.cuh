@@ -1,10 +1,10 @@
 // Shared device code of the port's kernels: wrapping int32 arithmetic,
 // the three-phase block scan over int2 pairs (block totals, one block
 // scanning the totals, block scan plus carry), segment-head search and
-// floor division. Included by breaker_on_exits.cu (K7) and, through
-// lookback.cuh and bitonic.cuh, by K4, K5, K6, K9, K10, K12 and K15-K16
-// (mesh_budget.cu: K16 takes the three-phase scans); each source builds
-// into its own library, so everything here is local to the including file.
+// floor division, and the dynamic shared memory limit. Included through
+// lookback.cuh and bitonic.cuh by K4-K7, K9-K12 and K15-K16 (mesh_budget.cu:
+// K16 takes the three-phase scans); each source builds into its own
+// library, so everything here is local to the including file.
 //
 // The segmented prefixes of the JAX package are computed there as a
 // wrapping int32 cumsum minus a running max of group-start values; this
@@ -203,5 +203,21 @@ inline int bits_for(long long v) {  // bits to hold 0..v (a radix sort's end_bit
   return n;
 }
 inline size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }  // workspace offsets
+
+// Lets `Kernel` take up to `max_bytes` of dynamic shared memory on the
+// current device: the attribute is set the first time a call there needs
+// more than the default 48 KB, and later calls cost one cudaGetDevice.
+// Returns a CUDA error code.
+template <auto Kernel>
+int dyn_smem_once(size_t need, int max_bytes) {
+  static unsigned long long done = 0;  // one bit per device
+  if (need <= 48 * 1024) return 0;
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err || (dev < 64 && ((done >> dev) & 1))) return err;
+  err = (int)cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_bytes);
+  if (!err && dev < 64) done |= 1ull << dev;
+  return err;
+}
 
 }  // namespace

@@ -20,7 +20,8 @@ transition is applied only when that entry is admitted end to end.
 
 Kernels here, each beside its plain PyTorch version:
 
-* :func:`breaker_on_exits` (K7): CUDA C++, ``csrc/breaker_on_exits.cu``;
+* :func:`breaker_on_exits` (K7): CUDA C++, ``csrc/breaker_on_exits.cu``,
+  one host call (``BoArgs``);
 * :func:`breaker_try_pass` (K8): CUDA C++, ``csrc/breaker_try_pass.cu``.
 
 :func:`apply_probe_transitions` has a plain version only: on the card it
@@ -371,12 +372,19 @@ def _lib(name: str, setup) -> ctypes.CDLL:
     return lib
 
 
+class _BoArgs(ctypes.Structure):
+    """The ``BoArgs`` of ``csrc/breaker_on_exits.cu``, field for field."""
+
+    _fields_ = [(name, _P) for name in (
+        "x_dgid", "x_ts", "x_rt", "x_err", "x_valid", *DegradeTableDevice._fields, *DegradeDynState._fields,
+    )] + [(name, _I) for name in ("m", "kd", "nd", "small_max")]
+
+
 def _setup_exits(lib) -> None:
-    lib.breaker_on_exits_keys.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P]
-    lib.breaker_on_exits_tiles.argtypes = [_I]
-    lib.breaker_on_exits_apply.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I] + [_P] * 7 + [_P] * 5 + [_P] * 10 + [_P]
-    for f in (lib.breaker_on_exits_keys, lib.breaker_on_exits_tiles, lib.breaker_on_exits_apply):
-        f.restype = _I
+    lib.breaker_on_exits_workspace.argtypes = [_I, _I, _I]
+    lib.breaker_on_exits_workspace.restype = ctypes.c_longlong
+    lib.breaker_on_exits.argtypes = [ctypes.POINTER(_BoArgs), _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P]
+    lib.breaker_on_exits.restype = _I
 
 
 def _setup_try(lib) -> None:
@@ -407,7 +415,29 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+_BO_WORKSPACE: Dict[Tuple[int, int], int] = {}  # (slots, breakers) -> bytes
+
+
+def _bo_workspace(lib, mk: int, nd: int) -> int:
+    """Workspace bytes of K7's many-block route, asked of the C side once
+    per shape."""
+    got = _BO_WORKSPACE.get((mk, nd))
+    if got is None:
+        got = _BO_WORKSPACE[(mk, nd)] = int(lib.breaker_on_exits_workspace(mk, nd, 0))
+    return got
+
+
+# Exit slots of K7's one-block route (the C side takes at most 8,192):
+# above it the sort is CUB's and the scan a single pass over many blocks,
+# which take less device time from 1,024 slots up (chip_smoke.py 2b).
+BREAKER_EXITS_SMALL_MAX = 512
+
+
 def _breaker_on_exits_cuda(ddev, dyn, x_dgid, x_ts, x_rt, x_err, x_valid) -> DegradeDynState:
+    """K7 in one host call: one block up to BREAKER_EXITS_SMALL_MAX slots,
+    else a CUB sort, a single-pass scan and the write-back; two cells per
+    breaker in the zeroed scratch, which the call leaves zeroed. No sort
+    or allocation here."""
     m, kd = x_dgid.shape
     _check(x_dgid, "x_dgid", torch.int32, (m, kd))
     for name, t in (("x_ts", x_ts), ("x_rt", x_rt), ("x_err", x_err)):
@@ -419,30 +449,13 @@ def _breaker_on_exits_cuda(ddev, dyn, x_dgid, x_ts, x_rt, x_err, x_valid) -> Deg
         return dyn
     lib = _lib("breaker_on_exits", _setup_exits)
     nd = ddev.n_rules
-    dev = x_dgid.device
+    a = _BoArgs(x_dgid.data_ptr(), x_ts.data_ptr(), x_rt.data_ptr(), x_err.data_ptr(), x_valid.data_ptr(),
+                *(t.data_ptr() for t in ddev), *(t.data_ptr() for t in dyn), m, kd, nd, BREAKER_EXITS_SMALL_MAX)
+    need = 0 if mk <= BREAKER_EXITS_SMALL_MAX else _bo_workspace(lib, mk, nd)
+    zero_bytes = 16 * nd  # a crossing cell and a probe cell per breaker
     st = _stream(x_dgid)
-    keys = torch.empty(mk, dtype=torch.int64, device=dev)
-    cuda_build.check(
-        lib.breaker_on_exits_keys(x_dgid.data_ptr(), x_ts.data_ptr(), x_valid.data_ptr(), m, kd, nd,
-                                  keys.data_ptr(), st),
-        "breaker_on_exits_keys",
-    )
-    key_s, perm = torch.sort(keys, stable=True)
-    tiles = lib.breaker_on_exits_tiles(mk)
-    scratch = torch.empty(mk * 9 + tiles * 4, dtype=torch.int32, device=dev)
-    seg = [scratch[j * mk : (j + 1) * mk] for j in range(5)]  # head, ws, first cross, total, bad
-    contrib, excl = scratch[5 * mk : 7 * mk], scratch[7 * mk : 9 * mk]
-    partial, partial_max = scratch[9 * mk : 9 * mk + 2 * tiles], scratch[9 * mk + 2 * tiles :]
-    new_grp = torch.empty(mk, dtype=torch.uint8, device=dev)
-    cuda_build.check(
-        lib.breaker_on_exits_apply(
-            key_s.data_ptr(), perm.data_ptr(), x_rt.data_ptr(), x_err.data_ptr(), x_ts.data_ptr(), m, kd, nd,
-            *(t.data_ptr() for t in ddev), *(t.data_ptr() for t in dyn),
-            *(t.data_ptr() for t in seg), contrib.data_ptr(), excl.data_ptr(), partial.data_ptr(),
-            partial_max.data_ptr(), new_grp.data_ptr(), st,
-        ),
-        "breaker_on_exits_apply",
-    )
+    with cuda_build.scratch(x_dgid.device, st, need, zero_bytes) as (buf, size, zero):
+        cuda_build.check(lib.breaker_on_exits(ctypes.byref(a), buf, size, zero, zero_bytes, st), "breaker_on_exits")
     breaker_on_exits.launches += 1
     return dyn
 

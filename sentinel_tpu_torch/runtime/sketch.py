@@ -25,13 +25,13 @@ cardinality, with heavy-hitter promotion to exact dense rows (port of
 Key ids are 31-bit CRC32 hashes of the key string; an id collision only
 ever over-estimates, as the count-min bound does.
 
-K11 is CUDA C++ (``csrc/sketch_fold.cu``): the optional halving, the
-count-min adds (integer atomics, exact and wrapping as XLA's add), the
-post-update estimates behind a launch boundary, one CUB sort of the key
-ids (``torch.sort``), and a hand-written block top-C with a merge over
-the candidates and the batch's distinct keys, ordered by count
-descending then index ascending as ``lax.top_k`` breaks ties. CPU tensors
-take :func:`sketch_fold_plain`.
+K11 is CUDA C++ (``csrc/sketch_fold.cu``), one host call (``SfArgs``):
+the optional halving, the count-min adds (integer atomics, exact and
+wrapping as XLA's add), the post-update estimates, dedupe of the batch's
+ids in a hash table, and the top C of the candidates and the batch's
+distinct keys by a radix select over one 64-bit key per entry, ordered by
+count descending then index ascending as ``lax.top_k`` breaks ties; no
+sort of the batch. CPU tensors take :func:`sketch_fold_plain`.
 
 Not ported here: the DEGRADED host fold (``fold_host_chunk``) and the
 checkpoint of the sketch state (ROADMAP Queue 1 item 7), the sketch's
@@ -257,28 +257,43 @@ def sketch_fold_plain(st: SketchState, sk: SketchBatch, decay: bool = False) -> 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Keys per block of the kernel's top-C passes: a power of two from 4,096 up
-# to 16,384 (128 KB of shared memory), at least twice the candidates.
-_TOPC_TILE_MIN, _TOPC_TILE_MAX = 4096, 16384
-MAX_CANDIDATES = _TOPC_TILE_MAX // 2
+MAX_CANDIDATES = 8192  # candidates the kernel keeps at most
+# Keys of K11's one-block route (the C side takes at most 8,192, with C + S
+# <= 16,384, and with decay only where one block halves the array).
+SKETCH_FOLD_SMALL_MAX = 2048
 
 
-def _topc_tile(c: int) -> int:
-    t = _TOPC_TILE_MIN
-    while t < 2 * c:
-        t <<= 1
-    return t
+class _SfArgs(ctypes.Structure):
+    """The ``SfArgs`` of ``csrc/sketch_fold.cu``, field for field."""
+
+    _fields_ = [(name, _P) for name in ("cm", "cand_ids", "cand_cnt", "ids", "w")] + [
+        (name, _I) for name in ("depth", "width", "c", "s", "decay", "small_max")]
 
 
 def _sf_lib() -> ctypes.CDLL:
     lib = cuda_build.load("sketch_fold")
     if not getattr(lib, "_typed", False):
-        lib.sketch_fold_adds.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P]
-        lib.sketch_fold_topc.argtypes = [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P]
-        for f in (lib.sketch_fold_adds, lib.sketch_fold_topc):
-            f.restype = _I
+        lib.sketch_fold_scratch.argtypes = [ctypes.POINTER(_SfArgs), ctypes.POINTER(ctypes.c_longlong * 2)]
+        lib.sketch_fold_scratch.restype = None
+        lib.sketch_fold.argtypes = [ctypes.POINTER(_SfArgs), _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P]
+        lib.sketch_fold.restype = _I
         lib._typed = True
     return lib
+
+
+_SF_SCRATCH: Dict[Tuple[int, ...], Tuple[int, int]] = {}  # (d, w, c, s, decay, small_max) -> bytes
+
+
+def _sf_scratch(lib, a: _SfArgs) -> Tuple[int, int]:
+    """(workspace, zeroed) bytes of a fold of this shape, asked of the C
+    side once per shape."""
+    key = (a.depth, a.width, a.c, a.s, a.decay, a.small_max)
+    got = _SF_SCRATCH.get(key)
+    if got is None:
+        out = (ctypes.c_longlong * 2)()
+        lib.sketch_fold_scratch(ctypes.byref(a), ctypes.byref(out))
+        got = _SF_SCRATCH[key] = (int(out[0]), int(out[1]))
+    return got
 
 
 def _check_i32(t: torch.Tensor, what: str, shape) -> None:
@@ -287,6 +302,9 @@ def _check_i32(t: torch.Tensor, what: str, shape) -> None:
 
 
 def _sketch_fold_cuda(st: SketchState, sk: SketchBatch, decay: bool) -> SketchState:
+    """K11 in one host call: one block up to SKETCH_FOLD_SMALL_MAX keys,
+    else two launches (three with decay) over the zeroed scratch, which the
+    call leaves zeroed. No sort, no allocation."""
     d, w = st.cm.shape
     c = st.cand_ids.shape[0]
     s = sk.ids.shape[0]
@@ -302,24 +320,13 @@ def _sketch_fold_cuda(st: SketchState, sk: SketchBatch, decay: bool) -> SketchSt
     if s == 0:
         raise ValueError("sketch_fold: an empty key batch (the engine pads it to at least 8)")
     lib = _sf_lib()
+    a = _SfArgs(st.cm.data_ptr(), st.cand_ids.data_ptr(), st.cand_cnt.data_ptr(), sk.ids.data_ptr(),
+                sk.w.data_ptr(), d, w, c, s, int(decay), SKETCH_FOLD_SMALL_MAX)
+    need, zero_bytes = _sf_scratch(lib, a)
     dev = st.cm.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    est = torch.empty(s, dtype=torch.int32, device=dev)
-    key = torch.empty(s, dtype=torch.int32, device=dev)
-    cuda_build.check(
-        lib.sketch_fold_adds(st.cm.data_ptr(), d, w, st.cand_cnt.data_ptr(), c, int(decay), sk.ids.data_ptr(),
-                             sk.w.data_ptr(), s, est.data_ptr(), key.data_ptr(), stream),
-        "sketch_fold_adds",
-    )
-    ids_s, perm = torch.sort(key)  # CUB radix sort; equal ids carry equal estimates
-    tile = _topc_tile(c)
-    tiles = (c + s + tile - 1) // tile
-    buf = torch.empty(2 * tiles * c, dtype=torch.int64, device=dev)
-    cuda_build.check(
-        lib.sketch_fold_topc(ids_s.data_ptr(), perm.data_ptr(), est.data_ptr(), s, st.cand_ids.data_ptr(),
-                             st.cand_cnt.data_ptr(), c, tile, buf.data_ptr(), buf[tiles * c :].data_ptr(), stream),
-        "sketch_fold_topc",
-    )
+    with cuda_build.scratch(dev, stream, need, zero_bytes) as (buf, size, zero):
+        cuda_build.check(lib.sketch_fold(ctypes.byref(a), buf, size, zero, zero_bytes, stream), "sketch_fold")
     sketch_fold.launches += 1
     return st
 

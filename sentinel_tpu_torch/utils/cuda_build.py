@@ -12,8 +12,9 @@ first launch builds, or a caller builds every source at once with
 Scratch: a kernel's wrapper takes its scratch from :func:`scratch`, one
 buffer per (device, stream) kept between calls and grown by doubling, and
 a buffer that must be zero at the start of a call (the blocked-weight
-top-K's of K4, the probe election's cells of K8), which every kernel that
-writes it leaves all zero. One lock covers every call that uses them.
+top-K's of K4, the probe election's cells of K8, K7's breaker cells,
+K11's id table, among others), which every kernel that writes it leaves
+all zero. One lock covers every call that uses them.
 
 Checks: a wrapper checks the tables it is given on every call, or through
 :func:`check_once` for tables its callers pass call after call.

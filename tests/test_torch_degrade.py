@@ -4,7 +4,9 @@ plain PyTorch versions on the CPU) against the JAX package, bit for bit:
 on seeded inputs with (gid, ts) ties, a hot breaker, exits from
 superseded windows, breakers in all three states and of all three
 grades, min_request at its padding value and retry deadlines that wrap
-int32; the compiled breaker table; the scenarios of
+int32; the order and window edges of the exits (equal (gid, ts) exits,
+HALF_OPEN probes at a shared ts, superseded windows, min_request
+2^31 - 1, a hot breaker); the compiled breaker table; the scenarios of
 tests/test_degrade.py run on both engines in lockstep; and the
 degrade demo's sequence on the port."""
 
@@ -17,7 +19,8 @@ import torch
 from sentinel_tpu.rules import degrade_table as jdt
 from sentinel_tpu_torch.rules import degrade_table as tdt
 
-from torch_parity import assert_same, block_of, many_candidates, random_degrade, random_exits, run_on_both
+from torch_parity import (BREAKER_EXIT_CASES, assert_same, block_of, breaker_exit_case, many_candidates,
+                          random_degrade, random_exits, run_on_both)
 
 CPU = torch.device("cpu")
 ND = 16
@@ -53,6 +56,41 @@ def test_breaker_on_exits_parity(seed, near_max):
         before, after = dyn[0], want.state
         assert ((before == 0) & (after == 1)).any(), "CLOSED -> OPEN"
         assert ((before == 2) & (after != 2)).any(), "HALF_OPEN resolved"
+
+
+def _edge_expectations(case, got, w0=700_000):
+    """What each order and window edge must do to copy 0's breakers (ids
+    0-4), read from the JAX result: the inputs exercise the edge."""
+    st, nr, bad, total = got.state, got.next_retry, got.bad, got.total
+    t = w0 + 500
+    if case == "equal_ts_order":
+        assert st[:5].tolist() == [1, 0, 1, 0, 1], "bad then good crosses, good then bad does not"
+    elif case == "half_open_shared_ts":
+        assert st[:4].tolist() == [1, 0, 1, 0] and nr[0] == t + 5000 and nr[2] == 5000 and total[1] == 0
+    elif case == "superseded_then_newer":
+        assert st[:4].tolist() == [0, 1, 0, 1] and total[0] == 3 and nr[1] == w0 + 40 + 5000
+        assert nr[3] == w0 + 1003 + 5000 and total[2] == 4
+    elif case == "all_older":
+        assert st[:3].tolist() == [0, 0, 1] and (bad[0], total[0]) == (1, 2) and nr[2] == w0 - 1000 + 5 + 5000
+    elif case == "min_request_max":
+        assert st[0] == 0
+
+
+@pytest.mark.parametrize("copies", [1, 3])
+@pytest.mark.parametrize("case", BREAKER_EXIT_CASES)
+def test_breaker_on_exits_edges_match_jax(case, copies):
+    """The order and window edges of breaker_on_exits (torch_parity.
+    breaker_exit_case): equal (gid, ts) exits whose bad/good order decides
+    a crossing; HALF_OPEN breakers whose first two exits share a ts;
+    segments from a superseded window into a newer one; every exit older
+    than the window; min_request 2^31 - 1; a hot breaker taking most of the
+    batch. One copy, and three interleaved."""
+    table, dyn, x = breaker_exit_case(case, copies, seed=copies)
+    (jt, jd), (tt, td) = _both_tables(table, dyn)
+    want = jax.device_get(_j_on_exits(jt, jd, *map(jnp.asarray, x)))
+    tdt.breaker_on_exits(tt, td, *_t(*x))
+    assert_same(want, tdt.degrade_state_to_numpy(td), case)
+    _edge_expectations(case, want)
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -62,9 +62,39 @@ def _rules(cls, specs=RULES):
     return [cls(**r) for r in specs]
 
 
+PINNED_LOAD, PINNED_CPU = 4.0, 0.2  # what the chain streams' system samplers read
+
+
+@pytest.fixture
+def pinned_samplers():
+    """Both packages' system samplers forced to (PINNED_LOAD, PINNED_CPU)
+    for the test, then set back to what they read before and unforced, so
+    that no later test depends on what this one left behind. Yields the
+    two samplers (JAX, port)."""
+    from sentinel_tpu.utils.system_status import sampler as jsampler
+    from sentinel_tpu_torch.utils.system_status import sampler as tsampler
+
+    saved = [(smp, smp.read()) for smp in (jsampler, tsampler)]
+    for smp, _ in saved:
+        smp.force(load=PINNED_LOAD, cpu=PINNED_CPU)
+    try:
+        yield jsampler, tsampler
+    finally:
+        for smp, (load, cpu) in saved:
+            smp.force(load=load, cpu=cpu)
+            smp.unforce()
+
+
+def _assert_pinned(samplers):
+    for smp in samplers:
+        assert smp.read() == (PINNED_LOAD, PINNED_CPU), "a system sampler is not pinned"
+
+
 class _Pair:
     """The two engines driven in lockstep. ``chain`` also loads degrade,
-    system and authority rules on both, with both system samplers pinned."""
+    system and authority rules on both; a test that drives it takes the
+    ``pinned_samplers`` fixture, so that both system samplers read fixed
+    values."""
 
     def __init__(self, start_ms, chain=False):
         self.jclock = JClock(start_ms)
@@ -176,21 +206,17 @@ def test_engine_stream_parity(seed):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_engine_chain_stream_parity(seed):
+def test_engine_chain_stream_parity(seed, pinned_samplers):
     """The stream of test_engine_stream_parity with the whole slot chain
     loaded: breakers on four resources, a system config (QPS, threads
     and BBR load), authority rules on two, prioritized singles, and exits
     that complete the breakers. Verdicts, wait_ms, limit types,
     attribution, stats and breaker state must agree after every flush."""
-    from sentinel_tpu.utils.system_status import sampler as jsampler
-    from sentinel_tpu_torch.utils.system_status import sampler as tsampler
-
+    _assert_pinned(pinned_samplers)
     config.set(config.OCCUPY_TIMEOUT_MS, "1000")
     from sentinel_tpu.utils.config import config as jconfig
 
     jconfig.set(jconfig.OCCUPY_TIMEOUT_MS, "1000")
-    for smp in (jsampler, tsampler):
-        smp.force(load=4.0, cpu=0.2)
     try:
         rng = np.random.default_rng(100 + seed)
         now = 20_000
@@ -242,8 +268,6 @@ def test_engine_chain_stream_parity(seed):
         pair.both("_apply_rebase", 60_000)
         assert_same(jax.device_get(pair.j.degrade_dyn), degrade_state_to_numpy(pair.t.degrade_dyn), "rebased")
     finally:
-        for smp in (jsampler, tsampler):
-            smp.force(load=-1.0, cpu=-1.0)
         config.reset()
         jconfig.reset()
 
@@ -286,7 +310,7 @@ def _load_growth_rules(pair, specs):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_engine_row_growth_lockstep(seed):
+def test_engine_row_growth_lockstep(seed, pinned_samplers):
     """The two engines from sentinel.tpu.rows.initial = 16, grown to 256 rows
     by the stream: flow rules of all four behaviours, breakers and param
     rules, reloaded now and then; singles with args, prio and origins, a
@@ -296,8 +320,13 @@ def test_engine_row_growth_lockstep(seed):
     What fixes a flush's shapes (which resources, contexts, origins and
     args values it touches, how many entries and exits) comes from one
     plan for both seeds, so the JAX side compiles its steps once; the seed
-    draws the rules' thresholds, the timestamps, acquires and completions."""
+    draws the rules' thresholds, the timestamps, acquires and completions.
+    Both system samplers are pinned (the chain loads a BBR load threshold),
+    so the result does not depend on the machine's load or on what an
+    earlier test left in them."""
     from sentinel_tpu.utils.config import config as jconfig
+
+    _assert_pinned(pinned_samplers)
 
     for cfg in (config, jconfig):
         cfg.set(cfg.INITIAL_ROWS, "16")
@@ -306,6 +335,7 @@ def test_engine_row_growth_lockstep(seed):
         rng = np.random.default_rng(300 + seed)
         now = 30_000
         pair = _Pair(now, chain=True)
+        _assert_pinned(pinned_samplers)
         assert pair.j.stats.second.counts.shape[0] == pair.t.stats.n_rows == 16
         _load_growth_rules(pair, _growth_specs(rng))
         live = []  # admitted singles awaiting exit: (rows, resource, param rows)

@@ -28,7 +28,11 @@ from sentinel_tpu_torch.runtime import sketch as tsk
 
 from torch_parity import (
     BORROW_SLAB_CASES,
+    BREAKER_EXIT_CASES,
+    SKETCH_EDGE_CASES,
     TAIL_NULLS,
+    breaker_exit_case,
+    sketch_edge_case,
     BREAKER_CASES,
     BUDGET_WRAP_CASES,
     budget_wrap_case,
@@ -379,14 +383,20 @@ def test_breaker_try_pass_refusals_kernel(cuda):
 
 
 @pytest.mark.parametrize("which", ["system_check", "breaker_try_pass", "breaker_try_pass_mask", "shaping_stage",
-                                   "mesh_split_grant", "mesh_split_borrow"])
+                                   "mesh_split_grant", "mesh_split_borrow", "breaker_on_exits", "sketch_fold",
+                                   "sketch_fold_decay"])
 def test_small_batch_is_one_kernel(cuda, which):
     """At 8 entries K6 and K8 (with and without the mask), at 8 items K9
-    with its inputs and at 8 slots K15 (both demotions) issue one device
-    kernel and no memset a call (torch.profiler through gpu_timing)."""
+    with its inputs, at 8 slots K15 (both demotions), at 8 exits K7 and at
+    8 keys K11 (with and without decay) issue one device kernel and no
+    memset a call (torch.profiler through gpu_timing)."""
     from gpu_timing import device_profile
 
-    if which == "shaping_stage":
+    if which == "breaker_on_exits":
+        fn = _exits_call(cuda, 8)[1]
+    elif which.startswith("sketch_fold"):
+        fn = _fold_call(cuda, 8, "default", which.endswith("decay"))[1]
+    elif which == "shaping_stage":
         table, dyn, sb, live, ppc, stats = _stage_inputs(cuda, 8, "scan")
         tt, td = flow_table_from_numpy(table, dyn, cuda)
         fn = lambda: tsh.shaping_stage(tt, td, sb, live, ppc, stats.minute, 1.0, 0)
@@ -1262,9 +1272,9 @@ def _tail_call(cuda, n, rows="uniform", nulls=(True, True, True, True, "ddyn"), 
     return call(tflush.slot_chain_verdict_plain), call(tflush.slot_chain_verdict)
 
 
-def _route(monkeypatch, const, route):
+def _route(monkeypatch, const, route, mod=tflush):
     if route != "default":
-        monkeypatch.setattr(tflush, const, 8192 if route == "one_block" else 0)
+        monkeypatch.setattr(mod, const, 8192 if route == "one_block" else 0)
 
 
 def _tail_sizes():
@@ -1488,6 +1498,245 @@ def test_tail_and_commit_threads_kernel(cuda):
 
     cuda_build._SCRATCH.clear()
     threads = [threading.Thread(target=run, args=item) for item in (("tail", tail), ("cb", cb))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for name, outs in got.items():
+        for i, out in enumerate(outs):
+            _states_eq(want[name], out, f"{name} call {i}")
+    _assert_zeroed(cuda, "after the threads")
+
+
+# --- K7 and K11 redesigned: routes, edges, the zeroed scratch ----------------
+
+
+def _exits_call(cuda, m, skew="uniform", nd=1 << 16, seed=0):
+    """(plain, kernel): K7 at m exit slots over nd breakers, each call on its
+    own copy of the state; returns the state. "uniform": random_exits (half
+    the exits on breaker 1, ts ties, superseded windows); "zipf": Zipf(1.1)
+    breakers; "kd2": two slots an exit."""
+    rng = np.random.default_rng(seed + m)
+    now = 700_137
+    table, dyn = random_degrade(rng, nd, now)
+    kd = 2 if skew == "kd2" else 1
+    x = list(random_exits(rng, max(m // kd, 1), kd, nd, now))
+    if skew == "zipf":
+        x[0] = (np.minimum(rng.zipf(1.1, (m, 1)), nd - 3) - 1).astype(np.int32)
+    ddev = tdt.degrade_table_from_numpy(table, cuda)
+    dyn0 = tdt.degrade_state_from_numpy(dyn, cuda)
+    xs = [_t(a, cuda) for a in x]
+
+    def call(fn):
+        return lambda: fn(ddev, _clone(dyn0), *xs)
+
+    return call(tdt.breaker_on_exits_plain), call(tdt.breaker_on_exits)
+
+
+def _exit_sizes():
+    t = tdt.BREAKER_EXITS_SMALL_MAX
+    return {"1": 1, "8": 8, "threshold-1": t - 1, "threshold": t, "threshold+1": t + 1, "32768": 32768}
+
+
+@pytest.mark.parametrize("route", ["default", "one_block", "many_blocks"])
+@pytest.mark.parametrize("skew", ["uniform", "zipf", "kd2"])
+@pytest.mark.parametrize("size", ["1", "8", "threshold-1", "threshold", "threshold+1", "32768"])
+def test_breaker_on_exits_routes_kernel(cuda, monkeypatch, size, skew, route):
+    """K7 on the route the threshold picks and on each route forced, at 1
+    and 8 slots, the threshold -1, +0, +1 and 32,768, on uniform, Zipf(1.1)
+    and two-slot exits: equal to the plain version; one launch counted a
+    call; the zeroed scratch reads zero after it."""
+    m = _exit_sizes()[size]
+    _route(monkeypatch, "BREAKER_EXITS_SMALL_MAX", route, tdt)
+    plain, kernel = _exits_call(cuda, m, skew)
+    want = plain()
+    before = tdt.breaker_on_exits.launches
+    got = kernel()
+    assert tdt.breaker_on_exits.launches == before + 1
+    _states_eq(want, got, f"breaker_on_exits m={m} {skew} {route}")
+    _assert_zeroed(cuda, f"m={m} {skew} {route}")
+
+
+@pytest.mark.parametrize("route", ["one_block", "many_blocks"])
+@pytest.mark.parametrize("case", BREAKER_EXIT_CASES)
+def test_breaker_on_exits_edges_kernel(cuda, monkeypatch, case, route):
+    """The CPU tests' order and window edges (torch_parity.
+    breaker_exit_case) at some 6,000 slots on the one-block route and some
+    32,768 on the many-block one, copies of each case interleaved: equal to
+    the plain version, the zeroed scratch zero after it."""
+    per_copy = breaker_exit_case(case, 1)[2][0].shape[0]
+    copies = max((6000 if route == "one_block" else 32768) // per_copy, 1)
+    table, dyn, x = breaker_exit_case(case, copies, seed=5)
+    _route(monkeypatch, "BREAKER_EXITS_SMALL_MAX", route, tdt)
+    ddev = tdt.degrade_table_from_numpy(table, cuda)
+    xs = [_t(a, cuda) for a in x]
+    want = tdt.breaker_on_exits_plain(ddev, tdt.degrade_state_from_numpy(dyn, cuda), *xs)
+    got = tdt.breaker_on_exits(ddev, tdt.degrade_state_from_numpy(dyn, cuda), *xs)
+    _states_eq(want, got, f"{case} ({copies} copies, {route})")
+    _assert_zeroed(cuda, f"{case} {route}")
+
+
+def _fold_call(cuda, s, tier="default", decay=False, seed=0, case=None):
+    """(plain, kernel): K11 on s keys, each call on its own copy of the
+    state; returns the state. Tiers: "default" (depth 4, width 2,048, 64
+    candidates) and "wide" (depth 8, width 2^16, 1,024), after two earlier
+    folds; the batch Zipf(1.1) ids over a pool (duplicates), a tenth
+    padding, some candidates. ``case``: torch_parity.sketch_edge_case's."""
+    depth, width, c = (8, 1 << 16, 1024) if tier == "wide" else (4, 2048, 64)
+    if case is not None:
+        arrays = sketch_edge_case(case, depth, width, c, s, seed)
+        state0 = tsk.sketch_state_from_numpy(arrays[:3], cuda)
+        ids, w = arrays[3], arrays[4]
+    else:
+        rng = np.random.default_rng(seed + s)
+        state0 = tsk.make_sketch_state(depth, width, c, cuda)
+        pool = rng.choice(2**31 - 1, 4 * s + 4 * c, replace=False).astype(np.int32)
+        for k in range(2):
+            tsk.sketch_fold_plain(state0, tsk.SketchBatch(_t(pool[k * s:(k + 1) * s], cuda),
+                                                          _t(rng.integers(1, 5, s).astype(np.int32), cuda)), k == 1)
+        ids = pool[np.minimum(rng.zipf(1.1, s), 2 * s) - 1 + 2 * s * (rng.random(s) >= 0.2)]
+        cand = state0.cand_ids.cpu().numpy()
+        ids[: min(c // 3, s)] = cand[: min(c // 3, s)]
+        ids[rng.random(s) < 0.1] = -1
+        w = rng.integers(1, 5, s).astype(np.int32)
+    sk = tsk.SketchBatch(_t(np.asarray(ids, np.int32), cuda), _t(np.asarray(w, np.int32), cuda))
+
+    def call(fn):
+        return lambda: fn(_clone(state0), sk, decay)
+
+    return call(tsk.sketch_fold_plain), call(tsk.sketch_fold)
+
+
+def _fold_sizes():
+    t = tsk.SKETCH_FOLD_SMALL_MAX
+    return {"1": 1, "8": 8, "threshold-1": t - 1, "threshold": t, "threshold+1": t + 1, "131072": 1 << 17}
+
+
+@pytest.mark.parametrize("route", ["default", "one_block", "many_blocks"])
+@pytest.mark.parametrize("decay", [False, True])
+@pytest.mark.parametrize("tier", ["default", "wide"])
+@pytest.mark.parametrize("size", ["1", "8", "threshold-1", "threshold", "threshold+1", "131072"])
+def test_sketch_fold_routes_kernel(cuda, monkeypatch, size, tier, decay, route):
+    """K11 on the route the threshold picks and on each route forced, at 1
+    and 8 keys, the threshold -1, +0, +1 and 131,072, on two tiers, without
+    and with decay: equal to the plain version; one launch counted a call;
+    the zeroed scratch reads zero after it."""
+    s = _fold_sizes()[size]
+    _route(monkeypatch, "SKETCH_FOLD_SMALL_MAX", route, tsk)
+    plain, kernel = _fold_call(cuda, s, tier, decay)
+    want = plain()
+    before = tsk.sketch_fold.launches
+    got = kernel()
+    assert tsk.sketch_fold.launches == before + 1
+    _states_eq(want, got, f"sketch_fold s={s} {tier} decay={decay} {route}")
+    _assert_zeroed(cuda, f"s={s} {tier} decay={decay} {route}")
+
+
+@pytest.mark.parametrize("decay", [False, True])
+@pytest.mark.parametrize("route", ["one_block", "many_blocks", "many_blocks_wide"])
+@pytest.mark.parametrize("case", SKETCH_EDGE_CASES)
+def test_sketch_fold_edges_kernel(cuda, monkeypatch, case, route, decay):
+    """The CPU tests' key edges (torch_parity.sketch_edge_case) at 2,048 keys
+    on the one-block route, at 131,072 keys on the many-block one, on the
+    default tier (64 candidates, the count-min summed per block first) and
+    on a wide one (depth 8, width 2^16, 1,024 candidates): equal to the
+    plain version, the zeroed scratch zero after it."""
+    _route(monkeypatch, "SKETCH_FOLD_SMALL_MAX", route.removesuffix("_wide"), tsk)
+    s = 2048 if route == "one_block" else 1 << 17
+    tier = "wide" if route.endswith("wide") else "default"
+    plain, kernel = _fold_call(cuda, s, tier, decay, seed=3, case=case)
+    _states_eq(plain(), kernel(), f"{case} {route} decay={decay}")
+    _assert_zeroed(cuda, f"{case} {route}")
+
+
+@pytest.mark.parametrize("which", ["breaker_on_exits", "sketch_fold"])
+def test_exits_and_sketch_refusals_kernel(cuda, monkeypatch, which):
+    """A call that the C side refuses for too few zeroed bytes (-1, nothing
+    launched) leaves the zeroed scratch zero, and the call after it equals
+    the plain version; on both routes of K7 and the many-block route of
+    K11 (its one block takes no zeroed bytes)."""
+    for route in ("one_block", "many_blocks"):
+        _route(monkeypatch, "BREAKER_EXITS_SMALL_MAX" if which == "breaker_on_exits" else "SKETCH_FOLD_SMALL_MAX",
+               route, tdt if which == "breaker_on_exits" else tsk)
+        if which == "breaker_on_exits":
+            plain, kernel = _exits_call(cuda, 32768 if route == "many_blocks" else 4096, "zipf")
+            lib, mod, getter = tdt._lib("breaker_on_exits", tdt._setup_exits), tdt, "_lib"
+            entry = "breaker_on_exits"
+        else:
+            plain, kernel = _fold_call(cuda, 1 << 17 if route == "many_blocks" else 2048, "wide")
+            lib, mod, getter = tsk._sf_lib(), tsk, "_sf_lib"
+            entry = "sketch_fold"
+        kernel()  # the zeroed buffer is grown
+        if route == "one_block" and which == "sketch_fold":
+            continue  # the one-block fold takes no zeroed bytes
+        class Short:
+            def __getattr__(self, name):
+                return getattr(lib, name)
+
+        setattr(Short, entry, staticmethod(
+            lambda a, buf, size, zero, zb, st: getattr(lib, entry)(a, buf, size, zero, zb - 8, st)))
+        saved = getattr(mod, getter)
+        monkeypatch.setattr(mod, getter, (lambda *_: Short()) if which == "breaker_on_exits" else Short)
+        with pytest.raises(RuntimeError, match="CUDA error -1$"):
+            kernel()
+        _assert_zeroed(cuda, f"after the refused call ({which}, {route})")
+        monkeypatch.setattr(mod, getter, saved)
+        _states_eq(plain(), kernel(), f"after the refused call ({route})")
+        _assert_zeroed(cuda, f"after the call that follows ({route})")
+
+
+@pytest.mark.parametrize("which", ["breaker_on_exits", "sketch_fold", "sketch_fold_decay"])
+def test_exits_and_sketch_launch_sequences_kernel(cuda, which):
+    """torch.profiler: K7 at 32,768 exits takes CUB's radix-sort kernels
+    and at most 3 of its own; K11 at 131,072 keys at most 2 kernels, 3 with
+    decay, and no memset, no sort."""
+    from gpu_timing import device_profile, kernel_times
+
+    if which == "breaker_on_exits":
+        full = _exits_call(cuda, 32768, "zipf", nd=1 << 20)[1]
+    else:
+        full = _fold_call(cuda, 1 << 17, "default", which.endswith("decay"))[1]
+    full()  # the zeroed buffer is grown
+    kernels, memsets, _ = device_profile(full)
+    names = kernel_times(full)
+    own = [n for n in names if n.startswith(("bo_", "sf_"))]
+    if which == "breaker_on_exits":
+        assert len(own) <= 3, names
+        assert all(n in own or "DeviceRadixSort" in n or n == "Memset" for n in names), names
+    else:
+        assert kernels == len(own) <= (3 if which.endswith("decay") else 2) and memsets == 0, names
+
+
+def test_exits_and_sketch_threads_kernel(cuda):
+    """K7 (32,768 Zipf exits) and K11 (131,072 keys, the wide tier, with
+    decay) in two host threads on the default stream, 20 calls each, both
+    on their many-block routes over the shared zeroed scratch, which starts
+    empty: every call equals its plain version, and the buffer reads zero
+    at the end."""
+    import threading
+
+    from sentinel_tpu_torch.utils import cuda_build
+
+    bo_plain, bo = _exits_call(cuda, 32768, "zipf")
+    sf_plain, sf = _fold_call(cuda, 1 << 17, "wide", True)
+    want = {"bo": bo_plain(), "sf": sf_plain()}
+    torch.cuda.synchronize()
+    got = {"bo": [], "sf": []}
+    start = threading.Barrier(2)
+    errors = []
+
+    def run(name, call):
+        try:
+            start.wait()
+            for _ in range(20):
+                got[name].append(call())
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+
+    cuda_build._SCRATCH.clear()
+    threads = [threading.Thread(target=run, args=item) for item in (("bo", bo), ("sf", sf))]
     for th in threads:
         th.start()
     for th in threads:

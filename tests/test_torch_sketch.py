@@ -2,7 +2,9 @@
 against the JAX package, bit for bit: the fold K11's plain version
 against the JAX ``sketch_fold`` over seeded inputs (decay, padding,
 duplicate ids, a full candidate table with touched candidates, equal
-counts, depths 1-8, widths 8 to 2^16); the host hashes and the
+counts, depths 1-8, widths 8 to 2^16) and its key edges (the id 2^31 - 1,
+duplicates, few distinct ids, estimates wrapped negative, ties at the
+top-C boundary); the host hashes and the
 space-saving mirror; and the JAX Engine and the port's
 ``Engine(device="cpu")`` with the tier armed, driven in lockstep through
 the cases of tests/test_sketch.py (promotion and demotion of values and
@@ -34,7 +36,7 @@ from sentinel_tpu_torch.runtime.engine import Engine
 from sentinel_tpu_torch.utils.clock import ManualClock
 from sentinel_tpu_torch.utils.config import config
 
-from torch_parity import assert_same, block_of, run_on_both
+from torch_parity import SKETCH_EDGE_CASES, assert_same, block_of, run_on_both, sketch_edge_case
 
 # --- K11: sketch_fold ------------------------------------------------------
 
@@ -94,6 +96,27 @@ def test_sketch_fold_matches_jax(seed, depth, width, c, s, kw, decay):
     want, got = _fold_both(_fold_case(rng, depth, width, c, s, **kw), decay)
     assert_same(want, got, "sketch state")
     assert (got.cand_ids >= 0).any()
+
+
+@pytest.mark.parametrize("decay", [False, True])
+@pytest.mark.parametrize("case", SKETCH_EDGE_CASES)
+def test_sketch_fold_edges_match_jax(case, decay):
+    """The key edges of the fold (torch_parity.sketch_edge_case): the id
+    2^31 - 1 in the batch (added, never a head) and as a candidate;
+    duplicate ids next to each other and far apart; fewer distinct ids
+    than free slots; estimates wrapped negative and a negative count left
+    in the table; candidates touched at the top-C boundary among equal
+    counts."""
+    cm, cand, cnt, ids, w = sketch_edge_case(case)
+    want, got = _fold_both((cm, cand, cnt, ids, w), decay)
+    assert_same(want, got, case)
+    if case == "id_max":
+        assert int((want.cand_ids == 2**31 - 1).sum()) <= 1, "the id 2^31 - 1 became a head"
+    elif case == "few_distinct":
+        empty = want.cand_ids == -1
+        assert empty.any() and not want.cand_cnt[empty].any()
+    elif case == "negative_estimates":
+        assert (js.cm_estimate(np.asarray(want.cm), ids[ids >= 0]) < 0).any(), "no estimate wrapped"
 
 
 def test_sketch_fold_all_padding_and_zero_weights():

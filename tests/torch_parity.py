@@ -822,3 +822,181 @@ def random_borrow_case(rng, n, k, n_rows, now, case="slab_kinds"):
     acq = (rng.integers(2**30 - 8, 2**30 + 8, n) if case == "wrap_past_2_31" else rng.integers(1, 5, n)).astype(np.int32)
     occ = rng.random((n, k)) < 0.5
     return (fpass, fws), (occ, tgt, acq, crow)
+
+
+# --- the breaker completions' order and window edges (K7) -------------------
+
+BREAKER_EXIT_CASES = ["equal_ts_order", "half_open_shared_ts", "superseded_then_newer", "all_older",
+                      "min_request_max", "hot_breaker"]
+
+
+def _breaker_unit(case, w0, rng, n_hot):
+    """(breakers, exits) of one copy of a case: breakers as dicts of the
+    table and state fields, exits as (breaker, ts, rt, err) in slot order."""
+    def brk(grade=1, thr=0.5, min_req=1, state=0, bad=0, total=0, ws=w0, max_rt=I32_MAX, slow=1.0, next_retry=0):
+        return dict(grade=grade, thr=thr, slow=slow, min_req=min_req, state=state, next_retry=next_retry, bad=bad,
+                    total=total, ws=ws, max_rt=max_rt)
+
+    t = w0 + 500
+    if case == "equal_ts_order":
+        # Equal (breaker, ts): bad then good crosses a ratio of 0.5 at
+        # min_request 1, good then bad does not; the same for slow calls;
+        # a count breaker crosses at its second bad call.
+        brks = [brk(), brk(), brk(grade=0, thr=50, max_rt=50, slow=0.5), brk(grade=0, thr=50, max_rt=50, slow=0.5),
+                brk(grade=2, thr=1)]
+        exits = [(0, t, 0, 1), (0, t, 0, 0), (1, t, 0, 0), (1, t, 0, 1), (2, t, 90, 0), (2, t, 5, 0),
+                 (3, t, 5, 0), (3, t, 90, 0), (4, t, 0, 1), (4, t, 0, 1), (4, t, 0, 0)]
+    elif case == "half_open_shared_ts":
+        # HALF_OPEN breakers whose first two exits share a ts: bad then
+        # good reopens from that ts, good then bad closes; a first exit at
+        # a negative ts retries from 0.
+        brks = [brk(state=2, bad=3, total=4), brk(state=2, bad=3, total=4), brk(state=2), brk(state=2, grade=2, thr=0)]
+        exits = [(0, t, 0, 1), (0, t, 0, 0), (0, t + 7, 0, 1), (1, t, 0, 0), (1, t, 0, 1), (1, t + 7, 0, 1),
+                 (2, -5, 0, 1), (2, t, 0, 0), (3, t - 1, 0, 0), (3, t - 1, 0, 1)]
+    elif case == "superseded_then_newer":
+        # Segments that start in a superseded window and end in a newer
+        # one: a crossing in the older window does not count; a crossing
+        # in the newest does, from its first crossing ts; exits older
+        # than the breaker's window are skipped.
+        old = w0 - 1000
+        brks = [brk(min_req=2, ws=old, total=1), brk(min_req=2, ws=old, total=1), brk(min_req=2, total=2, bad=0),
+                brk(grade=2, thr=2, ws=old, bad=2, total=2)]
+        exits = [(0, old + 10, 0, 1), (0, old + 10, 0, 1), (0, old + 20, 0, 1), (0, w0 + 10, 0, 0),
+                 (0, w0 + 20, 0, 0), (0, w0 + 30, 0, 0),
+                 (1, old + 5, 0, 1), (1, old + 6, 0, 1), (1, w0 + 20, 0, 0), (1, w0 + 30, 0, 1), (1, w0 + 40, 0, 1),
+                 (1, w0 + 50, 0, 1),
+                 (2, old + 1, 0, 1), (2, old + 2, 0, 1), (2, old + 3, 0, 1), (2, w0 + 1, 0, 1), (2, w0 + 2, 0, 1),
+                 (3, old + 900, 0, 1), (3, w0 + 1000 + 1, 0, 1), (3, w0 + 1000 + 2, 0, 1), (3, w0 + 1000 + 3, 0, 1)]
+    elif case == "all_older":
+        # Every exit older than the breaker's window: the counts stay, a
+        # HALF_OPEN breaker is still decided by its first exit.
+        older = [w0 - 2000 + 3, w0 - 1000 + 5, w0 - 1000 + 5]
+        brks = [brk(bad=1, total=2), brk(state=2, bad=1, total=2), brk(state=2, bad=1, total=2),
+                brk(state=1, next_retry=w0 + 4000, bad=5, total=5)]
+        exits = [(0, older[0], 0, 1), (0, older[1], 0, 1), (0, older[2], 0, 1), (1, older[0], 0, 0),
+                 (1, older[1], 0, 1), (2, older[1], 0, 1), (2, older[2], 0, 0), (3, older[0], 0, 1)]
+    elif case == "min_request_max":
+        # min_request 2^31 - 1 (2^31 in float32): never reached from small
+        # counts; reached by counts near 2^31, which then wrap.
+        big = I32_MAX
+        brks = [brk(min_req=big), brk(min_req=big, total=big - 2, bad=big - 3), brk(grade=2, thr=0, min_req=big,
+                                                                              total=big - 100, bad=1),
+                brk(grade=0, thr=10, max_rt=10, slow=0.0, min_req=big, total=big - 1)]
+        exits = [(0, t, 0, 1)] * 5 + [(1, t, 0, 1), (1, t + 1, 0, 1), (1, t + 2, 0, 0), (2, t, 0, 1),
+                                      (2, t + 3, 0, 0), (3, t, 50, 0), (3, t, 5, 0)]
+    else:  # hot_breaker: one breaker takes most of the exits, over three windows
+        brks = [brk(min_req=5, ws=w0 - 1000, total=3, bad=1)] + [
+            brk(grade=int(g), thr=0.5 if g == 1 else 2, state=int(s), max_rt=60, slow=0.5)
+            for g, s in zip(rng.integers(0, 3, 31), rng.choice([0, 0, 1, 2], 31))]
+        n = n_hot + n_hot // 8
+        g = np.where(np.arange(n) < n_hot, 0, rng.integers(1, 32, n))
+        ts = w0 - 1000 + rng.integers(0, 2000, n)
+        ts[: n // 4] = ts[0]
+        exits = list(zip(g, ts, rng.integers(0, 120, n), (rng.random(n) < 0.3).astype(int)))
+        exits = [exits[i] for i in rng.permutation(n)]
+    return brks, exits
+
+
+def breaker_exit_case(case, copies=1, seed=0, n_hot=512):
+    """A breaker table and state and exit columns (table, dyn, (x_dgid,
+    x_ts, x_rt, x_err, x_valid)) as numpy for the order and window edges
+    of ``breaker_on_exits``: ``copies`` copies of a case's breakers (each
+    copy on breakers of its own) whose exits interleave at random, each
+    copy's exits in their own order; a tenth of the slots empty or
+    invalid. ``hot_breaker``: one breaker takes ``n_hot`` of each copy's
+    exits (the copies share it)."""
+    rng = np.random.default_rng(seed)
+    now = 700_137
+    w0 = now - now % 1000
+    fields = ("grade", "thr", "slow", "min_req", "interval", "retry", "max_rt", "state", "next_retry", "bad",
+              "total", "ws")
+    cols = {f: [] for f in fields}
+    per_copy = []
+    for c in range(copies):
+        brks, exits = _breaker_unit(case, w0, rng, n_hot)
+        base = len(cols["grade"])
+        for b in brks:
+            for f in fields:
+                cols[f].append({"interval": 1000, "retry": 5000}.get(f, b.get(f)))
+        shared = case == "hot_breaker"
+        per_copy.append([((0 if shared and g == 0 else base + g), ts, rt, err) for g, ts, rt, err in exits])
+    nd = 8
+    while nd < len(cols["grade"]) + 3:
+        nd <<= 1
+    for f, v in (("grade", 0), ("thr", INF), ("slow", 1.0), ("min_req", I32_MAX), ("interval", 1000), ("retry", 0),
+                 ("max_rt", I32_MAX), ("state", 0), ("next_retry", 0), ("bad", 0), ("total", 0), ("ws", WS_FLOOR)):
+        cols[f] += [v] * (nd - len(cols[f]))
+    table = tuple(np.asarray(cols[f], dtype=np.float32 if f in ("thr", "slow") else np.int32)
+                  for f in fields[:7])
+    dyn = tuple(np.asarray(cols[f], dtype=np.int32) for f in fields[7:])
+    # Interleave the copies at random, each copy's exits in their order.
+    total = sum(len(e) for e in per_copy)
+    perm = rng.permutation(total)
+    out = [None] * total
+    at = 0
+    for exits in per_copy:
+        for pos, e in zip(np.sort(perm[at:at + len(exits)]), exits):
+            out[pos] = e
+        at += len(exits)
+    g, ts, rt, err = (np.asarray(c) for c in zip(*out))
+    m = total + total // 10
+    x_dgid = np.full((m, 1), -1, np.int32)
+    x_ts = (now - rng.integers(0, 3000, m)).astype(np.int32)
+    x_rt, x_err = rng.integers(0, 100, m).astype(np.int32), rng.integers(0, 2, m).astype(np.int32)
+    x_valid = np.ones(m, bool)
+    slots = np.sort(rng.choice(m, total, replace=False))
+    x_dgid[slots, 0], x_ts[slots], x_rt[slots], x_err[slots] = g, ts, rt, err
+    rest = np.setdiff1d(np.arange(m), slots)
+    x_valid[rest[: len(rest) // 2]] = False  # invalid exits with a breaker
+    x_dgid[rest[: len(rest) // 2], 0] = rng.integers(0, nd, len(rest) // 2)
+    return table, dyn, (x_dgid, x_ts, x_rt, x_err, x_valid)
+
+
+# --- the sketch fold's key edges (K11) ---------------------------------------
+
+SKETCH_EDGE_CASES = ["id_max", "duplicates", "few_distinct", "negative_estimates", "boundary_ties"]
+
+
+def sketch_edge_case(case, depth=4, width=2048, c=64, s=512, seed=0):
+    """(cm, cand_ids, cand_cnt, ids, w) as numpy for the edges of
+    ``sketch_fold``: "id_max", a batch holding the id 2^31 - 1 (added, never
+    a head), also as a candidate; "duplicates", ids repeated next to each
+    other and far apart; "few_distinct", fewer distinct ids than free
+    slots (the rest -1 / 0); "negative_estimates", count-min cells near
+    2^31 that the adds wrap negative, and negative ones; "boundary_ties", candidates touched
+    at the top-C boundary among equal counts."""
+    rng = np.random.default_rng(seed)
+    cm = rng.integers(0, 60, (depth, width)).astype(np.int32)
+    pool = rng.choice(I32_MAX, size=2 * (c + s), replace=False).astype(np.int32)
+    cand = pool[:c].copy()
+    cnt = rng.integers(1, 200, c).astype(np.int32)
+    ids = pool[c:c + s].copy()
+    w = rng.integers(1, 5, s).astype(np.int32)
+    if case == "id_max":
+        ids[rng.choice(s, max(s // 16, 2), replace=False)] = I32_MAX
+        cand[c // 2] = I32_MAX
+        ids[: c // 4] = cand[: c // 4]
+    elif case == "duplicates":
+        ids[1::2] = ids[0::2][: len(ids[1::2])]  # adjacent
+        ids[s // 2:s // 2 + s // 8] = ids[: s // 8]  # far apart
+        ids[-(s // 8):] = -1
+        ids[: c // 8] = np.repeat(cand[: c // 16 + 1], 2)[: c // 8]
+    elif case == "few_distinct":
+        cand[c // 3:] = -1
+        cnt[c // 3:] = 0
+        k = max(c // 8, 1)
+        ids = np.where(np.arange(s) < s // 2, rng.choice(pool[c:c + k], s), -1).astype(np.int32)
+        ids[: c // 6] = cand[: c // 6]
+    elif case == "negative_estimates":
+        cm[:, :] = rng.integers(2**31 - 40, 2**31 - 1, (depth, width))
+        cm[:, ::3] = rng.integers(0, 60, (depth, (width + 2) // 3))
+        cm[:, 1::7] = rng.integers(-90, 0, (depth, len(range(1, width, 7))))  # negative under decay too
+        ids[: c // 3] = cand[: c // 3]
+        cnt[::5] = -7  # a negative count left in the table
+    else:  # boundary_ties
+        cm[:, :] = 5
+        w[:] = 2
+        cnt[:] = 7
+        cnt[: c // 2] = 9
+        ids[: c // 4] = cand[c // 2 - c // 8:c // 2 + c // 8]  # touched around the boundary count
+    return cm, cand, cnt, ids.astype(np.int32), w
