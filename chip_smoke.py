@@ -29,10 +29,12 @@ launch) and then, failing on the first mismatch:
    32,768-entry flushes, st.entry calls and exits) on the card, with
    every kernel launch counter set to 0 just before and read just after,
    and the same stream on the port's CPU engine: identical verdicts and
-   final state; then the slot chain's stream the same way: breakers on a
+   final state; nothing borrows, so the matured-borrow sweep (K1) must
+   not run; then the slot chain's stream the same way: breakers on a
    third of the resources, system rules, authority rules on some
-   origins, prioritized entries, and exits that complete the breakers:
-   identical verdicts, wait_ms, attribution, stats and breaker state;
+   origins, prioritized entries (which borrow: K1 must run), and exits
+   that complete the breakers: identical verdicts, wait_ms, attribution,
+   stats and breaker state;
 5. runs the flow_qps_demo scenario on the card: 8 threads, 3 s of real
    clock, st.entry against a QPS = 20 rule; prints pass/s and the
    st.entry latency percentiles;
@@ -76,7 +78,10 @@ phase 2e on a token server's stream at 16,384 requests a batch and at 8,
 64 and 1,024, and with each batch's int32 cumsum past 2^31; phase 8
 drives it through st.entry on cluster-mode rules. Phases 2, 2b, 2c, 2d,
 2e and 2f also print the device kernels, memsets and device time of one
-call of the window update (K2), the flow admission (K4, both routes, at
+call of the matured-borrow sweep (K1, on the swept slab and with 2% of
+its cells matured), the window update (K2), the fused apply_updates (both
+windows' K2 and the thread gauge, at 4N updates and at N = 8), the flow
+admission (K4, both routes, at
 131,072 entries and at 8; its time at 32,768 too), the system check (K6)
 and the breaker entry check (K8, and with the mask also at a mesh shard's
 4,096 slots) at 131,072 entries and at 8, the shaping and hot-parameter
@@ -87,7 +92,8 @@ verdict tail, the borrow commit (K5) and the breaker completions (K7; at
 8), the sketch fold (K11; at 131,072 keys, with and without decay, also
 by kernel, the widened tier's by kernel, and at 8 keys) and K12
 (torch.profiler, gpu_timing.py), and fail if the profiler reads no
-kernel, if K2 issues more than four kernels and memsets a call, or if K4,
+kernel, if K2 issues more than four kernels and memsets a call, K1
+anything but one kernel, apply_updates anything but two, or if K4,
 K5, K6, K7, K8, K9, K10, K11, K12, K15 or the tail issue anything but one
 kernel at 8 entries, exits, keys, items, slots or requests. For K5-K9,
 K11, K15 and the tail they also time both routes at the sizes where the
@@ -162,7 +168,7 @@ try:
     from sentinel_tpu_torch.runtime import sketch as tsk
     from sentinel_tpu_torch.utils import clock as tclock
     from sentinel_tpu_torch.utils import cuda_build
-    from gpu_timing import TD_B, TD_FLOWS, TD_NS, device_profile, kernel_times, time_ms, token_batch
+    from gpu_timing import TD_B, TD_FLOWS, TD_NS, device_profile, kernel_times, time_ms, time_ms_fresh, token_batch
 except ImportError as exc:
     print(f"chip_smoke: the sentinel_tpu_torch package or gpu_timing.py is not beside this script ({exc})",
           file=sys.stderr)
@@ -352,8 +358,7 @@ def plain_kernels():
     version: the comparison side of the slot chain's step."""
     swaps = [
         (flush, "materialize_matured", nodes.materialize_matured_plain),
-        (ma, "update", ma.update_plain),
-        (nodes, "thread_gauge_add", nodes.thread_gauge_add_plain),
+        (flush, "apply_updates", nodes.apply_updates_plain),
         (flush, "flow_admission", flush.flow_admission_plain),
         (flush, "system_check", flush.system_check_plain),
         (flush, "commit_borrow_slab", flush.commit_borrow_slab_plain),
@@ -463,11 +468,11 @@ def sys_device(case: str) -> flush.SystemDevice:
 # ---------------------------------------------------------------------------
 
 
-def update_bytes(cfg, state, rows, ts, deltas, rt, mask) -> float:
+def update_bytes(cfg, state, rows, ts, deltas, rt, mask, with_batch: bool = True) -> float:
     """Least bytes of one window update on these inputs: each input read
-    once; each touched bucket reads its window start, and an adding one its
-    counts and min RT too; each touched bucket writes counts, min RT and
-    window start."""
+    once (``with_batch``); each touched bucket reads its window start, and
+    an adding one its counts and min RT too; each touched bucket writes
+    counts, min RT and window start."""
     n = rows.shape[0]
     b, wlen = cfg.sample_count, cfg.window_len_ms
     m = mask.cpu().numpy()
@@ -480,8 +485,32 @@ def update_bytes(cfg, state, rows, ts, deltas, rt, mask) -> float:
     old = state.window_start.reshape(-1)[torch.from_numpy(uniq).to(DEV)].cpu().numpy()
     same = int((seg_ws == old).sum())
     touched = int((seg_ws >= old).sum())
-    per_entry = 4 + 4 + 1 + 4 * NUM_EVENTS + (4 if rt is not None else 0)
+    per_entry = 4 + 4 + 1 + 4 * NUM_EVENTS + (4 if rt is not None else 0) if with_batch else 0
     return n * per_entry + len(uniq) * 4 + same * (4 * NUM_EVENTS + 4) + touched * (4 * NUM_EVENTS + 8)
+
+
+def k1_matured(results: dict, stats: nodes.StatsState, now: int, src) -> None:
+    """K1 on a slab with 2% of its cells matured (``src``: the slab and the
+    second window before the sweep), restored before each call and left
+    out of the time; the profile leaves the restoring copies out too."""
+    fws, fpass, second = src
+
+    def restore():
+        stats.future_ws.copy_(fws)
+        stats.future_pass.copy_(fpass)
+        for t, s in zip(stats.second, second):
+            t.copy_(s)
+
+    sweep = lambda: nodes.materialize_matured(stats, now)
+    kern, mems, dev_ms = profile(lambda: (restore(), sweep()), "phase 2: the sweep with matured cells")
+    r = results["materialize_matured"]
+    r.update(matured_ms=time_ms_fresh(restore, sweep), matured_launches_per_call=kern, matured_memsets_per_call=mems,
+             matured_device_ms=dev_ms, matured_cells=int((fws != nodes.SECOND_CFG.empty_ws).sum()))
+    log(f"  K1 with {r['matured_cells']:,} borrowed cells (Zipf case): {r['matured_ms']:.4f} ms a call, {kern} "
+        f"device kernels, {mems} memsets, {dev_ms:.4f} ms of device time (profiler)")
+    if (kern, mems) != (1, 0):
+        fail(f"phase 2: K1 with matured cells issued {kern} kernels and {mems} memsets in one call")
+    restore()
 
 
 def phase2(results: dict) -> None:
@@ -497,7 +526,10 @@ def phase2(results: dict) -> None:
         stats = make_stats(now, gen, matured_frac=0.02 if skewed else 0.0)
         batch = make_batch(rng, now, skewed=skewed, with_exits=skewed)
 
-        # K1 materialize_matured [R, 2]
+        # K1 materialize_matured [R, 2]; the Zipf case's slab has 2% of its
+        # cells matured, profiled from a fresh copy each call.
+        if skewed:
+            k1_src = (stats.future_ws.clone(), stats.future_pass.clone(), clone(stats.second))
         want = nodes.materialize_matured_plain(clone(stats), now)
         got = nodes.materialize_matured(clone(stats), now)
         err1 = require_equal(want, got, f"materialize_matured ({tag})")
@@ -523,15 +555,20 @@ def phase2(results: dict) -> None:
                 w = ma.update_plain(cfg, clone(st_), rows, ts, d, rt, mask)
                 g = ma.update(cfg, clone(st_), rows, ts, d, rt, mask)
                 err2 = max(err2, require_equal(w, g, f"window_update ({tag}, B={cfg.sample_count})"))
-        # thread gauge
-        w = nodes.thread_gauge_add_plain(stats.threads.clone(), e_rows, e_thr, e_mask)
-        g = nodes.thread_gauge_add(stats.threads.clone(), e_rows, e_thr, e_mask)
-        errg = require_equal(w, g, f"thread_gauge ({tag})")
+        # The fused apply_updates (both windows and the thread gauge)
+        w = nodes.apply_updates_plain(clone(stats), e_rows, e_ts, e_d, None, e_thr, e_mask)
+        g = nodes.apply_updates(clone(stats), e_rows, e_ts, e_d, None, e_thr, e_mask)
+        errg = require_equal(w, g, f"apply_updates ({tag})")
+        if skewed:  # the exits' update: RT samples, negative thread deltas
+            w = nodes.apply_updates_plain(clone(stats), x_rows, x_ts, x_d, x_rt, x_thr, x_mask)
+            g = nodes.apply_updates(clone(stats), x_rows, x_ts, x_d, x_rt, x_thr, x_mask)
+            errg = max(errg, require_equal(w, g, f"apply_updates ({tag}, exits)"))
         for name, err in (("materialize_matured", err1), ("window_sums", err3),
                           ("flow_admission", err4), ("window_update", err2), ("thread_gauge", errg)):
             results[name]["max_abs_err"] = max(results[name].get("max_abs_err", 0), err)
         log(f"  {tag}: all five kernels equal their plain versions (max abs err 0)")
         if skewed:
+            k1_matured(results, stats, now, k1_src)
             continue
 
         # Timing on the uniform (headline) case.
@@ -542,9 +579,18 @@ def phase2(results: dict) -> None:
             library_ms=None,
             shape=f"slab [{R},2], second window [{R},2,6]",
         )
-        # Matured cells are none once swept: the sweep reads the slab's
-        # window starts and writes nothing.
-        results["materialize_matured"]["bound"] = bound(m1 * 4)
+        # Matured cells are none once swept: every cell is (empty_ws, 0),
+        # which the sweep reads (both words: an empty start may still hold
+        # tokens to clear) and does not write.
+        results["materialize_matured"]["bound"] = bound(m1 * 8)
+        k1_launches, k1_memsets, k1_dev = profile(lambda: nodes.materialize_matured(stats, now),
+                                                  "phase 2: the matured-borrow sweep")
+        results["materialize_matured"].update(launches_per_call=k1_launches, memsets_per_call=k1_memsets,
+                                              device_ms=k1_dev)
+        log(f"  K1 on the swept slab: {results['materialize_matured']['ms']:.4f} ms a call, {k1_launches} device "
+            f"kernels, {k1_memsets} memsets, {k1_dev:.4f} ms of device time a call (profiler)")
+        if (k1_launches, k1_memsets) != (1, 0):
+            fail(f"phase 2: K1 issued {k1_launches} kernels and {k1_memsets} memsets in one call")
 
         cfg = nodes.SECOND_CFG
         sums, _ = ma.window_reduce(cfg, stats.second, now, rows_g)
@@ -611,18 +657,49 @@ def phase2(results: dict) -> None:
             "(profiler)")
         if k2_launches + k2_memsets > 4:
             fail(f"phase 2: the window update issued {k2_launches} kernels and {k2_memsets} memsets in one call")
+        # The thread gauge rides in the fused apply_updates: the call's
+        # numbers, at the entry accounting's 4N updates and at N = 8.
         touched = torch.unique(e_rows[e_mask & (e_thr != 0)]).numel()
         sel = e_mask & (e_rows >= 0)
         rows_l, thr_l = e_rows[sel].long(), e_thr[sel]
         thr_buf = stats.threads.clone()
+        apply = lambda m: lambda: nodes.apply_updates(stats, e_rows[:m], e_ts[:m], e_d[:m], None, e_thr[:m],
+                                                      e_mask[:m])
+        apply_b = (4 * N * (4 + 4 + 1 + 4 * NUM_EVENTS + 4) + touched * 8
+                   + update_bytes(nodes.SECOND_CFG, stats.second, e_rows, e_ts, e_d, None, e_mask, with_batch=False)
+                   + update_bytes(nodes.MINUTE_CFG, stats.minute, e_rows, e_ts, e_d, None, e_mask, with_batch=False))
         results["thread_gauge"].update(
-            ms=time_ms(lambda: nodes.thread_gauge_add(thr_buf, e_rows, e_thr, e_mask)),
-            plain_ms=time_ms(lambda: nodes.thread_gauge_add_plain(thr_buf, e_rows, e_thr, e_mask)),
+            bound=bound(apply_b),
+            ms=time_ms(apply(4 * N)),
+            plain_ms=time_ms(lambda: nodes.apply_updates_plain(stats, e_rows, e_ts, e_d, None, e_thr, e_mask), iters=3),
             library_ms=time_ms(lambda: thr_buf.index_add_(0, rows_l, thr_l)),
-            library_call="Tensor.index_add_ over the masked-in rows",
-            shape=f"4N={4 * N} updates into [{R}]",
-            bound=bound(4 * N * 9 + touched * 8),
+            library_call="Tensor.index_add_ over the masked-in rows (the gauge step only)",
+            shape=f"apply_updates: 4N={4 * N} entry updates into both windows ([{R},2,6], [{R},60,6]) and the "
+                  f"gauge [{R}]; small_* at N=8 (32 updates)",
         )
+        a_launches, a_memsets, a_dev = profile(apply(4 * N), "phase 2: apply_updates")
+        w = nodes.apply_updates_plain(clone(stats), e_rows[:32], e_ts[:32], e_d[:32], None, e_thr[:32], e_mask[:32])
+        g = nodes.apply_updates(clone(stats), e_rows[:32], e_ts[:32], e_d[:32], None, e_thr[:32], e_mask[:32])
+        errg = max(errg, require_equal(w, g, "apply_updates (N=8)"))
+        s_launches, s_memsets, s_dev = profile(apply(32), "phase 2: apply_updates at N=8")
+        small_b = (32 * (4 + 4 + 1 + 4 * NUM_EVENTS + 4) + 4 * 8
+                   + update_bytes(nodes.SECOND_CFG, stats.second, e_rows[:32], e_ts[:32], e_d[:32], None,
+                                  e_mask[:32], with_batch=False)
+                   + update_bytes(nodes.MINUTE_CFG, stats.minute, e_rows[:32], e_ts[:32], e_d[:32], None,
+                                  e_mask[:32], with_batch=False))
+        results["thread_gauge"].update(
+            max_abs_err=max(results["thread_gauge"]["max_abs_err"], errg), launches_per_call=a_launches,
+            memsets_per_call=a_memsets, device_ms=a_dev, kernel_us=kernel_times(apply(4 * N)),
+            small_ms=time_ms(apply(32)), small_launches_per_call=s_launches, small_memsets_per_call=s_memsets,
+            small_device_ms=s_dev, small_bound_ms=bound(small_b)[0],
+        )
+        r = results["thread_gauge"]
+        log(f"  apply_updates (both windows and the gauge) at 4N updates: {r['ms']:.4f} ms a call, {a_launches} "
+            f"device kernels, {a_memsets} memsets, {a_dev:.4f} ms of device time {r['kernel_us']}; N=8: "
+            f"{r['small_ms']:.4f} ms, {s_launches} kernels, {s_memsets} memsets, {s_dev:.4f} ms (profiler)")
+        if (a_launches, a_memsets) != (2, 0) or (s_launches, s_memsets) != (2, 0):
+            fail(f"phase 2: apply_updates issued {a_launches} + {a_memsets} ({s_launches} + {s_memsets} at N=8) "
+                 "kernels and memsets in one call")
         del stats
         torch.cuda.empty_cache()
 
@@ -1560,6 +1637,10 @@ def drive_engine(device: torch.device, seed: int):
 def phase4(results: dict, cpu_jobs: dict) -> None:
     log(f"phase 4: the engine through the public API (6,000 rules, {STEPS} flushes of 32,768 over {STEPS / 10:g} "
         f"simulated s)")
+    # The window update and the gauge launch inside apply_updates' one
+    # call, which counts one launch of each. No entry is prioritized, so
+    # the slab never holds a borrow and the sweep (K1) must not run: its
+    # launches come from phase 4b.
     wrappers = {
         "materialize_matured": nodes.materialize_matured,
         "window_update": ma.update,
@@ -1573,6 +1654,8 @@ def phase4(results: dict, cpu_jobs: dict) -> None:
     log(f"  card: {gpu_flush_s * 1e3:.3f} ms per 32,768-entry flush call "
         f"({FLUSH_N / gpu_flush_s:,.0f} entries/s, host encode and verdict copy included)")
     log(f"  launches on the main path: {counts}")
+    if counts.pop("materialize_matured") != 0:
+        fail("phase 4: the matured-borrow sweep ran on a stream that borrows nothing")
     for name, c in counts.items():
         if c <= 0:
             fail(f"kernel {name} was not launched on the main path")
@@ -1723,8 +1806,8 @@ def phase4_chain(results: dict, cpu_jobs: dict) -> None:
     for name, c in counts.items():
         if c <= 0:
             fail(f"kernel {name} was not launched on the slot chain's path")
-    for name in ("flow_admission_occupy", "commit_borrow_slab", "system_check", "breaker_on_exits",
-                 "breaker_try_pass", "slot_chain_verdict"):
+    for name in ("materialize_matured", "flow_admission_occupy", "commit_borrow_slab", "system_check",
+                 "breaker_on_exits", "breaker_try_pass", "slot_chain_verdict"):
         results[name]["launches"] = counts[name]
     cpu = cpu_result(cpu_jobs, "4b")
     log(f"  CPU engine (plain versions, in a worker process): {cpu[3] * 1e3:.3f} ms per flush call")
@@ -1887,9 +1970,8 @@ def phase4_shaping(results: dict, cpu_jobs: dict) -> None:
     log(f"phase 4c: shaping and hot parameters through the public API ({SHAPE_STEPS} flushes of {SHAPE_N:,} Zipf "
         f"entries over 6,000 rules, one in seven shaping; param rules on 300 resources, a THREAD-grade pool, "
         f"gateway args columns)")
-    counters = {
-        "materialize_matured": nodes.materialize_matured, "window_update": ma.update,
-        "thread_gauge": nodes.thread_gauge_add,
+    counters = {  # no prioritized entries: the sweep (K1) does not run here
+        "window_update": ma.update, "thread_gauge": nodes.thread_gauge_add,
         "flow_admission": flush.flow_admission, "slot_chain_verdict": flush.slot_chain_verdict,
         "shaping_stage": tsh.shaping_stage, "run_param": tpt.run_param,
     }
@@ -3056,13 +3138,13 @@ def main() -> None:
     log(f"phase 1: {line}")
     cpu_jobs = start_cpu_jobs()
     t0 = time.perf_counter()
-    cuda_build.build_all(["window_update", "flow_admission", "system_check", "breaker_on_exits",
+    cuda_build.build_all(["slab_sweep", "window_update", "flow_admission", "system_check", "breaker_on_exits",
                           "breaker_try_pass", "commit_borrow_slab", "shaping_scan", "param_scan", "sketch_fold",
                           "token_decide", "mesh_merge_breaker", "mesh_budget"])
     log(f"  CUDA kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
 
     meta = {
-        "materialize_matured": ("triton", "sentinel_tpu_torch/metrics/nodes.py",
+        "materialize_matured": ("cuda", "sentinel_tpu_torch/csrc/slab_sweep.cu",
                                 "sentinel_tpu/metrics/nodes.py:155"),
         "window_update": ("cuda", "sentinel_tpu_torch/csrc/window_update.cu",
                           "sentinel_tpu/metrics/metric_array.py:101"),
@@ -3133,7 +3215,8 @@ def main() -> None:
                       "small_bound_ms", "ms_32768", "routes", "small_max", "shard_ms", "shard_launches_per_call",
                       "shard_memsets_per_call", "shard_device_ms", "kernel_us", "decay_ms",
                       "decay_launches_per_call", "decay_memsets_per_call", "decay_device_ms", "decay_kernel_us",
-                      "widened_device_ms", "widened_kernel_us"):
+                      "widened_device_ms", "widened_kernel_us", "matured_ms", "matured_launches_per_call",
+                      "matured_memsets_per_call", "matured_device_ms", "matured_cells"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

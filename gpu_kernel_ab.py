@@ -6,11 +6,25 @@ budget split (K15) of one checkout of
 sentinel_tpu_torch on the card, so that two commits can be compared on
 one card in alternating runs:
 
-    python3 gpu_kernel_ab.py --root path/to/checkout [--tag name] [--only k7,k11]
+    python3 gpu_kernel_ab.py --root path/to/checkout [--tag name] [--only k7,k11|k1,gauge]
 
 It builds that checkout's kernels, then times, with CUDA events around
 back-to-back calls (gpu_timing.time_ms):
 
+- K1: the matured-borrow sweep over the slab [1,048,576, 2] of a full
+  stats state, swept (every cell empty: what each flush meets on traffic
+  without borrows), and with 2% of the cells matured (``k1_matured``,
+  chip_smoke.py phase 2's Zipf case: live, newer and expired borrows),
+  the slab and the second window restored before each call and left out
+  of the time (gpu_timing.time_ms_fresh);
+- ``apply_updates`` (the two windows' K2 and the thread gauge) at the
+  entry accounting's 4N = 524,288 updates of 131,072 entries (uniform
+  rows, 90% admitted) and at its first 32 (``apply_small``, N = 8); the
+  gauge alone (``gauge``) where the checkout still has it as a kernel of
+  its own;
+- K3 (``k3``): the second window's sums at 131,072 sorted gathered rows;
+- K16 (``k16``): the global shaping charge of 16,384 items (every eighth
+  entry's row, ts over 400 ms) over the same second window;
 - K7: 32,768 exits (KD = 1, 30% errors, 95% valid, ts over 400 ms) into
   1,048,576 breakers of the three grades (60% CLOSED, 25% OPEN, 15%
   HALF_OPEN), on uniform breakers and on Zipf(1.1) ones (``k7_zipf``),
@@ -68,7 +82,8 @@ k11_decay_kernel_us, k11_widened_kernel_us, k11_widened_decay_kernel_us, k5_unif
 k9_kernel_us, k10_kernel_us, k15_kernel_us, k15_borrow_kernel_us,
 tail_kernel_us, tail_zipf_kernel_us, tail_zipf_blocked_kernel_us); the
 script fails if the profiler reads no kernel. ``--only k7,k11`` times K7
-and K11 alone. Prints one JSON line that
+and K11 alone, ``--only k1,gauge`` K1, apply_updates, the gauge, K3 and
+K16 alone. Prints one JSON line that
 carries the card's name and power limit. Needs CUDA; imports no JAX. The
 helpers come from the gpu_timing.py beside this script, whichever
 checkout it times.
@@ -85,7 +100,7 @@ import sys
 import numpy as np
 import torch
 
-from gpu_timing import TD_B, TD_FLOWS, TD_NS, device_profile, kernel_times, time_ms, token_batch
+from gpu_timing import TD_B, TD_FLOWS, TD_NS, device_profile, kernel_times, time_ms, time_ms_fresh, token_batch
 
 
 def card_line() -> str:
@@ -94,11 +109,99 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "not measured"
 
 
+def k1_gauge(out: dict, profiled, dev) -> None:
+    """K1 swept and with 2% of the slab matured, apply_updates at 4N and at
+    N = 8, the gauge alone where the checkout has it, K3 and K16."""
+    from sentinel_tpu_torch.metrics import metric_array as ma
+    from sentinel_tpu_torch.metrics import nodes
+    from sentinel_tpu_torch.metrics.events import NUM_EVENTS
+    from sentinel_tpu_torch.parallel import ici
+    from sentinel_tpu_torch.rules.shaping import ShapingBatch
+
+    i32 = torch.int32
+    rows_n, n, now = 1 << 20, 1 << 17, 1_000_000
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+
+    def window(cfg):
+        b, wlen = cfg.sample_count, cfg.window_len_ms
+        age = torch.randint(-1, 2 * b + 2, (rows_n, b), generator=gen, device=dev, dtype=i32)
+        ws = (now - now % wlen) - age * wlen
+        return ma.MetricArrayState(
+            torch.randint(0, 40, (rows_n, b, NUM_EVENTS), generator=gen, device=dev, dtype=i32),
+            torch.randint(1, cfg.max_rt + 1, (rows_n, b), generator=gen, device=dev, dtype=i32),
+            torch.where((age < 0) | (ws < 0), torch.full_like(ws, cfg.empty_ws), ws).to(i32).contiguous(),
+        )
+
+    scfg = nodes.SECOND_CFG
+    b = scfg.sample_count
+    stats = nodes.StatsState(window(scfg), window(nodes.MINUTE_CFG),
+                             torch.randint(0, 4, (rows_n,), generator=gen, device=dev, dtype=i32),
+                             torch.zeros((rows_n, b), device=dev, dtype=i32),
+                             torch.full((rows_n, b), scfg.empty_ws, device=dev, dtype=i32))
+    profiled("k1", lambda: nodes.materialize_matured(stats, now))
+    # 2% of the cells borrowed for the windows from 4 back to 2 ahead.
+    pick = torch.rand((rows_n, b), generator=gen, device=dev) < 0.02
+    wlen = scfg.window_len_ms
+    off = torch.randint(-4, 3, (rows_n, b), generator=gen, device=dev, dtype=i32) * wlen
+    fws0 = torch.where(pick, now - now % wlen + off, stats.future_ws).to(i32)
+    fpass0 = torch.where(pick, torch.randint(1, 9, (rows_n, b), generator=gen, device=dev, dtype=i32), 0).to(i32)
+    saved = [t.clone() for t in stats.second]
+
+    def restore():
+        stats.future_ws.copy_(fws0)
+        stats.future_pass.copy_(fpass0)
+        for t, s in zip(stats.second, saved):
+            t.copy_(s)
+
+    k1m = lambda: (restore(), nodes.materialize_matured(stats, now))
+    out["k1_matured_ms"] = time_ms_fresh(restore, lambda: nodes.materialize_matured(stats, now))
+    # The profile leaves the restoring copies out (memcpy, not kernels).
+    out["k1_matured_launches_per_call"], out["k1_matured_memsets_per_call"], out["k1_matured_device_ms"] = (
+        device_profile(k1m))
+    out["k1_matured_cells"] = int(pick.sum())
+    del saved, fws0, fpass0, pick, off
+
+    # The entry accounting's update batch: rows (res, res, -1, 0), 90% admitted.
+    rng = np.random.default_rng(12)
+    res = rng.integers(0, rows_n, n).astype(np.int32)
+    adm = rng.random(n) < 0.9
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rows4 = t(np.stack([res, res, np.full(n, -1), np.zeros(n)], axis=1).astype(np.int32).reshape(-1))
+    ts4 = t(np.repeat(np.sort(rng.integers(0, 400, n)).astype(np.int32) + now - 400, 4))
+    d4 = np.zeros((4 * n, NUM_EVENTS), np.int32)
+    d4[:, 0], d4[:, 1] = np.repeat(adm, 4), np.repeat(~adm, 4)
+    d4, thr4 = t(d4), t(np.repeat(adm, 4).astype(np.int32))
+    mask4 = rows4 >= 0
+    apply = lambda m: lambda: nodes.apply_updates(stats, rows4[:m], ts4[:m], d4[:m], None, thr4[:m], mask4[:m])
+    profiled("apply", apply(4 * n))
+    out["apply_kernel_us"] = kernel_times(apply(4 * n))
+    profiled("apply_small", apply(32))
+    try:  # the gauge as a kernel of its own (before it rode in apply_updates' second launch)
+        profiled("gauge", lambda: nodes.thread_gauge_add(stats.threads, rows4, thr4, mask4))
+    except ValueError as exc:
+        out["gauge_ms"] = f"not in this checkout ({exc})"
+
+    # K3 at 131,072 sorted gathered rows, and K16 over 16,384 items.
+    rows_g = torch.sort(t(res)).values
+    profiled("k3", lambda: ma.window_reduce(scfg, stats.second, now, rows_g))
+    s16 = n // 8
+    sb = ShapingBatch(valid=torch.ones(s16, dtype=torch.bool, device=dev), gid=t(res[::8]), row=t(res[::8]),
+                      eidx=t(np.arange(0, n, 8, dtype=np.int32)), flat_pos=t(np.arange(0, n, 8, dtype=np.int32)),
+                      ts=t(np.sort(rng.integers(0, 400, s16)).astype(np.int32) + now - 400),
+                      acquire=t(np.ones(s16, np.int32)))
+    profiled("k16", lambda: ici.mesh_shaping_charge(stats.second, sb, now))
+    out["k16_kernel_us"] = kernel_times(lambda: ici.mesh_shaping_charge(stats.second, sb, now))
+    del stats
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="checkout whose sentinel_tpu_torch is timed")
     ap.add_argument("--tag", default="")
-    ap.add_argument("--only", default="", choices=("", "k7,k11"), help="time K7 and K11 alone")
+    ap.add_argument("--only", default="", choices=("", "k7,k11", "k1,gauge"),
+                    help="time K7 and K11, or K1, apply_updates, the gauge, K3 and K16, alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("gpu_kernel_ab: no CUDA device")
@@ -117,9 +220,9 @@ def main() -> None:
     from sentinel_tpu_torch.runtime.engine import _rounds_bucket
     from sentinel_tpu_torch.utils import cuda_build
 
-    cuda_build.build_all(["window_update", "token_decide", "flow_admission", "param_scan", "system_check",
-                          "breaker_on_exits", "breaker_try_pass", "shaping_scan", "mesh_budget",
-                          "commit_borrow_slab", "sketch_fold"])
+    sources = ["window_update", "token_decide", "flow_admission", "param_scan", "system_check", "breaker_on_exits",
+               "breaker_try_pass", "shaping_scan", "mesh_budget", "commit_borrow_slab", "sketch_fold", "slab_sweep"]
+    cuda_build.build_all(n for n in sources if (cuda_build.CSRC / f"{n}.cu").exists())  # an older checkout has fewer
     dev = torch.device("cuda", 0)
     i32 = torch.int32
     out = {"tag": args.tag, "root": args.root, "card": card_line(), "torch": torch.__version__}
@@ -128,6 +231,12 @@ def main() -> None:
         out[f"{name}_ms"] = time_ms(fn)
         out[f"{name}_launches_per_call"], out[f"{name}_memsets_per_call"], out[f"{name}_device_ms"] = (
             device_profile(fn))
+
+    if args.only in ("", "k1,gauge"):
+        k1_gauge(out, profiled, dev)
+        if args.only:
+            print(json.dumps(out), flush=True)
+            return
 
     # K7: 32,768 exits into 1,048,576 breakers, uniform and Zipf(1.1), and 8.
     rng7 = np.random.default_rng(7)

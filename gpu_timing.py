@@ -29,6 +29,24 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_ms_fresh(setup, fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` by CUDA events around each call alone,
+    ``setup`` (say, restoring the state ``fn`` writes) run before each one
+    and left out of the time."""
+    total = 0.0
+    for i in range(warmup + iters):
+        setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            total += start.elapsed_time(end)
+    return total / iters
+
+
 def _device_events(fn, calls: int, tries: int) -> dict:
     """Device time (us) of every kernel or memset launch, by name, over
     ``calls`` calls of ``fn`` in one torch.profiler (CUPTI) session; copies

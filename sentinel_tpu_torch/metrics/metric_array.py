@@ -182,8 +182,9 @@ def _wu_lib() -> ctypes.CDLL:
     lib = cuda_build.load("window_update")
     if not getattr(lib, "_typed", False):
         lib.window_update.argtypes = [_P] * 5 + [_I] * 5 + [_P] * 4
-        lib.thread_gauge_add.argtypes = [_P, _P, _P, _I, _I, _P, _P]
-        for f in (lib.window_update, lib.thread_gauge_add):
+        # nodes.apply_updates: both windows and the thread gauge.
+        lib.apply_updates.argtypes = [_P] * 7 + [_I] * 5 + [_P] * 3 + [_I] * 2 + [_P] * 5
+        for f in (lib.window_update, lib.apply_updates):
             f.restype = _I
         lib._typed = True
     return lib

@@ -11,16 +11,20 @@ touches rows, never objects.
 
 Kernels here, each beside its plain PyTorch version:
 
-* :func:`materialize_matured` (K1): Triton, one fused elementwise pass
-  over the ``[R, B]`` slab, in place;
-* :func:`thread_gauge_add`: the thread-gauge scatter of
-  :func:`apply_updates`, CUDA C++ (``csrc/window_update.cu``).
+* :func:`materialize_matured` (K1): CUDA C++ (``csrc/slab_sweep.cu``),
+  one pass over the ``[R, B]`` slab, in place, that writes only the cells
+  that change;
+* :func:`apply_updates`: both windows' window update (K2) and the
+  thread-gauge scatter in one C call of two launches
+  (``csrc/window_update.cu``). :func:`thread_gauge_add` is the gauge's
+  plain route; on the card the gauge runs only inside that call.
 
 State updates happen IN PLACE (the JAX code donated these buffers).
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -123,8 +127,8 @@ def materialize_matured(state: StatsState, now: int) -> StatsState:
     """Fold matured borrows into the second window and clear their slab
     slots (OccupiableBucketLeapArray.resetWindowTo copying borrowArray's
     bucket into the rolled window, OccupiableBucketLeapArray.java:41-55).
-    Runs once per flush, before admission, in place. A slab cell matures
-    when ``now - future_ws >= 0``; a matured cell still inside the
+    Runs at the start of a flush, before admission, in place. A slab cell
+    matures when ``now - future_ws >= 0``; a matured cell still inside the
     interval adds its tokens to PASS of the bucket at the same index,
     rolling the bucket first when its own window is newer."""
     if state.threads.is_cuda:
@@ -157,72 +161,40 @@ def materialize_matured_plain(state: StatsState, now: int) -> StatsState:
     return state
 
 
-_TRITON = None
-tl = None  # triton.language, bound on first launch (_triton_kernel)
-
-
-def _materialize_body(
-    fws_ptr, fpass_ptr, bws_ptr, counts_ptr, min_ptr, now, n_cells, interval, empty_ws, max_rt,
-    NE: tl.constexpr, BLOCK: tl.constexpr,
-):
-    # Elementwise over the [R, B] cells. Only matured cells (none, on
-    # traffic without prioritized borrows) are written.
-    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-    m = offs < n_cells
-    fws = tl.load(fws_ptr + offs, mask=m, other=0)
-    age = now - fws
-    matured = m & (age >= 0)
-    live = matured & (age <= interval)
-    bws = tl.load(bws_ptr + offs, mask=live, other=0)
-    fpass = tl.load(fpass_ptr + offs, mask=live, other=0)
-    newer = live & (fws > bws)
-    same = live & (fws == bws)
-    pass_ptr = counts_ptr + offs * NE  # PASS is event 0
-    old = tl.load(pass_ptr, mask=same, other=0)
-    tl.store(pass_ptr, old + fpass, mask=same)
-    tl.store(pass_ptr, fpass, mask=newer)
-    for e in tl.static_range(1, NE):
-        tl.store(pass_ptr + e, tl.zeros_like(fpass), mask=newer)
-    tl.store(bws_ptr + offs, fws, mask=newer)
-    tl.store(min_ptr + offs, tl.zeros_like(fpass) + max_rt, mask=newer)
-    tl.store(fws_ptr + offs, tl.zeros_like(fpass) + empty_ws, mask=matured)
-    tl.store(fpass_ptr + offs, tl.zeros_like(fpass), mask=matured)
-
-
-def _triton_kernel():
-    """Compile-on-first-use: triton is imported here, never at module
-    import (the CPU tests import every module of the package)."""
-    global _TRITON, tl
-    if _TRITON is None:
-        import triton
-        import triton.language
-
-        tl = triton.language
-        _TRITON = triton.jit(_materialize_body)
-    return _TRITON
+def _sweep_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("slab_sweep")
+    if not getattr(lib, "_typed", False):
+        lib.slab_sweep.argtypes = [ma._P] * 5 + [ctypes.c_longlong] + [ma._I] * 4 + [ma._P]
+        lib.slab_sweep.restype = ma._I
+        lib._typed = True
+    return lib
 
 
 def _materialize_cuda(state: StatsState, now: int) -> StatsState:
     cfg = SECOND_CFG
     sec = state.second
-    for t in (state.future_ws, state.future_pass, *sec):
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError("materialize_matured: need contiguous int32 state tensors")
+    shape = tuple(state.future_ws.shape)
+    for name, t in (("future_ws", state.future_ws), ("future_pass", state.future_pass), *zip(
+            ("second.counts", "second.min_rt", "second.window_start"), sec)):
+        if t.dtype != torch.int32 or not t.is_contiguous() or not t.is_cuda or tuple(t.shape[:2]) != shape:
+            raise ValueError(f"materialize_matured: {name} needs a contiguous CUDA int32 tensor over the slab {shape}")
     n_cells = state.future_ws.numel()
     if n_cells == 0:
         return state
-    block = 1024
-    _triton_kernel()[((n_cells + block - 1) // block,)](
-        state.future_ws, state.future_pass, sec.window_start, sec.counts, sec.min_rt,
-        int(now), n_cells, cfg.interval_ms, cfg.empty_ws, cfg.max_rt,
-        NE=NUM_EVENTS, BLOCK=block,
+    cuda_build.check(
+        _sweep_lib().slab_sweep(
+            state.future_ws.data_ptr(), state.future_pass.data_ptr(), sec.counts.data_ptr(), sec.min_rt.data_ptr(),
+            sec.window_start.data_ptr(), n_cells, int(now), cfg.interval_ms, cfg.empty_ws, cfg.max_rt,
+            ma.stream_of(state.future_ws),
+        ),
+        "slab_sweep",
     )
     materialize_matured.launches += 1
     return state
 
 
 # ---------------------------------------------------------------------------
-# apply_updates (K2 twice + the thread gauge)
+# apply_updates: both windows' K2 and the thread gauge
 # ---------------------------------------------------------------------------
 
 
@@ -238,21 +210,71 @@ def apply_updates(
 ) -> StatsState:
     """One update of both windows plus the thread gauge, in place.
     ``minute_deltas`` overrides the event deltas for the minute window
-    (occupied entries write PASS + OCCUPIED_PASS there only)."""
-    ma.update(SECOND_CFG, state.second, rows, ts, deltas, rt_sample, mask)
-    ma.update(
+    (occupied entries write PASS + OCCUPIED_PASS there only). On the card
+    one C call of two launches; each call counts one launch of the window
+    update (``metric_array.update.launches``) and of the gauge
+    (``thread_gauge_add.launches``), the kernels it runs."""
+    if state.threads.is_cuda:
+        return _apply_updates_cuda(state, rows, ts, deltas, rt_sample, thread_delta, mask, minute_deltas)
+    return apply_updates_plain(state, rows, ts, deltas, rt_sample, thread_delta, mask, minute_deltas)
+
+
+def apply_updates_plain(state, rows, ts, deltas, rt_sample, thread_delta, mask, minute_deltas=None) -> StatsState:
+    """Plain PyTorch version of :func:`apply_updates`."""
+    ma.update_plain(SECOND_CFG, state.second, rows, ts, deltas, rt_sample, mask)
+    ma.update_plain(
         MINUTE_CFG, state.minute, rows, ts,
         deltas if minute_deltas is None else minute_deltas, rt_sample, mask,
     )
-    thread_gauge_add(state.threads, rows, thread_delta, mask)
+    thread_gauge_add_plain(state.threads, rows, thread_delta, mask)
+    return state
+
+
+def _apply_updates_cuda(state, rows, ts, deltas, rt_sample, thread_delta, mask, minute_deltas) -> StatsState:
+    n = rows.shape[0]
+    ma._i32(rows, "rows", (n,))
+    ma._i32(ts, "ts", (n,))
+    ma._i32(deltas, "deltas", (n, NUM_EVENTS))
+    ma._i32(thread_delta, "thread_delta", (n,))
+    ma._bool(mask, "mask", n)
+    if rt_sample is not None:
+        ma._i32(rt_sample, "rt_sample", (n,))
+    if minute_deltas is not None:
+        ma._i32(minute_deltas, "minute_deltas", (n, NUM_EVENTS))
+    r = state.n_rows
+    for name, t in (("threads", state.threads), *(
+            (f"{w}.{f}", t) for w in ("second", "minute")
+            for f, t in zip(ma.MetricArrayState._fields, getattr(state, w)))):
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.shape[0] != r:
+            raise ValueError(f"state.{name}: need a contiguous int32 tensor of {r} rows")
+    if n == 0:
+        return state
+    sec, mnt = state.second, state.minute
+    ptr = lambda t: None if t is None else t.data_ptr()
+    cuda_build.check(
+        ma._wu_lib().apply_updates(
+            rows.data_ptr(), ts.data_ptr(), deltas.data_ptr(), ptr(minute_deltas), ptr(rt_sample),
+            thread_delta.data_ptr(), mask.data_ptr(), n, r, SECOND_CFG.max_rt,
+            SECOND_CFG.sample_count, SECOND_CFG.window_len_ms,
+            sec.counts.data_ptr(), sec.min_rt.data_ptr(), sec.window_start.data_ptr(),
+            MINUTE_CFG.sample_count, MINUTE_CFG.window_len_ms,
+            mnt.counts.data_ptr(), mnt.min_rt.data_ptr(), mnt.window_start.data_ptr(),
+            state.threads.data_ptr(), ma.stream_of(rows),
+        ),
+        "apply_updates",
+    )
+    ma.update.launches += 1
+    thread_gauge_add.launches += 1
     return state
 
 
 def thread_gauge_add(threads, rows, thread_delta, mask) -> torch.Tensor:
     """``threads[rows[i]] += thread_delta[i]`` for masked-in rows inside
-    ``[0, R)``, in place (the JAX ``.at[].add(mode="drop")``)."""
+    ``[0, R)``, in place (the JAX ``.at[].add(mode="drop")``). Its kernel
+    runs inside :func:`apply_updates`' second launch (``au_add``), which
+    counts it in ``launches``; a CUDA tensor here raises."""
     if threads.is_cuda:
-        return _thread_gauge_cuda(threads, rows, thread_delta, mask)
+        raise ValueError("thread_gauge_add: on the card the thread gauge runs inside apply_updates (au_add)")
     return thread_gauge_add_plain(threads, rows, thread_delta, mask)
 
 
@@ -263,27 +285,6 @@ def thread_gauge_add_plain(threads, rows, thread_delta, mask) -> torch.Tensor:
     """Plain PyTorch version of :func:`thread_gauge_add`."""
     sel = mask & (rows >= 0) & (rows < threads.shape[0])
     threads.index_add_(0, rows[sel].long(), thread_delta[sel].to(torch.int32))
-    return threads
-
-
-def _thread_gauge_cuda(threads, rows, thread_delta, mask) -> torch.Tensor:
-    n = rows.shape[0]
-    ma._i32(rows, "rows", (n,))
-    ma._i32(thread_delta, "thread_delta", (n,))
-    ma._bool(mask, "mask", n)
-    if threads.dtype != torch.int32 or not threads.is_contiguous():
-        raise ValueError("threads: need a contiguous int32 tensor")
-    if n == 0:
-        return threads
-    lib = ma._wu_lib()
-    cuda_build.check(
-        lib.thread_gauge_add(
-            rows.data_ptr(), thread_delta.data_ptr(), mask.data_ptr(), n, threads.shape[0],
-            threads.data_ptr(), ma.stream_of(threads),
-        ),
-        "thread_gauge_add",
-    )
-    thread_gauge_add.launches += 1
     return threads
 
 

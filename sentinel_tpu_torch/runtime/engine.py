@@ -69,6 +69,7 @@ from sentinel_tpu_torch.runtime.flush import (
     SYS_TYPE_NAMES,
     TOPK_MAX,
     FlushBatch,
+    borrow_horizon,
     flush_step,
     make_system_device,
 )
@@ -281,6 +282,11 @@ class Engine:
         self.nodes = NodeRegistry()
         rows = _pad_pow2(initial_rows or config.get_int(config.INITIAL_ROWS, 1024))
         self.stats: StatsState = make_stats(rows, self.device)
+        # The slab horizon: None while every future-slab cell is
+        # (empty_ws, 0), else the latest window start a committed borrow
+        # may hold (flush.borrow_horizon). The single-device flush sweeps
+        # matured borrows (K1) only while it is set; see _note_borrows.
+        self._slab_horizon: Optional[int] = None
         self.flow_index = FlowIndex([], cold_factor=config.cold_factor, device=self.device)
         self.flow_dyn: FlowRuleDynState = self.flow_index.make_dyn_state()
         self.degrade_index = DegradeIndex([], device=self.device)
@@ -1130,6 +1136,8 @@ class Engine:
             ws.copy_(torch.clamp(ws.to(torch.int64) - offset, min=floor).to(torch.int32))
 
         s = self.stats
+        if self._slab_horizon is not None:
+            self._slab_horizon -= offset
         shift(s.second.window_start, SECOND_CFG.empty_ws)
         shift(s.minute.window_start, MINUTE_CFG.empty_ws)
         shift(s.future_ws, SECOND_CFG.empty_ws)
@@ -1532,11 +1540,16 @@ class Engine:
             sk_batch = SketchBatch(ids=self._tensor(sk_ids), w=self._tensor(sk_w))
         load, cpu = system_sampler.read() if self.system_config is not None else (-1.0, -1.0)
         sysdev = make_system_device(self.system_config, load, cpu)
+        with_occupy = any(op.prio for op in entries)
+        sweep = self._sharded_fns is not None or self._slab_horizon is not None
+        timeout = config.occupy_timeout_ms
         if self._sharded_fns is not None:
             # Mesh mode: one global batch sharded over the shards; the
             # shaping and param items (global positions) go to the global
-            # scans. A failure propagates: no single-shard retry.
+            # scans. A failure propagates: no single-shard retry. The
+            # sharded step sweeps the slab on every step.
             fn = self._sharded_fn_for(shaping is not None, param is not None, sh_rounds, p_rounds)
+            timeout = fn.occupy_timeout_ms  # read when the step was built
             extra = tuple(b for b in (shaping, param) if b is not None)
             self.stats, self.flow_dyn, self.degrade_dyn, self.param_dyn, result = fn(
                 self.stats, findex.device, self.flow_dyn, dindex.device, self.degrade_dyn, self.param_dyn, sysdev,
@@ -1548,15 +1561,17 @@ class Engine:
                 with_exits=bool(exits) or bool(bulk_exits),
                 blk_topk=min(self._blk_topk_k, self.stats.n_rows),
                 ddev=dindex.device, ddyn=self.degrade_dyn, sysdev=sysdev,
-                occupy_timeout_ms=config.occupy_timeout_ms,
-                # Host-known stage specializations, as the JAX engine sets them.
-                with_occupy=any(op.prio for op in entries),
+                occupy_timeout_ms=timeout,
+                # Host-known stage specializations, as the JAX engine sets
+                # them; the sweep only while the slab may hold a borrow.
+                with_occupy=with_occupy, with_matured=sweep,
                 with_system=self.system_config is not None,
                 with_degrade=bool(dindex.rules),
                 flow_dyn=self.flow_dyn, pdyn=self.param_dyn, shaping=shaping, param=param,
                 shaping_rounds=sh_rounds, param_rounds=p_rounds,
                 skstate=tier.dev_state if sk_batch is not None else None, sk=sk_batch, sketch_decay=sk_decay,
             )
+        self._note_borrows(now, with_occupy, sweep, timeout)
         # One device→host copy of the verdicts; the sketch's candidate
         # table rides along.
         got = [result.admitted, result.reason, result.slot_ok, result.wait_ms, result.sys_type, result.dslot_ok]
@@ -1570,6 +1585,24 @@ class Engine:
             tier.on_drain(got[-2], got[-1], self.clock.now_ms())
             got = got[:-2]
         self._fill_results(got, entries, bulk, findex, dindex, auth_rules, k, kd)
+
+    def _note_borrows(self, now: int, with_occupy: bool, swept: bool, occupy_timeout_ms: int) -> None:
+        """The slab horizon after a flush at ``now``. A sweep at or past the
+        horizon matured every borrow (and, before ``now - empty_ws`` wraps,
+        reset every cell to (empty_ws, 0)); a flush with prioritized entries
+        may then have committed borrows up to :func:`borrow_horizon`. Only
+        such a flush writes the slab (K5 runs under ``with_occupy``), make
+        and growth add empty cells, and a rebase shifts the horizon with the
+        slab. A path that replaces the stats wholesale sets the horizon from
+        ``int(stats.future_ws.max())``."""
+        h = self._slab_horizon
+        if swept and h is not None and h <= now <= 2**31 - 1 + SECOND_CFG.empty_ws:
+            h = None
+        if with_occupy:
+            t = borrow_horizon(now, occupy_timeout_ms)
+            if t is not None:
+                h = t if h is None else max(h, t)
+        self._slab_horizon = h
 
     def _fill_results(self, got, entries, bulk, findex: FlowIndex, dindex: DegradeIndex,
                       auth_rules: Dict[str, AuthorityRule], k: int, kd: int) -> None:

@@ -44,8 +44,11 @@ K7 and K8 live in ``rules/degrade_table.py``, the shaping recurrence K9
 recurrence K10 in ``rules/param_table.py``, the sketch fold K11 in
 ``runtime/sketch.py``. K4 and K6 read the second window themselves
 (K3, ``metric_array.window_sums``, serves the engine's stats reads); the
-windows are written through ``nodes.apply_updates`` (K2); :func:`flush_step` runs
-``nodes.materialize_matured`` (K1) first. The rest is torch glue.
+windows are written through ``nodes.apply_updates`` (K2 and the thread
+gauge); :func:`flush_step` runs ``nodes.materialize_matured`` (K1) first,
+unless its caller knows the future slab holds no borrow (``with_matured``,
+the engine's slab horizon: :func:`borrow_horizon`). The rest is torch
+glue.
 """
 
 from __future__ import annotations
@@ -239,6 +242,24 @@ def occupy_steps(now: int):
         out.append((i * wlen + wlen - now_mod, exp_ws, (exp_ws // wlen) % nb, exp_ws < now,
                     _wrap32(now - now_mod + (i + 1) * wlen)))
     return out
+
+
+def borrow_horizon(now: int, occupy_timeout_ms: int) -> Optional[int]:
+    """The latest window start a borrow committed by a flush at ``now`` can
+    take: the largest target of :func:`occupy_steps` whose step may grant
+    (``started and wait_ms < occupy_timeout_ms``), or None when none may.
+    The target is not wrapped to int32: near 2^31 it may lie past every
+    int32 ``now``. A caller that keeps the largest horizon of its borrowing
+    flushes knows that the sweep (K1) at any ``now`` at or past it, and
+    before ``now - empty_ws`` wraps, leaves every slab cell (empty_ws, 0);
+    on such a slab the sweep changes nothing (no cell is live: its age is
+    ``now + interval + 1``), so the flushes after it may skip it until the
+    next borrow."""
+    wlen = _nodes.SECOND_CFG.window_len_ms
+    base = now - now % wlen
+    targets = [base + (i + 1) * wlen for i, (wait_i, _, _, started, _) in enumerate(occupy_steps(now))
+               if started and wait_i < occupy_timeout_ms]
+    return max(targets, default=None)
 
 
 def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -1274,14 +1295,17 @@ def flush_step(
     skstate: Optional[SketchState] = None,
     sk: Optional[SketchBatch] = None,
     sketch_decay: bool = False,
+    with_matured: bool = True,
 ) -> Tuple[StatsState, FlushResult]:
     """Apply one batch, in place: the matured-borrow sweep, exits and
     breaker completions, then the slot chain and accounting. The flags
     are the JAX package's host-known specializations (see the module
-    docstring); ``shaping``/``param`` (None = no such slots) come with
-    their state (``flow_dyn``, ``pdyn``) and the host's execution modes
-    (``shaping_rounds``, ``param_rounds``, as ``run_shaping``/``run_param``
-    take them). The breaker, shaping and param states are updated in
+    docstring); ``with_matured=False`` skips the sweep, for a caller that
+    knows every slab cell is (empty_ws, 0) (see :func:`borrow_horizon`);
+    each sweep counts one in ``flush_step.sweeps``. ``shaping``/``param``
+    (None = no such slots) come with their state (``flow_dyn``, ``pdyn``)
+    and the host's execution modes (``shaping_rounds``, ``param_rounds``,
+    as ``run_shaping``/``run_param`` take them). The breaker, shaping and param states are updated in
     place. ``skstate``/``sk`` thread the sketch tier: after the entries,
     the chunk's key batch folds into the sketch state in place (K11,
     with the once-per-window halving when ``sketch_decay``)."""
@@ -1293,7 +1317,9 @@ def flush_step(
         raise ValueError("flush_step: shaping needs the flow rules' dynamic state")
     if param is not None and pdyn is None:
         raise ValueError("flush_step: param needs the param state")
-    materialize_matured(stats, batch.now)
+    if with_matured:
+        materialize_matured(stats, batch.now)
+        flush_step.sweeps += 1
     apply_exit_phase(stats, batch, with_exits, ddev, ddyn, with_degrade)
     out = flush_entries(
         stats, flow_dev, batch, blk_topk, ddev, ddyn, sysdev, occupy_timeout_ms,
@@ -1302,3 +1328,6 @@ def flush_step(
     if skstate is not None and sk is not None:
         sketch_fold(skstate, sk, decay=sketch_decay)
     return out
+
+
+flush_step.sweeps = 0

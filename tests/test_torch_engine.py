@@ -10,6 +10,7 @@ port, the features of the slices accepted, and the features outside them
 raising NotImplementedError."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,11 +21,13 @@ from sentinel_tpu.runtime.engine import Engine as JEngine
 from sentinel_tpu.testing.oracle import OracleFlowEngine
 from sentinel_tpu.utils.clock import ManualClock as JClock
 from sentinel_tpu_torch.core import api
+from sentinel_tpu_torch.metrics import nodes as tnodes
 from sentinel_tpu_torch.metrics.nodes import stats_to_numpy
 from sentinel_tpu_torch.models import constants as C
 from sentinel_tpu_torch.models.rules import FlowRule
 from sentinel_tpu_torch.parallel import make_mesh
 from sentinel_tpu_torch.rules.degrade_table import degrade_state_to_numpy
+from sentinel_tpu_torch.runtime import flush as tflush
 from sentinel_tpu_torch.runtime.engine import Engine
 from sentinel_tpu_torch.utils import clock as tclock
 from sentinel_tpu_torch.utils.config import config
@@ -771,6 +774,136 @@ def test_rebase_large_offset_keeps_breaker_floor():
     assert (int(d.next_retry[1]), int(d.ws[1])) == (49_980_500, 49_980_000)
     unaligned = 1_950_000_000 - 1_950_000_000 % 333 - offset
     assert int(d.ws[2]) % 333 == 0 and unaligned - 333 < int(d.ws[2]) <= unaligned
+
+
+# --- the slab horizon: the sweep (K1) runs only while a borrow may be held ----------
+
+
+@pytest.fixture
+def occupy_timeout():
+    """Sets both packages' occupy timeout; both configs are reset after."""
+    from sentinel_tpu.utils.config import config as jconfig
+
+    def set_ms(ms):
+        for c in (jconfig, config):
+            c.set(c.OCCUPY_TIMEOUT_MS, str(ms))
+
+    try:
+        yield set_ms
+    finally:
+        jconfig.reset()
+        config.reset()
+
+
+def _borrow_flush(pair, now, prio=0, plain=1, step=""):
+    """One flush at ``now`` on both engines: ``prio`` prioritized entries
+    and ``plain`` others on "res", one on "other"; verdicts and every state
+    tensor compared. Returns the port's sweeps in it (flush_step.sweeps)."""
+    pair.set_ms(now)
+    singles = [pair.both("submit_entry", "res", prio=True, ts=now) for _ in range(prio)]
+    singles += [pair.both("submit_entry", "res", ts=now) for _ in range(plain)]
+    singles.append(pair.both("submit_entry", "other", ts=now))
+    before = tflush.flush_step.sweeps
+    pair.flush_and_compare(singles, [], step)
+    return tflush.flush_step.sweeps - before
+
+
+@pytest.mark.parametrize("timeout", [500, 1000])
+@pytest.mark.parametrize("now_mod", [0, 1, 499])
+def test_engine_borrow_horizon_lockstep(now_mod, timeout, occupy_timeout):
+    """The port's engine and the JAX engine in lockstep across a borrow's
+    life. Two passes in the window before w and two in w (count 4), then
+    five prioritized entries at w + now_mod: they borrow the next window,
+    and, once w has started, the one after. Then DEFAULT flushes at each
+    target - 1, at the target, at the target + interval, at the horizon
+    and past it, with a rebase of 60,000 ms after the first of them. Every
+    state tensor is compared after every flush. The port's flush sweeps
+    (K1) from the first borrow until a flush at or past the horizon, and
+    never once the slab is clean."""
+    occupy_timeout(timeout)
+    empty = tnodes.SECOND_CFG.empty_ws
+    w = 200_000
+    pair = _Pair(w - 490)
+    pair.j.set_flow_rules([jst.FlowRule("res", count=4), jst.FlowRule("other", count=100)])
+    pair.t.set_flow_rules([FlowRule("res", count=4), FlowRule("other", count=100)])
+    assert _borrow_flush(pair, w - 490, plain=2, step="previous window") == 0
+    assert _borrow_flush(pair, w, plain=2, step="window w") == 0
+    t0 = w + now_mod
+    assert _borrow_flush(pair, t0, prio=5, plain=0, step="borrows") == 0  # the slab was empty: no sweep
+    horizon = tflush.borrow_horizon(t0, timeout)
+    assert pair.t._slab_horizon == horizon
+    fws = pair.t.stats.future_ws
+    borrowed = fws != empty
+    assert bool(borrowed.any()) == (horizon is not None)
+    if horizon is None:  # no step may grant: the slab stays empty, and unswept
+        assert _borrow_flush(pair, t0 + 600, step="no borrow") == 0
+        return
+    targets = sorted({int(x) for x in fws[borrowed]})
+    assert targets[-1] <= horizon
+    times = sorted({t + d for t in targets + [horizon] for d in (-1, 0, 1000)})
+    offset, swept, passed = 0, 0, False
+    for i, x in enumerate(times):
+        if i == 1:
+            pair.both("_apply_rebase", 60_000)
+            offset = 60_000
+            assert pair.t._slab_horizon == horizon - offset
+            assert_same(jax.device_get(pair.j.stats), stats_to_numpy(pair.t.stats), "rebased stats")
+        got = _borrow_flush(pair, x - offset, step=f"flush at {x}")
+        assert got == int(not passed), f"flush at {x} (horizon {horizon}): {got} sweeps"
+        swept += got
+        passed |= x >= horizon
+    assert swept >= 2 and passed and pair.t._slab_horizon is None
+    stats = stats_to_numpy(pair.t.stats)
+    assert (stats.future_ws == empty).all() and (stats.future_pass == 0).all()
+    for x in (horizon + 1500, horizon + 5000):
+        assert _borrow_flush(pair, x - offset, step=f"past the horizon, {x}") == 0
+
+
+@pytest.mark.parametrize("timeout", [500, 1000])
+@pytest.mark.parametrize("now", [0, 1, 499, 500, 1_250, 2**31 - 501, 2**31 - 500, 2**31 - 250, 2**31 - 2,
+                                 2**31 - 1])
+def test_borrow_horizon_bounds_jax_borrows(now, timeout):
+    """The JAX step's borrows never lie past the port's horizon: on an
+    empty slab, every entry prioritized against QPS rules of count 2-9,
+    the largest window start in the JAX step's slab afterwards is at most
+    flush.borrow_horizon(now, timeout); where that is None, no entry
+    borrows. Near 2^31 the horizon is not wrapped: there the JAX step
+    grants a borrow whose target wraps, and writes no slab cell for it."""
+    from sentinel_tpu.rules import degrade_table as jdt
+    from sentinel_tpu.rules.param_table import make_param_state
+    from sentinel_tpu.runtime import flush as jflush
+    from test_torch_nodes import _jax_stats
+    from torch_parity import (borrowable_stats, random_degrade, random_flow_table, random_flush_batch,
+                              system_thresholds)
+
+    rng = np.random.default_rng(now % 997 + timeout)
+    n_rows, nr, n = 32, 16, 64
+    cfg = tnodes.SECOND_CFG
+    second, minute, threads, fpass, fws = borrowable_stats(rng, n_rows, now, cfg, tnodes.MINUTE_CFG)
+    arrs = (second, minute, threads, np.zeros_like(fpass), np.full_like(fws, cfg.empty_ws))
+    table, dyn = random_flow_table(rng, nr, thread_frac=0.0, lo=2, hi=10)
+    b = list(random_flush_batch(rng, n, 1, n_rows, nr, now, n))
+    b[2] = np.maximum(b[2], 0)  # e_ts >= 0
+    b[7] = np.ones(n, bool)  # every entry prioritized
+    dtable, ddyn = random_degrade(rng, 8, now)
+    out = jflush.flush_step_jit(
+        _jax_stats(arrs), jflush.FlowTableDevice(*map(jnp.asarray, table)),
+        jflush.FlowRuleDynState(*map(jnp.asarray, dyn)), jdt.DegradeTableDevice(*map(jnp.asarray, dtable)),
+        jdt.DegradeDynState(*map(jnp.asarray, ddyn)), make_param_state(8),
+        jflush.SystemDevice(*(jnp.float32(v) for v in system_thresholds("off"))),
+        jflush.FlushBatch(*map(jnp.asarray, b)), occupy_timeout_ms=timeout, with_occupy=True, with_exits=False,
+    )
+    after = np.asarray(out[0].future_ws)
+    borrowed = after != cfg.empty_ws
+    occupied = np.asarray(out[5].occupied)
+    horizon = tflush.borrow_horizon(now, timeout)
+    if horizon is None:
+        assert not occupied.any() and not borrowed.any()
+    else:
+        assert occupied.any(), "the batch must borrow"
+        # Near 2^31 a granted borrow whose target wraps is not written.
+        assert borrowed.any() or horizon > 2**31 - 1
+        assert not borrowed.any() or int(after[borrowed].max()) <= horizon
 
 
 # --- submit_many (tests/test_engine_bulk.py's cases), on both engines ---------------

@@ -144,26 +144,146 @@ def test_window_reduce_kernel(cuda, geometry):
             _eq(wm, gm, "min_rt")
 
 
-def test_materialize_kernel(cuda):
-    rng = np.random.default_rng(4)
-    now = 9_876_543
-    arrs = random_stats(rng, 257, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
-    want = tnodes.materialize_matured_plain(tnodes.stats_from_numpy(arrs, cuda), now)
-    got = tnodes.materialize_matured(tnodes.stats_from_numpy(arrs, cuda), now)
+def _slab_stats(rng, n_rows, now, kind, device):
+    """Stats for K1 over ``n_rows`` rows: the second window of
+    random_window_state, the slab by ``kind``: "random" (future, matured
+    live, matured expired and empty cells, random_stats), "empty" (every
+    cell (empty_ws, 0): the swept slab) or "empty_pass" (empty_ws starts,
+    half of them with tokens, which the sweep zeroes). The minute window
+    stands in as the second one: K1 does not read it."""
+    cfg = tnodes.SECOND_CFG
+    second = random_window_state(rng, n_rows, cfg, now)
+    shape = (n_rows, cfg.sample_count)
+    fws = np.full(shape, cfg.empty_ws, np.int32)
+    fpass = np.zeros(shape, np.int32)
+    if kind == "random":
+        base = now - now % cfg.window_len_ms
+        off = rng.integers(-6, 3, shape) * cfg.window_len_ms
+        fws = np.where(rng.random(shape) < 0.7, np.clip(base + off, -(2**31), 2**31 - 1), fws).astype(np.int32)
+        same = rng.random(shape) < 0.2
+        fws = np.where(same, second[2], fws).astype(np.int32)
+        fpass = np.where(fws != cfg.empty_ws, rng.integers(0, 20, shape), 0).astype(np.int32)
+    elif kind == "empty_pass":
+        fpass = np.where(rng.random(shape) < 0.5, rng.integers(1, 20, shape), 0).astype(np.int32)
+    threads = np.zeros(n_rows, np.int32)
+    return tnodes.stats_from_numpy((second, second, threads, fpass, fws), device)
+
+
+@pytest.mark.parametrize("n_rows", [1, 257, 1 << 20])
+@pytest.mark.parametrize("kind", ["random", "empty", "empty_pass"])
+@pytest.mark.parametrize("now", [0, 9_876_543, 2**31 - 1])
+def test_materialize_kernel(cuda, n_rows, kind, now):
+    """K1 against its plain version: one row (2 cells: the scalar tail),
+    257 (an odd cell count over 4), the main path's 1,048,576; a random
+    slab, the swept slab, empty starts with tokens; now at 0 and 2^31 - 1.
+    One launch a call."""
+    rng = np.random.default_rng(n_rows + now % 7)
+    want = tnodes.materialize_matured_plain(_slab_stats(rng, n_rows, now, kind, cuda), now)
+    rng = np.random.default_rng(n_rows + now % 7)
+    before = tnodes.materialize_matured.launches
+    got = tnodes.materialize_matured(_slab_stats(rng, n_rows, now, kind, cuda), now)
+    assert tnodes.materialize_matured.launches == before + 1
     _states_eq(want, got, "materialize")
 
 
+@pytest.mark.parametrize("offset", [1, 3])
+def test_materialize_kernel_row_view(cuda, offset):
+    """A view of the stats from an odd row on: its slab pointers are 8 bytes
+    past a 16-byte boundary, which the scalar path takes. The rows before
+    the view are left as they were."""
+    rng = np.random.default_rng(40 + offset)
+    now = 1_234_567
+    full = _slab_stats(rng, 300, now, "random", cuda)
+    view = lambda s: type(s)(*(view(t) if isinstance(t, tuple) else t[offset:] for t in s))
+    want_full = _clone(full)
+    tnodes.materialize_matured_plain(view(want_full), now)
+    assert view(full).future_ws.data_ptr() % 16 != 0
+    tnodes.materialize_matured(view(full), now)
+    _states_eq(want_full, full, "materialize on a row view")
+
+
+def test_materialize_kernel_profile(cuda):
+    """torch.profiler: K1 is one kernel and no memset a call, on the swept
+    slab and with matured cells."""
+    from gpu_timing import device_profile
+
+    rng = np.random.default_rng(9)
+    now = 5_000_000
+    swept = _slab_stats(rng, 1 << 16, now, "empty", cuda)
+    assert device_profile(lambda: tnodes.materialize_matured(swept, now))[:2] == (1, 0)
+    fresh = _slab_stats(rng, 1 << 16, now, "random", cuda)
+    assert device_profile(lambda: tnodes.materialize_matured(_clone(fresh), now))[:2] == (1, 0)
+
+
+def _update_batch(rng, n, n_rows, now, hot):
+    """n updates over n_rows rows: rows from -3 to n_rows + 2 (out of range
+    both ways), a tenth masked out, ts over three minutes (old, same and
+    newer windows of both geometries); ``hot``: half of them on row 5."""
+    rows = rng.integers(-3, n_rows + 3, n).astype(np.int32)
+    if hot:
+        rows[: n // 2] = 5
+    ts = (now + rng.integers(-180_000, 3_000, n)).astype(np.int32)
+    deltas = rng.integers(-3, 9, (n, NUM_EVENTS)).astype(np.int32)
+    return rows, ts, deltas, rng.integers(0, 6000, n).astype(np.int32), rng.integers(-1, 2, n).astype(np.int32), (
+        rng.random(n) < 0.9)
+
+
+@pytest.mark.parametrize("n", [1, 8, 32, 1 << 19])
+@pytest.mark.parametrize("with_rt", [False, True])
+@pytest.mark.parametrize("with_minute", [False, True])
+def test_apply_updates_kernel(cuda, n, with_rt, with_minute):
+    """The fused apply_updates (both windows and the gauge, one C call)
+    against its plain version: masked and out-of-range rows, duplicates on
+    a hot row, with and without RT samples and the minute window's own
+    deltas. Each call counts one launch of the window update and of the
+    gauge."""
+    rng = np.random.default_rng(n + 2 * with_rt + with_minute)
+    n_rows, now = 4096, 3_600_000
+    arrs = random_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    rows, ts, deltas, rt, thr, mask = (torch.from_numpy(a).to(cuda) for a in _update_batch(rng, n, n_rows, now, True))
+    minute = torch.from_numpy(rng.integers(0, 5, (n, NUM_EVENTS)).astype(np.int32)).to(cuda) if with_minute else None
+    rt = rt if with_rt else None
+    want = tnodes.apply_updates_plain(tnodes.stats_from_numpy(arrs, cuda), rows, ts, deltas, rt, thr, mask, minute)
+    before = (ma.update.launches, tnodes.thread_gauge_add.launches)
+    got = tnodes.apply_updates(tnodes.stats_from_numpy(arrs, cuda), rows, ts, deltas, rt, thr, mask, minute)
+    assert (ma.update.launches, tnodes.thread_gauge_add.launches) == (before[0] + 1, before[1] + 1)
+    _states_eq(want, got, "apply_updates")
+
+
+def test_apply_updates_kernel_profile(cuda):
+    """torch.profiler: the fused apply_updates is two kernels and no memset
+    a call, at the entry accounting's 4N = 524,288 updates and at 32."""
+    from gpu_timing import device_profile
+
+    rng = np.random.default_rng(31)
+    n_rows, now = 1 << 16, 3_600_000
+    stats = tnodes.stats_from_numpy(random_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG), cuda)
+    rows, ts, deltas, _, thr, mask = (torch.from_numpy(a).to(cuda) for a in _update_batch(rng, 1 << 19, n_rows, now,
+                                                                                          False))
+    for m in (1 << 19, 32):
+        call = lambda: tnodes.apply_updates(stats, rows[:m], ts[:m], deltas[:m], None, thr[:m], mask[:m])
+        assert device_profile(call)[:2] == (2, 0), m
+
+
 def test_thread_gauge_kernel(cuda):
+    """The gauge rides in apply_updates' second launch: its result there
+    equals the plain scatter (hot row, masked and out-of-range rows), and
+    thread_gauge_add on a CUDA tensor raises, naming apply_updates."""
     rng = np.random.default_rng(5)
-    n = 10_000
+    n, n_rows = 10_000, 32
     rows = torch.from_numpy(rng.integers(-1, 40, n).astype(np.int32)).to(cuda)
     rows[:3000] = 7
     thr = torch.from_numpy(rng.integers(-1, 2, n).astype(np.int32)).to(cuda)
     mask = rows >= 0
-    base = torch.from_numpy(rng.integers(0, 50, 32).astype(np.int32)).to(cuda)
+    base = torch.from_numpy(rng.integers(0, 50, n_rows).astype(np.int32)).to(cuda)
     want = tnodes.thread_gauge_add_plain(base.clone(), rows, thr, mask)
-    got = tnodes.thread_gauge_add(base.clone(), rows, thr, mask)
+    stats = tnodes.make_stats(n_rows, cuda)._replace(threads=base.clone())
+    ts = torch.full((n,), 1_000_000, dtype=torch.int32, device=cuda)
+    deltas = torch.zeros((n, NUM_EVENTS), dtype=torch.int32, device=cuda)
+    got = tnodes.apply_updates(stats, rows, ts, deltas, None, thr, mask).threads
     _eq(want, got, "threads")
+    with pytest.raises(ValueError, match="apply_updates"):
+        tnodes.thread_gauge_add(base.clone(), rows, thr, mask)
 
 
 CASES = [

@@ -40,6 +40,25 @@ def test_materialize_matured_parity(now):
     assert_same(jax.device_get(want), tnodes.stats_to_numpy(got), f"now={now}")
 
 
+@pytest.mark.parametrize("now", [0, 5_250, 2**31 - 1])
+def test_materialize_matured_empty_starts_parity(now):
+    """Slab cells whose start is empty_ws but whose tokens are not 0 (what
+    the rebase's clamp leaves), beside random cells, over an odd row count:
+    JAX zeroes the tokens of every matured cell, and so must the port."""
+    rng = np.random.default_rng(now % 89)
+    arrs = _random_stats(rng, 33, now)
+    second, minute, threads, fpass, fws = arrs
+    empty = rng.random(fws.shape) < 0.5
+    fws = np.where(empty, tnodes.SECOND_CFG.empty_ws, fws).astype(np.int32)
+    fpass = np.where(empty, rng.integers(0, 7, fws.shape), fpass).astype(np.int32)
+    arrs = (second, minute, threads, fpass, fws)
+    want = jnodes.materialize_matured(_jax_stats(arrs), jnp.int32(now))
+    got = tnodes.materialize_matured(tnodes.stats_from_numpy(arrs, CPU), now)
+    assert_same(jax.device_get(want), tnodes.stats_to_numpy(got), f"now={now}")
+    if now - tnodes.SECOND_CFG.empty_ws < 2**31:  # else the age wraps below 0: nothing matures
+        assert not tnodes.stats_to_numpy(got).future_pass[empty].any()
+
+
 def test_stats_numpy_roundtrip():
     rng = np.random.default_rng(3)
     arrs = _random_stats(rng, 8, 10_000)
