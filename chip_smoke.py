@@ -64,8 +64,11 @@ origin split and the mixed shape's K = 2, and at full width with acquires
 up to 2^29 against counts near 2^31, so that the shards' units pass 2^31
 (each shard's own prefix); profiled at full width (grant, borrow, K = 2)
 and at 8 slots, both routes timed at 512-8,192 slots, the zeroed
-scratch checked after; K16 the global shaping charge, K8 with the probe
-election's mask); phase 3b runs the sharded step at
+scratch checked after; K16 the global shaping charge at the mixed
+shape's 16,384 items and at 8, both routes timed at 512-8,192 items, and
+its edges on the default route at 1,024, 1,025 and 16,384 items: every
+item invalid, one row, one ts, negative ts, charges past 2^31; K8 with
+the probe election's mask); phase 3b runs the sharded step at
 the slot chain's and the mixed shape through the kernels and through the
 plain versions (identical results and state; ms per step, a profile,
 peak device memory); phase 4e drives the engine with enable_mesh(8)
@@ -99,10 +102,15 @@ kernel at 8 entries, exits, keys, items, slots or requests. For K5-K9,
 K11, K15 and the tail they also time both routes at the sizes where the
 route is chosen (2,048, 4,096 and 8,192, for K5, K7, K9, K11, K15 and the
 tail also 512 and 1,024; with the mask 4,096), each equal to the plain
-version. Phase 4 reads
-cluster_node_stats every tenth flush (K3 with a row gather), on the card
-and on the CPU engine, as a path of its own: K3 is off the flush path, and
-its launches on the kernels line are those of these reads.
+version. Phase 2 also holds K3 (the windowed sums and min RT) and
+row_stats (K3 with the gauge and the slab: the engine's stats read, one
+record a row) against their plain versions at 131,072 gathered rows and
+profiles them, row_stats also at 3 rows. Phase 4 reads
+cluster_node_stats every tenth flush (row_stats, one launch a read), on
+the card and on the CPU engine, as a path of its own: K3 is off the flush
+path, and the launches of row_stats on the kernels line are those of
+these reads (K3's own are 0 there: its launches on the line are the
+token service's flow_stats reads, phase 8).
 
 The CPU sides of phases 2c (d), 4-4e and 8 (the plain versions on one
 heavy segment, the CPU engines) run in four worker processes, started
@@ -513,6 +521,42 @@ def k1_matured(results: dict, stats: nodes.StatsState, now: int, src) -> None:
     restore()
 
 
+def row_stats_bytes(stats: nodes.StatsState, rows: torch.Tensor, now: int) -> float:
+    """Bytes row_stats must move for ``rows``: each row's index, both
+    windows' starts, the counts (and the second window's min RT) of the
+    buckets that count, the gauge, the slab, and its 16-int32 record."""
+    r = rows.long()
+    sec_valid = int(((now - stats.second.window_start[r]) <= nodes.SECOND_CFG.interval_ms).sum())
+    min_valid = int(((now - stats.minute.window_start[r]) <= nodes.MINUTE_CFG.interval_ms).sum())
+    per_row = 4 + 4 * (nodes.SECOND_CFG.sample_count + nodes.MINUTE_CFG.sample_count) + 4 + 8 * 2 + 4 * nodes.RS_WIDTH
+    return r.numel() * per_row + sec_valid * (NUM_EVENTS + 1) * 4 + min_valid * NUM_EVENTS * 4
+
+
+def row_stats_phase2(results: dict, stats: nodes.StatsState, rows_g: torch.Tensor, now: int) -> None:
+    """Times and profiles row_stats at the gathered rows and at 3 rows;
+    fails unless each call is one kernel and no memset."""
+    full = lambda: nodes.rows_stats(stats, rows_g, now)
+    three = rows_g[-3:].contiguous()
+    small = lambda: nodes.rows_stats(stats, three, now)
+    launches, memsets, dev_ms = profile(full, "phase 2: row_stats")
+    s_launches, s_memsets, s_dev = profile(small, "phase 2: row_stats at 3 rows")
+    results["row_stats"].update(
+        ms=time_ms(full), plain_ms=time_ms(lambda: nodes.rows_stats_plain(stats, rows_g, now)), library_ms=None,
+        shape=f"{rows_g.numel():,} gathered rows of both windows, the gauge and the slab of {R:,} rows",
+        bound=bound(row_stats_bytes(stats, rows_g, now)), launches_per_call=launches, memsets_per_call=memsets,
+        device_ms=dev_ms, small_ms=time_ms(small), small_launches_per_call=s_launches,
+        small_memsets_per_call=s_memsets, small_device_ms=s_dev,
+        small_bound_ms=bound(row_stats_bytes(stats, three, now))[0],
+        small_plain_ms=time_ms(lambda: nodes.rows_stats_plain(stats, three, now)))
+    r = results["row_stats"]
+    log(f"  row_stats at {rows_g.numel():,} gathered rows: {r['ms']:.4f} ms a call, {launches} device kernels, "
+        f"{memsets} memsets, {dev_ms:.4f} ms of device time (bound {r['bound'][0]:.4f} ms); at 3 rows "
+        f"{r['small_ms']:.4f} ms, {s_launches} kernels, {s_memsets} memsets, {s_dev:.4f} ms of device time")
+    if (launches, memsets) != (1, 0) or (s_launches, s_memsets) != (1, 0):
+        fail(f"phase 2: row_stats issued {launches} + {memsets} ({s_launches} + {s_memsets} at 3 rows) kernels "
+             "and memsets in one call")
+
+
 def phase2(results: dict) -> None:
     log("phase 2: kernels against their plain versions at the main path's shapes")
     gen = torch.Generator(device=DEV)
@@ -539,6 +583,9 @@ def phase2(results: dict) -> None:
             w = ma.window_reduce_plain(nodes.SECOND_CFG, stats.second, now, r, with_min=True)
             g = ma.window_reduce(nodes.SECOND_CFG, stats.second, now, r, with_min=True)
             err3 = require_equal(w, g, f"window_sums ({tag}, rows={'gather' if r is not None else 'all'})")
+        # row_stats (K3 with the gauge and the slab) at the same rows and at 3
+        err_rs = max(require_equal(nodes.rows_stats_plain(stats, r, now), nodes.rows_stats(stats, r, now),
+                                   f"row_stats ({tag}, {r.numel()} rows)") for r in (rows_g, rows_g[-3:]))
         # K4 flow admission + verdict tail
         adm_w = flush.flow_admission_plain(stats, table, batch, 8)
         adm_g = flush.flow_admission(stats, table, batch, 8)
@@ -563,10 +610,10 @@ def phase2(results: dict) -> None:
             w = nodes.apply_updates_plain(clone(stats), x_rows, x_ts, x_d, x_rt, x_thr, x_mask)
             g = nodes.apply_updates(clone(stats), x_rows, x_ts, x_d, x_rt, x_thr, x_mask)
             errg = max(errg, require_equal(w, g, f"apply_updates ({tag}, exits)"))
-        for name, err in (("materialize_matured", err1), ("window_sums", err3),
+        for name, err in (("materialize_matured", err1), ("window_sums", err3), ("row_stats", err_rs),
                           ("flow_admission", err4), ("window_update", err2), ("thread_gauge", errg)):
             results[name]["max_abs_err"] = max(results[name].get("max_abs_err", 0), err)
-        log(f"  {tag}: all five kernels equal their plain versions (max abs err 0)")
+        log(f"  {tag}: all six kernels equal their plain versions (max abs err 0)")
         if skewed:
             k1_matured(results, stats, now, k1_src)
             continue
@@ -602,6 +649,12 @@ def phase2(results: dict) -> None:
             shape=f"{N} gathered rows of [{R},2,6]",
             bound=bound(rows_g.numel() * (4 + 2 * 4 + NUM_EVENTS * 4) + valid * NUM_EVENTS * 4),
         )
+        k3_launches, k3_memsets, k3_dev = profile(lambda: ma.window_reduce(cfg, stats.second, now, rows_g),
+                                                  "phase 2: the window sums")
+        results["window_sums"].update(launches_per_call=k3_launches, memsets_per_call=k3_memsets, device_ms=k3_dev)
+        log(f"  K3 at {N:,} gathered rows: {results['window_sums']['ms']:.4f} ms a call, {k3_launches} device "
+            f"kernels, {k3_memsets} memsets, {k3_dev:.4f} ms of device time a call (profiler)")
+        row_stats_phase2(results, stats, rows_g, now)
 
         nk = N
         dense = torch.zeros(R, dtype=I32, device=DEV)
@@ -1576,8 +1629,8 @@ STEPS = 40  # 100 ms each: 4 simulated seconds
 
 def drive_engine(device: torch.device, seed: int):
     """One stream on one engine; returns (records, final state, blocked
-    top-K, seconds per bulk flush, entries admitted, K3 launches of the
-    stats reads)."""
+    top-K, seconds per bulk flush, entries admitted, the stats reads'
+    launches of row_stats and of K3, and the seconds of each read)."""
     clock = tclock.ManualClock(0)
     api.reset(clock=clock, device=device)
     st.flow_rule_manager.load_rules([st.FlowRule(f"r{i}", count=20) for i in range(N_RULES)])
@@ -1588,7 +1641,8 @@ def drive_engine(device: torch.device, seed: int):
     records = []
     prev_groups = []
     flush_s = 0.0
-    admitted = read_launches = 0
+    admitted = read_launches = read_k3 = 0
+    read_s = []
     for step in range(STEPS):
         now = 1000 + step * 100
         clock.set_ms(now)
@@ -1614,11 +1668,15 @@ def drive_engine(device: torch.device, seed: int):
         records.append(np.concatenate([g.reason for g in groups]))
         admitted += int(records[-2].sum())
         prev_groups = groups
-        if step % 10 == 9:  # windowed reads (K3 with a row gather): a path of their own, off the flush
-            ma.window_reduce.launches = 0
-            records.append(np.array([json.dumps(eng.cluster_node_stats(r, flush=False), sort_keys=True)
-                                     for r in ("r0", "r7", "r123")]))
-            read_launches += ma.window_reduce.launches
+        if step % 10 == 9:  # the stats reads (row_stats, one launch a read): a path of their own, off the flush
+            for r in ("r0", "r7", "r123"):
+                nodes.rows_stats.launches = ma.window_reduce.launches = 0
+                t0 = time.perf_counter()
+                read = eng.cluster_node_stats(r, flush=False)
+                read_s.append(time.perf_counter() - t0)
+                read_launches += nodes.rows_stats.launches
+                read_k3 += ma.window_reduce.launches
+                records.append(np.array([json.dumps(read, sort_keys=True)]))
         for r in ("r0", "r1", "r7"):
             clock.set_ms(now + 50)
             try:
@@ -1631,7 +1689,7 @@ def drive_engine(device: torch.device, seed: int):
     eng.flush()
     final = nodes.stats_to_numpy(eng.stats)
     blk = eng.last_blocked_topk
-    return records, final, blk, flush_s / STEPS, admitted, read_launches
+    return records, final, blk, flush_s / STEPS, admitted, (read_launches, read_k3, read_s)
 
 
 def phase4(results: dict, cpu_jobs: dict) -> None:
@@ -1649,7 +1707,7 @@ def phase4(results: dict, cpu_jobs: dict) -> None:
     }
     for w in wrappers.values():
         w.launches = 0
-    gpu_records, gpu_state, gpu_blk, gpu_flush_s, admitted, read_launches = drive_engine(DEV, seed=4)
+    gpu_records, gpu_state, gpu_blk, gpu_flush_s, admitted, (read_launches, read_k3, read_s) = drive_engine(DEV, seed=4)
     counts = {name: w.launches for name, w in wrappers.items()}
     log(f"  card: {gpu_flush_s * 1e3:.3f} ms per 32,768-entry flush call "
         f"({FLUSH_N / gpu_flush_s:,.0f} entries/s, host encode and verdict copy included)")
@@ -1660,13 +1718,16 @@ def phase4(results: dict, cpu_jobs: dict) -> None:
         if c <= 0:
             fail(f"kernel {name} was not launched on the main path")
         results[name]["launches"] = c
-    # K3 is off the flush path (K4 reads the window itself); its launches
-    # come from the stats reads, counted from 0 around each read.
-    log(f"  launches of window_sums on the stats reads (cluster_node_stats, 3 resources every tenth flush, "
-        f"off the flush path): {read_launches}")
-    if read_launches <= 0:
-        fail("kernel window_sums was not launched by the stats reads")
-    results["window_sums"]["launches"] = read_launches
+    # K3 is off the flush path (K4 reads the window itself); the stats reads
+    # launch row_stats (K3 with the gauge and the slab) once each, counted
+    # from 0 around each read; K3 alone not at all.
+    log(f"  launches on the stats reads ({len(read_s)} cluster_node_stats(flush=False) calls, off the flush path): "
+        f"row_stats {read_launches}, K3 alone {read_k3}; a read {1e3 * min(read_s):.4f}-{1e3 * max(read_s):.4f} ms, "
+        f"median {1e3 * float(np.median(read_s)):.4f} ms")
+    if read_launches != len(read_s) or read_k3 != 0:
+        fail(f"phase 4: {len(read_s)} stats reads launched row_stats {read_launches} times and K3 {read_k3} times")
+    results["row_stats"].update(launches=read_launches, read_ms=[1e3 * min(read_s), 1e3 * float(np.median(read_s)),
+                                                                 1e3 * max(read_s)])
     cpu_records, cpu_state, cpu_blk, cpu_flush_s, _, _ = cpu_result(cpu_jobs, "4")
     log(f"  CPU engine (plain versions, in a worker process): {cpu_flush_s * 1e3:.3f} ms per flush call")
     if len(gpu_records) != len(cpu_records) or any(
@@ -2591,13 +2652,14 @@ def phase8(results: dict, cpu_jobs: dict) -> None:
         f"release {lines[8]}, acquire again {lines[9]}")
     if lines != CLUSTER_DEMO:
         fail(f"cluster demo lines {lines} != {CLUSTER_DEMO}")
-    tts.batch_decide.launches = 0
+    tts.batch_decide.launches = ma.window_reduce.launches = 0
     gpu, held_gpu = drive_cluster_engine(DEV, seed=8)
-    launches = tts.batch_decide.launches
-    log(f"  launches of token_decide on the stream: {launches}")
-    if launches <= 0:
-        fail("kernel token_decide was not launched on the embedded token service's path")
+    launches, k3 = tts.batch_decide.launches, ma.window_reduce.launches
+    log(f"  launches of token_decide on the stream: {launches}; of K3 (the server's flow_stats): {k3}")
+    if launches <= 0 or k3 <= 0:
+        fail("kernel token_decide or K3 was not launched on the embedded token service's path")
     results["token_decide"]["launches"] = launches
+    results["window_sums"]["launches"] = k3
     cpu, held_cpu = cpu_result(cpu_jobs, "8")
     if gpu != cpu or held_gpu != held_cpu:
         fail("cluster engine verdicts or the server's view differ between the card and the CPU")
@@ -2858,12 +2920,43 @@ def phase2_mesh(results: dict) -> None:
         plain_ms=time_ms(lambda: ici.mesh_shaping_charge_plain(stats.second, sb, now)),
         bound=bound(S_SH * (17 + 4) + rows * 16), library_ms=None,
         shape=f"S={S_SH} global shaping items over {rows:,} rate-limiter rows")
+    charge_at = lambda n, fn, b=sb: lambda: fn(stats.second, tsh.ShapingBatch(*(t[:n] for t in b)), now)
+    call_profile(results, "mesh_shaping_charge", charge_at(S_SH, ici.mesh_shaping_charge),
+                 charge_at(8, ici.mesh_shaping_charge), charge_at(8, ici.mesh_shaping_charge_plain), "phase 2f")
+    route_times(results, "mesh_shaping_charge", ici, "MESH_CHARGE_SMALL_MAX",
+                lambda n: charge_at(n, ici.mesh_shaping_charge), lambda n: charge_at(n, ici.mesh_shaping_charge_plain),
+                (512, 1024, 2048, 4096, 8192), "phase 2f")
+    edges, cases = {}, charge_edges(sb, gen)
+    for tag, e in cases.items():
+        for n in (1024, 1025, S_SH):
+            edges[f"{tag} at {n}"] = require_equal(charge_at(n, ici.mesh_shaping_charge_plain, e)(),
+                                                   charge_at(n, ici.mesh_shaping_charge, e)(),
+                                                   f"mesh_shaping_charge ({tag}, {n} items)")
+    results["mesh_shaping_charge"]["edges"] = sorted(edges)
+    log(f"    mesh_shaping_charge equal to its plain version on the default route at 1,024, 1,025 and {S_SH:,} "
+        f"items: {', '.join(cases)}")
+    del cases
     for name in ("mesh_merge_stats", "mesh_merge_breaker", "breaker_try_pass_mask", "mesh_split_spend",
                  "mesh_shaping_charge"):
         r = results[name]
         log(f"    {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, equal ({r['shape']})")
     del stats, batch, zb, mx, table
     torch.cuda.empty_cache()
+
+
+def charge_edges(sb: tsh.ShapingBatch, gen) -> dict:
+    """K16's edges on the mixed shape's items: every item invalid, every
+    item on one row, one ts for all, ts below 0 for half of them, and
+    acquires of 2^29-2^30, so that a row's charge passes 2^31."""
+    n = sb.valid.numel()
+    half = torch.rand(n, generator=gen, device=DEV) < 0.5
+    return {
+        "all_invalid": sb._replace(valid=torch.zeros_like(sb.valid)),
+        "one_row": sb._replace(row=torch.full_like(sb.row, int(sb.row[0]))),
+        "ts_ties": sb._replace(ts=torch.full_like(sb.ts, int(sb.ts[0]))),
+        "negative_ts": sb._replace(ts=torch.where(half, sb.ts.long() - (2**31 - 1), sb.ts.long()).to(I32)),
+        "past_2_31": sb._replace(acquire=torch.randint(2**29, 2**30, (n,), generator=gen, device=DEV, dtype=I32)),
+    }
 
 
 def phase3b() -> None:
@@ -3138,7 +3231,8 @@ def main() -> None:
     log(f"phase 1: {line}")
     cpu_jobs = start_cpu_jobs()
     t0 = time.perf_counter()
-    cuda_build.build_all(["slab_sweep", "window_update", "flow_admission", "system_check", "breaker_on_exits",
+    cuda_build.build_all(["slab_sweep", "window_update", "window_reduce", "flow_admission", "system_check",
+                          "breaker_on_exits",
                           "breaker_try_pass", "commit_borrow_slab", "shaping_scan", "param_scan", "sketch_fold",
                           "token_decide", "mesh_merge_breaker", "mesh_budget"])
     log(f"  CUDA kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
@@ -3150,8 +3244,9 @@ def main() -> None:
                           "sentinel_tpu/metrics/metric_array.py:101"),
         "thread_gauge": ("cuda", "sentinel_tpu_torch/csrc/window_update.cu",
                          "sentinel_tpu/metrics/nodes.py:223"),
-        "window_sums": ("triton", "sentinel_tpu_torch/metrics/metric_array.py",
+        "window_sums": ("cuda", "sentinel_tpu_torch/csrc/window_reduce.cu",
                         "sentinel_tpu/metrics/metric_array.py:205"),
+        "row_stats": ("cuda", "sentinel_tpu_torch/csrc/window_reduce.cu", "sentinel_tpu/runtime/engine.py:4537"),
         "flow_admission": ("cuda", "sentinel_tpu_torch/csrc/flow_admission.cu",
                            "sentinel_tpu/runtime/flush.py:227"),
         "flow_admission_occupy": ("cuda", "sentinel_tpu_torch/csrc/flow_admission.cu",
@@ -3216,7 +3311,8 @@ def main() -> None:
                       "shard_memsets_per_call", "shard_device_ms", "kernel_us", "decay_ms",
                       "decay_launches_per_call", "decay_memsets_per_call", "decay_device_ms", "decay_kernel_us",
                       "widened_device_ms", "widened_kernel_us", "matured_ms", "matured_launches_per_call",
-                      "matured_memsets_per_call", "matured_device_ms", "matured_cells"):
+                      "matured_memsets_per_call", "matured_device_ms", "matured_cells", "read_ms", "small_plain_ms",
+                      "edges"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

@@ -23,8 +23,15 @@ back-to-back calls (gpu_timing.time_ms):
   gauge alone (``gauge``) where the checkout still has it as a kernel of
   its own;
 - K3 (``k3``): the second window's sums at 131,072 sorted gathered rows;
+  the stats read ``row_stats`` (``nodes.rows_stats``: both windows, the
+  gauge and the slab, one record a row) at the same rows and at 3
+  (``row_stats_small``), where the checkout has it; and the engine's
+  stats read (``Engine.rows_stats``) of 3 and of 50 of those rows
+  (``engine_read3``, ``engine_read50``: the wall ms of a call, which ends
+  in its copy back, and its device kernels, memsets and time);
 - K16 (``k16``): the global shaping charge of 16,384 items (every eighth
-  entry's row, ts over 400 ms) over the same second window;
+  entry's row, ts over 400 ms) over the same second window, and of its
+  first 8 (``k16_small``);
 - K7: 32,768 exits (KD = 1, 30% errors, 95% valid, ts over 400 ms) into
   1,048,576 breakers of the three grades (60% CLOSED, 25% OPEN, 15%
   HALF_OPEN), on uniform breakers and on Zipf(1.1) ones (``k7_zipf``),
@@ -83,7 +90,8 @@ k9_kernel_us, k10_kernel_us, k15_kernel_us, k15_borrow_kernel_us,
 tail_kernel_us, tail_zipf_kernel_us, tail_zipf_blocked_kernel_us); the
 script fails if the profiler reads no kernel. ``--only k7,k11`` times K7
 and K11 alone, ``--only k1,gauge`` K1, apply_updates, the gauge, K3 and
-K16 alone. Prints one JSON line that
+K16 alone, ``--only k3,k16`` K3, the stats reads and K16 alone. Prints
+one JSON line that
 carries the card's name and power limit. Needs CUDA; imports no JAX. The
 helpers come from the gpu_timing.py beside this script, whichever
 checkout it times.
@@ -96,6 +104,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -109,14 +118,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "not measured"
 
 
-def k1_gauge(out: dict, profiled, dev) -> None:
+def k1_gauge(out: dict, profiled, dev, k3_k16_only: bool = False) -> None:
     """K1 swept and with 2% of the slab matured, apply_updates at 4N and at
-    N = 8, the gauge alone where the checkout has it, K3 and K16."""
+    N = 8, the gauge alone where the checkout has it (all three left out
+    with ``k3_k16_only``), K3, the stats reads and K16."""
     from sentinel_tpu_torch.metrics import metric_array as ma
     from sentinel_tpu_torch.metrics import nodes
     from sentinel_tpu_torch.metrics.events import NUM_EVENTS
     from sentinel_tpu_torch.parallel import ici
     from sentinel_tpu_torch.rules.shaping import ShapingBatch
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils.clock import ManualClock
 
     i32 = torch.int32
     rows_n, n, now = 1 << 20, 1 << 17, 1_000_000
@@ -139,6 +151,56 @@ def k1_gauge(out: dict, profiled, dev) -> None:
                              torch.randint(0, 4, (rows_n,), generator=gen, device=dev, dtype=i32),
                              torch.zeros((rows_n, b), device=dev, dtype=i32),
                              torch.full((rows_n, b), scfg.empty_ws, device=dev, dtype=i32))
+    if not k3_k16_only:
+        k1_apply(out, profiled, dev, stats, now, gen)
+    rng = np.random.default_rng(12)
+    res = rng.integers(0, rows_n, n).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # K3 at 131,072 sorted gathered rows, the stats reads, and K16 over 16,384 items.
+    rows_g = torch.sort(t(res)).values
+    profiled("k3", lambda: ma.window_reduce(scfg, stats.second, now, rows_g))
+    three = rows_g[-3:].contiguous()
+    if hasattr(nodes, "rows_stats"):
+        profiled("row_stats", lambda: nodes.rows_stats(stats, rows_g, now))
+        profiled("row_stats_small", lambda: nodes.rows_stats(stats, three, now))
+    else:
+        out["row_stats_ms"] = "not in this checkout"
+    eng = Engine(clock=ManualClock(now), device=dev)
+    eng.stats = stats
+    for m in (3, 50):
+        asked = rows_g[-m:].tolist()
+        read = lambda: eng.rows_stats(asked)
+        read()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            read()
+        out[f"engine_read{m}_wall_ms"] = (time.perf_counter() - t0) / 50 * 1e3
+        out[f"engine_read{m}_launches_per_call"], out[f"engine_read{m}_memsets_per_call"], out[
+            f"engine_read{m}_device_ms"] = device_profile(read)
+    s16 = n // 8
+    sb = ShapingBatch(valid=torch.ones(s16, dtype=torch.bool, device=dev), gid=t(res[::8]), row=t(res[::8]),
+                      eidx=t(np.arange(0, n, 8, dtype=np.int32)), flat_pos=t(np.arange(0, n, 8, dtype=np.int32)),
+                      ts=t(np.sort(rng.integers(0, 400, s16)).astype(np.int32) + now - 400),
+                      acquire=t(np.ones(s16, np.int32)))
+    profiled("k16", lambda: ici.mesh_shaping_charge(stats.second, sb, now))
+    out["k16_kernel_us"] = kernel_times(lambda: ici.mesh_shaping_charge(stats.second, sb, now))
+    sb8 = ShapingBatch(*(x[:8].contiguous() for x in sb))
+    profiled("k16_small", lambda: ici.mesh_shaping_charge(stats.second, sb8, now))
+    del stats, eng
+    torch.cuda.empty_cache()
+
+
+def k1_apply(out: dict, profiled, dev, stats, now: int, gen) -> None:
+    """K1 swept and with 2% of the slab matured, apply_updates at 4N and at
+    N = 8, the gauge alone where the checkout has it."""
+    from sentinel_tpu_torch.metrics import nodes
+    from sentinel_tpu_torch.metrics.events import NUM_EVENTS
+
+    i32 = torch.int32
+    rows_n, n = stats.n_rows, 1 << 17
+    scfg = nodes.SECOND_CFG
+    b = scfg.sample_count
     profiled("k1", lambda: nodes.materialize_matured(stats, now))
     # 2% of the cells borrowed for the windows from 4 back to 2 ahead.
     pick = torch.rand((rows_n, b), generator=gen, device=dev) < 0.02
@@ -182,26 +244,14 @@ def k1_gauge(out: dict, profiled, dev) -> None:
     except ValueError as exc:
         out["gauge_ms"] = f"not in this checkout ({exc})"
 
-    # K3 at 131,072 sorted gathered rows, and K16 over 16,384 items.
-    rows_g = torch.sort(t(res)).values
-    profiled("k3", lambda: ma.window_reduce(scfg, stats.second, now, rows_g))
-    s16 = n // 8
-    sb = ShapingBatch(valid=torch.ones(s16, dtype=torch.bool, device=dev), gid=t(res[::8]), row=t(res[::8]),
-                      eidx=t(np.arange(0, n, 8, dtype=np.int32)), flat_pos=t(np.arange(0, n, 8, dtype=np.int32)),
-                      ts=t(np.sort(rng.integers(0, 400, s16)).astype(np.int32) + now - 400),
-                      acquire=t(np.ones(s16, np.int32)))
-    profiled("k16", lambda: ici.mesh_shaping_charge(stats.second, sb, now))
-    out["k16_kernel_us"] = kernel_times(lambda: ici.mesh_shaping_charge(stats.second, sb, now))
-    del stats
-    torch.cuda.empty_cache()
-
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="checkout whose sentinel_tpu_torch is timed")
     ap.add_argument("--tag", default="")
-    ap.add_argument("--only", default="", choices=("", "k7,k11", "k1,gauge"),
-                    help="time K7 and K11, or K1, apply_updates, the gauge, K3 and K16, alone")
+    ap.add_argument("--only", default="", choices=("", "k7,k11", "k1,gauge", "k3,k16"),
+                    help="time K7 and K11; K1, apply_updates, the gauge, K3 and K16; or K3, the stats reads and "
+                         "K16, alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("gpu_kernel_ab: no CUDA device")
@@ -220,7 +270,7 @@ def main() -> None:
     from sentinel_tpu_torch.runtime.engine import _rounds_bucket
     from sentinel_tpu_torch.utils import cuda_build
 
-    sources = ["window_update", "token_decide", "flow_admission", "param_scan", "system_check", "breaker_on_exits",
+    sources = ["window_update", "window_reduce", "token_decide", "flow_admission", "param_scan", "system_check", "breaker_on_exits",
                "breaker_try_pass", "shaping_scan", "mesh_budget", "commit_borrow_slab", "sketch_fold", "slab_sweep"]
     cuda_build.build_all(n for n in sources if (cuda_build.CSRC / f"{n}.cu").exists())  # an older checkout has fewer
     dev = torch.device("cuda", 0)
@@ -232,8 +282,8 @@ def main() -> None:
         out[f"{name}_launches_per_call"], out[f"{name}_memsets_per_call"], out[f"{name}_device_ms"] = (
             device_profile(fn))
 
-    if args.only in ("", "k1,gauge"):
-        k1_gauge(out, profiled, dev)
+    if args.only in ("", "k1,gauge", "k3,k16"):
+        k1_gauge(out, profiled, dev, k3_k16_only=args.only == "k3,k16")
         if args.only:
             print(json.dumps(out), flush=True)
             return

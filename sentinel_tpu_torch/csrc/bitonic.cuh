@@ -1,7 +1,7 @@
 // Bitonic sorts in shared memory by the whole block, for the one-block
 // routes of K4 and the slot chain's verdict tail (flow_admission.cu), K5
 // (commit_borrow_slab.cu), K6 (system_check.cu), K9 (shaping_scan.cu), K10
-// (param_scan.cu), K12 (token_decide.cu) and K15 (mesh_budget.cu), and the
+// (param_scan.cu), K12 (token_decide.cu) and K15 and K16 (mesh_budget.cu), and the
 // (row, ts) sort key of K4 and K10. `p` is a
 // power of two; callers pad with SENTINEL keys; any block size. Included
 // by one source per library, so local to it.

@@ -2,8 +2,8 @@
 // look-back), and the segmented prefix of the JAX package in that form.
 // Included by token_decide.cu (K12), flow_admission.cu (K4),
 // system_check.cu (K6), breaker_on_exits.cu (K7), shaping_scan.cu (K9),
-// param_scan.cu (K10) and mesh_budget.cu (K15); each source builds into its own library, so
-// everything here is local to the including file.
+// param_scan.cu (K10) and mesh_budget.cu (K15, K16); each source builds
+// into its own library, so everything here is local to the including file.
 //
 // A launch that scans takes its tiles in the order its blocks start (an
 // atomic counter), so a block waits only on tiles whose blocks already

@@ -36,15 +36,29 @@
 //   fails writes keep = 0 for its entry), ms_clear (each group's cell back
 //   to zero). The sort key is ((shard (R + 1) + row|R) << 32) | (ts ^ 2^31):
 //   shard d fills sorted positions [d nk/D, (d + 1) nk/D).
-// K16: msc_prep (key (row|R) << 32 | ts ^ 2^31), torch.sort, msc_flags,
-// scan_*, msc_decide.
+//
+// K16 is one C call, mesh_charge, its arguments in one McArgs. The key of
+// an item is (row|R) << 32 | (ts ^ 2^31), R for an invalid item, and the
+// position breaks ties: JAX's (rkey, ts, pos) order. Two routes:
+// - s <= small_max items (at most SMALL_CAP; 1,024 by default): one launch
+//   of one block of 1,024 threads: the keys, a bitonic sort of (key,
+//   position) pairs in shared memory, each thread's run of sorted items
+//   (the new-group and last-item-of-entry flags, JAX's charge by block
+//   scans) and each result written back at its item's position;
+// - more items: mc_prep (keys, positions, the look-back status words and
+//   the tile counter zeroed), one CUB radix sort of (key, position) pairs
+//   with end_bit 32 + bits(R), mc_decide (the flags and the charge in one
+//   decoupled look-back chain, the window read, the write back).
+// Nothing is allocated a call beyond the caller's output, and no memory
+// of the caller's is set: the many-block route's workspace is the
+// caller's scratch, written by mc_prep before anything reads it.
 //
 // What bounds them: launches and the sort for the batches the mesh sends.
 // K15 reads per slot its gid, check row, entry ts, acquire and masks
 // (about 18 B) and the row's window (B buckets of start and PASS) or gauge
 // or slab; the sort moves 12 B per slot a pass; the demand is D x R int32,
 // touched at one cell per slot and read at D - 1 cells per masked slot.
-// K16 reads 17 B per item and the row's window.
+// K16 reads 17 B per item and the row's window, and writes 4 B.
 //
 // Numerics as the JAX code: int32 sums wrap (uint32 adds), the caps are
 // float32 (IEEE division and multiplication, floorf, no fast math) and
@@ -80,6 +94,20 @@ struct MsArgs {
   float interval_sec;
 };
 
+// Everything one K16 call reads and writes; parallel/ici.py fills the same
+// layout (pointers first, then the ints).
+struct McArgs {
+  const uint8_t* valid;  // [s] the global shaping items
+  const int* row;
+  const int* ts;
+  const int* eidx;
+  const int* acq;
+  const int* sec_counts;  // the second window [R, B, NE], [R, B]
+  const int* sec_ws;
+  int* ppc;  // [s] out, in item order
+  int s, n_rows, nb, ne, interval_ms, now, small_max;
+};
+
 namespace {
 
 constexpr int FLOW_GRADE_QPS = 1;  // models/constants.py
@@ -102,12 +130,6 @@ __device__ __forceinline__ int pass_sum(const Window& w, int row, int now) {
   }
   return s;
 }
-
-__device__ __forceinline__ long long sort_key(int hi, int ts) {
-  return (long long)hi * 4294967296LL + (long long)(unsigned)(ts ^ (int)0x80000000u);
-}
-
-__device__ __forceinline__ int key_hi(long long key) { return (int)(key >> 32); }
 
 constexpr int SMALL_CAP = 8192;  // slots the one-block route can take
 constexpr int SMALL_THREADS = 1024;  // the one-block route's block
@@ -310,9 +332,9 @@ __global__ void ms_clear(MsArgs a, const u64* __restrict__ ks) {
     a.demand[(int64_t)d * a.n_rows + row] = 0;
 }
 
-// Workspace of the many-block route: keys and positions in and out, the
-// (unit, cap) pairs, two look-back walks, the tile counter, CUB's temp
-// storage.
+// Workspace of the many-block routes: keys and positions in and out, the
+// (unit, cap) pairs (K15's), two look-back walks a shard, the tile
+// counter, CUB's temp storage.
 struct Layout {
   size_t key_in, key_out, val_in, val_out, uc, status, ctl, temp, total;
   int nt, tps;
@@ -340,60 +362,97 @@ Layout layout(int nk, int n_shards) {
 
 bool one_block(const MsArgs& a) { return a.n * a.k <= a.small_max; }
 
-__global__ void msc_prep(const uint8_t* __restrict__ valid, const int* __restrict__ row,
-                         const int* __restrict__ ts, int s, int n_rows, long long* __restrict__ keys) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= s) return;
-  keys[i] = sort_key(valid[i] ? row[i] : n_rows, ts[i]);
+// ---------------------------------------------------------------------------
+// K16: the global shaping charge
+// ---------------------------------------------------------------------------
+
+constexpr int SMALL_IPT = SMALL_CAP / SMALL_THREADS;  // items a thread in mc_small
+
+// Item i's sort key. A valid item's row is taken in [0, R] (the engine's
+// check rows lie in [0, R)); an invalid item sorts last, under R.
+__device__ __forceinline__ u64 charge_key(const McArgs& a, int i) {
+  return row_ts_key(a.valid[i] ? clampi(a.row[i], 0, a.n_rows) : a.n_rows, a.ts[i]);
 }
 
-__global__ void msc_flags(const long long* __restrict__ key_s, const int64_t* __restrict__ perm, int s,
-                          const uint8_t* __restrict__ valid, const int* __restrict__ eidx,
-                          const int* __restrict__ acq, uint8_t* __restrict__ new_grp, int2* __restrict__ contrib) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= s) return;
-  int p = (int)perm[i];
-  int rk = key_hi(key_s[i]);
-  new_grp[i] = (i == 0 || key_hi(key_s[i - 1]) != rk) ? 1 : 0;
-  bool last = i + 1 == s || key_hi(key_s[i + 1]) != rk || eidx[(int)perm[i + 1]] != eidx[p];
-  contrib[i] = make_int2((last && valid[p]) ? acq[p] : 0, 0);
+// Sorted position i (< s) of the keys ks and positions vs: whether it
+// starts its row's group, and its acquire where it is its entry's last
+// item of the row and valid (_segment_consumed's contribution), else 0.
+__device__ __forceinline__ void charge_flags(const McArgs& a, const u64* ks, const int* vs, int i, bool& head,
+                                             int2& acq) {
+  const int p = vs[i], rk = key_row(ks[i]);
+  head = i == 0 || key_row(ks[i - 1]) != rk;
+  const bool last = i + 1 == a.s || key_row(ks[i + 1]) != rk || a.eidx[vs[i + 1]] != a.eidx[p];
+  acq = make_int2(last && a.valid[p] ? a.acq[p] : 0, 0);
 }
 
-__global__ void msc_decide(LoadSnapshot ld, int s, int n_rows, const int2* __restrict__ partial_max,
-                           const int2* __restrict__ excl, const long long* __restrict__ key_s,
-                           const int64_t* __restrict__ perm, Window win, int now, int* __restrict__ ppc) {
-  __shared__ int2 warp_tot[NWARPS];
-  int base = blockIdx.x * TILE + threadIdx.x * IPT;
-  int2 loc[IPT];
-  int2 run = max_scan_prefix(ld, s, partial_max, loc, warp_tot);
+// The result of sorted position i: its row's windowed PASS plus its charge,
+// at its item's position.
+__device__ __forceinline__ void charge_write(const McArgs& a, const u64* ks, const int* vs, int i, int charge) {
+  const Window w{a.sec_counts, a.sec_ws, a.nb, a.ne, a.interval_ms};
+  a.ppc[vs[i]] = wrap_add(pass_sum(w, clampi(key_row(ks[i]), 0, a.n_rows - 1), a.now), charge);
+}
+
+// This thread's `cnt` (<= MAXI) consecutive sorted positions from `base`:
+// the flags, the charges (with `carry`'s carries) and the write back. All
+// threads of the block call it.
+template <int MAXI, int NT, class Carry>
+__device__ void charge_run(const McArgs& a, const u64* ks, const int* vs, int base, int cnt, Carry& carry) {
+  int2 acq[MAXI], charge[MAXI];
+  bool head[MAXI];
 #pragma unroll
-  for (int j = 0; j < IPT; ++j) {
-    int i = base + j;
-    run = MaxOp::op(run, loc[j]);
-    if (i >= s) continue;
-    int row = clampi(key_hi(key_s[i]), 0, n_rows - 1);
-    ppc[(int)perm[i]] = wrap_add(pass_sum(win, row, now), wrap_sub(excl[i].x, run.x));
+  for (int j = 0; j < MAXI; ++j) {
+    acq[j] = make_int2(0, 0);
+    head[j] = false;
+    if (j < cnt) charge_flags(a, ks, vs, base + j, head[j], acq[j]);
+  }
+  charges<MAXI, 1, Carry, NT>(cnt, acq, head, charge, carry);
+#pragma unroll
+  for (int j = 0; j < MAXI; ++j)
+    if (j < cnt) charge_write(a, ks, vs, base + j, charge[j].x);
+}
+
+// One block, s <= small_max. Dynamic shared memory: p2 keys, p2 positions.
+__global__ void __launch_bounds__(SMALL_THREADS) mc_small(McArgs a, int p2) {
+  extern __shared__ u64 key[];
+  int* val = reinterpret_cast<int*>(key + p2);
+  for (int i = threadIdx.x; i < p2; i += SMALL_THREADS) {
+    key[i] = i < a.s ? charge_key(a, i) : SENTINEL;
+    val[i] = i;
+  }
+  __syncthreads();
+  bitonic_sort_pairs(key, val, p2);
+  const int per = (a.s + SMALL_THREADS - 1) / SMALL_THREADS;
+  const int base = threadIdx.x * per;
+  NoCarry none;
+  charge_run<SMALL_IPT, SMALL_THREADS>(a, key, val, base, clampi(a.s - base, 0, per), none);
+}
+
+__global__ void mc_prep(McArgs a, u64* __restrict__ key, int* __restrict__ val, u64* __restrict__ status,
+                        int n_status, int* __restrict__ ctl) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_status) status[i] = 0;
+  if (i == 0) *ctl = 0;
+  if (i < a.s) {
+    key[i] = charge_key(a, i);
+    val[i] = i;
   }
 }
 
-// Steps 5: the segmented exclusive prefix of the contributions, as two
-// three-phase scans (the wrapping cumsum, then the running max of the
-// group-start snapshots, whose last phase the decide kernel fuses).
-void launch_scans(LoadContrib lc, LoadSnapshot ls, int n, int2* partial, int2* partial_max, int2* excl,
-                  cudaStream_t st) {
-  int tiles = tiles_for(n);
-  scan_reduce<SumOp, LoadContrib><<<tiles, THREADS, 0, st>>>(lc, n, partial);
-  scan_partials<SumOp><<<1, THREADS, 0, st>>>(partial, tiles);
-  scan_apply_sum<<<tiles, THREADS, 0, st>>>(lc, n, partial, excl);
-  scan_reduce<MaxOp, LoadSnapshot><<<tiles, THREADS, 0, st>>>(ls, n, partial_max);
-  scan_partials<MaxOp><<<1, THREADS, 0, st>>>(partial_max, tiles);
+// The sorted items' tiles in the order their blocks start: one look-back
+// chain (a sum walk and a max walk) over all of them.
+__global__ void __launch_bounds__(THREADS)
+    mc_decide(McArgs a, const u64* __restrict__ ks, const int* __restrict__ vs, u64* status, int nt, int* ctl) {
+  __shared__ int s_tile;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ctl, 1);
+  __syncthreads();
+  const int base = s_tile * TILE + threadIdx.x * IPT;
+  LookBack<1> lb{status, nt, s_tile, 0};
+  charge_run<IPT, THREADS>(a, ks, vs, base, clampi(a.s - base, 0, IPT), lb);
 }
 
 }  // namespace
 
 extern "C" {
-
-int mesh_tiles(int n) { return tiles_for(n); }
 
 // Bytes of workspace mesh_split needs (0 for the one-block route).
 long long mesh_split_workspace(const MsArgs* args) {
@@ -452,31 +511,49 @@ int mesh_split(const MsArgs* args, void* workspace, long long workspace_bytes, c
   return err;
 }
 
-// K16 step 1.
-int mesh_charge_keys(const uint8_t* valid, const int* row, const int* ts, int s, int n_rows, long long* keys,
-                     void* stream) {
-  if (s <= 0) return 0;
-  msc_prep<<<blocks_for(s), THREADS, 0, (cudaStream_t)stream>>>(valid, row, ts, s, n_rows, keys);
-  return (int)cudaGetLastError();
-}
+// Bytes of workspace the many-block route of mesh_charge needs for s items:
+// K15's layout for one shard (its (unit, cap) pairs unused).
+long long mesh_charge_workspace(int s) { return s <= 0 ? 0 : (long long)layout(s, 1).total; }
 
-// K16 after the sort. ppc is int32 [s] in item order.
-int mesh_charge(const long long* key_s, const int64_t* perm, const uint8_t* valid, const int* eidx,
-                const int* acq, int s, int n_rows, const int* sec_counts, const int* sec_ws, int nb, int ne,
-                int interval_ms, int now, uint8_t* new_grp, int* contrib, int* excl, int* partial,
-                int* partial_max, int* ppc, void* stream) {
-  if (s <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  int2* c2 = reinterpret_cast<int2*>(contrib);
-  int2* x2 = reinterpret_cast<int2*>(excl);
-  int2* m2 = reinterpret_cast<int2*>(partial_max);
-  msc_flags<<<blocks_for(s), THREADS, 0, st>>>(key_s, perm, s, valid, eidx, acq, new_grp, c2);
-  LoadContrib lc{c2};
-  LoadSnapshot ls{x2, new_grp};
-  launch_scans(lc, ls, s, reinterpret_cast<int2*>(partial), m2, x2, st);
-  msc_decide<<<tiles_for(s), THREADS, 0, st>>>(ls, s, n_rows, m2, x2, key_s, perm,
-                                                Window{sec_counts, sec_ws, nb, ne, interval_ms}, now, ppc);
-  return (int)cudaGetLastError();
+// K16: the global shaping charge (see the header); `args` is read on the
+// host. Returns a CUDA error code, or -1 when the workspace cannot hold the
+// keys, positions and walks (no launch); CUB's sort refuses a remainder too
+// small for its own storage, after mc_prep.
+int mesh_charge(const McArgs* args, void* workspace, long long workspace_bytes, cudaStream_t stream) {
+  const McArgs a = *args;
+  if (a.s <= 0) return 0;
+  if (a.s >= (1 << 28) || a.n_rows <= 0 || a.n_rows == INT_MAX || a.nb <= 0 || a.small_max < 0 ||
+      a.small_max > SMALL_CAP)
+    return (int)cudaErrorInvalidValue;
+  if (a.s <= a.small_max) {
+    int p2 = 1;
+    while (p2 < a.s) p2 <<= 1;
+    const size_t smem = (sizeof(u64) + sizeof(int)) * (size_t)p2;
+    int err = dyn_smem_once<mc_small>(smem, (int)((sizeof(u64) + sizeof(int)) * SMALL_CAP));
+    if (err) return err;
+    mc_small<<<1, SMALL_THREADS, smem, stream>>>(a, p2);
+    return (int)cudaGetLastError();
+  }
+  const Layout l = layout(a.s, 1);
+  if (workspace_bytes < (long long)l.temp) return -1;
+  char* ws = (char*)workspace;
+  u64* key_in = (u64*)(ws + l.key_in);
+  u64* key_out = (u64*)(ws + l.key_out);
+  int* val_in = (int*)(ws + l.val_in);
+  int* val_out = (int*)(ws + l.val_out);
+  u64* status = (u64*)(ws + l.status);
+  int* ctl = (int*)(ws + l.ctl);
+  size_t temp_bytes = (size_t)workspace_bytes - l.temp;
+  mc_prep<<<blocks_for(max(a.s, 2 * l.nt)), THREADS, 0, stream>>>(a, key_in, val_in, status, 2 * l.nt, ctl);
+  int err = (int)cudaGetLastError();
+  if (!err)
+    err = (int)cub::DeviceRadixSort::SortPairs(ws + l.temp, temp_bytes, key_in, key_out, val_in, val_out, a.s, 0,
+                                               32 + bits_for(a.n_rows), stream);
+  if (!err) {
+    mc_decide<<<l.nt, THREADS, 0, stream>>>(a, key_out, val_out, status, l.nt, ctl);
+    err = (int)cudaGetLastError();
+  }
+  return err;
 }
 
 }  // extern "C"

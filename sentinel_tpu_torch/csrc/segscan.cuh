@@ -1,16 +1,14 @@
 // Shared device code of the port's kernels: wrapping int32 arithmetic,
-// the three-phase block scan over int2 pairs (block totals, one block
-// scanning the totals, block scan plus carry), segment-head search and
+// the block-wide exclusive scan over int2 pairs, segment-head search and
 // floor division, and the dynamic shared memory limit. Included through
-// lookback.cuh and bitonic.cuh by K4-K7, K9-K12 and K15-K16 (mesh_budget.cu:
-// K16 takes the three-phase scans); each source builds into its own
-// library, so everything here is local to the including file.
+// lookback.cuh and bitonic.cuh by K4-K7, K9-K12 and K15-K16; each source
+// builds into its own library, so everything here is local to the
+// including file.
 //
-// The segmented prefixes of the JAX package are computed there as a
-// wrapping int32 cumsum minus a running max of group-start values; this
-// header gives both plain scans. Wrapping addition and max are
-// associative, so the results equal the JAX cumsum/cummax bit for bit
-// whatever the evaluation order.
+// The segmented prefixes of the JAX package are computed as a wrapping
+// int32 cumsum minus a running max of group-start values (lookback.cuh's
+// `charges`). Wrapping addition and max are associative, so the results
+// equal the JAX cumsum/cummax bit for bit whatever the evaluation order.
 
 #pragma once
 
@@ -50,20 +48,6 @@ struct MaxOp {
   __device__ static int2 op(int2 a, int2 b) { return make_int2(max(a.x, b.x), max(a.y, b.y)); }
 };
 
-// Contributions at their sorted positions.
-struct LoadContrib {
-  const int2* c;
-  __device__ int2 operator()(int i) const { return c[i]; }
-};
-
-// Group-start snapshots: the exclusive sum where a group starts, else 0
-// (segment_excl_cumsum's jnp.where(new_grp, excl, 0)).
-struct LoadSnapshot {
-  const int2* excl;
-  const uint8_t* new_grp;
-  __device__ int2 operator()(int i) const { return new_grp[i] ? excl[i] : make_int2(0, 0); }
-};
-
 __device__ __forceinline__ int2 shfl_up2(int2 v, int off) {
   return make_int2(__shfl_up_sync(FULL_MASK, v.x, off), __shfl_up_sync(FULL_MASK, v.y, off));
 }
@@ -101,89 +85,6 @@ __device__ int2 block_exclusive_scan(int2 v, int2* warp_tot, int2& total) {
   return Op::op(warp_prefix, ex_in_warp);
 }
 
-// Phase 1: one total per TILE of the input.
-template <class Op, class Load>
-__global__ void scan_reduce(Load ld, int n, int2* __restrict__ partial) {
-  __shared__ int2 warp_tot[NWARPS];
-  int base = blockIdx.x * TILE + threadIdx.x * IPT;
-  int2 acc = Op::id();
-#pragma unroll
-  for (int j = 0; j < IPT; ++j) {
-    int i = base + j;
-    if (i < n) acc = Op::op(acc, ld(i));
-  }
-  int2 total;
-  block_exclusive_scan<Op>(acc, warp_tot, total);
-  if (threadIdx.x == 0) partial[blockIdx.x] = total;
-}
-
-// Phase 2: one block turns the tile totals into exclusive carries.
-template <class Op>
-__global__ void scan_partials(int2* __restrict__ partial, int nb) {
-  __shared__ int2 warp_tot[NWARPS];
-  int2 carry = Op::id();
-  for (int start = 0; start < nb; start += TILE) {
-    int2 loc[IPT];
-    int2 acc = Op::id();
-#pragma unroll
-    for (int j = 0; j < IPT; ++j) {
-      int i = start + threadIdx.x * IPT + j;
-      loc[j] = i < nb ? partial[i] : Op::id();
-      acc = Op::op(acc, loc[j]);
-    }
-    int2 total;
-    int2 run = Op::op(carry, block_exclusive_scan<Op>(acc, warp_tot, total));
-#pragma unroll
-    for (int j = 0; j < IPT; ++j) {
-      int i = start + threadIdx.x * IPT + j;
-      if (i < nb) partial[i] = run;
-      run = Op::op(run, loc[j]);
-    }
-    carry = Op::op(carry, total);
-  }
-}
-
-// Phase 3 of the sum: exclusive prefix of the contributions.
-__global__ void scan_apply_sum(LoadContrib ld, int n, const int2* __restrict__ partial,
-                               int2* __restrict__ excl) {
-  __shared__ int2 warp_tot[NWARPS];
-  int base = blockIdx.x * TILE + threadIdx.x * IPT;
-  int2 loc[IPT];
-  int2 acc = SumOp::id();
-#pragma unroll
-  for (int j = 0; j < IPT; ++j) {
-    int i = base + j;
-    loc[j] = i < n ? ld(i) : SumOp::id();
-    acc = SumOp::op(acc, loc[j]);
-  }
-  int2 total;
-  int2 run = SumOp::op(partial[blockIdx.x], block_exclusive_scan<SumOp>(acc, warp_tot, total));
-#pragma unroll
-  for (int j = 0; j < IPT; ++j) {
-    int i = base + j;
-    if (i < n) excl[i] = run;
-    run = SumOp::op(run, loc[j]);
-  }
-}
-
-// Phase 3 of the running max, for a kernel that consumes it: loads this
-// thread's IPT snapshots and returns the running max before them; the
-// caller folds loc[j] in item by item (the inclusive max = the group's
-// base). All threads of the block must call it.
-__device__ __forceinline__ int2 max_scan_prefix(LoadSnapshot ld, int n, const int2* __restrict__ partial_max,
-                                                int2* loc, int2* warp_tot) {
-  int base = blockIdx.x * TILE + threadIdx.x * IPT;
-  int2 acc = MaxOp::id();
-#pragma unroll
-  for (int j = 0; j < IPT; ++j) {
-    int i = base + j;
-    loc[j] = i < n ? ld(i) : MaxOp::id();
-    acc = MaxOp::op(acc, loc[j]);
-  }
-  int2 total;
-  return MaxOp::op(partial_max[blockIdx.x], block_exclusive_scan<MaxOp>(acc, warp_tot, total));
-}
-
 // First position in [0, n) whose key is >= `key` in a sorted array.
 template <class T>
 __device__ __forceinline__ int lower_bound(const T* __restrict__ a, int n, T key) {
@@ -206,12 +107,13 @@ inline size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }  // worksp
 
 // Lets `Kernel` take up to `max_bytes` of dynamic shared memory on the
 // current device: the attribute is set the first time a call there needs
-// more than the default 48 KB, and later calls cost one cudaGetDevice.
-// Returns a CUDA error code.
+// more than 40 KB (the kernel's static arrays share the default 48 KB with
+// the dynamic bytes), and later calls cost one cudaGetDevice. Returns a
+// CUDA error code.
 template <auto Kernel>
 int dyn_smem_once(size_t need, int max_bytes) {
   static unsigned long long done = 0;  // one bit per device
-  if (need <= 48 * 1024) return 0;
+  if (need <= 40 * 1024) return 0;
   int dev = 0;
   int err = (int)cudaGetDevice(&dev);
   if (err || (dev < 64 && ((done >> dev) & 1))) return err;

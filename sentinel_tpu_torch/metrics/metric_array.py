@@ -22,7 +22,10 @@ Two kernels live here, each beside its plain PyTorch version:
 
 * :func:`update` (K2): CUDA C++, ``csrc/window_update.cu``;
 * :func:`window_reduce` (K3, behind :func:`window_sums` and
-  :func:`window_min_rt`): Triton, :func:`_window_reduce_cuda`.
+  :func:`window_min_rt`): CUDA C++, ``csrc/window_reduce.cu``, whose
+  second entry point ``row_stats`` serves ``nodes.rows_stats`` (the
+  engine's stats read: both windows, the gauge and the slab in one
+  launch).
 
 Each wrapper takes its plain version only for CPU tensors; a CUDA tensor
 launches the kernel (or raises), and the wrapper counts the launch in its
@@ -283,87 +286,51 @@ def window_reduce_plain(cfg, state, now, rows=None, with_min=False):
     return sums, mins
 
 
-_TRITON = None
-tl = None  # triton.language, bound on first launch (_triton_kernels)
+def _wr_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("window_reduce")
+    if not getattr(lib, "_typed", False):
+        lib.window_reduce.argtypes = [_P] * 3 + [_I] * 3 + [_P] + [_I] * 3 + [_P] * 3
+        # nodes.rows_stats: one record a row (RsArgs, nodes._RsArgs).
+        lib.row_stats.argtypes = [_P, _P]
+        for f in (lib.window_reduce, lib.row_stats):
+            f.restype = _I
+        lib._typed = True
+    return lib
 
 
-def _window_reduce_body(
-    counts_ptr, ws_ptr, min_ptr, rows_ptr, sums_ptr, mins_ptr, now, n_out, n_rows, interval,
-    max_rt,
-    B: tl.constexpr, BP: tl.constexpr, NE: tl.constexpr, EP: tl.constexpr,
-    GATHER: tl.constexpr, WITH_MIN: tl.constexpr, BLOCK_R: tl.constexpr,
-):
-    # One program reduces BLOCK_R rows: a [BLOCK_R, BP, EP] tile of counts
-    # masked by bucket validity, summed over the bucket axis.
-    pid = tl.program_id(0)
-    r = pid * BLOCK_R + tl.arange(0, BLOCK_R)
-    rm = r < n_out
-    if GATHER:
-        row = tl.load(rows_ptr + r, mask=rm, other=0)
-        row = tl.minimum(tl.maximum(row, 0), n_rows - 1)
-    else:
-        row = r
-    b = tl.arange(0, BP)
-    cell = row[:, None] * B + b[None, :]
-    cm = rm[:, None] & (b < B)[None, :]
-    ws = tl.load(ws_ptr + cell, mask=cm, other=0)
-    valid = ((now - ws) <= interval) & cm
-    e = tl.arange(0, EP)
-    em = e < NE
-    c = tl.load(
-        counts_ptr + cell[:, :, None] * NE + e[None, None, :],
-        mask=valid[:, :, None] & em[None, None, :],
-        other=0,
-    )
-    s = tl.sum(c, axis=1)
-    tl.store(sums_ptr + r[:, None] * NE + e[None, :], s, mask=rm[:, None] & em[None, :])
-    if WITH_MIN:
-        m = tl.load(min_ptr + cell, mask=valid, other=max_rt)
-        tl.store(mins_ptr + r, tl.min(m, axis=1), mask=rm)
-
-
-def _triton_kernels():
-    """Compile-on-first-use: triton is imported here, never at module
-    import (the CPU tests import every module of the package)."""
-    global _TRITON, tl
-    if _TRITON is None:
-        import triton
-        import triton.language
-
-        tl = triton.language
-        _TRITON = triton.jit(_window_reduce_body)
-    return _TRITON
-
-
-def _next_pow2(x: int) -> int:
-    p = 1
-    while p < x:
-        p <<= 1
-    return p
+def check_window(cfg: MetricArrayConfig, state: MetricArrayState, what: str) -> None:
+    """Raise unless ``state`` is one contiguous CUDA int32 window of
+    ``cfg``'s geometry: counts [R, B, NE] (8-byte aligned: K3 reads a
+    bucket's counts in 8-byte words), min_rt and window_start [R, B]."""
+    n, b = state.n_rows, cfg.sample_count
+    for name, t in zip(MetricArrayState._fields, state):
+        shape = (n, b, NUM_EVENTS) if name == "counts" else (n, b)
+        if t.dtype != torch.int32 or not t.is_contiguous() or not t.is_cuda or tuple(t.shape) != shape:
+            raise ValueError(f"{what}.{name}: need a contiguous CUDA int32 tensor of shape {shape}")
+    if state.counts.data_ptr() % 8:
+        raise ValueError(f"{what}.counts: need an 8-byte aligned tensor")
 
 
 def _window_reduce_cuda(cfg, state, now, rows, with_min):
-    for name, t in zip(MetricArrayState._fields, state):
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"state.{name}: need a contiguous int32 tensor")
-    kernel = _triton_kernels()
+    check_window(cfg, state, "state")
     dev = state.counts.device
     gather = rows is not None
     if gather:
         _i32(rows, "rows", (rows.shape[0],))
     n_out = rows.shape[0] if gather else state.n_rows
     sums = torch.empty((n_out, NUM_EVENTS), dtype=torch.int32, device=dev)
-    mins = torch.empty((n_out,), dtype=torch.int32, device=dev) if with_min else sums
+    mins = torch.empty((n_out,), dtype=torch.int32, device=dev) if with_min else None
     if n_out == 0:
-        return sums, (mins if with_min else None)
-    b = cfg.sample_count
-    bp = _next_pow2(b)
-    block_r = max(1, 4096 // (bp * 8))
-    grid = ((n_out + block_r - 1) // block_r,)
-    kernel[grid](
-        state.counts, state.window_start, state.min_rt, rows if gather else sums, sums, mins,
-        int(now), n_out, state.n_rows, cfg.interval_ms, cfg.max_rt,
-        B=b, BP=bp, NE=NUM_EVENTS, EP=8, GATHER=gather, WITH_MIN=with_min, BLOCK_R=block_r,
+        return sums, mins
+    if state.n_rows == 0:
+        raise IndexError("window_reduce: rows asked of a window with no rows")
+    cuda_build.check(
+        _wr_lib().window_reduce(
+            state.counts.data_ptr(), state.min_rt.data_ptr(), state.window_start.data_ptr(), cfg.sample_count,
+            cfg.interval_ms, cfg.max_rt, rows.data_ptr() if gather else None, n_out, state.n_rows, int(now),
+            sums.data_ptr(), None if mins is None else mins.data_ptr(), stream_of(state.counts),
+        ),
+        "window_reduce",
     )
     window_reduce.launches += 1
-    return sums, (mins if with_min else None)
+    return sums, mins

@@ -17,7 +17,10 @@ Kernels here, each beside its plain PyTorch version:
 * :func:`apply_updates`: both windows' window update (K2) and the
   thread-gauge scatter in one C call of two launches
   (``csrc/window_update.cu``). :func:`thread_gauge_add` is the gauge's
-  plain route; on the card the gauge runs only inside that call.
+  plain route; on the card the gauge runs only inside that call;
+* :func:`rows_stats`: the stats read of a list of rows (K3 with the gauge
+  and the slab's folds), one launch of ``row_stats`` in
+  ``csrc/window_reduce.cu`` that writes one int32 record a row.
 
 State updates happen IN PLACE (the JAX code donated these buffers).
 """
@@ -295,16 +298,89 @@ def waiting_tokens(state: StatsState, now: int) -> torch.Tensor:
     return torch.where(future, state.future_pass, 0).sum(dim=1, dtype=torch.int64).to(torch.int32)
 
 
-def slab_fold_host(future_ws: np.ndarray, future_pass: np.ndarray, now: int) -> Tuple[int, int]:
-    """(occupied-in-window, waiting) tokens of one row's slab, on the host:
-    the read-side folds ``occupied_in_window`` and ``waiting_tokens`` of
-    the JAX package for the rows a stats read asks about. int32 wrapping
-    arithmetic as there."""
-    age = (np.int32(now) - future_ws.astype(np.int32)).astype(np.int32)
+# ---------------------------------------------------------------------------
+# rows_stats: K3 with the rest of the stats read
+# ---------------------------------------------------------------------------
+
+# Columns of a rows_stats record (int32 [R', RS_WIDTH]).
+RS_SECOND = slice(0, NUM_EVENTS)  # the second window's sums
+RS_MINUTE = slice(NUM_EVENTS, 2 * NUM_EVENTS)  # the minute window's sums
+RS_MIN_RT = 2 * NUM_EVENTS  # the second window's min RT
+RS_THREADS = RS_MIN_RT + 1  # the thread gauge
+RS_OCCUPIED = RS_MIN_RT + 2  # borrowed tokens whose window is current
+RS_WAITING = RS_MIN_RT + 3  # borrowed tokens of still-future windows
+RS_WIDTH = RS_MIN_RT + 4
+
+
+def rows_stats(state: StatsState, rows: torch.Tensor, now: int) -> torch.Tensor:
+    """What a stats read needs of each row in ``rows`` (int32 [R'], clipped
+    into ``[0, R)``), as the JAX engine's ``_all_stats_arrays`` reads it:
+    one int32 record of ``RS_WIDTH`` a row, columns ``RS_*``. The windowed
+    sums and min RT are ``window_sums``/``window_min_rt``; occupied is
+    ``occupied_in_window`` (a slab cell counts while its wrapping age
+    ``now - future_ws`` lies in ``[0, interval]``) and waiting is
+    ``waiting_tokens`` (``future_ws > now``); sums wrap in int32."""
+    if state.threads.is_cuda:
+        return _rows_stats_cuda(state, rows, now)
+    return rows_stats_plain(state, rows, now)
+
+
+rows_stats.launches = 0
+
+
+def rows_stats_plain(state: StatsState, rows: torch.Tensor, now: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rows_stats`."""
+    r = rows.long().clamp(0, state.n_rows - 1)
+    sec, min_rt = ma.window_reduce_plain(SECOND_CFG, state.second, now, rows, with_min=True)
+    minute, _ = ma.window_reduce_plain(MINUTE_CFG, state.minute, now, rows)
+    fws, fpass = state.future_ws[r], state.future_pass[r]
+    now_t = torch.tensor(int(now), dtype=torch.int32, device=fws.device)
+    age = now_t - fws  # wrapping int32, as in the JAX code
     current = (age >= 0) & (age <= SECOND_CFG.interval_ms)
-    occ = int(np.where(current, future_pass, 0).astype(np.int32).sum(dtype=np.int32))
-    waiting = int(np.where(future_ws > np.int32(now), future_pass, 0).astype(np.int32).sum(dtype=np.int32))
-    return occ, waiting
+
+    def total(sel):
+        return torch.where(sel, fpass, 0).sum(dim=1, dtype=torch.int64).to(torch.int32)
+
+    return torch.cat([sec, minute, torch.stack([min_rt, state.threads[r], total(current), total(fws > now_t)], 1)],
+                     dim=1)
+
+
+class _RsArgs(ctypes.Structure):
+    """``RsArgs`` of ``csrc/window_reduce.cu``, field for field."""
+
+    _fields_ = [(name, ma._P) for name in (
+        "sec_counts", "sec_min_rt", "sec_ws", "min_counts", "min_ws", "threads", "fpass", "fws", "rows", "out",
+    )] + [(name, ma._I) for name in (
+        "n_out", "n_rows", "sec_nb", "sec_interval", "sec_max_rt", "min_nb", "min_interval", "slab_b", "now",
+    )]
+
+
+def _rows_stats_cuda(state: StatsState, rows: torch.Tensor, now: int) -> torch.Tensor:
+    n_rows = state.n_rows
+    ma.check_window(SECOND_CFG, state.second, "second")
+    ma.check_window(MINUTE_CFG, state.minute, "minute")
+    ma._i32(state.threads, "threads", (n_rows,))
+    slab = (n_rows, SECOND_CFG.sample_count)
+    ma._i32(state.future_pass, "future_pass", slab)
+    ma._i32(state.future_ws, "future_ws", slab)
+    n_out = rows.shape[0]
+    ma._i32(rows, "rows", (n_out,))
+    out = torch.empty((n_out, RS_WIDTH), dtype=torch.int32, device=rows.device)
+    if n_out == 0:
+        return out
+    if n_rows == 0:
+        raise IndexError("rows_stats: rows asked of stats with no rows")
+    sec, minute = state.second, state.minute
+    a = _RsArgs(
+        sec.counts.data_ptr(), sec.min_rt.data_ptr(), sec.window_start.data_ptr(), minute.counts.data_ptr(),
+        minute.window_start.data_ptr(), state.threads.data_ptr(), state.future_pass.data_ptr(),
+        state.future_ws.data_ptr(), rows.data_ptr(), out.data_ptr(), n_out, n_rows, SECOND_CFG.sample_count,
+        SECOND_CFG.interval_ms, SECOND_CFG.max_rt, MINUTE_CFG.sample_count, MINUTE_CFG.interval_ms,
+        SECOND_CFG.sample_count, int(now),
+    )
+    cuda_build.check(ma._wr_lib().row_stats(ctypes.byref(a), ma.stream_of(rows)), "row_stats")
+    rows_stats.launches += 1
+    return out
 
 
 class NodeKind:

@@ -544,28 +544,27 @@ class _MsArgs(ctypes.Structure):
     )] + [("interval_sec", _F)]
 
 
+class _McArgs(ctypes.Structure):
+    """``McArgs`` of ``csrc/mesh_budget.cu``, field for field."""
+
+    _fields_ = [(name, _P) for name in (
+        "valid", "row", "ts", "eidx", "acquire", "sec_counts", "sec_ws", "ppc",
+    )] + [(name, _I) for name in ("s", "n_rows", "nb", "ne", "interval_ms", "now", "small_max")]
+
+
 def _mb2_lib() -> ctypes.CDLL:
     lib = cuda_build.load("mesh_budget")
     if not getattr(lib, "_typed", False):
-        lib.mesh_tiles.argtypes = [_I]
         lib.mesh_split_workspace.argtypes = [ctypes.POINTER(_MsArgs)]
-        lib.mesh_split_workspace.restype = ctypes.c_longlong
+        lib.mesh_charge_workspace.argtypes = [_I]
+        for f in (lib.mesh_split_workspace, lib.mesh_charge_workspace):
+            f.restype = ctypes.c_longlong
         lib.mesh_split.argtypes = [ctypes.POINTER(_MsArgs), _P, ctypes.c_longlong, _P]
-        lib.mesh_charge_keys.argtypes = [_P, _P, _P, _I, _I, _P, _P]
-        lib.mesh_charge.argtypes = [_P] * 5 + [_I, _I, _P, _P, _I, _I, _I, _I] + [_P] * 6 + [_P]
-        for f in (lib.mesh_tiles, lib.mesh_split, lib.mesh_charge_keys, lib.mesh_charge):
+        lib.mesh_charge.argtypes = [ctypes.POINTER(_McArgs), _P, ctypes.c_longlong, _P]
+        for f in (lib.mesh_split, lib.mesh_charge):
             f.restype = _I
         lib._typed = True
     return lib
-
-
-def _scan_scratch(lib, n: int, dev):
-    """new_grp, contrib, excl, partial, partial_max of a segmented prefix."""
-    tiles = lib.mesh_tiles(n)
-    scratch = torch.empty(4 * n + 4 * tiles, dtype=torch.int32, device=dev)
-    new_grp = torch.empty(n, dtype=torch.uint8, device=dev)
-    return (new_grp, scratch[: 2 * n], scratch[2 * n : 4 * n], scratch[4 * n : 4 * n + 2 * tiles],
-            scratch[4 * n + 2 * tiles :])
 
 
 def _check_split_tables(flow_dev: FlowTableDevice, tensors: Tuple[torch.Tensor, ...]) -> None:
@@ -662,7 +661,8 @@ def mesh_shaping_charge(second: ma.MetricArrayState, shaping: ShapingBatch, now:
     windowed PASS plus the acquire of the earlier entries of the row in
     (row, ts, item) order, charged over every valid item whatever its
     liveness (as the single-device flow admission charges blocked
-    entries)."""
+    entries). Valid items' rows must lie in ``[0, R)``, as the engine's
+    check rows do."""
     if shaping.valid.is_cuda:
         return _mesh_shaping_charge_cuda(second, shaping, now)
     return mesh_shaping_charge_plain(second, shaping, now)
@@ -691,38 +691,46 @@ def mesh_shaping_charge_plain(second: ma.MetricArrayState, shaping: ShapingBatch
     return ppc
 
 
+# The one-block route's largest batch (the C side takes up to 8,192).
+MESH_CHARGE_SMALL_MAX = 1024
+
+
+@functools.lru_cache(maxsize=64)
+def _charge_workspace(s: int) -> int:
+    """Bytes of K16's many-block workspace for ``s`` items (CUB's storage
+    depends on the count alone)."""
+    return int(_mb2_lib().mesh_charge_workspace(s))
+
+
 def _mesh_shaping_charge_cuda(second, shaping, now) -> torch.Tensor:
+    """K16 in one host call: one block up to MESH_CHARGE_SMALL_MAX items,
+    else mc_prep, CUB's sort and mc_decide in the scratch buffer."""
     s = shaping.valid.shape[0]
     for name, t in zip(ShapingBatch._fields, shaping):
         want = torch.bool if name == "valid" else torch.int32
         if t.dtype != want or not t.is_contiguous() or not t.is_cuda or tuple(t.shape) != (s,):
             raise ValueError(f"shaping.{name}: need a contiguous CUDA {want} tensor of shape ({s},)")
-    for name, t in zip(ma.MetricArrayState._fields, second):
-        _contig_i32(t, f"second.{name}", t.shape)
+    ma.check_window(_nodes.SECOND_CFG, second, "second")
     dev = shaping.valid.device
     ppc = torch.empty(s, dtype=torch.int32, device=dev)
     if s == 0:
         return ppc
+    r_rows = second.n_rows
+    if r_rows == 0:
+        raise IndexError("mesh_shaping_charge: a second window with no rows")
+    if s >= 2**28:
+        raise ValueError("mesh_shaping_charge: at most 2**28 - 1 items a call")
+    a = _McArgs(shaping.valid.data_ptr(), shaping.row.data_ptr(), shaping.ts.data_ptr(), shaping.eidx.data_ptr(),
+                shaping.acquire.data_ptr(), second.counts.data_ptr(), second.window_start.data_ptr(), ppc.data_ptr(),
+                s, r_rows, _nodes.SECOND_CFG.sample_count, NUM_EVENTS, _nodes.SECOND_CFG.interval_ms, int(now),
+                MESH_CHARGE_SMALL_MAX)
     lib = _mb2_lib()
     st = ma.stream_of(shaping.valid)
-    r_rows = second.window_start.shape[0]
-    keys = torch.empty(s, dtype=torch.int64, device=dev)
-    cuda_build.check(
-        lib.mesh_charge_keys(shaping.valid.data_ptr(), shaping.row.data_ptr(), shaping.ts.data_ptr(), s, r_rows,
-                             keys.data_ptr(), st),
-        "mesh_charge_keys",
-    )
-    key_s, perm = torch.sort(keys, stable=True)
-    new_grp, contrib, excl, partial, partial_max = _scan_scratch(lib, s, dev)
-    cuda_build.check(
-        lib.mesh_charge(
-            key_s.data_ptr(), perm.data_ptr(), shaping.valid.data_ptr(), shaping.eidx.data_ptr(),
-            shaping.acquire.data_ptr(), s, r_rows, second.counts.data_ptr(), second.window_start.data_ptr(),
-            second.counts.shape[1], NUM_EVENTS, _nodes.SECOND_CFG.interval_ms, int(now), new_grp.data_ptr(),
-            contrib.data_ptr(), excl.data_ptr(), partial.data_ptr(), partial_max.data_ptr(), ppc.data_ptr(), st,
-        ),
-        "mesh_charge",
-    )
+    if s <= MESH_CHARGE_SMALL_MAX:
+        cuda_build.check(lib.mesh_charge(ctypes.byref(a), None, 0, st), "mesh_charge")
+    else:
+        with cuda_build.scratch(dev, st, _charge_workspace(s)) as (buf, size, _):
+            cuda_build.check(lib.mesh_charge(ctypes.byref(a), buf, size, st), "mesh_charge")
     mesh_shaping_charge.launches += 1
     return ppc
 

@@ -38,17 +38,22 @@ import numpy as np
 import torch
 
 from sentinel_tpu_torch.core import errors as E
-from sentinel_tpu_torch.metrics import metric_array as ma
 from sentinel_tpu_torch.metrics.events import MetricEvent
 from sentinel_tpu_torch.metrics.nodes import (
     MINUTE_CFG,
+    RS_MIN_RT,
+    RS_MINUTE,
+    RS_OCCUPIED,
+    RS_SECOND,
+    RS_THREADS,
+    RS_WAITING,
     SECOND_CFG,
     NodeRegistry,
     StatsState,
     grow_stats,
     make_stats,
-    slab_fold_host,
 )
+from sentinel_tpu_torch.metrics.nodes import rows_stats as _read_rows
 from sentinel_tpu_torch.models import constants as C
 from sentinel_tpu_torch.models.rules import AuthorityRule, DegradeRule, FlowRule, ParamFlowRule
 from sentinel_tpu_torch.rules.degrade_table import WS_FLOOR, DegradeDynState, DegradeIndex
@@ -1651,32 +1656,24 @@ class Engine:
     # reads (command/metric plane)
     # ------------------------------------------------------------------
     def rows_stats(self, rows: Sequence[int], now: Optional[int] = None) -> Dict[int, Dict[str, float]]:
-        """Stats dicts for many rows: the windowed reads run on the
-        device for just these rows (K3 with a row gather)."""
+        """Stats dicts for many rows: one launch reads every asked row's
+        windows, gauge and slab (``nodes.rows_stats``), one copy brings the
+        records back. A row outside the stats raises IndexError."""
         rows = list(rows)
         if not rows:
             return {}
         now_i = self.clock.now_ms() if now is None else int(now)
         with self._flush_lock:
             s = self.stats
+            for r in rows:
+                if not 0 <= r < s.n_rows:
+                    raise IndexError(f"row {r} is outside the {s.n_rows} stats rows")
             idx = torch.tensor(rows, dtype=torch.int32, device=self.device)
-            sec, min_rt = ma.window_reduce(SECOND_CFG, s.second, now_i, rows=idx, with_min=True)
-            minute, _ = ma.window_reduce(MINUTE_CFG, s.minute, now_i, rows=idx)
-            sec, min_rt, minute = sec.cpu().numpy(), min_rt.cpu().numpy(), minute.cpu().numpy()
-            per_row = [
-                (
-                    int(s.threads[r : r + 1].cpu()[0]),
-                    s.future_ws[r].cpu().numpy(),
-                    s.future_pass[r].cpu().numpy(),
-                )
-                for r in rows
-            ]
-        out = {}
-        for i, r in enumerate(rows):
-            threads, fws, fpass = per_row[i]
-            occ, waiting = slab_fold_host(fws, fpass, now_i)
-            out[r] = _stats_dict(sec[i], minute[i], int(min_rt[i]), threads, occ, waiting)
-        return out
+            records = _read_rows(s, idx, now_i).cpu().tolist()  # Python ints: cheap dict arithmetic
+        return {
+            r: _stats_dict(x[RS_SECOND], x[RS_MINUTE], x[RS_MIN_RT], x[RS_THREADS], x[RS_OCCUPIED], x[RS_WAITING])
+            for r, x in zip(rows, records)
+        }
 
     def _row_stats(self, row: int, now: Optional[int] = None) -> Dict[str, float]:
         return self.rows_stats([row], now)[row]

@@ -43,12 +43,12 @@ K7 and K8 live in ``rules/degrade_table.py``, the shaping recurrence K9
 (with its input gather) in ``rules/shaping.py`` and the hot-parameter
 recurrence K10 in ``rules/param_table.py``, the sketch fold K11 in
 ``runtime/sketch.py``. K4 and K6 read the second window themselves
-(K3, ``metric_array.window_sums``, serves the engine's stats reads); the
-windows are written through ``nodes.apply_updates`` (K2 and the thread
-gauge); :func:`flush_step` runs ``nodes.materialize_matured`` (K1) first,
-unless its caller knows the future slab holds no borrow (``with_matured``,
-the engine's slab horizon: :func:`borrow_horizon`). The rest is torch
-glue.
+(K3 with the gauge and the slab, ``nodes.rows_stats``, serves the
+engine's stats reads); the windows are written through
+``nodes.apply_updates`` (K2 and the thread gauge); :func:`flush_step`
+runs ``nodes.materialize_matured`` (K1) first, unless its caller knows
+the future slab holds no borrow (``with_matured``, the engine's slab
+horizon: :func:`borrow_horizon`). The rest is torch glue.
 """
 
 from __future__ import annotations

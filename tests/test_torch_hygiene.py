@@ -129,7 +129,7 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     from sentinel_tpu_torch.runtime import sketch as tsk
 
     wrappers = (ma.update, ma.window_reduce, nodes.materialize_matured, nodes.thread_gauge_add,
-                flush.flow_admission, tsk.sketch_fold, tts.batch_decide)
+                nodes.rows_stats, flush.flow_admission, tsk.sketch_fold, tts.batch_decide)
     before = [w.launches for w in wrappers]
     cpu = torch.device("cpu")
     stats = nodes.make_stats(16, cpu)
@@ -149,6 +149,8 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     )
     _, res = flush.flush_step(stats, fi.device, batch, with_exits=True, blk_topk=8)
     ma.window_min_rt(nodes.SECOND_CFG, stats.second, 100)
+    rec = nodes.rows_stats(stats, torch.tensor([2, 0, 2], dtype=i32), 100)
+    assert rec.shape == (3, nodes.RS_WIDTH) and int(rec[0, nodes.RS_SECOND][0]) == 1
     assert res.admitted.tolist() == [True] + [False] * (n - 1)
     sk = tsk.make_sketch_state(2, 8, 4, cpu)
     tsk.sketch_fold(sk, tsk.SketchBatch(torch.arange(8, dtype=i32), torch.ones(8, dtype=i32)), decay=True)

@@ -64,6 +64,12 @@ from torch_parity import (
     system_thresholds,
     TIE_PATTERNS,
     tie_rows,
+    SHAPING_CHARGE_CASES,
+    shaping_charge_case,
+    STATS_READ_CASES,
+    STATS_READ_ROWS,
+    stats_read_case,
+    stats_read_rows,
 )
 
 pytestmark = pytest.mark.gpu
@@ -132,16 +138,93 @@ def test_update_kernel(cuda, geometry, with_rt, hot):
 
 @pytest.mark.parametrize("geometry", ["second", "minute", "cluster"])
 def test_window_reduce_kernel(cuda, geometry):
+    """K3 (csrc/window_reduce.cu) on every geometry, over all rows and a
+    clipped gather, with and without the min RT; also every bucket counting
+    with sums past 2^31 and min RTs above max_rt (stats_read_case "wrap")."""
     cfg = GEOMETRY[geometry]
     rng = np.random.default_rng(3)
-    for now in (123_456, 2**31 - 1):
-        state = ma.state_from_numpy(random_window_state(rng, 100, cfg, now), cuda)
+    wrap, now_w = stats_read_case("wrap", cfg, cfg, 100)
+    states = [(ma.state_from_numpy(random_window_state(rng, 100, cfg, now), cuda), now) for now in (123_456, 2**31 - 1)]
+    for state, now in states + [(ma.state_from_numpy(wrap[1], cuda), now_w)]:
         rows = torch.from_numpy(rng.integers(-3, 104, 777).astype(np.int32)).to(cuda)
         for r in (None, rows):
-            ws, wm = ma.window_reduce_plain(cfg, state, now, r, with_min=True)
-            gs, gm = ma.window_reduce(cfg, state, now, r, with_min=True)
-            _eq(ws, gs, "sums")
-            _eq(wm, gm, "min_rt")
+            for with_min in (False, True):
+                ws, wm = ma.window_reduce_plain(cfg, state, now, r, with_min=with_min)
+                before = ma.window_reduce.launches
+                gs, gm = ma.window_reduce(cfg, state, now, r, with_min=with_min)
+                assert ma.window_reduce.launches == before + 1
+                _eq(ws, gs, "sums")
+                _eq(wm, gm, "min_rt")
+
+
+@pytest.mark.parametrize("rows_kind", ["three"] + STATS_READ_ROWS)
+@pytest.mark.parametrize("case", STATS_READ_CASES)
+def test_rows_stats_kernel(cuda, case, rows_kind):
+    """row_stats against rows_stats_plain on each stats-read case (now
+    2^31 - 1, ages at the interval's edge, empty starts with tokens, sums
+    past 2^31) for 3 rows, every row, rows unsorted with duplicates, none;
+    one launch a call."""
+    arrs, now = stats_read_case(case, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    stats = tnodes.stats_from_numpy(arrs, cuda)
+    rows = np.array([5, 63, 0], np.int32) if rows_kind == "three" else stats_read_rows(rows_kind, 64)
+    idx = torch.from_numpy(rows).to(cuda)
+    before = tnodes.rows_stats.launches
+    got = tnodes.rows_stats(stats, idx, now)
+    assert tnodes.rows_stats.launches == before + (len(rows) > 0)
+    _eq(tnodes.rows_stats_plain(stats, idx, now), got, f"{case} {rows_kind}")
+
+
+def test_rows_stats_gathered_kernel(cuda):
+    """row_stats at the main path's width: 131,072 gathered rows (Zipf,
+    unsorted, with duplicates, and 16 outside [0, R) to clip) of 65,536."""
+    rng = np.random.default_rng(13)
+    n_rows, now = 1 << 16, 5_000_000
+    stats = tnodes.stats_from_numpy(random_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG), cuda)
+    rows = (np.minimum(rng.zipf(1.1, 1 << 17), n_rows) - 1).astype(np.int32)
+    rows[:16] = [-1, n_rows, -(2**31), 2**31 - 1] * 4
+    idx = torch.from_numpy(rows).to(cuda)
+    _eq(tnodes.rows_stats_plain(stats, idx, now), tnodes.rows_stats(stats, idx, now), "records")
+
+
+def _per_call(fn, calls=5, tries=3):
+    """(kernels, device-to-host copies) of one call of ``fn``, from
+    torch.profiler over ``calls`` calls (each count rounded up)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name.lower() for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kernels = sum(not n.startswith(("memcpy", "memset")) for n in names)
+        dtoh = sum(n.startswith("memcpy dtoh") for n in names)
+        if kernels:
+            return -(-kernels // calls), -(-dtoh // calls)
+    raise AssertionError("torch.profiler recorded no device kernel")
+
+
+@pytest.mark.parametrize("n_rows_asked", [1, 50, 1000])
+def test_engine_rows_stats_one_launch_one_copy(cuda, n_rows_asked):
+    """Engine.rows_stats on the card: one row_stats launch and one copy back
+    a call, whatever the number of rows; its dicts equal the plain read's."""
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils.clock import ManualClock
+
+    arrs, now = stats_read_case("random", tnodes.SECOND_CFG, tnodes.MINUTE_CFG, n_rows=1024)
+    eng = Engine(clock=ManualClock(now), device=cuda)
+    eng.stats = tnodes.stats_from_numpy(arrs, cuda)
+    rows = [int(r) for r in np.random.default_rng(1).integers(0, 1024, n_rows_asked)]
+    before = (tnodes.rows_stats.launches, ma.window_reduce.launches)
+    got = eng.rows_stats(rows)
+    assert (tnodes.rows_stats.launches, ma.window_reduce.launches) == (before[0] + 1, before[1])
+    assert _per_call(lambda: eng.rows_stats(rows)) == (1, 1)
+    cpu = Engine(clock=ManualClock(now), device="cpu")
+    cpu.stats = tnodes.stats_from_numpy(arrs, torch.device("cpu"))
+    assert got == cpu.rows_stats(rows)
 
 
 def _slab_stats(rng, n_rows, now, kind, device):
@@ -1264,7 +1347,9 @@ def test_mesh_split_refusals_kernel(cuda, monkeypatch, short):
     zeroed scratch zero: "workspace", too few bytes for the keys (nothing
     launched, -1); "sort", too few for CUB's storage, refused after
     ms_prep has added the demand into the zeroed cells. A call after it
-    equals the plain version."""
+    equals the plain version. The short sizes come from the call's own
+    need (mesh_split_workspace), not from the shared scratch buffer, which
+    earlier calls may have grown past it."""
     plain, kernel = _mesh_split_call(cuda, 65536, True)
     nk = 2 * 65536
     lib = tici._mb2_lib()
@@ -1274,7 +1359,8 @@ def test_mesh_split_refusals_kernel(cuda, monkeypatch, short):
             return getattr(lib, name)
 
         def mesh_split(self, a, buf, size, st):
-            return lib.mesh_split(a, buf, size // 4 if short == "workspace" else size - 8 * nk, st)
+            need = lib.mesh_split_workspace(a)  # CUB's storage last: its alternate keys alone take 8 nk
+            return lib.mesh_split(a, buf, 8 * nk if short == "workspace" else need - 8 * nk, st)
 
     monkeypatch.setattr(tici, "_mb2_lib", Short)
     with pytest.raises(RuntimeError, match="CUDA error -1$" if short == "workspace" else r"CUDA error [1-9]\d*$"):
@@ -1285,8 +1371,10 @@ def test_mesh_split_refusals_kernel(cuda, monkeypatch, short):
     _assert_zeroed(cuda, "after the call that follows")
 
 
-@pytest.mark.parametrize("s", [64, 16384])
-def test_mesh_shaping_charge_kernel(cuda, s):
+def _charge_inputs(cuda, s, case="random"):
+    """K16's inputs: s items (90% valid) of entries in order, one to a few
+    items each, on 64 rows of a 256-row second window, ts over 900 ms,
+    changed for ``case`` (torch_parity.shaping_charge_case)."""
     rng = np.random.default_rng(s)
     n_rows, now = 256, 3_456_000
     stats = tnodes.stats_from_numpy(borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG), cuda)
@@ -1294,9 +1382,54 @@ def test_mesh_shaping_charge_kernel(cuda, s):
     sb = (rng.random(s) < 0.9, rng.integers(0, 8, s).astype(np.int32), rng.integers(0, n_rows // 4, s).astype(np.int32),
           eidx, (eidx * 2).astype(np.int32), (now - rng.integers(0, 900, s)).astype(np.int32),
           rng.integers(1, 4, s).astype(np.int32))
-    shaping = tsh.shaping_batch_from_numpy(sb, cuda)
-    _eq(tici.mesh_shaping_charge_plain(stats.second, shaping, now), tici.mesh_shaping_charge(stats.second, shaping, now),
-        "ppc")
+    return stats.second, tsh.shaping_batch_from_numpy(shaping_charge_case(case, sb), cuda), now
+
+
+@pytest.mark.parametrize("case", SHAPING_CHARGE_CASES)
+@pytest.mark.parametrize("s", [1, 8, 64, 1023, 1024, 1025, 16384])
+def test_mesh_shaping_charge_kernel(cuda, s, case):
+    """K16 against its plain version on both sides of the one-block route's
+    1,024 items and at 16,384, on every edge of shaping_charge_case; one
+    launch a call."""
+    second, shaping, now = _charge_inputs(cuda, s, case)
+    want = tici.mesh_shaping_charge_plain(second, shaping, now)
+    before = tici.mesh_shaping_charge.launches
+    _eq(want, tici.mesh_shaping_charge(second, shaping, now), f"ppc s={s} {case}")
+    assert tici.mesh_shaping_charge.launches == before + 1
+
+
+@pytest.mark.parametrize("small_max", [8192, 0], ids=["one_block", "many_blocks"])
+@pytest.mark.parametrize("s", [8, 2048, 8192])
+def test_mesh_shaping_charge_routes_kernel(cuda, monkeypatch, s, small_max):
+    """Each route forced at sizes the default sends to the other."""
+    monkeypatch.setattr(tici, "MESH_CHARGE_SMALL_MAX", small_max)
+    for case in ("random", "past_2_31"):
+        second, shaping, now = _charge_inputs(cuda, s, case)
+        _eq(tici.mesh_shaping_charge_plain(second, shaping, now), tici.mesh_shaping_charge(second, shaping, now),
+            f"ppc s={s} small_max={small_max} {case}")
+
+
+def test_mesh_shaping_charge_refusal_kernel(cuda, monkeypatch):
+    """A K16 call whose workspace cannot hold the keys raises (-1) with
+    nothing launched; the call after it equals the plain version."""
+    second, shaping, now = _charge_inputs(cuda, 16384)
+    lib = tici._mb2_lib()
+
+    class Short:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def mesh_charge(self, a, buf, size, st):
+            return lib.mesh_charge(a, buf, 1024, st)  # below the keys' 128 KB
+
+    monkeypatch.setattr(tici, "_mb2_lib", Short)
+    before = tici.mesh_shaping_charge.launches
+    with pytest.raises(RuntimeError, match="CUDA error -1$"):
+        tici.mesh_shaping_charge(second, shaping, now)
+    assert tici.mesh_shaping_charge.launches == before
+    monkeypatch.undo()
+    _eq(tici.mesh_shaping_charge_plain(second, shaping, now), tici.mesh_shaping_charge(second, shaping, now),
+        "after the refused call")
 
 
 def test_breaker_try_pass_probe_allowed_kernel(cuda):

@@ -47,7 +47,9 @@ from torch_parity import (
     random_param_batch_for,
     random_param_state,
     random_shaped_flow_table,
+    SHAPING_CHARGE_CASES,
     shaping_batch_for,
+    shaping_charge_case,
     system_thresholds,
 )
 
@@ -573,17 +575,41 @@ def test_global_param_scan_matches_jax():
     assert not np.asarray(want[1]).all() and (np.asarray(want[2]) > 0).any()
 
 
+def _jax_charge(stats, sb, now):
+    """The global shaping charge as JAX's _global_shaping_scan computes it
+    (sentinel_tpu/parallel/ici.py:387-409), from the JAX package's own
+    pieces: the passQps input of every item, in item order."""
+    valid, _, row, eidx, _, ts, acq = map(jnp.asarray, sb)
+    s, r_rows = valid.shape[0], stats[2].shape[0]
+    pass_sums = jnodes.ma.window_sums(jnodes.SECOND_CFG, _jax_stats(stats).second, jnp.int32(now))[:, 0]
+    rkey = jnp.where(valid, row, jnp.int32(r_rows))
+    rk_s, _, p_s = jax.lax.sort((rkey, ts, jnp.arange(s, dtype=jnp.int32)), num_keys=3)
+    ei_s = eidx[p_s]
+    ones = jnp.ones((1,), dtype=bool)
+    new_grp = jnp.concatenate([ones, rk_s[1:] != rk_s[:-1]])
+    last = jnp.concatenate([rk_s[1:] != rk_s[:-1], ones]) | jnp.concatenate([ei_s[1:] != ei_s[:-1], ones])
+    consumed = jflush._segment_consumed(new_grp, last, jnp.where(valid[p_s], acq[p_s], 0))
+    base = pass_sums[jnp.clip(rk_s, 0, r_rows - 1)]
+    return jnp.zeros((s,), dtype=jnp.int32).at[p_s].set((base + consumed).astype(jnp.int32))
+
+
 @pytest.mark.mesh
-def test_global_shaping_scan_matches_jax():
+@pytest.mark.parametrize("case", SHAPING_CHARGE_CASES)
+def test_global_shaping_scan_matches_jax(case):
     """The global pacer scan with upstream-blocked entries (their items
-    charge the passQps input but advance no pacer)."""
+    charge the passQps input but advance no pacer), and its charge (K16's
+    plain version) against JAX's, on K16's edges: every item invalid, one
+    row, ts ties across entries, negative ts, sums past 2^31."""
     rng = np.random.default_rng(37)
     n, k, n_rows, nr, now = 64, 2, 32, 16, 3_456_000
     stats = borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
     table, dyn = random_shaped_flow_table(rng, nr)
     b = random_chain_batch(rng, n, k, 2, n_rows, nr, 16, now, 32)
-    sb = shaping_batch_for(b, table)
+    sb = shaping_charge_case(case, shaping_batch_for(b, table))
     live = rng.random(n) < 0.75
+    ppc = tici.mesh_shaping_charge(tnodes.stats_from_numpy(stats, CPU).second, tsh.shaping_batch_from_numpy(sb, CPU),
+                                   now)
+    assert_same(_jax_charge(stats, sb, now), ppc, f"{case}: charge")
 
     def body(s, f, fd, sg, bt, lv):
         return jici._global_shaping_scan("data", s, f, fd, sg, bt, lv, n // D, k)
@@ -598,11 +624,14 @@ def test_global_shaping_scan_matches_jax():
     valid, ok, wait = tici._global_shaping_scan(tnodes.stats_from_numpy(stats, CPU), tt, td, tsb, int(b[0]),
                                                 torch.from_numpy(live))
     pre = [tici._shaping_pre_of(tsb, valid, ok, wait, d, n // D, k) for d in range(D)]
-    assert_same(tuple(jax.device_get(want_fd)), tuple(t.numpy() for t in td), "pacer state")
+    assert_same(tuple(jax.device_get(want_fd)), tuple(t.numpy() for t in td), f"{case}: pacer state")
     for i, name in enumerate(("valid", "flat", "eidx", "ok", "wait")):
-        assert_same(want_pre[i], torch.cat([p[i] for p in pre]), name)
+        assert_same(want_pre[i], torch.cat([p[i] for p in pre]), f"{case}: {name}")
     assert not np.asarray(want_pre[0]).all()
-    assert not np.asarray(want_pre[3]).all() and (np.asarray(want_pre[4]) > 0).any()
+    if case == "random":
+        assert not np.asarray(want_pre[3]).all() and (np.asarray(want_pre[4]) > 0).any()
+    if case == "past_2_31":
+        assert (ppc < 0).any(), "no charge passed 2^31"
 
 
 def test_shard_batch_round_trip():

@@ -104,14 +104,18 @@ def test_apply_updates_parity(with_rt):
 
 
 def test_slab_fold_host_matches_jax_reads():
+    """The stats read's slab folds (the occupied and waiting columns of
+    ``rows_stats``, which replaced the per-row host fold) against the JAX
+    reads, row by row."""
     rng = np.random.default_rng(21)
     now = 77_000
     arrs = _random_stats(rng, 12, now)
     js = _jax_stats(arrs)
     occ = np.asarray(jnodes.occupied_in_window(js, jnp.int32(now)))
     wait = np.asarray(jnodes.waiting_tokens(js, jnp.int32(now)))
+    rec = tnodes.rows_stats(tnodes.stats_from_numpy(arrs, CPU), torch.arange(12, dtype=torch.int32), now)
     for r in range(12):
-        assert tnodes.slab_fold_host(arrs[4][r], arrs[3][r], now) == (occ[r], wait[r])
+        assert (int(rec[r, tnodes.RS_OCCUPIED]), int(rec[r, tnodes.RS_WAITING])) == (occ[r], wait[r])
 
 
 def test_registry_rows_match():

@@ -1000,3 +1000,81 @@ def sketch_edge_case(case, depth=4, width=2048, c=64, s=512, seed=0):
         cnt[: c // 2] = 9
         ids[: c // 4] = cand[c // 2 - c // 8:c // 2 + c // 8]  # touched around the boundary count
     return cm, cand, cnt, ids.astype(np.int32), w
+
+
+# --- the stats read (nodes.rows_stats) ----------------------------------------------
+
+STATS_READ_CASES = ["random", "now_max", "age_edges", "empty_tokens", "wrap"]
+STATS_READ_ROWS = ["all", "duplicates_unsorted", "none"]
+
+
+def stats_read_case(case, second_cfg, minute_cfg, n_rows=64, seed=0):
+    """(stats arrays laid out as StatsState, now) for a stats read:
+    "random" (random_stats); "now_max" (now = 2^31 - 1); "age_edges"
+    (slab cells aged exactly the second interval and one past it, cells
+    starting at now and at now + 1, window starts at both windows'
+    interval and one past it); "empty_tokens" (empty_ws slab starts
+    carrying tokens); "wrap" (every bucket counting, counts and slab
+    tokens near 2^30 so every sum passes 2^31, min RTs above max_rt)."""
+    rng = np.random.default_rng(seed + STATS_READ_CASES.index(case))
+    now = 2**31 - 1 if case == "now_max" else 987_654
+    second, minute, threads, fpass, fws = random_stats(rng, n_rows, now, second_cfg, minute_cfg)
+    second, minute = tuple(a.copy() for a in second), tuple(a.copy() for a in minute)
+    threads = rng.integers(-3, 2**31 - 1, n_rows).astype(np.int32) if case == "wrap" else threads
+    if case == "age_edges":
+        q = n_rows // 4
+        interval = second_cfg.interval_ms
+        edges = np.array([now - interval, now - interval - 1, now, now + 1], np.int64)
+        fws[:, 0] = np.repeat(edges, q)[:n_rows]
+        fws[:, 1] = np.roll(fws[:, 0], q)
+        fpass = rng.integers(1, 20, fpass.shape).astype(np.int32)
+        for (counts, min_rt, ws), cfg in ((second, second_cfg), (minute, minute_cfg)):
+            ws[: n_rows // 2, 0] = now - cfg.interval_ms
+            ws[n_rows // 2 :, 0] = now - cfg.interval_ms - 1
+    elif case == "empty_tokens":
+        empty = rng.random(fws.shape) < 0.5
+        fws = np.where(empty, second_cfg.empty_ws, fws).astype(np.int32)
+        fpass = np.where(empty, rng.integers(1, 9, fws.shape), fpass).astype(np.int32)
+    elif case == "wrap":
+        for (counts, min_rt, ws), cfg in ((second, second_cfg), (minute, minute_cfg)):
+            ws[...] = now - rng.integers(0, cfg.interval_ms + 1, ws.shape)
+            counts[...] = rng.integers(2**30, 2**31 - 1, counts.shape)
+            min_rt[...] = rng.integers(1, 2**31 - 1, min_rt.shape)
+        fws = (now - rng.integers(-2 * second_cfg.interval_ms, second_cfg.interval_ms + 1, fws.shape)).astype(np.int32)
+        fpass = rng.integers(2**30, 2**31 - 1, fpass.shape).astype(np.int32)
+    return (second, minute, threads, fpass, fws), now
+
+
+def stats_read_rows(kind, n_rows, seed=0):
+    """The rows a stats read asks for: every row in order, 3 n_rows rows
+    unsorted with duplicates, or none."""
+    if kind == "all":
+        return np.arange(n_rows, dtype=np.int32)
+    if kind == "none":
+        return np.zeros(0, np.int32)
+    return np.random.default_rng(seed).integers(0, n_rows, 3 * n_rows).astype(np.int32)
+
+
+# --- K16's edges (ici.mesh_shaping_charge) -------------------------------------------
+
+SHAPING_CHARGE_CASES = ["random", "all_invalid", "one_row", "ts_ties", "negative_ts", "past_2_31"]
+
+
+def shaping_charge_case(case, sb, seed=0):
+    """A shaping batch (numpy, ShapingBatch order) changed for one of K16's
+    edges: every item invalid, every item on one row, one ts for every
+    entry (ties broken by position), ts below 0 for half the items, and
+    acquires near 2^30 so that a row's charge passes 2^31."""
+    valid, gid, row, eidx, flat_pos, ts, acq = (np.array(a) for a in sb)
+    rng = np.random.default_rng(seed + SHAPING_CHARGE_CASES.index(case))
+    if case == "all_invalid":
+        valid[:] = False
+    elif case == "one_row":
+        row[:] = row[0]
+    elif case == "ts_ties":
+        ts[:] = ts[0]
+    elif case == "negative_ts":
+        ts = np.where(rng.random(ts.shape) < 0.5, ts - np.int32(2**31 - 1), ts).astype(np.int32)
+    elif case == "past_2_31":
+        acq = rng.integers(2**29, 2**30, acq.shape).astype(np.int32)
+    return valid, gid, row, eidx, flat_pos, ts, acq
