@@ -112,7 +112,21 @@ path, and the launches of row_stats on the kernels line are those of
 these reads (K3's own are 0 there: its launches on the line are the
 token service's flow_stats reads, phase 8).
 
-The CPU sides of phases 2c (d), 4-4e and 8 (the plain versions on one
+The host pipeline (the engine's encode arena, one copy each way, the
+deferred fetch): phases 4 and 5 print the median host split of their
+flushes (``Engine.last_flush_host_ms``); phase 4f runs phase 4's stream
+again at pipeline depth 2 and through ``flush_async`` (identical to depth
+0 and to the CPU engine), then a variant whose verdict reads lag three
+flushes (so that flushes stay in flight) at depth 0, depth 2 and through
+``flush_async``, in turns, against the CPU engine at depth 0: each
+``flush_async`` dispatch under ``torch.cuda.set_sync_debug_mode("error")``
+(a sync fails the phase), the syncs of a depth-2 flush counted in "warn"
+mode, the flush call's ms, the host split, ``pipeline_stats`` and the
+device busy share over ten flushes (torch.profiler); then the 4b-4e
+streams again with each bulk dispatch through ``flush_async`` in "warn"
+mode, printing the syncs a dispatch, their verdicts equal to the CPU's.
+
+The CPU sides of phases 2c (d), 4-4f and 8 (the plain versions on one
 heavy segment, the CPU engines) run in four worker processes, started
 before the build, beside the card's phases (phase 3 runs before 2c so
 that case (d)'s references are ready); the workers stop with the script.
@@ -133,6 +147,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1622,19 +1637,60 @@ def profile_step(run, label: str, steps: int = 5) -> None:
 # phase 4: the engine through the public API
 # ---------------------------------------------------------------------------
 
+SYNC_COUNTS = None  # phase 4f's recount of the 4b-4e streams: (host syncs a dispatch, of a sketch rule rebuild)
+# What torch.cuda.set_sync_debug_mode("warn") says of each sync (its first
+# warning, that the mode is a prototype, is not one).
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def count_syncs(fn) -> int:
+    """Calls ``fn`` under torch.cuda.set_sync_debug_mode("warn"); returns
+    the number of synchronizing operations it warned of."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def flush_engine(eng) -> None:
+    """``eng.flush()``; while phase 4f recounts a stream (``SYNC_COUNTS`` a
+    pair of lists), the same ops go through ``flush_async`` under
+    torch.cuda.set_sync_debug_mode("warn"), with nothing in flight to
+    settle, its syncs counted, then through ``drain()``: the same verdicts.
+    The sketch's queued rule rebuilds, which flush() and flush_async() apply
+    first, are applied and counted apart: a rule reload, not the dispatch."""
+    if SYNC_COUNTS is None:
+        eng.flush()
+        return
+    if eng.sketch.armed and eng.sketch.pending_actions:
+        SYNC_COUNTS[1].append(count_syncs(eng.sketch.apply_actions))
+    eng.max_inflight = 8
+    SYNC_COUNTS[0].append(count_syncs(eng.flush_async))
+    eng.drain()
+
+
 N_RULES = 6000  # the reference's MAX_SLOT_CHAIN_SIZE
 FLUSH_N = 32768
 STEPS = 40  # 100 ms each: 4 simulated seconds
 
 
-def drive_engine(device: torch.device, seed: int):
+def drive_engine(device: torch.device, seed: int, mode: str = "sync"):
     """One stream on one engine; returns (records, final state, blocked
-    top-K, seconds per bulk flush, entries admitted, the stats reads'
-    launches of row_stats and of K3, and the seconds of each read)."""
+    top-K, seconds per bulk flush, entries admitted, (the stats reads'
+    launches of row_stats and of K3, the seconds of each read, the host
+    split of each bulk flush)). ``mode`` "depth2" runs the engine at
+    pipeline depth 2, "async" flushes the bulk through flush_async; the
+    verdict reads after each flush materialize it in both."""
     clock = tclock.ManualClock(0)
     api.reset(clock=clock, device=device)
     st.flow_rule_manager.load_rules([st.FlowRule(f"r{i}", count=20) for i in range(N_RULES)])
     eng = api.get_engine()
+    eng.pipeline_depth = 2 if mode == "depth2" else 0
+    splits = []
     rng = np.random.default_rng(seed)
     ranks = np.arange(1, N_RULES + 1, dtype=np.float64) ** -1.1
     p = ranks / ranks.sum()
@@ -1662,8 +1718,9 @@ def drive_engine(device: torch.device, seed: int):
         if device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.flush()
+        eng.flush_async() if mode == "async" else eng.flush()
         flush_s += time.perf_counter() - t0
+        splits.append(eng.last_flush_host_ms)
         records.append(np.concatenate([g.admitted for g in groups]))
         records.append(np.concatenate([g.reason for g in groups]))
         admitted += int(records[-2].sum())
@@ -1687,9 +1744,15 @@ def drive_engine(device: torch.device, seed: int):
             except st.FlowBlockError:
                 records.append(np.array([0], np.int32))
     eng.flush()
+    eng.drain()
     final = nodes.stats_to_numpy(eng.stats)
     blk = eng.last_blocked_topk
-    return records, final, blk, flush_s / STEPS, admitted, (read_launches, read_k3, read_s)
+    return records, final, blk, flush_s / STEPS, admitted, (read_launches, read_k3, read_s, splits)
+
+
+def split_line(splits) -> str:
+    """The median of each key of ``Engine.last_flush_host_ms`` over flushes."""
+    return ", ".join(f"{k} {float(np.median([s[k] for s in splits])):.3f}" for k in splits[0]) + " (ms, median)"
 
 
 def phase4(results: dict, cpu_jobs: dict) -> None:
@@ -1707,10 +1770,12 @@ def phase4(results: dict, cpu_jobs: dict) -> None:
     }
     for w in wrappers.values():
         w.launches = 0
-    gpu_records, gpu_state, gpu_blk, gpu_flush_s, admitted, (read_launches, read_k3, read_s) = drive_engine(DEV, seed=4)
+    gpu_records, gpu_state, gpu_blk, gpu_flush_s, admitted, (read_launches, read_k3, read_s, splits) = drive_engine(
+        DEV, seed=4)
     counts = {name: w.launches for name, w in wrappers.items()}
     log(f"  card: {gpu_flush_s * 1e3:.3f} ms per 32,768-entry flush call "
         f"({FLUSH_N / gpu_flush_s:,.0f} entries/s, host encode and verdict copy included)")
+    log(f"  host split of a flush (Engine.last_flush_host_ms): {split_line(splits)}")
     log(f"  launches on the main path: {counts}")
     if counts.pop("materialize_matured") != 0:
         fail("phase 4: the matured-borrow sweep ran on a stream that borrows nothing")
@@ -1747,6 +1812,10 @@ def phase4(results: dict, cpu_jobs: dict) -> None:
         f"identical on card and CPU; {admitted} bulk entries admitted")
     if admitted <= 0 or admitted >= STEPS * FLUSH_N:
         fail("phase 4 admitted nothing or everything: the stream did not exercise the rules")
+    PHASE4_RESULT.update(card=(gpu_records, gpu_state, gpu_blk), cpu=(cpu_records, cpu_state, cpu_blk))
+
+
+PHASE4_RESULT = {}  # phase 4's card and CPU results, which phase 4f holds its depths against
 
 
 CHAIN_STEPS = 24  # 100 ms each: 2.4 simulated seconds
@@ -1819,7 +1888,7 @@ def drive_chain_engine(device: torch.device, seed: int):
         if device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.flush()
+        flush_engine(eng)
         flush_s += time.perf_counter() - t0
         for g in groups:
             records += [g.admitted, g.reason, g.wait_ms]
@@ -1886,6 +1955,186 @@ def phase4_chain(results: dict, cpu_jobs: dict) -> None:
         f"final breaker states (closed, open, half-open) {np.bincount(gpu[2].state, minlength=3).tolist()}")
     if min(reasons[:5]) == 0 or waits == 0:
         fail("phase 4b: some stage of the slot chain blocked nothing, or no prioritized entry borrowed")
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: the host pipeline (flush_async, the depth-K flush)
+# ---------------------------------------------------------------------------
+
+PIPE_STEPS = 30  # 100 ms each: 3 simulated seconds
+PIPE_LAG = 3  # exits complete the entries of three flushes back, which the depth-2 trim has already filled
+PIPE_WINDOW = 10  # flushes under torch.profiler, from the tenth on
+
+
+def device_busy_ms(prof) -> float:
+    """The union of the device's kernel, copy and memset intervals in a
+    torch.profiler session, in ms (nan when it recorded none)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return float("nan")
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    return (busy + cur_e - cur_s) / 1e3
+
+
+def drive_pipeline_engine(device: torch.device, seed: int, mode: str):
+    """Phase 4's stream with its reads held back, so that flushes stay in
+    flight: 6,000 DEFAULT rules, PIPE_STEPS flushes of 32,768 Zipf entries,
+    exits of the admitted entries of PIPE_LAG flushes back, no st.entry,
+    every verdict read after the last flush. ``mode``: "sync" (depth 0),
+    "depth2", or "async" (flush_async; nothing is settled in the call: the
+    lagged reads settle the older dispatches). On the card an "async"
+    dispatch runs under set_sync_debug_mode("error"), a "depth2" flush
+    under "warn" with its syncs counted, and flushes PIPE_WINDOW to
+    2 * PIPE_WINDOW - 1 (their submits and reads too) under torch.profiler.
+    Returns (records, final stats, blocked top-K, ms per flush call, host
+    splits, pipeline_stats, syncs per depth-2 flush, the device's busy ms
+    a flush over the window, the window's wall ms a step, the median wall
+    ms of an unprofiled step: submits, exits, flush)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    clock = tclock.ManualClock(0)
+    api.reset(clock=clock, device=device)
+    st.flow_rule_manager.load_rules([st.FlowRule(f"r{i}", count=20) for i in range(N_RULES)])
+    eng = api.get_engine()
+    eng.pipeline_depth = 2 if mode == "depth2" else 0
+    if mode == "async":
+        eng.max_inflight = PIPE_STEPS
+    on_card = device.type == "cuda"
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, N_RULES + 1, dtype=np.float64) ** -1.1
+    p = ranks / ranks.sum()
+    steps, call_ms, splits, syncs, step_ms = [], [], [], [], []
+    prof = None
+    busy = window_ms = float("nan")
+    for step in range(PIPE_STEPS):
+        t_step = time.perf_counter()
+        now = 1000 + step * 100
+        clock.set_ms(now)
+        res = rng.choice(N_RULES, size=FLUSH_N, p=p)
+        ts = (now - rng.integers(0, 100, FLUSH_N)).astype(np.int32)
+        order = np.argsort(res, kind="stable")
+        res, ts = res[order], ts[order]
+        uniq, start = np.unique(res, return_index=True)
+        bounds = list(start) + [FLUSH_N]
+        steps.append([
+            eng.submit_bulk(f"r{r}", int(bounds[i + 1] - bounds[i]), ts=np.sort(ts[bounds[i]:bounds[i + 1]]))
+            for i, r in enumerate(uniq)
+        ])
+        if step >= PIPE_LAG:
+            for g in steps[step - PIPE_LAG][:50]:
+                if g.admitted_count:
+                    eng.submit_exit_bulk(g.rows, g.admitted_count, rt=int(rng.integers(1, 300)), ts=now)
+        if on_card and step == PIPE_WINDOW:
+            prof = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+            t_win = time.perf_counter()
+        t0 = time.perf_counter()
+        if mode == "async" and on_card:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.flush_async()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        elif mode == "async":
+            eng.flush_async()
+        elif mode == "depth2" and on_card:
+            syncs.append(count_syncs(eng.flush))
+        else:
+            eng.flush()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        splits.append(eng.last_flush_host_ms)
+        if prof is None and step > 0:
+            step_ms.append((time.perf_counter() - t_step) * 1e3)
+        if prof is not None and step == 2 * PIPE_WINDOW - 1:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_win
+            prof.__exit__(None, None, None)
+            busy, window_ms = device_busy_ms(prof) / PIPE_WINDOW, wall * 1e3 / PIPE_WINDOW
+            prof = None
+    stats_ = eng.pipeline_stats()
+    eng.flush()
+    eng.drain()
+    records = []
+    for groups in steps:
+        records += [np.concatenate([g.admitted for g in groups]), np.concatenate([g.reason for g in groups])]
+    return (records, nodes.stats_to_numpy(eng.stats), eng.last_blocked_topk, call_ms, splits, stats_, syncs, busy,
+            window_ms, float(np.median(step_ms)) if step_ms else float("nan"))
+
+
+def same_engine_result(got, want, what: str) -> None:
+    """Fails unless (records, final stats, blocked top-K) agree exactly."""
+    (ra, sa, ba), (rb, sb, bb) = got, want
+    if len(ra) != len(rb) or any(not np.array_equal(a, b) for a, b in zip(ra, rb)):
+        fail(f"{what}: verdicts differ")
+    for name in sa._fields:
+        a, b = getattr(sa, name), getattr(sb, name)
+        for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+            if not np.array_equal(x, y):
+                fail(f"{what}: final state {name} differs")
+    if any(not np.array_equal(x, y) for x, y in zip(ba, bb)):
+        fail(f"{what}: blocked top-K differs")
+
+
+def phase4_pipeline(cpu_jobs: dict) -> None:
+    global SYNC_COUNTS
+    log(f"phase 4f: the host pipeline on the card (depth 0, depth 2 and flush_async; {PIPE_STEPS} flushes of "
+        f"32,768 with the reads held back {PIPE_LAG} flushes; syncs a dispatch; {card_line()})")
+    for mode in ("depth2", "async"):
+        recs, state, blk, flush_s, _, (_, _, _, splits) = drive_engine(DEV, 4, mode)
+        same_engine_result((recs, state, blk), PHASE4_RESULT["card"], f"phase 4's stream at {mode} vs depth 0")
+        same_engine_result((recs, state, blk), PHASE4_RESULT["cpu"], f"phase 4's stream at {mode} vs the CPU")
+        log(f"  phase 4's stream, {mode} (each flush read at once): {flush_s * 1e3:.3f} ms per flush call, "
+            f"verdicts, blocked top-K and state identical to depth 0 and to the CPU engine; {split_line(splits)}")
+    cpu = cpu_result(cpu_jobs, "4f")
+    for mode in ("sync", "depth2", "async", "depth2", "sync"):
+        try:
+            out = drive_pipeline_engine(DEV, 10, mode)
+        except RuntimeError as exc:
+            if "synchroniz" in str(exc):
+                fail(f"phase 4f: a DEFAULT dispatch synchronized with the host: {exc}")
+            raise
+        recs, state, blk, call_ms, splits, pstats, syncs, busy, window_ms, step_med = out
+        same_engine_result((recs, state, blk), cpu[:3], f"phase 4f ({mode}) vs the CPU engine at depth 0")
+        extra = ""
+        if mode == "depth2":
+            extra = f"; syncs a flush (dispatch and the trim's wait) {min(syncs)}-{max(syncs)}"
+        elif mode == "async":
+            extra = "; the dispatch raised no sync under set_sync_debug_mode(\"error\")"
+        log(f"  {mode}: a flush call {float(np.median(call_ms[1:])):.3f} ms (median; {min(call_ms[1:]):.3f}-"
+            f"{max(call_ms[1:]):.3f}); a step (submits, exits, flush) {step_med:.3f} ms (median, unprofiled); "
+            f"steps {PIPE_WINDOW}-{2 * PIPE_WINDOW - 1} under torch.profiler {window_ms:.3f} ms a step, the device "
+            f"busy {busy:.4f} ms a step ({100 * busy / window_ms:.2f}%); pipeline_stats {pstats}; "
+            f"{split_line(splits[1:])}{extra}")
+    log("  verdicts, blocked top-K and final state identical at depth 0, depth 2 and through flush_async, and to "
+        "the CPU engine at depth 0")
+    # The 4b-4e streams again, each bulk dispatch through flush_async under
+    # the "warn" sync debug mode: syncs a dispatch, verdicts as before.
+    for name, drive, seed in (("4b", drive_chain_engine, 5), ("4c", drive_shaping_engine, 6),
+                              ("4d", drive_sketch_engine, 7), ("4e", drive_mesh_engine, 9)):
+        SYNC_COUNTS = ([], [])
+        try:
+            got = drive(DEV, seed)
+        finally:
+            (counts, reloads), SYNC_COUNTS = SYNC_COUNTS, None
+        want = cpu_result(cpu_jobs, name)
+        if len(got[0]) != len(want[0]) or any(
+            (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)) for a, b in zip(got[0], want[0])
+        ):
+            fail(f"phase 4f: the {name} stream through flush_async differs from the CPU engine")
+        rebuilds = (f"; {len(reloads)} sketch rule rebuilds before a dispatch, {min(reloads)}-{max(reloads)} syncs "
+                    f"each (a rule reload: it decides the queued ops, then copies the new table in)") if reloads else ""
+        log(f"  {name} route: {min(counts)}-{max(counts)} syncs a dispatch (median "
+            f"{float(np.median(counts)):g}) over {len(counts)} dispatches{rebuilds}; verdicts identical to the CPU "
+            f"engine")
 
 
 # ---------------------------------------------------------------------------
@@ -1986,7 +2235,7 @@ def drive_shaping_engine(device: torch.device, seed: int):
             if device.type == "cuda":
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
-            eng.flush()
+            flush_engine(eng)
             flush_s += time.perf_counter() - t0
             for g in groups:
                 records += [g.admitted, g.reason, g.wait_ms]
@@ -2122,9 +2371,11 @@ def phase5() -> None:
     time.sleep(1.1)
     passes = []
     latencies = []
+    splits = []
     lock = threading.Lock()
     stop = threading.Event()
     errors = []
+    eng = api.get_engine()
 
     def worker():
         try:
@@ -2137,8 +2388,10 @@ def phase5() -> None:
                             passes.append(time.monotonic())
                 except st.FlowBlockError:
                     decided = time.perf_counter()
+                split = eng.last_flush_host_ms  # this call's flush or a concurrent caller's
                 with lock:
                     latencies.append(decided - t_call)
+                    splits.append(split)
                 time.sleep(0.001)
         except Exception as exc:  # reported below, never swallowed
             errors.append(exc)
@@ -2169,6 +2422,7 @@ def phase5() -> None:
     q = 0.99 if n >= 1000 else 0.9
     log(f"  st.entry latency over {n} calls: p50 {lat[n // 2] * 1e3:.3f} ms, "
         f"p{round(q * 100)} {lat[int(q * n)] * 1e3:.3f} ms, max {lat[-1] * 1e3:.3f} ms")
+    log(f"  host split of the flushes (Engine.last_flush_host_ms read after each call): {split_line(splits)}")
 
 
 # ---------------------------------------------------------------------------
@@ -2520,7 +2774,7 @@ def drive_sketch_engine(device: torch.device, seed: int):
         if device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.flush()
+        flush_engine(eng)
         flush_s += time.perf_counter() - t0
         for g in groups:
             records += ([None] if g is None else [g.admitted, g.reason])
@@ -3098,7 +3352,7 @@ def drive_mesh_engine(device: torch.device, seed: int):
         if device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.flush()
+        flush_engine(eng)
         flush_s += time.perf_counter() - t0
         for g in groups:
             records += [g.admitted, g.reason, g.wait_ms]
@@ -3195,7 +3449,7 @@ def _cpu_worker() -> None:
 
 
 def start_cpu_jobs() -> dict:
-    """Starts the CPU references of phases 2c (d), 4-4e and 8 (the port's
+    """Starts the CPU references of phases 2c (d), 4-4f and 8 (the port's
     plain versions, one round of a segmented recurrence at a time, and the
     CPU engines) in worker processes, longest first, so that they run while
     the build and the card's phases do; each is the same seeded computation the phase
@@ -3214,6 +3468,7 @@ def start_cpu_jobs() -> dict:
         "4b": WORKERS.apply_async(drive_chain_engine, (cpu, 5)),
         "4d": WORKERS.apply_async(drive_sketch_engine, (cpu, 7)),
         "8": WORKERS.apply_async(drive_cluster_engine, (cpu, 8)),
+        "4f": WORKERS.apply_async(drive_pipeline_engine, (cpu, 10, "sync")),
     }
 
 
@@ -3282,6 +3537,7 @@ def main() -> None:
         ("2d", lambda: phase2_sketch(results)), ("2e", lambda: phase2_token(results)),
         ("4c", lambda: phase4_shaping(results, cpu_jobs)), ("4d", lambda: phase4_sketch(results, cpu_jobs)),
         ("2f", lambda: phase2_mesh(results)), ("3b", phase3b), ("4e", lambda: phase4_mesh(results, cpu_jobs)),
+        ("4f", lambda: phase4_pipeline(cpu_jobs)),
         ("5", phase5), ("6", phase6), ("7", phase7), ("8", lambda: phase8(results, cpu_jobs)), ("9", phase9),
     ):
         t0 = time.perf_counter()

@@ -102,20 +102,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-from gpu_timing import TD_B, TD_FLOWS, TD_NS, device_profile, kernel_times, time_ms, time_ms_fresh, token_batch
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "not measured"
+from gpu_timing import (TD_B, TD_FLOWS, TD_NS, card_line, device_profile, kernel_times, time_ms, time_ms_fresh,
+                        token_batch)
 
 
 def k1_gauge(out: dict, profiled, dev, k3_k16_only: bool = False) -> None:

@@ -1,11 +1,13 @@
-"""Timing helpers for the card, shared by chip_smoke.py and gpu_kernel_ab.py:
-CUDA-event times, device launches counted with torch.profiler, and the
-token server's request batches. Imports torch and numpy, nothing of
+"""Timing helpers for the card, shared by chip_smoke.py, gpu_kernel_ab.py
+and gpu_engine_ab.py: CUDA-event times, device launches counted with
+torch.profiler, the token server's request batches and the card's name
+and power limit. Imports torch and numpy, nothing of
 sentinel_tpu_torch, so that one copy times any checkout of the package.
 """
 
 from __future__ import annotations
 
+import subprocess
 import time
 
 import numpy as np
@@ -114,3 +116,10 @@ def token_batch(rng, counts: np.ndarray, device, b: int = TD_B, wrap: bool = Fal
         thr, nthr = thr * np.float32(1e8), rng.choice([1e9, 1e10, 3e10], b).astype(np.float32)
     arrays = (flow.astype(np.int32), (TD_FLOWS + ns).astype(np.int32), acq, thr, nthr, np.ones(b, bool))
     return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "not measured"

@@ -7,7 +7,8 @@ slot chain so far: the public entry API, flow rules with every
 controller (DEFAULT, with prioritized entries borrowing future windows;
 the rate limiter, warm-up and warm-up rate limiter), hot-parameter
 rules, circuit breakers, system protection and authority rules, the
-batched engine at pipeline depth 0, the statistics sketch tier
+batched engine with its host pipeline (flush_async, the depth-K flush,
+the auto-flusher), the statistics sketch tier
 (``sentinel.tpu.sketch.enabled``), the embedded cluster token service
 (``sentinel_tpu_torch.cluster``, server mode), and the flush step whose
 kernels (window update, window sums, matured-borrow sweep, flow admission
@@ -16,8 +17,8 @@ hot-parameter recurrences, verdict tail, sketch fold; the token service's
 decision pass beside them) are hand-written for Hopper in CUDA C++ and
 Triton. Features not ported yet raise ``NotImplementedError`` naming
 their ROADMAP item; so do the public names of the JAX package whose
-modules are not ported (``entry_async``, the trace-context helpers, the
-window properties).
+modules are not ported (the trace-context helpers, the window
+properties).
 
     import sentinel_tpu_torch as st
 
@@ -36,6 +37,7 @@ from sentinel_tpu_torch.version import __version__
 
 from sentinel_tpu_torch.core.api import (
     entry,
+    entry_async,
     get_engine,
     reset as reset_all,
     reset_tracer_filters,
@@ -71,11 +73,10 @@ from sentinel_tpu_torch.rules.flow_manager import flow_rule_manager
 from sentinel_tpu_torch.rules.param_manager import param_flow_rule_manager
 from sentinel_tpu_torch.rules.system_manager import system_rule_manager
 from sentinel_tpu_torch.runtime.engine import BulkOp
-from sentinel_tpu_torch.utils.unported import ROADMAP_METRICS, ROADMAP_PIPELINE, UnportedName
+from sentinel_tpu_torch.utils.unported import ROADMAP_METRICS, UnportedName
 
 # Public names of the JAX package whose modules are not ported yet: each
 # raises NotImplementedError naming its ROADMAP item when used.
-entry_async = UnportedName("entry_async", ROADMAP_PIPELINE)
 trace_context = UnportedName("trace_context", ROADMAP_METRICS)
 TraceContext = UnportedName("TraceContext", ROADMAP_METRICS)
 inject_trace_headers = UnportedName("inject_trace_headers", ROADMAP_METRICS)

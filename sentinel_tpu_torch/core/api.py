@@ -5,6 +5,8 @@
   when blocked, else returns an :class:`Entry`, usable as a context
   manager;
 * ``try_entry`` ≙ ``SphO.entry``: the Entry or ``None``;
+* ``entry_async`` ≙ ``SphU.asyncEntry``: an Entry off the context's
+  stack;
 * ``trace`` ≙ ``Tracer.trace``: marks the current entry's business
   exception, counted at exit.
 
@@ -194,7 +196,11 @@ def _do_entry(
     origin: Optional[str],
     prio: bool,
     args: Sequence[object] = (),
+    with_context: bool = True,
 ) -> Tuple[Optional[Entry], Verdict]:
+    """One synchronous admission. ``with_context=False`` (``entry_async``)
+    keeps the Entry off the context's entry stack and leaves no implicit
+    context ambient."""
     engine = get_engine()
     ctx = ContextUtil.get_context()
     if ctx is None:
@@ -207,8 +213,12 @@ def _do_entry(
     )
     if op is None:
         # Above the resource cap: pass-through entry with no statistics.
-        e = Entry(resource, (-1, -1, -1, -1), ctx, engine.clock.now_ms(), acquire, pass_through=True)
-        ctx.entry_stack.append(e)
+        e = Entry(resource, (-1, -1, -1, -1), ctx if with_context else None, engine.clock.now_ms(), acquire,
+                  pass_through=True)
+        if with_context:
+            ctx.entry_stack.append(e)
+        elif ctx.auto and not ctx.entry_stack:
+            ContextUtil.exit()
         return e, verdict
     if not verdict.admitted:
         if ctx.auto and not ctx.entry_stack:
@@ -220,9 +230,14 @@ def _do_entry(
         # (RateLimiterController.java:80, DefaultController.java:66); here
         # the wait surfaces after the batched decision.
         engine.clock.sleep_ms(verdict.wait_ms)
-    e = Entry(resource, op.rows, ctx, op.ts, acquire, verdict=verdict, param_rows=op.param_thread_rows,
-              cluster_tokens=op.cluster_tokens)
-    ctx.entry_stack.append(e)
+    e = Entry(resource, op.rows, ctx if with_context else None, op.ts, acquire, verdict=verdict,
+              param_rows=op.param_thread_rows, cluster_tokens=op.cluster_tokens)
+    if with_context:
+        ctx.entry_stack.append(e)
+    elif ctx.auto and not ctx.entry_stack:
+        # A detached entry created an implicit context: do not leave it
+        # ambient (SphU.asyncEntry clears it in initializeAsyncContext).
+        ContextUtil.exit()
     return e, verdict
 
 
@@ -254,6 +269,22 @@ def try_entry(
 ) -> Optional[Entry]:
     """SphO.entry: the Entry on pass, None on block."""
     e, _ = _do_entry(resource, entry_type, count, origin, False, args=args)
+    return e
+
+
+def entry_async(
+    resource: str,
+    entry_type: C.EntryType = C.EntryType.OUT,
+    count: int = 1,
+    origin: Optional[str] = None,
+    args: Sequence[object] = (),
+) -> Entry:
+    """SphU.asyncEntry: not pushed on the context's entry stack; exit it
+    from anywhere. Raises a BlockError subclass when blocked. The IPC
+    worker hook of the JAX function belongs to ROADMAP Queue 1 item 10."""
+    e, verdict = _do_entry(resource, entry_type, count, origin, False, args=args, with_context=False)
+    if e is None:
+        raise _block_error(verdict, resource)
     return e
 
 

@@ -8,7 +8,6 @@ labels: tests match on them.
 
 from __future__ import annotations
 
-ROADMAP_PIPELINE = "ROADMAP Queue 1 item 1 (depth-K flush pipeline and flush_async)"
 ROADMAP_TIERS = "ROADMAP Queue 1 item 7 (engine tiers)"
 ROADMAP_METRICS = "ROADMAP Queue 1 item 8 (metrics and observability)"
 ROADMAP_CLUSTER = "ROADMAP Queue 1 item 9 (cluster token plane)"

@@ -540,9 +540,8 @@ def _cluster_param_rule(e):
         _add_breaker_observer,
         _cluster_param_rule,
         lambda e: make_mesh(8, [e.device, torch.device("meta")]),
-        lambda e: e.flush_async(),
     ],
-    ids=["degrade", "param", "mesh", "flush_async"],
+    ids=["degrade", "param", "mesh"],
 )
 def test_out_of_slice_raises(call):
     """Features outside the port so far; for degrade rules, which the port
@@ -556,16 +555,9 @@ def test_out_of_slice_raises(call):
 @pytest.mark.parametrize(
     "call,item",
     [
-        (lambda e: e.set_depth(2), 1),
-        (lambda e: e.start_auto_flush(), 1),
-        (lambda e: e.last_flush_host_ms, 1),
-        (lambda e: e.pipeline_stats(), 1),
-        (lambda e: e.drain(), 1),
-        (lambda e: e.reset(), 1),
         (lambda e: e.retune_second_window(4, 1000), 8),
     ],
-    ids=["set_depth", "start_auto_flush", "last_flush_host_ms", "pipeline_stats", "drain", "reset",
-         "retune_second_window"],
+    ids=["retune_second_window"],
 )
 def test_unported_engine_methods_raise(call, item):
     """The JAX Engine's methods that the port lacks raise NotImplementedError
@@ -638,7 +630,6 @@ def test_cluster_mode_rule_raises():
         (config.GOSSIP_ENABLED, "true"), (config.SPECULATIVE_ENABLED, "true"),
         (config.FAILOVER_ENABLED, "true"), (config.CAPTURE_ENABLED, "true"),
         (config.AUTOTUNE_ENABLED, "true"), (config.IPC_ENABLED, "true"),
-        (config.PIPELINE_DEPTH, "2"),
     ],
 )
 def test_unported_config_raises(key, value):

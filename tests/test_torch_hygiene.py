@@ -208,7 +208,7 @@ def _jax_public_names():
 
 
 # The JAX names whose modules are not ported yet, and their ROADMAP items.
-_UNPORTED_NAMES = {"entry_async": 1, "trace_context": 8, "TraceContext": 8, "inject_trace_headers": 8,
+_UNPORTED_NAMES = {"trace_context": 8, "TraceContext": 8, "inject_trace_headers": 8,
                    "parse_traceparent": 8, "sample_count_property": 8, "interval_property": 8}
 
 

@@ -2000,3 +2000,115 @@ def test_exits_and_sketch_threads_kernel(cuda):
         for i, out in enumerate(outs):
             _states_eq(want[name], out, f"{name} call {i}")
     _assert_zeroed(cuda, "after the threads")
+
+
+# --- the engine's host pipeline on the card ----------------------------------
+
+
+def _pipeline_stream(eng, st_mod, step, rng, groups, singles):
+    """One round of a DEFAULT + hot-parameter stream (flow-limited bulk, a
+    param bulk with two timestamps, singles with args, bulk exits), the
+    same calls on every engine given the same ``rng`` state."""
+    t = 1000 + 170 * step
+    eng.clock.set_ms(t)
+    ts = np.sort(t + rng.integers(0, 40, 64)).astype(np.int32)
+    acq = rng.integers(1, 3, 64).astype(np.int32)
+    vals = [(f"v{int(v)}",) for v in rng.integers(0, 5, 48)]
+    ts_q = np.where(np.arange(48) < 30, t, t + 600).astype(np.int32)
+    groups.append(eng.submit_bulk("pp", 64, ts=ts, acquire=acq))
+    groups.append(eng.submit_bulk("qq", 48, ts=ts_q, args_column=vals))
+    singles.extend(eng.submit_entry("qq", ts=int(t + d), args=(f"v{int(v)}",))
+                   for d, v in zip(rng.integers(0, 50, 6), rng.integers(0, 5, 6)))
+    c = st_mod.constants
+    rows = eng.resolve_entry_rows("pp", c.CONTEXT_DEFAULT_NAME, "", c.EntryType.OUT)
+    eng.submit_exit_bulk(rows, 8, rt=10, ts=np.full(8, t, np.int32))
+
+
+def _pipeline_engine(device, depth):
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils.clock import ManualClock
+
+    eng = Engine(clock=ManualClock(0), device=device)
+    eng.pipeline_depth = depth
+    eng.set_flow_rules([st.FlowRule("pp", count=20), st.FlowRule("qq", count=1e9)])
+    eng.set_param_rules({"qq": [st.ParamFlowRule("qq", param_idx=0, count=4)]})
+    return eng
+
+
+def test_engine_depth2_with_pending_work_matches_cpu(cuda):
+    """A depth-2 stream on the card, a torch.cuda._sleep spin queued on the
+    engine's stream before each flush, so that the copies and kernels of
+    earlier flushes are still pending while the next encode reuses pooled
+    staging: verdicts and final state equal the CPU engine's at depth 0."""
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.metrics.nodes import stats_to_numpy
+
+    out = {}
+    for name, device, depth in (("cpu", "cpu", 0), ("card", cuda, 2)):
+        eng = _pipeline_engine(device, depth)
+        rng = np.random.default_rng(3)
+        groups, singles = [], []
+        for step in range(12):
+            _pipeline_stream(eng, st, step, rng, groups, singles)
+            if device != "cpu":
+                with torch.cuda.stream(eng._stream):
+                    torch.cuda._sleep(20_000_000)  # ~10 ms of device time
+            eng.flush()
+            if device != "cpu":
+                assert len(eng._pending_fetches) == min(step + 1, 2)
+        eng.drain()
+        if device != "cpu":
+            assert eng._arena.hits > 0, "no staging set was reused"
+        out[name] = ([(g.admitted.copy(), g.reason.copy(), g.wait_ms.copy()) for g in groups],
+                     [(o.verdict.admitted, o.verdict.reason, o.verdict.wait_ms) for o in singles],
+                     stats_to_numpy(eng.stats), eng.last_blocked_topk)
+    (cg, cs, cstats, ctop), (gg, gs, gstats, gtop) = out["cpu"], out["card"]
+    for i, (a, b) in enumerate(zip(cg, gg)):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y), f"group {i}"
+    assert cs == gs
+    for name in cstats._fields:
+        a, b = getattr(cstats, name), getattr(gstats, name)
+        for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+            assert np.array_equal(x, y), name
+    assert all(np.array_equal(x, y) for x, y in zip(ctop, gtop))
+    assert any(not a.all() for a, _, _ in cg), "the stream must block something"
+
+
+def test_engine_auto_flush_while_caller_sets_a_side_stream(cuda):
+    """The auto-flusher and a caller that flushes under a side stream of
+    its own (queued busy with a spin) share one engine at depth 2: every
+    dispatch runs on the engine's stream, so each flush sees the window
+    counts of the one before. 240 same-window entries against count 50
+    admit exactly 50."""
+    import time
+
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils.clock import ManualClock
+
+    eng = Engine(clock=ManualClock(1000), device=cuda)
+    eng.pipeline_depth = 2
+    eng.set_flow_rules([st.FlowRule("af", count=50)])
+    side = torch.cuda.Stream(cuda)
+    assert side != eng._stream
+    groups = []
+    eng.start_auto_flush(interval_ms=1)
+    try:
+        with torch.cuda.stream(side):
+            for i in range(24):
+                torch.cuda._sleep(5_000_000)
+                groups.append(eng.submit_bulk("af", 10, ts=1000))
+                if i % 3 == 0:
+                    eng.flush()
+                time.sleep(0.001)
+            assert torch.cuda.current_stream(cuda) == side
+    finally:
+        eng.stop_auto_flush()
+    eng.flush()
+    eng.drain()
+    assert not eng.closed_dirty
+    assert sum(g.admitted_count for g in groups) == 50
+    stats = eng.cluster_node_stats("af")
+    assert (stats["total_pass_minute"], stats["total_block_minute"]) == (50, 190)
