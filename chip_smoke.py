@@ -126,7 +126,29 @@ device busy share over ten flushes (torch.profiler); then the 4b-4e
 streams again with each bulk dispatch through ``flush_async`` in "warn"
 mode, printing the syncs a dispatch, their verdicts equal to the CPU's.
 
-The CPU sides of phases 2c (d), 4-4f and 8 (the plain versions on one
+The failure domain and the speculative tier (runtime/failover.py,
+runtime/speculative.py, runtime/durable.py): phase 4g runs phase 4's
+stream (its entries through ``entry_sync``, each flush ``flush_async`` and
+``drain``) with failover armed (a checkpoint every 8 flushes, each armed
+dispatch under ``set_sync_debug_mode("error")``) and unarmed, in turns:
+identical verdicts and state, the stats equal to phase 4's, 0 trips; the
+flush call and host split of each, and the checkpoint copy's device and
+host ms. Then one plan of faults (a failed wait at flush 12, a wait hung
+past a 250 ms watchdog at 20, a failed launch at 28 and the next restore
+failing; explicit recovery two flushes later) against the CPU engine: the
+verdicts with their degraded marks, every health record, the injector's
+fired list and the states after recovery identical; the device kernels of
+each recovery (torch.profiler) and its K4 launches must not be 0. Then
+phase 5's ``st.entry`` traffic on a manual clock with the speculative tier
+on, against the CPU engine (immediate verdicts, the tier's counters, the
+settled state), and ``st.entry`` latency under 8 threads with the tier on
+and off; last a durable checkpoint spilled on the card and restored into a
+fresh card engine and a CPU engine (states identical to each other and to
+the spilled engine's, THREAD gauges zero). Every phase that injects no
+fault asserts 0 trips. Its launches are not on the kernels line, which
+counts phase 4's.
+
+The CPU sides of phases 2c (d), 4-4g and 8 (the plain versions on one
 heavy segment, the CPU engines) run in four worker processes, started
 before the build, beside the card's phases (phase 3 runs before 2c so
 that case (d)'s references are ready); the workers stop with the script.
@@ -2355,6 +2377,438 @@ def phase7() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: the failure domain and the speculative tier on the card
+# ---------------------------------------------------------------------------
+
+FO_CKPT_EVERY = 8
+FO_TIMEOUT_MS = 250  # the watchdog's bound on a wait in the fault plan
+# The fault plan, by bulk flush of phase 4's stream: a failed wait, a hung
+# wait (released after the watchdog's bound), a failed launch, and the next
+# restore failing. Recovery is explicit, FO_RECOVER_AFTER flushes later.
+FO_PLAN = {12: "fetch", 20: "hang", 28: "dispatch"}
+FO_RECOVER_AFTER = 2
+
+
+def _failover_settings(armed: bool, **extra) -> dict:
+    from sentinel_tpu_torch.utils.config import config
+
+    out = {config.FAILOVER_ENABLED: "true" if armed else "false",
+           config.FAILOVER_CHECKPOINT_EVERY: str(FO_CKPT_EVERY), config.FAILOVER_PROBE_FLUSHES: "2",
+           config.FAILOVER_RETRY_MS: str(10**9), config.FAILOVER_FETCH_TIMEOUT_MS: "10000"}
+    out.update({getattr(config, k): str(v) for k, v in extra.items()})
+    return out
+
+
+def _fresh_engine(device: torch.device, settings: dict, clock):
+    from sentinel_tpu_torch.utils.config import config
+
+    for key, value in settings.items():
+        config.set(key, value)
+    try:
+        api.reset(clock=clock, device=device)
+    finally:
+        config.reset()
+    return api.get_engine()
+
+
+def _health_record(eng) -> str:
+    snap = eng.failover.snapshot()
+    events = [(e["now_ms"], e["from"], e["to"], e["reason"]) for e in snap["events"]]
+    return json.dumps([snap["state"], snap["counters"], events], sort_keys=True)
+
+
+def _states_of(eng) -> list:
+    fd = eng.flow_dyn
+    return [nodes.stats_to_numpy(eng.stats), tuple(t.cpu().numpy() for t in fd),
+            tdt.degrade_state_to_numpy(eng.degrade_dyn), tpt.param_state_to_numpy(eng.param_dyn)]
+
+
+def drive_failover_engine(device: torch.device, seed: int, armed: bool, plan: bool = False):
+    """Phase 4's DEFAULT stream (6,000 rules, STEPS Zipf submit_bulk flushes
+    of 32,768 with exits, three entries a step) with failover armed
+    (a checkpoint every FO_CKPT_EVERY flushes) or not; with ``plan`` the
+    fault plan FO_PLAN through the FaultInjector, recovered explicitly
+    (the probe flushes' device kernels counted with torch.profiler on the
+    card). The entries go through ``entry_sync`` so that their verdicts
+    keep their degraded marks. Each flush is ``flush_async`` then
+    ``drain``; on the card an armed dispatch (its checkpoint copies too)
+    runs under set_sync_debug_mode("error"). Returns (records, health
+    records, final states, ms per flush call, host splits, probe kernels
+    per recovery, the injector's fired list)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from sentinel_tpu_torch.testing.faults import FaultInjector
+
+    clock = tclock.ManualClock(0)
+    eng = _fresh_engine(device, _failover_settings(armed), clock)
+    st.flow_rule_manager.load_rules([st.FlowRule(f"r{i}", count=20) for i in range(N_RULES)])
+    inj = FaultInjector().install(eng) if plan else None
+    on_card = device.type == "cuda"
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, N_RULES + 1, dtype=np.float64) ** -1.1
+    p = ranks / ranks.sum()
+    records, health, call_ms, splits, probe_kernels = [], [], [], [], []
+    prev_groups = []
+    recover_at = None
+    release = threading.Event()
+    for step in range(STEPS):
+        now = 1000 + step * 100
+        clock.set_ms(now)
+        if plan and recover_at == step:
+            prof = torch_profile(activities=[ProfilerActivity.CUDA]) if on_card else contextlib.nullcontext()
+            fa0 = flush.flow_admission.launches
+            with prof:
+                ok = eng.failover.try_recover()
+                if on_card:
+                    torch.cuda.synchronize()
+            health.append(f"recover {step} {ok}")
+            if on_card and ok:
+                from torch.autograd import DeviceType
+
+                probe_kernels.append((sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                                          and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()),
+                                      flush.flow_admission.launches - fa0))
+            recover_at = None if ok else step + 1
+        res = rng.choice(N_RULES, size=FLUSH_N, p=p)
+        ts = (now - rng.integers(0, 100, FLUSH_N)).astype(np.int32)
+        order = np.argsort(res, kind="stable")
+        res, ts = res[order], ts[order]
+        uniq, start = np.unique(res, return_index=True)
+        bounds = list(start) + [FLUSH_N]
+        groups = [
+            eng.submit_bulk(f"r{r}", int(bounds[i + 1] - bounds[i]), ts=np.sort(ts[bounds[i]:bounds[i + 1]]))
+            for i, r in enumerate(uniq)
+        ]
+        for g in prev_groups[:50]:
+            if g.admitted_count:
+                eng.submit_exit_bulk(g.rows, g.admitted_count, rt=int(rng.integers(1, 300)), ts=now)
+        kind = FO_PLAN.get(step) if plan else None
+        if kind == "fetch":
+            inj.fail_fetch(eng.flush_seq + 1)
+        elif kind == "hang":
+            eng.failover.fetch_timeout_ms = FO_TIMEOUT_MS
+            inj.hang_fetch(eng.flush_seq + 1, seconds=30.0, until=release)
+            inj.fail_fetch(eng.flush_seq + 1)
+        elif kind == "dispatch":
+            inj.fail_dispatch(eng.flush_seq + 1)
+            inj.fail_restore()
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            if on_card and armed:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    eng.flush_async()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            else:
+                eng.flush_async()
+            eng.drain()
+        finally:
+            if kind == "hang":
+                release.set()
+                eng.failover.fetch_timeout_ms = 10000
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        splits.append(eng.last_flush_host_ms)
+        if kind is not None:
+            recover_at = step + FO_RECOVER_AFTER
+        records.append(np.concatenate([g.admitted for g in groups]))
+        records.append(np.concatenate([g.reason for g in groups]))
+        prev_groups = groups
+        health.append(_health_record(eng))
+        for r in ("r0", "r1", "r7"):
+            clock.set_ms(now + 50)
+            op, v = eng.entry_sync(r)
+            records.append(np.array([json.dumps([v.admitted, v.reason, v.wait_ms, v.degraded, v.speculative])]))
+            if v.admitted:
+                clock.set_ms(now + 60)
+                eng.submit_exit(op.rows, rt=10, resource=r, speculative=v.speculative or v.degraded)
+    eng.flush()
+    eng.drain()
+    health.append(_health_record(eng))
+    out = (records, health, _states_of(eng), call_ms, splits, probe_kernels, list(inj.fired) if inj else [])
+    if inj is not None:
+        inj.clear()
+    eng.close()
+    return out
+
+
+def checkpoint_copy_ms(eng, repeats: int = 5) -> tuple:
+    """The failover checkpoint's copy of the engine's live states (the copy
+    a checkpointing flush queues): device ms between CUDA events around the
+    queued copies, and host ms of the queueing, medians over ``repeats``;
+    and the bytes copied."""
+    dev_ms, host_ms = [], []
+    nbytes = 0
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with eng._on_stream():
+            t0 = time.perf_counter()
+            e0.record()
+            states = eng._queue_state_copies(eng.sketch.dev_state if eng.sketch.armed else None)
+            e1.record()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        e1.synchronize()
+        dev_ms.append(e0.elapsed_time(e1))
+        from sentinel_tpu_torch.runtime.failover import tree_leaves
+
+        nbytes = sum(a.nbytes for a in tree_leaves(states))
+    return float(np.median(dev_ms)), float(np.median(host_ms)), nbytes
+
+
+SPEC_SIM_MS = 3000  # phase 4g (c)'s simulated seconds of st.entry traffic
+SPEC_GAP_MS = 2  # one st.entry every 2 ms of the manual clock (25 x the QPS of the rule)
+
+
+def drive_spec_entries(device: torch.device, seed: int):
+    """Phase 5's st.entry traffic (one QPS = 20 rule, "methodA") on a
+    ManualClock, one caller, with the speculative tier on: an entry every
+    SPEC_GAP_MS ms for SPEC_SIM_MS ms, each admitted one exiting 1-20 ms
+    later, settlement by the tier's own cadence; then a flush and a drain.
+    Returns (immediate verdicts, the tier's snapshot, final states)."""
+    from sentinel_tpu_torch.utils.config import config
+
+    clock = tclock.ManualClock(0)
+    tclock.set_default_clock(clock)
+    _fresh_engine(device, {config.SPECULATIVE_ENABLED: "true"}, clock)
+    eng = api.get_engine()
+    st.flow_rule_manager.load_rules([st.FlowRule("methodA", count=20)])
+    rng = np.random.default_rng(seed)
+    seen, live = [], []
+    for t in range(1000, 1000 + SPEC_SIM_MS, SPEC_GAP_MS):
+        clock.set_ms(t)
+        for e, until in [x for x in live if x[1] <= t]:
+            e.exit()
+            live.remove((e, until))
+        try:
+            e = st.entry("methodA")
+            seen.append((True, e.verdict.speculative, e.verdict.degraded))
+            live.append((e, t + int(rng.integers(1, 20))))
+        except st.FlowBlockError:
+            seen.append((False,))
+    for e, _ in live:
+        e.exit()
+    eng.flush()
+    eng.drain()
+    eng.flush()
+    eng.drain()
+    snap = eng.speculative.snapshot()
+    out = (seen, json.dumps(snap, sort_keys=True), _states_of(eng), eng.failover.counters["trips"])
+    tclock.set_default_clock(tclock.SystemClock())
+    return out
+
+
+def entry_latency(spec: bool, seconds: float = 2.0, threads: int = 8) -> tuple:
+    """Phase 5's harness (8 threads, real clock, st.entry on a QPS = 20
+    rule) with the speculative tier on or off: (p50, p99 ms, calls)."""
+    from sentinel_tpu_torch.utils.config import config
+
+    tclock.set_default_clock(tclock.SystemClock())
+    _fresh_engine(DEV, {config.SPECULATIVE_ENABLED: "true" if spec else "false"}, None)
+    st.flow_rule_manager.load_rules([st.FlowRule("methodA", count=20)])
+    try:
+        st.entry("methodA").exit()  # warm
+    except st.FlowBlockError:
+        pass
+    time.sleep(1.1)
+    lat, errors = [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def worker():
+        try:
+            while not stop.is_set():
+                t_call = time.perf_counter()
+                try:
+                    with st.entry("methodA"):
+                        decided = time.perf_counter()
+                except st.FlowBlockError:
+                    decided = time.perf_counter()
+                with lock:
+                    lat.append(decided - t_call)
+                time.sleep(0.001)
+        except Exception as exc:
+            errors.append(exc)
+
+    ts = [threading.Thread(target=worker, daemon=True) for _ in range(threads)]
+    for t in ts:
+        t.start()
+    time.sleep(seconds)
+    stop.set()
+    for t in ts:
+        t.join(timeout=30)
+    if errors or any(t.is_alive() for t in ts):
+        fail(f"phase 4g: an st.entry latency worker failed ({errors[:1]})")
+    eng = api.get_engine()
+    eng.flush()
+    eng.drain()
+    if eng.failover.counters["trips"]:
+        fail("phase 4g: a trip in a run that injects no fault")
+    lat.sort()
+    n = len(lat)
+    return lat[n // 2] * 1e3, lat[int(0.99 * n)] * 1e3, n
+
+
+def _same_states(a, b, what: str) -> None:
+    from sentinel_tpu_torch.runtime.failover import tree_leaves
+
+    la, lb = tree_leaves(tuple(a)), tree_leaves(tuple(b))
+    if len(la) != len(lb) or any(x.shape != y.shape or x.dtype != y.dtype or
+                                 not np.array_equal(x.view(np.int32) if x.dtype == np.float32 else x,
+                                                    y.view(np.int32) if y.dtype == np.float32 else y)
+                                 for x, y in zip(la, lb)):
+        fail(f"phase 4g: {what}: states differ")
+
+
+def _same_records(a, b, what: str) -> None:
+    if len(a) != len(b) or any(not np.array_equal(x, y) for x, y in zip(a, b)):
+        fail(f"phase 4g: {what}: verdicts differ")
+
+
+def phase4_failover(cpu_jobs: dict) -> None:
+    line = card_line()
+    log(f"phase 4g: the failure domain and the speculative tier on the card ({line})")
+    # (a) No faults: armed and unarmed in turns; identical to each other and
+    # to phase 4's stream on the card (its entries through st.entry there).
+    runs = {}
+    for armed in (True, False, False, True):
+        out = drive_failover_engine(DEV, 4, armed)
+        recs, health, states, call_ms, splits, _, _ = out
+        if json.loads(health[-1])[1]["trips"] != 0:
+            fail("phase 4g (a): a trip in a stream with no fault")
+        if armed and json.loads(health[-1])[1]["checkpoints"] < STEPS // FO_CKPT_EVERY:
+            fail("phase 4g (a): the armed stream took too few checkpoints")
+        key = "armed" if armed else "unarmed"
+        if key in runs:
+            _same_records(recs, runs[key][0], f"(a) {key} run twice")
+        runs.setdefault(key, (recs, states))
+        log(f"  (a) {key}: a flush call (flush_async + drain) {float(np.median(call_ms[1:])):.3f} ms (median; "
+            f"{min(call_ms[1:]):.3f}-{max(call_ms[1:]):.3f}); {split_line(splits[1:])}"
+            + ("; each dispatch, its checkpoint copies included, under set_sync_debug_mode(\"error\")" if armed else ""))
+    _same_records(runs["armed"][0], runs["unarmed"][0], "(a) armed vs unarmed")
+    _same_states(runs["armed"][1], runs["unarmed"][1], "(a) armed vs unarmed")
+    _same_states(runs["unarmed"][1][:1], [PHASE4_RESULT["card"][1]], "(a) vs phase 4's final stats")
+    eng = api.get_engine()
+    dev_ms, host_ms, nbytes = checkpoint_copy_ms(eng)
+    log(f"  (a) verdicts and state identical armed and unarmed, and the stats equal to phase 4's; 0 trips; the "
+        f"checkpoint copy of {nbytes / 2**20:.2f} MiB: {dev_ms:.4f} ms of device time, {host_ms:.4f} ms on the host "
+        f"to queue (medians of 5; {nbytes / (dev_ms * 1e-3) / 1e9:.1f} GB/s)")
+    # (b) One plan of faults, against the CPU engine in a worker.
+    recs, health, states, call_ms, splits, probe_kernels, fired = drive_failover_engine(DEV, 4, True, plan=True)
+    c_recs, c_health, c_states, _, _, _, c_fired = cpu_result(cpu_jobs, "4g")
+    _same_records(recs, c_recs, "(b) the fault plan, card vs CPU")
+    if health != c_health:
+        diff = next(i for i, (x, y) in enumerate(zip(health, c_health)) if x != y)
+        fail(f"phase 4g (b): health differs at record {diff}: card {health[diff]} CPU {c_health[diff]}")
+    _same_states(states, c_states, "(b) after recovery, card vs CPU")
+    if fired != c_fired:
+        fail(f"phase 4g (b): the injector fired {fired} on the card, {c_fired} on the CPU")
+    final = json.loads(health[-1])
+    if final[0] != "HEALTHY" or final[1]["trips"] != len(FO_PLAN) or final[1]["fetch_timeouts"] != 1:
+        fail(f"phase 4g (b): after the plan {final[0]} with counters {final[1]}")
+    if len(probe_kernels) != len(FO_PLAN) or min(min(k) for k in probe_kernels) <= 0:
+        fail(f"phase 4g (b): the probe flushes launched no kernel ({probe_kernels})")
+    log(f"  (b) plan {FO_PLAN} (hang bounded at {FO_TIMEOUT_MS} ms, the next restore failing): verdicts with their "
+        f"degraded marks, {len(health)} health records (transitions, counters), the injector's fired list "
+        f"{fired} and every state tensor after recovery identical on card and CPU; final counters {final[1]}; "
+        f"each recovery that succeeded (restore, {2} probe flushes, re-anchor): (device kernels by torch.profiler, "
+        f"K4 launches) {probe_kernels}; flush calls with the plan {min(call_ms):.1f}-{max(call_ms):.1f} ms")
+    # (c) The speculative tier: phase 5's st.entry traffic, deterministic.
+    seen, snap, s_states, trips = drive_spec_entries(DEV, 11)
+    c_seen, c_snap, c_s_states, _ = cpu_result(cpu_jobs, "4g spec")
+    if seen != c_seen or snap != c_snap:
+        fail("phase 4g (c): speculative verdicts or the tier's counters differ between card and CPU")
+    _same_states(s_states, c_s_states, "(c) the settled state, card vs CPU")
+    if trips:
+        fail("phase 4g (c): a trip in a run that injects no fault")
+    counters = json.loads(snap)["counters"]
+    if counters["spec_admits"] <= 0 or counters["reconciled"] != len(seen):
+        fail(f"phase 4g (c): the tier decided nothing or left ops unreconciled: {counters}")
+    on50, on99, on_n = entry_latency(True)
+    off50, off99, off_n = entry_latency(False)
+    log(f"  (c) {len(seen)} st.entry calls: immediate verdicts, the tier's counters {counters} and the settled "
+        f"state identical on card and CPU; st.entry latency, 8 threads, 2 s: tier on p50 {on50:.4f} ms, p99 "
+        f"{on99:.4f} ms ({on_n} calls), tier off p50 {off50:.4f} ms, p99 {off99:.4f} ms ({off_n} calls) ({line})")
+    # (d) Durable: spill on the card, restore into a fresh card engine and
+    # into a CPU engine.
+    phase4_durable(line)
+    tclock.set_default_clock(tclock.SystemClock())
+    api.reset(device=DEV)
+
+
+def phase4_durable(line: str) -> None:
+    from sentinel_tpu_torch.runtime import durable
+
+    path = os.path.join(ROOT, "build", "chip_smoke_4g.ckpt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.unlink(path)
+    settings = dict(_failover_settings(True, FAILOVER_CKPT_PATH=path, FAILOVER_CKPT_INTERVAL_MS=0))
+    clock = tclock.ManualClock(0)
+    a = _fresh_engine(DEV, settings, clock)
+    st.flow_rule_manager.load_rules([st.FlowRule(f"r{i}", count=20) for i in range(N_RULES)])
+    st.degrade_rule_manager.load_rules([st.DegradeRule(f"r{i}", grade=C.DEGRADE_GRADE_EXCEPTION_COUNT, count=3,
+                                                       time_window=5) for i in range(0, N_RULES, 3)])
+    st.param_flow_rule_manager.load_rules([st.ParamFlowRule("r1", param_idx=0, count=5)])
+    rng = np.random.default_rng(12)
+    for step in range(FO_CKPT_EVERY):
+        clock.set_ms(1000 + 100 * step)
+        for r in rng.integers(0, N_RULES, 64):
+            a.submit_bulk(f"r{r}", 32, ts=1000 + 100 * step)
+        for v in ("a", "b", "a", "c"):
+            a.submit_entry("r1", args=(v,))
+        for r in rng.integers(0, 30, 8):
+            a.submit_exit(a.resolve_entry_rows(f"r{r}", C.CONTEXT_DEFAULT_NAME, "", C.EntryType.OUT), rt=5, err=1,
+                          resource=f"r{r}")
+        a.flush()
+    a.drain()
+    fo = a.failover
+    deadline = time.monotonic() + 60
+    while not (fo.last_durable is not None and fo._ckpt is not None and fo.last_durable[1] == fo._ckpt.seq):
+        if time.monotonic() > deadline or fo.counters["durable_write_errors"]:
+            fail(f"phase 4g (d): the durable spill did not land ({fo.snapshot()['durable']})")
+        time.sleep(0.01)
+    spill_ms = fo.last_durable[2]
+    spilled = _states_of(a)
+    if a.failover.counters["trips"]:
+        fail("phase 4g (d): a trip in a run that injects no fault")
+    header, leaves = durable.read_checkpoint(path)
+    size = os.path.getsize(path)
+    a.close()
+    restored = {}
+    for where, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+        b = _fresh_engine(dev, settings, tclock.ManualClock(0))
+        b.failover.durable_path = ""  # restore only: this engine writes no file
+        st.flow_rule_manager.load_rules([st.FlowRule(f"r{i}", count=20) for i in range(N_RULES)])
+        st.degrade_rule_manager.load_rules([st.DegradeRule(f"r{i}", grade=C.DEGRADE_GRADE_EXCEPTION_COUNT, count=3,
+                                                           time_window=5) for i in range(0, N_RULES, 3)])
+        st.param_flow_rule_manager.load_rules([st.ParamFlowRule("r1", param_idx=0, count=5)])
+        t0 = time.perf_counter()
+        if not b.failover.restore_durable(path):
+            fail(f"phase 4g (d): the restore into the {where} engine failed ({b.failover.last_fault})")
+        restored[where] = (_states_of(b), (time.perf_counter() - t0) * 1e3, b.failover.counters)
+        b.close()
+    _same_states(restored["card"][0], restored["cpu"][0], "(d) restored on the card vs on the CPU")
+    # The spilled engine's states, with the THREAD gauges zero as a durable
+    # restore installs them, are what both restored.
+    from sentinel_tpu_torch.runtime.failover import tree_leaves, tree_unflatten
+
+    n = restored["card"][0][0].threads.shape[0]
+    if n < len(header["node_keys"]):
+        fail(f"phase 4g (d): {n} restored stats rows for {len(header['node_keys'])} keys")
+    spilled[0] = tree_unflatten(spilled[0], [a[:n] for a in tree_leaves(spilled[0])])
+    spilled[0] = spilled[0]._replace(threads=np.zeros_like(spilled[0].threads))
+    spilled[3] = spilled[3]._replace(threads=np.zeros_like(spilled[3].threads))
+    _same_states(restored["card"][0], spilled, "(d) restored vs spilled")
+    log(f"  (d) durable: {size / 2**20:.2f} MiB, {header['n_leaves']} leaves, components {header['components']}, "
+        f"spilled in {spill_ms:.1f} ms (the writer thread); restored into a fresh card engine in {restored['card'][1]:.1f} ms and "
+        f"into a CPU engine in {restored['cpu'][1]:.1f} ms: states identical to each other and to the spilled "
+        f"engine's (THREAD gauges zero) ({line})")
+    os.unlink(path)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: flow_qps_demo on the port
 # ---------------------------------------------------------------------------
 
@@ -3469,6 +3923,8 @@ def start_cpu_jobs() -> dict:
         "4d": WORKERS.apply_async(drive_sketch_engine, (cpu, 7)),
         "8": WORKERS.apply_async(drive_cluster_engine, (cpu, 8)),
         "4f": WORKERS.apply_async(drive_pipeline_engine, (cpu, 10, "sync")),
+        "4g": WORKERS.apply_async(drive_failover_engine, (cpu, 4, True, True)),
+        "4g spec": WORKERS.apply_async(drive_spec_entries, (cpu, 11)),
     }
 
 
@@ -3537,7 +3993,7 @@ def main() -> None:
         ("2d", lambda: phase2_sketch(results)), ("2e", lambda: phase2_token(results)),
         ("4c", lambda: phase4_shaping(results, cpu_jobs)), ("4d", lambda: phase4_sketch(results, cpu_jobs)),
         ("2f", lambda: phase2_mesh(results)), ("3b", phase3b), ("4e", lambda: phase4_mesh(results, cpu_jobs)),
-        ("4f", lambda: phase4_pipeline(cpu_jobs)),
+        ("4f", lambda: phase4_pipeline(cpu_jobs)), ("4g", lambda: phase4_failover(cpu_jobs)),
         ("5", phase5), ("6", phase6), ("7", phase7), ("8", lambda: phase8(results, cpu_jobs)), ("9", phase9),
     ):
         t0 = time.perf_counter()

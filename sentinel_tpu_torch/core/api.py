@@ -128,6 +128,11 @@ class Entry:
         self.rows = rows
         self.context = context
         self.create_ts = create_ts
+        # The admitting verdict (None for pass-through entries): its
+        # provenance, ``verdict.speculative`` for a fast-tier admit the
+        # device settles later and ``verdict.degraded`` for a host-fallback
+        # admit while the device was lost (runtime/speculative.py,
+        # runtime/failover.py).
         self.verdict = verdict
         # Wall-clock anchor: RT must survive an epoch rebase.
         self.create_wall = get_engine().clock.to_wall(create_ts)
@@ -164,9 +169,13 @@ class Entry:
             err = 0
             if self.error is not None and not isinstance(self.error, E.BlockError):
                 err = count if count is not None else self.acquire
+            # Was the admit charged to the host mirror? Degraded fills
+            # (speculative False, degraded True) charge the persistent
+            # mirror's THREAD counter as speculative admits do.
+            spec = (self.verdict.speculative or self.verdict.degraded) if self.verdict is not None else None
             engine.submit_exit(
                 self.rows, rt=rt, count=count if count is not None else self.acquire,
-                err=err, resource=self.resource, param_rows=self.param_rows,
+                err=err, resource=self.resource, param_rows=self.param_rows, speculative=spec,
             )
         if self.cluster_tokens:
             release_cluster_tokens(self.cluster_tokens)

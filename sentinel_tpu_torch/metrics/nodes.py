@@ -515,6 +515,31 @@ class NodeRegistry:
         with self._lock:
             return list(self._keys)
 
+    def adopt_keys(self, keys: List[str]) -> Dict[int, int]:
+        """Replay another registry's row-ordered key list through the
+        public registration paths (the caps and call-tree structure apply
+        as for live registration) and return the old-row -> new-row map of
+        every key that got a row: the durable restore's stats remap. On a
+        fresh registry it is the identity; keys the caps refuse are absent
+        (their rows cold-start)."""
+        out: Dict[int, int] = {}
+        for old_row, key in enumerate(keys):
+            kind, _, rest = key.partition(":")
+            row: Optional[int] = None
+            if kind == NodeKind.CLUSTER:
+                row = self.cluster_row(rest)
+            elif kind == NodeKind.ENTRANCE:
+                row = self.entrance_row(rest)
+            elif kind == NodeKind.DEFAULT:
+                res, _, ctx = rest.partition("|")
+                row = self.default_row(res, ctx)
+            elif kind == NodeKind.ORIGIN:
+                res, _, org = rest.partition("|")
+                row = self.origin_row(res, org)
+            if row is not None:
+                out[old_row] = row
+        return out
+
     def entrance_children(self, context: str) -> List[int]:
         with self._lock:
             row = self._rows.get(NodeKind.ENTRANCE + ":" + context)

@@ -156,6 +156,17 @@ class DegradeIndex:
         return None
 
 
+def mirror_any_open(mirror: np.ndarray, gids) -> bool:
+    """True when any of ``gids`` is OPEN in the engine's host breaker
+    mirror: the one read the degraded fallback and the speculative tier
+    share (the engine keeps the mirror from the flushes' copy back)."""
+    n = mirror.shape[0]
+    for dg in gids:
+        if 0 <= dg < n and mirror[dg] == OPEN:
+            return True
+    return False
+
+
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 two's-complement wrap (the JAX int32 overflow)."""
     return (((x + 2**31) % 2**32) - 2**31).to(torch.int32)

@@ -162,6 +162,7 @@ class FlowIndex:
         }
         self.has_shaping = bool(self.shaping_gids)
         self._shaping_mirror_cache: Dict[int, tuple] = {}
+        self._mirror_cache: Dict[int, tuple] = {}
         # Cluster-mode rules route through the token service
         # (FlowRuleChecker.passClusterCheck) instead of the local check.
         self.cluster_gids = {cr.gid: cr.rule for cr in self.rules if cr.rule.cluster_mode}
@@ -317,6 +318,19 @@ class FlowIndex:
         the base a promotion or demotion rebuild puts its synthetic guards
         on (runtime/sketch.py)."""
         return [cr.rule for cr in self.rules if not getattr(cr.rule, "from_sketch", False)]
+
+    def mirror_info(self, gid: int):
+        """``(rule, grade, capacity, window_ms)`` of one gid for the host
+        mirrors (runtime/failover.py, runtime/speculative.py), or None. QPS
+        thresholds are per 1 s, the reference's windowed count. Cached per
+        index: the speculative tier reads it for every admitted op."""
+        hit = self._mirror_cache.get(gid)
+        if hit is None:
+            rule = self.rule_of_gid(gid)
+            if rule is None:
+                return None
+            hit = self._mirror_cache[gid] = (rule, rule.grade, float(rule.count), 1000.0)
+        return hit
 
     def mirror_shaping_info(self, gid: int):
         """``(rule, behavior, count, max_queueing_time_ms, cost1_ms,

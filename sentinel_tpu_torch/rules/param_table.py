@@ -166,6 +166,12 @@ class ParamSlotInfo:
     rule: Optional[ParamFlowRule] = None  # for block attribution
     value_key: str = ""  # interned value string
 
+    def mirror_bucket(self) -> Tuple[float, float]:
+        """``(capacity, window_ms)`` of the host token bucket that mirrors
+        this value row's device budget (token_count + burst over
+        duration_ms), for the degraded fallback and the speculative tier."""
+        return float(self.token_count + self.burst), max(float(self.duration_ms), 1.0)
+
 
 def _transition(tokens, last, latest, thr_used, x):
     """One param slot's check and state update, element-wise. Invalid

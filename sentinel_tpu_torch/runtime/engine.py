@@ -17,8 +17,12 @@ args), bulk entries (with args columns), exits and traces; the sketch tier
 (``sentinel.tpu.sketch.enabled``: the fold K11 rides the flush, the
 promotion controller runs at every drain, and the cold ceilings refuse at
 submit); and cluster-mode flow and param rules decided by the embedded
-token service when this node is the token server (``cluster/``).
-Everything else the JAX engine does is refused loudly with
+token service when this node is the token server (``cluster/``); the
+device-failure domain (``sentinel.tpu.failover.enabled``: the flush
+watchdog, checkpoints in memory and on disk, the host fallback and the
+probe-flush recovery, runtime/failover.py) and the speculative host tier
+(``sentinel.tpu.speculative.enabled``: host verdicts the flush settles and
+reconciles, runtime/speculative.py). Everything else the JAX engine does is refused loudly with
 ``NotImplementedError`` naming its ROADMAP item (see
 ``_refuse_unported_config`` and the ``set_*`` methods), never ignored.
 
@@ -112,8 +116,6 @@ _SUBMIT_ENTRY_KEYS = frozenset(("resource", "context_name", "origin", "acquire",
 
 # Switches the JAX engine honours that this slice does not have yet.
 _UNPORTED_SWITCHES = (
-    (config.SPECULATIVE_ENABLED, ROADMAP_TIERS),
-    (config.FAILOVER_ENABLED, ROADMAP_TIERS),
     (config.CAPTURE_ENABLED, ROADMAP_TIERS),
     (config.AUTOTUNE_ENABLED, ROADMAP_TIERS),
     (config.IPC_ENABLED, ROADMAP_IPC),
@@ -136,6 +138,12 @@ class Verdict(NamedTuple):
     wait_ms: int
     blocked_rule: Optional[object]  # the rule bean that blocked, if attributable
     limit_type: str = ""  # system block dimension (qps/thread/rt/load/cpu)
+    # Provenance: True when the host fallback decided while the engine was
+    # DEGRADED (runtime/failover.py), never the device path.
+    degraded: bool = False
+    # True when the speculative host tier decided (runtime/speculative.py);
+    # the flush settles the op later. Composes with ``degraded``.
+    speculative: bool = False
 
 
 class _PendingFetch:
@@ -145,20 +153,27 @@ class _PendingFetch:
     chunk's copy back, fills the verdicts and releases the held cluster
     tokens of blocked entries. The record holds its own fetch references
     and fill closure (with the index snapshots of its dispatch), so a rule
-    reload after dispatch cannot skew attribution.
+    reload after dispatch cannot skew attribution. It also holds the
+    chunk's bulk groups and exits, so that a failover quarantine can fill
+    verdicts from policy and record the exits' gauge releases.
 
     Each record has its own RLock: the wait and the fill run without the
     engine's queue lock held, and a re-entrant materialization from the
-    fill is a no-op. The JAX record's failover quarantine (with the
-    chunk's bulk groups and exits it fills from policy), flight-recorder
-    span and capture token belong to ROADMAP Queue 1 items 7 and 8."""
+    fill is a no-op. The JAX record's flight-recorder span and capture
+    token belong to ROADMAP Queue 1 items 8 and 7."""
 
-    __slots__ = ("_engine", "_entries", "_refs", "_fill", "_done", "_error", "_lock", "_staging", "_seq")
+    __slots__ = ("_engine", "_entries", "_bulk", "_exits", "_bulk_exits", "_refs", "_fill", "_done", "_error",
+                 "_lock", "_staging", "_seq")
 
     def __init__(self, engine: "Engine", entries: List["_EntryOp"], refs: "_ChunkRefs",
-                 fill: Callable[[np.ndarray], None], staging: List[tuple], seq: int) -> None:
+                 fill: Callable[[np.ndarray], None], staging: List[tuple], seq: int,
+                 bulk: Sequence["BulkOp"] = (), exits: Sequence["_ExitOp"] = (),
+                 bulk_exits: Sequence["_BulkExitOp"] = ()) -> None:
         self._engine = engine
         self._entries = entries
+        self._bulk = list(bulk)
+        self._exits = list(exits)
+        self._bulk_exits = list(bulk_exits)
         self._refs = refs  # the chunk's event and pinned verdict buffer
         self._fill = fill  # (host verdict buffer) -> None
         self._done = False
@@ -174,9 +189,19 @@ class _PendingFetch:
         host verdict buffer a coalesced drain already waited for (None:
         this record waits itself). A failed fetch or fill is stored and
         raised to every caller: a device failure never reads as "nothing
-        admitted"."""
+        admitted", unless failover is armed: then the record is
+        quarantined and its ops get policy verdicts from the host
+        fallback (degraded provenance)."""
+        from sentinel_tpu_torch.runtime.failover import is_build_error
+
         with self._lock:
             if not self._done:
+                fo = self._engine.failover
+                if got is None and fo.armed and fo.degraded:
+                    # The engine degraded while this record waited: do not
+                    # touch the (possibly wedged) device again.
+                    self._quarantine_locked(fo)
+                    return
                 try:
                     if got is None:
                         t0 = time.perf_counter()
@@ -184,6 +209,10 @@ class _PendingFetch:
                         self._engine._note_drain_ms((time.perf_counter() - t0) * 1e3)
                     self._fill(got)
                 except BaseException as exc:
+                    if fo.armed and not is_build_error(exc):
+                        fo.trip("fetch", exc, self._seq)
+                        self._quarantine_locked(fo)
+                        return
                     self._error = exc
                 finally:
                     if not self._done:
@@ -197,11 +226,39 @@ class _PendingFetch:
                         if staging and self._error is None and self._engine._arena is not None:
                             self._engine._arena.give_all(staging)
                 entries, self._entries = self._entries, []
+                self._bulk = []
+                self._exits = []
+                self._bulk_exits = []
                 if self._error is None:
                     # JAX _post_flush; its block log waits for ROADMAP Queue 1 item 8.
                     _release_blocked_tokens(entries)
             if self._error is not None:
                 raise self._error
+
+    def _quarantine_locked(self, fo) -> None:
+        """Fill this record's ops from the fallback policy instead of the
+        lost device results; its exits record their gauge releases for the
+        restore replay. The caller holds ``self._lock`` and has checked
+        ``not self._done``. The staging is dropped, never pooled: the
+        chunk may still be running (or wedged) on the card."""
+        entries, self._entries = self._entries, []
+        bulk, self._bulk = self._bulk, []
+        exits, self._exits = self._exits, []
+        bulk_exits, self._bulk_exits = self._bulk_exits, []
+        self._refs = None
+        self._fill = None
+        self._staging = []
+        self._done = True
+        fo.note_quarantined()
+        fo.fill_degraded(entries, exits, bulk, bulk_exits)
+        _release_blocked_tokens(entries)
+
+    def quarantine(self) -> None:
+        """Fill from policy unless already materialized (a failover trip
+        quarantines the whole in-flight queue)."""
+        with self._lock:
+            if not self._done:
+                self._quarantine_locked(self._engine.failover)
 
     def wait(self) -> None:
         self._engine._drain_pending(upto=self)
@@ -291,6 +348,18 @@ class BulkOp:
     _reason: Optional[np.ndarray] = field(default=None, repr=False)
     _wait_ms: Optional[np.ndarray] = field(default=None, repr=False)
     _pending: Optional[_PendingFetch] = field(default=None, repr=False, compare=False)
+    # The speculative tier's verdict copy (runtime/speculative.py): non-None
+    # marks the group speculatively decided; the settled device arrays then
+    # reconcile against it instead of replacing the results.
+    spec_admitted: Optional[np.ndarray] = field(default=None, repr=False)
+    # Engine health when the speculative verdicts were served.
+    spec_degraded: bool = False
+
+    @property
+    def speculative(self) -> bool:
+        """True when the speculative host tier decided this group: pass it
+        to :meth:`Engine.submit_exit_bulk`'s ``speculative``."""
+        return self.spec_admitted is not None
 
     def _materialize(self) -> None:
         if self._admitted is None and self._pending is not None:
@@ -549,6 +618,17 @@ class Engine:
         self.flow_dyn: FlowRuleDynState = self.flow_index.make_dyn_state()
         self.degrade_index = DegradeIndex([], device=self.device)
         self.degrade_dyn: DegradeDynState = self.degrade_index.make_dyn_state()
+        # Host mirror of the breaker states (all CLOSED on a rebuild), which
+        # the host fallback and the speculative tier read; it rides the
+        # flush's copy back while the speculative tier is on. The epoch
+        # fences fills dispatched before a reload; seq orders out-of-order
+        # deferred fills; validity marks gaps of unobserved flushes.
+        self._breaker_state_host = np.zeros(self.degrade_dyn.state.shape[0], dtype=np.int32)
+        self._breaker_epoch = 0
+        self._breaker_seq = 0
+        self._breaker_applied_seq = 0
+        self._breaker_mirror_valid = True
+        self._breaker_mirror_lock = threading.Lock()
         self.param_index = ParamIndex({})
         self.param_dyn: ParamDynState = make_param_state(8, self.device)
         # Test seam, as the JAX engine's: "scan" runs a closed-form-eligible
@@ -612,6 +692,20 @@ class Engine:
         self.mesh = None
         self._sharded_fns: Optional[Dict[tuple, object]] = None
         self._n_shards = 1
+        # Deterministic fault injector (testing/faults.FaultInjector); None
+        # outside tests, one attribute read per hook.
+        self.faults = None
+        # The device-failure domain (runtime/failover.py) and the speculative
+        # host tier (runtime/speculative.py), both off by default. With the
+        # tier on, the failover fallback IS its mirror: HEALTHY and DEGRADED
+        # share one continuously reconciled host world.
+        from sentinel_tpu_torch.runtime.failover import FailoverManager
+        from sentinel_tpu_torch.runtime.speculative import SpeculativeAdmitter
+
+        self.failover = FailoverManager(self)
+        self.speculative = SpeculativeAdmitter(self)
+        if self.speculative.enabled:
+            self.failover.fallback = self.speculative.mirror
 
     @staticmethod
     def _blocked_topk_k() -> int:
@@ -680,6 +774,16 @@ class Engine:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
 
+    def _thread_context(self):
+        """The engine's device and stream for a thread of its own (the
+        auto-flusher, the failover watchdog's waiters): the current device
+        and stream are per thread."""
+        stack = contextlib.ExitStack()
+        if self._stream is not None:
+            stack.enter_context(torch.cuda.device(self.device))
+            stack.enter_context(torch.cuda.stream(self._stream))
+        return stack
+
     def start_auto_flush(self, interval_ms: Optional[float] = None) -> None:
         """Background flusher for deferred mode: pending ops are decided
         within about ``interval_ms`` (``sentinel.tpu.flush.interval.ms``,
@@ -713,8 +817,7 @@ class Engine:
         def _loop() -> None:
             from sentinel_tpu_torch.utils.record_log import record_log
 
-            on_device = torch.cuda.device(self.device) if self._stream is not None else contextlib.nullcontext()
-            with on_device, self._on_stream():
+            with self._thread_context():
                 failures = 0
                 while not stop.wait(iv if failures == 0 else min(1.0, iv * 2**failures)):
                     try:
@@ -837,19 +940,76 @@ class Engine:
     def _fetch_refs(self, refs: Sequence[_ChunkRefs], seqs: Sequence[int]) -> List[np.ndarray]:
         """The one place that waits for the device: each chunk's event,
         then its host verdict buffer. The chunks are on one stream, so the
-        first wait is the long one. The JAX engine's fault injector and
-        failover watchdog hook in here (ROADMAP Queue 1 item 7)."""
-        for r in refs:
-            if r.event is not None:
-                r.event.synchronize()
-        return [r.host for r in refs]
+        first wait is the long one. The fault injector fires here (keyed by
+        flush seq), and with failover armed the wait runs on a watchdog
+        waiter bounded by ``sentinel.tpu.failover.fetch.timeout.ms``: a
+        wedged wait raises ``DeviceFetchTimeout`` instead of stranding the
+        caller and everyone behind the flush lock."""
+        faults = self.faults
+
+        def run() -> List[np.ndarray]:
+            if faults is not None:
+                faults.on_fetch(seqs)
+            for r in refs:
+                if r.event is not None:
+                    r.event.synchronize()
+            return [r.host for r in refs]
+
+        fo = self.failover
+        if fo.armed:
+            return fo.watched(run, "device fetch", seqs)
+        return run()
+
+    def _quarantine_pending(self) -> None:
+        """Quarantine the whole in-flight queue (a failover trip): every
+        dispatched record's ops get policy verdicts instead of a wait that
+        would fail, or hang, again."""
+        while True:
+            with self._pending_lock:
+                if not self._pending_fetches:
+                    return
+                rec = self._pending_fetches.popleft()
+            rec.quarantine()
+
+    def _flush_degraded(self) -> List[_EntryOp]:
+        """The DEGRADED flush: swap the pending buffers and fill every
+        verdict from the host fallback, with no device contact. Serialized
+        on the flush lock and rechecked under it: a recovery that completed
+        while this caller queued means the ops get device verdicts."""
+        fo = self.failover
+        entries = None
+        with self._flush_lock:
+            if not fo.healthy:
+                with self._lock:
+                    entries, self._entries = self._entries, []
+                    exits, self._exits = self._exits, []
+                    bulk_e, self._bulk_entries = self._bulk_entries, []
+                    bulk_x, self._bulk_exits = self._bulk_exits, []
+                    self._bulk_pending_n = 0
+                    self._bulk_exit_pending_n = 0
+                if not entries and not exits and not bulk_e and not bulk_x:
+                    return []
+                if self.sketch.armed:
+                    # The device sketch is unreachable: the key stream folds
+                    # into the tier's host mirror (runtime/sketch.py).
+                    self.sketch.fold_host_chunk(entries, bulk_e, self.flow_index, self.param_index,
+                                                self.clock.now_ms())
+                fo.fill_degraded(entries, exits, bulk_e, bulk_x)
+        if entries is None:
+            return self.flush()  # recovered while this caller queued
+        _release_blocked_tokens(entries)
+        return entries
 
     def flush_async(self) -> List[_EntryOp]:
         """Encode and dispatch every pending op without waiting for the
         device: the verdicts materialize on first read, at the next
         ``flush()`` or ``drain()``, or when more than ``max_inflight``
         dispatches are in flight. Cluster-token releases of blocked entries
-        ride with the materialization."""
+        ride with the materialization. While DEGRADED the verdicts come
+        from the host fallback at once (recovery attempts stay on flush())."""
+        fo = self.failover
+        if fo.armed and not fo.healthy:
+            return self._flush_degraded()
         if self.sketch.armed and self.sketch.pending_actions:
             self.sketch.apply_actions()
         return self._dispatch_deferred(keep_dispatched=self._max_inflight, keep_empty=self._max_inflight)
@@ -937,8 +1097,13 @@ class Engine:
                     t0 = time.perf_counter()
                     fetched = self._fetch_refs(to_fetch, batch_seqs)
                     self._note_drain_ms((time.perf_counter() - t0) * 1e3)
-                except BaseException:
+                except BaseException as exc:
                     fetched = None  # each record below waits on its own
+                    fo = self.failover
+                    if fo.armed:
+                        # Armed: DEGRADED now; each record below quarantines
+                        # (policy verdicts, no second wait on a dead card).
+                        fo.trip("fetch", exc, batch_seqs)
             it = iter(fetched) if fetched is not None else None
             for rec, refs in zip(recs, batch_refs):
                 got = next(it) if (it is not None and refs is not None) else None
@@ -963,16 +1128,19 @@ class Engine:
         """Back to a fresh engine on the same device: the deferred fetches
         settle first (a failure is logged, not raised), then the queues, the
         node registry, the stats (same row count), every rule index and
-        state, the system config and the authority rules are cleared. The
-        mesh and a running auto-flusher stay. The JAX engine's tier resets
-        (failover, speculative, ingest, provenance, ipc) belong to ROADMAP
-        Queue 1 items 7, 8 and 10."""
+        state, the system config and the authority rules are cleared, and
+        the failover tier (back to HEALTHY, no checkpoint) and the
+        speculative tier (a fresh mirror) reset. The mesh and a running
+        auto-flusher stay. The JAX engine's ingest, provenance and ipc
+        resets belong to ROADMAP Queue 1 items 7, 8 and 10."""
         try:
             self.drain()
         except Exception:
             from sentinel_tpu_torch.utils.record_log import record_log
 
             record_log.error("[Engine] settling pre-reset async flushes failed", exc_info=True)
+        self.failover.reset()
+        self.speculative.reset()
         with self._on_stream():
             self.sketch.reset()
             with self._flush_lock, self._lock:
@@ -990,6 +1158,7 @@ class Engine:
                 self.flow_dyn = self.flow_index.make_dyn_state()
                 self.degrade_index = DegradeIndex([], device=self.device)
                 self.degrade_dyn = self.degrade_index.make_dyn_state()
+                self._reset_breaker_mirror()
                 self.param_index = ParamIndex({})
                 self.param_dyn = make_param_state(8, self.device)
                 self.system_config = None
@@ -1009,6 +1178,7 @@ class Engine:
                 with self._lock:
                     self.flow_index = findex
                     self.flow_dyn = findex.make_dyn_state()
+                self.speculative.on_rules_reloaded()
         _release_blocked_tokens(drained)
 
     def set_degrade_rules(self, rules: Sequence[DegradeRule]) -> None:
@@ -1021,6 +1191,8 @@ class Engine:
                 with self._lock:
                     self.degrade_index = dindex
                     self.degrade_dyn = dindex.make_dyn_state()
+                    self._reset_breaker_mirror()
+                self.speculative.on_rules_reloaded()
         _release_blocked_tokens(drained)
 
     def set_param_rules(self, by_resource: Dict[str, List[ParamFlowRule]]) -> None:
@@ -1033,6 +1205,7 @@ class Engine:
             with self._lock:
                 self.param_index = pindex
                 self.param_dyn = make_param_state(8, self.device)
+            self.speculative.on_rules_reloaded()
         _release_blocked_tokens(drained)
 
     def set_system_config(self, cfg) -> None:
@@ -1101,10 +1274,15 @@ class Engine:
         prio: bool = False,
         ts: Optional[int] = None,
         args: Sequence[object] = (),
+        speculate: bool = False,
     ) -> Optional[_EntryOp]:
         """Enqueue an entry; None for pass-through (over the resource cap).
         ``prio`` entries may borrow a future window when over a QPS rule.
         ``args`` are the invocation arguments hot-parameter rules check.
+        ``speculate`` (entry_sync's path) asks the speculative tier for an
+        immediate host verdict while the op is still private to this
+        thread, so a flush that settles it reconciles against that verdict
+        instead of racing it.
 
         With the sketch tier armed, an over-cap resource is noted in the
         key stream, and the cold ceilings may refuse the entry at once
@@ -1139,6 +1317,8 @@ class Engine:
             self._apply_cluster_checks(op, cluster_gids)
         if op.p_slots and any(s.rule is not None and s.rule.cluster_mode for s in op.p_slots):
             self._apply_cluster_param_checks(op)
+        if speculate and self.speculative.enabled:
+            self.speculative.try_admit(op, self.clock.now_ms())
         with self._lock:
             self._entries.append(op)
             over = len(self._entries) >= self.max_batch
@@ -1476,6 +1656,7 @@ class Engine:
         resource: Optional[str] = None,
         param_rows: Sequence[int] = (),
         cluster_tokens: Sequence[Tuple[object, int]] = (),
+        speculative: Optional[bool] = None,
     ) -> None:
         """StatisticSlot.exit: success + RT + thread release (+exception).
         ``resource`` routes the completion to the resource's circuit
@@ -1483,7 +1664,11 @@ class Engine:
         active at exit time, like the reference. ``param_rows`` are the
         per-value thread gauges to release (the entry's
         ``param_thread_rows``); ``cluster_tokens`` the held cluster
-        concurrency tokens to hand back (the entry's ``cluster_tokens``)."""
+        concurrency tokens to hand back (the entry's ``cluster_tokens``).
+        ``speculative`` says whether the entry's admit was charged to the
+        speculative tier's host mirror (None, unknown, counts as yes;
+        pass False only for entries whose verdict was neither speculative
+        nor degraded): the mirror's live THREAD counter releases at once."""
         with self._lock:
             dindex = self.degrade_index
             op = _ExitOp(
@@ -1502,8 +1687,24 @@ class Engine:
             over = len(self._exits) >= self.max_batch
         if cluster_tokens:
             release_cluster_tokens(cluster_tokens)
+        spec = self.speculative
+        if spec.enabled:
+            if resource is not None and speculative is not False:
+                # op.rt, the clamped RT the device records.
+                spec.on_exit(resource, 1, rows=rows, rt=op.rt, count=int(count), now_ms=op.ts)
+            self._spec_maybe_settle()
         if over:
             self.flush()
+
+    def _submit_gauge_comp(self, rows: Tuple[int, int, int, int], thr: int) -> None:
+        """Enqueue one thread-gauge compensation op (+-thr at ``rows``) from
+        the speculative reconciler. count, rt and err are 0: the kernel's
+        min-RT sample is gated on count > 0, so only the gauge moves."""
+        if thr == 0:
+            return
+        op = _ExitOp(ts=self.clock.now_ms(), rows=rows, count=0, rt=0, err=0, thr=int(thr))
+        with self._lock:
+            self._exits.append(op)
 
     def submit_trace(
         self, rows: Tuple[int, int, int, int], count: int = 1, ts: Optional[int] = None
@@ -1614,11 +1815,17 @@ class Engine:
                 args_column=args_column,
                 p_cols=p_cols,
             )
+        # Immediate speculative array verdicts before the append: no flush
+        # may see the group before they are installed.
+        speculated = self.speculative.enabled and self.speculative.try_admit_bulk(g, self.clock.now_ms())
+        with self._lock:
             self._bulk_entries.append(g)
             self._bulk_pending_n += n
             over = len(self._entries) + self._bulk_pending_n >= self.max_batch
         if over:
             self.flush()
+        elif speculated:
+            self._spec_maybe_settle()
         return g
 
     @staticmethod
@@ -1649,9 +1856,12 @@ class Engine:
         err=0,
         ts=None,
         resource: Optional[str] = None,
+        speculative: Optional[bool] = None,
     ) -> None:
         """Columnar exits: ``n`` completions on one node-row set (and on
-        the resource's breakers when ``resource`` is given)."""
+        the resource's breakers when ``resource`` is given).
+        ``speculative`` as :meth:`submit_exit` (a group's
+        ``BulkOp.speculative``)."""
         if n < 1:
             raise ValueError("submit_exit_bulk: n must be >= 1")
         if n > self.max_batch:
@@ -1675,6 +1885,12 @@ class Engine:
             self._bulk_exits.append(gx)
             self._bulk_exit_pending_n += n
             over = len(self._exits) + self._bulk_exit_pending_n >= self.max_batch
+        spec = self.speculative
+        if spec.enabled:
+            if resource is not None and speculative is not False:
+                spec.on_exit(resource, n, rows=rows, rt=int(gx.rt.sum()), count=int(gx.count.sum()),
+                             now_ms=self.clock.now_ms(), min_rt=int(gx.rt.min()))
+            self._spec_maybe_settle()
         if over:
             self.flush()
 
@@ -1688,12 +1904,38 @@ class Engine:
         prio: bool = False,
         args: Sequence[object] = (),
     ) -> Tuple[Optional[_EntryOp], Verdict]:
-        """Submit + flush: synchronous SphU.entry semantics."""
-        op = self.submit_entry(resource, context_name, origin, acquire, entry_type, prio, args=args)
+        """Submit + flush: synchronous SphU.entry semantics. With the
+        speculative tier on, the verdict comes from the host mirror
+        (``Verdict.speculative``) while the op still rides a flush for
+        settlement: no wait for the card unless the tier declines the op
+        (prioritized entries) or its drift valve is shut."""
+        op = self.submit_entry(resource, context_name, origin, acquire, entry_type, prio, args=args, speculate=True)
         if op is None:
             return None, Verdict(True, E.PASS, 0, None)  # over cap: pass-through
+        v = op._verdict
+        if v is not None and v.speculative:
+            self._spec_maybe_settle()
+            return op, v
         self.flush()
         return op, op.verdict
+
+    def _spec_maybe_settle(self) -> None:
+        """Settlement cadence of the speculative tier: an async settle
+        flush once ``sentinel.tpu.speculative.flush.batch`` ops are
+        pending (none while the auto-flusher owns settlement), and a full
+        flush when a failover recovery is due, so that the tier never
+        starves recovery."""
+        fo = self.failover
+        if fo.armed and not fo.healthy:
+            if fo.recovery_due(self.clock.now_ms()):
+                self.flush()
+            return
+        with self._lock:
+            if self._auto_flush_thread is not None:
+                return
+            pending = len(self._entries) + len(self._exits) + self._bulk_pending_n + self._bulk_exit_pending_n
+        if pending >= self.speculative.flush_batch:
+            self.flush_async()
 
     # ------------------------------------------------------------------
     # flushing
@@ -1719,33 +1961,9 @@ class Engine:
         every window grid is preserved)."""
         if offset % SystemClock.REBASE_GRANULARITY_MS != 0:
             raise ValueError(f"rebase offset {offset} not aligned to window grids")
-
-        def shift(ws: torch.Tensor, floor: int) -> None:
-            # In place: ws = max(ws - offset, floor), in int64 so that no
-            # intermediate wraps.
-            ws.copy_(torch.clamp(ws.to(torch.int64) - offset, min=floor).to(torch.int32))
-
-        s = self.stats
         if self._slab_horizon is not None:
             self._slab_horizon -= offset
-        shift(s.second.window_start, SECOND_CFG.empty_ws)
-        shift(s.minute.window_start, MINUTE_CFG.empty_ws)
-        shift(s.future_ws, SECOND_CFG.empty_ws)
-        shift(self.flow_dyn.latest_passed_time, -(10**9))
-        shift(self.flow_dyn.last_filled_time, -(10**9))
-        # Breakers: an OPEN breaker's retry deadline and the window anchor
-        # are absolute ms. A rule's statIntervalMs need not divide the
-        # rebase granularity, so the shifted window start is floor-aligned
-        # to the rule's own grid (exits align ts - ts % interval); torch's
-        # remainder is a floor modulo, as JAX's, for a negative start too.
-        d = self.degrade_dyn
-        shift(d.next_retry, WS_FLOOR)
-        shift(d.ws, WS_FLOOR)
-        iv = self.degrade_index.device.interval_ms.clamp(min=1)
-        d.ws.copy_(torch.where(d.ws > WS_FLOOR, d.ws - torch.remainder(d.ws, iv), d.ws))
-        # Hot-param buckets and pacers; PARAM_NEVER ("no state yet") stays.
-        shift(self.param_dyn.last_add, PARAM_NEVER)
-        shift(self.param_dyn.latest, PARAM_NEVER)
+        self._shift_states(self.stats, self.flow_dyn, self.degrade_dyn, self.param_dyn, offset)
         if self.sketch.armed:
             self.sketch.on_rebase(offset)
         for op in self._entries:
@@ -1756,6 +1974,36 @@ class Engine:
             np.maximum(g.ts - offset, 0, out=g.ts)
         for gx in self._bulk_exits:
             np.maximum(gx.ts - offset, 0, out=gx.ts)
+
+    def _shift_states(self, stats: StatsState, flow_dyn: FlowRuleDynState, degrade_dyn: DegradeDynState,
+                      param_dyn: ParamDynState, offset: int) -> None:
+        """Shift every absolute-ms tensor of one set of states by ``offset``,
+        in place: the one home of the shift, for the epoch rebase and for a
+        failover restore of a checkpoint taken before a rebase."""
+
+        def shift(ws: torch.Tensor, floor: int) -> None:
+            # In place: ws = max(ws - offset, floor), in int64 so that no
+            # intermediate wraps.
+            ws.copy_(torch.clamp(ws.to(torch.int64) - offset, min=floor).to(torch.int32))
+
+        shift(stats.second.window_start, SECOND_CFG.empty_ws)
+        shift(stats.minute.window_start, MINUTE_CFG.empty_ws)
+        shift(stats.future_ws, SECOND_CFG.empty_ws)
+        shift(flow_dyn.latest_passed_time, -(10**9))
+        shift(flow_dyn.last_filled_time, -(10**9))
+        # Breakers: an OPEN breaker's retry deadline and the window anchor
+        # are absolute ms. A rule's statIntervalMs need not divide the
+        # rebase granularity, so the shifted window start is floor-aligned
+        # to the rule's own grid (exits align ts - ts % interval); torch's
+        # remainder is a floor modulo, as JAX's, for a negative start too.
+        shift(degrade_dyn.next_retry, WS_FLOOR)
+        shift(degrade_dyn.ws, WS_FLOOR)
+        iv = self.degrade_index.device.interval_ms.clamp(min=1)
+        ws = degrade_dyn.ws
+        ws.copy_(torch.where(ws > WS_FLOOR, ws - torch.remainder(ws, iv), ws))
+        # Hot-param buckets and pacers; PARAM_NEVER ("no state yet") stays.
+        shift(param_dyn.last_add, PARAM_NEVER)
+        shift(param_dyn.latest, PARAM_NEVER)
 
     def _ensure_capacity(self) -> None:
         need = len(self.nodes)
@@ -1774,13 +2022,26 @@ class Engine:
         lazily, oldest first. Queued sketch promotions and demotions land
         first, outside the flush lock. The submission lock is held only to
         swap the pending buffers; a caller whose ops another thread's flush
-        took finds their verdicts filled once its own flush() returns."""
+        took finds their verdicts filled once its own flush() returns.
+
+        With failover armed and the engine DEGRADED the flush never touches
+        the device: the verdicts come from the host fallback, after an
+        automatic recovery attempt (restore and probe flushes) when the
+        retry gap has passed (runtime/failover.py)."""
+        fo = self.failover
+        if fo.armed and not fo.healthy:
+            if fo.recovery_due(self.clock.now_ms()):
+                fo.try_recover()
+            if not fo.healthy:
+                return self._flush_degraded()
         if self.sketch.armed and self.sketch.pending_actions:
             self.sketch.apply_actions()
         depth = self._pipeline_depth
         if depth > 0:
             return self._flush_pipelined(depth)
         self.drain()
+        if fo.armed and not fo.healthy:
+            return self._flush_degraded()  # the drain tripped failover
         with self._flush_lock:
             entries, _ = self._flush_locked()
         _release_blocked_tokens(entries)
@@ -2151,9 +2412,17 @@ class Engine:
         """Encode one chunk, run the flush step, queue the verdicts' copy
         back, then fill them (or, with ``defer``, return the
         :class:`_PendingFetch` that fills them when materialized). Runs under
-        the flush lock, on the engine's stream. Without a failover tier
-        (ROADMAP Queue 1 item 7) a failed build, launch or copy raises: no
-        chunk is retried on the CPU or through the plain versions."""
+        the flush lock, on the engine's stream. Without failover a failed
+        build, launch or copy raises: no chunk is retried on the CPU or
+        through the plain versions. With failover armed, a failed launch or
+        wait trips DEGRADED and the chunk is filled from policy; a kernel
+        build error still raises."""
+        from sentinel_tpu_torch.runtime.failover import is_build_error
+
+        fo = self.failover
+        if fo.armed and not fo.healthy:
+            # An earlier chunk of this flush tripped failover: no device.
+            return self._degraded_chunk(fo, entries, exits, bulk, bulk_exits, defer)
         t_enc0 = time.perf_counter()
         now = self.clock.now_ms()
         staging: List[tuple] = []
@@ -2169,20 +2438,21 @@ class Engine:
         with self._timing_lock:
             self._flush_timing["encode_ms"] += (t_disp0 - t_enc0) * 1e3
         seq = self._next_flush_seq()
-        if self._sharded_fns is not None:
-            # Mesh mode: one global batch sharded over the shards; the
-            # shaping and param items (global positions) go to the global
-            # scans. A failure propagates: no single-shard retry. The
-            # sharded step sweeps the slab on every step.
-            fn = self._sharded_fn_for(shaping is not None, param is not None, sh_rounds, p_rounds)
-            timeout = fn.occupy_timeout_ms  # read when the step was built
-            extra = tuple(b for b in (shaping, param) if b is not None)
-            self.stats, self.flow_dyn, self.degrade_dyn, self.param_dyn, result = fn(
-                self.stats, findex.device, self.flow_dyn, dindex.device, self.degrade_dyn, self.param_dyn, sysdev,
-                batch, *extra,
-            )
-        else:
-            self.stats, result = flush_step(
+
+        def _dispatch():
+            if self.faults is not None:
+                self.faults.on_dispatch(seq)
+            if self._sharded_fns is not None:
+                # Mesh mode: one global batch sharded over the shards; the
+                # shaping and param items (global positions) go to the global
+                # scans. A failure propagates: no single-shard retry. The
+                # sharded step sweeps the slab on every step.
+                fn = self._sharded_fn_for(shaping is not None, param is not None, sh_rounds, p_rounds)
+                extra = tuple(b for b in (shaping, param) if b is not None)
+                out = fn(self.stats, findex.device, self.flow_dyn, dindex.device, self.degrade_dyn, self.param_dyn,
+                         sysdev, batch, *extra)
+                return out, fn.occupy_timeout_ms  # read when the step was built
+            stats, result = flush_step(
                 self.stats, findex.device, batch,
                 with_exits=bool(exits) or bool(bulk_exits),
                 blk_topk=min(self._blk_topk_k, self.stats.n_rows),
@@ -2197,15 +2467,53 @@ class Engine:
                 shaping_rounds=sh_rounds, param_rounds=p_rounds,
                 skstate=tier.dev_state if sk_batch is not None else None, sk=sk_batch, sketch_decay=sk_decay,
             )
+            return (stats, self.flow_dyn, self.degrade_dyn, self.param_dyn, result), timeout
+
+        try:
+            out, timeout = fo.watched(_dispatch, "kernel dispatch", (seq,)) if fo.armed else _dispatch()
+        except BaseException as exc:
+            if not fo.armed or is_build_error(exc):
+                raise
+            # The launch faulted: the in-place states may be half updated,
+            # so the chain needs a restore. Fill this chunk from policy; its
+            # staging is dropped (the chunk may still read it).
+            fo.trip("dispatch", exc, seq)
+            return self._degraded_chunk(fo, entries, exits, bulk, bulk_exits, defer, quarantined=True)
+        self.stats, self.flow_dyn, self.degrade_dyn, self.param_dyn, result = out
         self._note_borrows(now, with_occupy, sweep, timeout)
         # Every fill input in one int32 buffer, on the stream after the
-        # chunk's kernels: K11 rewrites the sketch's candidate table in
-        # place, so the next flush cannot change what this one reads.
+        # chunk's kernels (the kernels update state in place: the stream
+        # order makes each column the post-flush value): the verdicts, the
+        # blocked top-K; while the speculative tier is on, the breaker
+        # states (its host mirror) and the shaping columns it re-anchors
+        # to (stored_tokens as its float32 bits); the sketch's candidates.
         got = [result.admitted, result.reason, result.slot_ok, result.wait_ms, result.sys_type, result.dslot_ok]
         if result.blk_rows is not None:
             got += [result.blk_rows, result.blk_weight]
+        spec = self.speculative
+        breaker_snap = None
+        if spec.enabled:
+            self._breaker_seq += 1
+            breaker_snap = (self._breaker_epoch, self._breaker_seq)
+            got.append(self.degrade_dyn.state)
+        else:
+            with self._breaker_mirror_lock:
+                # An unobserved flush: the mirror goes stale, and older
+                # in-flight fills are fenced out by the seq guard.
+                self._breaker_mirror_valid = False
+                self._breaker_applied_seq = self._breaker_seq
+        shaping_snap = spec.enabled and spec.mirror.shaping_enabled and bool(findex.shaping_gids) and self.mesh is None
+        if shaping_snap:
+            fd = self.flow_dyn
+            got += [fd.latest_passed_time, fd.stored_tokens.view(torch.int32), fd.last_filled_time]
         if sk_batch is not None:
             got += [tier.dev_state.cand_ids, tier.dev_state.cand_cnt]
+        # The failover checkpoint: every N flushes one copy of each state
+        # tensor, queued before the chunk's event so one wait covers them.
+        ckpt_meta = ckpt_states = None
+        if fo.armed and fo.checkpoint_due(seq):
+            ckpt_states = self._queue_state_copies(tier.dev_state if sk_batch is not None else None)
+            ckpt_meta = fo.begin_checkpoint(seq, now, findex, dindex, pindex)
         refs, layout = self._queue_fetch(got, staging)
         dispatch_ms = (time.perf_counter() - t_disp0) * 1e3
         with self._timing_lock:
@@ -2214,30 +2522,135 @@ class Engine:
 
         def _fill(host: np.ndarray) -> None:
             cols = _unpack(host, layout)
+            if ckpt_meta is not None:
+                fo.store_checkpoint(ckpt_meta, ckpt_states)
+            nxt = 8 if result.blk_rows is not None else 6
+            if breaker_snap is not None:
+                self._apply_breaker_snapshot(breaker_snap[0], breaker_snap[1], cols[nxt].reshape(-1))
+                nxt += 1
+            if shaping_snap:
+                spec.reconcile_shaping(findex, cols[nxt], cols[nxt + 1].view(np.float32), cols[nxt + 2])
+                nxt += 3
             if sk_batch is not None:
                 # The promotion/demotion controller evaluates at every drain.
-                tier.on_drain(cols[-2], cols[-1], self.clock.now_ms())
-                cols = cols[:-2]
-            self._fill_results(cols, entries, bulk, findex, dindex, auth_rules, k, kd)
+                tier.on_drain(cols[nxt], cols[nxt + 1], self.clock.now_ms())
+            self._fill_results(cols, entries, bulk, findex, dindex, auth_rules, k, kd,
+                               blk_topk=result.blk_rows is not None)
 
         if defer:
-            rec = _PendingFetch(self, entries, refs, _fill, staging, seq)
+            rec = _PendingFetch(self, entries, refs, _fill, staging, seq, bulk=bulk, exits=exits,
+                                bulk_exits=bulk_exits)
             for op in entries:
                 op._pending = rec
             for g in bulk:
                 g._pending = rec
             return rec
         t_fetch0 = time.perf_counter()
+        faulted = False
         try:
-            _fill(self._fetch_refs([refs], (seq,))[0])
+            try:
+                _fill(self._fetch_refs([refs], (seq,))[0])
+            except BaseException as exc:
+                if not fo.armed or is_build_error(exc):
+                    raise
+                # The verdicts are lost: quarantine the older in-flight queue
+                # and fill this chunk from policy. No caller sees the raw
+                # device exception.
+                faulted = True
+                fo.trip("fetch", exc, seq)
+                self._degraded_chunk(fo, entries, exits, bulk, bulk_exits, defer, quarantined=True)
         finally:
             with self._timing_lock:
                 self._flush_timing["kernel_ms"] += (time.perf_counter() - t_fetch0) * 1e3
         # The copy back has landed and the verdicts are copied out: the
         # staging is free again (only on success: a failure drops it).
-        if self._arena is not None:
+        if not faulted and self._arena is not None:
             self._arena.give_all(staging)
         return None
+
+    def _degraded_chunk(self, fo, entries, exits, bulk, bulk_exits, defer: bool,
+                        quarantined: bool = False) -> None:
+        """Fill one chunk from the host fallback: the device faulted mid-flush
+        (``quarantined``: the chunk's own results were lost, counted) or the
+        engine was DEGRADED before it dispatched. A deferred chunk has no
+        materialization to ride, so its post work runs here."""
+        if quarantined:
+            fo.note_quarantined()
+        fo.fill_degraded(entries, exits, bulk, bulk_exits)
+        if defer:
+            _release_blocked_tokens(entries)
+        return None
+
+    def _queue_state_copies(self, sk_state) -> tuple:
+        """One copy of each state tensor on the current stream: into fresh
+        pinned host buffers with a non-blocking copy on the card (never
+        from the encode arena, so no later chunk reuses them), a clone on
+        the CPU. Returns ``(stats, flow_dyn, degrade_dyn, param_dyn,
+        sketch)`` as NamedTuples of numpy views, valid once the stream has
+        passed this point."""
+        pinned = self._stream is not None
+
+        def copy(tree):
+            if isinstance(tree, torch.Tensor):
+                if not pinned:
+                    return tree.clone().numpy()
+                host = torch.empty(tree.shape, dtype=tree.dtype, pin_memory=True)
+                host.copy_(tree, non_blocking=True)
+                return host.numpy()
+            return type(tree)(*(copy(v) for v in tree))
+
+        return tuple(None if t is None else copy(t)
+                     for t in (self.stats, self.flow_dyn, self.degrade_dyn, self.param_dyn, sk_state))
+
+    def _copy_states_now(self) -> tuple:
+        """:meth:`_queue_state_copies` of the live states, waited for."""
+        states = self._queue_state_copies(self.sketch.dev_state if self.sketch.armed else None)
+        if self._stream is not None:
+            self._stream.synchronize()
+        return states
+
+    def _probe_dispatch(self, staging: List[tuple]) -> _ChunkRefs:
+        """A failover probe flush: an all-invalid batch through the flush
+        step's kernels (the DEFAULT route and the verdict tail; K1 while
+        the slab horizon is set), then its copy back queued."""
+        from sentinel_tpu_torch.runtime.flush import make_probe_batch
+
+        now = self.clock.now_ms()
+        sweep = self._slab_horizon is not None
+        timeout = config.occupy_timeout_ms
+        self.stats, result = flush_step(
+            self.stats, self.flow_index.device, make_probe_batch(now, self.device), with_exits=False, blk_topk=0,
+            ddev=self.degrade_index.device, ddyn=self.degrade_dyn, sysdev=make_system_device(None, -1.0, -1.0),
+            occupy_timeout_ms=timeout, with_occupy=False, with_system=False, with_degrade=False,
+            flow_dyn=self.flow_dyn, pdyn=self.param_dyn, with_matured=sweep,
+        )
+        self._note_borrows(now, False, sweep, timeout)
+        refs, _ = self._queue_fetch([result.admitted], staging)
+        return refs
+
+    def _reset_breaker_mirror(self) -> None:
+        """A fresh all-CLOSED mirror and a new epoch: fills captured before
+        a reload or reset never apply to the rebuilt rule world."""
+        with self._breaker_mirror_lock:
+            self._breaker_state_host = np.zeros(self.degrade_dyn.state.shape[0], dtype=np.int32)
+            self._breaker_epoch += 1
+            self._breaker_seq = 0
+            self._breaker_applied_seq = 0
+            self._breaker_mirror_valid = True
+
+    def _apply_breaker_snapshot(self, epoch: int, seq: int, new_state: np.ndarray) -> None:
+        """The mirror half of the JAX engine's breaker snapshot: ordered,
+        epoch-guarded; a snapshot older than one applied is dropped. The
+        state-change observers it also feeds there wait for ROADMAP Queue 1
+        item 8."""
+        with self._breaker_mirror_lock:
+            if epoch != self._breaker_epoch or seq <= self._breaker_applied_seq:
+                return
+            if new_state.shape != self._breaker_state_host.shape:
+                return
+            self._breaker_state_host = new_state
+            self._breaker_applied_seq = seq
+            self._breaker_mirror_valid = True
 
     def _queue_fetch(self, cols: List[torch.Tensor], staging: List[tuple]) -> Tuple[_ChunkRefs, tuple]:
         """Pack ``cols`` (bool or int32 tensors) into one int32 buffer and
@@ -2284,10 +2697,14 @@ class Engine:
         self._slab_horizon = h
 
     def _fill_results(self, got, entries, bulk, findex: FlowIndex, dindex: DegradeIndex,
-                      auth_rules: Dict[str, AuthorityRule], k: int, kd: int) -> None:
+                      auth_rules: Dict[str, AuthorityRule], k: int, kd: int, blk_topk: bool = False) -> None:
+        """Fill one chunk's verdicts from its copied-back columns. A
+        speculatively decided op or group keeps its caller-visible verdict:
+        the settled one reconciles the tier's mirrors instead."""
         admitted, reason, slot_ok, wait_ms, sys_type, dslot_ok = got[:6]
-        if len(got) > 6:
+        if blk_topk:
             self.last_blocked_topk = (got[6], got[7])
+        spec_tier = self.speculative if self.speculative.enabled else None
         for i, op in enumerate(entries):
             blocked_rule = None
             limit_type = ""
@@ -2311,17 +2728,28 @@ class Engine:
                     blocked_rule = op.p_slots[0].rule if op.p_slots else None
                 elif r == E.BLOCK_DEGRADE:
                     blocked_rule = _first_failing(op.d_gids[:kd], dslot_ok[i], dindex)
-            op.verdict = Verdict(
+            sv = Verdict(
                 admitted=bool(admitted[i]),
                 reason=r,
                 wait_ms=int(wait_ms[i]),
                 blocked_rule=blocked_rule,
                 limit_type=limit_type,
             )
+            spec_v = op._verdict
+            if spec_tier is not None and spec_v is not None and spec_v.speculative:
+                spec_tier.reconcile_entry(op, spec_v, sv)
+            else:
+                op.verdict = sv
             op._pending = None  # drop the chunk's record once filled
         off = len(entries)
         for g in bulk:
             sl = slice(off, off + g.n)
+            if spec_tier is not None and g.spec_admitted is not None:
+                spec_tier.reconcile_bulk(g, np.array(admitted[sl]), np.array(reason[sl], dtype=np.int32),
+                                         dev_slot_ok=np.asarray(slot_ok[sl]), dev_sys_type=np.asarray(sys_type[sl]))
+                g._pending = None
+                off += g.n
+                continue
             g.admitted = np.array(admitted[sl])
             g.reason = np.array(reason[sl], dtype=np.int32)
             g.wait_ms = np.array(wait_ms[sl])
@@ -2370,10 +2798,15 @@ class Engine:
     def close(self) -> None:
         """Quiesce: stop the auto-flusher, decide anything still queued and
         settle the deferred fetches (the pipelined flush leaves up to
-        ``pipeline_depth`` in flight). Idempotent; the engine stays usable."""
+        ``pipeline_depth`` in flight), fold the speculative tier's last
+        drift window and retire the failover tier's threads. Idempotent;
+        the engine stays usable."""
         self.stop_auto_flush()
         self.flush()
         self.drain()
+        if self.speculative.enabled:
+            self.speculative.flush_window()
+        self.failover.close()
 
 
 def _release_blocked_tokens(entries: Sequence[_EntryOp]) -> None:

@@ -157,6 +157,29 @@ SYS_CPU = 5
 SYS_TYPE_NAMES = {SYS_QPS: "qps", SYS_THREAD: "thread", SYS_RT: "rt", SYS_LOAD: "load", SYS_CPU: "cpu"}
 
 
+def make_probe_batch(now: int, device: torch.device, n: int = 8, m: int = 8, k: int = 1, kd: int = 1) -> FlushBatch:
+    """An all-invalid batch for the failover probe flushes (RECOVERING ->
+    HEALTHY, runtime/failover.py): every entry and exit slot is masked, so
+    the flush launches its kernels and comes back through the copy back,
+    which is what a probe must prove works again, while admission state
+    passes through untouched (only the matured-borrow sweep runs, as any
+    flush at this ``now`` would). The smallest padded chunk shape."""
+    i32 = torch.int32
+
+    def full(shape, v, dtype=i32):
+        return torch.full(shape, v, dtype=dtype, device=device)
+
+    return FlushBatch(
+        now=int(now),
+        e_valid=full((n,), False, torch.bool), e_ts=full((n,), 0), e_acquire=full((n,), 1),
+        e_rows=full((n, 4), -1), e_rule_gid=full((n, k), -1), e_check_row=full((n, k), -1),
+        e_prio=full((n,), False, torch.bool), e_auth_ok=full((n,), True, torch.bool),
+        e_cluster_ok=full((n,), True, torch.bool), e_dgid=full((n, kd), -1),
+        x_valid=full((m,), False, torch.bool), x_ts=full((m,), 0), x_count=full((m,), 0), x_rows=full((m, 4), -1),
+        x_rt=full((m,), 0), x_err=full((m,), 0), x_thr=full((m,), 0), x_dgid=full((m, kd), -1),
+    )
+
+
 class FlushResult(NamedTuple):
     admitted: torch.Tensor  # bool [N]
     reason: torch.Tensor  # int32 [N], errors.PASS / BLOCK_*

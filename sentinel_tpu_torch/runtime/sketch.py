@@ -33,11 +33,15 @@ distinct keys by a radix select over one 64-bit key per entry, ordered by
 count descending then index ascending as ``lax.top_k`` breaks ties; no
 sort of the batch. CPU tensors take :func:`sketch_fold_plain`.
 
-Not ported here: the DEGRADED host fold (``fold_host_chunk``) and the
-checkpoint of the sketch state (ROADMAP Queue 1 item 7), the sketch's
-telemetry counters and exports (item 8), and the gossip transport
-(``sentinel.tpu.gossip.enabled``, the rest of item 9); the gossip
-snapshot and merge of the tier itself are here.
+While the engine is DEGRADED (runtime/failover.py) the chunk's key stream
+folds into the host space-saving mirror instead (:meth:`SketchTier.fold_host_chunk`),
+and the failover checkpoint carries the device state, so a restore keeps
+the candidate table.
+
+Not ported here: the sketch's telemetry counters and exports (ROADMAP
+Queue 1 item 8) and the gossip transport (``sentinel.tpu.gossip.enabled``,
+the rest of item 9); the gossip snapshot and merge of the tier itself are
+here.
 """
 
 from __future__ import annotations
@@ -838,6 +842,21 @@ class SketchTier:
             self._last_candidates = cand
             self.est_error_ratio = float(np.mean(errs)) if errs else 0.0
             self.occupancy = len(cand) / float(self.candidates)
+        self._evaluate(by_key, now_ms)
+
+    def fold_host_chunk(self, entries, bulk, findex, pindex, now_ms: int) -> None:
+        """The DEGRADED flush: the device sketch is unreachable, so the
+        chunk's key stream folds into the host space-saving mirror and the
+        controller evaluates from it. Decay stays on the same window clock."""
+        uids, wsum = self._collect(entries, bulk, findex, pindex)
+        self.decay_due(now_ms)
+        with self._lock:
+            for i, w in zip(uids.tolist(), wsum.tolist()):
+                key = self._names.get(i)
+                if key is not None:
+                    self.host_mirror.offer(key, w)
+            by_key = dict(self.host_mirror.counts)
+            self.occupancy = len(by_key) / float(self.candidates)
         self._evaluate(by_key, now_ms)
 
     # ------------------------------------------------------------------

@@ -49,6 +49,13 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel source did not build or its library did not load: a defect
+    of the program or of its installation, never a device fault. The
+    failover tier lets it through to the caller instead of tripping
+    DEGRADED (runtime/failover.py)."""
+
+
 def nvcc_path() -> str:
     """``nvcc`` from ``CUDA_HOME``, ``/usr/local/cuda`` or ``PATH``."""
     for base in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
@@ -58,7 +65,7 @@ def nvcc_path() -> str:
                 return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+        raise KernelBuildError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
     return found
 
 
@@ -104,7 +111,7 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelBuildError("CUDA kernel build failed:\n" + "\n".join(failed))
     return reports
 
 
@@ -116,7 +123,10 @@ def load(name: str) -> ctypes.CDLL:
             out = _target(name)
             if not out.exists():
                 build_all([name])
-            lib = ctypes.CDLL(str(out))
+            try:
+                lib = ctypes.CDLL(str(out))
+            except OSError as exc:
+                raise KernelBuildError(f"kernel library {out.name} did not load: {exc}") from exc
             _libs[name] = lib
         return lib
 

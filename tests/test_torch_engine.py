@@ -627,8 +627,7 @@ def test_cluster_mode_rule_raises():
 @pytest.mark.parametrize(
     "key,value",
     [
-        (config.GOSSIP_ENABLED, "true"), (config.SPECULATIVE_ENABLED, "true"),
-        (config.FAILOVER_ENABLED, "true"), (config.CAPTURE_ENABLED, "true"),
+        (config.GOSSIP_ENABLED, "true"), (config.CAPTURE_ENABLED, "true"),
         (config.AUTOTUNE_ENABLED, "true"), (config.IPC_ENABLED, "true"),
     ],
 )
@@ -639,6 +638,26 @@ def test_unported_config_raises(key, value):
     try:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _cpu_engine()
+    finally:
+        config.reset()
+
+
+@pytest.mark.parametrize("key", [config.SPECULATIVE_ENABLED, config.FAILOVER_ENABLED])
+def test_ported_tier_switches_build_and_flush(key):
+    """The speculative tier and the failure domain, refused before this
+    slice, build and flush (tests/test_torch_speculative.py and
+    test_torch_failover.py hold them against the JAX package)."""
+    config.set(key, "true")
+    try:
+        eng = _cpu_engine()
+        eng.set_flow_rules([FlowRule("r", count=2)])
+        ops = [eng.entry_sync("r")[1] for _ in range(3)]
+        eng.flush()
+        eng.drain()
+        assert [v.admitted for v in ops] == [True, True, False]
+        assert all(v.speculative == (key == config.SPECULATIVE_ENABLED) for v in ops)
+        assert eng.failover.armed == (key == config.FAILOVER_ENABLED) and eng.failover.state == "HEALTHY"
+        eng.close()
     finally:
         config.reset()
 

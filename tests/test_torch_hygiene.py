@@ -20,7 +20,9 @@ PORT = ROOT / "sentinel_tpu_torch"
 def test_import_loads_no_jax():
     code = (
         "import sys, sentinel_tpu_torch, sentinel_tpu_torch.core.api, sentinel_tpu_torch.runtime.engine,"
-        " sentinel_tpu_torch.runtime.sketch, sentinel_tpu_torch.cluster, sentinel_tpu_torch.parallel;"
+        " sentinel_tpu_torch.runtime.sketch, sentinel_tpu_torch.cluster, sentinel_tpu_torch.parallel,"
+        " sentinel_tpu_torch.runtime.failover, sentinel_tpu_torch.runtime.speculative,"
+        " sentinel_tpu_torch.runtime.durable, sentinel_tpu_torch.testing.faults;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'sentinel_tpu' or m.startswith('sentinel_tpu.')];"
         "print(repr(bad))"
@@ -51,6 +53,17 @@ def test_sources_import_no_jax(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "sentinel_tpu"), f"{path.name} imports {mod}"
+
+
+@pytest.mark.parametrize("rel", ["testing/__init__.py", "testing/faults.py", "runtime/failover.py",
+                                 "runtime/durable.py", "runtime/speculative.py"])
+def test_failure_domain_modules_are_covered(rel):
+    """The failure domain's modules are sources of the port, so the import
+    checks above cover them: they import neither JAX nor the JAX package."""
+    path = PORT / rel
+    assert path in sorted(PORT.rglob("*.py"))
+    for mod in _imported_modules(path):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "sentinel_tpu"), f"{rel} imports {mod}"
 
 
 def test_every_module_imports_on_cpu():

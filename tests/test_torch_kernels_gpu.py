@@ -2112,3 +2112,155 @@ def test_engine_auto_flush_while_caller_sets_a_side_stream(cuda):
     assert sum(g.admitted_count for g in groups) == 50
     stats = eng.cluster_node_stats("af")
     assert (stats["total_pass_minute"], stats["total_block_minute"]) == (50, 190)
+
+
+# --- the failure domain on the card (runtime/failover.py) --------------------
+
+
+def _armed_engine(device, ckpt_every=1, timeout_ms=10000):
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils.clock import ManualClock
+    from sentinel_tpu_torch.utils.config import config
+
+    saved = dict(config._runtime)
+    for key, value in ((config.FAILOVER_ENABLED, "true"), (config.FAILOVER_CHECKPOINT_EVERY, str(ckpt_every)),
+                       (config.FAILOVER_PROBE_FLUSHES, "2"), (config.FAILOVER_RETRY_MS, str(10**9)),
+                       (config.FAILOVER_FETCH_TIMEOUT_MS, str(timeout_ms))):
+        config.set(key, value)
+    try:
+        eng = Engine(clock=ManualClock(1000), device=device)
+    finally:
+        config._runtime.clear()
+        config._runtime.update(saved)
+    eng.set_flow_rules([st.FlowRule("fa", count=50), st.FlowRule("fb", grade=0, count=6)])
+    return eng
+
+
+def _failover_result(eng):
+    from sentinel_tpu_torch.metrics.nodes import stats_to_numpy
+
+    fo = eng.failover
+    return stats_to_numpy(eng.stats), (fo.state, fo.counters["trips"], fo.counters["recoveries"])
+
+
+def _same_stats(a, b):
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        for u, v in (zip(x, y) if isinstance(x, tuple) else [(x, y)]):
+            assert np.array_equal(u, v), name
+
+
+def test_checkpointing_dispatch_raises_no_sync(cuda):
+    """With failover armed and a checkpoint every flush, each flush_async
+    dispatch (the launch on the watchdog's waiter, the state copies into
+    pinned buffers, the verdict copy) runs under
+    set_sync_debug_mode("error"); the checkpoints land at the drain and
+    verdicts and state equal the CPU engine's."""
+    out = {}
+    for name, device in (("cpu", "cpu"), ("card", cuda)):
+        eng = _armed_engine(device)
+        groups = []
+        for step in range(6):
+            eng.clock.set_ms(1000 + 150 * step)
+            groups.append(eng.submit_bulk("fa", 40, ts=1000 + 150 * step))
+            groups.append(eng.submit_bulk("fb", 4))
+            if device != "cpu":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.flush_async()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            eng.drain()
+        assert eng.failover.counters["checkpoints"] == 6
+        ck = eng.failover._ckpt
+        assert ck.seq == eng.flush_seq and ck.states[0].threads.shape == tuple(eng.stats.threads.shape)
+        out[name] = ([g.admitted.copy() for g in groups], _failover_result(eng), ck.states)
+        eng.close()
+    assert all(np.array_equal(a, b) for a, b in zip(out["cpu"][0], out["card"][0]))
+    _same_stats(out["cpu"][1][0], out["card"][1][0])
+    assert out["cpu"][1][1] == out["card"][1][1] == ("HEALTHY", 0, 0)
+    _same_stats(out["cpu"][2][0], out["card"][2][0])  # the checkpoints too
+
+
+def test_watchdog_times_out_a_hung_event_wait_and_recovers(cuda):
+    """A spin of about half a second queued on the engine's stream before a
+    flush wedges the wait on its CUDA event: the 150 ms watchdog abandons
+    it and trips DEGRADED (the chunk filled from policy). Once the card is
+    past the spin, recovery restores the last checkpoint, probes, and the
+    next flushes decide on the card: verdicts and stats equal a CPU engine
+    whose same flush's wait failed through the FaultInjector."""
+    import time
+
+    from sentinel_tpu_torch.testing.faults import FaultInjector
+
+    out = {}
+    for name, device in (("cpu", "cpu"), ("card", cuda)):
+        eng = _armed_engine(device, timeout_ms=150)
+        inj = FaultInjector().install(eng) if device == "cpu" else None
+        groups = [eng.submit_bulk("fa", 30, ts=1000)]
+        eng.flush()
+        groups.append(eng.submit_bulk("fa", 30, ts=1000))
+        if device == "cpu":
+            inj.fail_fetch(eng.flush_seq + 1)
+        else:
+            with torch.cuda.stream(eng._stream):
+                torch.cuda._sleep(1_000_000_000)
+        t0 = time.monotonic()
+        eng.flush()
+        elapsed = time.monotonic() - t0
+        assert eng.failover.state == "DEGRADED"
+        if device != "cpu":
+            assert elapsed < 0.45 and eng.failover.counters["fetch_timeouts"] == 1
+            torch.cuda.synchronize()
+        eng.failover.fetch_timeout_ms = 10000
+        assert eng.failover.try_recover(), eng.failover.last_fault
+        groups.append(eng.submit_bulk("fa", 30, ts=1000))
+        eng.flush()
+        out[name] = ([g.admitted.copy() for g in groups], _failover_result(eng))
+        eng.close()
+    assert all(np.array_equal(a, b) for a, b in zip(out["cpu"][0], out["card"][0]))
+    _same_stats(out["cpu"][1][0], out["card"][1][0])
+    assert out["cpu"][1][1] == out["card"][1][1] == ("HEALTHY", 1, 1)
+    assert out["card"][0][2].sum() == 20  # the restored window: 30 of count 50 used before the fault
+
+
+def test_restore_on_the_waiter_while_a_caller_uses_a_side_stream(cuda):
+    """The caller works under a side stream of its own, queued busy with a
+    spin, while a fault trips the engine and try_recover restores on the
+    watchdog's waiter thread (which enters the engine's stream itself):
+    the restore and the probes order after the engine's earlier work: of
+    240 same-window entries against count 50 the card decides exactly 50
+    outside the degraded flushes (9-11, filled by the host fallback's
+    fresh bucket), as the CPU engine does."""
+    import contextlib
+
+    from sentinel_tpu_torch.testing.faults import FaultInjector
+
+    out = {}
+    for name, device in (("cpu", "cpu"), ("card", cuda)):
+        eng = _armed_engine(device)
+        inj = FaultInjector().install(eng)
+        side = torch.cuda.Stream(cuda) if device != "cpu" else None
+        groups = []
+        ctx = torch.cuda.stream(side) if side is not None else contextlib.nullcontext()
+        with ctx:
+            for i in range(24):
+                if side is not None:
+                    torch.cuda._sleep(5_000_000)
+                if i == 9:
+                    inj.fail_fetch(eng.flush_seq + 1)
+                groups.append(eng.submit_bulk("fa", 10, ts=1000))
+                eng.flush()
+                if i == 11:
+                    assert eng.failover.state == "DEGRADED"
+                    assert eng.failover.try_recover(), eng.failover.last_fault
+            if side is not None:
+                assert torch.cuda.current_stream(cuda) == side
+        eng.drain()
+        out[name] = ([g.admitted.copy() for g in groups], _failover_result(eng))
+        eng.close()
+    assert all(np.array_equal(a, b) for a, b in zip(out["cpu"][0], out["card"][0]))
+    _same_stats(out["cpu"][1][0], out["card"][1][0])
+    assert out["card"][1][1] == ("HEALTHY", 1, 1)
+    assert sum(int(a.sum()) for i, a in enumerate(out["card"][0]) if i not in (9, 10, 11)) == 50
