@@ -148,7 +148,27 @@ the spilled engine's, THREAD gauges zero). Every phase that injects no
 fault asserts 0 trips. Its launches are not on the kernels line, which
 counts phase 4's.
 
-The CPU sides of phases 2c (d), 4-4g and 8 (the plain versions on one
+The control plane (runtime/window.py, runtime/ingest.py,
+runtime/autotune.py, metrics/telemetry.py): phase 4h (a) joins 32 steps
+of 4,096 requests (phase 4's rules, hot-param rules on every eighth
+resource, Zipf values) in order into the 2 ms batch window (batch.max
+4,096) on a ManualClock, K2, the gauge, K4 with the verdict tail and K10
+counted from 0 around it, and holds every verdict, state tensor and
+telemetry counter against the CPU engine's replay of the windows the card
+formed; (b) sends 65,536 joins through the API's join against one pending
+bulk flush at max.pending.bulk 16,384, then the deadline legs (the
+estimate pinned, then live), against the CPU engine; (c) runs a mixed
+stream (phase 4's traffic, param groups with four timestamps a flush)
+with the autotuner on, its verdicts equal to an untuned CPU engine's,
+K10's two routes each counted by torch.profiler (0 on either fails), its
+depth decisions and cost memo printed, then the window controller's
+decisions under 8 threads of api.entry_windowed; (d) runs phase 4's
+stream with telemetry on and off in turns (the host splits, the blocked
+sketch against the CPU's, spans_to_trace written to build/ and read
+back, the DEFAULT dispatch under set_sync_debug_mode("error")); (e) times
+api.entry_windowed against st.entry, 8 threads, 2 s each, in turns.
+
+The CPU sides of phases 2c (d), 4-4h and 8 (the plain versions on one
 heavy segment, the CPU engines) run in four worker processes, started
 before the build, beside the card's phases (phase 3 runs before 2c so
 that case (d)'s references are ready); the workers stop with the script.
@@ -1700,15 +1720,23 @@ FLUSH_N = 32768
 STEPS = 40  # 100 ms each: 4 simulated seconds
 
 
-def drive_engine(device: torch.device, seed: int, mode: str = "sync"):
+def drive_engine(device: torch.device, seed: int, mode: str = "sync", telemetry: bool = True):
     """One stream on one engine; returns (records, final state, blocked
     top-K, seconds per bulk flush, entries admitted, (the stats reads'
     launches of row_stats and of K3, the seconds of each read, the host
-    split of each bulk flush)). ``mode`` "depth2" runs the engine at
-    pipeline depth 2, "async" flushes the bulk through flush_async; the
-    verdict reads after each flush materialize it in both."""
+    split of each bulk flush, (the telemetry bus's blocked top-K, its span
+    count, spans_to_trace of its spans))). ``mode`` "depth2" runs the engine
+    at pipeline depth 2, "async" flushes the bulk through flush_async; the
+    verdict reads after each flush materialize it in both. ``telemetry``
+    False turns the flight recorder off (phase 4h (d))."""
+    from sentinel_tpu_torch.metrics import spans_to_trace
+    from sentinel_tpu_torch.utils.config import config
+
     clock = tclock.ManualClock(0)
-    api.reset(clock=clock, device=device)
+    if telemetry:
+        api.reset(clock=clock, device=device)
+    else:
+        _fresh_engine(device, {config.TELEMETRY_ENABLED: "false"}, clock)
     st.flow_rule_manager.load_rules([st.FlowRule(f"r{i}", count=20) for i in range(N_RULES)])
     eng = api.get_engine()
     eng.pipeline_depth = 2 if mode == "depth2" else 0
@@ -1769,7 +1797,9 @@ def drive_engine(device: torch.device, seed: int, mode: str = "sync"):
     eng.drain()
     final = nodes.stats_to_numpy(eng.stats)
     blk = eng.last_blocked_topk
-    return records, final, blk, flush_s / STEPS, admitted, (read_launches, read_k3, read_s, splits)
+    spans = eng.telemetry.spans()
+    recorder = (eng.telemetry.blocked_sketch.topk(64), len(spans), spans_to_trace(spans))
+    return records, final, blk, flush_s / STEPS, admitted, (read_launches, read_k3, read_s, splits, recorder)
 
 
 def split_line(splits) -> str:
@@ -1792,7 +1822,7 @@ def phase4(results: dict, cpu_jobs: dict) -> None:
     }
     for w in wrappers.values():
         w.launches = 0
-    gpu_records, gpu_state, gpu_blk, gpu_flush_s, admitted, (read_launches, read_k3, read_s, splits) = drive_engine(
+    gpu_records, gpu_state, gpu_blk, gpu_flush_s, admitted, (read_launches, read_k3, read_s, splits, _) = drive_engine(
         DEV, seed=4)
     counts = {name: w.launches for name, w in wrappers.items()}
     log(f"  card: {gpu_flush_s * 1e3:.3f} ms per 32,768-entry flush call "
@@ -2111,7 +2141,7 @@ def phase4_pipeline(cpu_jobs: dict) -> None:
     log(f"phase 4f: the host pipeline on the card (depth 0, depth 2 and flush_async; {PIPE_STEPS} flushes of "
         f"32,768 with the reads held back {PIPE_LAG} flushes; syncs a dispatch; {card_line()})")
     for mode in ("depth2", "async"):
-        recs, state, blk, flush_s, _, (_, _, _, splits) = drive_engine(DEV, 4, mode)
+        recs, state, blk, flush_s, _, (_, _, _, splits, _) = drive_engine(DEV, 4, mode)
         same_engine_result((recs, state, blk), PHASE4_RESULT["card"], f"phase 4's stream at {mode} vs depth 0")
         same_engine_result((recs, state, blk), PHASE4_RESULT["cpu"], f"phase 4's stream at {mode} vs the CPU")
         log(f"  phase 4's stream, {mode} (each flush read at once): {flush_s * 1e3:.3f} ms per flush call, "
@@ -2806,6 +2836,490 @@ def phase4_durable(line: str) -> None:
         f"into a CPU engine in {restored['cpu'][1]:.1f} ms: states identical to each other and to the spilled "
         f"engine's (THREAD gauges zero) ({line})")
     os.unlink(path)
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: the control plane (the batch window, the ingest valve, the
+# autotuner and the flight recorder) on the card
+# ---------------------------------------------------------------------------
+
+CP_WINDOWS = 32  # (a): steps of CP_BATCH requests, each joined in order into the 2 ms window
+CP_BATCH = 4096
+CP_BURST = 65536  # (b): joins against one pending bulk flush
+CP_BULK_BOUND = 16384  # (b): sentinel.tpu.ingest.max.pending.bulk
+CP_PENDING = 4096  # (b): the pending bulk flush's rows
+CP_DEADLINE = 4096  # (b): joins of each deadline leg
+CP_STEPS = 20  # (c): flushes of FLUSH_N on the mixed stream
+CP_TURNS = 5  # (d): phase 4's stream with telemetry on, then off, this many times each
+CP_PARAM_TS = 4  # (c): distinct timestamps of the param items a flush (K10's closed form stays eligible)
+
+
+def _cp_rules(with_param: bool = True) -> None:
+    """Phase 4's 6,000 DEFAULT QPS rules; with ``with_param`` a hot-param rule
+    (count 5 a value) on every eighth resource."""
+    st.flow_rule_manager.load_rules([st.FlowRule(f"r{i}", count=20) for i in range(N_RULES)])
+    if with_param:
+        st.param_flow_rule_manager.load_rules([st.ParamFlowRule(f"r{i}", param_idx=0, count=5)
+                                               for i in range(0, N_RULES, 8)])
+
+
+def _cp_requests(rng, p, now: int, n: int) -> list:
+    """``n`` requests (resource, ts, args): Zipf(1.1) resources, a Zipf value
+    for the param resources (every eighth)."""
+    res = rng.choice(N_RULES, size=n, p=p)
+    ts = (now - rng.integers(0, 100, n)).astype(np.int64)
+    vals = np.minimum(rng.zipf(1.1, n), 4096)
+    return [(f"r{r}", int(t), (f"v{v}",) if r % 8 == 0 else ()) for r, t, v in zip(res.tolist(), ts.tolist(),
+                                                                                    vals.tolist())]
+
+
+def _zipf_p() -> np.ndarray:
+    ranks = np.arange(1, N_RULES + 1, dtype=np.float64) ** -1.1
+    return ranks / ranks.sum()
+
+
+def _tele_counters(eng) -> dict:
+    """The telemetry bus's counters but the arena's (they follow the staging
+    layout, not the stream)."""
+    c = eng.telemetry.counters_snapshot()
+    c.pop("arena_hits")
+    c.pop("arena_misses")
+    return c
+
+
+def _cp_state(eng) -> list:
+    return _states_of(eng) + [_tele_counters(eng)]
+
+
+def drive_window_spine(device: torch.device, seed: int):
+    """(a) on the card: CP_WINDOWS steps of CP_BATCH requests, each step's
+    requests joined in order into the batch window (2 ms, batch.max 4,096)
+    and waited for, on a ManualClock. The windows the flusher formed are
+    recorded (each with the clock at its dispatch), so that the CPU engine
+    can replay the same split. Returns (verdicts, the split, final states,
+    host splits, seconds)."""
+    from sentinel_tpu_torch.runtime.window import WindowRequest
+    from sentinel_tpu_torch.utils.config import config
+
+    clock = tclock.ManualClock(0)
+    eng = _fresh_engine(device, {config.INGEST_BATCH_WINDOW_MS: "2", config.INGEST_BATCH_MAX: str(CP_BATCH)}, clock)
+    _cp_rules()
+    w = eng.ingest_window
+    split, host = [], []
+    dispatch = w._dispatch_window
+
+    def recording(win):
+        split.append((eng.clock.now_ms(), [(r.resource, r.ts, r.args) for r in win.reqs]))
+        out = dispatch(win)
+        host.append(eng.last_flush_host_ms)
+        return out
+
+    w._dispatch_window = recording
+    rng = np.random.default_rng(seed)
+    p = _zipf_p()
+    verdicts = []
+    t0 = time.perf_counter()
+    for step in range(CP_WINDOWS):
+        now = 1000 + step * 100
+        clock.set_ms(now)
+        reqs = [WindowRequest(res, C.CONTEXT_DEFAULT_NAME, "", 1, C.EntryType.OUT, args, ts, None)
+                for res, ts, args in _cp_requests(rng, p, now, CP_BATCH)]
+        for r in reqs:
+            w.join(r)
+        for r in reqs:
+            if not r.event.wait(120) or r.error is not None or r.verdict is None:
+                fail(f"phase 4h (a): a windowed request was not decided ({r.error!r})")
+            verdicts.append((r.verdict.admitted, r.verdict.reason, r.verdict.wait_ms))
+    seconds = time.perf_counter() - t0
+    eng.close()
+    del w._dispatch_window
+    return verdicts, split, _cp_state(eng), host, seconds
+
+
+def replay_window_spine(device: torch.device, split: list):
+    """(a)'s CPU reference: the windows the card formed, each dispatched and
+    fanned out in order through the same BatchWindow methods at the same
+    clock. Returns (verdicts, final states)."""
+    from sentinel_tpu_torch.runtime.window import WindowRequest, _OpenWindow
+    from sentinel_tpu_torch.utils.config import config
+
+    clock = tclock.ManualClock(0)
+    eng = _fresh_engine(device, {config.INGEST_BATCH_WINDOW_MS: "2", config.INGEST_BATCH_MAX: str(CP_BATCH)}, clock)
+    _cp_rules()
+    w = eng.ingest_window
+    verdicts = []
+    for now, reqs in split:
+        clock.set_ms(now)
+        win = _OpenWindow(deadline=0.0)
+        for res, ts, args in reqs:
+            r = WindowRequest(res, C.CONTEXT_DEFAULT_NAME, "", 1, C.EntryType.OUT, args, ts, None)
+            r.event = win.event
+            win.reqs.append(r)
+        w.pending_n += len(win.reqs)
+        w.counters["reqs"] += len(win.reqs)
+        w._fan_out_window(win, w._dispatch_window(win))
+        verdicts += [(r.verdict.admitted, r.verdict.reason, r.verdict.wait_ms) for r in win.reqs]
+    eng.close()
+    return verdicts, _cp_state(eng)
+
+
+def drive_valve(device: torch.device, seed: int):
+    """(b): the window held open (60 s, batch.max above the burst), one bulk
+    flush of CP_PENDING rows pending, then CP_BURST joins through the API's
+    join (the valve at max.pending.bulk = CP_BULK_BOUND sheds every join past
+    the bound); close() serves the window with the pending group. Then the
+    deadline legs (deadline 10 s): CP_DEADLINE joins with the settle estimate
+    pinned at 20 s (all shed), CP_DEADLINE unpinned (the live EWMA the
+    fetches fed). Returns (per-request outcomes, valve snapshot counters,
+    the pending group's verdicts, final states, the live EWMA)."""
+    from sentinel_tpu_torch.core.context import ContextUtil
+    from sentinel_tpu_torch.utils.config import config
+
+    clock = tclock.ManualClock(0)
+    eng = _fresh_engine(device, {config.INGEST_BATCH_WINDOW_MS: "60000", config.INGEST_BATCH_MAX: str(2 * CP_BURST),
+                                 config.INGEST_MAX_PENDING_BULK: str(CP_BULK_BOUND),
+                                 config.INGEST_DEADLINE_MS: "10000"}, clock)
+    _cp_rules()
+    rng = np.random.default_rng(seed)
+    p = _zipf_p()
+    clock.set_ms(1000)
+    pending = eng.submit_bulk("r1", CP_PENDING, ts=1000)
+    outcomes = []
+
+    def leg(n: int, now: int, tag: str) -> None:
+        clock.set_ms(now)
+        joined = []
+        for res, _ts, args in _cp_requests(rng, p, now, n):
+            try:
+                req, _ = api._window_join(eng, res, C.EntryType.OUT, 1, None, args)
+            except st.BlockError as exc:
+                outcomes.append(("shed", type(exc).__name__, tag))
+                continue
+            eng.ingest_window.join(req)
+            joined.append(req)
+            outcomes.append(req)
+        eng.ingest_window.close()
+        for r in joined:
+            if not r.event.wait(120) or r.error is not None:
+                fail(f"phase 4h (b): a joined request was not decided ({r.error!r})")
+
+    leg(CP_BURST, 1000, "burst")
+    eng.ingest.force_latency_ms(20000.0)
+    leg(CP_DEADLINE, 1500, "pinned")
+    eng.ingest.force_latency_ms(None)
+    leg(CP_DEADLINE, 2000, "unpinned")
+    ContextUtil.replace_context(None)
+    out = [o if isinstance(o, tuple) else ("joined", o.verdict.admitted, o.verdict.reason) for o in outcomes]
+    snap = eng.ingest.snapshot()
+    return (out, snap["counters"], (pending.admitted, pending.reason), _cp_state(eng), snap["settle_ewma_ms"])
+
+
+def drive_tuned_engine(device: torch.device, seed: int, tuned: bool):
+    """(c): the mixed stream (phase 4's bulk traffic and exits, and the param
+    resources' groups with args and CP_PARAM_TS timestamps a flush) for
+    CP_STEPS flushes, with the autotuner on (a tick every second flush:
+    interval 200 ms of the clock, cooldown 1 ms, 2 samples, 2 explorations
+    a route, depth up to 2) or off. Returns
+    (records, final states, decisions, memo, K10 picks by route, host
+    splits)."""
+    from sentinel_tpu_torch.utils.config import config
+
+    clock = tclock.ManualClock(0)
+    eng = _fresh_engine(device, {config.AUTOTUNE_ENABLED: "true" if tuned else "false",
+                                 config.AUTOTUNE_INTERVAL_MS: "200", config.AUTOTUNE_COOLDOWN_MS: "1",
+                                 config.AUTOTUNE_MIN_FLUSHES: "2", config.AUTOTUNE_PARAM_EXPLORE: "2",
+                                 config.AUTOTUNE_DEPTH_MAX: "2"}, clock)
+    _cp_rules()
+    rng = np.random.default_rng(seed)
+    p = _zipf_p()
+    records, splits, prev_groups = [], [], []
+    for step in range(CP_STEPS):
+        now = 1000 + step * 100
+        clock.set_ms(now)
+        res = np.sort(rng.choice(N_RULES, size=FLUSH_N, p=p), kind="stable")
+        uniq, start = np.unique(res, return_index=True)
+        bounds = list(start) + [FLUSH_N]
+        groups = []
+        for i, r in enumerate(uniq.tolist()):
+            n = int(bounds[i + 1] - bounds[i])
+            if r % 8 == 0:
+                ts = (now - 25 * rng.integers(0, CP_PARAM_TS, n)).astype(np.int32)
+                vals = np.minimum(rng.zipf(1.1, n), 4096).tolist()
+                groups.append(eng.submit_bulk(f"r{r}", n, ts=np.sort(ts), args_column=[(f"v{v}",) for v in vals]))
+            else:
+                groups.append(eng.submit_bulk(f"r{r}", n, ts=np.sort((now - rng.integers(0, 100, n)).astype(np.int32))))
+        for g in prev_groups[:50]:
+            if g.admitted_count:
+                eng.submit_exit_bulk(g.rows, g.admitted_count, rt=int(rng.integers(1, 300)), ts=now)
+        eng.flush()
+        splits.append(eng.last_flush_host_ms)
+        for g in groups:
+            records += [g.admitted, g.reason, g.wait_ms]
+        prev_groups = groups
+    eng.flush()
+    eng.drain()
+    c = eng.telemetry.counters_snapshot()
+    at = eng.autotune
+    out = (records, _states_of(eng), list(at.decisions), at.memo.snapshot(),
+           (c["param_closed_form"], c["param_scan"]), splits)
+    eng.close()
+    return out
+
+
+def windowed_latency(windowed: bool, seconds: float = 2.0, threads: int = 8, tuned: bool = False) -> tuple:
+    """(e): phase 5's harness (``threads`` callers, real clock, a QPS = 20
+    rule) through ``api.entry_windowed`` (window 2 ms, batch.max the thread
+    count) or ``st.entry``: (requests/s, p50 ms, p99 ms, calls, the
+    autotuner's decisions). ``tuned``: the autotuner on (a tick every
+    100 ms, cooldown 200 ms), for (c)'s window controller."""
+    from sentinel_tpu_torch.utils.config import config
+
+    tclock.set_default_clock(tclock.SystemClock())
+    settings = {config.INGEST_BATCH_WINDOW_MS: "2", config.INGEST_BATCH_MAX: str(threads)} if windowed else {}
+    if tuned:
+        settings.update({config.AUTOTUNE_ENABLED: "true", config.AUTOTUNE_INTERVAL_MS: "100",
+                         config.AUTOTUNE_COOLDOWN_MS: "200"})
+    eng = _fresh_engine(DEV, settings, None)
+    st.flow_rule_manager.load_rules([st.FlowRule("methodA", count=20)])
+    call = api.entry_windowed if windowed else st.entry
+    try:
+        call("methodA").exit()  # warm
+    except st.FlowBlockError:
+        pass
+    time.sleep(1.1)
+    lat, errors = [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def worker():
+        try:
+            while not stop.is_set():
+                t_call = time.perf_counter()
+                try:
+                    with call("methodA"):
+                        decided = time.perf_counter()
+                except st.FlowBlockError:
+                    decided = time.perf_counter()
+                with lock:
+                    lat.append(decided - t_call)
+        except Exception as exc:
+            errors.append(exc)
+
+    ts = [threading.Thread(target=worker, daemon=True) for _ in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    time.sleep(seconds)
+    stop.set()
+    for t in ts:
+        t.join(timeout=30)
+    took = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in ts):
+        fail(f"phase 4h (e): a latency worker failed ({errors[:1]})")
+    eng.close()
+    if windowed and eng.ingest_window.snapshot()["flushes"] <= 0:
+        fail("phase 4h (e): the windowed calls flushed no window")
+    lat.sort()
+    n = len(lat)
+    return n / took, lat[n // 2] * 1e3, lat[int(0.99 * n)] * 1e3, n, list(eng.autotune.decisions)
+
+
+def _same(a, b, what: str) -> None:
+    if len(a) != len(b) or any(not np.array_equal(x, y) if isinstance(x, np.ndarray) else x != y
+                               for x, y in zip(a, b)):
+        fail(f"phase 4h: {what}: card and CPU differ")
+
+
+def _same_cp_states(a, b, what: str) -> None:
+    _same_states(a[:4], b[:4], what)
+    if a[4] != b[4]:
+        diff = {k: (a[4][k], b[4][k]) for k in a[4] if a[4][k] != b[4].get(k)}
+        fail(f"phase 4h: {what}: telemetry counters differ {diff}")
+
+
+def phase4_control(results: dict, cpu_jobs: dict) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    line = card_line()
+    log(f"phase 4h: the control plane on the card: the batch window, the ingest valve, the autotuner and the flight "
+        f"recorder (6,000 rules, hot-param rules on every eighth resource; {line})")
+    # (a) The window spine: 32 x 4,096 requests, the kernels' launches counted
+    # from 0 around it.
+    wrappers = {"window_update": ma.update, "thread_gauge": nodes.thread_gauge_add,
+                "flow_admission": flush.flow_admission, "run_param": tpt.run_param}
+    for wr in wrappers.values():
+        wr.launches = 0
+    verdicts, split, state, host, seconds = drive_window_spine(DEV, 14)
+    counts = {name: wr.launches for name, wr in wrappers.items()}
+    for name, c in counts.items():
+        if c <= 0:
+            fail(f"phase 4h (a): kernel {name} was not launched on the window's path")
+        results[name]["launches_4h"] = c
+    replay = WORKERS.apply_async(replay_window_spine, (torch.device("cpu"), split))
+    n_windows = len(split)
+    flushes = state[4]["flushes"]
+    log(f"  (a) {len(verdicts):,} requests in {CP_WINDOWS} steps of {CP_BATCH:,} joined into the 2 ms window "
+        f"(batch.max {CP_BATCH:,}): {n_windows} windows, {flushes} flushes, {seconds:.2f} s "
+        f"({len(verdicts) / seconds:,.0f} requests/s from one joining thread); launches {counts}; host split of a "
+        f"window's flush: {split_line(host)} ({line})")
+    # (b) The valve against its CPU reference.
+    out, valve, pend, v_state, ewma = drive_valve(DEV, 15)
+    c_out, c_valve, c_pend, c_v_state, _ = cpu_result(cpu_jobs, "4h b")
+    _same(out, c_out, "(b) the burst's outcomes")
+    _same(list(pend), list(c_pend), "(b) the pending bulk group")
+    if valve != c_valve:
+        fail(f"phase 4h (b): valve counters differ: card {valve} CPU {c_valve}")
+    _same_cp_states(v_state, c_v_state, "(b) the valve's states")
+    shed_q = sum(1 for o in out if o[0] == "shed" and o[2] == "burst")
+    shed_d = sum(1 for o in out if o[0] == "shed" and o[2] == "pinned")
+    if (shed_q != CP_BURST - (CP_BULK_BOUND - CP_PENDING) or shed_d != CP_DEADLINE
+            or (valve["shed_queue"], valve["shed_deadline"], valve["shed_rows"]) != (shed_q, shed_d, shed_q + shed_d)
+            or any(o[0] == "shed" and o[1] != "IngestShedError" for o in out)):
+        fail(f"phase 4h (b): {shed_q} sheds in the burst and {shed_d} pinned, counters {valve}")
+    if not ewma > 0.0:
+        fail("phase 4h (b): the card's fetches fed no settle EWMA")
+    log(f"  (b) {CP_BURST:,} joins against one pending flush of {CP_PENDING:,} rows at max.pending.bulk "
+        f"{CP_BULK_BOUND:,}: {shed_q:,} shed \"queue\" (IngestShedError), then {CP_DEADLINE:,} shed \"deadline\" "
+        f"with the estimate pinned, {CP_DEADLINE:,} admitted unpinned; every outcome, the valve's counters {valve} and "
+        f"every state tensor identical on card and CPU; the live settle EWMA the card's fetches fed: {ewma:.3f} ms "
+        f"({line})")
+    # (c) The autotuner on the mixed stream, K10's routes counted by the
+    # profiler (pa_small serves batches up to 2,048 items on either route).
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_out = drive_tuned_engine(DEV, 16, True)
+        torch.cuda.synchronize()
+    recs, t_states, decisions, memo, picks, t_splits = t_out
+    k10 = {"pa_closed": 0, "pa_walk": 0, "pa_small": 0}
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n_kernels += 1
+            for k in k10:
+                if k in e.name:
+                    k10[k] += 1
+    if n_kernels == 0:
+        fail("phase 4h (c): torch.profiler recorded no device kernel")
+    c_recs, c_states, c_decisions, _, c_picks, _ = cpu_result(cpu_jobs, "4h c")
+    _same(recs, c_recs, "(c) the tuned card engine vs the untuned CPU engine")
+    _same_states(t_states, c_states, "(c) tuned card vs untuned CPU")
+    if c_decisions or c_picks[1] != 0:
+        fail(f"phase 4h (c): the untuned CPU engine moved a knob ({c_decisions}, picks {c_picks})")
+    if k10["pa_closed"] == 0 or k10["pa_walk"] == 0 or picks[0] == 0 or picks[1] == 0:
+        fail(f"phase 4h (c): K10 ran one route only (profiler {k10}, picks closed/scan {picks})")
+    results["run_param"]["routes_4h"] = {"closed_picks": picks[0], "scan_picks": picks[1], **k10}
+    depth = [(d["from"], d["to"], d["reason"]) for d in decisions if d["knob"] == "depth"]
+    log(f"  (c) {CP_STEPS} flushes of {FLUSH_N:,} with the autotuner on: verdicts and every state tensor equal to the "
+        f"untuned CPU engine's; K10 picks closed {picks[0]}, scan {picks[1]}; K10 kernels by torch.profiler "
+        f"{k10}; depth decisions {depth or 'none'}; host split {split_line(t_splits)} ({line})")
+    for b in memo:
+        log(f"    memo bucket rows<={b['rows_bucket']}, {b['segments']} segment(s): closed {b['closed_ewma_ms']} ms "
+            f"({b['closed_n']} samples), scan {b['scan_ewma_ms']} ms ({b['scan_n']}), current {b['current']} "
+            f"(dispatch + settle ms of a flush; {line})")
+    rps, p50, p99, n, w_decisions = windowed_latency(True, tuned=True)
+    window = [(d["knob"], d["from"], d["to"], d["reason"]) for d in w_decisions]
+    log(f"  (c) the window controller: api.entry_windowed, 8 threads, 2 s, the autotuner on: decisions "
+        f"{window or 'none'}; {rps:,.0f} requests/s, p50 {p50:.4f} ms, p99 {p99:.4f} ms ({n} calls; {line})")
+    # (d) The flight recorder: phase 4's stream with telemetry on and off in
+    # turns, the sketch against the CPU engine's, the trace written and read.
+    c4 = cpu_result(cpu_jobs, "4")
+    c_topk = c4[5][4][0]
+    calls = {True: [], False: []}
+    trace_on = n_on = None
+    for turn in range(2 * CP_TURNS):
+        on = turn % 2 == 0
+        recs4, state4, blk4, flush_s, _, (_, _, _, splits4, rec4) = drive_engine(DEV, 4, telemetry=on)
+        same_engine_result((recs4, state4, blk4 if on else PHASE4_RESULT["card"][2]), PHASE4_RESULT["card"],
+                           f"phase 4h (d): telemetry {'on' if on else 'off'}")
+        calls[on].append((flush_s * 1e3, float(np.median([s["encode_ms"] + s["kernel_ms"] for s in splits4])),
+                          splits4))
+        topk, n_spans, trace = rec4
+        if on:
+            if topk != c_topk:
+                fail(f"phase 4h (d): the blocked sketch's top-K differs from the CPU engine's: {topk[:4]} vs "
+                     f"{c_topk[:4]}")
+            if n_spans <= 0:
+                fail("phase 4h (d): telemetry on recorded no span")
+            trace_on, n_on = trace, n_spans
+        elif n_spans != 0 or topk:
+            fail("phase 4h (d): telemetry off recorded something")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)  # listed in .gitignore
+    path = os.path.join(ROOT, "build", "phase4h_trace.json")
+    with open(path, "w") as fh:
+        json.dump(trace_on, fh)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    encodes = sum(1 for e in events if e.get("ph") == "X" and e.get("name") == "encode")
+    if encodes != n_on:
+        fail(f"phase 4h (d): the trace holds {encodes} encode events for {n_on} spans")
+    on_ms = [c[1] for c in calls[True]]
+    off_ms = [c[1] for c in calls[False]]
+    resolved = max(on_ms) < min(off_ms) or max(off_ms) < min(on_ms)
+    log(f"  (d) phase 4's stream, telemetry on: flush call {', '.join(f'{c[0]:.2f}' for c in calls[True])} ms "
+        f"(mean a run), host encode + kernel {', '.join(f'{m:.2f}' for m in on_ms)} ms (median a run); "
+        f"host split {split_line([s for c in calls[True] for s in c[2]])} ({line})")
+    log(f"      telemetry off: flush call {', '.join(f'{c[0]:.2f}' for c in calls[False])} ms, host encode + kernel "
+        f"{', '.join(f'{m:.2f}' for m in off_ms)} ms; host split {split_line([s for c in calls[False] for s in c[2]])}; "
+        f"on minus off, medians {float(np.median(on_ms)) - float(np.median(off_ms)):+.3f} ms: "
+        f"{'resolved' if resolved else 'not resolved'} against the spread (ranges {min(on_ms):.2f}-{max(on_ms):.2f} "
+        f"and {min(off_ms):.2f}-{max(off_ms):.2f}); the blocked sketch's top-K equal to the CPU engine's; "
+        f"{encodes} spans written to {os.path.relpath(path, ROOT)} and read back, one encode event a span")
+    syncs_ok = default_dispatch_syncs_ok()
+    log(f"  (d) the DEFAULT dispatch with telemetry on: {syncs_ok} flush_async dispatches under "
+        f"set_sync_debug_mode(\"error\"), 0 syncs")
+    # (e) Throughput: entry_windowed and st.entry, 8 threads, in turns.
+    turns = []
+    for windowed in (True, False, True, False):
+        turns.append((windowed, windowed_latency(windowed)))
+    for windowed, (rps, p50, p99, n, _) in turns:
+        log(f"  (e) {'api.entry_windowed' if windowed else 'st.entry'}, 8 threads, 2 s: {rps:,.0f} requests/s, "
+            f"p50 {p50:.4f} ms, p99 {p99:.4f} ms ({n} calls; {line})")
+    # (a)'s CPU replay of the card's split.
+    t0 = time.perf_counter()
+    c_verdicts, c_state = replay.get()
+    log(f"  (the CPU replay of (a) came {time.perf_counter() - t0:.1f} s after it was asked for)")
+    _same(verdicts, c_verdicts, "(a) the window's verdicts")
+    _same_cp_states(state, c_state, "(a) the window's states")
+    adm = sum(1 for v in verdicts if v[0])
+    if adm <= 0 or adm >= len(verdicts):
+        fail("phase 4h (a): the windows admitted nothing or everything")
+    log(f"  (a) verdicts (admitted, reason, wait_ms) of all {len(verdicts):,} requests ({adm:,} admitted), every "
+        f"state tensor and the telemetry counters identical to the CPU engine's replay of the same {n_windows} "
+        f"windows")
+    tclock.set_default_clock(tclock.SystemClock())
+    api.reset(device=DEV)
+
+
+def default_dispatch_syncs_ok(flushes: int = 4) -> int:
+    """The DEFAULT route with telemetry on: phase 4's bulk traffic, each
+    dispatch through flush_async under set_sync_debug_mode("error") (a sync
+    raises), the drain outside it. Returns the dispatches checked."""
+    clock = tclock.ManualClock(0)
+    eng = _fresh_engine(DEV, {}, clock)
+    _cp_rules(with_param=False)
+    if not eng.telemetry.enabled:
+        fail("phase 4h (d): telemetry is not on by default")
+    rng = np.random.default_rng(17)
+    p = _zipf_p()
+    eng.max_inflight = 8
+    for step in range(flushes):
+        now = 1000 + 100 * step
+        clock.set_ms(now)
+        res = np.sort(rng.choice(N_RULES, size=FLUSH_N, p=p), kind="stable")
+        uniq, counts = np.unique(res, return_counts=True)
+        for r, n in zip(uniq.tolist(), counts.tolist()):
+            eng.submit_bulk(f"r{r}", int(n), ts=now)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.flush_async()
+        except RuntimeError as exc:
+            fail(f"phase 4h (d): a DEFAULT dispatch with telemetry on synchronized with the host: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        eng.drain()
+    if eng.telemetry.counters_snapshot()["flushes"] != flushes:
+        fail("phase 4h (d): the checked dispatches recorded no span")
+    return flushes
 
 
 # ---------------------------------------------------------------------------
@@ -3925,6 +4439,8 @@ def start_cpu_jobs() -> dict:
         "4f": WORKERS.apply_async(drive_pipeline_engine, (cpu, 10, "sync")),
         "4g": WORKERS.apply_async(drive_failover_engine, (cpu, 4, True, True)),
         "4g spec": WORKERS.apply_async(drive_spec_entries, (cpu, 11)),
+        "4h b": WORKERS.apply_async(drive_valve, (cpu, 15)),
+        "4h c": WORKERS.apply_async(drive_tuned_engine, (cpu, 16, False)),
     }
 
 
@@ -3994,6 +4510,7 @@ def main() -> None:
         ("4c", lambda: phase4_shaping(results, cpu_jobs)), ("4d", lambda: phase4_sketch(results, cpu_jobs)),
         ("2f", lambda: phase2_mesh(results)), ("3b", phase3b), ("4e", lambda: phase4_mesh(results, cpu_jobs)),
         ("4f", lambda: phase4_pipeline(cpu_jobs)), ("4g", lambda: phase4_failover(cpu_jobs)),
+        ("4h", lambda: phase4_control(results, cpu_jobs)),
         ("5", phase5), ("6", phase6), ("7", phase7), ("8", lambda: phase8(results, cpu_jobs)), ("9", phase9),
     ):
         t0 = time.perf_counter()
@@ -4024,7 +4541,7 @@ def main() -> None:
                       "decay_launches_per_call", "decay_memsets_per_call", "decay_device_ms", "decay_kernel_us",
                       "widened_device_ms", "widened_kernel_us", "matured_ms", "matured_launches_per_call",
                       "matured_memsets_per_call", "matured_device_ms", "matured_cells", "read_ms", "small_plain_ms",
-                      "edges"):
+                      "edges", "launches_4h", "routes_4h"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

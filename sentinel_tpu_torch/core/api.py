@@ -8,7 +8,9 @@
 * ``entry_async`` ≙ ``SphU.asyncEntry``: an Entry off the context's
   stack;
 * ``trace`` ≙ ``Tracer.trace``: marks the current entry's business
-  exception, counted at exit.
+  exception, counted at exit;
+* ``entry_windowed`` / ``entry_windowed_async``: ``entry`` through the
+  engine's batch window (runtime/window.py) when it is armed.
 
 A process-global :class:`Engine` plays ``Env.sph``; ``get_engine()``
 builds it on first use on the card (``cuda:0``), or on the device the
@@ -144,6 +146,9 @@ class Entry:
         # exit (the reference's releaseConcurrentToken on completion).
         self.cluster_tokens = list(cluster_tokens)
         self._exited = False
+        # A windowed entry may batch its exit columnar through the window
+        # (BatchWindow.note_exit); None = the normal per-request exit.
+        self._exit_sink = None
 
     def set_error(self, e: BaseException) -> None:
         """Tracer.traceEntry: the one choke point every trace path goes
@@ -173,10 +178,15 @@ class Entry:
             # (speculative False, degraded True) charge the persistent
             # mirror's THREAD counter as speculative admits do.
             spec = (self.verdict.speculative or self.verdict.degraded) if self.verdict is not None else None
-            engine.submit_exit(
-                self.rows, rt=rt, count=count if count is not None else self.acquire,
-                err=err, resource=self.resource, param_rows=self.param_rows, speculative=spec,
-            )
+            sink = self._exit_sink
+            if sink is not None and not self.param_rows and not self.cluster_tokens:
+                sink(self.rows, self.resource, rt, count if count is not None else self.acquire, err,
+                     spec if spec is not None else False)
+            else:
+                engine.submit_exit(
+                    self.rows, rt=rt, count=count if count is not None else self.acquire,
+                    err=err, resource=self.resource, param_rows=self.param_rows, speculative=spec,
+                )
         if self.cluster_tokens:
             release_cluster_tokens(self.cluster_tokens)
             self.cluster_tokens = []
@@ -294,6 +304,132 @@ def entry_async(
     e, verdict = _do_entry(resource, entry_type, count, origin, False, args=args, with_context=False)
     if e is None:
         raise _block_error(verdict, resource)
+    return e
+
+
+# ---------------------------------------------------------------------------
+# Batch-window admission (runtime/window.py). The IPC worker hook of the
+# JAX functions belongs to ROADMAP Queue 1 item 10.
+# ---------------------------------------------------------------------------
+
+
+def _window_join(engine: Engine, resource, entry_type, count, origin, args):
+    """The head of the windowed paths: context bookkeeping and the shed
+    before assembly (a shed request never occupies a window slot, and the
+    window's queued requests count toward the valve's bulk bound). Returns
+    ``(req, ctx)``. The admission trace's caller-thread stamp belongs to
+    ROADMAP Queue 1 item 8."""
+    from sentinel_tpu_torch.runtime.window import WindowRequest
+
+    ctx = ContextUtil.get_context()
+    if ctx is None:
+        ctx = ContextUtil.true_enter(C.CONTEXT_DEFAULT_NAME, origin or "")
+    eff_origin = origin if origin is not None else ctx.origin
+    context_name = ctx.name if not ctx.is_null else C.CONTEXT_DEFAULT_NAME
+    if engine.ingest.armed:
+        cause = engine.ingest.check_bulk(1)
+        if cause is not None:
+            op = engine._shed_entry(resource, context_name, eff_origin, count, cause)
+            if ctx.auto and not ctx.entry_stack:
+                ContextUtil.exit()
+            raise _block_error(op.verdict, resource)
+    req = WindowRequest(resource, context_name, eff_origin, count, entry_type, tuple(args), engine.clock.now_ms(),
+                        None)
+    return req, ctx
+
+
+def _window_entry_tail(engine: Engine, req, ctx, resource, count, with_context: bool) -> Entry:
+    """The fanned-out verdict as an Entry or a BlockError, with
+    :func:`_do_entry`'s context bookkeeping. The rate limiter's wait is
+    the caller's to pay."""
+    if req.error is not None:
+        raise req.error
+    v = req.verdict
+    if req.pass_through:
+        e = Entry(resource, (-1, -1, -1, -1), ctx if with_context else None, req.ts, count, pass_through=True)
+        if with_context:
+            ctx.entry_stack.append(e)
+        elif ctx.auto and not ctx.entry_stack:
+            ContextUtil.exit()
+        return e
+    if not v.admitted:
+        if ctx.auto and not ctx.entry_stack:
+            ContextUtil.exit()
+        raise _block_error(v, resource)
+    e = Entry(resource, req.rows, ctx if with_context else None, req.ts, count, verdict=v,
+              param_rows=req.param_rows, cluster_tokens=req.cluster_tokens)
+    if req.bulk_exit:
+        e._exit_sink = engine.ingest_window.note_exit
+    if with_context:
+        ctx.entry_stack.append(e)
+    elif ctx.auto and not ctx.entry_stack:
+        ContextUtil.exit()
+    return e
+
+
+def entry_windowed(
+    resource: str,
+    entry_type: C.EntryType = C.EntryType.OUT,
+    count: int = 1,
+    origin: Optional[str] = None,
+    args: Sequence[object] = (),
+    detached: bool = False,
+) -> Entry:
+    """:func:`entry` (or, ``detached=True``, :func:`entry_async`) through
+    the batch window when it is armed (``sentinel.tpu.ingest.batch.window.ms``
+    > 0): the admission joins concurrent requests in one columnar
+    ``submit_bulk`` flush and its verdict fans back out, with the same
+    Entry/BlockError surface and the same verdicts. Window off (the
+    default) is exactly the per-request call."""
+    engine = get_engine()
+    w = engine.ingest_window
+    if not w.armed:
+        if detached:
+            return entry_async(resource, entry_type, count, origin, args)
+        return entry(resource, entry_type, count, origin, args=args)
+    req, ctx = _window_join(engine, resource, entry_type, count, origin, args)
+    w.join(req)
+    req.event.wait()
+    e = _window_entry_tail(engine, req, ctx, resource, count, with_context=not detached)
+    if req.verdict is not None and req.verdict.wait_ms > 0:
+        engine.clock.sleep_ms(req.verdict.wait_ms)  # a queued pass waits after the batched decision
+    return e
+
+
+async def entry_windowed_async(
+    resource: str,
+    entry_type: C.EntryType = C.EntryType.OUT,
+    count: int = 1,
+    origin: Optional[str] = None,
+    args: Sequence[object] = (),
+    detached: bool = True,
+) -> Entry:
+    """The awaitable :func:`entry_windowed`: the event loop stays free
+    while the window assembles and flushes (the fan-out wakes the task on
+    its own loop). A cancelled awaiter whose slot was admitted is exited
+    by the window. Window off falls back to the blocking per-request call."""
+    import asyncio
+
+    engine = get_engine()
+    w = engine.ingest_window
+    if not w.armed:
+        if detached:
+            return entry_async(resource, entry_type, count, origin, args)
+        return entry(resource, entry_type, count, origin, args=args)
+    req, ctx = _window_join(engine, resource, entry_type, count, origin, args)
+    w.join(req, loop=asyncio.get_running_loop())
+    try:
+        await req.future
+    except asyncio.CancelledError:
+        req.abandoned = True
+        if req.verdict is not None:
+            w.release_abandoned(req)
+        if ctx.auto and not ctx.entry_stack:
+            ContextUtil.exit()
+        raise
+    e = _window_entry_tail(engine, req, ctx, resource, count, with_context=not detached)
+    if req.verdict is not None and req.verdict.wait_ms > 0:
+        await asyncio.sleep(req.verdict.wait_ms / 1e3)
     return e
 
 

@@ -22,7 +22,11 @@ device-failure domain (``sentinel.tpu.failover.enabled``: the flush
 watchdog, checkpoints in memory and on disk, the host fallback and the
 probe-flush recovery, runtime/failover.py) and the speculative host tier
 (``sentinel.tpu.speculative.enabled``: host verdicts the flush settles and
-reconciles, runtime/speculative.py). Everything else the JAX engine does is refused loudly with
+reconciles, runtime/speculative.py); the control plane: the flight recorder
+(``Engine.telemetry``, metrics/telemetry.py, on by default), the ingest
+valve (``Engine.ingest``, runtime/ingest.py), the batch window
+(``Engine.ingest_window``, runtime/window.py) and the autotuner
+(``Engine.autotune``, runtime/autotune.py). Everything else the JAX engine does is refused loudly with
 ``NotImplementedError`` naming its ROADMAP item (see
 ``_refuse_unported_config`` and the ``set_*`` methods), never ignored.
 
@@ -49,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+import weakref
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -58,6 +63,7 @@ import torch
 
 from sentinel_tpu_torch.core import errors as E
 from sentinel_tpu_torch.metrics.events import MetricEvent
+from sentinel_tpu_torch.metrics.telemetry import TelemetryBus
 from sentinel_tpu_torch.metrics.nodes import (
     MINUTE_CFG,
     RS_MIN_RT,
@@ -117,8 +123,8 @@ _SUBMIT_ENTRY_KEYS = frozenset(("resource", "context_name", "origin", "acquire",
 # Switches the JAX engine honours that this slice does not have yet.
 _UNPORTED_SWITCHES = (
     (config.CAPTURE_ENABLED, ROADMAP_TIERS),
-    (config.AUTOTUNE_ENABLED, ROADMAP_TIERS),
     (config.IPC_ENABLED, ROADMAP_IPC),
+    (config.SPANS_ENABLED, ROADMAP_METRICS),
 )
 
 
@@ -138,6 +144,9 @@ class Verdict(NamedTuple):
     wait_ms: int
     blocked_rule: Optional[object]  # the rule bean that blocked, if attributable
     limit_type: str = ""  # system block dimension (qps/thread/rt/load/cpu)
+    # The custom slot that blocked: "" until custom slots are ported
+    # (ROADMAP Queue 1 item 11); in the JAX Verdict's place.
+    slot_name: str = ""
     # Provenance: True when the host fallback decided while the engine was
     # DEGRADED (runtime/failover.py), never the device path.
     degraded: bool = False
@@ -159,16 +168,17 @@ class _PendingFetch:
 
     Each record has its own RLock: the wait and the fill run without the
     engine's queue lock held, and a re-entrant materialization from the
-    fill is a no-op. The JAX record's flight-recorder span and capture
-    token belong to ROADMAP Queue 1 items 8 and 7."""
+    fill is a no-op. The record's flight-recorder span closes at
+    materialization; the JAX record's capture token belongs to ROADMAP
+    Queue 1 item 7 (step 7c)."""
 
     __slots__ = ("_engine", "_entries", "_bulk", "_exits", "_bulk_exits", "_refs", "_fill", "_done", "_error",
-                 "_lock", "_staging", "_seq")
+                 "_lock", "_staging", "_seq", "_span")
 
     def __init__(self, engine: "Engine", entries: List["_EntryOp"], refs: "_ChunkRefs",
                  fill: Callable[[np.ndarray], None], staging: List[tuple], seq: int,
                  bulk: Sequence["BulkOp"] = (), exits: Sequence["_ExitOp"] = (),
-                 bulk_exits: Sequence["_BulkExitOp"] = ()) -> None:
+                 bulk_exits: Sequence["_BulkExitOp"] = (), span=None) -> None:
         self._engine = engine
         self._entries = entries
         self._bulk = list(bulk)
@@ -183,6 +193,7 @@ class _PendingFetch:
         # landed (the device may read the input buffer until then).
         self._staging = staging
         self._seq = seq  # the engine's flush sequence number of the chunk
+        self._span = span  # the flight-recorder span (None: telemetry off)
 
     def materialize(self, got: Optional[np.ndarray] = None) -> None:
         """Fetch + verdict fill + post work, exactly once. ``got`` is the
@@ -202,6 +213,7 @@ class _PendingFetch:
                     # touch the (possibly wedged) device again.
                     self._quarantine_locked(fo)
                     return
+                t_fetch0 = time.perf_counter()
                 try:
                     if got is None:
                         t0 = time.perf_counter()
@@ -225,6 +237,12 @@ class _PendingFetch:
                         staging, self._staging = self._staging, []
                         if staging and self._error is None and self._engine._arena is not None:
                             self._engine._arena.give_all(staging)
+                span, self._span = self._span, None
+                if span is not None and self._error is None:
+                    # For a coalesced drain the wait is in the drain
+                    # histogram: the span's settle times this record's own
+                    # fill (and its own wait on the fallback path).
+                    self._engine.telemetry.settle(span, t_fetch0, time.perf_counter())
                 entries, self._entries = self._entries, []
                 self._bulk = []
                 self._exits = []
@@ -250,6 +268,11 @@ class _PendingFetch:
         self._staging = []
         self._done = True
         fo.note_quarantined()
+        span, self._span = self._span, None
+        if span is not None:
+            span.quarantined = True
+            t = time.perf_counter()
+            self._engine.telemetry.settle(span, t, t)
         fo.fill_degraded(entries, exits, bulk, bulk_exits)
         _release_blocked_tokens(entries)
 
@@ -631,10 +654,9 @@ class Engine:
         self._breaker_mirror_lock = threading.Lock()
         self.param_index = ParamIndex({})
         self.param_dyn: ParamDynState = make_param_state(8, self.device)
-        # Test seam, as the JAX engine's: "scan" runs a closed-form-eligible
-        # param batch on the rounds/scan path instead (the autotuner that
-        # arbitrates this in the JAX engine is not ported, so by default
-        # the closed form is taken whenever it is eligible).
+        # Measurement seam, as the JAX engine's: None in production;
+        # "closed"/"scan" pins closed-form-eligible param batches to one of
+        # K10's routes, ahead of the autotuner's pick.
         self.param_force_path: Optional[str] = None
         self.system_config = None  # rules/system_manager.SystemConfig, or None
         self.authority_rules: Dict[str, AuthorityRule] = {}
@@ -678,11 +700,17 @@ class Engine:
         self._flush_seq = 0
         # True when a stop could not join the auto-flush thread in time.
         self.closed_dirty = False
-        # Device-side blocked-resource top-K (the JAX TelemetryBus default:
-        # on, k = 8). The bus that folds these waits for its own item; the
-        # engine keeps the last chunk's pair.
-        self._blk_topk_k = self._blocked_topk_k()
+        # The flight recorder (metrics/telemetry.py): per-flush spans,
+        # histograms and the blocked-resource summary, on by default. Off,
+        # the hot path pays one attribute read a flush and the verdict tail
+        # computes no blocked top-K (k = 0).
+        self.telemetry = TelemetryBus()
+        self._blk_topk_k = self._blocked_topk_k(self.telemetry)
         self.last_blocked_topk: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        # Baseline of the per-span intern-cache deltas: (a weakref to the
+        # param index the totals came from, hits, misses); a reload swaps
+        # the index and its counters start again at 0.
+        self._tele_intern_seen: Tuple[Optional[object], int, int] = (None, 0, 0)
         # The statistics sketch tier (runtime/sketch.py): disarmed by
         # default, one attribute read per call site; armed, its fold rides
         # the flush and its candidate table the verdict copy.
@@ -706,17 +734,27 @@ class Engine:
         self.speculative = SpeculativeAdmitter(self)
         if self.speculative.enabled:
             self.failover.fallback = self.speculative.mirror
+        # The control plane, each disarmed by default (one attribute read
+        # per call site): the batch window (runtime/window.py), built before
+        # the ingest valve (runtime/ingest.py), which counts the window's
+        # queued requests toward its bulk bound; then the autotuner
+        # (runtime/autotune.py), which samples all three.
+        from sentinel_tpu_torch.runtime.autotune import AutoTuner
+        from sentinel_tpu_torch.runtime.ingest import IngestValve
+        from sentinel_tpu_torch.runtime.window import BatchWindow
+
+        self.ingest_window = BatchWindow(self)
+        self.ingest = IngestValve(self)
+        self.autotune = AutoTuner(self)
 
     @staticmethod
-    def _blocked_topk_k() -> int:
-        if not config.get_bool(config.TELEMETRY_ENABLED, True):
+    def _blocked_topk_k(tele: TelemetryBus) -> int:
+        if not tele.enabled:
             return 0
-        k = config.get_int(config.TELEMETRY_BLOCKED_TOPK_K, -1)
-        if k < 0:
-            k = config.get_int(config.TELEMETRY_SKETCH_K, 8)
+        k = tele.blocked_topk_k
         if k > TOPK_MAX:
             raise unported(f"a blocked top-K above {TOPK_MAX} (k={k})", ROADMAP_METRICS)
-        return max(0, k)
+        return k
 
     # ------------------------------------------------------------------
     # mesh mode
@@ -866,11 +904,14 @@ class Engine:
 
     def _note_drain_ms(self, ms: float) -> None:
         """Add deferred-fetch time to the current breakdown (a drain landing
-        just after a new flush swapped the dict counts toward the new one).
-        The telemetry histogram the JAX engine feeds here belongs to ROADMAP
-        Queue 1 item 8, the ingest valve's settle signal to item 7."""
+        just after a new flush swapped the dict counts toward the new one),
+        the drain histogram and the ingest valve's settle signal."""
         with self._timing_lock:
             self._flush_timing["drain_ms"] = self._flush_timing.get("drain_ms", 0.0) + ms
+        if self.telemetry.enabled:
+            self.telemetry.note_drain(ms)
+        if self.ingest.armed:
+            self.ingest.note_settle_ms(ms)
 
     @property
     def pipeline_depth(self) -> int:
@@ -884,9 +925,10 @@ class Engine:
         self._resize_arena()
 
     def set_depth(self, depth: int, drain: bool = True) -> None:
-        """Change the pipeline depth at run time. Lowering it with chunks in
-        flight settles the excess first (``drain=True``), so the queue is
-        never deeper than the depth; raising it is always safe."""
+        """Change the pipeline depth at run time (the autotuner's hook).
+        Lowering it with chunks in flight settles the excess first
+        (``drain=True``), so the queue is never deeper than the depth;
+        raising it is always safe (the arena grows with it)."""
         depth = max(0, int(depth))
         if drain and depth < self._pipeline_depth:
             self._drain_pending(keep=depth)
@@ -1104,6 +1146,14 @@ class Engine:
                         # Armed: DEGRADED now; each record below quarantines
                         # (policy verdicts, no second wait on a dead card).
                         fo.trip("fetch", exc, batch_seqs)
+                    elif self.telemetry.enabled:
+                        # The per-record waits below attribute the failure
+                        # to the record(s) that caused it.
+                        self.telemetry.note_fallback(1)
+                        for rec in recs:
+                            span = rec._span  # a local: a materialize elsewhere may clear it
+                            if span is not None:
+                                span.fallbacks += 1
             it = iter(fetched) if fetched is not None else None
             for rec, refs in zip(recs, batch_refs):
                 got = next(it) if (it is not None and refs is not None) else None
@@ -1123,16 +1173,21 @@ class Engine:
                     first_err = exc
         if first_err is not None:
             raise first_err
+        # The autotuner's tick rides the drain path, off the submit hot
+        # path, rate-limited inside maybe_tick.
+        at = getattr(self, "autotune", None)
+        if at is not None and at.enabled:
+            at.maybe_tick(self.clock.now_ms())
 
     def reset(self) -> None:
         """Back to a fresh engine on the same device: the deferred fetches
         settle first (a failure is logged, not raised), then the queues, the
         node registry, the stats (same row count), every rule index and
         state, the system config and the authority rules are cleared, and
-        the failover tier (back to HEALTHY, no checkpoint) and the
-        speculative tier (a fresh mirror) reset. The mesh and a running
-        auto-flusher stay. The JAX engine's ingest, provenance and ipc
-        resets belong to ROADMAP Queue 1 items 7, 8 and 10."""
+        the failover tier (back to HEALTHY, no checkpoint), the speculative
+        tier (a fresh mirror) and the ingest valve reset. The mesh and a
+        running auto-flusher stay. The JAX engine's provenance and ipc
+        resets belong to ROADMAP Queue 1 items 8 and 10."""
         try:
             self.drain()
         except Exception:
@@ -1141,6 +1196,7 @@ class Engine:
             record_log.error("[Engine] settling pre-reset async flushes failed", exc_info=True)
         self.failover.reset()
         self.speculative.reset()
+        self.ingest.reset()
         with self._on_stream():
             self.sketch.reset()
             with self._flush_lock, self._lock:
@@ -1289,7 +1345,13 @@ class Engine:
         (BLOCK_SKETCH, never enqueued). Cluster-mode rules consult the
         token service outside the engine lock (it may be remote in the
         reference, FlowRuleChecker.passClusterCheck); the op is enqueued
-        after that, so no flush sees it half decided."""
+        after that, so no flush sees it half decided. With the ingest valve
+        armed, an entry over its bound is refused at once (BLOCK_SHED,
+        never enqueued)."""
+        if self.ingest.armed:
+            cause = self.ingest.check_entry(1)
+            if cause is not None:
+                return self._shed_entry(resource, context_name, origin, acquire, cause)
         args = tuple(args)
         with self._lock:
             findex = self.flow_index
@@ -1371,9 +1433,23 @@ class Engine:
           ``submit_entry``, in request order.
 
         With the sketch tier's cold ceilings armed every request goes
-        through ``submit_entry`` (the ceiling must see each one)."""
+        through ``submit_entry`` (the ceiling must see each one). With the
+        ingest valve armed, a batch sheds whole only when the queue is
+        already full or the deadline unmeetable; otherwise the loop stops at
+        the queue bound and ``submit_entry`` sheds exactly the overflow (and
+        the token-service deferral is off: the valve counts per op)."""
+        valve = self.ingest
+        if valve.armed:
+            cause = valve.check_entry(1)
+            if cause is not None:
+                return [
+                    self._shed_entry(req.get("resource", ""), req.get("context_name", C.CONTEXT_DEFAULT_NAME),
+                                     req.get("origin", ""), req.get("acquire", 1), cause)
+                    for req in requests
+                ]
         if self.sketch.cold_armed:
             return [self.submit_entry(**req) for req in requests]
+        bound = valve.max_pending if valve.armed else 0
         out: List[Optional[_EntryOp]] = []
         resume_at = 0
         over = False
@@ -1390,8 +1466,8 @@ class Engine:
                     req.get("origin", ""), req.get("acquire", 1), req.get("entry_type", C.EntryType.OUT),
                     req.get("prio", False), req.get("ts"), tuple(req.get("args", ())),
                 )
-                resume_at = i + 1
                 if op is None:
+                    resume_at = i + 1
                     if self.sketch.armed:
                         self.sketch.note_unrouted(req["resource"], req.get("acquire", 1))
                     out.append(None)
@@ -1400,6 +1476,13 @@ class Engine:
                     (cluster_gids and any(gid in cluster_gids for gid, _ in op.slots))
                     or any(s.rule is not None and s.rule.cluster_mode for s in op.p_slots)
                 )
+                if bound and (needs_cluster or len(self._entries) + 1 > bound):
+                    # The resolved op holds no state: it is dropped, and this
+                    # request and the rest go through submit_entry (its token
+                    # call outside the lock; the valve's per-op shed).
+                    resume_at = i
+                    break
+                resume_at = i + 1
                 out.append(op)
                 if needs_cluster or tail:
                     tail.append((op, needs_cluster))
@@ -1425,32 +1508,50 @@ class Engine:
             out.append(self.submit_entry(**req))
         return out
 
-    def _blocked_cold(
-        self, resource: str, context_name: str, origin: str, acquire: int, limit_type: str = "cold"
-    ) -> _EntryOp:
-        """A never-enqueued sketch cold-ceiling verdict (``limit_type``
-        "cold" for the resource ceiling, "cold_value" for the value
-        ceiling; the tier counted it). Nothing reaches the device, so no
-        gauge charges. The block-log row the JAX engine writes waits for
-        ROADMAP Queue 1 item 8."""
+    def _refused_entry(self, resource: str, context_name: str, origin: str, acquire: int, reason: int,
+                       limit_type: str) -> _EntryOp:
+        """The one home of a never-enqueued refused verdict (the ingest
+        valve's sheds and the sketch's cold ceilings): nothing reaches the
+        device and nothing is queued, so no gauge charges. The trace record,
+        block-log row and per-resource ledger entry the JAX engine writes
+        wait for ROADMAP Queue 1 item 8."""
         op = _EntryOp(
             resource=resource, ts=self.clock.now_ms(), acquire=int(acquire), rows=(-1, -1, -1, -1), slots=[],
             context_name=context_name, origin=origin,
         )
-        op.verdict = Verdict(False, E.BLOCK_SKETCH, 0, None, limit_type)
+        op.verdict = Verdict(False, reason, 0, None, limit_type)
         return op
 
-    def _blocked_cold_bulk(self, resource: str, n: int, context_name: str, origin: str, acquire) -> BulkOp:
-        """Bulk form of :meth:`_blocked_cold`: dense all-refused arrays."""
+    def _refused_bulk(self, resource: str, n: int, context_name: str, origin: str, acquire, reason: int) -> BulkOp:
+        """Bulk form of :meth:`_refused_entry`: dense all-refused arrays."""
         g = BulkOp(
             resource=resource, n=n, ts=np.full(n, self.clock.now_ms(), dtype=np.int32),
             acquire=self._bulk_col(acquire, n, 1), rows=(-1, -1, -1, -1), slots=[], d_gids=[], auth_ok=True,
             context_name=context_name, origin=origin,
         )
         g.admitted = np.zeros(n, dtype=bool)
-        g.reason = np.full(n, E.BLOCK_SKETCH, dtype=np.int32)
+        g.reason = np.full(n, reason, dtype=np.int32)
         g.wait_ms = np.zeros(n, dtype=np.int32)
         return g
+
+    def _shed_entry(self, resource: str, context_name: str, origin: str, acquire: int, cause: str) -> _EntryOp:
+        """The ingest valve's BLOCK_SHED verdict (``limit_type`` its cause,
+        "queue" or "deadline"). Exits and traces are never shed."""
+        return self._refused_entry(resource, context_name, origin, acquire, E.BLOCK_SHED, cause)
+
+    def _shed_bulk(self, resource: str, n: int, context_name: str, origin: str, acquire) -> BulkOp:
+        return self._refused_bulk(resource, n, context_name, origin, acquire, E.BLOCK_SHED)
+
+    def _blocked_cold(
+        self, resource: str, context_name: str, origin: str, acquire: int, limit_type: str = "cold"
+    ) -> _EntryOp:
+        """A sketch cold-ceiling verdict (``limit_type`` "cold" for the
+        resource ceiling, "cold_value" for the value ceiling; the tier
+        counted it)."""
+        return self._refused_entry(resource, context_name, origin, acquire, E.BLOCK_SKETCH, limit_type)
+
+    def _blocked_cold_bulk(self, resource: str, n: int, context_name: str, origin: str, acquire) -> BulkOp:
+        return self._refused_bulk(resource, n, context_name, origin, acquire, E.BLOCK_SKETCH)
 
     # ------------------------------------------------------------------
     # cluster-mode rules (the token service)
@@ -1536,14 +1637,16 @@ class Engine:
 
     def _settle_cluster_wait(self, total: int) -> None:
         """Pay the accumulated SHOULD_WAIT pacing once, bounded by
-        sentinel.tpu.cluster.wait.cap.ms (the overflow is forfeited). The
-        cluster-wait telemetry counter waits for ROADMAP Queue 1 item 8."""
+        sentinel.tpu.cluster.wait.cap.ms (the overflow is forfeited),
+        counted in the cluster_wait_ms telemetry counter."""
         if total <= 0:
             return
         cap = config.get_int(config.CLUSTER_WAIT_CAP_MS, 1000)
         slept = min(total, cap) if cap > 0 else total
         if slept > 0:
             self.clock.sleep_ms(slept)
+            if self.telemetry.enabled:
+                self.telemetry.note_cluster_wait(slept)
 
     @staticmethod
     def _cluster_param_groups(op: _EntryOp) -> Dict[int, Tuple[object, List[str]]]:
@@ -1761,13 +1864,16 @@ class Engine:
         entry; THREAD-grade param rules and collection values need
         per-entry bookkeeping, and cluster-mode rules a token per entry:
         these raise ``ValueError`` (use :meth:`submit_entry`). With the
-        sketch tier's cold ceilings armed, a group over its ceiling is
+        ingest valve armed, a group over its bulk bound is refused whole
+        (BLOCK_SHED). With the sketch tier's cold ceilings armed, a group over its ceiling is
         refused whole (BLOCK_SKETCH); a group only some of whose values
         are over the value ceiling raises ``ValueError`` too."""
         if n < 1:
             raise ValueError("submit_bulk: n must be >= 1")
         if n > self.max_batch:
             raise ValueError(f"submit_bulk: n={n} exceeds max_batch={self.max_batch}; split the group")
+        if self.ingest.armed and self.ingest.check_bulk(n) is not None:
+            return self._shed_bulk(resource, n, context_name, origin, acquire)
         sk = self.sketch
         if sk.cold_armed and sk.cold_blocked(resource, self.flow_index, self.param_index, n=n):
             return self._blocked_cold_bulk(resource, n, context_name, origin, acquire)
@@ -1913,6 +2019,8 @@ class Engine:
         if op is None:
             return None, Verdict(True, E.PASS, 0, None)  # over cap: pass-through
         v = op._verdict
+        if v is not None and v.reason == E.BLOCK_SHED:
+            return op, v  # the valve shed it at submit: nothing is queued
         if v is not None and v.speculative:
             self._spec_maybe_settle()
             return op, v
@@ -2028,6 +2136,11 @@ class Engine:
         the device: the verdicts come from the host fallback, after an
         automatic recovery attempt (restore and probe flushes) when the
         retry gap has passed (runtime/failover.py)."""
+        w = self.ingest_window
+        if w.armed and w._exit_buf:
+            # Window-batched completions join this flush: after flush() and
+            # drain() everything submitted has settled.
+            w._drain_exits()
         fo = self.failover
         if fo.armed and not fo.healthy:
             if fo.recovery_due(self.clock.now_ms()):
@@ -2378,8 +2491,19 @@ class Engine:
         )
         rounds = self._param_rounds_for(prow[:n_items], grade[:n_items], behavior[:n_items], ts[:n_items],
                                         acquire[:n_items])
-        if n_items and self.param_force_path == "scan" and rounds <= -1:
-            rounds = _rounds_bucket(prow[:n_items])
+        if n_items:
+            if self.param_force_path is not None:
+                # The measurement seam: "scan" takes the rounds bound of the
+                # walk for an eligible batch, "closed" keeps the rank path.
+                if self.param_force_path == "scan" and rounds <= -1:
+                    rounds = _rounds_bucket(prow[:n_items])
+            elif rounds <= -1 and self.autotune.param_active:
+                # An eligible batch: the autotuner's cost memo picks K10's
+                # route (eligibility is correctness, the pick only cost).
+                rounds = self.autotune.pick_param_rounds(n_items, -rounds, rounds,
+                                                         lambda: _rounds_bucket(prow[:n_items]))
+            if self.telemetry.enabled:
+                self.telemetry.note_param_path(rounds <= -1)
         return pb, rounds
 
     @staticmethod
@@ -2423,11 +2547,18 @@ class Engine:
         if fo.armed and not fo.healthy:
             # An earlier chunk of this flush tripped failover: no device.
             return self._degraded_chunk(fo, entries, exits, bulk, bulk_exits, defer)
+        tele = self.telemetry if self.telemetry.enabled else None
+        arena_h0, arena_m0 = (self._arena.hits, self._arena.misses) if tele and self._arena else (0, 0)
         t_enc0 = time.perf_counter()
         now = self.clock.now_ms()
         staging: List[tuple] = []
         batch, shaping, sh_rounds, param, p_rounds, sk_batch, sk_decay, k, kd = self._encode_chunk(
             entries, exits, bulk, bulk_exits, findex, pindex, now, staging)
+        # The autotuner's K10 pick for this chunk, consumed at once (flushes
+        # serialize on the flush lock), so that it never lands on a later
+        # chunk's span.
+        at = self.autotune
+        param_pick = at.take_pending_pick() if at.enabled else None
         tier = self.sketch
         load, cpu = system_sampler.read() if self.system_config is not None else (-1.0, -1.0)
         sysdev = make_system_device(self.system_config, load, cpu)
@@ -2519,6 +2650,13 @@ class Engine:
         with self._timing_lock:
             self._flush_timing["dispatch_ms"] += dispatch_ms
             self._flush_timing["kernel_ms"] += dispatch_ms
+        span = None
+        if tele is not None:
+            span = self._begin_span(tele, t_enc0, t_disp0, dispatch_ms, now, entries, exits, bulk, bulk_exits, defer,
+                                    pindex, arena_h0, arena_m0)
+            if param_pick is not None:
+                # The autotuner folds the settled span's cost into its memo.
+                span.param_bucket, span.param_path = param_pick
 
         def _fill(host: np.ndarray) -> None:
             cols = _unpack(host, layout)
@@ -2538,8 +2676,10 @@ class Engine:
                                blk_topk=result.blk_rows is not None)
 
         if defer:
+            if span is not None:
+                tele.dispatch_done(span)
             rec = _PendingFetch(self, entries, refs, _fill, staging, seq, bulk=bulk, exits=exits,
-                                bulk_exits=bulk_exits)
+                                bulk_exits=bulk_exits, span=span)
             for op in entries:
                 op._pending = rec
             for g in bulk:
@@ -2558,24 +2698,63 @@ class Engine:
                 # device exception.
                 faulted = True
                 fo.trip("fetch", exc, seq)
-                self._degraded_chunk(fo, entries, exits, bulk, bulk_exits, defer, quarantined=True)
+                self._degraded_chunk(fo, entries, exits, bulk, bulk_exits, defer, quarantined=True, span=span)
         finally:
             with self._timing_lock:
                 self._flush_timing["kernel_ms"] += (time.perf_counter() - t_fetch0) * 1e3
         # The copy back has landed and the verdicts are copied out: the
-        # staging is free again (only on success: a failure drops it).
-        if not faulted and self._arena is not None:
-            self._arena.give_all(staging)
+        # staging is free again (only on success: a failure drops it). The
+        # span and the valve's settle signal time the wait on the chunk's
+        # event and the fill, on the host clock.
+        if not faulted:
+            if self._arena is not None:
+                self._arena.give_all(staging)
+            if span is not None:
+                tele.settle(span, t_fetch0, time.perf_counter())
+            if self.ingest.armed:
+                self.ingest.note_settle_ms((time.perf_counter() - t_fetch0) * 1e3)
         return None
 
+    def _begin_span(self, tele: TelemetryBus, t_enc0: float, t_disp0: float, dispatch_ms: float, now: int,
+                    entries, exits, bulk, bulk_exits, defer: bool, pindex: ParamIndex, arena_h0: int,
+                    arena_m0: int):
+        """The flight-recorder span of one dispatched chunk: its rows, the
+        encode and dispatch ms, the arena's and the intern cache's hit and
+        miss deltas (the resolution runs at submit, so the delta goes to the
+        flush that drains those submissions)."""
+        with self._pending_lock:
+            inflight = len(self._pending_fetches)
+        span = tele.begin_span(t0=t_enc0, depth=self._pipeline_depth, inflight=inflight, n_entries=len(entries),
+                               n_exits=len(exits), n_bulk=sum(g.n for g in bulk),
+                               n_bulk_exits=sum(g.n for g in bulk_exits), deferred=defer, now_rel_ms=now)
+        span.encode_ms = (t_disp0 - t_enc0) * 1e3
+        span.dispatch_ms = dispatch_ms
+        if self._arena is not None:
+            span.arena_hits = self._arena.hits - arena_h0
+            span.arena_misses = self._arena.misses - arena_m0
+            tele.note_arena(span.arena_hits, span.arena_misses)
+        ph, pm = pindex.cache_hits, pindex.cache_misses
+        seen_ref, h0, m0 = self._tele_intern_seen
+        if seen_ref is None or seen_ref() is not pindex:
+            h0 = m0 = 0  # the index was rebuilt: its counters restarted
+        span.intern_hits = max(0, ph - h0)
+        span.intern_misses = max(0, pm - m0)
+        self._tele_intern_seen = (weakref.ref(pindex), ph, pm)
+        return span
+
     def _degraded_chunk(self, fo, entries, exits, bulk, bulk_exits, defer: bool,
-                        quarantined: bool = False) -> None:
+                        quarantined: bool = False, span=None) -> None:
         """Fill one chunk from the host fallback: the device faulted mid-flush
         (``quarantined``: the chunk's own results were lost, counted) or the
         engine was DEGRADED before it dispatched. A deferred chunk has no
-        materialization to ride, so its post work runs here."""
+        materialization to ride, so its post work runs here. The chunk's
+        span, if it has one, settles as quarantined."""
         if quarantined:
             fo.note_quarantined()
+        if span is not None:
+            span.quarantined = True
+            t = time.perf_counter()
+            self.telemetry.settle(span, t, t)
         fo.fill_degraded(entries, exits, bulk, bulk_exits)
         if defer:
             _release_blocked_tokens(entries)
@@ -2704,6 +2883,7 @@ class Engine:
         admitted, reason, slot_ok, wait_ms, sys_type, dslot_ok = got[:6]
         if blk_topk:
             self.last_blocked_topk = (got[6], got[7])
+            self._fold_blocked_sketch(got[6], got[7])
         spec_tier = self.speculative if self.speculative.enabled else None
         for i, op in enumerate(entries):
             blocked_rule = None
@@ -2756,6 +2936,23 @@ class Engine:
             g._pending = None
             off += g.n
 
+    def _fold_blocked_sketch(self, rows: np.ndarray, weights: np.ndarray) -> None:
+        """Name one chunk's device top-K (cluster rows to resources) and fold
+        it into the telemetry summary; weight-0 rows are padding. The rows
+        come from the chunk's copy back: no read of their own. The host
+        recount the JAX engine folds for the mesh step, which has no device
+        top-K, waits for ROADMAP Queue 1 item 8."""
+        if not self.telemetry.enabled:
+            return
+        pairs: List[Tuple[str, int]] = []
+        n_keys = len(self.nodes)
+        for row, w in zip(np.asarray(rows).tolist(), np.asarray(weights).tolist()):
+            if w <= 0 or not 0 <= row < n_keys:
+                continue
+            key = self.nodes.key_of(int(row))
+            pairs.append((key.partition(":")[2] or key, int(w)))  # node keys are "<kind>:<name>"
+        self.telemetry.fold_blocked_topk(pairs)
+
     # ------------------------------------------------------------------
     # reads (command/metric plane)
     # ------------------------------------------------------------------
@@ -2796,11 +2993,13 @@ class Engine:
         return self._row_stats(self.nodes.entry_node_row)
 
     def close(self) -> None:
-        """Quiesce: stop the auto-flusher, decide anything still queued and
+        """Quiesce: serve the batch window's last window and stop its
+        thread, stop the auto-flusher, decide anything still queued and
         settle the deferred fetches (the pipelined flush leaves up to
         ``pipeline_depth`` in flight), fold the speculative tier's last
         drift window and retire the failover tier's threads. Idempotent;
         the engine stays usable."""
+        self.ingest_window.close()
         self.stop_auto_flush()
         self.flush()
         self.drain()

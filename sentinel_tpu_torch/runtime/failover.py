@@ -49,10 +49,12 @@ difference.
 
 Everything is deterministic under ``testing/faults.FaultInjector``.
 
-Left out, each with its ROADMAP Queue 1 item: custom processor slots in
-the degraded fill (item 11); telemetry, the admission trace, the block
-log and the per-resource ledger (item 8); the capture journal's health
-notes (the rest of item 7); the IPC plane's live re-assertions (item 10).
+The health transitions, degraded verdicts and probe flushes are noted on
+the telemetry bus. Left out, each with its ROADMAP Queue 1 item: custom
+processor slots in the degraded fill (item 11); the admission trace, the
+block log and the per-resource ledger (item 8); the capture journal's
+health notes (item 7, step 7c); the IPC plane's live re-assertions (item
+10).
 """
 
 from __future__ import annotations
@@ -1052,6 +1054,9 @@ class FailoverManager:
         self.state_since_ms = now
         self.counters["transitions"] += 1
         self.events.append(HealthEvent(now, frm, to, reason))
+        tele = self._engine.telemetry
+        if tele.enabled:
+            tele.note_health(frm, to, reason, now_ms=now)
 
     def trip(self, where: str, exc: BaseException, seq: object = -1) -> None:
         """A device fault: go DEGRADED and quarantine the in-flight queue.
@@ -1245,6 +1250,9 @@ class FailoverManager:
         with self._lock:
             self.counters["degraded_admits"] += n_admit
             self.counters["degraded_blocks"] += n_block
+        tele = eng.telemetry
+        if tele.enabled and (n_admit or n_block):
+            tele.note_degraded(n_admit, n_block)
 
     def note_quarantined(self, n: int = 1) -> None:
         with self._lock:
@@ -1652,6 +1660,9 @@ class FailoverManager:
             eng._arena.give_all(staging)
         with self._lock:
             self.counters["probe_flushes"] += 1
+        tele = eng.telemetry
+        if tele.enabled:
+            tele.note_probe()
 
     # ------------------------------------------------------------------
     # readers

@@ -38,10 +38,10 @@ folds into the host space-saving mirror instead (:meth:`SketchTier.fold_host_chu
 and the failover checkpoint carries the device state, so a restore keeps
 the candidate table.
 
-Not ported here: the sketch's telemetry counters and exports (ROADMAP
-Queue 1 item 8) and the gossip transport (``sentinel.tpu.gossip.enabled``,
-the rest of item 9); the gossip snapshot and merge of the tier itself are
-here.
+The tier's keys, host folds, promotions, demotions and cold blocks are
+counted on the telemetry bus. Not ported here: the gossip transport
+(``sentinel.tpu.gossip.enabled``, the rest of ROADMAP Queue 1 item 9); the
+gossip snapshot and merge of the tier itself are here.
 """
 
 from __future__ import annotations
@@ -495,6 +495,7 @@ class SketchTier:
             if int(cm_estimate(cm, kid)[0]) < ceiling:
                 return False
             self.cold_blocks += n  # row-weighted: a blocked bulk group counts n
+        self._note_cold_block(n)
         return True
 
     def _value_keys(self, idxs, args) -> List[str]:
@@ -534,6 +535,7 @@ class SketchTier:
                 return False
             self.cold_blocks += n
             self.cold_value_blocks += n
+        self._note_cold_block(n)
         return True
 
     def cold_value_mask(self, resource: str, pindex, args_column, n: int) -> Optional[np.ndarray]:
@@ -585,6 +587,12 @@ class SketchTier:
         with self._lock:
             self.cold_blocks += n
             self.cold_value_blocks += n
+        self._note_cold_block(n)
+
+    def _note_cold_block(self, n: int) -> None:
+        tele = self._engine.telemetry
+        if tele.enabled:
+            tele.note_sketch_cold_block(n)
 
     def decay_due(self, now_ms: int) -> bool:
         """True exactly once per decay window (the chunk that carries the
@@ -804,6 +812,9 @@ class SketchTier:
         id = padding): the :class:`SketchBatch` payload."""
         uids, wsum = self._collect(entries, bulk, findex, pindex)
         n = len(uids)
+        tele = self._engine.telemetry
+        if tele.enabled and n:
+            tele.note_sketch_keys(n)
         s = _pad_pow2(max(n, 1), 8)
         ids = np.full(s, -1, dtype=np.int32)
         w = np.zeros(s, dtype=np.int32)
@@ -857,6 +868,11 @@ class SketchTier:
                     self.host_mirror.offer(key, w)
             by_key = dict(self.host_mirror.counts)
             self.occupancy = len(by_key) / float(self.candidates)
+        tele = self._engine.telemetry
+        if tele.enabled:
+            if len(uids):
+                tele.note_sketch_keys(len(uids))
+            tele.note_sketch_host_fold()
         self._evaluate(by_key, now_ms)
 
     # ------------------------------------------------------------------
@@ -933,6 +949,7 @@ class SketchTier:
         by_key = self._fleet_by_key(by_key)
         win_s = self.window_ms / 1000.0
         wid = now_ms // self.window_ms
+        promos = demos = 0
         with self._lock:
             # Re-assert synthetics a user reload wiped.
             if self._promoted_res:
@@ -949,6 +966,7 @@ class SketchTier:
                         self._promoted_vals.setdefault(resource, set()).add(vkey)
                         self._publish_promoted_locked()
                         self._low.pop(key, None)
+                        promos += 1
                 elif kind == _KIND_RESOURCE and self.resource_qps > 0:
                     resource = key[1:]
                     if resource in self._promoted_res:
@@ -963,6 +981,7 @@ class SketchTier:
                         )
                         self._actions.append(("flow", None))
                         self._low.pop(key, None)
+                        promos += 1
             for resource, vals in list(self._promoted_vals.items()):
                 for vkey in list(vals):
                     key = _KIND_VALUE + resource + _SEP + vkey
@@ -972,14 +991,21 @@ class SketchTier:
                             del self._promoted_vals[resource]
                         self._publish_promoted_locked()
                         self._actions.append(("param_release", resource, vkey))
+                        demos += 1
             for resource in list(self._promoted_res):
                 key = _KIND_RESOURCE + resource
                 if self._cold_locked(key, by_key.get(key, 0), DEMOTE_FACTOR * self.resource_qps * win_s, wid):
                     del self._promoted_res[resource]
                     self._actions.append(("flow", None))
-        # The promotion and demotion counters of the telemetry bus wait for
-        # ROADMAP Queue 1 item 8 (metrics and observability), the capture
-        # tier's rule-timeline note for item 7 (engine tiers).
+                    demos += 1
+        tele = self._engine.telemetry
+        if tele.enabled:
+            if promos:
+                tele.note_sketch_promotion(promos)
+            if demos:
+                tele.note_sketch_demotion(demos)
+        # The capture journal's rule-timeline note waits for ROADMAP Queue 1
+        # item 7 (step 7c).
 
     def _cold_locked(self, key: str, cnt: int, floor: float, wid: int) -> bool:
         """One demotion step: at most one cold window per window id; any
@@ -1082,9 +1108,9 @@ class SketchTier:
     # ------------------------------------------------------------------
     def candidates_snapshot(self, k: Optional[int] = None) -> List[dict]:
         """Decoded view of the last drained candidate table (``k`` defaults
-        to the engine's blocked top-K, else sentinel.tpu.telemetry.topk.export)."""
+        to the telemetry bus's export K)."""
         if k is None:
-            k = self._engine._blk_topk_k or config.get_int(config.TELEMETRY_TOPK_EXPORT, 10)
+            k = self._engine.telemetry.export_topk_k
         with self._lock:
             cand = sorted(self._last_candidates, key=lambda t: t[2], reverse=True)[: max(0, int(k))]
             out = []

@@ -31,9 +31,10 @@ mirror when the tier is on.
 Prioritized (occupy) entries decline to the device path: their borrow
 semantics live in the kernels' slab.
 
-Left out, each with its ROADMAP Queue 1 item: custom processor slots at
-admission (item 11); the telemetry bus, the per-resource provenance
-ledger and the admission trace (item 8).
+The tier's serves, declines, drift, drift windows and suspensions are
+noted on the telemetry bus. Left out, each with its ROADMAP Queue 1 item:
+custom processor slots at admission (item 11); the per-resource
+provenance ledger and the admission trace (item 8).
 """
 
 from __future__ import annotations
@@ -110,6 +111,9 @@ class SpeculativeAdmitter:
     def _decline(self, n: int = 1) -> None:
         with self._lock:
             self.counters["spec_declined"] += n
+        tele = self._engine.telemetry
+        if tele.enabled:
+            tele.note_spec_declined(n)
 
     def try_admit(self, op, now_ms: int):
         """Immediate host verdict for one entry op, or None when the tier
@@ -135,6 +139,13 @@ class SpeculativeAdmitter:
                 self.counters["spec_shaped"] += 1
             if sys_block:
                 self.counters["spec_system_blocks"] += 1
+        tele = self._engine.telemetry
+        if tele.enabled:
+            tele.note_speculative(int(v.admitted), int(not v.admitted))
+            if shaped:
+                tele.note_spec_shaped(1)
+            if sys_block:
+                tele.note_spec_system_block(1)
         return v
 
     def try_admit_bulk(self, g, now_ms: int) -> bool:
@@ -174,6 +185,13 @@ class SpeculativeAdmitter:
                 self.counters["spec_shaped"] += g.n
             if n_sys:
                 self.counters["spec_system_blocks"] += n_sys
+        tele = self._engine.telemetry
+        if tele.enabled:
+            tele.note_speculative(n_adm, g.n - n_adm)
+            if shaped:
+                tele.note_spec_shaped(g.n)
+            if n_sys:
+                tele.note_spec_system_block(n_sys)
         return True
 
     # ------------------------------------------------------------------
@@ -186,6 +204,9 @@ class SpeculativeAdmitter:
         self.counters["windows"] += 1
         if net > self._max_window_net:
             self._max_window_net = net
+        tele = self._engine.telemetry
+        if tele.enabled:
+            tele.note_spec_window(net)
 
     def _touch_attr_locked(self, ts: int) -> None:
         start = ts - ts % self.window_ms
@@ -228,6 +249,9 @@ class SpeculativeAdmitter:
             # The divergence valve: stop speculating until the window rolls.
             self._suspended = True
             self.counters["suspensions"] += 1
+            tele = self._engine.telemetry
+            if tele.enabled:
+                tele.note_spec_suspended()
 
     def _clamp_for(self, op, settled) -> None:
         """Drain the mirror state that over-admitted ``op``."""
@@ -273,6 +297,9 @@ class SpeculativeAdmitter:
                 eng._submit_gauge_comp(op.rows, -1)
                 with self._lock:
                     self.counters["comp_minus"] += 1
+            tele = eng.telemetry
+            if tele.enabled:
+                tele.note_spec_drift(int(spec_v.admitted), int(not spec_v.admitted))
         return match
 
     def reconcile_bulk(self, g, dev_admitted: np.ndarray, dev_reason: np.ndarray,
@@ -336,6 +363,8 @@ class SpeculativeAdmitter:
             eng._submit_gauge_comp(g.rows, -under)
             with self._lock:
                 self.counters["comp_minus"] += under
+        if (over or under) and eng.telemetry.enabled:
+            eng.telemetry.note_spec_drift(over, under)
 
     # ------------------------------------------------------------------
     # lifecycle

@@ -628,7 +628,7 @@ def test_cluster_mode_rule_raises():
     "key,value",
     [
         (config.GOSSIP_ENABLED, "true"), (config.CAPTURE_ENABLED, "true"),
-        (config.AUTOTUNE_ENABLED, "true"), (config.IPC_ENABLED, "true"),
+        (config.IPC_ENABLED, "true"), (config.SPANS_ENABLED, "true"),
     ],
 )
 def test_unported_config_raises(key, value):
@@ -642,12 +642,20 @@ def test_unported_config_raises(key, value):
         config.reset()
 
 
-@pytest.mark.parametrize("key", [config.SPECULATIVE_ENABLED, config.FAILOVER_ENABLED])
+_PORTED_SWITCHES = {
+    config.SPECULATIVE_ENABLED: "true", config.FAILOVER_ENABLED: "true", config.AUTOTUNE_ENABLED: "true",
+    config.INGEST_MAX_PENDING: "64", config.INGEST_MAX_PENDING_BULK: "1024", config.INGEST_DEADLINE_MS: "1000",
+    config.INGEST_BATCH_WINDOW_MS: "2",
+}
+
+
+@pytest.mark.parametrize("key", list(_PORTED_SWITCHES))
 def test_ported_tier_switches_build_and_flush(key):
-    """The speculative tier and the failure domain, refused before this
-    slice, build and flush (tests/test_torch_speculative.py and
-    test_torch_failover.py hold them against the JAX package)."""
-    config.set(key, "true")
+    """The speculative tier, the failure domain, the autotuner, the ingest
+    valve and the batch window, refused or ignored before they were ported,
+    build and flush (tests/test_torch_{speculative,failover,autotune,ingest,
+    window}.py hold them against the JAX package)."""
+    config.set(key, _PORTED_SWITCHES[key])
     try:
         eng = _cpu_engine()
         eng.set_flow_rules([FlowRule("r", count=2)])
@@ -657,6 +665,10 @@ def test_ported_tier_switches_build_and_flush(key):
         assert [v.admitted for v in ops] == [True, True, False]
         assert all(v.speculative == (key == config.SPECULATIVE_ENABLED) for v in ops)
         assert eng.failover.armed == (key == config.FAILOVER_ENABLED) and eng.failover.state == "HEALTHY"
+        assert eng.autotune.enabled == (key == config.AUTOTUNE_ENABLED)
+        assert eng.ingest.armed == (key.startswith("sentinel.tpu.ingest.") and key != config.INGEST_BATCH_WINDOW_MS)
+        assert eng.ingest_window.armed == (key == config.INGEST_BATCH_WINDOW_MS)
+        assert eng.telemetry.enabled and eng.telemetry.counters_snapshot()["flushes"] >= 1
         eng.close()
     finally:
         config.reset()

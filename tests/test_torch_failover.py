@@ -13,8 +13,7 @@ Out of this slice, each with the ROADMAP Queue 1 item it waits for:
 ``test_trace_and_telemetry_provenance`` (item 8: the admission trace and
 the telemetry bus); the Prometheus half of
 ``test_prometheus_and_health_snapshot`` (items 8 and 11; the health
-snapshot half is here); ``test_spec_chaos_with_system_rule_and_shed_valve``
-(the ingest shed valve, the rest of item 7).
+snapshot half is here).
 
 Also here: a kernel that does not build is a defect of the program, not a
 device fault: with failover armed it raises to the caller and the engine
@@ -620,6 +619,86 @@ CASES = {
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_failover_lockstep(case):
     run_lockstep(CASES[case])
+
+
+def _spec_chaos_with_system_rule_and_shed_valve(lib):
+    """The speculative tier on, a system rule configured and the ingest
+    valve armed, under interleaved dispatch and fetch faults: no raw
+    exception, the system rule narrows the tier without zeroing it, the
+    queue stays bounded, drift stays within the valve, and after quiesce
+    the device and mirror THREAD gauges are zero."""
+    if lib.name == "jax":
+        from sentinel_tpu.rules.system_manager import SystemConfig
+    else:
+        from sentinel_tpu_torch.rules.system_manager import SystemConfig
+    overadmit_max = 16
+    bound = 64
+    victim = _mk(lib, ckpt_every=1, probes=1, retry_ms=10**9, depth=1, SPECULATIVE_ENABLED="true",
+                 SPECULATIVE_FLUSH_BATCH=10000, SPECULATIVE_OVERADMIT_MAX=overadmit_max, SPECULATIVE_WINDOW_MS=1000,
+                 INGEST_MAX_PENDING=bound)
+    victim.set_flow_rules([lib.st.FlowRule("q", count=5),
+                           lib.st.FlowRule("t", grade=lib.C.FLOW_GRADE_THREAD, count=3)])
+    victim.set_system_config(SystemConfig(qps=40.0, max_thread=64))
+    inj = lib.FaultInjector().install(victim)
+    rng = np.random.default_rng(31)
+    live, seen = [], []
+    n_shed = 0
+    t = 1000
+    for _ in range(30):
+        lib.clock.set_ms(t)
+        if rng.random() < 0.35:
+            seq = victim.flush_seq + int(rng.integers(1, 3))
+            if rng.random() < 0.5:
+                inj.fail_fetch(seq)
+            else:
+                inj.fail_dispatch(seq)
+        for _ in range(int(rng.integers(2, 7))):
+            _op, v = victim.entry_sync("q", entry_type=lib.C.EntryType.IN)
+            seen.append(verdict(v))
+            if v.reason == lib.E.BLOCK_SHED:
+                n_shed += 1
+        for _ in range(int(rng.integers(1, 4))):
+            op, v = victim.entry_sync("t")
+            seen.append(verdict(v))
+            if v.reason == lib.E.BLOCK_SHED:
+                n_shed += 1
+            elif v.admitted:
+                live.append((op, v))
+        assert len(victim._entries) <= bound
+        n_exit = int(rng.integers(0, len(live) + 1))
+        for op, v in live[:n_exit]:
+            victim.submit_exit(op.rows, rt=1, resource="t", speculative=v.speculative)
+        live = live[n_exit:]
+        if rng.random() < 0.6:
+            victim.flush()
+        if victim.failover.state == "DEGRADED" and rng.random() < 0.5:
+            inj.clear()
+            assert victim.failover.try_recover(), victim.failover.last_fault
+        t += int(rng.integers(100, 500))
+    inj.clear()
+    if victim.failover.state != "HEALTHY":
+        assert victim.failover.try_recover(), victim.failover.last_fault
+    for op, v in live:
+        victim.submit_exit(op.rows, rt=1, resource="t", speculative=v.speculative)
+    for _ in range(2):
+        victim.flush()
+        victim.drain()
+    c = victim.speculative.counters
+    assert c["spec_declined"] == 0, c
+    assert victim.speculative.max_over_admit_window <= overadmit_max + 12
+    stats = victim.cluster_node_stats("t")
+    assert stats["cur_thread_num"] == 0, stats
+    assert victim.speculative.mirror.snapshot()["live_threads"].get("t", 0) == 0
+    assert victim.ingest.counters["shed_entries"] == n_shed
+    tele = victim.telemetry.counters_snapshot()
+    tele.pop("arena_hits")
+    tele.pop("arena_misses")
+    return [seen, n_shed, health(victim), victim.speculative.snapshot(), victim.ingest.snapshot()["counters"], tele,
+            lib.states(victim), inj.fired]
+
+
+def test_spec_chaos_with_system_rule_and_shed_valve():
+    run_lockstep(_spec_chaos_with_system_rule_and_shed_valve)
 
 
 def _overhead(lib):

@@ -22,7 +22,9 @@ def test_import_loads_no_jax():
         "import sys, sentinel_tpu_torch, sentinel_tpu_torch.core.api, sentinel_tpu_torch.runtime.engine,"
         " sentinel_tpu_torch.runtime.sketch, sentinel_tpu_torch.cluster, sentinel_tpu_torch.parallel,"
         " sentinel_tpu_torch.runtime.failover, sentinel_tpu_torch.runtime.speculative,"
-        " sentinel_tpu_torch.runtime.durable, sentinel_tpu_torch.testing.faults;"
+        " sentinel_tpu_torch.runtime.durable, sentinel_tpu_torch.testing.faults,"
+        " sentinel_tpu_torch.metrics, sentinel_tpu_torch.metrics.perfetto, sentinel_tpu_torch.runtime.ingest,"
+        " sentinel_tpu_torch.runtime.window, sentinel_tpu_torch.runtime.autotune;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'sentinel_tpu' or m.startswith('sentinel_tpu.')];"
         "print(repr(bad))"
@@ -56,10 +58,13 @@ def test_sources_import_no_jax(path):
 
 
 @pytest.mark.parametrize("rel", ["testing/__init__.py", "testing/faults.py", "runtime/failover.py",
-                                 "runtime/durable.py", "runtime/speculative.py"])
+                                 "runtime/durable.py", "runtime/speculative.py", "metrics/histogram.py",
+                                 "metrics/telemetry.py", "metrics/perfetto.py", "runtime/ingest.py",
+                                 "runtime/window.py", "runtime/autotune.py"])
 def test_failure_domain_modules_are_covered(rel):
-    """The failure domain's modules are sources of the port, so the import
-    checks above cover them: they import neither JAX nor the JAX package."""
+    """The failure domain's and the control plane's modules are sources of
+    the port, so the import checks above cover them: they import neither
+    JAX nor the JAX package."""
     path = PORT / rel
     assert path in sorted(PORT.rglob("*.py"))
     for mod in _imported_modules(path):

@@ -2264,3 +2264,98 @@ def test_restore_on_the_waiter_while_a_caller_uses_a_side_stream(cuda):
     _same_stats(out["cpu"][1][0], out["card"][1][0])
     assert out["card"][1][1] == ("HEALTHY", 1, 1)
     assert sum(int(a.sum()) for i, a in enumerate(out["card"][0]) if i not in (9, 10, 11)) == 50
+
+
+# --- the control plane on the card (runtime/window.py, runtime/autotune.py) --
+
+
+def _control_engine(device, **cfg):
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils.clock import ManualClock
+    from sentinel_tpu_torch.utils.config import config
+
+    saved = dict(config._runtime)
+    for key, value in cfg.items():
+        config.set(getattr(config, key), str(value))
+    try:
+        return Engine(clock=ManualClock(1000), device=device)
+    finally:
+        config._runtime.clear()
+        config._runtime.update(saved)
+
+
+def test_window_of_4096_matches_cpu(cuda):
+    """One batch window of 4,096 requests over 64 resources (Zipf), with
+    hot-param args on a quarter of them: its verdicts, the stats and the
+    telemetry counters on the card equal the CPU engine's, and the window's
+    flush launched K4 (the verdict tail's blocked top-K included)."""
+    import sys
+
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.metrics.nodes import stats_to_numpy
+    from sentinel_tpu_torch.models import constants as C
+
+    out = {}
+    for name, device in (("cpu", "cpu"), ("card", cuda)):
+        eng = _control_engine(device, INGEST_BATCH_WINDOW_MS=2, INGEST_BATCH_MAX=4096)
+        eng.set_flow_rules([st.FlowRule(f"w{i}", count=20) for i in range(64)])
+        eng.set_param_rules({f"w{i}": [st.ParamFlowRule(f"w{i}", param_idx=0, count=3)] for i in range(0, 64, 4)})
+        rng = np.random.default_rng(8)
+        res = np.minimum(rng.zipf(1.1, 4096) - 1, 63)
+        mod = sys.modules[type(eng.ingest_window).__module__]
+        reqs = [mod.WindowRequest(f"w{r}", C.CONTEXT_DEFAULT_NAME, "", 1, C.EntryType.OUT, (f"v{int(rng.integers(0, 6))}",)
+                                  if r % 4 == 0 else (), 1000 - int(rng.integers(0, 50)), None) for r in res]
+        before = tflush.flow_admission.launches
+        for r in reqs:
+            eng.ingest_window.join(r)
+        for r in reqs:
+            assert r.event.wait(60) and r.error is None
+        launched = tflush.flow_admission.launches - before
+        eng.ingest_window.close()
+        eng.drain()
+        tele = eng.telemetry.counters_snapshot()
+        out[name] = ([(r.verdict.admitted, r.verdict.reason, r.verdict.wait_ms) for r in reqs],
+                     stats_to_numpy(eng.stats), (tele["ingest_window_flushes"], tele["ingest_window_reqs"],
+                                                 tele["flushes"]), eng.telemetry.last_blocked_topk)
+        if device != "cpu":
+            assert launched >= 1
+    (cv, cs, ct, ck), (gv, gs, gt, gk) = out["cpu"], out["card"]
+    assert cv == gv, "verdicts"
+    assert ct == gt, (ct, gt)
+    assert ck == gk, (ck, gk)
+    _same_stats(cs, gs)
+    assert 0 < sum(v[0] for v in gv) < len(gv)
+
+
+def test_autotuner_runs_both_k10_routes(cuda):
+    """The autotuner's cost memo explores both of K10's routes on
+    eligible param batches (a few timestamps per value row): each route
+    runs on the card, and the verdicts equal an autotuner-off CPU engine's."""
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.metrics.nodes import stats_to_numpy
+
+    out = {}
+    for name, device, tuned in (("cpu", "cpu", "false"), ("card", cuda, "true")):
+        eng = _control_engine(device, AUTOTUNE_ENABLED=tuned, AUTOTUNE_INTERVAL_MS=1, AUTOTUNE_COOLDOWN_MS=1,
+                              AUTOTUNE_MIN_FLUSHES=1, AUTOTUNE_PARAM_EXPLORE=2)
+        eng.set_flow_rules([st.FlowRule("k", count=1e9)])
+        eng.set_param_rules({"k": [st.ParamFlowRule("k", param_idx=0, count=40)]})
+        rng = np.random.default_rng(9)
+        groups, routes = [], []
+        for step in range(10):
+            now = 1000 + 300 * step
+            eng.clock.set_ms(now)
+            ts = (now - 10 * rng.integers(0, 4, 4096)).astype(np.int32)
+            args = [(f"v{int(v)}",) for v in rng.integers(0, 512, 4096)]
+            groups.append(eng.submit_bulk("k", 4096, ts=ts, args_column=args))
+            c0 = eng.telemetry.counters_snapshot()
+            eng.flush()
+            c1 = eng.telemetry.counters_snapshot()
+            routes.append("closed" if c1["param_closed_form"] > c0["param_closed_form"] else "scan")
+        eng.drain()
+        out[name] = ([(g.admitted, g.reason, g.wait_ms) for g in groups], stats_to_numpy(eng.stats), routes)
+    assert set(out["card"][2]) == {"closed", "scan"} and set(out["cpu"][2]) == {"closed"}
+    for (a, b) in zip(out["cpu"][0], out["card"][0]):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y)
+    _same_stats(out["cpu"][1], out["card"][1])
