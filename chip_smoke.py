@@ -1720,7 +1720,8 @@ FLUSH_N = 32768
 STEPS = 40  # 100 ms each: 4 simulated seconds
 
 
-def drive_engine(device: torch.device, seed: int, mode: str = "sync", telemetry: bool = True):
+def drive_engine(device: torch.device, seed: int, mode: str = "sync", telemetry: bool = True, steps: int = STEPS,
+                 before_flush=None):
     """One stream on one engine; returns (records, final state, blocked
     top-K, seconds per bulk flush, entries admitted, (the stats reads'
     launches of row_stats and of K3, the seconds of each read, the host
@@ -1728,7 +1729,8 @@ def drive_engine(device: torch.device, seed: int, mode: str = "sync", telemetry:
     count, spans_to_trace of its spans))). ``mode`` "depth2" runs the engine
     at pipeline depth 2, "async" flushes the bulk through flush_async; the
     verdict reads after each flush materialize it in both. ``telemetry``
-    False turns the flight recorder off (phase 4h (d))."""
+    False turns the flight recorder off (phase 4h (d)). ``steps`` flushes;
+    ``before_flush(step)`` runs before each (phase 4i (c)'s retunes)."""
     from sentinel_tpu_torch.metrics import spans_to_trace
     from sentinel_tpu_torch.utils.config import config
 
@@ -1749,9 +1751,11 @@ def drive_engine(device: torch.device, seed: int, mode: str = "sync", telemetry:
     flush_s = 0.0
     admitted = read_launches = read_k3 = 0
     read_s = []
-    for step in range(STEPS):
+    for step in range(steps):
         now = 1000 + step * 100
         clock.set_ms(now)
+        if before_flush is not None:
+            before_flush(step)
         res = rng.choice(N_RULES, size=FLUSH_N, p=p)
         ts = (now - rng.integers(0, 100, FLUSH_N)).astype(np.int32)
         order = np.argsort(res, kind="stable")
@@ -1799,7 +1803,7 @@ def drive_engine(device: torch.device, seed: int, mode: str = "sync", telemetry:
     blk = eng.last_blocked_topk
     spans = eng.telemetry.spans()
     recorder = (eng.telemetry.blocked_sketch.topk(64), len(spans), spans_to_trace(spans))
-    return records, final, blk, flush_s / STEPS, admitted, (read_launches, read_k3, read_s, splits, recorder)
+    return records, final, blk, flush_s / steps, admitted, (read_launches, read_k3, read_s, splits, recorder)
 
 
 def split_line(splits) -> str:
@@ -1878,7 +1882,7 @@ def _verdict_record(v) -> tuple:
     return (v.admitted, v.reason, v.wait_ms, v.limit_type, rule)
 
 
-def drive_chain_engine(device: torch.device, seed: int):
+def drive_chain_engine(device: torch.device, seed: int, steps: int = CHAIN_STEPS, before_flush=None):
     """The slot chain's stream on one engine: 6,000 QPS rules, breakers on
     every third resource (RT, exception ratio and exception count in
     turn), system rules (QPS and average RT; the load sampler pinned),
@@ -1886,7 +1890,8 @@ def drive_chain_engine(device: torch.device, seed: int):
     traffic from three origins, 64 prioritized entries per flush on eight
     cold resources, st.entry calls (one prioritized) and exits that
     complete the breakers with 30% errors. Returns (records, final stats, breaker
-    state, bulk verdicts compared)."""
+    state, bulk verdicts compared). ``steps`` flushes; ``before_flush(step)``
+    runs before each (phase 4i (c)'s retunes)."""
     from sentinel_tpu_torch.utils.system_status import sampler
 
     clock = tclock.ManualClock(0)
@@ -1911,9 +1916,11 @@ def drive_chain_engine(device: torch.device, seed: int):
     waits = 0
     prev_groups = []
     flush_s = 0.0
-    for step in range(CHAIN_STEPS):
+    for step in range(steps):
         now = 1000 + step * 100
         clock.set_ms(now)
+        if before_flush is not None:
+            before_flush(step)
         res = rng.choice(N_RULES, size=FLUSH_N - 64, p=p)
         ts = (now - rng.integers(0, 100, res.size)).astype(np.int32)
         order = np.argsort(res, kind="stable")
@@ -1962,7 +1969,7 @@ def drive_chain_engine(device: torch.device, seed: int):
     eng.flush()
     sampler.force(load=-1.0, cpu=-1.0)
     stats = nodes.stats_to_numpy(eng.stats)
-    return records, stats, tdt.degrade_state_to_numpy(eng.degrade_dyn), flush_s / CHAIN_STEPS, reasons, waits
+    return records, stats, tdt.degrade_state_to_numpy(eng.degrade_dyn), flush_s / steps, reasons, waits
 
 
 def phase4_chain(results: dict, cpu_jobs: dict) -> None:
@@ -3327,6 +3334,457 @@ def default_dispatch_syncs_ok(flushes: int = 4) -> int:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 4i: the metric plane (the metric timer with K17, the live retune of
+# the second window, the blocked top-K above 8, the mesh's host recount)
+# ---------------------------------------------------------------------------
+
+MP_SECONDS = 66  # (a): simulated seconds, one flush of FLUSH_N and one metric-timer pull each: the minute window wraps
+MP_TOPK = 16  # (a): the blocked top-K of the flight recorder: above the fused route's 8, so the wide route runs
+MP_ROWS_ASKED = 1 << 18  # (b): asked rows of K17 at full width
+RT_STEPS = 12  # (c): flushes of each retuned stream
+RT_PLAN = {3: ("sample_count", 4), 6: ("sample_count", 10), 9: ("interval", 2000), 10: ("sample_count", 2)}
+MESH_TOPK_STEPS = 6  # (e): flushes of the mesh stream
+
+
+class _CountingExtension:
+    """A metric extension (metrics/extension.py) that counts its calls by
+    (method, resource) and sums their weights."""
+
+    def __init__(self):
+        from collections import Counter
+
+        from sentinel_tpu_torch.metrics.extension import MetricExtension
+
+        calls = self.calls = Counter()
+
+        class Ext(MetricExtension):
+            def add_pass(self, resource, n, *args):
+                calls[("pass", resource)] += n
+
+            def add_block(self, resource, n, origin, block_error, *args):
+                calls[("block", resource, type(block_error).__name__)] += n
+
+            def add_success(self, resource, n, *args):
+                calls[("success", resource)] += n
+
+            def add_exception(self, resource, n, throwable):
+                calls[("exception", resource)] += n
+
+            def add_rt(self, resource, rt_ms, *args):
+                calls[("rt", resource)] += rt_ms
+
+        self.ext = Ext()
+
+
+def _line_record(ln) -> tuple:
+    """A metric line's fields; the ``__engine__`` line's RT (the flushes' host
+    ms) is a wall time of the run, left out."""
+    v = dict(vars(ln))
+    if v["resource"] == "__engine__":
+        v["rt"] = None
+    return tuple(sorted(v.items()))
+
+
+def _trace_record(rec) -> tuple:
+    d = rec.as_dict()
+    for k in ("trace_id", "span_id", "latency_ms"):
+        d.pop(k)
+    return tuple(sorted(d.items()))
+
+
+def drive_metric_engine(device: torch.device, seed: int):
+    """(a): phase 4's 6,000 rules with a breaker on every third of the first
+    600 resources and a hot-param rule on every eighth, telemetry on with a
+    blocked top-K of MP_TOPK, the admission tracer at its defaults (1% head
+    sampling, every blocked verdict), a counting metric extension, the block
+    log and the metric log under build/; MP_SECONDS simulated seconds of
+    Zipf submit_bulk traffic (one flush of FLUSH_N a second) with exits that
+    complete the breakers, and a MetricTimer.run_once pull after each. On
+    the card each pull's K17 read and the JAX-style copy of the whole minute
+    window are timed beside it. Returns the pulls' lines, the lines the
+    searcher finds, the block log, the trace records and counters, the
+    provenance totals, the extension's calls, the final states, the
+    recorder's blocked top-K and the timings."""
+    from sentinel_tpu_torch.metrics import admission_trace, extension
+    from sentinel_tpu_torch.metrics.metric_log import MetricSearcher, MetricTimer, MetricWriter
+    from sentinel_tpu_torch.utils.config import config
+
+    d = os.path.join(ROOT, "build", f"phase4i_{device.type}")
+    if os.path.isdir(d):
+        for n in os.listdir(d):
+            os.remove(os.path.join(d, n))
+    os.makedirs(d, exist_ok=True)
+    clock = tclock.ManualClock(0)
+    eng = _fresh_engine(device, {config.LOG_DIR: d, config.TELEMETRY_BLOCKED_TOPK_K: str(MP_TOPK)}, clock)
+    _cp_rules(with_param=True)
+    st.degrade_rule_manager.load_rules([st.DegradeRule(f"r{i}", grade=C.DEGRADE_GRADE_EXCEPTION_COUNT, count=15,
+                                                       time_window=2, min_request_amount=5)
+                                        for i in range(0, 600, 3)])
+    rec = _CountingExtension()
+    extension.MetricExtensionProvider.clear()
+    extension.MetricExtensionProvider.register(rec.ext)
+    admission_trace._rand.seed(seed)  # the same head sampling on the card and the CPU
+    timer = MetricTimer(eng, writer=MetricWriter(base_dir=d, app_name="phase4i"))
+    rng = np.random.default_rng(seed)
+    p = _zipf_p()
+    pulls, read_ms, copy_ms, pull_s, pull_k17 = [], [], [], [], []
+    prev_groups, rows = [], []
+    try:
+        for step in range(MP_SECONDS):
+            now = 1000 * step + 500
+            clock.set_ms(now)
+            res = np.sort(rng.choice(N_RULES, size=FLUSH_N, p=p))
+            ts = (now - rng.integers(0, 400, FLUSH_N)).astype(np.int32)
+            uniq, start = np.unique(res, return_index=True)
+            bounds = list(start) + [FLUSH_N]
+            groups = []
+            for i, r in enumerate(uniq.tolist()):
+                n = int(bounds[i + 1] - bounds[i])
+                args = [(f"v{v}",) for v in np.minimum(rng.zipf(1.1, n), 64).tolist()] if r % 8 == 0 else None
+                groups.append(eng.submit_bulk(f"r{r}", n, ts=np.sort(ts[bounds[i]:bounds[i + 1]]), args_column=args))
+            for g in prev_groups[:300]:  # completions of the last second's admitted entries
+                if g.admitted_count:
+                    eng.submit_exit_bulk(g.rows, g.admitted_count, rt=int(rng.integers(1, 200)), ts=now,
+                                         err=(rng.random(g.admitted_count) < 0.4).astype(np.int32),
+                                         resource=g.resource)
+            prev_groups = groups
+            eng.flush()
+            clock.set_ms(now + 1000)
+            before = ma.bucket_read.launches
+            t0 = time.perf_counter()
+            lines = timer.run_once()
+            pull_s.append(time.perf_counter() - t0)
+            pull_k17.append(ma.bucket_read.launches - before)  # the pull's own K17 launches, not the timings'
+            pulls.append([_line_record(ln) for ln in lines])
+            if device.type == "cuda" and step % 11 == 10:
+                # The pull's read alone, K17 against the JAX-style copy of
+                # the whole window, on the engine's stream, synchronized.
+                upto = clock.now_ms() // 1000 * 1000
+                rows = [eng.nodes.entry_node_row] + [r for _, r in eng.nodes.resources()]
+                idx = torch.tensor(rows, dtype=I32, device=device)
+                minute = eng.stats.minute
+
+                def k17():
+                    ma.bucket_read(nodes.MINUTE_CFG, minute, idx, upto - 1000, upto, clock.now_ms())
+
+                def whole():
+                    ws, counts, valid = ma.bucket_windows(nodes.MINUTE_CFG, minute, clock.now_ms())
+                    ws.cpu(), counts.cpu(), valid.cpu()
+
+                for fn, out in ((k17, read_ms), (whole, copy_ms)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    out.append((time.perf_counter() - t0) * 1e3)
+        eng.block_log.flush()
+        searcher = MetricSearcher(base_dir=d, app_name="phase4i")
+        found = [_line_record(ln) for ln in searcher.find(0, 2**62, max_lines=2**31)]
+        traces = [_trace_record(r) for r in eng.admission_trace.records()]
+        out = (pulls, found, eng.block_log.read_entries(), traces, eng.admission_trace.counters_snapshot(),
+               eng.resource_metrics.totals(), dict(rec.calls), _states_of(eng),
+               eng.telemetry.blocked_sketch.topk(64), (read_ms, copy_ms, pull_s, len(rows), pull_k17))
+    finally:
+        extension.MetricExtensionProvider.clear()
+    return out
+
+
+def drive_retuned_engine(device: torch.device, seed: int, chain: bool):
+    """(c): phase 4's stream (``chain`` False) or 4b's (the slot chain with
+    prioritized entries that borrow, so that K1, K5 and the slab run), for
+    RT_STEPS flushes, the second window retuned between flushes through
+    ``sample_count_property`` and ``interval_property``: 4 x 1,000 ms, then
+    10 x 1,000 ms, then 2 x 2,000 ms (by 10 x 2,000). Returns the stream's
+    records and final states and the geometries it ran at."""
+    seen = []
+
+    def retune(step):
+        what = RT_PLAN.get(step)
+        if what is not None:
+            prop = st.sample_count_property if what[0] == "sample_count" else st.interval_property
+            prop.update_value(what[1])
+            cfg = nodes.SECOND_CFG
+            seen.append((step, cfg.sample_count, cfg.interval_ms, tuple(api.get_engine().stats.second.counts.shape)))
+
+    try:
+        if chain:
+            out = drive_chain_engine(device, seed, steps=RT_STEPS, before_flush=retune)
+            records, stats, breakers = out[0], out[1], out[2]
+            states = [stats, breakers]
+        else:
+            out = drive_engine(device, seed, steps=RT_STEPS, before_flush=retune)
+            records, states = out[0], [out[1], out[2]]
+        return records, states, seen, _states_of(api.get_engine())
+    finally:
+        api.reset(device=device)  # back to the default geometry
+
+
+def drive_mesh_topk(device: torch.device, seed: int):
+    """(e): the engine on 8 shards with telemetry on: MESH_TOPK_STEPS Zipf
+    flushes of 8,192 entries over phase 4's rules. The sharded step has no
+    device top-K, so the engine recounts each chunk's blocked weight on the
+    host (``_fold_blocked_recount``). Returns the recorder's blocked top-K
+    and its last flush's."""
+    clock = tclock.ManualClock(0)
+    api.reset(clock=clock, device=device)
+    eng = api.get_engine()
+    eng.enable_mesh(D_MESH)
+    _cp_rules(with_param=False)
+    rng = np.random.default_rng(seed)
+    p = _zipf_p()
+    for step in range(MESH_TOPK_STEPS):
+        now = 1000 + 200 * step
+        clock.set_ms(now)
+        res = np.sort(rng.choice(N_RULES, size=8192, p=p))
+        uniq, start = np.unique(res, return_index=True)
+        bounds = list(start) + [res.size]
+        for i, r in enumerate(uniq.tolist()):
+            eng.submit_bulk(f"r{r}", int(bounds[i + 1] - bounds[i]), ts=now)
+        eng.flush()
+    tele = eng.telemetry
+    return tele.blocked_sketch.topk(64), list(tele.last_blocked_topk)
+
+
+def k17_full_width(results: dict) -> None:
+    """(b): K17 on a minute window of R rows (half the cells nonzero, stale
+    and empty buckets), MP_ROWS_ASKED asked rows, one second asked and 60."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(17)
+    now = 7_200_000 + 431
+    upto = now - now % 1000
+    cfg = nodes.MINUTE_CFG
+    state = make_window_state(cfg, now, gen)
+    state.counts.mul_((torch.rand(state.window_start.shape, generator=gen, device=DEV) < 0.5).to(I32)[:, :, None])
+    idx = torch.randint(0, R, (MP_ROWS_ASKED,), generator=gen, device=DEV, dtype=I32)
+    r = results["bucket_read"]
+    for seconds in (1, 60):
+        begin = upto - 1000 * seconds
+        ma.bucket_read.launches = 0
+        got = ma.bucket_read(cfg, state, idx, begin, upto, now)
+        if ma.bucket_read.launches != 1:
+            fail("phase 4i (b): K17 was not launched")
+        want = ma.bucket_read_plain(cfg, state, idx, begin, upto, now)
+
+        def sort(t):
+            return t[torch.from_numpy(np.lexsort((t[:, 1].numpy(), t[:, 0].numpy())))]
+
+        err = require_equal(sort(want), sort(got), f"phase 4i (b): bucket_read at {seconds} s")
+        if got.shape[0] == 0:
+            fail("phase 4i (b): K17 found no cell")
+        call = lambda: ma.bucket_read(cfg, state, idx, begin, upto, now)  # noqa: E731
+        kern, mems, dev_ms = profile(call, f"phase 4i (b): K17 at {seconds} s")
+        n_rec = got.shape[0]
+        moved = MP_ROWS_ASKED * 4 + MP_ROWS_ASKED * seconds * (4 + 4 * NUM_EVENTS) + n_rec * 4 * ma.BUCKET_RECORD + 4
+        b_ms, b_by = bound(moved)
+        timing = dict(ms=time_ms(call), plain_ms=time_ms(lambda: ma.bucket_read_plain(cfg, state, idx, begin, upto,
+                                                                                       now)),
+                      launches_per_call=kern, memsets_per_call=mems, device_ms=dev_ms, records=n_rec,
+                      bound=(b_ms, b_by))
+        log(f"  (b) K17 at {MP_ROWS_ASKED:,} of {R:,} rows, {seconds} s asked: {timing['ms']:.4f} ms a call "
+            f"(plain {timing['plain_ms']:.4f}), {kern} device kernels, {mems} memsets, {dev_ms:.4f} ms of device "
+            f"time; {n_rec:,} records; bound {b_ms:.5f} ms by {b_by}")
+        if seconds == 1:
+            r.update(ms=timing["ms"], plain_ms=timing["plain_ms"], library_ms=None, max_abs_err=err,
+                     bound=timing["bound"], launches_per_call=kern, memsets_per_call=mems, device_ms=dev_ms,
+                     shape=f"{MP_ROWS_ASKED:,} asked rows of a {R:,}-row minute window, 1 s asked ({n_rec:,} records)")
+        else:
+            r.update(ms_60s=timing["ms"], plain_ms_60s=timing["plain_ms"], bound_ms_60s=b_ms, device_ms_60s=dev_ms,
+                     launches_per_call_60s=kern, memsets_per_call_60s=mems, records_60s=n_rec)
+
+
+def retuned_kernels() -> None:
+    """(c): phase 2's kernel-against-plain checks of K1, K2, K3/row_stats,
+    K4 with occupy, K5 and K9 at full width with the second window at
+    10 x 100 ms."""
+    old = nodes.SECOND_CFG
+    nodes.set_second_window(10, 1000)
+    try:
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(20)
+        rng = np.random.default_rng(20)
+        now = 3_000_000 + 456
+        cfg = nodes.SECOND_CFG
+        stats = make_stats(now, gen, matured_frac=0.02)
+        want = nodes.materialize_matured_plain(clone(stats), now)
+        require_equal(want, nodes.materialize_matured(clone(stats), now), "phase 4i (c): K1 at nb = 10")
+        batch = make_batch(rng, now, skewed=True, with_exits=True)
+        admitted = torch.rand(N, generator=gen, device=DEV) < 0.7
+        rows, ts, dl, _, mask = entry_updates(batch, admitted)
+        thr = torch.zeros_like(rows)
+        want = nodes.apply_updates_plain(clone(stats), rows, ts, dl, None, thr, mask)
+        require_equal(want, nodes.apply_updates(clone(stats), rows, ts, dl, None, thr, mask), "phase 4i (c): K2")
+        rows_g = torch.from_numpy(zipf_rows(rng, N, R)).to(DEV)
+        require_equal(nodes.rows_stats_plain(stats, rows_g, now), nodes.rows_stats(stats, rows_g, now),
+                      "phase 4i (c): row_stats at nb = 10")
+        require_equal(ma.window_reduce_plain(cfg, stats.second, now, rows_g, with_min=True),
+                      ma.window_reduce(cfg, stats.second, now, rows_g, with_min=True), "phase 4i (c): K3 at nb = 10")
+        # Borrowable windows: the bucket that expires next holds most of the
+        # pass, a few slab cells future tokens.
+        cur = now - now % cfg.window_len_ms
+        nb = cfg.sample_count
+        stats.future_ws.fill_(cfg.empty_ws)
+        stats.future_pass.zero_()
+        nxt = ((cur // cfg.window_len_ms) + 1) % nb
+        stats.second.window_start[:, nxt] = cur - cfg.interval_ms + cfg.window_len_ms
+        stats.second.counts[:, nxt, 0] = torch.randint(15, 30, (R,), generator=gen, device=DEV, dtype=I32)
+        fut = torch.rand((R, nb), generator=gen, device=DEV) < 0.1
+        stats.future_ws.copy_(torch.where(fut, cur + cfg.window_len_ms, stats.future_ws))
+        stats.future_pass.copy_(torch.where(fut, 1, 0).to(I32))
+        table = make_table()
+        cb = batch._replace(e_prio=torch.from_numpy(rng.random(N) < 0.25).to(DEV))
+        live = cb.e_valid
+        w = flush.flow_admission_plain(stats, table, cb, 0, live, 1000, True, False, with_ppc=True)
+        adm = flush.flow_admission(stats, table, cb, 0, live, 1000, True, False, with_ppc=True)
+        require_equal(w, adm, "phase 4i (c): K4 with occupy at nb = 10")
+        if not bool(adm.occupied.any()):
+            fail("phase 4i (c): no entry borrowed at nb = 10")
+        gate = adm.occ_slot & (adm.flow_pass & adm.occupied)[:, None]
+        require_equal(flush.commit_borrow_slab_plain(slab_only(stats), gate, adm.occ_target, cb.e_acquire,
+                                                     cb.e_check_row),
+                      flush.commit_borrow_slab(slab_only(stats), gate, adm.occ_target, cb.e_acquire, cb.e_check_row),
+                      "phase 4i (c): K5 at nb = 10")
+        sh_table, sh_dyn = small_shaping_table()
+        gids = rng.integers(0, sh_table.n_rules, N // 8)
+        sb, _, _ = shaping_items(rng, gids, np.sort(rng.integers(now - 400, now, gids.size)), np.ones(gids.size))
+        sb = sb._replace(row=i32(rng.integers(0, R, gids.size)), eidx=i32(rng.integers(0, N, gids.size)),
+                         flat_pos=i32(rng.integers(0, N, gids.size)))
+        for interval_sec in (1.0, 2.0):
+            def call(fn):
+                dyn = clone(sh_dyn)
+                return (*fn(sh_table, dyn, sb, live, adm.pass_plus_consumed, stats.minute, interval_sec), dyn)
+
+            require_equal(call(tsh.shaping_stage_plain), call(tsh.shaping_stage),
+                          f"phase 4i (c): K9 at nb = 10 and interval {interval_sec} s")
+        log("  (c) K1, K2, K3/row_stats, K4 with occupy, K5 and K9 at nb = 10 (full width) equal their plain versions")
+    finally:
+        nodes.set_second_window(old.sample_count, old.interval_ms)
+
+
+def wide_topk(results: dict) -> None:
+    """(d): the blocked top-K above 8 on the DEFAULT tail (K4) and on the
+    slot chain's tail, at k = 16 and 64, at N entries over R rows and at 8
+    entries, against the plain version; the wide route alone timed against
+    its plain version and torch.topk of the dense weights (the library
+    call); the zeroed scratch stays zero."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(21)
+    rng = np.random.default_rng(21)
+    now = 4_000_000 + 77
+    stats = make_chain_stats(now, gen)
+    table = make_table()
+    r = results["blocked_topk_wide"]
+    for n in (N, 8):
+        batch = sub_batch(make_chain_batch(rng, now, skewed=True), n)
+        for k in (16, 64):
+            flush.blocked_topk_wide.launches = 0
+            want = flush.flow_admission_plain(stats, table, batch, k)
+            got = flush.flow_admission(stats, table, batch, k)
+            err = require_equal(want, got, f"phase 4i (d): the DEFAULT tail at k = {k}, {n} entries")
+            adm = flush.flow_admission(stats, table, batch, 0, batch.e_valid, 500, True, False)
+            v_want = flush.slot_chain_verdict_plain(batch, adm, None, None, None, None, R, k)
+            v_got = flush.slot_chain_verdict(batch, adm, None, None, None, None, R, k)
+            err = max(err, require_equal(v_want, v_got, f"phase 4i (d): the chain's tail at k = {k}, {n} entries"))
+            if flush.blocked_topk_wide.launches != 2:
+                fail(f"phase 4i (d): the wide route ran {flush.blocked_topk_wide.launches} times for two tails")
+            zero = cuda_build._SCRATCH.get((True, DEV, torch.cuda.current_stream(DEV).cuda_stream))
+            torch.cuda.synchronize()
+            if zero is not None and int(zero.count_nonzero()) != 0:
+                fail("phase 4i (d): the wide route left the zeroed scratch dirty")
+            admitted = got.admitted
+            wide = lambda: flush.blocked_topk_wide(batch, admitted, R, k)  # noqa: E731
+            plain = lambda: flush._blocked_topk_plain(batch, admitted, R, k)  # noqa: E731
+            blocked_w = torch.where(batch.e_valid & ~admitted, batch.e_acquire, 0).to(I32)
+            dense = torch.zeros(R + 1, dtype=I32, device=DEV).index_add_(
+                0, torch.where(blocked_w > 0, batch.e_rows[:, 1].clamp(0, R - 1), R).long(), blocked_w)[:R]
+            lib = lambda: torch.topk(dense, k)  # noqa: E731
+            kern, mems, dev_ms = profile(wide, f"phase 4i (d): the wide route at k = {k}")
+            moved = n * (1 + 1 + 4 + 4) + 8 * k
+            b_ms, b_by = bound(moved)
+            ms, p_ms, l_ms = time_ms(wide), time_ms(plain), time_ms(lib)
+            log(f"  (d) k = {k}, {n:,} entries over {R:,} rows: both tails equal their plain versions; the wide route "
+                f"{ms:.4f} ms a call (plain {p_ms:.4f}, torch.topk of the dense weights {l_ms:.4f}), {kern} kernels, "
+                f"{mems} memsets, {dev_ms:.4f} ms of device time; bound {b_ms:.6f} ms by {b_by}")
+            tag = "" if (n, k) == (N, MP_TOPK) else f"_{n}_k{k}"
+            if tag:
+                r.update({f"ms{tag}": ms, f"plain_ms{tag}": p_ms, f"library_ms{tag}": l_ms, f"device_ms{tag}": dev_ms,
+                          f"launches_per_call{tag}": kern, f"memsets_per_call{tag}": mems})
+            else:
+                r.update(ms=ms, plain_ms=p_ms, library_ms=l_ms, max_abs_err=err, bound=(b_ms, b_by),
+                         launches_per_call=kern, memsets_per_call=mems, device_ms=dev_ms, library_call="torch.topk",
+                         shape=f"k = {k}, {n:,} entries over {R:,} rows (the chain tail's verdicts)")
+
+
+def phase4_metric(results: dict, cpu_jobs: dict) -> None:
+    log(f"phase 4i: the metric plane on the card: the metric timer over {MP_SECONDS} simulated s (K17), the retune, "
+        f"the blocked top-K above 8, the mesh's host recount")
+    # (a) the metric timer on phase 4's stream, counts from 0 around it
+    wrappers = {"bucket_read": ma.bucket_read, "blocked_topk_wide": flush.blocked_topk_wide}
+    for w in wrappers.values():
+        w.launches = 0
+    card = drive_metric_engine(DEV, 30)
+    counts = {name: w.launches for name, w in wrappers.items()}
+    # K17's count is the pulls' own: the side timings of the read launch it
+    # too. Each pull asks the one second since the last, one launch each.
+    pull_k17 = card[9][4]
+    counts["bucket_read"] = sum(pull_k17)
+    log(f"  (a) launches on the metric plane's path: {counts}")
+    if pull_k17 != [1] * MP_SECONDS:
+        fail(f"phase 4i (a): K17 launched {pull_k17} times in the {MP_SECONDS} pulls, not once a pull")
+    for name, c in counts.items():
+        if c <= 0:
+            fail(f"phase 4i (a): kernel {name} was not launched on the metric plane's path")
+        results[name]["launches"] = c
+    cpu = cpu_result(cpu_jobs, "4i a")
+    names = ["pull lines", "searcher lines", "block log", "trace records", "trace counters", "provenance totals",
+             "extension calls"]
+    for what, a, b in zip(names, card[:7], cpu[:7]):
+        if a != b:
+            fail(f"phase 4i (a): {what} differ between the card and the CPU")
+    _same_states(card[7], cpu[7], "phase 4i (a) states")
+    if card[8] != cpu[8]:
+        fail("phase 4i (a): the recorder's blocked top-K differs between the card and the CPU")
+    read_ms, copy_ms, pull_s, n_rows, _ = card[9]
+    n_lines = sum(len(p) for p in card[0])
+    if n_lines == 0 or not card[2] or not card[3]:
+        fail("phase 4i (a): the stream wrote no metric line, block-log line or trace record")
+    if not any(dict(ln)["resource"] == "__engine__" for p in card[0] for ln in p):
+        fail("phase 4i (a): no __engine__ line")
+    log(f"  (a) {n_lines:,} metric lines over {MP_SECONDS} pulls, {len(card[1]):,} found by the searcher, "
+        f"{len(card[2]):,} block-log lines, {len(card[3])} trace records ({card[4]}), "
+        f"{len(card[6]):,} extension keys: identical on card and CPU")
+    log(f"  (a) a pull (flush, drain, K17 read, lines, write) {1e3 * min(pull_s):.3f}-{1e3 * max(pull_s):.3f} ms, "
+        f"median {1e3 * float(np.median(pull_s)):.3f} ms; its read of {n_rows:,} rows: K17 "
+        f"{min(read_ms):.4f}-{max(read_ms):.4f} ms against the whole-window copy {min(copy_ms):.4f}-"
+        f"{max(copy_ms):.4f} ms (host clock around a synchronized call)")
+    results["bucket_read"].update(pull_ms=[1e3 * min(pull_s), 1e3 * float(np.median(pull_s)), 1e3 * max(pull_s)],
+                                  read_ms_4i=[min(read_ms), max(read_ms)], copy_ms_4i=[min(copy_ms), max(copy_ms)],
+                                  asked_rows_4i=n_rows)
+    # (b) K17 at full width
+    k17_full_width(results)
+    # (c) the retune on phase 4's and 4b's streams, and the kernels at nb = 10
+    for tag, chain in (("4i c", False), ("4i c chain", True)):
+        got = drive_retuned_engine(DEV, 31, chain)
+        want = cpu_result(cpu_jobs, tag)
+        if len(got[0]) != len(want[0]) or any(not np.array_equal(a, b) for a, b in zip(got[0], want[0])):
+            fail(f"phase 4i (c): verdicts of the retuned {'chain' if chain else 'DEFAULT'} stream differ")
+        _same_states(got[3], want[3], f"phase 4i (c) states ({tag})")
+        if got[2] != want[2] or [g[1:3] for g in got[2]] != [(4, 1000), (10, 1000), (10, 2000), (2, 2000)]:
+            fail(f"phase 4i (c): the geometries {got[2]} (CPU {want[2]})")
+        log(f"  (c) {'the slot chain' if chain else 'the DEFAULT stream'} retuned to {[g[1:3] for g in got[2]]}: "
+            f"{sum(len(x) for x in got[0]):,} verdict values and every state tensor identical on card and CPU")
+    retuned_kernels()
+    # (d) the wide top-K
+    wide_topk(results)
+    # (e) the mesh's host recount
+    got = drive_mesh_topk(DEV, 32)
+    want = cpu_result(cpu_jobs, "4i e")
+    if got != want or not got[0]:
+        fail(f"phase 4i (e): the mesh's blocked top-K {got[1][:4]} differs from the CPU engine's {want[1][:4]}")
+    log(f"  (e) the mesh's host recount: the recorder's blocked top-K ({len(got[0])} resources) identical on card and "
+        "CPU")
+
+
 def phase5() -> None:
     log("phase 5: flow_qps_demo (8 threads, 3 s of real clock, QPS = 20 rule)")
     tclock.set_default_clock(tclock.SystemClock())
@@ -4441,6 +4899,10 @@ def start_cpu_jobs() -> dict:
         "4g spec": WORKERS.apply_async(drive_spec_entries, (cpu, 11)),
         "4h b": WORKERS.apply_async(drive_valve, (cpu, 15)),
         "4h c": WORKERS.apply_async(drive_tuned_engine, (cpu, 16, False)),
+        "4i a": WORKERS.apply_async(drive_metric_engine, (cpu, 30)),
+        "4i c": WORKERS.apply_async(drive_retuned_engine, (cpu, 31, False)),
+        "4i c chain": WORKERS.apply_async(drive_retuned_engine, (cpu, 31, True)),
+        "4i e": WORKERS.apply_async(drive_mesh_topk, (cpu, 32)),
     }
 
 
@@ -4461,7 +4923,7 @@ def main() -> None:
     cuda_build.build_all(["slab_sweep", "window_update", "window_reduce", "flow_admission", "system_check",
                           "breaker_on_exits",
                           "breaker_try_pass", "commit_borrow_slab", "shaping_scan", "param_scan", "sketch_fold",
-                          "token_decide", "mesh_merge_breaker", "mesh_budget"])
+                          "token_decide", "mesh_merge_breaker", "mesh_budget", "bucket_read", "blocked_topk"])
     log(f"  CUDA kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
 
     meta = {
@@ -4499,6 +4961,8 @@ def main() -> None:
         "mesh_shaping_charge": ("cuda", "sentinel_tpu_torch/csrc/mesh_budget.cu", "sentinel_tpu/parallel/ici.py:346"),
         "breaker_try_pass_mask": ("cuda", "sentinel_tpu_torch/csrc/breaker_try_pass.cu",
                                   "sentinel_tpu/rules/degrade_table.py:297"),
+        "bucket_read": ("cuda", "sentinel_tpu_torch/csrc/bucket_read.cu", "sentinel_tpu/metrics/metric_array.py:231"),
+        "blocked_topk_wide": ("cuda", "sentinel_tpu_torch/csrc/blocked_topk.cu", "sentinel_tpu/runtime/flush.py:879"),
     }
     results = {name: {} for name in meta}
     took = {"1": round(time.perf_counter() - t_start, 1)}
@@ -4510,7 +4974,7 @@ def main() -> None:
         ("4c", lambda: phase4_shaping(results, cpu_jobs)), ("4d", lambda: phase4_sketch(results, cpu_jobs)),
         ("2f", lambda: phase2_mesh(results)), ("3b", phase3b), ("4e", lambda: phase4_mesh(results, cpu_jobs)),
         ("4f", lambda: phase4_pipeline(cpu_jobs)), ("4g", lambda: phase4_failover(cpu_jobs)),
-        ("4h", lambda: phase4_control(results, cpu_jobs)),
+        ("4h", lambda: phase4_control(results, cpu_jobs)), ("4i", lambda: phase4_metric(results, cpu_jobs)),
         ("5", phase5), ("6", phase6), ("7", phase7), ("8", lambda: phase8(results, cpu_jobs)), ("9", phase9),
     ):
         t0 = time.perf_counter()
@@ -4541,7 +5005,11 @@ def main() -> None:
                       "decay_launches_per_call", "decay_memsets_per_call", "decay_device_ms", "decay_kernel_us",
                       "widened_device_ms", "widened_kernel_us", "matured_ms", "matured_launches_per_call",
                       "matured_memsets_per_call", "matured_device_ms", "matured_cells", "read_ms", "small_plain_ms",
-                      "edges", "launches_4h", "routes_4h"):
+                      "edges", "launches_4h", "routes_4h", "ms_60s", "plain_ms_60s", "bound_ms_60s",
+                      "device_ms_60s", "launches_per_call_60s", "memsets_per_call_60s", "records", "records_60s",
+                      "pull_ms", "read_ms_4i", "copy_ms_4i", "asked_rows_4i") + tuple(
+                          f"{m}_{n}_k{k}" for m in ("ms", "plain_ms", "library_ms", "device_ms", "launches_per_call",
+                                                    "memsets_per_call") for n, k in ((N, 64), (8, 16), (8, 64))):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

@@ -14,11 +14,19 @@ the rule managers, ``submit_bulk``, ``submit_exit_bulk``, ``flush``,
   50 groups; the host ms of each flush call (a ``torch.cuda.synchronize()``
   before it, so that no earlier device work is in it), their median and
   quartiles over flushes 5-39, entries per second, the median host split
-  (``Engine.last_flush_host_ms``) where the checkout has it, and a digest
-  of the stream's verdicts (equal across checkouts);
+  (``Engine.last_flush_host_ms``) where the checkout has it, the garbage
+  collections that ran inside those flush calls (count and ms by
+  generation, from ``gc.callbacks``), and a digest of the stream's
+  verdicts (equal across checkouts);
 - ``st.entry`` and exit on one thread against a QPS rule of 20 under a
   ManualClock that moves 7 ms a call, 2,000 calls after 100 of warm-up:
   the ms a call, median and p99.
+
+With ``--profile`` the DEFAULT stream runs once more, its flush calls 5-39
+under cProfile, and the line gains ``flush_profile``: the 30 functions of
+the largest cumulative time in those calls, with their own and cumulative
+ms a flush call (cProfile's overhead included). The stats go to
+``build/profiles/flush_profile_<tag>.pstats``.
 
 One JSON line, with the card's name and power limit and the torch version.
 """
@@ -26,9 +34,12 @@ One JSON line, with the card's name and power limit and the torch version.
 from __future__ import annotations
 
 import argparse
+import cProfile
+import gc
 import hashlib
 import json
 import os
+import pstats
 import sys
 import time
 
@@ -43,7 +54,9 @@ STEPS = 40
 ENTRIES = 2000
 
 
-def engine_stream(st, api, tclock, out: dict) -> None:
+def engine_stream(st, api, tclock, out: dict, prof: cProfile.Profile | None = None) -> None:
+    """The DEFAULT stream; with ``prof`` its flush calls 5-39 run under it
+    and ``out`` is left alone."""
     clock = tclock.ManualClock(0)
     api.reset(clock=clock)
     st.flow_rule_manager.load_rules([st.FlowRule(f"r{i}", count=20) for i in range(N_RULES)])
@@ -53,6 +66,21 @@ def engine_stream(st, api, tclock, out: dict) -> None:
     p = ranks / ranks.sum()
     digest = hashlib.sha256()
     call_ms, splits, prev = [], [], []
+    gc_ms = {g: [0, 0.0] for g in range(3)}  # collections inside the timed flush calls
+    in_flush, gc_t0 = [False], [0.0]
+
+    def on_gc(phase: str, info: dict) -> None:
+        if not in_flush[0]:
+            return
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            c = gc_ms[info["generation"]]
+            c[0] += 1
+            c[1] += (time.perf_counter() - gc_t0[0]) * 1e3
+
+    if prof is None:
+        gc.callbacks.append(on_gc)
     for step in range(STEPS):
         now = 1000 + step * 100
         clock.set_ms(now)
@@ -68,9 +96,15 @@ def engine_stream(st, api, tclock, out: dict) -> None:
             if g.admitted_count:
                 eng.submit_exit_bulk(g.rows, g.admitted_count, rt=int(rng.integers(1, 300)), ts=now)
         torch.cuda.synchronize()
+        if prof is not None and step >= 5:
+            prof.enable()
+        in_flush[0] = step >= 5
         t0 = time.perf_counter()
         eng.flush()
         call_ms.append((time.perf_counter() - t0) * 1e3)
+        in_flush[0] = False
+        if prof is not None:
+            prof.disable()
         if hasattr(type(eng), "last_flush_host_ms"):
             try:
                 splits.append(eng.last_flush_host_ms)
@@ -80,12 +114,27 @@ def engine_stream(st, api, tclock, out: dict) -> None:
             digest.update(np.ascontiguousarray(g.admitted).tobytes())
             digest.update(np.ascontiguousarray(g.reason, dtype=np.int32).tobytes())
         prev = groups
+    if prof is not None:
+        return
+    gc.callbacks.remove(on_gc)
     steady = call_ms[5:]
     q1, med, q3 = (float(np.percentile(steady, q)) for q in (25, 50, 75))
     out.update(flush_call_ms=[q1, med, q3], flush_call_ms_all=call_ms, entries_per_s=FLUSH_N / (med / 1e3),
-               verdict_digest=digest.hexdigest())
+               verdict_digest=digest.hexdigest(), gc_in_flush_calls=gc_ms)
     if splits:
         out["host_split_ms"] = {k: float(np.median([s[k] for s in splits[5:]])) for k in splits[0]}
+
+
+def flush_profile(st, api, tclock, tag: str) -> list:
+    prof = cProfile.Profile()
+    engine_stream(st, api, tclock, {}, prof)
+    out_dir = os.path.join("build", "profiles")
+    os.makedirs(out_dir, exist_ok=True)
+    prof.dump_stats(os.path.join(out_dir, f"flush_profile_{tag or 'run'}.pstats"))
+    stats = pstats.Stats(prof).stats  # (file, line, name) -> (cc, nc, tottime, cumtime, callers)
+    n = STEPS - 5
+    top = sorted(stats.items(), key=lambda kv: kv[1][3], reverse=True)[:30]
+    return [[f"{os.path.basename(f)}:{line}({name})", 1e3 * v[2] / n, 1e3 * v[3] / n] for (f, line, name), v in top]
 
 
 def entry_calls(st, api, tclock, out: dict) -> None:
@@ -113,6 +162,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="checkout whose sentinel_tpu_torch is timed")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--profile", action="store_true", help="also profile the DEFAULT stream's flush calls")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("gpu_engine_ab: no CUDA device")
@@ -126,6 +176,8 @@ def main() -> None:
     out = {"tag": args.tag, "root": args.root, "card": card_line(), "torch": torch.__version__}
     engine_stream(st, api, tclock, out)
     entry_calls(st, api, tclock, out)
+    if args.profile:
+        out["flush_profile"] = flush_profile(st, api, tclock, args.tag)
     api.reset()
     print(json.dumps(out), flush=True)
 

@@ -15,10 +15,12 @@ kernels (window update, window sums, matured-borrow sweep, flow admission
 with occupy, borrow commit, system check, breakers, shaping and
 hot-parameter recurrences, verdict tail, sketch fold; the token service's
 decision pass beside them) are hand-written for Hopper in CUDA C++ and
-Triton. Features not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item; so do the public names of the JAX package whose
-modules are not ported (the trace-context helpers, the window
-properties).
+Triton; and the metric plane (the admission trace with the W3C
+trace-context helpers, the provenance ledger, the block log, the metric
+extensions, the breaker observers, the metric log and its timer, the live
+second-window retune through ``sample_count_property`` and
+``interval_property``). Features not ported yet raise
+``NotImplementedError`` naming their ROADMAP item.
 
     import sentinel_tpu_torch as st
 
@@ -46,6 +48,7 @@ from sentinel_tpu_torch.core.api import (
     set_exceptions_to_trace,
     should_trace,
     trace,
+    trace_context,
     try_entry,
 )
 from sentinel_tpu_torch.core.context import Context, ContextUtil
@@ -73,16 +76,8 @@ from sentinel_tpu_torch.rules.flow_manager import flow_rule_manager
 from sentinel_tpu_torch.rules.param_manager import param_flow_rule_manager
 from sentinel_tpu_torch.rules.system_manager import system_rule_manager
 from sentinel_tpu_torch.runtime.engine import BulkOp
-from sentinel_tpu_torch.utils.unported import ROADMAP_METRICS, UnportedName
-
-# Public names of the JAX package whose modules are not ported yet: each
-# raises NotImplementedError naming its ROADMAP item when used.
-trace_context = UnportedName("trace_context", ROADMAP_METRICS)
-TraceContext = UnportedName("TraceContext", ROADMAP_METRICS)
-inject_trace_headers = UnportedName("inject_trace_headers", ROADMAP_METRICS)
-parse_traceparent = UnportedName("parse_traceparent", ROADMAP_METRICS)
-sample_count_property = UnportedName("sample_count_property", ROADMAP_METRICS)
-interval_property = UnportedName("interval_property", ROADMAP_METRICS)
+from sentinel_tpu_torch.metrics.admission_trace import TraceContext, inject_trace_headers, parse_traceparent
+from sentinel_tpu_torch.metrics.window_properties import interval_property, sample_count_property
 
 __all__ = [
     "__version__",

@@ -102,6 +102,16 @@ def reset(clock: Optional[Clock] = None, device: DeviceLike = None) -> Engine:
                 _engine.close()  # decide anything still queued
             except Exception:
                 record_log.error("[api.reset] quiescing the pre-reset engine failed", exc_info=True)
+        # The window geometry is engine-scoped: a fresh engine starts at the
+        # default 2 x 500 ms second window, and the geometry properties are
+        # cleared, so that a re-push of the same value after the reset
+        # retunes again (a None update is a no-op in their listeners).
+        from sentinel_tpu_torch.metrics import nodes as _nodes
+        from sentinel_tpu_torch.metrics import window_properties as _wp
+
+        _nodes.set_second_window(C.DEFAULT_SAMPLE_COUNT, C.DEFAULT_WINDOW_INTERVAL_MS)
+        _wp.sample_count_property.update_value(None)
+        _wp.interval_property.update_value(None)
         _device = device
         _engine = Engine(clock=clock, device=device)
     ContextUtil.replace_context(None)
@@ -317,8 +327,9 @@ def _window_join(engine: Engine, resource, entry_type, count, origin, args):
     """The head of the windowed paths: context bookkeeping and the shed
     before assembly (a shed request never occupies a window slot, and the
     window's queued requests count toward the valve's bulk bound). Returns
-    ``(req, ctx)``. The admission trace's caller-thread stamp belongs to
-    ROADMAP Queue 1 item 8."""
+    ``(req, ctx)``. The admission trace's tag is stamped here, on the
+    caller's thread, where the inbound traceparent is ambient: the
+    window's flusher thread has no request identity."""
     from sentinel_tpu_torch.runtime.window import WindowRequest
 
     ctx = ContextUtil.get_context()
@@ -333,8 +344,10 @@ def _window_join(engine: Engine, resource, entry_type, count, origin, args):
             if ctx.auto and not ctx.entry_stack:
                 ContextUtil.exit()
             raise _block_error(op.verdict, resource)
+    tracer = engine.admission_trace
+    tag = tracer.make_tag() if tracer.enabled else None
     req = WindowRequest(resource, context_name, eff_origin, count, entry_type, tuple(args), engine.clock.now_ms(),
-                        None)
+                        tag)
     return req, ctx
 
 
@@ -495,6 +508,14 @@ def trace(e: BaseException, count: int = 1) -> None:
     ctx = ContextUtil.get_context()
     if ctx is None:
         return
+    cur = ctx.cur_entry
+    if isinstance(cur, Entry):
+        cur.set_error(e)
+
+
+def trace_context(e: BaseException, ctx: Context, count: int = 1) -> None:
+    """Tracer.traceContext: attach a business exception to ``ctx``'s
+    current entry."""
     cur = ctx.cur_entry
     if isinstance(cur, Entry):
         cur.set_error(e)

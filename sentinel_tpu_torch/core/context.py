@@ -20,7 +20,7 @@ from sentinel_tpu_torch.models import constants as C
 class Context:
     """One invocation chain: (name, origin) plus the current entry stack."""
 
-    __slots__ = ("name", "origin", "entry_stack", "auto", "_is_null")
+    __slots__ = ("name", "origin", "entry_stack", "auto", "_is_null", "trace")
 
     def __init__(self, name: str, origin: str = "", *, is_null: bool = False) -> None:
         self.name = name
@@ -30,6 +30,10 @@ class Context:
         # contexts auto-exit when their last entry exits.
         self.auto = False
         self._is_null = is_null
+        # The W3C trace identity riding this chain (an
+        # admission_trace.TraceContext), set through ContextUtil.set_trace
+        # and carried with the Context across threads.
+        self.trace: Optional[object] = None
 
     @property
     def is_null(self) -> bool:
@@ -46,6 +50,12 @@ class Context:
 
 _current: contextvars.ContextVar[Optional[Context]] = contextvars.ContextVar(
     "sentinel_tpu_torch_context", default=None
+)
+
+# The ambient trace identity outside a named context; a Context created
+# while a trace is ambient captures it onto itself.
+_trace: contextvars.ContextVar[Optional[object]] = contextvars.ContextVar(
+    "sentinel_tpu_torch_trace", default=None
 )
 
 
@@ -68,6 +78,7 @@ class ContextUtil:
             row = api.get_engine().nodes.entrance_row(name)
             ctx = Context(name, origin, is_null=row is None)
             ctx.auto = name == C.CONTEXT_DEFAULT_NAME
+            ctx.trace = _trace.get()
             _current.set(ctx)
         return ctx
 
@@ -97,6 +108,32 @@ class ContextUtil:
         finally:
             ContextUtil.replace_context(old)
 
+    # --- the W3C trace-context carrier (metrics/admission_trace.py) ---
+    @staticmethod
+    def set_trace(tc):
+        """Make ``tc`` (a TraceContext, or None) the ambient trace identity,
+        and stamp the current Context, if any. Returns the token for
+        :meth:`reset_trace`, which restores the Context's prior trace."""
+        ctx = _current.get()
+        prev = ctx.trace if ctx is not None else None
+        if ctx is not None:
+            ctx.trace = tc
+        return (_trace.set(tc), ctx, prev)
+
+    @staticmethod
+    def get_trace():
+        """The current Context's trace, else the ambient one, else None."""
+        ctx = _current.get()
+        if ctx is not None and ctx.trace is not None:
+            return ctx.trace
+        return _trace.get()
+
+    @staticmethod
+    def reset_trace(token) -> None:
+        var_token, ctx, prev = token
+        if ctx is not None:
+            ctx.trace = prev
+        _trace.reset(var_token)
 
 
 def context_enter(name: str, origin: str = "") -> Context:

@@ -18,7 +18,7 @@ Semantics kept from the reference (and the JAX package, bit for bit):
   dropped; a newer window rolls the bucket;
 * ``min_rt`` starts at the statistic max RT (4900).
 
-Two kernels live here, each beside its plain PyTorch version:
+Three kernels live here, each beside its plain PyTorch version:
 
 * :func:`update` (K2): CUDA C++, ``csrc/window_update.cu``;
 * :func:`window_reduce` (K3, behind :func:`window_sums` and
@@ -26,6 +26,12 @@ Two kernels live here, each beside its plain PyTorch version:
   second entry point ``row_stats`` serves ``nodes.rows_stats`` (the
   engine's stats read: both windows, the gauge and the slab in one
   launch).
+
+and the metric timer's read of the minute window:
+
+* :func:`bucket_read` (K17): CUDA C++, ``csrc/bucket_read.cu``; what
+  ``bucket_windows`` and the JAX timer's filter compute, as compact
+  records of the asked rows' seconds.
 
 Each wrapper takes its plain version only for CPU tensors; a CUDA tensor
 launches the kernel (or raises), and the wrapper counts the launch in its
@@ -334,3 +340,109 @@ def _window_reduce_cuda(cfg, state, now, rows, with_min):
     )
     window_reduce.launches += 1
     return sums, mins
+
+
+# ---------------------------------------------------------------------------
+# bucket_windows, and K17: the metric timer's bucket read
+# ---------------------------------------------------------------------------
+
+
+def bucket_windows(cfg: MetricArrayConfig, state: MetricArrayState, now: int):
+    """(window_start [R, B], counts [R, B, E], valid [R, B]) of the whole
+    window, as the JAX metric log reads it (``MetricTimerListener`` reading
+    each node's per-second buckets). Plain PyTorch on any device: the
+    engine's timer reads through :func:`bucket_read` instead."""
+    ws = state.window_start
+    now_t = torch.tensor(int(now), dtype=torch.int32, device=ws.device)
+    return ws, state.counts, (now_t - ws) <= cfg.interval_ms
+
+
+BUCKET_RECORD = 2 + NUM_EVENTS  # bucket_read's record: the asked row's index, the second, the counts
+
+
+def bucket_read(cfg: MetricArrayConfig, state: MetricArrayState, rows: torch.Tensor, begin: int, upto: int,
+                now: int) -> torch.Tensor:
+    """The metric timer's read: for each asked row (``rows``, int32 [A],
+    clipped into ``[0, R)``) and each second ``sec`` of ``[begin, upto)``
+    (step ``cfg.window_len_ms``), the cell of bucket ``(sec // wlen) % B``
+    when it counts at ``now`` (``now - ws <= interval``, wrapping int32),
+    starts at ``sec``, and holds a nonzero count. Returns int32
+    [n, BUCKET_RECORD] records ``(index into rows, sec, counts...)``, in no
+    set order on the card, by (index, sec) here. On the card K17 writes
+    them in one launch (two when they outgrow a steady pull's buffer) and
+    two copies bring back the count and the records; the result lies on
+    the host."""
+    if state.counts.is_cuda:
+        return _bucket_read_cuda(cfg, state, rows, begin, upto, now)
+    return bucket_read_plain(cfg, state, rows, begin, upto, now)
+
+
+bucket_read.launches = 0
+
+
+def _read_seconds(cfg: MetricArrayConfig, begin: int, upto: int) -> int:
+    return max(0, -(-(int(upto) - int(begin)) // cfg.window_len_ms))
+
+
+def bucket_read_plain(cfg, state, rows, begin, upto, now) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bucket_read`."""
+    wlen = cfg.window_len_ms
+    dev = state.counts.device
+    n_sec = _read_seconds(cfg, begin, upto)
+    secs64 = int(begin) + wlen * torch.arange(n_sec, dtype=torch.int64, device=dev)
+    secs = wrap_i32(secs64)
+    b = torch.remainder(torch.div(secs64, wlen, rounding_mode="floor"), cfg.sample_count)
+    r = rows.long().clamp(0, state.n_rows - 1)
+    ws = state.window_start[r][:, b]  # [A, S]
+    counts = state.counts[r][:, b]  # [A, S, E]
+    now_t = torch.tensor(int(now), dtype=torch.int32, device=dev)
+    keep = ((now_t - ws) <= cfg.interval_ms) & (ws == secs[None, :]) & (counts != 0).any(-1)
+    a_idx, s_idx = keep.nonzero(as_tuple=True)
+    out = torch.empty((a_idx.shape[0], BUCKET_RECORD), dtype=torch.int32, device=dev)
+    out[:, 0] = a_idx.to(torch.int32)
+    out[:, 1] = secs[s_idx]
+    out[:, 2:] = counts[a_idx, s_idx]
+    return out.cpu()
+
+
+def _br_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("bucket_read")
+    if not getattr(lib, "_typed", False):
+        lib.bucket_read.argtypes = [_P] * 3 + [_I] * 9 + [_P] * 3
+        lib.bucket_read.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _bucket_read_cuda(cfg, state, rows, begin, upto, now, cap: Optional[int] = None) -> torch.Tensor:
+    """K17. The records buffer holds ``cap`` records: by default what a
+    steady pull can give (one second of every asked row, twice over, and
+    65,536 more), not the asked cells' worst case (at 1,048,576 rows and 59
+    s some 2 GB). A read that finds more launches once again with room for
+    exactly what it found."""
+    check_window(cfg, state, "state")
+    a = rows.shape[0]
+    _i32(rows, "rows", (a,))
+    if state.n_rows == 0:
+        raise IndexError("bucket_read: rows asked of a window with no rows")
+    n_sec = _read_seconds(cfg, begin, upto)
+    if cap is None:
+        cap = min(a * n_sec, 2 * a + 65536)
+    dev = state.counts.device
+    while True:
+        # One allocation: the count, then the records.
+        buf = torch.empty(1 + cap * BUCKET_RECORD, dtype=torch.int32, device=dev)
+        count, out = buf[:1], buf[1:]
+        cuda_build.check(
+            _br_lib().bucket_read(
+                state.counts.data_ptr(), state.window_start.data_ptr(), rows.data_ptr(), state.n_rows,
+                cfg.sample_count, cfg.window_len_ms, cfg.interval_ms, a, n_sec, int(begin), int(now), cap,
+                out.data_ptr(), count.data_ptr(), stream_of(state.counts),
+            ),
+            "bucket_read",
+        )
+        bucket_read.launches += 1
+        n = int(count.item())
+        if n <= cap:
+            return out[: n * BUCKET_RECORD].view(n, BUCKET_RECORD).cpu()
+        cap = n

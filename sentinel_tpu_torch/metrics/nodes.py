@@ -47,6 +47,27 @@ MINUTE_CFG = ma.MetricArrayConfig(
 )
 
 
+def set_second_window(sample_count: int, interval_ms: int) -> ma.MetricArrayConfig:
+    """Rebind the second-window geometry (SampleCountProperty.java and
+    IntervalProperty.java: updating either rebuilds every StatisticNode's
+    rolling second counter and resets its statistics; the minute window
+    and the thread gauges stay).
+
+    This swaps the module's config only: the owner of the stats tensors
+    (Engine.retune_second_window) rebuilds them with
+    :func:`rebuild_second`. Every reader takes ``nodes.SECOND_CFG`` through
+    the module at call time, and the kernels take the geometry as call
+    arguments, so the next flush runs at the new one."""
+    global SECOND_CFG
+    sample_count = int(sample_count)
+    interval_ms = int(interval_ms)
+    if sample_count <= 0 or interval_ms <= 0 or interval_ms % sample_count != 0:
+        # SampleCountProperty ignores invalid updates (java:42-49).
+        raise ValueError("invalid window geometry: sample_count must divide interval_ms")
+    SECOND_CFG = ma.MetricArrayConfig(sample_count=sample_count, interval_ms=interval_ms, max_rt=SECOND_CFG.max_rt)
+    return SECOND_CFG
+
+
 class StatsState(NamedTuple):
     """Device-resident statistics for all nodes (StatisticNode's 1 s
     window of 2×500 ms, its 60 s window of 60×1 s and its thread gauge,
@@ -73,6 +94,21 @@ def make_stats(n_rows: int, device: torch.device) -> StatsState:
         threads=torch.zeros((n_rows,), dtype=torch.int32, device=device),
         future_pass=torch.zeros((n_rows, b), dtype=torch.int32, device=device),
         future_ws=torch.full((n_rows, b), SECOND_CFG.empty_ws, dtype=torch.int32, device=device),
+    )
+
+
+def rebuild_second(state: StatsState) -> StatsState:
+    """The second window and the borrow slab rebuilt at the current
+    ``SECOND_CFG`` geometry, their contents dropped (the reference's
+    ``rollingCounterInSecond = new ArrayMetric(...)``); the minute window
+    and the thread gauges carry over. An allocation on the stats' device."""
+    n = state.n_rows
+    b = SECOND_CFG.sample_count
+    device = state.threads.device
+    return state._replace(
+        second=ma.make_state(n, SECOND_CFG, device),
+        future_pass=torch.zeros((n, b), dtype=torch.int32, device=device),
+        future_ws=torch.full((n, b), SECOND_CFG.empty_ws, dtype=torch.int32, device=device),
     )
 
 

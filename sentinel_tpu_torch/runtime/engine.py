@@ -26,7 +26,12 @@ reconciles, runtime/speculative.py); the control plane: the flight recorder
 (``Engine.telemetry``, metrics/telemetry.py, on by default), the ingest
 valve (``Engine.ingest``, runtime/ingest.py), the batch window
 (``Engine.ingest_window``, runtime/window.py) and the autotuner
-(``Engine.autotune``, runtime/autotune.py). Everything else the JAX engine does is refused loudly with
+(``Engine.autotune``, runtime/autotune.py); the metric plane: the admission
+tracer (``Engine.admission_trace``), the provenance ledger
+(``Engine.resource_metrics``), the block log (``Engine.block_log``), the
+metric extensions, the breaker state-change observers, the live retune of
+the second window (``retune_second_window``) and the metric timer's read
+(metrics/metric_log.py). Everything else the JAX engine does is refused loudly with
 ``NotImplementedError`` naming its ROADMAP item (see
 ``_refuse_unported_config`` and the ``set_*`` methods), never ignored.
 
@@ -62,7 +67,11 @@ import numpy as np
 import torch
 
 from sentinel_tpu_torch.core import errors as E
+from sentinel_tpu_torch.metrics.admission_trace import AdmissionTracer, BulkTraceGroups
+from sentinel_tpu_torch.metrics.block_log import BlockLogger
 from sentinel_tpu_torch.metrics.events import MetricEvent
+from sentinel_tpu_torch.metrics.extension import MetricExtensionProvider
+from sentinel_tpu_torch.metrics.provenance import ResourceProvenance
 from sentinel_tpu_torch.metrics.telemetry import TelemetryBus
 from sentinel_tpu_torch.metrics.nodes import (
     MINUTE_CFG,
@@ -72,15 +81,16 @@ from sentinel_tpu_torch.metrics.nodes import (
     RS_SECOND,
     RS_THREADS,
     RS_WAITING,
-    SECOND_CFG,
     NodeRegistry,
     StatsState,
     grow_stats,
     make_stats,
 )
 from sentinel_tpu_torch.metrics.nodes import rows_stats as _read_rows
+from sentinel_tpu_torch.metrics import nodes as _ncfg  # SECOND_CFG through the module: a retune swaps it
 from sentinel_tpu_torch.models import constants as C
 from sentinel_tpu_torch.models.rules import AuthorityRule, DegradeRule, FlowRule, ParamFlowRule
+from sentinel_tpu_torch.rules import breaker_events
 from sentinel_tpu_torch.rules.degrade_table import WS_FLOOR, DegradeDynState, DegradeIndex
 from sentinel_tpu_torch.rules.flow_table import FlowIndex, FlowRuleDynState
 from sentinel_tpu_torch.rules.param_table import (
@@ -97,7 +107,6 @@ from sentinel_tpu_torch.rules.shaping import ShapingBatch
 from sentinel_tpu_torch.runtime.sketch import SketchBatch, SketchTier
 from sentinel_tpu_torch.runtime.flush import (
     SYS_TYPE_NAMES,
-    TOPK_MAX,
     FlushBatch,
     borrow_horizon,
     flush_step,
@@ -248,8 +257,9 @@ class _PendingFetch:
                 self._exits = []
                 self._bulk_exits = []
                 if self._error is None:
-                    # JAX _post_flush; its block log waits for ROADMAP Queue 1 item 8.
-                    _release_blocked_tokens(entries)
+                    # Post work failures (log IO, release RPCs) reach this
+                    # materializer only: the verdicts are filled.
+                    self._engine._post_flush(entries)
             if self._error is not None:
                 raise self._error
 
@@ -273,8 +283,8 @@ class _PendingFetch:
             span.quarantined = True
             t = time.perf_counter()
             self._engine.telemetry.settle(span, t, t)
-        fo.fill_degraded(entries, exits, bulk, bulk_exits)
-        _release_blocked_tokens(entries)
+        self._engine._note_blocked_items(fo.fill_degraded(entries, exits, bulk, bulk_exits))
+        self._engine._post_flush(entries)
 
     def quarantine(self) -> None:
         """Fill from policy unless already materialized (a failover trip
@@ -312,6 +322,12 @@ class _EntryOp:
     # Cluster flow ids the token server already decided (OK or BLOCKED): a
     # re-resolution after a rule reload must not re-add them as local slots.
     token_decided_flow_ids: frozenset = frozenset()
+    # The admission trace's stamp (admission_trace.TraceTag): None when the
+    # tracer is off; consumed (and cleared) when the fill records the op.
+    trace: Optional[object] = field(default=None, repr=False, compare=False)
+    # perf_counter when the speculative tier served the verdict (0.0: not
+    # served): the latency a speculative trace record attributes.
+    spec_end_pc: float = 0.0
 
     @property
     def param_thread_rows(self) -> List[int]:
@@ -371,6 +387,9 @@ class BulkOp:
     _reason: Optional[np.ndarray] = field(default=None, repr=False)
     _wait_ms: Optional[np.ndarray] = field(default=None, repr=False)
     _pending: Optional[_PendingFetch] = field(default=None, repr=False, compare=False)
+    # The group's trace stamp (bounded per-row records at the fill, see
+    # AdmissionTracer.record_bulk).
+    trace: Optional[object] = field(default=None, repr=False, compare=False)
     # The speculative tier's verdict copy (runtime/speculative.py): non-None
     # marks the group speculatively decided; the settled device arrays then
     # reconcile against it instead of replacing the results.
@@ -705,8 +724,18 @@ class Engine:
         # the hot path pays one attribute read a flush and the verdict tail
         # computes no blocked top-K (k = 0).
         self.telemetry = TelemetryBus()
-        self._blk_topk_k = self._blocked_topk_k(self.telemetry)
+        self._blk_topk_k = self.telemetry.blocked_topk_k if self.telemetry.enabled else 0
         self.last_blocked_topk: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        # The admission tracer (metrics/admission_trace.py): sampled
+        # per-request verdict provenance. Off, one bool read per submit and
+        # one None check per op at the fill.
+        self.admission_trace = AdmissionTracer()
+        # The block log (LogSlot -> sentinel-block.log): the fills collect
+        # their blocked verdicts' items, which _post_flush writes outside
+        # the flush lock.
+        self.block_log = BlockLogger(clock=self.clock)
+        self._blocked_items: List[tuple] = []
+        self._blocked_lock = threading.Lock()
         # Baseline of the per-span intern-cache deltas: (a weakref to the
         # param index the totals came from, hits, misses); a reload swaps
         # the index and its counters start again at 0.
@@ -746,15 +775,28 @@ class Engine:
         self.ingest_window = BatchWindow(self)
         self.ingest = IngestValve(self)
         self.autotune = AutoTuner(self)
+        # The per-resource provenance ledger (metrics/provenance.py):
+        # (submit-ts second, resource) speculative, degraded, shed and drift
+        # counts, drained by the metric timer into the v2 line columns.
+        self.resource_metrics = ResourceProvenance()
 
-    @staticmethod
-    def _blocked_topk_k(tele: TelemetryBus) -> int:
-        if not tele.enabled:
-            return 0
-        k = tele.blocked_topk_k
-        if k > TOPK_MAX:
-            raise unported(f"a blocked top-K above {TOPK_MAX} (k={k})", ROADMAP_METRICS)
-        return k
+    def _note_blocked_items(self, items: Sequence[tuple]) -> None:
+        """Queue block-log items of a fill for the next :meth:`_post_flush`."""
+        if items:
+            with self._blocked_lock:
+                self._blocked_items.extend(items)
+
+    def _post_flush(self, entries: Sequence["_EntryOp"]) -> None:
+        """The work after a flush, outside the flush lock (disk IO and
+        release calls must not stall other flushes): the queued blocked
+        verdicts go to the block log, and entries that were blocked hand
+        their held cluster tokens back."""
+        with self._blocked_lock:
+            items, self._blocked_items = self._blocked_items, []
+        if items:
+            self.block_log.log_batch(items)
+        self.block_log.maybe_flush()
+        _release_blocked_tokens(entries)
 
     # ------------------------------------------------------------------
     # mesh mode
@@ -777,7 +819,7 @@ class Engine:
                 self.mesh = make_mesh(1 if n_devices is None else n_devices, self.device)  # pow2 or ValueError
                 self._n_shards = self.mesh.n_shards
                 self._sharded_fns = {}
-        _release_blocked_tokens(drained)
+        self._post_flush(drained)
 
     def disable_mesh(self) -> None:
         with self._flush_lock:
@@ -786,7 +828,7 @@ class Engine:
                 self.mesh = None
                 self._sharded_fns = None
                 self._n_shards = 1
-        _release_blocked_tokens(drained)
+        self._post_flush(drained)
 
     def _sharded_fn_for(self, with_shaping: bool, with_param: bool, shaping_rounds: int, param_rounds: int):
         """The sharded step of one variant, built on first use (the occupy
@@ -1036,10 +1078,10 @@ class Engine:
                     # into the tier's host mirror (runtime/sketch.py).
                     self.sketch.fold_host_chunk(entries, bulk_e, self.flow_index, self.param_index,
                                                 self.clock.now_ms())
-                fo.fill_degraded(entries, exits, bulk_e, bulk_x)
+                self._note_blocked_items(fo.fill_degraded(entries, exits, bulk_e, bulk_x))
         if entries is None:
             return self.flush()  # recovered while this caller queued
-        _release_blocked_tokens(entries)
+        self._post_flush(entries)
         return entries
 
     def flush_async(self) -> List[_EntryOp]:
@@ -1185,9 +1227,9 @@ class Engine:
         node registry, the stats (same row count), every rule index and
         state, the system config and the authority rules are cleared, and
         the failover tier (back to HEALTHY, no checkpoint), the speculative
-        tier (a fresh mirror) and the ingest valve reset. The mesh and a
-        running auto-flusher stay. The JAX engine's provenance and ipc
-        resets belong to ROADMAP Queue 1 items 8 and 10."""
+        tier (a fresh mirror), the ingest valve and the provenance ledger
+        reset. The mesh and a running auto-flusher stay. The JAX engine's
+        ipc reset belongs to ROADMAP Queue 1 item 10."""
         try:
             self.drain()
         except Exception:
@@ -1197,6 +1239,7 @@ class Engine:
         self.failover.reset()
         self.speculative.reset()
         self.ingest.reset()
+        self.resource_metrics.reset()
         with self._on_stream():
             self.sketch.reset()
             with self._flush_lock, self._lock:
@@ -1221,7 +1264,32 @@ class Engine:
                 self.authority_rules = {}
 
     def retune_second_window(self, sample_count: int, interval_ms: int) -> None:
-        raise unported("Engine.retune_second_window", ROADMAP_METRICS)
+        """Live retune of the second-window geometry
+        (SampleCountProperty.updateSampleCount /
+        IntervalProperty.updateInterval): every node's second window and
+        the borrow slab are rebuilt to ``sample_count`` buckets over
+        ``interval_ms`` and start empty; the minute windows and the thread
+        gauges carry over. The pending ops are flushed against the old
+        geometry first, so no batch spans two layouts. A geometry whose
+        bucket count does not divide the interval raises ValueError and
+        touches nothing. The kernels take the geometry at call time, so the
+        next flush runs at the new one; the mesh's steps are rebuilt on
+        their next use."""
+        drained: List[_EntryOp] = []
+        try:
+            with self._flush_lock:
+                drained, _ = self._flush_locked()
+                with self._lock, self._on_stream():
+                    cur = _ncfg.SECOND_CFG
+                    if cur.sample_count == int(sample_count) and cur.interval_ms == int(interval_ms):
+                        return
+                    _ncfg.set_second_window(sample_count, interval_ms)
+                    self.stats = _ncfg.rebuild_second(self.stats)
+                    self._slab_horizon = None  # the slab starts empty
+                    if self._sharded_fns is not None:
+                        self._sharded_fns = {}
+        finally:
+            self._post_flush(drained)
 
     # ------------------------------------------------------------------
     # rule plumbing (called by the rule manager)
@@ -1235,7 +1303,7 @@ class Engine:
                     self.flow_index = findex
                     self.flow_dyn = findex.make_dyn_state()
                 self.speculative.on_rules_reloaded()
-        _release_blocked_tokens(drained)
+        self._post_flush(drained)
 
     def set_degrade_rules(self, rules: Sequence[DegradeRule]) -> None:
         """Breaker state is not carried across reloads: the reference
@@ -1249,7 +1317,7 @@ class Engine:
                     self.degrade_dyn = dindex.make_dyn_state()
                     self._reset_breaker_mirror()
                 self.speculative.on_rules_reloaded()
-        _release_blocked_tokens(drained)
+        self._post_flush(drained)
 
     def set_param_rules(self, by_resource: Dict[str, List[ParamFlowRule]]) -> None:
         """A fresh value index and fresh param state on every reload, like
@@ -1262,7 +1330,7 @@ class Engine:
                 self.param_index = pindex
                 self.param_dyn = make_param_state(8, self.device)
             self.speculative.on_rules_reloaded()
-        _release_blocked_tokens(drained)
+        self._post_flush(drained)
 
     def set_system_config(self, cfg) -> None:
         with self._flush_lock:
@@ -1273,14 +1341,14 @@ class Engine:
                     self.system_config.highest_system_load >= 0 or self.system_config.highest_cpu_usage >= 0
                 ):
                     system_sampler.start()
-        _release_blocked_tokens(drained)
+        self._post_flush(drained)
 
     def set_authority_rules(self, by_resource: Dict[str, AuthorityRule]) -> None:
         with self._flush_lock:
             drained, _ = self._flush_locked()
             with self._lock:
                 self.authority_rules = dict(by_resource)
-        _release_blocked_tokens(drained)
+        self._post_flush(drained)
 
     def _auth_ok(self, resource: str, origin: str) -> bool:
         rule = self.authority_rules.get(resource)
@@ -1375,6 +1443,9 @@ class Engine:
             and sk.cold_value_blocked(resource, self.param_index, op.args)
         ):
             return self._blocked_cold(resource, context_name, origin, acquire, limit_type="cold_value")
+        # The trace stamp outside the lock: it reads no index.
+        if self.admission_trace.enabled:
+            op.trace = self.admission_trace.make_tag()
         if cluster_gids and any(gid in cluster_gids for gid, _ in op.slots):
             self._apply_cluster_checks(op, cluster_gids)
         if op.p_slots and any(s.rule is not None and s.rule.cluster_mode for s in op.p_slots):
@@ -1494,6 +1565,14 @@ class Engine:
                 if len(self._entries) >= self.max_batch:
                     over = True
                     break
+        # The trace stamps outside the lock and before the flush-on-size
+        # below, so that its fill consumes them. A concurrent flush may fill
+        # an op first and miss its stamp: sampling is best effort.
+        tracer = self.admission_trace
+        if tracer.enabled:
+            for op in out:
+                if op is not None:
+                    op.trace = tracer.make_tag()
         if tail:
             pending = [(op, cluster_gids) for op, needs in tail if needs]
             if pending:
@@ -1509,38 +1588,55 @@ class Engine:
         return out
 
     def _refused_entry(self, resource: str, context_name: str, origin: str, acquire: int, reason: int,
-                       limit_type: str) -> _EntryOp:
+                       limit_type: str, provenance: str, count_shed: bool) -> _EntryOp:
         """The one home of a never-enqueued refused verdict (the ingest
         valve's sheds and the sketch's cold ceilings): nothing reaches the
-        device and nothing is queued, so no gauge charges. The trace record,
-        block-log row and per-resource ledger entry the JAX engine writes
-        wait for ROADMAP Queue 1 item 8."""
+        device and nothing is queued, so no gauge charges. It writes a trace
+        record and a block-log row under the reason's exception name;
+        ``count_shed`` adds the refusal to the provenance ledger's shed
+        column (the valve's load shedding; the cold ceilings are policy)."""
         op = _EntryOp(
             resource=resource, ts=self.clock.now_ms(), acquire=int(acquire), rows=(-1, -1, -1, -1), slots=[],
             context_name=context_name, origin=origin,
         )
         op.verdict = Verdict(False, reason, 0, None, limit_type)
+        tracer = self.admission_trace
+        if tracer.enabled:
+            tracer.record_admission(tracer.make_tag(), resource, origin, context_name, False, reason, -1,
+                                    time.perf_counter(), provenance=provenance)
+        self.block_log.log_blocked(resource, reason, origin=origin, count=acquire)
+        if count_shed and self.resource_metrics.enabled:
+            self.resource_metrics.note(op.ts, resource, shed=acquire)
         return op
 
-    def _refused_bulk(self, resource: str, n: int, context_name: str, origin: str, acquire, reason: int) -> BulkOp:
+    def _refused_bulk(self, resource: str, n: int, context_name: str, origin: str, acquire, reason: int,
+                      provenance: str, count_shed: bool) -> BulkOp:
         """Bulk form of :meth:`_refused_entry`: dense all-refused arrays."""
+        acq_col = self._bulk_col(acquire, n, 1)
         g = BulkOp(
             resource=resource, n=n, ts=np.full(n, self.clock.now_ms(), dtype=np.int32),
-            acquire=self._bulk_col(acquire, n, 1), rows=(-1, -1, -1, -1), slots=[], d_gids=[], auth_ok=True,
+            acquire=acq_col, rows=(-1, -1, -1, -1), slots=[], d_gids=[], auth_ok=True,
             context_name=context_name, origin=origin,
         )
         g.admitted = np.zeros(n, dtype=bool)
         g.reason = np.full(n, reason, dtype=np.int32)
         g.wait_ms = np.zeros(n, dtype=np.int32)
+        tracer = self.admission_trace
+        if tracer.enabled:
+            tracer.record_bulk(tracer.make_tag(), resource, origin, context_name, g._admitted, g._reason, -1,
+                               time.perf_counter(), provenance=provenance)
+        self.block_log.log_blocked(resource, reason, origin=origin, count=int(acq_col.sum()))
+        if count_shed and self.resource_metrics.enabled:
+            self.resource_metrics.note(int(g.ts[0]), resource, shed=int(acq_col.sum()))
         return g
 
     def _shed_entry(self, resource: str, context_name: str, origin: str, acquire: int, cause: str) -> _EntryOp:
         """The ingest valve's BLOCK_SHED verdict (``limit_type`` its cause,
         "queue" or "deadline"). Exits and traces are never shed."""
-        return self._refused_entry(resource, context_name, origin, acquire, E.BLOCK_SHED, cause)
+        return self._refused_entry(resource, context_name, origin, acquire, E.BLOCK_SHED, cause, "shed", True)
 
     def _shed_bulk(self, resource: str, n: int, context_name: str, origin: str, acquire) -> BulkOp:
-        return self._refused_bulk(resource, n, context_name, origin, acquire, E.BLOCK_SHED)
+        return self._refused_bulk(resource, n, context_name, origin, acquire, E.BLOCK_SHED, "shed", True)
 
     def _blocked_cold(
         self, resource: str, context_name: str, origin: str, acquire: int, limit_type: str = "cold"
@@ -1548,10 +1644,11 @@ class Engine:
         """A sketch cold-ceiling verdict (``limit_type`` "cold" for the
         resource ceiling, "cold_value" for the value ceiling; the tier
         counted it)."""
-        return self._refused_entry(resource, context_name, origin, acquire, E.BLOCK_SKETCH, limit_type)
+        return self._refused_entry(resource, context_name, origin, acquire, E.BLOCK_SKETCH, limit_type, "sketch_cold",
+                                   False)
 
     def _blocked_cold_bulk(self, resource: str, n: int, context_name: str, origin: str, acquire) -> BulkOp:
-        return self._refused_bulk(resource, n, context_name, origin, acquire, E.BLOCK_SKETCH)
+        return self._refused_bulk(resource, n, context_name, origin, acquire, E.BLOCK_SKETCH, "sketch_cold", False)
 
     # ------------------------------------------------------------------
     # cluster-mode rules (the token service)
@@ -1921,6 +2018,10 @@ class Engine:
                 args_column=args_column,
                 p_cols=p_cols,
             )
+        # One group-level trace stamp, outside the lock, while the group is
+        # still private to this thread.
+        if self.admission_trace.enabled:
+            g.trace = self.admission_trace.make_tag()
         # Immediate speculative array verdicts before the append: no flush
         # may see the group before they are installed.
         speculated = self.speculative.enabled and self.speculative.try_admit_bulk(g, self.clock.now_ms())
@@ -2094,9 +2195,9 @@ class Engine:
             # intermediate wraps.
             ws.copy_(torch.clamp(ws.to(torch.int64) - offset, min=floor).to(torch.int32))
 
-        shift(stats.second.window_start, SECOND_CFG.empty_ws)
+        shift(stats.second.window_start, _ncfg.SECOND_CFG.empty_ws)
         shift(stats.minute.window_start, MINUTE_CFG.empty_ws)
-        shift(stats.future_ws, SECOND_CFG.empty_ws)
+        shift(stats.future_ws, _ncfg.SECOND_CFG.empty_ws)
         shift(flow_dyn.latest_passed_time, -(10**9))
         shift(flow_dyn.last_filled_time, -(10**9))
         # Breakers: an OPEN breaker's retry deadline and the window anchor
@@ -2157,7 +2258,7 @@ class Engine:
             return self._flush_degraded()  # the drain tripped failover
         with self._flush_lock:
             entries, _ = self._flush_locked()
-        _release_blocked_tokens(entries)
+        self._post_flush(entries)
         return entries
 
     def _flush_locked(self, defer: bool = False) -> Tuple[List[_EntryOp], int]:
@@ -2623,7 +2724,10 @@ class Engine:
             got += [result.blk_rows, result.blk_weight]
         spec = self.speculative
         breaker_snap = None
-        if spec.enabled:
+        # The breaker states ride the copy back while the speculative tier
+        # is on (its mirror reads every flip) or a state-change observer is
+        # registered (rules/breaker_events.py).
+        if spec.enabled or breaker_events.has_observers():
             self._breaker_seq += 1
             breaker_snap = (self._breaker_epoch, self._breaker_seq)
             got.append(self.degrade_dyn.state)
@@ -2658,13 +2762,16 @@ class Engine:
                 # The autotuner folds the settled span's cost into its memo.
                 span.param_bucket, span.param_path = param_pick
 
+        # The trace records name the deciding flight-recorder span.
+        trace_seq = span.flush_id if span is not None else -1
+
         def _fill(host: np.ndarray) -> None:
             cols = _unpack(host, layout)
             if ckpt_meta is not None:
                 fo.store_checkpoint(ckpt_meta, ckpt_states)
             nxt = 8 if result.blk_rows is not None else 6
             if breaker_snap is not None:
-                self._apply_breaker_snapshot(breaker_snap[0], breaker_snap[1], cols[nxt].reshape(-1))
+                self._apply_breaker_snapshot(breaker_snap[0], breaker_snap[1], cols[nxt].reshape(-1), dindex)
                 nxt += 1
             if shaping_snap:
                 spec.reconcile_shaping(findex, cols[nxt], cols[nxt + 1].view(np.float32), cols[nxt + 2])
@@ -2672,8 +2779,9 @@ class Engine:
             if sk_batch is not None:
                 # The promotion/demotion controller evaluates at every drain.
                 tier.on_drain(cols[nxt], cols[nxt + 1], self.clock.now_ms())
-            self._fill_results(cols, entries, bulk, findex, dindex, auth_rules, k, kd,
-                               blk_topk=result.blk_rows is not None)
+            self._note_blocked_items(self._fill_results(
+                cols, entries, bulk, findex, dindex, auth_rules, k, kd, blk_topk=result.blk_rows is not None,
+                exits=exits, bulk_exits=bulk_exits, flush_seq=trace_seq))
 
         if defer:
             if span is not None:
@@ -2755,9 +2863,9 @@ class Engine:
             span.quarantined = True
             t = time.perf_counter()
             self.telemetry.settle(span, t, t)
-        fo.fill_degraded(entries, exits, bulk, bulk_exits)
+        self._note_blocked_items(fo.fill_degraded(entries, exits, bulk, bulk_exits))
         if defer:
-            _release_blocked_tokens(entries)
+            self._post_flush(entries)
         return None
 
     def _queue_state_copies(self, sk_state) -> tuple:
@@ -2817,19 +2925,23 @@ class Engine:
             self._breaker_applied_seq = 0
             self._breaker_mirror_valid = True
 
-    def _apply_breaker_snapshot(self, epoch: int, seq: int, new_state: np.ndarray) -> None:
-        """The mirror half of the JAX engine's breaker snapshot: ordered,
-        epoch-guarded; a snapshot older than one applied is dropped. The
-        state-change observers it also feeds there wait for ROADMAP Queue 1
-        item 8."""
+    def _apply_breaker_snapshot(self, epoch: int, seq: int, new_state: np.ndarray, dindex: DegradeIndex) -> None:
+        """The ordered, epoch-guarded mirror update and the observer
+        dispatch: a snapshot older than one applied is dropped (firing it
+        after a newer state would travel back in time); after a gap of
+        unobserved flushes the first snapshot resyncs silently."""
         with self._breaker_mirror_lock:
             if epoch != self._breaker_epoch or seq <= self._breaker_applied_seq:
                 return
-            if new_state.shape != self._breaker_state_host.shape:
+            prev = self._breaker_state_host
+            if new_state.shape != prev.shape:
                 return
+            fire = self._breaker_mirror_valid and not np.array_equal(new_state, prev)
             self._breaker_state_host = new_state
             self._breaker_applied_seq = seq
             self._breaker_mirror_valid = True
+        if fire:
+            breaker_events.fire_transitions(prev, new_state, dindex)
 
     def _queue_fetch(self, cols: List[torch.Tensor], staging: List[tuple]) -> Tuple[_ChunkRefs, tuple]:
         """Pack ``cols`` (bool or int32 tensors) into one int32 buffer and
@@ -2867,7 +2979,7 @@ class Engine:
         slab. A path that replaces the stats wholesale sets the horizon from
         ``int(stats.future_ws.max())``."""
         h = self._slab_horizon
-        if swept and h is not None and h <= now <= 2**31 - 1 + SECOND_CFG.empty_ws:
+        if swept and h is not None and h <= now <= 2**31 - 1 + _ncfg.SECOND_CFG.empty_ws:
             h = None
         if with_occupy:
             t = borrow_horizon(now, occupy_timeout_ms)
@@ -2876,15 +2988,27 @@ class Engine:
         self._slab_horizon = h
 
     def _fill_results(self, got, entries, bulk, findex: FlowIndex, dindex: DegradeIndex,
-                      auth_rules: Dict[str, AuthorityRule], k: int, kd: int, blk_topk: bool = False) -> None:
+                      auth_rules: Dict[str, AuthorityRule], k: int, kd: int, blk_topk: bool = False,
+                      exits: Sequence["_ExitOp"] = (), bulk_exits: Sequence["_BulkExitOp"] = (),
+                      flush_seq: int = -1) -> List[tuple]:
         """Fill one chunk's verdicts from its copied-back columns. A
         speculatively decided op or group keeps its caller-visible verdict:
-        the settled one reconciles the tier's mirrors instead."""
+        the settled one reconciles the tier's mirrors instead. Writes the
+        admission trace's records, the provenance ledger's serve notes and
+        the metric extensions' calls; returns the chunk's block-log items."""
         admitted, reason, slot_ok, wait_ms, sys_type, dslot_ok = got[:6]
         if blk_topk:
             self.last_blocked_topk = (got[6], got[7])
             self._fold_blocked_sketch(got[6], got[7])
+        tracer = self.admission_trace
+        # One materialization time for every admission of the chunk.
+        trace_end = time.perf_counter()
         spec_tier = self.speculative if self.speculative.enabled else None
+        # The chunk's speculative serve notes, handed to the ledger in one
+        # locked call below.
+        serve_acc: Optional[Dict[Tuple[int, str], list]] = (
+            {} if spec_tier is not None and self.resource_metrics.enabled else None
+        )
         for i, op in enumerate(entries):
             blocked_rule = None
             limit_type = ""
@@ -2917,31 +3041,177 @@ class Engine:
             )
             spec_v = op._verdict
             if spec_tier is not None and spec_v is not None and spec_v.speculative:
-                spec_tier.reconcile_entry(op, spec_v, sv)
-            else:
-                op.verdict = sv
+                if serve_acc is not None:
+                    ent = serve_acc.setdefault((op.ts // 1000 * 1000, op.resource), [0, 0])
+                    ent[0] += op.acquire
+                    if spec_v.degraded:
+                        ent[1] += op.acquire
+                match = spec_tier.reconcile_entry(op, spec_v, sv)
+                op._pending = None
+                if op.trace is not None:
+                    tracer.record_admission(op.trace, op.resource, op.origin, op.context_name, spec_v.admitted,
+                                            spec_v.reason, flush_seq, op.spec_end_pc or trace_end,
+                                            degraded=spec_v.degraded, provenance="speculative",
+                                            settled_match=match)
+                    op.trace = None
+                continue
+            op.verdict = sv
             op._pending = None  # drop the chunk's record once filled
+            if op.trace is not None:
+                tracer.record_admission(op.trace, op.resource, op.origin, op.context_name, bool(admitted[i]), r,
+                                        flush_seq, trace_end)
+                op.trace = None
+        if serve_acc:
+            self.resource_metrics.note_serves_batch(serve_acc)
         off = len(entries)
+        starts: List[int] = []  # each group's first row in the chunk's columns
+        traced: List[BulkOp] = []  # the groups' bounded records, written in one pass below
+        traced_spec: List[bool] = []
         for g in bulk:
             sl = slice(off, off + g.n)
+            starts.append(off)
+            off += g.n
             if spec_tier is not None and g.spec_admitted is not None:
                 spec_tier.reconcile_bulk(g, np.array(admitted[sl]), np.array(reason[sl], dtype=np.int32),
                                          dev_slot_ok=np.asarray(slot_ok[sl]), dev_sys_type=np.asarray(sys_type[sl]))
                 g._pending = None
-                off += g.n
+                if g.trace is not None:
+                    traced.append(g)
+                    traced_spec.append(True)
                 continue
             g.admitted = np.array(admitted[sl])
             g.reason = np.array(reason[sl], dtype=np.int32)
             g.wait_ms = np.array(wait_ms[sl])
             g._pending = None
-            off += g.n
+            if g.trace is not None:
+                traced.append(g)
+                traced_spec.append(False)
+        if traced:
+            tracer.record_bulk_groups(BulkTraceGroups(
+                [g.trace for g in traced], [g.resource for g in traced], [g.origin for g in traced],
+                [g.context_name for g in traced], [g._admitted for g in traced], [g._reason for g in traced],
+                [spec and g.spec_degraded for g, spec in zip(traced, traced_spec)],
+                ["speculative" if spec else "" for spec in traced_spec],
+            ), flush_seq, trace_end)
+            for g in traced:
+                g.trace = None
+        if not blk_topk and self._blk_topk_k > 0:
+            # The sharded step has no device top-K: recount the blocked
+            # weight from the verdicts just filled, on the host.
+            self._fold_blocked_recount(entries, bulk)
+        return self._block_items_and_extensions(entries, bulk, starts, exits, bulk_exits, slot_ok, dslot_ok, findex,
+                                                dindex, auth_rules)
+
+    def _block_items_and_extensions(self, entries, bulk, starts: List[int], exits, bulk_exits, slot_ok, dslot_ok,
+                                    findex: FlowIndex, dindex: DegradeIndex,
+                                    auth_rules: Dict[str, AuthorityRule]) -> List[tuple]:
+        """The block log's items of one filled chunk (LogSlot) and the
+        metric extensions' calls (MetricEntryCallback / MetricExitCallback),
+        a flush at a time. A bulk group's blocked rows aggregate per
+        (reason, limit app): flow and degrade blocks take the limit app of
+        each row's first failing slot's rule, as the singles do."""
+        exts = MetricExtensionProvider.get_extensions()
+        items: List[tuple] = []
+        for op in entries:
+            v = op.verdict
+            if v is None:
+                continue
+            if v.admitted:
+                if exts:
+                    MetricExtensionProvider.on_pass(op.resource, op.acquire, op.args)
+                continue
+            limit_app = getattr(v.blocked_rule, "limit_app", None) or "default"
+            items.append((op.resource, E.exc_name_for_code(v.reason), limit_app, op.origin, op.acquire))
+            if exts:
+                # Extensions receive a real BlockError, as the reference's
+                # BlockException argument.
+                err = E.error_for_verdict(v.reason, op.resource, limit_type=v.limit_type, slot_name=v.slot_name,
+                                          rule=v.blocked_rule)
+                MetricExtensionProvider.on_blocked(op.resource, op.acquire, op.origin, err, op.args)
+        filled = [i for i, g in enumerate(bulk) if g._admitted is not None]
+        if filled:
+            groups = [bulk[i] for i in filled]
+            # One pass over the chunk's bulk rows: the blocked acquire summed
+            # per (group, reason), in the order of the groups and, within a
+            # group, of the reasons, as a pass a group would take them.
+            adm = np.concatenate([g._admitted for g in groups])
+            rsn = np.concatenate([g._reason for g in groups])
+            acq = np.concatenate([g.acquire for g in groups]).astype(np.int64)
+            lens = np.fromiter((g.n for g in groups), dtype=np.int64, count=len(groups))
+            first = np.cumsum(lens) - lens
+            gidx = np.repeat(np.arange(len(groups)), lens)
+            blocked_of: Dict[int, List[Tuple[int, int]]] = {}
+            blk = ~adm
+            if blk.any():
+                key = gidx[blk] * 256 + rsn[blk]
+                order = np.argsort(key, kind="stable")
+                ks = key[order]
+                heads = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+                sums = np.add.reduceat(acq[blk][order], heads)
+                # Rows go to the limit app of their first failing slot's
+                # rule; where every rule of a group's slots has the default
+                # one, that is one "default" item (the log sums a key's
+                # items; a zero total takes the long way, which may write
+                # none).
+                nd_flow, nd_deg = _nondefault_gids(findex), _nondefault_gids(dindex)
+                for k, total in zip(ks[heads].tolist(), sums.tolist()):
+                    gi, r = divmod(k, 256)
+                    g = groups[gi]
+                    if exts:
+                        blocked_of.setdefault(gi, []).append((r, total))
+                    exc_name = E.exc_name_for_code(r)
+                    if (r == E.BLOCK_AUTHORITY
+                            or (r == E.BLOCK_FLOW and g.slots
+                                and (not total or (nd_flow and not nd_flow.isdisjoint(gid for gid, _ in g.slots))))
+                            or (r == E.BLOCK_DEGRADE and g.d_gids
+                                and (not total or (nd_deg and not nd_deg.isdisjoint(g.d_gids))))):
+                        sl = slice(starts[filled[gi]], starts[filled[gi]] + g.n)
+                        for la, cnt in _bulk_limit_apps(g, r, slot_ok[sl], dslot_ok[sl], findex, dindex,
+                                                        auth_rules):
+                            items.append((g.resource, exc_name, la, g.origin, cnt))
+                    else:
+                        items.append((g.resource, exc_name, "default", g.origin, total))
+            if exts:
+                n_adm = np.add.reduceat(adm.astype(np.int64), first)
+                adm_w = np.add.reduceat(np.where(adm, acq, 0), first)
+                for gi, g in enumerate(groups):
+                    for r, total in blocked_of.get(gi, ()):
+                        MetricExtensionProvider.on_blocked(g.resource, total, g.origin,
+                                                           E.error_for_verdict(r, g.resource), ())
+                    if n_adm[gi]:
+                        MetricExtensionProvider.on_pass(g.resource, int(adm_w[gi]), ())
+        if exts:
+            for x in exits:
+                if x.resource is not None and x.thr < 0:
+                    MetricExtensionProvider.on_complete(x.resource, x.rt, x.count, x.err)
+            for gx in bulk_exits:
+                if gx.resource is not None and gx.thr < 0:
+                    MetricExtensionProvider.on_complete(gx.resource, _weighted_rt(gx), int(gx.count.sum()),
+                                                        int(gx.err.sum()))
+        return items
+
+    def _fold_blocked_recount(self, entries: Sequence[_EntryOp], bulk: Sequence[BulkOp]) -> None:
+        """The exact host recount of one chunk's blocked weight per
+        resource, folded into the telemetry summary: for the sharded step,
+        whose kernels compute no device top-K. The verdicts are filled."""
+        agg: Dict[str, int] = {}
+        for op in entries:
+            v = op._verdict
+            if v is not None and not v.admitted:
+                agg[op.resource] = agg.get(op.resource, 0) + op.acquire
+        for g in bulk:
+            if g._admitted is not None:
+                w = int(g.acquire[~g._admitted].sum())
+                if w:
+                    agg[g.resource] = agg.get(g.resource, 0) + w
+        self.telemetry.fold_blocked_topk(sorted(agg.items(), key=lambda kv: kv[1], reverse=True)[: self._blk_topk_k])
 
     def _fold_blocked_sketch(self, rows: np.ndarray, weights: np.ndarray) -> None:
         """Name one chunk's device top-K (cluster rows to resources) and fold
         it into the telemetry summary; weight-0 rows are padding. The rows
         come from the chunk's copy back: no read of their own. The host
         recount the JAX engine folds for the mesh step, which has no device
-        top-K, waits for ROADMAP Queue 1 item 8."""
+        top-K, is :meth:`_fold_blocked_recount`."""
         if not self.telemetry.enabled:
             return
         pairs: List[Tuple[str, int]] = []
@@ -3018,6 +3288,61 @@ def _release_blocked_tokens(entries: Sequence[_EntryOp]) -> None:
             op.cluster_tokens = []
 
 
+def _weighted_rt(gx: "_BulkExitOp") -> int:
+    """The count-weighted mean RT of a bulk exit group for the aggregated
+    completion callback (an extension that rebuilds total time as rt x
+    count stays right), in int64."""
+    total = int(gx.count.sum())
+    if total <= 0:
+        return 0
+    return int((gx.rt.astype(np.int64) * gx.count).sum() // total)
+
+
+_NONDEFAULT: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _nondefault_gids(index) -> frozenset:
+    """The ids of ``index``'s rules whose limit app is not "default",
+    worked out once an index."""
+    got = _NONDEFAULT.get(index)
+    if got is None:
+        got = _NONDEFAULT[index] = frozenset(
+            gid for gid in range(len(index.rules))
+            if (getattr(index.rule_of_gid(gid), "limit_app", None) or "default") != "default")
+    return got
+
+
+def _bulk_limit_apps(g: "BulkOp", r: int, slot_ok: np.ndarray, dslot_ok: np.ndarray, findex: FlowIndex,
+                     dindex: DegradeIndex, auth_rules) -> List[Tuple[str, int]]:
+    """(limit app, blocked acquire) items of a bulk group's rows blocked
+    for reason ``r`` (authority, flow or degrade). Flow and degrade blocks
+    go to the limit app of each row's first failing slot's rule; a
+    speculatively blocked row that the device passed has no failing slot
+    and goes to "default", not to slot 0's rule."""
+
+    def limit_app(rule) -> str:
+        return getattr(rule, "limit_app", None) or "default"
+
+    sel = ~g._admitted & (g._reason == r)
+    acq = np.asarray(g.acquire)[sel]
+    if r == E.BLOCK_AUTHORITY:
+        return [(limit_app(auth_rules.get(g.resource)), int(acq.sum()))]
+    if r == E.BLOCK_FLOW:
+        rule_of_col = lambda j: findex.rule_of_gid(g.slots[j][0]) if j < len(g.slots) else None  # noqa: E731
+        bad = ~slot_ok[sel]
+    else:
+        rule_of_col = lambda j: dindex.rule_of_gid(g.d_gids[j]) if j < len(g.d_gids) else None  # noqa: E731
+        bad = ~dslot_ok[sel]
+    has_bad = bad.any(axis=1)
+    first_bad = np.argmax(bad, axis=1)
+    out = [(limit_app(rule_of_col(j)), int(acq[has_bad & (first_bad == j)].sum()))
+           for j in np.unique(first_bad[has_bad]).tolist()]
+    n_unattr = int(acq[~has_bad].sum())
+    if n_unattr:
+        out.append(("default", n_unattr))
+    return out
+
+
 def _token_decided(rule, decided: frozenset) -> bool:
     """Is ``rule`` a cluster-mode rule whose flow id the token server
     already decided for this op?"""
@@ -3068,7 +3393,7 @@ def _unpack(host: np.ndarray, layout: tuple) -> List[np.ndarray]:
 
 def _stats_dict(sec, minute, min_rt: int, threads: int, occ_cur: int, waiting: int) -> Dict[str, float]:
     """The JAX engine's stats dict (StatisticNode's readers)."""
-    interval_sec = SECOND_CFG.interval_ms / 1000.0
+    interval_sec = _ncfg.SECOND_CFG.interval_ms / 1000.0
     success = int(sec[MetricEvent.SUCCESS])
     rt_sum = int(sec[MetricEvent.RT])
     return {

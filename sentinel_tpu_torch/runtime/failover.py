@@ -50,9 +50,10 @@ difference.
 Everything is deterministic under ``testing/faults.FaultInjector``.
 
 The health transitions, degraded verdicts and probe flushes are noted on
-the telemetry bus. Left out, each with its ROADMAP Queue 1 item: custom
-processor slots in the degraded fill (item 11); the admission trace, the
-block log and the per-resource ledger (item 8); the capture journal's
+the telemetry bus; the degraded fill writes the admission trace's records,
+the per-resource ledger's degraded column and the block log's rows. Left
+out, each with its ROADMAP Queue 1 item: custom processor slots in the
+degraded fill (item 11); the capture journal's
 health notes (item 7, step 7c); the IPC plane's live re-assertions (item
 10).
 """
@@ -1184,13 +1185,19 @@ class FailoverManager:
     # ------------------------------------------------------------------
     # degraded fill (the one home of policy-verdict assembly)
     # ------------------------------------------------------------------
-    def fill_degraded(self, entries, exits=(), bulk=(), bulk_exits=()) -> None:
+    def fill_degraded(self, entries, exits=(), bulk=(), bulk_exits=()) -> List[tuple]:
         """Fill every op's verdict from the fallback admitter: the degraded
         flush, the chunk-level fault handler and quarantined records.
-        Exits record their device-gauge releases for the restore replay."""
+        Exits record their device-gauge releases for the restore replay.
+        Writes the trace records and the provenance ledger's degraded
+        column; returns the block-log items."""
         eng = self._engine
         now = eng.clock.now_ms()
         fb = self.fallback
+        tracer = eng.admission_trace
+        rm = eng.resource_metrics
+        end_pc = time.perf_counter()
+        items: List[tuple] = []
         n_admit = 0
         n_block = 0
         for op in entries:
@@ -1199,38 +1206,69 @@ class FailoverManager:
                 # The speculative tier served this verdict from the same
                 # persistent mirror: keep it (the caller may have acted on
                 # it); the device never applied this chunk, so an admitted
-                # THREAD entry's deltas join the restore replay.
+                # THREAD entry's deltas join the restore replay, and the
+                # serve note its settle would write lands here.
                 op._pending = None
+                if rm.enabled:
+                    rm.note(op.ts, op.resource, spec=op.acquire, degraded=op.acquire if v0.degraded else 0)
                 if v0.admitted:
                     n_admit += 1
                     fb.note_unsettled_admit(op)
                 else:
                     n_block += 1
+                    limit_app = getattr(v0.blocked_rule, "limit_app", None) or "default"
+                    items.append((op.resource, E.exc_name_for_code(v0.reason), limit_app, op.origin, op.acquire))
+                if op.trace is not None:
+                    tracer.record_admission(op.trace, op.resource, op.origin, op.context_name, v0.admitted,
+                                            v0.reason, -1, op.spec_end_pc or end_pc, degraded=v0.degraded,
+                                            provenance="speculative")
+                    op.trace = None
                 continue
             v = fb.admit(op, now)
             op.verdict = v
             op._pending = None
+            if rm.enabled:
+                rm.note(op.ts, op.resource, degraded=op.acquire)
             if v.admitted:
                 n_admit += 1
             else:
                 n_block += 1
+                limit_app = getattr(v.blocked_rule, "limit_app", None) or "default"
+                items.append((op.resource, E.exc_name_for_code(v.reason), limit_app, op.origin, op.acquire))
+            if op.trace is not None:
+                tracer.record_admission(op.trace, op.resource, op.origin, op.context_name, v.admitted, v.reason, -1,
+                                        end_pc, degraded=True)
+                op.trace = None
         for g in bulk:
             if g.spec_admitted is not None and g._admitted is not None:
                 # The bulk analog of the kept speculative verdict.
                 g._pending = None
-                n_adm = int(g._admitted.sum())
+                adm, rsn = g._admitted, g._reason
+                n_adm = int(adm.sum())
                 n_admit += n_adm
                 n_block += g.n - n_adm
                 fb.note_unsettled_admit_bulk(g, n_adm)
+                items.extend(_bulk_block_items(g, adm, rsn))
+                if g.trace is not None:
+                    tracer.record_bulk(g.trace, g.resource, g.origin, g.context_name, adm, rsn, -1, end_pc,
+                                       degraded=g.spec_degraded, provenance="speculative")
+                    g.trace = None
                 continue
             adm, rsn, wait = fb.admit_bulk(g, now)
             g.admitted = adm
             g.reason = rsn
             g.wait_ms = wait
             g._pending = None
+            if rm.enabled:
+                rm.note_col(g.resource, g.ts, weights=g.acquire, degraded=True)
             n_adm = int(adm.sum())
             n_admit += n_adm
             n_block += g.n - n_adm
+            items.extend(_bulk_block_items(g, adm, rsn))
+            if g.trace is not None:
+                tracer.record_bulk(g.trace, g.resource, g.origin, g.context_name, adm, rsn, -1, end_pc,
+                                   degraded=True)
+                g.trace = None
         for x in exits:
             if x.thr < 0:
                 fb.note_device_exit(x.rows, getattr(x, "p_rows", ()) or (), -x.thr)
@@ -1253,6 +1291,7 @@ class FailoverManager:
         tele = eng.telemetry
         if tele.enabled and (n_admit or n_block):
             tele.note_degraded(n_admit, n_block)
+        return items
 
     def note_quarantined(self, n: int = 1) -> None:
         with self._lock:
@@ -1776,3 +1815,16 @@ def _slab_horizon_of(stats) -> Optional[int]:
     if top == _ncfg.SECOND_CFG.empty_ws and not bool((stats.future_pass != 0).any()):
         return None
     return top
+
+
+def _bulk_block_items(g, adm: np.ndarray, rsn: np.ndarray) -> List[tuple]:
+    """A bulk group's block-log items of a policy fill: one per reason
+    among its blocked rows, under the "default" limit app."""
+    blocked = ~adm
+    if not blocked.any():
+        return []
+    acq = np.asarray(g.acquire)
+    return [
+        (g.resource, E.exc_name_for_code(int(r)), "default", g.origin, int(acq[blocked & (rsn == r)].sum()))
+        for r in np.unique(rsn[blocked])
+    ]

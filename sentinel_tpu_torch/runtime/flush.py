@@ -75,7 +75,9 @@ from sentinel_tpu_torch.utils import cuda_build
 from sentinel_tpu_torch.utils.numeric import add_i32
 
 _I32_MAX = 2**31 - 1
-TOPK_MAX = 8  # the blocked top-K kernel keeps at most this many rows
+# The fused blocked top-K of the verdict tails keeps at most this many rows;
+# a larger k takes the wide route (blocked_topk_wide, csrc/blocked_topk.cu).
+TOPK_MAX = 8
 
 
 class FlushBatch(NamedTuple):
@@ -558,8 +560,70 @@ def _check_batch_cuda(batch: FlushBatch, fields=FlushBatch._fields[1:]) -> None:
 
 
 def _check_topk(blk_topk: int) -> None:
-    if not 0 <= blk_topk <= TOPK_MAX:
-        raise ValueError(f"blk_topk must lie in [0, {TOPK_MAX}]")
+    if blk_topk < 0:
+        raise ValueError("blk_topk must be >= 0")
+
+
+def blocked_topk_wide(batch: FlushBatch, admitted: torch.Tensor, r_rows: int, blk_topk: int):
+    """The blocked top-K above :data:`TOPK_MAX`, over the verdicts a tail
+    wrote: the ``min(blk_topk, r_rows)`` cluster rows with the most blocked
+    acquire (weight descending, row ascending, the lowest zero-weight rows
+    filling up), as ``lax.top_k`` of the dense weights. Returns (rows,
+    weights), int32 [kk] each. On the card one C call (csrc/blocked_topk.cu:
+    four launches and a CUB radix sort of the touched rows' keys) that
+    leaves the zeroed scratch zero; here the plain version."""
+    if admitted.is_cuda:
+        return _blocked_topk_wide_cuda(batch, admitted, r_rows, blk_topk)
+    return _blocked_topk_plain(batch, admitted, r_rows, blk_topk)
+
+
+blocked_topk_wide.launches = 0
+
+
+class _BtArgs(ctypes.Structure):
+    """The ``BtArgs`` of ``csrc/blocked_topk.cu``, field for field."""
+
+    _fields_ = [(name, _P) for name in ("admitted", "e_valid", "e_acq", "e_rows", "out_w", "out_r")] + [
+        (name, _I) for name in ("n", "n_rows", "k")
+    ]
+
+
+def _bt_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("blocked_topk")
+    if not getattr(lib, "_typed", False):
+        lib.blocked_topk_workspace.argtypes = [_I, _I, _I]
+        lib.blocked_topk_workspace.restype = ctypes.c_longlong
+        lib.blocked_topk_zero_bytes.argtypes = [_I, _I]
+        lib.blocked_topk_zero_bytes.restype = ctypes.c_longlong
+        lib.blocked_topk.argtypes = [ctypes.POINTER(_BtArgs), _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P]
+        lib.blocked_topk.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _blocked_topk_wide_cuda(batch: FlushBatch, admitted: torch.Tensor, r_rows: int, blk_topk: int):
+    n = batch.e_valid.shape[0]
+    for name, t, want, shape in (("admitted", admitted, torch.bool, (n,)), ("batch.e_valid", batch.e_valid,
+                                 torch.bool, (n,)), ("batch.e_acquire", batch.e_acquire, torch.int32, (n,)),
+                                 ("batch.e_rows", batch.e_rows, torch.int32, (n, 4))):
+        if t.dtype != want or not t.is_contiguous() or not t.is_cuda or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: need a contiguous CUDA {want} tensor of shape {shape}")
+    kk = min(int(blk_topk), int(r_rows))
+    if kk <= 0:
+        return None, None
+    dev = admitted.device
+    blk_weight, blk_rows = torch.empty(2 * kk, dtype=torch.int32, device=dev).split([kk, kk])
+    a = _BtArgs(admitted=admitted.data_ptr(), e_valid=batch.e_valid.data_ptr(), e_acq=batch.e_acquire.data_ptr(),
+                e_rows=batch.e_rows.data_ptr(), out_w=blk_weight.data_ptr(), out_r=blk_rows.data_ptr(), n=n,
+                n_rows=int(r_rows), k=kk)
+    lib = _bt_lib()
+    need = int(lib.blocked_topk_workspace(n, r_rows, kk))
+    zero_bytes = int(lib.blocked_topk_zero_bytes(n, r_rows))
+    st = ma.stream_of(admitted)
+    with cuda_build.scratch(dev, st, need, zero_bytes) as (buf, size, zero):
+        cuda_build.check(lib.blocked_topk(ctypes.byref(a), buf, size, zero, zero_bytes, st), "blocked_topk")
+    blocked_topk_wide.launches += 1
+    return blk_rows, blk_weight
 
 
 def _topk_zero_bytes(lib, r_rows: int) -> int:
@@ -590,7 +654,8 @@ def _flow_admission_cuda(stats, flow_dev, batch, blk_topk, live, occupy_timeout_
     dev = batch.e_valid.device
     st = ma.stream_of(batch.e_valid)
     cfg = _nodes.SECOND_CFG
-    kk = min(blk_topk, r_rows) if tail else 0
+    kk_all = min(blk_topk, r_rows) if tail else 0
+    kk = kk_all if kk_all <= TOPK_MAX else 0  # above TOPK_MAX: the wide route after the call
     a = _FaArgs(
         gid=batch.e_rule_gid.data_ptr(), crow=batch.e_check_row.data_ptr(), e_valid=batch.e_valid.data_ptr(),
         e_ts=batch.e_ts.data_ptr(), e_acq=batch.e_acquire.data_ptr(), e_rows=batch.e_rows.data_ptr(),
@@ -644,6 +709,8 @@ def _flow_admission_cuda(stats, flow_dev, batch, blk_topk, live, occupy_timeout_
     flow_admission.launches += 1
     if with_occupy:
         flow_admission.occupy_launches += 1
+    if kk_all > TOPK_MAX:
+        blk_rows, blk_weight = _blocked_topk_wide_cuda(batch, admitted, r_rows, kk_all)
     return Admission(slot_ok, flow_pass, admitted, reason, blk_rows, blk_weight, **extra)
 
 
@@ -1023,7 +1090,8 @@ def _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, 
         if state.dtype != i32 or not state.is_contiguous() or not state.is_cuda:
             raise ValueError("ddyn.state: need a contiguous CUDA int32 tensor")
     dev = batch.e_valid.device
-    kk = min(blk_topk, n_rows)
+    kk_all = min(blk_topk, n_rows)
+    kk = kk_all if kk_all <= TOPK_MAX else 0  # above TOPK_MAX: the wide route after the call
     nk = n * k
     off = (3 * n + nk + 15) // 16 * 16  # the int32 outputs start 16-byte aligned
     out = torch.empty(off + 4 * (2 * n + 2 * kk), dtype=torch.uint8, device=dev)
@@ -1057,6 +1125,8 @@ def _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, 
     with cuda_build.scratch(dev, st, 0, zero_bytes) as (_, _, zero):
         cuda_build.check(lib.chain_verdict(ctypes.byref(a), zero, zero_bytes, st), "chain_verdict")
     slot_chain_verdict.launches += 1
+    if kk_all > TOPK_MAX:
+        blk_rows, blk_weight = _blocked_topk_wide_cuda(batch, admitted, n_rows, kk_all)
     return ChainVerdict(admitted, reason, wait_ms, flow_live, occupied, occ_slot, blk_rows, blk_weight)
 
 

@@ -28,9 +28,9 @@ Two independent triggers (either alone arms the valve):
 Exits and traces are NEVER shed: completions are the path by which
 gauges drain and breakers observe recovery — shedding them would turn
 overload into a permanent thread-gauge leak. Shed entries are never
-enqueued anywhere; they are counted here and on the telemetry bus (the
-trace records, block-log rows and per-resource ledger the JAX engine
-also writes belong to ROADMAP Queue 1 item 8).
+enqueued anywhere; they are counted here and on the telemetry bus, and
+the engine writes each a trace record, a block-log row and the provenance
+ledger's shed column (``Engine._refused_entry``).
 
 All keys default 0 = disarmed: one attribute read per submit.
 """

@@ -32,14 +32,17 @@ Prioritized (occupy) entries decline to the device path: their borrow
 semantics live in the kernels' slab.
 
 The tier's serves, declines, drift, drift windows and suspensions are
-noted on the telemetry bus. Left out, each with its ROADMAP Queue 1 item:
-custom processor slots at admission (item 11); the per-resource
-provenance ledger and the admission trace (item 8).
+noted on the telemetry bus, the serves and the drift also in the
+per-resource provenance ledger (metrics/provenance.py) at each op's submit
+ts; the admission trace records a speculative op when it settles
+(``Engine._fill_results``). Custom processor slots at admission belong to
+ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -132,6 +135,7 @@ class SpeculativeAdmitter:
         shaped = self._shaped_slots(op.src, op.slots)
         v = self.mirror.admit(op, now_ms, apply_policy=degraded, degraded=degraded, speculative=True)
         op.verdict = v
+        op.spec_end_pc = time.perf_counter()  # the latency the trace record attributes
         sys_block = not v.admitted and v.reason == E.BLOCK_SYSTEM
         with self._lock:
             self.counters["spec_admits" if v.admitted else "spec_blocks"] += 1
@@ -192,6 +196,10 @@ class SpeculativeAdmitter:
                 tele.note_spec_shaped(g.n)
             if n_sys:
                 tele.note_spec_system_block(n_sys)
+        rm = self._engine.resource_metrics
+        if rm.enabled:
+            # Columnar serve note grouped by each row's submit second.
+            rm.note_col(g.resource, g.ts, weights=g.acquire, spec=True, degraded=degraded)
         return True
 
     # ------------------------------------------------------------------
@@ -300,6 +308,10 @@ class SpeculativeAdmitter:
             tele = eng.telemetry
             if tele.enabled:
                 tele.note_spec_drift(int(spec_v.admitted), int(not spec_v.admitted))
+            rm = eng.resource_metrics
+            if rm.enabled:
+                # Per-resource drift at the op's submit ts.
+                rm.note(op.ts, op.resource, over=int(spec_v.admitted), under=int(not spec_v.admitted))
         return match
 
     def reconcile_bulk(self, g, dev_admitted: np.ndarray, dev_reason: np.ndarray,
@@ -363,8 +375,16 @@ class SpeculativeAdmitter:
             eng._submit_gauge_comp(g.rows, -under)
             with self._lock:
                 self.counters["comp_minus"] += under
-        if (over or under) and eng.telemetry.enabled:
-            eng.telemetry.note_spec_drift(over, under)
+        if over or under:
+            if eng.telemetry.enabled:
+                eng.telemetry.note_spec_drift(over, under)
+            rm = eng.resource_metrics
+            if rm.enabled:
+                ts = np.asarray(g.ts)
+                if over:
+                    rm.note_col(g.resource, ts[over_m], over=True)
+                if under:
+                    rm.note_col(g.resource, ts[under_m], under=True)
 
     # ------------------------------------------------------------------
     # lifecycle

@@ -34,9 +34,10 @@ Contract highlights (held against the JAX package by tests/test_torch_window.py)
   flush if the bulk queue filled meanwhile (the dense
   ``BLOCK_SHED`` arrays fan out per request). Exits never ride the
   window at all.
-* **Per-request trace identity** — the admission-trace stamp and its
-  per-request records belong to ROADMAP Queue 1 item 8;
-  :attr:`WindowRequest.tag` stays None until then.
+* **Per-request trace identity** — the admission-trace stamp is taken
+  on the caller's thread at join (:attr:`WindowRequest.tag`), where the
+  inbound traceparent is ambient, and each request's record is written
+  at fan-out; the group tag ``submit_bulk`` stamps is dropped.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ class WindowRequest:
         self.entry_type = entry_type
         self.args = args
         self.ts = ts
-        self.tag = tag  # the admission trace's stamp (ROADMAP Queue 1 item 8): None
+        self.tag = tag  # the admission trace's TraceTag (caller-thread stamp)
         self.event: Optional[threading.Event] = None  # shared per window
         self.future = None  # asyncio future (async callers)
         self.loop = None
@@ -424,6 +425,10 @@ class BatchWindow:
                 for r in grp
             ])
             return ops, False
+        if op is not None:
+            # Per-request trace identity: the window records per request
+            # at fan-out instead of bounded group rows at fill.
+            op.trace = None
         return op, True
 
     def _fan_out_bulk(self, grp: List[WindowRequest], op) -> None:
@@ -438,6 +443,8 @@ class BatchWindow:
                 r.pass_through = True
                 r.verdict = Verdict(True, E.PASS, 0, None)
             return
+        pend = op._pending
+        flush_seq = pend._seq if pend is not None else -1
         spec = op.spec_admitted is not None
         adm = op.admitted  # materializes a pending fetch if needed
         # tolist() once per column: per-row numpy scalar indexing costs
@@ -458,6 +465,7 @@ class BatchWindow:
                 speculative=spec,
                 degraded=degraded,
             )
+        self._record_traces(grp, flush_seq, "speculative" if spec else "")
 
     def _fan_out_entries(self, grp: List[WindowRequest], ops) -> None:
         from sentinel_tpu_torch.runtime.engine import Verdict
@@ -472,6 +480,23 @@ class BatchWindow:
             r.param_rows = tuple(op.param_thread_rows)
             r.cluster_tokens = list(op.cluster_tokens)
             r.verdict = op.verdict  # materializes; full singles verdict
+        # Singles carry their own records: submit_entry stamped op.trace on
+        # the flusher thread, so the window writes none for them.
+
+    def _record_traces(self, grp: List[WindowRequest], flush_seq: int, provenance: str) -> None:
+        tracer = self._engine.admission_trace
+        if not tracer.enabled:
+            return
+        end_pc = time.perf_counter()
+        for r in grp:
+            if r.tag is None or r.verdict is None:
+                continue
+            tracer.record_admission(
+                r.tag, r.resource, r.origin, r.context_name,
+                r.verdict.admitted, r.verdict.reason, flush_seq, end_pc,
+                degraded=r.verdict.degraded, provenance=provenance,
+            )
+            r.tag = None
 
     # ------------------------------------------------------------------
     # columnar exit batching (the Entry._exit_sink target)

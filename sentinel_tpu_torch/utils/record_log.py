@@ -32,3 +32,16 @@ class _RecordLog:
 
 
 record_log = _RecordLog()
+
+
+def log_dir() -> str:
+    """The directory of the log files the metric plane writes (the block
+    log, the metric log, the cluster stat log): ``csp.sentinel.log.dir``,
+    else ``$SENTINEL_TPU_LOG_DIR``, else ``~/logs/csp``, as in the JAX
+    package. The record log itself writes nowhere."""
+    import os
+
+    from sentinel_tpu_torch.utils.config import config
+
+    d = config.get(config.LOG_DIR) or os.environ.get("SENTINEL_TPU_LOG_DIR")
+    return d or os.path.join(os.path.expanduser("~"), "logs", "csp")

@@ -17,22 +17,3 @@ ROADMAP_IPC = "ROADMAP Queue 1 item 10 (IPC plane)"
 def unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"sentinel_tpu_torch: {what} is not ported yet ({item})")
 
-
-class UnportedName:
-    """Stands in for a public name of the JAX package whose module is not
-    ported: calling it, or reading an attribute of it, raises."""
-
-    def __init__(self, name: str, item: str) -> None:
-        self._name = name
-        self._item = item
-
-    def __call__(self, *args, **kwargs):
-        raise unported(self._name, self._item)
-
-    def __getattr__(self, attr: str):
-        if attr.startswith("__") or attr in ("_name", "_item"):
-            raise AttributeError(attr)
-        raise unported(f"{self._name}.{attr}", self._item)
-
-    def __repr__(self) -> str:
-        return f"<{self._name}: not ported yet ({self._item})>"

@@ -361,7 +361,23 @@ def test_degrade_demo_sequence():
 
 
 def test_breaker_observers_raise():
-    from sentinel_tpu_torch.rules import breaker_events
+    """The breakers' state-change observers, refused until the metric plane
+    was ported (ROADMAP item 8b), now fire: on the demo's sequence and on a
+    half-open recovery the events each observer sees equal the JAX
+    engine's (a failing observer is logged, never raised)."""
+    import importlib
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        breaker_events.add_state_change_observer("t", lambda *a: None)
+    def scenario(lib):
+        bev = importlib.import_module(lib.st.__name__ + ".rules.breaker_events")
+        events = []
+        bev.clear()
+        bev.add_state_change_observer("t", lambda prev, new, rule, res: events.append((prev, new, res, rule.grade)))
+        bev.add_state_change_observer("boom", lambda *a: 1 / 0)
+        try:
+            lines = _demo(lib)
+            return [lines, list(events), _half_open_recovers(lib), events]
+        finally:
+            bev.clear()
+
+    got = run_on_both(scenario)
+    assert (0, 1) in {e[:2] for e in got[1]} and {(1, 2), (2, 0)} <= {e[:2] for e in got[3]}

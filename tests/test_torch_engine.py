@@ -517,10 +517,38 @@ def _cpu_engine():
     return Engine(clock=tclock.ManualClock(0), device="cpu")
 
 
-def _add_breaker_observer(e):
-    from sentinel_tpu_torch.rules import breaker_events
+def _breaker_events_of(eng):
+    """One breaker's observer events on ``eng`` (either package): trips on
+    two errors, stays OPEN, probes HALF_OPEN after its window, closes."""
+    if isinstance(eng, Engine):
+        from sentinel_tpu_torch.models.rules import DegradeRule
+        from sentinel_tpu_torch.rules import breaker_events
+    else:
+        from sentinel_tpu.models.rules import DegradeRule
+        from sentinel_tpu.rules import breaker_events
+    events = []
+    breaker_events.clear()
+    breaker_events.add_state_change_observer("t", lambda prev, new, rule, res: events.append((prev, new, res)))
+    try:
+        eng.set_degrade_rules([DegradeRule("r", grade=C.DEGRADE_GRADE_EXCEPTION_COUNT, count=1, time_window=1,
+                                           min_request_amount=1)])
+        for t, err in ((100, 1), (200, 1), (1300, 0), (1400, 0)):
+            eng.clock.set_ms(t)
+            op = eng.submit_entry("r")
+            eng.flush()
+            if op.verdict.admitted:
+                eng.submit_exit(op.rows, rt=5, count=1, err=err, resource="r")
+                eng.flush()
+        return events
+    finally:
+        breaker_events.clear()
 
-    breaker_events.add_state_change_observer("t", lambda *a: None)
+
+def _add_breaker_observer(e):
+    """The breakers' state-change observers are ported: the events of one
+    breaker's trip, probe and recovery equal the JAX engine's."""
+    want = _breaker_events_of(JEngine(clock=JClock(0)))
+    assert _breaker_events_of(e) == want == [(0, 1, "r"), (1, 2, "r"), (2, 0, "r")]
 
 
 def _cluster_param_rule(e):
@@ -535,33 +563,74 @@ def _cluster_param_rule(e):
 
 
 @pytest.mark.parametrize(
-    "call",
+    "call,refused",
     [
-        _add_breaker_observer,
-        _cluster_param_rule,
-        lambda e: make_mesh(8, [e.device, torch.device("meta")]),
+        (_add_breaker_observer, False),
+        (_cluster_param_rule, True),
+        (lambda e: make_mesh(8, [e.device, torch.device("meta")]), True),
     ],
     ids=["degrade", "param", "mesh"],
 )
-def test_out_of_slice_raises(call):
-    """Features outside the port so far; for degrade rules, which the port
-    now runs, that is the breaker state-change observers, for cluster-mode
-    param rules the token client, and for the mesh, which runs its shards
-    on the engine's device, shards on more than one device (NCCL)."""
+def test_out_of_slice_raises(call, refused):
+    """Features outside the port so far raise: for cluster-mode param rules
+    the token client, and for the mesh, which runs its shards on the
+    engine's device, shards on more than one device (NCCL). The breaker
+    state-change observers of degrade rules, once refused here, are ported
+    (ROADMAP item 8b): that case now holds their events against the JAX
+    engine's."""
+    if not refused:
+        call(_cpu_engine())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(_cpu_engine())
+
+
+def _retune_matches_jax(e):
+    """The live retune, once refused here, is ported (ROADMAP item 8b): the
+    same retune and stream on the JAX engine give the same verdicts and
+    second-window tensors."""
+    from sentinel_tpu.metrics import nodes as jnodes
+
+    j = JEngine(clock=JClock(0))
+    out = {}
+    try:
+        for name, eng in (("jax", j), ("port", e)):
+            rule = (jst if name == "jax" else st).FlowRule("r", count=3)
+            eng.set_flow_rules([rule])
+            eng.clock.set_ms(100)
+            first = [eng.submit_entry("r") for _ in range(5)]
+            eng.flush()
+            eng.retune_second_window(4, 1000)
+            eng.clock.set_ms(400)
+            second = [eng.submit_entry("r") for _ in range(5)]
+            eng.flush()
+            stats = jax.device_get(eng.stats) if name == "jax" else stats_to_numpy(eng.stats)
+            out[name] = ([op.verdict.admitted for op in first + second],
+                         [np.asarray(a) for a in stats.second], np.asarray(stats.future_ws))
+    finally:
+        tnodes.set_second_window(C.DEFAULT_SAMPLE_COUNT, C.DEFAULT_WINDOW_INTERVAL_MS)
+        jnodes.set_second_window(C.DEFAULT_SAMPLE_COUNT, C.DEFAULT_WINDOW_INTERVAL_MS)
+    assert out["port"][0] == out["jax"][0] == [True] * 3 + [False] * 2 + [True] * 3 + [False] * 2
+    for a, b in zip(out["port"][1:], out["jax"][1:]):
+        for x, y in zip(a if isinstance(a, list) else [a], b if isinstance(b, list) else [b]):
+            np.testing.assert_array_equal(x, y)
 
 
 @pytest.mark.parametrize(
     "call,item",
     [
-        (lambda e: e.retune_second_window(4, 1000), 8),
+        (_retune_matches_jax, None),
     ],
     ids=["retune_second_window"],
 )
 def test_unported_engine_methods_raise(call, item):
     """The JAX Engine's methods that the port lacks raise NotImplementedError
-    naming their ROADMAP item, not AttributeError."""
+    naming their ROADMAP item, not AttributeError. ``item`` None: the
+    method is ported and the case holds it against the JAX engine
+    (retune_second_window, ROADMAP item 8b)."""
+    if item is None:
+        call(_cpu_engine())
+        return
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}\b"):
         call(_cpu_engine())
 

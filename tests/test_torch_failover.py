@@ -9,11 +9,12 @@ marks, the blocking rule), the health transitions and counters, and every
 state tensor after recovery must be identical. The test's own assertions
 run on both.
 
-Out of this slice, each with the ROADMAP Queue 1 item it waits for:
-``test_trace_and_telemetry_provenance`` (item 8: the admission trace and
-the telemetry bus); the Prometheus half of
-``test_prometheus_and_health_snapshot`` (items 8 and 11; the health
-snapshot half is here).
+Out of this slice, each with the ROADMAP Queue 1 item it waits for: the
+Prometheus half of ``test_prometheus_and_health_snapshot`` (item 11; the
+health snapshot half is here). The degraded fill's trace records,
+block-log rows and provenance columns (``test_trace_and_telemetry_provenance``'s
+ground) are held in tests/test_torch_admission_trace.py,
+test_torch_block_log.py and test_torch_provenance.py.
 
 Also here: a kernel that does not build is a defect of the program, not a
 device fault: with failover armed it raises to the caller and the engine

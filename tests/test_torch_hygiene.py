@@ -225,28 +225,34 @@ def _jax_public_names():
     raise AssertionError("sentinel_tpu/__init__.py has no __all__")
 
 
-# The JAX names whose modules are not ported yet, and their ROADMAP items.
-_UNPORTED_NAMES = {"trace_context": 8, "TraceContext": 8, "inject_trace_headers": 8,
-                   "parse_traceparent": 8, "sample_count_property": 8, "interval_property": 8}
+# The names of the metric plane (ROADMAP item 8b), stand-ins raising
+# NotImplementedError until it was ported: each is now the port's own
+# object, from the module that defines it.
+_METRIC_PLANE_NAMES = {
+    "trace_context": "sentinel_tpu_torch.core.api",
+    "TraceContext": "sentinel_tpu_torch.metrics.admission_trace",
+    "inject_trace_headers": "sentinel_tpu_torch.metrics.admission_trace",
+    "parse_traceparent": "sentinel_tpu_torch.metrics.admission_trace",
+    "sample_count_property": "sentinel_tpu_torch.metrics.window_properties",
+    "interval_property": "sentinel_tpu_torch.metrics.window_properties",
+}
 
 
 @pytest.mark.parametrize("name", _jax_public_names())
 def test_every_jax_public_name_resolves(name):
     """Each name of the JAX package's ``__all__`` is on the port and in its
-    ``__all__``: the same object where the port has it, else a stand-in
-    that raises NotImplementedError naming its ROADMAP item when called."""
+    ``__all__``, as the port's own object: since the metric plane (ROADMAP
+    item 8b) no stand-in is left, and its names come from the modules that
+    define them."""
+    import importlib
+
     import sentinel_tpu_torch as st
-    from sentinel_tpu_torch.utils.unported import UnportedName
 
     assert name in st.__all__
     obj = getattr(st, name)
-    item = _UNPORTED_NAMES.get(name)
-    if item is None:
-        assert not isinstance(obj, UnportedName), f"{name} is ported: export the port's own object"
-        return
-    assert isinstance(obj, UnportedName)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {item}\b"):
-        obj()
+    assert not type(obj).__module__.endswith(".unported"), f"{name} is a stand-in: export the port's own object"
+    if name in _METRIC_PLANE_NAMES:
+        assert obj is getattr(importlib.import_module(_METRIC_PLANE_NAMES[name]), name)
 
 
 def test_ported_public_names_are_the_ports_objects():

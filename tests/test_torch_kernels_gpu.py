@@ -1492,7 +1492,7 @@ def test_sharded_step_kernels(cuda, with_shaping, with_param):
 # --- the slot chain's verdict tail and K5 (the borrow commit) -----------------
 
 def _tail_call(cuda, n, rows="uniform", nulls=(True, True, True, True, "ddyn"), n_rows=1 << 16, seed=0, wrap=False,
-               blocked=None):
+               blocked=None, topk=8):
     """(plain, kernel): the verdict tail at n entries (K = KD = 2, 64
     breakers, top-8 over n_rows rows) on one random case, each call on its
     own copy of the breaker states; ``nulls`` = (system, param, shaping,
@@ -1516,7 +1516,7 @@ def _tail_call(cuda, n, rows="uniform", nulls=(True, True, True, True, "ddyn"), 
         def run():
             dd = tdt.DegradeDynState(*(state.clone() if i == 0 else None for i in range(5)))
             v = fn(batch, adm, g["sys_ok"] if sys_ else None, dslot_ok, probe, dd if breakers == "ddyn" else None,
-                   n_rows, 8, g["param_ok"] if param else None, g["wait_param"] if param else None,
+                   n_rows, topk, g["param_ok"] if param else None, g["wait_param"] if param else None,
                    g["shape_wait"] if shape else None)
             return v, dd.state
 
@@ -2359,3 +2359,289 @@ def test_autotuner_runs_both_k10_routes(cuda):
         for x, y in zip(a, b):
             assert np.array_equal(x, y)
     _same_stats(out["cpu"][1], out["card"][1])
+
+
+# --- the metric plane: K17 (the metric timer's bucket read), the wide -------
+# --- blocked top-K, the second-window kernels at a retuned geometry --------
+
+
+def _minute_window(rng, n_rows, now, upto):
+    """A minute window for K17: every bucket's start one of its own second
+    in the last 70 s before ``upto`` (a wrapped window: the buckets of the
+    oldest seconds are stale or rolled to a newer second), a start one
+    interval before ``now`` exactly, starts of other seconds on the
+    bucket, empty starts, and half the cells all zero."""
+    cfg = tnodes.MINUTE_CFG
+    nb, wlen = cfg.sample_count, cfg.window_len_ms
+    ws = np.full((n_rows, nb), cfg.empty_ws, np.int64)
+    sec = upto - wlen * rng.integers(1, 71, (n_rows, nb))
+    b = (sec // wlen) % nb
+    ws[np.arange(n_rows)[:, None], b] = sec
+    other = rng.random((n_rows, nb)) < 0.1
+    ws = np.where(other, ws + nb * wlen * rng.choice([-1, 1], (n_rows, nb)), ws)
+    ws[: n_rows // 8, (now // wlen) % nb] = now - now % wlen - cfg.interval_ms  # now - ws == interval
+    counts = rng.integers(0, 50, (n_rows, nb, NUM_EVENTS)).astype(np.int32)
+    counts[rng.random((n_rows, nb)) < 0.5] = 0
+    min_rt = np.full((n_rows, nb), cfg.max_rt, np.int32)
+    return ma.state_from_numpy((counts, min_rt, ws.astype(np.int32)), torch.device("cpu"))
+
+
+def _sorted_records(r):
+    r = r.cpu()
+    if r.shape[0] == 0:
+        return r
+    return r[torch.from_numpy(np.lexsort((r[:, 1].numpy(), r[:, 0].numpy())))]
+
+
+@pytest.mark.parametrize("n_rows,n_asked", [(64, 64), (4096, 1000), (1 << 20, 1 << 18)])
+@pytest.mark.parametrize("seconds", [1, 60])
+def test_bucket_read_kernel(cuda, n_rows, n_asked, seconds):
+    """K17 against its plain version: the asked rows' buckets of 1 and 60
+    seconds (a wrapped minute window, stale buckets of another second,
+    now - ws == interval exactly, half the cells zero), the asked rows
+    shuffled with duplicates; one launch a call, two where the records
+    outgrow a steady pull's buffer; the records equal as a set (their order
+    is free on the card)."""
+    rng = np.random.default_rng(n_rows + seconds)
+    cfg = tnodes.MINUTE_CFG
+    now = 7_200_000 + 431
+    upto = now - now % 1000
+    cpu_state = _minute_window(rng, n_rows, now, upto)
+    state = ma.MetricArrayState(*(t.to(cuda) for t in cpu_state))
+    rows = rng.integers(0, n_rows, n_asked).astype(np.int32)
+    idx_cpu = torch.from_numpy(rows)
+    begin = upto - 1000 * seconds
+    want = ma.bucket_read_plain(cfg, cpu_state, idx_cpu, begin, upto, now)
+    before = ma.bucket_read.launches
+    got = ma.bucket_read(cfg, state, idx_cpu.to(cuda), begin, upto, now)
+    steady = min(n_asked * seconds, 2 * n_asked + 65536)
+    assert ma.bucket_read.launches == before + (1 if want.shape[0] <= steady else 2)
+    assert not got.is_cuda and got.shape[1] == ma.BUCKET_RECORD
+    _eq(_sorted_records(want), _sorted_records(got), f"records {n_rows} x {seconds}s")
+    assert want.shape[0] > 0
+    # The plain version equals bucket_windows and the JAX timer's filter.
+    ws, counts, valid = ma.bucket_windows(cfg, cpu_state, now)
+    n = 0
+    for sec in range(begin, upto, 1000):
+        b = (sec // 1000) % cfg.sample_count
+        keep = valid[idx_cpu.long(), b] & (ws[idx_cpu.long(), b] == sec) & counts[idx_cpu.long(), b].ne(0).any(-1)
+        n += int(keep.sum())
+    assert n == want.shape[0]
+
+
+@pytest.mark.parametrize("cap", [0, 7, 1 << 20])
+def test_bucket_read_kernel_records_past_cap(cuda, cap):
+    """K17 with a records buffer smaller than what passes: the first
+    launch counts them all and writes ``cap``, the second has room for all;
+    with room enough one launch. The records equal the plain version's."""
+    rng = np.random.default_rng(cap + 3)
+    cfg = tnodes.MINUTE_CFG
+    now = 7_200_000 + 431
+    upto = now - now % 1000
+    cpu_state = _minute_window(rng, 4096, now, upto)
+    state = ma.MetricArrayState(*(t.to(cuda) for t in cpu_state))
+    idx_cpu = torch.from_numpy(rng.integers(0, 4096, 3000).astype(np.int32))
+    begin = upto - 60_000
+    want = ma.bucket_read_plain(cfg, cpu_state, idx_cpu, begin, upto, now)
+    assert want.shape[0] > 7
+    before = ma.bucket_read.launches
+    got = ma._bucket_read_cuda(cfg, state, idx_cpu.to(cuda), begin, upto, now, cap=cap)
+    assert ma.bucket_read.launches == before + (1 if cap >= want.shape[0] else 2)
+    _eq(_sorted_records(want), _sorted_records(got), f"records past cap {cap}")
+
+
+def test_metric_timer_bucket_read_failure_raises(cuda, monkeypatch, tmp_path):
+    """A failed K17 build or launch reaches MetricTimer.run_once's caller:
+    the timer never copies the whole window instead."""
+    from sentinel_tpu_torch.metrics.metric_log import MetricTimer, MetricWriter
+    from sentinel_tpu_torch.models.rules import FlowRule
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils import cuda_build
+    from sentinel_tpu_torch.utils.clock import ManualClock
+
+    clock = ManualClock(1000)
+    eng = Engine(clock=clock, device=cuda)
+    eng.set_flow_rules([FlowRule("r", count=5)])
+    eng.submit_bulk("r", 10)
+    eng.flush()
+    clock.set_ms(3500)
+    timer = MetricTimer(eng, writer=MetricWriter(base_dir=str(tmp_path), app_name="t"))
+
+    def no_build():
+        raise cuda_build.KernelBuildError("bucket_read: nvcc failed")
+
+    monkeypatch.setattr(ma, "_br_lib", no_build)
+    with pytest.raises(cuda_build.KernelBuildError):
+        timer.run_once()
+
+    class _Failing:
+        @staticmethod
+        def bucket_read(*args):
+            return 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(ma, "_br_lib", lambda: _Failing)
+    with pytest.raises(RuntimeError, match="bucket_read"):
+        timer.run_once()
+    monkeypatch.undo()
+    lines = timer.run_once()
+    assert "r" in {ln.resource for ln in lines}  # the failed pulls moved nothing
+
+
+WIDE_K4_CASES = [(nk, topk, few) for nk in (64, 2049, 131072) for topk in (16, 64) for few in (False, True)]
+
+
+@pytest.mark.parametrize("nk,topk,few", WIDE_K4_CASES,
+                         ids=[f"{nk}-top{t}{'-few' if f else ''}" for nk, t, f in WIDE_K4_CASES])
+def test_blocked_topk_wide_default_tail_kernel(cuda, nk, topk, few):
+    """The DEFAULT tail with a top-K above 8 (the fused tail with no top-K,
+    then the wide route) on both of K4's routes, against the plain version
+    (lax.top_k's order: weight descending, row ascending, the lowest
+    zero-weight rows filling up); ``few``: fewer rows carry blocked weight
+    than k. One launch of each; the zeroed scratch reads zero after."""
+    rng = np.random.default_rng(nk + topk + few)
+    k = 2 if nk % 2 == 0 and nk <= 2048 else 1
+    n, nr = nk // k, 64
+    n_rows = 128 if nk <= 64 else 1 << 20
+    now = 4_321_000 + 123
+    arrs = borrowable_stats(rng, n_rows, now, tnodes.SECOND_CFG, tnodes.MINUTE_CFG)
+    lo, hi = (5000, 6000) if few else (2, 40)
+    table, _ = random_flow_table(rng, nr, thread_frac=0.2, lo=lo, hi=hi)
+    tt, _ = flow_table_from_numpy(table, None, cuda)
+    b = list(random_flush_batch(rng, n, k, n_rows, nr, now, n - n // 16, one_row=few))
+    batch = tflush.batch_from_numpy(b, cuda)
+    stats = tnodes.stats_from_numpy(arrs, cuda)
+    want = tflush.flow_admission_plain(stats, tt, batch, topk)
+    before = (tflush.flow_admission.launches, tflush.blocked_topk_wide.launches)
+    got = tflush.flow_admission(stats, tt, batch, topk)
+    assert (tflush.flow_admission.launches, tflush.blocked_topk_wide.launches) == (before[0] + 1, before[1] + 1)
+    for name, x, y in zip(want._fields, want, got):
+        _eq(x, y, f"admission {name}")
+    assert got.blk_rows.shape == (min(topk, n_rows),)
+    if few:
+        assert int((want.blk_weight > 0).sum()) < topk
+    _assert_zeroed(cuda, f"wide top-{topk} at {nk}")
+
+
+@pytest.mark.parametrize("route", ["one_block", "many_blocks"])
+@pytest.mark.parametrize("topk", [16, 64])
+@pytest.mark.parametrize("size", ["8", "threshold+1", "131072"])
+def test_blocked_topk_wide_chain_tail_kernel(cuda, monkeypatch, route, topk, size):
+    """The slot chain's tail with a top-K above 8 on each route forced, at
+    8 entries (fewer blocked rows than k), the threshold + 1 and 131,072
+    (Zipf rows over 65,536): equal to the plain version; the zeroed
+    scratch reads zero after."""
+    n = {"131072": 1 << 17, **_tail_sizes()}[size]
+    _route(monkeypatch, "CHAIN_VERDICT_SMALL_MAX", route)
+    plain, kernel = _tail_call(cuda, n, "zipf", topk=topk)
+    want = plain()
+    before = tflush.blocked_topk_wide.launches
+    got = kernel()
+    assert tflush.blocked_topk_wide.launches == before + 1
+    _states_eq(want[0], got[0], f"n={n} top-{topk} {route}")
+    _eq(want[1], got[1], "breaker states")
+    _assert_zeroed(cuda, f"n={n} top-{topk} {route}")
+
+
+@pytest.mark.parametrize("case", list(TIE_PATTERNS))
+def test_blocked_topk_wide_tie_cases_kernel(cuda, monkeypatch, case):
+    """The top-K ties at k = 16 on the many-block tail: touched rows of one
+    weight rank by row, a row whose wrapping sum comes back to 0 ranks among
+    the untouched rows of weight 0, once."""
+    _route(monkeypatch, "CHAIN_VERDICT_SMALL_MAX", "many_blocks")
+    plain, kernel = _tail_call(cuda, 8192, n_rows=1 << 12, blocked=tie_rows(case, 8192), topk=16)
+    want, got = plain(), kernel()
+    _states_eq(want[0], got[0], case)
+    _assert_zeroed(cuda, case)
+    top = got[0].blk_rows.cpu().tolist()
+    assert len(set(top)) == 16, top
+
+
+def test_blocked_topk_wide_refusals_kernel(cuda):
+    """The wide route's C call refuses a short zeroed scratch or workspace
+    (-1, no launch) and a k outside (0, R]; the scratch stays zero."""
+    import ctypes
+
+    from sentinel_tpu_torch.utils import cuda_build
+
+    lib = tflush._bt_lib()
+    n, n_rows, k = 4096, 1024, 16
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    adm, valid = t(np.zeros(n, bool)), t(np.ones(n, bool))
+    acq = t(np.ones(n, np.int32))
+    rows = t(np.random.default_rng(0).integers(0, n_rows, (n, 4)).astype(np.int32))
+    out = torch.empty(2 * k, dtype=torch.int32, device=cuda)
+    st = torch.cuda.current_stream(cuda).cuda_stream
+    need = int(lib.blocked_topk_workspace(n, n_rows, k))
+    zb = int(lib.blocked_topk_zero_bytes(n, n_rows))
+    for kk, ws_short, zero_short, code in ((k, True, False, -1), (k, False, True, -1), (n_rows + 1, False, False, 1),
+                                           (0, False, False, 1)):
+        a = tflush._BtArgs(admitted=adm.data_ptr(), e_valid=valid.data_ptr(), e_acq=acq.data_ptr(),
+                           e_rows=rows.data_ptr(), out_w=out.data_ptr(), out_r=out[k:].data_ptr(), n=n,
+                           n_rows=n_rows, k=kk)
+        with cuda_build.scratch(cuda, st, need, zb) as (buf, size, zero):
+            rc = lib.blocked_topk(ctypes.byref(a), buf, need - 1 if ws_short else size, zero,
+                                  zb - 1 if zero_short else zb, st)
+        assert (rc == -1) if code == -1 else (rc != 0 and rc != -1), (kk, rc)
+        _assert_zeroed(cuda, f"refusal {kk}")
+
+
+@pytest.fixture
+def second_10x1000():
+    """The second window retuned to 10 x 100 ms over 1,000 ms for the test
+    (nodes.set_second_window), then back."""
+    old = tnodes.SECOND_CFG
+    tnodes.set_second_window(10, 1000)
+    try:
+        yield tnodes.SECOND_CFG
+    finally:
+        tnodes.set_second_window(old.sample_count, old.interval_ms)
+
+
+@pytest.mark.parametrize("n_rows", [257, 1 << 20])
+@pytest.mark.parametrize("kind", ["random", "empty_pass"])
+def test_materialize_kernel_nb10(cuda, second_10x1000, n_rows, kind):
+    """K1 at nb = 10 (the slab sweep over [R, 10])."""
+    test_materialize_kernel(cuda, n_rows, kind, 9_876_543)
+
+
+@pytest.mark.parametrize("n", [8, 1 << 19])
+def test_apply_updates_kernel_nb10(cuda, second_10x1000, n):
+    """K2 (both windows and the gauge) at nb = 10."""
+    test_apply_updates_kernel(cuda, n, True, True)
+
+
+def test_update_kernel_nb10(cuda, second_10x1000):
+    """K2 alone on the 10-bucket second window, hot rows and Zipf."""
+    old = GEOMETRY["second"]
+    GEOMETRY["second"] = tnodes.SECOND_CFG
+    try:
+        for hot in (True, "zipf"):
+            test_update_kernel(cuda, "second", True, hot)
+    finally:
+        GEOMETRY["second"] = old
+
+
+@pytest.mark.parametrize("case", STATS_READ_CASES)
+def test_rows_stats_kernel_nb10(cuda, second_10x1000, case):
+    """K3's row_stats at nb = 10 (the second window and the slab over ten
+    lanes of the row's warp)."""
+    test_rows_stats_kernel(cuda, case, "three")
+    test_rows_stats_kernel(cuda, case, STATS_READ_ROWS[0])
+
+
+@pytest.mark.parametrize("nk", [64, 2049, 131072])
+def test_flow_admission_routes_kernel_nb10(cuda, second_10x1000, nk):
+    """K4 (the DEFAULT tail, and the slot chain's stage with occupy) at
+    nb = 10 on both routes."""
+    test_flow_admission_routes_kernel(cuda, nk, 8, False)
+
+
+def test_occupy_and_commit_kernels_nb10(cuda, second_10x1000):
+    """K4's occupy branch and K5's borrow commit over [R, 10]."""
+    test_occupy_and_commit_kernels(cuda, 1000)
+
+
+def test_chain_flush_step_kernels_nb10(cuda, second_10x1000):
+    """The whole slot chain's step at nb = 10 over three flushes, against
+    the plain versions' step."""
+    test_chain_flush_step_kernels(cuda, (True, True, True))

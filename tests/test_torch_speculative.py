@@ -9,11 +9,10 @@ the test's own assertions run on both.
 
 Out of this slice, each with the ROADMAP Queue 1 item it waits for:
 ``test_custom_slot_runs_once_per_entry`` (item 11: custom processor
-slots); ``test_trace_records_speculative_to_settled`` and
-``test_telemetry_and_prometheus_export`` (item 8: the admission trace, the
-telemetry bus and the Prometheus export). The trace assertions of
-``test_degraded_fill_keeps_speculative_verdicts`` wait for item 8 too; its
-verdict and counter assertions are here."""
+slots) and the Prometheus export of ``test_telemetry_and_prometheus_export``
+(item 11). The speculative trace records, settled and degraded, and the
+tier's provenance columns are held in tests/test_torch_admission_trace.py
+and test_torch_provenance.py."""
 
 import numpy as np
 import pytest

@@ -14,12 +14,12 @@ sums) are wall times, and the arena's hit and miss counts follow each
 package's own staging layout (the port stages a chunk in one set, the
 JAX engine in one set per column family), so neither is compared.
 
-Left out, each with the ROADMAP Queue 1 item it waits for: the mesh
-step's host recount (``test_host_recount_fallback_matches_device_fold``,
-``test_mesh_flush_feeds_sketch``, item 8), the Prometheus series, the
-``telemetry`` command and the metric-log roll-in (``TestExports``, items 8
-and 11), and the wall-clock ``TestOverhead`` (2%): its number is
-``chip_smoke.py`` phase 4h (d)'s, taken on the card."""
+Left out: the Prometheus series and the ``telemetry`` command
+(``TestExports``, ROADMAP Queue 1 item 11), and the wall-clock
+``TestOverhead`` (2%), whose number is ``chip_smoke.py`` phase 4h (d)'s,
+taken on the card. The mesh step's host recount is held in
+tests/test_torch_blocked_topk.py, the metric log's ``__engine__`` lines
+in test_torch_metric_log.py."""
 
 import json
 from types import SimpleNamespace

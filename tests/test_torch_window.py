@@ -16,8 +16,8 @@ compare the multiset of verdicts (the per-index contract is the spine's).
 
 Left out, each with the ROADMAP Queue 1 item it waits for:
 ``TestAdapterParity`` and ``test_gateway_entry_rides_the_window`` (the
-adapters, item 11) and ``TestTraceAcrossBoundary`` with the trace half of
-``test_whole_window_shed_attribution`` (the admission trace, item 8)."""
+adapters, item 11). The window's per-request trace records are held in
+tests/test_torch_admission_trace.py."""
 
 import asyncio
 import sys
