@@ -183,6 +183,7 @@ checkout beside it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -233,7 +234,8 @@ try:
     from sentinel_tpu_torch.runtime import sketch as tsk
     from sentinel_tpu_torch.utils import clock as tclock
     from sentinel_tpu_torch.utils import cuda_build
-    from gpu_timing import TD_B, TD_FLOWS, TD_NS, device_profile, kernel_times, time_ms, time_ms_fresh, token_batch
+    from gpu_timing import (TD_B, TD_FLOWS, TD_NS, copies_per_call, device_profile, kernel_times, time_ms,
+                            time_ms_fresh, token_batch)
 except ImportError as exc:
     print(f"chip_smoke: the sentinel_tpu_torch package or gpu_timing.py is not beside this script ({exc})",
           file=sys.stderr)
@@ -1725,8 +1727,10 @@ def drive_engine(device: torch.device, seed: int, mode: str = "sync", telemetry:
     """One stream on one engine; returns (records, final state, blocked
     top-K, seconds per bulk flush, entries admitted, (the stats reads'
     launches of row_stats and of K3, the seconds of each read, the host
-    split of each bulk flush, (the telemetry bus's blocked top-K, its span
-    count, spans_to_trace of its spans))). ``mode`` "depth2" runs the engine
+    split of each bulk flush with the call's ms and the ms of the garbage
+    collections inside it (``call_ms``, ``gc_ms``, ``gc2_ms``: those of
+    generation 2), (the telemetry bus's blocked top-K, its span count,
+    spans_to_trace of its spans))). ``mode`` "depth2" runs the engine
     at pipeline depth 2, "async" flushes the bulk through flush_async; the
     verdict reads after each flush materialize it in both. ``telemetry``
     False turns the flight recorder off (phase 4h (d)). ``steps`` flushes;
@@ -1751,6 +1755,8 @@ def drive_engine(device: torch.device, seed: int, mode: str = "sync", telemetry:
     flush_s = 0.0
     admitted = read_launches = read_k3 = 0
     read_s = []
+    gct = GcTimer()
+    gc.callbacks.append(gct)
     for step in range(steps):
         now = 1000 + step * 100
         clock.set_ms(now)
@@ -1771,10 +1777,13 @@ def drive_engine(device: torch.device, seed: int, mode: str = "sync", telemetry:
                 eng.submit_exit_bulk(g.rows, g.admitted_count, rt=int(rng.integers(1, 300)), ts=now)
         if device.type == "cuda":
             torch.cuda.synchronize()
+        gct.start()
         t0 = time.perf_counter()
         eng.flush_async() if mode == "async" else eng.flush()
-        flush_s += time.perf_counter() - t0
-        splits.append(eng.last_flush_host_ms)
+        call_s = time.perf_counter() - t0
+        gct.on = False
+        flush_s += call_s
+        splits.append(dict(eng.last_flush_host_ms, call_ms=call_s * 1e3, gc_ms=sum(gct.ms), gc2_ms=gct.ms[2]))
         records.append(np.concatenate([g.admitted for g in groups]))
         records.append(np.concatenate([g.reason for g in groups]))
         admitted += int(records[-2].sum())
@@ -1797,6 +1806,7 @@ def drive_engine(device: torch.device, seed: int, mode: str = "sync", telemetry:
                 e.exit()
             except st.FlowBlockError:
                 records.append(np.array([0], np.int32))
+    gc.callbacks.remove(gct)
     eng.flush()
     eng.drain()
     final = nodes.stats_to_numpy(eng.stats)
@@ -1804,6 +1814,25 @@ def drive_engine(device: torch.device, seed: int, mode: str = "sync", telemetry:
     spans = eng.telemetry.spans()
     recorder = (eng.telemetry.blocked_sketch.topk(64), len(spans), spans_to_trace(spans))
     return records, final, blk, flush_s / steps, admitted, (read_launches, read_k3, read_s, splits, recorder)
+
+
+class GcTimer:
+    """A ``gc.callbacks`` entry: the ms of the collections of each
+    generation that run while ``on``, since :meth:`start`."""
+
+    def __init__(self) -> None:
+        self.on, self.ms, self._t0 = False, [0.0, 0.0, 0.0], 0.0
+
+    def start(self) -> None:
+        self.on, self.ms = True, [0.0, 0.0, 0.0]
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if not self.on:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.ms[info["generation"]] += (time.perf_counter() - self._t0) * 1e3
 
 
 def split_line(splits) -> str:
@@ -1824,6 +1853,7 @@ def phase4(results: dict, cpu_jobs: dict) -> None:
         "thread_gauge": nodes.thread_gauge_add,
         "flow_admission": flush.flow_admission,
     }
+    n_objects = len(gc.get_objects())
     for w in wrappers.values():
         w.launches = 0
     gpu_records, gpu_state, gpu_blk, gpu_flush_s, admitted, (read_launches, read_k3, read_s, splits, _) = drive_engine(
@@ -1832,6 +1862,16 @@ def phase4(results: dict, cpu_jobs: dict) -> None:
     log(f"  card: {gpu_flush_s * 1e3:.3f} ms per 32,768-entry flush call "
         f"({FLUSH_N / gpu_flush_s:,.0f} entries/s, host encode and verdict copy included)")
     log(f"  host split of a flush (Engine.last_flush_host_ms): {split_line(splits)}")
+    calls = np.array([s["call_ms"] for s in splits])
+    rest = calls - np.array([s["encode_ms"] + s["dispatch_ms"] + s["kernel_ms"] for s in splits])
+    slow = np.argsort(calls)[::-1][:3].tolist()
+    log(f"  flush calls: median {np.median(calls):.3f}, mean {calls.mean():.3f}, max {calls.max():.3f} ms; outside "
+        f"the split (call - encode - dispatch - kernel) median {np.median(rest):.3f}, mean {rest.mean():.3f} ms; "
+        f"garbage collections inside the calls {sum(s['gc_ms'] for s in splits):.1f} ms in all, generation 2 "
+        f"{sum(s['gc2_ms'] for s in splits):.1f} ms; {n_objects:,} objects tracked by the collector at the start; "
+        "the slowest: " + "; ".join(f"flush {i} {calls[i]:.1f} ms (encode {splits[i]['encode_ms']:.1f}, kernel "
+                                    f"{splits[i]['kernel_ms']:.1f}, collections {splits[i]['gc_ms']:.1f})"
+                                    for i in slow))
     log(f"  launches on the main path: {counts}")
     if counts.pop("materialize_matured") != 0:
         fail("phase 4: the matured-borrow sweep ran on a stream that borrows nothing")
@@ -3548,7 +3588,9 @@ def drive_mesh_topk(device: torch.device, seed: int):
 
 def k17_full_width(results: dict) -> None:
     """(b): K17 on a minute window of R rows (half the cells nonzero, stale
-    and empty buckets), MP_ROWS_ASKED asked rows, one second asked and 60."""
+    and empty buckets), MP_ROWS_ASKED asked rows, one second asked and 60,
+    through the device's kept reader, as the metric timer reads: a steady
+    read is one kernel, no memset and one copy back."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(17)
     now = 7_200_000 + 431
@@ -3574,6 +3616,13 @@ def k17_full_width(results: dict) -> None:
             fail("phase 4i (b): K17 found no cell")
         call = lambda: ma.bucket_read(cfg, state, idx, begin, upto, now)  # noqa: E731
         kern, mems, dev_ms = profile(call, f"phase 4i (b): K17 at {seconds} s")
+        try:
+            copies = copies_per_call(call)
+        except RuntimeError as exc:
+            fail(f"phase 4i (b): K17's copies at {seconds} s: {exc}")
+        if (kern, mems, copies.get("Memcpy DtoH", 0)) != (1, 0, 1):
+            fail(f"phase 4i (b): a steady K17 read at {seconds} s took {kern} kernels, {mems} memsets and copies "
+                 f"{copies}, not 1, 0 and one copy back")
         n_rec = got.shape[0]
         moved = MP_ROWS_ASKED * 4 + MP_ROWS_ASKED * seconds * (4 + 4 * NUM_EVENTS) + n_rec * 4 * ma.BUCKET_RECORD + 4
         b_ms, b_by = bound(moved)
@@ -3582,11 +3631,12 @@ def k17_full_width(results: dict) -> None:
                       launches_per_call=kern, memsets_per_call=mems, device_ms=dev_ms, records=n_rec,
                       bound=(b_ms, b_by))
         log(f"  (b) K17 at {MP_ROWS_ASKED:,} of {R:,} rows, {seconds} s asked: {timing['ms']:.4f} ms a call "
-            f"(plain {timing['plain_ms']:.4f}), {kern} device kernels, {mems} memsets, {dev_ms:.4f} ms of device "
-            f"time; {n_rec:,} records; bound {b_ms:.5f} ms by {b_by}")
+            f"(plain {timing['plain_ms']:.4f}), {kern} device kernels, {mems} memsets, copies {copies}, "
+            f"{dev_ms:.4f} ms of device time; {n_rec:,} records; bound {b_ms:.5f} ms by {b_by}")
         if seconds == 1:
             r.update(ms=timing["ms"], plain_ms=timing["plain_ms"], library_ms=None, max_abs_err=err,
                      bound=timing["bound"], launches_per_call=kern, memsets_per_call=mems, device_ms=dev_ms,
+                     copies_per_call=copies,
                      shape=f"{MP_ROWS_ASKED:,} asked rows of a {R:,}-row minute window, 1 s asked ({n_rec:,} records)")
         else:
             r.update(ms_60s=timing["ms"], plain_ms_60s=timing["plain_ms"], bound_ms_60s=b_ms, device_ms_60s=dev_ms,
@@ -3664,9 +3714,10 @@ def retuned_kernels() -> None:
 def wide_topk(results: dict) -> None:
     """(d): the blocked top-K above 8 on the DEFAULT tail (K4) and on the
     slot chain's tail, at k = 16 and 64, at N entries over R rows and at 8
-    entries, against the plain version; the wide route alone timed against
-    its plain version and torch.topk of the dense weights (the library
-    call); the zeroed scratch stays zero."""
+    entries, against the plain version; the wide route alone (two kernels
+    and no memset a call: its selection) timed against its plain version
+    and torch.topk of the dense weights (the library call); the zeroed
+    scratch stays zero."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(21)
     rng = np.random.default_rng(21)
@@ -3699,6 +3750,9 @@ def wide_topk(results: dict) -> None:
                 0, torch.where(blocked_w > 0, batch.e_rows[:, 1].clamp(0, R - 1), R).long(), blocked_w)[:R]
             lib = lambda: torch.topk(dense, k)  # noqa: E731
             kern, mems, dev_ms = profile(wide, f"phase 4i (d): the wide route at k = {k}")
+            if (kern, mems) != (2, 0):
+                fail(f"phase 4i (d): the wide route at k = {k}, {n} entries took {kern} kernels and {mems} memsets a "
+                     "call, not 2 and 0 (bt_add, bt_select)")
             moved = n * (1 + 1 + 4 + 4) + 8 * k
             b_ms, b_by = bound(moved)
             ms, p_ms, l_ms = time_ms(wide), time_ms(plain), time_ms(lib)
@@ -5007,7 +5061,7 @@ def main() -> None:
                       "matured_memsets_per_call", "matured_device_ms", "matured_cells", "read_ms", "small_plain_ms",
                       "edges", "launches_4h", "routes_4h", "ms_60s", "plain_ms_60s", "bound_ms_60s",
                       "device_ms_60s", "launches_per_call_60s", "memsets_per_call_60s", "records", "records_60s",
-                      "pull_ms", "read_ms_4i", "copy_ms_4i", "asked_rows_4i") + tuple(
+                      "pull_ms", "read_ms_4i", "copy_ms_4i", "asked_rows_4i", "copies_per_call") + tuple(
                           f"{m}_{n}_k{k}" for m in ("ms", "plain_ms", "library_ms", "device_ms", "launches_per_call",
                                                     "memsets_per_call") for n, k in ((N, 64), (8, 16), (8, 64))):
             if extra in r:

@@ -22,10 +22,17 @@ the rule managers, ``submit_bulk``, ``submit_exit_bulk``, ``flush``,
   ManualClock that moves 7 ms a call, 2,000 calls after 100 of warm-up:
   the ms a call, median and p99.
 
+With ``--heap N`` the process first makes N million small lists and keeps
+them alive, objects that the garbage collector tracks, as a long-running
+process such as ``chip_smoke.py`` holds by its phase 4; the line then gains
+``heap_objects``, the collector's tracked objects before the stream.
+
 With ``--profile`` the DEFAULT stream runs once more, its flush calls 5-39
 under cProfile, and the line gains ``flush_profile``: the 30 functions of
 the largest cumulative time in those calls, with their own and cumulative
-ms a flush call (cProfile's overhead included). The stats go to
+ms a flush call (cProfile's overhead included), and ``fill_profile``: the
+same for the fill's metric-plane functions by name (``FILL_FUNCS``), those
+the checkout has. The stats go to
 ``build/profiles/flush_profile_<tag>.pstats``.
 
 One JSON line, with the card's name and power limit and the torch version.
@@ -48,6 +55,10 @@ import torch
 
 from gpu_timing import card_line
 
+# The fill's functions: the verdict fill, the trace records, the block-log
+# items and the block log's write, under the names older checkouts use too.
+FILL_FUNCS = ("_fill_results", "record_bulk_groups", "_trace_bulk", "_block_items_and_extensions",
+              "_bulk_block_columns", "_post_flush", "log_batch", "log_parts")
 N_RULES = 6000
 FLUSH_N = 32768
 STEPS = 40
@@ -125,7 +136,7 @@ def engine_stream(st, api, tclock, out: dict, prof: cProfile.Profile | None = No
         out["host_split_ms"] = {k: float(np.median([s[k] for s in splits[5:]])) for k in splits[0]}
 
 
-def flush_profile(st, api, tclock, tag: str) -> list:
+def flush_profile(st, api, tclock, tag: str) -> tuple:
     prof = cProfile.Profile()
     engine_stream(st, api, tclock, {}, prof)
     out_dir = os.path.join("build", "profiles")
@@ -134,7 +145,12 @@ def flush_profile(st, api, tclock, tag: str) -> list:
     stats = pstats.Stats(prof).stats  # (file, line, name) -> (cc, nc, tottime, cumtime, callers)
     n = STEPS - 5
     top = sorted(stats.items(), key=lambda kv: kv[1][3], reverse=True)[:30]
-    return [[f"{os.path.basename(f)}:{line}({name})", 1e3 * v[2] / n, 1e3 * v[3] / n] for (f, line, name), v in top]
+    fill = {}
+    for (f, line, name), v in stats.items():
+        if name in FILL_FUNCS and "sentinel_tpu_torch" in f:
+            fill[name] = [1e3 * v[2] / n, 1e3 * v[3] / n]
+    return ([[f"{os.path.basename(f)}:{line}({name})", 1e3 * v[2] / n, 1e3 * v[3] / n] for (f, line, name), v in top],
+            fill)
 
 
 def entry_calls(st, api, tclock, out: dict) -> None:
@@ -163,6 +179,7 @@ def main() -> None:
     ap.add_argument("--root", required=True, help="checkout whose sentinel_tpu_torch is timed")
     ap.add_argument("--tag", default="")
     ap.add_argument("--profile", action="store_true", help="also profile the DEFAULT stream's flush calls")
+    ap.add_argument("--heap", type=float, default=0.0, help="millions of tracked objects kept alive beside the stream")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("gpu_engine_ab: no CUDA device")
@@ -174,10 +191,13 @@ def main() -> None:
 
     cuda_build.build_all(p.stem for p in sorted(cuda_build.CSRC.glob("*.cu")))
     out = {"tag": args.tag, "root": args.root, "card": card_line(), "torch": torch.__version__}
+    ballast = [[i] for i in range(int(args.heap * 1e6))]
+    if ballast:
+        out["heap_objects"] = len(gc.get_objects())
     engine_stream(st, api, tclock, out)
     entry_calls(st, api, tclock, out)
     if args.profile:
-        out["flush_profile"] = flush_profile(st, api, tclock, args.tag)
+        out["flush_profile"], out["fill_profile"] = flush_profile(st, api, tclock, args.tag)
     api.reset()
     print(json.dumps(out), flush=True)
 

@@ -74,7 +74,17 @@ back-to-back calls (gpu_timing.time_ms):
 - K10: chip_smoke.py's mixed shape (32,768 QPS items over 16,384 value
   rows, token count 100, the engine's rounds bound) and its first 8 items;
 - K12: batches of 16,384 and of 8 Zipf(1.1) requests over 65,536 flows in
-  16 namespaces, on a token server's state after 20 batches.
+  16 namespaces, on a token server's state after 20 batches;
+- the blocked top-K's wide route (``wide_k16``, ``wide_k64``,
+  ``wide_k256``): 131,072 entries on Zipf(1.1) rows of 1,048,576, 30%
+  blocked, acquire 1-3, at k = 16, 64 and 256, and 8 of those entries at
+  k = 16 and 64 (``wide_k16_small``, ...); beside each its plain version
+  (``*_plain_ms``) and torch.topk of the dense weights (``*_library_ms``);
+- K17 (``k17_1s``, ``k17_60s``): 262,144 asked rows of a 1,048,576-row
+  minute window (live, stale and empty buckets, half the cells zero), one
+  second asked and 60, through ``metric_array.bucket_read`` as the metric
+  timer calls it, call after call; its device copies a call
+  (``*_copies_per_call``) and the plain version's time.
 
 Inputs are made here from fixed seeds, the same for every checkout, only
 through long-standing functions of the package (batch_from_numpy,
@@ -90,7 +100,8 @@ k9_kernel_us, k10_kernel_us, k15_kernel_us, k15_borrow_kernel_us,
 tail_kernel_us, tail_zipf_kernel_us, tail_zipf_blocked_kernel_us); the
 script fails if the profiler reads no kernel. ``--only k7,k11`` times K7
 and K11 alone, ``--only k1,gauge`` K1, apply_updates, the gauge, K3 and
-K16 alone, ``--only k3,k16`` K3, the stats reads and K16 alone. Prints
+K16 alone, ``--only k3,k16`` K3, the stats reads and K16 alone, ``--only
+wide,k17`` the wide route and K17 alone (about half a minute). Prints
 one JSON line that
 carries the card's name and power limit. Needs CUDA; imports no JAX. The
 helpers come from the gpu_timing.py beside this script, whichever
@@ -108,8 +119,8 @@ import time
 import numpy as np
 import torch
 
-from gpu_timing import (TD_B, TD_FLOWS, TD_NS, card_line, device_profile, kernel_times, time_ms, time_ms_fresh,
-                        token_batch)
+from gpu_timing import (TD_B, TD_FLOWS, TD_NS, card_line, copies_per_call, device_profile, kernel_times, time_ms,
+                        time_ms_fresh, token_batch)
 
 
 def k1_gauge(out: dict, profiled, dev, k3_k16_only: bool = False) -> None:
@@ -243,9 +254,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="checkout whose sentinel_tpu_torch is timed")
     ap.add_argument("--tag", default="")
-    ap.add_argument("--only", default="", choices=("", "k7,k11", "k1,gauge", "k3,k16"),
-                    help="time K7 and K11; K1, apply_updates, the gauge, K3 and K16; or K3, the stats reads and "
-                         "K16, alone")
+    ap.add_argument("--only", default="", choices=("", "k7,k11", "k1,gauge", "k3,k16", "wide,k17"),
+                    help="time K7 and K11; K1, apply_updates, the gauge, K3 and K16; K3, the stats reads and K16; "
+                         "or the wide top-K and K17, alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("gpu_kernel_ab: no CUDA device")
@@ -265,7 +276,8 @@ def main() -> None:
     from sentinel_tpu_torch.utils import cuda_build
 
     sources = ["window_update", "window_reduce", "token_decide", "flow_admission", "param_scan", "system_check", "breaker_on_exits",
-               "breaker_try_pass", "shaping_scan", "mesh_budget", "commit_borrow_slab", "sketch_fold", "slab_sweep"]
+               "breaker_try_pass", "shaping_scan", "mesh_budget", "commit_borrow_slab", "sketch_fold", "slab_sweep",
+               "blocked_topk", "bucket_read"]
     cuda_build.build_all(n for n in sources if (cuda_build.CSRC / f"{n}.cu").exists())  # an older checkout has fewer
     dev = torch.device("cuda", 0)
     i32 = torch.int32
@@ -276,6 +288,10 @@ def main() -> None:
         out[f"{name}_launches_per_call"], out[f"{name}_memsets_per_call"], out[f"{name}_device_ms"] = (
             device_profile(fn))
 
+    if args.only == "wide,k17":
+        wide_k17(out, profiled, dev)
+        print(json.dumps(out), flush=True)
+        return
     if args.only in ("", "k1,gauge", "k3,k16"):
         k1_gauge(out, profiled, dev, k3_k16_only=args.only == "k3,k16")
         if args.only:
@@ -579,7 +595,73 @@ def main() -> None:
         out[f"{name}_ms"] = time_ms(fn)
         (out[f"{name}_launches_per_call"], out[f"{name}_memsets_per_call"],
          out[f"{name}_device_ms"]) = device_profile(fn)
+    del st
+    torch.cuda.empty_cache()
+    wide_k17(out, profiled, dev)
     print(json.dumps(out), flush=True)
+
+
+def wide_k17(out: dict, profiled, dev) -> None:
+    """The wide top-K (k = 16, 64, 256 at 131,072 entries; 16 and 64 at 8)
+    and K17 (262,144 asked rows, 1 s and 60 s), each beside its plain
+    version; the wide route also beside torch.topk of the dense weights."""
+    from sentinel_tpu_torch.metrics import metric_array as ma
+    from sentinel_tpu_torch.metrics import nodes
+    from sentinel_tpu_torch.metrics.events import NUM_EVENTS
+    from sentinel_tpu_torch.runtime import flush
+
+    i32 = torch.int32
+    rows_n, n, now = 1 << 20, 1 << 17, 1_000_000
+    rng = np.random.default_rng(18)
+    p = np.arange(1, rows_n + 1, dtype=np.float64) ** -1.1
+    res = rng.choice(rows_n, size=n, p=p / p.sum()).astype(np.int32)
+    m = 8
+    batch = flush.batch_from_numpy((
+        np.int32(now), np.ones(n, bool), np.full(n, now, np.int32), rng.integers(1, 4, n).astype(np.int32),
+        np.stack([res, res, np.full(n, -1), np.zeros(n)], axis=1).astype(np.int32), res[:, None].copy(),
+        res[:, None].copy(), np.zeros(n, bool), np.ones(n, bool), np.ones(n, bool), np.full((n, 1), -1, np.int32),
+        np.zeros(m, bool), np.full(m, now, np.int32), np.ones(m, np.int32), np.full((m, 4), -1, np.int32),
+        np.zeros(m, np.int32), np.zeros(m, np.int32), np.zeros(m, np.int32), np.full((m, 1), -1, np.int32)), dev)
+    admitted = torch.from_numpy(rng.random(n) >= 0.3).to(dev)
+    small = batch._replace(**{f: getattr(batch, f)[:8] for f in batch._fields if f.startswith("e_")})
+    for tag, b, adm, ks in (("", batch, admitted, (16, 64, 256)), ("_small", small, admitted[:8].clone(), (16, 64))):
+        w = torch.where(b.e_valid & ~adm, b.e_acquire, 0).to(i32)
+        dense = torch.zeros(rows_n + 1, dtype=i32, device=dev).index_add_(
+            0, torch.where(w > 0, b.e_rows[:, 1].clamp(0, rows_n - 1), rows_n).long(), w)[:rows_n]
+        for k in ks:
+            name = f"wide_k{k}{tag}"
+            wide = lambda b=b, adm=adm, k=k: flush.blocked_topk_wide(b, adm, rows_n, k)
+            profiled(name, wide)
+            if not tag:
+                out[f"{name}_kernel_us"] = kernel_times(wide)
+            out[f"{name}_plain_ms"] = time_ms(lambda b=b, adm=adm, k=k: flush._blocked_topk_plain(b, adm, rows_n, k))
+            out[f"{name}_library_ms"] = time_ms(lambda k=k: torch.topk(dense, k))
+    del batch, small, admitted, dense
+    # K17: a minute window of 1,048,576 rows, 262,144 asked rows.
+    cfg, a = nodes.MINUTE_CFG, 1 << 18
+    now = 7_200_000 + 431
+    upto = now - now % 1000
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    nb, wlen = cfg.sample_count, cfg.window_len_ms
+    age = torch.randint(-1, 2 * nb + 2, (rows_n, nb), generator=gen, device=dev, dtype=i32)
+    ws = (now - now % wlen) - age * wlen
+    counts = torch.randint(0, 40, (rows_n, nb, NUM_EVENTS), generator=gen, device=dev, dtype=i32)
+    counts.mul_((torch.rand((rows_n, nb), generator=gen, device=dev) < 0.5).to(i32)[:, :, None])
+    state = ma.MetricArrayState(counts, torch.ones((rows_n, nb), device=dev, dtype=i32),
+                                torch.where((age < 0) | (ws < 0), torch.full_like(ws, cfg.empty_ws), ws).to(i32)
+                                .contiguous())
+    idx = torch.randint(0, rows_n, (a,), generator=gen, device=dev, dtype=i32)
+    for seconds in (1, 60):
+        name = f"k17_{seconds}s"
+        read = lambda seconds=seconds: ma.bucket_read(cfg, state, idx, upto - 1000 * seconds, upto, now)
+        profiled(name, read)
+        out[f"{name}_copies_per_call"] = copies_per_call(read)
+        out[f"{name}_records"] = int(read().shape[0])
+        out[f"{name}_plain_ms"] = time_ms(
+            lambda seconds=seconds: ma.bucket_read_plain(cfg, state, idx, upto - 1000 * seconds, upto, now))
+    del state, counts, idx
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -76,6 +76,32 @@ def _device_events(fn, calls: int, tries: int) -> dict:
     raise RuntimeError(f"torch.profiler recorded no device kernel in {tries} sessions of {calls} calls")
 
 
+def copies_per_call(fn, calls: int = 20, tries: int = 3) -> dict:
+    """Device copies a call of ``fn`` by kind ("Memcpy DtoH", "Memcpy
+    HtoD", ...), from torch.profiler over ``calls`` calls (each count
+    rounded up). A session that records no device kernel is repeated, up to
+    ``tries``; then RuntimeError."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if any(not n.lower().startswith(("memcpy", "memset")) for n in names):
+            kinds = {}
+            for n in names:
+                if n.lower().startswith("memcpy"):
+                    kind = " ".join(n.split()[:2])
+                    kinds[kind] = kinds.get(kind, 0) + 1
+            return {k: -(-v // calls) for k, v in kinds.items()}
+    raise RuntimeError(f"torch.profiler recorded no device kernel in {tries} sessions of {calls} calls")
+
+
 def device_profile(fn, calls: int = 20, tries: int = 3):
     """(kernels, memsets, device ms) of one call of ``fn``, from
     torch.profiler over ``calls`` calls: for each kernel or memset name,

@@ -39,6 +39,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass
+from operator import itemgetter
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -155,6 +156,11 @@ class TraceTag(NamedTuple):
     t0: float
 
 
+# A tag's fields by position, for reads of a chunk's tags without a Python
+# frame a tag.
+_SAMPLED, _T0 = itemgetter(1), itemgetter(2)
+
+
 @dataclass(slots=True)
 class AdmissionRecord:
     """One sampled admission's verdict provenance."""
@@ -208,16 +214,19 @@ class AdmissionRecord:
 class BulkTraceGroups:
     """The bulk groups of one chunk to trace, as columns: one list a field,
     a group's entries at one index, so that a chunk of thousands of groups
-    makes a few lists and no object a group."""
+    makes a few lists and no object a group. The verdicts are the groups'
+    rows one after another (``admitted`` and ``reasons``, one array each,
+    as the chunk's verdict columns hold them), ``lens`` rows a group."""
 
-    __slots__ = ("tags", "resources", "origins", "context_names", "admitted", "reasons", "degraded", "provenance",
-                 "settled_match")
+    __slots__ = ("tags", "resources", "origins", "context_names", "admitted", "reasons", "lens", "degraded",
+                 "provenance", "settled_match")
 
     def __init__(self, tags: List[TraceTag], resources: List[str], origins: List[str], context_names: List[str],
-                 admitted: list, reasons: list, degraded: List[bool], provenance: List[str],
+                 admitted, reasons, lens, degraded: List[bool], provenance: List[str],
                  settled_match: Optional[List[Optional[bool]]] = None) -> None:
         self.tags, self.resources, self.origins, self.context_names = tags, resources, origins, context_names
-        self.admitted, self.reasons, self.degraded, self.provenance = admitted, reasons, degraded, provenance
+        self.admitted, self.reasons, self.lens = admitted, reasons, lens
+        self.degraded, self.provenance = degraded, provenance
         self.settled_match = [None] * len(tags) if settled_match is None else settled_match
 
     def __len__(self) -> int:
@@ -229,7 +238,7 @@ class BulkTraceGroups:
             return [col[i] for i in idx]
 
         return BulkTraceGroups(pick(self.tags), pick(self.resources), pick(self.origins), pick(self.context_names),
-                               [], [], pick(self.degraded), pick(self.provenance), pick(self.settled_match))
+                               None, None, None, pick(self.degraded), pick(self.provenance), pick(self.settled_match))
 
 
 class _BulkRecords:
@@ -430,8 +439,8 @@ class AdmissionTracer:
         inbound identity, so each record is trace-rooted unless the
         SUBMITTING call carried one (then all rows share its trace)."""
         self.record_bulk_groups(
-            BulkTraceGroups([tag], [resource], [origin], [context_name], [admitted], [reasons], [degraded],
-                            [provenance], [settled_match]),
+            BulkTraceGroups([tag], [resource], [origin], [context_name], np.asarray(admitted, dtype=bool),
+                            np.asarray(reasons), np.array([len(admitted)]), [degraded], [provenance], [settled_match]),
             flush_seq, end_pc,
         )
 
@@ -449,11 +458,10 @@ class AdmissionTracer:
         ng = len(groups)
         if cap <= 0 or ng == 0:
             return
-        lens = np.fromiter(map(len, groups.admitted), dtype=np.int64, count=ng)
-        adm = np.concatenate(groups.admitted).astype(bool, copy=False)
+        lens, adm, rsn = groups.lens, groups.admitted, groups.reasons
         gidx = np.repeat(np.arange(ng), lens)
         starts = np.cumsum(lens) - lens
-        sampled = np.fromiter((t.sampled for t in groups.tags), dtype=bool, count=ng)
+        sampled = np.fromiter(map(_SAMPLED, groups.tags), dtype=bool, count=ng)
 
         def first(mask: np.ndarray, want: np.ndarray) -> np.ndarray:
             # The first ``cap`` rows of ``mask`` in each group that wants them.
@@ -468,17 +476,16 @@ class AdmissionTracer:
         rows = rows[np.lexsort((rows, kind, gidx[rows]))]
         if rows.size == 0:
             return
-        rsn = np.concatenate(groups.reasons)
         used, gi = np.unique(gidx[rows], return_inverse=True)
         kept = groups.select(used.tolist())
-        rooted = np.fromiter((t.parent is None for t in kept.tags), dtype=bool, count=used.size)[gi]
+        rooted = np.array([t.parent is None for t in kept.tags], dtype=bool)[gi]
         # A record draws a trace id (4 words) unless it has a parent, then a
         # span id (2 words): one getrandbits call yields the same words in
         # the same order, lowest first.
         n_words = np.where(rooted, 6, 2)
         total = int(n_words.sum())
         words = np.frombuffer(_rand.getrandbits(32 * total).to_bytes(4 * total, "little"), dtype="<u4")
-        t0 = np.fromiter((t.t0 for t in kept.tags), dtype=np.float64, count=used.size)
+        t0 = np.fromiter(map(_T0, kept.tags), dtype=np.float64, count=used.size)
         lat = np.maximum(0.0, (end_pc - t0) * 1e3)[gi]
         batch = _BulkRecords(kept, gi, adm[rows], rsn[rows], rooted, words, np.cumsum(n_words) - n_words, lat,
                              int(flush_seq))

@@ -11,14 +11,19 @@ writes one line per key per interval to a size-rolled
 The engine produces blocked verdicts a flush at a time, so the aggregation
 is a dict update per flush; completed seconds are written when a later
 second rolls in (or on :meth:`flush`). Rolling keeps ``max_backup_index``
-shifted backups like EagleEyeRollingFileAppender.
+shifted backups like EagleEyeRollingFileAppender. A flush's bulk groups
+hand their items over as columns (:class:`BlockColumns`), which
+:meth:`BlockLogger.log_parts` takes beside item tuples in one call.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from typing import Dict, Iterable, List, Optional, Tuple
+from itertools import repeat
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
 
 from sentinel_tpu_torch.utils.clock import Clock, default_clock
 from sentinel_tpu_torch.utils.record_log import log_dir, record_log
@@ -27,6 +32,30 @@ FILE_NAME = "sentinel-block.log"
 
 # (resource, exception_name, rule_limit_app, origin)
 BlockKey = Tuple[str, str, str, str]
+
+class BlockColumns:
+    """Block-log items as columns: item ``j`` is the key (resources[g],
+    names[r], limit app, origins[g]) with g = ``group[j]`` and r =
+    ``reason[j]``, and the count ``counts[j]``. The limit apps are a list,
+    or None where every item's is "default". Key parts are strings."""
+
+    __slots__ = ("resources", "origins", "names", "group", "reason", "limit_apps", "counts")
+
+    def __init__(self, resources: Sequence[str], origins: Sequence[str], names: Sequence[str], group: np.ndarray,
+                 reason: np.ndarray, limit_apps: Optional[List[str]], counts: np.ndarray) -> None:
+        self.resources, self.origins, self.names = resources, origins, names
+        self.group, self.reason, self.limit_apps, self.counts = group, reason, limit_apps, counts
+
+    def __len__(self) -> int:
+        return len(self.counts)
+
+    def keys(self):
+        """The items' keys, in order."""
+        g = self.group.tolist()
+        las = repeat("default") if self.limit_apps is None else self.limit_apps
+        return zip(map(self.resources.__getitem__, g), map(self.names.__getitem__, self.reason.tolist()), las,
+                   map(self.origins.__getitem__, g))
+
 
 _live_loggers: "weakref.WeakSet[BlockLogger]" = None  # type: ignore[assignment]
 
@@ -126,6 +155,13 @@ class BlockLogger:
         ``(*key_parts, count)`` — key arity is free (the block log uses
         4 parts; the cluster stat log uses whatever the tag needs,
         StatLogger.stat(...) style)."""
+        self.log_parts([items], now_wall_ms)
+
+    def log_parts(self, parts: Sequence[Union[Iterable[Tuple], BlockColumns]],
+                  now_wall_ms: Optional[int] = None) -> None:
+        """:meth:`log_batch` over several parts in order, in one interval
+        and one lock acquisition: each part is an iterable of item tuples or
+        a :class:`BlockColumns` (the engine's bulk groups)."""
         now = self.clock.wall_ms() if now_wall_ms is None else now_wall_ms
         aligned = now - now % self.interval_ms
         with self._lock:
@@ -133,11 +169,19 @@ class BlockLogger:
                 self._write_locked()
             if self._cur_sec is None or aligned > self._cur_sec:
                 self._cur_sec = aligned
-            for item in items:
-                key, count = tuple(map(str, item[:-1])), int(item[-1])
-                if key not in self._entries and len(self._entries) >= self.max_entry_count:
-                    continue  # maxEntryCount cap: drop new keys, keep hot ones
-                self._entries[key] = self._entries.get(key, 0) + count
+            entries = self._entries
+            room = self.max_entry_count - len(entries)
+            for part in parts:
+                if isinstance(part, BlockColumns):
+                    pairs = zip(part.keys(), part.counts.tolist())
+                else:
+                    pairs = ((tuple(map(str, item[:-1])), int(item[-1])) for item in part)
+                for key, count in pairs:
+                    if key in entries:
+                        entries[key] += count
+                    elif room > 0:  # maxEntryCount cap: drop new keys, keep hot ones
+                        entries[key] = count
+                        room -= 1
 
     def stat(self, *key_parts: str, count: int = 1,
              now_wall_ms: Optional[int] = None) -> None:

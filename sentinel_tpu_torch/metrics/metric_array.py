@@ -43,7 +43,8 @@ is copied).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+import threading
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -360,8 +361,8 @@ def bucket_windows(cfg: MetricArrayConfig, state: MetricArrayState, now: int):
 BUCKET_RECORD = 2 + NUM_EVENTS  # bucket_read's record: the asked row's index, the second, the counts
 
 
-def bucket_read(cfg: MetricArrayConfig, state: MetricArrayState, rows: torch.Tensor, begin: int, upto: int,
-                now: int) -> torch.Tensor:
+def bucket_read(cfg: MetricArrayConfig, state: MetricArrayState, rows: torch.Tensor, begin: int,
+                upto: int, now: int) -> torch.Tensor:
     """The metric timer's read: for each asked row (``rows``, int32 [A],
     clipped into ``[0, R)``) and each second ``sec`` of ``[begin, upto)``
     (step ``cfg.window_len_ms``), the cell of bucket ``(sec // wlen) % B``
@@ -369,11 +370,12 @@ def bucket_read(cfg: MetricArrayConfig, state: MetricArrayState, rows: torch.Ten
     starts at ``sec``, and holds a nonzero count. Returns int32
     [n, BUCKET_RECORD] records ``(index into rows, sec, counts...)``, in no
     set order on the card, by (index, sec) here. On the card K17 writes
-    them in one launch (two when they outgrow a steady pull's buffer) and
-    two copies bring back the count and the records; the result lies on
-    the host."""
+    them in one launch (two when they outgrow a steady pull's buffer) into
+    the device's :class:`BucketReader`, kept from read to read, and one copy
+    brings back the count and the records (two when they outgrow the
+    reader's head); the result lies on the host."""
     if state.counts.is_cuda:
-        return _bucket_read_cuda(cfg, state, rows, begin, upto, now)
+        return _default_reader(state.counts.device).read(cfg, state, rows, begin, upto, now)
     return bucket_read_plain(cfg, state, rows, begin, upto, now)
 
 
@@ -408,41 +410,131 @@ def bucket_read_plain(cfg, state, rows, begin, upto, now) -> torch.Tensor:
 def _br_lib() -> ctypes.CDLL:
     lib = cuda_build.load("bucket_read")
     if not getattr(lib, "_typed", False):
-        lib.bucket_read.argtypes = [_P] * 3 + [_I] * 9 + [_P] * 3
+        lib.bucket_read.argtypes = [_P] * 3 + [_I] * 9 + [_P] * 2 + [_I, _P, ctypes.c_longlong, _P]
         lib.bucket_read.restype = _I
         lib._typed = True
     return lib
 
 
-def _bucket_read_cuda(cfg, state, rows, begin, upto, now, cap: Optional[int] = None) -> torch.Tensor:
-    """K17. The records buffer holds ``cap`` records: by default what a
-    steady pull can give (one second of every asked row, twice over, and
-    65,536 more), not the asked cells' worst case (at 1,048,576 rows and 59
-    s some 2 GB). A read that finds more launches once again with room for
-    exactly what it found."""
-    check_window(cfg, state, "state")
-    a = rows.shape[0]
-    _i32(rows, "rows", (a,))
-    if state.n_rows == 0:
-        raise IndexError("bucket_read: rows asked of a window with no rows")
-    n_sec = _read_seconds(cfg, begin, upto)
-    if cap is None:
-        cap = min(a * n_sec, 2 * a + 65536)
-    dev = state.counts.device
-    while True:
-        # One allocation: the count, then the records.
-        buf = torch.empty(1 + cap * BUCKET_RECORD, dtype=torch.int32, device=dev)
-        count, out = buf[:1], buf[1:]
-        cuda_build.check(
-            _br_lib().bucket_read(
-                state.counts.data_ptr(), state.window_start.data_ptr(), rows.data_ptr(), state.n_rows,
-                cfg.sample_count, cfg.window_len_ms, cfg.interval_ms, a, n_sec, int(begin), int(now), cap,
-                out.data_ptr(), count.data_ptr(), stream_of(state.counts),
-            ),
-            "bucket_read",
-        )
-        bucket_read.launches += 1
-        n = int(count.item())
-        if n <= cap:
-            return out[: n * BUCKET_RECORD].view(n, BUCKET_RECORD).cpu()
-        cap = n
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, int(v) - 1).bit_length()
+
+
+class BucketReader:
+    """K17's buffers, kept from read to read (:func:`bucket_read` keeps one
+    a device, under its lock): on the device the two counters and the
+    records, on the host a pinned buffer for the counters and the first
+    ``head`` records. A read is one C
+    call (one launch, no memset, and the copy back of ``2 + head *
+    BUCKET_RECORD`` int32 queued behind it), then one event wait; ``head``
+    follows the last read's count (a power of two, at least
+    :data:`HEAD_MIN`), so that a steady pull's records come back in the one
+    copy. A count above ``head`` copies the rest in a second copy; one
+    above the device buffer's ``cap`` launches again with room for all
+    (``cap`` by default what a steady pull can give: one second of every
+    asked row, twice over, and 65,536 more, not the asked cells' worst
+    case, at 1,048,576 rows and 59 s some 2 GB). A read that raises drops
+    the device buffer, whose counters it may have left counted."""
+
+    HEAD_MIN = 1024
+
+    def __init__(self) -> None:
+        self.head = self.HEAD_MIN
+        self._lock = threading.Lock()
+        self._dev: Optional[torch.Tensor] = None  # int32 [2 + cap * BUCKET_RECORD], the counters in front
+        self._host: Optional[torch.Tensor] = None  # pinned int32, the counters and the first records
+        self._host_np: Optional[np.ndarray] = None  # its numpy view
+        self._parity = 0  # the counter this read counts in; the launch zeroes the other
+        self._event: Optional[torch.cuda.Event] = None
+
+    def read(self, cfg: MetricArrayConfig, state: MetricArrayState, rows: torch.Tensor, begin: int, upto: int,
+             now: int, cap: Optional[int] = None) -> torch.Tensor:
+        # The window's tensors come call after call, updated in place.
+        cuda_build.check_once(f"bucket_read/{cfg.sample_count}", tuple(state),
+                              lambda: check_window(cfg, state, "state"))
+        a = rows.shape[0]
+        _i32(rows, "rows", (a,))
+        if state.n_rows == 0:
+            raise IndexError("bucket_read: rows asked of a window with no rows")
+        n_sec = _read_seconds(cfg, begin, upto)
+        if cap is None:
+            cap = min(a * n_sec, 2 * a + 65536)
+        if a * n_sec == 0:
+            return torch.empty((0, BUCKET_RECORD), dtype=torch.int32)
+        dev = state.counts.device
+        stream = torch.cuda.current_stream(dev)
+        lib = _br_lib()
+        with self._lock:  # on the current stream, as the launch and the copies
+            try:
+                return self._read(lib, cfg, state, rows, a, n_sec, int(begin), int(now), cap, dev, stream)
+            except BaseException:
+                self._dev = None
+                raise
+
+    def _read(self, lib, cfg, state, rows, a, n_sec, begin, now, cap, dev, stream) -> torch.Tensor:
+        st = stream.cuda_stream
+        rec = BUCKET_RECORD
+        while True:
+            if self._dev is None or self._dev.device != dev or self._dev.numel() < 2 + cap * rec:
+                self._dev = torch.zeros(2 + cap * rec, dtype=torch.int32, device=dev)
+                self._parity = 0
+            p, buf = self._parity, self._dev
+            m = 2 + min(self.head, cap) * rec
+            host = self._pinned(m)
+            ptr = buf.data_ptr()
+            cuda_build.check(
+                lib.bucket_read(
+                    state.counts.data_ptr(), state.window_start.data_ptr(), rows.data_ptr(), state.n_rows,
+                    cfg.sample_count, cfg.window_len_ms, cfg.interval_ms, a, n_sec, begin, now, cap,
+                    ptr + 8, ptr, p, host.data_ptr(), m, st,
+                ),
+                "bucket_read",
+            )
+            bucket_read.launches += 1
+            self._parity = 1 - p
+            self._wait(stream)
+            n = int(self._host_np[p])
+            if n <= cap:
+                break
+            cap = n
+        need = 2 + n * rec
+        if need > m:  # more records than the head: the rest in a second copy
+            host = self._pinned(need, keep=m)
+            host[m:need].copy_(buf[m:need], non_blocking=True)
+            self._wait(stream)
+        self.head = max(self.HEAD_MIN, _pow2_at_least(n))
+        return torch.from_numpy(self._host_np[2:need].reshape(n, rec).copy())
+
+    def _pinned(self, size: int, keep: int = 0) -> torch.Tensor:
+        """The pinned host buffer, grown to ``size`` int32 (its first
+        ``keep`` kept)."""
+        host = self._host
+        if host is None or host.numel() < size:
+            grown = torch.empty(2 + max(self.head, _pow2_at_least(size // BUCKET_RECORD)) * BUCKET_RECORD,
+                                dtype=torch.int32, pin_memory=True)
+            if keep:
+                grown[:keep].copy_(host[:keep])
+            host = self._host = grown
+            self._host_np = grown.numpy()
+        return host
+
+    def _wait(self, stream: torch.cuda.Stream) -> None:
+        """Wait for the copies queued on ``stream``."""
+        if self._event is None:
+            self._event = torch.cuda.Event()
+        self._event.record(stream)
+        self._event.synchronize()
+
+
+_readers: Dict[torch.device, BucketReader] = {}
+_readers_lock = threading.Lock()
+
+
+def _default_reader(device: torch.device) -> BucketReader:
+    with _readers_lock:
+        r = _readers.get(device)
+        if r is None:
+            r = _readers[device] = BucketReader()
+        return r
+
+

@@ -28,8 +28,9 @@ both); ``drift`` is the signed net over-admit of the speculative tier.
 Every column is attributed to each op's submit-ts second.
 
 On the card, :meth:`MetricTimer.collect` reads the minute window through
-K17 (``metric_array.bucket_read``, ``csrc/bucket_read.cu``): one launch
-and two copies back a pull, for the asked rows' seconds only.
+K17 (``metric_array.bucket_read``, ``csrc/bucket_read.cu``): one launch,
+no memset and one copy back a steady pull, for the asked rows' seconds
+only.
 """
 
 from __future__ import annotations
@@ -311,7 +312,8 @@ class MetricTimer:
     read the past seconds' buckets from the engine's minute window for
     every resource (+ the global inbound node) and append them to the
     metric log. The read is :func:`metric_array.bucket_read` (K17 on the
-    card), never a copy of the whole window."""
+    card, its buffers kept from pull to pull), never a copy of the whole
+    window."""
 
     def __init__(self, engine, writer: Optional[MetricWriter] = None, interval_sec: float = 1.0):
         self.engine = engine

@@ -68,7 +68,7 @@ import torch
 
 from sentinel_tpu_torch.core import errors as E
 from sentinel_tpu_torch.metrics.admission_trace import AdmissionTracer, BulkTraceGroups
-from sentinel_tpu_torch.metrics.block_log import BlockLogger
+from sentinel_tpu_torch.metrics.block_log import BlockColumns, BlockLogger
 from sentinel_tpu_torch.metrics.events import MetricEvent
 from sentinel_tpu_torch.metrics.extension import MetricExtensionProvider
 from sentinel_tpu_torch.metrics.provenance import ResourceProvenance
@@ -283,7 +283,7 @@ class _PendingFetch:
             span.quarantined = True
             t = time.perf_counter()
             self._engine.telemetry.settle(span, t, t)
-        self._engine._note_blocked_items(fo.fill_degraded(entries, exits, bulk, bulk_exits))
+        self._engine._note_blocked_items([fo.fill_degraded(entries, exits, bulk, bulk_exits)])
         self._engine._post_flush(entries)
 
     def quarantine(self) -> None:
@@ -734,7 +734,7 @@ class Engine:
         # their blocked verdicts' items, which _post_flush writes outside
         # the flush lock.
         self.block_log = BlockLogger(clock=self.clock)
-        self._blocked_items: List[tuple] = []
+        self._blocked_items: list = []  # parts: item tuples or BlockColumns
         self._blocked_lock = threading.Lock()
         # Baseline of the per-span intern-cache deltas: (a weakref to the
         # param index the totals came from, hits, misses); a reload swaps
@@ -780,11 +780,13 @@ class Engine:
         # counts, drained by the metric timer into the v2 line columns.
         self.resource_metrics = ResourceProvenance()
 
-    def _note_blocked_items(self, items: Sequence[tuple]) -> None:
-        """Queue block-log items of a fill for the next :meth:`_post_flush`."""
-        if items:
+    def _note_blocked_items(self, parts: list) -> None:
+        """Queue a fill's block-log items, in parts (item tuples or
+        :class:`BlockColumns`), for the next :meth:`_post_flush`."""
+        parts = [p for p in parts if len(p)]
+        if parts:
             with self._blocked_lock:
-                self._blocked_items.extend(items)
+                self._blocked_items.extend(parts)
 
     def _post_flush(self, entries: Sequence["_EntryOp"]) -> None:
         """The work after a flush, outside the flush lock (disk IO and
@@ -792,9 +794,9 @@ class Engine:
         verdicts go to the block log, and entries that were blocked hand
         their held cluster tokens back."""
         with self._blocked_lock:
-            items, self._blocked_items = self._blocked_items, []
-        if items:
-            self.block_log.log_batch(items)
+            parts, self._blocked_items = self._blocked_items, []
+        if parts:
+            self.block_log.log_parts(parts)
         self.block_log.maybe_flush()
         _release_blocked_tokens(entries)
 
@@ -1078,7 +1080,7 @@ class Engine:
                     # into the tier's host mirror (runtime/sketch.py).
                     self.sketch.fold_host_chunk(entries, bulk_e, self.flow_index, self.param_index,
                                                 self.clock.now_ms())
-                self._note_blocked_items(fo.fill_degraded(entries, exits, bulk_e, bulk_x))
+                self._note_blocked_items([fo.fill_degraded(entries, exits, bulk_e, bulk_x)])
         if entries is None:
             return self.flush()  # recovered while this caller queued
         self._post_flush(entries)
@@ -2348,7 +2350,9 @@ class Engine:
         :class:`_StagingSet`) and its one copy to the device. Returns the
         FlushBatch, the shaping, param and sketch batches (None where the
         chunk has none), the host-known modes, the sketch decay flag and
-        (k, kd). The staging sets taken are appended to ``staging``."""
+        (k, kd) and a copy of the bulk rows' encoded acquire column (the fill
+        sums the blocked acquire from it). The staging sets taken are
+        appended to ``staging``."""
         _check_ts(entries, exits, bulk, bulk_exits)
         # Powers of two: shard-divisible on a mesh once at least n_shards.
         n = max(_pad_pow2(len(entries) + sum(g.n for g in bulk), 8), self._n_shards)
@@ -2431,6 +2435,7 @@ class Engine:
             for j, dg in enumerate(g.d_gids[:kd]):
                 e_dgid[sl, j] = dg
             off += g.n
+        bulk_acq = v["e_acquire"][ne:off].copy()
         x_dgid = v["x_dgid"]
         nx = len(exits)
         if nx:
@@ -2465,7 +2470,7 @@ class Engine:
         shaping = ShapingBatch(*(dev[("sh", f)] for f in ShapingBatch._fields)) if shaping_np is not None else None
         param = ParamBatch(*(dev[("pa", f)] for f in ParamBatch._fields)) if param_np is not None else None
         sk_batch = SketchBatch(ids=dev[("sk", "ids")], w=dev[("sk", "w")]) if sk_np is not None else None
-        return batch, shaping, sh_rounds, param, p_rounds, sk_batch, sk_decay, k, kd
+        return batch, shaping, sh_rounds, param, p_rounds, sk_batch, sk_decay, k, kd, bulk_acq
 
     def _encode_shaping(self, entries, bulk, k: int, findex: FlowIndex) -> Tuple[Optional[Dict[str, np.ndarray]], int]:
         """The (entry, slot) pairs governed by shaping controllers, as the
@@ -2653,7 +2658,7 @@ class Engine:
         t_enc0 = time.perf_counter()
         now = self.clock.now_ms()
         staging: List[tuple] = []
-        batch, shaping, sh_rounds, param, p_rounds, sk_batch, sk_decay, k, kd = self._encode_chunk(
+        batch, shaping, sh_rounds, param, p_rounds, sk_batch, sk_decay, k, kd, bulk_acq = self._encode_chunk(
             entries, exits, bulk, bulk_exits, findex, pindex, now, staging)
         # The autotuner's K10 pick for this chunk, consumed at once (flushes
         # serialize on the flush lock), so that it never lands on a later
@@ -2781,7 +2786,7 @@ class Engine:
                 tier.on_drain(cols[nxt], cols[nxt + 1], self.clock.now_ms())
             self._note_blocked_items(self._fill_results(
                 cols, entries, bulk, findex, dindex, auth_rules, k, kd, blk_topk=result.blk_rows is not None,
-                exits=exits, bulk_exits=bulk_exits, flush_seq=trace_seq))
+                exits=exits, bulk_exits=bulk_exits, flush_seq=trace_seq, bulk_acq=bulk_acq))
 
         if defer:
             if span is not None:
@@ -2863,7 +2868,7 @@ class Engine:
             span.quarantined = True
             t = time.perf_counter()
             self.telemetry.settle(span, t, t)
-        self._note_blocked_items(fo.fill_degraded(entries, exits, bulk, bulk_exits))
+        self._note_blocked_items([fo.fill_degraded(entries, exits, bulk, bulk_exits)])
         if defer:
             self._post_flush(entries)
         return None
@@ -2990,12 +2995,14 @@ class Engine:
     def _fill_results(self, got, entries, bulk, findex: FlowIndex, dindex: DegradeIndex,
                       auth_rules: Dict[str, AuthorityRule], k: int, kd: int, blk_topk: bool = False,
                       exits: Sequence["_ExitOp"] = (), bulk_exits: Sequence["_BulkExitOp"] = (),
-                      flush_seq: int = -1) -> List[tuple]:
+                      flush_seq: int = -1, *, bulk_acq: np.ndarray) -> list:
         """Fill one chunk's verdicts from its copied-back columns. A
         speculatively decided op or group keeps its caller-visible verdict:
         the settled one reconciles the tier's mirrors instead. Writes the
         admission trace's records, the provenance ledger's serve notes and
-        the metric extensions' calls; returns the chunk's block-log items."""
+        the metric extensions' calls; returns the chunk's block-log items
+        in parts (:meth:`_block_items_and_extensions`). ``bulk_acq`` is the
+        bulk rows' acquire column as encoded."""
         admitted, reason, slot_ok, wait_ms, sys_type, dslot_ok = got[:6]
         if blk_topk:
             self.last_blocked_topk = (got[6], got[7])
@@ -3063,53 +3070,90 @@ class Engine:
                 op.trace = None
         if serve_acc:
             self.resource_metrics.note_serves_batch(serve_acc)
-        off = len(entries)
-        starts: List[int] = []  # each group's first row in the chunk's columns
-        traced: List[BulkOp] = []  # the groups' bounded records, written in one pass below
-        traced_spec: List[bool] = []
-        for g in bulk:
-            sl = slice(off, off + g.n)
-            starts.append(off)
-            off += g.n
-            if spec_tier is not None and g.spec_admitted is not None:
-                spec_tier.reconcile_bulk(g, np.array(admitted[sl]), np.array(reason[sl], dtype=np.int32),
-                                         dev_slot_ok=np.asarray(slot_ok[sl]), dev_sys_type=np.asarray(sys_type[sl]))
-                g._pending = None
-                if g.trace is not None:
-                    traced.append(g)
-                    traced_spec.append(True)
-                continue
-            g.admitted = np.array(admitted[sl])
-            g.reason = np.array(reason[sl], dtype=np.int32)
-            g.wait_ms = np.array(wait_ms[sl])
+        b0 = len(entries)
+        # Each group's first row in the chunk's columns, and its end.
+        ends = np.cumsum([b0] + [g.n for g in bulk]).tolist()
+        starts, ends = ends[:-1], ends[1:]
+        s = ends[-1] if bulk else b0
+        tags = [g.trace for g in bulk]
+        spec_at: List[int] = []  # the speculatively decided groups
+        if spec_tier is not None:
+            spec_at = [i for i, g in enumerate(bulk) if g.spec_admitted is not None]
+        spec_set = frozenset(spec_at)
+        for i, (g, lo, hi) in enumerate(zip(bulk, starts, ends)):
+            g.trace = None
             g._pending = None
-            if g.trace is not None:
-                traced.append(g)
-                traced_spec.append(False)
-        if traced:
-            tracer.record_bulk_groups(BulkTraceGroups(
-                [g.trace for g in traced], [g.resource for g in traced], [g.origin for g in traced],
-                [g.context_name for g in traced], [g._admitted for g in traced], [g._reason for g in traced],
-                [spec and g.spec_degraded for g, spec in zip(traced, traced_spec)],
-                ["speculative" if spec else "" for spec in traced_spec],
-            ), flush_seq, trace_end)
-            for g in traced:
-                g.trace = None
+            if spec_at and i in spec_set:
+                spec_tier.reconcile_bulk(g, np.array(admitted[lo:hi]), np.array(reason[lo:hi], dtype=np.int32),
+                                         dev_slot_ok=np.asarray(slot_ok[lo:hi]),
+                                         dev_sys_type=np.asarray(sys_type[lo:hi]))
+                continue
+            # Views of the chunk's columns, which are fresh arrays
+            # (``_unpack``): no copy a group.
+            g._admitted = admitted[lo:hi]
+            g._reason = reason[lo:hi]
+            g._wait_ms = wait_ms[lo:hi]
+        # The bulk rows' verdicts as the callers see them: the chunk's
+        # columns, a speculative group's own verdicts in its rows.
+        adm_b, rsn_b = admitted[b0:s], reason[b0:s]
+        filled = None  # rows of groups with verdicts: all but a speculative group without one
+        if spec_at:
+            adm_b, rsn_b = adm_b.copy(), rsn_b.copy()
+            for gi in spec_at:
+                g = bulk[gi]
+                lo, hi = starts[gi] - b0, starts[gi] - b0 + g.n
+                if g._admitted is None:
+                    if filled is None:
+                        filled = np.ones(s - b0, dtype=bool)
+                    filled[lo:hi] = False
+                else:
+                    adm_b[lo:hi] = g._admitted
+                    rsn_b[lo:hi] = g._reason
+        if tags.count(None) < len(tags):
+            self._trace_bulk(tracer, bulk, tags, spec_at, starts, b0, s, adm_b, rsn_b, flush_seq, trace_end)
         if not blk_topk and self._blk_topk_k > 0:
             # The sharded step has no device top-K: recount the blocked
             # weight from the verdicts just filled, on the host.
             self._fold_blocked_recount(entries, bulk)
-        return self._block_items_and_extensions(entries, bulk, starts, exits, bulk_exits, slot_ok, dslot_ok, findex,
-                                                dindex, auth_rules)
+        return self._block_items_and_extensions(entries, bulk, starts, b0, adm_b, rsn_b, filled, bulk_acq, exits,
+                                                bulk_exits, slot_ok, dslot_ok, findex, dindex, auth_rules)
 
-    def _block_items_and_extensions(self, entries, bulk, starts: List[int], exits, bulk_exits, slot_ok, dslot_ok,
-                                    findex: FlowIndex, dindex: DegradeIndex,
-                                    auth_rules: Dict[str, AuthorityRule]) -> List[tuple]:
+    @staticmethod
+    def _trace_bulk(tracer: AdmissionTracer, bulk, tags: list, spec_at: List[int], starts: List[int], b0: int,
+                    end: int, adm_b: np.ndarray, rsn_b: np.ndarray, flush_seq: int, trace_end: float) -> None:
+        """The bounded trace records of one chunk's bulk groups, from the
+        chunk's verdict columns: one call for the chunk."""
+        if spec_at:
+            spec = np.zeros(len(bulk), dtype=bool)
+            spec[spec_at] = True
+            spec = spec.tolist()
+            degraded = [sp and g.spec_degraded for g, sp in zip(bulk, spec)]
+            provenance = ["speculative" if sp else "" for sp in spec]
+        else:
+            degraded, provenance = [False] * len(bulk), [""] * len(bulk)
+        lens = np.diff(np.asarray(starts + [end], dtype=np.int64))
+        cols = [tags, [g.resource for g in bulk], [g.origin for g in bulk], [g.context_name for g in bulk]]
+        if None in tags:
+            # Some groups untraced (the batch window's): the traced ones and their rows.
+            at = [i for i, t in enumerate(tags) if t is not None]
+            rows = np.repeat(np.array([t is not None for t in tags]), lens)
+            cols = [[c[i] for i in at] for c in cols]
+            adm_b, rsn_b, lens = adm_b[rows], rsn_b[rows], lens[at]
+            degraded, provenance = [degraded[i] for i in at], [provenance[i] for i in at]
+        tracer.record_bulk_groups(BulkTraceGroups(*cols, adm_b, rsn_b, lens, degraded, provenance), flush_seq,
+                                  trace_end)
+
+    def _block_items_and_extensions(self, entries, bulk, starts: List[int], b0: int, adm_b: np.ndarray,
+                                    rsn_b: np.ndarray, filled: Optional[np.ndarray], bulk_acq: np.ndarray, exits,
+                                    bulk_exits, slot_ok, dslot_ok, findex: FlowIndex, dindex: DegradeIndex,
+                                    auth_rules: Dict[str, AuthorityRule]) -> list:
         """The block log's items of one filled chunk (LogSlot) and the
         metric extensions' calls (MetricEntryCallback / MetricExitCallback),
-        a flush at a time. A bulk group's blocked rows aggregate per
-        (reason, limit app): flow and degrade blocks take the limit app of
-        each row's first failing slot's rule, as the singles do."""
+        a flush at a time. Returns the items in parts: the singles' tuples,
+        then the bulk groups' as :class:`BlockColumns`. A bulk group's
+        blocked rows aggregate per (reason, limit app): flow and degrade
+        blocks take the limit app of each row's first failing slot's rule,
+        as the singles do."""
         exts = MetricExtensionProvider.get_extensions()
         items: List[tuple] = []
         for op in entries:
@@ -3128,58 +3172,13 @@ class Engine:
                 err = E.error_for_verdict(v.reason, op.resource, limit_type=v.limit_type, slot_name=v.slot_name,
                                           rule=v.blocked_rule)
                 MetricExtensionProvider.on_blocked(op.resource, op.acquire, op.origin, err, op.args)
-        filled = [i for i, g in enumerate(bulk) if g._admitted is not None]
-        if filled:
-            groups = [bulk[i] for i in filled]
-            # One pass over the chunk's bulk rows: the blocked acquire summed
-            # per (group, reason), in the order of the groups and, within a
-            # group, of the reasons, as a pass a group would take them.
-            adm = np.concatenate([g._admitted for g in groups])
-            rsn = np.concatenate([g._reason for g in groups])
-            acq = np.concatenate([g.acquire for g in groups]).astype(np.int64)
-            lens = np.fromiter((g.n for g in groups), dtype=np.int64, count=len(groups))
-            first = np.cumsum(lens) - lens
-            gidx = np.repeat(np.arange(len(groups)), lens)
-            blocked_of: Dict[int, List[Tuple[int, int]]] = {}
-            blk = ~adm
-            if blk.any():
-                key = gidx[blk] * 256 + rsn[blk]
-                order = np.argsort(key, kind="stable")
-                ks = key[order]
-                heads = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
-                sums = np.add.reduceat(acq[blk][order], heads)
-                # Rows go to the limit app of their first failing slot's
-                # rule; where every rule of a group's slots has the default
-                # one, that is one "default" item (the log sums a key's
-                # items; a zero total takes the long way, which may write
-                # none).
-                nd_flow, nd_deg = _nondefault_gids(findex), _nondefault_gids(dindex)
-                for k, total in zip(ks[heads].tolist(), sums.tolist()):
-                    gi, r = divmod(k, 256)
-                    g = groups[gi]
-                    if exts:
-                        blocked_of.setdefault(gi, []).append((r, total))
-                    exc_name = E.exc_name_for_code(r)
-                    if (r == E.BLOCK_AUTHORITY
-                            or (r == E.BLOCK_FLOW and g.slots
-                                and (not total or (nd_flow and not nd_flow.isdisjoint(gid for gid, _ in g.slots))))
-                            or (r == E.BLOCK_DEGRADE and g.d_gids
-                                and (not total or (nd_deg and not nd_deg.isdisjoint(g.d_gids))))):
-                        sl = slice(starts[filled[gi]], starts[filled[gi]] + g.n)
-                        for la, cnt in _bulk_limit_apps(g, r, slot_ok[sl], dslot_ok[sl], findex, dindex,
-                                                        auth_rules):
-                            items.append((g.resource, exc_name, la, g.origin, cnt))
-                    else:
-                        items.append((g.resource, exc_name, "default", g.origin, total))
-            if exts:
-                n_adm = np.add.reduceat(adm.astype(np.int64), first)
-                adm_w = np.add.reduceat(np.where(adm, acq, 0), first)
-                for gi, g in enumerate(groups):
-                    for r, total in blocked_of.get(gi, ()):
-                        MetricExtensionProvider.on_blocked(g.resource, total, g.origin,
-                                                           E.error_for_verdict(r, g.resource), ())
-                    if n_adm[gi]:
-                        MetricExtensionProvider.on_pass(g.resource, int(adm_w[gi]), ())
+        parts: list = [items]
+        ng = len(bulk)
+        if ng:
+            cols = self._bulk_block_columns(bulk, starts, b0, adm_b, rsn_b, filled, bulk_acq, slot_ok, dslot_ok,
+                                            findex, dindex, auth_rules, exts)
+            if cols is not None:
+                parts.append(cols)
         if exts:
             for x in exits:
                 if x.resource is not None and x.thr < 0:
@@ -3188,7 +3187,86 @@ class Engine:
                 if gx.resource is not None and gx.thr < 0:
                     MetricExtensionProvider.on_complete(gx.resource, _weighted_rt(gx), int(gx.count.sum()),
                                                         int(gx.err.sum()))
-        return items
+        return parts
+
+    @staticmethod
+    def _bulk_block_columns(bulk, starts: List[int], b0: int, adm_b: np.ndarray, rsn_b: np.ndarray,
+                            filled: Optional[np.ndarray], acq: np.ndarray, slot_ok, dslot_ok, findex: FlowIndex,
+                            dindex: DegradeIndex, auth_rules: Dict[str, AuthorityRule],
+                            exts) -> Optional[BlockColumns]:
+        """The block-log items of one chunk's bulk groups as columns, and
+        their extension calls. The blocked acquire is summed per (group,
+        reason) over the chunk's columns, in the order of the groups and,
+        within a group, of the reasons, as a pass a group would take them;
+        a (group, reason) whose rows need their limit apps splits into one
+        item a limit app, in the order of its first row's slot."""
+        ng = len(bulk)
+        lens = np.diff(np.asarray(starts + [b0 + adm_b.size], dtype=np.int64))
+        gidx = np.repeat(np.arange(ng), lens)
+        blk = ~adm_b if filled is None else ~adm_b & filled
+        rb = rsn_b[blk].astype(np.int64)
+        if rb.size:
+            nr = int(rb.max()) + 1
+            key_all = gidx[blk] * nr + rb
+            hits = np.bincount(key_all, minlength=ng * nr)
+            keys = np.flatnonzero(hits)  # (group, reason) in order
+            sums = np.bincount(key_all, weights=acq[blk], minlength=ng * nr)[keys].astype(np.int64)
+            kg, kr = np.divmod(keys, nr)
+        else:
+            kg = kr = sums = np.zeros(0, dtype=np.int64)
+        names = [E.exc_name_for_code(r) for r in range(int(kr.max()) + 1 if kr.size else 0)]
+        # Keys whose rows take their rules' limit apps: authority blocks, and
+        # flow and degrade blocks where a slot's rule has another limit app
+        # than "default" (a zero total takes the long way, which may write
+        # none); every other key is one "default" item.
+        nd_flow, nd_deg = _nondefault_gids(findex), _nondefault_gids(dindex)
+        long_way = kr == E.BLOCK_AUTHORITY
+        for code, nd, zero_only in ((E.BLOCK_FLOW, nd_flow, not nd_flow), (E.BLOCK_DEGRADE, nd_deg, not nd_deg)):
+            cand = np.flatnonzero((kr == code) & ((sums == 0) if zero_only else True))
+            for j in cand.tolist():
+                g = bulk[int(kg[j])]
+                ids = [gid for gid, _ in g.slots] if code == E.BLOCK_FLOW else g.d_gids
+                long_way[j] = bool(ids) and (sums[j] == 0 or not nd.isdisjoint(ids))
+        la: Optional[List[str]] = None
+        if long_way.any():
+            out_g, out_r, out_c, la = [], [], [], []
+            lw = long_way.tolist()
+            for j, (gi, r, total) in enumerate(zip(kg.tolist(), kr.tolist(), sums.tolist())):
+                if not lw[j]:
+                    out_g.append(gi)
+                    out_r.append(r)
+                    out_c.append(total)
+                    la.append("default")
+                    continue
+                g = bulk[gi]
+                sl = slice(starts[gi], starts[gi] + g.n)
+                merged: Dict[str, int] = {}  # a key's items summed, in the order of their first one
+                for app, cnt in _bulk_limit_apps(g, r, slot_ok[sl], dslot_ok[sl], findex, dindex, auth_rules):
+                    merged[app] = merged.get(app, 0) + cnt
+                for app, cnt in merged.items():
+                    out_g.append(gi)
+                    out_r.append(r)
+                    out_c.append(cnt)
+                    la.append(app)
+            kg_o, kr_o, sums_o = (np.asarray(x, dtype=np.int64) for x in (out_g, out_r, out_c))
+        else:
+            kg_o, kr_o, sums_o = kg, kr, sums
+        if exts:
+            first = np.asarray(starts, dtype=np.int64) - b0
+            ok = np.ones(adm_b.size, dtype=bool) if filled is None else filled
+            n_adm = np.add.reduceat((adm_b & ok).astype(np.int64), first) if adm_b.size else np.zeros(ng, np.int64)
+            adm_w = np.add.reduceat(np.where(adm_b & ok, acq, 0).astype(np.int64), first) if adm_b.size else n_adm
+            at = np.searchsorted(kg, np.arange(ng + 1)).tolist()
+            gl, rl, tl = kg.tolist(), kr.tolist(), sums.tolist()
+            for gi, g in enumerate(bulk):
+                for j in range(at[gi], at[gi + 1]):
+                    MetricExtensionProvider.on_blocked(g.resource, tl[j], g.origin, E.error_for_verdict(rl[j],
+                                                                                                        g.resource), ())
+                if n_adm[gi]:
+                    MetricExtensionProvider.on_pass(g.resource, int(adm_w[gi]), ())
+        if not kg_o.size:
+            return None
+        return BlockColumns([g.resource for g in bulk], [g.origin for g in bulk], names, kg_o, kr_o, la, sums_o)
 
     def _fold_blocked_recount(self, entries: Sequence[_EntryOp], bulk: Sequence[BulkOp]) -> None:
         """The exact host recount of one chunk's blocked weight per

@@ -54,7 +54,7 @@ horizon: :func:`borrow_horizon`). The rest is torch glue.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -570,8 +570,8 @@ def blocked_topk_wide(batch: FlushBatch, admitted: torch.Tensor, r_rows: int, bl
     acquire (weight descending, row ascending, the lowest zero-weight rows
     filling up), as ``lax.top_k`` of the dense weights. Returns (rows,
     weights), int32 [kk] each. On the card one C call (csrc/blocked_topk.cu:
-    four launches and a CUB radix sort of the touched rows' keys) that
-    leaves the zeroed scratch zero; here the plain version."""
+    two launches and a selection up to k = 256, else four and a CUB radix
+    sort) that leaves the zeroed scratch zero; here the plain version."""
     if admitted.is_cuda:
         return _blocked_topk_wide_cuda(batch, admitted, r_rows, blk_topk)
     return _blocked_topk_plain(batch, admitted, r_rows, blk_topk)
@@ -579,12 +579,11 @@ def blocked_topk_wide(batch: FlushBatch, admitted: torch.Tensor, r_rows: int, bl
 
 blocked_topk_wide.launches = 0
 
-
 class _BtArgs(ctypes.Structure):
     """The ``BtArgs`` of ``csrc/blocked_topk.cu``, field for field."""
 
     _fields_ = [(name, _P) for name in ("admitted", "e_valid", "e_acq", "e_rows", "out_w", "out_r")] + [
-        (name, _I) for name in ("n", "n_rows", "k")
+        (name, _I) for name in ("n", "n_rows", "k", "fault")
     ]
 
 
@@ -595,10 +594,15 @@ def _bt_lib() -> ctypes.CDLL:
         lib.blocked_topk_workspace.restype = ctypes.c_longlong
         lib.blocked_topk_zero_bytes.argtypes = [_I, _I]
         lib.blocked_topk_zero_bytes.restype = ctypes.c_longlong
+        lib.blocked_topk_selects.argtypes = [_I, _I, _I]
+        lib.blocked_topk_selects.restype = _I
         lib.blocked_topk.argtypes = [ctypes.POINTER(_BtArgs), _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P]
         lib.blocked_topk.restype = _I
         lib._typed = True
     return lib
+
+
+_bt_sizes: Dict[Tuple[int, int, int], Tuple[int, int]] = {}  # (n, R, k) -> workspace, zero bytes
 
 
 def _blocked_topk_wide_cuda(batch: FlushBatch, admitted: torch.Tensor, r_rows: int, blk_topk: int):
@@ -611,19 +615,30 @@ def _blocked_topk_wide_cuda(batch: FlushBatch, admitted: torch.Tensor, r_rows: i
     kk = min(int(blk_topk), int(r_rows))
     if kk <= 0:
         return None, None
-    dev = admitted.device
-    blk_weight, blk_rows = torch.empty(2 * kk, dtype=torch.int32, device=dev).split([kk, kk])
-    a = _BtArgs(admitted=admitted.data_ptr(), e_valid=batch.e_valid.data_ptr(), e_acq=batch.e_acquire.data_ptr(),
-                e_rows=batch.e_rows.data_ptr(), out_w=blk_weight.data_ptr(), out_r=blk_rows.data_ptr(), n=n,
-                n_rows=int(r_rows), k=kk)
+    blk_weight, blk_rows = torch.empty(2 * kk, dtype=torch.int32, device=admitted.device).split([kk, kk])
+    _blocked_topk_run(batch, admitted, int(r_rows), kk, blk_weight, blk_rows)
+    return blk_rows, blk_weight
+
+
+def _blocked_topk_run(batch: FlushBatch, admitted: torch.Tensor, r_rows: int, kk: int, out_w: torch.Tensor,
+                      out_r: torch.Tensor) -> None:
+    """The wide route's one C call into ``out_w``/``out_r`` (int32 [kk]),
+    for a caller that checked the batch and made ``admitted``."""
+    n = admitted.shape[0]
     lib = _bt_lib()
-    need = int(lib.blocked_topk_workspace(n, r_rows, kk))
-    zero_bytes = int(lib.blocked_topk_zero_bytes(n, r_rows))
+    key = (n, r_rows, kk)
+    sizes = _bt_sizes.get(key)
+    if sizes is None:
+        sizes = _bt_sizes[key] = (int(lib.blocked_topk_workspace(n, r_rows, kk)),
+                                  int(lib.blocked_topk_zero_bytes(n, r_rows)))
+    need, zero_bytes = sizes
+    a = _BtArgs(admitted=admitted.data_ptr(), e_valid=batch.e_valid.data_ptr(), e_acq=batch.e_acquire.data_ptr(),
+                e_rows=batch.e_rows.data_ptr(), out_w=out_w.data_ptr(), out_r=out_r.data_ptr(), n=n, n_rows=r_rows,
+                k=kk)
     st = ma.stream_of(admitted)
-    with cuda_build.scratch(dev, st, need, zero_bytes) as (buf, size, zero):
+    with cuda_build.scratch(admitted.device, st, need, zero_bytes) as (buf, size, zero):
         cuda_build.check(lib.blocked_topk(ctypes.byref(a), buf, size, zero, zero_bytes, st), "blocked_topk")
     blocked_topk_wide.launches += 1
-    return blk_rows, blk_weight
 
 
 def _topk_zero_bytes(lib, r_rows: int) -> int:
@@ -673,11 +688,13 @@ def _flow_admission_cuda(stats, flow_dev, batch, blk_topk, live, occupy_timeout_
     admitted = reason = blk_rows = blk_weight = None
     if tail:
         slot_ok, flow_pass, admitted = torch.empty(nk + 2 * n, dtype=torch.bool, device=dev).split([nk, n, n])
-        reason, blk_weight, blk_rows = torch.empty(n + 2 * kk, dtype=torch.int32, device=dev).split([n, kk, kk])
+        # The top-K's outputs come from this allocation, the wide route's too.
+        reason, blk_weight, blk_rows = torch.empty(n + 2 * kk_all, dtype=torch.int32, device=dev).split(
+            [n, kk_all, kk_all])
         a.admitted, a.reason = admitted.data_ptr(), reason.data_ptr()
         if kk > 0:
             a.blk_w, a.blk_r = blk_weight.data_ptr(), blk_rows.data_ptr()
-        else:
+        elif kk_all == 0:
             blk_weight = blk_rows = None
         slot_ok = slot_ok.view(n, k)
         a.slot_ok, a.flow_pass = slot_ok.data_ptr(), flow_pass.data_ptr()
@@ -710,7 +727,7 @@ def _flow_admission_cuda(stats, flow_dev, batch, blk_topk, live, occupy_timeout_
     if with_occupy:
         flow_admission.occupy_launches += 1
     if kk_all > TOPK_MAX:
-        blk_rows, blk_weight = _blocked_topk_wide_cuda(batch, admitted, r_rows, kk_all)
+        _blocked_topk_run(batch, admitted, r_rows, kk_all, blk_weight, blk_rows)
     return Admission(slot_ok, flow_pass, admitted, reason, blk_rows, blk_weight, **extra)
 
 
@@ -1094,13 +1111,13 @@ def _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, 
     kk = kk_all if kk_all <= TOPK_MAX else 0  # above TOPK_MAX: the wide route after the call
     nk = n * k
     off = (3 * n + nk + 15) // 16 * 16  # the int32 outputs start 16-byte aligned
-    out = torch.empty(off + 4 * (2 * n + 2 * kk), dtype=torch.uint8, device=dev)
+    out = torch.empty(off + 4 * (2 * n + 2 * kk_all), dtype=torch.uint8, device=dev)  # the wide route's outputs too
     flags = out[: 3 * n + nk].view(b)
     admitted, flow_live, occupied = flags[:n], flags[n : 2 * n], flags[2 * n : 3 * n]
     occ_slot = flags[3 * n :].view(n, k)
     ints = out[off:].view(i32)
     reason, wait_ms = ints[:n], ints[n : 2 * n]
-    blk_weight, blk_rows = (ints[2 * n : 2 * n + kk], ints[2 * n + kk :]) if kk > 0 else (None, None)
+    blk_weight, blk_rows = (ints[2 * n : 2 * n + kk_all], ints[2 * n + kk_all :]) if kk_all > 0 else (None, None)
     a = _CvArgs(
         e_valid=batch.e_valid.data_ptr(), e_auth=batch.e_auth_ok.data_ptr(), e_cluster=batch.e_cluster_ok.data_ptr(),
         e_acq=batch.e_acquire.data_ptr(), e_rows=batch.e_rows.data_ptr(), e_dgid=batch.e_dgid.data_ptr(),
@@ -1126,7 +1143,7 @@ def _chain_verdict_cuda(batch, adm, sys_ok, dslot_ok, probe_slot, ddyn, n_rows, 
         cuda_build.check(lib.chain_verdict(ctypes.byref(a), zero, zero_bytes, st), "chain_verdict")
     slot_chain_verdict.launches += 1
     if kk_all > TOPK_MAX:
-        blk_rows, blk_weight = _blocked_topk_wide_cuda(batch, admitted, n_rows, kk_all)
+        _blocked_topk_run(batch, admitted, n_rows, kk_all, blk_weight, blk_rows)
     return ChainVerdict(admitted, reason, wait_ms, flow_live, occupied, occ_slot, blk_rows, blk_weight)
 
 

@@ -202,14 +202,20 @@ def _bulk_tracer_state(lib, seed, ring, cap, blocked, grouped):
     ``record_bulk``, or (the port, ``grouped``) a chunk at a time through
     ``record_bulk_groups``. Its ring with the ids and times, counters,
     exemplars, histogram, and the next head-sampling draw."""
+    import numpy as np
+
     lib._rand.seed(seed)
     tr = lib.AdmissionTracer(enabled=True, ring=ring, sample_rate=0.3, sample_blocked=blocked, bulk_cap=cap)
     for c, groups, single, end in _bulk_chunks(lib, seed):
         if single:
             tr.record_admission(lib.TraceTag(None, True, 99.0), "single", "", "c", False, 2, c, 101.0)
         if grouped:
-            cols = [list(x) for x in zip(*groups)] if groups else [[] for _ in range(8)]
-            tr.record_bulk_groups(lib.BulkTraceGroups(*cols), c, end)
+            tag, res, org, ctx, adm, rsn, deg, prov = ([list(x) for x in zip(*groups)] if groups
+                                                       else [[] for _ in range(8)])
+            lens = np.array([len(a) for a in adm], dtype=np.int64)
+            adm = np.concatenate(adm) if adm else np.zeros(0, bool)
+            rsn = np.concatenate(rsn) if rsn else np.zeros(0, np.int32)
+            tr.record_bulk_groups(lib.BulkTraceGroups(tag, res, org, ctx, adm, rsn, lens, deg, prov), c, end)
         else:
             for g in groups:
                 tr.record_bulk(*g[:6], c, end, degraded=g[6], provenance=g[7])

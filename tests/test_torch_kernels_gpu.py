@@ -2445,7 +2445,7 @@ def test_bucket_read_kernel_records_past_cap(cuda, cap):
     want = ma.bucket_read_plain(cfg, cpu_state, idx_cpu, begin, upto, now)
     assert want.shape[0] > 7
     before = ma.bucket_read.launches
-    got = ma._bucket_read_cuda(cfg, state, idx_cpu.to(cuda), begin, upto, now, cap=cap)
+    got = ma.BucketReader().read(cfg, state, idx_cpu.to(cuda), begin, upto, now, cap=cap)
     assert ma.bucket_read.launches == before + (1 if cap >= want.shape[0] else 2)
     _eq(_sorted_records(want), _sorted_records(got), f"records past cap {cap}")
 
@@ -2583,6 +2583,249 @@ def test_blocked_topk_wide_refusals_kernel(cuda):
                                   zb - 1 if zero_short else zb, st)
         assert (rc == -1) if code == -1 else (rc != 0 and rc != -1), (kk, rc)
         _assert_zeroed(cuda, f"refusal {kk}")
+
+
+def _wide_inputs(cuda, case, n=1 << 17, n_rows=1 << 20, seed=0, tie=None):
+    """(batch, admitted, R) for the wide route alone: n entries (95% valid,
+    30% blocked, acquire 1-3) on Zipf(1.1) cluster rows of R ("zipf"), on 5
+    rows ("few": fewer rows carry weight than k), on every row of R = 512
+    ("all_rows"), or on ``tie`` = (rows, acquires) of torch_parity.tie_rows,
+    every entry valid and blocked."""
+    rng = np.random.default_rng(seed)
+    if case == "all_rows":
+        n, n_rows = 8192, 512
+    if tie is not None:
+        res, acq = tie
+        n = res.shape[0]
+        valid, admitted = np.ones(n, bool), np.zeros(n, bool)
+    else:
+        if case == "few":
+            res = rng.integers(0, 5, n)
+        elif case == "all_rows":
+            res = np.arange(n) % n_rows
+        else:
+            p = np.arange(1, n_rows + 1, dtype=np.float64) ** -1.1
+            res = rng.choice(n_rows, size=n, p=p / p.sum())
+        acq = rng.integers(1, 4, n)
+        valid, admitted = rng.random(n) < 0.95, rng.random(n) >= 0.3
+    res, acq = np.asarray(res, np.int32), np.asarray(acq, np.int32)
+    m, now = 8, 1_000_000
+    batch = tflush.batch_from_numpy((
+        np.int32(now), valid, np.full(n, now, np.int32), acq,
+        np.stack([res, res, np.full(n, -1), np.zeros(n)], axis=1).astype(np.int32), res[:, None].copy(),
+        res[:, None].copy(), np.zeros(n, bool), np.ones(n, bool), np.ones(n, bool), np.full((n, 1), -1, np.int32),
+        np.zeros(m, bool), np.full(m, now, np.int32), np.ones(m, np.int32), np.full((m, 4), -1, np.int32),
+        np.zeros(m, np.int32), np.zeros(m, np.int32), np.zeros(m, np.int32), np.full((m, 1), -1, np.int32)), cuda)
+    return batch, torch.from_numpy(admitted).to(cuda), n_rows
+
+
+def _wide_check(cuda, batch, admitted, n_rows, k, route, what):
+    """The wide route against its plain version, on the route asked for
+    (``select`` or ``sort``): one launch, the scratch zero after."""
+    lib = tflush._bt_lib()
+    n = admitted.shape[0]
+    assert lib.blocked_topk_selects(n, n_rows, k) == (route == "select"), what
+    want = tflush._blocked_topk_plain(batch, admitted, n_rows, k)
+    before = tflush.blocked_topk_wide.launches
+    got = tflush.blocked_topk_wide(batch, admitted, n_rows, k)
+    assert tflush.blocked_topk_wide.launches == before + 1
+    _eq(want[0], got[0], f"{what}: rows")
+    _eq(want[1], got[1], f"{what}: weights")
+    _assert_zeroed(cuda, what)
+    return want
+
+
+WIDE_SELECT_CASES = [(k, case) for k in (9, 16, 64, 256) for case in ("zipf", "few", "all_rows")]
+
+
+@pytest.mark.parametrize("k,case", WIDE_SELECT_CASES, ids=[f"k{k}-{c}" for k, c in WIDE_SELECT_CASES])
+def test_blocked_topk_wide_select_kernel(cuda, k, case):
+    """The wide route's selection (bt_add, then bt_select's tiles and the
+    last block's merge) at k = 9, 16, 64 and 256 over 131,072 entries on
+    Zipf rows of 1,048,576, with fewer touched rows than k (the lowest
+    untouched rows fill up), and with every row of a small R touched:
+    equal to the plain version (lax.top_k's order)."""
+    batch, admitted, n_rows = _wide_inputs(cuda, case, seed=k)
+    want = _wide_check(cuda, batch, admitted, n_rows, k, "select", f"k = {k}, {case}")
+    weights = want[1].cpu()
+    if case == "few":
+        assert int((weights > 0).sum()) <= 5 < k
+    if case == "all_rows":
+        assert bool((weights > 0).all())
+
+
+WIDE_SORT_CASES = [(257, "zipf"), (512, "zipf"), (300, "few"), (512, "all_rows")]
+
+
+@pytest.mark.parametrize("k,case", WIDE_SORT_CASES, ids=[f"k{k}-{c}" for k, c in WIDE_SORT_CASES])
+def test_blocked_topk_wide_sort_route_kernel(cuda, k, case):
+    """Above the selection's bound (k = 256) the wide route sorts (bt_keys,
+    CUB's radix sort, bt_out): at k = 257 and 512 on Zipf rows, with fewer
+    touched rows than k, and with every row of R = 512 taken. Equal to the
+    plain version."""
+    batch, admitted, n_rows = _wide_inputs(cuda, case, seed=k)
+    _wide_check(cuda, batch, admitted, n_rows, k, "sort", f"k = {k}, {case}, sort route")
+
+
+WIDE_ROUTE_K = {"select": 16, "sort": 512}  # a k of each route
+
+
+@pytest.mark.parametrize("route", ["select", "sort"])
+@pytest.mark.parametrize("case", list(TIE_PATTERNS))
+def test_blocked_topk_wide_routes_tie_cases_kernel(cuda, route, case):
+    """TIE_PATTERNS on each route (k = 16 selects, k = 512 sorts, over
+    4,096 rows): touched rows of one weight rank by row, a row whose
+    wrapping sum comes back to 0 ranks among the untouched rows of weight
+    0, once."""
+    k = WIDE_ROUTE_K[route]
+    batch, admitted, n_rows = _wide_inputs(cuda, None, n_rows=1 << 12, tie=tie_rows(case, 8192))
+    want = _wide_check(cuda, batch, admitted, n_rows, k, route, f"{case} ({route})")
+    assert len(set(want[0].cpu().tolist())) == k
+
+
+@pytest.mark.parametrize("route", ["select", "sort"])
+def test_blocked_topk_wide_failure_leaves_scratch_zero_kernel(cuda, route):
+    """A call whose launch after bt_add is refused (``fault``: too many
+    threads) returns the error and leaves the zeroed scratch zero (bt_add
+    has added into the cells), on each route (k = 16 and 512); the call
+    after it equals the plain version."""
+    import ctypes
+
+    from sentinel_tpu_torch.utils import cuda_build
+
+    batch, admitted, n_rows = _wide_inputs(cuda, "zipf", seed=3)
+    lib = tflush._bt_lib()
+    n, k = admitted.shape[0], WIDE_ROUTE_K[route]
+    out = torch.empty(2 * k, dtype=torch.int32, device=cuda)
+    a = tflush._BtArgs(admitted=admitted.data_ptr(), e_valid=batch.e_valid.data_ptr(),
+                       e_acq=batch.e_acquire.data_ptr(), e_rows=batch.e_rows.data_ptr(), out_w=out.data_ptr(),
+                       out_r=out[k:].data_ptr(), n=n, n_rows=n_rows, k=k, fault=1)
+    need = int(lib.blocked_topk_workspace(n, n_rows, k))
+    zb = int(lib.blocked_topk_zero_bytes(n, n_rows))
+    st = torch.cuda.current_stream(cuda).cuda_stream
+    with cuda_build.scratch(cuda, st, need, zb) as (buf, size, zero):
+        rc = lib.blocked_topk(ctypes.byref(a), buf, size, zero, zb, st)
+    assert rc not in (0, -1), rc
+    _assert_zeroed(cuda, f"after the refused launch ({route})")
+    _wide_check(cuda, batch, admitted, n_rows, k, route, "the call after it")
+
+
+def _counts_per_call(fn):
+    """(kernels, memsets, device-to-host copies) of one call of ``fn``
+    (gpu_timing: torch.profiler, failing when it reads no kernel)."""
+    from gpu_timing import copies_per_call, device_profile
+
+    return (*device_profile(fn)[:2], copies_per_call(fn).get("Memcpy DtoH", 0))
+
+
+@pytest.mark.parametrize("k", [16, 64])
+def test_blocked_topk_wide_launches_kernel(cuda, k):
+    """torch.profiler: the wide route at 131,072 entries is two kernels
+    (bt_add, bt_select), no memset and no radix sort a call."""
+    from gpu_timing import kernel_times
+
+    batch, admitted, n_rows = _wide_inputs(cuda, "zipf", seed=k)
+    fn = lambda: tflush.blocked_topk_wide(batch, admitted, n_rows, k)  # noqa: E731
+    fn()
+    assert _counts_per_call(fn)[:2] == (2, 0)
+    names = kernel_times(fn)
+    assert set(names) == {"bt_add", "bt_select"}, names
+
+
+def _k17_window(n_rows, passing, now, sec):
+    """A minute window of n_rows rows whose second ``sec`` holds a nonzero
+    count in exactly its first ``passing`` rows (every other bucket empty
+    or stale)."""
+    cfg = tnodes.MINUTE_CFG
+    b = (sec // cfg.window_len_ms) % cfg.sample_count
+    ws = np.full((n_rows, cfg.sample_count), cfg.empty_ws, np.int32)
+    ws[:passing, b] = sec
+    ws[passing: 2 * passing, b] = sec - cfg.interval_ms  # stale: another second in that bucket
+    counts = np.zeros((n_rows, cfg.sample_count, NUM_EVENTS), np.int32)
+    counts[: 2 * passing, b, 0] = 3
+    return ma.state_from_numpy((counts, np.ones_like(ws), ws), torch.device("cpu"))
+
+
+@pytest.mark.parametrize("count", ["0", "H", "H+1"])
+def test_bucket_read_head_copies_kernel(cuda, count):
+    """K17 through the device's kept reader: a read is one kernel, no
+    memset and one copy back while the records fit the reader's head (H,
+    1,024 after a small read), two copies at H + 1; the head then follows
+    the count. The records equal the plain version's."""
+    h = ma.BucketReader.HEAD_MIN
+    m = {"0": 0, "H": h, "H+1": h + 1}[count]
+    cfg, n_rows, now = tnodes.MINUTE_CFG, 8192, 7_200_431
+    sec = now - now % 1000 - 1000
+    cpu_state = _k17_window(n_rows, m, now, sec)
+    state = ma.MetricArrayState(*(t.to(cuda) for t in cpu_state))
+    idx_cpu = torch.from_numpy(np.random.default_rng(m).permutation(n_rows).astype(np.int32))
+    idx = idx_cpu.to(cuda)
+    reader = ma._default_reader(state.counts.device)
+    read = lambda: ma.bucket_read(cfg, state, idx, sec, sec + 1000, now)  # noqa: E731
+    read()  # the buffers: made once, kept from read to read
+
+    def first_read():
+        reader.head = h
+        return read()
+
+    assert _counts_per_call(first_read) == (1, 0, 1 if m <= h else 2)
+    got = first_read()
+    assert got.shape[0] == m and not got.is_cuda
+    _eq(_sorted_records(ma.bucket_read_plain(cfg, cpu_state, idx_cpu, sec, sec + 1000, now)), _sorted_records(got),
+        f"records at {count}")
+    assert reader.head == (h if m <= h else 2 * h)
+    assert _counts_per_call(read) == (1, 0, 1)  # the head follows the count: one copy again
+
+
+def test_bucket_read_steady_pull_counts_kernel(cuda):
+    """K17 at full width through the device's kept reader (262,144 asked
+    rows of a 1,048,576-row minute window, one second asked): one kernel,
+    no memset and one copy back a read; equal to the plain version."""
+    rng = np.random.default_rng(17)
+    cfg, n_rows = tnodes.MINUTE_CFG, 1 << 20
+    now = 7_200_000 + 431
+    upto = now - now % 1000
+    cpu_state = _minute_window(rng, n_rows, now, upto)
+    state = ma.MetricArrayState(*(t.to(cuda) for t in cpu_state))
+    idx_cpu = torch.from_numpy(rng.integers(0, n_rows, 1 << 18).astype(np.int32))
+    idx = idx_cpu.to(cuda)
+    read = lambda: ma.bucket_read(cfg, state, idx, upto - 1000, upto, now)  # noqa: E731
+    got = read()
+    assert got.shape[0] > 0
+    _eq(_sorted_records(ma.bucket_read_plain(cfg, cpu_state, idx_cpu, upto - 1000, upto, now)),
+        _sorted_records(got), "steady pull")
+    assert _counts_per_call(read) == (1, 0, 1)
+
+
+def test_bucket_read_failed_copy_then_equal_kernel(cuda, monkeypatch):
+    """A read whose launch ran but whose queued copy back failed (the C
+    call returns an error after the launch, as a refused cudaMemcpyAsync
+    does) raises, twice in a row; the reads after them equal the plain
+    version: the failed reads' counts are not counted on."""
+    cfg, n_rows, now = tnodes.MINUTE_CFG, 8192, 7_200_431
+    sec = now - now % 1000 - 1000
+    cpu_state = _k17_window(n_rows, 300, now, sec)
+    state = ma.MetricArrayState(*(t.to(cuda) for t in cpu_state))
+    idx_cpu = torch.from_numpy(np.random.default_rng(5).permutation(n_rows).astype(np.int32))
+    idx = idx_cpu.to(cuda)
+    want = _sorted_records(ma.bucket_read_plain(cfg, cpu_state, idx_cpu, sec, sec + 1000, now))
+    assert want.shape[0] == 300
+    read = lambda: ma.bucket_read(cfg, state, idx, sec, sec + 1000, now)  # noqa: E731
+    read()
+    real = ma._br_lib()
+
+    class _CopyFails:
+        @staticmethod
+        def bucket_read(*args):
+            return real.bucket_read(*args) or 1  # cudaErrorInvalidValue, after the launch
+
+    monkeypatch.setattr(ma, "_br_lib", lambda: _CopyFails)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="bucket_read"):
+            read()
+    monkeypatch.undo()
+    for i in range(3):
+        _eq(want, _sorted_records(read()), f"read {i} after the failed copies")
 
 
 @pytest.fixture
