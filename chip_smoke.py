@@ -168,7 +168,24 @@ sketch against the CPU's, spans_to_trace written to build/ and read
 back, the DEFAULT dispatch under set_sync_debug_mode("error")); (e) times
 api.entry_windowed against st.entry, 8 threads, 2 s each, in turns.
 
-The CPU sides of phases 2c (d), 4-4h and 8 (the plain versions on one
+The multi-process ingest plane (ipc/): phase 4j spawns worker processes
+from the plane's context (testing/ipc_procs.serve, no CUDA in them): (a)
+four workers, 1,500 resources each, run 40 steps of 32,768 entries (Zipf
+bulk groups of 64-2,048 rows split into frames, 8 hot-parameter singles
+with args, a THREAD-grade group) and their completions through the plane
+in lockstep, at depth 0 and at depth 2 with the speculative tier, against
+the CPU engine fed each worker's steps in-process (verdicts, reasons,
+wait_ms, stats reads, every state tensor), with the launch counters from
+0 (K4 must run, K1 must not); (b) a fifth worker admits 64 on a
+THREAD-grade rule and is killed: after worker.dead.ms the plane's
+auto_exits read 64 and the gauge (row_stats) and the mirror 0; (c) on the
+real clock, 3 s each: 1 then 4 workers looping bulk(res, 256), one caller
+looping entry, 8 callers with the micro-window off and at 2 ms (requests/s,
+round trips, drains/s, the drainer's host split, the frames coalesced),
+in-process st.entry and entry_windowed; (d) every worker reports
+torch.cuda.is_initialized() False and nvidia-smi lists no second context.
+
+The CPU sides of phases 2c (d), 4-4h, 4j and 8 (the plain versions on one
 heavy segment, the CPU engines) run in four worker processes, started
 before the build, beside the card's phases (phase 3 runs before 2c so
 that case (d)'s references are ready); the workers stop with the script.
@@ -209,7 +226,9 @@ def fail(msg: str) -> None:
 WORKERS = None  # the worker processes that run the CPU references (main)
 
 
-if not torch.cuda.is_available():
+# Spawned children (the CPU references, phase 4j's workers) re-run this
+# module's top level as __mp_main__: they must not touch CUDA.
+if __name__ == "__main__" and not torch.cuda.is_available():
     print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
     sys.exit(2)
 
@@ -2897,7 +2916,7 @@ CP_BULK_BOUND = 16384  # (b): sentinel.tpu.ingest.max.pending.bulk
 CP_PENDING = 4096  # (b): the pending bulk flush's rows
 CP_DEADLINE = 4096  # (b): joins of each deadline leg
 CP_STEPS = 20  # (c): flushes of FLUSH_N on the mixed stream
-CP_TURNS = 5  # (d): phase 4's stream with telemetry on, then off, this many times each
+CP_TURNS = 3  # (d): phase 4's stream with telemetry on, then off, this many times each (5 before phase 4j)
 CP_PARAM_TS = 4  # (c): distinct timestamps of the param items a flush (K10's closed form stays eligible)
 
 
@@ -3837,6 +3856,508 @@ def phase4_metric(results: dict, cpu_jobs: dict) -> None:
         fail(f"phase 4i (e): the mesh's blocked top-K {got[1][:4]} differs from the CPU engine's {want[1][:4]}")
     log(f"  (e) the mesh's host recount: the recorder's blocked top-K ({len(got[0])} resources) identical on card and "
         "CPU")
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: the ipc plane (sentinel_tpu_torch/ipc) feeding the engine
+# ---------------------------------------------------------------------------
+IPC_WORKERS = 4
+IPC_OWN = N_RULES // IPC_WORKERS  # 1,500 resources a worker: no two workers meet in a rule's window
+IPC_ROWS = FLUSH_N // IPC_WORKERS  # 8,192 entries a worker a step: 32,768 a step over the workers
+IPC_PARAM, IPC_THREAD, IPC_KILL = "ipc-param", "ipc-thread", "ipc-kill"
+IPC_KILL_N = 64
+IPC_LOOP_S = 3.0
+IPC_SETTINGS = {"IPC_HEARTBEAT_MS": 50, "IPC_WORKER_DEAD_MS": 300}
+# (a)'s planes take 64 KiB slots (a frame of up to 970 rows, against 236 at
+# the default 16 KiB, which (c) keeps). (a)'s engines run without the
+# admission tracer (it records every blocked row; (a) holds verdicts and
+# state), and the speculative tier of the depth-2 run is made independent
+# of which workers' frames share a drain, as the in-process reference
+# needs: it settles after every group (speculative.flush.batch 1), each
+# settle's fetch lands at once (flush.max.inflight 0), so a group's
+# reconcile precedes its resource's next decision, and it never suspends
+# (overadmit.max 0: the over-admission budget is one for all resources, so
+# the point where it trips depends on the order of the workers' frames).
+IPC_SLOT_BYTES_A = 65536
+IPC_ENGINE_A = {"TRACE_ENABLED": "false", "SPECULATIVE_FLUSH_BATCH": 1, "SPECULATIVE_OVERADMIT_MAX": 0,
+                "FLUSH_MAX_INFLIGHT": 0}
+
+
+def _ipc_engine(device: torch.device, clock, **settings):
+    """An engine of its own (not the api's: three live at once in phase
+    4j) with phase 4's 6,000 DEFAULT QPS rules, a THREAD-grade rule (count
+    96), a second one for the kill (count 1,000) and a hot-parameter rule."""
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils.config import config
+
+    for key, value in settings.items():
+        config.set(getattr(config, key), str(value))
+    try:
+        eng = Engine(clock=clock, device=device)
+    finally:
+        config.reset()
+    eng.set_flow_rules([st.FlowRule(f"r{i}", count=20) for i in range(N_RULES)] + [
+        st.FlowRule(IPC_THREAD, count=96, grade=C.FLOW_GRADE_THREAD),
+        st.FlowRule(IPC_KILL, count=1000, grade=C.FLOW_GRADE_THREAD)])
+    eng.set_param_rules({IPC_PARAM: [st.ParamFlowRule(IPC_PARAM, param_idx=0, count=4)]})
+    return eng
+
+
+def ipc_step(rng, w: int, now: int, p: np.ndarray) -> list:
+    """Worker ``w``'s requests of one 100 ms step, as testing/ipc_procs
+    script steps: Zipf(1.1) bulk groups of 64-2,048 rows over its own 1,500
+    resources (8,192 rows in all, each group's ts sorted in [now - 100,
+    now - 1]); worker 1 adds 8 single entries with args on the
+    hot-parameter rule, worker 2 a group of 64 on the THREAD-grade rule."""
+    out = []
+    left = IPC_ROWS
+    while left:
+        n = min(left, int(rng.integers(64, 2049)))
+        if 0 < left - n < 64:
+            n = left - 64
+        r = w * IPC_OWN + int(rng.choice(IPC_OWN, p=p))
+        ts = np.sort(now - rng.integers(1, 101, n)).astype(np.int64)
+        out.append({"kind": "bulk", "resource": f"r{r}", "n": n, "ts": ts, "timeout_ms": 120000})
+        left -= n
+    if w == 1:
+        for _ in range(8):
+            out.append({"kind": "entry", "resource": IPC_PARAM, "ts": int(now - rng.integers(1, 101)),
+                        "args": [f"v{int(rng.integers(0, 6))}"], "timeout_ms": 120000})
+    if w == 2:
+        out.append({"kind": "bulk", "resource": IPC_THREAD, "n": 64, "ts": np.full(64, now - 50, np.int64),
+                    "timeout_ms": 120000})
+    return out
+
+
+def ipc_exits(rng, steps: list, answers: list, now: int) -> list:
+    """The completions a worker sends after its step's requests, from their
+    verdicts: 4 of the admitted entries of each of its first two groups
+    with admissions, and half of the THREAD-grade rule's."""
+    out = []
+    groups = 0
+    for step, ans in zip(steps, answers):
+        if ans[0] != "bulk":
+            continue
+        adm = int(sum(ans[1]))
+        if step["resource"] == IPC_THREAD:
+            k = adm // 2
+        elif groups < 2 and adm:
+            groups += 1
+            k = min(adm, 4)
+        else:
+            continue
+        out += [{"kind": "exit", "resource": step["resource"], "ts": now - 1, "rt": int(rng.integers(1, 300))}
+                for _ in range(k)]
+    return out
+
+
+def _ipc_oracle_run(eng, steps: list, spec: bool) -> list:
+    """One worker's steps on an engine in this process, with the plane's
+    semantics: each bulk group split into the client's frames by bytes, a
+    frame's group one submit_bulk (a speculative group answered before its
+    settle, else a flush), an exit one submit_exit_bulk left for the next
+    flush. Returns the answers ``testing/ipc_procs`` would."""
+    from sentinel_tpu_torch.ipc import frames as ifr
+    from sentinel_tpu_torch.ipc.worker import _byte_chunks
+    from sentinel_tpu_torch.utils.config import config
+
+    budget = IPC_SLOT_BYTES_A - ifr.FRAME_RESERVE
+    out = []
+    for step in steps:
+        if step["kind"] == "exit":
+            with eng._lock:
+                rows = eng.resolve_entry_rows(step["resource"], C.CONTEXT_DEFAULT_NAME, "", C.EntryType.OUT)
+            eng.submit_exit_bulk(rows, 1, rt=np.array([step["rt"]]), count=np.array([1]), err=np.array([0]),
+                                 ts=np.array([step["ts"]]), resource=step["resource"], speculative=spec)
+            out.append(("exit",))
+            continue
+        n = step.get("n", 1)
+        ts = np.broadcast_to(np.asarray(step["ts"], np.int64), (n,))
+        args = [tuple(step.get("args", ()))] * n
+        adm, rsn, wms = [], [], []
+        for lo, hi in _byte_chunks([ifr.ENTRY_ROW_BYTES + len(ifr.encode_args(a)) for a in args], budget, "oracle"):
+            m = hi - lo
+            args_col = args[lo:hi] if any(args[lo:hi]) else None
+            op = eng.submit_bulk(step["resource"], m, ts=ts[lo:hi].astype(np.int32),
+                                 acquire=np.ones(m, np.int32), args_column=args_col)
+            if op.spec_admitted is not None:
+                eng._spec_maybe_settle()
+            else:
+                eng.flush()
+            adm += op.admitted.tolist()
+            rsn += op.reason.tolist()
+            wms += op.wait_ms.tolist()
+        if step["kind"] == "entry":
+            out.append(("entry", adm[0], rsn[0], wms[0]))
+        else:
+            out.append(("bulk", adm, rsn, wms))
+    return out
+
+
+def _ipc_answer(ans) -> tuple:
+    """A worker's answer as the oracle writes it (no flags)."""
+    if ans[0] == "entry":
+        return ("entry", bool(ans[1]), int(ans[2]), int(ans[3]))
+    if ans[0] == "bulk":
+        return ("bulk", [bool(a) for a in ans[1]], [int(r) for r in ans[2]], [int(w) for w in ans[3]])
+    return tuple(ans)
+
+
+def drive_ipc(device: torch.device, seed: int, depth: int, spec: bool, workers=None):
+    """Phase 4j (a): STEPS steps of the four workers' scripts in lockstep.
+    A step sets the clock, runs every worker's requests, then every
+    worker's completions of the step's admissions, and ends with a settle
+    (flush and drain) once the plane has applied them: a worker's exits
+    then reach the device at the same point of its own history wherever
+    they share a drain with another worker's frames. With ``workers`` (the
+    engine, its clock, the plane, and its four workers' queues) the steps go
+    through the worker processes; without, through ``_ipc_oracle_run`` on an
+    engine of this process (the CPU reference). Returns (the answers a step
+    and worker, the final states, stats reads, the CUDA flags the workers
+    reported)."""
+    p = (np.arange(1, IPC_OWN + 1, dtype=np.float64) ** -1.1)
+    p /= p.sum()
+    rngs = [np.random.default_rng([seed, w]) for w in range(IPC_WORKERS)]
+    exit_rngs = [np.random.default_rng([seed, w, 1]) for w in range(IPC_WORKERS)]
+    if workers is None:
+        clock = tclock.ManualClock(0)
+        eng = _ipc_engine(device, clock, PIPELINE_DEPTH=depth, SPECULATIVE_ENABLED=str(spec).lower(), **IPC_ENGINE_A)
+    else:
+        eng, clock, plane, cmd_qs, out_q = workers
+        exits_seen = plane.snapshot()["counters"]["exits"]
+    records, cuda_flags = [], []
+
+    def run(scripts):
+        if workers is None:
+            return [_ipc_oracle_run(eng, scripts[w], spec) for w in range(IPC_WORKERS)]
+        for w in range(IPC_WORKERS):
+            cmd_qs[w].put(("script", scripts[w]))
+        answers = [None] * IPC_WORKERS
+        for _ in range(IPC_WORKERS):
+            tag, w, out, cuda = out_q.get(timeout=300)
+            if tag != "script":
+                fail(f"phase 4j (a): worker {w} answered {tag}")
+            answers[w] = [_ipc_answer(a) for a in out]
+            cuda_flags.append(cuda)
+        return answers
+
+    for s in range(STEPS):
+        now = 1000 + 100 * s
+        clock.set_ms(now)
+        scripts = [ipc_step(rngs[w], w, now, p) for w in range(IPC_WORKERS)]
+        answers = run(scripts)
+        exits = [ipc_exits(exit_rngs[w], scripts[w], answers[w], now) for w in range(IPC_WORKERS)]
+        run(exits)
+        if workers is not None:  # every exit frame applied before the settle
+            exits_seen += sum(len(x) for x in exits)
+            deadline = time.monotonic() + 60
+            while plane.snapshot()["counters"]["exits"] < exits_seen:
+                if time.monotonic() > deadline:
+                    fail(f"phase 4j (a): the plane applied {plane.snapshot()['counters']['exits']} of "
+                         f"{exits_seen} exits")
+                time.sleep(0.0005)
+        records.append([answers[w] + [("exit",)] * len(exits[w]) for w in range(IPC_WORKERS)])
+        eng.flush()
+        eng.drain()
+    for _ in range(2):  # the second settles what the first's reconciles queued (the tier's gauge compensations)
+        eng.flush()
+        eng.drain()
+    reads = [json.dumps(eng.cluster_node_stats(r, flush=False), sort_keys=True)
+             for r in ("r0", "r1500", "r3000", "r4500", IPC_THREAD)]
+    states = _ipc_states(eng)
+    if workers is None:
+        eng.close()
+    return records, states, reads, cuda_flags
+
+
+def _ipc_states(eng) -> list:
+    """``_states_of(eng)`` with the stats' rows in the order of their
+    registry keys, and the keys: the plane registers the workers' resources
+    in the order their frames drain, which differs from run to run."""
+    from sentinel_tpu_torch.runtime.failover import tree_leaves
+
+    with eng.nodes._lock:
+        keys = list(eng.nodes._keys)
+    stats, *rest = _states_of(eng)
+    n_rows = stats.threads.shape[0]
+    order = np.array(sorted(range(len(keys)), key=keys.__getitem__) + list(range(len(keys), n_rows)))
+    return [sorted(keys), tuple(x[order] for x in tree_leaves(tuple(stats))), *rest]
+
+
+def _ipc_same_states(a, b, what: str) -> None:
+    """The registries' keys equal, and every state tensor bit for bit."""
+    from sentinel_tpu_torch.runtime.failover import tree_leaves
+
+    if a[0] != b[0]:
+        fail(f"phase 4j (a) {what}: the node registries differ")
+    for i, (x, y) in enumerate(zip(tree_leaves(tuple(a[1:])), tree_leaves(tuple(b[1:])))):
+        if x.shape != y.shape or x.dtype != y.dtype or not np.array_equal(
+                x.view(np.int32) if x.dtype == np.float32 else x, y.view(np.int32) if y.dtype == np.float32 else y):
+            fail(f"phase 4j (a) {what}: state tensor {i} differs")
+
+
+class _PlaneMeter:
+    """Wraps an engine's ``flush`` and its plane's ``_drain_once`` (instance
+    attributes, which the drainer looks up each call) to keep the host split
+    of each of the drainer's flushes and the count of drains that carried
+    frames; ``take()`` returns and clears them."""
+
+    def __init__(self, eng, plane) -> None:
+        self.splits, self.drains, self._lock = [], 0, threading.Lock()
+        flush_fn, drain_fn = eng.flush, plane._drain_once
+
+        def flush_and_keep(*a, **k):
+            out = flush_fn(*a, **k)
+            with self._lock:
+                self.splits.append(dict(eng.last_flush_host_ms))
+            return out
+
+        def drain_and_count():
+            worked = drain_fn()
+            if worked:
+                with self._lock:
+                    self.drains += 1
+            return worked
+
+        eng.flush, plane._drain_once = flush_and_keep, drain_and_count
+
+    def take(self):
+        with self._lock:
+            out = (self.splits, self.drains)
+            self.splits, self.drains = [], 0
+        return out
+
+
+def _ipc_spawn(plane, n: int):
+    """``n`` testing/ipc_procs.serve workers of ``plane`` (spawned from its
+    context), each with a client attached: (processes, command queues, the
+    answer queue, the CUDA flags they reported)."""
+    from sentinel_tpu_torch.testing import ipc_procs
+
+    ctx = plane.spawn_context()
+    out_q = ctx.Queue()
+    procs, cmd_qs = [], []
+    for w in range(n):
+        q = ctx.Queue()
+        pr = ctx.Process(target=ipc_procs.serve, args=(plane.channel(w), w, q, out_q), daemon=True)
+        pr.start()
+        procs.append(pr)
+        cmd_qs.append(q)
+    return procs, cmd_qs, out_q
+
+
+def _ipc_attach(cmd_qs, out_q, cfg: dict) -> list:
+    for q in cmd_qs:
+        q.put(("client", cfg))
+    flags = []
+    for _ in cmd_qs:
+        tag, w, cuda = out_q.get(timeout=300)
+        if tag != "client":
+            fail(f"phase 4j: worker {w} answered {tag} to its attach")
+        flags.append(cuda)
+    return flags
+
+
+def _ipc_stop(procs, cmd_qs, out_q) -> list:
+    """Stop the workers (their clients close); the CUDA flags they report."""
+    flags = []
+    for pr, q in zip(procs, cmd_qs):
+        if pr.is_alive():
+            q.put(("stop",))
+    for pr in procs:
+        pr.join(timeout=30)
+        if pr.is_alive():
+            pr.terminate()
+            pr.join(timeout=10)
+    while True:
+        try:
+            msg = out_q.get(timeout=0.5)
+        except Exception:
+            break
+        if msg[0] == "stopped":
+            flags.append(msg[-1])
+    return flags
+
+
+def _pcts(rtt) -> str:
+    a = np.sort(np.asarray(rtt))
+    return f"p50 {a[len(a) // 2]:.3f}, p99 {a[int(0.99 * len(a))]:.3f} ms" if len(a) else "no calls"
+
+
+def _ipc_loops(eng, plane, cmd_qs, out_q, cuda_flags: list) -> None:
+    """(c): on the real clock, IPC_LOOP_S each: 1 worker then 4 looping
+    bulk(res, 256), one caller looping entry, then 8 callers in one worker
+    with the micro-window off and at 2 ms."""
+    meter = _PlaneMeter(eng, plane)
+    coalesced = {}
+    own = [[f"r{w * IPC_OWN + i}" for i in range(IPC_OWN)] for w in range(IPC_WORKERS)]
+
+    def run(tag, cmds):
+        meter.take()
+        t0 = time.perf_counter()
+        for w, cmd in cmds:
+            cmd_qs[w].put(cmd)
+        got = [out_q.get(timeout=300) for _ in cmds]
+        took = time.perf_counter() - t0
+        splits, drains = meter.take()
+        for g in got:
+            cuda_flags.append(g[-1])
+        if tag.startswith("bulk"):
+            calls, rows = sum(g[2] for g in got), sum(g[3] for g in got)
+            rtt, frames = [x for g in got for x in g[4]], sum(g[5] for g in got)
+        else:
+            calls = rows = sum(g[2] for g in got)
+            rtt, frames = [x for g in got for x in g[3]], sum(g[4] for g in got)
+        if calls == 0 or not splits:
+            fail(f"phase 4j (c) {tag}: no call went through the plane")
+        coalesced[tag] = 1.0 - frames / calls
+        log(f"  (c) {tag}: {rows / took:,.0f} requests/s through the plane ({calls:,} calls, {frames:,} frames in "
+            f"{took:.2f} s); round trip {_pcts(rtt)}; {drains / took:,.1f} drains/s; {len(splits):,} drainer "
+            f"flushes, host split {split_line(splits)}"
+            + ("" if tag.startswith("bulk") else f"; frames coalesced by the micro-window {coalesced[tag]:.1%}"))
+
+    seed = 41
+    run("bulk, 1 worker", [(0, ("loop_bulk", own[0], 256, IPC_LOOP_S, seed))])
+    run("bulk, 4 workers", [(w, ("loop_bulk", own[w], 256, IPC_LOOP_S, seed + w)) for w in range(IPC_WORKERS)])
+    run("entry, 1 caller", [(0, ("loop_entry", own[0], IPC_LOOP_S, 1, seed))])
+    run("entry, 8 callers, window 0 ms", [(1, ("loop_entry", own[1], IPC_LOOP_S, 8, seed))])
+    _ipc_attach([cmd_qs[1]], out_q, {"sentinel.tpu.ipc.client.window.ms": "2"})
+    run("entry, 8 callers, window 2 ms", [(1, ("loop_entry", own[1], IPC_LOOP_S, 8, seed))])
+    if coalesced["entry, 8 callers, window 2 ms"] <= 0.0:
+        fail("phase 4j (c): the 2 ms micro-window coalesced no frame under 8 callers")
+
+
+def phase4_ipc(results: dict, cpu_jobs: dict) -> None:
+    from sentinel_tpu_torch.ipc.plane import IngestPlane
+    from sentinel_tpu_torch.utils.config import config
+
+    log(f"phase 4j: the ipc plane on the card ({IPC_WORKERS} spawned workers, {N_RULES:,} rules, "
+        f"{FLUSH_N:,} entries a step over {STEPS / 10:g} simulated s; {card_line()})")
+    t_phase = time.perf_counter()
+    clock_a, clock_b = tclock.ManualClock(0), tclock.ManualClock(0)
+    eng_a = _ipc_engine(DEV, clock_a, PIPELINE_DEPTH=0, SPECULATIVE_ENABLED="false", **IPC_ENGINE_A)
+    eng_b = _ipc_engine(DEV, clock_b, PIPELINE_DEPTH=2, SPECULATIVE_ENABLED="true", **IPC_ENGINE_A)
+    eng_c = _ipc_engine(DEV, None)
+    planes = []
+    for eng in (eng_a, eng_b, eng_c):
+        for key, value in IPC_SETTINGS.items():
+            config.set(getattr(config, key), str(value))
+        if eng is not eng_c:
+            config.set(config.IPC_SLOT_BYTES, str(IPC_SLOT_BYTES_A))
+        try:
+            planes.append(IngestPlane(eng))
+        finally:
+            config.reset()
+    # Four workers a plane, and on the depth-2 plane a fifth for (b), which
+    # admits nothing before it. Each spawn imports torch: the depth-0 fleet
+    # starts alone, the others import while (a) runs at depth 0.
+    fleets = [_ipc_spawn(planes[0], IPC_WORKERS)]
+    cuda_flags = _ipc_attach(*fleets[0][1:], {})
+    log(f"  {IPC_WORKERS} workers spawned and attached in {time.perf_counter() - t_phase:.1f} s")
+    fleets += [_ipc_spawn(planes[1], IPC_WORKERS + 1), _ipc_spawn(planes[2], IPC_WORKERS)]
+    wrappers = {"materialize_matured": nodes.materialize_matured, "window_update": ma.update,
+                "thread_gauge": nodes.thread_gauge_add, "flow_admission": flush.flow_admission,
+                "run_param": tpt.run_param, "row_stats": nodes.rows_stats}
+    for w in wrappers.values():
+        w.launches = 0
+    # (a) parity through the processes: depth 0, then depth 2 with the tier on
+    for tag, eng, clock, fleet, depth, spec in (("4j a0", eng_a, clock_a, fleets[0], 0, False),
+                                                ("4j a2", eng_b, clock_b, fleets[1], 2, True)):
+        if depth:
+            t0 = time.perf_counter()
+            for f in fleets[1:]:
+                cuda_flags += _ipc_attach(*f[1:], {})
+            log(f"  the other {len(fleets[1][0]) + len(fleets[2][0])} workers attached {time.perf_counter() - t0:.1f} s "
+                "after (a) at depth 0")
+        t0 = time.perf_counter()
+        got = drive_ipc(DEV, 19, depth, spec, workers=(eng, clock, planes[0 if depth == 0 else 1], fleet[1], fleet[2]))
+        took = time.perf_counter() - t0
+        cuda_flags += got[3]
+        want = cpu_result(cpu_jobs, tag)
+        if got[0] != want[0]:
+            bad = next((s, w) for s in range(STEPS) for w in range(IPC_WORKERS) if got[0][s][w] != want[0][s][w])
+            fail(f"phase 4j (a) depth {depth}: verdicts differ from the CPU engine's at step {bad[0]}, worker {bad[1]}")
+        _ipc_same_states(got[1], want[1], f"depth {depth}")
+        if got[2] != want[2]:
+            fail(f"phase 4j (a) depth {depth}: the stats reads differ from the CPU engine's")
+        n_req = sum(len(a[1]) if a[0] == "bulk" else 1 for step in got[0] for ans in step for a in ans
+                    if a[0] != "exit")
+        n_adm = sum(sum(a[1]) if a[0] == "bulk" else int(a[1]) for step in got[0] for ans in step for a in ans
+                    if a[0] != "exit")
+        n_exit = sum(1 for step in got[0] for ans in step for a in ans if a[0] == "exit")
+        if not 0 < n_adm < n_req:
+            fail(f"phase 4j (a) depth {depth}: {n_adm} of {n_req} admitted: the stream did not exercise the rules")
+        snap = planes[0 if depth == 0 else 1].snapshot()["counters"]
+        log(f"  (a) depth {depth}, speculative {'on' if spec else 'off'}: {n_req:,} requests ({n_adm:,} admitted) and "
+            f"{n_exit:,} exits from {IPC_WORKERS} processes in {took:.1f} s; verdicts, reasons, wait_ms, stats reads "
+            f"and every state tensor identical to the CPU engine fed each worker's steps in-process; plane counters "
+            f"{snap}")
+    counts = {name: w.launches for name, w in wrappers.items()}
+    log(f"  (a) launches through the plane (both depths, the stats reads included): {counts}")
+    if counts["flow_admission"] <= 0:
+        fail("phase 4j (a): the flow admission (K4) was not launched through the plane")
+    if counts["materialize_matured"] != 0:
+        fail("phase 4j (a): the matured-borrow sweep (K1) ran on a stream that borrows nothing")
+    for name, c in counts.items():
+        results[name]["launches_4j"] = c
+    # (b) the worker-kill chaos on the depth-2 plane (the mirror armed)
+    procs, cmd_qs, out_q = fleets[1]
+    plane_b = planes[1]
+    dead0 = plane_b.snapshot()["counters"]["worker_deaths"]
+    auto0 = plane_b.snapshot()["counters"]["auto_exits"]
+    kw = IPC_WORKERS
+    cmd_qs[kw].put(("script", [{"kind": "entry", "resource": IPC_KILL, "ts": 1000 + 100 * STEPS,
+                                "timeout_ms": 120000}] * IPC_KILL_N))
+    tag, _w, ans, cuda = out_q.get(timeout=300)
+    cuda_flags.append(cuda)
+    if tag != "script" or sum(bool(a[1]) for a in ans) != IPC_KILL_N:
+        fail(f"phase 4j (b): the worker admitted {sum(bool(a[1]) for a in ans)} of {IPC_KILL_N}")
+    eng_b.flush()
+    eng_b.drain()
+    before = eng_b.cluster_node_stats(IPC_KILL)["cur_thread_num"]
+    t_kill = time.perf_counter()
+    os.kill(procs[kw].pid, 9)
+    deadline = time.monotonic() + 30
+    while plane_b.snapshot()["counters"]["auto_exits"] - auto0 < IPC_KILL_N and time.monotonic() < deadline:
+        time.sleep(0.01)
+    reaped_s = time.perf_counter() - t_kill
+    time.sleep(0.2)  # a second reap would show here
+    counters = plane_b.snapshot()["counters"]
+    auto, deaths = counters["auto_exits"] - auto0, counters["worker_deaths"] - dead0
+    eng_b.flush()
+    eng_b.drain()
+    nodes.rows_stats.launches = 0
+    gauge = eng_b.cluster_node_stats(IPC_KILL)["cur_thread_num"]
+    mirror = eng_b.speculative.mirror.snapshot()["live_threads"].get(IPC_KILL, 0)
+    log(f"  (b) worker {kw} admitted {IPC_KILL_N} on the THREAD-grade rule (gauge {before}), SIGKILL: reaped after "
+        f"{reaped_s:.3f} s (worker.dead.ms {IPC_SETTINGS['IPC_WORKER_DEAD_MS']}), {deaths} death, auto_exits {auto}; "
+        f"the device gauge (row_stats, {nodes.rows_stats.launches} launch) {gauge}, the mirror {mirror}")
+    if (before, auto, deaths, gauge, mirror) != (IPC_KILL_N, IPC_KILL_N, 1, 0, 0) or (
+            DEV.type == "cuda" and nodes.rows_stats.launches != 1):
+        fail(f"phase 4j (b): gauge before {before}, deaths {deaths}, auto_exits {auto}, gauge after {gauge}, "
+             f"mirror {mirror}")
+    # (c) times on the real clock
+    _ipc_loops(eng_c, planes[2], fleets[2][1], fleets[2][2], cuda_flags)
+    for windowed in (False, True):
+        rps, p50, p99, n, _ = windowed_latency(windowed, seconds=IPC_LOOP_S)
+        log(f"  (c) in-process {'api.entry_windowed (2 ms window)' if windowed else 'st.entry'}, 8 threads: "
+            f"{rps:,.0f} requests/s, p50 {p50:.3f}, p99 {p99:.3f} ms ({n:,} calls)")
+    # (d) no worker set CUDA up; nvidia-smi lists no worker's context
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.split()
+    pids = {str(pr.pid) for procs_, _q, _o in fleets for pr in procs_ if pr.is_alive()}
+    for procs_, cmd_qs_, out_q_ in fleets:
+        cuda_flags += _ipc_stop(procs_, cmd_qs_, out_q_)
+    for pl in planes:
+        pl.close()
+    for eng in (eng_a, eng_b, eng_c):
+        eng.close()
+    log(f"  (d) torch.cuda.is_initialized() in the workers: {len(cuda_flags)} reports, "
+        f"{sum(bool(f) for f in cuda_flags)} True; nvidia-smi's compute processes while {len(pids)} workers lived: "
+        f"{len(apps)} (this one alone holds a context)")
+    if any(cuda_flags) or len(apps) > 1:
+        fail("phase 4j (d): a worker process set CUDA up")
+    log(f"  phase 4j took {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase5() -> None:
@@ -4957,6 +5478,8 @@ def start_cpu_jobs() -> dict:
         "4i c": WORKERS.apply_async(drive_retuned_engine, (cpu, 31, False)),
         "4i c chain": WORKERS.apply_async(drive_retuned_engine, (cpu, 31, True)),
         "4i e": WORKERS.apply_async(drive_mesh_topk, (cpu, 32)),
+        "4j a0": WORKERS.apply_async(drive_ipc, (cpu, 19, 0, False)),
+        "4j a2": WORKERS.apply_async(drive_ipc, (cpu, 19, 2, True)),
     }
 
 
@@ -5029,6 +5552,7 @@ def main() -> None:
         ("2f", lambda: phase2_mesh(results)), ("3b", phase3b), ("4e", lambda: phase4_mesh(results, cpu_jobs)),
         ("4f", lambda: phase4_pipeline(cpu_jobs)), ("4g", lambda: phase4_failover(cpu_jobs)),
         ("4h", lambda: phase4_control(results, cpu_jobs)), ("4i", lambda: phase4_metric(results, cpu_jobs)),
+        ("4j", lambda: phase4_ipc(results, cpu_jobs)),
         ("5", phase5), ("6", phase6), ("7", phase7), ("8", lambda: phase8(results, cpu_jobs)), ("9", phase9),
     ):
         t0 = time.perf_counter()
@@ -5061,7 +5585,7 @@ def main() -> None:
                       "matured_memsets_per_call", "matured_device_ms", "matured_cells", "read_ms", "small_plain_ms",
                       "edges", "launches_4h", "routes_4h", "ms_60s", "plain_ms_60s", "bound_ms_60s",
                       "device_ms_60s", "launches_per_call_60s", "memsets_per_call_60s", "records", "records_60s",
-                      "pull_ms", "read_ms_4i", "copy_ms_4i", "asked_rows_4i", "copies_per_call") + tuple(
+                      "pull_ms", "read_ms_4i", "copy_ms_4i", "asked_rows_4i", "copies_per_call", "launches_4j") + tuple(
                           f"{m}_{n}_k{k}" for m in ("ms", "plain_ms", "library_ms", "device_ms", "launches_per_call",
                                                     "memsets_per_call") for n, k in ((N, 64), (8, 16), (8, 64))):
             if extra in r:

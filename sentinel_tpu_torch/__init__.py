@@ -19,7 +19,12 @@ Triton; and the metric plane (the admission trace with the W3C
 trace-context helpers, the provenance ledger, the block log, the metric
 extensions, the breaker observers, the metric log and its timer, the live
 second-window retune through ``sample_count_property`` and
-``interval_property``). Features not ported yet raise
+``interval_property``); the multi-process ingest plane
+(``sentinel_tpu_torch.ipc``: shared-memory rings, the frame codec, the
+worker's ``IngestClient``, the engine's ``IngestPlane`` drainer and worker
+mode through ``core.api.run_workers``, ``sentinel.tpu.ipc.enabled``) and
+the per-process span journal (``metrics.spans``,
+``sentinel.tpu.spans.enabled``). Features not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item.
 
     import sentinel_tpu_torch as st

@@ -10,7 +10,10 @@
 * ``trace`` ≙ ``Tracer.trace``: marks the current entry's business
   exception, counted at exit;
 * ``entry_windowed`` / ``entry_windowed_async``: ``entry`` through the
-  engine's batch window (runtime/window.py) when it is armed.
+  engine's batch window (runtime/window.py) when it is armed;
+* ``run_workers``: an N-process deployment through the multi-process
+  ingest plane (ipc/): in worker mode every entry function above rides
+  the process's :class:`~sentinel_tpu_torch.ipc.worker.IngestClient`.
 
 A process-global :class:`Engine` plays ``Env.sph``; ``get_engine()``
 builds it on first use on the card (``cuda:0``), or on the device the
@@ -36,6 +39,10 @@ _engine_lock = threading.RLock()
 _boot_engine: Optional[Engine] = None
 # The device the next engine is built on (None = the card).
 _device: DeviceLike = None
+# ipc worker mode (ipc/worker_mode.py): this process's routed client and
+# the (client, client_entry) pair the entry functions read, one read each.
+_worker_client = None
+_worker_hook = None
 
 
 def _reapply_all_managers(engine: Engine) -> None:
@@ -86,6 +93,20 @@ def set_engine(engine: Optional[Engine]) -> Optional[Engine]:
         prev = _engine
         _engine = engine
         return prev
+
+
+def set_worker_client(cli) -> None:
+    """Install or clear the ipc worker-mode client hook (see
+    sentinel_tpu_torch.ipc.worker_mode; not a public API)."""
+    global _worker_client, _worker_hook
+    if cli is not None:
+        from sentinel_tpu_torch.ipc.worker_mode import client_entry
+
+        _worker_hook = (cli, client_entry)
+        _worker_client = cli
+    else:
+        _worker_client = None
+        _worker_hook = None
 
 
 def reset(clock: Optional[Clock] = None, device: DeviceLike = None) -> Engine:
@@ -278,7 +299,13 @@ def entry(
     prio: bool = False,
     args: Sequence[object] = (),
 ) -> Entry:
-    """SphU.entry: returns an Entry or raises a BlockError subclass."""
+    """SphU.entry: returns an Entry or raises a BlockError subclass. In
+    ipc worker mode (``sentinel.tpu.ipc.worker.mode``) the admission rides
+    this process's IngestClient to the engine process instead: the same
+    Entry/BlockError surface, no local engine."""
+    hook = _worker_hook
+    if hook is not None:
+        return hook[1](hook[0], resource, entry_type, count, origin, args, with_context=True, prio=prio)
     e, verdict = _do_entry(resource, entry_type, count, origin, prio, args=args)
     if e is None:
         raise _block_error(verdict, resource)
@@ -297,6 +324,12 @@ def try_entry(
     args: Sequence[object] = (),
 ) -> Optional[Entry]:
     """SphO.entry: the Entry on pass, None on block."""
+    hook = _worker_hook
+    if hook is not None:
+        try:
+            return hook[1](hook[0], resource, entry_type, count, origin, args, with_context=True)
+        except E.BlockError:
+            return None
     e, _ = _do_entry(resource, entry_type, count, origin, False, args=args)
     return e
 
@@ -309,8 +342,10 @@ def entry_async(
     args: Sequence[object] = (),
 ) -> Entry:
     """SphU.asyncEntry: not pushed on the context's entry stack; exit it
-    from anywhere. Raises a BlockError subclass when blocked. The IPC
-    worker hook of the JAX function belongs to ROADMAP Queue 1 item 10."""
+    from anywhere. Raises a BlockError subclass when blocked."""
+    hook = _worker_hook
+    if hook is not None:
+        return hook[1](hook[0], resource, entry_type, count, origin, args, with_context=False)
     e, verdict = _do_entry(resource, entry_type, count, origin, False, args=args, with_context=False)
     if e is None:
         raise _block_error(verdict, resource)
@@ -318,8 +353,9 @@ def entry_async(
 
 
 # ---------------------------------------------------------------------------
-# Batch-window admission (runtime/window.py). The IPC worker hook of the
-# JAX functions belongs to ROADMAP Queue 1 item 10.
+# Batch-window admission (runtime/window.py). In ipc worker mode both
+# functions route through the process's IngestClient, whose own
+# micro-window is the worker-side coalescing tier.
 # ---------------------------------------------------------------------------
 
 
@@ -394,6 +430,9 @@ def entry_windowed(
     ``submit_bulk`` flush and its verdict fans back out, with the same
     Entry/BlockError surface and the same verdicts. Window off (the
     default) is exactly the per-request call."""
+    hook = _worker_hook
+    if hook is not None:
+        return hook[1](hook[0], resource, entry_type, count, origin, args, with_context=not detached)
     engine = get_engine()
     w = engine.ingest_window
     if not w.armed:
@@ -420,9 +459,16 @@ async def entry_windowed_async(
     """The awaitable :func:`entry_windowed`: the event loop stays free
     while the window assembles and flushes (the fan-out wakes the task on
     its own loop). A cancelled awaiter whose slot was admitted is exited
-    by the window. Window off falls back to the blocking per-request call."""
+    by the window. Window off falls back to the blocking per-request call.
+    In ipc worker mode the blocking client call runs in a thread
+    (``asyncio.to_thread``, which carries the task's contextvars, so the
+    ambient traceparent reaches the frame), and the loop stays free."""
     import asyncio
 
+    hook = _worker_hook
+    if hook is not None:
+        return await asyncio.to_thread(hook[1], hook[0], resource, entry_type, count, origin, args,
+                                       with_context=not detached)
     engine = get_engine()
     w = engine.ingest_window
     if not w.armed:
@@ -444,6 +490,50 @@ async def entry_windowed_async(
     if req.verdict is not None and req.verdict.wait_ms > 0:
         await asyncio.sleep(req.verdict.wait_ms / 1e3)
     return e
+
+
+def run_workers(target, n: int = 2, args: Sequence[object] = (), engine: Optional[Engine] = None):
+    """An N-process worker deployment in one line: ensure the
+    multi-process ingest plane on the (global) engine, spawn ``n`` worker
+    processes and run ``target(worker_id, *args)`` in each, with the whole
+    entry surface routed through that process's IngestClient (worker
+    mode). ``target`` must be a top-level (picklable) callable; the
+    parent's runtime ``sentinel.tpu.ipc.*`` config is replayed into each
+    child. Returns a :class:`~sentinel_tpu_torch.ipc.worker_mode.WorkerSet`
+    (``join()``, ``stop()``, ``alive()``). A worker builds no engine and
+    touches no device."""
+    from sentinel_tpu_torch.ipc import worker_mode
+    from sentinel_tpu_torch.ipc.plane import IngestPlane
+    from sentinel_tpu_torch.utils.config import config
+
+    eng = engine if engine is not None else get_engine()
+    plane = eng.ipc_plane
+    if plane is None:
+        plane = IngestPlane(eng)
+    if n > plane.workers_max:
+        raise ValueError(f"run_workers: n={n} exceeds sentinel.tpu.ipc.workers.max={plane.workers_max}")
+    # Ids come from the plane, not 0..n-1: a second run_workers on the
+    # same engine must never put two clients on one response ring.
+    ids = plane.claim_worker_slots(n)
+    overrides = config.runtime_snapshot("sentinel.tpu.ipc.")
+    ctx = plane.spawn_context()
+    procs = []
+    for w in ids:
+        p = ctx.Process(target=worker_mode.worker_main,
+                        args=(plane.channel(w), w, overrides, target, tuple(args)), daemon=True)
+        p.start()
+        procs.append(p)
+    return worker_mode.WorkerSet(procs, plane)
+
+
+def run_engine_supervised(setup=None, setup_args: Sequence[object] = (), n_workers: int = 0,
+                          prefix: Optional[str] = None):
+    """The engine in a supervised child process on named shared-memory
+    rings, restarted on a crash (JAX ``ipc/supervise.py``): not ported
+    yet."""
+    from sentinel_tpu_torch.utils.unported import ROADMAP_IPC, unported
+
+    raise unported("run_engine_supervised (the engine supervisor)", ROADMAP_IPC)
 
 
 # Tracer exception filters (Tracer.java:33-34, 129-186): BlockError is

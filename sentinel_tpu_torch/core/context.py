@@ -70,11 +70,31 @@ class ContextUtil:
         return ContextUtil.true_enter(name, origin)
 
     @staticmethod
+    def detached_enter(name: str, origin: str) -> Context:
+        """The engine-free twin of :meth:`true_enter` for ipc worker mode:
+        the node registry lives in the engine process, so no entrance row
+        is resolved here, and no Engine is ever built in the worker
+        (``true_enter`` builds one through ``get_engine()``). The context
+        NAME crosses the wire; the plane resolves the entrance row."""
+        ctx = _current.get()
+        if ctx is None:
+            ctx = Context(name, origin, is_null=False)
+            ctx.auto = name == C.CONTEXT_DEFAULT_NAME
+            ctx.trace = _trace.get()
+            _current.set(ctx)
+        return ctx
+
+    @staticmethod
     def true_enter(name: str, origin: str) -> Context:
         ctx = _current.get()
         if ctx is None:
             from sentinel_tpu_torch.core import api
 
+            if api._worker_client is not None:
+                # ipc worker mode: resolving the entrance row here would
+                # build a whole Engine (device state, flush threads) in
+                # the worker.
+                return ContextUtil.detached_enter(name, origin)
             row = api.get_engine().nodes.entrance_row(name)
             ctx = Context(name, origin, is_null=row is None)
             ctx.auto = name == C.CONTEXT_DEFAULT_NAME

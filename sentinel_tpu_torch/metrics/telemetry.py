@@ -279,8 +279,8 @@ class TelemetryBus:
             # (sentinel.tpu.sketch.cold.qps): submits blocked from the
             # host count-min twin's estimate.
             "sketch_cold_blocks": 0,
-            # Multi-process ingest plane (ROADMAP Queue 1 item 10; 0
-            # until it is ported): request frames drained / rows
+            # Multi-process ingest plane (ipc/plane.py): request
+            # frames drained / rows
             # carried, worker-side ring-full sheds folded in, dead-worker
             # reaps with their auto-exited live admissions.
             "ipc_frames": 0,
@@ -564,7 +564,7 @@ class TelemetryBus:
             self.counters["sketch_cold_blocks"] += n
 
     # ------------------------------------------------------------------
-    # multi-process ingest plane (ROADMAP Queue 1 item 10)
+    # multi-process ingest plane (ipc/plane.py)
     # ------------------------------------------------------------------
     def note_ipc_frames(self, frames: int, rows: int) -> None:
         with self._lock:

@@ -31,7 +31,8 @@ tracer (``Engine.admission_trace``), the provenance ledger
 (``Engine.resource_metrics``), the block log (``Engine.block_log``), the
 metric extensions, the breaker state-change observers, the live retune of
 the second window (``retune_second_window``) and the metric timer's read
-(metrics/metric_log.py). Everything else the JAX engine does is refused loudly with
+(metrics/metric_log.py); the multi-process ingest plane (``Engine.ipc_plane``,
+ipc/plane.py, off by default). Everything else the JAX engine does is refused loudly with
 ``NotImplementedError`` naming its ROADMAP item (see
 ``_refuse_unported_config`` and the ``set_*`` methods), never ignored.
 
@@ -119,8 +120,6 @@ from sentinel_tpu_torch.utils.device import DeviceLike, resolve_device
 from sentinel_tpu_torch.utils.numeric import pad_pow2 as _pad_pow2
 from sentinel_tpu_torch.utils.unported import (
     ROADMAP_CLUSTER,
-    ROADMAP_IPC,
-    ROADMAP_METRICS,
     ROADMAP_TIERS,
     unported,
 )
@@ -130,11 +129,7 @@ from sentinel_tpu_torch.utils.unported import (
 _SUBMIT_ENTRY_KEYS = frozenset(("resource", "context_name", "origin", "acquire", "entry_type", "prio", "ts", "args"))
 
 # Switches the JAX engine honours that this slice does not have yet.
-_UNPORTED_SWITCHES = (
-    (config.CAPTURE_ENABLED, ROADMAP_TIERS),
-    (config.IPC_ENABLED, ROADMAP_IPC),
-    (config.SPANS_ENABLED, ROADMAP_METRICS),
-)
+_UNPORTED_SWITCHES = ((config.CAPTURE_ENABLED, ROADMAP_TIERS),)
 
 
 def _refuse_unported_config() -> None:
@@ -779,6 +774,20 @@ class Engine:
         # (submit-ts second, resource) speculative, degraded, shed and drift
         # counts, drained by the metric timer into the v2 line columns.
         self.resource_metrics = ResourceProvenance()
+        # The multi-process ingest plane (ipc/): N worker processes feed
+        # this engine through shared-memory rings. Disarmed (the default)
+        # this attribute is the whole footprint: no shared memory, no
+        # thread, nothing on any hot path. Built last: its control thread
+        # reads the failover tier and its drainer every tier above.
+        self.ipc_plane = None
+        if config.get_bool(config.IPC_ENABLED, False):
+            from sentinel_tpu_torch.ipc.plane import IngestPlane
+
+            IngestPlane(self)  # registers itself as self.ipc_plane
+        # The planned-handoff trigger a supervised serve loop reads (the
+        # supervisor is not ported: ROADMAP Queue 1 step 10b); an
+        # unsupervised engine never reads it.
+        self.handoff_requested = threading.Event()
 
     def _note_blocked_items(self, parts: list) -> None:
         """Queue a fill's block-log items, in parts (item tuples or
@@ -1230,8 +1239,8 @@ class Engine:
         state, the system config and the authority rules are cleared, and
         the failover tier (back to HEALTHY, no checkpoint), the speculative
         tier (a fresh mirror), the ingest valve and the provenance ledger
-        reset. The mesh and a running auto-flusher stay. The JAX engine's
-        ipc reset belongs to ROADMAP Queue 1 item 10."""
+        reset, and the ipc plane drops its live-admission ledgers. The mesh
+        and a running auto-flusher stay."""
         try:
             self.drain()
         except Exception:
@@ -1242,6 +1251,11 @@ class Engine:
         self.speculative.reset()
         self.ingest.reset()
         self.resource_metrics.reset()
+        if self.ipc_plane is not None:
+            # The plane's live-admission ledgers reference the node rows
+            # this reset is about to rebuild: drop them (and re-intern)
+            # rather than release stale rows later.
+            self.ipc_plane.on_engine_reset()
         with self._on_stream():
             self.sketch.reset()
             with self._flush_lock, self._lock:
@@ -3345,8 +3359,13 @@ class Engine:
         thread, stop the auto-flusher, decide anything still queued and
         settle the deferred fetches (the pipelined flush leaves up to
         ``pipeline_depth`` in flight), fold the speculative tier's last
-        drift window and retire the failover tier's threads. Idempotent;
-        the engine stays usable."""
+        drift window and retire the failover tier's threads. The ipc plane
+        closes first: its drainer submits into this engine, and closing it
+        publishes the CLOSED health word, so worker processes serve the
+        policy snapshot instead of waiting on verdicts. Idempotent; the
+        engine stays usable."""
+        if self.ipc_plane is not None:
+            self.ipc_plane.close()
         self.ingest_window.close()
         self.stop_auto_flush()
         self.flush()

@@ -406,6 +406,17 @@ class HostFallbackAdmitter:
             if self.persistent:
                 self._track_deltas = False
 
+    def assert_live(self, resource: str, n: int) -> None:
+        """A reconnecting ipc worker's re-assertion (ipc/plane.py): charge
+        ``n`` live admissions to the mirror's THREAD counter. A restarted
+        engine's mirror starts empty; the workers' re-asserted live sets
+        make the fast tier's concurrency headroom exact in the new world,
+        and their exits release through the normal on_exit path."""
+        if n <= 0:
+            return
+        with self._lock:
+            self._threads[resource] = self._threads.get(resource, 0) + n
+
     def reset_world(self) -> None:
         """Fresh mirror world: buckets, counters and ledgers cleared."""
         with self._lock:

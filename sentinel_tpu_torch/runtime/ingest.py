@@ -74,8 +74,8 @@ class IngestValve:
             "shed_queue": 0,
             "shed_deadline": 0,
             # Worker-side ring-full sheds from the multi-process plane
-            # (ROADMAP Queue 1 item 10; 0 until it is ported): load
-            # shedding of THIS engine's ingest (cause "ring").
+            # (ipc/plane.py folds them in): load shedding of THIS
+            # engine's ingest (cause "ring").
             "shed_ring": 0,
         }
 

@@ -2888,3 +2888,136 @@ def test_chain_flush_step_kernels_nb10(cuda, second_10x1000):
     """The whole slot chain's step at nb = 10 over three flushes, against
     the plain versions' step."""
     test_chain_flush_step_kernels(cuda, (True, True, True))
+
+
+# --- the ipc plane (sentinel_tpu_torch/ipc) feeding the card's engine ---
+
+
+def _ipc_engine(device, clock, **cfg):
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils.config import config
+
+    for k, v in cfg.items():
+        config.set(getattr(config, k), str(v))
+    return Engine(clock=clock, initial_rows=256, device=device)
+
+
+def _ipc_serve(plane, wid, commands):
+    """One spawned port worker (testing/ipc_procs.serve) running
+    ``commands``; returns its answers (the last one "stopped")."""
+    from sentinel_tpu_torch.testing import ipc_procs
+
+    ctx = plane.spawn_context()
+    cmd_q, out_q = ctx.Queue(), ctx.Queue()
+    p = ctx.Process(target=ipc_procs.serve, args=(plane.channel(wid), wid, cmd_q, out_q), daemon=True)
+    p.start()
+    try:
+        answers = []
+        for cmd in commands + [("stop",)]:
+            cmd_q.put(cmd)
+            if cmd[0] != "stop":
+                answers.append(out_q.get(timeout=120))
+        answers.append(out_q.get(timeout=60))
+        return answers
+    finally:
+        p.join(timeout=20)
+        if p.is_alive():
+            p.terminate()
+
+
+def test_ipc_plane_worker_process_matches_cpu(cuda):
+    """One spawned worker's script (Zipf bulk groups, param entries with
+    args, exits) through the plane into the card's engine: its verdicts and
+    the final stats equal the same script through a plane on the CPU
+    engine; K4 ran on the card; the worker never set up CUDA."""
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.ipc.plane import IngestPlane
+    from sentinel_tpu_torch.metrics.nodes import stats_to_numpy
+    from sentinel_tpu_torch.utils.clock import ManualClock
+    from sentinel_tpu_torch.utils.config import config
+
+    rng = np.random.default_rng(19)
+    script = []
+    for step in range(6):
+        now = 1000 + 100 * step
+        for r in np.minimum(rng.zipf(1.1, 12) - 1, 31):
+            n = int(rng.integers(64, 600))
+            script.append({"kind": "bulk", "resource": f"q{r}", "n": n, "ts": now - 1, "timeout_ms": 60000})
+        for i in range(4):
+            script.append({"kind": "entry", "resource": "p", "ts": now - 2, "args": [f"v{i % 3}"],
+                           "timeout_ms": 60000})
+        script += [{"kind": "exit", "resource": f"q{i}", "ts": now - 1, "rt": 5} for i in range(3)]
+    out = {}
+    try:
+        for name, device in (("cpu", "cpu"), ("card", cuda)):
+            clock = ManualClock(1700)
+            eng = _ipc_engine(device, clock)
+            eng.set_flow_rules([st.FlowRule(f"q{i}", count=200) for i in range(32)])
+            eng.set_param_rules({"p": [st.ParamFlowRule("p", param_idx=0, count=3)]})
+            plane = IngestPlane(eng)
+            before = tflush.flow_admission.launches
+            answers = _ipc_serve(plane, 0, [("client", {}), ("script", script)])
+            launched = tflush.flow_admission.launches - before
+            plane.close()
+            eng.flush()
+            eng.drain()
+            out[name] = (answers[1][2], stats_to_numpy(eng.stats))
+            assert all(a[-1] is False for a in answers), answers  # no CUDA in the worker
+            if name == "card":
+                assert launched >= 1
+            eng.close()
+    finally:
+        config.reset()
+    assert out["cpu"][0] == out["card"][0]
+    _same_stats(out["cpu"][1], out["card"][1])
+    bulks = [s for s in out["card"][0] if s[0] == "bulk"]
+    assert 0 < sum(sum(b[1]) for b in bulks) < sum(len(b[1]) for b in bulks)
+
+
+def test_ipc_worker_kill_leaves_card_gauges_zero(cuda):
+    """A worker killed while it holds admissions on a THREAD-grade rule:
+    after sentinel.tpu.ipc.worker.dead.ms the plane auto-exits them, and
+    the card's gauge (read through row_stats) and the mirror read 0."""
+    import os
+    import signal
+    import time
+
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.ipc.plane import IngestPlane
+    from sentinel_tpu_torch.models import constants as C
+    from sentinel_tpu_torch.testing import ipc_procs
+    from sentinel_tpu_torch.utils.config import config
+
+    try:
+        eng = _ipc_engine(cuda, None, SPECULATIVE_ENABLED="true", IPC_HEARTBEAT_MS=50, IPC_WORKER_DEAD_MS=300)
+        eng.set_flow_rules([st.FlowRule("t", count=1000, grade=C.FLOW_GRADE_THREAD)])
+        plane = IngestPlane(eng)
+        ctx = plane.spawn_context()
+        q = ctx.Queue()
+        p = ctx.Process(target=ipc_procs.admit_and_hang, args=(plane.channel(0), 0, "t", 64, q), daemon=True)
+        p.start()
+        try:
+            tag, _wid, admitted, cuda_up = q.get(timeout=120)
+            assert (tag, admitted, cuda_up) == ("admitted", 64, False)
+            assert eng.cluster_node_stats("t")["cur_thread_num"] == 64
+            os.kill(p.pid, signal.SIGKILL)
+            # The reap counts the death before its auto exits: wait on the exits.
+            deadline = time.monotonic() + 30
+            while plane.snapshot()["counters"]["auto_exits"] < 64 and time.monotonic() < deadline:
+                time.sleep(0.02)
+            assert plane.snapshot()["counters"]["auto_exits"] == 64
+            assert plane.snapshot()["counters"]["worker_deaths"] == 1
+            eng.flush()
+            eng.drain()
+            tnodes.rows_stats.launches = 0
+            assert eng.cluster_node_stats("t")["cur_thread_num"] == 0
+            assert tnodes.rows_stats.launches >= 1
+            assert eng.speculative.mirror.snapshot()["live_threads"].get("t", 0) == 0
+        finally:
+            p.join(timeout=5)
+            if p.is_alive():
+                p.terminate()
+            plane.close()
+            eng.close()
+    finally:
+        config.reset()
