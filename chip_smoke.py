@@ -130,7 +130,7 @@ The failure domain and the speculative tier (runtime/failover.py,
 runtime/speculative.py, runtime/durable.py): phase 4g runs phase 4's
 stream (its entries through ``entry_sync``, each flush ``flush_async`` and
 ``drain``) with failover armed (a checkpoint every 8 flushes, each armed
-dispatch under ``set_sync_debug_mode("error")``) and unarmed, in turns:
+dispatch under ``set_sync_debug_mode("error")``), then unarmed:
 identical verdicts and state, the stats equal to phase 4's, 0 trips; the
 flush call and host split of each, and the checkpoint copy's device and
 host ms. Then one plan of faults (a failed wait at flush 12, a wait hung
@@ -163,14 +163,14 @@ with the autotuner on, its verdicts equal to an untuned CPU engine's,
 K10's two routes each counted by torch.profiler (0 on either fails), its
 depth decisions and cost memo printed, then the window controller's
 decisions under 8 threads of api.entry_windowed; (d) runs phase 4's
-stream with telemetry on and off in turns (the host splits, the blocked
+stream with telemetry on, then off (the host splits, the blocked
 sketch against the CPU's, spans_to_trace written to build/ and read
 back, the DEFAULT dispatch under set_sync_debug_mode("error")); (e) times
-api.entry_windowed against st.entry, 8 threads, 2 s each, in turns.
+api.entry_windowed against st.entry, 8 threads, 1 s each, in turns.
 
 The multi-process ingest plane (ipc/): phase 4j spawns worker processes
 from the plane's context (testing/ipc_procs.serve, no CUDA in them): (a)
-four workers, 1,500 resources each, run 40 steps of 32,768 entries (Zipf
+four workers, 1,500 resources each, run 16 steps of 32,768 entries (Zipf
 bulk groups of 64-2,048 rows split into frames, 8 hot-parameter singles
 with args, a THREAD-grade group) and their completions through the plane
 in lockstep, at depth 0 and at depth 2 with the speculative tier, against
@@ -179,13 +179,37 @@ wait_ms, stats reads, every state tensor), with the launch counters from
 0 (K4 must run, K1 must not); (b) a fifth worker admits 64 on a
 THREAD-grade rule and is killed: after worker.dead.ms the plane's
 auto_exits read 64 and the gauge (row_stats) and the mirror 0; (c) on the
-real clock, 3 s each: 1 then 4 workers looping bulk(res, 256), one caller
+real clock, 1 s each: 1 then 4 workers looping bulk(res, 256), one caller
 looping entry, 8 callers with the micro-window off and at 2 ms (requests/s,
 round trips, drains/s, the drainer's host split, the frames coalesced),
 in-process st.entry and entry_windowed; (d) every worker reports
 torch.cuda.is_initialized() False and nvidia-smi lists no second context.
 
-The CPU sides of phases 2c (d), 4-4h, 4j and 8 (the plain versions on one
+The capture journal (runtime/capture.py) and its replay (runtime/replay.py):
+phase 4k (a) runs the slot chain's stream (6,000 rules, breakers on a third
+of the resources, hot-param rules with a Zipf args column on every eighth,
+as phase 4h (a)'s values, a flow reload before flush 20; 40 flushes of
+32,768) on two engines on the card, the journal on one (a directory under
+build/ whose segments hold the whole run) and off on the other, a flush
+each a step in alternating turns: verdicts, reasons, wait_ms, attribution
+and every state tensor identical; K2, K4, K7, K8 and K10 set to 0 before
+the run and counted around each engine's steps (0 on the journal's engine
+fails); the flush call's median, the host split, the journal's counters,
+the bytes a flush and note_chunk's ms; (b) replays the capture through the
+port's replay on the card at depths 0 and 2 and its first 3 chunks on the
+CPU engine in a worker (the plain K10 walks the hottest value a round an
+item): zero diffs, every row compared, rows/s; (c) one engine's shed
+streak through the valve, a manual freeze and a DEGRADED transition
+through the fault injector, each leaving frozen segments whose chunks
+decode; (d) a journal's live segments left as a
+killed process leaves them, renamed frozen-death-* by the next journal on
+the directory, decoded and replayed on the card with zero diffs; no
+process but this one holds a CUDA context.
+
+Each phase logs ``phase <name>: start``; a phase that raises logs ``phase
+<name> failed after <s> s: <exception>`` before the script exits non-zero.
+
+The CPU sides of phases 2c (d), 4-4h, 4j, 4k and 8 (the plain versions on one
 heavy segment, the CPU engines) run in four worker processes, started
 before the build, beside the card's phases (phase 3 runs before 2c so
 that case (d)'s references are ready); the workers stop with the script.
@@ -2079,9 +2103,9 @@ def phase4_chain(results: dict, cpu_jobs: dict) -> None:
 # phase 4f: the host pipeline (flush_async, the depth-K flush)
 # ---------------------------------------------------------------------------
 
-PIPE_STEPS = 30  # 100 ms each: 3 simulated seconds
+PIPE_STEPS = 12  # 100 ms each: 1.2 simulated seconds (30 before phase 4k, 20 before its 40 flushes in turns)
 PIPE_LAG = 3  # exits complete the entries of three flushes back, which the depth-2 trim has already filled
-PIPE_WINDOW = 10  # flushes under torch.profiler, from the tenth on
+PIPE_WINDOW = 6  # flushes under torch.profiler, from the sixth on
 
 
 def device_busy_ms(prof) -> float:
@@ -2483,6 +2507,7 @@ FO_TIMEOUT_MS = 250  # the watchdog's bound on a wait in the fault plan
 # restore failing. Recovery is explicit, FO_RECOVER_AFTER flushes later.
 FO_PLAN = {12: "fetch", 20: "hang", 28: "dispatch"}
 FO_RECOVER_AFTER = 2
+FO_TURNS = (True, False)  # (a): armed, then unarmed (armed, unarmed, unarmed, armed before phase 4k's 40 flushes)
 
 
 def _failover_settings(armed: bool, **extra) -> dict:
@@ -2655,6 +2680,7 @@ def checkpoint_copy_ms(eng, repeats: int = 5) -> tuple:
 
 SPEC_SIM_MS = 3000  # phase 4g (c)'s simulated seconds of st.entry traffic
 SPEC_GAP_MS = 2  # one st.entry every 2 ms of the manual clock (25 x the QPS of the rule)
+SPEC_LATENCY_S = 1.0  # phase 4g (c): seconds of st.entry latency with the tier on, then off (2 before phase 4k)
 
 
 def drive_spec_entries(device: torch.device, seed: int):
@@ -2765,10 +2791,10 @@ def _same_records(a, b, what: str) -> None:
 def phase4_failover(cpu_jobs: dict) -> None:
     line = card_line()
     log(f"phase 4g: the failure domain and the speculative tier on the card ({line})")
-    # (a) No faults: armed and unarmed in turns; identical to each other and
+    # (a) No faults: armed and unarmed (FO_TURNS); identical to each other and
     # to phase 4's stream on the card (its entries through st.entry there).
     runs = {}
-    for armed in (True, False, False, True):
+    for armed in FO_TURNS:
         out = drive_failover_engine(DEV, 4, armed)
         recs, health, states, call_ms, splits, _, _ = out
         if json.loads(health[-1])[1]["trips"] != 0:
@@ -2821,10 +2847,11 @@ def phase4_failover(cpu_jobs: dict) -> None:
     counters = json.loads(snap)["counters"]
     if counters["spec_admits"] <= 0 or counters["reconciled"] != len(seen):
         fail(f"phase 4g (c): the tier decided nothing or left ops unreconciled: {counters}")
-    on50, on99, on_n = entry_latency(True)
-    off50, off99, off_n = entry_latency(False)
+    on50, on99, on_n = entry_latency(True, seconds=SPEC_LATENCY_S)
+    off50, off99, off_n = entry_latency(False, seconds=SPEC_LATENCY_S)
     log(f"  (c) {len(seen)} st.entry calls: immediate verdicts, the tier's counters {counters} and the settled "
-        f"state identical on card and CPU; st.entry latency, 8 threads, 2 s: tier on p50 {on50:.4f} ms, p99 "
+        f"state identical on card and CPU; st.entry latency, 8 threads, {SPEC_LATENCY_S:g} s: tier on p50 "
+        f"{on50:.4f} ms, p99 "
         f"{on99:.4f} ms ({on_n} calls), tier off p50 {off50:.4f} ms, p99 {off99:.4f} ms ({off_n} calls) ({line})")
     # (d) Durable: spill on the card, restore into a fresh card engine and
     # into a CPU engine.
@@ -2916,7 +2943,10 @@ CP_BULK_BOUND = 16384  # (b): sentinel.tpu.ingest.max.pending.bulk
 CP_PENDING = 4096  # (b): the pending bulk flush's rows
 CP_DEADLINE = 4096  # (b): joins of each deadline leg
 CP_STEPS = 20  # (c): flushes of FLUSH_N on the mixed stream
-CP_TURNS = 3  # (d): phase 4's stream with telemetry on, then off, this many times each (5 before phase 4j)
+CP_LATENCY_S = 1.0  # (e): seconds of each turn (2 before phase 4k)
+# (d): phase 4's stream with telemetry on, then off, this many times each (5 before phase 4j, 3 before phase
+# 4k, 2 before its 40 flushes in turns)
+CP_TURNS = 1
 CP_PARAM_TS = 4  # (c): distinct timestamps of the param items a flush (K10's closed form stays eligible)
 
 
@@ -3286,8 +3316,8 @@ def phase4_control(results: dict, cpu_jobs: dict) -> None:
     window = [(d["knob"], d["from"], d["to"], d["reason"]) for d in w_decisions]
     log(f"  (c) the window controller: api.entry_windowed, 8 threads, 2 s, the autotuner on: decisions "
         f"{window or 'none'}; {rps:,.0f} requests/s, p50 {p50:.4f} ms, p99 {p99:.4f} ms ({n} calls; {line})")
-    # (d) The flight recorder: phase 4's stream with telemetry on and off in
-    # turns, the sketch against the CPU engine's, the trace written and read.
+    # (d) The flight recorder: phase 4's stream with telemetry on, then off
+    # (CP_TURNS times), the sketch against the CPU's, the trace written and read.
     c4 = cpu_result(cpu_jobs, "4")
     c_topk = c4[5][4][0]
     calls = {True: [], False: []}
@@ -3336,9 +3366,10 @@ def phase4_control(results: dict, cpu_jobs: dict) -> None:
     # (e) Throughput: entry_windowed and st.entry, 8 threads, in turns.
     turns = []
     for windowed in (True, False, True, False):
-        turns.append((windowed, windowed_latency(windowed)))
+        turns.append((windowed, windowed_latency(windowed, seconds=CP_LATENCY_S)))
     for windowed, (rps, p50, p99, n, _) in turns:
-        log(f"  (e) {'api.entry_windowed' if windowed else 'st.entry'}, 8 threads, 2 s: {rps:,.0f} requests/s, "
+        log(f"  (e) {'api.entry_windowed' if windowed else 'st.entry'}, 8 threads, {CP_LATENCY_S:g} s: {rps:,.0f} "
+            f"requests/s, "
             f"p50 {p50:.4f} ms, p99 {p99:.4f} ms ({n} calls; {line})")
     # (a)'s CPU replay of the card's split.
     t0 = time.perf_counter()
@@ -3866,7 +3897,8 @@ IPC_OWN = N_RULES // IPC_WORKERS  # 1,500 resources a worker: no two workers mee
 IPC_ROWS = FLUSH_N // IPC_WORKERS  # 8,192 entries a worker a step: 32,768 a step over the workers
 IPC_PARAM, IPC_THREAD, IPC_KILL = "ipc-param", "ipc-thread", "ipc-kill"
 IPC_KILL_N = 64
-IPC_LOOP_S = 3.0
+IPC_LOOP_S = 1.0  # (c): seconds of each real-clock loop (3.0 before phase 4k, 1.5 before its 40 flushes in turns)
+IPC_STEPS = 16  # (a): steps of FLUSH_N over the workers (40, phase 4's STEPS, before phase 4k)
 IPC_SETTINGS = {"IPC_HEARTBEAT_MS": 50, "IPC_WORKER_DEAD_MS": 300}
 # (a)'s planes take 64 KiB slots (a frame of up to 970 rows, against 236 at
 # the default 16 KiB, which (c) keeps). (a)'s engines run without the
@@ -4004,7 +4036,7 @@ def _ipc_answer(ans) -> tuple:
 
 
 def drive_ipc(device: torch.device, seed: int, depth: int, spec: bool, workers=None):
-    """Phase 4j (a): STEPS steps of the four workers' scripts in lockstep.
+    """Phase 4j (a): IPC_STEPS steps of the four workers' scripts in lockstep.
     A step sets the clock, runs every worker's requests, then every
     worker's completions of the step's admissions, and ends with a settle
     (flush and drain) once the plane has applied them: a worker's exits
@@ -4041,7 +4073,7 @@ def drive_ipc(device: torch.device, seed: int, depth: int, spec: bool, workers=N
             cuda_flags.append(cuda)
         return answers
 
-    for s in range(STEPS):
+    for s in range(IPC_STEPS):
         now = 1000 + 100 * s
         clock.set_ms(now)
         scripts = [ipc_step(rngs[w], w, now, p) for w in range(IPC_WORKERS)]
@@ -4232,7 +4264,7 @@ def phase4_ipc(results: dict, cpu_jobs: dict) -> None:
     from sentinel_tpu_torch.utils.config import config
 
     log(f"phase 4j: the ipc plane on the card ({IPC_WORKERS} spawned workers, {N_RULES:,} rules, "
-        f"{FLUSH_N:,} entries a step over {STEPS / 10:g} simulated s; {card_line()})")
+        f"{FLUSH_N:,} entries a step over {IPC_STEPS / 10:g} simulated s; {card_line()})")
     t_phase = time.perf_counter()
     clock_a, clock_b = tclock.ManualClock(0), tclock.ManualClock(0)
     eng_a = _ipc_engine(DEV, clock_a, PIPELINE_DEPTH=0, SPECULATIVE_ENABLED="false", **IPC_ENGINE_A)
@@ -4275,7 +4307,7 @@ def phase4_ipc(results: dict, cpu_jobs: dict) -> None:
         cuda_flags += got[3]
         want = cpu_result(cpu_jobs, tag)
         if got[0] != want[0]:
-            bad = next((s, w) for s in range(STEPS) for w in range(IPC_WORKERS) if got[0][s][w] != want[0][s][w])
+            bad = next((s, w) for s in range(IPC_STEPS) for w in range(IPC_WORKERS) if got[0][s][w] != want[0][s][w])
             fail(f"phase 4j (a) depth {depth}: verdicts differ from the CPU engine's at step {bad[0]}, worker {bad[1]}")
         _ipc_same_states(got[1], want[1], f"depth {depth}")
         if got[2] != want[2]:
@@ -4306,7 +4338,7 @@ def phase4_ipc(results: dict, cpu_jobs: dict) -> None:
     dead0 = plane_b.snapshot()["counters"]["worker_deaths"]
     auto0 = plane_b.snapshot()["counters"]["auto_exits"]
     kw = IPC_WORKERS
-    cmd_qs[kw].put(("script", [{"kind": "entry", "resource": IPC_KILL, "ts": 1000 + 100 * STEPS,
+    cmd_qs[kw].put(("script", [{"kind": "entry", "resource": IPC_KILL, "ts": 1000 + 100 * IPC_STEPS,
                                 "timeout_ms": 120000}] * IPC_KILL_N))
     tag, _w, ans, cuda = out_q.get(timeout=300)
     cuda_flags.append(cuda)
@@ -4358,6 +4390,377 @@ def phase4_ipc(results: dict, cpu_jobs: dict) -> None:
     if any(cuda_flags) or len(apps) > 1:
         fail("phase 4j (d): a worker process set CUDA up")
     log(f"  phase 4j took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 4k: the capture journal (runtime/capture.py) and its replay
+# ---------------------------------------------------------------------------
+
+CAP_STEPS = 40  # (a): flushes of FLUSH_N, 100 ms each, on each of the two engines
+CAP_RELOAD = 20  # (a): the flow rules reload (count 20 -> 16) before this flush
+# (b): the chunks of the capture the CPU replay runs (the plain K10 walks a hot value a round an item)
+CAP_CPU_CHUNKS = 3
+CAP_DIR = os.path.join(ROOT, "build", "phase4k")
+# The whole run in live segments: no rollover deletes a chunk, and the
+# breakers' freezes (one a fill that opens one) keep every frozen segment.
+CAP_SETTINGS = {"CAPTURE_SEGMENT_BYTES": 256 << 20, "CAPTURE_SEGMENTS_MAX": 64, "CAPTURE_FROZEN_MAX": 4096,
+                "CAPTURE_FREEZE_SECONDS": 3600}
+CAP_COUNTERS = {"window_update": (ma.update, "launches"), "flow_admission": (flush.flow_admission, "launches"),
+                "breaker_on_exits": (tdt.breaker_on_exits, "launches"),
+                "breaker_try_pass": (tdt.breaker_try_pass, "launches"), "run_param": (tpt.run_param, "launches")}
+
+
+def _cap_settings(cap_dir, **extra) -> dict:
+    from sentinel_tpu_torch.utils.config import config
+
+    if cap_dir is None:
+        return {getattr(config, k): str(v) for k, v in extra.items()}
+    out = {config.CAPTURE_ENABLED: "true", config.CAPTURE_DIR: cap_dir}
+    out.update({getattr(config, k): str(v) for k, v in {**CAP_SETTINGS, **extra}.items()})
+    return out
+
+
+def _cap_launches() -> dict:
+    return {name: getattr(w, attr) for name, (w, attr) in CAP_COUNTERS.items()}
+
+
+class _CapRun:
+    """One engine of (a)'s pair and what it gave: verdict records, flush
+    call ms, host splits, kernel launches, note_chunk's ms a flush."""
+
+    def __init__(self, cap_dir):
+        from sentinel_tpu_torch.rules.system_manager import SystemConfig
+
+        self.clock = tclock.ManualClock(0)
+        self.eng = eng = _cap_engine(_cap_settings(cap_dir), self.clock)
+        self.on = eng.capture is not None
+        self.records, self.calls, self.splits, self.note_ms = [], [], [], []
+        self.launches = dict.fromkeys(CAP_COUNTERS, 0)
+        self.prev_groups, self.prev_singles = [], []
+        eng.set_flow_rules([st.FlowRule(f"r{i}", count=20) for i in range(N_RULES)])
+        eng.set_degrade_rules([
+            st.DegradeRule(f"r{i}", grade=(i // 3) % 3, count=(100, 0.3, 20)[(i // 3) % 3], time_window=1,
+                           slow_ratio_threshold=0.5, min_request_amount=5)
+            for i in range(0, N_RULES, 3)
+        ])
+        eng.set_system_config(SystemConfig(qps=150_000, max_rt=140))
+        eng.set_authority_rules({f"r{i}": st.AuthorityRule(f"r{i}", limit_app="appA") for i in range(0, N_RULES, 7)})
+        eng.set_param_rules({f"r{i}": [st.ParamFlowRule(f"r{i}", param_idx=0, count=5)]
+                             for i in range(0, N_RULES, 8)})
+        if self.on:
+            note_chunk = eng.capture.note_chunk
+
+            def timed(*a):
+                t0 = time.perf_counter()
+                out = note_chunk(*a)
+                self.note_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            eng.capture.note_chunk = timed
+
+    def step(self, step: int, now: int, stream: tuple) -> None:
+        """One flush of the step's stream (the singles, then the groups, then
+        the exits of this engine's own previous admissions)."""
+        eng = self.eng
+        before = _cap_launches()
+        self.clock.set_ms(now)
+        if step == CAP_RELOAD:
+            eng.set_flow_rules([st.FlowRule(f"r{i}", count=16) for i in range(N_RULES)])
+        singles_ts, groups_in, exit_rng = stream
+        singles = [eng.submit_entry(f"r{N_RULES - 8 + j % 8}", origin="appA", prio=True, ts=int(t))
+                   for j, t in enumerate(singles_ts)]
+        groups = [eng.submit_bulk(res, n, ts=ts, origin=origin, entry_type=et, args_column=args)
+                  for res, n, ts, origin, et, args in groups_in]
+        x = np.random.default_rng(exit_rng)  # the exits' draws: the same on both engines while they agree
+        for g in self.prev_groups[:100]:
+            if g.admitted_count:
+                n_x = g.admitted_count
+                eng.submit_exit_bulk(g.rows, n_x, rt=x.integers(1, 300 if step % 4 < 2 else 200, n_x).astype(np.int32),
+                                     err=(x.random(n_x) < 0.3).astype(np.int32), ts=now, resource=g.resource)
+        for op in self.prev_singles:
+            if op.verdict.admitted:
+                eng.submit_exit(op.rows, rt=int(x.integers(1, 50)), ts=now, resource=op.resource)
+        if DEV.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.flush()
+        self.calls.append((time.perf_counter() - t0) * 1e3)
+        self.splits.append(eng.last_flush_host_ms)
+        for g in groups:
+            self.records += [g.admitted, g.reason, g.wait_ms]
+        self.records.append(np.array([_verdict_record(o.verdict) for o in singles], dtype=object))
+        self.prev_groups, self.prev_singles = groups, singles
+        after = _cap_launches()
+        for k in self.launches:
+            self.launches[k] += after[k] - before[k]
+
+    def finish(self):
+        """Drain and close; returns (the journal's counters or None, the states)."""
+        before = _cap_launches()
+        self.eng.flush()
+        self.eng.drain()
+        after = _cap_launches()
+        for k in self.launches:
+            self.launches[k] += after[k] - before[k]
+        counters = self.eng.capture.snapshot()["counters"] if self.on else None
+        states = _states_of(self.eng)
+        self.eng.close()
+        return counters, states
+
+
+def _cap_stream(rng, p, step: int, now: int) -> tuple:
+    """One step of (a)'s stream: 64 prioritized singles' timestamps, the Zipf
+    bulk groups (resource, n, ts, origin, entry type, args column) and the
+    seed of the exits' draws."""
+    singles_ts = now - rng.integers(0, 50, 64)
+    res = rng.choice(N_RULES, size=FLUSH_N - 64, p=p)
+    ts = (now - rng.integers(0, 100, res.size)).astype(np.int32)
+    order = np.argsort(res, kind="stable")
+    res, ts = res[order], ts[order]
+    uniq, start = np.unique(res, return_index=True)
+    bounds = list(start) + [res.size]
+    vals = np.minimum(rng.zipf(1.1, res.size), 4096)  # as phase 4h (a)'s values
+    origins = ["", "appA", "appB"]
+    groups = []
+    for i, r in enumerate(uniq.tolist()):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        groups.append((f"r{r}", hi - lo, np.sort(ts[lo:hi]), origins[(r + step) % 3],
+                       C.EntryType.IN if r % 2 == 0 else C.EntryType.OUT,
+                       [(f"v{v}",) for v in vals[lo:hi].tolist()] if r % 8 == 0 else None))
+    return singles_ts, groups, int(rng.integers(0, 2**31))
+
+
+def drive_capture_pair(seed: int, cap_dir: str):
+    """(a): the slot chain's stream of phase 4b (6,000 QPS rules, breakers
+    on every third resource, system rules, white lists on every seventh,
+    Zipf bulk groups from three origins, 64 prioritized entries a flush on
+    eight cold resources, bulk exits of the previous flush's admissions
+    with 30% errors, single exits of the admitted singles) with hot-param
+    rules (count 5 a value) on every eighth resource, whose groups carry a
+    Zipf value column; CAP_STEPS flushes of FLUSH_N, the flow rules
+    reloaded before flush CAP_RELOAD. Two engines on the card take the same
+    stream, the journal on one (armed in ``cap_dir``) and off on the other,
+    a flush each a step in alternating turns: the one that went second
+    goes first at the next step. The singles are submitted before the
+    groups: the replay submits a chunk's singles first, and so registers
+    the node rows in the same order. Returns the two :class:`_CapRun`
+    (on, off), each with its (counters, states) as ``.end``."""
+    rng = np.random.default_rng(seed)
+    p = _zipf_p()
+    on, off = _CapRun(cap_dir), _CapRun(None)
+    for step in range(CAP_STEPS):
+        now = 1000 + step * 100
+        stream = _cap_stream(rng, p, step, now)
+        for run in ((on, off) if step % 2 == 0 else (off, on)):
+            run.step(step, now, stream)
+    on.end, off.end = on.finish(), off.finish()
+    return on, off
+
+
+def _stream_prefix(decoded: dict, chunks: int) -> dict:
+    """A decoded capture up to its ``chunks``-th chunk, with the rule
+    timeline before it."""
+    stream, n = [], 0
+    for kind, item in decoded["stream"]:
+        if kind == "chunk":
+            if n == chunks:
+                break
+            n += 1
+        stream.append((kind, item))
+    return dict(decoded, stream=stream)
+
+
+def replay_capture_cpu(cap_dir: str, chunks: int):
+    """(b)'s CPU replay, in a worker: the first ``chunks`` chunks of the
+    capture of (a) verified through the port's replay on the CPU engine.
+    Returns (the report, seconds, whether this process set CUDA up)."""
+    from sentinel_tpu_torch.runtime import replay
+
+    decoded = _stream_prefix(replay.load_capture(cap_dir), chunks)
+    t0 = time.perf_counter()
+    report = replay.verify(decoded, device="cpu")
+    return report, time.perf_counter() - t0, torch.cuda.is_initialized()
+
+
+def _cap_frozen(cap_dir: str, reason: str) -> list:
+    from sentinel_tpu_torch.runtime import capture as tcap
+
+    paths = [os.path.join(cap_dir, f) for f in sorted(os.listdir(cap_dir)) if f.startswith(f"frozen-{reason}-")]
+    if not paths:
+        fail(f"phase 4k: no frozen-{reason}-* segment in {cap_dir}")
+    decoded = tcap.decode_capture(paths)
+    return [ck for k, ck in decoded["stream"] if k == "chunk"]
+
+
+def _cap_freeze_triggers(cap_dir: str) -> str:
+    """(c): a shed streak through the valve, a manual freeze and a DEGRADED
+    transition through the fault injector (a failed copy back, as phase
+    4g's plan), on one card engine; each leaves frozen segments whose
+    chunks decode."""
+    import shutil
+
+    from sentinel_tpu_torch.testing.faults import FaultInjector
+
+    shutil.rmtree(cap_dir, ignore_errors=True)
+    clock = tclock.ManualClock(1000)
+    eng = _fresh_engine(DEV, _cap_settings(cap_dir, INGEST_MAX_PENDING=64, CAPTURE_SHED_STREAK=32,
+                                           FAILOVER_ENABLED="true", FAILOVER_RETRY_MS=10**9), clock)
+    st.flow_rule_manager.load_rules([st.FlowRule(f"r{i}", count=20) for i in range(64)])
+    for step in range(3):
+        eng.submit_bulk(f"r{step}", 100, ts=clock.now_ms())
+        for j in range(32):
+            eng.submit_entry(f"r{j}")
+        eng.flush()
+        clock.advance(100)
+    ops = [eng.submit_entry("r1") for _ in range(64 + 40)]  # past the bound of 64: 40 sheds
+    shed = sum(1 for o in ops if o.verdict is not None and o.verdict.reason == 8)
+    eng.flush()
+    eng.capture.freeze("manual")
+    eng.submit_bulk("r3", 50, ts=clock.now_ms())
+    eng.flush()
+    inj = FaultInjector().install(eng)
+    inj.fail_fetch(eng.flush_seq + 1)
+    op = eng.submit_entry("r2")
+    eng.flush()
+    degraded = op.verdict.degraded and eng.failover.state == "DEGRADED"
+    inj.clear()
+    snap = eng.capture.snapshot()
+    eng.close()
+    if shed != 40 or not degraded:
+        fail(f"phase 4k (c): {shed} sheds (40 expected), degraded {degraded}")
+    got = {r: len(_cap_frozen(cap_dir, r)) for r in ("shed", "degraded", "manual")}
+    if snap["counters"]["freezes"] != 3 or min(got.values()) == 0:
+        fail(f"phase 4k (c): freezes {snap['counters']['freezes']}, frozen chunks {got}")
+    return f"freezes {snap['counters']['freezes']}, chunks in the frozen segments by reason {got}"
+
+
+def _cap_engine(settings: dict, clock):
+    """An engine of its own on the card (not the API's: ``api.reset``
+    closes the engine before)."""
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils.config import config
+
+    for key, value in settings.items():
+        config.set(key, value)
+    try:
+        return Engine(clock=clock, device=DEV)
+    finally:
+        config.reset()
+
+
+def _cap_death(cap_dir: str) -> str:
+    """(d): a journal's live segments left unclosed, as a killed process
+    leaves them; a new journal on the directory renames them
+    frozen-death-*, and they decode and replay on the card."""
+    import shutil
+
+    from sentinel_tpu_torch.runtime import replay
+
+    shutil.rmtree(cap_dir, ignore_errors=True)
+    clock = tclock.ManualClock(1000)
+    dead = _cap_engine(_cap_settings(cap_dir), clock)
+    dead.set_flow_rules([st.FlowRule(f"r{i}", count=30) for i in range(64)])
+    for step in range(6):
+        for i in range(64):
+            dead.submit_bulk(f"r{i}", 8 + i, ts=clock.now_ms())
+        dead.flush()
+        clock.advance(100)
+    live = [f for f in os.listdir(cap_dir) if f.startswith("seg-")]
+    nxt = _cap_engine(_cap_settings(cap_dir), tclock.ManualClock(0))  # the next boot
+    death = [f for f in os.listdir(cap_dir) if f.startswith("frozen-death-")]
+    nxt.close()
+    if not live or len(death) != len(live):
+        fail(f"phase 4k (d): {len(live)} live segments, {len(death)} kept as frozen-death-*")
+    from sentinel_tpu_torch.runtime import capture as tcap
+
+    decoded = tcap.decode_capture([os.path.join(cap_dir, f) for f in sorted(death)])
+    report = replay.verify(decoded, device=DEV)
+    dead.close()
+    if report["diffs"] or report["compared"] != report["rows"] or report["rows"] == 0:
+        fail(f"phase 4k (d): the dead boot's replay {report}")
+    return f"{len(death)} segment(s) kept as frozen-death-*, {report['rows']:,} rows replayed on the card, 0 diffs"
+
+
+def phase4_capture(results: dict, cpu_jobs: dict) -> None:
+    import shutil
+
+    from sentinel_tpu_torch.runtime import replay
+
+    log(f"phase 4k: the capture journal and its replay on the card (the slot chain's stream with Zipf hot-param args, "
+        f"{CAP_STEPS} flushes of {FLUSH_N:,} on two engines, the journal on and off in turns, a reload; "
+        f"{card_line()})")
+    t_phase = time.perf_counter()
+    shutil.rmtree(CAP_DIR, ignore_errors=True)
+    cap_dir = os.path.join(CAP_DIR, "cap")
+    # (a) the journal on against off, a flush each in alternating turns; the
+    # launch counters are set to 0 here and each engine's share is counted
+    for w, attr in CAP_COUNTERS.values():
+        setattr(w, attr, 0)
+    t0 = time.perf_counter()
+    on, off = drive_capture_pair(51, cap_dir)
+    log(f"  (a) {CAP_STEPS} flushes on each engine in {time.perf_counter() - t0:.1f} s")
+    cpu_jobs["4k b"] = WORKERS.apply_async(replay_capture_cpu, (cap_dir, CAP_CPU_CHUNKS))
+
+    def flat(records):  # the bulk columns of a run in one array each, and the singles' records
+        return ([np.concatenate([r for r in records[k::3] if r.dtype != object]) for k in range(3)],
+                [r.tolist() for r in records if r.dtype == object])
+
+    have, want = flat(on.records), flat(off.records)
+    if len(on.records) != len(off.records) or have[1] != want[1] or any(
+            not np.array_equal(a, b) for a, b in zip(have[0], want[0])):
+        fail("phase 4k (a): verdicts, reasons or wait_ms differ with the journal on and off")
+    _same_states(on.end[1], off.end[1], "phase 4k (a), the journal on against off")
+    log(f"  (a) launches with the journal on: {on.launches}; off: {off.launches}")
+    for name, c in on.launches.items():
+        if c <= 0:
+            fail(f"phase 4k (a): kernel {name} was not launched with the journal on")
+        results[name]["launches_4k"] = c
+    results["thread_gauge"]["launches_4k"] = on.launches["window_update"]
+    n_groups = sum(1 for r in off.records if r.dtype != object) // 3
+    adm = sum(int(r.sum()) for r in off.records if r.dtype == bool)
+    c = on.end[0]
+    note = np.array(on.note_ms)
+    for run in (on, off):
+        extra = ""
+        if run.on:
+            extra = (f"; note_chunk median {np.median(note):.3f} ms a flush ({np.median(note) / (n_groups / CAP_STEPS) * 1e3:.2f} "
+                     f"us a bulk group), journal {c}, {c['bytes'] / CAP_STEPS / 2**20:.2f} MiB a flush")
+        log(f"  (a) journal {'on ' if run.on else 'off'}: a flush call median {np.median(run.calls):.3f} ms "
+            f"({min(run.calls):.3f}-{max(run.calls):.3f}); {split_line(run.splits)}{extra}")
+    log(f"  (a) verdicts, reasons, wait_ms, attribution and every state tensor identical with the journal on and off "
+        f"({n_groups:,} bulk groups, {adm:,} admitted rows)")
+    # (b) replay on the card at depths 0 and 2, and a prefix on the CPU in a worker
+    t0 = time.perf_counter()
+    decoded = replay.load_capture(cap_dir)
+    load_s = time.perf_counter() - t0
+    rows = sum(ck.rows for ck in decoded["chunks"].values())
+    for depth in (0, 2):
+        flush.flow_admission.launches = 0
+        t0 = time.perf_counter()
+        report = replay.verify(decoded, depth=depth, device=DEV)
+        took = time.perf_counter() - t0
+        if report["diffs"] or report["compared"] != report["rows"] or report["chunks"] != CAP_STEPS or \
+                flush.flow_admission.launches == 0:
+            fail(f"phase 4k (b): the replay on the card at depth {depth}: {report} "
+                 f"(K4 {flush.flow_admission.launches} launches)")
+        log(f"  (b) replay on the card, depth {depth}: {report['chunks']} chunks, {report['compared']:,} rows "
+            f"compared, 0 diffs, {took:.2f} s ({rows / took:,.0f} rows/s, the diff included; decode {load_s:.2f} s), "
+            f"K4 {flush.flow_admission.launches} launches")
+    report, took, cuda_up = cpu_result(cpu_jobs, "4k b")
+    if report["diffs"] or report["compared"] != report["rows"] or report["chunks"] != CAP_CPU_CHUNKS or cuda_up:
+        fail(f"phase 4k (b): the CPU replay {report}, CUDA in the worker {cuda_up}")
+    log(f"  (b) replay on the CPU engine in a worker, the first {report['chunks']} chunks: {report['compared']:,} rows "
+        f"compared, 0 diffs, {took:.2f} s ({report['rows'] / took:,.0f} rows/s); no CUDA in the worker")
+    # (c) the freeze triggers; (d) the death sweep
+    t0 = time.perf_counter()
+    log(f"  (c) {_cap_freeze_triggers(os.path.join(CAP_DIR, 'triggers'))} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    log(f"  (d) {_cap_death(os.path.join(CAP_DIR, 'death'))} ({time.perf_counter() - t0:.1f} s)")
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.split()
+    if len(apps) > 1:
+        fail(f"phase 4k: {len(apps)} processes hold a CUDA context")
+    log(f"  nvidia-smi's compute processes: {len(apps)}; phase 4k took {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase5() -> None:
@@ -5491,10 +5894,10 @@ def cpu_result(cpu_jobs: dict, name: str):
     return out
 
 
-def main() -> None:
-    t_start = time.perf_counter()
-    line = card_line()
-    log(f"phase 1: {line}")
+def phase1() -> dict:
+    """The card's line, the CPU references started, every CUDA source built
+    (one nvcc each, all started together). Returns the CPU jobs."""
+    log(f"phase 1: {card_line()}")
     cpu_jobs = start_cpu_jobs()
     t0 = time.perf_counter()
     cuda_build.build_all(["slab_sweep", "window_update", "window_reduce", "flow_admission", "system_check",
@@ -5502,46 +5905,59 @@ def main() -> None:
                           "breaker_try_pass", "commit_borrow_slab", "shaping_scan", "param_scan", "sketch_fold",
                           "token_decide", "mesh_merge_breaker", "mesh_budget", "bucket_read", "blocked_topk"])
     log(f"  CUDA kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    return cpu_jobs
 
-    meta = {
-        "materialize_matured": ("cuda", "sentinel_tpu_torch/csrc/slab_sweep.cu",
-                                "sentinel_tpu/metrics/nodes.py:155"),
-        "window_update": ("cuda", "sentinel_tpu_torch/csrc/window_update.cu",
-                          "sentinel_tpu/metrics/metric_array.py:101"),
-        "thread_gauge": ("cuda", "sentinel_tpu_torch/csrc/window_update.cu",
-                         "sentinel_tpu/metrics/nodes.py:223"),
-        "window_sums": ("cuda", "sentinel_tpu_torch/csrc/window_reduce.cu",
-                        "sentinel_tpu/metrics/metric_array.py:205"),
-        "row_stats": ("cuda", "sentinel_tpu_torch/csrc/window_reduce.cu", "sentinel_tpu/runtime/engine.py:4537"),
-        "flow_admission": ("cuda", "sentinel_tpu_torch/csrc/flow_admission.cu",
-                           "sentinel_tpu/runtime/flush.py:227"),
-        "flow_admission_occupy": ("cuda", "sentinel_tpu_torch/csrc/flow_admission.cu",
-                                  "sentinel_tpu/runtime/flush.py:338"),
-        "commit_borrow_slab": ("cuda", "sentinel_tpu_torch/csrc/commit_borrow_slab.cu",
-                               "sentinel_tpu/runtime/flush.py:434"),
-        "system_check": ("cuda", "sentinel_tpu_torch/csrc/system_check.cu", "sentinel_tpu/runtime/flush.py:501"),
-        "breaker_on_exits": ("cuda", "sentinel_tpu_torch/csrc/breaker_on_exits.cu",
-                             "sentinel_tpu/rules/degrade_table.py:185"),
-        "breaker_try_pass": ("cuda", "sentinel_tpu_torch/csrc/breaker_try_pass.cu",
-                             "sentinel_tpu/rules/degrade_table.py:291"),
-        "slot_chain_verdict": ("cuda", "sentinel_tpu_torch/csrc/flow_admission.cu",
-                               "sentinel_tpu/rules/degrade_table.py:342"),
-        "shaping_stage": ("cuda", "sentinel_tpu_torch/csrc/shaping_scan.cu", "sentinel_tpu/rules/shaping.py:152"),
-        "run_param": ("cuda", "sentinel_tpu_torch/csrc/param_scan.cu", "sentinel_tpu/rules/param_table.py:242"),
-        "sketch_fold": ("cuda", "sentinel_tpu_torch/csrc/sketch_fold.cu", "sentinel_tpu/runtime/sketch.py:191"),
-        "token_decide": ("cuda", "sentinel_tpu_torch/csrc/token_decide.cu",
-                         "sentinel_tpu/cluster/token_service.py:95"),
-        "mesh_merge_stats": ("triton", "sentinel_tpu_torch/parallel/ici.py", "sentinel_tpu/parallel/ici.py:48"),
-        "mesh_merge_breaker": ("cuda", "sentinel_tpu_torch/csrc/mesh_merge_breaker.cu",
-                               "sentinel_tpu/parallel/ici.py:471"),
-        "mesh_split_spend": ("cuda", "sentinel_tpu_torch/csrc/mesh_budget.cu", "sentinel_tpu/parallel/ici.py:127"),
-        "mesh_shaping_charge": ("cuda", "sentinel_tpu_torch/csrc/mesh_budget.cu", "sentinel_tpu/parallel/ici.py:346"),
-        "breaker_try_pass_mask": ("cuda", "sentinel_tpu_torch/csrc/breaker_try_pass.cu",
-                                  "sentinel_tpu/rules/degrade_table.py:297"),
-        "bucket_read": ("cuda", "sentinel_tpu_torch/csrc/bucket_read.cu", "sentinel_tpu/metrics/metric_array.py:231"),
-        "blocked_topk_wide": ("cuda", "sentinel_tpu_torch/csrc/blocked_topk.cu", "sentinel_tpu/runtime/flush.py:879"),
-    }
-    results = {name: {} for name in meta}
+
+# name -> (route, source, the JAX function it replaces)
+KERNEL_META = {
+    "materialize_matured": ("cuda", "sentinel_tpu_torch/csrc/slab_sweep.cu",
+                            "sentinel_tpu/metrics/nodes.py:155"),
+    "window_update": ("cuda", "sentinel_tpu_torch/csrc/window_update.cu",
+                      "sentinel_tpu/metrics/metric_array.py:101"),
+    "thread_gauge": ("cuda", "sentinel_tpu_torch/csrc/window_update.cu",
+                     "sentinel_tpu/metrics/nodes.py:223"),
+    "window_sums": ("cuda", "sentinel_tpu_torch/csrc/window_reduce.cu",
+                    "sentinel_tpu/metrics/metric_array.py:205"),
+    "row_stats": ("cuda", "sentinel_tpu_torch/csrc/window_reduce.cu", "sentinel_tpu/runtime/engine.py:4537"),
+    "flow_admission": ("cuda", "sentinel_tpu_torch/csrc/flow_admission.cu",
+                       "sentinel_tpu/runtime/flush.py:227"),
+    "flow_admission_occupy": ("cuda", "sentinel_tpu_torch/csrc/flow_admission.cu",
+                              "sentinel_tpu/runtime/flush.py:338"),
+    "commit_borrow_slab": ("cuda", "sentinel_tpu_torch/csrc/commit_borrow_slab.cu",
+                           "sentinel_tpu/runtime/flush.py:434"),
+    "system_check": ("cuda", "sentinel_tpu_torch/csrc/system_check.cu", "sentinel_tpu/runtime/flush.py:501"),
+    "breaker_on_exits": ("cuda", "sentinel_tpu_torch/csrc/breaker_on_exits.cu",
+                         "sentinel_tpu/rules/degrade_table.py:185"),
+    "breaker_try_pass": ("cuda", "sentinel_tpu_torch/csrc/breaker_try_pass.cu",
+                         "sentinel_tpu/rules/degrade_table.py:291"),
+    "slot_chain_verdict": ("cuda", "sentinel_tpu_torch/csrc/flow_admission.cu",
+                           "sentinel_tpu/rules/degrade_table.py:342"),
+    "shaping_stage": ("cuda", "sentinel_tpu_torch/csrc/shaping_scan.cu", "sentinel_tpu/rules/shaping.py:152"),
+    "run_param": ("cuda", "sentinel_tpu_torch/csrc/param_scan.cu", "sentinel_tpu/rules/param_table.py:242"),
+    "sketch_fold": ("cuda", "sentinel_tpu_torch/csrc/sketch_fold.cu", "sentinel_tpu/runtime/sketch.py:191"),
+    "token_decide": ("cuda", "sentinel_tpu_torch/csrc/token_decide.cu",
+                     "sentinel_tpu/cluster/token_service.py:95"),
+    "mesh_merge_stats": ("triton", "sentinel_tpu_torch/parallel/ici.py", "sentinel_tpu/parallel/ici.py:48"),
+    "mesh_merge_breaker": ("cuda", "sentinel_tpu_torch/csrc/mesh_merge_breaker.cu",
+                           "sentinel_tpu/parallel/ici.py:471"),
+    "mesh_split_spend": ("cuda", "sentinel_tpu_torch/csrc/mesh_budget.cu", "sentinel_tpu/parallel/ici.py:127"),
+    "mesh_shaping_charge": ("cuda", "sentinel_tpu_torch/csrc/mesh_budget.cu", "sentinel_tpu/parallel/ici.py:346"),
+    "breaker_try_pass_mask": ("cuda", "sentinel_tpu_torch/csrc/breaker_try_pass.cu",
+                              "sentinel_tpu/rules/degrade_table.py:297"),
+    "bucket_read": ("cuda", "sentinel_tpu_torch/csrc/bucket_read.cu", "sentinel_tpu/metrics/metric_array.py:231"),
+    "blocked_topk_wide": ("cuda", "sentinel_tpu_torch/csrc/blocked_topk.cu", "sentinel_tpu/runtime/flush.py:879"),
+}
+
+
+def main() -> None:
+    t_start = time.perf_counter()
+    log("phase 1: start")
+    try:
+        cpu_jobs = phase1()
+    except BaseException as exc:
+        log(f"phase 1 failed after {time.perf_counter() - t_start:.1f} s: {exc!r}")
+        raise
+    results = {name: {} for name in KERNEL_META}
     took = {"1": round(time.perf_counter() - t_start, 1)}
     for name, run in (
         ("2", lambda: phase2(results)), ("2b", lambda: phase2_chain(results)), ("3", phase3),
@@ -5552,17 +5968,22 @@ def main() -> None:
         ("2f", lambda: phase2_mesh(results)), ("3b", phase3b), ("4e", lambda: phase4_mesh(results, cpu_jobs)),
         ("4f", lambda: phase4_pipeline(cpu_jobs)), ("4g", lambda: phase4_failover(cpu_jobs)),
         ("4h", lambda: phase4_control(results, cpu_jobs)), ("4i", lambda: phase4_metric(results, cpu_jobs)),
-        ("4j", lambda: phase4_ipc(results, cpu_jobs)),
+        ("4j", lambda: phase4_ipc(results, cpu_jobs)), ("4k", lambda: phase4_capture(results, cpu_jobs)),
         ("5", phase5), ("6", phase6), ("7", phase7), ("8", lambda: phase8(results, cpu_jobs)), ("9", phase9),
     ):
+        log(f"phase {name}: start")
         t0 = time.perf_counter()
-        run()
+        try:
+            run()
+        except BaseException as exc:
+            log(f"phase {name} failed after {time.perf_counter() - t0:.1f} s: {exc!r}")
+            raise
         took[name] = round(time.perf_counter() - t0, 1)
     WORKERS.close()
     WORKERS.join()
 
     kernels = []
-    for name, (route, source, replaces) in meta.items():
+    for name, (route, source, replaces) in KERNEL_META.items():
         r = results[name]
         bound_ms, bound_by = r["bound"]
         entry = {
@@ -5585,7 +6006,8 @@ def main() -> None:
                       "matured_memsets_per_call", "matured_device_ms", "matured_cells", "read_ms", "small_plain_ms",
                       "edges", "launches_4h", "routes_4h", "ms_60s", "plain_ms_60s", "bound_ms_60s",
                       "device_ms_60s", "launches_per_call_60s", "memsets_per_call_60s", "records", "records_60s",
-                      "pull_ms", "read_ms_4i", "copy_ms_4i", "asked_rows_4i", "copies_per_call", "launches_4j") + tuple(
+                      "pull_ms", "read_ms_4i", "copy_ms_4i", "asked_rows_4i", "copies_per_call", "launches_4j",
+                      "launches_4k") + tuple(
                           f"{m}_{n}_k{k}" for m in ("ms", "plain_ms", "library_ms", "device_ms", "launches_per_call",
                                                     "memsets_per_call") for n, k in ((N, 64), (8, 16), (8, 64))):
             if extra in r:

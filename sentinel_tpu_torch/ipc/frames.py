@@ -110,6 +110,8 @@ EMPTY_TRACE = b"\x00" * _TRACE_BYTES
 # args value codec (tag + fixed/length-prefixed payload per value)
 # ---------------------------------------------------------------------------
 _I64 = struct.Struct("<q")
+_I32 = struct.Struct("<i")
+_I8 = struct.Struct("<b")
 _F64 = struct.Struct("<d")
 _U32 = struct.Struct("<I")
 _U16 = struct.Struct("<H")
@@ -331,40 +333,15 @@ def encode_entries_columns(
     origin_id: int,
     interns: Sequence[Tuple[int, bytes]],
     intern_gen: int,
-    kind: int = KIND_BULK,
 ) -> bytes:
-    """Vectorized ENTRY/BULK frame for a uniform columnar group: one
-    (resource, context, origin, entry_type) shared by all rows,
-    ``seq = base_seq + arange(n)``, per-row ``ts``/``acquire`` arrays,
-    no traces, no args, no group meta. Byte-identical to
-    ``encode_entries`` over the equivalent EntryRow list — the capture
-    journal's bulk spill uses this because a Python row loop at bulk
-    group sizes would cost more than the admission work it records."""
+    """BULK frame of one uniform columnar group: one (resource, context,
+    origin, entry_type) shared by all rows, ``seq = base_seq + arange(n)``,
+    per-row ``ts``/``acquire`` arrays, no traces, no args. Byte-identical
+    to ``encode_entries`` over the equivalent EntryRow list; the one-group
+    case of :func:`encode_entry_groups`."""
     ts = np.ascontiguousarray(ts, np.int64)
-    acq = np.ascontiguousarray(acquire, np.int32)
-    n = len(ts)
-    seqs = np.arange(base_seq, base_seq + n, dtype=np.uint64)
-    zeros_u32 = np.zeros(n, np.uint32).tobytes()
-    intern_parts: List[bytes] = []
-    for iid, raw in interns:
-        intern_parts.append(_INTERN_HDR.pack(iid, len(raw)))
-        intern_parts.append(raw)
-    hdr = _HDR.pack(
-        kind, 0, worker_id, n, base_seq if n else 0,
-        intern_gen & 0xFFFFFFFF, 0, len(interns), 0,
-    )
-    return b"".join(
-        (
-            hdr, b"".join(intern_parts),
-            seqs.tobytes(), ts.tobytes(), acq.tobytes(),
-            np.full(n, entry_type, np.int8).tobytes(),
-            np.full(n, resource_id, np.int32).tobytes(),
-            np.full(n, context_id, np.int32).tobytes(),
-            np.full(n, origin_id, np.int32).tobytes(),
-            EMPTY_TRACE * n,
-            zeros_u32, zeros_u32,
-        )
-    )
+    return encode_entry_groups(worker_id, base_seq, [len(ts)], ts, acquire,
+                               [(entry_type, resource_id, context_id, origin_id, interns, None)], intern_gen)[0]
 
 
 def encode_exits(
@@ -404,6 +381,100 @@ def encode_exits(
             seqs.tobytes(), ts.tobytes(), rid.tobytes(), cid.tobytes(),
             oid.tobytes(), etype.tobytes(), rt.tobytes(), count.tobytes(),
             err.tobytes(), spec.tobytes(), extras,
+        )
+    )
+
+
+def encode_entry_groups(
+    worker_id: int,
+    base_seq: int,
+    ns: Sequence[int],
+    ts,
+    acquire,
+    groups: Sequence[Tuple[int, int, int, int, Sequence[Tuple[int, bytes]], Optional[Sequence[bytes]]]],
+    intern_gen: int,
+) -> List[bytes]:
+    """BULK frames of many uniform groups (no traces): group ``i`` has
+    ``ns[i]`` rows, seqs following on from ``base_seq`` group after group,
+    and ``groups[i] = (entry_type, resource_id, context_id,
+    origin_id, interns, args)``, ``args`` one ``encode_args`` payload a row
+    (``b""`` for a row without) or None; ``ts`` and ``acquire`` are the
+    groups' columns concatenated. Byte-identical to one
+    ``encode_entries`` call a group over its EntryRows, but a column of a
+    frame is a slice of one buffer of the chunk or a repeated constant:
+    no numpy call a group without args (the capture journal's bulk
+    spill)."""
+    total = int(sum(ns))
+    seq_b = memoryview(np.arange(base_seq, base_seq + total, dtype=np.uint64)).cast("B")
+    ts_b = memoryview(np.ascontiguousarray(ts, np.int64)).cast("B")
+    acq_b = memoryview(np.ascontiguousarray(acquire, np.int32)).cast("B")
+    out: List[bytes] = []
+    pos = 0
+    for n, (etype, rid, cid, oid, interns, args) in zip(ns, groups):
+        intern_parts: List[bytes] = []
+        for iid, raw in interns:
+            intern_parts.append(_INTERN_HDR.pack(iid, len(raw)))
+            intern_parts.append(raw)
+        if args is None:
+            offs_lens, varbytes = bytes(8 * n), b""
+        else:
+            lens = np.fromiter(map(len, args), np.uint32, n)
+            offs = np.zeros(n, np.uint32)
+            np.cumsum(lens[:-1], out=offs[1:])
+            offs_lens, varbytes = offs.tobytes() + lens.tobytes(), b"".join(args)
+        out.append(b"".join((
+            _HDR.pack(KIND_BULK, 0, worker_id, n, base_seq + pos if n else 0, intern_gen & 0xFFFFFFFF, 0,
+                      len(interns), len(varbytes)),
+            b"".join(intern_parts),
+            seq_b[8 * pos: 8 * (pos + n)], ts_b[8 * pos: 8 * (pos + n)], acq_b[4 * pos: 4 * (pos + n)],
+            _I8.pack(etype) * n, _I32.pack(rid) * n, _I32.pack(cid) * n, _I32.pack(oid) * n,
+            EMPTY_TRACE * n, offs_lens, varbytes,
+        )))
+        pos += n
+    return out
+
+
+def encode_exit_columns(
+    worker_id: int,
+    seq: int,
+    resource_id: int,
+    context_id: int,
+    origin_id: int,
+    entry_type: int,
+    ts,
+    rt,
+    count,
+    err,
+    interns: Sequence[Tuple[int, bytes]],
+    intern_gen: int,
+) -> bytes:
+    """Vectorized EXIT frame for a uniform columnar exit group: one
+    ``seq`` field, (resource, context, origin) and entry_type shared by
+    all rows, per-row ``ts``/``rt``/``count``/``err`` arrays, spec 0, no
+    extras. Byte-identical to ``encode_exits`` over the equivalent
+    ExitRow list (the capture journal's bulk-exit spill)."""
+    ts = np.ascontiguousarray(ts, np.int64)
+    n = len(ts)
+    intern_parts: List[bytes] = []
+    for iid, raw in interns:
+        intern_parts.append(_INTERN_HDR.pack(iid, len(raw)))
+        intern_parts.append(raw)
+    hdr = _HDR.pack(
+        KIND_EXIT, 0, worker_id, n, int(seq) if n else 0,
+        intern_gen & 0xFFFFFFFF, 0, len(interns), 0,
+    )
+    return b"".join(
+        (
+            hdr, b"".join(intern_parts),
+            np.full(n, seq, np.uint64).tobytes(), ts.tobytes(),
+            np.full(n, resource_id, np.int32).tobytes(),
+            np.full(n, context_id, np.int32).tobytes(),
+            np.full(n, origin_id, np.int32).tobytes(),
+            np.full(n, entry_type, np.int8).tobytes(),
+            np.ascontiguousarray(rt).astype(np.int32).tobytes(),
+            np.ascontiguousarray(count).astype(np.int32).tobytes(),
+            np.ascontiguousarray(err).astype(np.int32).tobytes(),
+            bytes(n),
         )
     )
 
@@ -468,6 +539,62 @@ def _need(payload: bytes, off: int, nbytes: int, what: str) -> None:
             f"truncated frame: {what} needs {nbytes} bytes at {off}, "
             f"payload is {len(payload)}"
         )
+
+
+class UniformEntries(NamedTuple):
+    """An ENTRY/BULK frame whose rows share one resource, context and
+    origin and carry no args (:func:`decode_uniform_entries`); the
+    columns are read-only views of the payload."""
+
+    n: int
+    interns: List[Tuple[int, bytes]]
+    seq: np.ndarray
+    ts: np.ndarray
+    acquire: np.ndarray
+    entry_type: np.ndarray
+    resource_id: int
+    context_id: int
+    origin_id: int
+
+
+def decode_uniform_entries(payload: bytes) -> Optional[UniformEntries]:
+    """Decode an ENTRY/BULK frame of one (resource, context, origin) and no
+    args with one length check and byte comparisons in place of column
+    scans (the capture journal's bulk groups). None for any other frame,
+    a truncated one included: :func:`decode_frame` decodes (or refuses)
+    those."""
+    if len(payload) < _HDR.size:
+        return None
+    kind, _flags, _worker, n, _base, _gen, _shed, n_interns, var_len = _HDR.unpack_from(payload, 0)
+    if kind not in (KIND_ENTRY, KIND_BULK) or var_len or not n:
+        return None
+    off = _HDR.size
+    interns: List[Tuple[int, bytes]] = []
+    for _ in range(n_interns):
+        if off + _INTERN_HDR.size > len(payload):
+            return None
+        iid, ln = _INTERN_HDR.unpack_from(payload, off)
+        off += _INTERN_HDR.size
+        interns.append((iid, payload[off: off + ln]))
+        off += ln
+    if off + ENTRY_ROW_BYTES * n != len(payload):
+        return None
+    seq = np.frombuffer(payload, np.uint64, n, off)
+    ts = np.frombuffer(payload, np.int64, n, off + 8 * n)
+    acquire = np.frombuffer(payload, np.int32, n, off + 16 * n)
+    entry_type = np.frombuffer(payload, np.int8, n, off + 20 * n)
+    off += 21 * n
+    ids = []
+    for _ in range(3):
+        first = payload[off: off + 4]
+        if payload[off: off + 4 * n] != first * n:
+            return None
+        ids.append(_I32.unpack(first)[0])
+        off += 4 * n
+    off += _TRACE_BYTES * n + 4 * n  # the traces and args_off are not read
+    if payload[off: off + 4 * n] != bytes(4 * n):
+        return None  # a row with args
+    return UniformEntries(n, interns, seq, ts, acquire, entry_type, *ids)
 
 
 def decode_frame(payload: bytes) -> DecodedFrame:

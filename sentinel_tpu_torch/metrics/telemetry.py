@@ -297,8 +297,7 @@ class TelemetryBus:
             # sentinel.tpu.cluster.wait.cap.ms — the pre-cap path slept
             # per op back-to-back, unbounded).
             "cluster_wait_ms": 0,
-            # Black-box capture journal (ROADMAP Queue 1 item 7, step
-            # 7c; 0 until it is ported): chunks
+            # The capture journal (runtime/capture.py): chunks
             # and frame records spilled, bytes written, segment
             # rollovers, postmortem freezes, and bulk rows whose args
             # column could not be serialized (those rows replay
@@ -495,7 +494,7 @@ class TelemetryBus:
             self.counters["ingest_shed"] += n
 
     # ------------------------------------------------------------------
-    # black-box capture journal (ROADMAP Queue 1 item 7, step 7c)
+    # the capture journal (runtime/capture.py)
     # ------------------------------------------------------------------
     def note_capture(
         self, chunks: int, records: int, nbytes: int,

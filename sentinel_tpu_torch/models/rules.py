@@ -11,6 +11,7 @@ analog of the reference's volatile map swap in FlowRuleManager.java:159).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -214,6 +215,19 @@ class ParamFlowRule(AbstractRule):
         )
 
 
+@functools.lru_cache(maxsize=1024)
+def _snake(name: str) -> str:
+    """``countMode`` -> ``count_mode`` (a rule file's few key names, cached)."""
+    out = []
+    for ch in name:
+        if ch.isupper():
+            out.append("_")
+            out.append(ch.lower())
+        else:
+            out.append(ch)
+    return "".join(out)
+
+
 def rules_from_json(
     data: Sequence[Dict[str, Any]], rule_cls: type, aliases: Optional[Dict[str, str]] = None
 ) -> List[Any]:
@@ -221,31 +235,21 @@ def rules_from_json(
     snake_case and the reference's camelCase field names (so rule files
     written for the Java dashboard load unchanged)."""
 
-    def snake(name: str) -> str:
-        out = []
-        for ch in name:
-            if ch.isupper():
-                out.append("_")
-                out.append(ch.lower())
-            else:
-                out.append(ch)
-        return "".join(out)
-
     field_names = {f.name for f in dataclasses.fields(rule_cls)}
     result = []
     for item in data:
         kwargs: Dict[str, Any] = {}
         for k, v in item.items():
-            key = snake(k)
+            key = _snake(k)
             if aliases and key in aliases:
                 key = aliases[key]
             if key in field_names:
                 if key == "cluster_config" and isinstance(v, dict):
                     v = ClusterFlowConfig(
                         **{
-                            snake(ck): cv
+                            _snake(ck): cv
                             for ck, cv in v.items()
-                            if snake(ck) in {f.name for f in dataclasses.fields(ClusterFlowConfig)}
+                            if _snake(ck) in {f.name for f in dataclasses.fields(ClusterFlowConfig)}
                         }
                     )
                 if key == "param_flow_item_list" and isinstance(v, list):

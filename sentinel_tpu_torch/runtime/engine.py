@@ -118,24 +118,14 @@ from sentinel_tpu_torch.utils.config import config
 from sentinel_tpu_torch.utils.system_status import sampler as system_sampler
 from sentinel_tpu_torch.utils.device import DeviceLike, resolve_device
 from sentinel_tpu_torch.utils.numeric import pad_pow2 as _pad_pow2
-from sentinel_tpu_torch.utils.unported import (
-    ROADMAP_CLUSTER,
-    ROADMAP_TIERS,
-    unported,
-)
+from sentinel_tpu_torch.utils.unported import ROADMAP_CLUSTER, unported
 
 # submit_many takes exactly submit_entry's request keys; anything else is
 # handed to submit_entry(**req) so that a typo raises TypeError there.
 _SUBMIT_ENTRY_KEYS = frozenset(("resource", "context_name", "origin", "acquire", "entry_type", "prio", "ts", "args"))
 
-# Switches the JAX engine honours that this slice does not have yet.
-_UNPORTED_SWITCHES = ((config.CAPTURE_ENABLED, ROADMAP_TIERS),)
-
 
 def _refuse_unported_config() -> None:
-    for key, item in _UNPORTED_SWITCHES:
-        if config.get_bool(key, False):
-            raise unported(f"{key}=true", item)
     if config.get_bool(config.SKETCH_ENABLED, False) and config.get_bool(config.GOSSIP_ENABLED, False):
         # The tier merges peer frames (SketchTier.merge_remote); the agent
         # that would carry them between engines is not ported.
@@ -173,16 +163,16 @@ class _PendingFetch:
     Each record has its own RLock: the wait and the fill run without the
     engine's queue lock held, and a re-entrant materialization from the
     fill is a no-op. The record's flight-recorder span closes at
-    materialization; the JAX record's capture token belongs to ROADMAP
-    Queue 1 item 7 (step 7c)."""
+    materialization. Its capture token (None with the journal off) is
+    spent once: by the fill, a quarantine or a failed fill."""
 
     __slots__ = ("_engine", "_entries", "_bulk", "_exits", "_bulk_exits", "_refs", "_fill", "_done", "_error",
-                 "_lock", "_staging", "_seq", "_span")
+                 "_lock", "_staging", "_seq", "_span", "_cap_tok")
 
     def __init__(self, engine: "Engine", entries: List["_EntryOp"], refs: "_ChunkRefs",
                  fill: Callable[[np.ndarray], None], staging: List[tuple], seq: int,
                  bulk: Sequence["BulkOp"] = (), exits: Sequence["_ExitOp"] = (),
-                 bulk_exits: Sequence["_BulkExitOp"] = (), span=None) -> None:
+                 bulk_exits: Sequence["_BulkExitOp"] = (), span=None, cap_tok=None) -> None:
         self._engine = engine
         self._entries = entries
         self._bulk = list(bulk)
@@ -198,6 +188,7 @@ class _PendingFetch:
         self._staging = staging
         self._seq = seq  # the engine's flush sequence number of the chunk
         self._span = span  # the flight-recorder span (None: telemetry off)
+        self._cap_tok = cap_tok  # the capture journal's one-shot verdict token
 
     def materialize(self, got: Optional[np.ndarray] = None) -> None:
         """Fetch + verdict fill + post work, exactly once. ``got`` is the
@@ -248,9 +239,14 @@ class _PendingFetch:
                     # fill (and its own wait on the fallback path).
                     self._engine.telemetry.settle(span, t_fetch0, time.perf_counter())
                 entries, self._entries = self._entries, []
-                self._bulk = []
+                bulk, self._bulk = self._bulk, []
                 self._exits = []
                 self._bulk_exits = []
+                cap_tok, self._cap_tok = self._cap_tok, None
+                if cap_tok is not None:
+                    # A failed fill spends the token too, its rows read
+                    # missing; after a fill that spent it this is a no-op.
+                    self._engine.capture.note_verdicts(cap_tok, entries, bulk)
                 if self._error is None:
                     # Post work failures (log IO, release RPCs) reach this
                     # materializer only: the verdicts are filled.
@@ -279,6 +275,9 @@ class _PendingFetch:
             t = time.perf_counter()
             self._engine.telemetry.settle(span, t, t)
         self._engine._note_blocked_items([fo.fill_degraded(entries, exits, bulk, bulk_exits)])
+        cap_tok, self._cap_tok = self._cap_tok, None
+        if cap_tok is not None:
+            self._engine.capture.note_verdicts(cap_tok, entries, bulk, degraded=True)
         self._engine._post_flush(entries)
 
     def quarantine(self) -> None:
@@ -774,6 +773,12 @@ class Engine:
         # (submit-ts second, resource) speculative, degraded, shed and drift
         # counts, drained by the metric timer into the v2 line columns.
         self.resource_metrics = ResourceProvenance()
+        # The capture journal (runtime/capture.py): off by default, and
+        # then this attribute is its whole footprint (one read a hot
+        # path). Built before the ipc plane, whose drainer runs chunks.
+        from sentinel_tpu_torch.runtime.capture import maybe_build_capture
+
+        self.capture = maybe_build_capture(self)
         # The multi-process ingest plane (ipc/): N worker processes feed
         # this engine through shared-memory rings. Disarmed (the default)
         # this attribute is the whole footprint: no shared memory, no
@@ -1319,6 +1324,9 @@ class Engine:
                     self.flow_index = findex
                     self.flow_dyn = findex.make_dyn_state()
                 self.speculative.on_rules_reloaded()
+                if self.capture is not None:
+                    self.capture.note_rules("flow", [r.to_dict() for r in rules],
+                                            from_sketch=any(getattr(r, "from_sketch", False) for r in rules))
         self._post_flush(drained)
 
     def set_degrade_rules(self, rules: Sequence[DegradeRule]) -> None:
@@ -1333,6 +1341,8 @@ class Engine:
                     self.degrade_dyn = dindex.make_dyn_state()
                     self._reset_breaker_mirror()
                 self.speculative.on_rules_reloaded()
+                if self.capture is not None:
+                    self.capture.note_rules("degrade", [r.to_dict() for r in rules])
         self._post_flush(drained)
 
     def set_param_rules(self, by_resource: Dict[str, List[ParamFlowRule]]) -> None:
@@ -1346,6 +1356,10 @@ class Engine:
                 self.param_index = pindex
                 self.param_dyn = make_param_state(8, self.device)
             self.speculative.on_rules_reloaded()
+            if self.capture is not None:
+                rules = [r for rs in by_resource.values() for r in rs]
+                self.capture.note_rules("param", [r.to_dict() for r in rules],
+                                        from_sketch=any(getattr(r, "from_sketch", False) for r in rules))
         self._post_flush(drained)
 
     def set_system_config(self, cfg) -> None:
@@ -1357,6 +1371,10 @@ class Engine:
                     self.system_config.highest_system_load >= 0 or self.system_config.highest_cpu_usage >= 0
                 ):
                     system_sampler.start()
+            if self.capture is not None:
+                from sentinel_tpu_torch.runtime.capture import _system_to_dict
+
+                self.capture.note_rules("system", _system_to_dict(self.system_config))
         self._post_flush(drained)
 
     def set_authority_rules(self, by_resource: Dict[str, AuthorityRule]) -> None:
@@ -1364,6 +1382,8 @@ class Engine:
             drained, _ = self._flush_locked()
             with self._lock:
                 self.authority_rules = dict(by_resource)
+            if self.capture is not None:
+                self.capture.note_rules("authority", {res: r.to_dict() for res, r in by_resource.items()})
         self._post_flush(drained)
 
     def _auth_ok(self, resource: str, origin: str) -> bool:
@@ -2689,6 +2709,11 @@ class Engine:
         with self._timing_lock:
             self._flush_timing["encode_ms"] += (t_disp0 - t_enc0) * 1e3
         seq = self._next_flush_seq()
+        # The capture journal spills the chunk's inputs before the launch
+        # (a dispatch fault must not lose the traffic that caused it); the
+        # fill spends the token on the verdicts.
+        cap = self.capture
+        cap_tok = cap.note_chunk(entries, exits, bulk, bulk_exits, now, seq) if cap is not None else None
 
         def _dispatch():
             if self.faults is not None:
@@ -2729,7 +2754,8 @@ class Engine:
             # so the chain needs a restore. Fill this chunk from policy; its
             # staging is dropped (the chunk may still read it).
             fo.trip("dispatch", exc, seq)
-            return self._degraded_chunk(fo, entries, exits, bulk, bulk_exits, defer, quarantined=True)
+            return self._degraded_chunk(fo, entries, exits, bulk, bulk_exits, defer, quarantined=True,
+                                        cap_tok=cap_tok)
         self.stats, self.flow_dyn, self.degrade_dyn, self.param_dyn, result = out
         self._note_borrows(now, with_occupy, sweep, timeout)
         # Every fill input in one int32 buffer, on the stream after the
@@ -2744,9 +2770,10 @@ class Engine:
         spec = self.speculative
         breaker_snap = None
         # The breaker states ride the copy back while the speculative tier
-        # is on (its mirror reads every flip) or a state-change observer is
-        # registered (rules/breaker_events.py).
-        if spec.enabled or breaker_events.has_observers():
+        # is on (its mirror reads every flip), a state-change observer is
+        # registered (rules/breaker_events.py) or the capture journal is
+        # on (a breaker that opens freezes its segments).
+        if spec.enabled or breaker_events.has_observers() or cap is not None:
             self._breaker_seq += 1
             breaker_snap = (self._breaker_epoch, self._breaker_seq)
             got.append(self.degrade_dyn.state)
@@ -2800,13 +2827,13 @@ class Engine:
                 tier.on_drain(cols[nxt], cols[nxt + 1], self.clock.now_ms())
             self._note_blocked_items(self._fill_results(
                 cols, entries, bulk, findex, dindex, auth_rules, k, kd, blk_topk=result.blk_rows is not None,
-                exits=exits, bulk_exits=bulk_exits, flush_seq=trace_seq, bulk_acq=bulk_acq))
+                exits=exits, bulk_exits=bulk_exits, flush_seq=trace_seq, bulk_acq=bulk_acq, cap_tok=cap_tok))
 
         if defer:
             if span is not None:
                 tele.dispatch_done(span)
             rec = _PendingFetch(self, entries, refs, _fill, staging, seq, bulk=bulk, exits=exits,
-                                bulk_exits=bulk_exits, span=span)
+                                bulk_exits=bulk_exits, span=span, cap_tok=cap_tok)
             for op in entries:
                 op._pending = rec
             for g in bulk:
@@ -2819,13 +2846,17 @@ class Engine:
                 _fill(self._fetch_refs([refs], (seq,))[0])
             except BaseException as exc:
                 if not fo.armed or is_build_error(exc):
+                    if cap_tok is not None:
+                        # A failed fill spends the token too: its rows read missing.
+                        cap.note_verdicts(cap_tok, entries, bulk)
                     raise
                 # The verdicts are lost: quarantine the older in-flight queue
                 # and fill this chunk from policy. No caller sees the raw
                 # device exception.
                 faulted = True
                 fo.trip("fetch", exc, seq)
-                self._degraded_chunk(fo, entries, exits, bulk, bulk_exits, defer, quarantined=True, span=span)
+                self._degraded_chunk(fo, entries, exits, bulk, bulk_exits, defer, quarantined=True, span=span,
+                                     cap_tok=cap_tok)
         finally:
             with self._timing_lock:
                 self._flush_timing["kernel_ms"] += (time.perf_counter() - t_fetch0) * 1e3
@@ -2870,19 +2901,27 @@ class Engine:
         return span
 
     def _degraded_chunk(self, fo, entries, exits, bulk, bulk_exits, defer: bool,
-                        quarantined: bool = False, span=None) -> None:
+                        quarantined: bool = False, span=None, cap_tok=None) -> None:
         """Fill one chunk from the host fallback: the device faulted mid-flush
         (``quarantined``: the chunk's own results were lost, counted) or the
         engine was DEGRADED before it dispatched. A deferred chunk has no
         materialization to ride, so its post work runs here. The chunk's
-        span, if it has one, settles as quarantined."""
+        span, if it has one, settles as quarantined. The capture journal
+        records the degraded verdicts under the chunk's token, and a chunk
+        that never reached the launch (no token) is captured here with
+        flush seq -1."""
         if quarantined:
             fo.note_quarantined()
         if span is not None:
             span.quarantined = True
             t = time.perf_counter()
             self.telemetry.settle(span, t, t)
+        cap = self.capture
+        if cap is not None and cap_tok is None:
+            cap_tok = cap.note_chunk(entries, exits, bulk, bulk_exits, self.clock.now_ms(), -1)
         self._note_blocked_items([fo.fill_degraded(entries, exits, bulk, bulk_exits)])
+        if cap is not None:
+            cap.note_verdicts(cap_tok, entries, bulk, degraded=True)
         if defer:
             self._post_flush(entries)
         return None
@@ -2948,7 +2987,8 @@ class Engine:
         """The ordered, epoch-guarded mirror update and the observer
         dispatch: a snapshot older than one applied is dropped (firing it
         after a newer state would travel back in time); after a gap of
-        unobserved flushes the first snapshot resyncs silently."""
+        unobserved flushes the first snapshot resyncs silently. A breaker
+        that opened freezes the capture journal's recent segments."""
         with self._breaker_mirror_lock:
             if epoch != self._breaker_epoch or seq <= self._breaker_applied_seq:
                 return
@@ -2961,6 +3001,11 @@ class Engine:
             self._breaker_mirror_valid = True
         if fire:
             breaker_events.fire_transitions(prev, new_state, dindex)
+            cap = self.capture
+            opened = np.nonzero((new_state == 1) & (prev != 1))[0] if cap is not None else ()
+            if len(opened):
+                cap.note_breaker_open([r.resource for gid in opened.tolist()
+                                       if (r := dindex.rule_of_gid(gid)) is not None])
 
     def _queue_fetch(self, cols: List[torch.Tensor], staging: List[tuple]) -> Tuple[_ChunkRefs, tuple]:
         """Pack ``cols`` (bool or int32 tensors) into one int32 buffer and
@@ -3009,14 +3054,15 @@ class Engine:
     def _fill_results(self, got, entries, bulk, findex: FlowIndex, dindex: DegradeIndex,
                       auth_rules: Dict[str, AuthorityRule], k: int, kd: int, blk_topk: bool = False,
                       exits: Sequence["_ExitOp"] = (), bulk_exits: Sequence["_BulkExitOp"] = (),
-                      flush_seq: int = -1, *, bulk_acq: np.ndarray) -> list:
+                      flush_seq: int = -1, *, bulk_acq: np.ndarray, cap_tok=None) -> list:
         """Fill one chunk's verdicts from its copied-back columns. A
         speculatively decided op or group keeps its caller-visible verdict:
         the settled one reconciles the tier's mirrors instead. Writes the
-        admission trace's records, the provenance ledger's serve notes and
-        the metric extensions' calls; returns the chunk's block-log items
-        in parts (:meth:`_block_items_and_extensions`). ``bulk_acq`` is the
-        bulk rows' acquire column as encoded."""
+        admission trace's records, the provenance ledger's serve notes, the
+        metric extensions' calls and, under ``cap_tok``, the capture
+        journal's verdicts; returns the chunk's block-log items in parts
+        (:meth:`_block_items_and_extensions`). ``bulk_acq`` is the bulk
+        rows' acquire column as encoded."""
         admitted, reason, slot_ok, wait_ms, sys_type, dslot_ok = got[:6]
         if blk_topk:
             self.last_blocked_topk = (got[6], got[7])
@@ -3129,6 +3175,9 @@ class Engine:
             # The sharded step has no device top-K: recount the blocked
             # weight from the verdicts just filled, on the host.
             self._fold_blocked_recount(entries, bulk)
+        if cap_tok is not None:
+            self.capture.note_verdicts(cap_tok, entries, bulk, bulk_cols=_capture_bulk_cols(
+                bulk, spec_at, starts, b0, adm_b, rsn_b, wait_ms[b0:s], filled))
         return self._block_items_and_extensions(entries, bulk, starts, b0, adm_b, rsn_b, filled, bulk_acq, exits,
                                                 bulk_exits, slot_ok, dslot_ok, findex, dindex, auth_rules)
 
@@ -3359,7 +3408,8 @@ class Engine:
         thread, stop the auto-flusher, decide anything still queued and
         settle the deferred fetches (the pipelined flush leaves up to
         ``pipeline_depth`` in flight), fold the speculative tier's last
-        drift window and retire the failover tier's threads. The ipc plane
+        drift window, retire the failover tier's threads and close the
+        capture journal's segment. The ipc plane
         closes first: its drainer submits into this engine, and closing it
         publishes the CLOSED health word, so worker processes serve the
         policy snapshot instead of waiting on verdicts. Idempotent; the
@@ -3373,6 +3423,33 @@ class Engine:
         if self.speculative.enabled:
             self.speculative.flush_window()
         self.failover.close()
+        if self.capture is not None:
+            self.capture.close()
+
+
+def _capture_bulk_cols(bulk, spec_at: List[int], starts: List[int], b0: int, adm_b: np.ndarray, rsn_b: np.ndarray,
+                       wait_b: np.ndarray, filled: Optional[np.ndarray]) -> tuple:
+    """The bulk rows' (admitted, reason, wait_ms, flags) for the capture
+    journal, from the chunk's columns as the fill left them: a speculative
+    group's rows carry its served verdicts and ``F_SPECULATIVE`` (with
+    ``F_DEGRADED`` if it was served while DEGRADED); rows without a verdict
+    read ``F_VERDICT_MISSING``."""
+    from sentinel_tpu_torch.ipc import frames
+    from sentinel_tpu_torch.runtime.capture import F_VERDICT_MISSING
+
+    flags = np.zeros(len(adm_b), np.uint8)
+    if spec_at:
+        wait_b = wait_b.copy()
+        for gi in spec_at:
+            g = bulk[gi]
+            lo = starts[gi] - b0
+            if g._wait_ms is not None:
+                wait_b[lo: lo + g.n] = g._wait_ms
+            flags[lo: lo + g.n] = frames.F_SPECULATIVE | (frames.F_DEGRADED if g.spec_degraded else 0)
+    if filled is not None:
+        adm_b, rsn_b, wait_b = (np.where(filled, c, 0) for c in (adm_b, rsn_b, wait_b))
+        flags[~filled] = F_VERDICT_MISSING
+    return adm_b, rsn_b, wait_b, flags
 
 
 def _release_blocked_tokens(entries: Sequence[_EntryOp]) -> None:

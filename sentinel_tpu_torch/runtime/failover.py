@@ -50,12 +50,12 @@ difference.
 Everything is deterministic under ``testing/faults.FaultInjector``.
 
 The health transitions, degraded verdicts and probe flushes are noted on
-the telemetry bus; the degraded fill writes the admission trace's records,
-the per-resource ledger's degraded column and the block log's rows. Left
-out, each with its ROADMAP Queue 1 item: custom processor slots in the
-degraded fill (item 11); the capture journal's
-health notes (item 7, step 7c); the IPC plane's live re-assertions (item
-10).
+the telemetry bus, and each transition on the capture journal's timeline
+(one into DEGRADED freezes its recent segments); the degraded fill writes
+the admission trace's records, the per-resource ledger's degraded column
+and the block log's rows. Left out, each with its ROADMAP Queue 1 item:
+custom processor slots in the degraded fill (item 11); the IPC plane's
+live re-assertions (item 10).
 """
 
 from __future__ import annotations
@@ -1069,6 +1069,11 @@ class FailoverManager:
         tele = self._engine.telemetry
         if tele.enabled:
             tele.note_health(frm, to, reason, now_ms=now)
+        cap = self._engine.capture
+        if cap is not None:
+            # Every transition rides the capture timeline; one into
+            # DEGRADED also freezes the recent segments.
+            cap.note_health({"event": "failover", "from": frm, "to": to, "reason": reason, "now_ms": now})
 
     def trip(self, where: str, exc: BaseException, seq: object = -1) -> None:
         """A device fault: go DEGRADED and quarantine the in-flight queue.

@@ -162,8 +162,11 @@ class IngestValve:
         tele = self._engine.telemetry
         if tele.enabled:
             tele.note_ingest_shed(entries + rows)
-        # The capture journal's shed-streak trigger waits for ROADMAP
-        # Queue 1 item 7 (step 7c).
+        cap = self._engine.capture
+        if cap is not None:
+            # The shed-streak freeze: a saturated engine is when the
+            # capture journal matters most.
+            cap.note_shed(entries + rows)
 
     # ------------------------------------------------------------------
     # lifecycle / readers

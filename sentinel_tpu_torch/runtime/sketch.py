@@ -1004,8 +1004,17 @@ class SketchTier:
                 tele.note_sketch_promotion(promos)
             if demos:
                 tele.note_sketch_demotion(demos)
-        # The capture journal's rule-timeline note waits for ROADMAP Queue 1
-        # item 7 (step 7c).
+        cap = self._engine.capture
+        if cap is not None and (promos or demos):
+            # The capture timeline's note, for the explainer to date a
+            # promotion: the replay's own tier derives them again.
+            with self._lock:
+                cap.note_sketch({
+                    "promotions": promos,
+                    "demotions": demos,
+                    "promoted_resources": sorted(self._promoted_res),
+                    "promoted_values": {r: sorted(v) for r, v in self._promoted_vals.items()},
+                })
 
     def _cold_locked(self, key: str, cnt: int, floor: float, wid: int) -> bool:
         """One demotion step: at most one cold window per window id; any

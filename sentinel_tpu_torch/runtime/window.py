@@ -311,7 +311,10 @@ class BatchWindow:
     def _fan_out_window(self, w: _OpenWindow, settled: list) -> None:
         """Materialize verdict arrays and wake every waiter — always,
         even when materialization itself fails (the error re-raises
-        from each caller, like a failed sync flush)."""
+        from each caller, like a failed sync flush). The abandoned
+        requests' auto-exits are queued before the wake, so a survivor
+        that exits and flushes finds them in the exit buffer; a failed
+        release still wakes the waiters."""
         try:
             for grp, op, is_bulk in settled:
                 if is_bulk:
@@ -323,10 +326,12 @@ class BatchWindow:
                 if r.verdict is None and r.error is None:
                     r.error = exc
         finally:
-            self._wake(w)
-        for r in w.reqs:
-            if r.abandoned:
-                self.release_abandoned(r)
+            try:
+                for r in w.reqs:
+                    if r.abandoned:
+                        self.release_abandoned(r)
+            finally:
+                self._wake(w)
 
     def release_abandoned(self, r: WindowRequest) -> None:
         """Run-once auto-exit for a request whose caller cancelled

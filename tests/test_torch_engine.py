@@ -695,7 +695,7 @@ def test_cluster_mode_rule_raises():
 
 @pytest.mark.parametrize(
     "key,value",
-    [(config.GOSSIP_ENABLED, "true"), (config.CAPTURE_ENABLED, "true")],
+    [(config.GOSSIP_ENABLED, "true")],
 )
 def test_unported_config_raises(key, value):
     config.set(key, value)
@@ -712,23 +712,26 @@ _PORTED_SWITCHES = {
     config.SPECULATIVE_ENABLED: "true", config.FAILOVER_ENABLED: "true", config.AUTOTUNE_ENABLED: "true",
     config.INGEST_MAX_PENDING: "64", config.INGEST_MAX_PENDING_BULK: "1024", config.INGEST_DEADLINE_MS: "1000",
     config.INGEST_BATCH_WINDOW_MS: "2", config.IPC_ENABLED: "true", config.SPANS_ENABLED: "true",
+    config.CAPTURE_ENABLED: "true",
 }
 
 
 @pytest.mark.parametrize("key", list(_PORTED_SWITCHES))
-def test_ported_tier_switches_build_and_flush(key):
+def test_ported_tier_switches_build_and_flush(key, tmp_path):
     """The speculative tier, the failure domain, the autotuner, the ingest
-    valve, the batch window, the ipc plane and the span journal, refused or
-    ignored before they were ported, build and flush (tests/test_torch_{
-    speculative,failover,autotune,ingest,window,ipc_plane,spans}.py hold
-    them against the JAX package)."""
+    valve, the batch window, the ipc plane, the span journal and the capture
+    journal, refused or ignored before they were ported, build and flush
+    (tests/test_torch_{speculative,failover,autotune,ingest,window,
+    ipc_plane,spans,capture}.py hold them against the JAX package)."""
     from sentinel_tpu_torch.metrics.spans import get_journal, reset_journal
 
     config.set(key, _PORTED_SWITCHES[key])
+    config.set(config.CAPTURE_DIR, str(tmp_path / "cap"))
     reset_journal()
     try:
         eng = _cpu_engine()
         assert (eng.ipc_plane is not None) == (key == config.IPC_ENABLED)
+        assert (eng.capture is not None) == (key == config.CAPTURE_ENABLED)
         assert get_journal().enabled == (key == config.SPANS_ENABLED)
         eng.set_flow_rules([FlowRule("r", count=2)])
         ops = [eng.entry_sync("r")[1] for _ in range(3)]
@@ -741,6 +744,8 @@ def test_ported_tier_switches_build_and_flush(key):
         assert eng.ingest.armed == (key.startswith("sentinel.tpu.ingest.") and key != config.INGEST_BATCH_WINDOW_MS)
         assert eng.ingest_window.armed == (key == config.INGEST_BATCH_WINDOW_MS)
         assert eng.telemetry.enabled and eng.telemetry.counters_snapshot()["flushes"] >= 1
+        if eng.capture is not None:
+            assert eng.capture.snapshot()["counters"]["chunks"] >= 1
         eng.close()
         assert eng.ipc_plane is None  # the engine's close closes its plane
     finally:

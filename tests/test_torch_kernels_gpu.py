@@ -3021,3 +3021,72 @@ def test_ipc_worker_kill_leaves_card_gauges_zero(cuda):
             eng.close()
     finally:
         config.reset()
+
+
+# --- the capture journal (runtime/capture.py) and its replay on the card ---
+
+
+def test_capture_replays_bit_exact_on_card(cuda, tmp_path):
+    """A card engine's stream with the journal armed (Zipf bulk groups,
+    hot-parameter args on singles and groups, breakers that open, bulk
+    exits, a reload) replays through the port's replay on the card at
+    depths 0 and 2 and on the CPU with zero diffs; the replay on the card
+    launched K4, and arming the journal changed no verdict."""
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.runtime import replay
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils.clock import ManualClock
+    from sentinel_tpu_torch.utils.config import config
+
+    def drive(cap_dir):
+        if cap_dir is not None:
+            config.set(config.CAPTURE_ENABLED, "true")
+            config.set(config.CAPTURE_DIR, cap_dir)
+        clock = ManualClock(1000)
+        eng = Engine(clock=clock, initial_rows=256, device=cuda)
+        flow = [st.FlowRule(f"c{i}", count=40) for i in range(24)]
+        eng.set_flow_rules(flow)
+        eng.set_degrade_rules([st.DegradeRule(f"c{i}", grade=2, count=3, time_window=1, min_request_amount=2)
+                               for i in range(0, 24, 3)])
+        eng.set_param_rules({"c0": [st.ParamFlowRule("c0", param_idx=0, count=4)]})
+        rng = np.random.default_rng(41)
+        out, prev = [], []
+        for step in range(12):
+            now = 1000 + 100 * step
+            clock.set_ms(now)
+            if step == 6:
+                eng.set_flow_rules([st.FlowRule(f"c{i}", count=25) for i in range(24)])
+            groups = [eng.submit_bulk(f"c{r}", int(rng.integers(8, 90)), ts=now - int(rng.integers(0, 80)))
+                      for r in np.unique(np.minimum(rng.zipf(1.2, 20), 24) - 1)]
+            groups.append(eng.submit_bulk("c0", 16, ts=now, args_column=[(f"v{j % 5}",) for j in range(16)]))
+            singles = [eng.submit_entry("c0", args=(f"v{j}",), ts=now) for j in range(4)]
+            for g in prev:
+                if g.admitted_count:
+                    n = g.admitted_count
+                    eng.submit_exit_bulk(g.rows, n, rt=rng.integers(1, 50, n), err=(rng.random(n) < 0.5).astype(np.int32),
+                                         ts=now, resource=g.resource)
+            eng.flush()
+            out += [x.tolist() for g in groups for x in (g.admitted, g.reason, g.wait_ms)]
+            out += [(v.verdict.admitted, v.verdict.reason) for v in singles]
+            prev = groups
+        eng.flush()
+        eng.drain()
+        eng.close()
+        config.reset()
+        return out
+
+    cap_dir = str(tmp_path / "cap")
+    try:
+        assert drive(cap_dir) == drive(None)
+        decoded = replay.load_capture(cap_dir)
+        assert any(k == "health" for k, _ in decoded["stream"]), "a breaker opened"
+        for depth in (0, 2):
+            before = tflush.flow_admission.launches
+            report = replay.verify(decoded, depth=depth, device=cuda)
+            assert report["diffs"] == 0, report["samples"]
+            assert report["compared"] == report["rows"] > 0
+            assert tflush.flow_admission.launches > before
+        report = replay.verify(decoded, device="cpu")
+        assert report["diffs"] == 0 and report["compared"] == report["rows"]
+    finally:
+        config.reset()

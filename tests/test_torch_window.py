@@ -20,6 +20,7 @@ adapters, item 11). The window's per-request trace records are held in
 tests/test_torch_admission_trace.py."""
 
 import asyncio
+import contextlib
 import sys
 import threading
 
@@ -257,6 +258,53 @@ def _cancelled_awaiter(lib):
 
 def test_cancelled_awaiter_releases_its_admitted_slot():
     run_lockstep(_cancelled_awaiter)
+
+
+@pytest.mark.parametrize("release_fails", [False, True], ids=["released", "release_raises"])
+def test_fan_out_releases_abandoned_before_wake(release_fails):
+    """The port's fan-out queues every abandoned request's auto-exit before
+    it wakes the waiters, so a survivor that exits and flushes at once finds
+    the auto-exits in the exit buffer; a release that raises still wakes
+    them. (The JAX window wakes first: a deliberate difference.)"""
+    from sentinel_tpu_torch.core import api
+    from sentinel_tpu_torch.models import constants as C
+    from sentinel_tpu_torch.runtime import window as wmod
+    from sentinel_tpu_torch.utils.clock import ManualClock
+    from sentinel_tpu_torch.utils.config import config
+
+    config.set(config.INGEST_BATCH_WINDOW_MS, "5000")
+    try:
+        eng = api.reset(clock=ManualClock(1000), device="cpu")
+        w = eng.ingest_window
+        win = wmod._OpenWindow(deadline=0.0)
+        for i in range(4):
+            r = wmod.WindowRequest("o", C.CONTEXT_DEFAULT_NAME, "", 1, C.EntryType.IN, (), 1000, None)
+            r.event = win.event
+            r.abandoned = i % 2 == 0
+            win.reqs.append(r)
+        order = []
+
+        def release(r):
+            order.append(("release", win.reqs.index(r)))
+            if release_fails:
+                raise RuntimeError("release failed")
+
+        def wake(wf):
+            order.append(("wake", wf is win))
+
+        w.release_abandoned = release
+        w._wake = wake
+        with pytest.raises(RuntimeError) if release_fails else contextlib.nullcontext():
+            w._fan_out_window(win, [])
+        if release_fails:
+            assert order == [("release", 0), ("wake", True)]
+        else:
+            assert order == [("release", 0), ("release", 2), ("wake", True)]
+        del w.release_abandoned, w._wake
+        eng.close()
+    finally:
+        config.reset()
+        api.reset(device="cpu")
 
 
 # --- TestWindowLifecycle -----------------------------------------------------
