@@ -206,10 +206,29 @@ killed process leaves them, renamed frozen-death-* by the next journal on
 the directory, decoded and replayed on the card with zero diffs; no
 process but this one holds a CUDA context.
 
+The engine supervisor (ipc/supervise.py): phase 4l runs it on the card,
+the engine in a supervised child process on named rings with a warm
+standby (4j's 6,000 rules and its THREAD-grade and hot-parameter rules in
+each engine child, loaded by testing/ipc_procs.launch_report_setup, which
+reports each child's device and its K2, K4 and K10 launches to a file), 4
+supervised workers (spawn_worker, no CUDA in them) and a probe client in
+this process: the standby's sizing (nvidia-smi's memory of each process
+while the primary and the standby live, the primary's drains/s under a 1 s
+bulk(res, 256) loop beside 4j (c)'s, one re-warm); (a) 3 steps of 32,768
+entries, then kill -9 of the primary under a bulk loop: a takeover
+(restarts 0), every worker reconnected, the THREAD-grade verdicts after it
+equal to a never-killed CPU engine fed the same requests (in a worker),
+exactly 96 admitted after quiesce; (b) a planned handoff under continuous
+probing: no policy-served and no refused probe; (c) the standby killed,
+then the primary: a cold respawn on the backoff (restarts 1), the same
+checks as (a). Every serving child must run on cuda:0 and launch K4; after
+stop() only this process may hold a CUDA context and no segment may be
+left in /dev/shm.
+
 Each phase logs ``phase <name>: start``; a phase that raises logs ``phase
 <name> failed after <s> s: <exception>`` before the script exits non-zero.
 
-The CPU sides of phases 2c (d), 4-4h, 4j, 4k and 8 (the plain versions on one
+The CPU sides of phases 2c (d), 4-4h, 4j, 4k, 4l and 8 (the plain versions on one
 heavy segment, the CPU engines) run in four worker processes, started
 before the build, beside the card's phases (phase 3 runs before 2c so
 that case (d)'s references are ready); the workers stop with the script.
@@ -3911,6 +3930,7 @@ IPC_SETTINGS = {"IPC_HEARTBEAT_MS": 50, "IPC_WORKER_DEAD_MS": 300}
 # (overadmit.max 0: the over-admission budget is one for all resources, so
 # the point where it trips depends on the order of the workers' frames).
 IPC_SLOT_BYTES_A = 65536
+IPC_DRAINS_PER_S = {}  # (c): drains/s of each loop, which phase 4l prints beside its own
 IPC_ENGINE_A = {"TRACE_ENABLED": "false", "SPECULATIVE_FLUSH_BATCH": 1, "SPECULATIVE_OVERADMIT_MAX": 0,
                 "FLUSH_MAX_INFLIGHT": 0}
 
@@ -4243,6 +4263,7 @@ def _ipc_loops(eng, plane, cmd_qs, out_q, cuda_flags: list) -> None:
         if calls == 0 or not splits:
             fail(f"phase 4j (c) {tag}: no call went through the plane")
         coalesced[tag] = 1.0 - frames / calls
+        IPC_DRAINS_PER_S[tag] = drains / took
         log(f"  (c) {tag}: {rows / took:,.0f} requests/s through the plane ({calls:,} calls, {frames:,} frames in "
             f"{took:.2f} s); round trip {_pcts(rtt)}; {drains / took:,.1f} drains/s; {len(splits):,} drainer "
             f"flushes, host split {split_line(splits)}"
@@ -4761,6 +4782,405 @@ def phase4_capture(results: dict, cpu_jobs: dict) -> None:
     if len(apps) > 1:
         fail(f"phase 4k: {len(apps)} processes hold a CUDA context")
     log(f"  nvidia-smi's compute processes: {len(apps)}; phase 4k took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 4l: the engine supervisor, warm standby and planned handoff (ipc/supervise.py)
+# ---------------------------------------------------------------------------
+SUP_STEPS = 2  # (a): steps of FLUSH_N over the four workers before the kill (3 before its cuts)
+SUP_KILL_LOOP_S = 0.5  # (a), (c): worker 0 loops bulk(res, 256) this long around each kill (1.5 s before its cuts)
+# The loop's calls wait at most this long: a frame in flight when the engine
+# dies is answered by no engine, and a takeover faster than the client's
+# death check leaves its caller waiting out the timeout (as in JAX).
+SUP_KILL_LOOP_TIMEOUT_MS = 1000
+SUP_REPORT_S = 0.1  # how often each engine child rewrites its report
+SUP_HOLD = 40  # (c): THREAD-grade admissions held across the cold restart
+SUP_PROBE = "sup-probe"  # a resource with no rule: the smoke's own probe client (slot 4)
+SUP_PROBE_N = 97  # a THREAD probe of the rule's count (96) and one more
+SUP_TS = 1000 + 100 * SUP_STEPS  # the THREAD probes' ts (their verdicts do not read it)
+SUP_DIR = os.path.join(ROOT, "build", "phase4l")
+# Loose enough for a box whose CPUs the CPU references share: the phase pins
+# the takeover, the handoff and the restart, not the detection latency.
+SUP_SETTINGS = {"IPC_HEARTBEAT_MS": 50, "IPC_ENGINE_DEAD_MS": 500, "IPC_ENGINE_DEAD_CONFIRM_MS": 1000,
+                "IPC_WORKER_DEAD_MS": 60000, "IPC_HANDOFF_WAIT_MS": 30000, "IPC_SLOT_BYTES": IPC_SLOT_BYTES_A,
+                "SUPERVISE_BACKOFF_MS": 200, "SUPERVISE_STANDBY": "true", "SUPERVISE_STANDBY_WARM_MS": 1000,
+                "FAILOVER_ENABLED": "true", "FAILOVER_CHECKPOINT_EVERY": 2, "TRACE_ENABLED": "false"}
+
+
+def _sup_rules() -> dict:
+    """``_ipc_engine``'s rules, in its order, as ``ipc_procs.rules_setup``
+    takes them."""
+    return {"qps_rules": N_RULES, "qps_count": 20,
+            "flow": [(IPC_THREAD, 96, C.FLOW_GRADE_THREAD), (IPC_KILL, 1000, C.FLOW_GRADE_THREAD)],
+            "param": [(IPC_PARAM, 0, 4)]}
+
+
+def _sup_thread(kind: str, n: int) -> list:
+    """Worker 2's THREAD-grade steps: one bulk of ``n``, or ``n`` exits."""
+    if kind == "bulk":
+        return [{"kind": "bulk", "resource": IPC_THREAD, "n": n, "ts": np.full(n, SUP_TS, np.int64),
+                 "timeout_ms": 120000}]
+    return [{"kind": "exit", "resource": IPC_THREAD, "ts": SUP_TS, "rt": 1} for _ in range(n)]
+
+
+def _sup_thread_plan() -> list:
+    """The THREAD-grade steps after the first SUP_STEPS steps: (a) the probe after the takeover, the exits
+    of every live admission, the gauges-are-0 probe and its exits; (c) a
+    group held across the cold restart, the probe after it, the exits, the
+    gauges-are-0 probe and its exits. Each probe admits up to the count:
+    how many is for the engine to say, so the exits follow the answers."""
+    return [("bulk", SUP_PROBE_N, "a probe"), ("exit_live", 0, "a quiesce"), ("bulk", SUP_PROBE_N, "a gauges"),
+            ("exit_live", 0, "a exits"), ("bulk", SUP_HOLD, "c hold"), ("bulk", SUP_PROBE_N, "c probe"),
+            ("exit_live", 0, "c quiesce"), ("bulk", SUP_PROBE_N, "c gauges"), ("exit_live", 0, "c exits")]
+
+
+def drive_supervised_oracle(device: torch.device, seed: int):
+    """Phase 4l's never-killed reference: the port's engine in this process
+    (``_ipc_engine``, depth 0, no speculative tier) fed the same requests
+    as the supervised run: SUP_STEPS steps of the four workers' scripts and
+    their completions, then worker 2's THREAD-grade plan. Returns the
+    admissions worker 2 holds after the steps and the plan's answers by
+    label."""
+    p = (np.arange(1, IPC_OWN + 1, dtype=np.float64) ** -1.1)
+    p /= p.sum()
+    rngs = [np.random.default_rng([seed, w]) for w in range(IPC_WORKERS)]
+    exit_rngs = [np.random.default_rng([seed, w, 1]) for w in range(IPC_WORKERS)]
+    clock = tclock.ManualClock(0)
+    eng = _ipc_engine(device, clock, PIPELINE_DEPTH=0, SPECULATIVE_ENABLED="false", TRACE_ENABLED="false")
+    held = 0
+    for s in range(SUP_STEPS):
+        now = 1000 + 100 * s
+        clock.set_ms(now)
+        scripts = [ipc_step(rngs[w], w, now, p) for w in range(IPC_WORKERS)]
+        answers = [_ipc_oracle_run(eng, scripts[w], False) for w in range(IPC_WORKERS)]
+        exits = [ipc_exits(exit_rngs[w], scripts[w], answers[w], now) for w in range(IPC_WORKERS)]
+        for w in range(IPC_WORKERS):
+            _ipc_oracle_run(eng, exits[w], False)
+        held += _sup_held(scripts[2], answers[2], exits[2])
+        eng.flush()
+        eng.drain()
+    clock.set_ms(SUP_TS)
+    out, live = {}, held
+    for kind, n, label in _sup_thread_plan():
+        if kind == "exit_live":
+            _ipc_oracle_run(eng, _sup_thread("exit", live), False)
+            live = 0
+            continue
+        ans = _ipc_answer(_ipc_oracle_run(eng, _sup_thread("bulk", n), False)[0])
+        live += sum(ans[1])
+        out[label] = ans
+    eng.close()
+    return held, out
+
+
+def _sup_held(script: list, answers: list, exits: list) -> int:
+    """The THREAD-grade admissions a worker still holds after one step."""
+    adm = sum(sum(a[1]) for st_, a in zip(script, answers) if a[0] == "bulk" and st_["resource"] == IPC_THREAD)
+    return adm - sum(1 for x in exits if x["resource"] == IPC_THREAD)
+
+
+def _sup_ask(cmd_qs, out_q, cmds: list, tag: str) -> dict:
+    """Send ``(worker, command)`` pairs; the answers by worker."""
+    for w, cmd in cmds:
+        cmd_qs[w].put(cmd)
+    got = {}
+    for _ in cmds:
+        ans = out_q.get(timeout=300)
+        if ans[0] != tag:
+            fail(f"phase 4l: worker {ans[1]} answered {ans[0]} to {tag}")
+        if ans[-1]:
+            fail(f"phase 4l: worker {ans[1]} set up CUDA")
+        got[ans[1]] = ans
+    return got
+
+
+def _sup_reports(report_dir: str, served: dict, want: str) -> str:
+    """Each serving child's device and its K2, K4, K10 launches since it
+    attached; fails unless it ran on ``want`` and launched K4 (the plain
+    versions launch nothing: a CPU rehearsal checks the device alone)."""
+    from sentinel_tpu_torch.testing import ipc_procs
+
+    pids = list(served.values())
+    deadline = time.monotonic() + 5.0
+    while True:
+        reps = ipc_procs.read_reports(report_dir)
+        missing = [pid for pid in pids if pid not in reps or reps[pid]["launches_attached"]["flow_admission"] <= 0]
+        if not missing or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    parts = []
+    for role, pid in served.items():
+        rep = reps.get(pid)
+        if rep is None:
+            fail(f"phase 4l {what}: child {pid} wrote no report")
+        la = rep["launches_attached"]
+        if rep["device"] != want or (want.startswith("cuda") and la["flow_admission"] <= 0):
+            fail(f"phase 4l: serving child {pid} ran on {rep['device']} with K4 {la['flow_admission']} launches "
+                 f"while attached")
+        parts.append(f"{role} (pid {pid}) on {rep['device']}: K2 {la['window_update']}, K4 {la['flow_admission']}, "
+                     f"K10 {la['run_param']} launches while serving")
+    return "; ".join(parts)
+
+
+@contextlib.contextmanager
+def _light_spawn_main():
+    """Spawned children re-run the parent's ``__main__`` as ``__mp_main__``,
+    and this script's top level imports the whole port and gpu_timing, some
+    seconds a child on a loaded host. The supervisor's children need none of
+    it (their targets live in the package), so while phase 4l runs they
+    start from ``testing/ipc_procs`` instead, as if this script had been run
+    with ``-m`` (``multiprocessing.spawn`` reads ``__main__.__spec__``)."""
+    import importlib.util
+
+    main = sys.modules["__main__"]
+    saved = main.__dict__.get("__spec__")
+    main.__spec__ = importlib.util.find_spec("sentinel_tpu_torch.testing.ipc_procs")
+    try:
+        yield
+    finally:
+        main.__spec__ = saved
+
+
+def _device_used_mib(device) -> float:
+    """The card's memory in use by every process, in MiB (inside a container's
+    PID namespace nvidia-smi names no process by its pid and its per-process
+    figures cannot be told apart)."""
+    if device is not None and torch.device(device).type != "cuda":
+        return 0.0
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 2**20
+
+
+def _gpu_apps(query: str = "pid") -> list:
+    return [line.strip() for line in subprocess.run(
+        ["nvidia-smi", f"--query-compute-apps={query}", "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.splitlines() if line.strip()]
+
+
+def phase4_supervise(results: dict, cpu_jobs: dict, device=None) -> None:
+    """Phase 4l on ``device`` (None: the card; "cpu" rehearses it where there
+    is none)."""
+    import shutil
+
+    from sentinel_tpu_torch.ipc import supervise
+    from sentinel_tpu_torch.ipc.worker import IngestClient
+    from sentinel_tpu_torch.testing import ipc_procs
+    from sentinel_tpu_torch.utils.config import config
+
+    log(f"phase 4l: the engine supervisor, a warm standby and a planned handoff on the card ({IPC_WORKERS} supervised "
+        f"workers, {N_RULES:,} rules, {FLUSH_N:,} entries a step; {card_line()}; load average {os.getloadavg()}, "
+        f"{threading.active_count()} threads in this process)")
+    t_phase = time.perf_counter()
+
+    def at() -> str:
+        return f"[t+{time.perf_counter() - t_phase:.1f} s]"
+
+    shutil.rmtree(SUP_DIR, ignore_errors=True)
+    report_dir = os.path.join(SUP_DIR, "reports")
+    os.makedirs(report_dir)
+    ckpt = f"/dev/shm/stpu-4l-{os.getpid()}.bin"
+    with contextlib.suppress(OSError):
+        os.unlink(ckpt)
+    for key, value in SUP_SETTINGS.items():
+        config.set(getattr(config, key), str(value))
+    config.set(config.FAILOVER_CKPT_PATH, ckpt)
+    sup = cli = None
+    procs, cmd_qs, out_q = [], [], None
+    used0 = _device_used_mib(device)
+    with _light_spawn_main():
+        try:
+            sup = supervise.EngineSupervisor(setup=ipc_procs.launch_report_setup, setup_args=(report_dir, _sup_rules(), SUP_REPORT_S),
+                                             n_workers=IPC_WORKERS + 1, device=device)
+            ctx = sup.spawn_context()
+            out_q = ctx.Queue()
+            for w in range(IPC_WORKERS):
+                cmd_qs.append(ctx.Queue())
+                procs.append(sup.spawn_worker(ipc_procs.serve_worker_mode, w, (cmd_qs[w], out_q)))
+            if not sup.wait_engine_up(120):
+                fail("phase 4l: the supervised engine never came up")
+            t_up = time.perf_counter() - t_phase
+            if not sup.wait_standby_ready(120):
+                fail("phase 4l: the standby never reported warm")
+            t_ready = time.perf_counter() - t_phase
+            _sup_ask(cmd_qs, out_q, [(w, ("counters",)) for w in range(IPC_WORKERS)], "counters")
+            primary, standby = sup.engine_pid(), sup.standby_pid()
+            reps = ipc_procs.read_reports(report_dir)
+            log(f"  {at()} the primary up {t_up:.1f} s, the standby warm {t_ready:.1f} s (warm boot "
+                f"{sup._standby['warm_ms']:.0f} ms in the child) and {IPC_WORKERS} workers attached "
+                f"{time.perf_counter() - t_phase:.1f} s after the supervisor started; the children's age when their "
+                f"setup began {reps[primary]['age_at_setup_s']:.1f} and {reps[standby]['age_at_setup_s']:.1f} s, the "
+                f"setup {reps[primary]['setup_s']:.2f} and {reps[standby]['setup_s']:.2f} s; load average "
+                f"{os.getloadavg()}, {threading.active_count()} threads in this process")
+            apps = _gpu_apps("pid,used_memory")
+            log(f"  {at()} the standby's sizing: the card's memory in use rose "
+                f"{_device_used_mib(device) - used0:,.0f} MiB with the primary and the standby up (their contexts and "
+                f"engines); their allocators hold {reps[primary]['reserved_mib']:,.1f} and "
+                f"{reps[standby]['reserved_mib']:,.1f} MiB; nvidia-smi's compute processes beside this one "
+                f"({os.getpid()}; primary {primary}, standby {standby}): {apps}")
+            cli = IngestClient(sup.handles.channel(IPC_WORKERS), IPC_WORKERS)
+            supervise.probe_live(cli, SUP_PROBE, 60, 3000)
+            own = [[f"r{w * IPC_OWN + i}" for i in range(IPC_OWN)] for w in range(IPC_WORKERS)]
+
+            def primary_drains():
+                time.sleep(1.5 * SUP_REPORT_S)  # a report written after the plane went idle
+                return ipc_procs.read_reports(report_dir)[sup.engine_pid()]["drains"]
+
+            d0 = primary_drains()
+            g = _sup_ask(cmd_qs, out_q, [(0, ("loop_bulk", own[0], 256, IPC_LOOP_S, 41))], "loop_bulk")[0]
+            drains = primary_drains() - d0
+            log(f"  {at()} the standby's sizing: the primary's bulk(res, 256) loop from 1 worker with the standby "
+                f"parked: {g[3] / IPC_LOOP_S:,.0f} requests/s, {drains / IPC_LOOP_S:,.1f} drains/s (phase 4j (c) in "
+                f"this run: {IPC_DRAINS_PER_S.get('bulk, 1 worker', float('nan')):,.1f} drains/s, no standby)")
+            oracle_held, oracle = cpu_result(cpu_jobs, "4l")
+
+            # (a) SUP_STEPS steps, then kill -9 the primary under load
+            p = (np.arange(1, IPC_OWN + 1, dtype=np.float64) ** -1.1)
+            p /= p.sum()
+            rngs = [np.random.default_rng([61, w]) for w in range(IPC_WORKERS)]
+            exit_rngs = [np.random.default_rng([61, w, 1]) for w in range(IPC_WORKERS)]
+            held = 0
+            t0 = time.perf_counter()
+            for s in range(SUP_STEPS):
+                now = 1000 + 100 * s
+                scripts = [ipc_step(rngs[w], w, now, p) for w in range(IPC_WORKERS)]
+                got = _sup_ask(cmd_qs, out_q, [(w, ("script", scripts[w])) for w in range(IPC_WORKERS)], "script")
+                for w in range(IPC_WORKERS):
+                    if any(a[0] == "bulk" and any(f & 2 for f in a[4]) or a[0] == "entry" and a[5] for a in got[w][2]):
+                        fail(f"phase 4l (a): worker {w} was policy-served before the kill")
+                answers = [[_ipc_answer(a) for a in got[w][2]] for w in range(IPC_WORKERS)]
+                exits = [ipc_exits(exit_rngs[w], scripts[w], answers[w], now) for w in range(IPC_WORKERS)]
+                _sup_ask(cmd_qs, out_q, [(w, ("script", exits[w])) for w in range(IPC_WORKERS)], "script")
+                held += _sup_held(scripts[2], answers[2], exits[2])
+            steps_s = time.perf_counter() - t0
+            if held != oracle_held:
+                fail(f"phase 4l (a): worker 2 holds {held} THREAD-grade admissions, the CPU engine {oracle_held}")
+            # The standby's last re-warm, read after the steps: the durable file
+            # holds their checkpoints by now.
+            deadline = time.monotonic() + 10
+            while sup.standby_rewarm_ms is None and time.monotonic() < deadline:
+                time.sleep(0.05)
+            log(f"  {at()} the standby's sizing: one re-warm (restore_durable in the parked standby) "
+                f"{sup.standby_rewarm_ms:.1f} ms, every {SUP_SETTINGS['SUPERVISE_STANDBY_WARM_MS']} ms")
+            served = {"(a) the primary": primary}
+
+            def kill_under_load(what: str) -> dict:
+                cmd_qs[0].put(("loop_bulk", own[0], 256, SUP_KILL_LOOP_S, 43, SUP_KILL_LOOP_TIMEOUT_MS))
+                time.sleep(0.2)
+                # The serving child's report written after the loop began (its
+                # launches die with it).
+                pid, t_mark = sup.engine_pid(), time.time()
+                deadline = time.monotonic() + 5
+                while ipc_procs.read_reports(report_dir).get(pid, {}).get("t", 0) <= t_mark:
+                    if time.monotonic() > deadline:
+                        fail(f"phase 4l ({what}): the serving child {pid} wrote no report")
+                    time.sleep(0.02)
+                out = supervise.measure_kill_outage(sup, cli, SUP_PROBE, 60, 3000)
+                loop = out_q.get(timeout=300)
+                if loop[0] != "loop_bulk":
+                    fail(f"phase 4l ({what}): worker 0 answered {loop[0]}")
+                out["loop"] = f"{loop[2]} calls, the longest {max(loop[4]):.0f} ms"
+                return out
+
+            def reconnected(want: int, what: str) -> None:
+                deadline = time.monotonic() + 30
+                while True:
+                    got = _sup_ask(cmd_qs, out_q, [(w, ("counters",)) for w in range(IPC_WORKERS)], "counters")
+                    counts = [got[w][2]["reconnects"] for w in range(IPC_WORKERS)]
+                    if min(counts) >= want:
+                        return
+                    if time.monotonic() > deadline:
+                        fail(f"phase 4l ({what}): worker reconnects {counts}, want {want} each")
+                    time.sleep(0.1)
+
+            def thread_plan(*labels) -> None:
+                nonlocal live
+                for kind, n, label in _sup_thread_plan():
+                    if label not in labels:
+                        continue
+                    if kind == "exit_live":
+                        _sup_ask(cmd_qs, out_q, [(2, ("script", _sup_thread("exit", live)))], "script")
+                        live = 0
+                        continue
+                    raw = _sup_ask(cmd_qs, out_q, [(2, ("script", _sup_thread("bulk", n)))], "script")[2][2][0]
+                    if any(f & 2 for f in raw[4]):
+                        fail(f"phase 4l ({label}): the THREAD-grade group was policy-served")
+                    ans = _ipc_answer(raw)
+                    if ans != oracle[label]:
+                        fail(f"phase 4l ({label}): {sum(ans[1])} of {n} admitted, the never-killed CPU engine "
+                             f"{sum(oracle[label][1])}")
+                    live += sum(ans[1])
+                    if label.endswith("gauges") and sum(ans[1]) != 96:
+                        fail(f"phase 4l ({label}): {sum(ans[1])} admitted after quiesce, not the count 96")
+
+            live = held
+            out_a = kill_under_load("a")
+            served["(a) the standby, to (b)"] = sup.engine_pid()
+            if sup.standby_takeovers != 1 or sup.restarts != 0:
+                fail(f"phase 4l (a): takeovers {sup.standby_takeovers}, restarts {sup.restarts}")
+            reconnected(1, "a")
+            thread_plan("a probe", "a quiesce", "a gauges", "a exits")
+            log(f"  {at()} (a) {SUP_STEPS} steps ({steps_s:.1f} s; worker 2 holds {held} THREAD-grade admissions), "
+                f"then kill -9 of the primary under a bulk loop ({out_a['loop']}): standby takeover, outage "
+                f"{out_a['outage_ms']:.1f} ms, {out_a['policy_served']} policy-served probes, warm boot "
+                f"{sup.standby_warm_boot_ms:.0f} ms off the outage path, attach {sup.standby_attach_ms:.1f} ms; "
+                f"takeovers 1, restarts 0; every worker reconnected; THREAD-grade verdicts after it equal the "
+                f"never-killed CPU engine's, {SUP_PROBE_N} after quiesce admit exactly 96")
+
+            # (b) a planned handoff under continuous probing
+            if not sup.wait_standby_ready(120):
+                fail("phase 4l (b): the next standby never reported warm")
+            t0 = time.perf_counter()
+            out_b = supervise.probe_through_handoff(sup, cli, SUP_PROBE, 60, 30000)
+            served["(b) the next standby, to (c)"] = sup.engine_pid()
+            if out_b["handoffs"] != 1 or out_b["policy_served"] or out_b["not_admitted"] or sup.standby_takeovers != 1:
+                fail(f"phase 4l (b): {out_b}")
+            reconnected(2, "b")
+            log(f"  {at()} (b) planned handoff under continuous probing: worst verdict gap "
+                f"{out_b['handoff_outage_ms']:.1f} ms, 0 policy-served, 0 not admitted, handoffs 1, warm boot "
+                f"{out_b['standby_warm_boot_ms']:.0f} ms, attach {out_b['standby_attach_ms']:.1f} ms "
+                f"({time.perf_counter() - t0:.1f} s); every worker reconnected")
+
+            # (c) the standby killed, then the primary: a cold respawn on the backoff
+            thread_plan("c hold")
+            sb_pid = sup.kill_standby()
+            out_c = kill_under_load("c")
+            served["(c) the cold respawn"] = sup.engine_pid()
+            if sup.restarts != 1 or sup.standby_takeovers != 1 or sup.handoffs != 1:
+                fail(f"phase 4l (c): restarts {sup.restarts}, takeovers {sup.standby_takeovers}, "
+                     f"handoffs {sup.handoffs}")
+            reconnected(3, "c")
+            thread_plan("c probe", "c quiesce", "c gauges", "c exits")
+            log(f"  {at()} (c) the standby ({sb_pid}) killed, then the primary under a bulk loop ({out_c['loop']}): "
+                f"cold respawn on the backoff, outage {out_c['outage_ms']:.1f} ms, {out_c['policy_served']} "
+                f"policy-served probes; restarts 1; every worker reconnected; THREAD-grade verdicts after it equal "
+                f"the never-killed CPU engine's, {SUP_PROBE_N} after quiesce admit exactly 96")
+            log(f"  {at()} serving children: {_sup_reports(report_dir, served, device or 'cuda:0')}")
+            reps = ipc_procs.read_reports(report_dir)
+            for name in ("window_update", "flow_admission", "run_param"):
+                results[name]["launches_4l"] = sum(reps[pid]["launches_attached"][name] for pid in served.values())
+            results["thread_gauge"]["launches_4l"] = results["window_update"]["launches_4l"]
+        finally:
+            if cli is not None:
+                cli.close()
+            for q in cmd_qs:
+                q.put(("stop",))
+            for pr in procs:
+                pr.join(10)
+            if sup is not None:
+                sup.stop()
+            config.reset()
+            with contextlib.suppress(OSError):
+                os.unlink(ckpt)
+    deadline = time.monotonic() + 30
+    while len(_gpu_apps()) > 1 and time.monotonic() < deadline:
+        time.sleep(0.2)
+    apps = _gpu_apps()
+    left = [n for n in os.listdir("/dev/shm") if n.startswith(sup.prefix)]
+    if len(apps) > 1 or left:
+        fail(f"phase 4l: after stop() {len(apps)} processes hold a CUDA context, segments left {left}")
+    log(f"  {at()} stop(): no child alive, nvidia-smi's compute processes {len(apps)}, the card's memory in use "
+        f"{_device_used_mib(device) - used0:+,.0f} MiB against the phase's start, no segment of '{sup.prefix}' left "
+        f"in /dev/shm; phase 4l took {time.perf_counter() - t_phase:.1f} s ({card_line()})")
 
 
 def phase5() -> None:
@@ -5883,6 +6303,7 @@ def start_cpu_jobs() -> dict:
         "4i e": WORKERS.apply_async(drive_mesh_topk, (cpu, 32)),
         "4j a0": WORKERS.apply_async(drive_ipc, (cpu, 19, 0, False)),
         "4j a2": WORKERS.apply_async(drive_ipc, (cpu, 19, 2, True)),
+        "4l": WORKERS.apply_async(drive_supervised_oracle, (cpu, 61)),
     }
 
 
@@ -5969,7 +6390,7 @@ def main() -> None:
         ("4f", lambda: phase4_pipeline(cpu_jobs)), ("4g", lambda: phase4_failover(cpu_jobs)),
         ("4h", lambda: phase4_control(results, cpu_jobs)), ("4i", lambda: phase4_metric(results, cpu_jobs)),
         ("4j", lambda: phase4_ipc(results, cpu_jobs)), ("4k", lambda: phase4_capture(results, cpu_jobs)),
-        ("5", phase5), ("6", phase6), ("7", phase7), ("8", lambda: phase8(results, cpu_jobs)), ("9", phase9),
+        ("4l", lambda: phase4_supervise(results, cpu_jobs)), ("5", phase5), ("6", phase6), ("7", phase7), ("8", lambda: phase8(results, cpu_jobs)), ("9", phase9),
     ):
         log(f"phase {name}: start")
         t0 = time.perf_counter()
@@ -6007,7 +6428,7 @@ def main() -> None:
                       "edges", "launches_4h", "routes_4h", "ms_60s", "plain_ms_60s", "bound_ms_60s",
                       "device_ms_60s", "launches_per_call_60s", "memsets_per_call_60s", "records", "records_60s",
                       "pull_ms", "read_ms_4i", "copy_ms_4i", "asked_rows_4i", "copies_per_call", "launches_4j",
-                      "launches_4k") + tuple(
+                      "launches_4k", "launches_4l") + tuple(
                           f"{m}_{n}_k{k}" for m in ("ms", "plain_ms", "library_ms", "device_ms", "launches_per_call",
                                                     "memsets_per_call") for n, k in ((N, 64), (8, 16), (8, 64))):
             if extra in r:

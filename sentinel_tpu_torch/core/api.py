@@ -527,13 +527,27 @@ def run_workers(target, n: int = 2, args: Sequence[object] = (), engine: Optiona
 
 
 def run_engine_supervised(setup=None, setup_args: Sequence[object] = (), n_workers: int = 0,
-                          prefix: Optional[str] = None):
-    """The engine in a supervised child process on named shared-memory
-    rings, restarted on a crash (JAX ``ipc/supervise.py``): not ported
-    yet."""
-    from sentinel_tpu_torch.utils.unported import ROADMAP_IPC, unported
+                          prefix: Optional[str] = None, device: DeviceLike = None):
+    """Run the ENGINE in a supervised child process on named shared-memory
+    rings (``sentinel_tpu_torch/ipc/supervise.py``): a crashed engine is
+    restarted on the shared Backoff and re-attaches to the EXISTING rings;
+    workers keep their mappings, see the engine-boot epoch bump, re-assert
+    their live-admission ledgers and get device-backed verdicts again. With
+    ``sentinel.tpu.failover.checkpoint.path`` set (and failover enabled)
+    the new engine warm-starts from the durable checkpoint.
 
-    raise unported("run_engine_supervised (the engine supervisor)", ROADMAP_IPC)
+    ``setup`` (top-level and picklable, called as ``setup(engine,
+    *setup_args)`` in the child) loads rules; ``n_workers`` sizes the
+    response rings created up front; every child builds its engine on
+    ``device`` (None = the card: ``RuntimeError`` before anything is
+    spawned when CUDA is absent). Returns an
+    :class:`~sentinel_tpu_torch.ipc.supervise.EngineSupervisor`
+    (``spawn_worker()``, ``kill_engine()``, ``handoff()``, ``restarts``,
+    ``stop()``). This process must not also host an engine on the same
+    plane."""
+    from sentinel_tpu_torch.ipc.supervise import EngineSupervisor
+
+    return EngineSupervisor(setup=setup, setup_args=setup_args, n_workers=n_workers, prefix=prefix, device=device)
 
 
 # Tracer exception filters (Tracer.java:33-34, 129-186): BlockError is

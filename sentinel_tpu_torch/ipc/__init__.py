@@ -35,7 +35,11 @@ Modules:
 * :mod:`~sentinel_tpu_torch.ipc.worker_mode` — worker mode
   (``sentinel.tpu.ipc.worker.mode``): route a whole process's
   ``api.entry`` surface (and therefore every adapter) through its
-  client; ``api.run_workers`` makes an N-process deployment one line.
+  client; ``api.run_workers`` / ``python -m sentinel_tpu_torch.ipc.launch``
+  make an N-process deployment one line.
+* :mod:`~sentinel_tpu_torch.ipc.supervise` — the engine supervisor: the
+  engine in a child process on named rings, restarted on a crash, a warm
+  standby and a planned handoff (``api.run_engine_supervised``).
 
 Config lives under ``sentinel.tpu.ipc.*`` (utils/config.py); the plane
 is **off by default** — never constructed, no shared memory, at most

@@ -53,9 +53,8 @@ The health transitions, degraded verdicts and probe flushes are noted on
 the telemetry bus, and each transition on the capture journal's timeline
 (one into DEGRADED freezes its recent segments); the degraded fill writes
 the admission trace's records, the per-resource ledger's degraded column
-and the block log's rows. Left out, each with its ROADMAP Queue 1 item:
-custom processor slots in the degraded fill (item 11); the IPC plane's
-live re-assertions (item 10).
+and the block log's rows. Left out: custom processor slots in the
+degraded fill (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -1031,6 +1030,7 @@ class FailoverManager:
         self.durable_path = (config.get(config.FAILOVER_CKPT_PATH) or "").strip()
         self.durable_interval_ms = max(0, config.get_int(config.FAILOVER_CKPT_INTERVAL_MS, 1000))
         self._durable_pending: Optional[Checkpoint] = None
+        self._ckpt_force = False
         self._durable_event = threading.Event()
         self._durable_stop = False
         self._durable_thread: Optional[threading.Thread] = None
@@ -1320,7 +1320,18 @@ class FailoverManager:
         # Sharded states are not checkpointed (restore is single-device).
         if self._engine.mesh is not None:
             return False
+        if self._ckpt_force:
+            # One-shot (a planned handoff): the next flush checkpoints
+            # whatever the cadence, so the final durable spill carries the
+            # freshest state the successor warms from.
+            self._ckpt_force = False
+            return True
         return self.checkpoint_every > 0 and seq % self.checkpoint_every == 0
+
+    def request_checkpoint(self) -> None:
+        """Arm a one-shot checkpoint on the next flush (the planned
+        handoff's final spill)."""
+        self._ckpt_force = True
 
     def begin_checkpoint(self, seq, now_ms, findex, dindex, pindex) -> Checkpoint:
         """Metadata for a checkpoint whose state copies ride the chunk's

@@ -13,8 +13,9 @@ decodes with the port's reader as with the JAX reader; the port's
 columnar spills are byte-identical to the row encoders. And the kill: a
 spawned engine process killed with SIGKILL in mid-stream leaves segments
 the next boot keeps as ``frozen-death-*``, which the port's replay
-verifies with zero diffs (the twin of tests/test_capture_chaos.py, whose
-supervisor is not ported: ROADMAP Queue 1 step 10b).
+verifies with zero diffs (tests/test_capture_chaos.py's case without the
+supervisor; its twin through the supervisor is in
+tests/test_torch_standby.py).
 
 Left out: ``TestCaptureCommand`` (the transport's ``capture`` command,
 ROADMAP Queue 1 item 11)."""
@@ -489,7 +490,7 @@ def test_columnar_spills_are_the_row_encoders_bytes(with_args):
         frames.encode_exits(0, xrows, interns, 4, 0)
 
 
-# --- the kill (tests/test_capture_chaos.py's twin, without the supervisor) ---
+# --- the kill (tests/test_capture_chaos.py's case, without the supervisor) ---
 
 
 @pytest.mark.mp

@@ -12,8 +12,8 @@ CPU, and the host-mirror pieces the failover and speculative tiers read.
   TestSketchCheckpointRestore) in lockstep (tests/torch_lockstep.py): warm
   restores, a remapped node registry through ``adopt_keys``, and corrupt,
   truncated, stale or mismatched files as counted cold starts. The
-  re-attach and supervisor cases there wait for the IPC plane (ROADMAP
-  Queue 1 item 10).
+  re-attach and supervisor cases there are in tests/test_torch_supervise.py
+  and tests/test_torch_standby.py.
 * ``mirror_info``, ``mirror_any_open``, ``mirror_bucket``, ``adopt_keys``
   and ``make_probe_batch`` against the JAX package's."""
 

@@ -72,11 +72,13 @@ def _pin_deadline(lib):
 
 def _pin_batch_window(lib):
     """The window switch arms the engine's batch window, and a window of
-    requests decides as the sequential path would."""
-    eng = _mk(lib, INGEST_BATCH_WINDOW_MS=2, INGEST_BATCH_MAX=3)
+    requests decides as the sequential path would. The window (a wall-clock
+    deadline) is too long to close between the three joins, so the batch
+    closes by count on both sides."""
+    eng = _mk(lib, INGEST_BATCH_WINDOW_MS=10000, INGEST_BATCH_MAX=3)
     eng.set_flow_rules([lib.st.FlowRule("r", count=2)])
     win = eng.ingest_window
-    assert win.armed and win.window_ms == 2.0 and win.batch_max == 3
+    assert win.armed and win.window_ms == 10000.0 and win.batch_max == 3
     mod = __import__(type(win).__module__, fromlist=["WindowRequest"])
     reqs = [win.join(mod.WindowRequest("r", "sentinel_default_context", "", 1, lib.C.EntryType.OUT, (), 0, None))
             for _ in range(3)]

@@ -5,9 +5,9 @@ classes, the adapters' aside (the adapters are not ported). With
 ``try_entry``, ``entry_async`` and ``entry_windowed`` ride the client; the
 verdicts equal the same calls on an in-process engine; no Engine is built
 in the worker and no CUDA set up; a killed worker-mode process leaves the
-THREAD gauges at exactly 0; ``api.run_workers`` deploys N processes; the
-supervisor is refused (ROADMAP Queue 1 step 10b). Tolerance: exact
-equality."""
+THREAD gauges at exactly 0; ``api.run_workers`` deploys N processes (the
+supervised deployment, ``api.run_engine_supervised``, is held in
+tests/test_torch_standby.py). Tolerance: exact equality."""
 
 from __future__ import annotations
 
@@ -126,11 +126,6 @@ def test_worker_mode_off_is_parity():
         worker_mode.detach()
         plane.close()
         eng.close()
-
-
-def test_run_engine_supervised_refused():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        api.run_engine_supervised()
 
 
 _CALLS = [("entry", "open", {}), ("entry", "closed", {}), ("try_entry", "closed", {}),
