@@ -225,10 +225,36 @@ checks as (a). Every serving child must run on cuda:0 and launch K4; after
 stop() only this process may hold a CUDA context and no segment may be
 left in /dev/shm.
 
+The token plane over TCP (cluster/protocol.py, server.py, client.py,
+shards.py, gossip.py): phase 8b (run after 4i) runs its servers as
+threads of this process, their services on the card. It first counts
+K12's launches by torch.profiler over ten 1,024-row frames through the
+server's handler (none fails the phase) and times round trips of
+request_tokens_batch at 8, 1,024 and 16,384 rows (p50, p99, frames/s,
+decisions/s); then (a) examples/cluster_demo.py's
+sequence through a SentinelTokenServer and a ClusterTokenClient on
+loopback, equal to the same against a CPU server; (b) an engine in client
+mode (set_to_client, submit_many) against a server holding phase 2e's
+65,536 flows as cluster-mode QPS rules (a quarter AVG_LOCAL, in 16
+namespaces) and a cluster-mode param rule on every 64th resource, five
+windows of up to 16,384 Zipf(1.1) requests, leases off and then on, its
+verdicts and the counters of server and client equal to a CPU engine's
+against a CPU server (in a worker); (e) in the leases-on run the server
+stopped and two more windows decided by the local check; (c) the
+leases-off stream through a ShardedTokenClient over 4 servers: one
+server's verdicts; (d) two engines with the sketch tier and gossip armed
+merge each other's frames over loopback and promote a value hot only
+fleet-wide, as two CPU engines do. K12, K2 and K4 are counted from 0
+around (b), (e) and (c), K11 around (d). Phase 3 also times
+``flush.apply_exit_phase`` alone on its exits-on step (device kernels,
+device time, bound), and phase 3b prints the sharded step's bound (its
+states, batch and result moved once) beside the bytes its shard copies
+move.
+
 Each phase logs ``phase <name>: start``; a phase that raises logs ``phase
 <name> failed after <s> s: <exception>`` before the script exits non-zero.
 
-The CPU sides of phases 2c (d), 4-4h, 4j, 4k, 4l and 8 (the plain versions on one
+The CPU sides of phases 2c (d), 4-4h, 4j, 4k, 4l, 8 and 8b (the plain versions on one
 heavy segment, the CPU engines) run in four worker processes, started
 before the build, beside the card's phases (phase 3 runs before 2c so
 that case (d)'s references are ready); the workers stop with the script.
@@ -296,8 +322,8 @@ try:
     from sentinel_tpu_torch.runtime import sketch as tsk
     from sentinel_tpu_torch.utils import clock as tclock
     from sentinel_tpu_torch.utils import cuda_build
-    from gpu_timing import (TD_B, TD_FLOWS, TD_NS, copies_per_call, device_profile, kernel_times, time_ms,
-                            time_ms_fresh, token_batch)
+    from gpu_timing import (TD_B, TD_FLOWS, TD_NS, copies_per_call, device_profile, kernel_counts, kernel_times,
+                            time_ms, time_ms_fresh, token_batch)
 except ImportError as exc:
     print(f"chip_smoke: the sentinel_tpu_torch package or gpu_timing.py is not beside this script ({exc})",
           file=sys.stderr)
@@ -475,6 +501,28 @@ def exit_updates(batch: flush.FlushBatch):
     sample = torch.where((thr4 < 0) & (c4 > 0), rt4, 2**31 - 1).to(I32)
     mask = (rows >= 0) & batch.x_valid.repeat_interleave(4)
     return rows, batch.x_ts.repeat_interleave(4), d, sample, thr4, mask
+
+
+def exit_phase_bytes(stats: nodes.StatsState, batch: flush.FlushBatch) -> float:
+    """Least bytes of ``flush.apply_exit_phase`` (exits on, no breakers) on
+    these inputs: each exit's four rows, valid flag, count, RT, thread
+    delta, error and ts read once; both windows' touched buckets as
+    ``update_bytes`` counts them; each touched thread gauge read and
+    written."""
+    rows, ts, d, sample, thr4, mask = exit_updates(batch)
+    touched = torch.unique(rows[mask & (thr4 != 0)]).numel()
+    return (batch.x_valid.shape[0] * (16 + 1 + 4 * 5) + touched * 8
+            + update_bytes(nodes.SECOND_CFG, stats.second, rows, ts, d, sample, mask, with_batch=False)
+            + update_bytes(nodes.MINUTE_CFG, stats.minute, rows, ts, d, sample, mask, with_batch=False))
+
+
+def tensor_bytes(x) -> int:
+    """Bytes of every tensor in a (nested) tuple; anything else counts 0."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (tuple, list)):
+        return sum(tensor_bytes(v) for v in x)
+    return 0
 
 
 ND = R  # breakers: one per resource
@@ -1614,6 +1662,14 @@ def phase3() -> None:
             f"({N / p_ms * 1e3:,.0f} entries/s); results and state identical")
         profile_step(lambda: flush.flush_step(kern, table, batch, with_exits=with_exits, blk_topk=8),
                      f"exits={'on' if with_exits else 'off'}")
+        if with_exits:
+            # The exit phase alone (torch glue around K2's apply_updates).
+            exit_phase = lambda: flush.apply_exit_phase(kern, batch, True)
+            ex_ms = time_ms(exit_phase)
+            ex_k, ex_m, ex_dev = profile(exit_phase, "phase 3: apply_exit_phase")
+            ex_bound, ex_by = bound(exit_phase_bytes(kern, batch))
+            log(f"  apply_exit_phase on this step ({M:,} exits, 4 rows each): {ex_ms:.4f} ms a call, {ex_k} device "
+                f"kernels and {ex_m} memsets, {ex_dev:.4f} ms of device time; bound {ex_bound:.5f} ms by {ex_by}")
         del kern
         torch.cuda.empty_cache()
 
@@ -5748,6 +5804,370 @@ def phase8(results: dict, cpu_jobs: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 8b: the token plane over loopback TCP (cluster/server.py, client.py,
+# shards.py, gossip.py); the servers are threads of this process
+# ---------------------------------------------------------------------------
+
+TP_FLOWS, TP_NS = TD_FLOWS, TD_NS  # phase 2e's token server: 65,536 flows in 16 namespaces
+TP_PARAM_EVERY = 64  # flows 62, 126, ...: their resources also hold a cluster-mode param rule (8 values)
+TP_BATCHES = (16384, 8, 1024, 16384, 64)  # submit_many windows of (b), 100 ms apart
+TP_KILL_BATCHES = (1024, 8)  # (e): after the server is stopped
+TP_SHARDS = 4
+TP_RTT = ((8, 40), (1024, 20), (16384, 6))  # (rows, calls) of request_tokens_batch timed
+TP_TIMEOUT_S = 120.0  # request timeouts: never the path the phase takes
+TP_LEASE = {"CLUSTER_LEASE_ENABLED": "true", "CLUSTER_LEASE_TTL_MS": 600000, "CLUSTER_LEASE_MIN_BATCH": 4}
+TP_GOSSIP = {"SKETCH_ENABLED": "true", "GOSSIP_ENABLED": "true", "SKETCH_PROMOTE_QPS": 40, "SKETCH_WIDTH": 4096}
+_TP_RULES = []
+
+
+def _tp_config(settings: dict) -> None:
+    from sentinel_tpu_torch.utils.config import config
+
+    for key, value in settings.items():
+        config.set(getattr(config, key), str(value))
+
+
+def tp_rules() -> tuple:
+    """(flow rules, param rules by resource) of the token plane's stream:
+    65,536 cluster-mode QPS rules (counts 50-500; every fourth AVG_LOCAL, the
+    rest GLOBAL; fallback to the local check), a cluster-mode param rule of
+    count 3 on every 64th resource (not on the last flow, where the Zipf
+    draw's clamp puts a third of the stream; each param row is one K12
+    launch on the server); loaded into the cluster rule manager in
+    16 namespaces as phase 2e spreads them (the even flows in ns0). Built
+    once a process."""
+    if not _TP_RULES:
+        counts = np.random.default_rng(81).integers(50, 501, TP_FLOWS)
+        flows, params = [], {}
+        for i in range(TP_FLOWS):
+            grade = C.FLOW_THRESHOLD_AVG_LOCAL if i % 4 == 0 else C.FLOW_THRESHOLD_GLOBAL
+            flows.append(st.FlowRule(f"c{i}", count=int(counts[i]), cluster_mode=True,
+                                     cluster_config=ClusterFlowConfig(flow_id=i + 1, threshold_type=grade)))
+        for i in range(TP_PARAM_EVERY - 2, TP_FLOWS, TP_PARAM_EVERY):
+            params[f"c{i}"] = [st.ParamFlowRule(
+                f"c{i}", param_idx=0, count=3, cluster_mode=True,
+                cluster_config=ClusterFlowConfig(flow_id=TP_FLOWS + 1 + i, threshold_type=C.FLOW_THRESHOLD_GLOBAL))]
+        _TP_RULES.extend((flows, params))
+    flows, params = _TP_RULES
+    by_ns = {}
+    for i, rule in enumerate(flows):
+        ns = 0 if i % 2 == 0 else 1 + (i // 2) % (TP_NS - 1)
+        by_ns.setdefault(f"ns{ns}", []).append(rule)
+        if rule.resource in params:
+            by_ns[f"ns{ns}"] += params[rule.resource]
+    tcl.cluster_flow_rule_manager.clear()
+    for ns, rules in by_ns.items():
+        tcl.cluster_flow_rule_manager.load_rules(ns, rules)
+    # The namespace guard is per server: above the stream, so that shards
+    # and one server decide alike.
+    tcl.cluster_server_config_manager.load_global_flow_config(exceed_count=1.0, max_allowed_qps=1e9)
+    return flows, params
+
+
+def tp_flow_rows(rng, b: int) -> np.ndarray:
+    return np.minimum(rng.zipf(1.1, b), TP_FLOWS) - 1
+
+
+def tp_requests(rng, b: int, now: int) -> list:
+    reqs = []
+    for f, v in zip(tp_flow_rows(rng, b).tolist(), rng.integers(0, 8, b).tolist()):
+        req = {"resource": f"c{f}", "ts": now}
+        if f % TP_PARAM_EVERY == TP_PARAM_EVERY - 2:
+            req["args"] = (f"v{v}",)
+        reqs.append(req)
+    return reqs
+
+
+def tp_servers(n: int, clock, device) -> list:
+    from sentinel_tpu_torch.cluster.server import SentinelTokenServer
+
+    return [SentinelTokenServer(port=0, service=tcl.DefaultTokenService(clock=clock, device=device)).start()
+            for _ in range(n)]
+
+
+def tp_client(servers: list):
+    from sentinel_tpu_torch.cluster.client import ClusterTokenClient
+    from sentinel_tpu_torch.cluster.shards import ShardedTokenClient, ShardMap
+
+    if len(servers) == 1:
+        return ClusterTokenClient("127.0.0.1", servers[0].port, request_timeout_sec=TP_TIMEOUT_S).start()
+    smap = ShardMap(0, [("127.0.0.1", s.port) for s in servers])
+    return ShardedTokenClient(smap, request_timeout_sec=TP_TIMEOUT_S).start()
+
+
+def wait_until(pred, what: str, guard_s: float = 60.0) -> None:
+    t_end = time.monotonic() + guard_s
+    while not pred():
+        if time.monotonic() > t_end:
+            fail(f"{what}: not reached in {guard_s} s")
+        time.sleep(0.005)
+
+
+def drive_token_plane(device: torch.device, seed: int, lease: bool, n_shards: int = 1, kill: bool = False):
+    """An engine in client mode (set_to_client, submit_many) against
+    ``n_shards`` token servers on ``device`` (one ManualClock for the engine
+    and the servers): the windows of TP_BATCHES over the 65,536 rules, leases
+    on or off; with ``kill`` the server is then stopped and TP_KILL_BATCHES
+    follow (each cluster check FAILs and falls back to the local check).
+    Returns (int32 [n, 3] verdict records a window, the servers' work and
+    the client's counters)."""
+    from sentinel_tpu_torch.cluster.client import client_stats
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils.config import config
+
+    flows, params = tp_rules()
+    _tp_config(TP_LEASE if lease else {})
+    client_stats.reset()
+    clock = tclock.ManualClock(1000)
+    servers = tp_servers(n_shards, clock, device)
+    client = tp_client(servers)
+    tcl.TokenClientProvider.register(client)
+    tcl.ClusterStateManager.set_to_client()
+    eng = Engine(clock=clock, device=device)
+    try:
+        eng.set_flow_rules(flows)
+        eng.set_param_rules(params)
+        rng = np.random.default_rng(seed)
+        records = []
+        for i, b in enumerate(TP_BATCHES + (TP_KILL_BATCHES if kill else ())):
+            if kill and i == len(TP_BATCHES):
+                servers[0].stop()
+                wait_until(lambda: not client.connected, "phase 8b (e): the client saw its server stop")
+            clock.set_ms(1000 + 100 * i)
+            ops = eng.submit_many(tp_requests(rng, b, clock.now_ms()))
+            eng.flush()
+            eng.drain()
+            records.append(np.array([(o.verdict.admitted, o.verdict.reason, o.verdict.wait_ms) for o in ops],
+                                    dtype=np.int32))
+        work = {k: sum(s.work_stats()[k] for s in servers) for k in ("frames", "decisions", "lease_grants")}
+        snap = client_stats.snapshot()
+        return records, work, {k: snap[k] for k in ("requests", "batch_frames", "leases_granted", "lease_admits",
+                                                    "fallbacks")}
+    finally:
+        eng.close()
+        client.stop()
+        for s in servers:
+            s.stop()
+        tcl.ClusterStateManager.stop()
+        tcl.TokenClientProvider.clear()
+        tcl.cluster_flow_rule_manager.clear()
+        config.reset()
+
+
+def cluster_demo_over_tcp(device) -> list:
+    """examples/cluster_demo.py's sequence: a SentinelTokenServer whose
+    service lives on ``device`` and a ClusterTokenClient on loopback."""
+    from sentinel_tpu_torch.cluster.client import ClusterTokenClient
+
+    cfg = ClusterFlowConfig
+    tcl.cluster_flow_rule_manager.load_rules("default", [
+        st.FlowRule("api", count=3, cluster_mode=True,
+                    cluster_config=cfg(flow_id=100, threshold_type=C.FLOW_THRESHOLD_GLOBAL)),
+        st.FlowRule("job", count=2, grade=C.FLOW_GRADE_THREAD, cluster_mode=True, cluster_config=cfg(flow_id=200)),
+    ])
+    (srv,) = tp_servers(1, tclock.ManualClock(0), device)
+    cli = ClusterTokenClient(port=srv.port, request_timeout_sec=TP_TIMEOUT_S).start()
+    try:
+        lines = [cli.request_token(100).status.name for _ in range(5)]
+        t1, t2, t3 = (cli.request_concurrent_token(200) for _ in range(3))
+        lines += [t1.status.name, t2.status.name, t3.status.name]
+        lines.append(cli.release_concurrent_token(t1.token_id).status.name)
+        lines.append(cli.request_concurrent_token(200).status.name)
+        return lines
+    finally:
+        cli.stop()
+        srv.stop()
+        tcl.cluster_flow_rule_manager.clear()
+
+
+def drive_gossip_pair(device) -> tuple:
+    """Two engines with the sketch tier and gossip armed on loopback: each
+    folds 40 of one value a window (promotion needs 60: 1.5 x 40 QPS x 1 s)
+    beside 100 values of its own; one gossip round; the next flush's drain
+    evaluates the fleet view. Returns (rounds merged, remote origins a
+    engine, promoted values before and after, the K11 launches)."""
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils.config import config
+
+    _tp_config(TP_GOSSIP)
+    clock = tclock.ManualClock(1000)
+    try:
+        engines = [Engine(clock=clock, device=device) for _ in range(2)]
+    finally:
+        config.reset()
+    launches = tsk.sketch_fold.launches
+    try:
+        for e in engines:
+            e.set_param_rules({"api": [st.ParamFlowRule("api", param_idx=0, count=1000, sketch_mode=True)]})
+
+        def window(now):
+            clock.set_ms(now)
+            for i, e in enumerate(engines):
+                col = [("fleet-hot",)] * 40 + [(f"own{i}-{now}-{j}",) for j in range(100)]
+                e.submit_bulk("api", len(col), ts=now, args_column=col)
+                e.flush()
+                e.drain()
+            return [sorted(e.sketch.promoted_values.get("api", ())) for e in engines]
+
+        before = window(1000)
+        a, b = engines
+        a.gossip.peers = [("127.0.0.1", b.gossip.port)]
+        merged = a.gossip.run_round()
+        origins = [len(e.sketch.gossip_info()["remote_origins"]) for e in engines]
+        after = window(1100)
+        return merged, origins, before, after, tsk.sketch_fold.launches - launches
+    finally:
+        for e in engines:
+            e.close()
+
+
+def handler_k12_launches(srv, rows: list, frames: int = 10) -> tuple:
+    """K12's launches counted by torch.profiler (``gpu_timing.kernel_counts``)
+    over ``frames`` flow frames of ``rows``, each through the server's own
+    handler (``server._Handler``) run on this thread over a socket pair
+    while a thread of this process sends the frame and reads the answer:
+    the server runs its handlers on threads of their own. Returns (K12
+    launches seen: td_small or td_prep, one a launch; the kernels seen)."""
+    import socket
+    from types import SimpleNamespace
+
+    from sentinel_tpu_torch.cluster import protocol
+    from sentinel_tpu_torch.cluster import server as tserver
+
+    def one_frame():
+        a, b = socket.socketpair()
+        answers = []
+
+        def client():
+            a.sendall(protocol.pack_flow_batch_request(1, rows))
+            answers.append(protocol.unpack_batch_response(protocol.read_frame(a)))
+            a.shutdown(socket.SHUT_WR)
+
+        sender = threading.Thread(target=client)
+        try:
+            sender.start()
+            tserver._Handler(b, ("127.0.0.1", 0), SimpleNamespace(token_server=srv))
+            sender.join()
+        finally:
+            a.close()
+            b.close()
+        if len(answers) != 1 or len(answers[0][2]) != len(rows):
+            fail("phase 8b: the server's handler did not answer its frame")
+
+    counts = kernel_counts(one_frame, calls=frames)
+    return counts.get("td_small", 0) + counts.get("td_prep", 0), counts
+
+
+def token_rtt(results: dict) -> None:
+    """One server on the card (leases off): K12 counted by torch.profiler
+    over 10 frames of 1,024 rows through the server's handler, then round
+    trips of request_tokens_batch at TP_RTT's sizes."""
+    from sentinel_tpu_torch.cluster.server import SentinelTokenServer
+
+    tp_rules()
+    # Counted before the server listens: no thread of the server runs yet.
+    srv = SentinelTokenServer(port=0, service=tcl.DefaultTokenService(clock=tclock.ManualClock(1000), device=DEV))
+    rng = np.random.default_rng(83)
+    try:
+        rows = [(int(f) + 1, 1, False) for f in tp_flow_rows(rng, 1024)]
+        seen, counts = handler_k12_launches(srv, rows)
+        log(f"  torch.profiler over 10 frames of 1,024 rows through the server's handler: {seen} K12 launches on "
+            f"the card (the kernels seen: {counts})")
+        if seen <= 0:
+            fail("phase 8b: torch.profiler saw no K12 launch on the token server's path")
+        results["token_decide"]["profiler_launches_8b"] = seen
+        cli = tp_client([srv.start()])
+        try:
+            cli.request_tokens_batch([(1, 1, False)] * 8)
+            for rows_n, calls in TP_RTT:
+                batches = [[(int(f) + 1, 1, False) for f in tp_flow_rows(rng, rows_n)] for _ in range(calls)]
+                srv.reset_work_stats()
+                ms = []
+                t0 = time.perf_counter()
+                for batch in batches:
+                    t = time.perf_counter()
+                    got = cli.request_tokens_batch(batch)
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    if len(got) != rows_n or any(r.status == C.TokenResultStatus.FAIL for r in got):
+                        fail(f"phase 8b: a request_tokens_batch of {rows_n} rows came back FAIL")
+                wall = time.perf_counter() - t0
+                w = srv.work_stats()
+                log(f"  request_tokens_batch of {rows_n:,} rows, {calls} calls: {_pcts(ms)}; {calls / wall:,.1f} "
+                    f"frames/s and {rows_n * calls / wall:,.0f} decisions/s through the client; the server "
+                    f"{w['decisions'] / w['busy_s']:,.0f} decisions/s of handler time "
+                    f"({w['busy_s'] * 1e3 / calls:.3f} ms a frame)")
+                a = np.sort(ms)
+                results["token_decide"][f"rtt_ms_{rows_n}"] = [float(a[len(a) // 2]), float(a[int(0.99 * len(a))])]
+        finally:
+            cli.stop()
+    finally:
+        srv.stop()
+        tcl.cluster_flow_rule_manager.clear()
+
+
+def phase8b(results: dict, cpu_jobs: dict) -> None:
+    log(f"phase 8b: the token plane over loopback TCP: servers in this process with their services on the card; "
+        f"(a) cluster_demo's sequence, (b) an engine in client mode over {TP_FLOWS:,} cluster-mode rules (Zipf(1.1), "
+        f"windows of {TP_BATCHES}), leases off, then on, (c) the same stream over {TP_SHARDS} shards, (d) two "
+        "engines gossiping the sketch tier, (e) the server stopped mid-stream; first K12 counted by torch.profiler "
+        "and the round trips of one server")
+    t0 = time.perf_counter()
+    token_rtt(results)
+    card, cpu = cluster_demo_over_tcp(DEV), cluster_demo_over_tcp(torch.device("cpu"))
+    log(f"  (a) cluster_demo over TCP, the service on the card: {card}")
+    if card != cpu or card != CLUSTER_DEMO:
+        fail(f"phase 8b (a): the card's lines {card}, the CPU's {cpu}, expected {CLUSTER_DEMO}")
+    counters = {"token_decide": (tts, "batch_decide"), "window_update": (ma, "update"),
+                "flow_admission": (flush, "flow_admission")}
+    for mod, name in counters.values():
+        getattr(mod, name).launches = 0
+    runs = {}
+    for tag, args in (("b0", (False,)), ("b1", (True, 1, True))):
+        t = time.perf_counter()
+        runs[tag] = drive_token_plane(DEV, 82, *args)
+        want = cpu_result(cpu_jobs, f"8b {tag}")
+        if len(runs[tag][0]) != len(want[0]) or any(not np.array_equal(x, y) for x, y in zip(runs[tag][0], want[0])):
+            fail(f"phase 8b ({'b' if tag == 'b0' else 'b, e'}): the client-mode engine's verdicts differ between "
+                 "the card and the CPU")
+        if runs[tag][1:] != want[1:]:
+            fail(f"phase 8b: the servers' work or the client's counters differ: card {runs[tag][1:]}, CPU {want[1:]}")
+        rec = np.concatenate(runs[tag][0])
+        log(f"  ({'b' if tag == 'b0' else 'b, e'}) leases {'on' if tag == 'b1' else 'off'}: {len(rec):,} verdicts "
+            f"equal to the CPU engine against a CPU server ({int(rec[:, 0].sum()):,} admitted); server "
+            f"{runs[tag][1]}; client {runs[tag][2]}; {time.perf_counter() - t:.1f} s")
+    launches = {name: getattr(mod, name_).launches for name, (mod, name_) in counters.items()}
+    log(f"  launches on (b) and (e): {launches}")
+    if min(launches.values()) <= 0:
+        fail(f"phase 8b: a kernel of the client-mode path was not launched: {launches}")
+    if runs["b1"][1]["lease_grants"] <= 0 or runs["b1"][2]["lease_admits"] <= 0 or runs["b1"][2]["fallbacks"] <= 0:
+        fail("phase 8b: leases were not granted and spent, or the stopped server was not fallen back from")
+    fb = np.concatenate(runs["b1"][0][len(TP_BATCHES):])
+    log(f"  (e) the server stopped: {len(fb):,} verdicts by the local check ({int(fb[:, 0].sum()):,} admitted), "
+        f"{runs['b1'][2]['fallbacks']:,} fallbacks counted by the client")
+    t = time.perf_counter()
+    sharded = drive_token_plane(DEV, 82, False, TP_SHARDS)
+    # Each connection's ping counts one decision: the rows decided are the same.
+    if any(not np.array_equal(x, y) for x, y in zip(sharded[0], runs["b0"][0])) or (
+            sharded[1]["decisions"] - TP_SHARDS != runs["b0"][1]["decisions"] - 1):
+        fail("phase 8b (c): the sharded plane's verdicts differ from one server's")
+    log(f"  (c) {TP_SHARDS} shards: the verdicts of one server; server work {sharded[1]}; "
+        f"{time.perf_counter() - t:.1f} s")
+    launches["token_decide"] = tts.batch_decide.launches
+    gossip_card, gossip_cpu = drive_gossip_pair(DEV), drive_gossip_pair(torch.device("cpu"))
+    merged, origins, before, after, k11 = gossip_card
+    log(f"  (d) gossip: {merged} round merged both ways, remote origins a engine {origins}, promoted before "
+        f"{before}, after {after}; {k11} K11 launches")
+    if gossip_card[:4] != gossip_cpu[:4] or merged != 1 or origins != [1, 1] or any(before) or not all(after):
+        fail(f"phase 8b (d): the gossip pair on the card {gossip_card[:4]}, on the CPU {gossip_cpu[:4]}")
+    if k11 <= 0:
+        fail("phase 8b (d): kernel sketch_fold was not launched on the gossip engines' path")
+    for name, n in launches.items():
+        results[name]["launches_8b"] = n
+    results["sketch_fold"]["launches_8b"] = k11
+    log(f"  phase 8b: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # the sharded step (parallel/ici.py): phases 2f, 3b, 4e and 9
 # ---------------------------------------------------------------------------
 
@@ -6094,6 +6514,16 @@ def phase3b() -> None:
         del plain, out_p
         torch.cuda.empty_cache()
         k_ms, k_spread = step_times(lambda: run(*kern), repeats=3)
+        # Least bytes of the step: its states read once and written once, the
+        # batch (and shaping, param items) read once, the result written once;
+        # the shard copies alone are written and read back by the merges.
+        least = (2 * tensor_bytes((base, c["fdyn"], c["dyn"], c["pdyn"])) + tensor_bytes((c["batch"], *c["extra"]))
+                 + tensor_bytes(res))
+        s_bound, s_by = bound(least)
+        copies = 2 * D_MESH * tensor_bytes((base, c["dyn"]))
+        log(f"  {label}: bound {s_bound:.4f} ms by {s_by} ({least / 1e9:.3f} GB: the states, batch and result once); "
+            f"the {D_MESH} shard copies alone write and read back {copies / 1e9:.1f} GB a step "
+            f"({copies / HBM_BYTES_PER_S * 1e3:.2f} ms at the HBM rate)")
         log(f"  {label}: kernels {k_ms:.4f} ms/step {k_spread} (first step {first_ms:.1f} ms), plain route "
             f"{plain_ms:.1f} ms; results and every state tensor identical; peak device memory "
             f"{peak / 2**30:.2f} GiB; reasons {torch.bincount(res.reason, minlength=6).tolist()}, "
@@ -6273,7 +6703,7 @@ def _cpu_worker() -> None:
 
 
 def start_cpu_jobs() -> dict:
-    """Starts the CPU references of phases 2c (d), 4-4f and 8 (the port's
+    """Starts the CPU references of phases 2c (d), 4-4l, 8 and 8b (the port's
     plain versions, one round of a segmented recurrence at a time, and the
     CPU engines) in worker processes, longest first, so that they run while
     the build and the card's phases do; each is the same seeded computation the phase
@@ -6292,6 +6722,8 @@ def start_cpu_jobs() -> dict:
         "4b": WORKERS.apply_async(drive_chain_engine, (cpu, 5)),
         "4d": WORKERS.apply_async(drive_sketch_engine, (cpu, 7)),
         "8": WORKERS.apply_async(drive_cluster_engine, (cpu, 8)),
+        "8b b0": WORKERS.apply_async(drive_token_plane, (cpu, 82, False)),
+        "8b b1": WORKERS.apply_async(drive_token_plane, (cpu, 82, True, 1, True)),
         "4f": WORKERS.apply_async(drive_pipeline_engine, (cpu, 10, "sync")),
         "4g": WORKERS.apply_async(drive_failover_engine, (cpu, 4, True, True)),
         "4g spec": WORKERS.apply_async(drive_spec_entries, (cpu, 11)),
@@ -6389,7 +6821,7 @@ def main() -> None:
         ("2f", lambda: phase2_mesh(results)), ("3b", phase3b), ("4e", lambda: phase4_mesh(results, cpu_jobs)),
         ("4f", lambda: phase4_pipeline(cpu_jobs)), ("4g", lambda: phase4_failover(cpu_jobs)),
         ("4h", lambda: phase4_control(results, cpu_jobs)), ("4i", lambda: phase4_metric(results, cpu_jobs)),
-        ("4j", lambda: phase4_ipc(results, cpu_jobs)), ("4k", lambda: phase4_capture(results, cpu_jobs)),
+        ("8b", lambda: phase8b(results, cpu_jobs)), ("4j", lambda: phase4_ipc(results, cpu_jobs)), ("4k", lambda: phase4_capture(results, cpu_jobs)),
         ("4l", lambda: phase4_supervise(results, cpu_jobs)), ("5", phase5), ("6", phase6), ("7", phase7), ("8", lambda: phase8(results, cpu_jobs)), ("9", phase9),
     ):
         log(f"phase {name}: start")
@@ -6428,7 +6860,8 @@ def main() -> None:
                       "edges", "launches_4h", "routes_4h", "ms_60s", "plain_ms_60s", "bound_ms_60s",
                       "device_ms_60s", "launches_per_call_60s", "memsets_per_call_60s", "records", "records_60s",
                       "pull_ms", "read_ms_4i", "copy_ms_4i", "asked_rows_4i", "copies_per_call", "launches_4j",
-                      "launches_4k", "launches_4l") + tuple(
+                      "launches_4k", "launches_4l", "launches_8b", "profiler_launches_8b", "rtt_ms_8",
+                      "rtt_ms_1024", "rtt_ms_16384") + tuple(
                           f"{m}_{n}_k{k}" for m in ("ms", "plain_ms", "library_ms", "device_ms", "launches_per_call",
                                                     "memsets_per_call") for n, k in ((N, 64), (8, 16), (8, 64))):
             if extra in r:

@@ -114,15 +114,29 @@ def device_profile(fn, calls: int = 20, tries: int = 3):
     return kernels, memsets, sum(per_call[n] * sum(us) / len(us) for n, us in per_name.items()) / 1e3
 
 
+def _short(name: str) -> str:
+    """A kernel's name cut to its function ("fa_topk",
+    "DeviceRadixSortOnesweepKernel", "Memset")."""
+    bare = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return bare.split("(")[0].split("<")[0].split("::")[-1].strip() or name
+
+
 def kernel_times(fn, calls: int = 20, tries: int = 3) -> dict:
-    """Device us a call of ``fn`` by kernel, the name cut to its function
-    ("fa_topk", "DeviceRadixSortOnesweepKernel", "Memset"), largest first."""
+    """Device us a call of ``fn`` by kernel, the name cut to its function,
+    largest first."""
     out = {}
     for name, us in _device_events(fn, calls, tries).items():
-        bare = name.replace("(anonymous namespace)::", "").removeprefix("void ")
-        short = bare.split("(")[0].split("<")[0].split("::")[-1].strip() or name
-        out[short] = out.get(short, 0.0) + sum(us) / calls
+        out[_short(name)] = out.get(_short(name), 0.0) + sum(us) / calls
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def kernel_counts(fn, calls: int = 20, tries: int = 3) -> dict:
+    """Launches of each kernel (the name cut to its function) over
+    ``calls`` calls of ``fn``, from one torch.profiler session."""
+    out = {}
+    for name, us in _device_events(fn, calls, tries).items():
+        out[_short(name)] = out.get(_short(name), 0) + len(us)
+    return out
 
 
 def token_batch(rng, counts: np.ndarray, device, b: int = TD_B, wrap: bool = False):

@@ -16,8 +16,11 @@ authority rules, system rules and circuit breakers; entries (with their
 args), bulk entries (with args columns), exits and traces; the sketch tier
 (``sentinel.tpu.sketch.enabled``: the fold K11 rides the flush, the
 promotion controller runs at every drain, and the cold ceilings refuse at
-submit); and cluster-mode flow and param rules decided by the embedded
-token service when this node is the token server (``cluster/``); the
+submit; with ``sentinel.tpu.gossip.enabled`` its gossip agent,
+``Engine.gossip``, cluster/gossip.py); and cluster-mode flow and param rules
+decided by the embedded token service when this node is the token server,
+or by a token client over TCP (one server or several shards) when it is a
+client (``cluster/``); the
 device-failure domain (``sentinel.tpu.failover.enabled``: the flush
 watchdog, checkpoints in memory and on disk, the host fallback and the
 probe-flush recovery, runtime/failover.py) and the speculative host tier
@@ -33,8 +36,8 @@ metric extensions, the breaker state-change observers, the live retune of
 the second window (``retune_second_window``) and the metric timer's read
 (metrics/metric_log.py); the multi-process ingest plane (``Engine.ipc_plane``,
 ipc/plane.py, off by default). Everything else the JAX engine does is refused loudly with
-``NotImplementedError`` naming its ROADMAP item (see
-``_refuse_unported_config`` and the ``set_*`` methods), never ignored.
+``NotImplementedError`` naming its ROADMAP item (see the ``set_*``
+methods), never ignored.
 
 The host pipeline: each chunk's input columns are encoded into one host
 buffer of the encode arena (pinned on the card) and reach the device in
@@ -118,18 +121,10 @@ from sentinel_tpu_torch.utils.config import config
 from sentinel_tpu_torch.utils.system_status import sampler as system_sampler
 from sentinel_tpu_torch.utils.device import DeviceLike, resolve_device
 from sentinel_tpu_torch.utils.numeric import pad_pow2 as _pad_pow2
-from sentinel_tpu_torch.utils.unported import ROADMAP_CLUSTER, unported
 
 # submit_many takes exactly submit_entry's request keys; anything else is
 # handed to submit_entry(**req) so that a typo raises TypeError there.
 _SUBMIT_ENTRY_KEYS = frozenset(("resource", "context_name", "origin", "acquire", "entry_type", "prio", "ts", "args"))
-
-
-def _refuse_unported_config() -> None:
-    if config.get_bool(config.SKETCH_ENABLED, False) and config.get_bool(config.GOSSIP_ENABLED, False):
-        # The tier merges peer frames (SketchTier.merge_remote); the agent
-        # that would carry them between engines is not ported.
-        raise unported(f"{config.GOSSIP_ENABLED}=true (the gossip transport)", ROADMAP_CLUSTER)
 
 
 class Verdict(NamedTuple):
@@ -634,7 +629,6 @@ class Engine:
         initial_rows: Optional[int] = None,
         device: DeviceLike = None,
     ) -> None:
-        _refuse_unported_config()
         self.device = resolve_device(device)
         # The engine's stream: every device operation of the engine runs
         # on it (_on_stream), whatever thread calls and whatever stream
@@ -738,6 +732,13 @@ class Engine:
         # default, one attribute read per call site; armed, its fold rides
         # the flush and its candidate table the verdict copy.
         self.sketch = SketchTier(self)
+        # Sketch gossip endpoint (cluster/gossip.py): None unless the sketch
+        # and gossip are both enabled; armed, a listener folds peer
+        # count-min frames into the tier and the tier's promotion controller
+        # evaluates the fleet view.
+        from sentinel_tpu_torch.cluster.gossip import maybe_build_gossip
+
+        self.gossip = maybe_build_gossip(self.sketch)
         # Mesh mode (enable_mesh): the shards and the sharded steps built
         # for it, one per (shaping, param, rounds) variant.
         self.mesh = None
@@ -1692,11 +1693,17 @@ class Engine:
     @staticmethod
     def _cluster_token_service():
         """The token service of this node's cluster role
-        (FlowRuleChecker.pickClusterService): the embedded server's
-        service in server mode, None otherwise (client mode is not
-        ported: ``ClusterStateManager.set_to_client`` raises)."""
-        from sentinel_tpu_torch.cluster.state import ClusterStateManager, EmbeddedClusterTokenServerProvider
+        (FlowRuleChecker.pickClusterService): the registered token client
+        (TCP, cluster/client.py or cluster/shards.py) in client mode, the
+        embedded server's service in server mode, None otherwise."""
+        from sentinel_tpu_torch.cluster.state import (
+            ClusterStateManager,
+            EmbeddedClusterTokenServerProvider,
+            TokenClientProvider,
+        )
 
+        if ClusterStateManager.is_client():
+            return TokenClientProvider.get_client()
         if ClusterStateManager.is_server():
             server = EmbeddedClusterTokenServerProvider.get_server()
             return getattr(server, "service", server)
@@ -3408,8 +3415,8 @@ class Engine:
         thread, stop the auto-flusher, decide anything still queued and
         settle the deferred fetches (the pipelined flush leaves up to
         ``pipeline_depth`` in flight), fold the speculative tier's last
-        drift window, retire the failover tier's threads and close the
-        capture journal's segment. The ipc plane
+        drift window, stop the gossip agent, retire the failover tier's
+        threads and close the capture journal's segment. The ipc plane
         closes first: its drainer submits into this engine, and closing it
         publishes the CLOSED health word, so worker processes serve the
         policy snapshot instead of waiting on verdicts. Idempotent; the
@@ -3422,6 +3429,8 @@ class Engine:
         self.drain()
         if self.speculative.enabled:
             self.speculative.flush_window()
+        if self.gossip is not None:
+            self.gossip.stop()
         self.failover.close()
         if self.capture is not None:
             self.capture.close()

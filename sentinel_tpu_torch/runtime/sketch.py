@@ -39,9 +39,10 @@ and the failover checkpoint carries the device state, so a restore keeps
 the candidate table.
 
 The tier's keys, host folds, promotions, demotions and cold blocks are
-counted on the telemetry bus. Not ported here: the gossip transport
-(``sentinel.tpu.gossip.enabled``, the rest of ROADMAP Queue 1 item 9); the
-gossip snapshot and merge of the tier itself are here.
+counted on the telemetry bus. With ``sentinel.tpu.gossip.enabled`` the
+engine's gossip agent (cluster/gossip.py) carries :meth:`SketchTier.gossip_snapshot`
+frames between engines and folds its peers' through
+:meth:`SketchTier.merge_remote`.
 """
 
 from __future__ import annotations
@@ -400,10 +401,8 @@ class SketchTier:
         self.cold_qps = max(0.0, config.get_float(config.SKETCH_COLD_QPS, 0.0))
         self.cold_armed = self.enabled and self.cold_qps > 0
         # Sketch gossip: the promotion controller evaluates the merged
-        # fleet view of remote twins and candidates. The transport that
-        # carries the frames is not ported (ROADMAP Queue 1 item 9); the
-        # engine refuses the switch, and callers may drive
-        # gossip_snapshot / merge_remote directly.
+        # fleet view of remote twins and candidates; the engine's gossip
+        # agent (cluster/gossip.py) carries the frames.
         self.gossip_armed = self.enabled and config.get_bool(config.GOSSIP_ENABLED, False)
         self.gossip_stale_windows = max(1, config.get_int(config.GOSSIP_STALE_WINDOWS, 4))
         # origin -> [int64 cm, {key: count} candidates, local wid at last merge]
@@ -876,7 +875,7 @@ class SketchTier:
         self._evaluate(by_key, now_ms)
 
     # ------------------------------------------------------------------
-    # sketch gossip (the tier's side; the transport is not ported)
+    # sketch gossip (the tier's side; cluster/gossip.py carries the frames)
     # ------------------------------------------------------------------
     def gossip_snapshot(self) -> Tuple[int, np.ndarray, List[Tuple[str, int]]]:
         """(window_id, int32 count-min copy, [(key, count)] candidates) of

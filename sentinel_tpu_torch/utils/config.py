@@ -4,9 +4,7 @@ Layers: runtime ``set()`` > environment ``SENTINEL_TPU_*`` (or the
 reference-compatible ``CSP_SENTINEL_*``) > properties file > defaults.
 Every key string and default is identical to the JAX package's, so an
 existing properties file or environment drives both packages the same
-way. Keys of features the port does not have yet are declared too: the
-engine reads them to refuse a configuration it cannot honour
-(``runtime/engine.py``, ``_refuse_unported_config``).
+way.
 """
 
 from __future__ import annotations

@@ -10,7 +10,6 @@ from __future__ import annotations
 
 ROADMAP_TIERS = "ROADMAP Queue 1 item 7 (engine tiers)"
 ROADMAP_METRICS = "ROADMAP Queue 1 item 8 (metrics and observability)"
-ROADMAP_CLUSTER = "ROADMAP Queue 1 item 9 (cluster token plane)"
 ROADMAP_ADAPTERS = "ROADMAP Queue 1 item 11 (transport, datasources, adapters, dashboard)"
 
 

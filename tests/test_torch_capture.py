@@ -370,6 +370,12 @@ def _same_stream(lib, depth, tmp):
     freeze. Returns the records and the decoded stream."""
     d = os.path.join(tmp, "cap")  # one path for both: the header's config names it
     shutil.rmtree(d, ignore_errors=True)
+    # The header records the runtime config, and a test file run earlier in
+    # the same process may have left keys there (tests/test_telemetry.py
+    # leaves sentinel.tpu.telemetry.enabled set in the JAX package's): both
+    # packages start from an empty one (run_lockstep restores it after).
+    with lib.config._lock:
+        lib.config._runtime.clear()
     lib.config.set(lib.config.CAPTURE_ENABLED, "true")
     lib.config.set(lib.config.CAPTURE_DIR, d)
     eng = lib.mk(depth=depth)

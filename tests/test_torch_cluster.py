@@ -414,14 +414,39 @@ def test_engine_embedded_server_matches_jax(scenario, cluster_env):
 
 
 def test_client_mode_and_bulk_seam_raise(cluster_env):
+    """Client mode, refused until the TCP token client was ported: with a
+    server address set (ClusterClientConfigManager, the dashboard's assign
+    flow) ``set_to_client`` builds the client, registers and starts it, and
+    the engine asks it; ``apply_state(CLUSTER_CLIENT)`` does the same. The
+    batched token seam of submit_many asks nothing of an empty batch."""
+    from sentinel_tpu_torch.cluster.client import ClusterTokenClient
+    from sentinel_tpu_torch.cluster.server import SentinelTokenServer
+    from sentinel_tpu_torch.cluster.state import ClusterClientConfigManager
     from sentinel_tpu_torch.runtime.engine import Engine
     from sentinel_tpu_torch.utils.clock import ManualClock
 
     cl = cluster_env[1][0]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        cl.ClusterStateManager.set_to_client()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        cl.ClusterStateManager.apply_state(cl.ClusterStateManager.CLUSTER_CLIENT)
+    srv = SentinelTokenServer(port=0, service=cl.DefaultTokenService(device="cpu")).start()
+    ClusterClientConfigManager.apply("127.0.0.1", srv.port, timeout_ms=60000, namespace="ns1")
+    client = None
+    try:
+        assert cl.ClusterStateManager.set_to_client() and cl.ClusterStateManager.is_client()
+        client = cl.TokenClientProvider.get_client()
+        assert isinstance(client, ClusterTokenClient) and client.connected
+        assert (client.port, client.namespace, client.timeout) == (srv.port, "ns1", 60.0)
+        assert Engine._cluster_token_service() is client
+        assert cl.ClusterStateManager.set_to_client() and cl.TokenClientProvider.get_client() is client
+        cl.ClusterStateManager.stop()
+        assert Engine._cluster_token_service() is None
+        assert cl.ClusterStateManager.apply_state(cl.ClusterStateManager.CLUSTER_CLIENT)
+        assert cl.ClusterStateManager.is_client() and Engine._cluster_token_service() is client
+        assert ClusterClientConfigManager.snapshot() == {"serverHost": "127.0.0.1", "serverPort": srv.port,
+                                                         "requestTimeout": 60000, "namespace": "ns1"}
+    finally:
+        if client is not None:
+            client.stop()
+        srv.stop()
+        ClusterClientConfigManager.apply("", 0, timeout_ms=200, namespace="default")
     # The batched token seam of submit_many is ported: an empty batch asks nothing.
     assert Engine(clock=ManualClock(0), device="cpu")._apply_cluster_checks_bulk([]) is None
 

@@ -551,33 +551,65 @@ def _add_breaker_observer(e):
     assert _breaker_events_of(e) == want == [(0, 1, "r"), (1, 2, "r"), (2, 0, "r")]
 
 
+class _ClientMode:
+    """This process in client mode against a port token server on the CPU
+    (ManualClock(0)), the client registered; cluster globals cleared after."""
+
+    def __init__(self, rules):
+        from sentinel_tpu_torch import cluster
+        from sentinel_tpu_torch.cluster.client import ClusterTokenClient
+        from sentinel_tpu_torch.cluster.server import SentinelTokenServer
+
+        self.cl = cluster
+        cluster.cluster_flow_rule_manager.load_rules("default", rules)
+        svc = cluster.DefaultTokenService(clock=tclock.ManualClock(0), device="cpu")
+        self.server = SentinelTokenServer(port=0, service=svc).start()
+        self.client = ClusterTokenClient("127.0.0.1", self.server.port, request_timeout_sec=60.0)
+        cluster.TokenClientProvider.register(self.client)
+        assert cluster.ClusterStateManager.set_to_client() and cluster.ClusterStateManager.is_client()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.cl.ClusterStateManager.stop()
+        self.cl.TokenClientProvider.clear()
+        self.cl.cluster_flow_rule_manager.clear()
+        self.client.stop()
+        self.server.stop()
+
+
 def _cluster_param_rule(e):
-    """A cluster-mode param rule loads; asking for it through a token
-    client (client mode) is what is not ported."""
-    from sentinel_tpu_torch.cluster import ClusterStateManager
+    """A cluster-mode param rule loads, and in client mode (refused here
+    until the TCP token client was ported) the token server decides it:
+    count 2 a value admits two entries of "v" and blocks the third."""
     from sentinel_tpu_torch.models.rules import ClusterFlowConfig
 
-    e.set_param_rules({"r": [st.ParamFlowRule("r", param_idx=0, count=5, cluster_mode=True,
-                                              cluster_config=ClusterFlowConfig(flow_id=1))]})
-    ClusterStateManager.set_to_client()
+    rule = st.ParamFlowRule("r", param_idx=0, count=2, cluster_mode=True,
+                            cluster_config=ClusterFlowConfig(flow_id=1, threshold_type=C.FLOW_THRESHOLD_GLOBAL))
+    with _ClientMode([rule]) as cm:
+        e.set_param_rules({"r": [rule]})
+        ops = [e.submit_entry("r", args=("v",)) for _ in range(3)]
+        e.flush()
+        assert [o.verdict.admitted for o in ops] == [True, True, False]
+        assert cm.server.work_stats()["frames"] == 4  # the connect-time ping and three param requests
 
 
 @pytest.mark.parametrize(
     "call,refused",
     [
         (_add_breaker_observer, False),
-        (_cluster_param_rule, True),
+        (_cluster_param_rule, False),
         (lambda e: make_mesh(8, [e.device, torch.device("meta")]), True),
     ],
     ids=["degrade", "param", "mesh"],
 )
 def test_out_of_slice_raises(call, refused):
-    """Features outside the port so far raise: for cluster-mode param rules
-    the token client, and for the mesh, which runs its shards on the
-    engine's device, shards on more than one device (NCCL). The breaker
-    state-change observers of degrade rules, once refused here, are ported
-    (ROADMAP item 8b): that case now holds their events against the JAX
-    engine's."""
+    """Features outside the port so far raise: for the mesh, which runs its
+    shards on the engine's device, shards on more than one device (NCCL).
+    The breaker state-change observers of degrade rules (ROADMAP item 8b)
+    and client mode for cluster-mode param rules (item 9), once refused
+    here, are ported: their cases now check the ported behaviour."""
     if not refused:
         call(_cpu_engine())
         return
@@ -680,56 +712,54 @@ def test_slice_two_features_accepted(call):
 
 def test_cluster_mode_rule_raises():
     """Cluster-mode flow rules load and are decided by the embedded token
-    service (tests/test_torch_cluster.py); client mode, the other way to
-    decide them, raises."""
-    from sentinel_tpu_torch.cluster import ClusterStateManager
+    service (tests/test_torch_cluster.py) or, in client mode (refused here
+    until the TCP token client was ported), by a token server over TCP:
+    count 2 admits two entries and blocks the third
+    (tests/test_torch_cluster_wire.py holds client mode against the JAX
+    engine)."""
+    from sentinel_tpu_torch.core import errors
     from sentinel_tpu_torch.models.rules import ClusterFlowConfig
 
-    rule = FlowRule("r", count=5, cluster_mode=True, cluster_config=ClusterFlowConfig(flow_id=1))
+    rule = FlowRule("r", count=2, cluster_mode=True,
+                    cluster_config=ClusterFlowConfig(flow_id=1, threshold_type=C.FLOW_THRESHOLD_GLOBAL))
     eng = _cpu_engine()
-    eng.set_flow_rules([rule])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ClusterStateManager.set_to_client()
-    assert not ClusterStateManager.is_client()
-
-
-@pytest.mark.parametrize(
-    "key,value",
-    [(config.GOSSIP_ENABLED, "true")],
-)
-def test_unported_config_raises(key, value):
-    config.set(key, value)
-    if key == config.GOSSIP_ENABLED:
-        config.set(config.SKETCH_ENABLED, "true")  # the tier runs; its gossip transport does not
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _cpu_engine()
-    finally:
-        config.reset()
+    with _ClientMode([rule]) as cm:
+        eng.set_flow_rules([rule])
+        ops = [eng.submit_entry("r") for _ in range(3)]
+        eng.flush()
+        assert [o.verdict.admitted for o in ops] == [True, True, False]
+        assert ops[2].verdict.reason == errors.BLOCK_FLOW
+        assert Engine._cluster_token_service() is cm.client and cm.client.connected
+    assert not cm.cl.ClusterStateManager.is_client()
+    eng.close()
 
 
 _PORTED_SWITCHES = {
     config.SPECULATIVE_ENABLED: "true", config.FAILOVER_ENABLED: "true", config.AUTOTUNE_ENABLED: "true",
     config.INGEST_MAX_PENDING: "64", config.INGEST_MAX_PENDING_BULK: "1024", config.INGEST_DEADLINE_MS: "1000",
     config.INGEST_BATCH_WINDOW_MS: "2", config.IPC_ENABLED: "true", config.SPANS_ENABLED: "true",
-    config.CAPTURE_ENABLED: "true",
+    config.CAPTURE_ENABLED: "true", config.GOSSIP_ENABLED: "true",
 }
 
 
 @pytest.mark.parametrize("key", list(_PORTED_SWITCHES))
 def test_ported_tier_switches_build_and_flush(key, tmp_path):
     """The speculative tier, the failure domain, the autotuner, the ingest
-    valve, the batch window, the ipc plane, the span journal and the capture
-    journal, refused or ignored before they were ported, build and flush
-    (tests/test_torch_{speculative,failover,autotune,ingest,window,
-    ipc_plane,spans,capture}.py hold them against the JAX package)."""
+    valve, the batch window, the ipc plane, the span journal, the capture
+    journal and the sketch tier's gossip agent, refused or ignored before
+    they were ported, build and flush (tests/test_torch_{speculative,
+    failover,autotune,ingest,window,ipc_plane,spans,capture,gossip}.py hold
+    them against the JAX package)."""
     from sentinel_tpu_torch.metrics.spans import get_journal, reset_journal
 
     config.set(key, _PORTED_SWITCHES[key])
+    if key == config.GOSSIP_ENABLED:
+        config.set(config.SKETCH_ENABLED, "true")  # the agent gossips the tier's frames
     config.set(config.CAPTURE_DIR, str(tmp_path / "cap"))
     reset_journal()
     try:
         eng = _cpu_engine()
+        assert (eng.gossip is not None) == (key == config.GOSSIP_ENABLED)
         assert (eng.ipc_plane is not None) == (key == config.IPC_ENABLED)
         assert (eng.capture is not None) == (key == config.CAPTURE_ENABLED)
         assert get_journal().enabled == (key == config.SPANS_ENABLED)
@@ -748,6 +778,7 @@ def test_ported_tier_switches_build_and_flush(key, tmp_path):
             assert eng.capture.snapshot()["counters"]["chunks"] >= 1
         eng.close()
         assert eng.ipc_plane is None  # the engine's close closes its plane
+        assert eng.gossip is None or eng.gossip._server is None  # and stops its gossip listener
     finally:
         config.reset()
         reset_journal()

@@ -1109,6 +1109,90 @@ def test_token_decide_atomic_kernel(cuda):
         assert int(state.counts.sum()) == (0 if over else b)
 
 
+def _token_server_threads(device, monkeypatch, rounds=6, clients=4):
+    """K12 under the token server's handler threads: ``clients`` clients,
+    each on a connection (a handler thread) of its own, send a batch frame
+    each at once, ``rounds`` times (8-4,096 rows of a Zipf draw over 4,096
+    cluster rules, the clock 100 ms on a round), to one server whose service
+    lives on ``device``. Every launch is recorded with its inputs in the
+    order the service's lock let them run. Returns (the records, the
+    service)."""
+    import threading
+
+    from sentinel_tpu_torch import cluster
+    from sentinel_tpu_torch.cluster.client import ClusterTokenClient
+    from sentinel_tpu_torch.cluster.server import SentinelTokenServer
+    from sentinel_tpu_torch.models import constants as C
+    from sentinel_tpu_torch.models.rules import ClusterFlowConfig, FlowRule
+    from sentinel_tpu_torch.utils.clock import ManualClock
+
+    n_flows = 4096
+    rng = np.random.default_rng(91)
+    counts = rng.integers(20, 200, n_flows)
+    cluster.cluster_flow_rule_manager.load_rules("default", [
+        FlowRule(f"c{i}", count=int(counts[i]), cluster_mode=True,
+                 cluster_config=ClusterFlowConfig(flow_id=i + 1, threshold_type=C.FLOW_THRESHOLD_GLOBAL))
+        for i in range(n_flows)])
+    records = []
+    kernel = tts.batch_decide
+
+    def recording(state, *args, atomic=False):
+        inputs = [a.clone() for a in args[:6]]
+        out = kernel(state, *args, atomic=atomic)
+        records.append((state.n_rows, inputs, args[6], atomic, out.clone()))
+        return out
+
+    recording.launches = 0
+    monkeypatch.setattr(tts, "batch_decide", recording)
+    clock = ManualClock(1000)
+    svc = cluster.DefaultTokenService(clock=clock, device=device)
+    srv = SentinelTokenServer(port=0, service=svc).start()
+    cls = [ClusterTokenClient("127.0.0.1", srv.port, request_timeout_sec=120.0).start() for _ in range(clients)]
+    sizes = [8, 64, 1024, 4096, 13, 2048]
+    try:
+        for r in range(rounds):
+            clock.set_ms(1000 + 100 * r)
+            frames = [[(int(f) + 1, 1, False) for f in np.minimum(rng.zipf(1.1, sizes[(r + c) % len(sizes)]),
+                                                                  n_flows) - 1] for c in range(clients)]
+            start = threading.Barrier(clients)
+            out = [None] * clients
+
+            def send(c):
+                start.wait()
+                out[c] = cls[c].request_tokens_batch(frames[c])
+
+            threads = [threading.Thread(target=send, args=(c,)) for c in range(clients)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            assert all(len(o) == len(f) and all(int(x.status) in (0, 1) for x in o) for o, f in zip(out, frames))
+    finally:
+        for c in cls:
+            c.stop()
+        srv.stop()
+        cluster.cluster_flow_rule_manager.clear()
+    return records, svc
+
+
+def test_token_server_handler_threads(cuda, monkeypatch):
+    """Four handler threads share one service on the card: each frame is
+    one K12 launch under the service's lock (the kernel's scratch is never
+    used by two launches at once). The same batches through the plain K12
+    in the order the launches ran give the same decisions and the same
+    final window state; the zeroed scratch reads zero after."""
+    records, svc = _token_server_threads(cuda, monkeypatch)
+    assert len(records) == 6 * 4
+    plain = ma.make_state(records[0][0], tts.CLUSTER_CFG, cuda)
+    for i, (n_rows, inputs, now, atomic, got) in enumerate(records):
+        if n_rows > plain.n_rows:
+            plain = ma.grow(plain, n_rows, tts.CLUSTER_CFG)
+        want = tts.batch_decide_plain(plain, *inputs, now, atomic=atomic)
+        _eq(want, got, f"launch {i}: (admitted, ns_ok, next_remaining)")
+    _states_eq(plain, svc.state, "the service's window state")
+    _assert_zeroed(cuda, "K12 under handler threads")
+
+
 def test_shared_scratch_across_threads(cuda):
     """K12 at 16,384 requests, K4 with its top-8 tail at 131,072 entries,
     K10 at 4,096 items, K6 at 131,072 entries, K8 at 131,072 slots over

@@ -405,9 +405,10 @@ def test_cold_value_ceiling():
 
 
 def test_gossip_snapshot_and_merge():
-    """Two tiers with gossip armed (the transport is not ported; the frames
-    go from tier to tier by hand): each takes the other's snapshot, and a
-    key hot only fleet-wide promotes on both packages alike."""
+    """Two tiers with gossip armed (the frames go from tier to tier by hand
+    here; tests/test_torch_gossip.py carries them between agents over TCP):
+    each takes the other's snapshot, and a key hot only fleet-wide promotes
+    on both packages alike."""
     cfg = dict(SKETCH_CONFIG, **{config.GOSSIP_ENABLED: "true", config.SKETCH_PROMOTE_QPS: "40"})
     pair = _Pair(SKETCH_CONFIG)
     pair.rules("set_param_rules", *_sketch_rules())
