@@ -225,6 +225,32 @@ checks as (a). Every serving child must run on cuda:0 and launch K4; after
 stop() only this process may hold a CUDA context and no segment may be
 left in /dev/shm.
 
+The control surface (transport/, core/slots.py, utils/registry.py,
+datasource/, testing/oracle.py): phase 4m (after 4l) serves the card's
+global engine from a CommandCenter on a loopback port. (a) Phase 4's
+6,000 rules reach it through setRules over HTTP, which the writable
+datasource persists into a file that a FileRefreshableDataSource then
+drives (a reload of one rule in ten before flush 20); two slots come from
+the registry (Registry.of("ProcessorSlot")): one vetoes bulk entries of
+acquire 2 on every 16th resource and singles whose first arg is "unpaid",
+one raises on r7 (the chain fails open); 40 Zipf(1.1) flushes of 32,768
+(a quarter at acquire 2, 32 singles from three origins, the exits with
+their resources) run in lockstep with a CPU engine: verdicts, reasons
+(BLOCK_CUSTOM), slot names, vetoes, every state tensor and the slots'
+calls and exits equal after every flush; K2, K4 and row_stats counted
+from 0 around it. (b) After every tenth flush /metrics in both dialects,
+/clusterNode, /tree and /origin over HTTP on the card's engine and then
+on the CPU engine: the same bodies but the named host-timed lines and the
+staging pool's counts; each scrape's ms and bytes, row_stats once a
+scrape by its wrapper and by torch.profiler. (c) capture (a freeze on
+demand), handoff, health with failover armed and one injected launch
+fault (the degraded fill's verdicts equal the CPU engine's under the same
+plan) and speculative (each entry's slot check once). (d) One heartbeat
+of the card's engine and one of a CPU engine to an in-process dashboard:
+the same fields. (e) testing/oracle_stream.py's 600 single entries on
+QPS, rate-limiter and warm-up rules through an engine on the card: the
+oracle's pass/block and waits.
+
 The token plane over TCP (cluster/protocol.py, server.py, client.py,
 shards.py, gossip.py): phase 8b (run after 4i) runs its servers as
 threads of this process, their services on the card. It first counts
@@ -5239,6 +5265,544 @@ def phase4_supervise(results: dict, cpu_jobs: dict, device=None) -> None:
         f"in /dev/shm; phase 4l took {time.perf_counter() - t_phase:.1f} s ({card_line()})")
 
 
+# ---------------------------------------------------------------------------
+# phase 4m: the control surface (ROADMAP item 11, part 1): custom slots from
+# the SPI registry, the command center, the file datasource, the heartbeat
+# and the sequential oracle, on the card
+# ---------------------------------------------------------------------------
+CS_STEPS = 40  # (a): flushes of FLUSH_N, 100 ms each, on the card and on the CPU engine in lockstep
+CS_SCRAPE_EVERY = 10  # (b): the scrapes after every tenth flush
+CS_RELOAD = 20  # (a): the file source reloads one rule in ten (count 20 -> 12) before this flush
+CS_SINGLES = 32  # (a): single entries a flush, on r0-r31 from three origins, every fourth "unpaid"
+CS_ACQ2 = 0.25  # (a): the share of bulk rows of acquire 2
+CS_ORACLE_N = 600  # (e): single entries of the oracle stream
+CS_DIR = os.path.join(ROOT, "build", "phase4m")
+CS_SCRAPES = (("metrics", {}), ("metrics", {"format": "openmetrics"}), ("clusterNode", {}), ("tree", {}),
+              ("origin", {"id": "r0"}))
+# The scrape lines that carry host timings (wall clocks of the flushes and
+# spills), not compared between the card and the CPU engine.
+CS_HOST_TIMED = tuple(f"sentinel_engine_{h}_{s}" for h in ("flush_duration_ms", "drain_duration_ms",
+                                                           "e2e_duration_ms", "admission_latency_ms")
+                      for s in ("bucket", "sum")) + tuple(
+    f"sentinel_engine_last_flush_{s}" for s in ("encode_ms", "dispatch_ms", "kernel_ms", "drain_ms")) + (
+    "sentinel_engine_checkpoint_durable_age_ms", "sentinel_engine_checkpoint_durable_write_ms",
+    "sentinel_engine_ingest_estimate_ms", "sentinel_cluster_rpc_ms_bucket", "sentinel_cluster_rpc_ms_sum")
+# The staging pool's counts, not compared either: on the card each chunk
+# also takes a pinned set for its copy back, which the CPU engine has none of.
+CS_DEVICE_POOLED = ("sentinel_engine_arena_hits_total", "sentinel_engine_arena_misses_total")
+
+
+def _cs_slots():
+    """Phase 4m's two slots (core/slots.py): ``paywall`` vetoes bulk entries
+    of acquire 2 on every 16th resource and singles whose first arg is
+    "unpaid", and records its calls and the exits it sees; ``flaky`` raises
+    on r7 (the chain fails open)."""
+    from sentinel_tpu_torch.core.slots import ProcessorSlot
+
+    class Paywall(ProcessorSlot):
+        name, order = "paywall", -10
+
+        def __init__(self):
+            self.calls, self.exits = [], []
+
+        def entry(self, ctx):
+            self.calls.append((ctx.resource, ctx.acquire, ctx.args))
+            if ctx.args:
+                return {"reason": "payment required"} if ctx.args[0] == "unpaid" else None
+            if ctx.acquire == 2 and ctx.resource[1:].isdigit() and int(ctx.resource[1:]) % 16 == 0:
+                return {"reason": "acquire 2"}
+            return None
+
+        def exit(self, resource, rt_ms, count, err):
+            self.exits.append((resource, int(rt_ms), int(count), int(err)))
+
+    class Flaky(ProcessorSlot):
+        name, order = "flaky", 0
+
+        def __init__(self):
+            self.raised = 0
+
+        def entry(self, ctx):
+            if ctx.resource == "r7":
+                self.raised += 1
+                raise RuntimeError("phase 4m: a slot that fails")
+            return None
+
+    return Paywall(), Flaky()
+
+
+def _cs_http(port: int, path: str, body: bytes = None, **params) -> tuple:
+    """(status, body bytes, ms) of one command over loopback HTTP."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    qs = urllib.parse.urlencode(params)
+    url = f"http://127.0.0.1:{port}/{path}" + (f"?{qs}" if qs else "")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, data=body, timeout=120) as resp:
+            status, data = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, data = e.code, e.read()
+    return status, data, (time.perf_counter() - t0) * 1e3
+
+
+def _cs_comparable(text: str) -> list:
+    """A scrape's lines but those of ``CS_HOST_TIMED`` and ``CS_DEVICE_POOLED``."""
+    skip = CS_HOST_TIMED + CS_DEVICE_POOLED
+    return [ln for ln in text.splitlines() if ln.startswith("#") or ln.split("{", 1)[0].split(" ", 1)[0] not in skip]
+
+
+def _cs_verdict(v) -> tuple:
+    rule = v.blocked_rule
+    rule = rule.to_dict() if hasattr(rule, "to_dict") else rule
+    return (bool(v.admitted), int(v.reason), int(v.wait_ms), v.limit_type, v.slot_name, json.dumps(rule,
+                                                                                                 sort_keys=True))
+
+
+def _cs_same_states(a, b, what: str) -> None:
+    from sentinel_tpu_torch.runtime.failover import tree_leaves
+
+    la, lb = tree_leaves(tuple(a)), tree_leaves(tuple(b))
+    if len(la) != len(lb) or any(x.shape != y.shape or x.dtype != y.dtype or
+                                 not np.array_equal(x.view(np.int32) if x.dtype == np.float32 else x,
+                                                    y.view(np.int32) if y.dtype == np.float32 else y)
+                                 for x, y in zip(la, lb)):
+        fail(f"phase 4m: {what}: states differ")
+
+
+def _cs_step(engines, rng, p, step: int, now: int, prev: list) -> list:
+    """One flush of (a)'s stream on each engine: Zipf bulk groups with a
+    quarter of the rows at acquire 2, the singles, the last step's exits
+    (with their resources, so that the slots' exit traversal sees them).
+    Returns, per engine, (its groups, its singles, the slot calls and exits
+    of its flush, the flush call's seconds)."""
+    res = rng.choice(N_RULES, size=FLUSH_N, p=p)
+    ts = (now - rng.integers(0, 100, FLUSH_N)).astype(np.int32)
+    acq = np.where(rng.random(FLUSH_N) < CS_ACQ2, 2, 1).astype(np.int32)
+    order = np.argsort(res, kind="stable")
+    res, ts, acq = res[order], ts[order], acq[order]
+    uniq, start = np.unique(res, return_index=True)
+    bounds = list(start) + [FLUSH_N]
+    rts = rng.integers(1, 300, len(uniq))
+    out = []
+    for k, (eng, slot) in enumerate(engines):
+        groups = [eng.submit_bulk(f"r{r}", int(bounds[i + 1] - bounds[i]), ts=np.sort(ts[bounds[i]:bounds[i + 1]]),
+                                  acquire=acq[bounds[i]:bounds[i + 1]]) for i, r in enumerate(uniq)]
+        singles = [eng.submit_entry(f"r{j}", origin=f"svc-{j % 3}", args=("unpaid" if j % 4 == 0 else "paid",),
+                                    ts=now) for j in range(CS_SINGLES)]
+        if prev:
+            pg, ps = prev[k][0], prev[k][1]
+            for g, rt in zip(pg[:50], rts):
+                if g.admitted_count:
+                    eng.submit_exit_bulk(g.rows, g.admitted_count, rt=int(rt), ts=now, resource=g.resource)
+            for op in ps:
+                if op.verdict.admitted:
+                    eng.submit_exit(op.rows, rt=5, ts=now, resource=op.resource)
+        c0, x0 = len(slot.calls), len(slot.exits)
+        t0 = time.perf_counter()
+        eng.flush()
+        call_s = time.perf_counter() - t0
+        out.append((groups, singles, slot.calls[c0:], slot.exits[x0:], call_s))
+    return out
+
+
+def _cs_scrapes(port: int, card, cpu, stats: dict, every_scrape_launches: list) -> None:
+    """(b): each command of ``CS_SCRAPES`` over HTTP on the card's engine
+    and then, through the same command center, on the CPU engine; the bodies
+    equal but the host-timed lines. ``row_stats`` launches a card scrape
+    into ``every_scrape_launches``; ms and bytes into ``stats``."""
+    for path, params in CS_SCRAPES:
+        tag = path + ("?" + "&".join(f"{k}={v}" for k, v in params.items()) if params else "")
+        api.set_engine(card)
+        l0 = nodes.rows_stats.launches
+        status, body, ms = _cs_http(port, path, **params)
+        every_scrape_launches.append(nodes.rows_stats.launches - l0)
+        api.set_engine(cpu)
+        status_c, body_c, _ = _cs_http(port, path, **params)
+        api.set_engine(card)
+        if status != 200 or status_c != 200:
+            fail(f"phase 4m (b): /{tag} answered {status} on the card, {status_c} on the CPU engine")
+        a, b = body.decode(), body_c.decode()
+        if path == "metrics":
+            a, b = _cs_comparable(a), _cs_comparable(b)
+        if a != b:
+            diff = next(((x, y) for x, y in zip(a if isinstance(a, list) else a.splitlines(),
+                                                  b if isinstance(b, list) else b.splitlines()) if x != y), None)
+            fail(f"phase 4m (b): /{tag} differs between the card and the CPU engine (first: {diff})")
+        stats.setdefault(tag, []).append((ms, len(body)))
+
+
+def _cs_lockstep(port: int, slot, file_src, rules_file) -> dict:
+    """(a) and (b): ``CS_STEPS`` flushes on the card's engine (the global one,
+    which the command center serves) and on a CPU engine in lockstep."""
+    from sentinel_tpu_torch.core import errors as E
+    from sentinel_tpu_torch.runtime.engine import Engine
+
+    card = api.get_engine()
+    card_clock = card.clock
+    cpu_clock = tclock.ManualClock(0)
+    cpu = Engine(clock=cpu_clock, device="cpu")
+    cpu.set_flow_rules(st.flow_rule_manager.get_rules())
+    rng = np.random.default_rng(71)
+    ranks = np.arange(1, N_RULES + 1, dtype=np.float64) ** -1.1
+    p = ranks / ranks.sum()
+    wrappers = {"window_update": ma.update, "thread_gauge": nodes.thread_gauge_add,
+                "flow_admission": flush.flow_admission, "row_stats": nodes.rows_stats}
+    for w in wrappers.values():
+        w.launches = 0
+    prev, calls, custom, admitted, exits_seen = [], [], 0, 0, 0
+    scrape_stats, scrape_launches = {}, []
+    for step in range(CS_STEPS):
+        now = 1000 + step * 100
+        card_clock.set_ms(now)
+        cpu_clock.set_ms(now)
+        if step == CS_RELOAD:
+            # One rule in ten reloads through the file source: the manager
+            # pushes it into the card's engine; the CPU engine takes the same.
+            new = [st.FlowRule(f"r{i}", count=12 if i % 10 == 0 else 20) for i in range(N_RULES)]
+            with open(rules_file, "w") as f:
+                json.dump([r.to_dict() for r in new], f)
+            later = time.time() + 5
+            os.utime(rules_file, (later, later))
+            if not file_src.refresh():
+                fail("phase 4m (a): the file source did not see the reload")
+            got = st.flow_rule_manager.get_rules()
+            if [r.to_dict() for r in got] != [r.to_dict() for r in new]:
+                fail("phase 4m (a): the file source's reload did not reach the flow rules")
+            cpu.set_flow_rules(got)
+        steps = _cs_step([(card, slot), (cpu, slot)], rng, p, step, now, prev)
+        (g_a, s_a, c_a, x_a, call_s), (g_b, s_b, c_b, x_b, _) = steps
+        va = [_cs_verdict(op.verdict) for op in s_a]
+        if va != [_cs_verdict(op.verdict) for op in s_b]:
+            fail(f"phase 4m (a): flush {step}: the singles' verdicts differ between the card and the CPU engine")
+        for ga, gb in zip(g_a, g_b):
+            if not (np.array_equal(ga.admitted, gb.admitted) and np.array_equal(ga.reason, gb.reason)
+                    and np.array_equal(ga.wait_ms, gb.wait_ms)):
+                fail(f"phase 4m (a): flush {step}: the bulk verdicts of {ga.resource} differ")
+        if c_a != c_b or x_a != x_b:
+            fail(f"phase 4m (a): flush {step}: the slots saw other calls or exits on the card than on the CPU")
+        _cs_same_states(_states_of(card), _states_of(cpu), f"(a) flush {step}")
+        custom += sum(v[1] == E.BLOCK_CUSTOM for v in va) + sum(int((g.reason == E.BLOCK_CUSTOM).sum()) for g in g_a)
+        admitted += sum(g.admitted_count for g in g_a)
+        exits_seen += len(x_a)
+        calls.append(call_s)
+        prev = [(g_a, s_a), (g_b, s_b)]
+        if step % CS_SCRAPE_EVERY == CS_SCRAPE_EVERY - 1:
+            _cs_scrapes(port, card, cpu, scrape_stats, scrape_launches)
+    counts = {name: w.launches for name, w in wrappers.items()}
+    cpu.close()
+    return dict(counts=counts, custom=custom, admitted=admitted, exits=exits_seen, calls=calls,
+                scrapes=scrape_stats, scrape_launches=scrape_launches, card=card)
+
+
+class _CsDashboard:
+    """(d): an in-process dashboard on a loopback port that records each
+    heartbeat's query and answers 200."""
+
+    def __init__(self) -> None:
+        import urllib.parse
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        beats = self.beats = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                parsed = urllib.parse.urlparse(self.path)
+                beats.append((parsed.path, dict(urllib.parse.parse_qsl(parsed.query))))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self._server.server_address[1]
+        self._thread = threading.Thread(target=self._server.serve_forever, daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+
+
+def _cs_tier_engine(device, settings: dict):
+    """An engine under a ManualClock at 1000, built with ``settings`` (config
+    key names) on top of the runtime config, which is put back after."""
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils.config import config
+
+    saved = config.runtime_snapshot()
+    for key, value in settings.items():
+        config.set(getattr(config, key), str(value))
+    try:
+        return Engine(clock=tclock.ManualClock(1000), device=device)
+    finally:
+        config.reset()
+        for key, value in saved.items():
+            config.set(key, value)
+
+
+def _cs_health(port: int, slot) -> str:
+    """(c) health: failover armed on the card and on a CPU engine, the
+    slots registered, one injected launch fault (fail_dispatch) on each at
+    the same flush; every verdict of the degraded fill, the slots' calls and
+    the ``health`` answers equal."""
+    from sentinel_tpu_torch.testing.faults import FaultInjector
+
+    settings = {"FAILOVER_ENABLED": "true", "FAILOVER_CHECKPOINT_EVERY": 1, "FAILOVER_RETRY_MS": 10**9}
+    engines = [_cs_tier_engine(DEV, settings), _cs_tier_engine("cpu", settings)]
+    injectors = [FaultInjector().install(e) for e in engines]
+    rng = np.random.default_rng(73)
+    records = [[], []]
+    for step in range(5):
+        now = 1000 + 100 * step
+        acq = [np.where(rng.random(24) < 0.5, 2, 1).astype(np.int32) for _ in range(4)]
+        for k, (eng, inj) in enumerate(zip(engines, injectors)):
+            eng.clock.set_ms(now)
+            if step == 0:
+                eng.set_flow_rules([st.FlowRule(f"r{i}", count=30) for i in range(64)])
+            if step == 2:
+                inj.fail_dispatch(eng.flush_seq + 1)
+            groups = [eng.submit_bulk(f"r{16 * b}", 24, ts=now, acquire=acq[b]) for b in range(4)]
+            singles = [eng.submit_entry(f"r{j}", args=("unpaid" if j % 2 else "paid",), ts=now) for j in range(8)]
+            c0 = len(slot.calls)
+            eng.flush()
+            records[k].append(([_cs_verdict(op.verdict) + (op.verdict.degraded,) for op in singles],
+                               [[x.tolist() for x in (g.admitted, g.reason, g.wait_ms)] for g in groups],
+                               slot.calls[c0:]))
+    if records[0] != records[1]:
+        fail("phase 4m (c): with a launch fault the degraded fill's verdicts or the slots' calls differ between "
+             "the card and the CPU engine")
+    answers = []
+    for eng in engines:
+        api.set_engine(eng)
+        status, body, _ = _cs_http(port, "health")
+        d = json.loads(body)
+        if status != 200 or d["state"] != "DEGRADED" or d["counters"]["trips"] != 1:
+            fail(f"phase 4m (c): /health answered {status}: {body[:300]!r}")
+        answers.append({k: v for k, v in d.items() if k not in ("checkpoint", "durable")})
+    if answers[0] != answers[1]:
+        fail("phase 4m (c): /health differs between the card and the CPU engine")
+    customs = sum(v[1] == 6 for rec in records[0] for v in rec[0]) + sum(
+        r == 6 for rec in records[0] for g in rec[1] for r in g[1])
+    for inj, eng in zip(injectors, engines):
+        inj.clear()
+        eng.close()
+    return (f"health: DEGRADED after one launch fault, trips 1; 5 flushes (3 degraded) with the slots: verdicts "
+            f"(the degraded mark, {customs} BLOCK_CUSTOM), the slots' calls and /health equal the CPU engine's")
+
+
+def _cs_commands(port: int, slot) -> list:
+    """(c): capture, handoff, health and speculative on live tiers."""
+    out = []
+    card = api.get_engine()
+    # capture: the journal on, a freeze on demand over HTTP
+    cap_dir = os.path.join(CS_DIR, "cap")
+    cap = _cs_tier_engine(DEV, {"CAPTURE_ENABLED": "true", "CAPTURE_DIR": cap_dir})
+    cap.set_flow_rules([st.FlowRule("cap", count=5)])
+    for k in range(3):
+        cap.clock.set_ms(1000 + 100 * k)
+        cap.submit_bulk("cap", 16, ts=1000 + 100 * k)
+        cap.flush()
+    api.set_engine(cap)
+    status, body, _ = _cs_http(port, "capture", freeze="smoke")
+    d = json.loads(body)
+    on_disk = {name for _dir, _sub, files in os.walk(cap_dir) for name in files}
+    if status != 200 or not d.get("enabled") or not d.get("frozen_now") or not set(d["frozen_now"]) <= on_disk \
+            or d["counters"]["chunks"] != 3:
+        fail(f"phase 4m (c): /capture?freeze= answered {status}: {body[:300]!r}")
+    cap.close()
+    out.append(f"capture: segments frozen on demand: {len(d['frozen_now'])} "
+               f"({', '.join(sorted(d['frozen_now']))}), 3 chunks journaled")
+    # handoff: the command sets the engine's trigger
+    api.set_engine(card)
+    card.handoff_requested.clear()
+    status, body, _ = _cs_http(port, "handoff")
+    if status != 200 or json.loads(body) != {"ok": True, "handoff": "requested", "ipc_plane": False} or \
+            not card.handoff_requested.is_set():
+        fail(f"phase 4m (c): /handoff answered {status}: {body!r}")
+    card.handoff_requested.clear()
+    out.append("handoff: handoff_requested set")
+    out.append(_cs_health(port, slot))
+    # speculative: each entry's slot check exactly once (admit and settle)
+    spec = _cs_tier_engine(DEV, {"SPECULATIVE_ENABLED": "true", "SPECULATIVE_FLUSH_BATCH": 10000})
+    spec.set_flow_rules([st.FlowRule("s1", count=100), st.FlowRule("s2", count=100)])
+    c0 = len(slot.calls)
+    served = [spec.entry_sync("s1", args=("paid",))[1] for _ in range(6)]
+    g = spec.submit_bulk("s2", 8, acquire=np.array([1, 2] * 4, dtype=np.int32))
+    spec.flush()
+    spec.drain()
+    n_calls = len(slot.calls) - c0
+    api.set_engine(spec)
+    status, body, _ = _cs_http(port, "speculative")
+    d = json.loads(body)
+    if not all(v.speculative and v.admitted for v in served) or g.admitted_count != 8 or n_calls != 8 or \
+            status != 200 or not d["enabled"] or d["counters"]["spec_admits"] != 14:
+        fail(f"phase 4m (c): the speculative tier ran the slots {n_calls} times for 6 entries and a group of two "
+             f"acquires (8 wanted); /speculative answered {status}: {body[:300]!r}")
+    spec.close()
+    api.set_engine(card)
+    out.append(f"speculative: 6 entries and a group of 2 acquires, {n_calls} slot checks (once each), "
+               f"{d['counters']['spec_admits']} speculative admits")
+    return out
+
+
+def _cs_heartbeat(port: int, card, cpu_rules) -> str:
+    """(d): one heartbeat of the card's engine and one of a CPU engine with
+    the same rules and stream state (fresh: both HEALTHY, nothing shed) to
+    an in-process dashboard: the same fields."""
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.transport import heartbeat
+
+    cpu = Engine(clock=tclock.ManualClock(card.clock.now_ms()), device="cpu")
+    cpu.set_flow_rules(cpu_rules)
+    dash = _CsDashboard()
+    real_ip = heartbeat.local_ip
+    heartbeat.local_ip = lambda: "127.0.0.1"  # the sender's address: no route is looked up
+    try:
+        oks = [heartbeat.HeartbeatSender(f"127.0.0.1:{dash.port}", command_port=port, app_name="phase4m",
+                                         engine=eng).heartbeat_once() for eng in (card, cpu)]
+    finally:
+        heartbeat.local_ip = real_ip
+        dash.close()
+        cpu.close()
+    if oks != [True, True] or len(dash.beats) != 2 or dash.beats[0] != dash.beats[1]:
+        fail(f"phase 4m (d): heartbeats {oks}: {dash.beats}")
+    path, fields = dash.beats[0]
+    return f"one heartbeat each to {path}: the same {len(fields)} fields (health {fields['health']})"
+
+
+def _cs_oracle() -> str:
+    """(e): the sequential oracle's stream (testing/oracle_stream.py) through
+    an engine on the card."""
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.testing.oracle_stream import oracle_stream
+
+    clock = tclock.ManualClock(0)
+    eng = Engine(clock=clock, device=DEV)
+    k4 = flush.flow_admission.launches
+    t0 = time.perf_counter()
+    got, want = oracle_stream(eng, clock, seed=72, n=CS_ORACLE_N)
+    took = time.perf_counter() - t0
+    k4 = flush.flow_admission.launches - k4
+    eng.close()
+    bad = [(g, w) for g, w in zip(got, want) if g != w]
+    blocked = sum(not ok for _r, _t, ok, _w in got)
+    if bad or len(got) != CS_ORACLE_N or not blocked or k4 < CS_ORACLE_N:
+        fail(f"phase 4m (e): the card's engine against the oracle: {len(bad)} of {len(got)} differ "
+             f"(first {bad[:2]}), {blocked} blocked, K4 {k4} launches")
+    waits = sum(w > 0 for _r, _t, _ok, w in got)
+    return (f"{len(got)} single entries on QPS, rate-limiter and warm-up rules: pass/block and wait equal the "
+            f"oracle's ({blocked} blocked, {waits} paced waits); K4 {k4} launches; {took:.1f} s")
+
+
+def phase4_control_surface(results: dict, cpu_jobs: dict) -> None:
+    import shutil
+    import urllib.parse
+
+    from sentinel_tpu_torch.core.property import DynamicSentinelProperty
+    from sentinel_tpu_torch.core.slots import SlotChainRegistry
+    from sentinel_tpu_torch.datasource import (FileRefreshableDataSource, FileWritableDataSource,
+                                               WritableDataSourceRegistry, json_converter)
+    from sentinel_tpu_torch.transport import CommandCenter
+    from sentinel_tpu_torch.utils.config import config
+    from sentinel_tpu_torch.utils.registry import Registry
+
+    line = card_line()
+    log(f"phase 4m: the control surface on the card: setRules over HTTP, a file source, two custom slots from the "
+        f"registry, {CS_STEPS} flushes of {FLUSH_N:,} over {N_RULES:,} rules in lockstep with a CPU engine, the "
+        f"scrapes, the tiers' commands, a heartbeat, the oracle ({line})")
+    t_phase = time.perf_counter()
+    shutil.rmtree(CS_DIR, ignore_errors=True)
+    os.makedirs(CS_DIR)
+    rules_file = os.path.join(CS_DIR, "flow-rules.json")
+    # Only blocked admissions are traced: head sampling draws from one random
+    # source that the card's engine and the CPU engine would share here.
+    config.set(config.TRACE_SAMPLE_RATE, "0")
+    api.reset(clock=tclock.ManualClock(0), device=DEV)
+    center = CommandCenter(port=0).start()
+    paywall, flaky = _cs_slots()
+    reg = Registry.of("ProcessorSlot")
+    reg.register(lambda: paywall, name=paywall.name, order=paywall.order)
+    reg.register(lambda: flaky, name=flaky.name, order=flaky.order)
+    SlotChainRegistry.clear()  # the chain reads the registry at its next use
+    try:
+        # (a) the rules through setRules over HTTP; the writable source
+        # persists them into the file the refreshable source then watches.
+        WritableDataSourceRegistry.register("flow", FileWritableDataSource(
+            rules_file, lambda rules: json.dumps([r.to_dict() for r in rules])))
+        data = json.dumps([{"resource": f"r{i}", "count": 20} for i in range(N_RULES)])
+        status, body, set_ms = _cs_http(center.port, "setRules",
+                                        body=urllib.parse.urlencode({"type": "flow", "data": data}).encode())
+        src = FileRefreshableDataSource(rules_file, json_converter(st.FlowRule), 3600)
+        if status != 200 or body != b"success" or not src.refresh():
+            fail(f"phase 4m (a): setRules answered {status} {body[:200]!r}, or the file source read nothing")
+        st.flow_rule_manager.register_property(src.get_property())
+        names = [s.name for s in SlotChainRegistry.slots()]
+        if len(st.flow_rule_manager.get_rules()) != N_RULES or names != ["paywall", "flaky"]:
+            fail(f"phase 4m (a): {len(st.flow_rule_manager.get_rules())} rules loaded, slots {names}")
+        log(f"  (a) setRules of {N_RULES:,} rules over HTTP {set_ms:.1f} ms ({len(data):,} bytes of JSON), written "
+            f"to {os.path.relpath(rules_file, ROOT)} by the writable source and read back by the file source; "
+            f"slots from the registry {names}")
+        t0 = time.perf_counter()
+        lk = _cs_lockstep(center.port, paywall, src, rules_file)
+        counts = lk["counts"]
+        log(f"  (a) {CS_STEPS} flushes on the card and on the CPU engine in lockstep, {time.perf_counter() - t0:.1f} s "
+            f"(the scrapes included): "
+            f"verdicts, reasons ({lk['custom']:,} BLOCK_CUSTOM), slot_name, blocked_rule, wait_ms, every state "
+            f"tensor and the slots' calls and exits ({lk['exits']:,}) equal after every flush; {lk['admitted']:,} "
+            f"bulk rows admitted; the reload of one rule in ten through the file source before flush {CS_RELOAD}; "
+            f"the raising slot failed open {flaky.raised} times; a card flush call median "
+            f"{1e3 * float(np.median(lk['calls'])):.3f} ms ({line})")
+        log(f"  (a) launches on the main path: {counts}")
+        for name in ("window_update", "thread_gauge", "flow_admission", "row_stats"):
+            if counts[name] <= 0:
+                fail(f"phase 4m: kernel {name} was not launched on the main path")
+            results[name]["launches_4m"] = counts[name]
+        n_scrapes = len(CS_SCRAPES) * (CS_STEPS // CS_SCRAPE_EVERY)
+        if lk["scrape_launches"] != [1] * n_scrapes or counts["row_stats"] != n_scrapes:
+            fail(f"phase 4m (b): row_stats launches a scrape {lk['scrape_launches']}")
+        profiled = {}
+        for path, params in CS_SCRAPES:
+            prof = kernel_counts(lambda path=path, params=params: _cs_http(center.port, path, **params), calls=2)
+            profiled[path + ("?" + urllib.parse.urlencode(params) if params else "")] = prof
+            if prof.get("rs_rows", 0) != 2:
+                fail(f"phase 4m (b): torch.profiler counted {prof} over 2 scrapes of /{path} (rs_rows once each)")
+        for tag, rows in lk["scrapes"].items():
+            ms = [m for m, _ in rows]
+            but = (f" but the {len(CS_HOST_TIMED)} host-timed lines and the {len(CS_DEVICE_POOLED)} staging pool "
+                   "counts" if tag.startswith("metrics") else "")
+            log(f"  (b) /{tag}: {len(rows)} scrapes at {N_RULES:,} resources equal to the CPU engine's{but}, p50 "
+                f"{float(np.median(ms)):.3f} ms, max {max(ms):.3f} ms, {rows[-1][1]:,} bytes; row_stats 1 launch a "
+                f"scrape ({line})")
+        log(f"  (b) torch.profiler over 2 scrapes of each: {profiled} (rs_rows, the row_stats kernel, once a scrape); "
+            f"the wrapper counted {counts['row_stats']} launches on {n_scrapes} scrapes")
+        results["row_stats"]["scrape_ms_4m"] = {tag: [float(np.median([m for m, _ in rows])),
+                                                      max(m for m, _ in rows), rows[-1][1]]
+                                                for tag, rows in lk["scrapes"].items()}
+        # (c) the tiers' commands; (d) the heartbeat; (e) the oracle
+        t0 = time.perf_counter()
+        for text in _cs_commands(center.port, paywall):
+            log(f"  (c) {text}")
+        log(f"  (c) {time.perf_counter() - t0:.1f} s")
+        card = lk["card"]
+        log(f"  (d) {_cs_heartbeat(center.port, card, st.flow_rule_manager.get_rules())}")
+        log(f"  (e) {_cs_oracle()} ({line})")
+    finally:
+        center.stop()
+        SlotChainRegistry.clear()
+        Registry.reset_all()
+        WritableDataSourceRegistry.clear()
+        st.flow_rule_manager.register_property(DynamicSentinelProperty())
+        config.reset()
+    took = time.perf_counter() - t_phase
+    log(f"  phase 4m took {took:.1f} s ({line})")
+
+
 def phase5() -> None:
     log("phase 5: flow_qps_demo (8 threads, 3 s of real clock, QPS = 20 rule)")
     tclock.set_default_clock(tclock.SystemClock())
@@ -6822,7 +7386,8 @@ def main() -> None:
         ("4f", lambda: phase4_pipeline(cpu_jobs)), ("4g", lambda: phase4_failover(cpu_jobs)),
         ("4h", lambda: phase4_control(results, cpu_jobs)), ("4i", lambda: phase4_metric(results, cpu_jobs)),
         ("8b", lambda: phase8b(results, cpu_jobs)), ("4j", lambda: phase4_ipc(results, cpu_jobs)), ("4k", lambda: phase4_capture(results, cpu_jobs)),
-        ("4l", lambda: phase4_supervise(results, cpu_jobs)), ("5", phase5), ("6", phase6), ("7", phase7), ("8", lambda: phase8(results, cpu_jobs)), ("9", phase9),
+        ("4l", lambda: phase4_supervise(results, cpu_jobs)), ("4m", lambda: phase4_control_surface(results, cpu_jobs)),
+        ("5", phase5), ("6", phase6), ("7", phase7), ("8", lambda: phase8(results, cpu_jobs)), ("9", phase9),
     ):
         log(f"phase {name}: start")
         t0 = time.perf_counter()
@@ -6860,7 +7425,7 @@ def main() -> None:
                       "edges", "launches_4h", "routes_4h", "ms_60s", "plain_ms_60s", "bound_ms_60s",
                       "device_ms_60s", "launches_per_call_60s", "memsets_per_call_60s", "records", "records_60s",
                       "pull_ms", "read_ms_4i", "copy_ms_4i", "asked_rows_4i", "copies_per_call", "launches_4j",
-                      "launches_4k", "launches_4l", "launches_8b", "profiler_launches_8b", "rtt_ms_8",
+                      "launches_4k", "launches_4l", "launches_4m", "scrape_ms_4m", "launches_8b", "profiler_launches_8b", "rtt_ms_8",
                       "rtt_ms_1024", "rtt_ms_16384") + tuple(
                           f"{m}_{n}_k{k}" for m in ("ms", "plain_ms", "library_ms", "device_ms", "launches_per_call",
                                                     "memsets_per_call") for n, k in ((N, 64), (8, 16), (8, 64))):

@@ -69,6 +69,7 @@ def get_engine() -> Engine:
                 return _boot_engine  # re-entrant call during init
             _boot_engine = Engine(device=_device)
             try:
+                _run_init_funcs()
                 _reapply_all_managers(_boot_engine)
                 _engine = _boot_engine
                 initialized = True
@@ -84,6 +85,19 @@ def get_engine() -> Engine:
 def peek_engine() -> Optional[Engine]:
     """The fully initialized global engine, or None (never constructs)."""
     return _engine
+
+
+def _run_init_funcs() -> None:
+    """The registry's one-time init callbacks, ``InitFunc``
+    (InitExecutor.doInit, sentinel-core/.../init/InitExecutor.java:33-95)."""
+    from sentinel_tpu_torch.utils.record_log import record_log
+    from sentinel_tpu_torch.utils.registry import Registry
+
+    for fn in Registry.of("InitFunc").load_instance_list_sorted():
+        try:
+            fn.init() if hasattr(fn, "init") else fn()
+        except Exception:
+            record_log.error("[InitExecutor] InitFunc failed", exc_info=True)
 
 
 def set_engine(engine: Optional[Engine]) -> Optional[Engine]:
@@ -313,7 +327,8 @@ def entry(
 
 
 def _block_error(verdict: Verdict, resource: str) -> E.BlockError:
-    return E.error_for_verdict(verdict.reason, resource, limit_type=verdict.limit_type, rule=verdict.blocked_rule)
+    return E.error_for_verdict(verdict.reason, resource, limit_type=verdict.limit_type, slot_name=verdict.slot_name,
+                               rule=verdict.blocked_rule)
 
 
 def try_entry(

@@ -52,13 +52,29 @@ class MetricExtensionProvider:
 
     _lock = threading.Lock()
     _extensions: List[MetricExtension] = []
+    _spi_loaded = False
 
     @classmethod
     def get_extensions(cls) -> Sequence[MetricExtension]:
-        """The registered extensions. The JAX package also discovers them
-        through its SPI registry (``utils/registry.py``), which belongs to
-        ROADMAP Queue 1 item 11: here they are registered explicitly."""
+        """The registered extensions: those of :meth:`register` and, loaded
+        once, the registry's ``MetricExtension`` providers."""
+        if not cls._spi_loaded:
+            cls._load_spi()
         return cls._extensions
+
+    @classmethod
+    def _load_spi(cls) -> None:
+        with cls._lock:
+            if cls._spi_loaded:
+                return
+            cls._spi_loaded = True
+            try:
+                from sentinel_tpu_torch.utils.registry import Registry
+
+                for ext in Registry.of("MetricExtension").load_instance_list_sorted():
+                    cls._extensions.append(ext)
+            except Exception:
+                record_log.error("[MetricExtension] SPI load failed", exc_info=True)
 
     @classmethod
     def register(cls, ext: MetricExtension) -> None:
@@ -69,6 +85,7 @@ class MetricExtensionProvider:
     def clear(cls) -> None:
         with cls._lock:
             cls._extensions.clear()
+            cls._spi_loaded = False
 
     # ------------------------------------------------------------------
     # Batched dispatch helpers (called by the engine; one guard per

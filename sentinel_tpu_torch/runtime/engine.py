@@ -71,6 +71,7 @@ import numpy as np
 import torch
 
 from sentinel_tpu_torch.core import errors as E
+from sentinel_tpu_torch.core.slots import SlotChainRegistry, SlotEntryContext
 from sentinel_tpu_torch.metrics.admission_trace import AdmissionTracer, BulkTraceGroups
 from sentinel_tpu_torch.metrics.block_log import BlockColumns, BlockLogger
 from sentinel_tpu_torch.metrics.events import MetricEvent
@@ -133,9 +134,7 @@ class Verdict(NamedTuple):
     wait_ms: int
     blocked_rule: Optional[object]  # the rule bean that blocked, if attributable
     limit_type: str = ""  # system block dimension (qps/thread/rt/load/cpu)
-    # The custom slot that blocked: "" until custom slots are ported
-    # (ROADMAP Queue 1 item 11); in the JAX Verdict's place.
-    slot_name: str = ""
+    slot_name: str = ""  # the custom slot that vetoed (reason BLOCK_CUSTOM)
     # Provenance: True when the host fallback decided while the engine was
     # DEGRADED (runtime/failover.py), never the device path.
     degraded: bool = False
@@ -269,7 +268,9 @@ class _PendingFetch:
             span.quarantined = True
             t = time.perf_counter()
             self._engine.telemetry.settle(span, t, t)
-        self._engine._note_blocked_items([fo.fill_degraded(entries, exits, bulk, bulk_exits)])
+        # The custom slots ran when this chunk dispatched: never again.
+        self._engine._note_blocked_items([fo.fill_degraded(entries, exits, bulk, bulk_exits,
+                                                           run_custom_slots=False)])
         cap_tok, self._cap_tok = self._cap_tok, None
         if cap_tok is not None:
             self._engine.capture.note_verdicts(cap_tok, entries, bulk, degraded=True)
@@ -317,6 +318,12 @@ class _EntryOp:
     # perf_counter when the speculative tier served the verdict (0.0: not
     # served): the latency a speculative trace record attributes.
     spec_end_pc: float = 0.0
+    # (slot, veto) when a registered custom ProcessorSlot vetoed this op.
+    custom_veto: Optional[Tuple[object, object]] = None
+    # The slot chain already ran for this op: check_entry returns None for
+    # a pass, so custom_veto alone cannot tell "passed" from "not checked"
+    # (a speculative op must not run the user's hooks again at the encode).
+    custom_checked: bool = False
 
     @property
     def param_thread_rows(self) -> List[int]:
@@ -371,6 +378,12 @@ class BulkOp:
     # per-rule columns (one _BulkParamCols per param rule).
     args_column: Optional[Sequence] = None
     p_cols: List[_BulkParamCols] = field(default_factory=list)
+    # The first (slot, veto) of a custom slot over the group, and which
+    # entries it vetoed (checks per distinct acquire); None: no veto.
+    custom_veto: Optional[Tuple[object, object]] = None
+    custom_veto_mask: Optional[np.ndarray] = None
+    # The slot chain already ran for the group (see _EntryOp).
+    custom_checked: bool = False
     # results (filled by flush; materialized lazily after a deferred flush)
     _admitted: Optional[np.ndarray] = field(default=None, repr=False)
     _reason: Optional[np.ndarray] = field(default=None, repr=False)
@@ -790,10 +803,14 @@ class Engine:
             from sentinel_tpu_torch.ipc.plane import IngestPlane
 
             IngestPlane(self)  # registers itself as self.ipc_plane
-        # The planned-handoff trigger a supervised serve loop reads (the
-        # supervisor is not ported: ROADMAP Queue 1 step 10b); an
+        # The planned-handoff trigger a supervised serve loop reads
+        # (ipc/supervise.py; the ``handoff`` command sets it); an
         # unsupervised engine never reads it.
         self.handoff_requested = threading.Event()
+        # The global switch (Constants.ON, the setSwitch command): off, the
+        # submit calls return None and entries pass through unchecked and
+        # unrecorded.
+        self.enabled = True
 
     def _note_blocked_items(self, parts: list) -> None:
         """Queue a fill's block-log items, in parts (item tuples or
@@ -1437,7 +1454,7 @@ class Engine:
         args: Sequence[object] = (),
         speculate: bool = False,
     ) -> Optional[_EntryOp]:
-        """Enqueue an entry; None for pass-through (over the resource cap).
+        """Enqueue an entry; None for pass-through (over the resource cap, or the global switch off).
         ``prio`` entries may borrow a future window when over a QPS rule.
         ``args`` are the invocation arguments hot-parameter rules check.
         ``speculate`` (entry_sync's path) asks the speculative tier for an
@@ -1453,6 +1470,8 @@ class Engine:
         after that, so no flush sees it half decided. With the ingest valve
         armed, an entry over its bound is refused at once (BLOCK_SHED,
         never enqueued)."""
+        if not self.enabled:
+            return None
         if self.ingest.armed:
             cause = self.ingest.check_entry(1)
             if cause is not None:
@@ -1546,6 +1565,8 @@ class Engine:
         already full or the deadline unmeetable; otherwise the loop stops at
         the queue bound and ``submit_entry`` sheds exactly the overflow (and
         the token-service deferral is off: the valve counts per op)."""
+        if not self.enabled:
+            return [None] * len(requests)
         valve = self.ingest
         if valve.armed:
             cause = valve.check_entry(1)
@@ -2007,7 +2028,10 @@ class Engine:
         ingest valve armed, a group over its bulk bound is refused whole
         (BLOCK_SHED). With the sketch tier's cold ceilings armed, a group over its ceiling is
         refused whole (BLOCK_SKETCH); a group only some of whose values
-        are over the value ceiling raises ``ValueError`` too."""
+        are over the value ceiling raises ``ValueError`` too. None too while
+        the global switch is off."""
+        if not self.enabled:
+            return None
         if n < 1:
             raise ValueError("submit_bulk: n must be >= 1")
         if n > self.max_batch:
@@ -2455,7 +2479,7 @@ class Engine:
             v["e_acquire"][:ne] = [op.acquire for op in entries]
             v["e_rows"][:ne] = [op.rows for op in entries]
             v["e_prio"][:ne] = [op.prio for op in entries]
-            v["e_auth_ok"][:ne] = [op.auth_ok for op in entries]
+            v["e_auth_ok"][:ne] = [op.auth_ok and op.custom_veto is None for op in entries]
             for i, op in enumerate(entries):
                 for j, (gid, crow) in enumerate(op.slots[:k]):
                     e_gid[i, j] = gid
@@ -2469,7 +2493,9 @@ class Engine:
             v["e_ts"][sl] = g.ts
             v["e_acquire"][sl] = g.acquire
             v["e_rows"][sl] = g.rows
-            v["e_auth_ok"][sl] = g.auth_ok
+            # A custom slot's veto rides the authority column: K4 blocks the
+            # entry and K2 counts the block.
+            v["e_auth_ok"][sl] = g.auth_ok & ~g.custom_veto_mask if g.custom_veto_mask is not None else g.auth_ok
             for j, (gid, crow) in enumerate(g.slots[:k]):
                 e_gid[sl, j] = gid
                 e_crow[sl, j] = crow
@@ -2692,8 +2718,21 @@ class Engine:
 
         fo = self.failover
         if fo.armed and not fo.healthy:
-            # An earlier chunk of this flush tripped failover: no device.
-            return self._degraded_chunk(fo, entries, exits, bulk, bulk_exits, defer)
+            # An earlier chunk of this flush tripped failover: no device (the
+            # degraded fill runs the custom slots this chunk has not run).
+            return self._degraded_chunk(fo, entries, exits, bulk, bulk_exits, defer, run_custom_slots=True)
+        # Custom processor slots, the head of the chain: a veto blocks the
+        # entry before every device stage (the encode clears its authority
+        # column); its attribution stays on the op. A bulk group is checked
+        # once per distinct acquire, each op and group once.
+        if SlotChainRegistry.slots():
+            for op in entries:
+                if not op.custom_checked:
+                    op.custom_veto = SlotChainRegistry.check_entry(
+                        SlotEntryContext(op.resource, op.context_name, op.origin, op.acquire, op.prio, op.args))
+                    op.custom_checked = True
+            for g in bulk:
+                SlotChainRegistry.check_bulk_entry(g)
         tele = self.telemetry if self.telemetry.enabled else None
         arena_h0, arena_m0 = (self._arena.hits, self._arena.misses) if tele and self._arena else (0, 0)
         t_enc0 = time.perf_counter()
@@ -2908,7 +2947,7 @@ class Engine:
         return span
 
     def _degraded_chunk(self, fo, entries, exits, bulk, bulk_exits, defer: bool,
-                        quarantined: bool = False, span=None, cap_tok=None) -> None:
+                        quarantined: bool = False, span=None, cap_tok=None, run_custom_slots: bool = False) -> None:
         """Fill one chunk from the host fallback: the device faulted mid-flush
         (``quarantined``: the chunk's own results were lost, counted) or the
         engine was DEGRADED before it dispatched. A deferred chunk has no
@@ -2916,7 +2955,8 @@ class Engine:
         span, if it has one, settles as quarantined. The capture journal
         records the degraded verdicts under the chunk's token, and a chunk
         that never reached the launch (no token) is captured here with
-        flush seq -1."""
+        flush seq -1. ``run_custom_slots`` when the chunk has not run the
+        custom slot checks yet (the engine was DEGRADED before it)."""
         if quarantined:
             fo.note_quarantined()
         if span is not None:
@@ -2926,7 +2966,8 @@ class Engine:
         cap = self.capture
         if cap is not None and cap_tok is None:
             cap_tok = cap.note_chunk(entries, exits, bulk, bulk_exits, self.clock.now_ms(), -1)
-        self._note_blocked_items([fo.fill_degraded(entries, exits, bulk, bulk_exits)])
+        self._note_blocked_items([fo.fill_degraded(entries, exits, bulk, bulk_exits,
+                                                   run_custom_slots=run_custom_slots)])
         if cap is not None:
             cap.note_verdicts(cap_tok, entries, bulk, degraded=True)
         if defer:
@@ -3086,9 +3127,15 @@ class Engine:
         for i, op in enumerate(entries):
             blocked_rule = None
             limit_type = ""
+            slot_name = ""
             r = int(reason[i])
             if not admitted[i]:
-                if r == E.BLOCK_AUTHORITY:
+                if op.custom_veto is not None:
+                    slot, veto = op.custom_veto
+                    r = E.BLOCK_CUSTOM
+                    blocked_rule = veto if veto is not True else None
+                    slot_name = getattr(slot, "name", "") or type(slot).__name__
+                elif r == E.BLOCK_AUTHORITY:
                     blocked_rule = auth_rules.get(op.resource)
                 elif r == E.BLOCK_SYSTEM:
                     limit_type = SYS_TYPE_NAMES.get(int(sys_type[i]), "")
@@ -3112,6 +3159,7 @@ class Engine:
                 wait_ms=int(wait_ms[i]),
                 blocked_rule=blocked_rule,
                 limit_type=limit_type,
+                slot_name=slot_name,
             )
             spec_v = op._verdict
             if spec_tier is not None and spec_v is not None and spec_v.speculative:
@@ -3150,6 +3198,11 @@ class Engine:
         for i, (g, lo, hi) in enumerate(zip(bulk, starts, ends)):
             g.trace = None
             g._pending = None
+            if g.custom_veto_mask is not None and not (spec_at and i in spec_set):
+                # The vetoed rows the device blocked (on the authority
+                # column) carry the custom reason, in the chunk's column.
+                rs = reason[lo:hi]
+                rs[~admitted[lo:hi] & g.custom_veto_mask] = E.BLOCK_CUSTOM
             if spec_at and i in spec_set:
                 spec_tier.reconcile_bulk(g, np.array(admitted[lo:hi]), np.array(reason[lo:hi], dtype=np.int32),
                                          dev_slot_ok=np.asarray(slot_ok[lo:hi]),
@@ -3257,6 +3310,14 @@ class Engine:
                 if gx.resource is not None and gx.thr < 0:
                     MetricExtensionProvider.on_complete(gx.resource, _weighted_rt(gx), int(gx.count.sum()),
                                                         int(gx.err.sum()))
+        if SlotChainRegistry.slots():
+            # The custom slots' exit traversal.
+            for x in exits:
+                if x.resource is not None and x.thr < 0:
+                    SlotChainRegistry.on_exit(x.resource, x.rt, x.count, x.err)
+            for gx in bulk_exits:
+                if gx.resource is not None and gx.thr < 0:
+                    SlotChainRegistry.on_exit(gx.resource, _weighted_rt(gx), int(gx.count.sum()), int(gx.err.sum()))
         return parts
 
     @staticmethod

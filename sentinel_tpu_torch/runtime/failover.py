@@ -53,8 +53,8 @@ The health transitions, degraded verdicts and probe flushes are noted on
 the telemetry bus, and each transition on the capture journal's timeline
 (one into DEGRADED freezes its recent segments); the degraded fill writes
 the admission trace's records, the per-resource ledger's degraded column
-and the block log's rows. Left out: custom processor slots in the
-degraded fill (ROADMAP Queue 1 item 11).
+and the block log's rows. The degraded fill runs the custom processor
+slots of a chunk that has not run them (core/slots.py).
 """
 
 from __future__ import annotations
@@ -80,6 +80,8 @@ from sentinel_tpu_torch.utils.record_log import record_log
 HEALTHY = "HEALTHY"
 DEGRADED = "DEGRADED"
 RECOVERING = "RECOVERING"
+# The states as the Prometheus gauge sentinel_engine_health exports them.
+HEALTH_GAUGE = {HEALTHY: 0, DEGRADED: 1, RECOVERING: 2}
 
 # The components of a checkpoint, in the order of their leaves in a durable
 # file (the JAX package's order).
@@ -598,15 +600,20 @@ class HostFallbackAdmitter:
         ``degraded``; the speculative tier marks ``speculative`` (and
         ``degraded`` only while the engine is). The fail-open/closed policy
         is a DEGRADED concept: the healthy tier passes
-        ``apply_policy=False``. (Custom slot vetoes: ROADMAP Queue 1 item 11.)"""
+        ``apply_policy=False``. A custom slot's veto blocks before the
+        authority check, with the device fill's attribution."""
         from sentinel_tpu_torch.runtime.engine import Verdict
 
-        def blocked(reason, rule=None, limit_type=""):
+        def blocked(reason, rule=None, limit_type="", slot_name=""):
             return Verdict(admitted=False, reason=reason, wait_ms=0, blocked_rule=rule, limit_type=limit_type,
-                           degraded=degraded, speculative=speculative)
+                           slot_name=slot_name, degraded=degraded, speculative=speculative)
 
         if apply_policy and self.policy_for(op.resource) == "closed":
             return blocked(E.BLOCK_FAILOVER)
+        if op.custom_veto is not None:
+            slot, veto = op.custom_veto
+            return blocked(E.BLOCK_CUSTOM, veto if veto is not True else None,
+                           slot_name=getattr(slot, "name", "") or type(slot).__name__)
         if not op.auth_ok:
             return blocked(E.BLOCK_AUTHORITY, self._engine.authority_rules.get(op.resource))
         if op.cluster_blocked_rule is not None:
@@ -727,6 +734,8 @@ class HostFallbackAdmitter:
         if apply_policy and self.policy_for(g.resource) == "closed":
             block(np.ones(n, dtype=bool), E.BLOCK_FAILOVER)
             return admitted, reason, wait
+        if g.custom_veto_mask is not None:
+            block(np.asarray(g.custom_veto_mask, dtype=bool), E.BLOCK_CUSTOM)
         if not g.auth_ok:
             block(np.ones(n, dtype=bool), E.BLOCK_AUTHORITY)
         findex = g.src[0] if g.src is not None else self._engine.flow_index
@@ -1201,12 +1210,16 @@ class FailoverManager:
     # ------------------------------------------------------------------
     # degraded fill (the one home of policy-verdict assembly)
     # ------------------------------------------------------------------
-    def fill_degraded(self, entries, exits=(), bulk=(), bulk_exits=()) -> List[tuple]:
+    def fill_degraded(self, entries, exits=(), bulk=(), bulk_exits=(), run_custom_slots: bool = True) -> List[tuple]:
         """Fill every op's verdict from the fallback admitter: the degraded
         flush, the chunk-level fault handler and quarantined records.
         Exits record their device-gauge releases for the restore replay.
         Writes the trace records and the provenance ledger's degraded
-        column; returns the block-log items."""
+        column; returns the block-log items. ``run_custom_slots`` False for
+        ops whose chunk ran the custom slot checks before the fault: a
+        second run would double a user slot's side effects."""
+        from sentinel_tpu_torch.core.slots import SlotChainRegistry, SlotEntryContext
+
         eng = self._engine
         now = eng.clock.now_ms()
         fb = self.fallback
@@ -1216,6 +1229,7 @@ class FailoverManager:
         items: List[tuple] = []
         n_admit = 0
         n_block = 0
+        slots_active = run_custom_slots and bool(SlotChainRegistry.slots())
         for op in entries:
             v0 = op._verdict
             if v0 is not None and v0.speculative:
@@ -1240,6 +1254,10 @@ class FailoverManager:
                                             provenance="speculative")
                     op.trace = None
                 continue
+            if slots_active and not op.custom_checked:
+                op.custom_veto = SlotChainRegistry.check_entry(
+                    SlotEntryContext(op.resource, op.context_name, op.origin, op.acquire, op.prio, op.args))
+                op.custom_checked = True
             v = fb.admit(op, now)
             op.verdict = v
             op._pending = None
@@ -1270,6 +1288,10 @@ class FailoverManager:
                                        degraded=g.spec_degraded, provenance="speculative")
                     g.trace = None
                 continue
+            if slots_active:
+                # The device path's per-acquire check: a slot's veto keeps
+                # applying to bulk traffic while DEGRADED.
+                SlotChainRegistry.check_bulk_entry(g)
             adm, rsn, wait = fb.admit_bulk(g, now)
             g.admitted = adm
             g.reason = rsn

@@ -35,8 +35,9 @@ The tier's serves, declines, drift, drift windows and suspensions are
 noted on the telemetry bus, the serves and the drift also in the
 per-resource provenance ledger (metrics/provenance.py) at each op's submit
 ts; the admission trace records a speculative op when it settles
-(``Engine._fill_results``). Custom processor slots at admission belong to
-ROADMAP Queue 1 item 11.
+(``Engine._fill_results``). The custom processor slots run at admission,
+once an op or group (``custom_checked``): the settle's encode never runs
+them again.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from sentinel_tpu_torch.core import errors as E
+from sentinel_tpu_torch.core.slots import SlotChainRegistry, SlotEntryContext
 from sentinel_tpu_torch.models import constants as C
 from sentinel_tpu_torch.runtime.failover import HostFallbackAdmitter
 from sentinel_tpu_torch.utils.config import config
@@ -132,6 +134,12 @@ class SpeculativeAdmitter:
         if (suspended and not degraded) or self._declinable(op):
             self._decline()
             return None
+        # The custom slots run here, at admission; custom_checked keeps the
+        # chunk's encode from running the user's hooks again.
+        if SlotChainRegistry.slots() and not op.custom_checked:
+            op.custom_veto = SlotChainRegistry.check_entry(
+                SlotEntryContext(op.resource, op.context_name, op.origin, op.acquire, op.prio, op.args))
+            op.custom_checked = True
         shaped = self._shaped_slots(op.src, op.slots)
         v = self.mirror.admit(op, now_ms, apply_policy=degraded, degraded=degraded, speculative=True)
         op.verdict = v
@@ -173,6 +181,8 @@ class SpeculativeAdmitter:
             # general scan, except while degraded (no device to decline to).
             self._decline(g.n)
             return False
+        if SlotChainRegistry.slots() and g.custom_veto_mask is None:
+            SlotChainRegistry.check_bulk_entry(g)
         adm, rsn, wait = self.mirror.admit_bulk(g, now_ms, apply_policy=degraded, speculative=True,
                                                 shaping_servable=servable)
         g.spec_admitted = adm.copy()

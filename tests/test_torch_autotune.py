@@ -13,9 +13,12 @@ two runs, so there only the verdicts and state are compared across
 packages (each run also holds its tuned engine against its static one);
 decisions taken on synthetic snapshots are compared exactly.
 
-Left out: the ``autotune`` command and the Prometheus families (ROADMAP
-Queue 1 item 11) and the convergence of a live tuner on wall-clock
-timings, which ``chip_smoke.py`` phase 4h (c) drives on the card."""
+The ``autotune`` command and the Prometheus families run here since the
+control surface's port (ROADMAP item 11, part 1), on an idle tuner: the
+command's answer and the scrape's lines equal but the wall-time families
+(tests/torch_transport_env.py). Left out: the convergence of a live tuner
+on wall-clock timings, which ``chip_smoke.py`` phase 4h (c) drives on the
+card."""
 
 import json
 
@@ -371,3 +374,30 @@ def _force_path(lib):
 
 def test_force_path_seam_pins_attribution():
     run_lockstep(_force_path)
+
+
+def _autotune_command_and_prometheus(lib):
+    from torch_transport_env import comparable, module_of, reset_process_counters
+
+    handlers = module_of(lib, "transport.handlers")
+    eng = lib.api.reset(clock=lib.clock, **lib.device_kw)
+    try:
+        resp = handlers.autotune_handler(handlers.CommandRequest(path="autotune", params={}, body=""))
+        assert resp.success
+        d = json.loads(resp.result)
+        assert d["enabled"] is False
+        assert "decisions" in d and "param_memo" in d
+        reset_process_counters(lib)
+        text = module_of(lib, "transport.prometheus").render_metrics(eng)
+        for fam in ("sentinel_engine_autotune_enabled", "sentinel_engine_autotune_decisions_total",
+                    "sentinel_engine_autotune_depth", "sentinel_engine_autotune_window_ms",
+                    "sentinel_engine_autotune_window_batch_max", "sentinel_engine_param_closed_form_total",
+                    "sentinel_engine_param_scan_total"):
+            assert fam in text, fam
+        return [d, [ln for ln in comparable(text) if "autotune" in ln or "_param_" in ln]]
+    finally:
+        lib.api.reset(**lib.device_kw)
+
+
+def test_autotune_command_and_prometheus():
+    run_lockstep(_autotune_command_and_prometheus)

@@ -17,9 +17,11 @@ verifies with zero diffs (tests/test_capture_chaos.py's case without the
 supervisor; its twin through the supervisor is in
 tests/test_torch_standby.py).
 
-Left out: ``TestCaptureCommand`` (the transport's ``capture`` command,
-ROADMAP Queue 1 item 11)."""
+``TestCaptureCommand`` runs here since the control surface's port (ROADMAP
+item 11, part 1): the ``capture`` command off and armed, and the freeze on
+demand, on both packages' global engines (tests/torch_transport_env.py)."""
 
+import json
 import os
 import shutil
 
@@ -36,6 +38,7 @@ from sentinel_tpu_torch.utils.clock import ManualClock
 from sentinel_tpu_torch.utils.config import config
 
 from torch_lockstep import run_lockstep
+from torch_transport_env import pair  # noqa: F401
 
 CORPUS = os.path.join(os.path.dirname(__file__), "data", "capture_corpus")
 
@@ -561,3 +564,40 @@ def test_bulk_args_spill_keeps_each_value_type(cap_dir):
     assert got == want
     assert [[tuple(type(v) for v in a) for a in g] for g in got] == [[tuple(type(v) for v in a) for a in g]
                                                                    for g in want]
+
+
+# --- TestCaptureCommand ------------------------------------------------------
+
+
+def test_capture_command_disabled_and_armed(pair, tmp_path):
+    """The command off, then armed over two windows of _drive's traffic:
+    the same answers from both packages but the journal's paths, boot id
+    and segment byte count (its header's wall stamps vary in length); the
+    freeze on demand; the capture families in the scrape."""
+    from torch_transport_env import comparable
+
+    CommandRequest = pair.port.handlers.CommandRequest
+    offs = [json.loads(p.handlers.capture_handler(CommandRequest(path="capture", params={}, body="")).result)
+            for p in pair.sides]
+    assert offs[0] == offs[1] and offs[1]["enabled"] is False
+    for p in pair.sides:
+        p.config.set(p.config.CAPTURE_ENABLED, "true")
+        p.config.set(p.config.CAPTURE_DIR, str(tmp_path / p.name / "cmdcap"))
+    pair.reset()
+    drop = ("dir", "boot_id", "live", "frozen", "frozen_now", "segment_bytes")
+    got = []
+    for p in pair.sides:
+        eng = p.engine
+        eng.set_flow_rules([p.st.FlowRule(r.resource, count=r.count) for r in RULES])
+        verdicts = _drive(eng, p.clock, windows=2)
+        d = json.loads(p.handlers.capture_handler(CommandRequest(path="capture", params={}, body="")).result)
+        assert d["enabled"] is True and d["counters"]["chunks"] == 2 and d["live"]
+        f = json.loads(p.handlers.capture_handler(
+            CommandRequest(path="capture", params={"freeze": "oncall page!"}, body="")).result)
+        assert f["frozen_now"] and all(n.startswith("frozen-oncallpage-") for n in f["frozen_now"])
+        text = p.prom.render_metrics(eng)
+        assert "_capture_enabled 1" in text and "_capture_freezes_total" in text
+        got.append((verdicts, {k: v for k, v in d.items() if k not in drop},
+                    {k: v for k, v in f.items() if k not in drop}, len(f["frozen_now"]),
+                    [ln for ln in comparable(text) if "_capture_" in ln]))
+    assert got[0] == got[1]

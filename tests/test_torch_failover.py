@@ -9,9 +9,10 @@ marks, the blocking rule), the health transitions and counters, and every
 state tensor after recovery must be identical. The test's own assertions
 run on both.
 
-Out of this slice, each with the ROADMAP Queue 1 item it waits for: the
-Prometheus half of ``test_prometheus_and_health_snapshot`` (item 11; the
-health snapshot half is here). The degraded fill's trace records,
+``test_prometheus_and_health_snapshot`` runs whole since the control
+surface's port (ROADMAP item 11, part 1): the scrape's lines are compared
+but the wall-time families (tests/torch_transport_env.py). Custom slots on
+the degraded fill are held in tests/test_torch_slots.py. The degraded fill's trace records,
 block-log rows and provenance columns (``test_trace_and_telemetry_provenance``'s
 ground) are held in tests/test_torch_admission_trace.py,
 test_torch_block_log.py and test_torch_provenance.py.
@@ -443,6 +444,28 @@ def _health_snapshot(lib):
     return [snap]
 
 
+def _prometheus_and_health_snapshot(lib):
+    """test_prometheus_and_health_snapshot: the health gauge and the trip
+    counter in the scrape, and the health snapshot."""
+    from torch_transport_env import comparable, module_of, reset_process_counters
+
+    # Every admission traced: head sampling draws from each package's own
+    # random source (the trace families are in the scrape).
+    victim = _mk(lib, ckpt_every=1, TRACE_SAMPLE_RATE="1.0")
+    victim.set_flow_rules([lib.st.FlowRule("r", count=100)])
+    inj = lib.FaultInjector().install(victim)
+    lib.clock.set_ms(1000)
+    _degrade(lib, victim, inj)
+    reset_process_counters(lib)
+    text = module_of(lib, "transport.prometheus").render_metrics(victim)
+    assert "sentinel_engine_health 1" in text
+    assert "sentinel_engine_failover_trips_total 1" in text
+    snap = victim.failover.snapshot()
+    assert snap["state"] == "DEGRADED" and snap["counters"]["trips"] == 1
+    snap.pop("durable")  # wall-clock ages
+    return [comparable(text), snap]
+
+
 # --- TestMeshGate, TestEngineLifecycle -------------------------------------
 
 
@@ -609,6 +632,7 @@ CASES = {
     "breaker_mirror_blocks_open_resource": _breaker_mirror_blocks_open_resource,
     "bulk_groups_get_array_verdicts": _bulk_groups_get_array_verdicts,
     "health_snapshot": _health_snapshot,
+    "prometheus_and_health_snapshot": _prometheus_and_health_snapshot,
     "recovery_refuses_under_mesh_with_actionable_reason": _recovery_refuses_under_mesh_with_actionable_reason,
     "reset_returns_to_healthy": _reset_returns_to_healthy,
     "close_while_degraded_does_not_raise": _close_while_degraded_does_not_raise,

@@ -71,6 +71,43 @@ def test_failure_domain_modules_are_covered(rel):
         assert mod.split(".")[0] not in ("jax", "jaxlib", "sentinel_tpu"), f"{rel} imports {mod}"
 
 
+ITEM_11_PART_1 = ["utils/registry.py", "core/slots.py", "datasource/__init__.py", "datasource/base.py",
+                  "datasource/file_source.py", "transport/__init__.py", "transport/command_center.py",
+                  "transport/handlers.py", "transport/prometheus.py", "transport/heartbeat.py", "testing/oracle.py"]
+
+
+@pytest.mark.parametrize("rel", ITEM_11_PART_1)
+def test_control_surface_modules_are_covered(rel):
+    """The control surface's modules (the SPI registry, the custom slots,
+    the datasource base and file sources, the transport and the oracle)
+    exist under the JAX package's paths and are sources of the port, so the
+    import checks above cover them: they import neither JAX nor the JAX
+    package."""
+    path = PORT / rel
+    assert (ROOT / "sentinel_tpu" / rel).exists()
+    assert path in sorted(PORT.rglob("*.py"))
+    for mod in _imported_modules(path):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "sentinel_tpu"), f"{rel} imports {mod}"
+
+
+def test_control_surface_import_loads_no_jax():
+    """Importing the control surface (and the command center's handlers,
+    which it imports when built) loads neither JAX nor the JAX package."""
+    code = (
+        "import sys, sentinel_tpu_torch.transport, sentinel_tpu_torch.transport.handlers,"
+        " sentinel_tpu_torch.transport.prometheus, sentinel_tpu_torch.datasource, sentinel_tpu_torch.core.slots,"
+        " sentinel_tpu_torch.utils.registry, sentinel_tpu_torch.testing.oracle;"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'sentinel_tpu' or m.startswith('sentinel_tpu.')];"
+        "print(repr(bad))"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_every_module_imports_on_cpu():
     """No module of the port imports triton or builds a kernel at import."""
     import importlib

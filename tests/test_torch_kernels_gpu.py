@@ -3174,3 +3174,78 @@ def test_capture_replays_bit_exact_on_card(cuda, tmp_path):
         assert report["diffs"] == 0 and report["compared"] == report["rows"]
     finally:
         config.reset()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_engine_stream_matches_the_oracle_on_the_card(cuda, seed):
+    """A seeded stream of single entries against DEFAULT QPS, rate-limiter
+    and warm-up rules through the card's engine (testing/oracle_stream.py):
+    pass/block and wait equal the sequential oracle's (testing/oracle.py),
+    and the stream launched K4 and K2."""
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.testing.oracle_stream import oracle_stream
+    from sentinel_tpu_torch.utils.clock import ManualClock
+
+    clock = ManualClock(0)
+    eng = Engine(clock=clock, device=cuda)
+    k4, k2 = tflush.flow_admission.launches, ma.update.launches
+    got, want = oracle_stream(eng, clock, seed=seed, n=400)
+    eng.close()
+    assert got == want
+    assert not all(ok for _r, _t, ok, _w in got)
+    assert tflush.flow_admission.launches > k4 and ma.update.launches > k2
+
+
+def test_custom_veto_through_k4_and_k2_matches_the_cpu_engine(cuda):
+    """A custom slot's vetoes (singles, and the bulk rows of one acquire)
+    ride the authority column: on the card K4 blocks them and K2 counts the
+    blocks. Verdicts (BLOCK_CUSTOM, the slot's name, the veto), the bulk
+    arrays and every state tensor equal the CPU engine's after each flush."""
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.core.slots import ProcessorSlot, SlotChainRegistry
+    from sentinel_tpu_torch.runtime.engine import Engine
+    from sentinel_tpu_torch.utils.clock import ManualClock
+
+    class Veto(ProcessorSlot):
+        name = "veto"
+
+        def entry(self, ctx):
+            if ctx.acquire == 2 or (ctx.args and ctx.args[0] == "unpaid"):
+                return {"why": ctx.resource}
+            return None
+
+    def drive(device, launches):
+        clock = ManualClock(1000)
+        eng = Engine(clock=clock, device=device)
+        eng.set_flow_rules([st.FlowRule(f"v{i}", count=30) for i in range(8)])
+        rng = np.random.default_rng(5)
+        out = []
+        for step in range(6):
+            now = 1000 + 150 * step
+            clock.set_ms(now)
+            k4, k2 = tflush.flow_admission.launches, ma.update.launches
+            ops = [eng.submit_entry(f"v{j % 8}", args=("unpaid" if j % 3 == 0 else "paid",), ts=now)
+                   for j in range(12)]
+            groups = [eng.submit_bulk(f"v{r}", 64, ts=now, acquire=rng.integers(1, 3, 64).astype(np.int32))
+                      for r in range(8)]
+            eng.flush()
+            launches.append((tflush.flow_admission.launches - k4, ma.update.launches - k2))
+            out.append([(v.admitted, v.reason, v.wait_ms, v.slot_name, v.blocked_rule)
+                        for v in (op.verdict for op in ops)])
+            out.append([x.tolist() for g in groups for x in (g.admitted, g.reason, g.wait_ms)])
+            state = tnodes.stats_to_numpy(eng.stats)
+            out.append([np.asarray(a).tolist() for a in (*state.second, *state.minute, state.threads)])
+        eng.close()
+        return out
+
+    SlotChainRegistry.clear()
+    SlotChainRegistry.register(Veto())
+    try:
+        card_launches, cpu_launches = [], []
+        card = drive(cuda, card_launches)
+        cpu = drive("cpu", cpu_launches)
+    finally:
+        SlotChainRegistry.clear()
+    assert card == cpu
+    assert all(k4 >= 1 and k2 >= 1 for k4, k2 in card_launches) and set(cpu_launches) == {(0, 0)}
+    assert any(v[1] == 6 and v[3] == "veto" for v in card[0])

@@ -7,12 +7,14 @@ speculative and degraded marks, the reconciliation counters, drift
 accounting and every state tensor after settlement must be identical, and
 the test's own assertions run on both.
 
-Out of this slice, each with the ROADMAP Queue 1 item it waits for:
-``test_custom_slot_runs_once_per_entry`` (item 11: custom processor
-slots) and the Prometheus export of ``test_telemetry_and_prometheus_export``
-(item 11). The speculative trace records, settled and degraded, and the
-tier's provenance columns are held in tests/test_torch_admission_trace.py
-and test_torch_provenance.py."""
+With the control surface ported (ROADMAP item 11, part 1):
+``test_custom_slot_runs_once_per_entry`` (the slot chain runs once an
+entry and a distinct bulk acquire, though admit and settle both see the
+op) and ``test_telemetry_and_prometheus_export`` with its Prometheus lines
+(the wall-time families excluded by name, tests/torch_transport_env.py).
+The speculative trace records, settled and degraded, and the tier's
+provenance columns are held in tests/test_torch_admission_trace.py and
+test_torch_provenance.py."""
 
 import numpy as np
 import pytest
@@ -368,7 +370,71 @@ def _disabled_tier_changes_nothing(lib):
     return [seqs[0], lib.states(engines[1])]
 
 
+def _custom_slot_runs_once_per_entry(lib):
+    from torch_transport_env import module_of
+
+    slots = module_of(lib, "core.slots")
+    calls = []
+
+    class Counting(slots.ProcessorSlot):
+        name = "counting"
+
+        def entry(self, ctx):
+            calls.append((ctx.resource, ctx.acquire))
+            return None
+
+    slots.SlotChainRegistry.clear()
+    slots.SlotChainRegistry.register(Counting())
+    try:
+        eng = _mk(lib, spec=True)
+        eng.set_flow_rules([lib.st.FlowRule("c", count=100)])
+        lib.clock.set_ms(1000)
+        vs = []
+        for _ in range(5):
+            _, v = eng.entry_sync("c")
+            assert v.speculative and v.admitted
+            vs.append(verdict(v))
+        g = eng.submit_bulk("c", 8)
+        assert g.admitted_count == 8
+        eng.flush()
+        eng.drain()
+        # 5 singles and 1 distinct acquire of the bulk group, each checked
+        # exactly once though admit and settle both see it.
+        assert [c for c, _ in calls].count("c") == 6, calls
+        return [vs, group(g), calls, _spec(eng), lib.states(eng)]
+    finally:
+        slots.SlotChainRegistry.clear()
+
+
+def _telemetry_and_prometheus_export(lib):
+    from torch_transport_env import comparable, module_of, reset_process_counters
+
+    # Every admission traced: head sampling draws from each package's own
+    # random source (the trace families are in the lines compared).
+    lib.config.set(lib.config.TRACE_SAMPLE_RATE, "1.0")
+    eng = _mk(lib, spec=True)
+    eng.set_flow_rules([lib.st.FlowRule("m", count=2)])
+    lib.clock.set_ms(1000)
+    vs = [verdict(eng.entry_sync("m")[1]) for _ in range(4)]
+    eng.flush()
+    eng.drain()
+    tc = eng.telemetry.counters_snapshot()
+    assert tc["spec_admits"] == 2 and tc["spec_blocks"] == 2
+    reset_process_counters(lib)
+    text = "\n".join(module_of(lib, "transport.prometheus").engine_telemetry_lines(eng))
+    assert "sentinel_engine_speculative_admits_total 2" in text
+    assert "sentinel_engine_speculative_enabled 1" in text
+    assert "sentinel_engine_speculative_drift_per_window" in text
+    snap = eng.speculative.snapshot()
+    assert snap["mirror"]["qps_buckets"] == 1
+    # The arena's hits and misses follow each package's staging layout.
+    tc = {k: v for k, v in tc.items() if not k.startswith("arena_")}
+    return [vs, tc, comparable(text), _spec(eng)]
+
+
 CASES = {
+    "custom_slot_runs_once_per_entry": _custom_slot_runs_once_per_entry,
+    "telemetry_and_prometheus_export": _telemetry_and_prometheus_export,
     "immediate_verdicts_match_oracle_and_reconcile_clean": _immediate_verdicts_match_oracle_and_reconcile_clean,
     "declines_take_the_device_path": _declines_take_the_device_path,
     "shaping_mirror_off_restores_decline": _shaping_mirror_off_restores_decline,

@@ -14,8 +14,11 @@ sums) are wall times, and the arena's hit and miss counts follow each
 package's own staging layout (the port stages a chunk in one set, the
 JAX engine in one set per column family), so neither is compared.
 
-Left out: the Prometheus series and the ``telemetry`` command
-(``TestExports``, ROADMAP Queue 1 item 11), and the wall-clock
+``TestExports`` runs here since the control surface's port (ROADMAP item
+11, part 1): the Prometheus series and the ``telemetry`` command, in
+lockstep, their wall-time values left out by name (the scrape's families in
+tests/torch_transport_env.py; the command's latency summaries and spans'
+timings here). Left out: the wall-clock
 ``TestOverhead`` (2%), whose number is ``chip_smoke.py`` phase 4h (d)'s,
 taken on the card. The mesh step's host recount is held in
 tests/test_torch_blocked_topk.py, the metric log's ``__engine__`` lines
@@ -311,3 +314,106 @@ def _snapshot(lib):
 
 def test_snapshot_matches_jax():
     run_lockstep(_snapshot)
+
+
+# --- TestExports ---------------------------------------------------------------
+
+
+def _prometheus_engine_series(lib):
+    from torch_transport_env import comparable, module_of, reset_process_counters
+
+    # Every admission traced: head sampling draws from each package's own
+    # random source (the trace families are in the lines compared).
+    lib.config.set(lib.config.TRACE_SAMPLE_RATE, "1.0")
+    eng = lib.api.reset(clock=lib.clock, **lib.device_kw)
+    try:
+        lib.st.flow_rule_manager.load_rules([lib.st.FlowRule("pm", count=1)])
+        lib.clock.set_ms(50)
+        for _ in range(3):
+            lib.st.try_entry("pm")
+        reset_process_counters(lib)
+        text = module_of(lib, "transport.prometheus").render_metrics(eng)
+        for needle in ("sentinel_engine_flush_duration_ms_bucket", "sentinel_engine_drain_duration_ms_bucket",
+                       "sentinel_engine_e2e_duration_ms_bucket", "sentinel_engine_pipeline_occupancy",
+                       "sentinel_engine_pipeline_mean_inflight", "sentinel_engine_last_flush_encode_ms",
+                       "sentinel_engine_last_flush_dispatch_ms", "sentinel_engine_flushes_total",
+                       "sentinel_engine_coalesced_fallback_total", "sentinel_engine_param_cache_hits_total"):
+            assert needle in text, needle
+        assert 'sentinel_engine_blocked_weight{resource="pm"}' in text
+        count_line = [ln for ln in text.splitlines() if ln.startswith("sentinel_engine_flush_duration_ms_count")][0]
+        assert int(count_line.rsplit(" ", 1)[1]) >= 1
+        return comparable(text)
+    finally:
+        lib.api.reset(**lib.device_kw)
+
+
+def test_prometheus_engine_series():
+    run_lockstep(_prometheus_engine_series)
+
+
+def _pipeline_occupancy_gauge(lib):
+    from torch_transport_env import comparable, module_of, reset_process_counters
+
+    eng = lib.mk()
+    eng.set_flow_rules([lib.st.FlowRule("po", count=1e9)])
+    eng.pipeline_depth = 2
+    eng.pipeline_stats(reset=True)
+    for _ in range(8):
+        eng.submit_bulk("po", 8)
+        eng.flush()
+    reset_process_counters(lib)
+    lines = module_of(lib, "transport.prometheus").engine_telemetry_lines(eng)
+    eng.pipeline_depth = 0
+    eng.drain()
+    occ = [float(ln.rsplit(" ", 1)[1]) for ln in lines if ln.startswith("sentinel_engine_pipeline_occupancy ")][0]
+    assert 0.0 < occ <= 1.0
+    return comparable("\n".join(lines))
+
+
+def test_pipeline_occupancy_gauge():
+    run_lockstep(_pipeline_occupancy_gauge)
+
+
+# The telemetry command's values that are wall times.
+_WALL_KEYS = ("flush_ms", "drain_ms", "e2e_ms", "last_flush_host_ms")
+
+
+def _telemetry_command(lib):
+    from torch_transport_env import module_of
+
+    handlers = module_of(lib, "transport.handlers")
+    req = handlers.CommandRequest
+    eng = lib.api.reset(clock=lib.clock, **lib.device_kw)
+    try:
+        lib.st.flow_rule_manager.load_rules([lib.st.FlowRule("tc", count=1)])
+        for _ in range(3):
+            lib.st.try_entry("tc")
+        resp = handlers.telemetry_handler(req(path="telemetry", params={"spans": "2"}, body=""))
+        assert resp.success
+        d = json.loads(resp.result)
+        assert d["enabled"] is True
+        assert d["counters"]["flushes"] >= 3
+        assert d["flush_ms"]["count"] >= 3
+        assert len(d["spans"]) == 2
+        assert {"resource": "tc", "weight": 1} in d["last_flush_blocked_topk"]
+        assert d["pipeline_depth"] == 0
+        bad = handlers.telemetry_handler(req(path="telemetry", params={"spans": "x"}, body=""))
+        assert not bad.success
+        counts = {k: d[k]["count"] for k in _WALL_KEYS if isinstance(d.get(k), dict) and "count" in d[k]}
+        out = {k: v for k, v in d.items() if k not in _WALL_KEYS + ("spans", "recent_spans")}
+        out["counters"] = {k: v for k, v in d["counters"].items() if not k.startswith("arena_")}
+        out["spans"] = [_span_view_dict(sp) for sp in d["spans"]]
+        return [out, counts, bad.result, eng.flush_seq]
+    finally:
+        lib.api.reset(**lib.device_kw)
+
+
+def _span_view_dict(sp: dict) -> dict:
+    """A span of the command's answer without its wall times and the arena
+    counts (each package's staging layout)."""
+    return {k: v for k, v in sp.items()
+            if not k.endswith("_ms") and k not in ("t0", "arena_hits", "arena_misses")}
+
+
+def test_telemetry_command():
+    run_lockstep(_telemetry_command)
